@@ -22,8 +22,22 @@ Phases (any failure exits non-zero):
      16,667 reference videos x 60 frames (1,000,020 frames), 250,020 noise
      frames, D = 512; then the descriptor_eval entry point on the same
      files. The kernels' launch counts are zeroed just before the run and
-     read just after; every kernel must have launched. Each wrapper's
-     first inputs in that run are kept for phase 2.
+     read just after; every kernel of the path must have launched. Each
+     wrapper's first inputs in that run are kept for phase 2.
+  5. The DnS track, through its entry points: dns_index for the coarse
+     student with --score_norm_features, dns_index for the fine attention
+     student, then dns_baseline with --ground_truth, on raw L3-iMAC rows
+     at full width (9 x 3840, stored fp16) made with numpy from a seed:
+     100 query, 400 reference and 100 noise videos of 24-128 frames, 50
+     queries carrying a planted copy of 10-40 frames; student weights are
+     npz variable trees made from the seed (--checkpoint_path). First the
+     same entry points on a small corpus on the card and on the CPU (same rows,
+     scores within the tolerance). Counts are zeroed just before the path
+     and read just after; chamfer, row_max and pool_writer must launch.
+     The chamfer kernel is then held against its plain version on every
+     input the path gave it and on integer-valued inputs of the largest
+     call's shape, and the path's row_max and pool_writer calls (D = 1024
+     and 1025) as in phase 2.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object with each kernel's numbers, and {"ok": true, "device": ...}.
@@ -55,6 +69,12 @@ FLOAT_ATOL = 1e-5  # f32 sums of unit-norm products in another order
 FRAMES, DIM = 60, 512
 N_QUERY_VIDEOS, N_REF_VIDEOS, N_NOISE_FRAMES = 150, 16_667, 250_000
 
+# The DnS path's corpus: raw L3-iMAC rows of 9 regions x 3840 per frame.
+DNS_REGIONS, DNS_RAW_DIM = 9, 3840
+DNS_QUERIES, DNS_REFS, DNS_NOISE = 100, 400, 100
+DNS_FRAMES = (24, 128)  # video lengths, inclusive: buckets 32, 64 and 128
+DNS_PLANTED, DNS_COPY = 50, (10, 40)
+
 KERNEL_META = {
     "row_max": ("vsc2022_torch/ops/csrc/row_max.cu",
                 "vsc2022_tpu/ops/pallas_kernels.py:89"),
@@ -62,7 +82,16 @@ KERNEL_META = {
                     "vsc2022_tpu/ops/pallas_kernels.py:146"),
     "pool_writer": ("vsc2022_torch/ops/csrc/pool_writer.cu",
                     "vsc2022_tpu/ops/pallas_kernels.py:298"),
+    "chamfer": ("vsc2022_torch/ops/csrc/chamfer.cu",
+                "vsc2022_tpu/ops/pallas_kernels.py:729"),
 }
+# Each kernel's wrapper in vsc2022_torch.ops.kernels.
+WRAPPERS = {"row_max": "row_max", "count_above": "count_above",
+            "pool_writer": "pool_writer", "chamfer": "chamfer_fine_sims"}
+# The kernels each path must launch (count_above runs on the DnS path only
+# when its search flags ambiguous rows).
+SSCD_KERNELS = ("row_max", "count_above", "pool_writer")
+DNS_KERNELS = ("row_max", "pool_writer", "chamfer")
 
 
 def log(msg: str) -> None:
@@ -127,6 +156,18 @@ def count_above_library(torch, q, refs, tau, n_valid):
         (torch.matmul(q[s:s + step], r.T) >= tau).sum(1)
         for s in range(0, q.shape[0], step)
     ])
+
+
+def chamfer_library(torch, qf, rf, symmetric):
+    """One torch.bmm over frame-major rows, then amax and mean."""
+    b, nq, r, d = qf.shape
+    nr = rf.shape[1]
+    p = torch.bmm(qf.view(b, nq * r, d), rf.view(b, nr * r, d).transpose(1, 2))
+    p = p.view(b, nq, r, nr, r)  # [b, i, a, j, c]
+    fg = p.amax(4).mean(2)
+    if symmetric:
+        fg = (fg + p.amax(2).mean(3)) / 2
+    return fg
 
 
 def pool_library(torch, q, refs, n_valid):
@@ -211,12 +252,14 @@ def phase_kernels_small(torch, kernels, dev):
         f"{FLOAT_ATOL})")
 
 
-def phase_kernels_main(torch, kernels, dev, captured):
-    """Each kernel on the inputs the main path gave it (its first call in
-    phase 4), and on integer-valued inputs of the same shape; timings and
+def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
+    """Each retrieval kernel on the inputs a path gave it (its first call
+    there), and on integer-valued inputs of the same shape; timings and
     bounds from those inputs. Returns {name: record}."""
     records = {}
     for name, args in captured.items():
+        if name == "chamfer":
+            continue
         q, r, n_valid = args[0], args[1], int(args[-1])
         (m, dd), n = q.shape, r.shape[0]
         qi, ri = make_inputs(torch, "int", m, n, dd, seed=3, dev=dev)
@@ -256,7 +299,7 @@ def phase_kernels_main(torch, kernels, dev, captured):
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
-        log(f"phase 2: {name} on the main path's inputs [{m} x {n_valid} x {dd}] "
+        log(f"phase 2: {name} on the {path} path's inputs [{m} x {n_valid} x {dd}] "
             f"kernel_ms={kernel_ms:.3f} plain_ms={plain_ms:.3f} "
             f"library_ms={library_ms:.3f} bound_ms={bound_ms:.3f} ({bound_by}) "
             f"max_abs_err={err}")
@@ -419,27 +462,31 @@ def small_cuda_vs_cpu(np, out_dir: Path):
 
 
 @contextlib.contextmanager
-def capture_inputs(kernels):
+def capture_inputs(kernels, keep_all=()):
     """Keep the arguments of each kernel wrapper's first non-empty call
-    while the block runs: {name: args}. The wrappers' launch counts are
+    while the block runs, {name: args}, or of all of them for the kernels
+    in ``keep_all``, {name: [args, ...]}. The wrappers' launch counts are
     untouched."""
     seen = {}
-    originals = {name: getattr(kernels, name) for name in kernels.launches}
+    originals = {name: getattr(kernels, fn) for name, fn in WRAPPERS.items()}
 
-    def keep_first(name, fn):
+    def keep(name, fn):
         def call(*args):
             if args[0].shape[0]:
-                seen.setdefault(name, args)
+                if name in keep_all:
+                    seen.setdefault(name, []).append(args)
+                else:
+                    seen.setdefault(name, args)
             return fn(*args)
         return call
 
     for name, fn in originals.items():
-        setattr(kernels, name, keep_first(name, fn))
+        setattr(kernels, WRAPPERS[name], keep(name, fn))
     try:
         yield seen
     finally:
         for name, fn in originals.items():
-            setattr(kernels, name, fn)
+            setattr(kernels, WRAPPERS[name], fn)
 
 
 def phase_main_path(torch, np, kernels):
@@ -479,8 +526,9 @@ def phase_main_path(torch, np, kernels):
     }))
     log(f"phase 4: candidate uAP {result['candidate_uap']:.4f}, "
         f"segment AP {result['segment_ap']:.4f}")
-    for name, n in launches.items():
-        check(n > 0 and name in captured, f"kernel {name} never launched on the main path")
+    for name in SSCD_KERNELS:
+        check(launches[name] > 0 and name in captured,
+              f"kernel {name} never launched on the main path")
 
     cands = CandidatePair.read_csv(str(out / "candidates.csv"))
     matches = Match.read_csv(str(out / "matches.csv"))
@@ -501,6 +549,239 @@ def phase_main_path(torch, np, kernels):
         f"uAP {uap:.4f} (raw descriptors, no score normalization)")
     check(uap is not None and uap > 0.3, f"descriptor_eval uAP {uap}")
     return launches, captured
+
+
+# ---- phase 5: the DnS track ---------------------------------------------------
+
+
+def dns_raw_rows(np, rng, n):
+    """[n, 9 * 3840] fp16 raw L3-iMAC rows, each region at unit norm."""
+    x = rng.standard_normal((n, DNS_REGIONS, DNS_RAW_DIM), dtype=np.float32)
+    x /= np.linalg.norm(x, axis=2, keepdims=True)
+    return x.reshape(n, -1).astype(np.float16)
+
+
+def dns_student_variables(np, rng, student):
+    """A student's Flax variable tree (the names dns_student_from_jax
+    reads), lecun-scaled normal kernels and context, zero biases."""
+    def kernel(fan_in, fan_out):
+        return (rng.standard_normal((fan_in, fan_out), dtype=np.float32)
+                * np.float32(math.sqrt(1.0 / fan_in)))
+
+    params = {
+        "reduction": {"kernel": kernel(DNS_RAW_DIM, 512),
+                      "bias": np.zeros(512, np.float32)},
+        "attention": {"context": kernel(512, 1)},
+    }
+    if student == "cg":
+        params["project"] = {"kernel": kernel(512, 1024),
+                             "bias": np.zeros(1024, np.float32)}
+    return {"params": params}
+
+
+def build_dns_corpus(np, out_dir: Path, n_q, n_ref, n_noise, n_planted, seed):
+    """Raw-row corpus with planted copies (a reference segment, each
+    region with noise at a 0.3 ratio) and the two students' weights."""
+    from vsc2022_torch.metrics import Dataset, Match
+    from vsc2022_torch.storage import store_features
+    from vsc2022_torch.types import VideoFeature
+    from vsc2022_torch.utils.checkpoint import save_variables
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(DNS_FRAMES[0], DNS_FRAMES[1] + 1, size=n_q + n_ref + n_noise)
+    videos = [dns_raw_rows(np, rng, int(n)) for n in lengths]
+    queries, refs, noise = videos[:n_q], videos[n_q:n_q + n_ref], videos[n_q + n_ref:]
+    gt = []
+    for i, j in enumerate(rng.choice(n_ref, size=n_planted, replace=False)):
+        q, r = queries[i], refs[int(j)]
+        length = min(int(rng.integers(DNS_COPY[0], DNS_COPY[1] + 1)), len(q), len(r))
+        a = int(rng.integers(0, len(r) - length + 1))
+        b = int(rng.integers(0, len(q) - length + 1))
+        seg = r[a:a + length].astype(np.float32).reshape(length, DNS_REGIONS, -1)
+        seg += (0.3 / math.sqrt(DNS_RAW_DIM)) * rng.standard_normal(
+            seg.shape, dtype=np.float32)
+        seg /= np.linalg.norm(seg, axis=2, keepdims=True)
+        q[b:b + length] = seg.reshape(length, -1).astype(np.float16)
+        gt.append(Match(f"Q{i:06d}", f"R{int(j):06d}", 1.0, float(b),
+                        float(b + length), float(a), float(a + length)))
+
+    def vids(rows, offset=0):
+        return [VideoFeature(video_id=offset + i,
+                             timestamps=np.arange(len(x), dtype=np.float64), feature=x)
+                for i, x in enumerate(rows)]
+
+    paths = {k: str(out_dir / f"{k}_raw.npz") for k in ("queries", "refs", "noise")}
+    store_features(paths["queries"], vids(queries), Dataset.QUERIES)
+    store_features(paths["refs"], vids(refs), Dataset.REFS)
+    store_features(paths["noise"], vids(noise, offset=n_ref + 1000), Dataset.REFS)
+    paths["gt"] = str(out_dir / "gt.csv")
+    Match.write_csv(gt, paths["gt"])
+    for student in ("cg", "fg"):
+        paths[student] = str(out_dir / f"{student}_student.npz")
+        save_variables(paths[student], dns_student_variables(np, rng, student))
+    return paths, int(lengths.sum())
+
+
+def run_dns(paths, work: Path, device: str):
+    """dns_index (cg with score normalization, fg att), then dns_baseline
+    with --ground_truth. Returns each entry point's result and the output
+    directory."""
+    from vsc2022_torch.baseline import dns_baseline, dns_index
+
+    idx, out = work / "idx", work / "out"
+    common = ["--query_features", paths["queries"], "--ref_features", paths["refs"],
+              "--output_path", str(idx), "--device", device]
+    results = {
+        "dns_index cg": dns_index.main(dns_index.parser.parse_args(common + [
+            "--student", "cg", "--checkpoint_path", paths["cg"],
+            "--score_norm_features", paths["noise"]])),
+        "dns_index fg": dns_index.main(dns_index.parser.parse_args(common + [
+            "--student", "fg", "--fg_type", "att", "--checkpoint_path", paths["fg"]])),
+    }
+    results["dns_baseline"] = dns_baseline.main(dns_baseline.parser.parse_args([
+        "--query_coarse_features", str(idx / "queries_cg_student_sn.npz"),
+        "--ref_coarse_features", str(idx / "refs_cg_student_sn.npz"),
+        "--query_fine_features", str(idx / "queries_fg_att_student.npz"),
+        "--ref_fine_features", str(idx / "refs_fg_att_student.npz"),
+        "--ground_truth", paths["gt"], "--output_path", str(out), "--overwrite",
+        "--device", device,
+    ]))
+    return results, out
+
+
+def _csv_rows(path: Path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def small_dns_cuda_vs_cpu(np, work: Path):
+    """The DnS entry points on a small corpus on the card and on the CPU: the
+    same candidate and match rows, scores within FLOAT_ATOL."""
+    paths, _ = build_dns_corpus(np, work, 6, 24, 6, 4, seed=11)
+    outs = {d: run_dns(paths, work / d, d)[1] for d in ("cuda", "cpu")}
+    for name in ("candidates.csv", "matches.csv"):
+        a, b = _csv_rows(outs["cuda"] / name), _csv_rows(outs["cpu"] / name)
+        check(len(a) == len(b) and len(a) > 1 and a[0] == b[0],
+              f"small DnS corpus: {name} has {len(a)} rows on cuda, {len(b)} on cpu")
+        score = a[0].index("score")
+        for x, y in zip(a[1:], b[1:]):
+            check(x[:score] + x[score + 1:] == y[:score] + y[score + 1:]
+                  and abs(float(x[score]) - float(y[score])) <= FLOAT_ATOL,
+                  f"small DnS corpus: {name} differs: {x} vs {y}")
+    log(f"phase 5: small DnS corpus: candidates.csv and matches.csv agree on "
+        f"cuda and cpu ({len(_csv_rows(outs['cuda'] / 'matches.csv')) - 1} "
+        f"matches, scores within {FLOAT_ATOL})")
+
+
+def phase_dns_path(torch, np, kernels):
+    """Returns the DnS path's launch counts and the inputs its kernels were
+    given there (every chamfer call; the first call of the others)."""
+    from vsc2022_torch.metrics import CandidatePair, Match
+
+    work = SMOKE_DIR / "dns"
+    work.mkdir(parents=True, exist_ok=True)
+    small_dns_cuda_vs_cpu(np, work / "small")
+
+    t0 = time.perf_counter()
+    paths, frames = build_dns_corpus(np, work, DNS_QUERIES, DNS_REFS, DNS_NOISE,
+                                     DNS_PLANTED, seed=1)
+    log(f"phase 5: corpus {DNS_QUERIES} query, {DNS_REFS} ref, {DNS_NOISE} noise "
+        f"videos of {DNS_FRAMES[0]}-{DNS_FRAMES[1]} frames ({frames} frames, raw "
+        f"rows {DNS_REGIONS} x {DNS_RAW_DIM} fp16, "
+        f"{frames * DNS_REGIONS * DNS_RAW_DIM * 2 / 1e9:.2f} GB), {DNS_PLANTED} "
+        f"planted copies; made in {time.perf_counter() - t0:.1f} s")
+
+    with capture_inputs(kernels, keep_all=("chamfer",)) as captured:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        results, out = run_dns(paths, work, "cuda")
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+    for name, res in results.items():
+        log(f"phase 5: {name} stages (s): "
+            + json.dumps({k: round(v, 3) for k, v in res["stages"].items()}))
+    log(f"phase 5: DnS path {wall:.2f} s; kernel launches: {json.dumps(launches)}")
+    calls = captured.get("chamfer", [])
+    log("phase 5: chamfer calls [B, NQ, NR]: " + json.dumps(
+        [[a[0].shape[0], a[0].shape[1], a[1].shape[1]] for a in calls]))
+    res = results["dns_baseline"]
+    log(f"phase 5: candidate uAP {res['candidate_uap']:.4f}, "
+        f"segment AP {res['segment_ap']:.4f}")
+    for name in DNS_KERNELS:
+        check(launches[name] > 0 and name in captured,
+              f"kernel {name} never launched on the DnS path")
+
+    with np.load(work / "idx" / "queries_cg_student_sn.npz") as z:
+        check(z["features"].shape[1] == 1025 and z["features"].dtype == np.float32,
+              f"coarse features {z['features'].shape} {z['features'].dtype}")
+        check(bool(np.isfinite(z["features"]).all()), "non-finite coarse features")
+    with np.load(work / "idx" / "refs_fg_att_student.npz") as z:
+        check(z["features"].shape[1] == DNS_REGIONS * 512
+              and z["features"].dtype == np.float16,
+              f"fine features {z['features'].shape} {z['features'].dtype}")
+    cands = CandidatePair.read_csv(str(out / "candidates.csv"))
+    matches = Match.read_csv(str(out / "matches.csv"))
+    check(0 < len(cands) <= 25 * DNS_QUERIES, f"{len(cands)} DnS candidates")
+    check(len(matches) > 0, "no DnS matches")
+    check(all(math.isfinite(c.score) for c in cands + matches), "non-finite DnS score")
+    check(res["candidate_uap"] >= 0.9, f"DnS candidate uAP {res['candidate_uap']}")
+    check(res["segment_ap"] > 0, f"DnS segment AP {res['segment_ap']}")
+    return launches, captured
+
+
+def chamfer_bound(b, nq, nr, d):
+    flops = 2.0 * b * (nq * DNS_REGIONS) * (nr * DNS_REGIONS) * d
+    moved = 4.0 * (b * (nq + nr) * DNS_REGIONS * d + b * nq * nr)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, moved / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_chamfer(torch, kernels, dev, calls):
+    """The chamfer kernel on every input the DnS path gave it (within
+    FLOAT_ATOL of the plain version) and on integer-valued inputs of the
+    largest call's shape (exact); times on the largest call, and the
+    kernel's time and bound summed over all the path's calls."""
+    err = 0.0
+    total_ms = total_bound = 0.0
+    for qf, rf, sym in calls:
+        got = kernels.chamfer_fine_sims(qf, rf, sym)
+        want = kernels.chamfer_fine_sims_plain(qf, rf, sym)
+        err = max(err, float((got - want).abs().max()))
+        total_ms += cuda_ms(torch, lambda: kernels.chamfer_fine_sims(qf, rf, sym), 3)
+        total_bound += chamfer_bound(qf.shape[0], qf.shape[1], rf.shape[1], qf.shape[3])[0]
+    check(err <= FLOAT_ATOL, f"chamfer on the DnS path's inputs: max abs err {err}")
+    qf, rf, sym = max(calls, key=lambda a: a[0].shape[0] * a[0].shape[1] * a[1].shape[1])
+    (b, nq, _, d), nr = qf.shape, rf.shape[1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    qi = torch.randint(-3, 4, qf.shape, generator=g, device=dev).float()
+    ri = torch.randint(-3, 4, rf.shape, generator=g, device=dev).float()
+    qi[:, nq // 2:] = 0.0  # zero-pad frames
+    int_err = float((kernels.chamfer_fine_sims(qi, ri, sym)
+                     - kernels.chamfer_fine_sims_plain(qi, ri, sym)).abs().max())
+    check(int_err == 0.0, f"chamfer on integer inputs [{b}, {nq}, {nr}]: err {int_err}")
+    del qi, ri
+    kernel_ms = cuda_ms(torch, lambda: kernels.chamfer_fine_sims(qf, rf, sym), 5)
+    plain_ms = cuda_ms(torch, lambda: kernels.chamfer_fine_sims_plain(qf, rf, sym), 2)
+    library_ms = cuda_ms(torch, lambda: chamfer_library(torch, qf, rf, sym), 2)
+    lib_err = float((chamfer_library(torch, qf, rf, sym)
+                     - kernels.chamfer_fine_sims_plain(qf, rf, sym)).abs().max())
+    check(lib_err <= FLOAT_ATOL, f"chamfer library yardstick off by {lib_err}")
+    bound_ms, bound_by = chamfer_bound(b, nq, nr, d)
+    log(f"phase 5: chamfer on the DnS path's largest call [B={b}, NQ={nq}, NR={nr}, "
+        f"D={d}] kernel_ms={kernel_ms:.3f} plain_ms={plain_ms:.3f} "
+        f"library_ms={library_ms:.3f} bound_ms={bound_ms:.3f} ({bound_by}); "
+        f"all {len(calls)} calls: kernel {total_ms:.3f} ms, bound {total_bound:.3f} ms; "
+        f"max_abs_err={err} (floats), 0 (integers)")
+    return {
+        "shape": [b, nq, nr, d], "max_abs_err": err, "ms": kernel_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "path_total": {"calls": len(calls), "ms": total_ms, "bound_ms": total_bound},
+    }
 
 
 def nvidia_smi_line() -> str:
@@ -548,22 +829,34 @@ def main() -> int:
         phase_kernels_small(torch, kernels, dev)
         phase_search(torch, np, dev, 1000, 100_000, DIM, 20_000)
         launches, captured = phase_main_path(torch, np, kernels)
+        records = phase_kernels_main(torch, kernels, dev, captured)
+        del captured
+        torch.cuda.empty_cache()
+        dns_launches, dns_captured = phase_dns_path(torch, np, kernels)
     finally:
         if not args.keep:
             shutil.rmtree(SMOKE_DIR, ignore_errors=True)
-    records = phase_kernels_main(torch, kernels, dev, captured)
-    del captured
+    records["chamfer"] = phase_chamfer(torch, kernels, dev, dns_captured.pop("chamfer"))
+    launches["chamfer"] = dns_launches["chamfer"]
+    dns_records = phase_kernels_main(torch, kernels, dev, dns_captured, path="DnS")
+    del dns_captured
 
     rows = []
     for name, rec in records.items():
         source, replaces = KERNEL_META[name]
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
-        })
+            "path": "dns" if name == "chamfer" else "sscd",
+        }
+        if "path_total" in rec:
+            row["path_total"] = rec["path_total"]
+        if name in dns_records:  # the same kernel on the DnS path
+            row["dns"] = dict(dns_records[name], launches=dns_launches[name])
+        rows.append(row)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

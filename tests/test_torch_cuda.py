@@ -7,7 +7,9 @@ with the card but no JAX:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Inputs are integer-valued (randint(-3, 4)), so every score is exact on
-both sides and the comparisons are exact, tie-breaks included.
+both sides and the comparisons are exact, tie-breaks included; the
+chamfer is also held on unit-norm floats within 1e-5 (f32 sums of the
+products in another order than cuBLAS's).
 """
 
 import numpy as np
@@ -58,7 +60,9 @@ def test_kernels_match_plain(cuda_device, m, n, d, n_valid):
     torch.testing.assert_close(pv.cpu(), ev, rtol=0, atol=0)
     finite = torch.isfinite(ev)
     assert torch.equal(pi.cpu()[finite], ei[finite])
-    assert kernels.launches == {"row_max": 1, "count_above": 1, "pool_writer": 1}
+    assert kernels.launches == {
+        "row_max": 1, "count_above": 1, "pool_writer": 1, "chamfer": 0,
+    }
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda_device):
@@ -69,6 +73,51 @@ def test_wrappers_raise_instead_of_falling_back(cuda_device):
         kernels.row_max(q, torch.ones((8, 16), device=cuda_device).T, 16)
     with pytest.raises(TypeError):
         kernels.count_above(q.half(), q.half(), 0.0, 4)
+
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("b,nq,nr,d,symmetric", [
+    (3, 64, 64, 512, True), (2, 37, 130, 64, True), (5, 128, 32, 32, False),
+    (1, 1, 17, 4, True), (4, 50, 50, 100, False),
+])
+def test_chamfer_matches_plain(cuda_device, kind, b, nq, nr, d, symmetric):
+    if kind == "int":
+        qf, rf = _ints((b, nq, 9, d), 5), _ints((b, nr, 9, d), 6)
+    else:
+        rng = np.random.RandomState(7)
+        qf = torch.from_numpy(rng.randn(b, nq, 9, d).astype(np.float32))
+        rf = torch.from_numpy(rng.randn(b, nr, 9, d).astype(np.float32))
+        qf /= qf.norm(dim=3, keepdim=True)
+        rf /= rf.norm(dim=3, keepdim=True)
+    # Zero-pad frames, as the table gather gives rows past a video's end.
+    qf[:, nq - nq // 5 :] = 0.0
+    rf[:, nr - nr // 7 :] = 0.0
+    kernels.reset_launches()
+    got = kernels.chamfer_fine_sims(
+        qf.to(cuda_device), rf.to(cuda_device), symmetric
+    ).cpu()
+    want = kernels.chamfer_fine_sims_plain(qf, rf, symmetric)
+    tol = 0.0 if kind == "int" else 1e-5
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    # The plain version on the card too (cuBLAS products, GPU reductions).
+    want_card = kernels.chamfer_fine_sims_plain(
+        qf.to(cuda_device), rf.to(cuda_device), symmetric
+    ).cpu()
+    torch.testing.assert_close(got, want_card, rtol=0, atol=tol)
+    assert bool((got[:, nq - nq // 5 :] == 0).all())
+    assert kernels.launches["chamfer"] == 1
+
+
+def test_chamfer_wrapper_raises(cuda_device):
+    q = torch.zeros((1, 4, 9, 8), device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        kernels.chamfer_fine_sims(q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError):
+        kernels.chamfer_fine_sims(q, torch.zeros((1, 4, 9, 8)))
+    with pytest.raises(ValueError):
+        kernels.chamfer_fine_sims(q[..., :6].contiguous(), q[..., :6].contiguous())
+    with pytest.raises(ValueError):
+        kernels.chamfer_fine_sims(q[:, :, :8].contiguous(), q[:, :, :8].contiguous())
 
 
 def test_global_topk_cuda_equals_cpu(cuda_device):

@@ -103,12 +103,43 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     kernels.row_max(q, r, 100)
     kernels.count_above(q, r, 0.0, 100)
     kernels.pool_writer(q, r, 100)
+    kernels.chamfer_fine_sims(torch.ones((2, 3, 9, 8)), torch.ones((2, 5, 9, 8)))
     # Plain versions never count as kernel launches.
-    assert kernels.launches == {"row_max": 0, "count_above": 0, "pool_writer": 0}
+    assert kernels.launches == {
+        "row_max": 0, "count_above": 0, "pool_writer": 0, "chamfer": 0,
+    }
     with pytest.raises(ValueError, match="multiple of 128"):
         kernels.pool_writer(q, torch.ones((100, 8)), 100)
     with pytest.raises(TypeError):
         kernels.row_max(q.double(), r.double(), 100)
+    fine = torch.ones((1, 4, 9, 8))
+    with pytest.raises(NotImplementedError, match="bf16"):
+        kernels.chamfer_fine_sims(fine.bfloat16(), fine.bfloat16())
+    with pytest.raises(ValueError):
+        kernels.chamfer_fine_sims(fine, torch.ones((2, 4, 9, 8)))
+
+
+def test_dns_entry_points_default_to_cuda_and_raise(no_gpu, tmp_path):
+    from vsc2022_torch.baseline import dns_baseline, dns_index
+    from vsc2022_torch.models.dns import DnSStudent
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DnSStudent("cg")
+    args = dns_index.parser.parse_args([
+        "--query_features", "q.npz", "--ref_features", "r.npz",
+        "--output_path", str(tmp_path / "idx"), "--student", "cg",
+    ])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dns_index.main(args)
+    args = dns_baseline.parser.parse_args([
+        "--query_coarse_features", "qc.npz", "--ref_coarse_features", "rc.npz",
+        "--query_fine_features", "qf.npz", "--ref_fine_features", "rf.npz",
+        "--output_path", str(tmp_path / "out"),
+    ])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dns_baseline.main(args)
 
 
 @pytest.mark.parametrize("flag", ["--bf16", "--int8"])

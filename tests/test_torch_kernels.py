@@ -5,7 +5,9 @@ tests/test_torch_cuda.py.
 
 Tolerances: exact on randint(-3, 4) inputs (every product and sum is an
 integer far below 2^24); atol=1e-5 on unit-norm random floats at D <= 64,
-where XLA and torch sum the f32 products in different orders.
+where XLA and torch sum the f32 products in different orders; for the
+chamfer rtol=atol=1e-5 on unnormalized randn regions, as
+tests/test_pallas_kernels.py holds the Pallas chamfer.
 """
 
 import jax.numpy as jnp
@@ -20,6 +22,7 @@ from vsc2022_tpu.ops.pallas_kernels import (
     POOL_ROW_TILE,
     POOL_TILES_PER_BAND,
     ROW_TILE,
+    chamfer_fine_sims,
     fused_count_above,
     fused_row_max,
     pool_writer,
@@ -154,3 +157,27 @@ def test_pool_writer_plain_small_corpus_and_order():
     np.testing.assert_array_equal(pv[:, 0, 0].numpy(), scores.max(1))
     assert (pv[:, 0, 0] >= pv[:, 0, 1]).all()
     assert (pi.numpy() < 90).all()
+
+
+@pytest.mark.parametrize(
+    "nq,nr,symmetric",
+    [(64, 64, True), (32, 128, True), (128, 32, False), (32, 32, True)],
+)
+def test_chamfer_plain_matches_pallas(nq, nr, symmetric):
+    # tests/test_pallas_kernels.py::TestChamferKernel's shapes and inputs.
+    rng = np.random.RandomState(17)
+    b, r, d = 3, 9, 32
+    qf = rng.randn(b, nq, r, d).astype(np.float32)
+    rf = rng.randn(b, nr, r, d).astype(np.float32)
+    # Zero-pad frames, as the table gather produces past a video's end.
+    qf[:, nq - 5:] = 0.0
+    rf[:, nr - 3:] = 0.0
+    expect = np.asarray(chamfer_fine_sims(
+        jnp.asarray(qf), jnp.asarray(rf),
+        symmetric=symmetric, precision="highest", interpret=True,
+    ))
+    got = kernels.chamfer_fine_sims(
+        torch.from_numpy(qf), torch.from_numpy(rf), symmetric
+    ).numpy()
+    np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-5)
+    assert (got[:, nq - 5:] == 0).all() and (got[:, :, nr - 3:] == 0).all()

@@ -138,9 +138,12 @@ def test_metric_values_identical(tmp_path):
 
 
 def test_empty_predictions_score_zero_where_jax_raises():
-    # A difference logged in ROADMAP.md Queue 3: the JAX package builds
-    # an empty DataFrame and fails on its missing "score" column.
+    # Empty predictions raise in both packages: the JAX package builds an
+    # empty DataFrame and fails on its missing "score" column, and the
+    # port raises the same KeyError (it used to score 0.0).
     gt = [jm.CandidatePair("Q000001", "R000001", 1.0)]
-    with pytest.raises(KeyError):
+    with pytest.raises(KeyError) as want:
         jm.average_precision(gt, [])
-    assert tm.average_precision(gt, []).ap == 0.0
+    with pytest.raises(KeyError) as got:
+        tm.average_precision(gt, [])
+    assert got.value.args == want.value.args == ("score",)

@@ -8,11 +8,16 @@ PR-curve plots (matplotlib is not a dependency of the port).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
+import time
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 from vsc2022_torch.device import DeviceLike
+from vsc2022_torch.localization import Localization
 from vsc2022_torch.metrics import (
     CandidatePair,
     Match,
@@ -27,6 +32,39 @@ logger = logging.getLogger(__name__)
 RETRIEVE_PER_QUERY = 1200.0
 CANDIDATES_PER_QUERY = 25.0
 LOCALIZE_PER_QUERY = 5.0
+
+
+@contextlib.contextmanager
+def timed(stages: Dict[str, float], name: str, device: torch.device):
+    """Record a stage's wall seconds in ``stages`` (device work included:
+    it synchronizes before reading the clock)."""
+    t0 = time.perf_counter()
+    yield
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    stages[name] = time.perf_counter() - t0
+    logger.info("stage %s: %.3f s", name, stages[name])
+
+
+def profiled(profile_dir, device: torch.device):
+    """``torch.profiler`` over an entry point's matching run: a chrome trace
+    (trace.json) and a table of the top ops by self device time (or CPU
+    time without a GPU) in summary.txt."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    sort_by = "self_cpu_time_total"
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+        sort_by = "self_device_time_total"
+    os.makedirs(profile_dir, exist_ok=True)
+
+    def export(prof):
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        with open(os.path.join(profile_dir, "summary.txt"), "w") as f:
+            f.write(prof.key_averages().table(sort_by=sort_by, row_limit=30))
+
+    return torch.profiler.profile(activities=activities, on_trace_ready=export)
 
 
 def retrieve_candidates(
@@ -46,6 +84,16 @@ def retrieve_candidates(
     candidates = candidates[: int(candidates_per_query * len(queries))]
     logger.info("Candidate budget kept %d pairs", len(candidates))
     return candidates
+
+
+def align_candidates(
+    alignment: Localization, candidates: List[CandidatePair]
+) -> List[Match]:
+    """Temporal alignment of the whole candidate list in one
+    ``localize_all`` call: the localizer buckets by padded shape, chunks
+    to its device memory budget and logs per-chunk progress."""
+    logger.info("Temporal alignment over %d candidate pairs", len(candidates))
+    return alignment.localize_all(candidates)
 
 
 def write_stage_artifacts(

@@ -18,10 +18,8 @@ Runs on ``cuda`` unless ``--device cpu`` is given. ``--bf16`` and
 """
 
 import argparse
-import contextlib
 import logging
 import os
-import time
 from typing import Dict, List, Tuple
 
 import torch
@@ -143,20 +141,7 @@ def localize_and_verify(
     alignment = build_alignment(
         queries, refs, score_normalization, vcsl_faithful, device
     )
-    logger.info("Temporal alignment over %d candidate pairs", len(to_localize))
-    return alignment.localize_all(to_localize)
-
-
-@contextlib.contextmanager
-def _timed(stages: Dict[str, float], name: str, device: torch.device):
-    """Record a stage's wall seconds in ``stages`` (device work included:
-    it synchronizes before reading the clock)."""
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    stages[name] = time.perf_counter() - t0
-    logger.info("stage %s: %.3f s", name, stages[name])
+    return pipeline.align_candidates(alignment, to_localize)
 
 
 def match(
@@ -171,7 +156,7 @@ def match(
 ) -> Tuple[str, str]:
     stages = {} if stages is None else stages
     device = resolve_device(device)
-    with _timed(stages, "retrieve", device):
+    with pipeline.timed(stages, "retrieve", device):
         if reuse_candidates:
             logger.info("Reusing candidate pairs from %s", reuse_candidates)
             candidates = CandidatePair.read_csv(reuse_candidates)
@@ -182,7 +167,7 @@ def match(
         candidate_file, _ = pipeline.write_stage_artifacts(
             output_path, candidates
         )
-    with _timed(stages, "localize", device):
+    with pipeline.timed(stages, "localize", device):
         matches = localize_and_verify(
             queries, refs, candidates,
             score_normalization=score_normalization,
@@ -192,27 +177,6 @@ def match(
             output_path, candidates, matches
         )
     return candidate_file, match_file
-
-
-def _profiled(profile_dir, device: torch.device):
-    """``torch.profiler`` over the matching run: a chrome trace
-    (trace.json) and a table of the top ops by self device time (or CPU
-    time without a GPU) in summary.txt."""
-    if not profile_dir:
-        return contextlib.nullcontext()
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    sort_by = "self_cpu_time_total"
-    if device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-        sort_by = "self_device_time_total"
-    os.makedirs(profile_dir, exist_ok=True)
-
-    def export(prof):
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-        with open(os.path.join(profile_dir, "summary.txt"), "w") as f:
-            f.write(prof.key_averages().table(sort_by=sort_by, row_limit=30))
-
-    return torch.profiler.profile(activities=activities, on_trace_ready=export)
 
 
 def main(args) -> Dict[str, object]:
@@ -234,26 +198,26 @@ def main(args) -> Dict[str, object]:
         )
     device = resolve_device(args.device)
     stages: Dict[str, float] = {}
-    with _timed(stages, "load", device):
+    with pipeline.timed(stages, "load", device):
         queries = load_features(args.query_features, Dataset.QUERIES)
         refs = load_features(args.ref_features, Dataset.REFS)
     score_normalization = bool(
         args.score_norm_features or args.score_normalized_inputs
     )
     if args.score_norm_features:
-        with _timed(stages, "score_norm", device):
+        with pipeline.timed(stages, "score_norm", device):
             noise = load_features(args.score_norm_features, Dataset.REFS)
             queries, refs = score_normalize(
                 queries, refs, noise, beta=1.2, device=device
             )
-        with _timed(stages, "store_sn", device):
+        with pipeline.timed(stages, "store_sn", device):
             os.makedirs(args.output_path, exist_ok=True)
             store_features(
                 os.path.join(args.output_path, "sn_queries.npz"), queries
             )
             store_features(os.path.join(args.output_path, "sn_refs.npz"), refs)
 
-    with _profiled(args.profile_dir, device):
+    with pipeline.profiled(args.profile_dir, device):
         candidate_file, match_file = match(
             queries, refs, args.output_path,
             score_normalization=score_normalization,
@@ -264,7 +228,7 @@ def main(args) -> Dict[str, object]:
 
     result: Dict[str, object] = {"stages": stages}
     if args.ground_truth:
-        with _timed(stages, "metrics", device):
+        with pipeline.timed(stages, "metrics", device):
             result.update(
                 pipeline.report_metrics(
                     args.ground_truth, candidate_file, match_file, logger

@@ -1,13 +1,14 @@
 """Carry state from the JAX package into the port.
 
-Both functions take plain values (numpy arrays, dicts), so this module
+Every function takes plain values (numpy arrays, dicts), so this module
 imports nothing of JAX: the caller converts first, e.g.
-``np.asarray(jax_searcher._refs)`` and ``jax_params._asdict()``.
+``np.asarray(jax_searcher._refs)``, ``jax_params._asdict()`` or a Flax
+variable tree mapped through ``np.asarray``.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 
@@ -47,3 +48,33 @@ def tn_params_from_jax(params: Mapping) -> TNParams:
     if unknown:
         raise ValueError(f"unknown TN parameters: {sorted(unknown)}")
     return TNParams(**dict(params))
+
+
+def dns_student_from_jax(
+    variables: Mapping, student_type: str, fg_type: str = "att"
+) -> Dict[str, np.ndarray]:
+    """The port's DnS student state dict (numpy arrays, torch names) from
+    a Flax ``DnSStudent`` variable tree ``{"params": {"reduction":
+    {"kernel", "bias"}, "attention": {"context"}, "rotation"?,
+    "project"?}}``, as ``save_variables`` writes it. Dense kernels
+    [in, out] become Linear weights [out, in]; the context [512, 1]
+    becomes ``attention.context_vector.weight`` [1, 512]; the rotation is
+    used as ``x @ W`` on both sides, so it is taken as it is."""
+    if student_type not in ("cg", "fg"):
+        raise ValueError(f"student_type must be cg|fg, got {student_type!r}")
+    params = variables["params"]
+
+    def arr(x):
+        return np.asarray(x, dtype=np.float32)
+
+    state = {
+        "reduction.weight": arr(params["reduction"]["kernel"]).T.copy(),
+        "reduction.bias": arr(params["reduction"]["bias"]),
+        "attention.context_vector.weight": arr(params["attention"]["context"]).T.copy(),
+    }
+    if student_type == "cg":
+        state["project.weight"] = arr(params["project"]["kernel"]).T.copy()
+        state["project.bias"] = arr(params["project"]["bias"])
+    elif fg_type == "bin":
+        state["binarization.W"] = arr(params["rotation"])
+    return state

@@ -1,10 +1,12 @@
 """Host-side localization drivers over the batched TN alignment.
 
 Counterpart of ``vsc2022_tpu/localization/localize.py`` (single-device
-path; reference API: vsc/baseline/localization.py). Candidate pairs are
-bucketed by padded (query_len, ref_len) shape, each bucket's similarity
-matrices are one batched f32 matmul on the device, and TN alignment runs
-over the whole batch (ops/tn_align.py).
+path; reference API: vsc/baseline/localization.py). The candidates'
+query and ref frame rows are staged on the device as two tables (row 0
+a zero pad row), each video once; candidate pairs are bucketed by padded
+(query_len, ref_len) shape, each bucket gathers its rows from the
+tables and its similarity matrices are one batched f32 matmul on the
+device, and TN alignment runs over the whole batch (ops/tn_align.py).
 
 Box → Match conversion keeps reference semantics: boxes are inclusive
 frame-index rectangles; query_start = get_timestamps(x1)[0],
@@ -32,10 +34,6 @@ logger = logging.getLogger(__name__)
 # Per-chunk progress lines only matter on runs big enough to have
 # waited for: single small calls (tests, per-pair probes) stay quiet.
 _PROGRESS_MIN = 256
-
-# Max elements per batched similarity tensor (B·NQ·NR); bounds device
-# memory (the TN pass keeps a few tensors of this size alive).
-SIM_ELEMENT_BUDGET = 64 * 1024 * 1024
 
 
 def _bucket(n: int, minimum: int = 32) -> int:
@@ -72,6 +70,12 @@ class TNLocalization(LocalizationWithMetadata):
     process pool.
     """
 
+    # Max elements per batched similarity tensor (B·NQ·NR); bounds device
+    # memory (the TN pass keeps a few tensors of this size alive). A
+    # subclass whose similarity needs more live memory per element sets
+    # a smaller one.
+    sim_element_budget = 64 * 1024 * 1024
+
     def __init__(
         self,
         queries: List[VideoFeature],
@@ -95,6 +99,8 @@ class TNLocalization(LocalizationWithMetadata):
         del concurrency, kwargs
         self.similarity_bias = similarity_bias
         self.device = resolve_device(device)
+        # Device tables of frame rows by name: (table, {video: (start, n)}).
+        self._tables: Dict[str, Tuple[torch.Tensor, Dict]] = {}
         if vcsl_faithful:
             self.params = TNParams.vcsl_faithful(
                 max_step=tn_max_step, min_length=min_length,
@@ -110,27 +116,78 @@ class TNLocalization(LocalizationWithMetadata):
                 adaptive_sigma=adaptive_sigma,
             )
 
+    def _stage(self, name: str, source: Dict, video_ids: Sequence, row_fn=None):
+        """The device table ``name`` of frame rows (row 0 a zero pad row
+        for masked gathers) and its per-video (start, n) offsets, holding
+        at least the rows of ``video_ids``: the videos it lacks are
+        appended, so each video's rows cross to the device once. Only the
+        videos asked for are staged: a one-shot run localizes a few
+        hundred pairs of a corpus that may hold a million frames.
+        ``row_fn`` maps a VideoFeature to its [n, d] f32 rows (default:
+        its features as f32; the DnS fine features rescale and flatten)."""
+        table, offsets = self._tables.get(name, (None, {}))
+        missing = [v for v in dict.fromkeys(video_ids) if v not in offsets]
+        if not missing:
+            return table, offsets
+        cursor = 1 if table is None else int(table.shape[0])
+        rows = []
+        for vid in missing:
+            if row_fn is None:
+                feat = np.asarray(source[vid].feature, dtype=np.float32)
+            else:
+                feat = row_fn(source[vid])
+            offsets[vid] = (cursor, feat.shape[0])
+            rows.append(feat)
+            cursor += feat.shape[0]
+        if table is None:
+            rows.insert(0, np.zeros((1, rows[0].shape[1]), np.float32))
+        new = torch.from_numpy(np.concatenate(rows, axis=0)).to(self.device)
+        table = new if table is None else torch.cat([table, new])
+        self._tables[name] = (table, offsets)
+        return table, offsets
+
+    def _pair_tables(self, candidates: Sequence[CandidatePair]):
+        """Separate query and ref device tables holding the candidates'
+        rows: (query table, offsets, ref table, offsets)."""
+        return (
+            *self._stage("query", self.queries, [c.query_id for c in candidates]),
+            *self._stage("ref", self.refs, [c.ref_id for c in candidates]),
+        )
+
     @staticmethod
-    def _padded(videos: Sequence[VideoFeature], n_pad: int):
-        """[B, n_pad, D] zero-padded frame features and [B] lengths."""
-        d = videos[0].feature.shape[1]
-        out = np.zeros((len(videos), n_pad, d), dtype=np.float32)
-        lengths = np.empty(len(videos), dtype=np.int32)
-        for i, vf in enumerate(videos):
-            n = min(vf.feature.shape[0], n_pad)
-            out[i, :n] = vf.feature[:n]
+    def _indices_from(offsets, video_ids: Sequence, n_pad: int):
+        """[B, n_pad] row indices into one table (0 = pad row) and [B]
+        lengths. Videos longer than the pad truncate (DnS: ragged fine vs
+        coarse frame counts bucket by the coarse side)."""
+        idx = np.zeros((len(video_ids), n_pad), dtype=np.int64)
+        lengths = np.empty(len(video_ids), dtype=np.int32)
+        for i, vid in enumerate(video_ids):
+            start, n = offsets[vid]
+            n = min(n, n_pad)
+            idx[i, :n] = np.arange(start, start + n)
             lengths[i] = n
-        return out, lengths
+        return idx, lengths
+
+    def _gather(self, table: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+        """[B, n_pad, d] rows of ``table`` at ``idx``, gathered on the device."""
+        flat = torch.from_numpy(idx.reshape(-1)).to(self.device)
+        return table.index_select(0, flat).view(*idx.shape, table.shape[1])
 
     def _batch_sims(
         self, candidates: Sequence[CandidatePair], nq: int, nr: int
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """[B, nq, nr] biased similarity matrices of same-bucket pairs."""
-        q, q_len = self._padded([self.queries[c.query_id] for c in candidates], nq)
-        r, r_len = self._padded([self.refs[c.ref_id] for c in candidates], nr)
-        q_t = torch.from_numpy(q).to(self.device)
-        r_t = torch.from_numpy(r).to(self.device)
-        sims = torch.bmm(q_t, r_t.transpose(1, 2)) + float(self.similarity_bias)
+        """[B, nq, nr] biased similarity matrices of same-bucket pairs,
+        from rows gathered out of the staged tables."""
+        q_tab, q_offs, r_tab, r_offs = self._pair_tables(candidates)
+        q_idx, q_len = self._indices_from(
+            q_offs, [c.query_id for c in candidates], nq
+        )
+        r_idx, r_len = self._indices_from(
+            r_offs, [c.ref_id for c in candidates], nr
+        )
+        q = self._gather(q_tab, q_idx)
+        r = self._gather(r_tab, r_idx)
+        sims = torch.bmm(q, r.transpose(1, 2)) + float(self.similarity_bias)
         return (
             sims,
             torch.from_numpy(q_len).to(self.device),
@@ -138,6 +195,8 @@ class TNLocalization(LocalizationWithMetadata):
         )
 
     def localize_all(self, candidates: List[CandidatePair]) -> List[Match]:
+        if candidates:  # one staging pass for all the call's chunks
+            self._pair_tables(candidates)
         buckets: Dict[Tuple[int, int], List[int]] = defaultdict(list)
         for idx, c in enumerate(candidates):
             qf = self.queries[c.query_id].feature
@@ -147,7 +206,7 @@ class TNLocalization(LocalizationWithMetadata):
         matches: List[Match] = []
         done = 0
         for (nq, nr), idxs in sorted(buckets.items()):
-            max_b = max(1, SIM_ELEMENT_BUDGET // (nq * nr))
+            max_b = max(1, self.sim_element_budget // (nq * nr))
             for chunk_start in range(0, len(idxs), max_b):
                 chunk = [
                     candidates[i] for i in idxs[chunk_start : chunk_start + max_b]

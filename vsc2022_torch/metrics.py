@@ -660,6 +660,10 @@ def drivendata_average_precision(
          format_video_id(c.ref_id, Dataset.REFS), c.score)
         for c in predicted
     ]
+    if not predicted:
+        # The reference's frame of an empty prediction list has no
+        # columns, so its score lookup raises; so does this.
+        raise KeyError("score")
     ground_truth = list(ground_truth)
     scores = np.array([p[2] for p in predicted], dtype=np.float64)
     if not np.isfinite(scores).all():

@@ -1,15 +1,17 @@
-"""The retrieval path's hand kernels: wrappers, plain versions, launch counts.
+"""The port's hand kernels: wrappers, plain versions, launch counts.
 
 Counterpart of ``vsc2022_tpu/ops/pallas_kernels.py``. Each kernel is CUDA
 C++ for sm_90a in ``ops/csrc`` (built by ``ops/_build.py`` at first use)
 and comes with:
 
-  * a wrapper (``row_max``, ``count_above``, ``pool_writer``) that, for a
-    CUDA tensor, launches the kernel or raises, and for a CPU tensor runs
-    the plain version. Nothing else selects the plain version: there is
-    no fallback when a build or a launch fails;
+  * a wrapper (``row_max``, ``count_above``, ``pool_writer`` for the
+    retrieval path, ``chamfer_fine_sims`` for the DnS alignment) that, for
+    a CUDA tensor, launches the kernel or raises, and for a CPU tensor
+    runs the plain version. Nothing else selects the plain version: there
+    is no fallback when a build or a launch fails;
   * a plain PyTorch version (``*_plain``) of the same function, a chunked
-    ``torch.matmul`` plus the reduction, with the kernel's tie rules;
+    ``torch.matmul`` / ``torch.bmm`` plus the reduction, with the
+    kernel's tie rules;
   * a launch count in ``launches``, bumped by the wrapper where it
     launches its kernel and nowhere else.
 
@@ -33,7 +35,9 @@ BLOCKS_PER_SM = 8  # column splits target this many blocks per SM
 # Elements of one score chunk in the plain versions (512 MB of f32).
 PLAIN_CHUNK_ELEMENTS = 1 << 27
 
-launches: Dict[str, int] = {"row_max": 0, "count_above": 0, "pool_writer": 0}
+launches: Dict[str, int] = {
+    "row_max": 0, "count_above": 0, "pool_writer": 0, "chamfer": 0,
+}
 
 
 def reset_launches() -> None:
@@ -109,6 +113,34 @@ def pool_writer_plain(
         vals[start : start + step] = torch.stack([m1, m2], dim=2)
         ids[start : start + step] = torch.stack([a1, a2], dim=2).int() + seg_base[:, None]
     return vals, ids
+
+
+def chamfer_fine_sims_plain(
+    qf: torch.Tensor, rf: torch.Tensor, symmetric: bool = True
+) -> torch.Tensor:
+    """DnS chamfer [B, NQ, NR]: mean over query regions a of the max over
+    ref regions c of ⟨qf[b, i, a], rf[b, j, c]⟩, averaged with mean_c
+    max_a when ``symmetric``; no rescale. qf [B, NQ, R, D], rf
+    [B, NR, R, D]. The XLA formulation of the JAX ``_chamfer_fuse``: one
+    batched product [B, NQ·R, D] × [B, D, R·NR] (ref rows region-major),
+    reshaped to [B, NQ, a, c, NR] and reduced, chunked over B."""
+    b, nq, r, d = qf.shape
+    nr = rf.shape[1]
+    out = torch.empty((b, nq, nr), dtype=torch.float32, device=qf.device)
+    # The mean is a sum divided by R, as in the kernel and XLA. R is a
+    # tensor on the device: on the GPU, torch's mean and its division by
+    # a Python scalar multiply by 1/R instead, one rounding apart.
+    regions = torch.tensor(float(r), device=qf.device)
+    step = max(1, PLAIN_CHUNK_ELEMENTS // max(nq * r * r * nr, 1))
+    for s in range(0, b, step):
+        q = qf[s : s + step].reshape(-1, nq * r, d)
+        rr = rf[s : s + step].transpose(1, 2).reshape(-1, r * nr, d)
+        p = torch.bmm(q, rr.transpose(1, 2)).view(-1, nq, r, r, nr)
+        fg = p.amax(dim=3).sum(dim=2) / regions
+        if symmetric:
+            fg = (fg + p.amax(dim=2).sum(dim=2) / regions) / 2.0
+        out[s : s + step] = fg
+    return out
 
 
 # ---- wrappers --------------------------------------------------------------
@@ -215,3 +247,54 @@ def pool_writer(
     _raise_on(rc, "pool_writer")
     launches["pool_writer"] += 1
     return vals, ids
+
+
+CHAMFER_REGIONS = 9  # the kernel keeps a 9 x 9 region product per thread
+
+
+def chamfer_fine_sims(
+    qf: torch.Tensor, rf: torch.Tensor, symmetric: bool = True
+) -> torch.Tensor:
+    """Fused DnS chamfer [B, NQ, NR] f32 of fine region features qf
+    [B, NQ, 9, D] and rf [B, NR, 9, D] (f32, before the [0, 1] rescale);
+    any NQ and NR. Zero-pad frames give 0."""
+    if qf.device != rf.device:
+        raise ValueError(f"qf on {qf.device}, rf on {rf.device}")
+    if qf.dtype == torch.bfloat16 or rf.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "the bf16 (precision='default') chamfer is not ported yet"
+        )
+    if qf.dtype != torch.float32 or rf.dtype != torch.float32:
+        raise TypeError(f"f32 only: got {qf.dtype} and {rf.dtype}")
+    if (
+        qf.dim() != 4 or rf.dim() != 4 or qf.shape[0] != rf.shape[0]
+        or qf.shape[2:] != rf.shape[2:]
+    ):
+        raise ValueError(f"shapes {tuple(qf.shape)} and {tuple(rf.shape)}")
+    if qf.device.type == "cpu":
+        return chamfer_fine_sims_plain(qf, rf, symmetric)
+    if qf.device.type != "cuda":
+        raise ValueError(f"unsupported device {qf.device}")
+    b, nq, r, d = qf.shape
+    nr = rf.shape[1]
+    if r != CHAMFER_REGIONS or d % 4:
+        raise ValueError(
+            f"the kernel takes {CHAMFER_REGIONS} regions and D % 4 == 0; "
+            f"got R={r}, D={d}"
+        )
+    if not (qf.is_contiguous() and rf.is_contiguous()):
+        raise ValueError("the kernel takes contiguous tensors")
+    if qf.data_ptr() % 16 or rf.data_ptr() % 16:
+        raise ValueError("the kernel takes 16-byte aligned tensors")
+    if max(b, nq, nr, d) >= 2**31:
+        raise ValueError("dimensions must fit in int32")
+    out = torch.empty((b, nq, nr), dtype=torch.float32, device=qf.device)
+    if out.numel() == 0:
+        return out
+    rc = _build.library().vsc_chamfer(
+        qf.device.index, qf.data_ptr(), rf.data_ptr(), b, nq, nr, r, d,
+        int(bool(symmetric)), out.data_ptr(), _stream(qf),
+    )
+    _raise_on(rc, "chamfer")
+    launches["chamfer"] += 1
+    return out
