@@ -13,9 +13,10 @@ Phases (any failure exits non-zero):
      Times the kernel, the plain version, one PyTorch library yardstick
      (timed here only, never called by the port) and the card's bound.
   3. global_topk against a dense brute-force oracle at
-     1,000 x 100,000 x 512: identical on integer-valued inputs, and on
-     unit-norm floats all k pairs, with the oracle's scores within the
-     stated tolerance.
+     1,000 x 100,000 x 512, forced to each collection mode (stream, the
+     default at this size, and pooled): identical on integer-valued
+     inputs, and on unit-norm floats all k pairs, with the oracle's scores
+     within the stated tolerance.
   4. The main path, through the sscd_baseline entry point with
      --score_norm_features and --ground_truth, on a planted synthetic
      corpus made with numpy from a seed: 150 query videos x 60 frames,
@@ -33,11 +34,30 @@ Phases (any failure exits non-zero):
      npz variable trees made from the seed (--checkpoint_path). First the
      same entry points on a small corpus on the card and on the CPU (same rows,
      scores within the tolerance). Counts are zeroed just before the path
-     and read just after; chamfer, row_max and pool_writer must launch.
-     The chamfer kernel is then held against its plain version on every
-     input the path gave it and on integer-valued inputs of the largest
-     call's shape, and the path's row_max and pool_writer calls (D = 1024
-     and 1025) as in phase 2.
+     and read just after; chamfer, row_max, fused_topk and count_above must
+     launch (the 31,004-row coarse corpus streams). The chamfer kernel is
+     then held against its plain version on every input the path gave it
+     and on integer-valued inputs of the largest call's shape, and the
+     path's row_max, fused_topk and count_above calls (D = 1024 and 1025)
+     as in phase 2.
+
+  6. Serving, through `python -m vsc2022_torch.retrieval.serve --f32
+     --score_norm_features ... --matches` driven by the port's client: a
+     catalogue of 4,000 reference videos x 60 frames (240,000 frames, under
+     the 262,144-row pool floor, so every search streams through
+     fused_topk and count_above), 150 query videos, 60,000 noise frames,
+     D = 512, 100 planted copies. Requests: (a) all 150 query videos by
+     path, (b) the same in-band (byte-identical CSVs), (c) one video, (d)
+     add 100 videos, (e) remove 100, (f) save, (g) (a) again, (h) stats;
+     a fresh server on the snapshot answers (g) byte for byte; the
+     server's candidates equal an in-process ScoreNormalizedVideoIndex
+     over the same live corpus, and (a) forced to the pooled collection
+     gives the same pairs. The server's launch counts are zeroed just
+     before (a) and read after (h). Then one DnS two-file request over
+     phase 5's files must equal dns_baseline's output. fused_topk and
+     count_above are held against their plain versions and timed on the
+     serving search's inputs (and on the DnS path's), and both collection
+     modes are timed at the serving and DnS corpora.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object with each kernel's numbers, and {"ok": true, "device": ...}.
@@ -75,6 +95,9 @@ DNS_QUERIES, DNS_REFS, DNS_NOISE = 100, 400, 100
 DNS_FRAMES = (24, 128)  # video lengths, inclusive: buckets 32, 64 and 128
 DNS_PLANTED, DNS_COPY = 50, (10, 40)
 
+# The serving catalogue: under POOL_MIN_CORPUS (262,144 rows), so it streams.
+SERVE_REF_VIDEOS, SERVE_NOISE_FRAMES, SERVE_ADD, SERVE_REMOVE = 4_000, 60_000, 100, 100
+
 KERNEL_META = {
     "row_max": ("vsc2022_torch/ops/csrc/row_max.cu",
                 "vsc2022_tpu/ops/pallas_kernels.py:89"),
@@ -82,16 +105,21 @@ KERNEL_META = {
                     "vsc2022_tpu/ops/pallas_kernels.py:146"),
     "pool_writer": ("vsc2022_torch/ops/csrc/pool_writer.cu",
                     "vsc2022_tpu/ops/pallas_kernels.py:298"),
+    "fused_topk": ("vsc2022_torch/ops/csrc/fused_topk.cu",
+                   "vsc2022_tpu/ops/pallas_kernels.py:618"),
     "chamfer": ("vsc2022_torch/ops/csrc/chamfer.cu",
                 "vsc2022_tpu/ops/pallas_kernels.py:729"),
 }
 # Each kernel's wrapper in vsc2022_torch.ops.kernels.
 WRAPPERS = {"row_max": "row_max", "count_above": "count_above",
-            "pool_writer": "pool_writer", "chamfer": "chamfer_fine_sims"}
-# The kernels each path must launch (count_above runs on the DnS path only
-# when its search flags ambiguous rows).
+            "pool_writer": "pool_writer", "fused_topk": "fused_topk",
+            "chamfer": "chamfer_fine_sims"}
+# The kernels each path must launch: the SSCD corpus (1,000,020 rows) is
+# pooled; the DnS and serving corpora stream.
 SSCD_KERNELS = ("row_max", "count_above", "pool_writer")
-DNS_KERNELS = ("row_max", "pool_writer", "chamfer")
+DNS_KERNELS = ("row_max", "fused_topk", "count_above", "chamfer")
+SERVE_KERNELS = ("row_max", "fused_topk", "count_above")
+DNS_SERVE_KERNELS = ("fused_topk", "count_above", "chamfer")  # cg npz is normalized
 
 
 def log(msg: str) -> None:
@@ -181,6 +209,20 @@ def pool_library(torch, q, refs, n_valid):
     return torch.cat(outs)
 
 
+def topk_library(torch, q, refs, n_valid, kappa):
+    """Chunked torch.matmul, per-segment topk(2), then topk(κ) per row."""
+    n = refs.shape[0]
+    step = _lib_chunk(n)
+    outs = []
+    for s in range(0, q.shape[0], step):
+        sc = torch.matmul(q[s:s + step], refs.T)
+        sc[:, n_valid:] = float("-inf")
+        seg = torch.topk(sc.view(sc.shape[0], -1, 128), 2, dim=2).values
+        seg = seg.reshape(sc.shape[0], -1)
+        outs.append(torch.topk(seg, min(kappa, seg.shape[1]), dim=1).values)
+    return torch.cat(outs)
+
+
 # ---- phase 2: kernels against their plain versions -------------------------
 
 
@@ -239,6 +281,25 @@ def compare_pool(torch, kernels, q, r, n_valid, kind, check_ids_dense):
     return err
 
 
+def compare_topk(torch, kernels, q, r, n_valid, kappa, kind):
+    """Integers: the kernel equals the plain version exactly (values, ids
+    and order). Floats: the kernel's ids equal those of the pool_writer
+    kernel's winners ordered best-first, and its values are bit-identical
+    to pool_writer's at the same (row, id); 0 is returned as the error."""
+    got_v, got_i = kernels.fused_topk(q, r, n_valid, kappa)
+    if kind == "int":
+        want_v, want_i = kernels.fused_topk_plain(q, r, n_valid, kappa)
+    else:
+        pv, pi = kernels.pool_writer(q, r, n_valid)
+        want_v, want_i = kernels.ordered_topk(pv.view(q.shape[0], -1),
+                                              pi.view(q.shape[0], -1), kappa)
+        del pv, pi
+    check(torch.equal(got_v, want_v) and torch.equal(got_i, want_i),
+          f"fused_topk {kind} [{q.shape[0]}x{n_valid}x{q.shape[1]}] kappa={kappa}: "
+          f"differs from the {'plain version' if kind == 'int' else 'pool_writer winners'}")
+    return 0.0
+
+
 def phase_kernels_small(torch, kernels, dev):
     """Ragged small shapes, integer-valued and float, ties in a segment."""
     for kind in ("int", "float"):
@@ -248,8 +309,10 @@ def phase_kernels_small(torch, kernels, dev):
         q, r = make_inputs(torch, kind, 200, 4096, 64, seed=2, dev=dev)
         r[[5, 7, 40]] = r[7].clone()  # exact ties inside segment 0
         compare_pool(torch, kernels, q, r, 3000, kind, check_ids_dense=True)
+        for kappa in (7, 32, 300):  # 300: the κ-sets in global memory
+            compare_topk(torch, kernels, q, r, 3000, kappa, kind)
     log("phase 2: small shapes agree (ints exact, floats within "
-        f"{FLOAT_ATOL})")
+        f"{FLOAT_ATOL}; fused_topk bit-identical to pool_writer's winners)")
 
 
 def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
@@ -260,13 +323,16 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
     for name, args in captured.items():
         if name == "chamfer":
             continue
-        q, r, n_valid = args[0], args[1], int(args[-1])
+        q, r = args[0], args[1]
+        n_valid = int(args[2] if name == "fused_topk" else args[-1])
         (m, dd), n = q.shape, r.shape[0]
         qi, ri = make_inputs(torch, "int", m, n, dd, seed=3, dev=dev)
         if name == "row_max":
             compare_row_max(torch, kernels, qi, ri, n_valid, "int")
         elif name == "count_above":
             compare_count_above(torch, kernels, qi, ri, 40.0, n_valid, "int")
+        elif name == "fused_topk":
+            compare_topk(torch, kernels, qi, ri, n_valid, int(args[3]), "int")
         else:
             compare_pool(torch, kernels, qi, ri, n_valid, "int", False)
         del qi, ri
@@ -284,6 +350,13 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
             plain = lambda: kernels.count_above_plain(q, r, tau, n_valid)  # noqa: E731
             lib = lambda: count_above_library(torch, q, r, tau, n_valid)  # noqa: E731
             out_bytes = 4 * m
+        elif name == "fused_topk":
+            kappa = int(args[3])
+            err = compare_topk(torch, kernels, q, r, n_valid, kappa, "float")
+            run = lambda: kernels.fused_topk(q, r, n_valid, kappa)  # noqa: E731
+            plain = lambda: kernels.fused_topk_plain(q, r, n_valid, kappa)  # noqa: E731
+            lib = lambda: topk_library(torch, q, r, n_valid, kappa)  # noqa: E731
+            out_bytes = 8 * m * kappa
         else:
             err = compare_pool(torch, kernels, q, r, n_valid, "float", False)
             run = lambda: kernels.pool_writer(q, r, n_valid)  # noqa: E731
@@ -295,7 +368,8 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
         library_ms = cuda_ms(torch, lib, 1)
         bound_ms, bound_by = bound(m, n_valid, n, dd, out_bytes)
         records[name] = {
-            "shape": [m, n_valid, dd], "max_abs_err": err, "ms": kernel_ms,
+            "shape": [m, n_valid, dd] + ([int(args[3])] if name == "fused_topk" else []),
+            "max_abs_err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
@@ -309,7 +383,31 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
 # ---- phase 3: global_topk against a dense oracle ---------------------------
 
 
+@contextlib.contextmanager
+def collection_mode(mode):
+    """Force global_topk's collection mode while the block runs."""
+    import os
+
+    from vsc2022_torch.ops.similarity import COLLECTION_ENV
+
+    old = os.environ.get(COLLECTION_ENV)
+    os.environ[COLLECTION_ENV] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[COLLECTION_ENV]
+        else:
+            os.environ[COLLECTION_ENV] = old
+
+
 def phase_search(torch, np, dev, m, n, d, k):
+    for mode in ("stream", "pooled"):
+        with collection_mode(mode):
+            search_vs_oracle(torch, np, dev, m, n, d, k, mode)
+
+
+def search_vs_oracle(torch, np, dev, m, n, d, k, mode):
     from vsc2022_torch.ops.similarity import SimilaritySearcher
 
     for kind in ("int", "float"):
@@ -356,7 +454,9 @@ def phase_search(torch, np, dev, m, n, d, k):
                   "global_topk float: pair set differs from the oracle")
             verdict = (f"all {k} pairs, scores within {err} of the dense oracle, "
                        f"same pairs above the k-th score + {2 * FLOAT_ATOL}")
-        log(f"phase 3: global_topk {kind} [{m} x {n} x {d}] k={k} {verdict}; "
+        check(searcher.last_stats["mode"] == mode,
+              f"global_topk ran {searcher.last_stats['mode']}, not {mode}")
+        log(f"phase 3: global_topk {mode} {kind} [{m} x {n} x {d}] k={k} {verdict}; "
             f"{t_search:.3f} s; {searcher.last_stats}")
         del searcher, q, r
         torch.cuda.empty_cache()
@@ -784,6 +884,224 @@ def phase_chamfer(torch, kernels, dev, calls):
     }
 
 
+# ---- phase 6: the resident server ---------------------------------------------
+
+
+def extra_refs(np, n_videos, frames, d, first_id, seed):
+    """Unit-norm random reference videos with ids from ``first_id``."""
+    from vsc2022_torch.types import VideoFeature
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n_videos, frames, d), dtype=np.float32)
+    x /= np.linalg.norm(x, axis=2, keepdims=True)
+    ts = np.arange(frames, dtype=np.float64)
+    return [VideoFeature(video_id=first_id + i, timestamps=ts, feature=x[i])
+            for i in range(n_videos)]
+
+
+def check_same_candidates(got, want, what, tol=1e-6):
+    """Identical (query, ref) rows in the same order, scores within tol."""
+    check(len(got) > 0 and [(c.query_id, c.ref_id) for c in got]
+          == [(c.query_id, c.ref_id) for c in want],
+          f"{what}: candidate pairs differ ({len(got)} vs {len(want)} rows)")
+    err = max(abs(a.score - b.score) for a, b in zip(got, want))
+    check(err <= tol, f"{what}: scores differ by {err} > {tol}")
+    return err
+
+
+def check_same_rows(a_path, b_path, what, tol=FLOAT_ATOL):
+    """Two CSVs with identical rows apart from scores within tol."""
+    a, b = _csv_rows(a_path), _csv_rows(b_path)
+    check(len(a) == len(b) and len(a) > 1 and a[0] == b[0],
+          f"{what}: {len(a)} rows against {len(b)}")
+    score = a[0].index("score")
+    for x, y in zip(a[1:], b[1:]):
+        check(x[:score] + x[score + 1:] == y[:score] + y[score + 1:]
+              and abs(float(x[score]) - float(y[score])) <= tol,
+              f"{what}: {x} vs {y}")
+    return len(a) - 1
+
+
+def spawn_server(ref_path, log_file, **kw):
+    import os
+
+    from vsc2022_torch.retrieval.client import ServeClient
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return ServeClient.spawn(ref_path, device="cuda", env=env, cwd=str(REPO),
+                             stderr=log_file, **kw)
+
+
+def timed(label, fn):
+    """fn()'s result, its wall seconds logged (and the server's own)."""
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    server = getattr(out, "seconds", None)
+    log(f"phase 6: ({label}) {wall:.3f} s" + (f" (server {server:.3f} s)" if server else ""))
+    return out
+
+
+def phase_serve(torch, np, kernels, dev):
+    """Drives the server through requests (a)-(h) and checks them against
+    an in-process ScoreNormalizedVideoIndex over the same live corpus.
+    Returns the server's launch counts over (a)-(h) and the kernel inputs
+    of the same search run in-process."""
+    import logging
+
+    from vsc2022_torch.baseline import pipeline
+    from vsc2022_torch.metrics import CandidatePair, Dataset, Match
+    from vsc2022_torch.retrieval.candidates import MaxScoreAggregation, rank_candidates
+    from vsc2022_torch.retrieval.index import ScoreNormalizedVideoIndex
+    from vsc2022_torch.storage import load_features, store_features
+
+    work = SMOKE_DIR / "serve"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    paths, n_noise = build_corpus(np, work, N_QUERY_VIDEOS, SERVE_REF_VIDEOS,
+                                  SERVE_NOISE_FRAMES, FRAMES, DIM, seed=2)
+    store_features(str(work / "add.npz"),
+                   extra_refs(np, SERVE_ADD, FRAMES, DIM, first_id=20_000, seed=3),
+                   Dataset.REFS)
+    queries = load_features(paths["queries"], Dataset.QUERIES)
+    refs = load_features(paths["refs"], Dataset.REFS)
+    noise = load_features(paths["noise"], Dataset.REFS)
+    added = load_features(str(work / "add.npz"), Dataset.REFS)
+    gt_refs = {m.ref_id for m in Match.read_csv(paths["gt"], is_gt=True)}
+    removed = [vf.video_id for vf in refs if vf.video_id not in gt_refs][:SERVE_REMOVE]
+    store_features(str(work / "q1.npz"), queries[:1], Dataset.QUERIES)
+    log(f"phase 6: catalogue {SERVE_REF_VIDEOS} ref videos ({SERVE_REF_VIDEOS * FRAMES} "
+        f"frames), {N_QUERY_VIDEOS} query videos, {n_noise} noise frames, D={DIM}; "
+        f"made in {time.perf_counter() - t0:.1f} s")
+
+    csv = {x: (str(work / f"{x}_c.csv"), str(work / f"{x}_m.csv"))
+           for x in ("a", "c", "g", "fresh")}
+    with open(work / "server.log", "w") as server_log:
+        with spawn_server(paths["refs"], server_log,
+                          score_norm_features=paths["noise"], matches=True) as client:
+            log(f"phase 6: server ready, {client.n_ref_videos} videos staged in "
+                f"{client.stage_seconds:.1f} s")
+            client.launches(reset=True)
+            timed(f"a: {N_QUERY_VIDEOS} query videos by path", lambda: client.search(
+                paths["queries"], candidates_csv=csv["a"][0], matches_csv=csv["a"][1]))
+            b = timed("b: the same in-band", lambda: client.search_bytes(
+                Path(paths["queries"]).read_bytes()))
+            check(b.candidates_csv == Path(csv["a"][0]).read_bytes()
+                  and b.matches_csv == Path(csv["a"][1]).read_bytes(),
+                  "in-band CSV bytes differ from the path request's")
+            timed("c: one query video", lambda: client.search(
+                str(work / "q1.npz"), candidates_csv=csv["c"][0], matches_csv=csv["c"][1]))
+            n = timed(f"d: add {SERVE_ADD} videos",
+                                lambda: client.add(str(work / "add.npz")))
+            check(n == SERVE_ADD, f"added {n} videos")
+            n = timed(f"e: remove {SERVE_REMOVE} videos",
+                                lambda: client.remove(removed))
+            check(n == (SERVE_REMOVE, SERVE_REMOVE * FRAMES), f"removed {n}")
+            n = timed("f: save", lambda: client.save(str(work / "snap.npz")))
+            check(n == SERVE_REF_VIDEOS, f"saved {n} videos")
+            timed("g: (a) again", lambda: client.search(
+                paths["queries"], candidates_csv=csv["g"][0], matches_csv=csv["g"][1]))
+            stats = timed("h: stats", client.stats)
+            check((stats.n_videos, stats.n_frames) == (SERVE_REF_VIDEOS,
+                                                       SERVE_REF_VIDEOS * FRAMES),
+                  f"stats {stats}")
+            launches = client.launches()
+        log(f"phase 6: server kernel launches over (a)-(h): {json.dumps(launches)}")
+        for name in SERVE_KERNELS:
+            check(launches[name] > 0, f"kernel {name} never launched by the server")
+        with spawn_server(str(work / "snap.npz"), server_log,
+                          score_norm_features=paths["noise"], matches=True) as client:
+            timed("fresh server on the snapshot: (a)'s queries", lambda: client.search(
+                paths["queries"], candidates_csv=csv["fresh"][0],
+                matches_csv=csv["fresh"][1]))
+        for i in (0, 1):
+            check(Path(csv["fresh"][i]).read_bytes() == Path(csv["g"][i]).read_bytes(),
+                  "a fresh server on the snapshot answers (g) differently")
+        log("phase 6: (b) == (a) and fresh server on the snapshot == (g), byte for byte")
+
+    # The same searches in-process, over the same live corpus.
+    index = ScoreNormalizedVideoIndex(DIM, noise, beta=1.2, device=dev)
+    index.add(refs)
+    index._get_searcher()  # staged before the timed searches
+    k, keep = 1200 * N_QUERY_VIDEOS, 25 * N_QUERY_VIDEOS
+
+    def search():
+        t0 = time.perf_counter()
+        out = rank_candidates(index.search(queries, global_k=k), MaxScoreAggregation())
+        return out[:keep], time.perf_counter() - t0
+
+    with capture_inputs(kernels) as captured:
+        cands, t_stream = search()
+    mode = index._searcher.searcher.last_stats["mode"]
+    check(mode == "stream", f"the serving catalogue ran {mode}")
+    err = check_same_candidates(CandidatePair.read_csv(csv["a"][0]), cands,
+                                "server (a) vs in-process index")
+    with collection_mode("pooled"):
+        pooled, t_pooled = search()
+    check(index._searcher.searcher.last_stats["mode"] == "pooled", "pooled not taken")
+    check_same_candidates(pooled, cands, "(a) pooled vs stream", tol=0.0)
+    log(f"phase 6: (a) in-process: stream {t_stream:.3f} s, pooled {t_pooled:.3f} s, "
+        f"same {len(cands)} pairs; server vs in-process scores within {err}")
+    index.add(added)
+    index.remove(removed)
+    cands_g, _ = search()
+    check_same_candidates(CandidatePair.read_csv(csv["g"][0]), cands_g,
+                          "server (g) vs in-process index after add/remove")
+    quality = pipeline.report_metrics(paths["gt"], csv["a"][0], csv["a"][1],
+                                      logging.getLogger("chip_smoke"))
+    log(f"phase 6: (a) candidate uAP {quality['candidate_uap']:.4f}, "
+        f"segment AP {quality['segment_ap']:.4f}")
+    check(quality["candidate_uap"] > 0.5, f"serving uAP {quality['candidate_uap']}")
+    del index
+    torch.cuda.empty_cache()
+    return launches, {n: captured[n] for n in ("fused_topk", "count_above")}
+
+
+def serve_dns_request():
+    """One DnS two-file request against phase 5's files: the same rows as
+    dns_baseline's output, scores within FLOAT_ATOL."""
+    work = SMOKE_DIR / "dns"
+    idx, out = work / "idx", work / "out"
+    c_csv, m_csv = str(work / "serve_c.csv"), str(work / "serve_m.csv")
+    with open(work / "server.log", "w") as server_log:
+        with spawn_server(str(idx / "refs_cg_student_sn.npz"), server_log,
+                          ref_fine_features=str(idx / "refs_fg_att_student.npz")) as client:
+            client.launches(reset=True)
+            timed("DnS two-file request", lambda: client.search(
+                str(idx / "queries_cg_student_sn.npz"),
+                query_fine_features=str(idx / "queries_fg_att_student.npz"),
+                candidates_csv=c_csv, matches_csv=m_csv))
+            launches = client.launches()
+    for name in DNS_SERVE_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched by the DnS server")
+    n_c = check_same_rows(c_csv, out / "candidates.csv", "DnS server candidates")
+    n_m = check_same_rows(m_csv, out / "matches.csv", "DnS server matches")
+    log(f"phase 6: DnS request == dns_baseline ({n_c} candidates, {n_m} matches, "
+        f"scores within {FLOAT_ATOL}); server launches {json.dumps(launches)}")
+
+
+def time_collection_modes(torch, np, args, k, label):
+    """global_topk over a path's own fused_topk input in both collection
+    modes (warm, second call timed): the same (q, r, score) arrays."""
+    from vsc2022_torch.ops.similarity import SimilaritySearcher
+
+    q, refs, n_valid = args[0], args[1], int(args[2])
+    searcher = SimilaritySearcher(refs[:n_valid].cpu().numpy(), device=q.device)
+    out, secs = {}, {}
+    for mode in ("stream", "pooled", "stream", "pooled"):
+        with collection_mode(mode):
+            t0 = time.perf_counter()
+            out[mode] = searcher.global_topk(q, k)
+            secs[mode] = time.perf_counter() - t0
+            check(searcher.last_stats["mode"] == mode, f"{label}: {mode} not taken")
+    check(all(np.array_equal(a, b) for a, b in zip(out["stream"], out["pooled"])),
+          f"{label}: stream and pooled global_topk differ")
+    log(f"phase 6: global_topk at the {label} corpus [{q.shape[0]} x {n_valid} x "
+        f"{q.shape[1]}] k={k}: stream {secs['stream']:.3f} s, pooled "
+        f"{secs['pooled']:.3f} s, identical results")
+    return secs
+
+
 def nvidia_smi_line() -> str:
     try:
         out = subprocess.run(
@@ -833,13 +1151,25 @@ def main() -> int:
         del captured
         torch.cuda.empty_cache()
         dns_launches, dns_captured = phase_dns_path(torch, np, kernels)
+        serve_launches, serve_captured = phase_serve(torch, np, kernels, dev)
+        serve_dns_request()
     finally:
         if not args.keep:
             shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    time_collection_modes(torch, np, serve_captured["fused_topk"],
+                          1200 * N_QUERY_VIDEOS, "serving")
+    time_collection_modes(torch, np, dns_captured["fused_topk"],
+                          1200 * DNS_QUERIES, "DnS")
     records["chamfer"] = phase_chamfer(torch, kernels, dev, dns_captured.pop("chamfer"))
     launches["chamfer"] = dns_launches["chamfer"]
     dns_records = phase_kernels_main(torch, kernels, dev, dns_captured, path="DnS")
     del dns_captured
+    serve_records = phase_kernels_main(torch, kernels, dev, serve_captured,
+                                       path="serving")
+    del serve_captured
+    records["fused_topk"] = serve_records.pop("fused_topk")
+    launches["fused_topk"] = serve_launches["fused_topk"]
+    path_of = {"chamfer": "dns", "fused_topk": "serving"}
 
     rows = []
     for name, rec in records.items():
@@ -850,12 +1180,14 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"],
-            "path": "dns" if name == "chamfer" else "sscd",
+            "path": path_of.get(name, "sscd"),
         }
         if "path_total" in rec:
             row["path_total"] = rec["path_total"]
         if name in dns_records:  # the same kernel on the DnS path
             row["dns"] = dict(dns_records[name], launches=dns_launches[name])
+        if name in serve_records:  # and on the serving path
+            row["serving"] = dict(serve_records[name], launches=serve_launches[name])
         rows.append(row)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))

@@ -61,8 +61,43 @@ def test_kernels_match_plain(cuda_device, m, n, d, n_valid):
     finite = torch.isfinite(ev)
     assert torch.equal(pi.cpu()[finite], ei[finite])
     assert kernels.launches == {
-        "row_max": 1, "count_above": 1, "pool_writer": 1, "chamfer": 0,
+        "row_max": 1, "count_above": 1, "pool_writer": 1, "fused_topk": 0,
+        "chamfer": 0,
     }
+
+
+@pytest.mark.parametrize("m,n,d,n_valid,kappa", [
+    (1, 128, 8, 128, 4), (70, 1000, 33, 999, 32), (200, 4096, 64, 3000, 64),
+    (130, 2500, 16, 2400, 7), (300, 2048, 512, 0, 8), (65, 3000, 24, 2990, 192),
+    # Above κ = 192 the κ-sets live in global memory (fused_topk.cu).
+    (90, 5000, 16, 4900, 300), (9, 700, 24, 650, 1500),
+])
+def test_fused_topk_matches_plain(cuda_device, m, n, d, n_valid, kappa):
+    q, r = _ints((m, d), 8), _ints((n, d), 9)
+    r[[j for j in (5, 7, 40, 300) if j < n]] = 3.0  # ties in and across segments
+    q[0] = 3.0
+    kernels.reset_launches()
+    got_v, got_i = kernels.fused_topk(q.to(cuda_device), r.to(cuda_device),
+                                      n_valid, kappa)
+    want_v, want_i = kernels.fused_topk_plain(q, r, n_valid, kappa)
+    assert got_v.shape == got_i.shape == (m, kappa)
+    torch.testing.assert_close(got_v.cpu(), want_v, rtol=0, atol=0)
+    assert torch.equal(got_i.cpu(), want_i)
+    assert kernels.launches["fused_topk"] == 1
+
+
+@pytest.mark.parametrize("kappa", [32, 256])
+def test_fused_topk_floats_bit_identical_to_pool_writer(cuda_device, kappa):
+    # On floats the kernel's candidates are the pool_writer kernel's winners
+    # ordered best-first: the same tile product, so the same bits.
+    rng = np.random.RandomState(10)
+    q = torch.from_numpy(rng.randn(150, 513).astype(np.float32)).to(cuda_device)
+    r = torch.from_numpy(rng.randn(8192, 513).astype(np.float32)).to(cuda_device)
+    got_v, got_i = kernels.fused_topk(q, r, 8000, kappa)
+    pv, pi = kernels.pool_writer(q, r, 8000)
+    want_v, want_i = kernels.ordered_topk(pv.view(150, -1), pi.view(150, -1), kappa)
+    assert torch.equal(got_v, want_v)
+    assert torch.equal(got_i, want_i)
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda_device):
@@ -130,3 +165,20 @@ def test_global_topk_cuda_equals_cpu(cuda_device):
     want = SimilaritySearcher(r, device="cpu").global_topk(q, 3000)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("mode", ["stream", "pooled"])
+def test_global_topk_forced_modes_cuda_equal_cpu(cuda_device, monkeypatch, mode):
+    from vsc2022_torch.ops.similarity import COLLECTION_ENV, SimilaritySearcher
+
+    monkeypatch.setenv(COLLECTION_ENV, mode)
+    q, r = _ints((45, 24), 11).numpy(), _ints((7000, 24), 12).numpy()
+    r[300:320] = 3.0
+    q[:4] = 3.0
+    for k in (600, 45 * 16 + 1):  # the second has k > nq·κ
+        searcher = SimilaritySearcher(r, device=cuda_device)
+        got = searcher.global_topk(q, k, kappa=16)
+        assert searcher.last_stats["mode"] == mode
+        want = SimilaritySearcher(r, device="cpu").global_topk(q, k, kappa=16)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)

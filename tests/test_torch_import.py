@@ -43,6 +43,25 @@ def test_importing_every_module_leaves_jax_out():
     assert report["bad"] == []
 
 
+@pytest.mark.parametrize("module", [
+    "vsc2022_torch.retrieval.serve", "vsc2022_torch.retrieval.client",
+    "vsc2022_torch.retrieval.sn_search",
+])
+def test_serving_modules_leave_jax_out(module):
+    code = (
+        f"import json, sys, {module}\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] "
+        "in ('jax', 'jaxlib', 'vsc2022_tpu'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize(
     "path", _port_files(), ids=lambda p: str(p.relative_to(REPO))
 )
@@ -103,13 +122,17 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     kernels.row_max(q, r, 100)
     kernels.count_above(q, r, 0.0, 100)
     kernels.pool_writer(q, r, 100)
+    kernels.fused_topk(q, torch.ones((100, 8)), 90, 4)
     kernels.chamfer_fine_sims(torch.ones((2, 3, 9, 8)), torch.ones((2, 5, 9, 8)))
     # Plain versions never count as kernel launches.
     assert kernels.launches == {
-        "row_max": 0, "count_above": 0, "pool_writer": 0, "chamfer": 0,
+        "row_max": 0, "count_above": 0, "pool_writer": 0, "fused_topk": 0,
+        "chamfer": 0,
     }
     with pytest.raises(ValueError, match="multiple of 128"):
         kernels.pool_writer(q, torch.ones((100, 8)), 100)
+    with pytest.raises(ValueError, match="kappa"):
+        kernels.fused_topk(q, r, 100, 0)
     with pytest.raises(TypeError):
         kernels.row_max(q.double(), r.double(), 100)
     fine = torch.ones((1, 4, 9, 8))
@@ -140,6 +163,18 @@ def test_dns_entry_points_default_to_cuda_and_raise(no_gpu, tmp_path):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         dns_baseline.main(args)
+
+
+def test_serve_entry_point_defaults_to_cuda_and_raises(no_gpu):
+    from vsc2022_torch.retrieval import serve
+    from vsc2022_torch.retrieval.sn_search import ScoreNormalizedSearcher
+
+    args = serve.parser.parse_args(["--ref_features", "r.npz", "--f32"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ScoreNormalizedSearcher(np.zeros((4, 8), np.float32), np.zeros((4, 8), np.float32))
 
 
 @pytest.mark.parametrize("flag", ["--bf16", "--int8"])

@@ -69,7 +69,9 @@ def test_global_topk_identical_to_jax_on_integers(nq, n, d, k, kappa, plant):
     _assert_identical(expect, got)
 
 
-def test_repair_routes_are_exercised():
+def test_repair_routes_are_exercised(monkeypatch):
+    # The pooled collection's routes (these corpora stream by default).
+    monkeypatch.setenv("VSC2022_TORCH_COLLECTION", "pooled")
     q, r = _int_case(40, 8192, 16, seed=3, plant_amb=True)
     _, _, ts = _both(q, r, 3000, kappa=4)
     stats = ts.last_stats
@@ -84,9 +86,11 @@ def test_corpus_research_tolerates_kernel_rounding(monkeypatch):
     """The kernels may round a score above what the corpus re-search's
     ``torch.matmul`` gives for the same pair. Simulated here by adding δ
     (a quarter of the searcher's rounding margin) to the pool and the
-    count: the re-searched row must still yield the exact top k."""
+    count: the re-searched row must still yield the exact top k (the
+    pooled collection; tests/test_torch_stream.py holds the stream's)."""
     from vsc2022_torch.ops import kernels
 
+    monkeypatch.setenv("VSC2022_TORCH_COLLECTION", "pooled")
     d, k = 24, 3
     rng = np.random.RandomState(5)
     q = rng.randn(6, d).astype(np.float32)
@@ -117,14 +121,16 @@ def test_corpus_research_tolerates_kernel_rounding(monkeypatch):
     monkeypatch.setattr(kernels, "pool_writer", pool_up)
     monkeypatch.setattr(kernels, "count_above", count_up)
     ts = TorchSearcher(r, device="cpu")
-    qi, ri, s = ts.global_topk(q, k)
+    # κ = 8: 4κ within the 48-slot pool, so the forced pooled mode holds.
+    qi, ri, s = ts.global_topk(q, k, kappa=8)
+    assert ts.last_stats["mode"] == "pooled"
     assert ts.last_stats["corpus_rows"] == 1
     oq, orr, os_ = _dense_oracle(q, r, k)
     assert list(zip(qi, ri)) == list(zip(oq, orr)) == [(1, 10), (1, 11), (1, 12)]
     np.testing.assert_allclose(s, os_, rtol=0, atol=1e-5)
     # Without the margin the re-searched row loses its entries below y + δ.
     ts._ref_norm_max = 0.0
-    assert len(ts.global_topk(q, k)[0]) < k
+    assert len(ts.global_topk(q, k, kappa=8)[0]) < k
 
 
 def _dense_oracle(q, r, k):

@@ -135,6 +135,39 @@ class DnSLocalization(TNLocalizationMaxSim):
         self.fg_type = fg_type
         self.symmetric = symmetric
 
+    # -- serving lifecycle (JAX dns_baseline.py:305-395) ----------------------
+
+    def set_queries(self, queries, queries_fine=None) -> None:
+        """Replace the query set, fine features included; both reference
+        tables (coarse and fine) stay on the device."""
+        if queries_fine is None:
+            raise ValueError("DnS localization needs fine features: pass queries_fine")
+        super().set_queries(queries)
+        self.queries_fine = dict(queries_fine)
+        self._tables.pop("query_fine", None)
+
+    def add_refs(self, refs_coarse, refs_fine=None) -> None:
+        """Extend both reference sides; both staged ref tables grow on the
+        device. The fine dict grows first, so a failed coarse grow still
+        leaves both dicts holding the new videos; the staged fine table
+        then lacks them too, and is dropped with the coarse one."""
+        if refs_fine is None:
+            raise ValueError("DnS localization needs fine features: pass refs_fine")
+        self.refs_fine.update(refs_fine)
+        with self._or_drop("ref_fine"):
+            super().add_refs(refs_coarse)
+            self._grow_table("ref_fine", self.refs_fine, list(refs_fine),
+                             row_fn=self._fine_rows)
+
+    def remove_refs(self, video_ids) -> None:
+        """Drop reference videos on both sides; both staged ref tables
+        compact on the device."""
+        super().remove_refs(video_ids)
+        for v in video_ids:
+            self.refs_fine.pop(v, None)
+        with self._or_drop("ref_fine"):
+            self._compact_table("ref_fine", self.refs_fine)
+
     def _fine(self, vf: VideoFeature) -> np.ndarray:
         f = np.asarray(vf.feature, dtype=np.float32)
         if "bin" in self.fg_type:

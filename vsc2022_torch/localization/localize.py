@@ -17,6 +17,7 @@ vsc/baseline/localization.py:65-75).
 from __future__ import annotations
 
 import abc
+import contextlib
 import logging
 from collections import defaultdict
 from typing import Dict, List, Sequence, Tuple
@@ -145,6 +146,81 @@ class TNLocalization(LocalizationWithMetadata):
         table = new if table is None else torch.cat([table, new])
         self._tables[name] = (table, offsets)
         return table, offsets
+
+    # -- serving lifecycle (JAX localize.py:266-336) -------------------------
+
+    def set_queries(self, queries: List[VideoFeature]) -> None:
+        """Replace the query set; the staged reference rows stay on the
+        device, so each request moves only its own query rows."""
+        self.queries = {m.video_id: m for m in queries}
+        self._tables.pop("query", None)
+
+    def add_refs(self, refs: List[VideoFeature]) -> None:
+        """Extend the reference set (serving ``add``); a staged ref table
+        grows on the device by the new videos' rows only."""
+        for m in refs:
+            self.refs[m.video_id] = m
+        with self._or_drop("ref"):
+            self._grow_table("ref", self.refs, [m.video_id for m in refs])
+
+    def remove_refs(self, video_ids) -> None:
+        """Drop reference videos (serving ``remove``); a staged ref table
+        compacts on the device. Unknown ids raise before anything
+        changes."""
+        drop = set(video_ids)
+        missing = [str(v) for v in drop if v not in self.refs]
+        if missing:
+            raise KeyError(f"Video ids not staged: {sorted(missing)[:5]}")
+        for v in drop:
+            del self.refs[v]
+        with self._or_drop("ref"):
+            self._compact_table("ref", self.refs)
+
+    @contextlib.contextmanager
+    def _or_drop(self, *names: str):
+        """Drop the staged tables ``names`` if the block raises: the host
+        dicts already hold the change, and the next alignment restages
+        from them instead of serving a table whose offsets disagree."""
+        try:
+            yield
+        except Exception:
+            for name in names:
+                self._tables.pop(name, None)
+            raise
+
+    def _grow_table(self, name: str, source: Dict, video_ids: Sequence,
+                    row_fn=None) -> None:
+        """Append these videos' rows to the staged table ``name`` (a
+        re-added id's offsets move to its new rows; the old rows are dead
+        weight until a compaction). Without a staged table there is
+        nothing to do: alignment stages what it asks for."""
+        if name not in self._tables:
+            return
+        offsets = self._tables[name][1]
+        for vid in video_ids:
+            offsets.pop(vid, None)
+        self._stage(name, source, video_ids, row_fn)
+
+    def _compact_table(self, name: str, source: Dict) -> None:
+        """Keep only the staged rows of the videos still in ``source``:
+        one gather on the device onto the layout a fresh staging in the
+        same order gives (pad row 0, then each video's rows); only the
+        index vector crosses."""
+        if name not in self._tables:
+            return
+        table, offsets = self._tables[name]
+        spans = [(offsets[vid], vid) for vid in offsets if vid in source]
+        idx = np.concatenate(
+            [np.zeros(1, dtype=np.int64)]
+            + [np.arange(start, start + n) for (start, n), _ in spans]
+        )
+        new_offs = {}
+        cursor = 1
+        for (_, n), vid in spans:
+            new_offs[vid] = (cursor, n)
+            cursor += n
+        flat = torch.from_numpy(idx).to(self.device)
+        self._tables[name] = (table.index_select(0, flat), new_offs)
 
     def _pair_tables(self, candidates: Sequence[CandidatePair]):
         """Separate query and ref device tables holding the candidates'

@@ -107,8 +107,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vsc_row_max.argtypes = [i, p, p, i, i, i, i, i, p, p, p]
     lib.vsc_count_above.argtypes = [i, p, p, i, i, i, f, i, i, p, p]
     lib.vsc_chamfer.argtypes = [i, p, p, i, i, i, i, i, i, p, p]
+    lib.vsc_fused_topk.argtypes = [i, p, p, i, i, i, i, i, i, p, p, p]
     for fn in (lib.vsc_pool_writer, lib.vsc_row_max, lib.vsc_count_above,
-               lib.vsc_chamfer):
+               lib.vsc_chamfer, lib.vsc_fused_topk):
         fn.restype = ctypes.c_int
 
 

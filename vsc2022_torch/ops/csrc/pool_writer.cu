@@ -17,53 +17,11 @@
 // the same 256 KB refs segment out of L2.
 #include <climits>
 
-#include "tile_gemm.cuh"
+#include "segment_top2.cuh"
 
 using namespace vsc;
 
 namespace {
-
-struct Top2 {
-  float v1;
-  int i1;
-  float v2;
-  int i2;
-};
-
-// The pool comparator: larger value first, then the lower column.
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
-__device__ __forceinline__ void insert(Top2& t, float v, int i) {
-  if (better(v, i, t.v1, t.i1)) {
-    t.v2 = t.v1;
-    t.i2 = t.i1;
-    t.v1 = v;
-    t.i1 = i;
-  } else if (better(v, i, t.v2, t.i2)) {
-    t.v2 = v;
-    t.i2 = i;
-  }
-}
-
-// Top-2 of the union of two disjoint sorted top-2 sets.
-__device__ __forceinline__ Top2 merge(const Top2& a, const Top2& b) {
-  const bool a_wins = better(a.v1, a.i1, b.v1, b.i1);
-  const Top2& w = a_wins ? a : b;
-  const Top2& l = a_wins ? b : a;
-  Top2 r;
-  r.v1 = w.v1;
-  r.i1 = w.i1;
-  if (better(l.v1, l.i1, w.v2, w.i2)) {
-    r.v2 = l.v1;
-    r.i2 = l.i1;
-  } else {
-    r.v2 = w.v2;
-    r.i2 = w.i2;
-  }
-  return r;
-}
 
 __global__ void __launch_bounds__(THREADS)
     pool_writer_kernel(const float* __restrict__ q,
@@ -84,21 +42,7 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    Top2 t = {-CUDART_INF_F, INT_MAX, -CUDART_INF_F, INT_MAX};
-#pragma unroll
-    for (int c = 0; c < COLS_PER_LANE; ++c) {
-      const int col = col0 + lane * COLS_PER_LANE + c;
-      insert(t, col < n_valid ? acc[r][c] : -CUDART_INF_F, col);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      Top2 o;
-      o.v1 = __shfl_xor_sync(0xffffffffu, t.v1, off);
-      o.i1 = __shfl_xor_sync(0xffffffffu, t.i1, off);
-      o.v2 = __shfl_xor_sync(0xffffffffu, t.v2, off);
-      o.i2 = __shfl_xor_sync(0xffffffffu, t.i2, off);
-      t = merge(t, o);
-    }
+    const Top2 t = segment_top2(acc[r], col0, n_valid, lane);
     const int row = row0 + warp * ROWS_PER_WARP + r;
     if (lane == r && row < m) {
       const size_t o = ((size_t)row * n_seg + seg) * 2;

@@ -1,5 +1,5 @@
 // Shared f32 tile product of the retrieval kernels (row_max, count_above,
-// pool_writer).
+// pool_writer, fused_topk).
 //
 // One block of 256 threads computes a [BM x BN] = [64 query rows x 128 ref
 // columns] tile of q . refs^T in full f32 FMA on the CUDA cores (the JAX
@@ -10,8 +10,9 @@
 // warp shuffles, with no second pass through shared memory.
 //
 // Every score is the sequential sum over k = 0..D-1 of fmaf(q, r, acc), the
-// same order in all three kernels, so the pool, the corpus count and the
-// row max see bit-identical scores for the same (query, ref) pair.
+// same order in all four kernels, so the pool, the top-kappa candidates, the
+// corpus count and the row max see bit-identical scores for the same
+// (query, ref) pair.
 //
 // Simple first: no cp.async, TMA or wgmma, one shared-memory stage.
 #pragma once

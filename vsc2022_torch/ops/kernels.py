@@ -4,8 +4,9 @@ Counterpart of ``vsc2022_tpu/ops/pallas_kernels.py``. Each kernel is CUDA
 C++ for sm_90a in ``ops/csrc`` (built by ``ops/_build.py`` at first use)
 and comes with:
 
-  * a wrapper (``row_max``, ``count_above``, ``pool_writer`` for the
-    retrieval path, ``chamfer_fine_sims`` for the DnS alignment) that, for
+  * a wrapper (``row_max``, ``count_above``, ``pool_writer`` and
+    ``fused_topk`` for the retrieval path, ``chamfer_fine_sims`` for the
+    DnS alignment) that, for
     a CUDA tensor, launches the kernel or raises, and for a CPU tensor
     runs the plain version. Nothing else selects the plain version: there
     is no fallback when a build or a launch fails;
@@ -35,8 +36,12 @@ BLOCKS_PER_SM = 8  # column splits target this many blocks per SM
 # Elements of one score chunk in the plain versions (512 MB of f32).
 PLAIN_CHUNK_ELEMENTS = 1 << 27
 
+# Ceiling on fused_topk's [M, splits, κ] output: large κ takes fewer splits.
+TOPK_SCRATCH_BYTES = 1 << 30
+
 launches: Dict[str, int] = {
-    "row_max": 0, "count_above": 0, "pool_writer": 0, "chamfer": 0,
+    "row_max": 0, "count_above": 0, "pool_writer": 0, "fused_topk": 0,
+    "chamfer": 0,
 }
 
 
@@ -113,6 +118,42 @@ def pool_writer_plain(
         vals[start : start + step] = torch.stack([m1, m2], dim=2)
         ids[start : start + step] = torch.stack([a1, a2], dim=2).int() + seg_base[:, None]
     return vals, ids
+
+
+def ordered_topk(
+    vals: torch.Tensor, ids: torch.Tensor, kappa: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per row, the κ best (value, id) entries of [M, W] candidates,
+    ordered by value descending, then id ascending; rows with fewer than
+    κ finite entries are padded with −inf and id 0. Two sorts: by id, then
+    a stable sort by value."""
+    m, w = vals.shape
+    if w < kappa:
+        vals = torch.cat([vals, vals.new_full((m, kappa - w), float("-inf"))], 1)
+        ids = torch.cat([ids, ids.new_full((m, kappa - w), 2**31 - 1)], 1)
+    ids, by_id = torch.sort(ids, dim=1)
+    vals = torch.gather(vals, 1, by_id)
+    vals, by_val = torch.sort(vals, dim=1, descending=True, stable=True)
+    ids = torch.gather(ids, 1, by_val)
+    vals, ids = vals[:, :kappa].contiguous(), ids[:, :kappa]
+    return vals, torch.where(torch.isfinite(vals), ids, 0).int().contiguous()
+
+
+def fused_topk_plain(
+    q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row top-κ of the winner pool (``pool_writer_plain``'s: best 2
+    per 128-column segment, columns ≥ n_valid at −inf), ordered by score
+    descending, then column ascending: ([M, κ] f32, [M, κ] int32), padded
+    with −inf and id 0. Any N (the pool zero-pads refs to whole segments)."""
+    n = refs.shape[0]
+    n_seg = -(-n // SEG_LANES)
+    if n_seg * SEG_LANES != n:
+        pad = refs.new_zeros((n_seg * SEG_LANES - n, refs.shape[1]))
+        refs = torch.cat([refs, pad])
+    m = q.shape[0]
+    vals, ids = pool_writer_plain(q, refs, n_valid)
+    return ordered_topk(vals.view(m, -1), ids.view(m, -1), kappa)
 
 
 def chamfer_fine_sims_plain(
@@ -247,6 +288,38 @@ def pool_writer(
     _raise_on(rc, "pool_writer")
     launches["pool_writer"] += 1
     return vals, ids
+
+
+def fused_topk(
+    q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused q·refsᵀ per-row top-κ of the winner pool (best 2 per
+    128-column segment), ordered by score descending, then column
+    ascending: ([M, κ] f32, [M, κ] int32), padded with −inf and id 0. Any
+    N and any κ ≥ 1. The kernel collects one κ-set per column split; one
+    ``torch.sort`` merges the splits (``ordered_topk``)."""
+    n_valid, kappa = int(n_valid), int(kappa)
+    _check(q, refs, n_valid)
+    if kappa < 1:
+        raise ValueError(f"kappa must be >= 1, got {kappa}")
+    if q.device.type == "cpu":
+        return fused_topk_plain(q, refs, n_valid, kappa)
+    m, d = q.shape
+    if m == 0:
+        return (torch.empty((0, kappa), dtype=torch.float32, device=q.device),
+                torch.empty((0, kappa), dtype=torch.int32, device=q.device))
+    n_tiles = -(-n_valid // SEG_LANES)
+    splits = min(_splits(q, m), max(n_tiles, 1), 65535,
+                 max(1, TOPK_SCRATCH_BYTES // (8 * m * kappa)))
+    out_v = torch.empty((m, splits * kappa), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((m, splits * kappa), dtype=torch.int32, device=q.device)
+    rc = _build.library().vsc_fused_topk(
+        q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0], d,
+        n_valid, kappa, splits, out_v.data_ptr(), out_i.data_ptr(), _stream(q),
+    )
+    _raise_on(rc, "fused_topk")
+    launches["fused_topk"] += 1
+    return ordered_topk(out_v, out_i, kappa)
 
 
 CHAMFER_REGIONS = 9  # the kernel keeps a 9 x 9 region product per thread

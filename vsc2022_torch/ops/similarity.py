@@ -2,9 +2,17 @@
 
 Counterpart of ``vsc2022_tpu/ops/similarity.py``: ``SimilaritySearcher``
 with ``metric="IP"``, ``dtype="float32"`` and ``precision="highest"``.
-It ports the contracts, not the TPU machinery. ``global_topk`` has one
-collection path at every size, the pooled one:
+It ports the contracts, not the TPU machinery. ``global_topk`` collects
+candidates in one of the JAX searcher's two modes, routed as it routes
+them (``_collection_mode``):
 
+* **stream** (corpora under ``POOL_MIN_CORPUS`` rows, or a pool over its
+  memory budget): the ``fused_topk`` kernel gives each query row its
+  top-κ of the winner pool; τ is the global k-th candidate (−inf when k
+  exceeds the rows' κ candidates); the ``count_above`` kernel counts
+  every row's corpus entries ≥ τ exactly; rows whose kept candidates ≥ τ
+  fall short of that count are re-searched over the corpus.
+* **pooled**:
   1. The ``pool_writer`` kernel builds the winner pool: the best 2 of
      every 128-column segment of every query row's scores.
   2. τ is the exact global k-th valid pool value (``torch.topk``). The
@@ -19,18 +27,25 @@ collection path at every size, the pooled one:
      corpus re-search (chunked ``torch.matmul``), and a count equal to
      the kept entries needs no repair at all. Never repair ``amb > 0``
      rows without that count prune.
-  5. The exact global cut: score descending, ties by (q, r) ascending.
 
-The pool and the count come from kernels with the same tile product, so
-they see bit-identical scores; a re-searched row's scores come from
-``torch.matmul`` and can differ from the kernel's in the last bits, so
-that search collects down to a rounding margin below τ.
+Both end in the exact global cut: score descending, ties by (q, r)
+ascending. The candidates, the pool and the counts come from kernels with
+the same tile product, so they see bit-identical scores; a re-searched
+row's scores come from ``torch.matmul`` and can differ from the kernel's
+in the last bits, so that search collects down to a rounding margin
+below τ.
+
+The corpus stages as the JAX searcher stages it: zero rows pad it to a
+multiple of ``min(COL_BLOCK, N rounded up to 128)``, so the routing sees
+the same padded sizes. ``append_rows`` and ``keep_rows`` grow and compact
+it on the device onto exactly the layout a fresh stage gives.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 from typing import Optional, Tuple
 
@@ -45,6 +60,22 @@ logger = logging.getLogger(__name__)
 
 NEG_INF = float("-inf")
 
+# Staging and routing constants at the JAX searcher's values
+# (vsc2022_tpu/ops/similarity.py). The corpus pads to a multiple of its
+# column block; the query rows to the JAX row-block plan.
+COL_BLOCK = 8192
+ROW_BLOCK = 16384
+# Winner-pool memory budget (values + ids, bytes) and the device memory
+# kept free for transients when the budget is measured.
+POOL_BYTES_BUDGET = 3 << 30
+POOL_HBM_RESERVE = 4 << 30
+# Corpus floor for the pooled collection. Measured on a TPU v5e by the JAX
+# package; not yet re-derived for the H100.
+POOL_MIN_CORPUS = 1 << 18
+# Forces a collection mode: "pooled" (still streams when the pool is
+# infeasible) or "stream". The port's name for VSC2022_TPU_COLLECTION.
+COLLECTION_ENV = "VSC2022_TORCH_COLLECTION"
+
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -53,6 +84,37 @@ def _ceil_to(x: int, m: int) -> int:
 def _host_f32(x) -> np.ndarray:
     """A C-contiguous, writable f32 copy-if-needed of a host array."""
     return np.require(x, np.float32, ["C_CONTIGUOUS", "WRITEABLE"])
+
+
+def _col_block(n_rows: int) -> int:
+    return min(COL_BLOCK, _ceil_to(max(n_rows, 1), SEG_LANES))
+
+
+def _padded_rows(nq: int) -> int:
+    """The JAX searcher's staged query rows for nq queries: near-even row
+    blocks of at most ROW_BLOCK rows, each a multiple of 8."""
+    if nq <= ROW_BLOCK:
+        return _ceil_to(max(nq, 1), 8)
+    n_blocks = -(-nq // ROW_BLOCK)
+    block = _ceil_to(-(-nq // n_blocks), 8)
+    return _ceil_to(nq, block)
+
+
+def _check_keep_idx(keep_idx, n_refs: int) -> np.ndarray:
+    """Validate a ``keep_rows`` survivor-index vector: 1-D, strictly
+    increasing, inside [0, n_refs)."""
+    keep_idx = np.ascontiguousarray(keep_idx, dtype=np.int64)
+    if keep_idx.ndim != 1:
+        raise ValueError(f"keep_idx must be 1-D, got shape {keep_idx.shape}")
+    if keep_idx.size:
+        if keep_idx[0] < 0 or keep_idx[-1] >= n_refs:
+            raise ValueError(
+                f"keep_idx outside [0, {n_refs}): "
+                f"{int(keep_idx[0])}..{int(keep_idx[-1])}"
+            )
+        if not np.all(np.diff(keep_idx) > 0):
+            raise ValueError("keep_idx must increase strictly")
+    return keep_idx
 
 
 class _StepClock:
@@ -80,9 +142,10 @@ class SimilaritySearcher:
     """Brute-force inner-product searcher over a fixed reference matrix.
 
     The references are staged to ``device`` once, zero-padded to a
-    multiple of 128 rows (the pool's segment width); ``n_refs`` rows are
-    valid. ``metric``, ``precision`` and ``dtype`` take only the values
-    ported so far and raise on the others.
+    multiple of min(COL_BLOCK, N rounded up to 128) rows, as the JAX
+    searcher pads them; ``n_refs`` rows are valid. ``metric``,
+    ``precision`` and ``dtype`` take only the values ported so far and
+    raise on the others.
     """
 
     def __init__(
@@ -113,21 +176,72 @@ class SimilaritySearcher:
         if refs_t.dim() != 2:
             raise ValueError(f"refs must be [N, D]; got {tuple(refs_t.shape)}")
         self.n_refs, self.dim = refs_t.shape
-        n_pad = _ceil_to(max(self.n_refs, 1), SEG_LANES)
         self._refs = torch.zeros(
-            (n_pad, self.dim), dtype=torch.float32, device=self.device
+            (self._padded_refs(self.n_refs), self.dim),
+            dtype=torch.float32, device=self.device,
         )
         self._refs[: self.n_refs] = refs_t.to(self.device)
         self._ref_norm_max = float(self._refs.norm(dim=1).max())
         self.last_stats: dict = {}
 
+    @staticmethod
+    def _padded_refs(n_rows: int) -> int:
+        return _ceil_to(max(n_rows, 1), _col_block(n_rows))
+
+    def append_rows(self, new_rows) -> None:
+        """Grow the staged corpus: only the new rows cross to the device,
+        landing right after the valid ones; the resident rows are copied
+        device-side when the padding must grow. The result is the layout
+        a fresh stage of all the rows gives."""
+        new = torch.from_numpy(_host_f32(new_rows))
+        if new.dim() != 2 or new.shape[1] != self.dim:
+            raise ValueError(
+                f"rows must be [N, {self.dim}]; got {tuple(new.shape)}"
+            )
+        total = self.n_refs + new.shape[0]
+        n_pad = self._padded_refs(total)
+        refs = self._refs
+        if n_pad > refs.shape[0]:
+            refs = torch.zeros(
+                (n_pad, self.dim), dtype=torch.float32, device=self.device
+            )
+            refs[: self.n_refs] = self._refs[: self.n_refs]
+        new = new.to(self.device)
+        refs[self.n_refs : total] = new
+        if new.shape[0]:
+            self._ref_norm_max = max(
+                self._ref_norm_max, float(new.norm(dim=1).max())
+            )
+        self._refs, self.n_refs = refs, total
+
+    def keep_rows(self, keep_idx) -> None:
+        """Shrink the staged corpus to exactly these surviving rows
+        (strictly increasing indices to KEEP), by one gather on the
+        device: only the index vector crosses. The result is the layout a
+        fresh stage of the survivors gives, zero padding included."""
+        keep_idx = _check_keep_idx(keep_idx, self.n_refs)
+        total = int(keep_idx.size)
+        refs = torch.zeros(
+            (self._padded_refs(total), self.dim),
+            dtype=torch.float32, device=self.device,
+        )
+        idx = torch.from_numpy(keep_idx).to(self.device)
+        refs[:total] = self._refs.index_select(0, idx)
+        self._refs, self.n_refs = refs, total
+        self._ref_norm_max = float(refs.norm(dim=1).max())
+
     def _stage_queries(self, queries) -> torch.Tensor:
-        q = torch.from_numpy(_host_f32(queries))
+        """The queries on the device as contiguous f32; a tensor already
+        there (e.g. bias-augmented queries) passes through."""
+        if isinstance(queries, torch.Tensor):
+            q = queries.to(device=self.device, dtype=torch.float32)
+        else:
+            q = torch.from_numpy(_host_f32(queries))
         if q.dim() != 2 or q.shape[1] != self.dim:
             raise ValueError(
                 f"queries must be [M, {self.dim}]; got {tuple(q.shape)}"
             )
-        return q.to(self.device)
+        return q.to(self.device).contiguous()
 
     def _row_chunk(self) -> int:
         return max(1, PLAIN_CHUNK_ELEMENTS // max(self.n_refs, 1))
@@ -192,11 +306,53 @@ class SimilaritySearcher:
             parts_r.append(cc)
         return torch.cat(parts_s), torch.cat(parts_q), torch.cat(parts_r)
 
+    def _pool_budget_bytes(self, pool_bytes: int) -> int:
+        """Winner-pool memory budget for a pool that needs ``pool_bytes``:
+        the static budget, or, when the pool outgrows it on a GPU, the
+        device's free memory now (the allocator's cached blocks included)
+        less POOL_HBM_RESERVE for the transients."""
+        if pool_bytes <= POOL_BYTES_BUDGET or self.device.type != "cuda":
+            return POOL_BYTES_BUDGET
+        free, _ = torch.cuda.mem_get_info(self.device)
+        cached = (torch.cuda.memory_reserved(self.device)
+                  - torch.cuda.memory_allocated(self.device))
+        return max(POOL_BYTES_BUDGET, free + cached - POOL_HBM_RESERVE)
+
+    def _collection_mode(self, m: int, kappa: int) -> str:
+        """"pooled" or "stream" for an m-row (padded) query block, as the
+        JAX searcher routes it: the pool when the corpus is large enough
+        for it to win and the pool fits its budget and κ leaves the
+        extraction room (4κ ≤ pool width); the stream otherwise.
+        ``VSC2022_TORCH_COLLECTION=pooled|stream`` forces a mode ("pooled"
+        still streams when the pool is infeasible)."""
+        n_pad = self._refs.shape[0]
+        p_total = SEG_KEEP * (n_pad // SEG_LANES)
+        pool_bytes = 8 * m * p_total
+        pool_budget = self._pool_budget_bytes(pool_bytes)
+        pool_ok = pool_bytes <= pool_budget and 4 * kappa <= p_total
+        forced = os.environ.get(COLLECTION_ENV, "")
+        if forced == "stream":
+            return "stream"
+        if forced == "pooled":
+            return "pooled" if pool_ok else "stream"
+        if pool_ok and n_pad >= POOL_MIN_CORPUS:
+            return "pooled"
+        if n_pad >= POOL_MIN_CORPUS and pool_bytes > pool_budget:
+            logger.warning(
+                "pooled collection falls back to streaming: pool needs "
+                "%.2f GiB for %d query rows (budget %.2f GiB); "
+                "<=%d query rows per search would stay pooled",
+                pool_bytes / 2**30, m, pool_budget / 2**30,
+                pool_budget // (8 * p_total) if p_total else 0,
+            )
+        return "stream"
+
     def global_topk(
         self, queries, k: int, kappa: Optional[int] = None
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Exact global top-k over all (query row, ref row) pairs.
 
+        ``queries``: [M, D] host array, or a tensor (kept on the device).
         Returns (query_idx, ref_idx, score) sorted by score best-first,
         ties by (query_idx, ref_idx) ascending.
         """
@@ -209,7 +365,58 @@ class SimilaritySearcher:
         clock = _StepClock()
         q = self._stage_queries(queries)
         clock.mark("stage_queries")
+        mode = self._collection_mode(_padded_rows(nq), kappa)
+        if mode == "pooled":
+            flat, stats = self._collect_pooled(q, kappa, k_eff, clock)
+        else:
+            flat, stats = self._collect_stream(q, kappa, k_eff, clock)
+        clock.mark("repair")
+        result = self._final_cut(*flat, k_eff)
+        clock.mark("final_cut")
+        self.last_stats = dict(mode=mode, kappa=kappa, **stats,
+                               seconds=clock.seconds)
+        logger.info("global_topk k=%d: %s", k_eff, self.last_stats)
+        return result
 
+    def _collect_stream(self, q: torch.Tensor, kappa: int, k_eff: int, clock):
+        """The streaming collection: per-row top-κ candidates, τ, exact
+        corpus counts for every row, and a corpus re-search of the rows
+        whose candidates ≥ τ fall short of their count. Returns the
+        (scores, query rows, ref ids) holding every entry that can make
+        the cut, and the stats."""
+        nq = q.shape[0]
+        top_s, top_i = kernels.fused_topk(q, self._refs, self.n_refs, kappa)
+        clock.mark("candidates")
+        # τ is the global k-th candidate; with k beyond the rows' κ
+        # candidates the true k-th is unknowable from them: −inf.
+        if k_eff > nq * kappa:
+            tau = NEG_INF
+        else:
+            tau = float(torch.topk(top_s.reshape(-1), k_eff).values[-1])
+        counts = kernels.count_above(q, self._refs, tau, self.n_refs).long()
+        above = (top_s >= tau) & torch.isfinite(top_s)
+        kept = above.sum(1)
+        # counts are exact corpus counts, so kept ≠ count flags exactly
+        # the deficient rows (with τ = −inf every row is suspect, and a
+        # row holding all its entries is complete).
+        deficient = kept != counts
+        clock.mark("tau_and_counts")
+        keep = above & ~deficient[:, None]
+        kq, kc = torch.nonzero(keep, as_tuple=True)
+        parts_s, parts_q, parts_r = [top_s[kq, kc]], [kq], [top_i[kq, kc].long()]
+        corpus_rows = torch.nonzero(deficient, as_tuple=True)[0]
+        if corpus_rows.numel():
+            cs, cq, cr = self._corpus_above(q[corpus_rows], tau)
+            parts_s.append(cs)
+            parts_q.append(corpus_rows[cq])
+            parts_r.append(cr)
+        flat = (torch.cat(parts_s), torch.cat(parts_q), torch.cat(parts_r))
+        return flat, {"tau": tau, "corpus_rows": int(corpus_rows.numel())}
+
+    def _collect_pooled(self, q: torch.Tensor, kappa: int, k_eff: int, clock):
+        """The pooled collection (module docstring, steps 1-4); returns
+        what ``_collect_stream`` returns."""
+        nq = q.shape[0]
         pv, pi = kernels.pool_writer(q, self._refs, self.n_refs)
         pv = pv.view(nq, -1)  # [nq, P]: slot pairs adjacent per segment
         pi = pi.view(nq, -1)
@@ -218,10 +425,9 @@ class SimilaritySearcher:
         if n_valid_pool < k_eff:
             # Fewer valid pool entries than k: every row is suspect, so
             # every row is searched exactly (τ = −inf keeps everything).
-            tau = NEG_INF
-            rep_s, rep_q, rep_r = self._corpus_above(q, tau)
-            self.last_stats = {"tau": tau, "corpus_rows": nq}
-            return self._final_cut(rep_s, rep_q, rep_r, k_eff)
+            return self._corpus_above(q, NEG_INF), {
+                "tau": NEG_INF, "corpus_rows": nq,
+            }
         tau = float(torch.topk(pv.reshape(-1), k_eff).values[-1])
         clock.mark("tau")
 
@@ -267,20 +473,13 @@ class SimilaritySearcher:
             parts_q.append(corpus_rows[cq])
             parts_r.append(cr)
         flat = (torch.cat(parts_s), torch.cat(parts_q), torch.cat(parts_r))
-        clock.mark("repair")
-        result = self._final_cut(*flat, k_eff)
-        clock.mark("final_cut")
-        self.last_stats = {
+        return flat, {
             "tau": tau,
-            "kappa": kappa,
             "flagged_rows": int(flagged.sum()),
             "amb_rows": int(amb_rows.numel()),
             "pool_repair_rows": int(pool_rows.numel()),
             "corpus_rows": int(corpus_rows.numel()),
-            "seconds": clock.seconds,
         }
-        logger.info("global_topk k=%d: %s", k_eff, self.last_stats)
-        return result
 
     @staticmethod
     def _final_cut(flat_s, flat_q, flat_r, k_eff: int):

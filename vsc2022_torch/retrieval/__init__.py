@@ -6,4 +6,7 @@ from vsc2022_torch.retrieval.candidates import (  # noqa: F401
     MaxScoreAggregation,
     ScoreAggregation,
 )
-from vsc2022_torch.retrieval.index import VideoIndex  # noqa: F401
+from vsc2022_torch.retrieval.index import (  # noqa: F401
+    ScoreNormalizedVideoIndex,
+    VideoIndex,
+)

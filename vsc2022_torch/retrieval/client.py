@@ -1,0 +1,309 @@
+"""Python client for the port's resident retrieval server.
+
+The server (``python -m vsc2022_torch.retrieval.serve``) speaks a line
+protocol over stdin/stdout or TCP; this client turns it into calls with
+typed results. It is the port's own copy of the JAX package's client
+(``vsc2022_tpu/retrieval/client.py``), which cannot be imported without
+JAX. Two ways in:
+
+    # The server as a child process (stdio):
+    with ServeClient.spawn("refs.npz", score_norm_features="noise.npz",
+                           matches=True, device="cpu") as client:
+        result = client.search("queries.npz")
+        pairs = CandidatePair.read_csv(result.candidates_csv)
+        client.add("more_refs.npz")
+
+    # Or attach to a running --listen server:
+    with ServeClient.connect("127.0.0.1", 7845) as client:
+        ...
+
+One request at a time per client: the protocol is strictly request and
+response. Concurrent callers open one connection each to a ``--listen``
+server, whose sessions interleave under its device lock.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import signal
+import subprocess
+import sys
+from typing import List, Optional, Sequence, Tuple
+
+
+class ServeError(RuntimeError):
+    """A request the server answered with ``error\\t<message>``."""
+
+
+@dataclasses.dataclass
+class SearchResult:
+    """One answered path search (where the CSVs are, counts, seconds)."""
+
+    candidates_csv: str
+    n_candidates: int
+    matches_csv: Optional[str]
+    n_matches: Optional[int]
+    seconds: float
+
+
+@dataclasses.dataclass
+class BytesSearchResult:
+    """One answered in-band search: the CSV bytes themselves."""
+
+    candidates_csv: bytes
+    n_candidates: int
+    matches_csv: Optional[bytes]
+    n_matches: Optional[int]
+    seconds: float
+
+
+@dataclasses.dataclass
+class ServeStats:
+    """Live server state (the ``stats`` command)."""
+
+    n_videos: int
+    n_frames: int
+    dtype: str
+    sharded: bool
+    matches: bool
+
+
+def _die_with_parent() -> None:
+    """preexec_fn: the child gets SIGKILL when its parent dies (Linux)."""
+    if sys.platform != "linux":
+        return
+    import ctypes
+
+    pr_set_pdeathsig = 1
+    ctypes.CDLL(None).prctl(pr_set_pdeathsig, signal.SIGKILL, 0, 0, 0)
+    if os.getppid() == 1:  # the parent died before the call
+        os._exit(1)
+
+
+class ServeClient:
+    """Session against one resident server; not thread-safe."""
+
+    def __init__(self, rfile, wfile, proc=None, sock=None):
+        self._rfile = rfile
+        self._wfile = wfile
+        self._proc = proc
+        self._sock = sock
+        self.n_ref_videos, self.stage_seconds = self._read_ready()
+
+    # -- constructors ------------------------------------------------
+
+    @classmethod
+    def spawn(
+        cls,
+        ref_features: str,
+        *,
+        score_norm_features: Optional[str] = None,
+        ref_fine_features: Optional[str] = None,
+        matches: bool = False,
+        device: str = "cuda",
+        extra_args: Sequence[str] = (),
+        env=None,
+        cwd=None,
+        stderr=None,
+    ) -> "ServeClient":
+        """Start ``python -m vsc2022_torch.retrieval.serve`` as a child
+        process and attach over its stdin/stdout, with ``--f32`` (required
+        until bf16 serving is ported). Keyword flags mirror the server's;
+        anything else goes through ``extra_args``. The child
+        ends with the client (``close`` sends ``quit``) and is killed if
+        the calling process dies."""
+        cmd = [
+            sys.executable, "-m", "vsc2022_torch.retrieval.serve",
+            "--ref_features", os.path.abspath(ref_features),
+            "--device", device, "--f32",
+        ]
+        if score_norm_features:
+            cmd += ["--score_norm_features", os.path.abspath(score_norm_features)]
+        if ref_fine_features:
+            cmd += ["--ref_fine_features", os.path.abspath(ref_fine_features)]
+        if matches:
+            cmd.append("--matches")
+        cmd += list(extra_args)
+        proc = subprocess.Popen(
+            cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=stderr, env=env, cwd=cwd, preexec_fn=_die_with_parent,
+        )
+        try:
+            return cls(proc.stdout, proc.stdin, proc=proc)
+        except BaseException:
+            proc.kill()
+            proc.wait()
+            raise
+
+    @classmethod
+    def connect(cls, host: str, port: int, timeout: Optional[float] = None
+                ) -> "ServeClient":
+        """Attach to a running ``--listen HOST:PORT`` server. ``timeout``
+        bounds the connection only; replies block as long as they take."""
+        import socket
+
+        sock = socket.create_connection((host, port), timeout=timeout)
+        try:
+            sock.settimeout(None)
+            return cls(sock.makefile("rb"), sock.makefile("wb"), sock=sock)
+        except BaseException:
+            sock.close()
+            raise
+
+    # -- protocol ----------------------------------------------------
+
+    def _read_line(self) -> str:
+        return self._rfile.readline().decode("utf-8", "replace").strip()
+
+    def _read_ready(self):
+        line = self._read_line()
+        parts = line.split("\t")
+        if parts[0] != "ready":
+            detail = f"expected ready line, got: {line!r}"
+            if self._proc is not None and not line:
+                try:
+                    code = self._proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    code = None
+                detail += f" (server exited with code {code} during startup)"
+            raise ServeError(detail)
+        return int(parts[1]), float(parts[2])
+
+    def _rpc(self, line: str, blobs: Sequence[bytes] = ()) -> List[str]:
+        self._wfile.write((line + "\n").encode("utf-8"))
+        for blob in blobs:
+            self._wfile.write(blob)
+        self._wfile.flush()
+        reply = self._read_line()
+        if not reply:
+            raise ServeError("server closed the connection")
+        parts = reply.split("\t")
+        if parts[0] == "error":
+            raise ServeError("\t".join(parts[1:]))
+        if parts[0] not in ("ok", "okb"):
+            raise ServeError(f"malformed server reply: {reply!r}")
+        return parts[1:]
+
+    def _read_blob(self, n: int) -> bytes:
+        blob = self._rfile.read(n)
+        if len(blob) != n:
+            raise ServeError(f"short server payload: {len(blob)} of {n} bytes")
+        return blob
+
+    # -- requests ----------------------------------------------------
+
+    def search(
+        self,
+        query_features: str,
+        *,
+        query_fine_features: Optional[str] = None,
+        candidates_csv: Optional[str] = None,
+        matches_csv: Optional[str] = None,
+    ) -> SearchResult:
+        """Search one query npz; returns where the server wrote the CSVs
+        (defaults: ``<query_npz>.candidates.csv`` / ``.matches.csv``).
+        DnS servers need ``query_fine_features`` too. Paths are made
+        absolute here: the server may run in another directory."""
+        fields = [os.path.abspath(query_features)]
+        if query_fine_features is not None:
+            fields.append(os.path.abspath(query_fine_features))
+        if candidates_csv is not None or matches_csv is not None:
+            fields.append(os.path.abspath(candidates_csv) if candidates_csv else "")
+        if matches_csv is not None:
+            fields.append(os.path.abspath(matches_csv))
+        parts = self._rpc("\t".join(fields))
+        if len(parts) >= 5:
+            return SearchResult(parts[0], int(parts[1]), parts[2], int(parts[3]),
+                                float(parts[4]))
+        return SearchResult(parts[0], int(parts[1]), None, None, float(parts[2]))
+
+    def search_bytes(self, query_npz: bytes, fine_npz: Optional[bytes] = None
+                     ) -> BytesSearchResult:
+        """In-band search (``searchb``): the query npz bytes travel on the
+        wire and the CSV bytes come back the same way."""
+        blobs = [query_npz] + ([fine_npz] if fine_npz is not None else [])
+        parts = self._rpc("\t".join(["searchb"] + [str(len(b)) for b in blobs]),
+                          blobs=blobs)
+        # okb\t<n_cand>\t<cand_len>[\t<n_matches>\t<match_len>]\t<s>
+        cand = self._read_blob(int(parts[1]))
+        if len(parts) >= 5:
+            found = self._read_blob(int(parts[3]))
+            return BytesSearchResult(cand, int(parts[0]), found, int(parts[2]),
+                                     float(parts[4]))
+        return BytesSearchResult(cand, int(parts[0]), None, None, float(parts[2]))
+
+    def add(self, ref_features: str, ref_fine_features: Optional[str] = None) -> int:
+        """Grow the served corpus; returns the number of videos added. DnS
+        servers need the matching fine npz too."""
+        fields = ["add", os.path.abspath(ref_features)]
+        if ref_fine_features is not None:
+            fields.append(os.path.abspath(ref_fine_features))
+        parts = self._rpc("\t".join(fields))
+        if parts[0] != "added":
+            raise ServeError(f"unexpected add reply: {parts!r}")
+        return int(parts[1])
+
+    def remove(self, video_ids: Sequence[str]) -> Tuple[int, int]:
+        """Drop reference videos; returns (videos, frame rows) removed."""
+        ids = [str(v) for v in video_ids]
+        if not ids:
+            raise ValueError("remove needs at least one video id")
+        parts = self._rpc("\t".join(["remove"] + ids))
+        if parts[0] != "removed":
+            raise ServeError(f"unexpected remove reply: {parts!r}")
+        return int(parts[1]), int(parts[2])
+
+    def save(self, ref_features: str, ref_fine_features: Optional[str] = None) -> int:
+        """Snapshot the served corpus to npz; returns the number of videos
+        saved. DnS servers need a second path for the fine features."""
+        fields = ["save", os.path.abspath(ref_features)]
+        if ref_fine_features is not None:
+            fields.append(os.path.abspath(ref_fine_features))
+        parts = self._rpc("\t".join(fields))
+        if parts[0] != "saved":
+            raise ServeError(f"unexpected save reply: {parts!r}")
+        return int(parts[1])
+
+    def stats(self) -> ServeStats:
+        parts = self._rpc("stats")
+        if parts[0] != "stats":
+            raise ServeError(f"unexpected stats reply: {parts!r}")
+        return ServeStats(int(parts[1]), int(parts[2]), parts[3],
+                          bool(int(parts[4])), bool(int(parts[5])))
+
+    def launches(self, reset: bool = False) -> dict:
+        """The server process's kernel launch counts ({kernel: count});
+        ``reset`` zeroes them first."""
+        parts = self._rpc("launches\treset" if reset else "launches")
+        if parts[0] != "launches":
+            raise ServeError(f"unexpected launches reply: {parts!r}")
+        return json.loads(parts[1])
+
+    # -- lifecycle ---------------------------------------------------
+
+    def close(self, shutdown: bool = False) -> None:
+        """End the session (``quit``); ``shutdown=True`` stops a TCP
+        server. A spawned child is reaped (killed after 30 s if wedged)."""
+        try:
+            self._wfile.write(b"shutdown\n" if shutdown else b"quit\n")
+            self._wfile.flush()
+        except (BrokenPipeError, ValueError, OSError):
+            pass  # already gone
+        if self._sock is not None:
+            self._rfile.close()
+            self._wfile.close()
+            self._sock.close()
+        if self._proc is not None:
+            try:
+                self._proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self._proc.kill()
+                self._proc.wait()
+
+    def __enter__(self) -> "ServeClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -1,0 +1,735 @@
+"""Resident retrieval server on the PyTorch/CUDA port: stage the corpus
+once, serve query batches at search speed.
+
+Counterpart of ``vsc2022_tpu/retrieval/serve.py``, with the same flags
+plus ``--device`` (``cuda`` unless ``--device cpu`` is given; asking for
+CUDA where there is none raises). The reference has no serving story:
+every eval invocation reloads the reference corpus and rebuilds its
+FAISS index (reference: vsc/descriptor_eval_lib.py:27-60). This process
+stages the corpus on the device once; each request runs the standard
+candidate protocol (global top-k over all frame pairs, max-score
+aggregation, per-query budgets; vsc/descriptor_eval_lib.py:23-24) and
+writes a candidates CSV.
+
+* ``--score_norm_features``: the noise corpus stages beside the
+  references and every request's CSLS bias is computed on the device
+  (``ScoreNormalizedVideoIndex``).
+* ``--matches``: after retrieval the TN localizer aligns the top
+  ``--localize_per_query`` pairs per query (the sscd_baseline stage)
+  and a matches CSV is written too. The localizer's reference rows stay
+  on the device across requests.
+* ``--ref_fine_features``: the DnS two-stage track. Retrieval runs on
+  the staged coarse corpus (the score-normalized cg npz of dns_index),
+  localization on the fused fine chamfer + coarse similarity (the
+  dns_baseline stage). Requests carry two query files, coarse and fine.
+
+Wire protocol (line-oriented, the same over stdin/stdout or, with
+``--listen HOST:PORT``, over TCP):
+
+    request:   <query_npz_path>[\\t<candidates_csv>[\\t<matches_csv>]]\\n
+    DnS mode:  <query_coarse_npz>\\t<query_fine_npz>[\\t<candidates_csv>[\\t<matches_csv>]]\\n
+    add refs:  add\\t<refs_npz>\\n   (DnS: add\\t<coarse_npz>\\t<fine_npz>\\n)
+    remove:    remove\\t<video_id>[\\t<video_id>...]\\n
+    save:      save\\t<refs_npz>\\n   (DnS: save\\t<coarse_npz>\\t<fine_npz>\\n)
+    stats:     stats\\n
+    launches:  launches[\\treset]\\n   (the port's kernel launch counts, zeroed first with reset)
+    response:  ok\\t<candidates_csv>\\t<n_pairs>\\t<seconds>\\n
+         or:   ok\\t<candidates_csv>\\t<n_pairs>\\t<matches_csv>\\t<n_matches>\\t<seconds>\\n
+         or:   ok\\tadded\\t<n_new_videos>\\t<seconds>\\n
+         or:   ok\\tremoved\\t<n_videos>\\t<n_frame_rows>\\t<seconds>\\n
+         or:   ok\\tsaved\\t<n_videos>\\t<refs_npz>[\\t<fine_npz>]\\t<seconds>\\n
+         or:   ok\\tstats\\t<n_videos>\\t<n_frames>\\t<dtype>\\t<sharded>\\t<matches>\\n
+         or:   ok\\tlaunches\\t<json {kernel: count}>\\n
+    error:     error\\t<message>\\n        (the server keeps serving)
+    startup:   ready\\t<n_ref_videos>\\t<stage_seconds>\\n
+
+In-band forms (the payload bytes ride the request stream, length
+prefixed, right after the header line; no shared filesystem needed):
+
+    search:    searchb\\t<query_npz_len>[\\t<fine_npz_len>]\\n<bytes...>
+    add refs:  addb\\t<refs_npz_len>[\\t<fine_npz_len>]\\n<bytes...>
+    snapshot:  saveb\\n
+    response:  okb\\t<n_pairs>\\t<cand_csv_len>[\\t<n_matches>\\t<match_csv_len>]\\t<seconds>\\n<bytes...>
+         or:   okb\\t<n_videos>\\t<coarse_npz_len>[\\t<fine_npz_len>]\\t<seconds>\\n<bytes...>
+
+Both request forms run the same retrieval/TN core, so in-band results
+equal the path protocol's byte for byte. ``add`` grows the corpus on the
+device (only the new rows cross to it; duplicate ids are rejected),
+``remove`` compacts it there onto the layout a fresh server over the
+survivors stages, and ``save`` snapshots the current reference set in
+corpus row order, so a server restarted on the snapshot answers as the
+live one did. A failed add, remove or save leaves the index and the
+localizer agreeing. ``quit`` (or EOF) ends a session (one TCP client);
+``shutdown`` stops the server. TCP sessions run one thread per client,
+with requests serialized on one device lock; the parent's stdout gets
+``listening\\t<host>:<port>`` with the bound port (``:0`` picks one).
+
+Not ported yet (each raises at startup, or answers ``error`` for a
+command): the bf16 default (pass ``--f32``), ``--int8``, ``--ivf``,
+``--sharded``, the multi-host flags, ``--baseline`` with ``extract`` /
+``searchv``, and ``probe``.
+
+    python -m vsc2022_torch.retrieval.serve --ref_features refs.npz --f32 \\
+        --score_norm_features noise.npz --matches [--listen 127.0.0.1:0]
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import io
+import json
+import logging
+import sys
+import time
+
+import numpy as np
+
+from vsc2022_torch.device import resolve_device
+from vsc2022_torch.metrics import CandidatePair, Dataset, Match
+from vsc2022_torch.retrieval.candidates import MaxScoreAggregation, rank_candidates
+from vsc2022_torch.retrieval.index import ScoreNormalizedVideoIndex, VideoIndex
+from vsc2022_torch.retrieval.score_norm import l2_normalize_rows
+from vsc2022_torch.storage import convert_to_dict, load_features, store_features
+from vsc2022_torch.types import VideoFeature
+
+logger = logging.getLogger("vsc2022_torch.serve")
+
+parser = argparse.ArgumentParser(
+    description="Resident retrieval server over stdin/stdout (PyTorch/CUDA port)"
+)
+parser.add_argument(
+    "--ref_features", required=True,
+    help="Reference descriptors npz, staged on the device once",
+)
+parser.add_argument(
+    "--score_norm_features",
+    help="Noise descriptors npz: serve score-normalized search",
+)
+parser.add_argument("--beta", type=float, default=1.2)
+parser.add_argument(
+    "--retrieval_per_query", type=int, default=1200,
+    help="Frame-hit budget per query video (challenge protocol: 1200)",
+)
+parser.add_argument(
+    "--pairs_per_query", type=int, default=25,
+    help="Aggregated pair budget per query video (protocol: 25)",
+)
+parser.add_argument(
+    "--sharded", action="store_true",
+    help="Shard the reference corpus across devices (not ported yet)",
+)
+_dtype_group = parser.add_mutually_exclusive_group()
+_dtype_group.add_argument(
+    "--bf16", action="store_true",
+    help="bfloat16 corpus and tables, the JAX package's serving default "
+    "(not ported yet: pass --f32)",
+)
+_dtype_group.add_argument(
+    "--f32", action="store_true",
+    help="Stage the corpus and localizer tables in float32 (required "
+    "until bf16 is ported)",
+)
+_dtype_group.add_argument(
+    "--int8", action="store_true",
+    help="Per-row int8 search corpus (not ported yet)",
+)
+parser.add_argument(
+    "--ivf", type=int, default=None, metavar="NLIST",
+    help="IVF pruned corpus layout (not ported yet)",
+)
+parser.add_argument("--ivf_nprobe", type=int, default=None,
+                    help="Blocks probed under --ivf (not ported yet)")
+parser.add_argument(
+    "--no_warmup", action="store_true",
+    help="Skip the staging/kernel warm-up search before 'ready'",
+)
+parser.add_argument(
+    "--matches", action="store_true",
+    help="Also localize (TN alignment) and write a matches CSV",
+)
+parser.add_argument(
+    "--localize_per_query", type=float, default=5,
+    help="Pairs per query to localize (sscd_baseline budget: 5)",
+)
+parser.add_argument(
+    "--vcsl_faithful_tn", action="store_true",
+    help="Published VCSL TN parity mode for the localizer",
+)
+parser.add_argument(
+    "--ref_fine_features",
+    help="DnS fine reference npz: serve the DnS two-stage track. Requests "
+    "then carry two query files: <coarse_npz>\\t<fine_npz>. Implies "
+    "--matches; --ref_features must be the score-normalized coarse npz "
+    "from dns_index",
+)
+parser.add_argument(
+    "--fg_type", choices=["att", "bin"], default="att",
+    help="DnS fine feature variant (bin rescales to ±1)",
+)
+parser.add_argument(
+    "--listen",
+    help="HOST:PORT: serve the same line protocol over TCP instead of "
+    "stdin/stdout (port 0 binds a free port, reported on stdout as "
+    "listening\\t<host>:<port>)",
+)
+parser.add_argument(
+    "--device", default="cuda", choices=("cuda", "cpu"),
+    help="Device to serve on (default cuda; raises when no GPU is present)",
+)
+_multihost = parser.add_argument_group("Multi-host (not ported yet)")
+_multihost.add_argument("--coordinator")
+_multihost.add_argument("--num_processes", type=int, default=1)
+_multihost.add_argument("--process_id", type=int, default=0)
+_multihost.add_argument("--control")
+_extract = parser.add_argument_group(
+    "Resident extraction (not ported yet: extract / searchv)"
+)
+_extract.add_argument("--baseline", choices=["sscd", "dino", "dns"])
+_extract.add_argument("--checkpoint_path")
+_extract.add_argument("--torchscript_path")
+_extract.add_argument("--extract_transforms", default="RESIZE_320_CENTER")
+_extract.add_argument("--extract_batch_size", type=int, default=32)
+_extract.add_argument("--extract_compute_dtype",
+                      choices=["float32", "bfloat16"], default="float32")
+_extract.add_argument("--fold_bn", action="store_true")
+_extract.add_argument("--fps", type=float, default=1)
+_extract.add_argument("--ffmpeg_path", default="ffmpeg")
+_extract.add_argument("--video_extensions", default="mp4")
+
+
+def check_ported(args) -> None:
+    """Raise for every flag whose mode is not ported yet."""
+    unported = []
+    if args.bf16 or args.int8 or not args.f32:
+        unported.append(
+            "bf16/int8 serving (the JAX package's default is bf16): pass --f32"
+        )
+    if args.ivf is not None or args.ivf_nprobe is not None:
+        unported.append("--ivf")
+    if args.sharded:
+        unported.append("--sharded")
+    if (args.num_processes or 1) > 1 or args.coordinator or args.control or args.process_id:
+        unported.append("multi-host serving")
+    if args.baseline or args.checkpoint_path or args.torchscript_path:
+        unported.append("--baseline (extract / searchv)")
+    if unported:
+        raise NotImplementedError("not ported yet: " + "; ".join(unported))
+
+
+def build_index(args, device):
+    refs = load_features(args.ref_features, Dataset.REFS)
+    dim = refs[0].dimensions()
+    if args.score_norm_features:
+        noise = load_features(args.score_norm_features, Dataset.REFS)
+        index = ScoreNormalizedVideoIndex(dim, noise, beta=args.beta, device=device)
+    else:
+        index = VideoIndex(dim, device=device)
+    index.add(refs)
+    return index, refs, dim
+
+
+def build_localizer(index, refs, args, device):
+    """Resident TN localizer over the (transformed) reference frames,
+    with the sscd_baseline stage parameters (reference:
+    vsc/baseline/sscd_baseline.py:117-135): score-normalized features use
+    MaxSim over +0.5-biased similarity; raw features are L2-normalized
+    and take the candidate's retrieval score. The DnS mode fuses the fine
+    chamfer with the coarse similarity under MaxSim scoring (reference:
+    vsc/baseline/dns_baseline.py:196-208)."""
+    from vsc2022_torch.localization import (
+        TNLocalizationCandidateScore,
+        TNLocalizationMaxSim,
+    )
+
+    common = dict(model_type="TN", tn_max_step=5, min_length=4,
+                  vcsl_faithful=args.vcsl_faithful_tn, device=device)
+    refs_loc = _localizer_refs(index, refs, args)
+    if args.ref_fine_features:
+        from vsc2022_torch.baseline.dns_baseline import DnSLocalization
+
+        refs_fine = convert_to_dict(
+            load_features(args.ref_fine_features, Dataset.REFS)
+        )
+        # The add path's coverage rule: every coarse video needs its fine
+        # rows, or localization and save would fail on it much later.
+        missing = [str(vf.video_id) for vf in refs if vf.video_id not in refs_fine]
+        if missing:
+            raise ValueError(
+                f"Fine npz is missing reference videos: {missing[:5]} "
+                "(coarse and fine sets must cover the same video ids)"
+            )
+        return DnSLocalization(
+            {}, refs_fine, [], refs, fg_type=args.fg_type,
+            similarity_bias=0.5, **common,
+        )
+    if args.score_norm_features:
+        return TNLocalizationMaxSim([], refs_loc, similarity_bias=0.5, **common)
+    return TNLocalizationCandidateScore([], refs_loc, **common)
+
+
+def _localizer_queries(index, queries, args):
+    """A request's query features in the localizer's space: the full
+    score-norm transform with the noise-NN bias dimension, plain row L2
+    for raw features, or unchanged for DnS (the cg npz is already
+    normalized)."""
+    if args.ref_fine_features:
+        return queries
+    if args.score_norm_features:
+        return index.localizer_queries(queries)
+    return [
+        dataclasses.replace(q, feature=l2_normalize_rows(q.feature))
+        for q in queries
+    ]
+
+
+def _localizer_refs(index, refs, args):
+    """Reference features in the localizer's space (unused in DnS mode,
+    whose localizer takes the coarse and fine features as they are)."""
+    if args.score_norm_features:
+        return index.localizer_ref_features(refs)
+    return [
+        dataclasses.replace(vf, feature=l2_normalize_rows(vf.feature))
+        for vf in refs
+    ]
+
+
+def _add_refs(index, localizer, parts, args, payloads=None) -> str:
+    """Serving-time corpus growth: the index and the resident localizer
+    tables take the new reference videos. Duplicate ids are rejected.
+    The in-band form (``addb``) shares this body with BytesIO sources."""
+    t0 = time.perf_counter()
+    dns = bool(args.ref_fine_features) and localizer is not None
+    if payloads is not None:
+        want = 2 if dns else 1
+        if len(payloads) != want:
+            raise ValueError(
+                "addb needs payload lengths: addb\\t<npz_len>"
+                + ("\\t<fine_npz_len>" if want == 2 else "")
+            )
+        sources = [io.BytesIO(b) for b in payloads]
+    else:
+        if len(parts) < 2:
+            raise ValueError("add needs a reference npz: add\\t<refs_npz>")
+        sources = parts[1:]
+    refs = load_features(sources[0], Dataset.REFS)
+    dup = [str(r.video_id) for r in refs if r.video_id in index.video_metadata]
+    if dup:
+        raise ValueError(f"Reference ids already indexed: {dup[:5]}")
+    fine = None
+    if dns:
+        if len(sources) < 2:
+            raise ValueError(
+                "DnS add needs two files: add\\t<coarse_npz>\\t<fine_npz>"
+            )
+        # The fine side loads and cross-checks before anything changes.
+        fine = convert_to_dict(load_features(sources[1], Dataset.REFS))
+        missing = [str(vf.video_id) for vf in refs if vf.video_id not in fine]
+        if missing:
+            raise ValueError(f"Fine npz is missing coarse videos: {missing[:5]}")
+
+    def grow_localizer():
+        if fine is not None:
+            localizer.add_refs(refs, refs_fine=fine)
+        else:
+            localizer.add_refs(_localizer_refs(index, refs, args))
+
+    # The index validates before it changes anything, so a rejected add
+    # leaves the localizer untouched.
+    try:
+        index.add(refs)
+    except Exception:
+        if localizer is not None and refs and refs[0].video_id in index.video_metadata:
+            # Past validation the index raises only when the device append
+            # fails, with its host bookkeeping already grown: grow the
+            # localizer too, so both holders agree, and raise the first
+            # error.
+            try:
+                grow_localizer()
+            except Exception:
+                pass
+        raise
+    if localizer is not None:
+        grow_localizer()
+    return f"ok\tadded\t{len(refs)}\t{time.perf_counter() - t0:.3f}"
+
+
+def _remove_refs(index, localizer, parts) -> str:
+    """Serving-time corpus shrink: the index and the resident localizer
+    tables drop these videos. Both holders are validated before either
+    changes."""
+    t0 = time.perf_counter()
+    ids = list(dict.fromkeys(p for p in parts[1:] if p))
+    if not ids:
+        raise ValueError(
+            "remove needs video ids: remove\\t<video_id>[\\t<video_id>...]"
+        )
+    missing = [v for v in ids if v not in index.video_metadata]
+    if not missing and localizer is not None:
+        missing = [v for v in ids if v not in localizer.refs]
+    if missing:
+        raise ValueError(f"Video ids not indexed: {missing[:5]}")
+    try:
+        n_rows = index.remove(ids)
+    except Exception:
+        # Past validation the index raises only when the device
+        # compaction fails, with its host bookkeeping already shrunk:
+        # shrink the localizer too before raising.
+        if localizer is not None:
+            localizer.remove_refs(ids)
+        raise
+    if localizer is not None:
+        localizer.remove_refs(ids)
+    return f"ok\tremoved\t{len(ids)}\t{n_rows}\t{time.perf_counter() - t0:.3f}"
+
+
+def _snapshot(index, localizer, args):
+    """The current reference videos (and their fine features in the same
+    order, DnS), or a ValueError when the corpus is empty."""
+    feats = index.features()
+    if not feats:
+        raise ValueError(
+            "Nothing to save: the served corpus is empty "
+            "(every reference video was removed)"
+        )
+    fine = None
+    if args.ref_fine_features:
+        fine = [localizer.refs_fine[vf.video_id] for vf in feats]
+    return feats, fine
+
+
+def _save_refs(index, localizer, parts, args) -> str:
+    """Snapshot the current reference set to npz (the standard schema,
+    corpus row order). Pure host work: a failure changes nothing."""
+    t0 = time.perf_counter()
+    if len(parts) < 2:
+        raise ValueError("save needs an output path: save\\t<refs_npz>")
+    feats, fine = _snapshot(index, localizer, args)
+    if fine is not None and len(parts) < 3:
+        raise ValueError(
+            "DnS save needs two paths: save\\t<coarse_npz>\\t<fine_npz>"
+        )
+    # Coarse first: a failed fine write leaves a coarse file that loads.
+    store_features(parts[1], feats, Dataset.REFS)
+    if fine is not None:
+        store_features(parts[2], fine, Dataset.REFS)
+    tail = f"\t{parts[2]}" if args.ref_fine_features else ""
+    return (
+        f"ok\tsaved\t{len(feats)}\t{parts[1]}{tail}"
+        f"\t{time.perf_counter() - t0:.3f}"
+    )
+
+
+def _save_bytes(index, localizer, args):
+    """In-band snapshot (``saveb``): the npz bytes (coarse, then fine in
+    the DnS mode) go back on the wire."""
+    t0 = time.perf_counter()
+    feats, fine = _snapshot(index, localizer, args)
+    blobs = []
+    for videos in [feats] + ([fine] if fine is not None else []):
+        buf = io.BytesIO()
+        store_features(buf, videos, Dataset.REFS)
+        blobs.append(buf.getvalue())
+    header = f"okb\t{len(feats)}\t" + "\t".join(str(len(b)) for b in blobs)
+    return header + f"\t{time.perf_counter() - t0:.3f}", blobs
+
+
+def _search_candidates(index, aggregation, queries, args):
+    """Retrieval core of both request forms: budgeted global search,
+    then ranked candidate pairs."""
+    budget = args.retrieval_per_query * len(queries)
+    matches = index.search(queries, global_k=budget)
+    candidates = rank_candidates(matches, aggregation)
+    return candidates[: args.pairs_per_query * len(queries)]
+
+
+def _localize_candidates(index, localizer, queries, queries_fine, candidates, args):
+    """TN stage: swap the localizer's query side (the reference tables
+    stay staged) and align the top candidate pairs."""
+    from vsc2022_torch.baseline.pipeline import align_candidates
+
+    if queries_fine is not None:
+        localizer.set_queries(queries, queries_fine=queries_fine)
+    else:
+        localizer.set_queries(_localizer_queries(index, queries, args))
+    to_localize = candidates[: int(args.localize_per_query * len(queries))]
+    return align_candidates(localizer, to_localize)
+
+
+def _search_bytes(index, aggregation, localizer, payloads, args):
+    """In-band search (``searchb``): query npz bytes in, CSV bytes out."""
+    t0 = time.perf_counter()
+    want = 2 if args.ref_fine_features else 1
+    if payloads is None or len(payloads) != want:
+        raise ValueError(
+            "searchb needs payload lengths: searchb\\t<npz_len>"
+            + ("\\t<fine_npz_len>" if want == 2 else "")
+        )
+    queries = load_features(io.BytesIO(payloads[0]), Dataset.QUERIES)
+    queries_fine = None
+    if want == 2:
+        queries_fine = convert_to_dict(
+            load_features(io.BytesIO(payloads[1]), Dataset.QUERIES)
+        )
+    candidates = _search_candidates(index, aggregation, queries, args)
+    cand_io = io.StringIO()
+    CandidatePair.write_csv(candidates, cand_io)
+    blobs = [cand_io.getvalue().encode("utf-8")]
+    header = f"okb\t{len(candidates)}\t{len(blobs[0])}"
+    if localizer is not None:
+        found = _localize_candidates(
+            index, localizer, queries, queries_fine, candidates, args
+        )
+        match_io = io.StringIO()
+        Match.write_csv(found, match_io)
+        blobs.append(match_io.getvalue().encode("utf-8"))
+        header += f"\t{len(found)}\t{len(blobs[1])}"
+    return header + f"\t{time.perf_counter() - t0:.3f}", blobs
+
+
+def _respond_search(index, aggregation, localizer, queries, queries_fine,
+                    out_csv, matches_csv, args, t0) -> str:
+    """Candidates (and TN matches) to CSVs. The candidates land on disk
+    before the TN stage, so a localization failure still leaves them."""
+    candidates = _search_candidates(index, aggregation, queries, args)
+    CandidatePair.write_csv(candidates, out_csv)
+    if localizer is None:
+        return f"ok\t{out_csv}\t{len(candidates)}\t{time.perf_counter() - t0:.3f}"
+    found = _localize_candidates(
+        index, localizer, queries, queries_fine, candidates, args
+    )
+    Match.write_csv(found, matches_csv)
+    return (
+        f"ok\t{out_csv}\t{len(candidates)}\t{matches_csv}\t{len(found)}"
+        f"\t{time.perf_counter() - t0:.3f}"
+    )
+
+
+def serve_request(index, aggregation, localizer, line: str, args, payloads=None):
+    parts = line.split("\t")
+    if parts[0] == "add":
+        return _add_refs(index, localizer, parts, args)
+    if parts[0] == "remove":
+        return _remove_refs(index, localizer, parts)
+    if parts[0] == "save":
+        return _save_refs(index, localizer, parts, args)
+    if parts[0] == "searchb":
+        return _search_bytes(index, aggregation, localizer, payloads, args)
+    if parts[0] == "addb":
+        return _add_refs(index, localizer, parts, args, payloads=payloads)
+    if parts[0] == "saveb":
+        return _save_bytes(index, localizer, args)
+    if parts[0] in ("extract", "searchv", "probe"):
+        raise NotImplementedError(f"{parts[0]} is not ported yet")
+    if parts[0] == "launches":
+        from vsc2022_torch.ops import kernels
+
+        if parts[1:] == ["reset"]:
+            kernels.reset_launches()
+        return "ok\tlaunches\t" + json.dumps(kernels.launches)
+    if parts[0] == "stats":
+        return (
+            "ok\tstats"
+            f"\t{len(index.video_metadata)}"
+            f"\t{len(index.video_clip_to_video_ids)}"
+            f"\t{index.dtype}"
+            "\t0"  # sharded: not ported yet
+            f"\t{int(args.matches)}"
+        )
+    query_path = parts[0]
+    fine_path = None
+    if args.ref_fine_features:
+        # The DnS two-file protocol: the second field is the fine npz.
+        if len(parts) < 2:
+            raise ValueError(
+                "DnS serving requests need two query files: "
+                "<coarse_npz>\\t<fine_npz>[\\t<candidates_csv>...]"
+            )
+        fine_path = parts[1]
+        parts = [parts[0]] + parts[2:]
+    # Empty fields mean "the default", so a client can name the matches
+    # CSV without naming the candidates CSV.
+    out_csv = parts[1] if len(parts) > 1 and parts[1] else query_path + ".candidates.csv"
+    matches_csv = parts[2] if len(parts) > 2 and parts[2] else query_path + ".matches.csv"
+    t0 = time.perf_counter()
+    queries = load_features(query_path, Dataset.QUERIES)
+    queries_fine = None
+    if fine_path is not None:
+        queries_fine = convert_to_dict(load_features(fine_path, Dataset.QUERIES))
+    return _respond_search(
+        index, aggregation, localizer, queries, queries_fine,
+        out_csv, matches_csv, args, t0,
+    )
+
+
+def _warm_up(index, localizer, refs, dim, args) -> None:
+    """Stage the corpus and load the kernels with one search (and one
+    alignment) before 'ready'. Random unit queries, not zeros: a zero
+    query scores every row exactly τ = 0, the count-verify's worst case."""
+    rng = np.random.RandomState(0)
+    f = rng.standard_normal((8, dim)).astype(np.float32)
+    f /= np.linalg.norm(f, axis=1, keepdims=True)
+    warm = VideoFeature(
+        video_id="Q999999", timestamps=np.arange(8, dtype=np.float64), feature=f
+    )
+    index.search([warm], global_k=8)
+    if localizer is None or not refs:
+        return
+    if args.ref_fine_features:
+        fine_dim = next(iter(localizer.refs_fine.values())).dimensions()
+        warm_fine = VideoFeature(
+            video_id=warm.video_id, timestamps=warm.timestamps,
+            feature=rng.standard_normal((8, fine_dim)).astype(np.float32),
+        )
+        localizer.set_queries([warm], queries_fine={warm.video_id: warm_fine})
+    else:
+        localizer.set_queries(_localizer_queries(index, [warm], args))
+    localizer.localize_all([CandidatePair(warm.video_id, refs[0].video_id, 1.0)])
+
+
+def main(args):
+    check_ported(args)
+    if args.ref_fine_features:
+        if args.score_norm_features:
+            # dns_index applies score normalization (reference:
+            # vsc/baseline/dns_index.py:143-161); the coarse npz arrives
+            # normalized.
+            raise ValueError(
+                "DnS serving expects the score-normalized coarse npz "
+                "from dns_index; --score_norm_features does not apply."
+            )
+        args.matches = True
+    device = resolve_device(args.device)
+    t0 = time.perf_counter()
+    index, refs, dim = build_index(args, device)
+    localizer = build_localizer(index, refs, args, device) if args.matches else None
+    if not args.no_warmup:
+        _warm_up(index, localizer, refs, dim, args)
+    stage_s = time.perf_counter() - t0
+    aggregation = MaxScoreAggregation()
+    print(f"ready\t{len(refs)}\t{stage_s:.1f}", flush=True)
+    logger.info(f"Serving {len(refs)} reference videos on {device} "
+                f"(staged in {stage_s:.1f}s)")
+    if args.listen:
+        _serve_tcp(index, aggregation, localizer, args, stage_s)
+    else:
+        _serve_stream(index, aggregation, localizer, args,
+                      sys.stdin.buffer, sys.stdout.buffer)
+
+
+def _read_payloads(rfile, head):
+    """Read the payload bytes an in-band command announces in its header
+    (``<cmd>\\t<len1>[\\t<len2>...]``). Raises on malformed lengths before
+    reading any payload, and on short reads (EOFError)."""
+    try:
+        sizes = [int(n) for n in head[1:]]
+    except ValueError:
+        raise ValueError(f"{head[0]} needs integer payload lengths, got {head[1:]}")
+    if not sizes or any(n < 0 for n in sizes):
+        raise ValueError(f"{head[0]} needs positive payload lengths")
+    payloads = []
+    for n in sizes:
+        blob = rfile.read(n)
+        if len(blob) != n:
+            raise EOFError(f"short payload: expected {n} bytes, got {len(blob)}")
+        payloads.append(blob)
+    return payloads
+
+
+def _serve_stream(index, aggregation, localizer, args, rfile, wfile,
+                  lock=None) -> bool:
+    """Answer one binary request stream until quit/shutdown/EOF; returns
+    True when the whole server should stop. ``lock`` serializes device
+    and localizer state across TCP client threads."""
+    while True:
+        raw = rfile.readline()
+        if not raw:
+            return False
+        line = raw.decode("utf-8", errors="replace").strip()
+        if not line:
+            continue
+        if line == "quit":
+            return False
+        if line == "shutdown":
+            return True
+        head = line.split("\t")
+        blobs = None
+        try:
+            payloads = (
+                _read_payloads(rfile, head) if head[0] in ("searchb", "addb") else None
+            )
+            with lock if lock is not None else contextlib.nullcontext():
+                response = serve_request(
+                    index, aggregation, localizer, line, args, payloads=payloads
+                )
+            if isinstance(response, tuple):
+                response, blobs = response
+        except EOFError:
+            return False  # the client died mid-payload
+        except Exception as exc:  # keep serving on request errors
+            response = "error\t" + str(exc).replace("\n", " ")
+        wfile.write((response + "\n").encode("utf-8"))
+        for blob in blobs or ():
+            wfile.write(blob)
+        wfile.flush()
+
+
+def _serve_tcp(index, aggregation, localizer, args, stage_s: float) -> None:
+    """TCP accept loop speaking the stdin protocol, one thread per client,
+    requests serialized on one device lock."""
+    import socket
+    import threading
+
+    host, port = args.listen.rsplit(":", 1)
+    srv = socket.create_server((host, int(port)))
+    bound = srv.getsockname()[1]
+    print(f"listening\t{host}:{bound}", flush=True)
+    logger.info(f"Listening on {host}:{bound}")
+    device_lock = threading.Lock()
+    stop = threading.Event()
+
+    def client_session(conn, addr):
+        try:
+            with conn:
+                rfile = conn.makefile("rb")
+                wfile = conn.makefile("wb")
+                # The greeting's count is read live: adds and removes
+                # change it during the server's life.
+                with device_lock:
+                    ready = f"ready\t{len(index.video_metadata)}\t{stage_s:.1f}"
+                wfile.write((ready + "\n").encode("utf-8"))
+                wfile.flush()
+                if _serve_stream(index, aggregation, localizer, args, rfile,
+                                 wfile, lock=device_lock):
+                    stop.set()
+        except (BrokenPipeError, ConnectionResetError):
+            logger.info(f"Client {addr[0]}:{addr[1]} disconnected")
+
+    # A 1 s accept timeout polls the stop flag.
+    srv.settimeout(1.0)
+    threads = []
+    while not stop.is_set():
+        try:
+            conn, addr = srv.accept()
+        except socket.timeout:
+            continue
+        except OSError:
+            break
+        logger.info(f"Client connected: {addr[0]}:{addr[1]}")
+        t = threading.Thread(target=client_session, args=(conn, addr), daemon=True)
+        t.start()
+        threads.append(t)
+    srv.close()
+    for t in threads:  # in-flight requests finish; new connections refused
+        t.join(timeout=60)
+
+
+if __name__ == "__main__":
+    logging.basicConfig(
+        format="%(asctime)s %(levelname)-8s %(message)s",
+        level=logging.INFO,
+        datefmt="%Y-%m-%d %H:%M:%S",
+        stream=sys.stderr,
+    )
+    main(parser.parse_args())

@@ -1,0 +1,84 @@
+"""Score-normalized search over flat arrays: the serving query path.
+
+Counterpart of ``vsc2022_tpu/retrieval/sn_search.py`` without the mesh
+and the IVF tier. The reference runs score normalization and retrieval
+as separate FAISS stages with host round trips between them (reference:
+vsc/baseline/score_normalization.py:86-105 then vsc/index.py:142-165).
+Here the queries cross to the device once: the noise-NN bias is the
+``row_max`` kernel over the staged noise corpus, the −β·sim column is
+appended on the device, and the bias-augmented queries go straight into
+``global_topk``. References get their constant-1 column once, at stage
+time (and at ``append_refs``).
+
+The JAX searcher fuses bias, candidates, τ and counts into one dispatch
+to save host↔device round trips; on the GPU each step is its own kernel
+launch on one stream, with the same results.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from vsc2022_torch.device import DeviceLike
+from vsc2022_torch.ops import kernels
+from vsc2022_torch.ops.similarity import SimilaritySearcher
+
+
+def _with_ones(rows) -> np.ndarray:
+    rows = np.asarray(rows, dtype=np.float32)
+    return np.concatenate([rows, np.ones((rows.shape[0], 1), np.float32)], axis=1)
+
+
+class ScoreNormalizedSearcher:
+    """Flat-array score-norm + global-top-k searcher."""
+
+    def __init__(
+        self,
+        refs: np.ndarray,  # [N, D] reference frame descriptors
+        noise: np.ndarray,  # [Nn, D] independent noise corpus
+        beta: float = 1.2,
+        precision: str = "highest",
+        dtype: str = "float32",
+        device: DeviceLike = "cuda",
+    ):
+        self.beta = beta
+        self.searcher = SimilaritySearcher(
+            _with_ones(refs), precision=precision, dtype=dtype, device=device
+        )
+        self.noise_searcher = SimilaritySearcher(
+            np.ascontiguousarray(noise, dtype=np.float32),
+            precision=precision, dtype=dtype, device=device,
+        )
+        # The bias-augmented queries of the most recent global_topk, on the
+        # device; serving localizes with them instead of a second noise-NN
+        # pass. Single-threaded use only.
+        self.last_q_sn: Optional[torch.Tensor] = None
+
+    def append_refs(self, refs_transformed: np.ndarray) -> None:
+        """Grow the staged corpus with reference rows already in the
+        normalized space (dimension drop and L2 applied by the caller);
+        the constant-1 column appends here. The noise corpus is fixed."""
+        self.searcher.append_rows(_with_ones(refs_transformed))
+
+    def keep_refs(self, keep_idx) -> None:
+        """Shrink the staged corpus to exactly these surviving rows (the
+        constant-1 column rides along)."""
+        self.searcher.keep_rows(keep_idx)
+
+    def normalize_queries(self, queries) -> torch.Tensor:
+        """Stage the queries and append the −β·NN-similarity column, on
+        the device: [M, D + 1]."""
+        ns = self.noise_searcher
+        q = ns._stage_queries(queries)
+        bias = kernels.row_max(q, ns._refs, ns.n_refs)
+        return torch.cat([q, (-self.beta * bias)[:, None]], dim=1)
+
+    def global_topk(
+        self, queries, k: int, kappa: Optional[int] = None
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        q_sn = self.normalize_queries(queries)
+        self.last_q_sn = q_sn
+        return self.searcher.global_topk(q_sn, k, kappa=kappa)

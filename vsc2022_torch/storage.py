@@ -11,7 +11,7 @@ run-splitting rather than a per-element Python walk.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -87,3 +87,8 @@ def load_features(f, dataset: Optional[Dataset] = None) -> List[VideoFeature]:
             starts.tolist(), np.split(feats, cuts), np.split(timestamps, cuts)
         )
     ]
+
+
+def convert_to_dict(features: List[VideoFeature]) -> Dict[str, VideoFeature]:
+    """Per-video features keyed by video id."""
+    return {vf.video_id: vf for vf in features}
