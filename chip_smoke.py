@@ -12,6 +12,11 @@ Phases (any failure exits non-zero):
      shape. Exact on integers, within the stated tolerance on floats.
      Times the kernel, the plain version, one PyTorch library yardstick
      (timed here only, never called by the port) and the card's bound.
+     On each path's float inputs of row_max and count_above, the kernels
+     are also held against the pool_writer kernel bit for bit: row_max is
+     the pool's best winner, and with tau the global k-th pool value (k =
+     20 per query row, 1200 per video) count_above equals the pool count
+     >= tau on every row where no segment holds two entries >= tau.
   3. global_topk against a dense brute-force oracle at
      1,000 x 100,000 x 512, forced to each collection mode (stream, the
      default at this size, and pooled): identical on integer-valued
@@ -56,8 +61,10 @@ Phases (any failure exits non-zero):
      before (a) and read after (h). Then one DnS two-file request over
      phase 5's files must equal dns_baseline's output. fused_topk and
      count_above are held against their plain versions and timed on the
-     serving search's inputs (and on the DnS path's), and both collection
-     modes are timed at the serving and DnS corpora.
+     serving search's inputs (and on the DnS path's), with row_max on the
+     bias of the same search, and both collection modes are timed at the
+     serving and DnS corpora. Each path logs its searches' last_stats
+     (mode, tau, flagged, ambiguous and re-searched rows).
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object with each kernel's numbers, and {"ok": true, "device": ...}.
@@ -97,6 +104,10 @@ DNS_PLANTED, DNS_COPY = 50, (10, 40)
 
 # The serving catalogue: under POOL_MIN_CORPUS (262,144 rows), so it streams.
 SERVE_REF_VIDEOS, SERVE_NOISE_FRAMES, SERVE_ADD, SERVE_REMOVE = 4_000, 60_000, 100, 100
+
+# The searches' k per query row (1200 per 60-frame video): pool_identity
+# takes tau as the pooled collection would for the rows it is given.
+K_PER_ROW = 1200 // FRAMES
 
 KERNEL_META = {
     "row_max": ("vsc2022_torch/ops/csrc/row_max.cu",
@@ -300,6 +311,42 @@ def compare_topk(torch, kernels, q, r, n_valid, kappa, kind):
     return 0.0
 
 
+def pool_identity(torch, kernels, q, r, n_valid, label):
+    """row_max and count_above against the pool_writer kernel on the same
+    float inputs, bit for bit: the row max is the pool's best winner, and
+    with tau the global k-th pool value, k = K_PER_ROW per query row (as
+    the pooled collection takes it), the count equals the pool count >=
+    tau on every row with amb == 0 (no segment holding two entries >= tau)
+    and is no smaller elsewhere."""
+    m, d = q.shape
+    k = K_PER_ROW * m
+    if r.shape[0] % 128:
+        r = torch.cat([r, r.new_zeros((128 - r.shape[0] % 128, d))])
+    pv, _ = kernels.pool_writer(q, r, n_valid)
+    best = pv.view(m, -1).amax(1)
+    got = kernels.row_max(q, r, n_valid)
+    check(torch.equal(got.view(torch.int32), best.view(torch.int32)),
+          f"{label}: row_max differs from pool_writer's best winner "
+          f"on {int((got != best).sum())} rows")
+    finite = int(torch.isfinite(pv).sum())
+    tau = float(torch.topk(pv.reshape(-1), min(k, finite)).values[-1])
+    above = pv >= tau
+    pool_counts = above.view(m, -1).sum(1)
+    amb = above.all(2).sum(1)
+    counts = kernels.count_above(q, r, tau, n_valid).long()
+    clean = amb == 0
+    check(torch.equal(counts[clean], pool_counts[clean]),
+          f"{label}: count_above differs from the pool count on "
+          f"{int((counts[clean] != pool_counts[clean]).sum())} rows with amb == 0")
+    check(bool((counts >= pool_counts).all()),
+          f"{label}: count_above below the pool count")
+    del pv, above
+    log(f"phase 2: {label} [{m} x {n_valid} x {d}]: row_max == pool_writer's best "
+        f"winner bit for bit on all {m} rows; tau {tau!r} (k = {k}): count_above "
+        f"== pool count on {int(clean.sum())} rows with amb == 0, >= on the "
+        f"{int((~clean).sum())} others")
+
+
 def phase_kernels_small(torch, kernels, dev):
     """Ragged small shapes, integer-valued and float, ties in a segment."""
     for kind in ("int", "float"):
@@ -317,7 +364,8 @@ def phase_kernels_small(torch, kernels, dev):
 
 def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
     """Each retrieval kernel on the inputs a path gave it (its first call
-    there), and on integer-valued inputs of the same shape; timings and
+    there), and on integer-valued inputs of the same shape; row_max and
+    count_above also against pool_writer (pool_identity); timings and
     bounds from those inputs. Returns {name: record}."""
     records = {}
     for name, args in captured.items():
@@ -337,6 +385,9 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
             compare_pool(torch, kernels, qi, ri, n_valid, "int", False)
         del qi, ri
         torch.cuda.empty_cache()
+        if name in ("row_max", "count_above"):
+            pool_identity(torch, kernels, q, r, n_valid, f"{path} {name} inputs")
+            torch.cuda.empty_cache()
         if name == "row_max":
             err = compare_row_max(torch, kernels, q, r, n_valid, "float")
             run = lambda: kernels.row_max(q, r, n_valid)  # noqa: E731
@@ -589,6 +640,27 @@ def capture_inputs(kernels, keep_all=()):
             setattr(kernels, WRAPPERS[name], fn)
 
 
+@contextlib.contextmanager
+def search_stats():
+    """The last_stats of every SimilaritySearcher.global_topk call while
+    the block runs, in call order."""
+    from vsc2022_torch.ops.similarity import SimilaritySearcher
+
+    seen = []
+    original = SimilaritySearcher.global_topk
+
+    def global_topk(self, *args, **kwargs):
+        out = original(self, *args, **kwargs)
+        seen.append({k: v for k, v in self.last_stats.items() if k != "seconds"})
+        return out
+
+    SimilaritySearcher.global_topk = global_topk
+    try:
+        yield seen
+    finally:
+        SimilaritySearcher.global_topk = original
+
+
 def phase_main_path(torch, np, kernels):
     """Returns the launch counts of the main path's run and the inputs
     each kernel was first given there."""
@@ -612,7 +684,7 @@ def phase_main_path(torch, np, kernels):
             "--score_norm_features", paths["noise"], "--ground_truth", paths["gt"],
             "--output_path", str(out), "--overwrite", "--device", "cuda"]
     args = sscd_baseline.parser.parse_args(argv)
-    with capture_inputs(kernels) as captured:
+    with capture_inputs(kernels) as captured, search_stats() as stats:
         kernels.reset_launches()
         t0 = time.perf_counter()
         result = sscd_baseline.main(args)
@@ -620,6 +692,7 @@ def phase_main_path(torch, np, kernels):
         launches = dict(kernels.launches)
     log(f"phase 4: sscd_baseline {wall:.2f} s; stages (s): "
         + json.dumps({k: round(v, 3) for k, v in result["stages"].items()}))
+    log(f"phase 4: global_topk last_stats: {json.dumps(stats)}")
     log(f"phase 4: kernel launches on the main path: {json.dumps(launches)}")
     log("phase 4: first inputs per kernel: " + json.dumps({
         name: [list(args[0].shape), list(args[1].shape)] for name, args in captured.items()
@@ -794,12 +867,14 @@ def phase_dns_path(torch, np, kernels):
         f"{frames * DNS_REGIONS * DNS_RAW_DIM * 2 / 1e9:.2f} GB), {DNS_PLANTED} "
         f"planted copies; made in {time.perf_counter() - t0:.1f} s")
 
-    with capture_inputs(kernels, keep_all=("chamfer",)) as captured:
+    with capture_inputs(kernels, keep_all=("chamfer",)) as captured, \
+            search_stats() as stats:
         kernels.reset_launches()
         t0 = time.perf_counter()
         results, out = run_dns(paths, work, "cuda")
         wall = time.perf_counter() - t0
         launches = dict(kernels.launches)
+    log(f"phase 5: global_topk last_stats: {json.dumps(stats)}")
     for name, res in results.items():
         log(f"phase 5: {name} stages (s): "
             + json.dumps({k: round(v, 3) for k, v in res["stages"].items()}))
@@ -843,14 +918,17 @@ def phase_chamfer(torch, kernels, dev, calls):
     """The chamfer kernel on every input the DnS path gave it (within
     FLOAT_ATOL of the plain version) and on integer-valued inputs of the
     largest call's shape (exact); times on the largest call, and the
-    kernel's time and bound summed over all the path's calls."""
+    kernel's, plain version's and library call's times and the bound
+    summed over all the path's calls."""
     err = 0.0
-    total_ms = total_bound = 0.0
+    total_ms = total_plain = total_lib = total_bound = 0.0
     for qf, rf, sym in calls:
         got = kernels.chamfer_fine_sims(qf, rf, sym)
         want = kernels.chamfer_fine_sims_plain(qf, rf, sym)
         err = max(err, float((got - want).abs().max()))
         total_ms += cuda_ms(torch, lambda: kernels.chamfer_fine_sims(qf, rf, sym), 3)
+        total_plain += cuda_ms(torch, lambda: kernels.chamfer_fine_sims_plain(qf, rf, sym), 1)
+        total_lib += cuda_ms(torch, lambda: chamfer_library(torch, qf, rf, sym), 1)
         total_bound += chamfer_bound(qf.shape[0], qf.shape[1], rf.shape[1], qf.shape[3])[0]
     check(err <= FLOAT_ATOL, f"chamfer on the DnS path's inputs: max abs err {err}")
     qf, rf, sym = max(calls, key=lambda a: a[0].shape[0] * a[0].shape[1] * a[1].shape[1])
@@ -874,13 +952,15 @@ def phase_chamfer(torch, kernels, dev, calls):
     log(f"phase 5: chamfer on the DnS path's largest call [B={b}, NQ={nq}, NR={nr}, "
         f"D={d}] kernel_ms={kernel_ms:.3f} plain_ms={plain_ms:.3f} "
         f"library_ms={library_ms:.3f} bound_ms={bound_ms:.3f} ({bound_by}); "
-        f"all {len(calls)} calls: kernel {total_ms:.3f} ms, bound {total_bound:.3f} ms; "
+        f"all {len(calls)} calls: kernel {total_ms:.3f} ms, plain {total_plain:.3f} ms, "
+        f"library {total_lib:.3f} ms, bound {total_bound:.3f} ms; "
         f"max_abs_err={err} (floats), 0 (integers)")
     return {
         "shape": [b, nq, nr, d], "max_abs_err": err, "ms": kernel_ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "path_total": {"calls": len(calls), "ms": total_ms, "bound_ms": total_bound},
+        "path_total": {"calls": len(calls), "ms": total_ms, "plain_ms": total_plain,
+                       "library_ms": total_lib, "bound_ms": total_bound},
     }
 
 
@@ -1032,14 +1112,19 @@ def phase_serve(torch, np, kernels, dev):
 
     with capture_inputs(kernels) as captured:
         cands, t_stream = search()
-    mode = index._searcher.searcher.last_stats["mode"]
+    stream_stats = dict(index._searcher.searcher.last_stats)
+    mode = stream_stats["mode"]
     check(mode == "stream", f"the serving catalogue ran {mode}")
     err = check_same_candidates(CandidatePair.read_csv(csv["a"][0]), cands,
                                 "server (a) vs in-process index")
     with collection_mode("pooled"):
         pooled, t_pooled = search()
-    check(index._searcher.searcher.last_stats["mode"] == "pooled", "pooled not taken")
+    pooled_stats = dict(index._searcher.searcher.last_stats)
+    check(pooled_stats["mode"] == "pooled", "pooled not taken")
     check_same_candidates(pooled, cands, "(a) pooled vs stream", tol=0.0)
+    for stats in (stream_stats, pooled_stats):
+        stats.pop("seconds", None)
+        log(f"phase 6: (a) in-process global_topk last_stats: {json.dumps(stats)}")
     log(f"phase 6: (a) in-process: stream {t_stream:.3f} s, pooled {t_pooled:.3f} s, "
         f"same {len(cands)} pairs; server vs in-process scores within {err}")
     index.add(added)
@@ -1054,7 +1139,7 @@ def phase_serve(torch, np, kernels, dev):
     check(quality["candidate_uap"] > 0.5, f"serving uAP {quality['candidate_uap']}")
     del index
     torch.cuda.empty_cache()
-    return launches, {n: captured[n] for n in ("fused_topk", "count_above")}
+    return launches, {n: captured[n] for n in ("row_max", "fused_topk", "count_above")}
 
 
 def serve_dns_request():
@@ -1142,6 +1227,12 @@ def main() -> int:
     _build.library()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({_build.library_path().name})")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    probe = torch.empty(0, device=dev)
+    log("phase 1: resident blocks per SM (4-byte / 16-byte copies): " + ", ".join(
+        f"{name} {kernels._reduce_slots(probe, name, 0) // sms} / "
+        f"{kernels._reduce_slots(probe, name, 1) // sms}"
+        for name in ("row_max", "count_above")))
 
     try:
         phase_kernels_small(torch, kernels, dev)

@@ -9,8 +9,13 @@ with the card but no JAX:
 Inputs are integer-valued (randint(-3, 4)), so every score is exact on
 both sides and the comparisons are exact, tie-breaks included; the
 chamfer is also held on unit-norm floats within 1e-5 (f32 sums of the
-products in another order than cuBLAS's).
+products in another order than cuBLAS's). On floats the retrieval kernels
+are held against each other bit for bit: they run the same f32 FMA chain
+per score, so row_max equals the pool's best winner and count_above the
+pool's count wherever the pool holds every entry >= tau.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -108,6 +113,118 @@ def test_wrappers_raise_instead_of_falling_back(cuda_device):
         kernels.row_max(q, torch.ones((8, 16), device=cuda_device).T, 16)
     with pytest.raises(TypeError):
         kernels.count_above(q.half(), q.half(), 0.0, 4)
+    with pytest.raises(ValueError):
+        kernels.count_above(q, torch.ones((16, 8)), 0.0, 16)  # mixed devices
+    with pytest.raises(ValueError):
+        kernels.count_above(q, torch.ones((8, 16), device=cuda_device).T, 0.0, 16)
+    r = torch.ones((16, 8), device=cuda_device)
+    for n_valid in (-1, 17):
+        with pytest.raises(ValueError):
+            kernels.row_max(q, r, n_valid)
+        with pytest.raises(ValueError):
+            kernels.count_above(q, r, 0.0, n_valid)
+    empty = torch.ones((4, 0), device=cuda_device)  # D = 0: no k-slice
+    with pytest.raises(ValueError, match="D >= 1"):
+        kernels.row_max(empty, torch.ones((16, 0), device=cuda_device), 16)
+    with pytest.raises(ValueError, match="D >= 1"):
+        kernels.count_above(empty, torch.ones((16, 0), device=cuda_device), 0.0, 16)
+
+
+# ---- row_max and count_above: the persistent pipelined product -------------
+
+RAGGED_N = 1337  # not a multiple of the 128-column tile
+
+
+def _reductions_match_plain(q, r, tau, n_valid):
+    """Both kernels against their plain versions on the card (cuBLAS is
+    exact on these integer scores), exactly, one launch each."""
+    kernels.reset_launches()
+    torch.testing.assert_close(kernels.row_max(q, r, n_valid),
+                               kernels.row_max_plain(q, r, n_valid), rtol=0, atol=0)
+    torch.testing.assert_close(kernels.count_above(q, r, tau, n_valid),
+                               kernels.count_above_plain(q, r, tau, n_valid),
+                               rtol=0, atol=0)
+    expected = int(q.shape[0] > 0)
+    assert kernels.launches["row_max"] == kernels.launches["count_above"] == expected
+
+
+@pytest.mark.parametrize("m", [1, 60, 63, 65, 894])
+@pytest.mark.parametrize("d", [1, 33, 511, 512, 1025])
+def test_row_reductions_exact_at_ragged_shapes(cuda_device, d, m):
+    q = _ints((m, d), 20).to(cuda_device)
+    r = _ints((RAGGED_N, d), 21).to(cuda_device)
+    r[[3, 700]] = 3.0  # the largest score in the first and a middle tile
+    q[0] = 3.0
+    tau = float(4 * math.isqrt(d))  # ~the top sixth of the scores
+    for n_valid in (0, 1, RAGGED_N - 1, RAGGED_N):
+        _reductions_match_plain(q, r, tau, n_valid)
+
+
+@pytest.mark.parametrize("d", [4, 512])
+def test_row_reductions_unaligned_rows_take_4_byte_copies(cuda_device, d):
+    # A view 4 bytes into its storage: D % 4 == 0 but the rows are not
+    # 16-byte aligned, so the kernels copy 4 bytes at a time.
+    q = _ints((65 * d + 1,), 22).to(cuda_device)[1:].view(65, d)
+    r = _ints((RAGGED_N * d + 1,), 23).to(cuda_device)[1:].view(RAGGED_N, d)
+    assert q.data_ptr() % 16 and r.data_ptr() % 16
+    _reductions_match_plain(q, r, float(4 * math.isqrt(d)), RAGGED_N - 5)
+
+
+@pytest.mark.parametrize("slots", [1, 3, 7, 50])
+def test_row_reductions_any_grid(cuda_device, monkeypatch, slots):
+    # Few blocks: each block's range spans several row tiles, so it
+    # flushes its running values at every row tile it leaves.
+    monkeypatch.setattr(kernels, "_reduce_slots", lambda t, name, vec: slots)
+    q = _ints((300, 40), 24).to(cuda_device)
+    r = _ints((RAGGED_N, 40), 25).to(cuda_device)
+    for n_valid in (1, 129, RAGGED_N):
+        _reductions_match_plain(q, r, 20.0, n_valid)
+
+
+def _unit_rows(rng, n, d):
+    x = rng.randn(n, d).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _float_case(cuda_device, d, seed):
+    """Unit-norm rows with near-duplicate columns in segment 0 (ambiguous
+    rows for the pool), refs zero-padded to whole segments."""
+    rng = np.random.RandomState(seed)
+    q, r = _unit_rows(rng, 300, d), _unit_rows(rng, 5000, d)
+    r[8:14] = r[7] + 0.02 * rng.randn(6, d).astype(np.float32)
+    q[:4] = r[7]
+    r_pad = np.zeros((-(-5000 // 128) * 128, d), np.float32)
+    r_pad[:5000] = r
+    return (torch.from_numpy(q).to(cuda_device),
+            torch.from_numpy(r_pad).to(cuda_device), 4990)
+
+
+@pytest.mark.parametrize("d", [511, 512, 1025])
+def test_row_max_floats_bit_identical_to_pool_writer(cuda_device, d):
+    q, r, n_valid = _float_case(cuda_device, d, 26)
+    got = kernels.row_max(q, r, n_valid)
+    pv, _ = kernels.pool_writer(q, r, n_valid)
+    want = pv.view(q.shape[0], -1).amax(1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [511, 512, 1025])
+def test_count_above_floats_equal_pool_counts(cuda_device, d):
+    # tau as the pooled collection takes it: the global k-th pool value.
+    # Where no segment holds two entries >= tau (amb == 0), the pool holds
+    # every entry >= tau, so the corpus count equals the pool count.
+    q, r, n_valid = _float_case(cuda_device, d, 27)
+    m = q.shape[0]
+    pv, _ = kernels.pool_writer(q, r, n_valid)
+    tau = float(torch.topk(pv.reshape(-1), 3 * m).values[-1])
+    above = pv >= tau
+    pool_counts = above.view(m, -1).sum(1)
+    amb = above.all(2).sum(1)
+    counts = kernels.count_above(q, r, tau, n_valid).long()
+    clean = amb == 0
+    assert clean.any() and (~clean).any()
+    assert torch.equal(counts[clean], pool_counts[clean])
+    assert bool((counts >= pool_counts).all())
 
 
 @pytest.mark.parametrize("kind", ["int", "float"])

@@ -1,0 +1,143 @@
+"""The launch plan of the row_max and count_above kernels, and the ctypes
+declarations of every kernel, checked on the CPU (no nvcc, no card).
+
+The persistent schedule lives in ``vsc2022_torch/ops/kernels.py``
+(``reduce_tiles``, ``reduce_grid``, ``reduce_schedule``); the kernel in
+``ops/csrc/reduce_gemm.cuh`` walks the same ranges. A C signature that
+changes under a stale ctypes declaration cuts pointers to 32 bits on the
+card, so the declarations are held against the sources here.
+"""
+
+import ctypes
+import re
+import types
+
+import numpy as np
+import pytest
+
+from vsc2022_torch.ops import _build, kernels
+
+# (query rows, valid ref columns) of the calls the three paths make.
+PATH_SHAPES = [
+    (9000, 250_020),   # SSCD: row_max, the noise NN
+    (894, 1_000_020),  # SSCD: count_above over the ambiguous rows
+    (7682, 7_248),     # DnS: row_max
+    (7682, 31_004),    # DnS: count_above over every row (stream)
+    (9000, 240_000),   # serving: count_above over every row (stream)
+    (9000, 60_000),    # serving: row_max, the bias
+    (60, 240_000),     # serving: one query video
+]
+RAGGED_SHAPES = [(1, 1), (1, 128), (1, 129), (128, 1), (129, 129), (300, 1000),
+                 (65, 1337)]
+# A few blocks, odd counts, and one wave of 1, 2 or 4 blocks per SM on an
+# H100's 132 SMs.
+SLOTS = [1, 7, 132, 264, 528]
+
+
+@pytest.mark.parametrize("m,n_valid", PATH_SHAPES + RAGGED_SHAPES)
+def test_schedule_covers_every_tile_once_and_balances(m, n_valid):
+    row_tiles, col_tiles = kernels.reduce_tiles(m, n_valid)
+    assert row_tiles * kernels.REDUCE_TILE >= m > (row_tiles - 1) * kernels.REDUCE_TILE
+    assert col_tiles * kernels.REDUCE_TILE >= n_valid > (col_tiles - 1) * kernels.REDUCE_TILE
+    n_items = row_tiles * col_tiles
+    for slots in SLOTS:
+        grid = kernels.reduce_grid(m, n_valid, slots)
+        assert grid == min(slots, n_items)  # one wave, no idle block
+        ranges = kernels.reduce_schedule(m, n_valid, grid)
+        assert len(ranges) == grid
+        lengths = np.array([end - begin for begin, end in ranges])
+        # Balanced within one item, and no block without work.
+        assert lengths.min() >= 1 and lengths.max() - lengths.min() <= 1
+        items = np.concatenate([np.arange(b, e) for b, e in ranges])
+        rt, ct = np.divmod(items, col_tiles)
+        assert rt.min() >= 0 and rt.max() < row_tiles and ct.max() < col_tiles
+        # Every (row tile, column tile) exactly once.
+        seen = np.zeros((row_tiles, col_tiles), dtype=np.int64)
+        np.add.at(seen, (rt, ct), 1)
+        assert (seen == 1).all()
+        # A block's range touches as few row tiles as its length allows:
+        # it flushes once per row tile it leaves, and once at its end.
+        for (begin, end), n in zip(ranges, lengths):
+            touched = (end - 1) // col_tiles - begin // col_tiles + 1
+            assert touched <= -(-int(n) // col_tiles) + 1
+
+
+@pytest.mark.parametrize("m,n_valid", [(0, 100), (100, 0), (0, 0)])
+def test_schedule_of_an_empty_call_has_no_block(m, n_valid):
+    assert kernels.reduce_grid(m, n_valid, 264) == 0
+    assert kernels.reduce_schedule(m, n_valid, 0) == []
+
+
+def test_each_row_tile_is_split_evenly_at_the_path_shapes():
+    # With fewer row tiles than blocks, each row tile's columns go to
+    # blocks whose shares differ by at most one column tile (the blocks
+    # that straddle two row tiles hold the remainder).
+    for m, n_valid in PATH_SHAPES:
+        row_tiles, col_tiles = kernels.reduce_tiles(m, n_valid)
+        ranges = kernels.reduce_schedule(m, n_valid, kernels.reduce_grid(m, n_valid, 132))
+        for r in range(row_tiles):
+            lo, hi = r * col_tiles, (r + 1) * col_tiles
+            shares, inner = [], []
+            for b, e in ranges:
+                if b < hi and e > lo:
+                    shares.append(min(e, hi) - max(b, lo))
+                    if lo <= b and e <= hi:
+                        inner.append(e - b)
+            assert sum(shares) == col_tiles
+            if inner:
+                assert max(inner) - min(inner) <= 1
+
+
+# ---- ctypes declarations against the C sources -------------------------------
+
+_SIGNATURE = re.compile(r'extern "C" int (vsc_\w+)\(([^)]*)\)')
+_SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _ctype(param: str):
+    words = param.split()
+    if "*" in param:
+        return ctypes.c_void_p
+    return _SCALARS[" ".join(words[:-1])]
+
+
+def _c_signatures():
+    sigs = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for name, params in _SIGNATURE.findall(src.read_text()):
+            sigs[name] = [_ctype(p) for p in params.split(",")]
+    return sigs
+
+
+class _RecordingLib:
+    """Stands in for the loaded library: records what _declare sets."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.__dict__["fns"].setdefault(name, types.SimpleNamespace())
+
+
+def _declared():
+    lib = _RecordingLib()
+    _build._declare(lib)
+    return lib.fns
+
+
+@pytest.mark.parametrize("name", sorted(_c_signatures()))
+def test_ctypes_declaration_matches_c_signature(name):
+    fn = _declared().get(name)
+    assert fn is not None, f"{name} is exported but not declared in _build._declare"
+    assert fn.argtypes == _c_signatures()[name]
+    assert fn.restype is ctypes.c_int
+
+
+def test_every_declaration_names_an_exported_function():
+    sigs = _c_signatures()
+    assert set(_declared()) == set(sigs)
+    # The retrieval wrappers' launchers take the device first and the
+    # stream last.
+    for name in ("vsc_row_max", "vsc_count_above", "vsc_pool_writer",
+                 "vsc_fused_topk", "vsc_chamfer"):
+        assert sigs[name][0] is ctypes.c_int and sigs[name][-1] is ctypes.c_void_p

@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Times the port's row_max and count_above kernels at the shapes its paths
+give them, beside their bound and one PyTorch library call.
+
+    python3 tools/bench_reduce.py             # needs one CUDA GPU
+    python3 tools/bench_reduce.py --reps 5 --only row_max
+
+Inputs are unit-norm random rows made on the card from a seed, with the
+paths' widths (D = 511 after score normalization's dimension drop, 512
+with the bias column, 1024 and 1025 on the DnS track) and the corpus
+zero-padded to whole 128-row segments as the searcher stages it. For each
+shape: the kernel against the library call (row max within 1e-5, counts
+within 2), the row max of the first 256 rows bit-identical to the
+pool_writer kernel's best winner, then kernel, library and bound ms.
+Builds the kernels first and prints nvcc's register and spill report and
+each kernel's resident blocks per SM. The last lines are the card's name
+and power limit and one JSON object with every shape's numbers.
+`chip_smoke.py` measures the same kernels on the paths' own inputs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+# (kernel, path, query rows, valid ref rows, D)
+SHAPES = [
+    ("row_max", "sscd", 9000, 250_020, 511),
+    ("row_max", "dns", 7682, 7_248, 1024),
+    ("row_max", "serving", 9000, 60_000, 511),
+    ("count_above", "sscd", 894, 1_000_020, 512),
+    ("count_above", "dns", 7682, 31_004, 1025),
+    ("count_above", "serving", 9000, 240_000, 512),
+    ("count_above", "serving, one video", 60, 240_000, 512),
+]
+TAU = 0.15  # ~3.4 sigma of unit-norm scores at D = 512
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=3, help="timed launches per shape")
+    ap.add_argument("--only", choices=("row_max", "count_above"),
+                    help="time one kernel only")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from vsc2022_torch.ops import _build, kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _build.build(verbose=True)
+    lib = _build.library()
+    for name in ("row_max", "count_above"):
+        for vec in (0, 1):
+            blocks = ctypes.c_int(0)
+            rc = getattr(lib, f"vsc_{name}_occupancy")(0, vec, ctypes.addressof(blocks))
+            cs.check(rc == 0, f"{name} occupancy query failed ({rc})")
+            print(f"{name} ({'16' if vec else '4'}-byte copies): "
+                  f"{blocks.value} resident blocks per SM", flush=True)
+
+    rows = []
+    for name, path, m, n_valid, d in SHAPES:
+        if args.only and name != args.only:
+            continue
+        g = torch.Generator(device=dev)
+        g.manual_seed(m + n_valid + d)
+        q = torch.randn((m, d), generator=g, device=dev)
+        q /= q.norm(dim=1, keepdim=True)
+        r = torch.zeros((-(-n_valid // 128) * 128, d), device=dev)
+        r[:n_valid] = torch.randn((n_valid, d), generator=g, device=dev)
+        r[:n_valid] /= r[:n_valid].norm(dim=1, keepdim=True)
+        if name == "row_max":
+            run = lambda: kernels.row_max(q, r, n_valid)  # noqa: E731
+            lib_call = lambda: cs.row_max_library(torch, q, r, n_valid)  # noqa: E731
+            err = float((run() - lib_call()).abs().max())
+            cs.check(err <= cs.FLOAT_ATOL, f"row_max {path}: off the library by {err}")
+        else:
+            run = lambda: kernels.count_above(q, r, TAU, n_valid)  # noqa: E731
+            lib_call = lambda: cs.count_above_library(torch, q, r, TAU, n_valid)  # noqa: E731
+            err = float((run().long() - lib_call()).abs().max())
+            cs.check(err <= 2, f"count_above {path}: off the library by {err}")
+        head = q[:256].contiguous()
+        pv, _ = kernels.pool_writer(head, r, n_valid)
+        cs.check(torch.equal(kernels.row_max(head, r, n_valid).view(torch.int32),
+                             pv.view(head.shape[0], -1).amax(1).view(torch.int32)),
+                 f"{path} [D={d}]: row_max differs from pool_writer's best winner")
+        del pv
+        kernels.reset_launches()
+        ms = cs.cuda_ms(torch, run, args.reps)
+        library_ms = cs.cuda_ms(torch, lib_call, 2)
+        bound_ms, bound_by = cs.bound(m, n_valid, r.shape[0], d, 4 * m)
+        row = {"kernel": name, "path": path, "shape": [m, n_valid, d],
+               "ms": ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "share_of_bound": bound_ms / ms, "max_abs_err": err}
+        rows.append(row)
+        print(f"{name} {path} [{m} x {n_valid} x {d}]: kernel {ms:.3f} ms, library "
+              f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
+        del q, r
+        torch.cuda.empty_cache()
+    print(cs.nvidia_smi_line())
+    print(json.dumps({"shapes": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

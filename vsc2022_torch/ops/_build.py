@@ -104,11 +104,14 @@ def build(verbose: bool = False) -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.vsc_pool_writer.argtypes = [i, p, p, i, i, i, i, p, p, p]
-    lib.vsc_row_max.argtypes = [i, p, p, i, i, i, i, i, p, p, p]
-    lib.vsc_count_above.argtypes = [i, p, p, i, i, i, f, i, i, p, p]
+    lib.vsc_row_max.argtypes = [i, p, p, i, i, i, i, i, i, p, p, p]
+    lib.vsc_row_max_occupancy.argtypes = [i, i, p]
+    lib.vsc_count_above.argtypes = [i, p, p, i, i, i, f, i, i, i, p, p]
+    lib.vsc_count_above_occupancy.argtypes = [i, i, p]
     lib.vsc_chamfer.argtypes = [i, p, p, i, i, i, i, i, i, p, p]
     lib.vsc_fused_topk.argtypes = [i, p, p, i, i, i, i, i, i, p, p, p]
-    for fn in (lib.vsc_pool_writer, lib.vsc_row_max, lib.vsc_count_above,
+    for fn in (lib.vsc_pool_writer, lib.vsc_row_max, lib.vsc_row_max_occupancy,
+               lib.vsc_count_above, lib.vsc_count_above_occupancy,
                lib.vsc_chamfer, lib.vsc_fused_topk):
         fn.restype = ctypes.c_int
 

@@ -3,81 +3,63 @@
 //
 // Replaces vsc2022_tpu/ops/pallas_kernels.py:fused_count_above
 // (_count_above_kernel); the JAX searcher's production count
-// (similarity.py:streaming_count_above) has the same contract. The searcher
-// calls it for the few query rows whose winner pool may hide an entry >= tau.
+// (similarity.py:streaming_count_above) has the same contract. The port's
+// searcher counts every query row in the streaming collection (thousands of
+// rows) and only the ambiguous rows in the pooled one (hundreds of rows, or
+// one video's 60).
 //
-// Bound: operations. 2*N*D flops per row (~1.0 GFLOP per row at N = 1M,
-// D = 512); the refs are read once per 64-row tile. Design: the calls have
-// few rows (one or two row tiles), so one block per row tile would leave
-// the card idle; the columns are split across ~8 blocks per SM instead,
-// each counts over its range in registers, and the partial counts combine
-// with an int32 atomicAdd (exact, order-free). Scores come from the same
-// tile product as pool_writer, so a pair scores bit-identically in both.
-#include "tile_gemm.cuh"
+// Bound: operations. 2*M*N*D flops in full f32 FMA ([9000 x 240,000 x 512]
+// is 2.2 TFLOP, ~33 ms at 67 TFLOP/s); refs are read once per 128-row tile.
+// Design (reduce_gemm.cuh): one wave of persistent blocks splits the (row
+// tile, column tile) items evenly, so a call of 60 rows fills the card as
+// well as one of 9,000; each block counts over its range in registers and
+// the partial counts combine with one int32 atomicAdd per row and block
+// (exact, order-free). The tile product is a 3-stage cp.async ring of
+// 64-deep slices feeding 8 x 8 register tiles. Its scores are pool_writer's
+// and fused_topk's bit for bit, which the pooled prune (a row is complete
+// when this count equals its kept entries) and the streaming verify rely on.
+#include "reduce_gemm.cuh"
 
 using namespace vsc;
 
 namespace {
 
-__global__ void __launch_bounds__(THREADS)
-    count_above_kernel(const float* __restrict__ q,
-                       const float* __restrict__ refs, int m, int n, int d,
-                       float tau, int n_valid, int tiles_per_split,
-                       int* __restrict__ out) {
-  __shared__ TileSmem sm;
-  const int row0 = blockIdx.x * BM;
-  const int n_tiles = (n_valid + BN - 1) / BN;
-  const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-  if (t_begin >= t_end) return;
-
-  int cnt[ROWS_PER_WARP];
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) cnt[r] = 0;
-  const int lane = threadIdx.x & 31;
-  float acc[ROWS_PER_WARP][COLS_PER_LANE];
-  for (int t = t_begin; t < t_end; ++t) {
-    const int col0 = t * BN;
-    tile_product(q, refs, m, n, d, row0, col0, sm, acc);
-#pragma unroll
-    for (int c = 0; c < COLS_PER_LANE; ++c) {
-      if (col0 + lane * COLS_PER_LANE + c < n_valid) {
-#pragma unroll
-        for (int r = 0; r < ROWS_PER_WARP; ++r) cnt[r] += acc[r][c] >= tau;
-      }
-    }
+struct CountAbove {
+  using T = int;
+  float tau;
+  int* out;
+  __device__ __forceinline__ T identity() const { return 0; }
+  __device__ __forceinline__ T fold(T v, float score) const {
+    return v + (score >= tau);
   }
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    int v = cnt[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-    const int row = row0 + warp * ROWS_PER_WARP + r;
-    if (lane == r && row < m && v > 0) atomicAdd(&out[row], v);
+  __device__ __forceinline__ T combine(T a, T b) const { return a + b; }
+  __device__ __forceinline__ void commit(int row, T v) const {
+    if (v > 0) atomicAdd(out + row, v);
   }
-}
+};
 
 }  // namespace
 
+// Blocks of the count_above kernel one SM holds at once (16-byte copies if
+// vec).
+extern "C" int vsc_count_above_occupancy(int device, int vec,
+                                         int* blocks_per_sm) {
+  return reduce::resident_blocks<CountAbove>(device, vec, blocks_per_sm);
+}
+
 // q [m, d], refs [n, d] f32 row-major on the device; out is [m] int32.
+// `grid` and `vec` as for vsc_row_max.
 extern "C" int vsc_count_above(int device, const float* q, const float* refs,
                                int m, int n, int d, float tau, int n_valid,
-                               int splits, int* out, void* stream) {
+                               int vec, int grid, int* out, void* stream) {
   if (m <= 0) return 0;
+  if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (n_valid + BN - 1) / BN;
-  if (n_tiles > 0) {
-    splits = clamp_splits(splits, n_tiles);
-    const int tiles_per_split = (n_tiles + splits - 1) / splits;
-    const dim3 grid((m + BM - 1) / BM, splits);
-    count_above_kernel<<<grid, THREADS, 0, s>>>(q, refs, m, n, d, tau,
-                                               n_valid, tiles_per_split, out);
-  }
-  return (int)cudaGetLastError();
+  err = reduce::launch(q, refs, m, d, n_valid, vec, grid,
+                       CountAbove{tau, out}, s);
+  return (int)err;
 }

@@ -3,16 +3,20 @@
 // Replaces vsc2022_tpu/ops/pallas_kernels.py:fused_row_max (_row_max_kernel),
 // the k=1 noise-NN of score normalization.
 //
-// Bound: operations. 2*M*N*D flops ([9000 x 250,000 x 512] is 2.3 TFLOP,
-// ~34 ms at 67 TFLOP/s f32); the bytes (refs once, M floats out) are far
-// below. Design: the TPU grid carried the running max across column tiles
-// in order on one core; here the columns are split across blocks as well
-// (9000 rows are only 141 row tiles, too few for 132 SMs), each block keeps
-// its running max in registers over its column range, and the partial maxima
-// combine with atomicMax on the monotone uint32 key of the f32 (the key of
-// vsc2022_tpu/ops/similarity.py:_f32_sort_key), which is exact and
-// independent of the order the blocks finish in.
-#include "tile_gemm.cuh"
+// Bound: operations. 2*M*N*D flops in full f32 FMA ([9000 x 250,020 x 511]
+// is 2.3 TFLOP, ~34 ms at 67 TFLOP/s); the bytes (q and refs once, M floats
+// out) are far below. Design (reduce_gemm.cuh): the TPU grid carried the
+// running max across column tiles in order on one core; here one wave of
+// persistent blocks splits the (row tile, column tile) items evenly, each
+// block keeps its running max per row in registers over its range, and the
+// partial maxima combine with atomicMax on the monotone uint32 key of the
+// f32 (the key of vsc2022_tpu/ops/similarity.py:_f32_sort_key), which is
+// exact and independent of the order the blocks finish in. The tile product
+// is a 3-stage cp.async ring of 64-deep slices feeding 8 x 8 register
+// tiles (256 FMAs for 16 shared loads), so the FMAs, not the shared-memory
+// reads or the fill, bound the inner loop. Its scores are pool_writer's bit
+// for bit: the row max equals the pool's best winner.
+#include "reduce_gemm.cuh"
 
 using namespace vsc;
 
@@ -40,67 +44,43 @@ __global__ void keys_to_f32(const unsigned* keys, float* out, int m) {
   if (i < m) out[i] = key_f32(keys[i]);
 }
 
-__global__ void __launch_bounds__(THREADS)
-    row_max_kernel(const float* __restrict__ q, const float* __restrict__ refs,
-                   int m, int n, int d, int n_valid, int tiles_per_split,
-                   unsigned* __restrict__ keys) {
-  __shared__ TileSmem sm;
-  const int row0 = blockIdx.x * BM;
-  const int n_tiles = (n_valid + BN - 1) / BN;
-  const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-  if (t_begin >= t_end) return;
-
-  float best[ROWS_PER_WARP];
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) best[r] = -CUDART_INF_F;
-  const int lane = threadIdx.x & 31;
-  float acc[ROWS_PER_WARP][COLS_PER_LANE];
-  for (int t = t_begin; t < t_end; ++t) {
-    const int col0 = t * BN;
-    tile_product(q, refs, m, n, d, row0, col0, sm, acc);
-#pragma unroll
-    for (int c = 0; c < COLS_PER_LANE; ++c) {
-      if (col0 + lane * COLS_PER_LANE + c < n_valid) {
-#pragma unroll
-        for (int r = 0; r < ROWS_PER_WARP; ++r)
-          best[r] = fmaxf(best[r], acc[r][c]);
-      }
-    }
+struct RowMax {
+  using T = float;
+  unsigned* keys;
+  __device__ __forceinline__ T identity() const { return -CUDART_INF_F; }
+  __device__ __forceinline__ T fold(T v, float score) const {
+    return fmaxf(v, score);
   }
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    float v = best[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    const int row = row0 + warp * ROWS_PER_WARP + r;
-    if (lane == r && row < m) atomicMax(&keys[row], f32_key(v));
+  __device__ __forceinline__ T combine(T a, T b) const { return fmaxf(a, b); }
+  __device__ __forceinline__ void commit(int row, T v) const {
+    atomicMax(keys + row, f32_key(v));
   }
-}
+};
 
 }  // namespace
 
+// Blocks of the row_max kernel one SM holds at once (16-byte copies if vec).
+extern "C" int vsc_row_max_occupancy(int device, int vec, int* blocks_per_sm) {
+  return reduce::resident_blocks<RowMax>(device, vec, blocks_per_sm);
+}
+
 // q [m, d], refs [n, d] f32 row-major on the device; keys is [m] uint32
-// scratch, out is [m] f32. `splits` column ranges per row tile.
+// scratch, out is [m] f32. `grid` persistent blocks (one wave: SMs x
+// vsc_row_max_occupancy, at most the work items); vec selects the 16-byte
+// copies (d % 4 == 0, both bases 16-byte aligned).
 extern "C" int vsc_row_max(int device, const float* q, const float* refs,
-                           int m, int n, int d, int n_valid, int splits,
-                           unsigned* keys, float* out, void* stream) {
+                           int m, int n, int d, int n_valid, int vec,
+                           int grid, unsigned* keys, float* out,
+                           void* stream) {
   if (m <= 0) return 0;
+  if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (n_valid + BN - 1) / BN;
-  splits = clamp_splits(splits, n_tiles);
-  const int tiles_per_split = n_tiles > 0 ? (n_tiles + splits - 1) / splits : 0;
   const int fill_blocks = (m + 255) / 256;
   fill_keys<<<fill_blocks, 256, 0, s>>>(keys, m);
-  if (n_tiles > 0) {
-    const dim3 grid((m + BM - 1) / BM, splits);
-    row_max_kernel<<<grid, THREADS, 0, s>>>(q, refs, m, n, d, n_valid,
-                                           tiles_per_split, keys);
-  }
+  err = reduce::launch(q, refs, m, d, n_valid, vec, grid, RowMax{keys}, s);
+  if (err != cudaSuccess) return (int)err;
   keys_to_f32<<<fill_blocks, 256, 0, s>>>(keys, out, m);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-// Shared f32 tile product of the retrieval kernels (row_max, count_above,
-// pool_writer, fused_topk).
+// Shared f32 tile product of pool_writer and fused_topk (through
+// segment_top2.cuh). row_max and count_above run the pipelined persistent
+// product of reduce_gemm.cuh, with the same arithmetic per score.
 //
 // One block of 256 threads computes a [BM x BN] = [64 query rows x 128 ref
 // columns] tile of q . refs^T in full f32 FMA on the CUDA cores (the JAX

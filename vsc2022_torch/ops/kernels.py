@@ -22,7 +22,8 @@ replaces, what bounds it on an H100 and what its design does about it.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import ctypes
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -30,8 +31,11 @@ from vsc2022_torch.ops import _build
 
 SEG_LANES = 128  # columns per winner-pool segment
 SEG_KEEP = 2  # entries the pool keeps per segment
-ROW_TILE = 64  # query rows per block tile of the kernels (tile_gemm.cuh)
-BLOCKS_PER_SM = 8  # column splits target this many blocks per SM
+ROW_TILE = 64  # query rows per block tile of fused_topk (tile_gemm.cuh)
+BLOCKS_PER_SM = 8  # fused_topk's column splits target this many blocks per SM
+# Query rows and ref columns of one row_max / count_above work item
+# (reduce_gemm.cuh).
+REDUCE_TILE = 128
 
 # Elements of one score chunk in the plain versions (512 MB of f32).
 PLAIN_CHUNK_ELEMENTS = 1 << 27
@@ -210,7 +214,8 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _splits(t: torch.Tensor, m: int) -> int:
-    """Column splits: ~BLOCKS_PER_SM blocks per SM over all row tiles."""
+    """fused_topk's column splits: ~BLOCKS_PER_SM blocks per SM over all
+    row tiles."""
     sms = torch.cuda.get_device_properties(t.device).multi_processor_count
     row_tiles = -(-m // ROW_TILE)
     return max(1, -(-BLOCKS_PER_SM * sms // row_tiles))
@@ -219,6 +224,69 @@ def _splits(t: torch.Tensor, m: int) -> int:
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {rc})")
+
+
+# ---- the persistent schedule of row_max and count_above --------------------
+
+
+def reduce_tiles(m: int, n_valid: int) -> Tuple[int, int]:
+    """(row tiles, column tiles) of an [m, n_valid] row_max / count_above
+    call; its work items are their product."""
+    return -(-m // REDUCE_TILE), -(-n_valid // REDUCE_TILE)
+
+
+def reduce_grid(m: int, n_valid: int, slots: int) -> int:
+    """Blocks of one launch: one wave of the ``slots`` blocks the card
+    holds at once, never more than the work items."""
+    row_tiles, col_tiles = reduce_tiles(m, n_valid)
+    return min(slots, row_tiles * col_tiles)
+
+
+def reduce_schedule(m: int, n_valid: int, grid: int) -> List[Tuple[int, int]]:
+    """The work items [begin, end) that each block of a ``grid``-block
+    launch walks, as reduce_gemm.cuh computes them: items are numbered row
+    tile major (row_tile · col_tiles + col_tile) and block b takes
+    [b·W // grid, (b+1)·W // grid) of the W items, so the ranges tile the
+    items in order and differ in length by at most one."""
+    row_tiles, col_tiles = reduce_tiles(m, n_valid)
+    w = row_tiles * col_tiles
+    return [(b * w // grid, (b + 1) * w // grid) for b in range(grid)]
+
+
+# Resident blocks per SM of each (kernel, device, copy width), from the
+# CUDA occupancy calculator.
+_resident: Dict[Tuple[str, int, int], int] = {}
+
+
+def _reduce_slots(t: torch.Tensor, name: str, vec: int) -> int:
+    """Blocks of kernel ``name`` the card holds at once: SMs × resident
+    blocks per SM."""
+    key = (name, t.device.index, vec)
+    if key not in _resident:
+        blocks = ctypes.c_int(0)
+        rc = getattr(_build.library(), f"vsc_{name}_occupancy")(
+            t.device.index, vec, ctypes.addressof(blocks)
+        )
+        _raise_on(rc, name)
+        if blocks.value < 1:
+            raise RuntimeError(f"CUDA kernel {name} does not fit on an SM")
+        _resident[key] = blocks.value
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+    return sms * _resident[key]
+
+
+def _reduce_plan(name: str, q: torch.Tensor, refs: torch.Tensor,
+                 n_valid: int) -> Tuple[int, int]:
+    """(vec, grid) of a row_max / count_above launch: 16-byte copies when
+    D % 4 == 0 and both bases are 16-byte aligned, 4-byte copies
+    otherwise; one wave of blocks (0 when there is no work item)."""
+    m, d = q.shape
+    if d == 0:
+        raise ValueError(f"{name}: the kernel takes D >= 1")
+    vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0 and refs.data_ptr() % 16 == 0)
+    if n_valid == 0:
+        return vec, 0
+    return vec, reduce_grid(m, n_valid, _reduce_slots(q, name, vec))
 
 
 def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
@@ -231,10 +299,11 @@ def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
     out = torch.empty((m,), dtype=torch.float32, device=q.device)
     if m == 0:
         return out
+    vec, grid = _reduce_plan("row_max", q, refs, n_valid)
     keys = torch.empty((m,), dtype=torch.int32, device=q.device)
     rc = _build.library().vsc_row_max(
         q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0], d,
-        n_valid, _splits(q, m), keys.data_ptr(), out.data_ptr(), _stream(q),
+        n_valid, vec, grid, keys.data_ptr(), out.data_ptr(), _stream(q),
     )
     _raise_on(rc, "row_max")
     launches["row_max"] += 1
@@ -254,9 +323,10 @@ def count_above(
     out = torch.empty((m,), dtype=torch.int32, device=q.device)
     if m == 0:
         return out
+    vec, grid = _reduce_plan("count_above", q, refs, n_valid)
     rc = _build.library().vsc_count_above(
         q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0], d,
-        float(tau), n_valid, _splits(q, m), out.data_ptr(), _stream(q),
+        float(tau), n_valid, vec, grid, out.data_ptr(), _stream(q),
     )
     _raise_on(rc, "count_above")
     launches["count_above"] += 1
