@@ -5,15 +5,19 @@
     python3 chip_smoke.py --keep   # leave the corpus in build/smoke/
 
 Phases (any failure exits non-zero):
-  1. Build the hand kernels from vsc2022_torch/ops/csrc with nvcc.
+  1. Build the hand kernels from vsc2022_torch/ops/csrc with nvcc; print
+     the resident blocks per SM of row_max, count_above and fused_topk,
+     and fused_topk's grid and pieces per row (S) at the serving and DnS
+     shapes.
   2. Hold each kernel against its plain PyTorch version on the card:
      first at small ragged shapes, then (after phase 4) on the very
      inputs the main path gave it, plus integer-valued inputs of the same
      shape. Exact on integers, within the stated tolerance on floats.
      Times the kernel, the plain version, one PyTorch library yardstick
      (timed here only, never called by the port) and the card's bound.
-     On each path's float inputs of row_max and count_above, the kernels
-     are also held against the pool_writer kernel bit for bit: row_max is
+     On each path's float inputs of row_max, count_above and fused_topk,
+     the kernels are also held against the pool_writer kernel bit for
+     bit: fused_topk is the pool's winners ordered best-first, row_max is
      the pool's best winner, and with tau the global k-th pool value (k =
      20 per query row, 1200 per video) count_above equals the pool count
      >= tau on every row where no segment holds two entries >= tau.
@@ -356,7 +360,7 @@ def phase_kernels_small(torch, kernels, dev):
         q, r = make_inputs(torch, kind, 200, 4096, 64, seed=2, dev=dev)
         r[[5, 7, 40]] = r[7].clone()  # exact ties inside segment 0
         compare_pool(torch, kernels, q, r, 3000, kind, check_ids_dense=True)
-        for kappa in (7, 32, 300):  # 300: the κ-sets in global memory
+        for kappa in (7, 32, 300):  # 300: more than some blocks' winners
             compare_topk(torch, kernels, q, r, 3000, kappa, kind)
     log("phase 2: small shapes agree (ints exact, floats within "
         f"{FLOAT_ATOL}; fused_topk bit-identical to pool_writer's winners)")
@@ -1232,7 +1236,13 @@ def main() -> int:
     log("phase 1: resident blocks per SM (4-byte / 16-byte copies): " + ", ".join(
         f"{name} {kernels._reduce_slots(probe, name, 0) // sms} / "
         f"{kernels._reduce_slots(probe, name, 1) // sms}"
-        for name in ("row_max", "count_above")))
+        for name in ("row_max", "count_above", "fused_topk")))
+    for label, m, n_valid, vec in (("serving", 9000, 240_000, 1),
+                                   ("DnS", 7682, 31_004, 0)):
+        grid, pieces = kernels.topk_grid(m, n_valid, 32, kernels.reduce_grid(
+            m, n_valid, kernels._reduce_slots(probe, "fused_topk", vec)))
+        log(f"phase 1: fused_topk at the {label} shape [{m} x {n_valid}], kappa 32: "
+            f"grid {grid}, S = {pieces} pieces per row")
 
     try:
         phase_kernels_small(torch, kernels, dev)

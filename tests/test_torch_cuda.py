@@ -11,8 +11,9 @@ both sides and the comparisons are exact, tie-breaks included; the
 chamfer is also held on unit-norm floats within 1e-5 (f32 sums of the
 products in another order than cuBLAS's). On floats the retrieval kernels
 are held against each other bit for bit: they run the same f32 FMA chain
-per score, so row_max equals the pool's best winner and count_above the
-pool's count wherever the pool holds every entry >= tau.
+per score, so row_max equals the pool's best winner, count_above the
+pool's count wherever the pool holds every entry >= tau, and fused_topk
+the pool's best winners.
 """
 
 import math
@@ -31,6 +32,9 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+RAGGED_N = 1337  # not a multiple of the 128-column tile
 
 
 def _ints(shape, seed):
@@ -74,8 +78,12 @@ def test_kernels_match_plain(cuda_device, m, n, d, n_valid):
 @pytest.mark.parametrize("m,n,d,n_valid,kappa", [
     (1, 128, 8, 128, 4), (70, 1000, 33, 999, 32), (200, 4096, 64, 3000, 64),
     (130, 2500, 16, 2400, 7), (300, 2048, 512, 0, 8), (65, 3000, 24, 2990, 192),
-    # Above κ = 192 the κ-sets live in global memory (fused_topk.cu).
     (90, 5000, 16, 4900, 300), (9, 700, 24, 650, 1500),
+    # One row tile split among 132 blocks (S = 132), 16-byte copies.
+    (60, 20000, 512, 19990, 32),
+    # Blocks whose ranges cross row tiles, 4-byte copies at D = 511, 1025.
+    (300, 9000, 1025, 8999, 192), (129, 5000, 511, 4999, 1),
+    (200, 30000, 512, 29000, 1500), (260, 6000, 1025, 6000, 300),
 ])
 def test_fused_topk_matches_plain(cuda_device, m, n, d, n_valid, kappa):
     q, r = _ints((m, d), 8), _ints((n, d), 9)
@@ -91,13 +99,39 @@ def test_fused_topk_matches_plain(cuda_device, m, n, d, n_valid, kappa):
     assert kernels.launches["fused_topk"] == 1
 
 
+@pytest.mark.parametrize("slots", [1, 3, 7, 50])
+def test_fused_topk_any_grid(cuda_device, monkeypatch, slots):
+    # Few blocks: each block's range spans several row tiles, and each
+    # row tile's pieces sit in up to S slots.
+    monkeypatch.setattr(kernels, "_reduce_slots", lambda t, name, vec: slots)
+    q, r = _ints((300, 40), 28), _ints((RAGGED_N, 40), 29)
+    r[[3, 700, 701]] = 3.0
+    q[:2] = 3.0
+    for n_valid, kappa in ((1, 4), (129, 32), (RAGGED_N, 32), (RAGGED_N, 700)):
+        got_v, got_i = kernels.fused_topk(q.to(cuda_device), r.to(cuda_device),
+                                          n_valid, kappa)
+        want_v, want_i = kernels.fused_topk_plain(q, r, n_valid, kappa)
+        assert torch.equal(got_v.cpu(), want_v) and torch.equal(got_i.cpu(), want_i)
+
+
+def test_fused_topk_shrinks_its_grid_to_the_scratch_ceiling(cuda_device, monkeypatch):
+    m, kappa = 60, 64
+    monkeypatch.setattr(kernels, "TOPK_SCRATCH_BYTES", 8 * m * kappa * 3)
+    q, r = _ints((m, 16), 30), _ints((20000, 16), 31)
+    got_v, got_i = kernels.fused_topk(q.to(cuda_device), r.to(cuda_device),
+                                      19000, kappa)
+    want_v, want_i = kernels.fused_topk_plain(q, r, 19000, kappa)
+    assert torch.equal(got_v.cpu(), want_v) and torch.equal(got_i.cpu(), want_i)
+
+
+@pytest.mark.parametrize("d", [512, 513, 1025])
 @pytest.mark.parametrize("kappa", [32, 256])
-def test_fused_topk_floats_bit_identical_to_pool_writer(cuda_device, kappa):
+def test_fused_topk_floats_bit_identical_to_pool_writer(cuda_device, kappa, d):
     # On floats the kernel's candidates are the pool_writer kernel's winners
-    # ordered best-first: the same tile product, so the same bits.
+    # ordered best-first: the same fmaf chain per score, so the same bits.
     rng = np.random.RandomState(10)
-    q = torch.from_numpy(rng.randn(150, 513).astype(np.float32)).to(cuda_device)
-    r = torch.from_numpy(rng.randn(8192, 513).astype(np.float32)).to(cuda_device)
+    q = torch.from_numpy(rng.randn(150, d).astype(np.float32)).to(cuda_device)
+    r = torch.from_numpy(rng.randn(8192, d).astype(np.float32)).to(cuda_device)
     got_v, got_i = kernels.fused_topk(q, r, 8000, kappa)
     pv, pi = kernels.pool_writer(q, r, 8000)
     want_v, want_i = kernels.ordered_topk(pv.view(150, -1), pi.view(150, -1), kappa)
@@ -131,8 +165,6 @@ def test_wrappers_raise_instead_of_falling_back(cuda_device):
 
 
 # ---- row_max and count_above: the persistent pipelined product -------------
-
-RAGGED_N = 1337  # not a multiple of the 128-column tile
 
 
 def _reductions_match_plain(q, r, tau, n_valid):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the port's row_max and count_above kernels at the shapes its paths
-give them, beside their bound and one PyTorch library call.
+"""Times the port's row_max, count_above and fused_topk kernels (the
+kernels of reduce_gemm.cuh) at the shapes its paths give them, beside their
+bound and one PyTorch library call.
 
     python3 tools/bench_reduce.py             # needs one CUDA GPU
     python3 tools/bench_reduce.py --reps 5 --only row_max
@@ -9,13 +10,18 @@ Inputs are unit-norm random rows made on the card from a seed, with the
 paths' widths (D = 511 after score normalization's dimension drop, 512
 with the bias column, 1024 and 1025 on the DnS track) and the corpus
 zero-padded to whole 128-row segments as the searcher stages it. For each
-shape: the kernel against the library call (row max within 1e-5, counts
-within 2), the row max of the first 256 rows bit-identical to the
-pool_writer kernel's best winner, then kernel, library and bound ms.
-Builds the kernels first and prints nvcc's register and spill report and
-each kernel's resident blocks per SM. The last lines are the card's name
+shape: the kernel against the library call (row max and top-κ values
+within 1e-5, counts within 2), the first 256 rows bit-identical to the
+pool_writer kernel's winners (row_max: the best one; fused_topk: all κ,
+ids included), then kernel, library and bound ms. Builds the kernels
+first and prints nvcc's register and spill report, each kernel's resident
+blocks per SM, and fused_topk's grid and pieces (S) per shape. The last lines are the card's name
 and power limit and one JSON object with every shape's numbers.
 `chip_smoke.py` measures the same kernels on the paths' own inputs.
+
+Copied into a tree of an earlier commit (beside its vsc2022_torch/ and
+chip_smoke.py), it times that tree's kernels, skipping the occupancy and
+grid reports that tree lacks: parent and change can share one call.
 """
 
 from __future__ import annotations
@@ -37,14 +43,18 @@ SHAPES = [
     ("count_above", "dns", 7682, 31_004, 1025),
     ("count_above", "serving", 9000, 240_000, 512),
     ("count_above", "serving, one video", 60, 240_000, 512),
+    ("fused_topk", "serving", 9000, 240_000, 512),
+    ("fused_topk", "dns", 7682, 31_004, 1025),
+    ("fused_topk", "serving, one video", 60, 240_000, 512),
 ]
 TAU = 0.15  # ~3.4 sigma of unit-norm scores at D = 512
+KAPPA = 32  # the searcher's candidates per query row
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=3, help="timed launches per shape")
-    ap.add_argument("--only", choices=("row_max", "count_above"),
+    ap.add_argument("--only", choices=("row_max", "count_above", "fused_topk"),
                     help="time one kernel only")
     args = ap.parse_args()
 
@@ -61,7 +71,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     _build.build(verbose=True)
     lib = _build.library()
-    for name in ("row_max", "count_above"):
+    for name in ("row_max", "count_above", "fused_topk"):
+        if not hasattr(lib, f"vsc_{name}_occupancy"):
+            continue
         for vec in (0, 1):
             blocks = ctypes.c_int(0)
             rc = getattr(lib, f"vsc_{name}_occupancy")(0, vec, ctypes.addressof(blocks))
@@ -85,21 +97,38 @@ def main() -> int:
             lib_call = lambda: cs.row_max_library(torch, q, r, n_valid)  # noqa: E731
             err = float((run() - lib_call()).abs().max())
             cs.check(err <= cs.FLOAT_ATOL, f"row_max {path}: off the library by {err}")
-        else:
+        elif name == "count_above":
             run = lambda: kernels.count_above(q, r, TAU, n_valid)  # noqa: E731
             lib_call = lambda: cs.count_above_library(torch, q, r, TAU, n_valid)  # noqa: E731
             err = float((run().long() - lib_call()).abs().max())
             cs.check(err <= 2, f"count_above {path}: off the library by {err}")
+        else:
+            run = lambda: kernels.fused_topk(q, r, n_valid, KAPPA)  # noqa: E731
+            lib_call = lambda: cs.topk_library(torch, q, r, n_valid, KAPPA)  # noqa: E731
+            err = float((run()[0] - lib_call()).abs().max())
+            cs.check(err <= cs.FLOAT_ATOL, f"fused_topk {path}: off the library by {err}")
+            if hasattr(kernels, "topk_grid"):
+                _, grid = kernels._reduce_plan(name, q, r, n_valid)
+                grid, pieces = kernels.topk_grid(m, n_valid, KAPPA, grid)
+                print(f"fused_topk {path}: grid {grid}, S = {pieces}", flush=True)
         head = q[:256].contiguous()
-        pv, _ = kernels.pool_writer(head, r, n_valid)
-        cs.check(torch.equal(kernels.row_max(head, r, n_valid).view(torch.int32),
-                             pv.view(head.shape[0], -1).amax(1).view(torch.int32)),
-                 f"{path} [D={d}]: row_max differs from pool_writer's best winner")
-        del pv
+        pv, pi = kernels.pool_writer(head, r, n_valid)
+        if name == "fused_topk":
+            want = kernels.ordered_topk(pv.view(head.shape[0], -1),
+                                        pi.view(head.shape[0], -1), KAPPA)
+            got = kernels.fused_topk(head, r, n_valid, KAPPA)
+            cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                     f"{path} [D={d}]: fused_topk differs from pool_writer's winners")
+        else:
+            cs.check(torch.equal(kernels.row_max(head, r, n_valid).view(torch.int32),
+                                 pv.view(head.shape[0], -1).amax(1).view(torch.int32)),
+                     f"{path} [D={d}]: row_max differs from pool_writer's best winner")
+        del pv, pi
         kernels.reset_launches()
         ms = cs.cuda_ms(torch, run, args.reps)
         library_ms = cs.cuda_ms(torch, lib_call, 2)
-        bound_ms, bound_by = cs.bound(m, n_valid, r.shape[0], d, 4 * m)
+        out_bytes = 8 * m * KAPPA if name == "fused_topk" else 4 * m
+        bound_ms, bound_by = cs.bound(m, n_valid, r.shape[0], d, out_bytes)
         row = {"kernel": name, "path": path, "shape": [m, n_valid, d],
                "ms": ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,

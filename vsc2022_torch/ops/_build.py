@@ -109,10 +109,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.vsc_count_above.argtypes = [i, p, p, i, i, i, f, i, i, i, p, p]
     lib.vsc_count_above_occupancy.argtypes = [i, i, p]
     lib.vsc_chamfer.argtypes = [i, p, p, i, i, i, i, i, i, p, p]
-    lib.vsc_fused_topk.argtypes = [i, p, p, i, i, i, i, i, i, p, p, p]
+    lib.vsc_fused_topk.argtypes = [i, p, p, i, i, i, i, i, i, i, i, p, p, p]
+    lib.vsc_fused_topk_occupancy.argtypes = [i, i, p]
     for fn in (lib.vsc_pool_writer, lib.vsc_row_max, lib.vsc_row_max_occupancy,
                lib.vsc_count_above, lib.vsc_count_above_occupancy,
-               lib.vsc_chamfer, lib.vsc_fused_topk):
+               lib.vsc_chamfer, lib.vsc_fused_topk, lib.vsc_fused_topk_occupancy):
         fn.restype = ctypes.c_int
 
 

@@ -44,7 +44,8 @@ struct CountAbove {
 // vec).
 extern "C" int vsc_count_above_occupancy(int device, int vec,
                                          int* blocks_per_sm) {
-  return reduce::resident_blocks<CountAbove>(device, vec, blocks_per_sm);
+  return reduce::resident_blocks<reduce::RowFold<CountAbove>>(device, vec, 0,
+                                                             blocks_per_sm);
 }
 
 // q [m, d], refs [n, d] f32 row-major on the device; out is [m] int32.
@@ -60,6 +61,6 @@ extern "C" int vsc_count_above(int device, const float* q, const float* refs,
   err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
   if (err != cudaSuccess) return (int)err;
   err = reduce::launch(q, refs, m, d, n_valid, vec, grid,
-                       CountAbove{tau, out}, s);
+                       reduce::RowFold<CountAbove>{{tau, out}}, 0, s);
   return (int)err;
 }

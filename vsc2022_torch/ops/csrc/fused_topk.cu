@@ -13,38 +13,55 @@
 // difference is invisible: the searcher's count-verify makes global_topk
 // exact, tie order included.
 //
-// Output of one launch: per (row, column split) a kappa-set, [M, splits,
-// kappa] values and ids, unordered, unfilled slots at (-inf, INT_MAX). The
-// wrapper (ops/kernels.py:fused_topk) merges the splits and orders the rows
-// best-first with one torch.sort over [M, splits * kappa], the counterpart
-// of the JAX wrapper's lax.top_k after its kernel.
-//
 // Bound: operations. 2*M*N*D flops ([9000 x 240,000 x 512] is 2.2 TFLOP,
 // ~33 ms at 67 TFLOP/s f32); the bytes (q and refs once, M*kappa*8 out) are
-// far below. Design: the tile product is tile_gemm.cuh's, the one that
-// count_above and pool_writer use, so the three kernels give bit-identical
-// scores: the streaming verify compares kept-above-tau (tau from these
-// scores) with count_above's exact count, and one score rounded differently
-// would flag a complete row for a corpus re-search. A block owns a 64-row
-// tile and a range of 128-column segments (column splits fill the card when
-// the rows are few). After each segment's product, warp w reduces its 8 rows'
-// segments to their best 2 (segment_top2.cuh) and folds them into the rows'
-// kappa-sets by replacing the set's worst entry. The worst entry's (value,
-// id, slot) stays in registers, so a winner no better than it is skipped
-// with one compare: after the first segments almost every winner is. Slot s
-// of a set belongs to lane s % 32: the lane that replaces a slot is the lane
-// that rescans it, so the warp needs no barrier, only a shuffle reduction.
-// The kappa-sets live in shared memory up to kappa = 192 (96 KB a block) and
-// in the output itself (global memory) above that.
-#include <climits>
-
+// far below. So the product is the one of row_max and count_above
+// (reduce_gemm.cuh: one wave of persistent blocks over evenly split
+// (128-row, 128-column) items, cp.async ring of 64-deep slices, 8 x 8
+// register tiles), with this kernel's epilogue on each item. An item's 128
+// columns are exactly one pool segment, so its winners are pool_writer's bit
+// for bit: the same fmaf chain per score, the same (value, column) order.
+//
+// The epilogue is latency-bound work on which all 8 warps stall together
+// (one block per SM, two warps per scheduler), so it is kept short:
+//   1. Each thread takes the best 2 of its 8 columns for each of its 8 rows
+//      with selects, and a reduce-scatter over the row group's 8 lanes (7
+//      exchanges) leaves lane tx with row tx's best 2 of its column half.
+//   2. The halves meet in shared memory (one barrier); lanes l and l + 16 of
+//      warp w merge row 16w + l's halves, and lane l compares the segment's
+//      best winner with the worst entry of the row's kappa-set: after the
+//      first segments almost every row stops at that compare.
+//   3. A winner that enters replaces the worst entry, and lane l rescans the
+//      row's set alone. The 16 rows of a warp insert at once, with no
+//      shuffle and no barrier (a warp-wide rescan per row, one row after
+//      another, was the slowest part of the first build: PERF.md, section
+//      6).
+// The sets sit in shared memory past the ring (kappa + 1 words a row, so
+// the 16 lanes read 16 banks), which leaves room for a 2-stage ring only:
+// 64-deep slices still keep one slice in flight per 4,096 FMAs a thread,
+// and the rescans stay on chip. A block copies its sets to the output when
+// its range leaves a row tile. Above kappa = 64 the sets do not fit and live
+// in the output itself (global memory), with the same code.
+//
+// Output of one launch: [M, S, kappa] values and ids, unordered, unfilled
+// slots at (-inf, INT_MAX). S ("pieces") is the largest number of blocks
+// whose ranges touch one row tile; a block writes its piece of row tile rt
+// into slot (b - the first block of rt). The wrapper (ops/kernels.py:
+// fused_topk) computes S and the grid from the same schedule and orders the
+// rows best-first with ordered_topk over [M, S * kappa], the counterpart of
+// the JAX wrapper's lax.top_k after its kernel.
+#include "reduce_gemm.cuh"
 #include "segment_top2.cuh"
 
-using namespace vsc;
+using vsc::Top2;
+using vsc::better;
+using vsc::merge;
+using namespace vsc::reduce;
 
 namespace {
 
-constexpr int kSmemKappaMax = 192;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRowsPerWarp = BM / (THREADS / 32);  // 16
 
 struct Slot {
   float v;
@@ -52,152 +69,245 @@ struct Slot {
   int s;
 };
 
-// Whether slot a is worse than slot b: b better under the pool order, the
-// lower slot on equal entries (only the unfilled sentinels are equal).
-__device__ __forceinline__ bool worse(const Slot& a, const Slot& b) {
-  return better(b.v, b.i, a.v, a.i) || (a.v == b.v && a.i == b.i && a.s < b.s);
-}
-
-// The worst slot of one row's kappa-set. Each lane scans its own slots
-// lane, lane + 32, ...; every lane gets the result.
+// The worst slot of one row's kappa-set, scanned by the lane that owns the
+// row: the first of the worst entries (the lowest slot on equal entries,
+// which only the unfilled sentinels are).
 __device__ __forceinline__ Slot worst_slot(const float* sv, const int* si,
-                                           int kappa, int lane) {
-  Slot w = {CUDART_INF_F, -1, INT_MAX};  // better than any slot
-  for (int s = lane; s < kappa; s += 32) {
-    const Slot c = {sv[s], si[s], s};
-    if (worse(c, w)) w = c;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    Slot o;
-    o.v = __shfl_xor_sync(0xffffffffu, w.v, off);
-    o.i = __shfl_xor_sync(0xffffffffu, w.i, off);
-    o.s = __shfl_xor_sync(0xffffffffu, w.s, off);
-    if (worse(o, w)) w = o;
+                                           int kappa) {
+  Slot w = {sv[0], si[0], 0};
+  for (int s = 1; s < kappa; ++s) {
+    const float v = sv[s];
+    const int i = si[s];
+    if (better(w.v, w.i, v, i)) w = {v, i, s};
   }
   return w;
 }
 
-__global__ void __launch_bounds__(THREADS)
-    fused_topk_kernel(const float* __restrict__ q,
-                      const float* __restrict__ refs, int m, int n, int d,
-                      int n_valid, int kappa, int splits, int tiles_per_split,
-                      bool sets_in_smem, float* __restrict__ out_v,
-                      int* __restrict__ out_i) {
-  __shared__ TileSmem sm;
-  extern __shared__ float set_smem[];
-  const int row0 = blockIdx.x * BM;
-  const int split = blockIdx.y;
-  const int n_tiles = (n_valid + BN - 1) / BN;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+__device__ __forceinline__ Top2 shfl_xor_top2(const Top2& t, int mask) {
+  return {__shfl_xor_sync(kFull, t.v1, mask), __shfl_xor_sync(kFull, t.i1, mask),
+          __shfl_xor_sync(kFull, t.v2, mask), __shfl_xor_sync(kFull, t.i2, mask)};
+}
 
-  // Row r of the tile keeps its set at set_v + r * stride.
-  float* set_v;
-  int* set_i;
-  size_t stride;
-  if (sets_in_smem) {
-    set_v = set_smem;
-    set_i = reinterpret_cast<int*>(set_smem + BM * kappa);
-    stride = kappa;
-  } else {
-    const size_t base = ((size_t)row0 * splits + split) * kappa;
-    set_v = out_v + base;
-    set_i = out_i + base;
-    stride = (size_t)splits * kappa;
+// a if c else b, field by field (no reference to a selected struct).
+__device__ __forceinline__ Top2 pick(bool c, const Top2& a, const Top2& b) {
+  return {c ? a.v1 : b.v1, c ? a.i1 : b.i1, c ? a.v2 : b.v2, c ? a.i2 : b.i2};
+}
+
+// The 8 lanes of a row group (tx: lane bits 0, 1 and 4) each hold a top-2
+// of rows 0..7; afterwards lane tx holds the merged top-2 of row tx. A
+// reduce-scatter: each round hands half of the rows to the partner lane, 7
+// row exchanges in all where a butterfly per row takes 24.
+__device__ __forceinline__ Top2 reduce_scatter(Top2 (&b)[TM], int tx) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // tx bit 2 is lane bit 4
+    const bool hi = tx & 4;
+    b[k] = merge(pick(hi, b[k + 4], b[k]),
+                 shfl_xor_top2(pick(hi, b[k], b[k + 4]), 16));
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const bool hi = tx & 2;
+    b[k] = merge(pick(hi, b[k + 2], b[k]),
+                 shfl_xor_top2(pick(hi, b[k], b[k + 2]), 2));
+  }
+  const bool hi = tx & 1;
+  return merge(pick(hi, b[1], b[0]), shfl_xor_top2(pick(hi, b[0], b[1]), 1));
+}
+
+// Up to this kappa the sets live in shared memory past the ring: 65 KB at
+// kappa = 64 beside the 136 KB 2-stage ring and 5.5 KB of `Smem`. A row's
+// set takes kappa + 1 words, so the 16 lanes that scan 16 rows at once
+// read 16 banks.
+constexpr int kSmemKappaMax = 64;
+
+constexpr int smem_set_bytes(int kappa) {
+  return BM * (kappa + 1) * 8;
+}
+
+// The top-kappa epilogue of reduce_gemm.cuh's product.
+struct TopK {
+  static constexpr int kStages = 2;
+  float* out_v;
+  int* out_i;
+  int kappa;
+  int pieces;    // S: slots per row
+  bool in_smem;  // the sets in shared memory (kappa <= kSmemKappaMax)
+
+  struct State {};  // nothing in registers across the loop
+  struct Smem {
+    Top2 half[2][BM];  // per column half, the best 2 of a row's segment
+    Slot worst[BM];    // the worst entry of each row's kappa-set
+  };
+
+  // The slot of this block's piece of row tile rt: b minus the first block
+  // whose range holds an item of rt, the one holding item rt * col_tiles
+  // (kernels.topk_first_block).
+  __device__ __forceinline__ int slot(const Work& w, int rt) const {
+    const unsigned long long first =
+        (((unsigned long long)rt * w.col_tiles + 1) * gridDim.x - 1) / w.items;
+    return (int)(blockIdx.x - first);
   }
 
-  float min_v[ROWS_PER_WARP];
-  int min_i[ROWS_PER_WARP];
-  int min_s[ROWS_PER_WARP];
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    min_v[r] = -CUDART_INF_F;
-    min_i[r] = INT_MAX;
-    min_s[r] = 0;
-    const int local = warp * ROWS_PER_WARP + r;
-    if (row0 + local < m) {
-      for (int s = lane; s < kappa; s += 32) {
-        set_v[local * stride + s] = -CUDART_INF_F;
-        set_i[local * stride + s] = INT_MAX;
-      }
+  // Values, then ids, of tile row r's set: in shared memory past the ring,
+  // or this block's slot of the output.
+  __device__ __forceinline__ float* set_v(const Work& w, int rt, int r) const {
+    if (in_smem) {
+      extern __shared__ __align__(16) float dyn[];
+      return dyn + kStages * STAGE_FLOATS + r * (kappa + 1);
     }
+    return out_v + ((size_t)(rt * BM + r) * pieces + slot(w, rt)) * kappa;
+  }
+  __device__ __forceinline__ int* set_i(const Work& w, int rt, int r) const {
+    if (in_smem)
+      return reinterpret_cast<int*>(set_v(w, rt, r) + BM * (kappa + 1));
+    return out_i + ((size_t)(rt * BM + r) * pieces + slot(w, rt)) * kappa;
   }
 
-  float acc[ROWS_PER_WARP][COLS_PER_LANE];
-  for (int t = t_begin; t < t_end; ++t) {
-    const int col0 = t * BN;
-    tile_product(q, refs, m, n, d, row0, col0, sm, acc);
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const Top2 top = segment_top2(acc[r], col0, n_valid, lane);
-      const int local = warp * ROWS_PER_WARP + r;
-      if (row0 + local >= m) continue;  // uniform across the warp
-      float* sv = set_v + local * stride;
-      int* si = set_i + local * stride;
-      // The winners come best first: once one is no better than the set's
-      // worst entry, neither is the next.
-      for (int c = 0; c < 2; ++c) {
-        const float v = c == 0 ? top.v1 : top.v2;
-        const int i = c == 0 ? top.i1 : top.i2;
-        if (!(v > -CUDART_INF_F) || !better(v, i, min_v[r], min_i[r])) break;
-        if (lane == (min_s[r] & 31)) {
-          sv[min_s[r]] = v;
-          si[min_s[r]] = i;
+  // Warp w owns rows 16w..16w+15 of `worst` and of the sets: no barrier.
+  __device__ __forceinline__ void reset(Smem& sm, const Tile& t,
+                                        const Work& w) const {
+    const int base_row = kRowsPerWarp * t.warp;
+    if (t.lane < kRowsPerWarp)
+      sm.worst[base_row + t.lane] = {-CUDART_INF_F, INT_MAX, 0};
+    if (in_smem) {
+      for (int r = base_row; r < base_row + kRowsPerWarp; ++r) {
+        float* sv = set_v(w, 0, r);
+        int* si = set_i(w, 0, r);
+        for (int s = t.lane; s < kappa; s += 32) {
+          sv[s] = -CUDART_INF_F;
+          si[s] = INT_MAX;
         }
-        const Slot w = worst_slot(sv, si, kappa, lane);
-        min_v[r] = w.v;
-        min_i[r] = w.i;
-        min_s[r] = w.s;
       }
     }
+    __syncwarp();
   }
 
-  if (sets_in_smem) {
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const int local = warp * ROWS_PER_WARP + r;
-      const int row = row0 + local;
-      if (row >= m) continue;
-      const size_t o = ((size_t)row * splits + split) * kappa;
-      for (int s = lane; s < kappa; s += 32) {
-        out_v[o + s] = set_v[local * stride + s];
-        out_i[o + s] = set_i[local * stride + s];
+  __device__ __forceinline__ void begin(State&, Smem& sm, const Tile& t,
+                                        const Work& w) const {
+    reset(sm, t, w);
+  }
+
+  // The block leaves row tile rt: shared-memory sets go to the output.
+  __device__ __forceinline__ void flush(State&, Smem& sm, const Tile& t,
+                                        const Work& w, int rt) const {
+    if (in_smem) {
+      __syncwarp();  // each row's lane has written its set
+      const int base_row = kRowsPerWarp * t.warp;
+      const int piece = slot(w, rt);
+      for (int r = base_row; r < base_row + kRowsPerWarp; ++r) {
+        if (rt * BM + r >= w.m) break;
+        const float* sv = set_v(w, rt, r);
+        const int* si = set_i(w, rt, r);
+        const size_t at = ((size_t)(rt * BM + r) * pieces + piece) * kappa;
+        for (int s = t.lane; s < kappa; s += 32) {
+          out_v[at + s] = sv[s];
+          out_i[at + s] = si[s];
+        }
       }
     }
+    reset(sm, t, w);
+  }
+
+  template <bool kMasked>
+  __device__ __forceinline__ void item(State&, Smem& sm, const Tile& t,
+                                       const Work& w, float acc[TM][TN],
+                                       int rt, int ct, int valid_cols) const {
+    const int col0 = ct * BN + t.col;
+    Top2 b[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      b[i] = {-CUDART_INF_F, INT_MAX, -CUDART_INF_F, INT_MAX};
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        // Columns come in ascending order, so a strict '>' keeps the lower
+        // column on equal values (the pool order); -inf never enters.
+        // Selects, not branches: the 8 rows' chains interleave.
+        const float v =
+            !kMasked || 8 * j < valid_cols ? acc[i][j] : -CUDART_INF_F;
+        const bool first = v > b[i].v1, second = v > b[i].v2;
+        b[i].v2 = first ? b[i].v1 : second ? v : b[i].v2;
+        b[i].i2 = first ? b[i].i1 : second ? col0 + 8 * j : b[i].i2;
+        b[i].v1 = first ? v : b[i].v1;
+        b[i].i1 = first ? col0 + 8 * j : b[i].i1;
+      }
+    }
+    sm.half[t.wc][t.row + 4 * t.tx] = reduce_scatter(b, t.tx);
+    // `half` is written again only after the next item's slice barriers.
+    __syncthreads();
+    collect(sm, t, w, rt);
+  }
+
+  // Warp w folds the segment winners of rows 16w..16w+15 into their sets:
+  // lanes l and l + 16 merge row 16w + l's halves, and lane l inserts them.
+  // Lane l alone reads and writes that row's set and worst entry.
+  __device__ __forceinline__ void collect(Smem& sm, const Tile& t,
+                                          const Work& w, int rt) const {
+    const int r = kRowsPerWarp * t.warp + (t.lane & (kRowsPerWarp - 1));
+    Top2 top = sm.half[t.lane >> 4][r];
+    top = merge(top, shfl_xor_top2(top, 16));
+    if (t.lane >= kRowsPerWarp || rt * BM + r >= w.m) return;
+    Slot worst = sm.worst[r];
+    if (!(top.v1 > -CUDART_INF_F) || !better(top.v1, top.i1, worst.v, worst.i))
+      return;
+    float* sv = set_v(w, rt, r);
+    int* si = set_i(w, rt, r);
+    // The winners come best first: once one is no better than the set's
+    // worst entry, neither is the next.
+    for (int c = 0; c < 2; ++c) {
+      const float v = c == 0 ? top.v1 : top.v2;
+      const int i = c == 0 ? top.i1 : top.i2;
+      if (!(v > -CUDART_INF_F) || !better(v, i, worst.v, worst.i)) break;
+      sv[worst.s] = v;
+      si[worst.s] = i;
+      worst = worst_slot(sv, si, kappa);
+    }
+    sm.worst[r] = worst;
+  }
+};
+
+__global__ void fill_sets(float* out_v, int* out_i, size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    out_v[i] = -CUDART_INF_F;
+    out_i[i] = INT_MAX;
   }
 }
 
 }  // namespace
 
+// Blocks of the fused_topk kernel one SM holds at once (16-byte copies if
+// vec).
+extern "C" int vsc_fused_topk_occupancy(int device, int vec,
+                                        int* blocks_per_sm) {
+  return vsc::reduce::resident_blocks<TopK>(device, vec,
+                                            smem_set_bytes(kSmemKappaMax),
+                                            blocks_per_sm);
+}
+
 // q [m, d], refs [n, d] f32 row-major on the device; out_v / out_i are
-// [m, splits, kappa] (the caller picks splits >= 1, at most the number of
-// 128-column segments below n_valid, or 1 when there are none). Returns
-// cudaGetLastError() after the launch.
+// [m, pieces, kappa]. `grid` persistent blocks (one wave: SMs x
+// vsc_fused_topk_occupancy, at most the work items) and `vec` as for
+// vsc_row_max; `pieces` is S for that grid (ops/kernels.py:topk_pieces),
+// 1 when there is no work item. Returns cudaGetLastError() after the
+// launches.
 extern "C" int vsc_fused_topk(int device, const float* q, const float* refs,
                               int m, int n, int d, int n_valid, int kappa,
-                              int splits, float* out_v, int* out_i,
-                              void* stream) {
+                              int vec, int grid, int pieces, float* out_v,
+                              int* out_i, void* stream) {
   if (m <= 0) return 0;
-  if (kappa <= 0 || splits <= 0 || splits > 65535)
+  if (kappa <= 0 || pieces <= 0 || n_valid < 0 || n_valid > n)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (n_valid + BN - 1) / BN;
-  const int tiles_per_split = n_tiles > 0 ? (n_tiles + splits - 1) / splits : 0;
-  const bool sets_in_smem = kappa <= kSmemKappaMax;
-  const size_t smem = sets_in_smem ? (size_t)BM * kappa * 8 : 0;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fused_topk_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((m + BM - 1) / BM, splits);
-  fused_topk_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, refs, m, n, d, n_valid, kappa, splits, tiles_per_split, sets_in_smem,
-      out_v, out_i);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t total = (size_t)m * pieces * kappa;
+  const size_t fill_blocks = (total + 255) / 256;
+  fill_sets<<<(unsigned)(fill_blocks < 4096 ? fill_blocks : 4096), 256, 0, s>>>(
+      out_v, out_i, total);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const bool in_smem = kappa <= kSmemKappaMax;
+  return (int)vsc::reduce::launch(q, refs, m, d, n_valid, vec, grid,
+                                  TopK{out_v, out_i, kappa, pieces, in_smem},
+                                  in_smem ? smem_set_bytes(kappa) : 0, s);
 }

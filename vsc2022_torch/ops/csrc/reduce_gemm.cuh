@@ -1,26 +1,29 @@
-// Persistent, pipelined f32 tile product of the row reductions (row_max,
-// count_above): a fused q . refs^T whose scores are folded into one value
-// per query row (a max, a count) and never reach device memory.
+// Persistent, pipelined f32 tile product of the retrieval kernels that keep
+// no score: row_max, count_above (one value per query row: a max, a count)
+// and fused_topk (a top-kappa set per query row). The [M, N] scores never
+// reach device memory; each kernel is this product plus an epilogue that
+// consumes every finished tile.
 //
 // Arithmetic. Every score is the sequential sum over k = 0..D-1 of
-// fmaf(q, r, acc) from +0.0f, the order of tile_gemm.cuh, so row_max and
-// count_above see the scores of pool_writer and fused_topk bit for bit for
-// the same (query, ref) pair. The depth is zero-filled up to a multiple of
-// BK, and fmaf(0, 0, acc) == acc for every acc the chain can reach (it never
-// holds -0.0f: it starts at +0.0f and an exact cancellation rounds to +0).
-// No split-K, no TF32, no reassociation: the pooled prune
-// (similarity.py, `totals == kept`) and the streaming verify need counts of
-// exactly the scores the pool and the candidates hold.
+// fmaf(q, r, acc) from +0.0f, the order of tile_gemm.cuh, so these kernels
+// see the scores of pool_writer bit for bit for the same (query, ref) pair.
+// The depth is zero-filled up to a multiple of BK, and fmaf(0, 0, acc) ==
+// acc for every acc the chain can reach (it never holds -0.0f: it starts
+// at +0.0f and an exact cancellation rounds to +0). No split-K, no TF32, no
+// reassociation: the pooled prune (similarity.py, `totals == kept`) and
+// the streaming verify need counts of exactly the scores the pool and the
+// candidates hold.
 //
-// Work. A work item is a [128 query rows x 128 ref columns] tile, items are
-// numbered row tile major (item = row_tile * col_tiles + col_tile), and the
-// grid is one wave: the SMs times the blocks an SM holds at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Block b walks the
-// contiguous items [b*W/G, (b+1)*W/G) (ops/kernels.py:reduce_schedule), so
-// the blocks' loads differ by at most one item whether the call has 1 query
-// row or 9,000, and each block keeps its running value per row in registers
-// across its column tiles; it flushes the value with one atomic per row
-// when its range leaves a row tile and at its end.
+// Work. A work item is a [128 query rows x 128 ref columns] tile (one
+// winner-pool segment per row), items are numbered row tile major (item =
+// row_tile * col_tiles + col_tile), and the grid is one wave: the SMs times
+// the blocks an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// Block b walks the contiguous items [b*W/G, (b+1)*W/G)
+// (ops/kernels.py:reduce_schedule), so the blocks' loads differ by at most
+// one item whether the call has 1 query row or 9,000. The epilogue sees
+// each item as it completes and is told when the block's range leaves a
+// row tile and when it ends: the row reductions keep a running value per
+// row in registers and flush it there with one atomic per row.
 //
 // Block tile. 256 threads as 8 warps, 4 over the rows x 2 over the
 // columns; a thread holds an 8 x 8 register tile, rows w_r*32 + ty + 4i
@@ -33,13 +36,15 @@
 // load in one shared-memory cycle, where 8 columns per quarter-warp take
 // two (tools/smem_probe.py).
 //
-// Pipeline. A ring of STAGES k-slices in dynamic shared memory, filled by
-// cp.async: 16-byte copies when D % 4 == 0 and both operands are 16-byte
-// aligned, 4-byte copies otherwise (the path's D = 511 and 1025 rows are
-// not aligned; the corpus is never copied into a padded buffer). The ring
-// runs over the block's whole sequence of (item, k-slice) steps, across
-// item boundaries, with one barrier per slice: STAGES - 1 slices are in
-// flight while one is multiplied.
+// Pipeline. A ring of k-slices in dynamic shared memory (3 stages for the
+// row reductions, 2 for fused_topk, whose sets take the room of the third),
+// filled by cp.async: 16-byte copies when D % 4 == 0 and both operands are
+// 16-byte aligned, 4-byte copies otherwise (the path's D = 511 and 1025
+// rows are not aligned; the corpus is never copied into a padded buffer).
+// The ring runs over the block's whole sequence of (item, k-slice) steps,
+// across item boundaries, with one barrier per slice: all but one of the
+// stages are in flight while one is multiplied, and while the epilogue
+// runs.
 //
 // Registers. The k-contiguous fragments (8 + 8 float4 per 4 k-steps) and
 // the 64 accumulators take the thread's 255 registers, so an SM holds one
@@ -64,10 +69,15 @@ constexpr int MIN_BLOCKS = 1;  // blocks per SM the register budget allows
 constexpr int TM = 8;          // rows per thread
 constexpr int TN = 8;          // columns per thread
 constexpr int BK = 64;         // depth per ring stage
-constexpr int STAGES = 3;      // ring depth
+constexpr int STAGES = 3;      // ring depth of the row reductions
 constexpr int LD = BK + 4;     // padded row of a stage, in floats
 constexpr int STAGE_FLOATS = (BM + BN) * LD;
-constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * (int)sizeof(float);
+
+// Bytes of the ring of an epilogue's kernel: E::kStages stages.
+template <class E>
+constexpr int ring_bytes() {
+  return E::kStages * STAGE_FLOATS * (int)sizeof(float);
+}
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
                                            bool valid) {
@@ -149,40 +159,98 @@ __device__ __forceinline__ void multiply_slice(const float* stage, int row,
   }
 }
 
-// The reduction of a row's scores is given by Op:
+// A thread's place in the block tile: it holds rows `row + 4i` and columns
+// `col + 8j` of every item.
+struct Tile {
+  int warp, lane;
+  int wc;   // column half (warps 4-7 take columns 64..127)
+  int tx;   // 0..7: lane bits 0, 1 and 4
+  int row;  // (warp % 4) * 32 + ty, ty 0..3: lane bits 2 and 3
+  int col;  // wc * 64 + tx
+};
+
+// The launch's work: W = items = row_tiles * col_tiles.
+struct Work {
+  int m, col_tiles;
+  unsigned long long items;
+};
+
+// The epilogue E consumes the finished items. Every thread of the block
+// calls each hook (they may synchronize the block):
+//   kStages         the ring's depth (>= 2); dynamic shared memory past the
+//                   ring (the launch's `extra` bytes) is the epilogue's
+//   struct State;   per thread, in registers across the whole loop
+//   struct Smem;    in static shared memory beside the ring
+//   void begin(State&, Smem&, const Tile&, const Work&) const;
+//   template <bool kMasked>            kMasked: the item straddles n_valid;
+//   void item(State&, Smem&, const Tile&, const Work&, float acc[TM][TN],
+//             int rt, int ct, int valid_cols) const;
+//                                      columns col + 8j are valid where
+//                                      8j < valid_cols
+//   void flush(State&, Smem&, const Tile&, const Work&, int rt) const;
+//                                      the block leaves row tile rt (or ends)
+
+// The row reductions' epilogue, for an Op that gives
 //   using T;                        the per-row value (float max, int count)
 //   T identity() const;             the value of no column
 //   T fold(T v, float score) const; one more column
 //   T combine(T a, T b) const;      two partial values (commutative)
 //   void commit(int row, T v) const; one atomic per row and flush
-//
-// Folds one finished tile into `run`: per row i, the thread's valid columns,
-// then the 8 lanes of the row (tx: lane bits 0, 1 and 4), and lane tx keeps
-// row i == tx. Columns at or past n_valid are skipped only in the tile that
-// straddles n_valid.
-template <class Op, bool kMasked>
-__device__ __forceinline__ void fold_tile(const Op& op, float acc[TM][TN],
-                                          int valid_cols, int tx,
-                                          typename Op::T& run) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    typename Op::T v = op.identity();
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      if (!kMasked || 8 * j < valid_cols) v = op.fold(v, acc[i][j]);
-    v = op.combine(v, __shfl_xor_sync(0xffffffffu, v, 1));
-    v = op.combine(v, __shfl_xor_sync(0xffffffffu, v, 2));
-    v = op.combine(v, __shfl_xor_sync(0xffffffffu, v, 16));
-    if (tx == i) run = op.combine(run, v);
-  }
-}
+// Each finished tile folds into `run`: per row i, the thread's valid
+// columns, then the 8 lanes of the row (tx: lane bits 0, 1 and 4), and lane
+// tx keeps row i == tx. Columns at or past n_valid are skipped only in the
+// tile that straddles n_valid.
+template <class Op>
+struct RowFold {
+  static constexpr int kStages = STAGES;
+  Op op;
+  using State = typename Op::T;
+  struct Smem {
+    typename Op::T partial[BM];  // the second column half at a flush
+  };
 
-template <class Op, bool kVec>
+  __device__ __forceinline__ void begin(State& run, Smem&, const Tile&,
+                                        const Work&) const {
+    run = op.identity();
+  }
+
+  template <bool kMasked>
+  __device__ __forceinline__ void item(State& run, Smem&, const Tile& t,
+                                       const Work&, float acc[TM][TN], int,
+                                       int, int valid_cols) const {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      typename Op::T v = op.identity();
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        if (!kMasked || 8 * j < valid_cols) v = op.fold(v, acc[i][j]);
+      v = op.combine(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = op.combine(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      v = op.combine(v, __shfl_xor_sync(0xffffffffu, v, 16));
+      if (t.tx == i) run = op.combine(run, v);
+    }
+  }
+
+  // Lane tx holds row `row + 4*tx` of its column half; the halves meet in
+  // shared memory. The next write to `partial` comes after at least one
+  // more barrier of the loop.
+  __device__ __forceinline__ void flush(State& run, Smem& sm, const Tile& t,
+                                        const Work& w, int rt) const {
+    const int lrow = t.row + 4 * t.tx;
+    if (t.wc == 1) sm.partial[lrow] = run;
+    __syncthreads();
+    if (t.wc == 0 && rt * BM + lrow < w.m)
+      op.commit(rt * BM + lrow, op.combine(run, sm.partial[lrow]));
+    run = op.identity();
+  }
+};
+
+template <class E, bool kVec>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     reduce_kernel(const float* __restrict__ q, const float* __restrict__ refs,
-                  int m, int d, int n_valid, Op op) {
+                  int m, int d, int n_valid, E ep) {
   extern __shared__ __align__(16) float ring[];
-  __shared__ typename Op::T partial[BM];  // the second column half at a flush
+  __shared__ typename E::Smem esm;
 
   const int col_tiles = (n_valid + BN - 1) / BN;
   const unsigned long long items =
@@ -192,14 +260,18 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   if (begin >= end) return;
   const int kt_n = (d + BK - 1) / BK;
   const int steps = (int)(end - begin) * kt_n;  // < 2^31 (launch checks)
+  const Work work = {m, col_tiles, items};
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wc = warp >> 2;
-  const int tx = 4 * (lane >> 4) + (lane & 3);               // 0..7
-  const int ty = 2 * ((lane >> 3) & 1) + ((lane >> 2) & 1);  // 0..3
-  const int row = (warp & 3) * 32 + ty;  // + 4i
-  const int col = wc * 64 + tx;          // + 8j
+  Tile t;
+  t.warp = threadIdx.x >> 5;
+  t.lane = threadIdx.x & 31;
+  t.wc = t.warp >> 2;
+  t.tx = 4 * (t.lane >> 4) + (t.lane & 3);                  // 0..7
+  const int ty = 2 * ((t.lane >> 3) & 1) + ((t.lane >> 2) & 1);  // 0..3
+  t.row = (t.warp & 3) * 32 + ty;  // + 4i
+  t.col = t.wc * 64 + t.tx;        // + 8j
 
+  constexpr int kStages = E::kStages;
   // Consumer item (rt, ct); producer step (lrt, lct, lkt).
   int rt = (int)(begin / col_tiles), ct = (int)(begin % col_tiles);
   int lrt = rt, lct = ct, lkt = 0;
@@ -216,7 +288,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     }
   };
 #pragma unroll
-  for (int p = 0; p < STAGES - 1; ++p) {
+  for (int p = 0; p < kStages - 1; ++p) {
     if (p < steps) load_step(p);
     cp_async_commit();  // possibly empty: keeps the group count uniform
   }
@@ -226,69 +298,62 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  typename Op::T run = op.identity();
+  typename E::State st;
+  ep.begin(st, esm, t, work);
   int cstage = 0, ckt = 0;
 
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait<STAGES - 2>();  // step s has landed (this thread's copies)
-    __syncthreads();              // ... everyone's; step s - 1 is consumed
-    if (s + STAGES - 1 < steps)   // into the stage step s - 1 used
-      load_step(cstage == 0 ? STAGES - 1 : cstage - 1);
+    cp_async_wait<kStages - 2>();  // step s has landed (this thread's copies)
+    __syncthreads();               // ... everyone's; step s - 1 is consumed
+    if (s + kStages - 1 < steps)   // into the stage step s - 1 used
+      load_step(cstage == 0 ? kStages - 1 : cstage - 1);
     cp_async_commit();
-    multiply_slice(ring + cstage * STAGE_FLOATS, row, col, acc);
-    cstage = cstage + 1 == STAGES ? 0 : cstage + 1;
+    multiply_slice(ring + cstage * STAGE_FLOATS, t.row, t.col, acc);
+    cstage = cstage + 1 == kStages ? 0 : cstage + 1;
     if (++ckt < kt_n) continue;
 
     // Item (rt, ct) is complete.
     ckt = 0;
-    const int valid_cols = n_valid - (ct * BN + col);
+    const int valid_cols = n_valid - (ct * BN + t.col);
     if (ct * BN + BN <= n_valid)
-      fold_tile<Op, false>(op, acc, valid_cols, tx, run);
+      ep.template item<false>(st, esm, t, work, acc, rt, ct, valid_cols);
     else
-      fold_tile<Op, true>(op, acc, valid_cols, tx, run);
+      ep.template item<true>(st, esm, t, work, acc, rt, ct, valid_cols);
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
     const int next_rt = ct + 1 == col_tiles ? rt + 1 : rt;
-    if (next_rt != rt || s + 1 == steps) {
-      // Flush row tile rt. Lane tx holds row `row + 4*tx` of its column
-      // half; the halves meet in shared memory. The next write to
-      // `partial` comes after at least one more barrier of the loop.
-      const int lrow = row + 4 * tx;
-      if (wc == 1) partial[lrow] = run;
-      __syncthreads();
-      if (wc == 0 && rt * BM + lrow < m)
-        op.commit(rt * BM + lrow, op.combine(run, partial[lrow]));
-      run = op.identity();
-    }
+    if (next_rt != rt || s + 1 == steps) ep.flush(st, esm, t, work, rt);
     ct = ct + 1 == col_tiles ? 0 : ct + 1;
     rt = next_rt;
   }
 }
 
-template <class Op, bool kVec>
-cudaError_t configure() {
+template <class E, bool kVec>
+cudaError_t configure(int smem_bytes) {
   cudaError_t err = cudaFuncSetAttribute(
-      reduce_kernel<Op, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      reduce_kernel<E, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(reduce_kernel<Op, kVec>,
+  return cudaFuncSetAttribute(reduce_kernel<E, kVec>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-// Blocks of the kernel an SM holds at once (0: it cannot launch).
-template <class Op>
-int resident_blocks(int device, int vec, int* blocks_per_sm) {
+// Blocks of the kernel an SM holds at once with `extra` bytes of dynamic
+// shared memory past the ring (0: it cannot launch).
+template <class E>
+int resident_blocks(int device, int vec, int extra, int* blocks_per_sm) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = vec ? configure<Op, true>() : configure<Op, false>();
+  const int smem = ring_bytes<E>() + extra;
+  err = vec ? configure<E, true>(smem) : configure<E, false>(smem);
   if (err != cudaSuccess) return (int)err;
-  void (*kernel)(const float*, const float*, int, int, int, Op) =
-      vec ? &reduce_kernel<Op, true> : &reduce_kernel<Op, false>;
+  void (*kernel)(const float*, const float*, int, int, int, E) =
+      vec ? &reduce_kernel<E, true> : &reduce_kernel<E, false>;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel, THREADS, SMEM_BYTES);
+      blocks_per_sm, kernel, THREADS, smem);
 }
 
 // Whether the 16-byte copies may be used: D % 4 == 0, both bases aligned.
@@ -298,11 +363,12 @@ inline bool vec_ok(const float* q, const float* refs, int d) {
           15) == 0;
 }
 
-// Launch `grid` blocks over the items of an [m, n_valid] call; nothing when
-// there are no items.
-template <class Op>
+// Launch `grid` blocks over the items of an [m, n_valid] call, with `extra`
+// bytes of dynamic shared memory past the ring; nothing when there are no
+// items.
+template <class E>
 cudaError_t launch(const float* q, const float* refs, int m, int d,
-                   int n_valid, int vec, int grid, const Op& op,
+                   int n_valid, int vec, int grid, const E& ep, int extra,
                    cudaStream_t s) {
   if (m <= 0 || n_valid <= 0) return cudaSuccess;
   if (grid <= 0 || d <= 0 || (vec && !vec_ok(q, refs, d)))
@@ -313,14 +379,15 @@ cudaError_t launch(const float* q, const float* refs, int m, int d,
   if ((unsigned long long)grid > items ||
       (items / grid + 1) * ((d + BK - 1) / BK) > (unsigned long long)INT_MAX)
     return cudaErrorInvalidValue;
-  cudaError_t err = vec ? configure<Op, true>() : configure<Op, false>();
+  const int smem = ring_bytes<E>() + extra;
+  cudaError_t err = vec ? configure<E, true>(smem) : configure<E, false>(smem);
   if (err != cudaSuccess) return err;
   if (vec)
-    reduce_kernel<Op, true><<<grid, THREADS, SMEM_BYTES, s>>>(q, refs, m, d,
-                                                              n_valid, op);
+    reduce_kernel<E, true><<<grid, THREADS, smem, s>>>(q, refs, m, d, n_valid,
+                                                       ep);
   else
-    reduce_kernel<Op, false><<<grid, THREADS, SMEM_BYTES, s>>>(q, refs, m, d,
-                                                               n_valid, op);
+    reduce_kernel<E, false><<<grid, THREADS, smem, s>>>(q, refs, m, d,
+                                                        n_valid, ep);
   return cudaGetLastError();
 }
 

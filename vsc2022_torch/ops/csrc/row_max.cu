@@ -61,7 +61,8 @@ struct RowMax {
 
 // Blocks of the row_max kernel one SM holds at once (16-byte copies if vec).
 extern "C" int vsc_row_max_occupancy(int device, int vec, int* blocks_per_sm) {
-  return reduce::resident_blocks<RowMax>(device, vec, blocks_per_sm);
+  return reduce::resident_blocks<reduce::RowFold<RowMax>>(device, vec, 0,
+                                                         blocks_per_sm);
 }
 
 // q [m, d], refs [n, d] f32 row-major on the device; keys is [m] uint32
@@ -79,7 +80,8 @@ extern "C" int vsc_row_max(int device, const float* q, const float* refs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int fill_blocks = (m + 255) / 256;
   fill_keys<<<fill_blocks, 256, 0, s>>>(keys, m);
-  err = reduce::launch(q, refs, m, d, n_valid, vec, grid, RowMax{keys}, s);
+  err = reduce::launch(q, refs, m, d, n_valid, vec, grid,
+                       reduce::RowFold<RowMax>{{keys}}, 0, s);
   if (err != cudaSuccess) return (int)err;
   keys_to_f32<<<fill_blocks, 256, 0, s>>>(keys, out, m);
   return (int)cudaGetLastError();

@@ -1,12 +1,12 @@
-// The winner-pool contract shared by pool_writer and fused_topk: the best 2
-// entries of one 128-column segment of one query row, under the pool's
-// order (larger value first, then the lower column).
+// The winner-pool contract: the best 2 entries of one 128-column segment of
+// one query row, under the pool's order (larger value first, then the lower
+// column). Top2, better and merge are the contract itself, shared with
+// fused_topk.cu, which reduces its segments in reduce_gemm.cuh's layout.
 //
-// A row's 128 scores of a tile live in one warp (tile_gemm.cuh: lane l holds
-// columns 4l..4l+3), so the segment's top 2 is a per-lane insert over 4
-// columns and a butterfly merge over the 32 lanes; every lane ends with the
-// result. Both kernels call segment_top2 on the same tile product, so they
-// agree bit for bit on values, ids and tie-breaks.
+// In pool_writer a row's 128 scores of a tile live in one warp
+// (tile_gemm.cuh: lane l holds columns 4l..4l+3), so segment_top2 is a
+// per-lane insert over 4 columns and a butterfly merge over the 32 lanes;
+// every lane ends with the result.
 #pragma once
 
 #include <climits>

@@ -1,6 +1,6 @@
-// Shared f32 tile product of pool_writer and fused_topk (through
-// segment_top2.cuh). row_max and count_above run the pipelined persistent
-// product of reduce_gemm.cuh, with the same arithmetic per score.
+// The f32 tile product of pool_writer (with segment_top2.cuh). row_max,
+// count_above and fused_topk run the pipelined persistent product of
+// reduce_gemm.cuh, with the same arithmetic per score.
 //
 // One block of 256 threads computes a [BM x BN] = [64 query rows x 128 ref
 // columns] tile of q . refs^T in full f32 FMA on the CUDA cores (the JAX
@@ -11,7 +11,7 @@
 // warp shuffles, with no second pass through shared memory.
 //
 // Every score is the sequential sum over k = 0..D-1 of fmaf(q, r, acc), the
-// same order in all four kernels, so the pool, the top-kappa candidates, the
+// order of reduce_gemm.cuh too, so the pool, the top-kappa candidates, the
 // corpus count and the row max see bit-identical scores for the same
 // (query, ref) pair.
 //
@@ -87,14 +87,6 @@ __device__ __forceinline__ void tile_product(
     }
     __syncthreads();
   }
-}
-
-// Column-split grid for the row reductions: enough blocks to fill the card
-// even when the rows fit in a handful of row tiles.
-inline int clamp_splits(int splits, int n_tiles) {
-  if (splits > n_tiles) splits = n_tiles;
-  if (splits > 65535) splits = 65535;
-  return splits < 1 ? 1 : splits;
 }
 
 }  // namespace vsc

@@ -31,16 +31,14 @@ from vsc2022_torch.ops import _build
 
 SEG_LANES = 128  # columns per winner-pool segment
 SEG_KEEP = 2  # entries the pool keeps per segment
-ROW_TILE = 64  # query rows per block tile of fused_topk (tile_gemm.cuh)
-BLOCKS_PER_SM = 8  # fused_topk's column splits target this many blocks per SM
-# Query rows and ref columns of one row_max / count_above work item
-# (reduce_gemm.cuh).
+# Query rows and ref columns of one row_max / count_above / fused_topk work
+# item (reduce_gemm.cuh): 128 rows by one 128-column pool segment.
 REDUCE_TILE = 128
 
 # Elements of one score chunk in the plain versions (512 MB of f32).
 PLAIN_CHUNK_ELEMENTS = 1 << 27
 
-# Ceiling on fused_topk's [M, splits, κ] output: large κ takes fewer splits.
+# Ceiling on fused_topk's [M, S, κ] output: large κ takes a smaller grid.
 TOPK_SCRATCH_BYTES = 1 << 30
 
 launches: Dict[str, int] = {
@@ -213,25 +211,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _splits(t: torch.Tensor, m: int) -> int:
-    """fused_topk's column splits: ~BLOCKS_PER_SM blocks per SM over all
-    row tiles."""
-    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
-    row_tiles = -(-m // ROW_TILE)
-    return max(1, -(-BLOCKS_PER_SM * sms // row_tiles))
-
-
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {rc})")
 
 
-# ---- the persistent schedule of row_max and count_above --------------------
+# ---- the persistent schedule of row_max, count_above and fused_topk -------
 
 
 def reduce_tiles(m: int, n_valid: int) -> Tuple[int, int]:
-    """(row tiles, column tiles) of an [m, n_valid] row_max / count_above
-    call; its work items are their product."""
+    """(row tiles, column tiles) of an [m, n_valid] row_max / count_above /
+    fused_topk call; its work items are their product."""
     return -(-m // REDUCE_TILE), -(-n_valid // REDUCE_TILE)
 
 
@@ -251,6 +241,37 @@ def reduce_schedule(m: int, n_valid: int, grid: int) -> List[Tuple[int, int]]:
     row_tiles, col_tiles = reduce_tiles(m, n_valid)
     w = row_tiles * col_tiles
     return [(b * w // grid, (b + 1) * w // grid) for b in range(grid)]
+
+
+def topk_first_block(item: int, items: int, grid: int) -> int:
+    """The block of a ``grid``-block launch over ``items`` work items whose
+    range holds ``item``: the b with b·W // grid ≤ item < (b+1)·W // grid."""
+    return ((item + 1) * grid - 1) // items
+
+
+def topk_pieces(m: int, n_valid: int, grid: int) -> int:
+    """S of a fused_topk launch: the most blocks whose ranges touch one row
+    tile (1 when there is no work item). Block b writes its κ-sets of row
+    tile rt into slot b − (the first block of rt) of [M, S, κ]."""
+    row_tiles, col_tiles = reduce_tiles(m, n_valid)
+    items = row_tiles * col_tiles
+    if grid == 0 or items == 0:
+        return 1
+    return max(
+        topk_first_block((rt + 1) * col_tiles - 1, items, grid)
+        - topk_first_block(rt * col_tiles, items, grid) + 1
+        for rt in range(row_tiles)
+    )
+
+
+def topk_grid(m: int, n_valid: int, kappa: int, grid: int) -> Tuple[int, int]:
+    """(grid, S) of a fused_topk launch: the one-wave ``grid``, shrunk
+    while its [M, S, κ] output would exceed TOPK_SCRATCH_BYTES."""
+    pieces = topk_pieces(m, n_valid, grid)
+    while grid > 1 and 8 * m * pieces * kappa > TOPK_SCRATCH_BYTES:
+        grid -= 1
+        pieces = topk_pieces(m, n_valid, grid)
+    return grid, pieces
 
 
 # Resident blocks per SM of each (kernel, device, copy width), from the
@@ -277,7 +298,7 @@ def _reduce_slots(t: torch.Tensor, name: str, vec: int) -> int:
 
 def _reduce_plan(name: str, q: torch.Tensor, refs: torch.Tensor,
                  n_valid: int) -> Tuple[int, int]:
-    """(vec, grid) of a row_max / count_above launch: 16-byte copies when
+    """(vec, grid) of a reduce_gemm.cuh launch: 16-byte copies when
     D % 4 == 0 and both bases are 16-byte aligned, 4-byte copies
     otherwise; one wave of blocks (0 when there is no work item)."""
     m, d = q.shape
@@ -366,8 +387,8 @@ def fused_topk(
     """Fused q·refsᵀ per-row top-κ of the winner pool (best 2 per
     128-column segment), ordered by score descending, then column
     ascending: ([M, κ] f32, [M, κ] int32), padded with −inf and id 0. Any
-    N and any κ ≥ 1. The kernel collects one κ-set per column split; one
-    ``torch.sort`` merges the splits (``ordered_topk``)."""
+    N and any κ ≥ 1. The kernel collects one κ-set per row and block
+    (S pieces per row, ``topk_grid``); ``ordered_topk`` merges them."""
     n_valid, kappa = int(n_valid), int(kappa)
     _check(q, refs, n_valid)
     if kappa < 1:
@@ -378,14 +399,14 @@ def fused_topk(
     if m == 0:
         return (torch.empty((0, kappa), dtype=torch.float32, device=q.device),
                 torch.empty((0, kappa), dtype=torch.int32, device=q.device))
-    n_tiles = -(-n_valid // SEG_LANES)
-    splits = min(_splits(q, m), max(n_tiles, 1), 65535,
-                 max(1, TOPK_SCRATCH_BYTES // (8 * m * kappa)))
-    out_v = torch.empty((m, splits * kappa), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((m, splits * kappa), dtype=torch.int32, device=q.device)
+    vec, grid = _reduce_plan("fused_topk", q, refs, n_valid)
+    grid, pieces = topk_grid(m, n_valid, kappa, grid)
+    out_v = torch.empty((m, pieces * kappa), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((m, pieces * kappa), dtype=torch.int32, device=q.device)
     rc = _build.library().vsc_fused_topk(
         q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0], d,
-        n_valid, kappa, splits, out_v.data_ptr(), out_i.data_ptr(), _stream(q),
+        n_valid, kappa, vec, grid, pieces, out_v.data_ptr(), out_i.data_ptr(),
+        _stream(q),
     )
     _raise_on(rc, "fused_topk")
     launches["fused_topk"] += 1
