@@ -21,6 +21,14 @@ Phases (any failure exits non-zero):
      the pool's best winner, and with tau the global k-th pool value (k =
      20 per query row, 1200 per video) count_above equals the pool count
      >= tau on every row where no segment holds two entries >= tau.
+     The bf16 variants of the four retrieval kernels, first at small
+     ragged shapes (D = 511, 512, 513, 1025; rows 16-byte and 2-byte
+     aligned), then on the bf16 paths' inputs (4b, 6b) and on the DnS
+     path's inputs rounded to bf16: exact against their plain versions on
+     integers; on floats bit for bit equal to the f32 kernels on the
+     widened inputs (timed beside them) and to each other, as above. Their
+     bound takes the bf16 tensor-core peak, their library call a cuBLAS
+     bf16 product.
   3. global_topk against a dense brute-force oracle at
      1,000 x 100,000 x 512, forced to each collection mode (stream, the
      default at this size, and pooled): identical on integer-valued
@@ -34,6 +42,10 @@ Phases (any failure exits non-zero):
      files. The kernels' launch counts are zeroed just before the run and
      read just after; every kernel of the path must have launched. Each
      wrapper's first inputs in that run are kept for phase 2.
+ 4b. The same two entry points with --bf16 on the same files: the
+     noise-NN and the retrieval over bf16 corpora; row_max.bf16,
+     pool_writer.bf16 and count_above.bf16 must launch and no f32 kernel.
+     Stage seconds, last_stats and quality are logged beside phase 4's.
   5. The DnS track, through its entry points: dns_index for the coarse
      student with --score_norm_features, dns_index for the fine attention
      student, then dns_baseline with --ground_truth, on raw L3-iMAC rows
@@ -69,6 +81,15 @@ Phases (any failure exits non-zero):
      bias of the same search, and both collection modes are timed at the
      serving and DnS corpora. Each path logs its searches' last_stats
      (mode, tau, flagged, ambiguous and re-searched rows).
+ 6b. The same server with no dtype flag (the JAX package's default: bf16
+     corpus, noise corpus and localizer tables) on the same catalogue,
+     requests (a)-(h): stats says bfloat16, the snapshot restart answers
+     (g) byte for byte, the candidates equal an in-process
+     ScoreNormalizedVideoIndex(dtype="bfloat16"), pooled equals stream,
+     and row_max.bf16, fused_topk.bf16 and count_above.bf16 launch (no f32
+     kernel). Then one DnS two-file request with bf16 tables over phase
+     5's files (fused_topk.bf16 and count_above.bf16 at D = 1025, the f32
+     chamfer over widened rows); its quality is logged.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object with each kernel's numbers, and {"ok": true, "device": ...}.
@@ -89,9 +110,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SMOKE_DIR = REPO / "build" / "smoke"
 
-# Published H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores
-# and HBM3 bandwidth.
+# Published H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores,
+# dense bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 FLOAT_ATOL = 1e-5  # f32 sums of unit-norm products in another order
@@ -125,6 +147,10 @@ KERNEL_META = {
     "chamfer": ("vsc2022_torch/ops/csrc/chamfer.cu",
                 "vsc2022_tpu/ops/pallas_kernels.py:729"),
 }
+# The TPU kernel each bf16 variant replaces: pool_writer's bf16 branch; the
+# other three have none (the JAX searcher computes them over a bf16 corpus
+# with XLA, similarity.py:271, 464), so their Pallas function stands.
+BF16_REPLACES = {"pool_writer": "vsc2022_tpu/ops/pallas_kernels.py:228"}
 # Each kernel's wrapper in vsc2022_torch.ops.kernels.
 WRAPPERS = {"row_max": "row_max", "count_above": "count_above",
             "pool_writer": "pool_writer", "fused_topk": "fused_topk",
@@ -135,6 +161,12 @@ SSCD_KERNELS = ("row_max", "count_above", "pool_writer")
 DNS_KERNELS = ("row_max", "fused_topk", "count_above", "chamfer")
 SERVE_KERNELS = ("row_max", "fused_topk", "count_above")
 DNS_SERVE_KERNELS = ("fused_topk", "count_above", "chamfer")  # cg npz is normalized
+# The same paths in bf16 (sscd_baseline --bf16, the server's default): the
+# bf16 variants; the DnS server's chamfer stays f32 (its bf16 tables widen).
+BF16 = ".bf16"
+SSCD_BF16_KERNELS = tuple(k + BF16 for k in SSCD_KERNELS)
+SERVE_BF16_KERNELS = tuple(k + BF16 for k in SERVE_KERNELS)
+DNS_SERVE_BF16_KERNELS = ("fused_topk.bf16", "count_above.bf16", "chamfer")
 
 
 def log(msg: str) -> None:
@@ -168,12 +200,15 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(m: int, n_valid: int, n: int, d: int, out_bytes: int):
-    """Least time for the work: max(flops / f32 peak, bytes / HBM peak),
-    each input read once and each output written once."""
+def bound(m: int, n_valid: int, n: int, d: int, out_bytes: int, bf16: bool = False):
+    """Least time for the work: max(flops / peak, bytes / HBM peak), each
+    input read once and each output written once. f32 operands: the f32
+    CUDA-core peak; bf16 operands (2 bytes each): the bf16 tensor-core
+    peak, the least time the card could take for bf16 products."""
     flops = 2.0 * m * n_valid * d
-    moved = 4.0 * (m * d + n * d) + out_bytes
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, moved / PEAK_BYTES
+    moved = (2.0 if bf16 else 4.0) * (m * d + n * d) + out_bytes
+    t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+    t_bytes = moved / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -366,19 +401,89 @@ def phase_kernels_small(torch, kernels, dev):
         f"{FLOAT_ATOL}; fused_topk bit-identical to pool_writer's winners)")
 
 
+def bf16_rows(torch, kind, n, d, seed, dev, offset=0):
+    """[n, d] bf16 rows on the card (integer-valued, or unit-norm floats
+    rounded to bf16), ``offset`` elements into their storage: 1 leaves the
+    rows 2-byte aligned, so the kernels take 2-byte loads."""
+    q, _ = make_inputs(torch, kind, n, 1, d, seed, dev)
+    flat = torch.zeros(n * d + offset, dtype=torch.bfloat16, device=dev)
+    flat[offset:] = q.reshape(-1)
+    return flat[offset:].view(n, d)
+
+
+def compare_widened(torch, kernels, q, r, n_valid, label, tau=None, kappa=32):
+    """Each bf16 variant (q and r bf16; r a whole number of 128-row
+    segments) bit for bit against its f32 kernel on the widened inputs:
+    widening is exact and the variants run the f32 kernels' fmaf chain."""
+    qf, rf = q.float(), r.float()
+    if tau is None:
+        tau = float(kernels.row_max(qf, rf, n_valid).median())
+    same = {
+        "row_max": torch.equal(kernels.row_max(q, r, n_valid).view(torch.int32),
+                               kernels.row_max(qf, rf, n_valid).view(torch.int32)),
+        "count_above": torch.equal(kernels.count_above(q, r, tau, n_valid),
+                                   kernels.count_above(qf, rf, tau, n_valid)),
+        "pool_writer": all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                           for a, b in zip(kernels.pool_writer(q, r, n_valid),
+                                           kernels.pool_writer(qf, rf, n_valid))),
+        "fused_topk": all(torch.equal(a, b)
+                          for a, b in zip(kernels.fused_topk(q, r, n_valid, kappa),
+                                          kernels.fused_topk(qf, rf, n_valid, kappa))),
+    }
+    bad = [name for name, ok in same.items() if not ok]
+    check(not bad, f"{label}: bf16 {bad} differ from the f32 kernels on the widened inputs")
+
+
+def phase_kernels_bf16_small(torch, kernels, dev):
+    """The bf16 variants at small ragged shapes, D in {511, 512, 513, 1025},
+    rows 16-byte aligned and 2-byte aligned: exact against their plain
+    versions on integers; on floats bit for bit equal to the f32 kernels on
+    the widened inputs, and to each other (pool_identity, compare_topk)."""
+    m, n, n_valid = 150, 5120, 4990
+    for d in (511, 512, 513, 1025):
+        for offset in (0, 1):
+            label = f"bf16 D={d} {'2-byte' if offset else '16-byte'} aligned"
+            for kind in ("int", "float"):
+                q = bf16_rows(torch, kind, m, d, 20 + d, dev, offset)
+                r = bf16_rows(torch, kind, n, d, 21 + d, dev, offset)
+                r[n_valid + 10:] = 0
+                r[8:14] = r[7]  # exact ties in segment 0, copied by rows 0-2
+                q[:3] = r[7]
+                if kind == "int":
+                    compare_row_max(torch, kernels, q, r, n_valid, "int")
+                    compare_count_above(torch, kernels, q, r, 4.0 * math.isqrt(d),
+                                        n_valid, "int")
+                    compare_pool(torch, kernels, q, r, n_valid, "int", False)
+                    for kappa in (7, 32, 300):
+                        compare_topk(torch, kernels, q, r, n_valid, kappa, "int")
+                else:
+                    compare_widened(torch, kernels, q, r, n_valid, label)
+                    pool_identity(torch, kernels, q, r, n_valid, label)
+                    compare_topk(torch, kernels, q, r, n_valid, 32, "float")
+    log("phase 2: bf16 variants at small shapes: exact on integers; on floats "
+        "bit for bit equal to the f32 kernels on the widened inputs and to each "
+        "other, at D = 511, 512, 513, 1025, 16-byte and 2-byte aligned")
+
+
 def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
     """Each retrieval kernel on the inputs a path gave it (its first call
     there), and on integer-valued inputs of the same shape; row_max and
     count_above also against pool_writer (pool_identity); timings and
-    bounds from those inputs. Returns {name: record}."""
+    bounds from those inputs. bf16 inputs run the bf16 variants, which are
+    also held bit for bit against the f32 kernels on the widened inputs
+    (timed beside them as f32_ms); their library call is a cuBLAS bf16
+    product. Returns {name: record}, bf16 variants as "<name>.bf16"."""
     records = {}
     for name, args in captured.items():
         if name == "chamfer":
             continue
         q, r = args[0], args[1]
+        bf16 = q.dtype == torch.bfloat16
         n_valid = int(args[2] if name == "fused_topk" else args[-1])
         (m, dd), n = q.shape, r.shape[0]
         qi, ri = make_inputs(torch, "int", m, n, dd, seed=3, dev=dev)
+        if bf16:
+            qi, ri = qi.to(torch.bfloat16), ri.to(torch.bfloat16)
         if name == "row_max":
             compare_row_max(torch, kernels, qi, ri, n_valid, "int")
         elif name == "count_above":
@@ -389,49 +494,62 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
             compare_pool(torch, kernels, qi, ri, n_valid, "int", False)
         del qi, ri
         torch.cuda.empty_cache()
+        label = f"{path}{' bf16' if bf16 else ''} {name} inputs"
         if name in ("row_max", "count_above"):
-            pool_identity(torch, kernels, q, r, n_valid, f"{path} {name} inputs")
+            pool_identity(torch, kernels, q, r, n_valid, label)
             torch.cuda.empty_cache()
         if name == "row_max":
             err = compare_row_max(torch, kernels, q, r, n_valid, "float")
-            run = lambda: kernels.row_max(q, r, n_valid)  # noqa: E731
+            call = lambda a, b: kernels.row_max(a, b, n_valid)  # noqa: E731
             plain = lambda: kernels.row_max_plain(q, r, n_valid)  # noqa: E731
             lib = lambda: row_max_library(torch, q, r, n_valid)  # noqa: E731
             out_bytes = 4 * m
         elif name == "count_above":
             tau = float(args[2])
             err = compare_count_above(torch, kernels, q, r, tau, n_valid, "float")
-            run = lambda: kernels.count_above(q, r, tau, n_valid)  # noqa: E731
+            call = lambda a, b: kernels.count_above(a, b, tau, n_valid)  # noqa: E731
             plain = lambda: kernels.count_above_plain(q, r, tau, n_valid)  # noqa: E731
             lib = lambda: count_above_library(torch, q, r, tau, n_valid)  # noqa: E731
             out_bytes = 4 * m
         elif name == "fused_topk":
             kappa = int(args[3])
             err = compare_topk(torch, kernels, q, r, n_valid, kappa, "float")
-            run = lambda: kernels.fused_topk(q, r, n_valid, kappa)  # noqa: E731
+            call = lambda a, b: kernels.fused_topk(a, b, n_valid, kappa)  # noqa: E731
             plain = lambda: kernels.fused_topk_plain(q, r, n_valid, kappa)  # noqa: E731
             lib = lambda: topk_library(torch, q, r, n_valid, kappa)  # noqa: E731
             out_bytes = 8 * m * kappa
         else:
             err = compare_pool(torch, kernels, q, r, n_valid, "float", False)
-            run = lambda: kernels.pool_writer(q, r, n_valid)  # noqa: E731
+            call = lambda a, b: kernels.pool_writer(a, b, n_valid)  # noqa: E731
             plain = lambda: kernels.pool_writer_plain(q, r, n_valid)  # noqa: E731
             lib = lambda: pool_library(torch, q, r, n_valid)  # noqa: E731
             out_bytes = 8 * m * (n // 128) * 2
-        kernel_ms = cuda_ms(torch, run, 3)
+        kernel_ms = cuda_ms(torch, lambda: call(q, r), 3)
         plain_ms = cuda_ms(torch, plain, 1)
         library_ms = cuda_ms(torch, lib, 1)
-        bound_ms, bound_by = bound(m, n_valid, n, dd, out_bytes)
-        records[name] = {
+        bound_ms, bound_by = bound(m, n_valid, n, dd, out_bytes, bf16=bf16)
+        key = name + (BF16 if bf16 else "")
+        records[key] = {
             "shape": [m, n_valid, dd] + ([int(args[3])] if name == "fused_topk" else []),
             "max_abs_err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
-        log(f"phase 2: {name} on the {path} path's inputs [{m} x {n_valid} x {dd}] "
+        extra = ""
+        if bf16:
+            rp = r if n % 128 == 0 else torch.cat([r, r.new_zeros((128 - n % 128, dd))])
+            compare_widened(torch, kernels, q, rp, n_valid, label)
+            del rp
+            qf, rf = q.float(), r.float()
+            records[key]["f32_ms"] = cuda_ms(torch, lambda: call(qf, rf), 3)
+            extra = (f" f32_ms={records[key]['f32_ms']:.3f} (the f32 kernel on the "
+                     "widened inputs, bit-identical)")
+            del qf, rf
+            torch.cuda.empty_cache()
+        log(f"phase 2: {key} on the {path} path's inputs [{m} x {n_valid} x {dd}] "
             f"kernel_ms={kernel_ms:.3f} plain_ms={plain_ms:.3f} "
             f"library_ms={library_ms:.3f} bound_ms={bound_ms:.3f} ({bound_by}) "
-            f"max_abs_err={err}")
+            f"max_abs_err={err}{extra}")
     return records
 
 
@@ -666,8 +784,9 @@ def search_stats():
 
 
 def phase_main_path(torch, np, kernels):
-    """Returns the launch counts of the main path's run and the inputs
-    each kernel was first given there."""
+    """Returns the launch counts of the main path's run, the inputs each
+    kernel was first given there, the corpus paths and the driver's
+    result."""
     from vsc2022_torch import descriptor_eval
     from vsc2022_torch.baseline import sscd_baseline
     from vsc2022_torch.metrics import CandidatePair, Match
@@ -725,6 +844,55 @@ def phase_main_path(torch, np, kernels):
     log(f"phase 4: descriptor_eval {time.perf_counter() - t0:.2f} s, "
         f"uAP {uap:.4f} (raw descriptors, no score normalization)")
     check(uap is not None and uap > 0.3, f"descriptor_eval uAP {uap}")
+    return launches, captured, paths, dict(result, descriptor_uap=uap, stats=stats)
+
+
+def phase_main_path_bf16(torch, np, kernels, paths, f32):
+    """Phase 4b: the same entry points with --bf16 on phase 4's corpus (the
+    noise-NN and the retrieval over bf16 corpora; localization f32). Logs
+    stage seconds, last_stats and quality beside the f32 run's (``f32``,
+    phase 4's result); returns the launch counts and the bf16 kernels'
+    first inputs."""
+    from vsc2022_torch import descriptor_eval
+    from vsc2022_torch.baseline import sscd_baseline
+
+    out = SMOKE_DIR / "out_bf16"
+    args = sscd_baseline.parser.parse_args([
+        "--query_features", paths["queries"], "--ref_features", paths["refs"],
+        "--score_norm_features", paths["noise"], "--ground_truth", paths["gt"],
+        "--output_path", str(out), "--overwrite", "--device", "cuda", "--bf16"])
+    with capture_inputs(kernels) as captured, search_stats() as stats:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = sscd_baseline.main(args)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+    log(f"phase 4b: sscd_baseline --bf16 {wall:.2f} s; stages (s): "
+        + json.dumps({k: round(v, 3) for k, v in result["stages"].items()})
+        + "; f32 (phase 4): "
+        + json.dumps({k: round(v, 3) for k, v in f32["stages"].items()}))
+    log(f"phase 4b: global_topk last_stats: {json.dumps(stats)}; f32: "
+        f"{json.dumps(f32['stats'])}")
+    log(f"phase 4b: kernel launches on the bf16 path: {json.dumps(launches)}")
+    log(f"phase 4b: candidate uAP {result['candidate_uap']:.4f}, segment AP "
+        f"{result['segment_ap']:.4f}; f32: {f32['candidate_uap']:.4f}, "
+        f"{f32['segment_ap']:.4f}")
+    for name in SSCD_BF16_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched on the bf16 path")
+    for name in SSCD_KERNELS:
+        check(launches[name] == 0 and captured[name][0].dtype == torch.bfloat16,
+              f"the bf16 path reached the f32 kernel {name}")
+    check(result["candidate_uap"] > 0.5, f"bf16 candidate uAP {result['candidate_uap']}")
+    check(result["segment_ap"] > 0.2, f"bf16 segment AP {result['segment_ap']}")
+    t0 = time.perf_counter()
+    uap = descriptor_eval.main(descriptor_eval.parser.parse_args([
+        "--query_features", paths["queries"], "--ref_features", paths["refs"],
+        "--ground_truth", paths["gt"], "--candidates_output",
+        str(out / "descriptor_candidates.csv"), "--device", "cuda", "--bf16",
+    ]))
+    log(f"phase 4b: descriptor_eval --bf16 {time.perf_counter() - t0:.2f} s, uAP "
+        f"{uap:.4f}; f32: {f32['descriptor_uap']:.4f}")
+    check(uap is not None and uap > 0.3, f"descriptor_eval --bf16 uAP {uap}")
     return launches, captured
 
 
@@ -1016,27 +1184,20 @@ def spawn_server(ref_path, log_file, **kw):
                              stderr=log_file, **kw)
 
 
-def timed(label, fn):
+def timed(label, fn, phase="6"):
     """fn()'s result, its wall seconds logged (and the server's own)."""
     t0 = time.perf_counter()
     out = fn()
     wall = time.perf_counter() - t0
     server = getattr(out, "seconds", None)
-    log(f"phase 6: ({label}) {wall:.3f} s" + (f" (server {server:.3f} s)" if server else ""))
+    log(f"phase {phase}: ({label}) {wall:.3f} s"
+        + (f" (server {server:.3f} s)" if server else ""))
     return out
 
 
-def phase_serve(torch, np, kernels, dev):
-    """Drives the server through requests (a)-(h) and checks them against
-    an in-process ScoreNormalizedVideoIndex over the same live corpus.
-    Returns the server's launch counts over (a)-(h) and the kernel inputs
-    of the same search run in-process."""
-    import logging
-
-    from vsc2022_torch.baseline import pipeline
-    from vsc2022_torch.metrics import CandidatePair, Dataset, Match
-    from vsc2022_torch.retrieval.candidates import MaxScoreAggregation, rank_candidates
-    from vsc2022_torch.retrieval.index import ScoreNormalizedVideoIndex
+def serve_corpus(np):
+    """Phase 6's catalogue files and features, shared by both dtypes."""
+    from vsc2022_torch.metrics import Dataset, Match
     from vsc2022_torch.storage import load_features, store_features
 
     work = SMOKE_DIR / "serve"
@@ -1047,64 +1208,96 @@ def phase_serve(torch, np, kernels, dev):
     store_features(str(work / "add.npz"),
                    extra_refs(np, SERVE_ADD, FRAMES, DIM, first_id=20_000, seed=3),
                    Dataset.REFS)
-    queries = load_features(paths["queries"], Dataset.QUERIES)
-    refs = load_features(paths["refs"], Dataset.REFS)
-    noise = load_features(paths["noise"], Dataset.REFS)
-    added = load_features(str(work / "add.npz"), Dataset.REFS)
+    c = {"work": work, "paths": paths,
+         "queries": load_features(paths["queries"], Dataset.QUERIES),
+         "refs": load_features(paths["refs"], Dataset.REFS),
+         "noise": load_features(paths["noise"], Dataset.REFS),
+         "added": load_features(str(work / "add.npz"), Dataset.REFS)}
     gt_refs = {m.ref_id for m in Match.read_csv(paths["gt"], is_gt=True)}
-    removed = [vf.video_id for vf in refs if vf.video_id not in gt_refs][:SERVE_REMOVE]
-    store_features(str(work / "q1.npz"), queries[:1], Dataset.QUERIES)
+    c["removed"] = [vf.video_id for vf in c["refs"]
+                    if vf.video_id not in gt_refs][:SERVE_REMOVE]
+    store_features(str(work / "q1.npz"), c["queries"][:1], Dataset.QUERIES)
     log(f"phase 6: catalogue {SERVE_REF_VIDEOS} ref videos ({SERVE_REF_VIDEOS * FRAMES} "
         f"frames), {N_QUERY_VIDEOS} query videos, {n_noise} noise frames, D={DIM}; "
         f"made in {time.perf_counter() - t0:.1f} s")
+    return c
 
-    csv = {x: (str(work / f"{x}_c.csv"), str(work / f"{x}_m.csv"))
+
+def phase_serve(torch, np, kernels, dev, corpus, bf16=False):
+    """Drives the server through requests (a)-(h) and checks them against
+    an in-process ScoreNormalizedVideoIndex over the same live corpus.
+    ``bf16``: the server starts with no dtype flag, the JAX package's
+    default, and stages bf16 (phase 6b); otherwise with --f32. Returns the
+    server's launch counts over (a)-(h), the kernel inputs of the same
+    search run in-process, and (a)'s quality."""
+    import logging
+
+    from vsc2022_torch.baseline import pipeline
+    from vsc2022_torch.metrics import CandidatePair
+    from vsc2022_torch.retrieval.candidates import MaxScoreAggregation, rank_candidates
+    from vsc2022_torch.retrieval.index import ScoreNormalizedVideoIndex
+
+    tag, phase = ("bf16", "6b") if bf16 else ("f32", "6")
+    dtype = "bfloat16" if bf16 else "float32"
+    work, paths = corpus["work"], corpus["paths"]
+    queries, refs, removed = corpus["queries"], corpus["refs"], corpus["removed"]
+    csv = {x: (str(work / f"{tag}_{x}_c.csv"), str(work / f"{tag}_{x}_m.csv"))
            for x in ("a", "c", "g", "fresh")}
-    with open(work / "server.log", "w") as server_log:
-        with spawn_server(paths["refs"], server_log,
-                          score_norm_features=paths["noise"], matches=True) as client:
-            log(f"phase 6: server ready, {client.n_ref_videos} videos staged in "
+    snap = str(work / f"{tag}_snap.npz")
+    flags = {} if bf16 else {"f32": True}
+
+    def step(label, fn):
+        return timed(label, fn, phase)
+
+    with open(work / f"server_{tag}.log", "w") as server_log:
+        with spawn_server(paths["refs"], server_log, score_norm_features=paths["noise"],
+                          matches=True, **flags) as client:
+            log(f"phase {phase}: server ready, {client.n_ref_videos} videos staged in "
                 f"{client.stage_seconds:.1f} s")
             client.launches(reset=True)
-            timed(f"a: {N_QUERY_VIDEOS} query videos by path", lambda: client.search(
+            step(f"a: {N_QUERY_VIDEOS} query videos by path", lambda: client.search(
                 paths["queries"], candidates_csv=csv["a"][0], matches_csv=csv["a"][1]))
-            b = timed("b: the same in-band", lambda: client.search_bytes(
+            b = step("b: the same in-band", lambda: client.search_bytes(
                 Path(paths["queries"]).read_bytes()))
             check(b.candidates_csv == Path(csv["a"][0]).read_bytes()
                   and b.matches_csv == Path(csv["a"][1]).read_bytes(),
                   "in-band CSV bytes differ from the path request's")
-            timed("c: one query video", lambda: client.search(
+            step("c: one query video", lambda: client.search(
                 str(work / "q1.npz"), candidates_csv=csv["c"][0], matches_csv=csv["c"][1]))
-            n = timed(f"d: add {SERVE_ADD} videos",
-                                lambda: client.add(str(work / "add.npz")))
+            n = step(f"d: add {SERVE_ADD} videos",
+                      lambda: client.add(str(work / "add.npz")))
             check(n == SERVE_ADD, f"added {n} videos")
-            n = timed(f"e: remove {SERVE_REMOVE} videos",
-                                lambda: client.remove(removed))
+            n = step(f"e: remove {SERVE_REMOVE} videos", lambda: client.remove(removed))
             check(n == (SERVE_REMOVE, SERVE_REMOVE * FRAMES), f"removed {n}")
-            n = timed("f: save", lambda: client.save(str(work / "snap.npz")))
+            n = step("f: save", lambda: client.save(snap))
             check(n == SERVE_REF_VIDEOS, f"saved {n} videos")
-            timed("g: (a) again", lambda: client.search(
+            step("g: (a) again", lambda: client.search(
                 paths["queries"], candidates_csv=csv["g"][0], matches_csv=csv["g"][1]))
-            stats = timed("h: stats", client.stats)
-            check((stats.n_videos, stats.n_frames) == (SERVE_REF_VIDEOS,
-                                                       SERVE_REF_VIDEOS * FRAMES),
+            stats = step("h: stats", client.stats)
+            check((stats.n_videos, stats.n_frames, stats.dtype)
+                  == (SERVE_REF_VIDEOS, SERVE_REF_VIDEOS * FRAMES, dtype),
                   f"stats {stats}")
             launches = client.launches()
-        log(f"phase 6: server kernel launches over (a)-(h): {json.dumps(launches)}")
-        for name in SERVE_KERNELS:
+        log(f"phase {phase}: server kernel launches over (a)-(h): {json.dumps(launches)}")
+        for name in (SERVE_BF16_KERNELS if bf16 else SERVE_KERNELS):
             check(launches[name] > 0, f"kernel {name} never launched by the server")
-        with spawn_server(str(work / "snap.npz"), server_log,
-                          score_norm_features=paths["noise"], matches=True) as client:
-            timed("fresh server on the snapshot: (a)'s queries", lambda: client.search(
+        if bf16:
+            check(not any(launches[k] for k in SERVE_KERNELS),
+                  "the bf16 server reached an f32 kernel")
+        with spawn_server(snap, server_log, score_norm_features=paths["noise"],
+                          matches=True, **flags) as client:
+            step("fresh server on the snapshot: (a)'s queries", lambda: client.search(
                 paths["queries"], candidates_csv=csv["fresh"][0],
                 matches_csv=csv["fresh"][1]))
         for i in (0, 1):
             check(Path(csv["fresh"][i]).read_bytes() == Path(csv["g"][i]).read_bytes(),
                   "a fresh server on the snapshot answers (g) differently")
-        log("phase 6: (b) == (a) and fresh server on the snapshot == (g), byte for byte")
+        log(f"phase {phase}: (b) == (a) and fresh server on the snapshot == (g), "
+            "byte for byte; stats: " + stats.dtype)
 
     # The same searches in-process, over the same live corpus.
-    index = ScoreNormalizedVideoIndex(DIM, noise, beta=1.2, device=dev)
+    index = ScoreNormalizedVideoIndex(DIM, corpus["noise"], beta=1.2, dtype=dtype,
+                                      device=dev)
     index.add(refs)
     index._get_searcher()  # staged before the timed searches
     k, keep = 1200 * N_QUERY_VIDEOS, 25 * N_QUERY_VIDEOS
@@ -1128,45 +1321,64 @@ def phase_serve(torch, np, kernels, dev):
     check_same_candidates(pooled, cands, "(a) pooled vs stream", tol=0.0)
     for stats in (stream_stats, pooled_stats):
         stats.pop("seconds", None)
-        log(f"phase 6: (a) in-process global_topk last_stats: {json.dumps(stats)}")
-    log(f"phase 6: (a) in-process: stream {t_stream:.3f} s, pooled {t_pooled:.3f} s, "
-        f"same {len(cands)} pairs; server vs in-process scores within {err}")
-    index.add(added)
+        log(f"phase {phase}: (a) in-process global_topk last_stats: {json.dumps(stats)}")
+    log(f"phase {phase}: (a) in-process: stream {t_stream:.3f} s, pooled "
+        f"{t_pooled:.3f} s, same {len(cands)} pairs; server vs in-process scores "
+        f"within {err}")
+    index.add(corpus["added"])
     index.remove(removed)
     cands_g, _ = search()
     check_same_candidates(CandidatePair.read_csv(csv["g"][0]), cands_g,
                           "server (g) vs in-process index after add/remove")
     quality = pipeline.report_metrics(paths["gt"], csv["a"][0], csv["a"][1],
                                       logging.getLogger("chip_smoke"))
-    log(f"phase 6: (a) candidate uAP {quality['candidate_uap']:.4f}, "
+    log(f"phase {phase}: (a) candidate uAP {quality['candidate_uap']:.4f}, "
         f"segment AP {quality['segment_ap']:.4f}")
     check(quality["candidate_uap"] > 0.5, f"serving uAP {quality['candidate_uap']}")
     del index
     torch.cuda.empty_cache()
-    return launches, {n: captured[n] for n in ("row_max", "fused_topk", "count_above")}
+    return (launches, {n: captured[n] for n in ("row_max", "fused_topk", "count_above")},
+            quality)
 
 
-def serve_dns_request():
-    """One DnS two-file request against phase 5's files: the same rows as
-    dns_baseline's output, scores within FLOAT_ATOL."""
+def serve_dns_request(bf16=False):
+    """One DnS two-file request against phase 5's files. f32 (--f32): the
+    same rows as dns_baseline's output, scores within FLOAT_ATOL. bf16 (no
+    dtype flag: bf16 corpus and tables, the f32 chamfer over widened rows):
+    its quality on phase 5's ground truth, logged."""
+    import logging
+
+    from vsc2022_torch.baseline import pipeline
+
+    tag = "bf16" if bf16 else "f32"
     work = SMOKE_DIR / "dns"
     idx, out = work / "idx", work / "out"
-    c_csv, m_csv = str(work / "serve_c.csv"), str(work / "serve_m.csv")
-    with open(work / "server.log", "w") as server_log:
+    c_csv, m_csv = str(work / f"serve_{tag}_c.csv"), str(work / f"serve_{tag}_m.csv")
+    with open(work / f"server_{tag}.log", "w") as server_log:
         with spawn_server(str(idx / "refs_cg_student_sn.npz"), server_log,
-                          ref_fine_features=str(idx / "refs_fg_att_student.npz")) as client:
+                          ref_fine_features=str(idx / "refs_fg_att_student.npz"),
+                          **({} if bf16 else {"f32": True})) as client:
             client.launches(reset=True)
-            timed("DnS two-file request", lambda: client.search(
+            timed(f"DnS two-file request ({tag})", lambda: client.search(
                 str(idx / "queries_cg_student_sn.npz"),
                 query_fine_features=str(idx / "queries_fg_att_student.npz"),
-                candidates_csv=c_csv, matches_csv=m_csv))
+                candidates_csv=c_csv, matches_csv=m_csv), "6b" if bf16 else "6")
             launches = client.launches()
-    for name in DNS_SERVE_KERNELS:
+    for name in (DNS_SERVE_BF16_KERNELS if bf16 else DNS_SERVE_KERNELS):
         check(launches[name] > 0, f"kernel {name} never launched by the DnS server")
+    if bf16:
+        quality = pipeline.report_metrics(str(work / "gt.csv"), c_csv, m_csv,
+                                          logging.getLogger("chip_smoke"))
+        log(f"phase 6b: DnS request with bf16 tables: candidate uAP "
+            f"{quality['candidate_uap']:.4f}, segment AP {quality['segment_ap']:.4f}; "
+            f"server launches {json.dumps(launches)}")
+        check(quality["candidate_uap"] > 0.5, f"bf16 DnS uAP {quality['candidate_uap']}")
+        return launches
     n_c = check_same_rows(c_csv, out / "candidates.csv", "DnS server candidates")
     n_m = check_same_rows(m_csv, out / "matches.csv", "DnS server matches")
     log(f"phase 6: DnS request == dns_baseline ({n_c} candidates, {n_m} matches, "
         f"scores within {FLOAT_ATOL}); server launches {json.dumps(launches)}")
+    return launches
 
 
 def time_collection_modes(torch, np, args, k, label):
@@ -1233,10 +1445,11 @@ def main() -> int:
         f"({_build.library_path().name})")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     probe = torch.empty(0, device=dev)
-    log("phase 1: resident blocks per SM (4-byte / 16-byte copies): " + ", ".join(
+    log("phase 1: resident blocks per SM (narrow / 16-byte copies): " + ", ".join(
         f"{name} {kernels._reduce_slots(probe, name, 0) // sms} / "
         f"{kernels._reduce_slots(probe, name, 1) // sms}"
-        for name in ("row_max", "count_above", "fused_topk")))
+        for base in ("row_max", "count_above", "fused_topk")
+        for name in (base, base + "_bf16")))
     for label, m, n_valid, vec in (("serving", 9000, 240_000, 1),
                                    ("DnS", 7682, 31_004, 0)):
         grid, pieces = kernels.topk_grid(m, n_valid, 32, kernels.reduce_grid(
@@ -1246,14 +1459,26 @@ def main() -> int:
 
     try:
         phase_kernels_small(torch, kernels, dev)
+        phase_kernels_bf16_small(torch, kernels, dev)
         phase_search(torch, np, dev, 1000, 100_000, DIM, 20_000)
-        launches, captured = phase_main_path(torch, np, kernels)
+        launches, captured, paths, sscd_f32 = phase_main_path(torch, np, kernels)
         records = phase_kernels_main(torch, kernels, dev, captured)
         del captured
         torch.cuda.empty_cache()
+        bf16_launches, bf16_captured = phase_main_path_bf16(torch, np, kernels, paths,
+                                                            sscd_f32)
+        records.update(phase_kernels_main(torch, kernels, dev, bf16_captured))
+        launches.update({k: bf16_launches[k] for k in SSCD_BF16_KERNELS})
+        del bf16_captured
+        torch.cuda.empty_cache()
         dns_launches, dns_captured = phase_dns_path(torch, np, kernels)
-        serve_launches, serve_captured = phase_serve(torch, np, kernels, dev)
+        corpus = serve_corpus(np)
+        serve_launches, serve_captured, _ = phase_serve(torch, np, kernels, dev, corpus)
         serve_dns_request()
+        serve_bf16_launches, serve_bf16_captured, _ = phase_serve(
+            torch, np, kernels, dev, corpus, bf16=True)
+        del corpus
+        dns_bf16_launches = serve_dns_request(bf16=True)
     finally:
         if not args.keep:
             shutil.rmtree(SMOKE_DIR, ignore_errors=True)
@@ -1264,17 +1489,32 @@ def main() -> int:
     records["chamfer"] = phase_chamfer(torch, kernels, dev, dns_captured.pop("chamfer"))
     launches["chamfer"] = dns_launches["chamfer"]
     dns_records = phase_kernels_main(torch, kernels, dev, dns_captured, path="DnS")
+    # The bf16 variants at the DnS widths (D = 1024, 1025), on the DnS
+    # path's inputs rounded to bf16; their launches are the bf16 DnS
+    # server request's.
+    dns_records.update(phase_kernels_main(torch, kernels, dev, {
+        name: tuple(a.to(torch.bfloat16) if isinstance(a, torch.Tensor) else a
+                    for a in call)
+        for name, call in dns_captured.items()}, path="DnS"))
     del dns_captured
     serve_records = phase_kernels_main(torch, kernels, dev, serve_captured,
                                        path="serving")
     del serve_captured
-    records["fused_topk"] = serve_records.pop("fused_topk")
-    launches["fused_topk"] = serve_launches["fused_topk"]
-    path_of = {"chamfer": "dns", "fused_topk": "serving"}
+    serve_records.update(phase_kernels_main(torch, kernels, dev, serve_bf16_captured,
+                                            path="serving"))
+    del serve_bf16_captured
+    for name, counts in (("fused_topk", serve_launches),
+                         ("fused_topk.bf16", serve_bf16_launches)):
+        records[name] = serve_records.pop(name)
+        launches[name] = counts[name]
+    path_of = {"chamfer": "dns", "fused_topk": "serving", "fused_topk.bf16": "serving"}
 
     rows = []
     for name, rec in records.items():
-        source, replaces = KERNEL_META[name]
+        base = name.split(".")[0]
+        source, replaces = KERNEL_META[base]
+        if name.endswith(BF16):
+            replaces = BF16_REPLACES.get(base, replaces)
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
@@ -1283,12 +1523,15 @@ def main() -> int:
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "path": path_of.get(name, "sscd"),
         }
-        if "path_total" in rec:
-            row["path_total"] = rec["path_total"]
+        for key in ("path_total", "f32_ms"):
+            if key in rec:
+                row[key] = rec[key]
         if name in dns_records:  # the same kernel on the DnS path
-            row["dns"] = dict(dns_records[name], launches=dns_launches[name])
+            counts = dns_bf16_launches if name.endswith(BF16) else dns_launches
+            row["dns"] = dict(dns_records[name], launches=counts.get(name, 0))
         if name in serve_records:  # and on the serving path
-            row["serving"] = dict(serve_records[name], launches=serve_launches[name])
+            counts = serve_bf16_launches if name.endswith(BF16) else serve_launches
+            row["serving"] = dict(serve_records[name], launches=counts[name])
         rows.append(row)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))

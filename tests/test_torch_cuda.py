@@ -13,7 +13,8 @@ products in another order than cuBLAS's). On floats the retrieval kernels
 are held against each other bit for bit: they run the same f32 FMA chain
 per score, so row_max equals the pool's best winner, count_above the
 pool's count wherever the pool holds every entry >= tau, and fused_topk
-the pool's best winners.
+the pool's best winners. Their bf16 variants are held bit for bit against
+the f32 kernels on the widened inputs, and against each other.
 """
 
 import math
@@ -71,7 +72,8 @@ def test_kernels_match_plain(cuda_device, m, n, d, n_valid):
     assert torch.equal(pi.cpu()[finite], ei[finite])
     assert kernels.launches == {
         "row_max": 1, "count_above": 1, "pool_writer": 1, "fused_topk": 0,
-        "chamfer": 0,
+        "chamfer": 0, "row_max.bf16": 0, "count_above.bf16": 0,
+        "pool_writer.bf16": 0, "fused_topk.bf16": 0,
     }
 
 
@@ -331,3 +333,131 @@ def test_global_topk_forced_modes_cuda_equal_cpu(cuda_device, monkeypatch, mode)
         want = SimilaritySearcher(r, device="cpu").global_topk(q, k, kappa=16)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
+
+
+# ---- the bf16 variants -------------------------------------------------------
+
+
+BF16 = torch.bfloat16
+
+
+def _bf16_rows(rng, n, d, cuda_device, offset=0):
+    """[n, d] bf16 unit-norm rows on the card; ``offset`` elements into
+    their storage (1: 2-byte aligned, so the kernels take 2-byte loads)."""
+    x = torch.from_numpy(_unit_rows(rng, n, d)).to(BF16)
+    flat = torch.zeros(n * d + offset, dtype=BF16)
+    flat[offset:] = x.reshape(-1)
+    return flat.to(cuda_device)[offset:].view(n, d)
+
+
+def _bf16_case(cuda_device, d, offset, seed):
+    """bf16 rows with near-duplicate columns in segment 0, refs padded to
+    whole segments (zero rows past 5000)."""
+    rng = np.random.RandomState(seed)
+    q = _bf16_rows(rng, 150, d, cuda_device, offset)
+    r = _bf16_rows(rng, -(-5000 // 128) * 128, d, cuda_device, offset)
+    r[5000:] = 0
+    r[8:14] = r[7]
+    q[:3] = r[7]
+    return q, r, 4990
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [511, 512, 513, 1025])
+def test_bf16_kernels_bit_identical_to_f32_on_widened_inputs(cuda_device, d, offset):
+    q, r, n_valid = _bf16_case(cuda_device, d, offset, 40 + d)
+    assert (q.data_ptr() % 16 == 0) == (offset == 0)
+    qf, rf = q.float(), r.float()
+    kernels.reset_launches()
+    assert torch.equal(kernels.row_max(q, r, n_valid).view(torch.int32),
+                       kernels.row_max(qf, rf, n_valid).view(torch.int32))
+    tau = 0.1
+    assert torch.equal(kernels.count_above(q, r, tau, n_valid),
+                       kernels.count_above(qf, rf, tau, n_valid))
+    pv, pi = kernels.pool_writer(q, r, n_valid)
+    ev, ei = kernels.pool_writer(qf, rf, n_valid)
+    assert torch.equal(pv.view(torch.int32), ev.view(torch.int32))
+    assert torch.equal(pi, ei)
+    for kappa in (5, 32, 100):
+        got_v, got_i = kernels.fused_topk(q, r, n_valid, kappa)
+        want_v, want_i = kernels.fused_topk(qf, rf, n_valid, kappa)
+        assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    # Each bf16 call ran its bf16 variant, never the f32 kernel.
+    for name, calls in (("row_max", 1), ("count_above", 1), ("pool_writer", 1),
+                        ("fused_topk", 3)):
+        assert kernels.launches[name] == kernels.launches[name + ".bf16"] == calls
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [511, 512, 513, 1025])
+def test_bf16_kernels_bit_identical_to_each_other(cuda_device, d, offset):
+    q, r, n_valid = _bf16_case(cuda_device, d, offset, 60 + d)
+    m = q.shape[0]
+    pv, pi = kernels.pool_writer(q, r, n_valid)
+    best = pv.view(m, -1).amax(1)
+    assert torch.equal(kernels.row_max(q, r, n_valid).view(torch.int32),
+                       best.view(torch.int32))
+    got_v, got_i = kernels.fused_topk(q, r, n_valid, 32)
+    want_v, want_i = kernels.ordered_topk(pv.view(m, -1), pi.view(m, -1), 32)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    tau = float(torch.topk(pv.reshape(-1), 3 * m).values[-1])
+    above = pv >= tau
+    pool_counts = above.view(m, -1).sum(1)
+    clean = above.all(2).sum(1) == 0
+    counts = kernels.count_above(q, r, tau, n_valid).long()
+    assert clean.any() and (~clean).any()
+    assert torch.equal(counts[clean], pool_counts[clean])
+    assert bool((counts >= pool_counts).all())
+
+
+@pytest.mark.parametrize("m", [1, 65, 300])
+@pytest.mark.parametrize("d", [1, 33, 511, 512, 1025])
+def test_bf16_kernels_exact_at_ragged_shapes(cuda_device, d, m):
+    # Small integers are exact in bf16: each kernel equals its plain version.
+    q = _ints((m, d), 50).to(BF16)
+    r = _ints((RAGGED_N, d), 51).to(BF16)
+    r[[3, 700]] = 3.0
+    q[0] = 3.0
+    rp = torch.zeros((-(-RAGGED_N // 128) * 128, d), dtype=BF16)
+    rp[:RAGGED_N] = r
+    qc, rc, rpc = q.to(cuda_device), r.to(cuda_device), rp.to(cuda_device)
+    tau = float(4 * math.isqrt(d))
+    for n_valid in (0, 1, RAGGED_N - 1, RAGGED_N):
+        assert torch.equal(kernels.row_max(qc, rc, n_valid).cpu(),
+                           kernels.row_max_plain(q, r, n_valid))
+        assert torch.equal(kernels.count_above(qc, rc, tau, n_valid).cpu(),
+                           kernels.count_above_plain(q, r, tau, n_valid))
+        pv, pi = kernels.pool_writer(qc, rpc, n_valid)
+        ev, ei = kernels.pool_writer_plain(q, rp, n_valid)
+        finite = torch.isfinite(ev)
+        assert torch.equal(pv.cpu(), ev) and torch.equal(pi.cpu()[finite], ei[finite])
+        for kappa in (1, 40):
+            got_v, got_i = kernels.fused_topk(qc, rc, n_valid, kappa)
+            want_v, want_i = kernels.fused_topk_plain(q, r, n_valid, kappa)
+            assert torch.equal(got_v.cpu(), want_v) and torch.equal(got_i.cpu(), want_i)
+
+
+@pytest.mark.parametrize("slots", [1, 7])
+def test_bf16_kernels_any_grid(cuda_device, monkeypatch, slots):
+    monkeypatch.setattr(kernels, "_reduce_slots", lambda t, name, vec: slots)
+    q = _ints((300, 40), 52).to(BF16).to(cuda_device)
+    r = _ints((RAGGED_N, 40), 53).to(BF16).to(cuda_device)
+    assert torch.equal(kernels.row_max(q, r, 129), kernels.row_max_plain(q, r, 129))
+    assert torch.equal(kernels.count_above(q, r, 20.0, RAGGED_N),
+                       kernels.count_above_plain(q, r, 20.0, RAGGED_N))
+    got_v, got_i = kernels.fused_topk(q, r, RAGGED_N, 700)
+    want_v, want_i = kernels.fused_topk_plain(q, r, RAGGED_N, 700)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+
+
+def test_bf16_wrappers_raise_on_mixed_dtypes(cuda_device):
+    q = torch.ones((4, 8), device=cuda_device)
+    r = torch.ones((128, 8), device=cuda_device, dtype=BF16)
+    kernels.reset_launches()
+    for call in (lambda: kernels.row_max(q, r, 100),
+                 lambda: kernels.count_above(q.to(BF16), r.float(), 0.0, 100),
+                 lambda: kernels.pool_writer(q, r, 100),
+                 lambda: kernels.fused_topk(q.to(BF16), r.float(), 100, 4)):
+        with pytest.raises(TypeError, match="share a dtype"):
+            call()
+    assert set(kernels.launches.values()) == {0}

@@ -124,10 +124,14 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     kernels.pool_writer(q, r, 100)
     kernels.fused_topk(q, torch.ones((100, 8)), 90, 4)
     kernels.chamfer_fine_sims(torch.ones((2, 3, 9, 8)), torch.ones((2, 5, 9, 8)))
+    # bf16 operands take the plain versions on the CPU too.
+    kernels.row_max(q.bfloat16(), r.bfloat16(), 100)
+    kernels.pool_writer(q.bfloat16(), r.bfloat16(), 100)
     # Plain versions never count as kernel launches.
     assert kernels.launches == {
         "row_max": 0, "count_above": 0, "pool_writer": 0, "fused_topk": 0,
-        "chamfer": 0,
+        "chamfer": 0, "row_max.bf16": 0, "count_above.bf16": 0,
+        "pool_writer.bf16": 0, "fused_topk.bf16": 0,
     }
     with pytest.raises(ValueError, match="multiple of 128"):
         kernels.pool_writer(q, torch.ones((100, 8)), 100)
@@ -135,6 +139,8 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
         kernels.fused_topk(q, r, 100, 0)
     with pytest.raises(TypeError):
         kernels.row_max(q.double(), r.double(), 100)
+    with pytest.raises(TypeError, match="share a dtype"):
+        kernels.count_above(q.bfloat16(), r, 0.0, 100)
     fine = torch.ones((1, 4, 9, 8))
     with pytest.raises(NotImplementedError, match="bf16"):
         kernels.chamfer_fine_sims(fine.bfloat16(), fine.bfloat16())
@@ -177,13 +183,16 @@ def test_serve_entry_point_defaults_to_cuda_and_raises(no_gpu):
         ScoreNormalizedSearcher(np.zeros((4, 8), np.float32), np.zeros((4, 8), np.float32))
 
 
-@pytest.mark.parametrize("flag", ["--bf16", "--int8"])
-def test_unported_storage_modes_raise(flag, tmp_path):
+@pytest.mark.parametrize("entry", ["sscd_baseline", "descriptor_eval"])
+def test_unported_storage_modes_raise(entry, tmp_path):
+    # bf16 is ported; int8 (SQ8) storage is not.
+    from vsc2022_torch import descriptor_eval
     from vsc2022_torch.baseline import sscd_baseline
 
-    args = sscd_baseline.parser.parse_args([
-        "--query_features", "q.npz", "--ref_features", "r.npz",
-        "--output_path", str(tmp_path / "out"), "--device", "cpu", flag,
-    ])
-    with pytest.raises(NotImplementedError):
-        sscd_baseline.main(args)
+    module = sscd_baseline if entry == "sscd_baseline" else descriptor_eval
+    argv = ["--query_features", "q.npz", "--ref_features", "r.npz",
+            "--device", "cpu", "--int8"]
+    if entry == "sscd_baseline":
+        argv += ["--output_path", str(tmp_path / "out")]
+    with pytest.raises(NotImplementedError, match="int8"):
+        module.main(module.parser.parse_args(argv))

@@ -206,7 +206,6 @@ def test_empty_and_unported_modes():
         assert arr.size == 0
     for arr in ts.global_topk(np.ones((2, 4), np.float32), 0):
         assert arr.size == 0
-    for kw in ({"metric": "L2"}, {"dtype": "bfloat16"}, {"dtype": "int8"},
-               {"precision": "default"}):
+    for kw in ({"metric": "L2"}, {"dtype": "int8"}, {"precision": "default"}):
         with pytest.raises(NotImplementedError):
             TorchSearcher(r, device="cpu", **kw)

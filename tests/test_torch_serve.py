@@ -402,10 +402,10 @@ def test_serve_requests_match_jax_dns(served):
 
 
 def test_unported_modes_raise(served):
+    # The JAX default (bf16, no dtype flag) is ported: tests below start it.
     base = ["--ref_features", served["r"], "--device", "cpu"]
-    for extra in ([], ["--bf16"], ["--int8"], ["--f32", "--sharded"],
-                  ["--f32", "--ivf", "4"], ["--f32", "--num_processes", "2"],
-                  ["--f32", "--baseline", "sscd"]):
+    for extra in (["--int8"], ["--sharded"], ["--bf16", "--ivf", "4"],
+                  ["--f32", "--num_processes", "2"], ["--baseline", "sscd"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             torch_serve.main(torch_serve.parser.parse_args(base + extra))
 
@@ -525,9 +525,9 @@ def test_save_failure_leaves_state_unmutated(monkeypatch, tmp_path):
 
 def test_server_subprocess_stdin_and_tcp(served, tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
-    common = dict(score_norm_features=served["n"], matches=True, device="cpu",
-                  extra_args=["--beta", str(BETA)], env=env, cwd=str(tmp_path),
-                  stderr=subprocess.DEVNULL)
+    common = dict(score_norm_features=served["n"], matches=True, f32=True,
+                  device="cpu", extra_args=["--beta", str(BETA)], env=env,
+                  cwd=str(tmp_path), stderr=subprocess.DEVNULL)
     query_bytes = open(served["q"], "rb").read()
     with ServeClient.spawn(served["r"], **common) as client:
         assert client.n_ref_videos == 10
@@ -556,6 +556,137 @@ def test_server_subprocess_stdin_and_tcp(served, tmp_path):
             assert tcp.candidates_csv == inband.candidates_csv
             assert tcp.matches_csv == inband.matches_csv
             client.close(shutdown=True)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+# ---- the typed in-band client API (tests/test_serve.py, the in-band cases) ----------
+# The port's server on the JAX package's default flags (bf16), driven by the
+# port's client and, over TCP, by the JAX package's client too.
+
+
+def _ckey(c):
+    return (c.query_id, c.ref_id, c.score)
+
+
+def _mkey(m):
+    return (m.query_id, m.ref_id, m.query_start, m.query_end, m.ref_start,
+            m.ref_end, m.score)
+
+
+def _listen(argv, cwd):
+    """A port server on a free TCP port: (process, host, port)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vsc2022_torch.retrieval.serve", *argv,
+         "--device", "cpu", "--listen", "127.0.0.1:0"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=cwd,
+    )
+    assert proc.stdout.readline().decode().startswith("ready\t")
+    host, port = proc.stdout.readline().decode().strip().split("\t")[1].rsplit(":", 1)
+    return proc, host, int(port)
+
+
+def test_inband_equals_paths_over_stdio(served, tmp_path):
+    from vsc2022_torch.storage import load_features as torch_load
+
+    queries, refs, _, extra = _corpus(TVF)
+    with ServeClient.spawn(served["r"], score_norm_features=served["n"], matches=True,
+                           device="cpu", env=dict(os.environ, PYTHONPATH=REPO),
+                           cwd=str(tmp_path), stderr=subprocess.DEVNULL) as client:
+        assert client.stats().dtype == "bfloat16"  # no dtype flag: the bf16 default
+        by_path = client.search(served["q"], candidates_csv=str(tmp_path / "c.csv"),
+                                matches_csv=str(tmp_path / "m.csv"))
+        inband = client.search_features(queries)
+        assert list(map(_ckey, inband.candidates)) == list(map(_ckey, by_path.candidates()))
+        assert list(map(_mkey, inband.matches)) == list(map(_mkey, by_path.matches()))
+        assert len(inband.candidates) >= 1
+        # In-band add grows the corpus like the path form; the planted copy
+        # in the added ref then localizes.
+        assert client.add_features(extra) == len(extra)
+        post = client.search_features(queries)
+        assert any(m.query_id == "Q000002" and m.ref_id == "R000100" for m in post.matches)
+        # Duplicate ids travel as a typed error and the session keeps serving.
+        with pytest.raises(ServeError, match="already indexed"):
+            client.add_features(extra)
+        client.remove([vf.video_id for vf in extra])
+        # The in-band snapshot equals the on-disk save.
+        snap_refs, snap_fine = client.snapshot()
+        assert snap_fine is None
+        client.save(str(tmp_path / "snap.npz"))
+        disk = torch_load(str(tmp_path / "snap.npz"), Dataset.REFS)
+        assert [vf.video_id for vf in snap_refs] == [vf.video_id for vf in disk]
+        for a, b in zip(snap_refs, disk):
+            np.testing.assert_array_equal(a.feature, b.feature)
+            np.testing.assert_array_equal(a.timestamps, b.timestamps)
+        # Malformed payload lengths answer an error; nothing was consumed.
+        client._write_line("searchb\tnotanumber")
+        client._wfile.flush()
+        assert client._read_line().startswith("error")
+        assert client.stats().n_videos == len(refs)
+    with pytest.raises(ValueError, match="matches"):
+        type(by_path)(by_path.candidates_csv, 1, None, None, 0.0).matches()
+
+
+def test_inband_over_tcp_needs_no_shared_paths(served, tmp_path):
+    from vsc2022_tpu.retrieval.client import ServeClient as JaxClient
+
+    queries, refs, _, extra = _corpus(TVF)
+    j_queries, _, _, j_extra = _corpus(JVF)
+    proc, host, port = _listen(["--ref_features", served["r"], "--score_norm_features",
+                                served["n"], "--matches"], str(tmp_path))
+    try:
+        with JaxClient.connect(host, port) as c1:  # the JAX package's client
+            r1 = c1.search_features(j_queries)
+            assert len(r1.candidates) >= 1 and r1.matches
+            assert c1.add_features(j_extra) == len(extra)
+            snap_refs, _ = c1.snapshot()
+            assert len(snap_refs) == len(refs) + len(extra)
+            assert c1.stats().dtype == "bfloat16"
+        with ServeClient.connect(host, port) as c2:  # the port's client
+            r2 = c2.search_features(queries)
+            assert any(m.query_id == "Q000002" and m.ref_id == "R000100"
+                       for m in r2.matches)
+            c2.remove([vf.video_id for vf in extra])
+            r3 = c2.search_features(queries)
+            assert list(map(_ckey, r3.candidates)) == list(map(_ckey, r1.candidates))
+            assert list(map(_mkey, r3.matches)) == list(map(_mkey, r1.matches))
+            c2.close(shutdown=True)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def test_inband_dns_two_payloads(served, tmp_path):
+    from vsc2022_tpu.retrieval.client import ServeClient as JaxClient
+
+    dq, _, _, qf, _, _ = _dns_case(TVF)
+    j_dq, _, _, j_qf, _, _ = _dns_case(JVF)
+    proc, host, port = _listen(["--ref_features", served["dr"], "--ref_fine_features",
+                                served["drf"]], str(tmp_path))
+    try:
+        with JaxClient.connect(host, port) as c1:
+            want = c1.search_features(j_dq, queries_fine=j_qf)
+        with ServeClient.connect(host, port) as c2:
+            res = c2.search_features(dq, queries_fine=qf)  # a dict, as JAX takes it
+            assert res.matches is not None
+            assert any(m.query_id == "Q000000" and m.ref_id == "R000001"
+                       for m in res.matches)
+            assert list(map(_ckey, res.candidates)) == list(map(_ckey, want.candidates))
+            assert list(map(_mkey, res.matches)) == list(map(_mkey, want.matches))
+            # A single-payload searchb against a DnS server is an error.
+            with pytest.raises(ServeError, match="searchb"):
+                c2.search_features(dq)
+            # The snapshot returns both sides in-band.
+            snap_refs, snap_fine = c2.snapshot()
+            assert snap_fine is not None
+            assert [v.video_id for v in snap_refs] == [v.video_id for v in snap_fine]
+            c2.close(shutdown=True)
         assert proc.wait(timeout=60) == 0
     finally:
         if proc.poll() is None:

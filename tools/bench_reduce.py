@@ -19,6 +19,12 @@ blocks per SM, and fused_topk's grid and pieces (S) per shape. The last lines ar
 and power limit and one JSON object with every shape's numbers.
 `chip_smoke.py` measures the same kernels on the paths' own inputs.
 
+``--bf16`` times the bf16 variants instead, on the same rows rounded to
+bf16: each is held bit for bit against the f32 kernel on the widened
+rows, which is timed beside it (``f32_ms``); the library call is a cuBLAS
+bf16 ``torch.matmul`` plus the same reduction, and the bound takes the
+bf16 tensor-core peak and 2-byte operands.
+
 Copied into a tree of an earlier commit (beside its vsc2022_torch/ and
 chip_smoke.py), it times that tree's kernels, skipping the occupancy and
 grid reports that tree lacks: parent and change can share one call.
@@ -56,6 +62,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3, help="timed launches per shape")
     ap.add_argument("--only", choices=("row_max", "count_above", "fused_topk"),
                     help="time one kernel only")
+    ap.add_argument("--bf16", action="store_true",
+                    help="time the bf16 variants against the f32 kernels")
     args = ap.parse_args()
 
     import torch
@@ -72,6 +80,8 @@ def main() -> int:
     _build.build(verbose=True)
     lib = _build.library()
     for name in ("row_max", "count_above", "fused_topk"):
+        if args.bf16:
+            name += "_bf16"
         if not hasattr(lib, f"vsc_{name}_occupancy"):
             continue
         for vec in (0, 1):
@@ -92,25 +102,32 @@ def main() -> int:
         r = torch.zeros((-(-n_valid // 128) * 128, d), device=dev)
         r[:n_valid] = torch.randn((n_valid, d), generator=g, device=dev)
         r[:n_valid] /= r[:n_valid].norm(dim=1, keepdim=True)
-        if name == "row_max":
-            run = lambda: kernels.row_max(q, r, n_valid)  # noqa: E731
-            lib_call = lambda: cs.row_max_library(torch, q, r, n_valid)  # noqa: E731
-            err = float((run() - lib_call()).abs().max())
-            cs.check(err <= cs.FLOAT_ATOL, f"row_max {path}: off the library by {err}")
-        elif name == "count_above":
-            run = lambda: kernels.count_above(q, r, TAU, n_valid)  # noqa: E731
-            lib_call = lambda: cs.count_above_library(torch, q, r, TAU, n_valid)  # noqa: E731
-            err = float((run().long() - lib_call()).abs().max())
-            cs.check(err <= 2, f"count_above {path}: off the library by {err}")
+        if args.bf16:
+            q, r = q.to(torch.bfloat16), r.to(torch.bfloat16)
+        run = _call(kernels, name, q, r, n_valid)
+        lib_call = _library(torch, cs, name, q, r, n_valid)
+        if args.bf16:
+            # Bit for bit against the f32 kernel on the widened rows.
+            run_f32 = _call(kernels, name, q.float(), r.float(), n_valid)
+            got, want = run(), run_f32()
+            same = (all(torch.equal(a, b) for a, b in zip(got, want))
+                    if name == "fused_topk"
+                    else torch.equal(got.view(torch.int32), want.view(torch.int32)))
+            cs.check(same, f"{name}.bf16 {path}: differs from the f32 kernel "
+                     "on the widened rows")
+            err = 0.0
         else:
-            run = lambda: kernels.fused_topk(q, r, n_valid, KAPPA)  # noqa: E731
-            lib_call = lambda: cs.topk_library(torch, q, r, n_valid, KAPPA)  # noqa: E731
-            err = float((run()[0] - lib_call()).abs().max())
-            cs.check(err <= cs.FLOAT_ATOL, f"fused_topk {path}: off the library by {err}")
-            if hasattr(kernels, "topk_grid"):
-                _, grid = kernels._reduce_plan(name, q, r, n_valid)
-                grid, pieces = kernels.topk_grid(m, n_valid, KAPPA, grid)
-                print(f"fused_topk {path}: grid {grid}, S = {pieces}", flush=True)
+            got, want = run(), lib_call()
+            if name == "fused_topk":
+                got = got[0]
+            err = float((got.double() - want.double()).abs().max())
+            tol = 2 if name == "count_above" else cs.FLOAT_ATOL
+            cs.check(err <= tol, f"{name} {path}: off the library by {err}")
+        if name == "fused_topk":
+            _, grid = kernels._reduce_plan(
+                "fused_topk" + ("_bf16" if args.bf16 else ""), q, r, n_valid)
+            grid, pieces = kernels.topk_grid(m, n_valid, KAPPA, grid)
+            print(f"fused_topk {path}: grid {grid}, S = {pieces}", flush=True)
         head = q[:256].contiguous()
         pv, pi = kernels.pool_writer(head, r, n_valid)
         if name == "fused_topk":
@@ -128,20 +145,43 @@ def main() -> int:
         ms = cs.cuda_ms(torch, run, args.reps)
         library_ms = cs.cuda_ms(torch, lib_call, 2)
         out_bytes = 8 * m * KAPPA if name == "fused_topk" else 4 * m
-        bound_ms, bound_by = cs.bound(m, n_valid, r.shape[0], d, out_bytes)
-        row = {"kernel": name, "path": path, "shape": [m, n_valid, d],
-               "ms": ms, "library_ms": library_ms,
+        bound_ms, bound_by = cs.bound(m, n_valid, r.shape[0], d, out_bytes,
+                                      bf16=args.bf16)
+        row = {"kernel": name + (".bf16" if args.bf16 else ""), "path": path,
+               "shape": [m, n_valid, d], "ms": ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "share_of_bound": bound_ms / ms, "max_abs_err": err}
+        if args.bf16:
+            row["f32_ms"] = cs.cuda_ms(torch, run_f32, args.reps)
         rows.append(row)
-        print(f"{name} {path} [{m} x {n_valid} x {d}]: kernel {ms:.3f} ms, library "
-              f"{library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+        print(f"{row['kernel']} {path} [{m} x {n_valid} x {d}]: kernel {ms:.3f} ms, "
+              + (f"f32 kernel {row['f32_ms']:.3f} ms, " if args.bf16 else "")
+              + f"library {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
               f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
         del q, r
         torch.cuda.empty_cache()
     print(cs.nvidia_smi_line())
     print(json.dumps({"shapes": rows}))
     return 0
+
+
+def _call(kernels, name, q, r, n_valid):
+    """The kernel's wrapper on (q, r) at the bench's τ and κ."""
+    if name == "row_max":
+        return lambda: kernels.row_max(q, r, n_valid)
+    if name == "count_above":
+        return lambda: kernels.count_above(q, r, TAU, n_valid)
+    return lambda: kernels.fused_topk(q, r, n_valid, KAPPA)
+
+
+def _library(torch, cs, name, q, r, n_valid):
+    """One PyTorch call per chunk computing the same function (timing
+    only): cuBLAS torch.matmul in q's dtype plus the reduction."""
+    if name == "row_max":
+        return lambda: cs.row_max_library(torch, q, r, n_valid)
+    if name == "count_above":
+        return lambda: cs.count_above_library(torch, q, r, TAU, n_valid)
+    return lambda: cs.topk_library(torch, q, r, n_valid, KAPPA)
 
 
 if __name__ == "__main__":

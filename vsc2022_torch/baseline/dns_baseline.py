@@ -112,7 +112,10 @@ def _chamfer_fuse(
 class DnSLocalization(TNLocalizationMaxSim):
     """Fine+coarse fused similarity feeding the TN aligner (the
     reference's VCSLLocalizationDnS). Pairs bucket by their coarse frame
-    counts; the fine rows come from their own pair of device tables."""
+    counts; the fine rows come from their own pair of device tables. With
+    ``table_dtype="bfloat16"`` both reference tables (coarse and fine)
+    store bf16 rows, widened to f32 as they are gathered: the chamfer
+    kernel stays the f32 one."""
 
     # The gathered fine rows are B·(NQ + NR)·9·512 floats per chunk
     # (2.4 GB at 1024 pairs of 64 × 64 frames), hence a smaller budget.

@@ -72,12 +72,15 @@ def retrieve_candidates(
     refs: List[VideoFeature],
     retrieve_per_query: float = RETRIEVE_PER_QUERY,
     candidates_per_query: float = CANDIDATES_PER_QUERY,
+    dtype: str = "float32",
     device: DeviceLike = "cuda",
 ) -> List[CandidatePair]:
-    """Global-k frame search + per-pair aggregation, truncated to the
-    candidate budget."""
+    """Global-k frame search (over a corpus staged in ``dtype``) +
+    per-pair aggregation, truncated to the candidate budget."""
     logger.info("Retrieval: global top-k frame search")
-    generator = CandidateGeneration(refs, MaxScoreAggregation(), device=device)
+    generator = CandidateGeneration(
+        refs, MaxScoreAggregation(), dtype=dtype, device=device
+    )
     candidates = generator.query(
         queries, global_k=int(retrieve_per_query * len(queries))
     )

@@ -12,9 +12,11 @@ query, β=1.2 score normalization).
         --score_norm_features noise.npz --ground_truth gt.csv \\
         --output_path out/
 
-Runs on ``cuda`` unless ``--device cpu`` is given. ``--bf16`` and
-``--int8`` are not ported yet and raise; ``--profile_dir`` writes a
-``torch.profiler`` trace.
+Runs on ``cuda`` unless ``--device cpu`` is given. ``--bf16`` runs the
+score normalization's noise-NN and the retrieval over bf16 corpora (f32
+accumulation; localization stays f32, as in the JAX package). ``--int8``
+is not ported yet and raises; ``--profile_dir`` writes a ``torch.profiler``
+trace.
 """
 
 import argparse
@@ -73,7 +75,8 @@ parser.add_argument(
 _dtype_group = parser.add_mutually_exclusive_group()
 _dtype_group.add_argument(
     "--bf16", action="store_true",
-    help="Retrieval in bfloat16 (not ported yet: raises).",
+    help="Retrieval in bfloat16 (half the device memory and bytes moved; "
+    "scores at bf16 resolution, f32 accumulation).",
 )
 _dtype_group.add_argument(
     "--int8", action="store_true",
@@ -151,6 +154,7 @@ def match(
     score_normalization: bool = False,
     vcsl_faithful: bool = False,
     reuse_candidates: str = None,
+    dtype: str = "float32",
     device: DeviceLike = "cuda",
     stages: Dict[str, float] = None,
 ) -> Tuple[str, str]:
@@ -162,7 +166,7 @@ def match(
             candidates = CandidatePair.read_csv(reuse_candidates)
         else:
             candidates = pipeline.retrieve_candidates(
-                queries, refs, device=device
+                queries, refs, dtype=dtype, device=device
             )
         candidate_file, _ = pipeline.write_stage_artifacts(
             output_path, candidates
@@ -182,9 +186,9 @@ def match(
 def main(args) -> Dict[str, object]:
     """Run the matching pipeline; returns the per-stage seconds and, with
     ``--ground_truth``, both APs."""
-    if args.bf16 or args.int8:
+    if args.int8:
         raise NotImplementedError(
-            "--bf16 / --int8 retrieval is not ported yet: run in f32"
+            "--int8 retrieval is not ported yet: run in f32 or --bf16"
         )
     if os.path.exists(args.output_path) and not args.overwrite:
         raise Exception(
@@ -204,11 +208,12 @@ def main(args) -> Dict[str, object]:
     score_normalization = bool(
         args.score_norm_features or args.score_normalized_inputs
     )
+    dtype = "bfloat16" if args.bf16 else "float32"
     if args.score_norm_features:
         with pipeline.timed(stages, "score_norm", device):
             noise = load_features(args.score_norm_features, Dataset.REFS)
             queries, refs = score_normalize(
-                queries, refs, noise, beta=1.2, device=device
+                queries, refs, noise, beta=1.2, dtype=dtype, device=device
             )
         with pipeline.timed(stages, "store_sn", device):
             os.makedirs(args.output_path, exist_ok=True)
@@ -223,7 +228,7 @@ def main(args) -> Dict[str, object]:
             score_normalization=score_normalization,
             vcsl_faithful=args.vcsl_faithful_tn,
             reuse_candidates=args.reuse_candidates,
-            device=device, stages=stages,
+            dtype=dtype, device=device, stages=stages,
         )
 
     result: Dict[str, object] = {"stages": stages}

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Dict, Mapping, Optional
 
 import numpy as np
+import torch
 
 from vsc2022_torch.device import DeviceLike
 from vsc2022_torch.ops.similarity import SimilaritySearcher
@@ -25,19 +26,29 @@ def searcher_from_arrays(
 ) -> SimilaritySearcher:
     """The port's searcher over the corpus a JAX ``SimilaritySearcher``
     stages: ``refs`` its padded ``_refs`` [N_pad, D], ``n_valid`` its
-    ``_n_valid``, ``ref_sq`` its ``_ref_sq`` (all zeros for an f32 IP
-    corpus; anything else is an L2 or int8 corpus, not ported yet)."""
+    ``_n_valid``, ``ref_sq`` its ``_ref_sq`` (all zeros for an IP corpus;
+    anything else is an L2 or int8 corpus, not ported yet).
+
+    A bf16 corpus arrives as an ``ml_dtypes.bfloat16`` array, which
+    ``torch.from_numpy`` refuses: its bits are read through a 16-bit
+    integer view and widened to f32, which is exact, and the searcher
+    rounds them back to bf16, which returns the same bits (a bf16 value
+    rounds to itself), so the corpus stages bit for bit."""
     refs = np.asarray(refs)
     n_valid = int(n_valid)
     if refs.ndim != 2 or not 0 <= n_valid <= refs.shape[0]:
         raise ValueError(f"refs {refs.shape} with n_valid {n_valid}")
-    if refs.dtype != np.float32:
-        raise NotImplementedError(
-            f"{refs.dtype} corpora are not ported yet (float32 only)"
-        )
     if ref_sq is not None and np.any(np.asarray(ref_sq) != 0):
         raise NotImplementedError(
             "a non-zero ref_sq means an L2 or int8 corpus, not ported yet"
+        )
+    if refs.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(refs[:n_valid]).view(np.int16))
+        widened = bits.view(torch.bfloat16).float().numpy()
+        return SimilaritySearcher(widened, dtype="bfloat16", device=device)
+    if refs.dtype != np.float32:
+        raise NotImplementedError(
+            f"{refs.dtype} corpora are not ported yet (float32 and bfloat16 only)"
         )
     return SimilaritySearcher(refs[:n_valid], device=device)
 

@@ -5,7 +5,8 @@ the root ``descriptor_eval.py``, plus ``--device``).
     python -m vsc2022_torch.descriptor_eval --query_features q.npz \\
         --ref_features r.npz --ground_truth gt.csv [--candidates_output c.csv]
 
-``--sharded``, ``--bf16`` and ``--int8`` are not ported yet and raise.
+``--bf16`` stages the reference corpus and the queries in bfloat16 (f32
+accumulation). ``--sharded`` and ``--int8`` are not ported yet and raise.
 """
 
 import argparse
@@ -40,7 +41,8 @@ parser.add_argument(
 _dtype_group = parser.add_mutually_exclusive_group()
 _dtype_group.add_argument(
     "--bf16", action="store_true",
-    help="Search in bfloat16 (not ported yet: raises).",
+    help="Stage the reference corpus and the queries in bfloat16 (half the "
+    "device memory; scores at bf16 resolution, f32 accumulation).",
 )
 _dtype_group.add_argument(
     "--int8", action="store_true",
@@ -54,13 +56,13 @@ parser.add_argument(
 
 def main(args) -> Optional[float]:
     """Run the evaluation; returns the micro-AP when GT is given."""
-    if args.sharded or args.bf16 or args.int8:
-        raise NotImplementedError(
-            "--sharded / --bf16 / --int8 are not ported yet"
-        )
+    if args.sharded or args.int8:
+        raise NotImplementedError("--sharded / --int8 are not ported yet")
     ap, candidates = evaluate_descriptor_track(
         args.query_features, args.ref_features, args.ground_truth,
-        protocol=DescriptorEvalProtocol(device=args.device),
+        protocol=DescriptorEvalProtocol(
+            dtype="bfloat16" if args.bf16 else "float32", device=args.device,
+        ),
     )
     if ap is not None:
         logger.info(f"Descriptor track micro-AP (uAP): {ap.ap:.4f}")

@@ -41,6 +41,7 @@ class DescriptorEvalProtocol:
 
     retrieval_per_query: int = RETRIEVAL_CANDIDATES_PER_QUERY
     pairs_per_query: int = AGGREGATED_CANDIDATES_PER_QUERY
+    dtype: str = "float32"  # the staged corpus: "float32" or "bfloat16"
     device: DeviceLike = "cuda"
 
     def retrieve(self, query_features, ref_features) -> List[CandidatePair]:
@@ -48,7 +49,8 @@ class DescriptorEvalProtocol:
         budget = int(self.retrieval_per_query * n_queries)
         logger.info(f"Performing search for {budget} nearest vectors")
         generator = CandidateGeneration(
-            ref_features, MaxScoreAggregation(), device=self.device
+            ref_features, MaxScoreAggregation(), dtype=self.dtype,
+            device=self.device,
         )
         candidates = generator.query(query_features, global_k=budget)
         logger.info(f"Got {len(candidates)} unique video pairs.")

@@ -7,6 +7,10 @@ a zero pad row), each video once; candidate pairs are bucketed by padded
 (query_len, ref_len) shape, each bucket gathers its rows from the
 tables and its similarity matrices are one batched f32 matmul on the
 device, and TN alignment runs over the whole batch (ops/tn_align.py).
+``table_dtype="bfloat16"`` stores the reference tables in bf16 (the
+serving default): their rows are widened to f32 as they are gathered,
+before the similarity, so only the stored values round. Query tables stay
+f32.
 
 Box → Match conversion keeps reference semantics: boxes are inclusive
 frame-index rectangles; query_start = get_timestamps(x1)[0],
@@ -27,6 +31,7 @@ import torch
 
 from vsc2022_torch.device import DeviceLike, resolve_device
 from vsc2022_torch.metrics import CandidatePair, Match
+from vsc2022_torch.ops.similarity import STORAGE_DTYPES
 from vsc2022_torch.ops.tn_align import TNParams, tn_align_packed
 from vsc2022_torch.types import VideoFeature
 
@@ -91,14 +96,19 @@ class TNLocalization(LocalizationWithMetadata):
         max_paths: int = 10,
         adaptive_sigma: float = 2.5,
         vcsl_faithful: bool = False,
+        table_dtype: str = "float32",
         device: DeviceLike = "cuda",
         **kwargs,
     ):
         super().__init__(queries, refs)
         if model_type != "TN":
             raise ValueError(f"Unsupported alignment model type: {model_type}")
+        if table_dtype not in STORAGE_DTYPES:
+            raise ValueError(f"Unsupported table_dtype: {table_dtype}")
         del concurrency, kwargs
         self.similarity_bias = similarity_bias
+        # The storage dtype of the reference tables ("ref", "ref_fine").
+        self._table_dtype = STORAGE_DTYPES[table_dtype]
         self.device = resolve_device(device)
         # Device tables of frame rows by name: (table, {video: (start, n)}).
         self._tables: Dict[str, Tuple[torch.Tensor, Dict]] = {}
@@ -125,7 +135,9 @@ class TNLocalization(LocalizationWithMetadata):
         videos asked for are staged: a one-shot run localizes a few
         hundred pairs of a corpus that may hold a million frames.
         ``row_fn`` maps a VideoFeature to its [n, d] f32 rows (default:
-        its features as f32; the DnS fine features rescale and flatten)."""
+        its features as f32; the DnS fine features rescale and flatten).
+        Reference tables (names starting "ref") store their rows in the
+        table dtype (bf16 rounds to nearest even), query tables in f32."""
         table, offsets = self._tables.get(name, (None, {}))
         missing = [v for v in dict.fromkeys(video_ids) if v not in offsets]
         if not missing:
@@ -142,7 +154,9 @@ class TNLocalization(LocalizationWithMetadata):
             cursor += feat.shape[0]
         if table is None:
             rows.insert(0, np.zeros((1, rows[0].shape[1]), np.float32))
+        dtype = self._table_dtype if name.startswith("ref") else torch.float32
         new = torch.from_numpy(np.concatenate(rows, axis=0)).to(self.device)
+        new = new.to(dtype)
         table = new if table is None else torch.cat([table, new])
         self._tables[name] = (table, offsets)
         return table, offsets
@@ -245,9 +259,11 @@ class TNLocalization(LocalizationWithMetadata):
         return idx, lengths
 
     def _gather(self, table: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-        """[B, n_pad, d] rows of ``table`` at ``idx``, gathered on the device."""
+        """[B, n_pad, d] f32 rows of ``table`` at ``idx``, gathered on the
+        device (a bf16 table's rows widened after the gather)."""
         flat = torch.from_numpy(idx.reshape(-1)).to(self.device)
-        return table.index_select(0, flat).view(*idx.shape, table.shape[1])
+        rows = table.index_select(0, flat).view(*idx.shape, table.shape[1])
+        return rows.float()
 
     def _batch_sims(
         self, candidates: Sequence[CandidatePair], nq: int, nr: int

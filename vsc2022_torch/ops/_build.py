@@ -103,17 +103,23 @@ def build(verbose: bool = False) -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vsc_pool_writer.argtypes = [i, p, p, i, i, i, i, p, p, p]
-    lib.vsc_row_max.argtypes = [i, p, p, i, i, i, i, i, i, p, p, p]
-    lib.vsc_row_max_occupancy.argtypes = [i, i, p]
-    lib.vsc_count_above.argtypes = [i, p, p, i, i, i, f, i, i, i, p, p]
-    lib.vsc_count_above_occupancy.argtypes = [i, i, p]
-    lib.vsc_chamfer.argtypes = [i, p, p, i, i, i, i, i, i, p, p]
-    lib.vsc_fused_topk.argtypes = [i, p, p, i, i, i, i, i, i, i, i, p, p, p]
-    lib.vsc_fused_topk_occupancy.argtypes = [i, i, p]
-    for fn in (lib.vsc_pool_writer, lib.vsc_row_max, lib.vsc_row_max_occupancy,
-               lib.vsc_count_above, lib.vsc_count_above_occupancy,
-               lib.vsc_chamfer, lib.vsc_fused_topk, lib.vsc_fused_topk_occupancy):
+    argtypes = {
+        "pool_writer": [i, p, p, i, i, i, i, p, p, p],
+        "row_max": [i, p, p, i, i, i, i, i, i, p, p, p],
+        "row_max_occupancy": [i, i, p],
+        "count_above": [i, p, p, i, i, i, f, i, i, i, p, p],
+        "count_above_occupancy": [i, i, p],
+        "fused_topk": [i, p, p, i, i, i, i, i, i, i, i, p, p, p],
+        "fused_topk_occupancy": [i, i, p],
+    }
+    # Each retrieval kernel's bf16 variant takes the same arguments.
+    for name in list(argtypes):
+        kernel, occupancy, _ = name.partition("_occupancy")
+        argtypes[f"{kernel}_bf16{occupancy}"] = argtypes[name]
+    argtypes["chamfer"] = [i, p, p, i, i, i, i, i, i, p, p]
+    for name, types in argtypes.items():
+        fn = getattr(lib, f"vsc_{name}")
+        fn.argtypes = types
         fn.restype = ctypes.c_int
 
 

@@ -50,6 +50,14 @@
 // fused_topk) computes S and the grid from the same schedule and orders the
 // rows best-first with ordered_topk over [M, S * kappa], the counterpart of
 // the JAX wrapper's lax.top_k after its kernel.
+//
+// The bf16 variant (vsc_fused_topk_bf16) is the streaming collection over a
+// bf16 corpus (the JAX searcher's bf16 x bf16 block scores with f32
+// accumulation; the port's server stages bf16 by default). Bound:
+// operations, 2*M*N*D, low against the bf16 tensor-core peak by design: the
+// operands are widened to f32 on their way into the ring (reduce_gemm.cuh)
+// and the f32 kernel's fmaf chain and epilogue run on them, so its winners
+// are the bf16 pool_writer's bit for bit.
 #include "reduce_gemm.cuh"
 #include "segment_top2.cuh"
 
@@ -273,27 +281,10 @@ __global__ void fill_sets(float* out_v, int* out_i, size_t n) {
   }
 }
 
-}  // namespace
-
-// Blocks of the fused_topk kernel one SM holds at once (16-byte copies if
-// vec).
-extern "C" int vsc_fused_topk_occupancy(int device, int vec,
-                                        int* blocks_per_sm) {
-  return vsc::reduce::resident_blocks<TopK>(device, vec,
-                                            smem_set_bytes(kSmemKappaMax),
-                                            blocks_per_sm);
-}
-
-// q [m, d], refs [n, d] f32 row-major on the device; out_v / out_i are
-// [m, pieces, kappa]. `grid` persistent blocks (one wave: SMs x
-// vsc_fused_topk_occupancy, at most the work items) and `vec` as for
-// vsc_row_max; `pieces` is S for that grid (ops/kernels.py:topk_pieces),
-// 1 when there is no work item. Returns cudaGetLastError() after the
-// launches.
-extern "C" int vsc_fused_topk(int device, const float* q, const float* refs,
-                              int m, int n, int d, int n_valid, int kappa,
-                              int vec, int grid, int pieces, float* out_v,
-                              int* out_i, void* stream) {
+template <class T>
+int run_fused_topk(int device, const T* q, const T* refs, int m, int n, int d,
+                   int n_valid, int kappa, int vec, int grid, int pieces,
+                   float* out_v, int* out_i, void* stream) {
   if (m <= 0) return 0;
   if (kappa <= 0 || pieces <= 0 || n_valid < 0 || n_valid > n)
     return (int)cudaErrorInvalidValue;
@@ -310,4 +301,45 @@ extern "C" int vsc_fused_topk(int device, const float* q, const float* refs,
   return (int)vsc::reduce::launch(q, refs, m, d, n_valid, vec, grid,
                                   TopK{out_v, out_i, kappa, pieces, in_smem},
                                   in_smem ? smem_set_bytes(kappa) : 0, s);
+}
+
+}  // namespace
+
+// Blocks of the fused_topk kernel one SM holds at once (16-byte copies if
+// vec).
+extern "C" int vsc_fused_topk_occupancy(int device, int vec,
+                                        int* blocks_per_sm) {
+  return vsc::reduce::resident_blocks<TopK, float>(
+      device, vec, smem_set_bytes(kSmemKappaMax), blocks_per_sm);
+}
+
+// The same for the bf16 variant (16-byte loads if vec).
+extern "C" int vsc_fused_topk_bf16_occupancy(int device, int vec,
+                                             int* blocks_per_sm) {
+  return vsc::reduce::resident_blocks<TopK, __nv_bfloat16>(
+      device, vec, smem_set_bytes(kSmemKappaMax), blocks_per_sm);
+}
+
+// q [m, d], refs [n, d] f32 row-major on the device; out_v / out_i are
+// [m, pieces, kappa]. `grid` persistent blocks (one wave: SMs x
+// vsc_fused_topk_occupancy, at most the work items) and `vec` as for
+// vsc_row_max; `pieces` is S for that grid (ops/kernels.py:topk_pieces),
+// 1 when there is no work item. Returns cudaGetLastError() after the
+// launches.
+extern "C" int vsc_fused_topk(int device, const float* q, const float* refs,
+                              int m, int n, int d, int n_valid, int kappa,
+                              int vec, int grid, int pieces, float* out_v,
+                              int* out_i, void* stream) {
+  return run_fused_topk(device, q, refs, m, n, d, n_valid, kappa, vec, grid,
+                        pieces, out_v, out_i, stream);
+}
+
+// The bf16 variant: q and refs bf16, the rest as vsc_fused_topk.
+extern "C" int vsc_fused_topk_bf16(int device, const __nv_bfloat16* q,
+                                   const __nv_bfloat16* refs, int m, int n,
+                                   int d, int n_valid, int kappa, int vec,
+                                   int grid, int pieces, float* out_v,
+                                   int* out_i, void* stream) {
+  return run_fused_topk(device, q, refs, m, n, d, n_valid, kappa, vec, grid,
+                        pieces, out_v, out_i, stream);
 }

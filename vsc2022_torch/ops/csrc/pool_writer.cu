@@ -15,6 +15,17 @@
 // shuffles right after the product; the [M, N] scores never reach device
 // memory. Blocks walk the row tiles fastest, so consecutive blocks reuse
 // the same 256 KB refs segment out of L2.
+//
+// The bf16 variant (vsc_pool_writer_bf16) replaces the Pallas kernels' bf16
+// branch (pallas_kernels.py:228-230 and :389-391: bf16 operands in one
+// native pass, f32 accumulation), which the JAX searcher takes over a bf16
+// corpus and pool_writer(precision="default") takes by rounding f32 inputs.
+// Bound: operations, 2*M*N*D; against the bf16 tensor-core peak (989
+// TFLOP/s) its share is low by design: the operands are widened to f32 as
+// they are staged (tile_gemm.cuh) and the f32 kernel's fmaf chain runs on
+// them, so its pool is the f32 kernel's on the widened inputs bit for bit,
+// and the bf16 row_max, count_above and fused_topk see the same scores. The
+// refs move half the bytes.
 #include <climits>
 
 #include "segment_top2.cuh"
@@ -23,9 +34,10 @@ using namespace vsc;
 
 namespace {
 
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-    pool_writer_kernel(const float* __restrict__ q,
-                       const float* __restrict__ refs, int m, int n, int d,
+    pool_writer_kernel(const T* __restrict__ q,
+                       const T* __restrict__ refs, int m, int n, int d,
                        int n_valid, int n_row_tiles, float* __restrict__ out_v,
                        int* __restrict__ out_i) {
   __shared__ TileSmem sm;
@@ -54,6 +66,22 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <class T>
+int run_pool_writer(int device, const T* q, const T* refs, int m, int n,
+                    int d, int n_valid, float* out_v, int* out_i,
+                    void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int n_row_tiles = (m + BM - 1) / BM;
+  const long long blocks = (long long)n_row_tiles * (n / BN);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  pool_writer_kernel<T><<<(unsigned)blocks, THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      q, refs, m, n, d, n_valid, n_row_tiles, out_v, out_i);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q [m, d], refs [n, d] (n a multiple of 128), both f32 row-major on the
@@ -61,14 +89,15 @@ __global__ void __launch_bounds__(THREADS)
 extern "C" int vsc_pool_writer(int device, const float* q, const float* refs,
                                int m, int n, int d, int n_valid, float* out_v,
                                int* out_i, void* stream) {
-  if (m <= 0 || n <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int n_row_tiles = (m + BM - 1) / BM;
-  const long long blocks = (long long)n_row_tiles * (n / BN);
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  pool_writer_kernel<<<(unsigned)blocks, THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      q, refs, m, n, d, n_valid, n_row_tiles, out_v, out_i);
-  return (int)cudaGetLastError();
+  return run_pool_writer(device, q, refs, m, n, d, n_valid, out_v, out_i,
+                         stream);
+}
+
+// The bf16 variant: q and refs bf16, the rest as vsc_pool_writer.
+extern "C" int vsc_pool_writer_bf16(int device, const __nv_bfloat16* q,
+                                    const __nv_bfloat16* refs, int m, int n,
+                                    int d, int n_valid, float* out_v,
+                                    int* out_i, void* stream) {
+  return run_pool_writer(device, q, refs, m, n, d, n_valid, out_v, out_i,
+                         stream);
 }

@@ -16,6 +16,17 @@
 // tiles (256 FMAs for 16 shared loads), so the FMAs, not the shared-memory
 // reads or the fill, bound the inner loop. Its scores are pool_writer's bit
 // for bit: the row max equals the pool's best winner.
+//
+// The bf16 variant (vsc_row_max_bf16) is the noise-NN over a bf16 corpus
+// (score_norm(dtype="bfloat16") and the serving bias): fused_row_max has no
+// bf16 branch, and the JAX searcher computes it with XLA on bf16 operands
+// with f32 accumulation (similarity.py:271), as the Pallas pool_writer's
+// bf16 branch does the pool (pallas_kernels.py:228-230). Bound: operations,
+// 2*M*N*D; against the bf16 tensor-core peak (989 TFLOP/s) its share is low
+// by design, since it runs the f32 kernel's CUDA-core fmaf chain on the
+// widened operands (reduce_gemm.cuh), so its scores equal the f32 kernel's
+// on the widened inputs, and those of the other three bf16 kernels, bit for
+// bit. The operands move half the bytes; their loads go through registers.
 #include "reduce_gemm.cuh"
 
 using namespace vsc;
@@ -57,22 +68,10 @@ struct RowMax {
   }
 };
 
-}  // namespace
-
-// Blocks of the row_max kernel one SM holds at once (16-byte copies if vec).
-extern "C" int vsc_row_max_occupancy(int device, int vec, int* blocks_per_sm) {
-  return reduce::resident_blocks<reduce::RowFold<RowMax>>(device, vec, 0,
-                                                         blocks_per_sm);
-}
-
-// q [m, d], refs [n, d] f32 row-major on the device; keys is [m] uint32
-// scratch, out is [m] f32. `grid` persistent blocks (one wave: SMs x
-// vsc_row_max_occupancy, at most the work items); vec selects the 16-byte
-// copies (d % 4 == 0, both bases 16-byte aligned).
-extern "C" int vsc_row_max(int device, const float* q, const float* refs,
-                           int m, int n, int d, int n_valid, int vec,
-                           int grid, unsigned* keys, float* out,
-                           void* stream) {
+template <class T>
+int run_row_max(int device, const T* q, const T* refs, int m, int n, int d,
+                int n_valid, int vec, int grid, unsigned* keys, float* out,
+                void* stream) {
   if (m <= 0) return 0;
   if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -85,4 +84,41 @@ extern "C" int vsc_row_max(int device, const float* q, const float* refs,
   if (err != cudaSuccess) return (int)err;
   keys_to_f32<<<fill_blocks, 256, 0, s>>>(keys, out, m);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Blocks of the row_max kernel one SM holds at once (16-byte copies if vec).
+extern "C" int vsc_row_max_occupancy(int device, int vec, int* blocks_per_sm) {
+  return reduce::resident_blocks<reduce::RowFold<RowMax>, float>(
+      device, vec, 0, blocks_per_sm);
+}
+
+// The same for the bf16 variant (16-byte loads if vec).
+extern "C" int vsc_row_max_bf16_occupancy(int device, int vec,
+                                          int* blocks_per_sm) {
+  return reduce::resident_blocks<reduce::RowFold<RowMax>, __nv_bfloat16>(
+      device, vec, 0, blocks_per_sm);
+}
+
+// q [m, d], refs [n, d] f32 row-major on the device; keys is [m] uint32
+// scratch, out is [m] f32. `grid` persistent blocks (one wave: SMs x
+// vsc_row_max_occupancy, at most the work items); vec selects the 16-byte
+// copies (d % 4 == 0, both bases 16-byte aligned).
+extern "C" int vsc_row_max(int device, const float* q, const float* refs,
+                           int m, int n, int d, int n_valid, int vec,
+                           int grid, unsigned* keys, float* out,
+                           void* stream) {
+  return run_row_max(device, q, refs, m, n, d, n_valid, vec, grid, keys, out,
+                     stream);
+}
+
+// The bf16 variant: q and refs bf16 (d % 8 == 0 and both bases 16-byte
+// aligned for vec), the rest as vsc_row_max.
+extern "C" int vsc_row_max_bf16(int device, const __nv_bfloat16* q,
+                                const __nv_bfloat16* refs, int m, int n,
+                                int d, int n_valid, int vec, int grid,
+                                unsigned* keys, float* out, void* stream) {
+  return run_row_max(device, q, refs, m, n, d, n_valid, vec, grid, keys, out,
+                     stream);
 }

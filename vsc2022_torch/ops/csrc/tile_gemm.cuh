@@ -15,9 +15,14 @@
 // corpus count and the row max see bit-identical scores for the same
 // (query, ref) pair.
 //
+// The operands are f32 or bf16 (the bf16 pool_writer): bf16 values are
+// widened to f32 as they are staged into shared memory (exact), so the bf16
+// kernel's scores equal the f32 kernel's on the widened inputs bit for bit.
+//
 // Simple first: no cp.async, TMA or wgmma, one shared-memory stage.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -37,11 +42,17 @@ struct __align__(16) TileSmem {
   float b[BK][BN + 4];  // refs tile, transposed: b[k][col]
 };
 
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 // acc[r][c] = sum_k q[row0 + 8*warp + r][k] * refs[col0 + 4*lane + c][k].
 // Rows >= m and columns >= n read as zeros. Every thread of the block must
-// call this (it synchronizes the block).
+// call this (it synchronizes the block). T: float or __nv_bfloat16.
+template <class T>
 __device__ __forceinline__ void tile_product(
-    const float* __restrict__ q, const float* __restrict__ refs, int m, int n,
+    const T* __restrict__ q, const T* __restrict__ refs, int m, int n,
     int d, int row0, int col0, TileSmem& sm,
     float acc[ROWS_PER_WARP][COLS_PER_LANE]) {
   const int tid = threadIdx.x;
@@ -58,14 +69,14 @@ __device__ __forceinline__ void tile_product(
       const int e = tid + i * THREADS;
       const int r = e / BK, kk = e % BK;
       const int gr = row0 + r, gk = k0 + kk;
-      sm.a[kk][r] = (gr < m && gk < d) ? q[(size_t)gr * d + gk] : 0.f;
+      sm.a[kk][r] = (gr < m && gk < d) ? widen(q[(size_t)gr * d + gk]) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < (BN * BK) / THREADS; ++i) {
       const int e = tid + i * THREADS;
       const int c = e / BK, kk = e % BK;
       const int gc = col0 + c, gk = k0 + kk;
-      sm.b[kk][c] = (gc < n && gk < d) ? refs[(size_t)gc * d + gk] : 0.f;
+      sm.b[kk][c] = (gc < n && gk < d) ? widen(refs[(size_t)gc * d + gk]) : 0.f;
     }
     __syncthreads();
 #pragma unroll

@@ -16,6 +16,16 @@ and comes with:
   * a launch count in ``launches``, bumped by the wrapper where it
     launches its kernel and nowhere else.
 
+The four retrieval kernels take f32 or bf16 operands (q and refs of one
+dtype; the outputs stay f32 / int32). A bf16 pair launches the kernel's
+bf16 variant, counted under ``<name>.bf16``: the counterpart of the
+Pallas kernels' bf16 branch (one bf16 pass, f32 accumulation). It widens
+the operands to f32 and runs the f32 kernel's arithmetic, so its scores
+equal the f32 kernel's on the widened inputs bit for bit; a bf16 CUDA
+tensor never reaches the f32 kernel. The plain versions widen bf16 inputs
+to f32 before ``torch.matmul`` (whose bf16 product would round every
+score to bf16).
+
 The source notes in ``ops/csrc/*.cu`` say which TPU kernel each one
 replaces, what bounds it on an H100 and what its design does about it.
 """
@@ -41,9 +51,13 @@ PLAIN_CHUNK_ELEMENTS = 1 << 27
 # Ceiling on fused_topk's [M, S, κ] output: large κ takes a smaller grid.
 TOPK_SCRATCH_BYTES = 1 << 30
 
+# The retrieval kernels, each with a bf16 variant.
+RETRIEVAL_KERNELS = ("row_max", "count_above", "pool_writer", "fused_topk")
+BF16 = ".bf16"  # suffix of a bf16 variant's launch count
+
 launches: Dict[str, int] = {
-    "row_max": 0, "count_above": 0, "pool_writer": 0, "fused_topk": 0,
-    "chamfer": 0,
+    **{name: 0 for name in RETRIEVAL_KERNELS}, "chamfer": 0,
+    **{name + BF16: 0 for name in RETRIEVAL_KERNELS},
 }
 
 
@@ -66,10 +80,12 @@ def row_max_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Te
     out = torch.full((m,), float("-inf"), dtype=torch.float32, device=q.device)
     if n_valid == 0:
         return out
-    r = refs[:n_valid]
+    r = refs[:n_valid].float()  # bf16 widens (exactly); f32 is returned as is
     step = _row_chunk(n_valid)
     for start in range(0, m, step):
-        out[start : start + step] = torch.matmul(q[start : start + step], r.T).amax(1)
+        out[start : start + step] = torch.matmul(
+            q[start : start + step].float(), r.T
+        ).amax(1)
     return out
 
 
@@ -81,10 +97,10 @@ def count_above_plain(
     out = torch.zeros((m,), dtype=torch.int32, device=q.device)
     if n_valid == 0:
         return out
-    r = refs[:n_valid]
+    r = refs[:n_valid].float()
     step = _row_chunk(n_valid)
     for start in range(0, m, step):
-        s = torch.matmul(q[start : start + step], r.T)
+        s = torch.matmul(q[start : start + step].float(), r.T)
         out[start : start + step] = (s >= tau).sum(1, dtype=torch.int32)
     return out
 
@@ -109,9 +125,10 @@ def pool_writer_plain(
     ids = torch.empty((m, n_seg, SEG_KEEP), dtype=torch.int32, device=q.device)
     lanes = torch.arange(SEG_LANES, dtype=torch.int16, device=q.device)
     seg_base = torch.arange(n_seg, dtype=torch.int32, device=q.device) * SEG_LANES
+    refs = refs.float()
     step = _row_chunk(n)
     for start in range(0, m, step):
-        s = torch.matmul(q[start : start + step], refs.T)
+        s = torch.matmul(q[start : start + step].float(), refs.T)
         s[:, n_valid:] = float("-inf")
         s3 = s.view(s.shape[0], n_seg, SEG_LANES)
         m1, a1 = _first_max(s3, lanes)
@@ -189,11 +206,16 @@ def chamfer_fine_sims_plain(
 # ---- wrappers --------------------------------------------------------------
 
 
+_OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> None:
     if q.device != refs.device:
         raise ValueError(f"q on {q.device}, refs on {refs.device}")
-    if q.dtype != torch.float32 or refs.dtype != torch.float32:
-        raise TypeError(f"f32 only: got {q.dtype} and {refs.dtype}")
+    if q.dtype not in _OPERAND_DTYPES or refs.dtype not in _OPERAND_DTYPES:
+        raise TypeError(f"f32 or bf16 only: got {q.dtype} and {refs.dtype}")
+    if q.dtype != refs.dtype:
+        raise TypeError(f"q and refs must share a dtype: got {q.dtype} and {refs.dtype}")
     if q.dim() != 2 or refs.dim() != 2 or q.shape[1] != refs.shape[1]:
         raise ValueError(f"shapes {tuple(q.shape)} and {tuple(refs.shape)}")
     if not 0 <= n_valid <= refs.shape[0]:
@@ -214,6 +236,14 @@ def _stream(t: torch.Tensor) -> int:
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {rc})")
+
+
+def _variant(name: str, q: torch.Tensor) -> Tuple[str, str]:
+    """(launch-count key, C name) of kernel ``name`` for q's dtype: the
+    bf16 variant for bf16 operands."""
+    if q.dtype == torch.bfloat16:
+        return name + BF16, f"{name}_bf16"
+    return name, name
 
 
 # ---- the persistent schedule of row_max, count_above and fused_topk -------
@@ -280,8 +310,8 @@ _resident: Dict[Tuple[str, int, int], int] = {}
 
 
 def _reduce_slots(t: torch.Tensor, name: str, vec: int) -> int:
-    """Blocks of kernel ``name`` the card holds at once: SMs × resident
-    blocks per SM."""
+    """Blocks of kernel ``name`` (its C name, e.g. ``row_max_bf16``) the
+    card holds at once: SMs × resident blocks per SM."""
     key = (name, t.device.index, vec)
     if key not in _resident:
         blocks = ctypes.c_int(0)
@@ -298,13 +328,17 @@ def _reduce_slots(t: torch.Tensor, name: str, vec: int) -> int:
 
 def _reduce_plan(name: str, q: torch.Tensor, refs: torch.Tensor,
                  n_valid: int) -> Tuple[int, int]:
-    """(vec, grid) of a reduce_gemm.cuh launch: 16-byte copies when
-    D % 4 == 0 and both bases are 16-byte aligned, 4-byte copies
-    otherwise; one wave of blocks (0 when there is no work item)."""
+    """(vec, grid) of a reduce_gemm.cuh launch of kernel ``name`` (its C
+    name): 16-byte copies when a row is a whole number of 16-byte pieces
+    (D % 4 == 0 in f32, D % 8 == 0 in bf16) and both bases are 16-byte
+    aligned; 4-byte copies (f32) or 2-byte loads (bf16) otherwise. One
+    wave of blocks (0 when there is no work item)."""
     m, d = q.shape
     if d == 0:
         raise ValueError(f"{name}: the kernel takes D >= 1")
-    vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0 and refs.data_ptr() % 16 == 0)
+    per_16_bytes = 16 // q.element_size()
+    vec = int(d % per_16_bytes == 0 and q.data_ptr() % 16 == 0
+              and refs.data_ptr() % 16 == 0)
     if n_valid == 0:
         return vec, 0
     return vec, reduce_grid(m, n_valid, _reduce_slots(q, name, vec))
@@ -320,14 +354,15 @@ def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
     out = torch.empty((m,), dtype=torch.float32, device=q.device)
     if m == 0:
         return out
-    vec, grid = _reduce_plan("row_max", q, refs, n_valid)
+    key, cname = _variant("row_max", q)
+    vec, grid = _reduce_plan(cname, q, refs, n_valid)
     keys = torch.empty((m,), dtype=torch.int32, device=q.device)
-    rc = _build.library().vsc_row_max(
+    rc = getattr(_build.library(), f"vsc_{cname}")(
         q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0], d,
         n_valid, vec, grid, keys.data_ptr(), out.data_ptr(), _stream(q),
     )
-    _raise_on(rc, "row_max")
-    launches["row_max"] += 1
+    _raise_on(rc, cname)
+    launches[key] += 1
     return out
 
 
@@ -344,13 +379,14 @@ def count_above(
     out = torch.empty((m,), dtype=torch.int32, device=q.device)
     if m == 0:
         return out
-    vec, grid = _reduce_plan("count_above", q, refs, n_valid)
-    rc = _build.library().vsc_count_above(
+    key, cname = _variant("count_above", q)
+    vec, grid = _reduce_plan(cname, q, refs, n_valid)
+    rc = getattr(_build.library(), f"vsc_{cname}")(
         q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0], d,
         float(tau), n_valid, vec, grid, out.data_ptr(), _stream(q),
     )
-    _raise_on(rc, "count_above")
-    launches["count_above"] += 1
+    _raise_on(rc, cname)
+    launches[key] += 1
     return out
 
 
@@ -372,12 +408,13 @@ def pool_writer(
     ids = torch.empty(shape, dtype=torch.int32, device=q.device)
     if vals.numel() == 0:
         return vals, ids
-    rc = _build.library().vsc_pool_writer(
+    key, cname = _variant("pool_writer", q)
+    rc = getattr(_build.library(), f"vsc_{cname}")(
         q.device.index, q.data_ptr(), refs.data_ptr(), m, n, d, n_valid,
         vals.data_ptr(), ids.data_ptr(), _stream(q),
     )
-    _raise_on(rc, "pool_writer")
-    launches["pool_writer"] += 1
+    _raise_on(rc, cname)
+    launches[key] += 1
     return vals, ids
 
 
@@ -399,17 +436,18 @@ def fused_topk(
     if m == 0:
         return (torch.empty((0, kappa), dtype=torch.float32, device=q.device),
                 torch.empty((0, kappa), dtype=torch.int32, device=q.device))
-    vec, grid = _reduce_plan("fused_topk", q, refs, n_valid)
+    key, cname = _variant("fused_topk", q)
+    vec, grid = _reduce_plan(cname, q, refs, n_valid)
     grid, pieces = topk_grid(m, n_valid, kappa, grid)
     out_v = torch.empty((m, pieces * kappa), dtype=torch.float32, device=q.device)
     out_i = torch.empty((m, pieces * kappa), dtype=torch.int32, device=q.device)
-    rc = _build.library().vsc_fused_topk(
+    rc = getattr(_build.library(), f"vsc_{cname}")(
         q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0], d,
         n_valid, kappa, vec, grid, pieces, out_v.data_ptr(), out_i.data_ptr(),
         _stream(q),
     )
-    _raise_on(rc, "fused_topk")
-    launches["fused_topk"] += 1
+    _raise_on(rc, cname)
+    launches[key] += 1
     return ordered_topk(out_v, out_i, kappa)
 
 

@@ -1,10 +1,10 @@
 """Exact brute-force similarity search over a staged reference matrix.
 
 Counterpart of ``vsc2022_tpu/ops/similarity.py``: ``SimilaritySearcher``
-with ``metric="IP"``, ``dtype="float32"`` and ``precision="highest"``.
-It ports the contracts, not the TPU machinery. ``global_topk`` collects
-candidates in one of the JAX searcher's two modes, routed as it routes
-them (``_collection_mode``):
+with ``metric="IP"``, ``precision="highest"`` and ``dtype`` "float32" or
+"bfloat16". It ports the contracts, not the TPU machinery.
+``global_topk`` collects candidates in one of the JAX searcher's two
+modes, routed as it routes them (``_collection_mode``):
 
 * **stream** (corpora under ``POOL_MIN_CORPUS`` rows, or a pool over its
   memory budget): the ``fused_topk`` kernel gives each query row its
@@ -39,6 +39,12 @@ The corpus stages as the JAX searcher stages it: zero rows pad it to a
 multiple of ``min(COL_BLOCK, N rounded up to 128)``, so the routing sees
 the same padded sizes. ``append_rows`` and ``keep_rows`` grow and compact
 it on the device onto exactly the layout a fresh stage gives.
+
+``dtype="bfloat16"`` stages the corpus, and every query, in bf16 rounded
+to nearest even (as ``ml_dtypes`` rounds for the JAX searcher): half the
+device memory and bytes moved. Scores are bf16 × bf16 products with f32
+accumulation, from the kernels' bf16 variants; the re-searches and
+``row_topk`` widen both sides to f32 before ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -84,6 +90,22 @@ def _ceil_to(x: int, m: int) -> int:
 def _host_f32(x) -> np.ndarray:
     """A C-contiguous, writable f32 copy-if-needed of a host array."""
     return np.require(x, np.float32, ["C_CONTIGUOUS", "WRITEABLE"])
+
+
+# The storage dtypes ported so far, by name (int8 storage is not yet).
+STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _max_row_norm(rows: torch.Tensor) -> float:
+    """The largest L2 row norm, taken in f32 (a bf16 tensor's own norm is
+    bf16), chunked so that no f32 copy of a large bf16 corpus is made."""
+    if rows.shape[0] == 0:
+        return 0.0
+    step = max(1, PLAIN_CHUNK_ELEMENTS // max(rows.shape[1], 1))
+    return max(
+        float(rows[i : i + step].float().norm(dim=1).max())
+        for i in range(0, rows.shape[0], step)
+    )
 
 
 def _col_block(n_rows: int) -> int:
@@ -141,11 +163,13 @@ def _empty_result():
 class SimilaritySearcher:
     """Brute-force inner-product searcher over a fixed reference matrix.
 
-    The references are staged to ``device`` once, zero-padded to a
-    multiple of min(COL_BLOCK, N rounded up to 128) rows, as the JAX
-    searcher pads them; ``n_refs`` rows are valid. ``metric``,
-    ``precision`` and ``dtype`` take only the values ported so far and
-    raise on the others.
+    The references are staged to ``device`` once, in ``dtype``
+    ("float32" or "bfloat16"), zero-padded to a multiple of min(COL_BLOCK,
+    N rounded up to 128) rows, as the JAX searcher pads them; ``n_refs``
+    rows are valid. ``metric`` and ``precision`` take only the values
+    ported so far ("IP", "highest") and raise on the others; so does
+    ``dtype="int8"``. ``precision="default"`` keeps raising: the JAX
+    searcher leaves it to XLA, whose result depends on the backend.
     """
 
     def __init__(
@@ -164,25 +188,31 @@ class SimilaritySearcher:
             raise NotImplementedError(
                 f"precision={precision!r} is not ported yet (full f32 only)"
             )
-        if dtype != "float32":
+        if dtype not in STORAGE_DTYPES:
             raise NotImplementedError(
-                f"dtype={dtype!r} storage is not ported yet (float32 only)"
+                f"dtype={dtype!r} storage is not ported yet "
+                "(float32 and bfloat16 only)"
             )
         self.metric = metric
         self.precision = precision
         self.dtype = dtype
+        # Corpus and query staging dtype; the kernels' variant follows it.
+        self.torch_dtype = STORAGE_DTYPES[dtype]
         self.device = resolve_device(device)
         refs_t = torch.from_numpy(_host_f32(refs))
         if refs_t.dim() != 2:
             raise ValueError(f"refs must be [N, D]; got {tuple(refs_t.shape)}")
         self.n_refs, self.dim = refs_t.shape
-        self._refs = torch.zeros(
-            (self._padded_refs(self.n_refs), self.dim),
-            dtype=torch.float32, device=self.device,
-        )
+        self._refs = self._zeros(self._padded_refs(self.n_refs))
+        # Rounded to bf16 (nearest even) on the device, in the copy.
         self._refs[: self.n_refs] = refs_t.to(self.device)
-        self._ref_norm_max = float(self._refs.norm(dim=1).max())
+        self._ref_norm_max = _max_row_norm(self._refs)
         self.last_stats: dict = {}
+
+    def _zeros(self, n_rows: int) -> torch.Tensor:
+        return torch.zeros(
+            (n_rows, self.dim), dtype=self.torch_dtype, device=self.device
+        )
 
     @staticmethod
     def _padded_refs(n_rows: int) -> int:
@@ -202,16 +232,12 @@ class SimilaritySearcher:
         n_pad = self._padded_refs(total)
         refs = self._refs
         if n_pad > refs.shape[0]:
-            refs = torch.zeros(
-                (n_pad, self.dim), dtype=torch.float32, device=self.device
-            )
+            refs = self._zeros(n_pad)
             refs[: self.n_refs] = self._refs[: self.n_refs]
-        new = new.to(self.device)
-        refs[self.n_refs : total] = new
-        if new.shape[0]:
-            self._ref_norm_max = max(
-                self._ref_norm_max, float(new.norm(dim=1).max())
-            )
+        refs[self.n_refs : total] = new.to(self.device)
+        self._ref_norm_max = max(
+            self._ref_norm_max, _max_row_norm(refs[self.n_refs : total])
+        )
         self._refs, self.n_refs = refs, total
 
     def keep_rows(self, keep_idx) -> None:
@@ -221,27 +247,25 @@ class SimilaritySearcher:
         fresh stage of the survivors gives, zero padding included."""
         keep_idx = _check_keep_idx(keep_idx, self.n_refs)
         total = int(keep_idx.size)
-        refs = torch.zeros(
-            (self._padded_refs(total), self.dim),
-            dtype=torch.float32, device=self.device,
-        )
+        refs = self._zeros(self._padded_refs(total))
         idx = torch.from_numpy(keep_idx).to(self.device)
         refs[:total] = self._refs.index_select(0, idx)
         self._refs, self.n_refs = refs, total
-        self._ref_norm_max = float(refs.norm(dim=1).max())
+        self._ref_norm_max = _max_row_norm(refs)
 
     def _stage_queries(self, queries) -> torch.Tensor:
-        """The queries on the device as contiguous f32; a tensor already
-        there (e.g. bias-augmented queries) passes through."""
+        """The queries on the device as contiguous rows of the staged
+        dtype (bf16 rounds to nearest even); a tensor already there (e.g.
+        bias-augmented queries) passes through."""
         if isinstance(queries, torch.Tensor):
-            q = queries.to(device=self.device, dtype=torch.float32)
+            q = queries
         else:
             q = torch.from_numpy(_host_f32(queries))
         if q.dim() != 2 or q.shape[1] != self.dim:
             raise ValueError(
                 f"queries must be [M, {self.dim}]; got {tuple(q.shape)}"
             )
-        return q.to(self.device).contiguous()
+        return q.to(self.device).to(self.torch_dtype).contiguous()
 
     def _row_chunk(self) -> int:
         return max(1, PLAIN_CHUNK_ELEMENTS // max(self.n_refs, 1))
@@ -256,14 +280,14 @@ class SimilaritySearcher:
 
     def row_topk(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Exact per-row top-k: (scores [Nq, k], idx [Nq, k]), best-first,
-        ties to the lower index (a chunked ``torch.matmul`` plus a stable
-        sort)."""
+        ties to the lower index (a chunked ``torch.matmul`` in f32, bf16
+        rows widened, plus a stable sort)."""
         k = min(k, self.n_refs)
-        q = self._stage_queries(queries)
+        q = self._stage_queries(queries).float()
         nq = q.shape[0]
         out_s = np.empty((nq, k), dtype=np.float32)
         out_i = np.empty((nq, k), dtype=np.int64)
-        refs = self._refs[: self.n_refs]
+        refs = self._refs[: self.n_refs].float()
         step = self._row_chunk()
         for start in range(0, nq, step):
             s = torch.matmul(q[start : start + step], refs.T)
@@ -290,9 +314,13 @@ class SimilaritySearcher:
         may round the same (q, r) product differently. Two f32 sums of D
         products differ by at most 2·D·u·‖q‖·‖r‖ (u = 2⁻²⁴), so entries are
         kept down to that margin below τ: no entry the kernels scored ≥ τ
-        is lost, and the exact final cut drops the surplus.
+        is lost, and the exact final cut drops the surplus. A bf16 corpus
+        and its queries are widened to f32 first: a product of two bf16
+        values is exact in f32, in the kernels as here, so the two sums
+        differ only in their order and the same margin covers them.
         """
-        refs = self._refs[: self.n_refs]
+        refs = self._refs[: self.n_refs].float()
+        q_rows = q_rows.float()
         slack = self.dim * float(torch.finfo(torch.float32).eps) * self._ref_norm_max
         parts_s, parts_q, parts_r = [], [], []
         step = self._row_chunk()

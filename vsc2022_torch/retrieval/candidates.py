@@ -67,10 +67,13 @@ class CandidateGeneration:
         self,
         references: List[VideoFeature],
         aggregation: ScoreAggregation,
+        dtype: str = "float32",
         device: DeviceLike = "cuda",
     ):
         self.aggregation = aggregation
-        self.index = VideoIndex(references[0].dimensions(), device=device)
+        self.index = VideoIndex(
+            references[0].dimensions(), dtype=dtype, device=device
+        )
         self.index.add(references)
 
     def query(

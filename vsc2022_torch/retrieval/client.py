@@ -10,27 +10,36 @@ JAX. Two ways in:
     with ServeClient.spawn("refs.npz", score_norm_features="noise.npz",
                            matches=True, device="cpu") as client:
         result = client.search("queries.npz")
-        pairs = CandidatePair.read_csv(result.candidates_csv)
+        pairs = result.candidates()          # List[CandidatePair]
         client.add("more_refs.npz")
+        found = client.search_features(queries)  # in-band: no shared paths
 
     # Or attach to a running --listen server:
     with ServeClient.connect("127.0.0.1", 7845) as client:
         ...
 
-One request at a time per client: the protocol is strictly request and
-response. Concurrent callers open one connection each to a ``--listen``
-server, whose sessions interleave under its device lock.
+The typed API is the JAX client's (``search`` / ``SearchResult.candidates``
+and ``.matches``, the in-band ``search_features``, ``add_features`` and
+``snapshot``, ``add`` / ``remove`` / ``save`` / ``stats``); ``search_bytes``
+(CSV bytes as they come) and ``launches`` (the kernel launch counts) are
+the port's own. One request at a time per client: the protocol is strictly
+request and response. Concurrent callers open one connection each to a
+``--listen`` server, whose sessions interleave under its device lock.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import os
 import signal
 import subprocess
 import sys
 from typing import List, Optional, Sequence, Tuple
+
+from vsc2022_torch.metrics import CandidatePair, Dataset, Match
+from vsc2022_torch.storage import load_features, store_features
 
 
 class ServeError(RuntimeError):
@@ -45,6 +54,24 @@ class SearchResult:
     n_candidates: int
     matches_csv: Optional[str]
     n_matches: Optional[int]
+    seconds: float
+
+    def candidates(self) -> List[CandidatePair]:
+        return CandidatePair.read_csv(self.candidates_csv)
+
+    def matches(self) -> List[Match]:
+        if self.matches_csv is None:
+            raise ValueError("server ran without --matches: no matches CSV to read")
+        return Match.read_csv(self.matches_csv)
+
+
+@dataclasses.dataclass
+class InbandSearchResult:
+    """One answered in-band search (``search_features``): the parsed
+    result objects, no filesystem on either side."""
+
+    candidates: List[CandidatePair]
+    matches: Optional[List[Match]]
     seconds: float
 
 
@@ -102,6 +129,10 @@ class ServeClient:
         score_norm_features: Optional[str] = None,
         ref_fine_features: Optional[str] = None,
         matches: bool = False,
+        bf16: bool = False,
+        f32: bool = False,
+        vcsl_faithful_tn: bool = False,
+        no_warmup: bool = False,
         device: str = "cuda",
         extra_args: Sequence[str] = (),
         env=None,
@@ -109,22 +140,25 @@ class ServeClient:
         stderr=None,
     ) -> "ServeClient":
         """Start ``python -m vsc2022_torch.retrieval.serve`` as a child
-        process and attach over its stdin/stdout, with ``--f32`` (required
-        until bf16 serving is ported). Keyword flags mirror the server's;
-        anything else goes through ``extra_args``. The child
+        process and attach over its stdin/stdout. Keyword flags mirror the
+        server's (with neither ``bf16`` nor ``f32`` it stages bf16, its
+        default); anything else goes through ``extra_args``. The child
         ends with the client (``close`` sends ``quit``) and is killed if
         the calling process dies."""
         cmd = [
             sys.executable, "-m", "vsc2022_torch.retrieval.serve",
             "--ref_features", os.path.abspath(ref_features),
-            "--device", device, "--f32",
+            "--device", device,
         ]
         if score_norm_features:
             cmd += ["--score_norm_features", os.path.abspath(score_norm_features)]
         if ref_fine_features:
             cmd += ["--ref_fine_features", os.path.abspath(ref_fine_features)]
-        if matches:
-            cmd.append("--matches")
+        for flag, on in (("--matches", matches), ("--bf16", bf16), ("--f32", f32),
+                         ("--vcsl_faithful_tn", vcsl_faithful_tn),
+                         ("--no_warmup", no_warmup)):
+            if on:
+                cmd.append(flag)
         cmd += list(extra_args)
         proc = subprocess.Popen(
             cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
@@ -172,7 +206,7 @@ class ServeClient:
         return int(parts[1]), float(parts[2])
 
     def _rpc(self, line: str, blobs: Sequence[bytes] = ()) -> List[str]:
-        self._wfile.write((line + "\n").encode("utf-8"))
+        self._write_line(line)
         for blob in blobs:
             self._wfile.write(blob)
         self._wfile.flush()
@@ -191,6 +225,18 @@ class ServeClient:
         if len(blob) != n:
             raise ServeError(f"short server payload: {len(blob)} of {n} bytes")
         return blob
+
+    def _write_line(self, line: str) -> None:
+        self._wfile.write((line + "\n").encode("utf-8"))
+
+    @staticmethod
+    def _npz_bytes(features, dataset: Dataset) -> bytes:
+        """npz bytes of a list of VideoFeature or a {video_id: feature} dict."""
+        if isinstance(features, dict):
+            features = features.values()
+        buf = io.BytesIO()
+        store_features(buf, list(features), dataset)
+        return buf.getvalue()
 
     # -- requests ----------------------------------------------------
 
@@ -233,6 +279,46 @@ class ServeClient:
             return BytesSearchResult(cand, int(parts[0]), found, int(parts[2]),
                                      float(parts[4]))
         return BytesSearchResult(cand, int(parts[0]), None, None, float(parts[2]))
+
+    def search_features(self, queries, *, queries_fine=None) -> InbandSearchResult:
+        """Search a list of VideoFeature directly: the query npz bytes go
+        on the wire (``searchb``) and the CSVs come back the same way,
+        parsed. DnS servers need ``queries_fine`` (list or dict)."""
+        fine = None if queries_fine is None else self._npz_bytes(
+            queries_fine, Dataset.QUERIES)
+        res = self.search_bytes(self._npz_bytes(queries, Dataset.QUERIES), fine)
+        return InbandSearchResult(
+            candidates=CandidatePair.read_csv(io.StringIO(res.candidates_csv.decode())),
+            matches=None if res.matches_csv is None
+            else Match.read_csv(io.StringIO(res.matches_csv.decode())),
+            seconds=res.seconds,
+        )
+
+    def add_features(self, refs, refs_fine=None) -> int:
+        """Grow the served corpus from VideoFeature lists directly (``addb``:
+        the npz bytes go on the wire); returns the number of videos added.
+        DnS servers need the matching fine features (list or dict)."""
+        blobs = [self._npz_bytes(refs, Dataset.REFS)]
+        if refs_fine is not None:
+            blobs.append(self._npz_bytes(refs_fine, Dataset.REFS))
+        parts = self._rpc("\t".join(["addb"] + [str(len(b)) for b in blobs]),
+                          blobs=blobs)
+        if parts[0] != "added":
+            raise ServeError(f"unexpected addb reply: {parts!r}")
+        return int(parts[1])
+
+    def snapshot(self):
+        """The served corpus (after any adds and removes) as VideoFeature
+        lists (``saveb``: the npz bytes come back on the wire): (refs, fine
+        refs or None)."""
+        parts = self._rpc("saveb")
+        # okb\t<n_videos>\t<coarse_len>[\t<fine_len>]\t<seconds>
+        refs = load_features(io.BytesIO(self._read_blob(int(parts[1]))), Dataset.REFS)
+        fine = None
+        if len(parts) >= 4:
+            fine = load_features(io.BytesIO(self._read_blob(int(parts[2]))),
+                                 Dataset.REFS)
+        return refs, fine
 
     def add(self, ref_features: str, ref_fine_features: Optional[str] = None) -> int:
         """Grow the served corpus; returns the number of videos added. DnS

@@ -12,8 +12,9 @@ device and removed rows compact away there, onto exactly the layout a
 fresh stage gives. ``ScoreNormalizedVideoIndex`` serves score-normalized
 search from one staged corpus and noise corpus.
 
-Ported so far: ``codec_str="Flat"`` in float32 and the global-k search
-(``global_k >= 0``, the VSC-rules-conforming mode). Other codecs and the
+Ported so far: ``codec_str="Flat"`` with ``dtype`` "float32" or
+"bfloat16", and the global-k search (``global_k >= 0``, the
+VSC-rules-conforming mode). Other codecs, ``dtype="int8"`` and the
 per-query KNN mode (``global_k < 0``) raise until they are ported.
 """
 
@@ -28,7 +29,7 @@ from typing import Iterable, List, Optional, Tuple
 import numpy as np
 
 from vsc2022_torch.device import DeviceLike, resolve_device
-from vsc2022_torch.ops.similarity import SimilaritySearcher
+from vsc2022_torch.ops.similarity import STORAGE_DTYPES, SimilaritySearcher
 from vsc2022_torch.types import PairMatch, PairMatches, VideoFeature
 
 logger = logging.getLogger(__name__)
@@ -41,17 +42,25 @@ class VideoIndex:
         self,
         dim: int,
         codec_str: str = "Flat",
+        dtype: str = "float32",
         device: DeviceLike = "cuda",
     ):
         """``codec_str`` mirrors the reference's FAISS factory argument
-        (reference: vsc/index.py:78); only "Flat" (exact f32
-        inner-product search) is ported."""
+        (reference: vsc/index.py:78); only "Flat" (exact inner-product
+        search over the staged dtype) is ported. ``dtype="bfloat16"``
+        stores and searches the corpus in bf16 (scores at bf16
+        resolution, f32 accumulation)."""
         if codec_str != "Flat":
             raise NotImplementedError(
                 f"codec {codec_str!r} is not ported yet (Flat only)"
             )
+        if dtype not in STORAGE_DTYPES:
+            raise NotImplementedError(
+                f"dtype={dtype!r} storage is not ported yet "
+                "(float32 and bfloat16 only)"
+            )
         self.dim = dim
-        self.dtype = "float32"
+        self.dtype = dtype
         self.device = resolve_device(device)
         self.video_clip_idx: List[int] = []
         self.video_clip_to_video_ids: List[str] = []
@@ -159,7 +168,9 @@ class VideoIndex:
 
     def _get_searcher(self):
         if self._searcher is None:
-            self._searcher = SimilaritySearcher(self._corpus(), device=self.device)
+            self._searcher = SimilaritySearcher(
+                self._corpus(), dtype=self.dtype, device=self.device
+            )
         return self._searcher
 
     def search(
@@ -283,6 +294,7 @@ class ScoreNormalizedVideoIndex(VideoIndex):
                 self._prep_query_features(self._corpus()),
                 self._noise_flat,
                 beta=self.beta,
+                dtype=self.dtype,
                 device=self.device,
             )
         return self._searcher
@@ -320,12 +332,13 @@ class ScoreNormalizedVideoIndex(VideoIndex):
         """Query features in the same space (dimension drop + L2 + the
         −β·noise-NN bias dimension). Reuses the bias-augmented queries of
         the search just before when they cover these queries (the
-        single-threaded serving pattern); recomputes them otherwise."""
+        single-threaded serving pattern); recomputes them otherwise. The
+        rows come back as f32 (a bf16 search's values widened exactly)."""
         sn = self._get_searcher()
         total = sum(len(q) for q in queries)
         q_dev = sn.last_q_sn
         if q_dev is not None and q_dev.shape[0] >= total:
-            q_sn = q_dev[:total].cpu().numpy()
+            q_sn = q_dev[:total].float().cpu().numpy()
         else:
             flat = self._prep_query_features(
                 np.concatenate([q.feature for q in queries], axis=0)

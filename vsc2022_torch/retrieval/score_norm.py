@@ -121,10 +121,13 @@ def score_normalize(
     l2_normalize: bool = True,
     replace_dim: bool = True,
     beta: float = 1.0,
+    dtype: str = "float32",
     device: DeviceLike = "cuda",
 ) -> Tuple[List[VideoFeature], List[VideoFeature]]:
     """Normalize queries and refs against the noise corpus
-    ``score_norm_refs`` (f32); the noise-NN runs on ``device``."""
+    ``score_norm_refs``; the noise-NN runs on ``device``, over a noise
+    corpus staged in ``dtype`` (bf16: the queries too, so the biases
+    come from bf16 products; the appended column stays f32)."""
     _check_independent(refs, score_norm_refs)
     if score_norm_refs is not None and replace_dim:
         queries, refs, score_norm_refs = _drop_min_variance_dim(
@@ -139,7 +142,9 @@ def score_normalize(
 
     logger.info(f"Score-normalizing with beta={beta}")
     noise_corpus = np.concatenate([ref.feature for ref in score_norm_refs], axis=0)
-    searcher = SimilaritySearcher(noise_corpus.astype(np.float32), device=device)
+    searcher = SimilaritySearcher(
+        noise_corpus.astype(np.float32), dtype=dtype, device=device
+    )
 
     # One fused pass over ALL query frames: nearest-noise similarity
     # (the reference loops a FAISS search per video;

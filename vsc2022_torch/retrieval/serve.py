@@ -11,6 +11,10 @@ candidate protocol (global top-k over all frame pairs, max-score
 aggregation, per-query budgets; vsc/descriptor_eval_lib.py:23-24) and
 writes a candidates CSV.
 
+* ``--bf16`` (the default) stages the search corpus, the noise corpus and
+  the localizer's reference tables in bfloat16 (half the device memory;
+  scores at bf16 resolution, f32 accumulation); ``--f32`` opts out, for
+  bit parity with the batch drivers' default.
 * ``--score_norm_features``: the noise corpus stages beside the
   references and every request's CSLS bias is computed on the device
   (``ScoreNormalizedVideoIndex``).
@@ -65,11 +69,10 @@ with requests serialized on one device lock; the parent's stdout gets
 ``listening\\t<host>:<port>`` with the bound port (``:0`` picks one).
 
 Not ported yet (each raises at startup, or answers ``error`` for a
-command): the bf16 default (pass ``--f32``), ``--int8``, ``--ivf``,
-``--sharded``, the multi-host flags, ``--baseline`` with ``extract`` /
-``searchv``, and ``probe``.
+command): ``--int8``, ``--ivf``, ``--sharded``, the multi-host flags,
+``--baseline`` with ``extract`` / ``searchv``, and ``probe``.
 
-    python -m vsc2022_torch.retrieval.serve --ref_features refs.npz --f32 \\
+    python -m vsc2022_torch.retrieval.serve --ref_features refs.npz \\
         --score_norm_features noise.npz --matches [--listen 127.0.0.1:0]
 """
 
@@ -123,13 +126,14 @@ parser.add_argument(
 _dtype_group = parser.add_mutually_exclusive_group()
 _dtype_group.add_argument(
     "--bf16", action="store_true",
-    help="bfloat16 corpus and tables, the JAX package's serving default "
-    "(not ported yet: pass --f32)",
+    help="Store the corpus and the resident localizer ref tables in "
+    "bfloat16 (similarities still accumulate in f32). The serving "
+    "default: the flag is kept for compatibility.",
 )
 _dtype_group.add_argument(
     "--f32", action="store_true",
-    help="Stage the corpus and localizer tables in float32 (required "
-    "until bf16 is ported)",
+    help="Stage the corpus and localizer ref tables in float32: bit "
+    "parity with the batch drivers' default, at twice the memory.",
 )
 _dtype_group.add_argument(
     "--int8", action="store_true",
@@ -199,13 +203,23 @@ _extract.add_argument("--ffmpeg_path", default="ffmpeg")
 _extract.add_argument("--video_extensions", default="mp4")
 
 
+def staging_dtype(args) -> str:
+    """The serving staging dtype: bfloat16 by default, as in the JAX
+    server; ``--f32`` opts out. (``--int8`` is refused by check_ported.)"""
+    return "float32" if args.f32 else "bfloat16"
+
+
+def table_dtype(args) -> str:
+    """The localizer's reference-table dtype, as the JAX server picks it:
+    the staging dtype (JAX keeps bf16 tables under --int8, not ported)."""
+    return staging_dtype(args)
+
+
 def check_ported(args) -> None:
     """Raise for every flag whose mode is not ported yet."""
     unported = []
-    if args.bf16 or args.int8 or not args.f32:
-        unported.append(
-            "bf16/int8 serving (the JAX package's default is bf16): pass --f32"
-        )
+    if args.int8:
+        unported.append("--int8 (SQ8) serving")
     if args.ivf is not None or args.ivf_nprobe is not None:
         unported.append("--ivf")
     if args.sharded:
@@ -221,11 +235,14 @@ def check_ported(args) -> None:
 def build_index(args, device):
     refs = load_features(args.ref_features, Dataset.REFS)
     dim = refs[0].dimensions()
+    dtype = staging_dtype(args)
     if args.score_norm_features:
         noise = load_features(args.score_norm_features, Dataset.REFS)
-        index = ScoreNormalizedVideoIndex(dim, noise, beta=args.beta, device=device)
+        index = ScoreNormalizedVideoIndex(
+            dim, noise, beta=args.beta, dtype=dtype, device=device
+        )
     else:
-        index = VideoIndex(dim, device=device)
+        index = VideoIndex(dim, dtype=dtype, device=device)
     index.add(refs)
     return index, refs, dim
 
@@ -244,7 +261,8 @@ def build_localizer(index, refs, args, device):
     )
 
     common = dict(model_type="TN", tn_max_step=5, min_length=4,
-                  vcsl_faithful=args.vcsl_faithful_tn, device=device)
+                  vcsl_faithful=args.vcsl_faithful_tn,
+                  table_dtype=table_dtype(args), device=device)
     refs_loc = _localizer_refs(index, refs, args)
     if args.ref_fine_features:
         from vsc2022_torch.baseline.dns_baseline import DnSLocalization

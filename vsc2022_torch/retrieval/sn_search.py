@@ -13,6 +13,11 @@ time (and at ``append_refs``).
 The JAX searcher fuses bias, candidates, τ and counts into one dispatch
 to save host↔device round trips; on the GPU each step is its own kernel
 launch on one stream, with the same results.
+
+``dtype="bfloat16"`` stages both corpora and the queries in bf16, as the
+JAX fused path does: the bias column is rounded to bf16 with the queries
+it is appended to, and ``last_q_sn`` holds that bf16 matrix, which the
+serving localizer aligns with.
 """
 
 from __future__ import annotations
@@ -70,15 +75,22 @@ class ScoreNormalizedSearcher:
 
     def normalize_queries(self, queries) -> torch.Tensor:
         """Stage the queries and append the −β·NN-similarity column, on
-        the device: [M, D + 1]."""
+        the device: [M, D + 1] f32. Under bf16 the query columns hold the
+        staged bf16 values and the bias stays f32, as JAX's concatenation
+        promotes them."""
         ns = self.noise_searcher
         q = ns._stage_queries(queries)
         bias = kernels.row_max(q, ns._refs, ns.n_refs)
-        return torch.cat([q, (-self.beta * bias)[:, None]], dim=1)
+        return torch.cat([q.float(), (-self.beta * bias)[:, None]], dim=1)
 
     def global_topk(
         self, queries, k: int, kappa: Optional[int] = None
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         q_sn = self.normalize_queries(queries)
+        s, ns = self.searcher, self.noise_searcher
+        if len(q_sn) and k > 0 and s.n_refs and ns.n_refs:
+            # JAX's fused path (taken on these conditions) rounds the bias
+            # to the query dtype and keeps that matrix.
+            q_sn = q_sn.to(s.torch_dtype)
         self.last_q_sn = q_sn
-        return self.searcher.global_topk(q_sn, k, kappa=kappa)
+        return s.global_topk(q_sn, k, kappa=kappa)
