@@ -7,8 +7,9 @@
 Phases (any failure exits non-zero):
   1. Build the hand kernels from vsc2022_torch/ops/csrc with nvcc; print
      the resident blocks per SM of row_max, count_above and fused_topk,
-     and fused_topk's grid and pieces per row (S) at the serving and DnS
-     shapes.
+     fused_topk's grid and pieces per row (S) at the serving and DnS
+     shapes, and row_max.bf16's plan (the tensor-core product of
+     wgmma_gemm.cuh: grid, tile, group, corpus passes) at its shapes.
   2. Hold each kernel against its plain PyTorch version on the card:
      first at small ragged shapes, then (after phase 4) on the very
      inputs the main path gave it, plus integer-valued inputs of the same
@@ -25,10 +26,13 @@ Phases (any failure exits non-zero):
      ragged shapes (D = 511, 512, 513, 1025; rows 16-byte and 2-byte
      aligned), then on the bf16 paths' inputs (4b, 6b) and on the DnS
      path's inputs rounded to bf16: exact against their plain versions on
-     integers; on floats bit for bit equal to the f32 kernels on the
-     widened inputs (timed beside them) and to each other, as above. Their
-     bound takes the bf16 tensor-core peak, their library call a cuBLAS
-     bf16 product.
+     integers. On floats, count_above.bf16, pool_writer.bf16 and
+     fused_topk.bf16 equal the f32 kernels on the widened inputs bit for
+     bit, and each other, as above; row_max.bf16 (tensor cores, its own
+     summation order) is held against its plain version within
+     BF16_ROW_MAX_ATOL. Each is timed beside the f32 kernel on the widened
+     inputs. Their bound takes the bf16 tensor-core peak, their library
+     call a cuBLAS bf16 product.
   3. global_topk against a dense brute-force oracle at
      1,000 x 100,000 x 512, forced to each collection mode (stream, the
      default at this size, and pooled): identical on integer-valued
@@ -117,6 +121,10 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 FLOAT_ATOL = 1e-5  # f32 sums of unit-norm products in another order
+# row_max.bf16 against its plain version (the widened f32 product) on
+# unit-norm rows: the tensor cores add the exact bf16 products in f32 in
+# their own order, a few f32 roundings of sums of magnitude <= 1 apart.
+BF16_ROW_MAX_ATOL = 1e-5
 
 # The main path's corpus: SSCD's D = 512, 60-frame videos.
 FRAMES, DIM = 60, 512
@@ -220,7 +228,7 @@ def _lib_chunk(n: int) -> int:
 
 
 def row_max_library(torch, q, refs, n_valid):
-    r = refs[:n_valid]
+    r = refs[:n_valid, :q.shape[1]]  # without row_max.bf16's pad columns
     step = _lib_chunk(n_valid)
     return torch.cat([
         torch.matmul(q[s:s + step], r.T).amax(1) for s in range(0, q.shape[0], step)
@@ -293,8 +301,11 @@ def make_inputs(torch, kind, m, n, d, seed, dev):
 def compare_row_max(torch, kernels, q, r, n_valid, kind):
     got = kernels.row_max(q, r, n_valid)
     want = kernels.row_max_plain(q, r, n_valid)
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    tol = 0.0 if kind == "int" else FLOAT_ATOL
+    finite = torch.isfinite(want)
+    check(torch.equal(torch.isfinite(got), finite), "row_max: -inf rows differ")
+    err = float((got[finite] - want[finite]).abs().max()) if finite.any() else 0.0
+    tol = 0.0 if kind == "int" else (
+        BF16_ROW_MAX_ATOL if q.dtype == torch.bfloat16 else FLOAT_ATOL)
     check(err <= tol, f"row_max {kind} [{q.shape[0]}x{n_valid}x{q.shape[1]}]: "
           f"max abs err {err} > {tol}")
     return err
@@ -356,17 +367,20 @@ def pool_identity(torch, kernels, q, r, n_valid, label):
     with tau the global k-th pool value, k = K_PER_ROW per query row (as
     the pooled collection takes it), the count equals the pool count >=
     tau on every row with amb == 0 (no segment holding two entries >= tau)
-    and is no smaller elsewhere."""
+    and is no smaller elsewhere. bf16: count_above only (row_max.bf16
+    sums on the tensor cores; compare_row_max holds it)."""
     m, d = q.shape
     k = K_PER_ROW * m
     if r.shape[0] % 128:
         r = torch.cat([r, r.new_zeros((128 - r.shape[0] % 128, d))])
     pv, _ = kernels.pool_writer(q, r, n_valid)
-    best = pv.view(m, -1).amax(1)
-    got = kernels.row_max(q, r, n_valid)
-    check(torch.equal(got.view(torch.int32), best.view(torch.int32)),
-          f"{label}: row_max differs from pool_writer's best winner "
-          f"on {int((got != best).sum())} rows")
+    bf16 = q.dtype == torch.bfloat16
+    if not bf16:
+        best = pv.view(m, -1).amax(1)
+        got = kernels.row_max(q, r, n_valid)
+        check(torch.equal(got.view(torch.int32), best.view(torch.int32)),
+              f"{label}: row_max differs from pool_writer's best winner "
+              f"on {int((got != best).sum())} rows")
     finite = int(torch.isfinite(pv).sum())
     tau = float(torch.topk(pv.reshape(-1), min(k, finite)).values[-1])
     above = pv >= tau
@@ -380,8 +394,10 @@ def pool_identity(torch, kernels, q, r, n_valid, label):
     check(bool((counts >= pool_counts).all()),
           f"{label}: count_above below the pool count")
     del pv, above
-    log(f"phase 2: {label} [{m} x {n_valid} x {d}]: row_max == pool_writer's best "
-        f"winner bit for bit on all {m} rows; tau {tau!r} (k = {k}): count_above "
+    log(f"phase 2: {label} [{m} x {n_valid} x {d}]: "
+        + ("" if bf16 else f"row_max == pool_writer's best winner bit for bit on "
+           f"all {m} rows; ")
+        + f"tau {tau!r} (k = {k}): count_above "
         f"== pool count on {int(clean.sum())} rows with amb == 0, >= on the "
         f"{int((~clean).sum())} others")
 
@@ -412,15 +428,14 @@ def bf16_rows(torch, kind, n, d, seed, dev, offset=0):
 
 
 def compare_widened(torch, kernels, q, r, n_valid, label, tau=None, kappa=32):
-    """Each bf16 variant (q and r bf16; r a whole number of 128-row
-    segments) bit for bit against its f32 kernel on the widened inputs:
-    widening is exact and the variants run the f32 kernels' fmaf chain."""
+    """count_above.bf16, pool_writer.bf16 and fused_topk.bf16 (q and r
+    bf16; r a whole number of 128-row segments) bit for bit against their
+    f32 kernels on the widened inputs: widening is exact and these
+    variants run the f32 kernels' fmaf chain."""
     qf, rf = q.float(), r.float()
     if tau is None:
         tau = float(kernels.row_max(qf, rf, n_valid).median())
     same = {
-        "row_max": torch.equal(kernels.row_max(q, r, n_valid).view(torch.int32),
-                               kernels.row_max(qf, rf, n_valid).view(torch.int32)),
         "count_above": torch.equal(kernels.count_above(q, r, tau, n_valid),
                                    kernels.count_above(qf, rf, tau, n_valid)),
         "pool_writer": all(torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -437,8 +452,11 @@ def compare_widened(torch, kernels, q, r, n_valid, label, tau=None, kappa=32):
 def phase_kernels_bf16_small(torch, kernels, dev):
     """The bf16 variants at small ragged shapes, D in {511, 512, 513, 1025},
     rows 16-byte aligned and 2-byte aligned: exact against their plain
-    versions on integers; on floats bit for bit equal to the f32 kernels on
-    the widened inputs, and to each other (pool_identity, compare_topk)."""
+    versions on integers; on floats row_max.bf16 within BF16_ROW_MAX_ATOL
+    of its plain version, the other three bit for bit equal to the f32
+    kernels on the widened inputs, and to each other (pool_identity,
+    compare_topk). Returns row_max.bf16's largest float error."""
+    row_max_err = 0.0
     m, n, n_valid = 150, 5120, 4990
     for d in (511, 512, 513, 1025):
         for offset in (0, 1):
@@ -457,22 +475,30 @@ def phase_kernels_bf16_small(torch, kernels, dev):
                     for kappa in (7, 32, 300):
                         compare_topk(torch, kernels, q, r, n_valid, kappa, "int")
                 else:
+                    row_max_err = max(row_max_err, compare_row_max(
+                        torch, kernels, q, r, n_valid, "float"))
                     compare_widened(torch, kernels, q, r, n_valid, label)
                     pool_identity(torch, kernels, q, r, n_valid, label)
                     compare_topk(torch, kernels, q, r, n_valid, 32, "float")
     log("phase 2: bf16 variants at small shapes: exact on integers; on floats "
-        "bit for bit equal to the f32 kernels on the widened inputs and to each "
-        "other, at D = 511, 512, 513, 1025, 16-byte and 2-byte aligned")
+        f"row_max.bf16 within {row_max_err} of its plain version (tolerance "
+        f"{BF16_ROW_MAX_ATOL}), the other three bit for bit equal to the f32 "
+        "kernels on the widened inputs and to each other, at D = 511, 512, 513, "
+        "1025, 16-byte and 2-byte aligned")
+    return row_max_err
 
 
 def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
     """Each retrieval kernel on the inputs a path gave it (its first call
     there), and on integer-valued inputs of the same shape; row_max and
-    count_above also against pool_writer (pool_identity); timings and
-    bounds from those inputs. bf16 inputs run the bf16 variants, which are
-    also held bit for bit against the f32 kernels on the widened inputs
-    (timed beside them as f32_ms); their library call is a cuBLAS bf16
-    product. Returns {name: record}, bf16 variants as "<name>.bf16"."""
+    count_above also against pool_writer (pool_identity; count_above only
+    in bf16); timings and bounds from those inputs. bf16 inputs run the
+    bf16 variants; count_above, pool_writer and fused_topk are also held
+    bit for bit against the f32 kernels on the widened inputs, and every
+    variant is timed beside its f32 kernel there (f32_ms); their library
+    call is a cuBLAS bf16 product. row_max.bf16's refs may carry the
+    searcher's zero pad columns; its timed call pads the queries. Returns
+    {name: record}, bf16 variants as "<name>.bf16"."""
     records = {}
     for name, args in captured.items():
         if name == "chamfer":
@@ -495,7 +521,7 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
         del qi, ri
         torch.cuda.empty_cache()
         label = f"{path}{' bf16' if bf16 else ''} {name} inputs"
-        if name in ("row_max", "count_above"):
+        if name == "count_above" or (name == "row_max" and not bf16):
             pool_identity(torch, kernels, q, r, n_valid, label)
             torch.cuda.empty_cache()
         if name == "row_max":
@@ -537,13 +563,16 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
         }
         extra = ""
         if bf16:
-            rp = r if n % 128 == 0 else torch.cat([r, r.new_zeros((128 - n % 128, dd))])
-            compare_widened(torch, kernels, q, rp, n_valid, label)
-            del rp
-            qf, rf = q.float(), r.float()
+            if name != "row_max":
+                rp = r if n % 128 == 0 else torch.cat([r, r.new_zeros((128 - n % 128, dd))])
+                compare_widened(torch, kernels, q, rp, n_valid, label)
+                del rp
+            qf, rf = q.float(), r[:, :dd].float()  # without row_max's pad columns
             records[key]["f32_ms"] = cuda_ms(torch, lambda: call(qf, rf), 3)
             extra = (f" f32_ms={records[key]['f32_ms']:.3f} (the f32 kernel on the "
-                     "widened inputs, bit-identical)")
+                     "widened inputs, "
+                     + ("the tensor-core kernel within the tolerance)" if name == "row_max"
+                        else "bit-identical)"))
             del qf, rf
             torch.cuda.empty_cache()
         log(f"phase 2: {key} on the {path} path's inputs [{m} x {n_valid} x {dd}] "
@@ -1448,8 +1477,18 @@ def main() -> int:
     log("phase 1: resident blocks per SM (narrow / 16-byte copies): " + ", ".join(
         f"{name} {kernels._reduce_slots(probe, name, 0) // sms} / "
         f"{kernels._reduce_slots(probe, name, 1) // sms}"
-        for base in ("row_max", "count_above", "fused_topk")
-        for name in (base, base + "_bf16")))
+        for name in ("row_max", "count_above", "count_above_bf16", "fused_topk",
+                     "fused_topk_bf16")))
+    slots = kernels._wgmma_slots(probe)
+    for label, m, n_valid in (("SSCD", 9000, 250_020), ("serving bias", 9000, 60_000)):
+        q_tiles, c_tiles = kernels.wgmma_tiles(m, n_valid)
+        grid = kernels.wgmma_grid(m, n_valid, slots)
+        log(f"phase 1: row_max.bf16 (wgmma_gemm.cuh) at the {label} shape "
+            f"[{m} x {n_valid}]: {slots // sms} block(s) per SM, grid {grid}; tile "
+            f"{kernels.WGMMA_ROWS} x {kernels.WGMMA_COLS}, {q_tiles} x {c_tiles} "
+            f"tiles in groups of {kernels.WGMMA_GROUP} query tiles; the corpus read "
+            f"{kernels.wgmma_corpus_passes(m, n_valid, grid):.2f} times (row-tile "
+            f"order: {kernels.reduce_tiles(m, n_valid)[0]})")
     for label, m, n_valid, vec in (("serving", 9000, 240_000, 1),
                                    ("DnS", 7682, 31_004, 0)):
         grid, pieces = kernels.topk_grid(m, n_valid, 32, kernels.reduce_grid(

@@ -263,6 +263,56 @@ def test_bf16_sn_searcher_identical_to_jax():
                                   np.asarray(js.normalize_queries(q)))
 
 
+@pytest.mark.parametrize("d", [13, 16])
+def test_bf16_row_max_copy_built_on_first_use_and_dropped_on_change(d):
+    # row_max.bf16 reads rows of a multiple of 8 values: the searcher keeps
+    # a zero-padded copy of its bf16 corpus (the corpus itself when D is a
+    # multiple of 8), made on first use and dropped when the corpus changes.
+    rng = np.random.RandomState(d)
+    r = rng.randint(-3, 4, size=(300, d)).astype(np.float32)
+    q = rng.randint(-3, 4, size=(9, d)).astype(np.float32)
+    ts = TorchSearcher(r, dtype=BF16, device="cpu")
+    assert ts._row_max_copy is None
+    want = JaxSearcher(r, dtype=BF16).row_nn(q)
+    np.testing.assert_array_equal(ts.row_nn(q), want)
+    copy = ts._row_max_copy
+    width = kernels.padded_width(d)
+    assert copy.dtype == torch.bfloat16 and copy.shape == (ts._refs.shape[0], width)
+    assert (copy is ts._refs) == (width == d)
+    assert torch.equal(copy[:, :d], ts._refs) and not copy[:, d:].any()
+    assert ts.row_max_refs() is copy  # kept
+    new = rng.randint(-3, 4, size=(40, d)).astype(np.float32)
+    ts.append_rows(new)
+    assert ts._row_max_copy is None
+    both = np.concatenate([r, new])
+    np.testing.assert_array_equal(ts.row_nn(q), JaxSearcher(both, dtype=BF16).row_nn(q))
+    assert ts._row_max_copy.shape[0] == ts._refs.shape[0]
+    keep = np.arange(0, 340, 3)
+    ts.keep_rows(keep)
+    assert ts._row_max_copy is None
+    np.testing.assert_array_equal(ts.row_nn(q),
+                                  JaxSearcher(both[keep], dtype=BF16).row_nn(q))
+    assert torch.equal(ts.row_max_refs()[:, :d], ts._refs)
+    # An f32 corpus is read as staged.
+    f32 = TorchSearcher(r, device="cpu")
+    assert f32.row_max_refs() is f32._refs and f32._row_max_copy is None
+
+
+def test_bf16_sn_normalize_queries_identical_to_jax_at_odd_width():
+    # D = 13: the noise corpus's row_max copy carries 3 zero columns.
+    rng = np.random.RandomState(13)
+    refs = rng.randint(-3, 4, size=(500, 13)).astype(np.float32)
+    noise = rng.randint(-3, 4, size=(400, 13)).astype(np.float32)
+    q = rng.randint(-3, 4, size=(21, 13)).astype(np.float32)
+    js = JaxSN(refs, noise, beta=1.2, dtype=BF16)
+    ts = TorchSN(refs, noise, beta=1.2, dtype=BF16, device="cpu")
+    np.testing.assert_array_equal(ts.normalize_queries(q).numpy(),
+                                  np.asarray(js.normalize_queries(q)))
+    assert ts.noise_searcher._row_max_copy.shape[1] == 16
+    for e, g in zip(js.global_topk(q, 400), ts.global_topk(q, 400)):
+        np.testing.assert_array_equal(g, e)
+
+
 def test_bf16_sn_index_and_localizer_spaces_identical_to_jax():
     (jq, jr, jn, jx), (tq, tr, tn, tx) = _corpus(JVF), _corpus(TVF)
     j = JaxSNIndex(D, jn, beta=1.2, dtype=BF16)

@@ -13,8 +13,11 @@ products in another order than cuBLAS's). On floats the retrieval kernels
 are held against each other bit for bit: they run the same f32 FMA chain
 per score, so row_max equals the pool's best winner, count_above the
 pool's count wherever the pool holds every entry >= tau, and fused_topk
-the pool's best winners. Their bf16 variants are held bit for bit against
-the f32 kernels on the widened inputs, and against each other.
+the pool's best winners. The bf16 variants of count_above, pool_writer and
+fused_topk are held bit for bit against the f32 kernels on the widened
+inputs, and against each other. row_max.bf16 runs on the tensor cores
+(wgmma_gemm.cuh), which sum in their own order: exact on integers, within
+BF16_ROW_MAX_ATOL of its plain version on unit-norm floats.
 """
 
 import math
@@ -339,6 +342,11 @@ def test_global_topk_forced_modes_cuda_equal_cpu(cuda_device, monkeypatch, mode)
 
 
 BF16 = torch.bfloat16
+# row_max.bf16 against the widened f32 product on unit-norm rows: the
+# tensor cores add the D exact bf16 products in f32 in another order than
+# cuBLAS (and not as one sequential IEEE chain); each score is a sum of
+# magnitude <= 1, a few f32 roundings (2^-24 each) apart.
+BF16_ROW_MAX_ATOL = 1e-5
 
 
 def _bf16_rows(rng, n, d, cuda_device, offset=0):
@@ -369,8 +377,9 @@ def test_bf16_kernels_bit_identical_to_f32_on_widened_inputs(cuda_device, d, off
     assert (q.data_ptr() % 16 == 0) == (offset == 0)
     qf, rf = q.float(), r.float()
     kernels.reset_launches()
-    assert torch.equal(kernels.row_max(q, r, n_valid).view(torch.int32),
-                       kernels.row_max(qf, rf, n_valid).view(torch.int32))
+    torch.testing.assert_close(kernels.row_max(q, r, n_valid),
+                               kernels.row_max(qf, rf, n_valid),
+                               rtol=0, atol=BF16_ROW_MAX_ATOL)
     tau = 0.1
     assert torch.equal(kernels.count_above(q, r, tau, n_valid),
                        kernels.count_above(qf, rf, tau, n_valid))
@@ -395,8 +404,8 @@ def test_bf16_kernels_bit_identical_to_each_other(cuda_device, d, offset):
     m = q.shape[0]
     pv, pi = kernels.pool_writer(q, r, n_valid)
     best = pv.view(m, -1).amax(1)
-    assert torch.equal(kernels.row_max(q, r, n_valid).view(torch.int32),
-                       best.view(torch.int32))
+    torch.testing.assert_close(kernels.row_max(q, r, n_valid), best,
+                               rtol=0, atol=BF16_ROW_MAX_ATOL)
     got_v, got_i = kernels.fused_topk(q, r, n_valid, 32)
     want_v, want_i = kernels.ordered_topk(pv.view(m, -1), pi.view(m, -1), 32)
     assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
@@ -461,3 +470,85 @@ def test_bf16_wrappers_raise_on_mixed_dtypes(cuda_device):
         with pytest.raises(TypeError, match="share a dtype"):
             call()
     assert set(kernels.launches.values()) == {0}
+
+
+# ---- row_max.bf16: the tensor-core product (wgmma_gemm.cuh) -------------------
+
+
+def _bf16_ints(shape, seed, cuda_device, offset=0):
+    """Integer-valued bf16 rows on the card, ``offset`` elements into their
+    storage (1: 2-byte aligned, so the wrapper pads them into a copy)."""
+    x = _ints(shape, seed).to(BF16).reshape(-1)
+    flat = torch.zeros(x.numel() + offset, dtype=BF16)
+    flat[offset:] = x
+    return flat.to(cuda_device)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m", [1, 65, 300, 9000])
+@pytest.mark.parametrize("d", [1, 33, 511, 512, 513, 1025])
+def test_bf16_row_max_exact_on_integers(cuda_device, d, m, offset):
+    # Every partial sum is an integer below 2^24: exact in any order.
+    q = _bf16_ints((m, d), 70 + d, cuda_device, offset)
+    r = _bf16_ints((RAGGED_N, d), 71 + d, cuda_device, offset)
+    r[[3, 700]] = 3.0
+    q[0] = 3.0
+    assert (q.data_ptr() % 16 == 0) == (offset == 0)
+    for refs in (r, kernels.pad_columns(r)):  # as given, and as staged
+        for n_valid in (0, 1, RAGGED_N - 1, RAGGED_N):
+            kernels.reset_launches()
+            got = kernels.row_max(q, refs, n_valid)
+            assert torch.equal(got, kernels.row_max_plain(q, r, n_valid))
+            assert kernels.launches["row_max.bf16"] == 1
+            assert kernels.launches["row_max"] == 0
+
+
+@pytest.mark.parametrize("slots", [1, 3, 7, 50])
+def test_bf16_row_max_any_grid(cuda_device, monkeypatch, slots):
+    # Few blocks: each block's range spans several groups and corpus tiles,
+    # and flushes its rows at every group it leaves.
+    monkeypatch.setattr(kernels, "_wgmma_slots", lambda t: slots)
+    q = _bf16_ints((1500, 40), 72, cuda_device)
+    r = _bf16_ints((RAGGED_N, 40), 73, cuda_device)
+    for n_valid in (1, 257, RAGGED_N):
+        assert torch.equal(kernels.row_max(q, r, n_valid),
+                           kernels.row_max_plain(q, r, n_valid))
+
+
+def test_bf16_row_max_zero_pad_rows_do_not_leak(cuda_device):
+    # Every valid score is negative; the corpus's zero rows past n_valid
+    # (and the zero rows TMA fills past the tensor) score 0 and must not
+    # win.
+    q = -_bf16_ints((300, 511), 74, cuda_device).abs() - 1
+    r = torch.zeros((2048, 511), dtype=BF16, device=cuda_device)
+    r[:1900] = _bf16_ints((1900, 511), 75, cuda_device).abs() + 1
+    for n_valid in (1, 1000, 1900):
+        got = kernels.row_max(q, kernels.pad_columns(r), n_valid)
+        assert bool((got < 0).all())
+        assert torch.equal(got, kernels.row_max_plain(q, r, n_valid))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [511, 512, 513, 1025])
+def test_bf16_row_max_floats_within_tolerance(cuda_device, d, offset):
+    rng = np.random.RandomState(80 + d)
+    q = _bf16_rows(rng, 700, d, cuda_device, offset)
+    r = _bf16_rows(rng, 9000, d, cuda_device, offset)
+    r[7000:7010] = q[:10]  # exact self-matches: scores near 1
+    for n_valid in (8999, 9000):
+        got = kernels.row_max(q, r, n_valid)
+        want = kernels.row_max_plain(q, r, n_valid)
+        torch.testing.assert_close(got, want, rtol=0, atol=BF16_ROW_MAX_ATOL)
+
+
+def test_bf16_searcher_row_nn_equals_cpu_on_integers(cuda_device):
+    # The searcher's padded row_max copy (D = 511) on the card, against the
+    # plain version on the CPU: exact on integers.
+    from vsc2022_torch.ops.similarity import SimilaritySearcher
+
+    q, r = _ints((300, 511), 76).numpy(), _ints((5000, 511), 77).numpy()
+    gpu = SimilaritySearcher(r, dtype="bfloat16", device=cuda_device)
+    got = gpu.row_nn(q)
+    assert gpu._row_max_copy.shape == (gpu._refs.shape[0], 512)
+    want = SimilaritySearcher(r, dtype="bfloat16", device="cpu").row_nn(q)
+    np.testing.assert_array_equal(got, want)

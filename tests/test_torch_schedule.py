@@ -1,5 +1,7 @@
-"""The launch plan of the row_max and count_above kernels, and the ctypes
-declarations of every kernel, checked on the CPU (no nvcc, no card).
+"""The launch plans of the row_max, count_above and fused_topk kernels
+(reduce_gemm.cuh) and of row_max.bf16 (wgmma_gemm.cuh), the zero padding
+of the rows row_max.bf16 reads, and the ctypes declarations of every
+kernel, checked on the CPU (no nvcc, no card).
 
 The persistent schedule lives in ``vsc2022_torch/ops/kernels.py``
 (``reduce_tiles``, ``reduce_grid``, ``reduce_schedule``); the kernel in
@@ -14,6 +16,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 from vsc2022_torch.ops import _build, kernels
 
@@ -141,3 +144,109 @@ def test_every_declaration_names_an_exported_function():
     for name in ("vsc_row_max", "vsc_count_above", "vsc_pool_writer",
                  "vsc_fused_topk", "vsc_chamfer"):
         assert sigs[name][0] is ctypes.c_int and sigs[name][-1] is ctypes.c_void_p
+
+
+# ---- the work plan of the tensor-core product (row_max.bf16) -----------------
+
+# (query rows, valid corpus rows) of the row_max.bf16 calls on the paths:
+# the SSCD noise NN, the serving bias, the DnS shape rounded to bf16.
+WGMMA_SHAPES = [(9000, 250_020), (9000, 60_000), (7682, 7_248)]
+
+
+def _wgmma_order(m, n_valid):
+    """Items in the order wgmma_gemm.cuh numbers them, built directly:
+    groups of WGMMA_GROUP query tiles, then corpus tiles, then the group's
+    query tiles."""
+    q_tiles, c_tiles = kernels.wgmma_tiles(m, n_valid)
+    order = []
+    for g0 in range(0, q_tiles, kernels.WGMMA_GROUP):
+        tiles = range(g0, min(g0 + kernels.WGMMA_GROUP, q_tiles))
+        order += [(g0 // kernels.WGMMA_GROUP, t, c) for c in range(c_tiles) for t in tiles]
+    return np.array(order).reshape(-1, 3)
+
+
+@pytest.mark.parametrize("m,n_valid", WGMMA_SHAPES + RAGGED_SHAPES + [(1025, 3000)])
+def test_wgmma_plan_covers_every_item_once(m, n_valid):
+    q_tiles, c_tiles = kernels.wgmma_tiles(m, n_valid)
+    assert q_tiles * kernels.WGMMA_ROWS >= m > (q_tiles - 1) * kernels.WGMMA_ROWS
+    assert c_tiles * kernels.WGMMA_COLS >= n_valid > (c_tiles - 1) * kernels.WGMMA_COLS
+    items = q_tiles * c_tiles
+    got = np.stack(kernels.wgmma_item(np.arange(items), m, n_valid), axis=1)
+    np.testing.assert_array_equal(got, _wgmma_order(m, n_valid))
+    # Every (query tile, corpus tile) exactly once.
+    seen = np.zeros((q_tiles, c_tiles), dtype=np.int64)
+    np.add.at(seen, (got[:, 1], got[:, 2]), 1)
+    assert (seen == 1).all()
+    # The scalar form agrees with the array form.
+    for i in {0, items // 2, items - 1}:
+        assert tuple(int(v) for v in kernels.wgmma_item(i, m, n_valid)) == tuple(got[i])
+    for slots in SLOTS:
+        grid = kernels.wgmma_grid(m, n_valid, slots)
+        assert grid == min(slots, items)
+        ranges = kernels.block_ranges(items, grid)
+        lengths = np.array([e - b for b, e in ranges])
+        assert lengths.min() >= 1 and lengths.max() - lengths.min() <= 1
+        assert ranges[0][0] == 0 and ranges[-1][1] == items
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+def test_wgmma_plan_of_an_empty_call_has_no_block():
+    assert kernels.wgmma_grid(0, 100, 132) == 0
+    assert kernels.wgmma_grid(100, 0, 132) == 0
+    assert kernels.wgmma_corpus_passes(100, 0, 0) == 0.0
+
+
+@pytest.mark.parametrize("m,n_valid", WGMMA_SHAPES)
+def test_wgmma_plan_reads_the_corpus_once_per_group(m, n_valid):
+    # The row-tile-major order streams the corpus once per 128-row query
+    # tile; the grouped order once per group of WGMMA_GROUP query tiles,
+    # plus at most one tile per block boundary.
+    q_tiles, c_tiles = kernels.wgmma_tiles(m, n_valid)
+    groups = -(-q_tiles // kernels.WGMMA_GROUP)
+    grid = kernels.wgmma_grid(m, n_valid, 132)
+    passes = kernels.wgmma_corpus_passes(m, n_valid, grid)
+    assert groups <= passes <= groups + grid / c_tiles
+    row_tile_passes = kernels.reduce_tiles(m, n_valid)[0]
+    assert row_tile_passes >= 60 and passes * 4 < row_tile_passes
+    # One block walking everything reads each corpus tile once per group.
+    assert kernels.wgmma_corpus_passes(m, n_valid, 1) == groups
+
+
+# ---- the bf16 rows row_max.bf16 reads ----------------------------------------
+
+
+@pytest.mark.parametrize("d", [1, 2, 7, 8, 9, 15, 16, 33, 511, 512, 513, 1025])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pad_columns_keeps_the_values_and_zero_pads(d, dtype):
+    x = torch.from_numpy(np.random.RandomState(d).randn(13, d).astype(np.float32)).to(dtype)
+    y = kernels.pad_columns(x)
+    width = kernels.padded_width(d)
+    assert width % kernels.ROW_ALIGN == 0 and d <= width < d + kernels.ROW_ALIGN
+    assert y.shape == (13, width) and y.dtype == dtype and y.is_contiguous()
+    assert y.data_ptr() % 16 == 0
+    assert torch.equal(y[:, :d], x)
+    assert torch.equal(y[:, d:], torch.zeros((13, width - d), dtype=dtype))
+    # Already padded and aligned: no copy.
+    assert (y is x) == (width == d)
+    assert kernels.pad_columns(y) is y
+
+
+def test_pad_columns_copies_an_unaligned_view():
+    flat = torch.arange(8 * 16 + 1, dtype=torch.bfloat16)
+    x = flat[1:].view(8, 16)  # 2 bytes into its storage
+    assert x.data_ptr() % 16
+    y = kernels.pad_columns(x)
+    assert y.shape == x.shape and y.data_ptr() % 16 == 0 and torch.equal(y, x)
+
+
+def test_bf16_row_max_takes_padded_refs_on_the_cpu():
+    rng = np.random.RandomState(3)
+    q = torch.from_numpy(rng.randint(-3, 4, (20, 13)).astype(np.float32)).bfloat16()
+    r = torch.from_numpy(rng.randint(-3, 4, (300, 13)).astype(np.float32)).bfloat16()
+    want = kernels.row_max(q, r, 290)
+    assert torch.equal(kernels.row_max(q, kernels.pad_columns(r), 290), want)
+    assert torch.equal(want, kernels.row_max_plain(q.float(), r.float(), 290))
+    with pytest.raises(ValueError):  # neither D nor padded_width(D) columns
+        kernels.row_max(q, torch.zeros((300, 24), dtype=torch.bfloat16), 290)
+    with pytest.raises(ValueError):  # only bf16 refs may carry the padding
+        kernels.row_max(q.float(), kernels.pad_columns(r).float(), 290)

@@ -20,10 +20,14 @@ and power limit and one JSON object with every shape's numbers.
 `chip_smoke.py` measures the same kernels on the paths' own inputs.
 
 ``--bf16`` times the bf16 variants instead, on the same rows rounded to
-bf16: each is held bit for bit against the f32 kernel on the widened
-rows, which is timed beside it (``f32_ms``); the library call is a cuBLAS
-bf16 ``torch.matmul`` plus the same reduction, and the bound takes the
-bf16 tensor-core peak and 2-byte operands.
+bf16, beside the f32 kernel on the widened rows (``f32_ms``):
+count_above.bf16 and fused_topk.bf16 are held bit for bit against it and
+the pool; row_max.bf16, the tensor-core product of wgmma_gemm.cuh, within
+chip_smoke.BF16_ROW_MAX_ATOL of both, on a corpus staged as the searcher
+stages it (kernels.pad_columns) with the queries padded inside the timed
+call. The library call is a cuBLAS bf16 ``torch.matmul`` plus the same
+reduction, and the bound takes the bf16 tensor-core peak and 2-byte
+operands. row_max.bf16's plan (grid, group, corpus passes) is printed.
 
 Copied into a tree of an earlier commit (beside its vsc2022_torch/ and
 chip_smoke.py), it times that tree's kernels, skipping the occupancy and
@@ -84,6 +88,15 @@ def main() -> int:
             name += "_bf16"
         if not hasattr(lib, f"vsc_{name}_occupancy"):
             continue
+        if name == "row_max_bf16" and hasattr(kernels, "wgmma_grid"):
+            slots = kernels._wgmma_slots(torch.empty(0, device=dev))
+            for _, path, m, n_valid, _ in SHAPES[:3]:
+                grid = kernels.wgmma_grid(m, n_valid, slots)
+                print(f"row_max_bf16 {path}: grid {grid}, group "
+                      f"{kernels.WGMMA_GROUP} query tiles, corpus read "
+                      f"{kernels.wgmma_corpus_passes(m, n_valid, grid):.2f} times",
+                      flush=True)
+            continue
         for vec in (0, 1):
             blocks = ctypes.c_int(0)
             rc = getattr(lib, f"vsc_{name}_occupancy")(0, vec, ctypes.addressof(blocks))
@@ -104,18 +117,26 @@ def main() -> int:
         r[:n_valid] /= r[:n_valid].norm(dim=1, keepdim=True)
         if args.bf16:
             q, r = q.to(torch.bfloat16), r.to(torch.bfloat16)
-        run = _call(kernels, name, q, r, n_valid)
+        # row_max.bf16 reads the searcher's padded copy of the corpus.
+        tensor_cores = args.bf16 and name == "row_max" and hasattr(kernels, "wgmma_grid")
+        run = _call(kernels, name, q, kernels.pad_columns(r) if tensor_cores else r,
+                    n_valid)
         lib_call = _library(torch, cs, name, q, r, n_valid)
         if args.bf16:
             # Bit for bit against the f32 kernel on the widened rows.
             run_f32 = _call(kernels, name, q.float(), r.float(), n_valid)
             got, want = run(), run_f32()
-            same = (all(torch.equal(a, b) for a, b in zip(got, want))
-                    if name == "fused_topk"
-                    else torch.equal(got.view(torch.int32), want.view(torch.int32)))
-            cs.check(same, f"{name}.bf16 {path}: differs from the f32 kernel "
-                     "on the widened rows")
-            err = 0.0
+            if tensor_cores:
+                err = float((got - want).abs().max())
+                cs.check(err <= cs.BF16_ROW_MAX_ATOL, f"row_max.bf16 {path}: off the "
+                         f"f32 kernel on the widened rows by {err}")
+            else:
+                same = (all(torch.equal(a, b) for a, b in zip(got, want))
+                        if name == "fused_topk"
+                        else torch.equal(got.view(torch.int32), want.view(torch.int32)))
+                cs.check(same, f"{name}.bf16 {path}: differs from the f32 kernel "
+                         "on the widened rows")
+                err = 0.0
         else:
             got, want = run(), lib_call()
             if name == "fused_topk":
@@ -136,6 +157,11 @@ def main() -> int:
             got = kernels.fused_topk(head, r, n_valid, KAPPA)
             cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
                      f"{path} [D={d}]: fused_topk differs from pool_writer's winners")
+        elif tensor_cores:
+            best = pv.view(head.shape[0], -1).amax(1)
+            cs.check(float((kernels.row_max(head, r, n_valid) - best).abs().max())
+                     <= cs.BF16_ROW_MAX_ATOL,
+                     f"{path} [D={d}]: row_max.bf16 off pool_writer's best winner")
         else:
             cs.check(torch.equal(kernels.row_max(head, r, n_valid).view(torch.int32),
                                  pv.view(head.shape[0], -1).amax(1).view(torch.int32)),

@@ -116,6 +116,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in list(argtypes):
         kernel, occupancy, _ = name.partition("_occupancy")
         argtypes[f"{kernel}_bf16{occupancy}"] = argtypes[name]
+    # ... but row_max's, the tensor-core product of wgmma_gemm.cuh, which
+    # takes no copy width.
+    argtypes["row_max_bf16"] = [i, p, p, i, i, i, i, i, p, p, p]
+    argtypes["row_max_bf16_occupancy"] = [i, p]
     argtypes["chamfer"] = [i, p, p, i, i, i, i, i, i, p, p]
     for name, types in argtypes.items():
         fn = getattr(lib, f"vsc_{name}")

@@ -24,8 +24,8 @@
 // TFLOP/s) its share is low by design: the operands are widened to f32 as
 // they are staged (tile_gemm.cuh) and the f32 kernel's fmaf chain runs on
 // them, so its pool is the f32 kernel's on the widened inputs bit for bit,
-// and the bf16 row_max, count_above and fused_topk see the same scores. The
-// refs move half the bytes.
+// and the bf16 count_above and fused_topk see the same scores. The refs
+// move half the bytes.
 #include <climits>
 
 #include "segment_top2.cuh"

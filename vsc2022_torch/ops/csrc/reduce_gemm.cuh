@@ -46,12 +46,13 @@
 // one of the stages are in flight while one is multiplied, and while the
 // epilogue runs.
 //
-// bf16 operands (the bf16 variants of all three kernels, the counterpart of
-// the Pallas kernels' bf16 branch: bf16 q and refs, f32 accumulation). Each
-// value is widened to f32 on its way into the same f32 ring (exact: a bf16 is
-// the upper half of an f32), so the multiply, the fmaf chain and the
+// bf16 operands (the bf16 variants of count_above and fused_topk, the
+// counterpart of the Pallas kernels' bf16 branch: bf16 q and refs, f32
+// accumulation; row_max.bf16 runs on the tensor cores, wgmma_gemm.cuh).
+// Each value is widened to f32 on its way into the same f32 ring (exact: a
+// bf16 is the upper half of an f32), so the multiply, the fmaf chain and the
 // epilogues are the f32 kernel's, and a bf16 kernel's score equals the f32
-// kernel's score on the widened inputs bit for bit. cp.async cannot convert,
+// kernel's score on the widened inputs, and pool_writer.bf16's, bit for bit. cp.async cannot convert,
 // so these loads go through registers: 16-byte loads (8 values) when
 // D % 8 == 0 and both operands are 16-byte aligned, 2-byte loads otherwise
 // (D = 1025 rows start 2-byte aligned). Each step issues the loads of the

@@ -20,14 +20,36 @@
 // The bf16 variant (vsc_row_max_bf16) is the noise-NN over a bf16 corpus
 // (score_norm(dtype="bfloat16") and the serving bias): fused_row_max has no
 // bf16 branch, and the JAX searcher computes it with XLA on bf16 operands
-// with f32 accumulation (similarity.py:271), as the Pallas pool_writer's
-// bf16 branch does the pool (pallas_kernels.py:228-230). Bound: operations,
-// 2*M*N*D; against the bf16 tensor-core peak (989 TFLOP/s) its share is low
-// by design, since it runs the f32 kernel's CUDA-core fmaf chain on the
-// widened operands (reduce_gemm.cuh), so its scores equal the f32 kernel's
-// on the widened inputs, and those of the other three bf16 kernels, bit for
-// bit. The operands move half the bytes; their loads go through registers.
+// with f32 accumulation (similarity.py:271), one MXU pass on a TPU. Here it
+// is the tensor-core product of wgmma_gemm.cuh (TMA into a 4-stage mbarrier
+// ring, wgmma m64n256k16, bf16 in, f32 accumulation) with a row-max
+// epilogue. (Widening the operands into the f32 fmaf chain of
+// reduce_gemm.cuh, as the other bf16 kernels do, cannot pass 67/989 = 6.8%
+// of the bf16 bound.) Bound: operations, 2*M*N*D at 989 TFLOP/s ([9000 x
+// 250,020 x 511] is 2.3 TFLOP, 2.3 ms); the operands are 2 bytes a value
+// and the corpus comes from HBM about once per group of 8 query tiles (the
+// row-tile order would stream it once per 128 query rows: 71 x 256 MB at
+// SSCD, 5.4 ms of HBM time). It reaches about half the bound on the H100
+// (PERF.md, section 6). Keeping one slice's wgmma in flight while the
+// next is issued changed nothing there, so the wait per slice is not what
+// bounds it; the candidates are the L2 traffic of the tile (each 128 x 256
+// item reads its q and corpus slices through L2: 384 KB at D = 512, ~6 TB/s
+// at the measured rate, which a 2-block cluster multicasting the corpus
+// tile would cut by a third) and the epilogue, during which the tensor
+// cores idle. The epilogue
+// takes each thread's maximum over its accumulator columns (columns at or
+// past n_valid at -inf: the corpus's zero rows score 0, which would beat an
+// all-negative row), then the quad's (shuffles xor 1, 2), and folds it
+// into the group's running maximum in shared memory; the owner thread
+// commits it with one atomicMax on the monotone key per row and group, and
+// query rows >= M are never committed. The tensor cores sum in their own
+// order: the scores are exact on integer inputs, within a few f32 rounding
+// steps of the f32 kernel on the widened inputs elsewhere, and no longer
+// equal the other bf16 kernels' bit for bit (nothing needs them to: the
+// row max only sets the score-normalization bias). Rows take a multiple of
+// 8 values (ops/kernels.py pad_columns).
 #include "reduce_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 using namespace vsc;
 
@@ -68,6 +90,63 @@ struct RowMax {
   }
 };
 
+// The row-max epilogue of the tensor-core product (wgmma_gemm.cuh): each
+// owner thread keeps rows row0 and row0 + 8 of every query tile of the
+// group in shared memory.
+struct Bf16RowMax {
+  unsigned* keys;
+  int m;
+  struct Smem {
+    float run[wg::kGroup][wg::BM];
+  };
+
+  __device__ __forceinline__ void begin(Smem& s, const wg::Lane& l) const {
+    if (!l.owner) return;
+    for (int t = 0; t < wg::kGroup; ++t)
+      s.run[t][l.row0] = s.run[t][l.row0 + 8] = -CUDART_INF_F;
+  }
+
+  template <bool kMasked>
+  __device__ __forceinline__ void item(Smem& s, const wg::Lane& l,
+                                       const float (&acc)[wg::kAcc], int slot,
+                                       int valid_cols) const {
+    float v0 = -CUDART_INF_F, v1 = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < wg::kAcc / 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (!kMasked || 8 * j + l.col0 + e < valid_cols) {
+          v0 = fmaxf(v0, acc[4 * j + e]);
+          v1 = fmaxf(v1, acc[4 * j + 2 + e]);
+        }
+      }
+    }
+    v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, 1));
+    v1 = fmaxf(v1, __shfl_xor_sync(0xffffffffu, v1, 1));
+    v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, 2));
+    v1 = fmaxf(v1, __shfl_xor_sync(0xffffffffu, v1, 2));
+    if (l.owner) {
+      s.run[slot][l.row0] = fmaxf(s.run[slot][l.row0], v0);
+      s.run[slot][l.row0 + 8] = fmaxf(s.run[slot][l.row0 + 8], v1);
+    }
+  }
+
+  __device__ __forceinline__ void flush(Smem& s, const wg::Lane& l, int q_tile0,
+                                        int tiles) const {
+    if (!l.owner) return;
+    for (int t = 0; t < tiles; ++t) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = l.row0 + 8 * h;
+        const int row = (q_tile0 + t) * wg::BM + r;
+        const float v = s.run[t][r];
+        if (row < m && v != -CUDART_INF_F) atomicMax(keys + row, f32_key(v));
+        s.run[t][r] = -CUDART_INF_F;
+      }
+    }
+  }
+};
+
 template <class T>
 int run_row_max(int device, const T* q, const T* refs, int m, int n, int d,
                 int n_valid, int vec, int grid, unsigned* keys, float* out,
@@ -94,13 +173,6 @@ extern "C" int vsc_row_max_occupancy(int device, int vec, int* blocks_per_sm) {
       device, vec, 0, blocks_per_sm);
 }
 
-// The same for the bf16 variant (16-byte loads if vec).
-extern "C" int vsc_row_max_bf16_occupancy(int device, int vec,
-                                          int* blocks_per_sm) {
-  return reduce::resident_blocks<reduce::RowFold<RowMax>, __nv_bfloat16>(
-      device, vec, 0, blocks_per_sm);
-}
-
 // q [m, d], refs [n, d] f32 row-major on the device; keys is [m] uint32
 // scratch, out is [m] f32. `grid` persistent blocks (one wave: SMs x
 // vsc_row_max_occupancy, at most the work items); vec selects the 16-byte
@@ -113,12 +185,28 @@ extern "C" int vsc_row_max(int device, const float* q, const float* refs,
                      stream);
 }
 
-// The bf16 variant: q and refs bf16 (d % 8 == 0 and both bases 16-byte
-// aligned for vec), the rest as vsc_row_max.
+// Blocks of the bf16 kernel one SM holds at once (its grid: SMs x this,
+// at most the work items of ops/kernels.py wgmma_items).
+extern "C" int vsc_row_max_bf16_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<Bf16RowMax>(device, blocks_per_sm);
+}
+
+// The bf16 variant: q [m, d] and refs [n, d] bf16 row-major, d % 8 == 0
+// (zero pad columns past the data's width) and both bases 16-byte aligned;
+// keys is [m] uint32 scratch, out is [m] f32; `grid` persistent blocks.
 extern "C" int vsc_row_max_bf16(int device, const __nv_bfloat16* q,
                                 const __nv_bfloat16* refs, int m, int n,
-                                int d, int n_valid, int vec, int grid,
-                                unsigned* keys, float* out, void* stream) {
-  return run_row_max(device, q, refs, m, n, d, n_valid, vec, grid, keys, out,
-                     stream);
+                                int d, int n_valid, int grid, unsigned* keys,
+                                float* out, void* stream) {
+  if (m <= 0) return 0;
+  if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int fill_blocks = (m + 255) / 256;
+  fill_keys<<<fill_blocks, 256, 0, s>>>(keys, m);
+  err = wg::launch(q, refs, m, d, n_valid, grid, Bf16RowMax{keys, m}, s);
+  if (err != cudaSuccess) return (int)err;
+  keys_to_f32<<<fill_blocks, 256, 0, s>>>(keys, out, m);
+  return (int)cudaGetLastError();
 }

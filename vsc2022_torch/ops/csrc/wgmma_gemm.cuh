@@ -1,0 +1,432 @@
+// Persistent, warp-specialised bf16 tile product on Hopper's tensor cores
+// (TMA, mbarrier ring, wgmma), for the retrieval kernels that keep no
+// score: each finished [128 query rows x 256 corpus rows] accumulator tile
+// is handed to an epilogue functor, and the [M, N] scores never reach
+// device memory. row_max.bf16 (row_max.cu) is its first epilogue; the
+// count and top-kappa epilogues of the other bf16 retrieval kernels are to
+// plug in the same way.
+//
+// Arithmetic. bf16 q [M, D] and refs [N, D] (both K-major, as they lie in
+// memory) go to shared memory unwidened; wgmma.mma_async m64n256k16
+// multiplies them with f32 accumulation. The tensor cores sum each k16
+// step in their own order, so a score is not the sequential fmaf chain of
+// reduce_gemm.cuh: exact on integer inputs (every partial sum < 2^24),
+// within a few f32 rounding steps elsewhere.
+//
+// Operands. TMA needs a 16-byte-aligned base and a row stride that is a
+// multiple of 16 bytes, so rows hold a multiple of 8 bf16 values
+// (ops/kernels.py pad_columns zero-pads the path's D = 511; the zero
+// columns add 0 to every product). TMA zero-fills whatever lies past the
+// tensor: query rows >= M, corpus rows >= n_valid, k >= D.
+//
+// Block. Three warpgroups: warpgroups 0 and 1 consume (64 query rows each,
+// all 256 corpus rows; 128 f32 accumulators a thread, setmaxnreg 232), and
+// one thread of warpgroup 2 produces (setmaxnreg 40). The producer keeps
+// TMA loads of 64-deep k-slices (128 bytes of a row: one 128-byte swizzle
+// row) in flight into a ring of kStages stages, each guarded by a "full"
+// mbarrier (TMA bytes landed) and an "empty" one (both consumers done);
+// the wgmma shared-memory descriptors use the same 128-byte swizzle.
+//
+// Work. Query tiles (128 rows) form groups of kGroup tiles; a work item is
+// (group, corpus tile, query tile in the group), numbered group major,
+// then corpus tile, then query tile (ops/kernels.py wgmma_item), and the
+// grid is one wave of persistent blocks, block b walking the contiguous
+// items [b*W/G, (b+1)*W/G). Consecutive items share a corpus tile, so each
+// corpus tile comes from HBM about once per group while the queries (a few
+// MB) are re-read from L2: the row-tile-major order of reduce_gemm.cuh
+// would stream the whole corpus once per query tile. The epilogue keeps
+// the group's per-row state in shared memory and is told when the block's
+// range leaves a group (or ends), so its atomics are (blocks x rows).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
+
+namespace vsc {
+namespace wg {
+
+constexpr int BM = 128;            // query rows per work item
+constexpr int BN = 256;            // corpus rows per work item
+constexpr int BK = 64;             // depth of a ring stage: 128 bytes of bf16
+constexpr int kStages = 4;         // ring depth
+constexpr int kGroup = 8;          // query tiles per group
+constexpr int kConsumers = 2;      // consumer warpgroups, 64 query rows each
+constexpr int THREADS = 128 * (kConsumers + 1);
+constexpr int kAcc = BN / 2;       // f32 accumulators a consumer thread holds
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int B_BYTES = BN * BK * 2;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int RING_BYTES = kStages * STAGE_BYTES;
+constexpr int kAlign = 1024;       // a 128-byte swizzle pattern repeats per 1 KB
+
+// The launch's work.
+struct Plan {
+  int n_valid, kt_n;       // kt_n: k-slices (D / BK rounded up)
+  int q_tiles, c_tiles;
+  int items;               // sum over groups of c_tiles x the group's tiles
+};
+
+struct Item {
+  int group, q_tile, c_tile, slot, tiles;  // slot: q_tile within the group
+};
+
+__device__ __forceinline__ Item item_at(const Plan& p, int i) {
+  Item it;
+  const int per_group = p.c_tiles * kGroup;
+  it.group = i / per_group;
+  const int local = i - it.group * per_group;
+  it.tiles = min(kGroup, p.q_tiles - it.group * kGroup);
+  it.c_tile = local / it.tiles;
+  it.slot = local - it.c_tile * it.tiles;
+  it.q_tile = it.group * kGroup + it.slot;
+  return it;
+}
+
+// A consumer thread's place in the accumulator tile (wgmma's m64nN f32
+// layout): rows row0 and row0 + 8 of the 128, columns 8j + col0 + {0, 1};
+// acc[4j + e] is (row0, 8j + col0 + e), acc[4j + 2 + e] is (row0 + 8, ...).
+// `owner` (lane % 4 == 0) keeps the quad's per-row results.
+struct Lane {
+  int row0, col0;
+  bool owner;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Spin until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// A [box rows x 64] tile at (k0, row0) of a 2-D tensor map into shared
+// memory, completing `bytes` on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int k0,
+                                         int row0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile with the 128-byte swizzle: rows of
+// 128 bytes, 8-row core groups 1024 bytes apart (SBO), layout type 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t smem_addr) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous product (its registers change under the asm).
+__device__ __forceinline__ void fence_acc(float (&d)[kAcc]) {
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A[64 x 16] . B[256 x 16]^T; scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[kAcc], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The product and its epilogue E. Every consumer thread calls each hook:
+//   struct Smem;                      dynamic shared memory past the ring
+//   void begin(Smem&, const Lane&) const;
+//   template <bool kMasked>           kMasked: the item's corpus tile
+//   void item(Smem&, const Lane&,     straddles n_valid; columns at or past
+//             const float (&acc)[kAcc], valid_cols are not the corpus's
+//             int slot, int valid_cols) const;
+//   void flush(Smem&, const Lane&, int q_tile0, int tiles) const;
+//                                     the block leaves a group (or ends)
+// The hooks run in each consumer warpgroup on its own 64 rows: they need
+// no barrier as long as each row's state is touched by one thread.
+template <class E>
+__global__ void __launch_bounds__(THREADS, 1)
+    wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                 __grid_constant__ const CUtensorMap tr, Plan p, E ep) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* ring = smem_raw + ((kAlign - (raw & (kAlign - 1))) & (kAlign - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + RING_BYTES);
+  uint64_t* empty = full + kStages;
+  typename E::Smem& es = *reinterpret_cast<typename E::Smem*>(empty + kStages);
+
+  const int begin = (int)((long long)p.items * blockIdx.x / gridDim.x);
+  const int end = (int)((long long)p.items * (blockIdx.x + 1) / gridDim.x);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warpgroup = threadIdx.x / 128;
+  if (warpgroup == kConsumers) {
+    // ---- producer: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 128 * kConsumers) {
+      int stage = 0;
+      unsigned phase = 0;
+      for (int i = begin; i < end; ++i) {
+        const Item it = item_at(p, i);
+        for (int kt = 0; kt < p.kt_n; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], STAGE_BYTES);
+          unsigned char* dst = ring + stage * STAGE_BYTES;
+          tma_load(dst, &tq, kt * BK, it.q_tile * BM, &full[stage]);
+          tma_load(dst + A_BYTES, &tr, kt * BK, it.c_tile * BN, &full[stage]);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: wgmma over each stage, then the epilogue ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x & 31;
+    Lane ln;
+    ln.row0 = 64 * warpgroup + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+    ln.col0 = 2 * (lane & 3);
+    ln.owner = (lane & 3) == 0;
+    ep.begin(es, ln);
+    float acc[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+    const uint32_t a_off = warpgroup * 64 * BK * 2;  // this warpgroup's 64 rows
+    int stage = 0;
+    unsigned phase = 0;
+    for (int i = begin; i < end; ++i) {
+      const Item it = item_at(p, i);
+      for (int kt = 0; kt < p.kt_n; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t a = smem_u32(ring + stage * STAGE_BYTES) + a_off;
+        const uint32_t b = smem_u32(ring + stage * STAGE_BYTES + A_BYTES);
+        wgmma_fence();
+        fence_acc(acc);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)  // 16 values = 32 bytes a step
+          wgmma_m64n256k16(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk),
+                           kt > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(acc);
+        mbar_arrive(&empty[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      const int valid_cols = p.n_valid - it.c_tile * BN;
+      if (valid_cols >= BN)
+        ep.template item<false>(es, ln, acc, it.slot, valid_cols);
+      else
+        ep.template item<true>(es, ln, acc, it.slot, valid_cols);
+      if (i + 1 == end || item_at(p, i + 1).group != it.group)
+        ep.flush(es, ln, it.group * kGroup, it.tiles);
+      __syncwarp();  // converged again before the next wgmma (.aligned)
+    }
+  }
+}
+
+// Dynamic shared memory of E's kernel: alignment slack, ring, barriers,
+// the epilogue's state.
+template <class E>
+constexpr int smem_bytes() {
+  return kAlign + RING_BYTES + 2 * kStages * (int)sizeof(uint64_t) +
+         (int)sizeof(typename E::Smem);
+}
+
+template <class E>
+cudaError_t configure() {
+  return cudaFuncSetAttribute(wgmma_kernel<E>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes<E>());
+}
+
+// Blocks of E's kernel an SM holds at once (0: it cannot launch).
+template <class E>
+int resident_blocks(int device, int* blocks_per_sm) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = configure<E>();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, wgmma_kernel<E>, THREADS, smem_bytes<E>());
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, fetched through the runtime (no
+// link against libcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map of a row-major [rows, d] bf16 operand, read in [box_rows x 64]
+// boxes with the 128-byte swizzle; out-of-bounds elements read as zero.
+inline bool encode(CUtensorMap* map, const __nv_bfloat16* base, int rows, int d,
+                   int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<__nv_bfloat16*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The plan of an [m, n_valid] call at depth d (ops/kernels.py wgmma_tiles).
+inline Plan plan(int m, int n_valid, int d) {
+  Plan p;
+  p.n_valid = n_valid;
+  p.kt_n = (d + BK - 1) / BK;
+  p.q_tiles = (m + BM - 1) / BM;
+  p.c_tiles = (n_valid + BN - 1) / BN;
+  const long long items = (long long)p.q_tiles * p.c_tiles;
+  p.items = items > INT_MAX ? -1 : (int)items;
+  return p;
+}
+
+// Launch `grid` blocks over the items of an [m, n_valid] call: q [m, d] and
+// refs [>= n_valid, d] bf16, d % 8 == 0, both bases 16-byte aligned.
+// Nothing when there are no items.
+template <class E>
+cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* refs, int m,
+                   int d, int n_valid, int grid, const E& ep, cudaStream_t s) {
+  if (m <= 0 || n_valid <= 0) return cudaSuccess;
+  const Plan p = plan(m, n_valid, d);
+  if (d <= 0 || d % 8 != 0 || p.items < 0 || grid <= 0 || grid > p.items ||
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(refs)) & 15))
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tr;
+  if (!encode(&tq, q, m, d, BM) || !encode(&tr, refs, n_valid, d, BN))
+    return cudaErrorInvalidValue;
+  cudaError_t err = configure<E>();
+  if (err != cudaSuccess) return err;
+  wgmma_kernel<E><<<grid, THREADS, smem_bytes<E>(), s>>>(tq, tr, p, ep);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+}  // namespace vsc

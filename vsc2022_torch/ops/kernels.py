@@ -19,12 +19,23 @@ and comes with:
 The four retrieval kernels take f32 or bf16 operands (q and refs of one
 dtype; the outputs stay f32 / int32). A bf16 pair launches the kernel's
 bf16 variant, counted under ``<name>.bf16``: the counterpart of the
-Pallas kernels' bf16 branch (one bf16 pass, f32 accumulation). It widens
-the operands to f32 and runs the f32 kernel's arithmetic, so its scores
-equal the f32 kernel's on the widened inputs bit for bit; a bf16 CUDA
-tensor never reaches the f32 kernel. The plain versions widen bf16 inputs
-to f32 before ``torch.matmul`` (whose bf16 product would round every
-score to bf16).
+Pallas kernels' bf16 branch (one bf16 pass, f32 accumulation). A bf16
+CUDA tensor never reaches the f32 kernel.
+
+* ``count_above``, ``pool_writer`` and ``fused_topk`` widen the bf16
+  operands to f32 and run the f32 kernel's arithmetic, so their scores
+  equal the f32 kernel's on the widened inputs, and each other's, bit for
+  bit (the pooled prune and the streaming verify need that).
+* ``row_max`` runs on the tensor cores (``ops/csrc/wgmma_gemm.cuh``: TMA,
+  wgmma, bf16 in, f32 accumulation), which sum in their own order: exact
+  on integer inputs, within a few f32 roundings of ``row_max_plain``
+  elsewhere, and no longer equal to the f32 kernel or the pool bit for
+  bit. Its only consumer is the score-normalization bias. Its rows hold a
+  multiple of 8 values (``pad_columns``); the searchers keep their noise
+  corpus so padded, and the wrapper pads whatever is not.
+
+The plain versions widen bf16 inputs to f32 before ``torch.matmul``
+(whose bf16 product would round every score to bf16).
 
 The source notes in ``ops/csrc/*.cu`` say which TPU kernel each one
 replaces, what bounds it on an H100 and what its design does about it.
@@ -35,6 +46,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from vsc2022_torch.ops import _build
@@ -44,6 +56,16 @@ SEG_KEEP = 2  # entries the pool keeps per segment
 # Query rows and ref columns of one row_max / count_above / fused_topk work
 # item (reduce_gemm.cuh): 128 rows by one 128-column pool segment.
 REDUCE_TILE = 128
+
+# Query rows and corpus rows of one work item of the tensor-core product
+# (wgmma_gemm.cuh, row_max.bf16), and the query tiles of one group: a
+# block walks a group's corpus tiles with the group's query tiles inner,
+# so each corpus tile comes from HBM about once per group.
+WGMMA_ROWS = 128
+WGMMA_COLS = 256
+WGMMA_GROUP = 8
+# bf16 values per 16 bytes: TMA wants rows whose stride is a multiple.
+ROW_ALIGN = 8
 
 # Elements of one score chunk in the plain versions (512 MB of f32).
 PLAIN_CHUNK_ELEMENTS = 1 << 27
@@ -75,12 +97,13 @@ def _row_chunk(n_cols: int) -> int:
 
 def row_max_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
     """max_j q·refs[j]ᵀ over j < n_valid, per row ([M] f32; −inf when
-    n_valid == 0)."""
-    m = q.shape[0]
+    n_valid == 0). Pad columns of refs past q's width are left out."""
+    m, d = q.shape
     out = torch.full((m,), float("-inf"), dtype=torch.float32, device=q.device)
     if n_valid == 0:
         return out
-    r = refs[:n_valid].float()  # bf16 widens (exactly); f32 is returned as is
+    # bf16 widens (exactly); f32 is returned as is.
+    r = refs[:n_valid, :d].float()
     step = _row_chunk(n_valid)
     for start in range(0, m, step):
         out[start : start + step] = torch.matmul(
@@ -209,14 +232,37 @@ def chamfer_fine_sims_plain(
 _OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> None:
+def padded_width(d: int) -> int:
+    """Columns of a row of ``d`` values padded to a multiple of ROW_ALIGN."""
+    return -(-d // ROW_ALIGN) * ROW_ALIGN
+
+
+def pad_columns(x: torch.Tensor) -> torch.Tensor:
+    """[N, D] rows as a contiguous, 16-byte-aligned [N, padded_width(D)]
+    tensor whose columns past D are zero (zeros add nothing to a product);
+    ``x`` itself when it is one already."""
+    n, d = x.shape
+    width = padded_width(d)
+    if width == d and x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    out = x.new_zeros((n, width))  # the allocator aligns to 512 bytes
+    out[:, :d] = x
+    return out
+
+
+def _check(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
+           pad_ok: bool = False) -> None:
+    """``pad_ok``: refs may also have padded_width(D) columns."""
     if q.device != refs.device:
         raise ValueError(f"q on {q.device}, refs on {refs.device}")
     if q.dtype not in _OPERAND_DTYPES or refs.dtype not in _OPERAND_DTYPES:
         raise TypeError(f"f32 or bf16 only: got {q.dtype} and {refs.dtype}")
     if q.dtype != refs.dtype:
         raise TypeError(f"q and refs must share a dtype: got {q.dtype} and {refs.dtype}")
-    if q.dim() != 2 or refs.dim() != 2 or q.shape[1] != refs.shape[1]:
+    if q.dim() != 2 or refs.dim() != 2 or (
+        refs.shape[1] != q.shape[1]
+        and not (pad_ok and refs.shape[1] == padded_width(q.shape[1]))
+    ):
         raise ValueError(f"shapes {tuple(q.shape)} and {tuple(refs.shape)}")
     if not 0 <= n_valid <= refs.shape[0]:
         raise ValueError(f"n_valid {n_valid} outside [0, {refs.shape[0]}]")
@@ -262,6 +308,14 @@ def reduce_grid(m: int, n_valid: int, slots: int) -> int:
     return min(slots, row_tiles * col_tiles)
 
 
+def block_ranges(items: int, grid: int) -> List[Tuple[int, int]]:
+    """The contiguous ranges [b·W // grid, (b+1)·W // grid) of W work items
+    that the blocks of a persistent ``grid``-block launch walk (both tile
+    products): they tile the items in order and differ in length by at
+    most one."""
+    return [(b * items // grid, (b + 1) * items // grid) for b in range(grid)]
+
+
 def reduce_schedule(m: int, n_valid: int, grid: int) -> List[Tuple[int, int]]:
     """The work items [begin, end) that each block of a ``grid``-block
     launch walks, as reduce_gemm.cuh computes them: items are numbered row
@@ -269,8 +323,7 @@ def reduce_schedule(m: int, n_valid: int, grid: int) -> List[Tuple[int, int]]:
     [b·W // grid, (b+1)·W // grid) of the W items, so the ranges tile the
     items in order and differ in length by at most one."""
     row_tiles, col_tiles = reduce_tiles(m, n_valid)
-    w = row_tiles * col_tiles
-    return [(b * w // grid, (b + 1) * w // grid) for b in range(grid)]
+    return block_ranges(row_tiles * col_tiles, grid)
 
 
 def topk_first_block(item: int, items: int, grid: int) -> int:
@@ -304,19 +357,62 @@ def topk_grid(m: int, n_valid: int, kappa: int, grid: int) -> Tuple[int, int]:
     return grid, pieces
 
 
-# Resident blocks per SM of each (kernel, device, copy width), from the
-# CUDA occupancy calculator.
-_resident: Dict[Tuple[str, int, int], int] = {}
+# ---- the work plan of the tensor-core product (wgmma_gemm.cuh) -----------
 
 
-def _reduce_slots(t: torch.Tensor, name: str, vec: int) -> int:
-    """Blocks of kernel ``name`` (its C name, e.g. ``row_max_bf16``) the
-    card holds at once: SMs × resident blocks per SM."""
-    key = (name, t.device.index, vec)
+def wgmma_tiles(m: int, n_valid: int) -> Tuple[int, int]:
+    """(query tiles, corpus tiles) of an [m, n_valid] call: 128 query rows
+    by 256 corpus rows; its work items are their product."""
+    return -(-m // WGMMA_ROWS), -(-n_valid // WGMMA_COLS)
+
+
+def wgmma_item(i, m: int, n_valid: int):
+    """(group, query tile, corpus tile) of work item ``i`` (an int or an
+    integer array), as wgmma_gemm.cuh ``item_at`` numbers them: groups of
+    WGMMA_GROUP query tiles (the last may hold fewer), then corpus tiles,
+    then the group's query tiles."""
+    q_tiles, c_tiles = wgmma_tiles(m, n_valid)
+    per_group = c_tiles * WGMMA_GROUP
+    group = i // per_group
+    local = i - group * per_group
+    tiles = np.minimum(WGMMA_GROUP, q_tiles - group * WGMMA_GROUP)
+    c_tile = local // tiles
+    return group, group * WGMMA_GROUP + (local - c_tile * tiles), c_tile
+
+
+def wgmma_grid(m: int, n_valid: int, slots: int) -> int:
+    """Blocks of one launch: one wave of ``slots``, at most the items."""
+    q_tiles, c_tiles = wgmma_tiles(m, n_valid)
+    return min(slots, q_tiles * c_tiles)
+
+
+def wgmma_corpus_passes(m: int, n_valid: int, grid: int) -> float:
+    """Corpus tiles the blocks of a ``grid``-block launch fetch, over the
+    corpus tiles: a block fetches a tile when its item's corpus tile
+    differs from its previous item's (consecutive items find it in L2).
+    The row-tile-major order of reduce_gemm.cuh fetches the corpus once
+    per query tile."""
+    q_tiles, c_tiles = wgmma_tiles(m, n_valid)
+    fetched = 0
+    for begin, end in block_ranges(q_tiles * c_tiles, grid):
+        _, _, c = wgmma_item(np.arange(begin, end), m, n_valid)
+        fetched += int(np.count_nonzero(np.diff(c))) + int(end > begin)
+    return fetched / c_tiles if c_tiles else 0.0
+
+
+# Resident blocks per SM of each (kernel, device, occupancy arguments),
+# from the CUDA occupancy calculator.
+_resident: Dict[tuple, int] = {}
+
+
+def _occupancy_slots(t: torch.Tensor, name: str, *args: int) -> int:
+    """Blocks of kernel ``name`` (its C name) the card holds at once: SMs
+    × ``vsc_<name>_occupancy(device, *args, &blocks)``."""
+    key = (name, t.device.index, *args)
     if key not in _resident:
         blocks = ctypes.c_int(0)
         rc = getattr(_build.library(), f"vsc_{name}_occupancy")(
-            t.device.index, vec, ctypes.addressof(blocks)
+            t.device.index, *args, ctypes.addressof(blocks)
         )
         _raise_on(rc, name)
         if blocks.value < 1:
@@ -324,6 +420,17 @@ def _reduce_slots(t: torch.Tensor, name: str, vec: int) -> int:
         _resident[key] = blocks.value
     sms = torch.cuda.get_device_properties(t.device).multi_processor_count
     return sms * _resident[key]
+
+
+def _reduce_slots(t: torch.Tensor, name: str, vec: int) -> int:
+    """Slots of a reduce_gemm.cuh kernel (e.g. ``count_above_bf16``) with
+    16-byte copies if ``vec``."""
+    return _occupancy_slots(t, name, vec)
+
+
+def _wgmma_slots(t: torch.Tensor) -> int:
+    """Slots of the row_max.bf16 kernel (wgmma_gemm.cuh)."""
+    return _occupancy_slots(t, "row_max_bf16")
 
 
 def _reduce_plan(name: str, q: torch.Tensor, refs: torch.Tensor,
@@ -345,24 +452,42 @@ def _reduce_plan(name: str, q: torch.Tensor, refs: torch.Tensor,
 
 
 def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
-    """Fused q·refsᵀ row max over the first ``n_valid`` columns, [M] f32."""
+    """Fused q·refsᵀ row max over the first ``n_valid`` columns, [M] f32.
+    A bf16 ``refs`` may carry ``pad_columns``' zero pad columns
+    (padded_width(D) columns for q's D), as the searchers stage it."""
     n_valid = int(n_valid)
-    _check(q, refs, n_valid)
+    bf16 = q.dtype == torch.bfloat16
+    _check(q, refs, n_valid, pad_ok=bf16)
     if q.device.type == "cpu":
         return row_max_plain(q, refs, n_valid)
     m, d = q.shape
     out = torch.empty((m,), dtype=torch.float32, device=q.device)
     if m == 0:
         return out
-    key, cname = _variant("row_max", q)
-    vec, grid = _reduce_plan(cname, q, refs, n_valid)
     keys = torch.empty((m,), dtype=torch.int32, device=q.device)
-    rc = getattr(_build.library(), f"vsc_{cname}")(
+    lib = _build.library()
+    if bf16:
+        if d == 0:
+            raise ValueError("row_max_bf16: the kernel takes D >= 1")
+        # Queries are padded per call (no copy when they are padded
+        # already), refs only when the caller did not stage them padded.
+        q, refs = pad_columns(q), pad_columns(refs)
+        grid = wgmma_grid(m, n_valid, _wgmma_slots(q))
+        rc = lib.vsc_row_max_bf16(
+            q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0],
+            q.shape[1], n_valid, grid, keys.data_ptr(), out.data_ptr(),
+            _stream(q),
+        )
+        _raise_on(rc, "row_max_bf16")
+        launches["row_max" + BF16] += 1
+        return out
+    vec, grid = _reduce_plan("row_max", q, refs, n_valid)
+    rc = lib.vsc_row_max(
         q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0], d,
         n_valid, vec, grid, keys.data_ptr(), out.data_ptr(), _stream(q),
     )
-    _raise_on(rc, cname)
-    launches[key] += 1
+    _raise_on(rc, "row_max")
+    launches["row_max"] += 1
     return out
 
 

@@ -207,6 +207,9 @@ class SimilaritySearcher:
         # Rounded to bf16 (nearest even) on the device, in the copy.
         self._refs[: self.n_refs] = refs_t.to(self.device)
         self._ref_norm_max = _max_row_norm(self._refs)
+        # row_max's copy of a bf16 corpus (kernels.pad_columns), built on
+        # first use; dropped whenever the corpus changes.
+        self._row_max_copy: Optional[torch.Tensor] = None
         self.last_stats: dict = {}
 
     def _zeros(self, n_rows: int) -> torch.Tensor:
@@ -239,6 +242,7 @@ class SimilaritySearcher:
             self._ref_norm_max, _max_row_norm(refs[self.n_refs : total])
         )
         self._refs, self.n_refs = refs, total
+        self._row_max_copy = None
 
     def keep_rows(self, keep_idx) -> None:
         """Shrink the staged corpus to exactly these surviving rows
@@ -252,6 +256,7 @@ class SimilaritySearcher:
         refs[:total] = self._refs.index_select(0, idx)
         self._refs, self.n_refs = refs, total
         self._ref_norm_max = _max_row_norm(refs)
+        self._row_max_copy = None
 
     def _stage_queries(self, queries) -> torch.Tensor:
         """The queries on the device as contiguous rows of the staged
@@ -272,11 +277,24 @@ class SimilaritySearcher:
 
     # ---- per-row searches ------------------------------------------------
 
+    def row_max_refs(self) -> torch.Tensor:
+        """The staged corpus as the ``row_max`` kernel reads it: an f32
+        corpus as staged; a bf16 one as a zero-padded copy whose rows hold
+        a multiple of 8 values (``kernels.pad_columns``; the staged corpus
+        itself when its D is one), made on first use and kept until
+        ``append_rows`` or ``keep_rows`` changes the corpus. The other
+        kernels read the staged corpus."""
+        if self.torch_dtype != torch.bfloat16:
+            return self._refs
+        if self._row_max_copy is None:
+            self._row_max_copy = kernels.pad_columns(self._refs)
+        return self._row_max_copy
+
     def row_nn(self, queries) -> np.ndarray:
         """Best score per row (k=1), e.g. for score normalization; the
         ``row_max`` kernel on the device."""
         q = self._stage_queries(queries)
-        return kernels.row_max(q, self._refs, self.n_refs).cpu().numpy()
+        return kernels.row_max(q, self.row_max_refs(), self.n_refs).cpu().numpy()
 
     def row_topk(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Exact per-row top-k: (scores [Nq, k], idx [Nq, k]), best-first,
