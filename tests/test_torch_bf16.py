@@ -153,6 +153,7 @@ def test_bf16_row_nn_identical_to_jax_on_integers():
 @pytest.mark.parametrize("nq,n,d,k,kappa", [
     (31, 4100, 20, 700, 16),  # planted ties, several deficient rows
     (13, 4096, 12, 60, 4),  # k > nq·κ: τ = −inf, every row searched
+    (17, 2100, 1025, 300, 8),  # the DnS width: the stream reads a padded copy
 ])
 def test_bf16_global_topk_identical_to_jax_on_integers(monkeypatch, mode, nq, n, d, k,
                                                        kappa):
@@ -265,37 +266,114 @@ def test_bf16_sn_searcher_identical_to_jax():
 
 @pytest.mark.parametrize("d", [13, 16])
 def test_bf16_row_max_copy_built_on_first_use_and_dropped_on_change(d):
-    # row_max.bf16 reads rows of a multiple of 8 values: the searcher keeps
-    # a zero-padded copy of its bf16 corpus (the corpus itself when D is a
-    # multiple of 8), made on first use and dropped when the corpus changes.
+    # The tensor-core kernels (row_max.bf16 here) read rows of a multiple of
+    # 8 values: the searcher keeps a zero-padded copy of its bf16 corpus (the
+    # corpus itself when D is a multiple of 8), made on first use and
+    # dropped when the corpus changes.
     rng = np.random.RandomState(d)
     r = rng.randint(-3, 4, size=(300, d)).astype(np.float32)
     q = rng.randint(-3, 4, size=(9, d)).astype(np.float32)
     ts = TorchSearcher(r, dtype=BF16, device="cpu")
-    assert ts._row_max_copy is None
+    assert ts._tc_copy is None
     want = JaxSearcher(r, dtype=BF16).row_nn(q)
     np.testing.assert_array_equal(ts.row_nn(q), want)
-    copy = ts._row_max_copy
+    copy = ts._tc_copy
     width = kernels.padded_width(d)
     assert copy.dtype == torch.bfloat16 and copy.shape == (ts._refs.shape[0], width)
     assert (copy is ts._refs) == (width == d)
     assert torch.equal(copy[:, :d], ts._refs) and not copy[:, d:].any()
-    assert ts.row_max_refs() is copy  # kept
+    assert ts.tensor_core_refs() is copy  # kept
     new = rng.randint(-3, 4, size=(40, d)).astype(np.float32)
     ts.append_rows(new)
-    assert ts._row_max_copy is None
+    assert ts._tc_copy is None
     both = np.concatenate([r, new])
     np.testing.assert_array_equal(ts.row_nn(q), JaxSearcher(both, dtype=BF16).row_nn(q))
-    assert ts._row_max_copy.shape[0] == ts._refs.shape[0]
+    assert ts._tc_copy.shape[0] == ts._refs.shape[0]
     keep = np.arange(0, 340, 3)
     ts.keep_rows(keep)
-    assert ts._row_max_copy is None
+    assert ts._tc_copy is None
     np.testing.assert_array_equal(ts.row_nn(q),
                                   JaxSearcher(both[keep], dtype=BF16).row_nn(q))
-    assert torch.equal(ts.row_max_refs()[:, :d], ts._refs)
+    assert torch.equal(ts.tensor_core_refs()[:, :d], ts._refs)
     # An f32 corpus is read as staged.
     f32 = TorchSearcher(r, device="cpu")
-    assert f32.row_max_refs() is f32._refs and f32._row_max_copy is None
+    assert f32.tensor_core_refs() is f32._refs and f32._tc_copy is None
+
+
+@pytest.mark.parametrize("d", [512, 1025])
+def test_tensor_core_copy_built_on_first_use_and_dropped_on_change(monkeypatch, d):
+    # The streaming collection reads the tensor-core copy: the staged corpus
+    # itself at D = 512 (no memory), a 1,032-column copy at D = 1025; built
+    # by the first search and dropped when the corpus changes.
+    monkeypatch.setenv(COLLECTION_ENV, "stream")
+    rng = np.random.RandomState(d)
+    r = rng.randint(-3, 4, size=(300, d)).astype(np.float32)
+    q = rng.randint(-3, 4, size=(9, d)).astype(np.float32)
+    ts = TorchSearcher(r, dtype=BF16, device="cpu")
+    assert ts._tc_copy is None
+    np.testing.assert_array_equal(ts.global_topk(q, 50)[1],
+                                  JaxSearcher(r, dtype=BF16).global_topk(q, 50)[1])
+    copy = ts._tc_copy
+    assert copy.shape == (ts._refs.shape[0], kernels.padded_width(d))
+    assert (copy is ts._refs) == (d == 512)
+    assert torch.equal(copy[:, :d], ts._refs) and not copy[:, d:].any()
+    ts.global_topk(q, 50)
+    assert ts._tc_copy is copy  # kept
+    new = rng.randint(-3, 4, size=(40, d)).astype(np.float32)
+    ts.append_rows(new)
+    assert ts._tc_copy is None
+    both = np.concatenate([r, new])
+    for e, g in zip(JaxSearcher(both, dtype=BF16).global_topk(q, 50), ts.global_topk(q, 50)):
+        np.testing.assert_array_equal(g, e)
+    assert ts._tc_copy.shape[0] == ts._refs.shape[0]
+    keep = np.arange(0, 340, 3)
+    ts.keep_rows(keep)
+    assert ts._tc_copy is None
+    for e, g in zip(JaxSearcher(both[keep], dtype=BF16).global_topk(q, 50),
+                    ts.global_topk(q, 50)):
+        np.testing.assert_array_equal(g, e)
+
+
+@pytest.mark.parametrize("d", [16, 13])
+def test_collections_hand_each_kernel_its_pair(monkeypatch, d):
+    # The stream pads the queries once and hands fused_topk and
+    # count_above(pair="stream") the same tensors, over the tensor-core
+    # copy; the pooled collection asks for pair="pooled" over the staged
+    # corpus, beside pool_writer.
+    calls = []
+    real = {name: getattr(kernels, name)
+            for name in ("fused_topk", "count_above", "pool_writer")}
+
+    def spy(name):
+        def call(q, refs, *args, **kwargs):
+            calls.append((name, q, refs, kwargs.get("pair")))
+            return real[name](q, refs, *args, **kwargs)
+        return call
+
+    for name in real:
+        monkeypatch.setattr(kernels, name, spy(name))
+    q, r = _ints((11, d), 30 + d), _ints((3000, d), 31 + d)
+    r[10:20] = 3.0
+    q[1] = q[4] = 3.0
+    ts = TorchSearcher(r, dtype=BF16, device="cpu")
+    for mode in ("stream", "pooled"):
+        monkeypatch.setenv(COLLECTION_ENV, mode)
+        calls.clear()
+        want = JaxSearcher(r, dtype=BF16).global_topk(q, 100, kappa=8)
+        for e, g in zip(want, ts.global_topk(q, 100, kappa=8)):
+            np.testing.assert_array_equal(g, e)
+        assert ts.last_stats["mode"] == mode
+        names = [c[0] for c in calls]
+        if mode == "stream":
+            assert names == ["fused_topk", "count_above"]
+            (_, q_top, r_top, _), (_, q_count, r_count, pair) = calls
+            assert pair == "stream"
+            assert q_count is q_top and r_count is r_top is ts.tensor_core_refs()
+            assert q_top.shape[1] == kernels.padded_width(d)
+        else:
+            assert names == ["pool_writer", "count_above"]
+            (_, _, r_pool, _), (_, _, r_count, pair) = calls
+            assert pair == "pooled" and r_count is r_pool is ts._refs
 
 
 def test_bf16_sn_normalize_queries_identical_to_jax_at_odd_width():
@@ -308,7 +386,7 @@ def test_bf16_sn_normalize_queries_identical_to_jax_at_odd_width():
     ts = TorchSN(refs, noise, beta=1.2, dtype=BF16, device="cpu")
     np.testing.assert_array_equal(ts.normalize_queries(q).numpy(),
                                   np.asarray(js.normalize_queries(q)))
-    assert ts.noise_searcher._row_max_copy.shape[1] == 16
+    assert ts.noise_searcher._tc_copy.shape[1] == 16
     for e, g in zip(js.global_topk(q, 400), ts.global_topk(q, 400)):
         np.testing.assert_array_equal(g, e)
 

@@ -13,11 +13,14 @@ products in another order than cuBLAS's). On floats the retrieval kernels
 are held against each other bit for bit: they run the same f32 FMA chain
 per score, so row_max equals the pool's best winner, count_above the
 pool's count wherever the pool holds every entry >= tau, and fused_topk
-the pool's best winners. The bf16 variants of count_above, pool_writer and
-fused_topk are held bit for bit against the f32 kernels on the widened
-inputs, and against each other. row_max.bf16 runs on the tensor cores
-(wgmma_gemm.cuh), which sum in their own order: exact on integers, within
-BF16_ROW_MAX_ATOL of its plain version on unit-norm floats.
+the pool's best winners. The bf16 variants split by the pair the searcher
+compares. The pooled pair (pool_writer.bf16 and the CUDA-core count,
+count_above(pair="pooled")) is held bit for bit against the f32 kernels on
+the widened inputs, and against each other. The streaming pair
+(fused_topk.bf16 and count_above.bf16) and row_max.bf16 run on the tensor
+cores (wgmma_gemm.cuh), which sum in their own order: exact on integers,
+within BF16_TC_ATOL of their plain versions on unit-norm floats, and bit
+for bit against each other.
 """
 
 import math
@@ -76,7 +79,7 @@ def test_kernels_match_plain(cuda_device, m, n, d, n_valid):
     assert kernels.launches == {
         "row_max": 1, "count_above": 1, "pool_writer": 1, "fused_topk": 0,
         "chamfer": 0, "row_max.bf16": 0, "count_above.bf16": 0,
-        "pool_writer.bf16": 0, "fused_topk.bf16": 0,
+        "pool_writer.bf16": 0, "fused_topk.bf16": 0, "count_above.bf16.pool": 0,
     }
 
 
@@ -342,11 +345,14 @@ def test_global_topk_forced_modes_cuda_equal_cpu(cuda_device, monkeypatch, mode)
 
 
 BF16 = torch.bfloat16
-# row_max.bf16 against the widened f32 product on unit-norm rows: the
-# tensor cores add the D exact bf16 products in f32 in another order than
-# cuBLAS (and not as one sequential IEEE chain); each score is a sum of
-# magnitude <= 1, a few f32 roundings (2^-24 each) apart.
-BF16_ROW_MAX_ATOL = 1e-5
+# The tensor-core kernels (row_max.bf16, count_above.bf16, fused_topk.bf16)
+# against the widened f32 product: the tensor cores add the D exact bf16
+# products in f32 in another order than cuBLAS (and not as one sequential
+# IEEE chain). On an H100 these tests' unit-norm rows err by at most
+# 6.0e-7, chip_smoke.py's DnS request (D = 1025, queries with |q| > 1 from
+# the bias column) by 2.92e-6: 1e-5 is chip_smoke.BF16_TC_ATOL, 3.4x above
+# the largest reading.
+BF16_TC_ATOL = 1e-5
 
 
 def _bf16_rows(rng, n, d, cuda_device, offset=0):
@@ -370,31 +376,116 @@ def _bf16_case(cuda_device, d, offset, seed):
     return q, r, 4990
 
 
+def _plain_scores(q, r, n_valid):
+    """The widened f32 product, columns >= n_valid at -inf, padded with -inf
+    to whole 128-column segments: [M, N/128, 128]."""
+    s = torch.matmul(q.float(), r[:, : q.shape[1]].float().T)
+    s[:, n_valid:] = float("-inf")
+    pad = -s.shape[1] % kernels.SEG_LANES
+    s = torch.nn.functional.pad(s, (0, pad), value=float("-inf"))
+    return s.view(s.shape[0], -1, kernels.SEG_LANES)
+
+
+def _check_count_within(got, q, r, tau, n_valid, tol):
+    """A count of scores within tol of the plain ones: between the plain
+    counts at tau + tol and tau - tol."""
+    lo = kernels.count_above_plain(q, r, tau + tol, n_valid)
+    hi = kernels.count_above_plain(q, r, tau - tol, n_valid)
+    assert bool(((lo <= got) & (got <= hi)).all())
+
+
+def _check_topk_within(got_v, got_i, q, r, n_valid, kappa, tol):
+    """fused_topk.bf16 on floats against the widened product: each value
+    within tol of the plain score of its (row, id); the sorted values within
+    tol of the plain version's (order statistics move at most tol); and the
+    same ids wherever the plain kappa-th and (kappa + 1)-th winners lie more
+    than 2 tol apart and no segment's second winner above the boundary has
+    a third entry within 2 tol (the only ways a set can change). Returns the
+    rows held to the same ids."""
+    s3 = _plain_scores(q, r, n_valid)
+    m = q.shape[0]
+    finite = torch.isfinite(got_v)
+    want_v, want_i = kernels.fused_topk_plain(q, r, n_valid, kappa)
+    assert torch.equal(torch.isfinite(want_v), finite)
+    if finite.any():
+        rows = torch.arange(m, device=q.device)[:, None].expand_as(got_i)
+        at = s3.view(m, -1)[rows[finite], got_i[finite].long()]
+        assert float((at - got_v[finite]).abs().max()) <= tol
+        assert float((want_v[finite] - got_v[finite]).abs().max()) <= tol
+    top3 = torch.topk(s3, 3, dim=2).values  # [M, segments, 3]
+    winners = torch.sort(top3[:, :, :2].reshape(m, -1), dim=1, descending=True).values
+    last = winners[:, kappa - 1] if winners.shape[1] >= kappa else winners[:, -1]
+    after = (winners[:, kappa] if winners.shape[1] > kappa
+             else torch.full_like(last, float("-inf")))
+    swap = ((top3[:, :, 1] - top3[:, :, 2] <= 2 * tol)
+            & (top3[:, :, 1] >= last[:, None] - 2 * tol)).any(1)
+    clear = (last - after > 2 * tol) & ~swap
+    got_sorted = torch.sort(torch.where(finite, got_i, -1), dim=1).values
+    want_sorted = torch.sort(torch.where(finite, want_i, -1), dim=1).values
+    assert torch.equal(got_sorted[clear], want_sorted[clear])
+    return clear
+
+
+def _segments_above(q, r, n_valid, tau):
+    """Per row, the most plain scores >= tau in any one segment."""
+    return (_plain_scores(q, r, n_valid) >= tau).sum(2).amax(1)
+
+
+def _check_stream_pair(q, r, n_valid, kappa=32, k_per_row=3):
+    """The streaming pair on the tensor-core copy, bit for bit: row_max.bf16
+    is fused_topk.bf16's best value, and with tau the global k-th candidate,
+    count_above.bf16 is the number of candidates >= tau on every row whose
+    set is not full at tau and where no segment holds more than two plain
+    scores >= tau - 2 BF16_TC_ATOL (the pool then holds every entry >= tau),
+    and no less elsewhere."""
+    rt = kernels.pad_columns(r)
+    m = q.shape[0]
+    top_v, _ = kernels.fused_topk(q, rt, n_valid, kappa)
+    best = kernels.row_max(q, rt, n_valid)
+    assert torch.equal(top_v[:, 0].view(torch.int32), best.view(torch.int32))
+    tau = float(torch.topk(top_v.reshape(-1), k_per_row * m).values[-1])
+    kept = (top_v >= tau).sum(1)
+    counts = kernels.count_above(q, rt, tau, n_valid, pair="stream").long()
+    clean = ((_segments_above(q, r, n_valid, tau - 2 * BF16_TC_ATOL) <= 2)
+             & (top_v[:, -1] < tau))
+    assert clean.any()
+    assert torch.equal(counts[clean], kept[clean])
+    assert bool((counts >= kept).all())
+    return clean
+
+
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("d", [511, 512, 513, 1025])
 def test_bf16_kernels_bit_identical_to_f32_on_widened_inputs(cuda_device, d, offset):
+    # The pooled pair runs the f32 kernels' fmaf chain on the widened
+    # operands: bit for bit. The streaming pair and row_max.bf16 sum on the
+    # tensor cores: within BF16_TC_ATOL.
     q, r, n_valid = _bf16_case(cuda_device, d, offset, 40 + d)
     assert (q.data_ptr() % 16 == 0) == (offset == 0)
     qf, rf = q.float(), r.float()
     kernels.reset_launches()
     torch.testing.assert_close(kernels.row_max(q, r, n_valid),
                                kernels.row_max(qf, rf, n_valid),
-                               rtol=0, atol=BF16_ROW_MAX_ATOL)
+                               rtol=0, atol=BF16_TC_ATOL)
     tau = 0.1
-    assert torch.equal(kernels.count_above(q, r, tau, n_valid),
-                       kernels.count_above(qf, rf, tau, n_valid))
+    assert torch.equal(kernels.count_above(q, r, tau, n_valid, pair="pooled"),
+                       kernels.count_above(qf, rf, tau, n_valid, pair="pooled"))
+    _check_count_within(kernels.count_above(q, r, tau, n_valid, pair="stream"),
+                        qf, rf, tau, n_valid, BF16_TC_ATOL)
     pv, pi = kernels.pool_writer(q, r, n_valid)
     ev, ei = kernels.pool_writer(qf, rf, n_valid)
     assert torch.equal(pv.view(torch.int32), ev.view(torch.int32))
     assert torch.equal(pi, ei)
     for kappa in (5, 32, 100):
-        got_v, got_i = kernels.fused_topk(q, r, n_valid, kappa)
-        want_v, want_i = kernels.fused_topk(qf, rf, n_valid, kappa)
-        assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+        got_v, _ = kernels.fused_topk(q, r, n_valid, kappa)
+        want_v, _ = kernels.fused_topk(qf, rf, n_valid, kappa)
+        torch.testing.assert_close(got_v, want_v, rtol=0, atol=BF16_TC_ATOL)
     # Each bf16 call ran its bf16 variant, never the f32 kernel.
-    for name, calls in (("row_max", 1), ("count_above", 1), ("pool_writer", 1),
-                        ("fused_topk", 3)):
+    for name, calls in (("row_max", 1), ("pool_writer", 1), ("fused_topk", 3)):
         assert kernels.launches[name] == kernels.launches[name + ".bf16"] == calls
+    assert kernels.launches["count_above"] == 1  # the stream's is held by the plain version
+    assert kernels.launches["count_above.bf16"] == 1
+    assert kernels.launches["count_above.bf16.pool"] == 1
 
 
 @pytest.mark.parametrize("offset", [0, 1])
@@ -402,21 +493,20 @@ def test_bf16_kernels_bit_identical_to_f32_on_widened_inputs(cuda_device, d, off
 def test_bf16_kernels_bit_identical_to_each_other(cuda_device, d, offset):
     q, r, n_valid = _bf16_case(cuda_device, d, offset, 60 + d)
     m = q.shape[0]
-    pv, pi = kernels.pool_writer(q, r, n_valid)
-    best = pv.view(m, -1).amax(1)
-    torch.testing.assert_close(kernels.row_max(q, r, n_valid), best,
-                               rtol=0, atol=BF16_ROW_MAX_ATOL)
-    got_v, got_i = kernels.fused_topk(q, r, n_valid, 32)
-    want_v, want_i = kernels.ordered_topk(pv.view(m, -1), pi.view(m, -1), 32)
-    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    # The pooled pair: the count equals the pool's wherever the pool holds
+    # every entry >= tau.
+    pv, _ = kernels.pool_writer(q, r, n_valid)
     tau = float(torch.topk(pv.reshape(-1), 3 * m).values[-1])
     above = pv >= tau
     pool_counts = above.view(m, -1).sum(1)
     clean = above.all(2).sum(1) == 0
-    counts = kernels.count_above(q, r, tau, n_valid).long()
+    counts = kernels.count_above(q, r, tau, n_valid, pair="pooled").long()
     assert clean.any() and (~clean).any()
     assert torch.equal(counts[clean], pool_counts[clean])
     assert bool((counts >= pool_counts).all())
+    # The streaming pair and row_max.bf16 on the tensor cores.
+    clean = _check_stream_pair(q, r, n_valid)
+    assert (~clean).any()  # the planted ties crowd segment 0
 
 
 @pytest.mark.parametrize("m", [1, 65, 300])
@@ -434,8 +524,10 @@ def test_bf16_kernels_exact_at_ragged_shapes(cuda_device, d, m):
     for n_valid in (0, 1, RAGGED_N - 1, RAGGED_N):
         assert torch.equal(kernels.row_max(qc, rc, n_valid).cpu(),
                            kernels.row_max_plain(q, r, n_valid))
-        assert torch.equal(kernels.count_above(qc, rc, tau, n_valid).cpu(),
-                           kernels.count_above_plain(q, r, tau, n_valid))
+        want = kernels.count_above_plain(q, r, tau, n_valid)
+        for pair in kernels.PAIRS:
+            assert torch.equal(kernels.count_above(qc, rc, tau, n_valid, pair=pair).cpu(),
+                               want)
         pv, pi = kernels.pool_writer(qc, rpc, n_valid)
         ev, ei = kernels.pool_writer_plain(q, rp, n_valid)
         finite = torch.isfinite(ev)
@@ -449,11 +541,13 @@ def test_bf16_kernels_exact_at_ragged_shapes(cuda_device, d, m):
 @pytest.mark.parametrize("slots", [1, 7])
 def test_bf16_kernels_any_grid(cuda_device, monkeypatch, slots):
     monkeypatch.setattr(kernels, "_reduce_slots", lambda t, name, vec: slots)
+    monkeypatch.setattr(kernels, "_wgmma_slots", lambda t, *args: slots)
     q = _ints((300, 40), 52).to(BF16).to(cuda_device)
     r = _ints((RAGGED_N, 40), 53).to(BF16).to(cuda_device)
     assert torch.equal(kernels.row_max(q, r, 129), kernels.row_max_plain(q, r, 129))
-    assert torch.equal(kernels.count_above(q, r, 20.0, RAGGED_N),
-                       kernels.count_above_plain(q, r, 20.0, RAGGED_N))
+    for pair in kernels.PAIRS:
+        assert torch.equal(kernels.count_above(q, r, 20.0, RAGGED_N, pair=pair),
+                           kernels.count_above_plain(q, r, 20.0, RAGGED_N))
     got_v, got_i = kernels.fused_topk(q, r, RAGGED_N, 700)
     want_v, want_i = kernels.fused_topk_plain(q, r, RAGGED_N, 700)
     assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
@@ -469,6 +563,8 @@ def test_bf16_wrappers_raise_on_mixed_dtypes(cuda_device):
                  lambda: kernels.fused_topk(q.to(BF16), r.float(), 100, 4)):
         with pytest.raises(TypeError, match="share a dtype"):
             call()
+    with pytest.raises(ValueError, match="pair"):
+        kernels.count_above(q.to(BF16), r, 0.0, 100, pair="pool")
     assert set(kernels.launches.values()) == {0}
 
 
@@ -538,7 +634,7 @@ def test_bf16_row_max_floats_within_tolerance(cuda_device, d, offset):
     for n_valid in (8999, 9000):
         got = kernels.row_max(q, r, n_valid)
         want = kernels.row_max_plain(q, r, n_valid)
-        torch.testing.assert_close(got, want, rtol=0, atol=BF16_ROW_MAX_ATOL)
+        torch.testing.assert_close(got, want, rtol=0, atol=BF16_TC_ATOL)
 
 
 def test_bf16_searcher_row_nn_equals_cpu_on_integers(cuda_device):
@@ -549,6 +645,169 @@ def test_bf16_searcher_row_nn_equals_cpu_on_integers(cuda_device):
     q, r = _ints((300, 511), 76).numpy(), _ints((5000, 511), 77).numpy()
     gpu = SimilaritySearcher(r, dtype="bfloat16", device=cuda_device)
     got = gpu.row_nn(q)
-    assert gpu._row_max_copy.shape == (gpu._refs.shape[0], 512)
+    assert gpu._tc_copy.shape == (gpu._refs.shape[0], 512)
     want = SimilaritySearcher(r, dtype="bfloat16", device="cpu").row_nn(q)
     np.testing.assert_array_equal(got, want)
+
+
+# ---- the streaming pair on the tensor cores (wgmma_gemm.cuh) -----------------
+
+
+def _stream_pair_exact(q, refs, r, n_valid, taus, kappas):
+    """count_above.bf16 and fused_topk.bf16 on (q, refs) against their plain
+    versions on (q, r), exactly, one launch each and no other kernel."""
+    for tau in taus:
+        kernels.reset_launches()
+        got = kernels.count_above(q, refs, tau, n_valid)
+        assert torch.equal(got, kernels.count_above_plain(q, r, tau, n_valid))
+        assert kernels.launches["count_above.bf16"] == int(q.shape[0] > 0)
+        assert sum(kernels.launches.values()) == kernels.launches["count_above.bf16"]
+    for kappa in kappas:
+        kernels.reset_launches()
+        got_v, got_i = kernels.fused_topk(q, refs, n_valid, kappa)
+        want_v, want_i = kernels.fused_topk_plain(q, r, n_valid, kappa)
+        assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+        assert kernels.launches["fused_topk.bf16"] == int(q.shape[0] > 0)
+        assert sum(kernels.launches.values()) == kernels.launches["fused_topk.bf16"]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m", [1, 65, 300, 9000])
+@pytest.mark.parametrize("d", [1, 33, 511, 512, 513, 1025])
+def test_stream_pair_exact_on_integers(cuda_device, d, m, offset):
+    # Every partial sum is an integer below 2^24: exact in any order, ties
+    # included (the lower column first).
+    q = _bf16_ints((m, d), 90 + d, cuda_device, offset)
+    r = _bf16_ints((RAGGED_N, d), 91 + d, cuda_device, offset)
+    r[[3, 700, 701]] = 3.0
+    q[0] = 3.0
+    tau = float(4 * math.isqrt(d))
+    for refs in (r, kernels.pad_columns(r)):  # as given, and as staged
+        for n_valid in (0, 1, 1000, RAGGED_N):  # 1000: not a multiple of 256
+            _stream_pair_exact(q, refs, r, n_valid, (tau, float("-inf")), (32,))
+
+
+@pytest.mark.parametrize("kappa", [1, 5, 32, 64, 65, 100])
+def test_stream_fused_topk_exact_at_every_kappa(cuda_device, kappa):
+    # The wrapper keeps the sets in shared memory up to
+    # WGMMA_SMEM_SETS_KAPPA_MAX and in the output above it; below it the
+    # output placement, forced, is exact too.
+    q = _bf16_ints((1100, 40), 92, cuda_device)
+    r = _bf16_ints((5000, 40), 93, cuda_device)
+    r[[5, 7, 40, 300, 301]] = 3.0  # ties in and across segments
+    q[:3] = 3.0
+    _stream_pair_exact(q, r, r, 4900, (), (kappa,))
+    if kappa <= kernels.WGMMA_SMEM_SETS_KAPPA_MAX:
+        got = kernels._fused_topk_bf16(q, r, 4900, kappa, smem_sets=False)
+        want = kernels.fused_topk_plain(q, r, 4900, kappa)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            kernels._fused_topk_bf16(q, r, 4900, kappa, smem_sets=True)
+
+
+def test_stream_pair_all_equal_rows_tie_to_the_lower_column(cuda_device):
+    # Every score of a row is equal: each segment's winners are its two
+    # lowest columns, and the set takes the lowest of those.
+    q = _bf16_ints((200, 24), 94, cuda_device)
+    r = torch.ones((3000, 24), dtype=BF16, device=cuda_device)
+    for kappa in (1, 5, 32, 46):  # 46: all 23 segments' winners
+        v, i = kernels.fused_topk(q, r, 2900, kappa)
+        want_v, want_i = kernels.fused_topk_plain(q, r, 2900, kappa)
+        assert torch.equal(v, want_v) and torch.equal(i, want_i)
+        lowest = torch.tensor([128 * (c // 2) + c % 2 for c in range(kappa)],
+                              dtype=torch.int32, device=cuda_device)
+        assert torch.equal(i, lowest.expand_as(i))
+    sums = q.float().sum(1)
+    for tau in (float("-inf"), 0.0):
+        want = torch.where(sums >= tau, 2900, 0).int()
+        assert torch.equal(kernels.count_above(q, r, tau, 2900), want)
+
+
+def test_stream_pair_zero_pad_rows_do_not_leak(cuda_device):
+    # Every valid score is negative; the corpus's zero rows past n_valid,
+    # the zero rows TMA fills past the tensor and the query rows past M
+    # score 0 and must neither enter a set nor be counted.
+    q = -_bf16_ints((300, 511), 95, cuda_device).abs() - 1
+    r = torch.zeros((2048, 511), dtype=BF16, device=cuda_device)
+    r[:1900] = _bf16_ints((1900, 511), 96, cuda_device).abs() + 1
+    rp = kernels.pad_columns(r)
+    for n_valid in (1, 1000, 1900):
+        v, i = kernels.fused_topk(q, rp, n_valid, 32)
+        want_v, want_i = kernels.fused_topk_plain(q, r, n_valid, 32)
+        assert torch.equal(v, want_v) and torch.equal(i, want_i)
+        assert bool((v[torch.isfinite(v)] < 0).all())
+        assert bool((i < n_valid).all())
+        for tau in (float("-inf"), -0.5, 0.0):
+            assert torch.equal(kernels.count_above(q, rp, tau, n_valid),
+                               kernels.count_above_plain(q, r, tau, n_valid))
+
+
+@pytest.mark.parametrize("slots", [1, 3, 7, 50])
+def test_stream_pair_any_grid(cuda_device, monkeypatch, slots):
+    # Few blocks: each block's range spans several groups and corpus tiles
+    # (1,500 rows: two groups), and takes a slot in each group it touches.
+    monkeypatch.setattr(kernels, "_wgmma_slots", lambda t, *args: slots)
+    q = _bf16_ints((1500, 40), 97, cuda_device)
+    r = _bf16_ints((RAGGED_N, 40), 98, cuda_device)
+    r[[3, 700]] = 3.0
+    for n_valid in (1, 257, RAGGED_N):
+        _stream_pair_exact(q, r, r, n_valid, (20.0, float("-inf")), (4, 32, 700))
+
+
+def test_stream_fused_topk_shrinks_its_grid_to_the_scratch_ceiling(cuda_device,
+                                                                    monkeypatch):
+    m, kappa = 60, 64
+    monkeypatch.setattr(kernels, "TOPK_SCRATCH_BYTES", 8 * m * kappa * 3)
+    q = _bf16_ints((m, 16), 99, cuda_device)
+    r = _bf16_ints((20000, 16), 100, cuda_device)
+    _stream_pair_exact(q, r, r, 19000, (), (kappa,))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [511, 512, 513, 1025])
+def test_stream_pair_floats_within_tolerance(cuda_device, d, offset):
+    rng = np.random.RandomState(110 + d)
+    q = _bf16_rows(rng, 700, d, cuda_device, offset)
+    r = _bf16_rows(rng, 9000, d, cuda_device, offset)
+    r[7000:7010] = q[:10]  # exact self-matches: scores near 1
+    for n_valid in (8999, 9000):
+        for kappa in (5, 32):
+            v, i = kernels.fused_topk(q, r, n_valid, kappa)
+            assert _check_topk_within(v, i, q, r, n_valid, kappa, BF16_TC_ATOL).any()
+        _check_count_within(kernels.count_above(q, r, 0.1, n_valid), q, r, 0.1,
+                            n_valid, BF16_TC_ATOL)
+        _check_stream_pair(q, r, n_valid)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [511, 512, 513, 1025])
+def test_stream_fused_topk_placements_agree(cuda_device, d, offset):
+    # On floats the sets in the output and in shared memory hold the same
+    # winners, bit for bit (one product), both the wrapper's.
+    q, r, n_valid = _bf16_case(cuda_device, d, offset, 120 + d)
+    for kappa in (5, 32):
+        want = kernels.fused_topk(q, r, n_valid, kappa)
+        for smem_sets in (False, True):
+            got = kernels._fused_topk_bf16(q, r, n_valid, kappa, smem_sets)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_bf16_searcher_stream_hands_the_pair_the_tensor_core_copy(cuda_device):
+    # D = 1025: the searcher's padded copy (1,032 columns) feeds both
+    # kernels of the streaming pair, and global_topk equals the CPU's.
+    from vsc2022_torch.ops.similarity import SimilaritySearcher
+
+    q, r = _ints((90, 1025), 101).numpy(), _ints((6000, 1025), 102).numpy()
+    r[200:220] = 3.0
+    q[:5] = 3.0
+    gpu = SimilaritySearcher(r, dtype="bfloat16", device=cuda_device)
+    kernels.reset_launches()
+    got = gpu.global_topk(q, 2000)
+    assert gpu.last_stats["mode"] == "stream"
+    assert gpu._tc_copy.shape == (gpu._refs.shape[0], 1032)
+    assert kernels.launches["fused_topk.bf16"] == kernels.launches["count_above.bf16"] == 1
+    assert kernels.launches["count_above"] == kernels.launches["fused_topk"] == 0
+    want = SimilaritySearcher(r, dtype="bfloat16", device="cpu").global_topk(q, 2000)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

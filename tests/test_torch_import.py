@@ -131,7 +131,7 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     assert kernels.launches == {
         "row_max": 0, "count_above": 0, "pool_writer": 0, "fused_topk": 0,
         "chamfer": 0, "row_max.bf16": 0, "count_above.bf16": 0,
-        "pool_writer.bf16": 0, "fused_topk.bf16": 0,
+        "pool_writer.bf16": 0, "fused_topk.bf16": 0, "count_above.bf16.pool": 0,
     }
     with pytest.raises(ValueError, match="multiple of 128"):
         kernels.pool_writer(q, torch.ones((100, 8)), 100)

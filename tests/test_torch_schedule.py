@@ -108,7 +108,7 @@ def _c_signatures():
     sigs = {}
     for src in sorted(_build.CSRC.glob("*.cu")):
         for name, params in _SIGNATURE.findall(src.read_text()):
-            sigs[name] = [_ctype(p) for p in params.split(",")]
+            sigs[name] = [_ctype(p) for p in params.split(",") if p.strip()]
     return sigs
 
 
@@ -250,3 +250,45 @@ def test_bf16_row_max_takes_padded_refs_on_the_cpu():
         kernels.row_max(q, torch.zeros((300, 24), dtype=torch.bfloat16), 290)
     with pytest.raises(ValueError):  # only bf16 refs may carry the padding
         kernels.row_max(q.float(), kernels.pad_columns(r).float(), 290)
+
+
+def test_bf16_stream_pair_takes_padded_refs_on_the_cpu():
+    # The plain versions of count_above and fused_topk (and so the wrappers
+    # on the CPU, in both pairs) give on pad_columns' padded refs what they
+    # give on the unpadded ones.
+    rng = np.random.RandomState(4)
+    q = torch.from_numpy(rng.randint(-3, 4, (20, 13)).astype(np.float32)).bfloat16()
+    r = torch.from_numpy(rng.randint(-3, 4, (300, 13)).astype(np.float32)).bfloat16()
+    r[[5, 7, 200]] = 3.0  # ties in and across segments
+    rp = kernels.pad_columns(r)
+    assert rp.shape == (300, 16)
+    for tau in (float("-inf"), 3.0):
+        want = kernels.count_above_plain(q, r, tau, 290)
+        assert torch.equal(kernels.count_above_plain(q, rp, tau, 290), want)
+        for pair in kernels.PAIRS:
+            assert torch.equal(kernels.count_above(q, rp, tau, 290, pair=pair), want)
+    for kappa in (1, 7, 40):
+        want_v, want_i = kernels.fused_topk_plain(q, r, 290, kappa)
+        for got_v, got_i in (kernels.fused_topk_plain(q, rp, 290, kappa),
+                             kernels.fused_topk(q, rp, 290, kappa)):
+            assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    with pytest.raises(ValueError):  # only bf16 refs may carry the padding
+        kernels.count_above(q.float(), rp.float(), 0.0, 290)
+    with pytest.raises(ValueError):
+        kernels.fused_topk(q.float(), rp.float(), 290, 4)
+    with pytest.raises(ValueError, match="pair"):
+        kernels.count_above(q, r, 0.0, 290, pair="pool")
+
+
+@pytest.mark.parametrize("m,n_valid", [(9000, 240_000), (7682, 31_004), (60, 240_000)])
+def test_wgmma_topk_plans_at_the_path_shapes(m, n_valid):
+    # The streaming pair's launches at the serving, DnS and one-video
+    # shapes: one wave of 132 blocks, each corpus tile from HBM about once
+    # per group (the shared-memory sets' groups of 2: four times as often).
+    grid = kernels.wgmma_grid(m, n_valid, 132)
+    q_tiles, c_tiles = kernels.wgmma_tiles(m, n_valid)
+    assert grid == min(132, q_tiles * c_tiles)
+    for group in (kernels.WGMMA_GROUP, kernels.WGMMA_SMEM_SETS_GROUP):
+        groups = -(-q_tiles // group)
+        passes = kernels.wgmma_corpus_passes(m, n_valid, grid, group)
+        assert groups <= passes <= groups + grid / c_tiles

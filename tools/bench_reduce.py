@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the port's row_max, count_above and fused_topk kernels (the
-kernels of reduce_gemm.cuh) at the shapes its paths give them, beside their
-bound and one PyTorch library call.
+"""Times the port's row_max, count_above and fused_topk kernels at the
+shapes its paths give them, beside their bound and one PyTorch library
+call.
 
     python3 tools/bench_reduce.py             # needs one CUDA GPU
     python3 tools/bench_reduce.py --reps 5 --only row_max
@@ -15,23 +15,31 @@ within 1e-5, counts within 2), the first 256 rows bit-identical to the
 pool_writer kernel's winners (row_max: the best one; fused_topk: all κ,
 ids included), then kernel, library and bound ms. Builds the kernels
 first and prints nvcc's register and spill report, each kernel's resident
-blocks per SM, and fused_topk's grid and pieces (S) per shape. The last lines are the card's name
-and power limit and one JSON object with every shape's numbers.
-`chip_smoke.py` measures the same kernels on the paths' own inputs.
+blocks per SM, and fused_topk's grid and pieces (S) per shape. The last
+lines are the card's name and power limit and one JSON object with every
+shape's numbers. `chip_smoke.py` measures the same kernels on the paths'
+own inputs.
 
 ``--bf16`` times the bf16 variants instead, on the same rows rounded to
-bf16, beside the f32 kernel on the widened rows (``f32_ms``):
-count_above.bf16 and fused_topk.bf16 are held bit for bit against it and
-the pool; row_max.bf16, the tensor-core product of wgmma_gemm.cuh, within
-chip_smoke.BF16_ROW_MAX_ATOL of both, on a corpus staged as the searcher
+bf16, beside the f32 kernel on the widened rows (``f32_ms``). The
+SSCD count is the pooled collection's (count_above.bf16.pool, CUDA
+cores), held bit for bit against the f32 kernel and the pool. row_max.bf16
+and the streaming pair (count_above.bf16, fused_topk.bf16) run on the
+tensor-core product of wgmma_gemm.cuh, on a corpus staged as the searcher
 stages it (kernels.pad_columns) with the queries padded inside the timed
-call. The library call is a cuBLAS bf16 ``torch.matmul`` plus the same
-reduction, and the bound takes the bf16 tensor-core peak and 2-byte
-operands. row_max.bf16's plan (grid, group, corpus passes) is printed.
+call: within chip_smoke.BF16_TC_ATOL of the f32 kernel (counts within 2),
+and on the first 256 rows bit for bit against each other
+(chip_smoke.stream_pair_identity). fused_topk.bf16 is timed with its
+kappa-sets in shared memory (the searcher's placement at κ = 32: ``ms``)
+and in its output (``ms_output_sets``). The library call is a cuBLAS bf16 ``torch.matmul``
+plus the same reduction, and the bound takes the bf16 tensor-core peak and
+2-byte operands. The tensor-core plans (grid, group, S, corpus passes) are
+printed.
 
 Copied into a tree of an earlier commit (beside its vsc2022_torch/ and
 chip_smoke.py), it times that tree's kernels, skipping the occupancy and
-grid reports that tree lacks: parent and change can share one call.
+plan reports and the checks that tree lacks: parent and change can share
+one call.
 """
 
 from __future__ import annotations
@@ -83,26 +91,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     _build.build(verbose=True)
     lib = _build.library()
-    for name in ("row_max", "count_above", "fused_topk"):
-        if args.bf16:
-            name += "_bf16"
-        if not hasattr(lib, f"vsc_{name}_occupancy"):
-            continue
-        if name == "row_max_bf16" and hasattr(kernels, "wgmma_grid"):
-            slots = kernels._wgmma_slots(torch.empty(0, device=dev))
-            for _, path, m, n_valid, _ in SHAPES[:3]:
-                grid = kernels.wgmma_grid(m, n_valid, slots)
-                print(f"row_max_bf16 {path}: grid {grid}, group "
-                      f"{kernels.WGMMA_GROUP} query tiles, corpus read "
-                      f"{kernels.wgmma_corpus_passes(m, n_valid, grid):.2f} times",
-                      flush=True)
-            continue
-        for vec in (0, 1):
-            blocks = ctypes.c_int(0)
-            rc = getattr(lib, f"vsc_{name}_occupancy")(0, vec, ctypes.addressof(blocks))
-            cs.check(rc == 0, f"{name} occupancy query failed ({rc})")
-            print(f"{name} ({'16' if vec else '4'}-byte copies): "
-                  f"{blocks.value} resident blocks per SM", flush=True)
+    # This tree's streaming pair runs on the tensor cores (and count_above
+    # takes its partner) from the tree that has kernels.PAIRS on.
+    paired = hasattr(kernels, "PAIRS")
+    tol = getattr(cs, "BF16_TC_ATOL", getattr(cs, "BF16_ROW_MAX_ATOL", 1e-5))
+    _report_plans(torch, cs, kernels, lib, dev, args.bf16, paired)
 
     rows = []
     for name, path, m, n_valid, d in SHAPES:
@@ -117,87 +110,171 @@ def main() -> int:
         r[:n_valid] /= r[:n_valid].norm(dim=1, keepdim=True)
         if args.bf16:
             q, r = q.to(torch.bfloat16), r.to(torch.bfloat16)
-        # row_max.bf16 reads the searcher's padded copy of the corpus.
-        tensor_cores = args.bf16 and name == "row_max" and hasattr(kernels, "wgmma_grid")
-        run = _call(kernels, name, q, kernels.pad_columns(r) if tensor_cores else r,
-                    n_valid)
+        pair = "pooled" if path == "sscd" else "stream"
+        # The kernels of wgmma_gemm.cuh read the searcher's padded copy.
+        tensor_cores = args.bf16 and (
+            (name == "row_max" and hasattr(kernels, "wgmma_grid"))
+            or (paired and name != "row_max" and pair == "stream"))
+        rk = kernels.pad_columns(r) if tensor_cores else r
+        run = _call(kernels, name, q, rk, n_valid, pair if paired else None)
         lib_call = _library(torch, cs, name, q, r, n_valid)
+        label = name + (".bf16" if args.bf16 else "") + (
+            ".pool" if args.bf16 and paired and name == "count_above" and pair == "pooled"
+            else "")
         if args.bf16:
-            # Bit for bit against the f32 kernel on the widened rows.
-            run_f32 = _call(kernels, name, q.float(), r.float(), n_valid)
+            # Against the f32 kernel on the widened rows: bit for bit, or
+            # within the tolerance on the tensor cores.
+            run_f32 = _call(kernels, name, q.float(), r.float(), n_valid,
+                            pair if paired else None)
             got, want = run(), run_f32()
+            if name == "fused_topk":
+                got, want = got[0], want[0]
             if tensor_cores:
-                err = float((got - want).abs().max())
-                cs.check(err <= cs.BF16_ROW_MAX_ATOL, f"row_max.bf16 {path}: off the "
-                         f"f32 kernel on the widened rows by {err}")
+                err = float((got.double() - want.double()).abs()
+                            .nan_to_num(0.0).max())
+                cs.check(err <= (2 if name == "count_above" else tol),
+                         f"{label} {path}: off the f32 kernel on the widened rows by {err}")
             else:
-                same = (all(torch.equal(a, b) for a, b in zip(got, want))
-                        if name == "fused_topk"
-                        else torch.equal(got.view(torch.int32), want.view(torch.int32)))
-                cs.check(same, f"{name}.bf16 {path}: differs from the f32 kernel "
-                         "on the widened rows")
+                cs.check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                         f"{label} {path}: differs from the f32 kernel on the widened rows")
                 err = 0.0
         else:
             got, want = run(), lib_call()
             if name == "fused_topk":
                 got = got[0]
             err = float((got.double() - want.double()).abs().max())
-            tol = 2 if name == "count_above" else cs.FLOAT_ATOL
-            cs.check(err <= tol, f"{name} {path}: off the library by {err}")
-        if name == "fused_topk":
-            _, grid = kernels._reduce_plan(
-                "fused_topk" + ("_bf16" if args.bf16 else ""), q, r, n_valid)
-            grid, pieces = kernels.topk_grid(m, n_valid, KAPPA, grid)
-            print(f"fused_topk {path}: grid {grid}, S = {pieces}", flush=True)
+            cs.check(err <= (2 if name == "count_above" else cs.FLOAT_ATOL),
+                     f"{name} {path}: off the library by {err}")
         head = q[:256].contiguous()
-        pv, pi = kernels.pool_writer(head, r, n_valid)
-        if name == "fused_topk":
-            want = kernels.ordered_topk(pv.view(head.shape[0], -1),
-                                        pi.view(head.shape[0], -1), KAPPA)
-            got = kernels.fused_topk(head, r, n_valid, KAPPA)
-            cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                     f"{path} [D={d}]: fused_topk differs from pool_writer's winners")
-        elif tensor_cores:
-            best = pv.view(head.shape[0], -1).amax(1)
-            cs.check(float((kernels.row_max(head, r, n_valid) - best).abs().max())
-                     <= cs.BF16_ROW_MAX_ATOL,
-                     f"{path} [D={d}]: row_max.bf16 off pool_writer's best winner")
-        else:
-            cs.check(torch.equal(kernels.row_max(head, r, n_valid).view(torch.int32),
-                                 pv.view(head.shape[0], -1).amax(1).view(torch.int32)),
-                     f"{path} [D={d}]: row_max differs from pool_writer's best winner")
-        del pv, pi
+        if tensor_cores and paired and name == "fused_topk":
+            cs.stream_pair_identity(torch, kernels, head, r, n_valid, KAPPA,
+                                    f"bench {path}")
+        elif not tensor_cores:
+            _pool_check(torch, cs, kernels, name, head, r, n_valid, path, d)
         kernels.reset_launches()
         ms = cs.cuda_ms(torch, run, args.reps)
         library_ms = cs.cuda_ms(torch, lib_call, 2)
         out_bytes = 8 * m * KAPPA if name == "fused_topk" else 4 * m
         bound_ms, bound_by = cs.bound(m, n_valid, r.shape[0], d, out_bytes,
                                       bf16=args.bf16)
-        row = {"kernel": name + (".bf16" if args.bf16 else ""), "path": path,
+        row = {"kernel": label, "path": path,
                "shape": [m, n_valid, d], "ms": ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "share_of_bound": bound_ms / ms, "max_abs_err": err}
         if args.bf16:
             row["f32_ms"] = cs.cuda_ms(torch, run_f32, args.reps)
+        if tensor_cores and paired and name == "fused_topk":
+            # The placement the searcher does not take at KAPPA.
+            smem_sets = KAPPA > kernels.WGMMA_SMEM_SETS_KAPPA_MAX
+            other = _other_placement(kernels, q, rk, n_valid, smem_sets)
+            cs.check(all(torch.equal(a, b) for a, b in zip(other(), run())),
+                     f"{label} {path}: the two placements of the sets differ")
+            row["ms_smem_sets" if smem_sets else "ms_output_sets"] = cs.cuda_ms(
+                torch, other, args.reps)
         rows.append(row)
-        print(f"{row['kernel']} {path} [{m} x {n_valid} x {d}]: kernel {ms:.3f} ms, "
+        print(f"{label} {path} [{m} x {n_valid} x {d}]: kernel {ms:.3f} ms, "
+              + "".join(f"{key[3:].replace('_', ' ')} {row[key]:.3f} ms, "
+                        for key in ("ms_smem_sets", "ms_output_sets") if key in row)
               + (f"f32 kernel {row['f32_ms']:.3f} ms, " if args.bf16 else "")
               + f"library {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
               f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
-        del q, r
+        del q, r, rk
         torch.cuda.empty_cache()
     print(cs.nvidia_smi_line())
     print(json.dumps({"shapes": rows}))
     return 0
 
 
-def _call(kernels, name, q, r, n_valid):
-    """The kernel's wrapper on (q, r) at the bench's τ and κ."""
+def _report_plans(torch, cs, kernels, lib, dev, bf16, paired):
+    """Resident blocks per SM of the kernels of reduce_gemm.cuh timed, and
+    the tensor-core plans (grid, group, S, corpus passes) at the paths'
+    shapes."""
+    probe = torch.empty(0, device=dev)
+    if bf16 and hasattr(kernels, "wgmma_grid"):
+        slots = kernels._wgmma_slots(probe)
+        for _, path, m, n_valid, _ in SHAPES[:3]:
+            grid = kernels.wgmma_grid(m, n_valid, slots)
+            print(f"row_max_bf16 {path}: grid {grid}, group "
+                  f"{kernels.WGMMA_GROUP} query tiles, corpus read "
+                  f"{kernels.wgmma_corpus_passes(m, n_valid, grid):.2f} times",
+                  flush=True)
+    if bf16 and paired:
+        for kernel, path, m, n_valid, _ in SHAPES:
+            if kernel == "row_max" or path == "sscd":
+                continue
+            name = kernel + "_bf16"
+            for smem_sets in ((0, 1) if kernel == "fused_topk" else (None,)):
+                extra = () if smem_sets is None else (smem_sets, KAPPA if smem_sets else 0)
+                group = kernels.WGMMA_SMEM_SETS_GROUP if smem_sets else kernels.WGMMA_GROUP
+                grid = kernels.wgmma_grid(m, n_valid,
+                                          kernels._wgmma_slots(probe, name, *extra))
+                plan = f"{name} {path}: grid {grid}, group {group} query tiles"
+                if smem_sets is not None:
+                    grid, pieces = kernels.wgmma_topk_grid(m, n_valid, KAPPA, grid, group)
+                    plan += (f", sets in {'shared memory' if smem_sets else 'the output'}"
+                             f", S = {pieces}")
+                print(f"{plan}, corpus read "
+                      f"{kernels.wgmma_corpus_passes(m, n_valid, grid, group):.2f} times",
+                      flush=True)
+    if not bf16:
+        names = ("row_max", "count_above", "fused_topk")
+    elif paired:
+        names = ("count_above_bf16_pool",)
+    else:
+        names = ("count_above_bf16", "fused_topk_bf16")
+    for name in names:
+        if not hasattr(lib, f"vsc_{name}_occupancy"):
+            continue
+        for vec in (0, 1):
+            blocks = ctypes.c_int(0)
+            rc = getattr(lib, f"vsc_{name}_occupancy")(0, vec, ctypes.addressof(blocks))
+            cs.check(rc == 0, f"{name} occupancy query failed ({rc})")
+            print(f"{name} ({'16' if vec else '4'}-byte copies): "
+                  f"{blocks.value} resident blocks per SM", flush=True)
+
+
+def _pool_check(torch, cs, kernels, name, head, r, n_valid, path, d):
+    """The first 256 rows against the pool_writer kernel's winners, bit for
+    bit: row_max the best one (within the tolerance for the tensor-core
+    row_max.bf16), fused_topk all κ, ids included. The counts are held by
+    chip_smoke's phase 2."""
+    if name == "count_above":
+        return
+    pv, pi = kernels.pool_writer(head, r, n_valid)
+    if name == "fused_topk":
+        want = kernels.ordered_topk(pv.view(head.shape[0], -1),
+                                    pi.view(head.shape[0], -1), KAPPA)
+        got = kernels.fused_topk(head, r, n_valid, KAPPA)
+        cs.check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                 f"{path} [D={d}]: fused_topk differs from pool_writer's winners")
+        return
+    best = pv.view(head.shape[0], -1).amax(1)
+    got = kernels.row_max(head, kernels.pad_columns(r) if head.dtype == torch.bfloat16
+                          else r, n_valid)
+    if head.dtype == torch.bfloat16:
+        cs.check(float((got - best).abs().max()) <= 1e-5,
+                 f"{path} [D={d}]: row_max.bf16 off pool_writer's best winner")
+    else:
+        cs.check(torch.equal(got.view(torch.int32), best.view(torch.int32)),
+                 f"{path} [D={d}]: row_max differs from pool_writer's best winner")
+
+
+def _call(kernels, name, q, r, n_valid, pair):
+    """The kernel's wrapper on (q, r) at the bench's τ and κ; count_above
+    with its partner where the tree takes one."""
     if name == "row_max":
         return lambda: kernels.row_max(q, r, n_valid)
     if name == "count_above":
-        return lambda: kernels.count_above(q, r, TAU, n_valid)
+        if pair is None:
+            return lambda: kernels.count_above(q, r, TAU, n_valid)
+        return lambda: kernels.count_above(q, r, TAU, n_valid, pair=pair)
     return lambda: kernels.fused_topk(q, r, n_valid, KAPPA)
+
+
+def _other_placement(kernels, q, r, n_valid, smem_sets):
+    """fused_topk.bf16 on (q, r) at κ = KAPPA with its sets placed as
+    given: in shared memory (smem_sets) or in its output."""
+    return lambda: kernels._fused_topk_bf16(q, r, n_valid, KAPPA, smem_sets)
 
 
 def _library(torch, cs, name, q, r, n_valid):

@@ -19,15 +19,33 @@
 // and fused_topk's bit for bit, which the pooled prune (a row is complete
 // when this count equals its kept entries) and the streaming verify rely on.
 //
-// The bf16 variant (vsc_count_above_bf16) is the count over a bf16 corpus:
-// the JAX searcher's streaming_count_above on bf16 operands with f32
-// accumulation, which the bf16 pool and candidates are verified with. Bound:
-// operations, 2*M*N*D, low against the bf16 tensor-core peak by design: it
-// runs the f32 kernel's fmaf chain on the widened operands (reduce_gemm.cuh),
-// so it counts exactly the scores the bf16 pool_writer and fused_topk hold.
-// At D = 1025 (the DnS coarse corpus with its bias column) the rows start
-// only 2-byte aligned and take 2-byte loads.
+// Over a bf16 corpus (the JAX searcher's streaming_count_above on bf16
+// operands with f32 accumulation) each collection counts with the kernel
+// whose scores its candidates carry:
+//  * vsc_count_above_bf16, the streaming collection's (launch key
+//    count_above.bf16), is the tensor-core product of wgmma_gemm.cuh (TMA,
+//    4-stage mbarrier ring, wgmma m64n256k16) with a count epilogue, the
+//    product fused_topk.bf16 and row_max.bf16 run: the same accumulators,
+//    so the streaming verify (kept == count) holds bit for bit. Bound:
+//    operations, 2*M*N*D at 989 TFLOP/s ([9000 x 240,000 x 512] is 2.2
+//    TFLOP, 2.2 ms), the operands 2 bytes a value and the corpus read from
+//    HBM about once per group of 8 query tiles. The epilogue is short, so
+//    it runs near row_max.bf16's rate: per finished 128 x 256 tile each
+//    thread counts its columns >= tau (columns at or past n_valid left
+//    out, so tau = -inf counts every valid column), the quad sums them
+//    with two shuffles, and the owner adds them to the group's running
+//    count per row in shared memory; a block commits each row once per
+//    group it leaves with one atomicAdd, and rows >= M never. Rows take a
+//    multiple of 8 values (ops/kernels.py pad_columns).
+//  * vsc_count_above_bf16_pool, the pooled collection's (launch key
+//    count_above.bf16.pool), runs the f32 kernel's fmaf chain on the
+//    widened operands (reduce_gemm.cuh), so it counts exactly the scores
+//    pool_writer.bf16 holds; at 3-4% of the bf16 bound, until pool_writer
+//    .bf16 moves onto the tensor cores with it. At D = 1025 (the DnS
+//    coarse corpus with its bias column) the rows start only 2-byte
+//    aligned and take 2-byte loads.
 #include "reduce_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 using namespace vsc;
 
@@ -63,6 +81,64 @@ int run_count_above(int device, const T* q, const T* refs, int m, int n,
   return (int)err;
 }
 
+// The count epilogue of the tensor-core product (wgmma_gemm.cuh): each
+// owner thread keeps rows row0 and row0 + 8 of every query tile of the
+// group in shared memory.
+struct Bf16Count {
+  static constexpr int kStages = wg::kStages, kGroup = wg::kGroup;
+  float tau;
+  int* out;
+  int m;
+  struct Smem {
+    int run[wg::kGroup][wg::BM];
+  };
+
+  __device__ __forceinline__ void begin(Smem& s, const wg::Lane& l) const {
+    if (!l.owner) return;
+    for (int t = 0; t < kGroup; ++t) s.run[t][l.row0] = s.run[t][l.row0 + 8] = 0;
+  }
+
+  template <bool kMasked>
+  __device__ __forceinline__ void item(Smem& s, const wg::Lane& l,
+                                       const float (&acc)[wg::kAcc],
+                                       const wg::Item& it, int valid_cols) const {
+    int c0 = 0, c1 = 0;
+#pragma unroll
+    for (int j = 0; j < wg::kAcc / 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (!kMasked || 8 * j + l.col0 + e < valid_cols) {
+          c0 += acc[4 * j + e] >= tau;
+          c1 += acc[4 * j + 2 + e] >= tau;
+        }
+      }
+    }
+    c0 += __shfl_xor_sync(0xffffffffu, c0, 1);
+    c1 += __shfl_xor_sync(0xffffffffu, c1, 1);
+    c0 += __shfl_xor_sync(0xffffffffu, c0, 2);
+    c1 += __shfl_xor_sync(0xffffffffu, c1, 2);
+    if (l.owner) {
+      s.run[it.slot][l.row0] += c0;
+      s.run[it.slot][l.row0 + 8] += c1;
+    }
+  }
+
+  __device__ __forceinline__ void flush(Smem& s, const wg::Lane& l,
+                                        const wg::Item& it) const {
+    if (!l.owner) return;
+    for (int t = 0; t < it.tiles; ++t) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = l.row0 + 8 * h;
+        const int row = (it.group * kGroup + t) * wg::BM + r;
+        const int v = s.run[t][r];
+        if (row < m && v > 0) atomicAdd(out + row, v);
+        s.run[t][r] = 0;
+      }
+    }
+  }
+};
+
 }  // namespace
 
 // Blocks of the count_above kernel one SM holds at once (16-byte copies if
@@ -70,13 +146,6 @@ int run_count_above(int device, const T* q, const T* refs, int m, int n,
 extern "C" int vsc_count_above_occupancy(int device, int vec,
                                          int* blocks_per_sm) {
   return reduce::resident_blocks<reduce::RowFold<CountAbove>, float>(
-      device, vec, 0, blocks_per_sm);
-}
-
-// The same for the bf16 variant (16-byte loads if vec).
-extern "C" int vsc_count_above_bf16_occupancy(int device, int vec,
-                                              int* blocks_per_sm) {
-  return reduce::resident_blocks<reduce::RowFold<CountAbove>, __nv_bfloat16>(
       device, vec, 0, blocks_per_sm);
 }
 
@@ -89,11 +158,50 @@ extern "C" int vsc_count_above(int device, const float* q, const float* refs,
                          out, stream);
 }
 
-// The bf16 variant: q and refs bf16, the rest as vsc_count_above.
+// Blocks of the streaming collection's bf16 kernel (tensor cores) one SM
+// holds at once (its grid: SMs x this, at most the work items of
+// ops/kernels.py wgmma_tiles).
+extern "C" int vsc_count_above_bf16_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<Bf16Count>(device, blocks_per_sm);
+}
+
+// Bytes of dynamic shared memory one block of that kernel takes.
+extern "C" int vsc_count_above_bf16_smem_bytes() {
+  return wg::smem_bytes<Bf16Count>();
+}
+
+// The streaming collection's bf16 variant: q [m, d] and refs [n, d] bf16
+// row-major, d % 8 == 0 (zero pad columns past the data's width) and both
+// bases 16-byte aligned; out is [m] int32; `grid` persistent blocks.
 extern "C" int vsc_count_above_bf16(int device, const __nv_bfloat16* q,
                                     const __nv_bfloat16* refs, int m, int n,
-                                    int d, float tau, int n_valid, int vec,
-                                    int grid, int* out, void* stream) {
+                                    int d, float tau, int n_valid, int grid,
+                                    int* out, void* stream) {
+  if (m <= 0) return 0;
+  if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wg::launch(q, refs, m, d, n_valid, grid, Bf16Count{tau, out, m}, s);
+}
+
+// Blocks of the pooled collection's bf16 kernel (CUDA cores) one SM holds
+// at once (16-byte loads if vec).
+extern "C" int vsc_count_above_bf16_pool_occupancy(int device, int vec,
+                                                   int* blocks_per_sm) {
+  return reduce::resident_blocks<reduce::RowFold<CountAbove>, __nv_bfloat16>(
+      device, vec, 0, blocks_per_sm);
+}
+
+// The pooled collection's bf16 variant: q and refs bf16, the rest as
+// vsc_count_above.
+extern "C" int vsc_count_above_bf16_pool(int device, const __nv_bfloat16* q,
+                                         const __nv_bfloat16* refs, int m,
+                                         int n, int d, float tau, int n_valid,
+                                         int vec, int grid, int* out,
+                                         void* stream) {
   return run_count_above(device, q, refs, m, n, d, tau, n_valid, vec, grid,
                          out, stream);
 }

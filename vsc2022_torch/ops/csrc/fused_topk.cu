@@ -53,13 +53,47 @@
 //
 // The bf16 variant (vsc_fused_topk_bf16) is the streaming collection over a
 // bf16 corpus (the JAX searcher's bf16 x bf16 block scores with f32
-// accumulation; the port's server stages bf16 by default). Bound:
-// operations, 2*M*N*D, low against the bf16 tensor-core peak by design: the
-// operands are widened to f32 on their way into the ring (reduce_gemm.cuh)
-// and the f32 kernel's fmaf chain and epilogue run on them, so its winners
-// are the bf16 pool_writer's bit for bit.
+// accumulation, similarity.py:271; the port's server stages bf16 by
+// default). Bound: operations, 2*M*N*D at 989 TFLOP/s ([9000 x 240,000 x
+// 512] is 2.2 TFLOP, 2.2 ms). It is the tensor-core product of
+// wgmma_gemm.cuh (TMA, mbarrier ring, wgmma m64n256k16, bf16 in, f32
+// accumulation; the corpus read from HBM about once per group of query
+// tiles), the product count_above.bf16 and row_max.bf16 run, so the
+// streaming verify compares candidates and counts of the same bits. (The
+// f32 fmaf chain on widened operands, this variant's earlier design, cannot
+// pass 67/989 = 6.8% of the bf16 bound.) Its epilogue, TcTopK below, stalls
+// the tensor cores while it runs, so it is kept short:
+//   1. A 256-column tile holds exactly two pool segments (j < 16 and
+//      j >= 16 in wgmma_gemm.cuh's lane layout). Each thread takes the best
+//      2 of its 32 values per segment for each of its two rows with
+//      selects, and two xor shuffles leave the quad with each segment's
+//      best 2 for rows row0 and row0 + 8.
+//   2. Lane 0 of the quad offers row0's two segments to the row's kappa-set,
+//      lane 1 row0 + 8's. Shared memory holds each row's admission
+//      threshold, the set's worst (value, column) and its slot: after the
+//      first tiles of a piece almost every segment stops at that compare.
+//      A winner that enters replaces the worst entry and the lane rescans
+//      the row's set (while the set fills, the slots are taken in order,
+//      with no scan).
+//   3. The sets of a group of 8 query tiles cannot stay on chip beside the
+//      4-stage ring (1,024 rows x 33 words x 8 bytes = 270 KB). Two
+//      placements: TcTopK<true> keeps them in shared memory with a 3-stage
+//      ring and groups of 2 query tiles (256 rows of sets, kappa <= 38),
+//      and reads the corpus once per 2 query tiles; TcTopK<false> keeps the
+//      group of 8 and the 4-stage ring and holds the sets in the [M, S,
+//      kappa] output, in this block's slot. The first is 1.6x faster at
+//      the serving shape (6.2 against 9.8 ms on an H100, PERF.md section
+//      6): its pieces are 4x longer, so their thresholds rise further and
+//      fewer winners enter, and its rescans stay on chip, which outweighs
+//      4x the corpus reads. The searcher takes it wherever kappa fits and
+//      the second above (ops/kernels.py fused_topk).
+// Slots: S is the most blocks whose ranges touch one group, and a block
+// writes its pieces of a group into slot b - (the first block of the
+// group) (ops/kernels.py wgmma_pieces). Rows take a multiple of 8 values
+// (ops/kernels.py pad_columns).
 #include "reduce_gemm.cuh"
 #include "segment_top2.cuh"
+#include "wgmma_gemm.cuh"
 
 using vsc::Top2;
 using vsc::better;
@@ -281,26 +315,187 @@ __global__ void fill_sets(float* out_v, int* out_i, size_t n) {
   }
 }
 
-template <class T>
-int run_fused_topk(int device, const T* q, const T* refs, int m, int n, int d,
-                   int n_valid, int kappa, int vec, int grid, int pieces,
-                   float* out_v, int* out_i, void* stream) {
-  if (m <= 0) return 0;
-  if (kappa <= 0 || pieces <= 0 || n_valid < 0 || n_valid > n)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// Every slot of the [m, pieces, kappa] output unfilled, on stream s.
+cudaError_t fill_output(float* out_v, int* out_i, int m, int pieces, int kappa,
+                        cudaStream_t s) {
   const size_t total = (size_t)m * pieces * kappa;
   const size_t fill_blocks = (total + 255) / 256;
   fill_sets<<<(unsigned)(fill_blocks < 4096 ? fill_blocks : 4096), 256, 0, s>>>(
       out_v, out_i, total);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const bool in_smem = kappa <= kSmemKappaMax;
-  return (int)vsc::reduce::launch(q, refs, m, d, n_valid, vec, grid,
-                                  TopK{out_v, out_i, kappa, pieces, in_smem},
-                                  in_smem ? smem_set_bytes(kappa) : 0, s);
+  return cudaGetLastError();
+}
+
+// ---- the bf16 variant: the top-kappa epilogue of wgmma_gemm.cuh ------------
+
+// Up to this kappa the sets fit in shared memory: 2 query tiles x 128 rows
+// x (kappa + 1) x 8 bytes beside the 3-stage ring.
+constexpr int kTcSmemKappaMax = 38;
+
+template <bool kSmemSets>
+struct TcTopK {
+  static constexpr int kStages = kSmemSets ? 3 : vsc::wg::kStages;
+  static constexpr int kGroup = kSmemSets ? 2 : vsc::wg::kGroup;
+  float* out_v;
+  int* out_i;
+  int m, kappa, pieces;
+  int items, per_group;  // the launch's work items, and one group's
+
+  struct Smem {
+    Slot worst[kGroup][vsc::wg::BM];  // each row's threshold: its set's worst
+  };
+
+  // Shared memory of the sets past Smem at this kappa.
+  static constexpr int set_bytes(int k) {
+    return kSmemSets ? kGroup * vsc::wg::BM * (k + 1) * 8 : 0;
+  }
+
+  // This block's slot among the blocks that touch the item's group: b minus
+  // the block holding the group's first item (kernels.topk_first_block).
+  __device__ __forceinline__ int piece(const vsc::wg::Item& it) const {
+    const long long first =
+        (((long long)it.group * per_group + 1) * gridDim.x - 1) / items;
+    return (int)(blockIdx.x - first);
+  }
+
+  // Row r of query tile t's set in shared memory (kSmemSets): values
+  // [kGroup][BM][kappa + 1] past Smem, then the ids; kappa + 1 words a row,
+  // so the owner lanes of a warp read distinct banks.
+  __device__ __forceinline__ float* smem_v(Smem& s, int t, int r) const {
+    return reinterpret_cast<float*>(&s + 1) + (t * vsc::wg::BM + r) * (kappa + 1);
+  }
+  __device__ __forceinline__ int* smem_i(Smem& s, int t, int r) const {
+    return reinterpret_cast<int*>(smem_v(s, kGroup, 0)) +
+           (t * vsc::wg::BM + r) * (kappa + 1);
+  }
+
+  __device__ __forceinline__ size_t out_at(int row, int slot) const {
+    return ((size_t)row * pieces + slot) * kappa;
+  }
+
+  // The sets are empty: every row admits any finite winner, into slot 0.
+  __device__ __forceinline__ void begin(Smem& s, const vsc::wg::Lane& l) const {
+    if (l.quad >= 2) return;
+    for (int t = 0; t < kGroup; ++t)
+      s.worst[t][l.row0 + 8 * l.quad] = {-CUDART_INF_F, INT_MAX, 0};
+  }
+
+  // Offers one segment's winners (best first) to a row's set; w is the
+  // set's worst entry, or (-inf, INT_MAX, next free slot) while it fills.
+  __device__ __forceinline__ void offer(Slot& w, const Top2& t, float* sv,
+                                        int* si) const {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float v = c == 0 ? t.v1 : t.v2;
+      const int i = c == 0 ? t.i1 : t.i2;
+      if (!(v > -CUDART_INF_F) || !better(v, i, w.v, w.i)) return;
+      sv[w.s] = v;
+      si[w.s] = i;
+      if (w.v == -CUDART_INF_F && w.s + 1 < kappa)
+        ++w.s;
+      else
+        w = worst_slot(sv, si, kappa);
+    }
+  }
+
+  template <bool kMasked>
+  __device__ __forceinline__ void item(Smem& s, const vsc::wg::Lane& l,
+                                       const float (&acc)[vsc::wg::kAcc],
+                                       const vsc::wg::Item& it,
+                                       int valid_cols) const {
+    const int cbase = it.c_tile * vsc::wg::BN;
+    Top2 b[2][2];  // [row row0 + 8h][segment]
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int g = 0; g < 2; ++g)
+        b[h][g] = {-CUDART_INF_F, INT_MAX, -CUDART_INF_F, INT_MAX};
+#pragma unroll
+    for (int j = 0; j < vsc::wg::kAcc / 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // A thread's columns come in ascending order, so a strict '>'
+        // keeps the lower column on equal values (the pool order); -inf
+        // (columns past n_valid) never enters.
+        const int col = 8 * j + l.col0 + e;
+        const bool valid = !kMasked || col < valid_cols;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          Top2& t = b[h][j / 16];
+          const float v = valid ? acc[4 * j + 2 * h + e] : -CUDART_INF_F;
+          const bool first = v > t.v1, second = v > t.v2;
+          t.v2 = first ? t.v1 : second ? v : t.v2;
+          t.i2 = first ? t.i1 : second ? cbase + col : t.i2;
+          t.v1 = first ? v : t.v1;
+          t.i1 = first ? cbase + col : t.i1;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int g = 0; g < 2; ++g) b[h][g] = merge(b[h][g], shfl_xor_top2(b[h][g], off));
+    if (l.quad >= 2) return;
+    const bool hi = l.quad == 1;
+    const int r = l.row0 + 8 * l.quad;
+    const int row = it.q_tile * vsc::wg::BM + r;
+    if (row >= m) return;
+    Slot w = s.worst[it.slot][r];
+    const Top2 t0 = pick(hi, b[1][0], b[0][0]), t1 = pick(hi, b[1][1], b[0][1]);
+    if (!(t0.v1 > -CUDART_INF_F && better(t0.v1, t0.i1, w.v, w.i)) &&
+        !(t1.v1 > -CUDART_INF_F && better(t1.v1, t1.i1, w.v, w.i)))
+      return;
+    float* sv;
+    int* si;
+    if (kSmemSets) {
+      sv = smem_v(s, it.slot, r);
+      si = smem_i(s, it.slot, r);
+    } else {
+      const size_t at = out_at(row, piece(it));
+      sv = out_v + at;
+      si = out_i + at;
+    }
+    offer(w, t0, sv, si);
+    offer(w, t1, sv, si);
+    s.worst[it.slot][r] = w;
+  }
+
+  // The block leaves the item's group: shared-memory sets go to the output
+  // (their filled slots; the rest is unfilled there already), and every
+  // row's set starts empty again.
+  __device__ __forceinline__ void flush(Smem& s, const vsc::wg::Lane& l,
+                                        const vsc::wg::Item& it) const {
+    if (l.quad >= 2) return;
+    const int r = l.row0 + 8 * l.quad;
+    const int slot = kSmemSets ? piece(it) : 0;
+    for (int t = 0; t < it.tiles; ++t) {
+      Slot& w = s.worst[t][r];
+      const int row = (it.group * kGroup + t) * vsc::wg::BM + r;
+      if (kSmemSets && row < m) {
+        const int n = w.v == -CUDART_INF_F ? w.s : kappa;
+        const float* sv = smem_v(s, t, r);
+        const int* si = smem_i(s, t, r);
+        const size_t at = out_at(row, slot);
+        for (int k = 0; k < n; ++k) {
+          out_v[at + k] = sv[k];
+          out_i[at + k] = si[k];
+        }
+      }
+      w = {-CUDART_INF_F, INT_MAX, 0};
+    }
+  }
+};
+
+template <bool kSmemSets>
+int run_tc_topk(const __nv_bfloat16* q, const __nv_bfloat16* refs, int m, int d,
+                int n_valid, int kappa, int grid, int pieces, float* out_v,
+                int* out_i, cudaStream_t s) {
+  using E = TcTopK<kSmemSets>;
+  const vsc::wg::Plan p = vsc::wg::plan(m, n_valid, d);
+  const E ep{out_v, out_i, m, kappa, pieces, p.items, p.c_tiles * E::kGroup};
+  return (int)vsc::wg::launch(q, refs, m, d, n_valid, grid, ep, s,
+                              E::set_bytes(kappa));
 }
 
 }  // namespace
@@ -310,13 +505,6 @@ int run_fused_topk(int device, const T* q, const T* refs, int m, int n, int d,
 extern "C" int vsc_fused_topk_occupancy(int device, int vec,
                                         int* blocks_per_sm) {
   return vsc::reduce::resident_blocks<TopK, float>(
-      device, vec, smem_set_bytes(kSmemKappaMax), blocks_per_sm);
-}
-
-// The same for the bf16 variant (16-byte loads if vec).
-extern "C" int vsc_fused_topk_bf16_occupancy(int device, int vec,
-                                             int* blocks_per_sm) {
-  return vsc::reduce::resident_blocks<TopK, __nv_bfloat16>(
       device, vec, smem_set_bytes(kSmemKappaMax), blocks_per_sm);
 }
 
@@ -330,16 +518,63 @@ extern "C" int vsc_fused_topk(int device, const float* q, const float* refs,
                               int m, int n, int d, int n_valid, int kappa,
                               int vec, int grid, int pieces, float* out_v,
                               int* out_i, void* stream) {
-  return run_fused_topk(device, q, refs, m, n, d, n_valid, kappa, vec, grid,
-                        pieces, out_v, out_i, stream);
+  if (m <= 0) return 0;
+  if (kappa <= 0 || pieces <= 0 || n_valid < 0 || n_valid > n)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = fill_output(out_v, out_i, m, pieces, kappa, s);
+  if (err != cudaSuccess) return (int)err;
+  const bool in_smem = kappa <= kSmemKappaMax;
+  return (int)vsc::reduce::launch(q, refs, m, d, n_valid, vec, grid,
+                                  TopK{out_v, out_i, kappa, pieces, in_smem},
+                                  in_smem ? smem_set_bytes(kappa) : 0, s);
 }
 
-// The bf16 variant: q and refs bf16, the rest as vsc_fused_topk.
+// Blocks of the bf16 kernel (tensor cores) one SM holds at once: its grid
+// is SMs x this, at most the work items of ops/kernels.py wgmma_tiles.
+// smem_sets selects the placement with the sets in shared memory (kappa <=
+// 38); 0, the one with the sets in the output.
+extern "C" int vsc_fused_topk_bf16_occupancy(int device, int smem_sets,
+                                             int kappa, int* blocks_per_sm) {
+  if (smem_sets && (kappa <= 0 || kappa > kTcSmemKappaMax))
+    return (int)cudaErrorInvalidValue;
+  return smem_sets ? vsc::wg::resident_blocks<TcTopK<true>>(
+                         device, blocks_per_sm, TcTopK<true>::set_bytes(kappa))
+                   : vsc::wg::resident_blocks<TcTopK<false>>(device, blocks_per_sm);
+}
+
+// Bytes of dynamic shared memory one block of the bf16 kernel takes in the
+// placement smem_sets selects, at this kappa (-1: that placement does not
+// take it).
+extern "C" int vsc_fused_topk_bf16_smem_bytes(int smem_sets, int kappa) {
+  if (kappa <= 0 || (smem_sets && kappa > kTcSmemKappaMax)) return -1;
+  return smem_sets
+             ? vsc::wg::smem_bytes<TcTopK<true>>(TcTopK<true>::set_bytes(kappa))
+             : vsc::wg::smem_bytes<TcTopK<false>>(TcTopK<false>::set_bytes(kappa));
+}
+
+// The bf16 variant: q [m, d] and refs [n, d] bf16 row-major, d % 8 == 0
+// (zero pad columns past the data's width) and both bases 16-byte aligned;
+// out_v / out_i are [m, pieces, kappa]; `grid` persistent blocks and
+// `pieces` = S for that grid and placement (ops/kernels.py wgmma_pieces).
 extern "C" int vsc_fused_topk_bf16(int device, const __nv_bfloat16* q,
                                    const __nv_bfloat16* refs, int m, int n,
-                                   int d, int n_valid, int kappa, int vec,
+                                   int d, int n_valid, int kappa, int smem_sets,
                                    int grid, int pieces, float* out_v,
                                    int* out_i, void* stream) {
-  return run_fused_topk(device, q, refs, m, n, d, n_valid, kappa, vec, grid,
-                        pieces, out_v, out_i, stream);
+  if (m <= 0) return 0;
+  if (kappa <= 0 || pieces <= 0 || n_valid < 0 || n_valid > n ||
+      (smem_sets && kappa > kTcSmemKappaMax))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = fill_output(out_v, out_i, m, pieces, kappa, s);
+  if (err != cudaSuccess) return (int)err;
+  return smem_sets ? run_tc_topk<true>(q, refs, m, d, n_valid, kappa, grid,
+                                       pieces, out_v, out_i, s)
+                   : run_tc_topk<false>(q, refs, m, d, n_valid, kappa, grid,
+                                        pieces, out_v, out_i, s);
 }

@@ -44,10 +44,11 @@
 // commits it with one atomicMax on the monotone key per row and group, and
 // query rows >= M are never committed. The tensor cores sum in their own
 // order: the scores are exact on integer inputs, within a few f32 rounding
-// steps of the f32 kernel on the widened inputs elsewhere, and no longer
-// equal the other bf16 kernels' bit for bit (nothing needs them to: the
-// row max only sets the score-normalization bias). Rows take a multiple of
-// 8 values (ops/kernels.py pad_columns).
+// steps of the f32 kernel on the widened inputs elsewhere, and bit for bit
+// those of the streaming pair on the same product (count_above.bf16,
+// fused_topk.bf16): the row max is fused_topk.bf16's best value, which
+// chip_smoke.py checks on every stream path's inputs. Rows take a multiple
+// of 8 values (ops/kernels.py pad_columns).
 #include "reduce_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -94,6 +95,7 @@ struct RowMax {
 // owner thread keeps rows row0 and row0 + 8 of every query tile of the
 // group in shared memory.
 struct Bf16RowMax {
+  static constexpr int kStages = wg::kStages, kGroup = wg::kGroup;
   unsigned* keys;
   int m;
   struct Smem {
@@ -108,8 +110,8 @@ struct Bf16RowMax {
 
   template <bool kMasked>
   __device__ __forceinline__ void item(Smem& s, const wg::Lane& l,
-                                       const float (&acc)[wg::kAcc], int slot,
-                                       int valid_cols) const {
+                                       const float (&acc)[wg::kAcc],
+                                       const wg::Item& it, int valid_cols) const {
     float v0 = -CUDART_INF_F, v1 = -CUDART_INF_F;
 #pragma unroll
     for (int j = 0; j < wg::kAcc / 4; ++j) {
@@ -126,19 +128,19 @@ struct Bf16RowMax {
     v0 = fmaxf(v0, __shfl_xor_sync(0xffffffffu, v0, 2));
     v1 = fmaxf(v1, __shfl_xor_sync(0xffffffffu, v1, 2));
     if (l.owner) {
-      s.run[slot][l.row0] = fmaxf(s.run[slot][l.row0], v0);
-      s.run[slot][l.row0 + 8] = fmaxf(s.run[slot][l.row0 + 8], v1);
+      s.run[it.slot][l.row0] = fmaxf(s.run[it.slot][l.row0], v0);
+      s.run[it.slot][l.row0 + 8] = fmaxf(s.run[it.slot][l.row0 + 8], v1);
     }
   }
 
-  __device__ __forceinline__ void flush(Smem& s, const wg::Lane& l, int q_tile0,
-                                        int tiles) const {
+  __device__ __forceinline__ void flush(Smem& s, const wg::Lane& l,
+                                        const wg::Item& it) const {
     if (!l.owner) return;
-    for (int t = 0; t < tiles; ++t) {
+    for (int t = 0; t < it.tiles; ++t) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = l.row0 + 8 * h;
-        const int row = (q_tile0 + t) * wg::BM + r;
+        const int row = (it.group * kGroup + t) * wg::BM + r;
         const float v = s.run[t][r];
         if (row < m && v != -CUDART_INF_F) atomicMax(keys + row, f32_key(v));
         s.run[t][r] = -CUDART_INF_F;

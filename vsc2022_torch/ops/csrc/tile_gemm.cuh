@@ -1,7 +1,8 @@
 // The f32 tile product of pool_writer (with segment_top2.cuh). row_max,
 // count_above and fused_topk run the pipelined persistent product of
-// reduce_gemm.cuh, with the same arithmetic per score (row_max.bf16 runs
-// the tensor-core product of wgmma_gemm.cuh instead).
+// reduce_gemm.cuh, with the same arithmetic per score (row_max.bf16 and the
+// streaming collection's count_above.bf16 and fused_topk.bf16 run the
+// tensor-core product of wgmma_gemm.cuh instead).
 //
 // One block of 256 threads computes a [BM x BN] = [64 query rows x 128 ref
 // columns] tile of q . refs^T in full f32 FMA on the CUDA cores (the JAX

@@ -2,9 +2,14 @@
 // (TMA, mbarrier ring, wgmma), for the retrieval kernels that keep no
 // score: each finished [128 query rows x 256 corpus rows] accumulator tile
 // is handed to an epilogue functor, and the [M, N] scores never reach
-// device memory. row_max.bf16 (row_max.cu) is its first epilogue; the
-// count and top-kappa epilogues of the other bf16 retrieval kernels are to
-// plug in the same way.
+// device memory. Three epilogues run on it: row_max.bf16 (row_max.cu), the
+// streaming collection's count_above.bf16 (count_above.cu) and
+// fused_topk.bf16 (fused_topk.cu). The product loop is one instruction
+// sequence for all three (the same wgmma shape, k-slice depth, kt / kk
+// order and zero-filled k padding), so they see bit-identical f32
+// accumulators for a (q, r) pair at the same padded D: the streaming
+// verify compares fused_topk.bf16's candidates with count_above.bf16's
+// counts bit for bit.
 //
 // Arithmetic. bf16 q [M, D] and refs [N, D] (both K-major, as they lie in
 // memory) go to shared memory unwidened; wgmma.mma_async m64n256k16
@@ -27,9 +32,10 @@
 // mbarrier (TMA bytes landed) and an "empty" one (both consumers done);
 // the wgmma shared-memory descriptors use the same 128-byte swizzle.
 //
-// Work. Query tiles (128 rows) form groups of kGroup tiles; a work item is
-// (group, corpus tile, query tile in the group), numbered group major,
-// then corpus tile, then query tile (ops/kernels.py wgmma_item), and the
+// Work. Query tiles (128 rows) form groups of E::kGroup tiles (kGroup
+// unless the epilogue needs fewer); a work item is (group, corpus tile,
+// query tile in the group), numbered group major, then corpus tile, then
+// query tile (ops/kernels.py wgmma_item), and the
 // grid is one wave of persistent blocks, block b walking the contiguous
 // items [b*W/G, (b+1)*W/G). Consecutive items share a corpus tile, so each
 // corpus tile comes from HBM about once per group while the queries (a few
@@ -52,15 +58,14 @@ namespace wg {
 constexpr int BM = 128;            // query rows per work item
 constexpr int BN = 256;            // corpus rows per work item
 constexpr int BK = 64;             // depth of a ring stage: 128 bytes of bf16
-constexpr int kStages = 4;         // ring depth
-constexpr int kGroup = 8;          // query tiles per group
+constexpr int kStages = 4;         // ring depth (an epilogue's E::kStages)
+constexpr int kGroup = 8;          // query tiles per group (E::kGroup)
 constexpr int kConsumers = 2;      // consumer warpgroups, 64 query rows each
 constexpr int THREADS = 128 * (kConsumers + 1);
 constexpr int kAcc = BN / 2;       // f32 accumulators a consumer thread holds
 constexpr int A_BYTES = BM * BK * 2;
 constexpr int B_BYTES = BN * BK * 2;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-constexpr int RING_BYTES = kStages * STAGE_BYTES;
 constexpr int kAlign = 1024;       // a 128-byte swizzle pattern repeats per 1 KB
 
 // The launch's work.
@@ -74,24 +79,26 @@ struct Item {
   int group, q_tile, c_tile, slot, tiles;  // slot: q_tile within the group
 };
 
+template <int G>
 __device__ __forceinline__ Item item_at(const Plan& p, int i) {
   Item it;
-  const int per_group = p.c_tiles * kGroup;
+  const int per_group = p.c_tiles * G;
   it.group = i / per_group;
   const int local = i - it.group * per_group;
-  it.tiles = min(kGroup, p.q_tiles - it.group * kGroup);
+  it.tiles = min(G, p.q_tiles - it.group * G);
   it.c_tile = local / it.tiles;
   it.slot = local - it.c_tile * it.tiles;
-  it.q_tile = it.group * kGroup + it.slot;
+  it.q_tile = it.group * G + it.slot;
   return it;
 }
 
 // A consumer thread's place in the accumulator tile (wgmma's m64nN f32
 // layout): rows row0 and row0 + 8 of the 128, columns 8j + col0 + {0, 1};
 // acc[4j + e] is (row0, 8j + col0 + e), acc[4j + 2 + e] is (row0 + 8, ...).
-// `owner` (lane % 4 == 0) keeps the quad's per-row results.
+// The quad (lanes with one lane / 4) holds all 256 columns of both rows;
+// `owner` (quad == 0) keeps the quad's per-row results.
 struct Lane {
-  int row0, col0;
+  int row0, col0, quad;
   bool owner;
 };
 
@@ -225,25 +232,30 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[kAcc], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// The product and its epilogue E. Every consumer thread calls each hook:
+// The product and its epilogue E. E names its ring depth and group size
+// (static constexpr int kStages, kGroup: the product loop does not depend
+// on them), and every consumer thread calls each hook:
 //   struct Smem;                      dynamic shared memory past the ring
+//                                     (and E's extra bytes past it)
 //   void begin(Smem&, const Lane&) const;
 //   template <bool kMasked>           kMasked: the item's corpus tile
 //   void item(Smem&, const Lane&,     straddles n_valid; columns at or past
 //             const float (&acc)[kAcc], valid_cols are not the corpus's
-//             int slot, int valid_cols) const;
-//   void flush(Smem&, const Lane&, int q_tile0, int tiles) const;
-//                                     the block leaves a group (or ends)
+//             const Item&, int valid_cols) const;
+//   void flush(Smem&, const Lane&, const Item&) const;
+//                                     the block leaves the item's group
+//                                     (or ends)
 // The hooks run in each consumer warpgroup on its own 64 rows: they need
 // no barrier as long as each row's state is touched by one thread.
 template <class E>
 __global__ void __launch_bounds__(THREADS, 1)
     wgmma_kernel(__grid_constant__ const CUtensorMap tq,
                  __grid_constant__ const CUtensorMap tr, Plan p, E ep) {
+  constexpr int kStages = E::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* ring = smem_raw + ((kAlign - (raw & (kAlign - 1))) & (kAlign - 1));
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + RING_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * STAGE_BYTES);
   uint64_t* empty = full + kStages;
   typename E::Smem& es = *reinterpret_cast<typename E::Smem*>(empty + kStages);
 
@@ -266,7 +278,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       int stage = 0;
       unsigned phase = 0;
       for (int i = begin; i < end; ++i) {
-        const Item it = item_at(p, i);
+        const Item it = item_at<E::kGroup>(p, i);
         for (int kt = 0; kt < p.kt_n; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], STAGE_BYTES);
@@ -286,8 +298,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int lane = threadIdx.x & 31;
     Lane ln;
     ln.row0 = 64 * warpgroup + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
-    ln.col0 = 2 * (lane & 3);
-    ln.owner = (lane & 3) == 0;
+    ln.quad = lane & 3;
+    ln.col0 = 2 * ln.quad;
+    ln.owner = ln.quad == 0;
     ep.begin(es, ln);
     float acc[kAcc];
 #pragma unroll
@@ -296,7 +309,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     int stage = 0;
     unsigned phase = 0;
     for (int i = begin; i < end; ++i) {
-      const Item it = item_at(p, i);
+      const Item it = item_at<E::kGroup>(p, i);
       for (int kt = 0; kt < p.kt_n; ++kt) {
         mbar_wait(&full[stage], phase);
         const uint32_t a = smem_u32(ring + stage * STAGE_BYTES) + a_off;
@@ -318,39 +331,39 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       const int valid_cols = p.n_valid - it.c_tile * BN;
       if (valid_cols >= BN)
-        ep.template item<false>(es, ln, acc, it.slot, valid_cols);
+        ep.template item<false>(es, ln, acc, it, valid_cols);
       else
-        ep.template item<true>(es, ln, acc, it.slot, valid_cols);
-      if (i + 1 == end || item_at(p, i + 1).group != it.group)
-        ep.flush(es, ln, it.group * kGroup, it.tiles);
+        ep.template item<true>(es, ln, acc, it, valid_cols);
+      if (i + 1 == end || item_at<E::kGroup>(p, i + 1).group != it.group)
+        ep.flush(es, ln, it);
       __syncwarp();  // converged again before the next wgmma (.aligned)
     }
   }
 }
 
 // Dynamic shared memory of E's kernel: alignment slack, ring, barriers,
-// the epilogue's state.
+// the epilogue's state and `extra` bytes of it past its Smem.
 template <class E>
-constexpr int smem_bytes() {
-  return kAlign + RING_BYTES + 2 * kStages * (int)sizeof(uint64_t) +
-         (int)sizeof(typename E::Smem);
+constexpr int smem_bytes(int extra = 0) {
+  return kAlign + E::kStages * (STAGE_BYTES + 2 * (int)sizeof(uint64_t)) +
+         (int)sizeof(typename E::Smem) + extra;
 }
 
 template <class E>
-cudaError_t configure() {
+cudaError_t configure(int extra) {
   return cudaFuncSetAttribute(wgmma_kernel<E>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes<E>());
+                              smem_bytes<E>(extra));
 }
 
 // Blocks of E's kernel an SM holds at once (0: it cannot launch).
 template <class E>
-int resident_blocks(int device, int* blocks_per_sm) {
+int resident_blocks(int device, int* blocks_per_sm, int extra = 0) {
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = configure<E>();
+  if (err == cudaSuccess) err = configure<E>(extra);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, wgmma_kernel<E>, THREADS, smem_bytes<E>());
+      blocks_per_sm, wgmma_kernel<E>, THREADS, smem_bytes<E>(extra));
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -409,11 +422,13 @@ inline Plan plan(int m, int n_valid, int d) {
 }
 
 // Launch `grid` blocks over the items of an [m, n_valid] call: q [m, d] and
-// refs [>= n_valid, d] bf16, d % 8 == 0, both bases 16-byte aligned.
-// Nothing when there are no items.
+// refs [>= n_valid, d] bf16, d % 8 == 0, both bases 16-byte aligned; the
+// epilogue takes `extra` bytes of shared memory past its Smem. Nothing
+// when there are no items.
 template <class E>
 cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* refs, int m,
-                   int d, int n_valid, int grid, const E& ep, cudaStream_t s) {
+                   int d, int n_valid, int grid, const E& ep, cudaStream_t s,
+                   int extra = 0) {
   if (m <= 0 || n_valid <= 0) return cudaSuccess;
   const Plan p = plan(m, n_valid, d);
   if (d <= 0 || d % 8 != 0 || p.items < 0 || grid <= 0 || grid > p.items ||
@@ -422,9 +437,9 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* refs, int m,
   CUtensorMap tq, tr;
   if (!encode(&tq, q, m, d, BM) || !encode(&tr, refs, n_valid, d, BN))
     return cudaErrorInvalidValue;
-  cudaError_t err = configure<E>();
+  cudaError_t err = configure<E>(extra);
   if (err != cudaSuccess) return err;
-  wgmma_kernel<E><<<grid, THREADS, smem_bytes<E>(), s>>>(tq, tr, p, ep);
+  wgmma_kernel<E><<<grid, THREADS, smem_bytes<E>(extra), s>>>(tq, tr, p, ep);
   return cudaGetLastError();
 }
 

@@ -20,19 +20,27 @@ The four retrieval kernels take f32 or bf16 operands (q and refs of one
 dtype; the outputs stay f32 / int32). A bf16 pair launches the kernel's
 bf16 variant, counted under ``<name>.bf16``: the counterpart of the
 Pallas kernels' bf16 branch (one bf16 pass, f32 accumulation). A bf16
-CUDA tensor never reaches the f32 kernel.
+CUDA tensor never reaches the f32 kernel. The searcher compares two pairs
+of kernels bit for bit, and each pair scores on one product:
 
-* ``count_above``, ``pool_writer`` and ``fused_topk`` widen the bf16
-  operands to f32 and run the f32 kernel's arithmetic, so their scores
-  equal the f32 kernel's on the widened inputs, and each other's, bit for
-  bit (the pooled prune and the streaming verify need that).
-* ``row_max`` runs on the tensor cores (``ops/csrc/wgmma_gemm.cuh``: TMA,
-  wgmma, bf16 in, f32 accumulation), which sum in their own order: exact
-  on integer inputs, within a few f32 roundings of ``row_max_plain``
-  elsewhere, and no longer equal to the f32 kernel or the pool bit for
-  bit. Its only consumer is the score-normalization bias. Its rows hold a
-  multiple of 8 values (``pad_columns``); the searchers keep their noise
-  corpus so padded, and the wrapper pads whatever is not.
+* the streaming pair, ``fused_topk`` and ``count_above(pair="stream")``
+  (the default), and with them ``row_max``, run on the tensor cores
+  (``ops/csrc/wgmma_gemm.cuh``: TMA, wgmma, bf16 in, f32 accumulation).
+  The tensor cores sum in their own order: exact on integer inputs,
+  within a few f32 roundings of the plain versions elsewhere, and equal to
+  each other bit for bit (``fused_topk``'s best value is ``row_max``, its
+  entries ≥ τ are what ``count_above`` counts wherever no segment hides
+  one). Their rows hold a multiple of 8 values (``pad_columns``): the
+  searchers keep a padded copy of a bf16 corpus
+  (``SimilaritySearcher.tensor_core_refs``), and the wrappers pad
+  whatever is not.
+* the pooled pair, ``pool_writer`` and ``count_above(pair="pooled")``
+  (counted under ``count_above.bf16.pool``), widen the bf16 operands to
+  f32 and run the f32 kernels' arithmetic on the CUDA cores, so their
+  scores equal the f32 kernels' on the widened inputs, and each other's,
+  bit for bit.
+
+No wrapper gives way from one variant to another.
 
 The plain versions widen bf16 inputs to f32 before ``torch.matmul``
 (whose bf16 product would round every score to bf16).
@@ -58,12 +66,20 @@ SEG_KEEP = 2  # entries the pool keeps per segment
 REDUCE_TILE = 128
 
 # Query rows and corpus rows of one work item of the tensor-core product
-# (wgmma_gemm.cuh, row_max.bf16), and the query tiles of one group: a
-# block walks a group's corpus tiles with the group's query tiles inner,
-# so each corpus tile comes from HBM about once per group.
+# (wgmma_gemm.cuh: row_max.bf16, count_above.bf16, fused_topk.bf16), and
+# the query tiles of one group: a block walks a group's corpus tiles with
+# the group's query tiles inner, so each corpus tile comes from HBM about
+# once per group.
 WGMMA_ROWS = 128
 WGMMA_COLS = 256
 WGMMA_GROUP = 8
+# fused_topk.bf16's κ-sets: in shared memory beside a 3-stage ring, which
+# leaves room for groups of WGMMA_SMEM_SETS_GROUP query tiles and κ up to
+# WGMMA_SMEM_SETS_KAPPA_MAX (1.6x faster than the other placement at the
+# serving shape on an H100, PERF.md section 6), else in its [M, S, κ]
+# output.
+WGMMA_SMEM_SETS_GROUP = 2
+WGMMA_SMEM_SETS_KAPPA_MAX = 38
 # bf16 values per 16 bytes: TMA wants rows whose stride is a multiple.
 ROW_ALIGN = 8
 
@@ -76,10 +92,14 @@ TOPK_SCRATCH_BYTES = 1 << 30
 # The retrieval kernels, each with a bf16 variant.
 RETRIEVAL_KERNELS = ("row_max", "count_above", "pool_writer", "fused_topk")
 BF16 = ".bf16"  # suffix of a bf16 variant's launch count
+# Launch count of the pooled collection's bf16 count (CUDA cores, matched
+# to pool_writer.bf16); count_above.bf16 is the streaming one.
+COUNT_ABOVE_POOL = "count_above" + BF16 + ".pool"
+PAIRS = ("stream", "pooled")  # count_above's partner: fused_topk or the pool
 
 launches: Dict[str, int] = {
     **{name: 0 for name in RETRIEVAL_KERNELS}, "chamfer": 0,
-    **{name + BF16: 0 for name in RETRIEVAL_KERNELS},
+    **{name + BF16: 0 for name in RETRIEVAL_KERNELS}, COUNT_ABOVE_POOL: 0,
 }
 
 
@@ -115,12 +135,13 @@ def row_max_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Te
 def count_above_plain(
     q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int
 ) -> torch.Tensor:
-    """Per-row count of q·refs[j]ᵀ ≥ τ over j < n_valid ([M] int32)."""
-    m = q.shape[0]
+    """Per-row count of q·refs[j]ᵀ ≥ τ over j < n_valid ([M] int32). Pad
+    columns of refs past q's width are left out."""
+    m, d = q.shape
     out = torch.zeros((m,), dtype=torch.int32, device=q.device)
     if n_valid == 0:
         return out
-    r = refs[:n_valid].float()
+    r = refs[:n_valid, :d].float()
     step = _row_chunk(n_valid)
     for start in range(0, m, step):
         s = torch.matmul(q[start : start + step].float(), r.T)
@@ -187,7 +208,9 @@ def fused_topk_plain(
     """Per-row top-κ of the winner pool (``pool_writer_plain``'s: best 2
     per 128-column segment, columns ≥ n_valid at −inf), ordered by score
     descending, then column ascending: ([M, κ] f32, [M, κ] int32), padded
-    with −inf and id 0. Any N (the pool zero-pads refs to whole segments)."""
+    with −inf and id 0. Any N (the pool zero-pads refs to whole segments).
+    Pad columns of refs past q's width are left out."""
+    refs = refs[:, : q.shape[1]]
     n = refs.shape[0]
     n_seg = -(-n // SEG_LANES)
     if n_seg * SEG_LANES != n:
@@ -366,18 +389,18 @@ def wgmma_tiles(m: int, n_valid: int) -> Tuple[int, int]:
     return -(-m // WGMMA_ROWS), -(-n_valid // WGMMA_COLS)
 
 
-def wgmma_item(i, m: int, n_valid: int):
+def wgmma_item(i, m: int, n_valid: int, group_size: int = WGMMA_GROUP):
     """(group, query tile, corpus tile) of work item ``i`` (an int or an
     integer array), as wgmma_gemm.cuh ``item_at`` numbers them: groups of
-    WGMMA_GROUP query tiles (the last may hold fewer), then corpus tiles,
-    then the group's query tiles."""
+    ``group_size`` query tiles (the last may hold fewer), then corpus
+    tiles, then the group's query tiles."""
     q_tiles, c_tiles = wgmma_tiles(m, n_valid)
-    per_group = c_tiles * WGMMA_GROUP
+    per_group = c_tiles * group_size
     group = i // per_group
     local = i - group * per_group
-    tiles = np.minimum(WGMMA_GROUP, q_tiles - group * WGMMA_GROUP)
+    tiles = np.minimum(group_size, q_tiles - group * group_size)
     c_tile = local // tiles
-    return group, group * WGMMA_GROUP + (local - c_tile * tiles), c_tile
+    return group, group * group_size + (local - c_tile * tiles), c_tile
 
 
 def wgmma_grid(m: int, n_valid: int, slots: int) -> int:
@@ -386,7 +409,8 @@ def wgmma_grid(m: int, n_valid: int, slots: int) -> int:
     return min(slots, q_tiles * c_tiles)
 
 
-def wgmma_corpus_passes(m: int, n_valid: int, grid: int) -> float:
+def wgmma_corpus_passes(m: int, n_valid: int, grid: int,
+                        group_size: int = WGMMA_GROUP) -> float:
     """Corpus tiles the blocks of a ``grid``-block launch fetch, over the
     corpus tiles: a block fetches a tile when its item's corpus tile
     differs from its previous item's (consecutive items find it in L2).
@@ -395,9 +419,39 @@ def wgmma_corpus_passes(m: int, n_valid: int, grid: int) -> float:
     q_tiles, c_tiles = wgmma_tiles(m, n_valid)
     fetched = 0
     for begin, end in block_ranges(q_tiles * c_tiles, grid):
-        _, _, c = wgmma_item(np.arange(begin, end), m, n_valid)
+        _, _, c = wgmma_item(np.arange(begin, end), m, n_valid, group_size)
         fetched += int(np.count_nonzero(np.diff(c))) + int(end > begin)
     return fetched / c_tiles if c_tiles else 0.0
+
+
+def wgmma_pieces(m: int, n_valid: int, grid: int,
+                 group_size: int = WGMMA_GROUP) -> int:
+    """S of a fused_topk.bf16 launch: the most blocks whose ranges touch
+    one group (1 when there is no work item). Block b writes its κ-sets of
+    a group's rows into slot b − (the block holding the group's first
+    item) of [M, S, κ]. A group's items are contiguous, so each block
+    touches it in one stretch."""
+    q_tiles, c_tiles = wgmma_tiles(m, n_valid)
+    items = q_tiles * c_tiles
+    if grid == 0 or items == 0:
+        return 1
+    per_group = c_tiles * group_size
+    return max(
+        topk_first_block(min(g + per_group, items) - 1, items, grid)
+        - topk_first_block(g, items, grid) + 1
+        for g in range(0, items, per_group)
+    )
+
+
+def wgmma_topk_grid(m: int, n_valid: int, kappa: int, grid: int,
+                    group_size: int = WGMMA_GROUP) -> Tuple[int, int]:
+    """(grid, S) of a fused_topk.bf16 launch: the one-wave ``grid``,
+    shrunk while its [M, S, κ] output would exceed TOPK_SCRATCH_BYTES."""
+    pieces = wgmma_pieces(m, n_valid, grid, group_size)
+    while grid > 1 and 8 * m * pieces * kappa > TOPK_SCRATCH_BYTES:
+        grid -= 1
+        pieces = wgmma_pieces(m, n_valid, grid, group_size)
+    return grid, pieces
 
 
 # Resident blocks per SM of each (kernel, device, occupancy arguments),
@@ -428,9 +482,11 @@ def _reduce_slots(t: torch.Tensor, name: str, vec: int) -> int:
     return _occupancy_slots(t, name, vec)
 
 
-def _wgmma_slots(t: torch.Tensor) -> int:
-    """Slots of the row_max.bf16 kernel (wgmma_gemm.cuh)."""
-    return _occupancy_slots(t, "row_max_bf16")
+def _wgmma_slots(t: torch.Tensor, name: str = "row_max_bf16", *args: int) -> int:
+    """Slots of a kernel of the tensor-core product (wgmma_gemm.cuh), by
+    its C name (``row_max_bf16``, ``count_above_bf16``,
+    ``fused_topk_bf16`` with its placement and κ)."""
+    return _occupancy_slots(t, name, *args)
 
 
 def _reduce_plan(name: str, q: torch.Tensor, refs: torch.Tensor,
@@ -492,21 +548,49 @@ def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
 
 
 def count_above(
-    q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int
+    q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int,
+    pair: str = "stream",
 ) -> torch.Tensor:
     """Exact per-row count of q·refsᵀ ≥ τ over the first ``n_valid``
-    columns, [M] int32."""
+    columns, [M] int32, on the product of its partner kernel, ``pair``:
+    "stream" (fused_topk's) or "pooled" (pool_writer's). In f32 both are
+    the one f32 kernel; in bf16, "stream" is the tensor-core count
+    (``count_above.bf16``) and "pooled" the CUDA-core one
+    (``count_above.bf16.pool``). A bf16 ``refs`` may carry
+    ``pad_columns``' zero pad columns."""
     n_valid = int(n_valid)
-    _check(q, refs, n_valid)
+    if pair not in PAIRS:
+        raise ValueError(f"pair must be one of {PAIRS}, got {pair!r}")
+    bf16 = q.dtype == torch.bfloat16
+    _check(q, refs, n_valid, pad_ok=bf16)
     if q.device.type == "cpu":
         return count_above_plain(q, refs, float(tau), n_valid)
     m, d = q.shape
     out = torch.empty((m,), dtype=torch.int32, device=q.device)
     if m == 0:
         return out
-    key, cname = _variant("count_above", q)
+    lib = _build.library()
+    if bf16:
+        if d == 0:
+            raise ValueError("count_above_bf16: the kernel takes D >= 1")
+        if refs.shape[1] != d:  # padded refs: the queries take the same zeros
+            q = pad_columns(q)
+        if pair == "stream":
+            q, refs = pad_columns(q), pad_columns(refs)
+            grid = wgmma_grid(m, n_valid, _wgmma_slots(q, "count_above_bf16"))
+            rc = lib.vsc_count_above_bf16(
+                q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0],
+                q.shape[1], float(tau), n_valid, grid, out.data_ptr(), _stream(q),
+            )
+            _raise_on(rc, "count_above_bf16")
+            launches["count_above" + BF16] += 1
+            return out
+        cname, key = "count_above_bf16_pool", COUNT_ABOVE_POOL
+    else:
+        cname, key = "count_above", "count_above"
+    d = q.shape[1]
     vec, grid = _reduce_plan(cname, q, refs, n_valid)
-    rc = getattr(_build.library(), f"vsc_{cname}")(
+    rc = getattr(lib, f"vsc_{cname}")(
         q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0], d,
         float(tau), n_valid, vec, grid, out.data_ptr(), _stream(q),
     )
@@ -550,25 +634,63 @@ def fused_topk(
     128-column segment), ordered by score descending, then column
     ascending: ([M, κ] f32, [M, κ] int32), padded with −inf and id 0. Any
     N and any κ ≥ 1. The kernel collects one κ-set per row and block
-    (S pieces per row, ``topk_grid``); ``ordered_topk`` merges them."""
+    (S pieces per row: ``topk_grid``, or ``wgmma_topk_grid`` in bf16);
+    ``ordered_topk`` merges them. A bf16 ``refs`` may carry
+    ``pad_columns``' zero pad columns."""
     n_valid, kappa = int(n_valid), int(kappa)
-    _check(q, refs, n_valid)
+    bf16 = q.dtype == torch.bfloat16
+    _check(q, refs, n_valid, pad_ok=bf16)
     if kappa < 1:
         raise ValueError(f"kappa must be >= 1, got {kappa}")
     if q.device.type == "cpu":
         return fused_topk_plain(q, refs, n_valid, kappa)
-    m, d = q.shape
+    m = q.shape[0]
     if m == 0:
         return (torch.empty((0, kappa), dtype=torch.float32, device=q.device),
                 torch.empty((0, kappa), dtype=torch.int32, device=q.device))
-    key, cname = _variant("fused_topk", q)
-    vec, grid = _reduce_plan(cname, q, refs, n_valid)
+    if bf16:
+        return _fused_topk_bf16(q, refs, n_valid, kappa,
+                                kappa <= WGMMA_SMEM_SETS_KAPPA_MAX)
+    vec, grid = _reduce_plan("fused_topk", q, refs, n_valid)
     grid, pieces = topk_grid(m, n_valid, kappa, grid)
+    return _launch_topk("fused_topk", "fused_topk", q, refs, n_valid, kappa,
+                        pieces, (kappa, vec, grid, pieces))
+
+
+def _fused_topk_bf16(
+    q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int, smem_sets: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fused_topk.bf16 on the card (M ≥ 1) with its κ-sets in shared
+    memory (``smem_sets``, κ ≤ WGMMA_SMEM_SETS_KAPPA_MAX) or in its
+    [M, S, κ] output. ``fused_topk`` takes shared memory wherever κ fits;
+    the card tests and ``tools/bench_reduce.py`` force either placement."""
+    if q.shape[1] == 0:
+        raise ValueError("fused_topk_bf16: the kernel takes D >= 1")
+    if smem_sets and kappa > WGMMA_SMEM_SETS_KAPPA_MAX:
+        raise ValueError(f"kappa {kappa} > {WGMMA_SMEM_SETS_KAPPA_MAX}: the sets "
+                         "do not fit in shared memory")
+    q, refs = pad_columns(q), pad_columns(refs)
+    m, smem_sets = q.shape[0], int(smem_sets)
+    group = WGMMA_SMEM_SETS_GROUP if smem_sets else WGMMA_GROUP
+    slots = _wgmma_slots(q, "fused_topk_bf16", smem_sets, kappa if smem_sets else 0)
+    grid, pieces = wgmma_topk_grid(m, n_valid, kappa,
+                                   wgmma_grid(m, n_valid, slots), group)
+    return _launch_topk("fused_topk_bf16", "fused_topk" + BF16, q, refs, n_valid,
+                        kappa, pieces, (kappa, smem_sets, grid, pieces))
+
+
+def _launch_topk(
+    cname: str, key: str, q: torch.Tensor, refs: torch.Tensor, n_valid: int,
+    kappa: int, pieces: int, args: Tuple[int, ...],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launches ``vsc_<cname>`` into S = ``pieces`` κ-sets per row, counts
+    it under ``key`` and merges the sets."""
+    m = q.shape[0]
     out_v = torch.empty((m, pieces * kappa), dtype=torch.float32, device=q.device)
     out_i = torch.empty((m, pieces * kappa), dtype=torch.int32, device=q.device)
     rc = getattr(_build.library(), f"vsc_{cname}")(
-        q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0], d,
-        n_valid, kappa, vec, grid, pieces, out_v.data_ptr(), out_i.data_ptr(),
+        q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0],
+        q.shape[1], n_valid, *args, out_v.data_ptr(), out_i.data_ptr(),
         _stream(q),
     )
     _raise_on(rc, cname)

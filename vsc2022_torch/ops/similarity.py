@@ -29,11 +29,14 @@ modes, routed as it routes them (``_collection_mode``):
      rows without that count prune.
 
 Both end in the exact global cut: score descending, ties by (q, r)
-ascending. The candidates, the pool and the counts come from kernels with
-the same tile product, so they see bit-identical scores; a re-searched
-row's scores come from ``torch.matmul`` and can differ from the kernel's
-in the last bits, so that search collects down to a rounding margin
-below τ.
+ascending. Each collection's kernels share one tile product, so they see
+bit-identical scores: the stream's candidates and counts (over a bf16
+corpus: the tensor-core product, reading ``tensor_core_refs``), the
+pool and its count (the CUDA-core product; ``count_above``'s ``pair``
+argument names the partner). A re-searched row's scores come from
+``torch.matmul`` and can differ from the kernels' in the last bits, so
+that search collects down to a rounding margin below τ, wider where the
+tensor cores scored.
 
 The corpus stages as the JAX searcher stages it: zero rows pad it to a
 multiple of ``min(COL_BLOCK, N rounded up to 128)``, so the routing sees
@@ -81,6 +84,9 @@ POOL_MIN_CORPUS = 1 << 18
 # Forces a collection mode: "pooled" (still streams when the pool is
 # infeasible) or "stream". The port's name for VSC2022_TPU_COLLECTION.
 COLLECTION_ENV = "VSC2022_TORCH_COLLECTION"
+# The re-search margin where the tensor cores scored, in units of the f32
+# one (``SimilaritySearcher._corpus_above`` derives it).
+TENSOR_CORE_SLACK = 2.0
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -207,9 +213,10 @@ class SimilaritySearcher:
         # Rounded to bf16 (nearest even) on the device, in the copy.
         self._refs[: self.n_refs] = refs_t.to(self.device)
         self._ref_norm_max = _max_row_norm(self._refs)
-        # row_max's copy of a bf16 corpus (kernels.pad_columns), built on
-        # first use; dropped whenever the corpus changes.
-        self._row_max_copy: Optional[torch.Tensor] = None
+        # The tensor-core kernels' copy of a bf16 corpus
+        # (kernels.pad_columns), built on first use; dropped whenever the
+        # corpus changes.
+        self._tc_copy: Optional[torch.Tensor] = None
         self.last_stats: dict = {}
 
     def _zeros(self, n_rows: int) -> torch.Tensor:
@@ -242,7 +249,7 @@ class SimilaritySearcher:
             self._ref_norm_max, _max_row_norm(refs[self.n_refs : total])
         )
         self._refs, self.n_refs = refs, total
-        self._row_max_copy = None
+        self._tc_copy = None
 
     def keep_rows(self, keep_idx) -> None:
         """Shrink the staged corpus to exactly these surviving rows
@@ -256,7 +263,7 @@ class SimilaritySearcher:
         refs[:total] = self._refs.index_select(0, idx)
         self._refs, self.n_refs = refs, total
         self._ref_norm_max = _max_row_norm(refs)
-        self._row_max_copy = None
+        self._tc_copy = None
 
     def _stage_queries(self, queries) -> torch.Tensor:
         """The queries on the device as contiguous rows of the staged
@@ -277,24 +284,32 @@ class SimilaritySearcher:
 
     # ---- per-row searches ------------------------------------------------
 
-    def row_max_refs(self) -> torch.Tensor:
-        """The staged corpus as the ``row_max`` kernel reads it: an f32
-        corpus as staged; a bf16 one as a zero-padded copy whose rows hold
-        a multiple of 8 values (``kernels.pad_columns``; the staged corpus
-        itself when its D is one), made on first use and kept until
-        ``append_rows`` or ``keep_rows`` changes the corpus. The other
-        kernels read the staged corpus."""
-        if self.torch_dtype != torch.bfloat16:
+    @property
+    def _tensor_cores(self) -> bool:
+        """Whether ``row_max`` and the streaming pair score on the tensor
+        cores (a bf16 corpus)."""
+        return self.torch_dtype == torch.bfloat16
+
+    def tensor_core_refs(self) -> torch.Tensor:
+        """The staged corpus as ``row_max``, ``fused_topk`` and the
+        streaming ``count_above`` read it: an f32 corpus as staged; a bf16
+        one as the tensor-core product reads it, rows of a multiple of 8
+        values (``kernels.pad_columns``): the staged corpus itself when its
+        D is one (serving's D = 512 costs no memory), else a zero-padded
+        copy (the DnS corpus's D = 1025: 1,032 columns), made on first use
+        and kept until ``append_rows`` or ``keep_rows`` changes the corpus.
+        ``pool_writer`` and the pooled count read the staged corpus."""
+        if not self._tensor_cores:
             return self._refs
-        if self._row_max_copy is None:
-            self._row_max_copy = kernels.pad_columns(self._refs)
-        return self._row_max_copy
+        if self._tc_copy is None:
+            self._tc_copy = kernels.pad_columns(self._refs)
+        return self._tc_copy
 
     def row_nn(self, queries) -> np.ndarray:
         """Best score per row (k=1), e.g. for score normalization; the
         ``row_max`` kernel on the device."""
         q = self._stage_queries(queries)
-        return kernels.row_max(q, self.row_max_refs(), self.n_refs).cpu().numpy()
+        return kernels.row_max(q, self.tensor_core_refs(), self.n_refs).cpu().numpy()
 
     def row_topk(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Exact per-row top-k: (scores [Nq, k], idx [Nq, k]), best-first,
@@ -324,7 +339,8 @@ class SimilaritySearcher:
             kappa = 1 << (kappa - 1).bit_length()  # next power of two
         return min(kappa, self.n_refs), min(k, nq * self.n_refs)
 
-    def _corpus_above(self, q_rows: torch.Tensor, tau: float):
+    def _corpus_above(self, q_rows: torch.Tensor, tau: float,
+                      tensor_cores: bool = False):
         """Every corpus entry ≥ τ of the given query rows, by a chunked
         ``torch.matmul``: (scores, local row index, ref id).
 
@@ -335,11 +351,25 @@ class SimilaritySearcher:
         is lost, and the exact final cut drops the surplus. A bf16 corpus
         and its queries are widened to f32 first: a product of two bf16
         values is exact in f32, in the kernels as here, so the two sums
-        differ only in their order and the same margin covers them.
+        differ only in how they add.
+
+        ``tensor_cores``: the kernels scored on the tensor cores (the
+        streaming pair over a bf16 corpus). They add the exact products in
+        blocks of n_b ≥ 2 (with the accumulator), each addend aligned to
+        the block's largest exponent and truncated to f32 precision: at
+        most 2u of that largest term per addend, so a block of sums of
+        magnitude ≤ Σ|qᵢrᵢ| errs by at most (n_b + 1)·2u·Σ|qᵢrᵢ| and the
+        D/n_b blocks by 2·(1 + 1/n_b)·D·u·Σ|qᵢrᵢ| ≤ 3·D·u·‖q‖·‖r‖.
+        ``torch.matmul``'s f32 sum errs by at most D·u·‖q‖·‖r‖, so the two
+        differ by at most 4·D·u·‖q‖·‖r‖: TENSOR_CORE_SLACK (2) times the
+        f32 margin. The wider margin costs only re-searched entries, which
+        the final cut drops.
         """
         refs = self._refs[: self.n_refs].float()
         q_rows = q_rows.float()
         slack = self.dim * float(torch.finfo(torch.float32).eps) * self._ref_norm_max
+        if tensor_cores:
+            slack *= TENSOR_CORE_SLACK
         parts_s, parts_q, parts_r = [], [], []
         step = self._row_chunk()
         for start in range(0, q_rows.shape[0], step):
@@ -431,7 +461,12 @@ class SimilaritySearcher:
         (scores, query rows, ref ids) holding every entry that can make
         the cut, and the stats."""
         nq = q.shape[0]
-        top_s, top_i = kernels.fused_topk(q, self._refs, self.n_refs, kappa)
+        # The candidates and the counts score on one product: over a bf16
+        # corpus the tensor cores, reading the padded copy with the queries
+        # padded once for both.
+        refs = self.tensor_core_refs()
+        q_k = kernels.pad_columns(q) if self._tensor_cores else q
+        top_s, top_i = kernels.fused_topk(q_k, refs, self.n_refs, kappa)
         clock.mark("candidates")
         # τ is the global k-th candidate; with k beyond the rows' κ
         # candidates the true k-th is unknowable from them: −inf.
@@ -439,7 +474,8 @@ class SimilaritySearcher:
             tau = NEG_INF
         else:
             tau = float(torch.topk(top_s.reshape(-1), k_eff).values[-1])
-        counts = kernels.count_above(q, self._refs, tau, self.n_refs).long()
+        counts = kernels.count_above(q_k, refs, tau, self.n_refs,
+                                     pair="stream").long()
         above = (top_s >= tau) & torch.isfinite(top_s)
         kept = above.sum(1)
         # counts are exact corpus counts, so kept ≠ count flags exactly
@@ -452,7 +488,8 @@ class SimilaritySearcher:
         parts_s, parts_q, parts_r = [top_s[kq, kc]], [kq], [top_i[kq, kc].long()]
         corpus_rows = torch.nonzero(deficient, as_tuple=True)[0]
         if corpus_rows.numel():
-            cs, cq, cr = self._corpus_above(q[corpus_rows], tau)
+            cs, cq, cr = self._corpus_above(q[corpus_rows], tau,
+                                            tensor_cores=self._tensor_cores)
             parts_s.append(cs)
             parts_q.append(corpus_rows[cq])
             parts_r.append(cr)
@@ -492,7 +529,7 @@ class SimilaritySearcher:
         amb_rows = torch.nonzero(ambiguous, as_tuple=True)[0]
         if amb_rows.numel():
             totals = kernels.count_above(
-                q[amb_rows], self._refs, tau, self.n_refs
+                q[amb_rows], self._refs, tau, self.n_refs, pair="pooled"
             ).long()
             complete = totals == kept[amb_rows]
             hidden = totals > pool_counts[amb_rows]

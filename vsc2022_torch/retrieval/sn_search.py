@@ -80,7 +80,7 @@ class ScoreNormalizedSearcher:
         promotes them."""
         ns = self.noise_searcher
         q = ns._stage_queries(queries)
-        bias = kernels.row_max(q, ns.row_max_refs(), ns.n_refs)
+        bias = kernels.row_max(q, ns.tensor_core_refs(), ns.n_refs)
         return torch.cat([q.float(), (-self.beta * bias)[:, None]], dim=1)
 
     def global_topk(
