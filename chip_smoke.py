@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
      the resident blocks per SM of row_max, count_above and fused_topk,
      fused_topk's grid and pieces per row (S) at the serving and DnS
      shapes, and the plans of the tensor-core product (wgmma_gemm.cuh):
-     row_max.bf16's at its shapes, count_above.bf16's and
+     row_max.bf16's at its shapes, pool_writer.bf16's and
+     count_above.bf16's at the SSCD shapes, count_above.bf16's and
      fused_topk.bf16's at the serving and DnS shapes (grid, S, corpus
      passes, shared-memory bytes, where the kappa-sets live).
   2. Hold each kernel against its plain PyTorch version on the card:
@@ -26,21 +27,28 @@ Phases (any failure exits non-zero):
      >= tau on every row where no segment holds two entries >= tau.
      The bf16 variants of the four retrieval kernels, first at small
      ragged shapes (D = 511, 512, 513, 1025; rows 16-byte and 2-byte
-     aligned), then on the bf16 paths' inputs (4b, 6b) and on the DnS
-     path's inputs rounded to bf16: exact against their plain versions on
-     integers. On floats they split by the pair the searcher compares.
-     The pooled pair (pool_writer.bf16 and the CUDA-core count,
-     count_above.bf16.pool) equals the f32 kernels on the widened inputs
-     bit for bit, and each other, as above. The streaming pair
-     (fused_topk.bf16 and count_above.bf16) and row_max.bf16 run on the
-     tensor cores (their own summation order): within BF16_TC_ATOL of
-     their plain versions (fused_topk.bf16's ids equal the plain ones
-     wherever no winner lies within twice that of the kappa boundary), and
-     bit for bit against each other: fused_topk.bf16's best value is
-     row_max.bf16, and with tau the global k-th candidate (k = 20 per
-     row), count_above.bf16 equals the candidates >= tau on every row
-     whose set is not full at tau and where no segment holds more than
-     two entries >= tau (found with the plain version and a margin). Each
+     aligned), then on the bf16 paths' inputs (4b; 6b, its forced pooled
+     search's pool too) and on the DnS path's inputs rounded to bf16:
+     exact against their plain versions on integers. All four run on one
+     product, the tensor cores' (their own summation order): on floats
+     within BF16_TC_ATOL of their plain versions (pool_writer.bf16's and
+     fused_topk.bf16's ids equal the plain ones wherever no winner lies
+     within twice that of its runner-up or of the kappa boundary), and
+     bit for bit against each other, as the f32 kernels: on the inputs of
+     every row_max, count_above and pool_writer call, the pool's best
+     winner is row_max.bf16, its winners ordered are fused_topk.bf16's
+     (kappa 32), count_above.bf16 equals its count >= tau on every row
+     with amb == 0, and on the other rows alone (the pooled collection's
+     count) it counts what it counts for them in the full call; on
+     fused_topk.bf16's inputs, its best value is row_max.bf16, and with
+     tau the global k-th candidate (k = 20 per row) count_above.bf16
+     equals the candidates >= tau on every row whose set is not full at
+     tau and where no segment holds more than two entries >= tau (found
+     with the plain version and a margin). scores.bf16, the same product
+     written out for the corpus re-search, is held against its plain
+     version, and its segments' best 2 against the pool bit for bit, on
+     the rows each bf16 path re-searches: SSCD (4b), serving (6b, both
+     collections) and the DnS bf16 search (6b, in process). Each
      is timed beside the f32 kernel on the widened inputs. Their bound
      takes the bf16 tensor-core peak, their library call a cuBLAS bf16
      product.
@@ -60,7 +68,8 @@ Phases (any failure exits non-zero):
      wrapper's first inputs in that run are kept for phase 2.
  4b. The same two entry points with --bf16 on the same files: the
      noise-NN and the retrieval over bf16 corpora; row_max.bf16,
-     pool_writer.bf16 and the pooled count (count_above.bf16.pool) must
+     pool_writer.bf16, count_above.bf16 (the ambiguous rows' count, over
+     the pool's own operands) and scores.bf16 (the re-searched rows) must
      launch, and no f32 kernel.
      Stage seconds, last_stats and quality are logged beside phase 4's.
   5. The DnS track, through its entry points: dns_index for the coarse
@@ -102,15 +111,16 @@ Phases (any failure exits non-zero):
      corpus, noise corpus and localizer tables) on the same catalogue,
      requests (a)-(h): stats says bfloat16, the snapshot restart answers
      (g) byte for byte, the candidates equal an in-process
-     ScoreNormalizedVideoIndex(dtype="bfloat16"), pooled agrees with
-     stream within BF16_TC_ATOL (the stream scores on the tensor cores,
-     the pool on the CUDA cores: the same pairs but those within twice
-     that of the last kept score), and row_max.bf16, fused_topk.bf16 and
-     count_above.bf16 launch on the tensor cores (no f32 kernel, no
-     pooled count). Then one DnS two-file request with bf16 tables over
-     phase 5's files (fused_topk.bf16 and count_above.bf16 at D = 1025 over
-     the searcher's 1,032-column copy, the f32 chamfer over widened rows);
-     its quality is logged.
+     ScoreNormalizedVideoIndex(dtype="bfloat16"), pooled equals stream
+     (one product, the re-searched rows' scores included: the same pairs,
+     scores equal), and row_max.bf16,
+     fused_topk.bf16 and count_above.bf16 launch on the tensor cores (no
+     f32 kernel). Then one DnS two-file request with bf16 tables over
+     phase 5's files (fused_topk.bf16, count_above.bf16 and scores.bf16 at
+     D = 1025 over the searcher's 1,032-column copy, the f32 chamfer over
+     widened rows); its quality is logged. Its search, repeated in process
+     on phase 5's inputs rounded to bf16 in both collection modes, gives
+     the same arrays either way and re-searches as the server did.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object with each kernel's numbers, and {"ok": true, "device": ...}.
@@ -138,13 +148,14 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 FLOAT_ATOL = 1e-5  # f32 sums of unit-norm products in another order
-# The tensor-core kernels (row_max.bf16, count_above.bf16, fused_topk.bf16)
-# against their plain versions (the widened f32 product): the tensor cores
-# add the exact bf16 products in f32 in their own order. The error grows
-# with D and with the norms: on an H100 at most 6.0e-7 on unit-norm rows at
-# D <= 1025, 1.37e-6 on the serving search and 2.92e-6 on the DnS bf16
-# request (D = 1025), whose queries carry score normalization's bias column
-# (|q| > 1). 1e-5 sits 3.4x above the largest reading. It is an empirical
+# The bf16 kernels, all on the tensor cores, against their plain versions
+# (the widened f32 product): the tensor cores add the exact bf16 products
+# in f32 in their own order. The error grows with D and with the norms: on
+# an H100 at most 6.0e-7 on unit-norm rows at D <= 1025, 1.37e-6 on the
+# serving search, 1.49e-6 (pool_writer.bf16) and 1.25e-6 (scores.bf16) on
+# the SSCD --bf16 search and 2.92e-6 on the DnS bf16 request (D = 1025),
+# whose queries carry score normalization's bias column (|q| > 1). 1e-5
+# sits 3.4x above the largest reading. It is an empirical
 # tolerance: the worst case, 4 D u |q| |r| (u = 2^-24; 2.5e-4 |q| |r| at
 # D = 1032), is what the searcher's re-search margin covers
 # (ops/similarity.py _corpus_above), not this check.
@@ -166,6 +177,9 @@ SERVE_REF_VIDEOS, SERVE_NOISE_FRAMES, SERVE_ADD, SERVE_REMOVE = 4_000, 60_000, 1
 # The searches' k per query row (1200 per 60-frame video): pool_identity
 # takes tau as the pooled collection would for the rows it is given.
 K_PER_ROW = 1200 // FRAMES
+# Query rows whose scores.bf16 pool_identity holds against the pool (256 MB
+# of scores at the SSCD corpus).
+SCORES_ROWS = 64
 
 KERNEL_META = {
     "row_max": ("vsc2022_torch/ops/csrc/row_max.cu",
@@ -178,16 +192,19 @@ KERNEL_META = {
                    "vsc2022_tpu/ops/pallas_kernels.py:618"),
     "chamfer": ("vsc2022_torch/ops/csrc/chamfer.cu",
                 "vsc2022_tpu/ops/pallas_kernels.py:729"),
+    # Not a Pallas kernel: the block product (XLA) the JAX searcher's
+    # corpus re-search shares with its streaming collection.
+    "scores": ("vsc2022_torch/ops/csrc/scores.cu",
+               "vsc2022_tpu/ops/similarity.py:259"),
 }
 # The TPU kernel each bf16 variant replaces: pool_writer's bf16 branch; the
 # other three have none (the JAX searcher computes them over a bf16 corpus
 # with XLA, similarity.py:271, 464), so their Pallas function stands.
 BF16_REPLACES = {"pool_writer": "vsc2022_tpu/ops/pallas_kernels.py:228"}
-POOL = ".pool"  # suffix of the pooled collection's bf16 count
 # Each kernel's wrapper in vsc2022_torch.ops.kernels.
 WRAPPERS = {"row_max": "row_max", "count_above": "count_above",
             "pool_writer": "pool_writer", "fused_topk": "fused_topk",
-            "chamfer": "chamfer_fine_sims"}
+            "scores": "scores", "chamfer": "chamfer_fine_sims"}
 # The kernels each path must launch: the SSCD corpus (1,000,020 rows) is
 # pooled; the DnS and serving corpora stream.
 SSCD_KERNELS = ("row_max", "count_above", "pool_writer")
@@ -195,11 +212,10 @@ DNS_KERNELS = ("row_max", "fused_topk", "count_above", "chamfer")
 SERVE_KERNELS = ("row_max", "fused_topk", "count_above")
 DNS_SERVE_KERNELS = ("fused_topk", "count_above", "chamfer")  # cg npz is normalized
 # The same paths in bf16 (sscd_baseline --bf16, the server's default): the
-# bf16 variants (the pooled collection's count: count_above.bf16.pool, the
-# streaming one's: count_above.bf16); the DnS server's chamfer stays f32
-# (its bf16 tables widen).
+# bf16 variants, and on the SSCD path the re-search's scores.bf16; the DnS
+# server's chamfer stays f32 (its bf16 tables widen).
 BF16 = ".bf16"
-SSCD_BF16_KERNELS = ("row_max.bf16", "count_above.bf16" + POOL, "pool_writer.bf16")
+SSCD_BF16_KERNELS = tuple(k + BF16 for k in SSCD_KERNELS) + ("scores" + BF16,)
 SERVE_BF16_KERNELS = tuple(k + BF16 for k in SERVE_KERNELS)
 DNS_SERVE_BF16_KERNELS = ("fused_topk.bf16", "count_above.bf16", "chamfer")
 
@@ -338,34 +354,63 @@ def compare_row_max(torch, kernels, q, r, n_valid, kind):
     return err
 
 
-def compare_count_above(torch, kernels, q, r, tau, n_valid, kind, pair="stream"):
-    got = kernels.count_above(q, r, tau, n_valid, pair=pair)
+def compare_count_above(torch, kernels, q, r, tau, n_valid, kind):
+    got = kernels.count_above(q, r, tau, n_valid)
     want = kernels.count_above_plain(q, r, tau, n_valid)
     err = float((got - want).abs().max()) if got.numel() else 0.0
     # Floats: a score within an ULP of τ may count on one side only.
     tol = 0.0 if kind == "int" else 2.0
-    check(err <= tol, f"count_above ({pair}) {kind}: max count diff {err} > {tol}")
+    check(err <= tol, f"count_above {kind}: max count diff {err} > {tol}")
     return err
 
 
-def compare_pool(torch, kernels, q, r, n_valid, kind, check_ids_dense):
+def compare_scores(torch, kernels, q, r, n_valid, kind):
+    """scores.bf16 against its plain version: exact on integers, within
+    BF16_TC_ATOL on floats. Returns the largest error."""
+    got = kernels.scores(q, r, n_valid)
+    want = kernels.scores_plain(q, r, n_valid)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    tol = 0.0 if kind == "int" else BF16_TC_ATOL
+    check(err <= tol, f"scores {kind} [{q.shape[0]}x{n_valid}x{q.shape[1]}]: max abs "
+          f"err {err} > {tol}")
+    return err
+
+
+def compare_pool(torch, kernels, q, r, n_valid, kind, check_ids_dense=False):
+    """Integers: the kernel's pool equals the plain version's exactly (ids
+    wherever the value is finite). Floats: the -inf slots agree, every
+    value lies within the tolerance (bf16: BF16_TC_ATOL) of the plain
+    version's, and the ids agree wherever no winner lies within twice that
+    of its runner-up (``check_ids_dense``: also every id's plain score is
+    within the tolerance of its value). Returns the largest value error."""
     pv, pi = kernels.pool_writer(q, r, n_valid)
     ev, ei = kernels.pool_writer_plain(q, r, n_valid)
     finite = torch.isfinite(ev)
     check(bool((torch.isfinite(pv) == finite).all()), "pool_writer: -inf slots differ")
     err = float((pv[finite] - ev[finite]).abs().max()) if finite.any() else 0.0
+    shape = f"[{q.shape[0]}x{n_valid}x{q.shape[1]}]"
     if kind == "int":
-        check(err == 0.0, f"pool_writer int: value err {err}")
+        check(err == 0.0, f"pool_writer int {shape}: value err {err}")
         check(bool((pi[finite] == ei[finite]).all()),
-              "pool_writer int: ids differ (tie rule: lowest column)")
-    else:
-        check(err <= FLOAT_ATOL, f"pool_writer float: value err {err}")
-        if check_ids_dense:
-            scores = torch.matmul(q, r.T)
-            rows = torch.arange(q.shape[0], device=q.device)[:, None, None].expand_as(pi)
-            at = scores[rows[finite], pi[finite].long()]
-            id_err = float((at - pv[finite]).abs().max())
-            check(id_err <= FLOAT_ATOL, f"pool_writer float: ids off by {id_err}")
+              f"pool_writer int {shape}: ids differ (tie rule: lowest column)")
+        return err
+    tol = BF16_TC_ATOL if q.dtype == torch.bfloat16 else FLOAT_ATOL
+    check(err <= tol, f"pool_writer float {shape}: value err {err} > {tol}")
+    top3, _ = plain_segments(torch, q, r, n_valid)
+    first = top3[:, :, 0] - top3[:, :, 1] > 2 * tol
+    second = first & (top3[:, :, 1] - top3[:, :, 2] > 2 * tol)
+    del top3
+    check(torch.equal(pi[:, :, 0][first], ei[:, :, 0][first])
+          and torch.equal(pi[:, :, 1][second], ei[:, :, 1][second]),
+          f"pool_writer float {shape}: ids differ from the plain version where the "
+          "winners lie apart")
+    if check_ids_dense:
+        scores = torch.matmul(q.float(), r[:, :q.shape[1]].float().T)
+        rows = torch.arange(q.shape[0], device=q.device)[:, None, None].expand_as(pi)
+        at = scores[rows[finite], pi[finite].long()]
+        id_err = float((at - pv[finite]).abs().max())
+        check(id_err <= tol, f"pool_writer float {shape}: ids off by {id_err}")
+    del pv, pi, ev, ei
     return err
 
 
@@ -470,7 +515,7 @@ def stream_pair_identity(torch, kernels, q, r, n_valid, kappa, label):
     finite = int(torch.isfinite(top_v).sum())
     tau = float(torch.topk(top_v.reshape(-1), min(K_PER_ROW * m, finite)).values[-1])
     kept = (top_v >= tau).sum(1)
-    counts = kernels.count_above(q, rt, tau, n_valid, pair="stream").long()
+    counts = kernels.count_above(q, rt, tau, n_valid).long()
     top3, _ = plain_segments(torch, q, r, n_valid)
     clean = (top3[:, :, 2] < tau - 2 * BF16_TC_ATOL).all(1) & (top_v[:, -1] < tau)
     del top3, rt
@@ -485,46 +530,80 @@ def stream_pair_identity(torch, kernels, q, r, n_valid, kappa, label):
         f"{int(clean.sum())} clean rows, >= on the {int((~clean).sum())} others")
 
 
-def pool_identity(torch, kernels, q, r, n_valid, label):
-    """row_max (f32) and the pooled count against the pool_writer kernel on
-    the same float inputs, bit for bit: the row max is the pool's best
-    winner, and with tau the global k-th pool value, k = K_PER_ROW per
-    query row (as the pooled collection takes it), the count equals the
-    pool count >= tau on every row with amb == 0 (no segment holding two
-    entries >= tau) and is no smaller elsewhere. bf16: the pooled count
-    (count_above.bf16.pool) only; row_max.bf16 sums on the tensor cores
-    (stream_pair_identity holds it)."""
+def pool_identity(torch, kernels, q, r, n_valid, label, kappa=32):
+    """The other kernels of q's dtype against the pool_writer kernel on the
+    same float inputs, bit for bit, as the searcher hands them over (bf16:
+    the queries and r padded to a multiple of 8 columns): the row max is
+    the pool's best winner; fused_topk is the pool's winners ordered
+    (bf16; the f32 kernels are held so by compare_topk); and with tau the
+    global k-th pool value, k = K_PER_ROW per query row (as the pooled
+    collection takes it), the count equals the pool count >= tau on every
+    row with amb == 0 (no segment holding two entries >= tau), is no
+    smaller elsewhere, and on those other rows alone (the pooled
+    collection's count of its ambiguous rows, each at another place in
+    its query tile) equals the full call's counts."""
     m, d = q.shape
     k = K_PER_ROW * m
     if r.shape[0] % 128:
-        r = torch.cat([r, r.new_zeros((128 - r.shape[0] % 128, d))])
-    pv, _ = kernels.pool_writer(q, r, n_valid)
+        r = torch.cat([r, r.new_zeros((128 - r.shape[0] % 128, r.shape[1]))])
     bf16 = q.dtype == torch.bfloat16
-    if not bf16:
-        best = pv.view(m, -1).amax(1)
-        got = kernels.row_max(q, r, n_valid)
-        check(torch.equal(got.view(torch.int32), best.view(torch.int32)),
-              f"{label}: row_max differs from pool_writer's best winner "
-              f"on {int((got != best).sum())} rows")
+    if bf16:
+        q, r = kernels.pad_columns(q), kernels.pad_columns(r)
+    pv, pi = kernels.pool_writer(q, r, n_valid)
+    best = pv.view(m, -1).amax(1)
+    got = kernels.row_max(q, r, n_valid)
+    check(torch.equal(got.view(torch.int32), best.view(torch.int32)),
+          f"{label}: row_max differs from pool_writer's best winner "
+          f"on {int((got != best).sum())} rows")
+    if bf16:
+        want = kernels.ordered_topk(pv.view(m, -1), pi.view(m, -1), kappa)
+        top = kernels.fused_topk(q, r, n_valid, kappa)
+        check(all(torch.equal(a, b) for a, b in zip(top, want)),
+              f"{label}: fused_topk.bf16 (kappa {kappa}) differs from the pool's "
+              "winners ordered")
+        del want, top
+        # The re-search's scores of the first rows: each segment's best 2
+        # values are the pool's, and the pool's ids score its values.
+        h = min(m, SCORES_ROWS)
+        sc = torch.full((h, r.shape[0]), float("-inf"), device=q.device)
+        sc[:, :n_valid] = kernels.scores(q[:h], r, n_valid)
+        best2 = torch.topk(sc.view(h, -1, 128), 2, dim=2).values
+        ids = pi[:h].view(h, -1).long().clamp(max=r.shape[0] - 1)  # -inf slots
+        at = sc.gather(1, ids).view(h, -1, 2)
+        finite = torch.isfinite(pv[:h])
+        check(torch.equal(best2.view(torch.int32), pv[:h].view(torch.int32))
+              and torch.equal(at[finite].view(torch.int32), pv[:h][finite].view(torch.int32)),
+              f"{label}: scores.bf16 of the first {h} rows differ from the pool")
+        del sc, best2, ids, at
+    del pi
     finite = int(torch.isfinite(pv).sum())
     tau = float(torch.topk(pv.reshape(-1), min(k, finite)).values[-1])
     above = pv >= tau
     pool_counts = above.view(m, -1).sum(1)
     amb = above.all(2).sum(1)
-    counts = kernels.count_above(q, r, tau, n_valid, pair="pooled").long()
+    del pv, above
+    counts = kernels.count_above(q, r, tau, n_valid).long()
     clean = amb == 0
     check(torch.equal(counts[clean], pool_counts[clean]),
           f"{label}: count_above differs from the pool count on "
           f"{int((counts[clean] != pool_counts[clean]).sum())} rows with amb == 0")
     check(bool((counts >= pool_counts).all()),
           f"{label}: count_above below the pool count")
-    del pv, above
-    log(f"phase 2: {label} [{m} x {n_valid} x {d}]: "
-        + ("" if bf16 else f"row_max == pool_writer's best winner bit for bit on "
-           f"all {m} rows; ")
-        + f"tau {tau!r} (k = {k}): count_above{BF16 + POOL if bf16 else ''} "
-        f"== pool count on {int(clean.sum())} rows with amb == 0, >= on the "
-        f"{int((~clean).sum())} others")
+    amb_rows = torch.nonzero(~clean, as_tuple=True)[0]
+    if amb_rows.numel():
+        sub = kernels.count_above(q[amb_rows], r, tau, n_valid).long()
+        check(torch.equal(sub, counts[amb_rows]),
+              f"{label}: count_above on the {amb_rows.numel()} rows with amb > 0 "
+              "alone differs from the full call's")
+    suffix = BF16 if bf16 else ""
+    log(f"phase 2: {label} [{m} x {n_valid} x {d}]: row_max{suffix} == "
+        f"pool_writer{suffix}'s best winner bit for bit on all {m} rows"
+        + (f"; fused_topk{suffix} == its winners ordered (kappa {kappa}); the "
+           f"segments' best 2 of scores{suffix} == the pool on the first "
+           f"{min(m, SCORES_ROWS)} rows" if bf16 else "")
+        + f"; tau {tau!r} (k = {k}): count_above{suffix} == pool count on "
+        f"{int(clean.sum())} rows with amb == 0, >= on the {amb_rows.numel()} "
+        "others, and on those rows alone == the full call's")
 
 
 def phase_kernels_small(torch, kernels, dev):
@@ -552,35 +631,12 @@ def bf16_rows(torch, kind, n, d, seed, dev, offset=0):
     return flat[offset:].view(n, d)
 
 
-def compare_widened(torch, kernels, q, r, n_valid, label, tau=None):
-    """The pooled pair, count_above.bf16.pool and pool_writer.bf16 (q and r
-    bf16; r a whole number of 128-row segments), bit for bit against their
-    f32 kernels on the widened inputs: widening is exact and these variants
-    run the f32 kernels' fmaf chain."""
-    qf, rf = q.float(), r.float()
-    if tau is None:
-        tau = float(kernels.row_max(qf, rf, n_valid).median())
-    same = {
-        "count_above.pool": torch.equal(
-            kernels.count_above(q, r, tau, n_valid, pair="pooled"),
-            kernels.count_above(qf, rf, tau, n_valid, pair="pooled")),
-        "pool_writer": all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                           for a, b in zip(kernels.pool_writer(q, r, n_valid),
-                                           kernels.pool_writer(qf, rf, n_valid))),
-    }
-    bad = [name for name, ok in same.items() if not ok]
-    check(not bad, f"{label}: bf16 {bad} differ from the f32 kernels on the widened inputs")
-
-
 def phase_kernels_bf16_small(torch, kernels, dev):
     """The bf16 variants at small ragged shapes, D in {511, 512, 513, 1025},
     rows 16-byte aligned and 2-byte aligned: exact against their plain
-    versions on integers (both counts); on floats the tensor-core kernels
-    (row_max.bf16, count_above.bf16, fused_topk.bf16) within BF16_TC_ATOL
-    of their plain versions and bit for bit against each other
-    (stream_pair_identity), the pooled pair bit for bit equal to the f32
-    kernels on the widened inputs, and to each other (pool_identity).
-    Returns the tensor-core kernels' largest float error."""
+    versions on integers; on floats within BF16_TC_ATOL of their plain
+    versions and bit for bit against each other (pool_identity,
+    stream_pair_identity). Returns their largest float error."""
     tc_err = 0.0
     m, n, n_valid = 150, 5120, 4990
     for d in (511, 512, 513, 1025):
@@ -594,50 +650,43 @@ def phase_kernels_bf16_small(torch, kernels, dev):
                 q[:3] = r[7]
                 if kind == "int":
                     compare_row_max(torch, kernels, q, r, n_valid, "int")
-                    for pair in kernels.PAIRS:
-                        compare_count_above(torch, kernels, q, r, 4.0 * math.isqrt(d),
-                                            n_valid, "int", pair)
-                    compare_count_above(torch, kernels, q, r, float("-inf"), n_valid,
-                                        "int")
-                    compare_pool(torch, kernels, q, r, n_valid, "int", False)
+                    for tau in (4.0 * math.isqrt(d), float("-inf")):
+                        compare_count_above(torch, kernels, q, r, tau, n_valid, "int")
+                    compare_pool(torch, kernels, q, r, n_valid, "int")
                     for kappa in (7, 32, 300):
                         compare_topk(torch, kernels, q, r, n_valid, kappa, "int")
                 else:
                     tc_err = max(tc_err, compare_row_max(
                         torch, kernels, q, r, n_valid, "float"))
-                    compare_widened(torch, kernels, q, r, n_valid, label)
+                    tc_err = max(tc_err, compare_pool(
+                        torch, kernels, q, r, n_valid, "float", check_ids_dense=True))
                     pool_identity(torch, kernels, q, r, n_valid, label)
                     tc_err = max(tc_err, compare_topk(
                         torch, kernels, q, r, n_valid, 32, "float"))
                     stream_pair_identity(torch, kernels, q, r, n_valid, 32, label)
     log("phase 2: bf16 variants at small shapes: exact on integers; on floats "
-        f"the tensor-core kernels within {tc_err} of their plain versions "
-        f"(tolerance {BF16_TC_ATOL}) and bit for bit against each other, the "
-        "pooled pair bit for bit equal to the f32 kernels on the widened inputs "
-        "and to each other, at D = 511, 512, 513, 1025, 16-byte and 2-byte aligned")
+        f"within {tc_err} of their plain versions (tolerance {BF16_TC_ATOL}) and "
+        "bit for bit against each other, at D = 511, 512, 513, 1025, 16-byte "
+        "and 2-byte aligned")
     return tc_err
 
 
 def kernel_key(torch, name, args):
-    """The launch-count key of a wrapper call: <name>[.bf16][.pool]."""
-    if args[0].dtype != torch.bfloat16:
-        return name
-    pooled = name == "count_above" and len(args) > 4 and args[4] == "pooled"
-    return name + BF16 + (POOL if pooled else "")
+    """The launch-count key of a wrapper call: <name>[.bf16]."""
+    return name + (BF16 if args[0].dtype == torch.bfloat16 else "")
 
 
 def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
     """Each retrieval kernel on the inputs a path gave it (its first call
-    there), and on integer-valued inputs of the same shape; f32 row_max and
-    the pooled count also against pool_writer (pool_identity), the
-    tensor-core kernels against each other (stream_pair_identity); timings
-    and bounds from those inputs. bf16 inputs run the bf16 variants; the
-    pooled pair is also held bit for bit against the f32 kernels on the
-    widened inputs, and every variant is timed beside its f32 kernel there
-    (f32_ms); their library call is a cuBLAS bf16 product. The
-    tensor-core kernels' refs may carry the searcher's zero pad columns;
-    their timed calls pad the queries (no copy when the path padded them).
-    Returns {key: record}, keyed as the launch counts."""
+    there), and on integer-valued inputs of the same shape; the kernels of
+    one dtype against each other on the inputs of row_max, count_above and
+    pool_writer (pool_identity) and, in bf16, of fused_topk
+    (stream_pair_identity); timings and bounds from those inputs. bf16
+    inputs run the bf16 variants, each timed beside its f32 kernel on the
+    widened inputs (f32_ms); their library call is a cuBLAS bf16 product.
+    Their refs may carry the searcher's zero pad columns; their timed calls
+    pad the queries (no copy when the path padded them). Returns {key:
+    record}, keyed as the launch counts."""
     records = {}
     for name, args in captured.items():
         if name == "chamfer":
@@ -645,7 +694,6 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
         q, r = args[0], args[1]
         bf16 = q.dtype == torch.bfloat16
         n_valid = int(args[3] if name == "count_above" else args[2])
-        pair = args[4] if name == "count_above" and len(args) > 4 else "stream"
         key = kernel_key(torch, name, args)
         (m, dd), n = q.shape, r.shape[0]
         qi, ri = make_inputs(torch, "int", m, n, dd, seed=3, dev=dev)
@@ -654,16 +702,17 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
         if name == "row_max":
             compare_row_max(torch, kernels, qi, ri, n_valid, "int")
         elif name == "count_above":
-            compare_count_above(torch, kernels, qi, ri, 40.0, n_valid, "int", pair)
+            compare_count_above(torch, kernels, qi, ri, 40.0, n_valid, "int")
         elif name == "fused_topk":
             compare_topk(torch, kernels, qi, ri, n_valid, int(args[3]), "int")
+        elif name == "scores":
+            compare_scores(torch, kernels, qi, ri, n_valid, "int")
         else:
-            compare_pool(torch, kernels, qi, ri, n_valid, "int", False)
+            compare_pool(torch, kernels, qi, ri, n_valid, "int")
         del qi, ri
         torch.cuda.empty_cache()
         label = f"{path} {key} inputs"
-        if (name == "count_above" and key != "count_above" + BF16) or (
-                name == "row_max" and not bf16):
+        if name != "fused_topk":
             pool_identity(torch, kernels, q, r, n_valid, label)
             torch.cuda.empty_cache()
         if name == "fused_topk" and bf16:
@@ -677,8 +726,8 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
             out_bytes = 4 * m
         elif name == "count_above":
             tau = float(args[2])
-            err = compare_count_above(torch, kernels, q, r, tau, n_valid, "float", pair)
-            call = lambda a, b: kernels.count_above(a, b, tau, n_valid, pair=pair)  # noqa: E731
+            err = compare_count_above(torch, kernels, q, r, tau, n_valid, "float")
+            call = lambda a, b: kernels.count_above(a, b, tau, n_valid)  # noqa: E731
             plain = lambda: kernels.count_above_plain(q, r, tau, n_valid)  # noqa: E731
             lib = lambda: count_above_library(torch, q, r, tau, n_valid)  # noqa: E731
             out_bytes = 4 * m
@@ -689,8 +738,14 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
             plain = lambda: kernels.fused_topk_plain(q, r, n_valid, kappa)  # noqa: E731
             lib = lambda: topk_library(torch, q, r, n_valid, kappa)  # noqa: E731
             out_bytes = 8 * m * kappa
+        elif name == "scores":
+            err = compare_scores(torch, kernels, q, r, n_valid, "float")
+            call = lambda a, b: kernels.scores(a, b, n_valid)  # noqa: E731
+            plain = lambda: kernels.scores_plain(q, r, n_valid)  # noqa: E731
+            lib = lambda: torch.matmul(q, r[:n_valid, :dd].T)  # noqa: E731
+            out_bytes = 4 * m * n_valid
         else:
-            err = compare_pool(torch, kernels, q, r, n_valid, "float", False)
+            err = compare_pool(torch, kernels, q, r, n_valid, "float")
             call = lambda a, b: kernels.pool_writer(a, b, n_valid)  # noqa: E731
             plain = lambda: kernels.pool_writer_plain(q, r, n_valid)  # noqa: E731
             lib = lambda: pool_library(torch, q, r, n_valid)  # noqa: E731
@@ -707,19 +762,12 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         extra = ""
-        if bf16:
-            tensor_cores = key in ("row_max.bf16", "count_above.bf16", "fused_topk.bf16")
-            if not tensor_cores:
-                rp = r if n % 128 == 0 else torch.cat([r, r.new_zeros((128 - n % 128, dd))])
-                compare_widened(torch, kernels, q, rp, n_valid, label)
-                del rp
+        if bf16 and name != "scores":  # scores.bf16 has no f32 kernel
             # Without the tensor-core kernels' pad columns.
             qf, rf = q[:, :r.shape[1]].float(), r[:, :q.shape[1]].float()
             records[key]["f32_ms"] = cuda_ms(torch, lambda: call(qf, rf), 3)
             extra = (f" f32_ms={records[key]['f32_ms']:.3f} (the f32 kernel on the "
-                     "widened inputs, "
-                     + ("the tensor-core kernel within the tolerance)" if tensor_cores
-                        else "bit-identical)"))
+                     "widened inputs)")
             del qf, rf
             torch.cuda.empty_cache()
         log(f"phase 2: {key} on the {path} path's inputs [{m} x {n_valid} x {dd}] "
@@ -919,9 +967,8 @@ def small_cuda_vs_cpu(np, out_dir: Path):
 def capture_inputs(kernels, keep_all=()):
     """Keep the arguments of each kernel wrapper's first non-empty call
     while the block runs, {name: args}, or of all of them for the kernels
-    in ``keep_all``, {name: [args, ...]}; keyword arguments (count_above's
-    pair) follow the positional ones. The wrappers' launch counts are
-    untouched."""
+    in ``keep_all``, {name: [args, ...]}; keyword arguments follow the
+    positional ones. The wrappers' launch counts are untouched."""
     seen = {}
     originals = {name: getattr(kernels, fn) for name, fn in WRAPPERS.items()}
 
@@ -1063,10 +1110,15 @@ def phase_main_path_bf16(torch, np, kernels, paths, f32):
     for name in SSCD_BF16_KERNELS:
         check(launches[name] > 0, f"kernel {name} never launched on the bf16 path")
     for name in SSCD_KERNELS:
-        check(launches[name] == 0 and captured[name][0].dtype == torch.bfloat16,
-              f"the bf16 path reached the f32 kernel {name}")
-    check(launches["count_above" + BF16] == 0 and captured["count_above"][4] == "pooled",
-          "the pooled bf16 path reached the streaming (tensor-core) count")
+        check(captured[name][0].dtype == torch.bfloat16,
+              f"the bf16 path handed {name} {captured[name][0].dtype} operands")
+    f32_launched = [k for k in kernels.RETRIEVAL_KERNELS + ("chamfer",) if launches[k]]
+    check(not f32_launched, f"the bf16 path reached the f32 kernels {f32_launched}")
+    # The pooled count reads the pool's own operands: the padded queries'
+    # rows and the same corpus tensor.
+    pool_args, count_args = captured["pool_writer"], captured["count_above"]
+    check(count_args[1] is pool_args[1] and count_args[0].shape[1] == pool_args[0].shape[1],
+          "the pooled count and the pool read different operands")
     check(result["candidate_uap"] > 0.5, f"bf16 candidate uAP {result['candidate_uap']}")
     check(result["segment_ap"] > 0.2, f"bf16 segment AP {result['segment_ap']}")
     t0 = time.perf_counter()
@@ -1346,24 +1398,6 @@ def check_same_candidates(got, want, what, tol=1e-6):
     return err
 
 
-def check_close_candidates(got, want, what, tol):
-    """Candidates from two products whose scores round at most tol apart:
-    the same pairs, except pairs within 2 tol of the last kept score (which
-    may swap across the cut), and scores within tol."""
-    check(len(got) == len(want) > 0, f"{what}: {len(got)} vs {len(want)} rows")
-    g = {(c.query_id, c.ref_id): c.score for c in got}
-    w = {(c.query_id, c.ref_id): c.score for c in want}
-    edge = min(got[-1].score, want[-1].score) + 2 * tol
-    check({p for p, v in w.items() if v > edge} <= g.keys()
-          and {p for p, v in g.items() if v > edge} <= w.keys(),
-          f"{what}: pairs clear of the cut differ")
-    err = max(abs(g[p] - w[p]) for p in g.keys() & w.keys())
-    check(err <= tol, f"{what}: scores differ by {err} > {tol}")
-    log(f"{what}: {len(g.keys() & w.keys())} of {len(w)} pairs shared, scores "
-        f"within {err} (tolerance {tol})")
-    return err
-
-
 def check_same_rows(a_path, b_path, what, tol=FLOAT_ATOL):
     """Two CSVs with identical rows apart from scores within tol."""
     a, b = _csv_rows(a_path), _csv_rows(b_path)
@@ -1432,7 +1466,9 @@ def phase_serve(torch, np, kernels, dev, corpus, bf16=False):
     ``bf16``: the server starts with no dtype flag, the JAX package's
     default, and stages bf16 (phase 6b); otherwise with --f32. Returns the
     server's launch counts over (a)-(h), the kernel inputs of the same
-    search run in-process, and (a)'s quality."""
+    search run in-process (bf16: scores.bf16's too), the launch counts and
+    the inputs of pool_writer (and bf16: scores.bf16) of that search forced
+    to the pool, and (a)'s quality."""
     import logging
 
     from vsc2022_torch.baseline import pipeline
@@ -1485,8 +1521,8 @@ def phase_serve(torch, np, kernels, dev, corpus, bf16=False):
         for name in (SERVE_BF16_KERNELS if bf16 else SERVE_KERNELS):
             check(launches[name] > 0, f"kernel {name} never launched by the server")
         if bf16:
-            check(not any(launches[k] for k in SERVE_KERNELS + ("count_above.bf16" + POOL,)),
-                  "the bf16 server reached an f32 kernel or the pooled count")
+            check(not any(launches[k] for k in SERVE_KERNELS), "the bf16 server "
+                  "reached an f32 kernel")
         with spawn_server(snap, server_log, score_norm_features=paths["noise"],
                           matches=True, **flags) as client:
             step("fresh server on the snapshot: (a)'s queries", lambda: client.search(
@@ -1517,21 +1553,23 @@ def phase_serve(torch, np, kernels, dev, corpus, bf16=False):
     check(mode == "stream", f"the serving catalogue ran {mode}")
     err = check_same_candidates(CandidatePair.read_csv(csv["a"][0]), cands,
                                 "server (a) vs in-process index")
-    with collection_mode("pooled"):
+    # Forced to the pool: its kernels score on the stream's product, so
+    # the candidates are the same, scores included.
+    with collection_mode("pooled"), capture_inputs(kernels) as pooled_captured:
+        kernels.reset_launches()
         pooled, t_pooled = search()
+        pooled_launches = dict(kernels.launches)
     pooled_stats = dict(index._searcher.searcher.last_stats)
     check(pooled_stats["mode"] == "pooled", "pooled not taken")
-    if bf16:  # the stream scores on the tensor cores, the pool on the CUDA cores
-        check_close_candidates(pooled, cands, "(a) pooled vs stream", BF16_TC_ATOL)
-    else:
-        check_same_candidates(pooled, cands, "(a) pooled vs stream", tol=0.0)
+    check_same_candidates(pooled, cands, "(a) pooled vs stream", tol=0.0)
+    log(f"phase {phase}: (a) forced pooled, kernel launches: "
+        f"{json.dumps(pooled_launches)}")
     for stats in (stream_stats, pooled_stats):
         stats.pop("seconds", None)
         log(f"phase {phase}: (a) in-process global_topk last_stats: {json.dumps(stats)}")
     log(f"phase {phase}: (a) in-process: stream {t_stream:.3f} s, pooled "
-        f"{t_pooled:.3f} s, {len(cands)} pairs each, "
-        + ("within the tolerance" if bf16 else "the same")
-        + f"; server vs in-process scores within {err}")
+        f"{t_pooled:.3f} s, {len(cands)} pairs each, the same; server vs "
+        f"in-process scores within {err}")
     index.add(corpus["added"])
     index.remove(removed)
     cands_g, _ = search()
@@ -1544,8 +1582,15 @@ def phase_serve(torch, np, kernels, dev, corpus, bf16=False):
     check(quality["candidate_uap"] > 0.5, f"serving uAP {quality['candidate_uap']}")
     del index
     torch.cuda.empty_cache()
-    return (launches, {n: captured[n] for n in ("row_max", "fused_topk", "count_above")},
-            quality)
+    # The re-search's scores.bf16 on both collections' re-searched rows.
+    if bf16:
+        check("scores" in captured and "scores" in pooled_captured,
+              "the bf16 (a) search re-searched no row in one of its collections")
+    path_kernels = ("row_max", "fused_topk", "count_above", "scores")
+    pooled_captured = {n: pooled_captured[n] for n in ("pool_writer", "scores")
+                       if n in pooled_captured}
+    return (launches, {n: captured[n] for n in path_kernels if n in captured},
+            (pooled_launches, pooled_captured), quality)
 
 
 def serve_dns_request(bf16=False):
@@ -1608,6 +1653,66 @@ def time_collection_modes(torch, np, args, k, label):
         f"{q.shape[1]}] k={k}: stream {secs['stream']:.3f} s, pooled "
         f"{secs['pooled']:.3f} s, identical results")
     return secs
+
+
+def dns_bf16_search(torch, np, kernels, args, k, server_launches):
+    """The DnS bf16 request's search in process: the DnS path's corpus and
+    queries (fused_topk's input) rounded to bf16 as the bf16 server stages
+    them, searched in both collection modes (the same arrays). The stream
+    search must re-search as the server's did (its scores.bf16 launches).
+    Returns scores.bf16's first input there, the pad columns of the queries
+    dropped (its timed calls pad them)."""
+    from vsc2022_torch.ops.similarity import SimilaritySearcher
+
+    q, refs, n_valid = args[0], args[1], int(args[2])
+    searcher = SimilaritySearcher(refs[:n_valid].cpu().numpy(), dtype="bfloat16",
+                                  device=q.device)
+    out, launches = {}, {}
+    for mode in ("stream", "pooled"):
+        with collection_mode(mode), capture_inputs(kernels) as captured:
+            kernels.reset_launches()
+            out[mode] = searcher.global_topk(q, k)
+            launches[mode] = {n: c for n, c in kernels.launches.items() if c}
+            check(searcher.last_stats["mode"] == mode, f"DnS bf16: {mode} not taken")
+        if mode == "stream":
+            scores_args = captured.get("scores")
+    check(all(np.array_equal(a, b) for a, b in zip(out["stream"], out["pooled"])),
+          "DnS bf16: stream and pooled global_topk differ")
+    log(f"phase 6b: DnS bf16 search in process [{q.shape[0]} x {n_valid} x "
+        f"{q.shape[1]}] k={k}: stream and pooled identical; launches "
+        f"{json.dumps(launches)}; the server's scores.bf16 launches: "
+        f"{server_launches.get(kernels.SCORES, 0)}")
+    check(launches["stream"].get(kernels.SCORES, 0)
+          == server_launches.get(kernels.SCORES, 0),
+          "DnS bf16: the in-process stream search re-searched otherwise than the server")
+    if scores_args is None:
+        return {}
+    rows, tc_refs = scores_args[0], scores_args[1]
+    return {"scores": (rows[:, :q.shape[1]].contiguous(), tc_refs) + scores_args[2:]}
+
+
+def log_pool_plans(kernels, lib, probe, sms):
+    """Phase 1: the plans of pool_writer.bf16 over the SSCD corpus and of
+    count_above.bf16 over its ambiguous rows (about 890 of the 9,000), with
+    each block's shared memory as the library reports it."""
+    n_valid = N_REF_VIDEOS * FRAMES
+    n = -(-n_valid // 8192) * 8192  # the staged corpus's rows
+    for name, m, smem in (
+            ("pool_writer", N_QUERY_VIDEOS * FRAMES, lib.vsc_pool_writer_bf16_smem_bytes()),
+            ("count_above", 890, lib.vsc_count_above_bf16_smem_bytes())):
+        slots = kernels._wgmma_slots(probe, name + "_bf16")
+        grid = kernels.wgmma_grid(m, n_valid, slots)
+        q_tiles, c_tiles = kernels.wgmma_tiles(m, n_valid)
+        extra = ""
+        if name == "pool_writer":
+            written = kernels.pool_segments(n, n_valid)
+            extra = (f"; the kernel writes {written} of the {n // 128} segments a "
+                     f"row, the wrapper fills {n // 128 - written}")
+        log(f"phase 1: {name}.bf16 (wgmma_gemm.cuh) at the SSCD shape [{m} x {n_valid}]"
+            f": {slots // sms} block(s) per SM, grid {grid}, {q_tiles} x {c_tiles} "
+            f"tiles in groups of {kernels.WGMMA_GROUP}, corpus read "
+            f"{kernels.wgmma_corpus_passes(m, n_valid, grid):.2f} times, {smem} bytes "
+            f"of shared memory a block{extra}")
 
 
 def log_stream_pair_plans(kernels, lib, probe, sms, label, m, n_valid, kappa):
@@ -1686,7 +1791,8 @@ def main() -> int:
     log("phase 1: resident blocks per SM (narrow / 16-byte copies): " + ", ".join(
         f"{name} {kernels._reduce_slots(probe, name, 0) // sms} / "
         f"{kernels._reduce_slots(probe, name, 1) // sms}"
-        for name in ("row_max", "count_above", "count_above_bf16_pool", "fused_topk")))
+        for name in ("row_max", "count_above", "fused_topk")))
+    log_pool_plans(kernels, _build.library(), probe, sms)
     slots = kernels._wgmma_slots(probe)
     for label, m, n_valid in (("SSCD", 9000, 250_020), ("serving bias", 9000, 60_000)):
         q_tiles, c_tiles = kernels.wgmma_tiles(m, n_valid)
@@ -1722,10 +1828,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         dns_launches, dns_captured = phase_dns_path(torch, np, kernels)
         corpus = serve_corpus(np)
-        serve_launches, serve_captured, _ = phase_serve(torch, np, kernels, dev, corpus)
+        serve_launches, serve_captured, _, _ = phase_serve(torch, np, kernels, dev,
+                                                           corpus)
         serve_dns_request()
-        serve_bf16_launches, serve_bf16_captured, _ = phase_serve(
-            torch, np, kernels, dev, corpus, bf16=True)
+        serve_bf16_launches, serve_bf16_captured, (pooled_launches, pooled_captured), _ = (
+            phase_serve(torch, np, kernels, dev, corpus, bf16=True))
         del corpus
         dns_bf16_launches = serve_dns_request(bf16=True)
     finally:
@@ -1735,6 +1842,8 @@ def main() -> int:
                           1200 * N_QUERY_VIDEOS, "serving")
     time_collection_modes(torch, np, dns_captured["fused_topk"],
                           1200 * DNS_QUERIES, "DnS")
+    dns_bf16_captured = dns_bf16_search(torch, np, kernels, dns_captured["fused_topk"],
+                                        1200 * DNS_QUERIES, dns_bf16_launches)
     records["chamfer"] = phase_chamfer(torch, kernels, dev, dns_captured.pop("chamfer"))
     launches["chamfer"] = dns_launches["chamfer"]
     dns_records = phase_kernels_main(torch, kernels, dev, dns_captured, path="DnS")
@@ -1745,22 +1854,28 @@ def main() -> int:
         name: tuple(a.to(torch.bfloat16) if isinstance(a, torch.Tensor) else a
                     for a in call)
         for name, call in dns_captured.items()}, path="DnS"))
-    del dns_captured
+    # scores.bf16 on the rows the DnS bf16 search re-searches.
+    dns_records.update(phase_kernels_main(torch, kernels, dev, dns_bf16_captured,
+                                          path="DnS bf16 search"))
+    del dns_captured, dns_bf16_captured
     serve_records = phase_kernels_main(torch, kernels, dev, serve_captured,
                                        path="serving")
     del serve_captured
     serve_records.update(phase_kernels_main(torch, kernels, dev, serve_bf16_captured,
                                             path="serving"))
     del serve_bf16_captured
+    # pool_writer.bf16 and scores.bf16 on the bf16 serving search forced to
+    # the pool.
+    pooled_records = phase_kernels_main(torch, kernels, dev, pooled_captured,
+                                        path="serving (forced pooled)")
+    del pooled_captured
     # The streaming kernels' main record is the serving path's (the SSCD
-    # path pools: its bf16 count is count_above.bf16.pool).
+    # path pools).
     for name, counts in (("fused_topk", serve_launches),
-                         ("fused_topk.bf16", serve_bf16_launches),
-                         ("count_above.bf16", serve_bf16_launches)):
+                         ("fused_topk.bf16", serve_bf16_launches)):
         records[name] = serve_records.pop(name)
         launches[name] = counts[name]
-    path_of = {"chamfer": "dns", "fused_topk": "serving", "fused_topk.bf16": "serving",
-               "count_above.bf16": "serving"}
+    path_of = {"chamfer": "dns", "fused_topk": "serving", "fused_topk.bf16": "serving"}
 
     rows = []
     for name, rec in records.items():
@@ -1785,6 +1900,9 @@ def main() -> int:
         if name in serve_records:  # and on the serving path
             counts = serve_bf16_launches if name.endswith(BF16) else serve_launches
             row["serving"] = dict(serve_records[name], launches=counts[name])
+        if name in pooled_records:  # and its search forced to the pool
+            row["serving_pooled"] = dict(pooled_records[name],
+                                         launches=pooled_launches[name])
         rows.append(row)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))

@@ -336,18 +336,19 @@ def test_tensor_core_copy_built_on_first_use_and_dropped_on_change(monkeypatch, 
 
 @pytest.mark.parametrize("d", [16, 13])
 def test_collections_hand_each_kernel_its_pair(monkeypatch, d):
-    # The stream pads the queries once and hands fused_topk and
-    # count_above(pair="stream") the same tensors, over the tensor-core
-    # copy; the pooled collection asks for pair="pooled" over the staged
-    # corpus, beside pool_writer.
+    # Each collection pads the queries once and hands both its kernels the
+    # same tensors over the tensor-core copy: the stream fused_topk and
+    # count_above, the pool pool_writer and count_above (the ambiguous rows
+    # of those queries). One bf16 count: count_above takes no partner.
     calls = []
     real = {name: getattr(kernels, name)
             for name in ("fused_topk", "count_above", "pool_writer")}
 
     def spy(name):
         def call(q, refs, *args, **kwargs):
-            calls.append((name, q, refs, kwargs.get("pair")))
-            return real[name](q, refs, *args, **kwargs)
+            assert not kwargs
+            calls.append((name, q, refs))
+            return real[name](q, refs, *args)
         return call
 
     for name in real:
@@ -364,16 +365,51 @@ def test_collections_hand_each_kernel_its_pair(monkeypatch, d):
             np.testing.assert_array_equal(g, e)
         assert ts.last_stats["mode"] == mode
         names = [c[0] for c in calls]
+        (_, q_first, r_first), (_, q_count, r_count) = calls
+        assert r_count is r_first is ts.tensor_core_refs()
+        assert q_first.shape[1] == q_count.shape[1] == kernels.padded_width(d)
         if mode == "stream":
             assert names == ["fused_topk", "count_above"]
-            (_, q_top, r_top, _), (_, q_count, r_count, pair) = calls
-            assert pair == "stream"
-            assert q_count is q_top and r_count is r_top is ts.tensor_core_refs()
-            assert q_top.shape[1] == kernels.padded_width(d)
+            assert q_count is q_first
         else:
             assert names == ["pool_writer", "count_above"]
-            (_, _, r_pool, _), (_, _, r_count, pair) = calls
-            assert pair == "pooled" and r_count is r_pool is ts._refs
+            assert q_count.shape[0] == ts.last_stats["amb_rows"] >= 2
+            assert all(any(torch.equal(row, x) for x in q_first) for row in q_count)
+
+
+@pytest.mark.parametrize("mode", ["stream", "pooled"])
+@pytest.mark.parametrize("d", [16, 13])
+def test_research_scores_on_the_kernels_product(monkeypatch, d, mode):
+    # A re-searched row of a bf16 corpus scores on the kernels' own product
+    # (kernels.scores over the padded queries and tensor_core_refs), as the
+    # JAX searcher re-searches with its collection's block product; an f32
+    # corpus re-searches with torch.matmul. Both agree with JAX.
+    calls = []
+    real = kernels.scores
+
+    def spy(q, refs, n_valid):
+        calls.append((q, refs, n_valid))
+        return real(q, refs, n_valid)
+
+    monkeypatch.setattr(kernels, "scores", spy)
+    monkeypatch.setenv(COLLECTION_ENV, mode)
+    q, r = _ints((11, d), 40 + d), _ints((3000, d), 41 + d)
+    r[10:20] = 3.0  # 10 equal columns in segment 0: re-searched rows
+    q[1] = q[4] = 3.0
+    for dtype in (BF16, "float32"):
+        calls.clear()
+        ts = TorchSearcher(r, dtype=dtype, device="cpu")
+        want = JaxSearcher(r, dtype=dtype).global_topk(q, 100, kappa=8)
+        for e, g in zip(want, ts.global_topk(q, 100, kappa=8)):
+            np.testing.assert_array_equal(g, e)
+        assert ts.last_stats["mode"] == mode and ts.last_stats["corpus_rows"] > 0
+        if dtype == BF16:
+            assert sum(rows.shape[0] for rows, _, _ in calls) == ts.last_stats["corpus_rows"]
+            assert all(refs is ts.tensor_core_refs() and n == ts.n_refs
+                       and rows.shape[1] == kernels.padded_width(d)
+                       for rows, refs, n in calls)
+        else:
+            assert not calls
 
 
 def test_bf16_sn_normalize_queries_identical_to_jax_at_odd_width():

@@ -13,14 +13,17 @@ products in another order than cuBLAS's). On floats the retrieval kernels
 are held against each other bit for bit: they run the same f32 FMA chain
 per score, so row_max equals the pool's best winner, count_above the
 pool's count wherever the pool holds every entry >= tau, and fused_topk
-the pool's best winners. The bf16 variants split by the pair the searcher
-compares. The pooled pair (pool_writer.bf16 and the CUDA-core count,
-count_above(pair="pooled")) is held bit for bit against the f32 kernels on
-the widened inputs, and against each other. The streaming pair
-(fused_topk.bf16 and count_above.bf16) and row_max.bf16 run on the tensor
-cores (wgmma_gemm.cuh), which sum in their own order: exact on integers,
-within BF16_TC_ATOL of their plain versions on unit-norm floats, and bit
-for bit against each other.
+the pool's best winners. The bf16 variants (row_max.bf16,
+count_above.bf16, pool_writer.bf16, fused_topk.bf16) all run on one
+product, the tensor cores' (wgmma_gemm.cuh), which sum in their own order:
+exact on integers, within BF16_TC_ATOL of their plain versions on
+unit-norm floats, and bit for bit against each other, as the f32 kernels
+are: the pool's best winner is row_max.bf16, fused_topk.bf16 is the pool's
+winners ordered, and count_above.bf16 the pool count wherever the pool
+holds every entry >= tau, on any subset of the rows. scores.bf16 writes
+that product out for the searchers' corpus re-search: its per-segment top
+2 is the pool, bit for bit, so the pooled and streaming collections return
+the same pairs and scores.
 """
 
 import math
@@ -79,7 +82,7 @@ def test_kernels_match_plain(cuda_device, m, n, d, n_valid):
     assert kernels.launches == {
         "row_max": 1, "count_above": 1, "pool_writer": 1, "fused_topk": 0,
         "chamfer": 0, "row_max.bf16": 0, "count_above.bf16": 0,
-        "pool_writer.bf16": 0, "fused_topk.bf16": 0, "count_above.bf16.pool": 0,
+        "pool_writer.bf16": 0, "fused_topk.bf16": 0, "scores.bf16": 0,
     }
 
 
@@ -345,19 +348,20 @@ def test_global_topk_forced_modes_cuda_equal_cpu(cuda_device, monkeypatch, mode)
 
 
 BF16 = torch.bfloat16
-# The tensor-core kernels (row_max.bf16, count_above.bf16, fused_topk.bf16)
-# against the widened f32 product: the tensor cores add the D exact bf16
-# products in f32 in another order than cuBLAS (and not as one sequential
-# IEEE chain). On an H100 these tests' unit-norm rows err by at most
-# 6.0e-7, chip_smoke.py's DnS request (D = 1025, queries with |q| > 1 from
-# the bias column) by 2.92e-6: 1e-5 is chip_smoke.BF16_TC_ATOL, 3.4x above
-# the largest reading.
+# The bf16 kernels against the widened f32 product: the tensor cores add
+# the D exact bf16 products in f32 in another order than cuBLAS (and not
+# as one sequential IEEE chain). On an H100 these tests' unit-norm rows err
+# by at most 6.0e-7, chip_smoke.py's pool on the SSCD --bf16 search by
+# 1.49e-6 and its DnS request (D = 1025, queries with |q| > 1 from the bias
+# column) by 2.92e-6: 1e-5 is chip_smoke.BF16_TC_ATOL, 3.4x above the
+# largest reading.
 BF16_TC_ATOL = 1e-5
 
 
 def _bf16_rows(rng, n, d, cuda_device, offset=0):
     """[n, d] bf16 unit-norm rows on the card; ``offset`` elements into
-    their storage (1: 2-byte aligned, so the kernels take 2-byte loads)."""
+    their storage (1: 2-byte aligned, so the wrappers pad them into a
+    copy)."""
     x = torch.from_numpy(_unit_rows(rng, n, d)).to(BF16)
     flat = torch.zeros(n * d + offset, dtype=BF16)
     flat[offset:] = x.reshape(-1)
@@ -445,7 +449,7 @@ def _check_stream_pair(q, r, n_valid, kappa=32, k_per_row=3):
     assert torch.equal(top_v[:, 0].view(torch.int32), best.view(torch.int32))
     tau = float(torch.topk(top_v.reshape(-1), k_per_row * m).values[-1])
     kept = (top_v >= tau).sum(1)
-    counts = kernels.count_above(q, rt, tau, n_valid, pair="stream").long()
+    counts = kernels.count_above(q, rt, tau, n_valid).long()
     clean = ((_segments_above(q, r, n_valid, tau - 2 * BF16_TC_ATOL) <= 2)
              & (top_v[:, -1] < tau))
     assert clean.any()
@@ -454,12 +458,39 @@ def _check_stream_pair(q, r, n_valid, kappa=32, k_per_row=3):
     return clean
 
 
+def _check_pool_identity(q, r, n_valid, k_per_row=3):
+    """The pool against the other bf16 kernels on the tensor-core copy, bit
+    for bit: its best winner is row_max.bf16, its winners ordered are
+    fused_topk.bf16's (values and ids), and with tau the global k-th pool
+    value, count_above.bf16 is the pool count >= tau on every row with
+    amb == 0 (no segment holding two entries >= tau: the pool holds every
+    entry >= tau) and no less elsewhere. Returns the amb == 0 rows."""
+    rt = kernels.pad_columns(r)
+    m = q.shape[0]
+    pv, pi = kernels.pool_writer(q, rt, n_valid)
+    best = kernels.row_max(q, rt, n_valid)
+    assert torch.equal(pv.view(m, -1).amax(1).view(torch.int32), best.view(torch.int32))
+    for kappa in (5, 32, 100):
+        want = kernels.ordered_topk(pv.view(m, -1), pi.view(m, -1), kappa)
+        got = kernels.fused_topk(q, rt, n_valid, kappa)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    tau = float(torch.topk(pv.reshape(-1), k_per_row * m).values[-1])
+    above = pv >= tau
+    pool_counts = above.view(m, -1).sum(1)
+    clean = above.all(2).sum(1) == 0
+    counts = kernels.count_above(q, rt, tau, n_valid).long()
+    assert torch.equal(counts[clean], pool_counts[clean])
+    assert bool((counts >= pool_counts).all())
+    return clean
+
+
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("d", [511, 512, 513, 1025])
-def test_bf16_kernels_bit_identical_to_f32_on_widened_inputs(cuda_device, d, offset):
-    # The pooled pair runs the f32 kernels' fmaf chain on the widened
-    # operands: bit for bit. The streaming pair and row_max.bf16 sum on the
-    # tensor cores: within BF16_TC_ATOL.
+def test_bf16_kernels_within_tolerance_of_f32_on_widened_inputs(cuda_device, d,
+                                                                 offset):
+    # Every bf16 kernel sums on the tensor cores: within BF16_TC_ATOL of the
+    # f32 kernel on the widened operands (counts: between the f32 counts at
+    # tau -+ the tolerance).
     q, r, n_valid = _bf16_case(cuda_device, d, offset, 40 + d)
     assert (q.data_ptr() % 16 == 0) == (offset == 0)
     qf, rf = q.float(), r.float()
@@ -468,14 +499,12 @@ def test_bf16_kernels_bit_identical_to_f32_on_widened_inputs(cuda_device, d, off
                                kernels.row_max(qf, rf, n_valid),
                                rtol=0, atol=BF16_TC_ATOL)
     tau = 0.1
-    assert torch.equal(kernels.count_above(q, r, tau, n_valid, pair="pooled"),
-                       kernels.count_above(qf, rf, tau, n_valid, pair="pooled"))
-    _check_count_within(kernels.count_above(q, r, tau, n_valid, pair="stream"),
+    _check_count_within(kernels.count_above(q, r, tau, n_valid),
                         qf, rf, tau, n_valid, BF16_TC_ATOL)
-    pv, pi = kernels.pool_writer(q, r, n_valid)
-    ev, ei = kernels.pool_writer(qf, rf, n_valid)
-    assert torch.equal(pv.view(torch.int32), ev.view(torch.int32))
-    assert torch.equal(pi, ei)
+    pv, _ = kernels.pool_writer(q, r, n_valid)
+    ev, _ = kernels.pool_writer(qf, rf, n_valid)
+    assert torch.equal(torch.isfinite(pv), torch.isfinite(ev))
+    torch.testing.assert_close(pv, ev, rtol=0, atol=BF16_TC_ATOL)
     for kappa in (5, 32, 100):
         got_v, _ = kernels.fused_topk(q, r, n_valid, kappa)
         want_v, _ = kernels.fused_topk(qf, rf, n_valid, kappa)
@@ -483,30 +512,20 @@ def test_bf16_kernels_bit_identical_to_f32_on_widened_inputs(cuda_device, d, off
     # Each bf16 call ran its bf16 variant, never the f32 kernel.
     for name, calls in (("row_max", 1), ("pool_writer", 1), ("fused_topk", 3)):
         assert kernels.launches[name] == kernels.launches[name + ".bf16"] == calls
-    assert kernels.launches["count_above"] == 1  # the stream's is held by the plain version
     assert kernels.launches["count_above.bf16"] == 1
-    assert kernels.launches["count_above.bf16.pool"] == 1
+    assert kernels.launches["count_above"] == 0  # held by the plain version
 
 
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("d", [511, 512, 513, 1025])
 def test_bf16_kernels_bit_identical_to_each_other(cuda_device, d, offset):
     q, r, n_valid = _bf16_case(cuda_device, d, offset, 60 + d)
-    m = q.shape[0]
-    # The pooled pair: the count equals the pool's wherever the pool holds
-    # every entry >= tau.
-    pv, _ = kernels.pool_writer(q, r, n_valid)
-    tau = float(torch.topk(pv.reshape(-1), 3 * m).values[-1])
-    above = pv >= tau
-    pool_counts = above.view(m, -1).sum(1)
-    clean = above.all(2).sum(1) == 0
-    counts = kernels.count_above(q, r, tau, n_valid, pair="pooled").long()
-    assert clean.any() and (~clean).any()
-    assert torch.equal(counts[clean], pool_counts[clean])
-    assert bool((counts >= pool_counts).all())
-    # The streaming pair and row_max.bf16 on the tensor cores.
+    # The pool against row_max.bf16, fused_topk.bf16 and count_above.bf16.
+    clean = _check_pool_identity(q, r, n_valid)
+    assert clean.any() and (~clean).any()  # the planted ties crowd segment 0
+    # The streaming collection's verify on the same product.
     clean = _check_stream_pair(q, r, n_valid)
-    assert (~clean).any()  # the planted ties crowd segment 0
+    assert (~clean).any()
 
 
 @pytest.mark.parametrize("m", [1, 65, 300])
@@ -524,10 +543,8 @@ def test_bf16_kernels_exact_at_ragged_shapes(cuda_device, d, m):
     for n_valid in (0, 1, RAGGED_N - 1, RAGGED_N):
         assert torch.equal(kernels.row_max(qc, rc, n_valid).cpu(),
                            kernels.row_max_plain(q, r, n_valid))
-        want = kernels.count_above_plain(q, r, tau, n_valid)
-        for pair in kernels.PAIRS:
-            assert torch.equal(kernels.count_above(qc, rc, tau, n_valid, pair=pair).cpu(),
-                               want)
+        assert torch.equal(kernels.count_above(qc, rc, tau, n_valid).cpu(),
+                           kernels.count_above_plain(q, r, tau, n_valid))
         pv, pi = kernels.pool_writer(qc, rpc, n_valid)
         ev, ei = kernels.pool_writer_plain(q, rp, n_valid)
         finite = torch.isfinite(ev)
@@ -540,14 +557,17 @@ def test_bf16_kernels_exact_at_ragged_shapes(cuda_device, d, m):
 
 @pytest.mark.parametrize("slots", [1, 7])
 def test_bf16_kernels_any_grid(cuda_device, monkeypatch, slots):
-    monkeypatch.setattr(kernels, "_reduce_slots", lambda t, name, vec: slots)
     monkeypatch.setattr(kernels, "_wgmma_slots", lambda t, *args: slots)
     q = _ints((300, 40), 52).to(BF16).to(cuda_device)
     r = _ints((RAGGED_N, 40), 53).to(BF16).to(cuda_device)
     assert torch.equal(kernels.row_max(q, r, 129), kernels.row_max_plain(q, r, 129))
-    for pair in kernels.PAIRS:
-        assert torch.equal(kernels.count_above(q, r, 20.0, RAGGED_N, pair=pair),
-                           kernels.count_above_plain(q, r, 20.0, RAGGED_N))
+    assert torch.equal(kernels.count_above(q, r, 20.0, RAGGED_N),
+                       kernels.count_above_plain(q, r, 20.0, RAGGED_N))
+    rp = torch.cat([r, r.new_zeros((-RAGGED_N % 128, 40))])
+    pv, pi = kernels.pool_writer(q, rp, RAGGED_N)
+    ev, ei = kernels.pool_writer_plain(q, rp, RAGGED_N)
+    finite = torch.isfinite(ev)
+    assert torch.equal(pv, ev) and torch.equal(pi[finite], ei[finite])
     got_v, got_i = kernels.fused_topk(q, r, RAGGED_N, 700)
     want_v, want_i = kernels.fused_topk_plain(q, r, RAGGED_N, 700)
     assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
@@ -563,8 +583,9 @@ def test_bf16_wrappers_raise_on_mixed_dtypes(cuda_device):
                  lambda: kernels.fused_topk(q.to(BF16), r.float(), 100, 4)):
         with pytest.raises(TypeError, match="share a dtype"):
             call()
-    with pytest.raises(ValueError, match="pair"):
-        kernels.count_above(q.to(BF16), r, 0.0, 100, pair="pool")
+    # One bf16 count: count_above takes no partner kernel any more.
+    with pytest.raises(TypeError):
+        kernels.count_above(q.to(BF16), r, 0.0, 100, pair="pooled")
     assert set(kernels.launches.values()) == {0}
 
 
@@ -811,3 +832,250 @@ def test_bf16_searcher_stream_hands_the_pair_the_tensor_core_copy(cuda_device):
     want = SimilaritySearcher(r, dtype="bfloat16", device="cpu").global_topk(q, 2000)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def test_bf16_searcher_pooled_hands_the_pool_the_tensor_core_copy(cuda_device,
+                                                                  monkeypatch):
+    # D = 1025, forced to the pooled collection: the searcher's padded copy
+    # (1,032 columns) feeds pool_writer.bf16 and the count of the ambiguous
+    # rows, count_above.bf16, and global_topk equals the CPU's.
+    from vsc2022_torch.ops.similarity import COLLECTION_ENV, SimilaritySearcher
+
+    monkeypatch.setenv(COLLECTION_ENV, "pooled")
+    q, r = _ints((90, 1025), 103).numpy(), _ints((6000, 1025), 104).numpy()
+    r[200:220] = 3.0  # 20 equal columns in segment 1: ambiguous rows
+    q[:5] = 3.0
+    gpu = SimilaritySearcher(r, dtype="bfloat16", device=cuda_device)
+    kernels.reset_launches()
+    got = gpu.global_topk(q, 2000, kappa=16)
+    assert gpu.last_stats["mode"] == "pooled" and gpu.last_stats["amb_rows"] > 0
+    assert gpu._tc_copy.shape == (gpu._refs.shape[0], 1032)
+    assert kernels.launches["pool_writer.bf16"] == kernels.launches["count_above.bf16"] == 1
+    # Re-searched rows score on the same product (scores.bf16).
+    assert (kernels.launches["scores.bf16"] > 0) == (gpu.last_stats["corpus_rows"] > 0)
+    assert sum(kernels.launches.values()) == 2 + kernels.launches["scores.bf16"]
+    want = SimilaritySearcher(r, dtype="bfloat16", device="cpu").global_topk(
+        q, 2000, kappa=16)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+# ---- pool_writer.bf16: the pool on the tensor cores (wgmma_gemm.cuh) -----------
+
+
+def _segment_rows(n):
+    """Rows of an n-row corpus padded to whole 128-row segments."""
+    return -(-n // 128) * 128
+
+
+def _pool_exact(q, refs, r, n_valid):
+    """pool_writer.bf16 on (q, refs) against its plain version on (q, r):
+    values exactly (the -inf slots and the tail the wrapper fills
+    included), ids wherever the value is finite; one launch and no other
+    kernel."""
+    kernels.reset_launches()
+    pv, pi = kernels.pool_writer(q, refs, n_valid)
+    ev, ei = kernels.pool_writer_plain(q, r, n_valid)
+    finite = torch.isfinite(ev)
+    assert torch.equal(pv, ev) and torch.equal(pi[finite], ei[finite])
+    assert not torch.isfinite(pv[:, kernels.pool_segments(r.shape[0], n_valid):]).any()
+    assert kernels.launches["pool_writer.bf16"] == int(q.shape[0] > 0)
+    assert sum(kernels.launches.values()) == kernels.launches["pool_writer.bf16"]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m", [1, 65, 300, 9000])
+@pytest.mark.parametrize("d", [1, 33, 511, 512, 513, 1025])
+def test_bf16_pool_writer_exact_on_integers(cuda_device, d, m, offset):
+    # Every partial sum is an integer below 2^24: exact in any order, ties
+    # in a segment included (the lower column first). RAGGED_N pads to 11
+    # segments, an odd count: with every tile valid, the last corpus tile's
+    # second segment lies past the pool. n_valid 1 and 1000 leave an -inf
+    # tail that the wrapper fills; n_valid = N counts the zero pad rows.
+    n = _segment_rows(RAGGED_N)
+    q = _bf16_ints((m, d), 130 + d, cuda_device, offset)
+    r = _bf16_ints((n, d), 131 + d, cuda_device, offset)
+    r[RAGGED_N:] = 0
+    r[[3, 700, 701]] = 3.0
+    q[0] = 3.0
+    for refs in (r, kernels.pad_columns(r)):  # as given, and as staged
+        for n_valid in (0, 1, 1000, RAGGED_N, n):
+            _pool_exact(q, refs, r, n_valid)
+
+
+def test_bf16_pool_writer_zero_pad_rows_do_not_leak(cuda_device):
+    # Every valid score is negative; the corpus's zero rows past n_valid,
+    # the zero rows TMA fills past it and the query rows past M score 0
+    # and must not enter the pool.
+    q = -_bf16_ints((300, 511), 132, cuda_device).abs() - 1
+    r = torch.zeros((2048, 511), dtype=BF16, device=cuda_device)
+    r[:1900] = _bf16_ints((1900, 511), 133, cuda_device).abs() + 1
+    rp = kernels.pad_columns(r)
+    for n_valid in (1, 1000, 1900):
+        _pool_exact(q, rp, r, n_valid)
+        pv, pi = kernels.pool_writer(q, rp, n_valid)
+        finite = torch.isfinite(pv)
+        assert bool((pv[finite] < 0).all()) and bool((pi[finite] < n_valid).all())
+
+
+def test_bf16_pool_writer_all_equal_rows_tie_to_the_lower_column(cuda_device):
+    # Every score of a row is equal: each segment's winners are its two
+    # lowest columns.
+    q = _bf16_ints((200, 24), 134, cuda_device)
+    r = torch.ones((3072, 24), dtype=BF16, device=cuda_device)
+    _pool_exact(q, r, r, 2900)
+    _, pi = kernels.pool_writer(q, r, 2900)
+    lowest = torch.tensor([[128 * g, 128 * g + 1] for g in range(23)],
+                          dtype=torch.int32, device=cuda_device)
+    assert torch.equal(pi[:, :23], lowest.expand(200, 23, 2))
+
+
+@pytest.mark.parametrize("slots", [1, 3, 7, 50])
+def test_bf16_pool_writer_any_grid(cuda_device, monkeypatch, slots):
+    # Few blocks: each block's range spans several groups and corpus tiles.
+    monkeypatch.setattr(kernels, "_wgmma_slots", lambda t, *args: slots)
+    q = _bf16_ints((1500, 40), 135, cuda_device)
+    r = _bf16_ints((_segment_rows(RAGGED_N), 40), 136, cuda_device)
+    r[[3, 700]] = 3.0
+    for n_valid in (1, 257, RAGGED_N):
+        _pool_exact(q, r, r, n_valid)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [511, 512, 513, 1025])
+def test_bf16_pool_writer_floats_within_tolerance(cuda_device, d, offset):
+    # Each slot is an order statistic of its segment: within BF16_TC_ATOL of
+    # the plain pool's and of the plain score at its id; the ids equal the
+    # plain ones wherever no winner lies within twice that of its runner-up.
+    rng = np.random.RandomState(140 + d)
+    q = _bf16_rows(rng, 700, d, cuda_device, offset)
+    r = _bf16_rows(rng, 9088, d, cuda_device, offset)
+    r[9000:] = 0
+    r[7000:7010] = q[:10]  # exact self-matches: scores near 1
+    tol, m = BF16_TC_ATOL, q.shape[0]
+    for n_valid in (8999, 9000):
+        pv, pi = kernels.pool_writer(q, r, n_valid)
+        ev, ei = kernels.pool_writer_plain(q, r, n_valid)
+        finite = torch.isfinite(ev)
+        assert torch.equal(torch.isfinite(pv), finite)
+        assert float((pv[finite] - ev[finite]).abs().max()) <= tol
+        s3 = _plain_scores(q, r, n_valid)
+        rows = torch.arange(m, device=q.device)[:, None, None].expand_as(pi)
+        at = s3.view(m, -1)[rows[finite], pi[finite].long()]
+        assert float((at - pv[finite]).abs().max()) <= tol
+        top3 = torch.topk(s3, 3, dim=2).values
+        first = top3[:, :, 0] - top3[:, :, 1] > 2 * tol
+        second = first & (top3[:, :, 1] - top3[:, :, 2] > 2 * tol)
+        assert first.any() and second.any()
+        assert torch.equal(pi[:, :, 0][first], ei[:, :, 0][first])
+        assert torch.equal(pi[:, :, 1][second], ei[:, :, 1][second])
+
+
+@pytest.mark.parametrize("d", [512, 1025])
+def test_bf16_count_above_on_a_row_subset_equals_the_full_call(cuda_device, d):
+    # The pooled collection counts its ambiguous rows alone, each at another
+    # place in another query tile than in the pool's launch. A tensor-core
+    # score does not depend on its row's place: on a permuted subset of the
+    # rows the pool and the counts (at taus on pool values, so a score at
+    # tau counts) are the full call's rows, bit for bit.
+    rng = np.random.RandomState(150 + d)
+    q_k = kernels.pad_columns(_bf16_rows(rng, 1100, d, cuda_device))
+    rt = kernels.pad_columns(_bf16_rows(rng, 5120, d, cuda_device))
+    pv, pi = kernels.pool_writer(q_k, rt, 5000)
+    sub = torch.from_numpy(rng.permutation(1100)[:333]).to(cuda_device)
+    sv, si = kernels.pool_writer(q_k[sub], rt, 5000)
+    assert torch.equal(sv.view(torch.int32), pv[sub].view(torch.int32))
+    assert torch.equal(si, pi[sub])
+    for k_per_row in (1, 3, 20):
+        tau = float(torch.topk(pv.reshape(-1), k_per_row * 1100).values[-1])
+        full = kernels.count_above(q_k, rt, tau, 5000)
+        assert torch.equal(kernels.count_above(q_k[sub], rt, tau, 5000), full[sub])
+
+
+# ---- scores.bf16: the re-search's product (wgmma_gemm.cuh) --------------------
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m", [1, 65, 300])
+@pytest.mark.parametrize("d", [1, 33, 511, 512, 513, 1025])
+def test_bf16_scores_exact_on_integers(cuda_device, d, m, offset):
+    # Integers: exact in any order. An odd n_valid leaves every other row's
+    # first column at an odd offset (4-byte stores), and the last tile
+    # ragged.
+    q = _bf16_ints((m, d), 160 + d, cuda_device, offset)
+    r = _bf16_ints((RAGGED_N, d), 161 + d, cuda_device, offset)
+    for refs in (r, kernels.pad_columns(r)):  # as given, and as staged
+        for n_valid in (0, 1, 1000, RAGGED_N - 1, RAGGED_N):
+            kernels.reset_launches()
+            got = kernels.scores(q, refs, n_valid)
+            assert torch.equal(got, kernels.scores_plain(q, r, n_valid))
+            assert kernels.launches["scores.bf16"] == int(n_valid > 0)
+            assert sum(kernels.launches.values()) == kernels.launches["scores.bf16"]
+
+
+@pytest.mark.parametrize("slots", [1, 7])
+def test_bf16_scores_any_grid(cuda_device, monkeypatch, slots):
+    monkeypatch.setattr(kernels, "_wgmma_slots", lambda t, *args: slots)
+    q = _bf16_ints((1500, 40), 162, cuda_device)
+    r = _bf16_ints((RAGGED_N, 40), 163, cuda_device)
+    for n_valid in (1, 257, RAGGED_N):
+        assert torch.equal(kernels.scores(q, r, n_valid),
+                           kernels.scores_plain(q, r, n_valid))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [511, 512, 513, 1025])
+def test_bf16_scores_bit_identical_to_the_other_kernels(cuda_device, d, offset):
+    # On floats the scores are the product the other bf16 kernels see: each
+    # segment's best 2 (ties to the lower column) are the pool, bit for bit,
+    # the row max row_max.bf16, the count >= tau count_above.bf16, and a
+    # permuted subset of the rows scores as in the full call; all within
+    # BF16_TC_ATOL of the plain version.
+    q, r, n_valid = _bf16_case(cuda_device, d, offset, 170 + d)
+    rt, m = kernels.pad_columns(r), q.shape[0]
+    s = kernels.scores(q, rt, n_valid)
+    torch.testing.assert_close(s, kernels.scores_plain(q, r, n_valid),
+                               rtol=0, atol=BF16_TC_ATOL)
+    full = torch.full((m, r.shape[0]), float("-inf"), device=q.device)
+    full[:, :n_valid] = s
+    vals, idx = torch.sort(full.view(m, -1, kernels.SEG_LANES), dim=2,
+                           descending=True, stable=True)
+    seg_base = kernels.SEG_LANES * torch.arange(vals.shape[1], device=q.device)
+    want_v, want_i = vals[:, :, :2], idx[:, :, :2].int() + seg_base[None, :, None].int()
+    pv, pi = kernels.pool_writer(q, rt, n_valid)
+    assert torch.equal(pv.view(torch.int32), want_v.contiguous().view(torch.int32))
+    finite = torch.isfinite(want_v)
+    assert torch.equal(pi[finite], want_i[finite])
+    best = kernels.row_max(q, rt, n_valid)
+    assert torch.equal(best.view(torch.int32), s.amax(1).view(torch.int32))
+    tau = float(torch.topk(pv.reshape(-1), 3 * m).values[-1])
+    assert torch.equal(kernels.count_above(q, rt, tau, n_valid),
+                       (s >= tau).sum(1, dtype=torch.int32))
+    sub = torch.from_numpy(np.random.RandomState(d).permutation(m)[:50]).to(cuda_device)
+    got = kernels.scores(q[sub], rt, n_valid)
+    assert torch.equal(got.view(torch.int32), s[sub].view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [512, 1025])
+def test_bf16_searcher_pooled_equals_stream_on_floats(cuda_device, monkeypatch, d):
+    # Every score of a bf16 search, re-searched rows included, comes from
+    # one product: on floats, where the tensor cores and an f32 chain round
+    # apart, the two collections (which re-search different rows) return
+    # the same pairs and scores, bit for bit.
+    from vsc2022_torch.ops.similarity import COLLECTION_ENV, SimilaritySearcher
+
+    rng = np.random.RandomState(180 + d)
+    q, r = _unit_rows(rng, 400, d), _unit_rows(rng, 20000, d)
+    r[100:140] = r[99] + 0.01 * rng.randn(40, d).astype(np.float32)
+    q[:20] = r[99]  # rows whose entries crowd segment 0: re-searched
+    searcher = SimilaritySearcher(r, dtype="bfloat16", device=cuda_device)
+    out, stats = {}, {}
+    for mode in ("stream", "pooled"):
+        monkeypatch.setenv(COLLECTION_ENV, mode)
+        out[mode] = searcher.global_topk(q, 4000, kappa=16)
+        stats[mode] = dict(searcher.last_stats)
+        assert stats[mode]["mode"] == mode and stats[mode]["corpus_rows"] > 0
+    assert stats["stream"]["corpus_rows"] != stats["pooled"]["corpus_rows"]
+    for a, b in zip(out["stream"], out["pooled"]):
+        np.testing.assert_array_equal(a, b)
+

@@ -113,6 +113,17 @@ def test_entry_points_default_to_cuda_and_raise(no_gpu, tmp_path):
         sscd_baseline.main(args)
 
 
+def test_tensor_core_kernels_are_the_bf16_launch_keys():
+    """Every bf16 launch key is a kernel of the tensor-core product, and
+    each of those has a wrapper (tools/bench_reduce.py reads the set)."""
+    from vsc2022_torch.ops import kernels
+
+    bf16_keys = {k[: -len(kernels.BF16)] for k in kernels.launches
+                 if k.endswith(kernels.BF16)}
+    assert set(kernels.TENSOR_CORE_KERNELS) == bf16_keys
+    assert all(callable(getattr(kernels, name)) for name in kernels.TENSOR_CORE_KERNELS)
+
+
 def test_kernel_wrappers_take_plain_version_only_on_cpu():
     from vsc2022_torch.ops import kernels
 
@@ -127,11 +138,12 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     # bf16 operands take the plain versions on the CPU too.
     kernels.row_max(q.bfloat16(), r.bfloat16(), 100)
     kernels.pool_writer(q.bfloat16(), r.bfloat16(), 100)
+    kernels.scores(q.bfloat16(), r.bfloat16(), 100)
     # Plain versions never count as kernel launches.
     assert kernels.launches == {
         "row_max": 0, "count_above": 0, "pool_writer": 0, "fused_topk": 0,
         "chamfer": 0, "row_max.bf16": 0, "count_above.bf16": 0,
-        "pool_writer.bf16": 0, "fused_topk.bf16": 0, "count_above.bf16.pool": 0,
+        "pool_writer.bf16": 0, "fused_topk.bf16": 0, "scores.bf16": 0,
     }
     with pytest.raises(ValueError, match="multiple of 128"):
         kernels.pool_writer(q, torch.ones((100, 8)), 100)

@@ -159,6 +159,37 @@ def test_pool_writer_plain_small_corpus_and_order():
     assert (pi.numpy() < 90).all()
 
 
+@pytest.mark.parametrize("n_valid", [1, 100, 200, 256, 300, 384])
+@pytest.mark.parametrize("d", [13, 16])
+def test_bf16_pool_writer_plain_matches_pallas_default_precision(d, n_valid):
+    # The pooled collection over a bf16 corpus: JAX's pool_writer with
+    # precision="default" (one bf16 pass, f32 accumulation), one 128-column
+    # tile per band step so that N = 384 holds 3 segments, an odd count.
+    # n_valid 1, 100 and 200 lie inside the first 256-row corpus tile of the
+    # tensor-core kernel, 300 inside the second, whose second segment is
+    # past the pool. The port's bf16 pool (the plain version, and so the
+    # wrapper on the CPU) equals it on the corpus as given and on
+    # pad_columns' padded copy (D = 13: 3 zero columns), ids included.
+    q, r = _inputs("int", 16, 384, d, seed=5 + d)
+    r[[5, 7, 40, 300]] = 3.0  # ties inside segments 0 and 2
+    q[3] = 3.0
+    jv, ji = pool_writer(
+        jnp.asarray(q), jnp.asarray(r), jnp.int32(n_valid), precision="default",
+        interpret=True, row_tile=16, col_tile=SEG, tiles_per_band=3,
+    )
+    jv, ji = np.asarray(jv).reshape(16, 3, 2), np.asarray(ji).reshape(16, 3, 2)
+    qb, rb = torch.from_numpy(q).bfloat16(), torch.from_numpy(r).bfloat16()
+    assert kernels.pad_columns(rb).shape[1] == 16
+    for refs in (rb, kernels.pad_columns(rb)):
+        pv, pi = kernels.pool_writer(qb, refs, n_valid)
+        np.testing.assert_array_equal(pv.numpy(), jv)
+        np.testing.assert_array_equal(pi.numpy(), ji)
+    assert np.isneginf(jv[:, -(-n_valid // SEG):]).all()
+    assert np.isfinite(jv[:, : -(-n_valid // SEG)]).any()
+    if n_valid >= 41:
+        np.testing.assert_array_equal(pi[3, 0].numpy(), [5, 7])
+
+
 @pytest.mark.parametrize(
     "nq,nr,symmetric",
     [(64, 64, True), (32, 128, True), (128, 32, False), (32, 32, True)],

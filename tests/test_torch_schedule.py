@@ -253,9 +253,9 @@ def test_bf16_row_max_takes_padded_refs_on_the_cpu():
 
 
 def test_bf16_stream_pair_takes_padded_refs_on_the_cpu():
-    # The plain versions of count_above and fused_topk (and so the wrappers
-    # on the CPU, in both pairs) give on pad_columns' padded refs what they
-    # give on the unpadded ones.
+    # The plain versions of count_above, scores and fused_topk (and so the
+    # wrappers on the CPU) give on pad_columns' padded refs what they give
+    # on the unpadded ones.
     rng = np.random.RandomState(4)
     q = torch.from_numpy(rng.randint(-3, 4, (20, 13)).astype(np.float32)).bfloat16()
     r = torch.from_numpy(rng.randint(-3, 4, (300, 13)).astype(np.float32)).bfloat16()
@@ -265,8 +265,11 @@ def test_bf16_stream_pair_takes_padded_refs_on_the_cpu():
     for tau in (float("-inf"), 3.0):
         want = kernels.count_above_plain(q, r, tau, 290)
         assert torch.equal(kernels.count_above_plain(q, rp, tau, 290), want)
-        for pair in kernels.PAIRS:
-            assert torch.equal(kernels.count_above(q, rp, tau, 290, pair=pair), want)
+        assert torch.equal(kernels.count_above(q, rp, tau, 290), want)
+    want = kernels.scores_plain(q, r, 290)
+    assert torch.equal(want, torch.matmul(q.float(), r[:290].float().T))
+    for got in (kernels.scores_plain(q, rp, 290), kernels.scores(q, rp, 290)):
+        assert torch.equal(got, want)
     for kappa in (1, 7, 40):
         want_v, want_i = kernels.fused_topk_plain(q, r, 290, kappa)
         for got_v, got_i in (kernels.fused_topk_plain(q, rp, 290, kappa),
@@ -276,8 +279,8 @@ def test_bf16_stream_pair_takes_padded_refs_on_the_cpu():
         kernels.count_above(q.float(), rp.float(), 0.0, 290)
     with pytest.raises(ValueError):
         kernels.fused_topk(q.float(), rp.float(), 290, 4)
-    with pytest.raises(ValueError, match="pair"):
-        kernels.count_above(q, r, 0.0, 290, pair="pool")
+    with pytest.raises(TypeError):  # one bf16 count: no partner to name
+        kernels.count_above(q, r, 0.0, 290, pair="pooled")
 
 
 @pytest.mark.parametrize("m,n_valid", [(9000, 240_000), (7682, 31_004), (60, 240_000)])
@@ -292,3 +295,24 @@ def test_wgmma_topk_plans_at_the_path_shapes(m, n_valid):
         groups = -(-q_tiles // group)
         passes = kernels.wgmma_corpus_passes(m, n_valid, grid, group)
         assert groups <= passes <= groups + grid / c_tiles
+
+
+@pytest.mark.parametrize("n,n_valid", [
+    (384, 0), (384, 1), (384, 128), (384, 200), (384, 256), (384, 257), (384, 384),
+    (1408, 1000), (1408, 1337), (1408, 1408), (1024, 1024), (8192, 5000),
+])
+def test_pool_segments_mirror_the_plain_pool_tail(n, n_valid):
+    # pool_writer.bf16's kernel writes the two segments of every corpus tile
+    # its plan covers (256 rows, up to n_valid), at most N/128 of them (with
+    # N/128 odd the last tile's second segment lies past the pool), and the
+    # wrapper fills the rest at -inf: the plain pool holds no valid column
+    # there, and every segment that holds one is written.
+    written = kernels.pool_segments(n, n_valid)
+    assert written == min(2 * kernels.wgmma_tiles(1, n_valid)[1], n // kernels.SEG_LANES)
+    q = torch.ones((3, 8), dtype=torch.bfloat16)
+    pv, _ = kernels.pool_writer_plain(q, torch.ones((n, 8), dtype=torch.bfloat16), n_valid)
+    valid = torch.isfinite(pv[:, :, 0]).all(0)
+    assert not torch.isfinite(pv[:, written:]).any()
+    assert int(valid.sum()) == -(-n_valid // kernels.SEG_LANES)
+    assert bool(valid[: int(valid.sum())].all())
+    assert 0 <= written - int(valid.sum()) <= 1

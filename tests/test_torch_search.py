@@ -114,8 +114,7 @@ def test_corpus_research_tolerates_kernel_rounding(monkeypatch):
         vals, ids = pool_writer(q, refs, n_valid)
         return vals + delta, ids
 
-    def count_up(q, refs, tau, n_valid, pair="stream"):
-        assert pair == "pooled"
+    def count_up(q, refs, tau, n_valid):
         s = torch.matmul(q, refs[:n_valid].T) + delta
         return (s >= tau).sum(1, dtype=torch.int32)
 

@@ -152,8 +152,7 @@ def test_stream_research_tolerates_kernel_rounding(monkeypatch):
         vals, ids = topk(q, refs, n_valid, kappa)
         return vals + delta, ids
 
-    def count_up(q, refs, tau, n_valid, pair="stream"):
-        assert pair == "stream"
+    def count_up(q, refs, tau, n_valid):
         s = torch.matmul(q, refs[:n_valid].T) + delta
         return (s >= tau).sum(1, dtype=torch.int32)
 
@@ -170,10 +169,12 @@ def test_stream_research_tolerates_kernel_rounding(monkeypatch):
 
 def test_bf16_stream_research_margin_covers_the_tensor_cores(monkeypatch):
     """As test_stream_research_tolerates_kernel_rounding, over a bf16
-    corpus, whose streaming pair scores on the tensor cores: their sum may
-    lie up to TENSOR_CORE_SLACK times the f32 margin from the re-search's.
-    With δ between the f32 margin S and 2S, the f32 margin loses a pair the
-    kernels counted, and the tensor-core margin keeps it."""
+    corpus. There the re-search shares the kernels' product, so its margin
+    is only defensive: TENSOR_CORE_SLACK times the f32 one, what a
+    re-search by an f32 sum would need against the tensor cores. Stand-in
+    kernels score δ above the re-search: with δ between the f32 margin S
+    and 2S, the f32 margin loses a pair the kernels counted, and the
+    tensor-core margin keeps it."""
     d, k = 24, 3
     rng = np.random.RandomState(6)
     q = (0.01 * rng.randn(6, d)).astype(np.float32)
@@ -202,8 +203,7 @@ def test_bf16_stream_research_margin_covers_the_tensor_cores(monkeypatch):
         vals, ids = topk(q, refs, n_valid, kappa)
         return vals + delta, ids
 
-    def count_up(q, refs, tau, n_valid, pair="stream"):
-        assert pair == "stream"
+    def count_up(q, refs, tau, n_valid):
         s = torch.matmul(q.float(), refs[:n_valid].float().T) + delta
         return (s >= tau).sum(1, dtype=torch.int32)
 
@@ -212,6 +212,62 @@ def test_bf16_stream_research_margin_covers_the_tensor_cores(monkeypatch):
     monkeypatch.setenv(COLLECTION_ENV, "stream")
     qi, ri, s = ts.global_topk(q, k, kappa=8)
     assert ts.last_stats["corpus_rows"] == 1
+    assert list(zip(qi, ri)) == [(1, 10), (1, 11), (1, 12)]
+    np.testing.assert_array_equal(s, np.float32([y + 8 * ulp, y + 4 * ulp, y + ulp]))
+    # The f32 margin alone loses column 12.
+    monkeypatch.setattr(torch_similarity, "TENSOR_CORE_SLACK", 1.0)
+    qi, ri, _ = ts.global_topk(q, k, kappa=8)
+    assert (1, 12) not in set(zip(qi, ri))
+
+
+def test_bf16_pooled_research_margin_covers_the_tensor_cores(monkeypatch):
+    """The pooled counterpart: over a bf16 corpus the pooled re-search,
+    too, takes the defensive TENSOR_CORE_SLACK times the f32 margin, here
+    against stand-ins for pool_writer and the count of the ambiguous rows
+    that score δ above the re-search. Row 1's
+    segment 0 holds columns 10-12 above the rest, so the pool keeps 10 and
+    11 and hides 12; with δ between the f32 margin S and 2S, the f32
+    margin loses the hidden pair the kernels counted, and the tensor-core
+    margin keeps it."""
+    d, k = 24, 3
+    rng = np.random.RandomState(7)
+    q = (0.01 * rng.randn(6, d)).astype(np.float32)
+    r = (0.01 * rng.randn(3011, d)).astype(np.float32)
+    q[:, 1] = 0.0
+    q[1] = 0.0
+    q[1, 0] = 1.0
+    r[3000] = 0.0
+    r[3000, 1] = 1000.0  # max ‖r‖ = 1000 widens the margin; scores 0
+    # Row 1 scores columns 10-12 (segment 0) and 200 (segment 1) at bf16
+    # values y + 8, 4 and 1 ulps and y. The kernels report δ more: τ, the
+    # 3rd pool value, is y + δ (column 200); segment 0 holds two entries
+    # ≥ τ, so row 1 is ambiguous, its count (4) exceeds its pool count (3),
+    # and it is re-searched from y + δ − margin.
+    ulp = 2.0 ** -9
+    y = 0.25
+    for j, t in ((10, 8), (11, 4), (12, 1), (200, 0)):
+        r[j] = 0.0
+        r[j, 0] = y + t * ulp
+    ts = TorchSearcher(r, dtype="bfloat16", device="cpu")
+    slack = d * float(np.finfo(np.float32).eps) * ts._ref_norm_max
+    assert ts._ref_norm_max == 1000.0
+    delta = ulp + 1.5 * slack  # y + ulp lies between the two floors
+    pool = kernels.pool_writer
+
+    def pool_up(q, refs, n_valid):
+        vals, ids = pool(q, refs, n_valid)
+        return vals + delta, ids
+
+    def count_up(q, refs, tau, n_valid):
+        s = torch.matmul(q.float(), refs[:n_valid, : q.shape[1]].float().T) + delta
+        return (s >= tau).sum(1, dtype=torch.int32)
+
+    monkeypatch.setattr(kernels, "pool_writer", pool_up)
+    monkeypatch.setattr(kernels, "count_above", count_up)
+    monkeypatch.setenv(COLLECTION_ENV, "pooled")
+    qi, ri, s = ts.global_topk(q, k, kappa=8)
+    assert ts.last_stats["mode"] == "pooled"
+    assert ts.last_stats["amb_rows"] == ts.last_stats["corpus_rows"] == 1
     assert list(zip(qi, ri)) == [(1, 10), (1, 11), (1, 12)]
     np.testing.assert_array_equal(s, np.float32([y + 8 * ulp, y + 4 * ulp, y + ulp]))
     # The f32 margin alone loses column 12.

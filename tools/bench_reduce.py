@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the port's row_max, count_above and fused_topk kernels at the
-shapes its paths give them, beside their bound and one PyTorch library
-call.
+"""Times the port's row_max, count_above, fused_topk and pool_writer
+kernels at the shapes its paths give them, beside their bound and one
+PyTorch library call.
 
     python3 tools/bench_reduce.py             # needs one CUDA GPU
     python3 tools/bench_reduce.py --reps 5 --only row_max
@@ -21,25 +21,25 @@ shape's numbers. `chip_smoke.py` measures the same kernels on the paths'
 own inputs.
 
 ``--bf16`` times the bf16 variants instead, on the same rows rounded to
-bf16, beside the f32 kernel on the widened rows (``f32_ms``). The
-SSCD count is the pooled collection's (count_above.bf16.pool, CUDA
-cores), held bit for bit against the f32 kernel and the pool. row_max.bf16
-and the streaming pair (count_above.bf16, fused_topk.bf16) run on the
-tensor-core product of wgmma_gemm.cuh, on a corpus staged as the searcher
-stages it (kernels.pad_columns) with the queries padded inside the timed
-call: within chip_smoke.BF16_TC_ATOL of the f32 kernel (counts within 2),
-and on the first 256 rows bit for bit against each other
-(chip_smoke.stream_pair_identity). fused_topk.bf16 is timed with its
-kappa-sets in shared memory (the searcher's placement at κ = 32: ``ms``)
-and in its output (``ms_output_sets``). The library call is a cuBLAS bf16 ``torch.matmul``
-plus the same reduction, and the bound takes the bf16 tensor-core peak and
-2-byte operands. The tensor-core plans (grid, group, S, corpus passes) are
-printed.
+bf16, beside the f32 kernel on the widened rows (``f32_ms``). All four run
+on the tensor-core product of wgmma_gemm.cuh, on a corpus staged as the
+searcher stages it (kernels.pad_columns) with the queries padded inside
+the timed call: within chip_smoke.BF16_TC_ATOL of the f32 kernel (counts
+within 2), and on the first 256 rows bit for bit against each other
+(chip_smoke.pool_identity on every kernel's inputs, and
+chip_smoke.stream_pair_identity on fused_topk's). fused_topk.bf16 is timed
+with its kappa-sets in shared memory (the searcher's placement at κ = 32:
+``ms``) and in its output (``ms_output_sets``). The library call is a
+cuBLAS bf16 ``torch.matmul`` plus the same reduction, and the bound takes
+the bf16 tensor-core peak and 2-byte operands. The tensor-core plans
+(grid, group, S, corpus passes) are printed.
 
-Copied into a tree of an earlier commit (beside its vsc2022_torch/ and
+Copied into a tree of the parent commit (beside its vsc2022_torch/ and
 chip_smoke.py), it times that tree's kernels, skipping the occupancy and
 plan reports and the checks that tree lacks: parent and change can share
-one call.
+one call. Which bf16 variants run on the tensor cores is the kernels
+module's TENSOR_CORE_KERNELS; the parent's pool_writer.bf16, on the CUDA
+cores, is held bit for bit against the f32 kernel.
 """
 
 from __future__ import annotations
@@ -64,6 +64,7 @@ SHAPES = [
     ("fused_topk", "serving", 9000, 240_000, 512),
     ("fused_topk", "dns", 7682, 31_004, 1025),
     ("fused_topk", "serving, one video", 60, 240_000, 512),
+    ("pool_writer", "sscd", 9000, 1_000_020, 512),
 ]
 TAU = 0.15  # ~3.4 sigma of unit-norm scores at D = 512
 KAPPA = 32  # the searcher's candidates per query row
@@ -72,7 +73,8 @@ KAPPA = 32  # the searcher's candidates per query row
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=3, help="timed launches per shape")
-    ap.add_argument("--only", choices=("row_max", "count_above", "fused_topk"),
+    ap.add_argument("--only", choices=("row_max", "count_above", "fused_topk",
+                                       "pool_writer"),
                     help="time one kernel only")
     ap.add_argument("--bf16", action="store_true",
                     help="time the bf16 variants against the f32 kernels")
@@ -91,11 +93,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     _build.build(verbose=True)
     lib = _build.library()
-    # This tree's streaming pair runs on the tensor cores (and count_above
-    # takes its partner) from the tree that has kernels.PAIRS on.
-    paired = hasattr(kernels, "PAIRS")
     tol = getattr(cs, "BF16_TC_ATOL", getattr(cs, "BF16_ROW_MAX_ATOL", 1e-5))
-    _report_plans(torch, cs, kernels, lib, dev, args.bf16, paired)
+    _report_plans(torch, cs, kernels, lib, dev, args.bf16)
 
     rows = []
     for name, path, m, n_valid, d in SHAPES:
@@ -110,24 +109,18 @@ def main() -> int:
         r[:n_valid] /= r[:n_valid].norm(dim=1, keepdim=True)
         if args.bf16:
             q, r = q.to(torch.bfloat16), r.to(torch.bfloat16)
-        pair = "pooled" if path == "sscd" else "stream"
         # The kernels of wgmma_gemm.cuh read the searcher's padded copy.
-        tensor_cores = args.bf16 and (
-            (name == "row_max" and hasattr(kernels, "wgmma_grid"))
-            or (paired and name != "row_max" and pair == "stream"))
+        tensor_cores = args.bf16 and _on_tensor_cores(kernels, name)
         rk = kernels.pad_columns(r) if tensor_cores else r
-        run = _call(kernels, name, q, rk, n_valid, pair if paired else None)
+        run = _call(kernels, name, q, rk, n_valid)
         lib_call = _library(torch, cs, name, q, r, n_valid)
-        label = name + (".bf16" if args.bf16 else "") + (
-            ".pool" if args.bf16 and paired and name == "count_above" and pair == "pooled"
-            else "")
+        label = name + (".bf16" if args.bf16 else "")
         if args.bf16:
             # Against the f32 kernel on the widened rows: bit for bit, or
             # within the tolerance on the tensor cores.
-            run_f32 = _call(kernels, name, q.float(), r.float(), n_valid,
-                            pair if paired else None)
+            run_f32 = _call(kernels, name, q.float(), r.float(), n_valid)
             got, want = run(), run_f32()
-            if name == "fused_topk":
+            if name in ("fused_topk", "pool_writer"):
                 got, want = got[0], want[0]
             if tensor_cores:
                 err = float((got.double() - want.double()).abs()
@@ -140,21 +133,24 @@ def main() -> int:
                 err = 0.0
         else:
             got, want = run(), lib_call()
-            if name == "fused_topk":
+            if name in ("fused_topk", "pool_writer"):
                 got = got[0]
-            err = float((got.double() - want.double()).abs().max())
+            err = float((got.double() - want.double()).abs().nan_to_num(0.0).max())
             cs.check(err <= (2 if name == "count_above" else cs.FLOAT_ATOL),
                      f"{name} {path}: off the library by {err}")
         head = q[:256].contiguous()
-        if tensor_cores and paired and name == "fused_topk":
+        if tensor_cores and name == "fused_topk":
             cs.stream_pair_identity(torch, kernels, head, r, n_valid, KAPPA,
                                     f"bench {path}")
+        elif tensor_cores and _on_tensor_cores(kernels, "pool_writer"):
+            cs.pool_identity(torch, kernels, head, r, n_valid, f"bench {path}")
         elif not tensor_cores:
             _pool_check(torch, cs, kernels, name, head, r, n_valid, path, d)
         kernels.reset_launches()
         ms = cs.cuda_ms(torch, run, args.reps)
         library_ms = cs.cuda_ms(torch, lib_call, 2)
-        out_bytes = 8 * m * KAPPA if name == "fused_topk" else 4 * m
+        out_bytes = {"fused_topk": 8 * m * KAPPA,
+                     "pool_writer": 16 * m * (r.shape[0] // 128)}.get(name, 4 * m)
         bound_ms, bound_by = cs.bound(m, n_valid, r.shape[0], d, out_bytes,
                                       bf16=args.bf16)
         row = {"kernel": label, "path": path,
@@ -163,7 +159,7 @@ def main() -> int:
                "share_of_bound": bound_ms / ms, "max_abs_err": err}
         if args.bf16:
             row["f32_ms"] = cs.cuda_ms(torch, run_f32, args.reps)
-        if tensor_cores and paired and name == "fused_topk":
+        if tensor_cores and name == "fused_topk":
             # The placement the searcher does not take at KAPPA.
             smem_sets = KAPPA > kernels.WGMMA_SMEM_SETS_KAPPA_MAX
             other = _other_placement(kernels, q, rk, n_valid, smem_sets)
@@ -185,7 +181,17 @@ def main() -> int:
     return 0
 
 
-def _report_plans(torch, cs, kernels, lib, dev, bf16, paired):
+# The bf16 variants on the tensor cores in a tree whose kernels module
+# has no TENSOR_CORE_KERNELS: the parent commit's, where pool_writer.bf16
+# alone still ran on the CUDA cores.
+PARENT_TENSOR_CORE_KERNELS = ("row_max", "count_above", "fused_topk")
+
+
+def _on_tensor_cores(kernels, name):
+    return name in getattr(kernels, "TENSOR_CORE_KERNELS", PARENT_TENSOR_CORE_KERNELS)
+
+
+def _report_plans(torch, cs, kernels, lib, dev, bf16):
     """Resident blocks per SM of the kernels of reduce_gemm.cuh timed, and
     the tensor-core plans (grid, group, S, corpus passes) at the paths'
     shapes."""
@@ -198,9 +204,9 @@ def _report_plans(torch, cs, kernels, lib, dev, bf16, paired):
                   f"{kernels.WGMMA_GROUP} query tiles, corpus read "
                   f"{kernels.wgmma_corpus_passes(m, n_valid, grid):.2f} times",
                   flush=True)
-    if bf16 and paired:
+    if bf16:
         for kernel, path, m, n_valid, _ in SHAPES:
-            if kernel == "row_max" or path == "sscd":
+            if kernel == "row_max" or not _on_tensor_cores(kernels, kernel):
                 continue
             name = kernel + "_bf16"
             for smem_sets in ((0, 1) if kernel == "fused_topk" else (None,)):
@@ -216,12 +222,8 @@ def _report_plans(torch, cs, kernels, lib, dev, bf16, paired):
                 print(f"{plan}, corpus read "
                       f"{kernels.wgmma_corpus_passes(m, n_valid, grid, group):.2f} times",
                       flush=True)
-    if not bf16:
-        names = ("row_max", "count_above", "fused_topk")
-    elif paired:
-        names = ("count_above_bf16_pool",)
-    else:
-        names = ("count_above_bf16", "fused_topk_bf16")
+    # The kernels of reduce_gemm.cuh timed (no bf16 one runs on it).
+    names = () if bf16 else ("row_max", "count_above", "fused_topk")
     for name in names:
         if not hasattr(lib, f"vsc_{name}_occupancy"):
             continue
@@ -238,7 +240,7 @@ def _pool_check(torch, cs, kernels, name, head, r, n_valid, path, d):
     bit: row_max the best one (within the tolerance for the tensor-core
     row_max.bf16), fused_topk all κ, ids included. The counts are held by
     chip_smoke's phase 2."""
-    if name == "count_above":
+    if name in ("count_above", "pool_writer"):
         return
     pv, pi = kernels.pool_writer(head, r, n_valid)
     if name == "fused_topk":
@@ -259,15 +261,14 @@ def _pool_check(torch, cs, kernels, name, head, r, n_valid, path, d):
                  f"{path} [D={d}]: row_max differs from pool_writer's best winner")
 
 
-def _call(kernels, name, q, r, n_valid, pair):
-    """The kernel's wrapper on (q, r) at the bench's τ and κ; count_above
-    with its partner where the tree takes one."""
+def _call(kernels, name, q, r, n_valid):
+    """The kernel's wrapper on (q, r) at the bench's τ and κ."""
     if name == "row_max":
         return lambda: kernels.row_max(q, r, n_valid)
+    if name == "pool_writer":
+        return lambda: kernels.pool_writer(q, r, n_valid)
     if name == "count_above":
-        if pair is None:
-            return lambda: kernels.count_above(q, r, TAU, n_valid)
-        return lambda: kernels.count_above(q, r, TAU, n_valid, pair=pair)
+        return lambda: kernels.count_above(q, r, TAU, n_valid)
     return lambda: kernels.fused_topk(q, r, n_valid, KAPPA)
 
 
@@ -284,6 +285,8 @@ def _library(torch, cs, name, q, r, n_valid):
         return lambda: cs.row_max_library(torch, q, r, n_valid)
     if name == "count_above":
         return lambda: cs.count_above_library(torch, q, r, TAU, n_valid)
+    if name == "pool_writer":
+        return lambda: cs.pool_library(torch, q, r, n_valid)
     return lambda: cs.topk_library(torch, q, r, n_valid, KAPPA)
 
 

@@ -112,24 +112,22 @@ def _declare(lib: ctypes.CDLL) -> None:
         "fused_topk": [i, p, p, i, i, i, i, i, i, i, i, p, p, p],
         "fused_topk_occupancy": [i, i, p],
     }
-    # The bf16 variants on the tensor-core product of wgmma_gemm.cuh take
-    # no copy width; fused_topk's takes its sets' placement (and, for its
-    # occupancy, κ).
+    # The bf16 kernels, all on the tensor-core product of wgmma_gemm.cuh,
+    # take no copy width; fused_topk's takes its sets' placement (and, for
+    # its occupancy, κ), pool_writer's a grid. scores_bf16 is the
+    # re-search's product (bf16 only).
     argtypes["row_max_bf16"] = [i, p, p, i, i, i, i, i, p, p, p]
-    argtypes["row_max_bf16_occupancy"] = [i, p]
     argtypes["count_above_bf16"] = [i, p, p, i, i, i, f, i, i, p, p]
-    argtypes["count_above_bf16_occupancy"] = [i, p]
+    argtypes["pool_writer_bf16"] = [i, p, p, i, i, i, i, i, p, p, p]
     argtypes["fused_topk_bf16"] = [i, p, p, i, i, i, i, i, i, i, i, p, p, p]
+    argtypes["scores_bf16"] = [i, p, p, i, i, i, i, i, p, p]
+    for name in ("row_max", "count_above", "pool_writer", "scores"):
+        argtypes[f"{name}_bf16_occupancy"] = [i, p]
     argtypes["fused_topk_bf16_occupancy"] = [i, i, i, p]
     # Their blocks' dynamic shared memory (bytes), for chip_smoke.py's plans.
     argtypes["count_above_bf16_smem_bytes"] = []
+    argtypes["pool_writer_bf16_smem_bytes"] = []
     argtypes["fused_topk_bf16_smem_bytes"] = [i, i]
-    # The pooled collection's bf16 count (CUDA cores) and pool_writer's
-    # bf16 variant take the f32 kernels' arguments.
-    for name in ("count_above", "count_above_occupancy", "pool_writer"):
-        kernel, occupancy, _ = name.partition("_occupancy")
-        suffix = "_bf16_pool" if kernel == "count_above" else "_bf16"
-        argtypes[f"{kernel}{suffix}{occupancy}"] = argtypes[name]
     argtypes["chamfer"] = [i, p, p, i, i, i, i, i, i, p, p]
     for name, types in argtypes.items():
         fn = getattr(lib, f"vsc_{name}")

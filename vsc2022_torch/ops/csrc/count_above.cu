@@ -15,35 +15,32 @@
 // well as one of 9,000; each block counts over its range in registers and
 // the partial counts combine with one int32 atomicAdd per row and block
 // (exact, order-free). The tile product is a 3-stage cp.async ring of
-// 64-deep slices feeding 8 x 8 register tiles. Its scores are pool_writer's
-// and fused_topk's bit for bit, which the pooled prune (a row is complete
-// when this count equals its kept entries) and the streaming verify rely on.
+// 64-deep slices feeding 8 x 8 register tiles. Its scores are the f32
+// pool_writer's and fused_topk's bit for bit, which the pooled prune (a row
+// is complete when this count equals its kept entries) and the streaming
+// verify rely on.
 //
 // Over a bf16 corpus (the JAX searcher's streaming_count_above on bf16
-// operands with f32 accumulation) each collection counts with the kernel
-// whose scores its candidates carry:
-//  * vsc_count_above_bf16, the streaming collection's (launch key
-//    count_above.bf16), is the tensor-core product of wgmma_gemm.cuh (TMA,
-//    4-stage mbarrier ring, wgmma m64n256k16) with a count epilogue, the
-//    product fused_topk.bf16 and row_max.bf16 run: the same accumulators,
-//    so the streaming verify (kept == count) holds bit for bit. Bound:
-//    operations, 2*M*N*D at 989 TFLOP/s ([9000 x 240,000 x 512] is 2.2
-//    TFLOP, 2.2 ms), the operands 2 bytes a value and the corpus read from
-//    HBM about once per group of 8 query tiles. The epilogue is short, so
-//    it runs near row_max.bf16's rate: per finished 128 x 256 tile each
-//    thread counts its columns >= tau (columns at or past n_valid left
-//    out, so tau = -inf counts every valid column), the quad sums them
-//    with two shuffles, and the owner adds them to the group's running
-//    count per row in shared memory; a block commits each row once per
-//    group it leaves with one atomicAdd, and rows >= M never. Rows take a
-//    multiple of 8 values (ops/kernels.py pad_columns).
-//  * vsc_count_above_bf16_pool, the pooled collection's (launch key
-//    count_above.bf16.pool), runs the f32 kernel's fmaf chain on the
-//    widened operands (reduce_gemm.cuh), so it counts exactly the scores
-//    pool_writer.bf16 holds; at 3-4% of the bf16 bound, until pool_writer
-//    .bf16 moves onto the tensor cores with it. At D = 1025 (the DnS
-//    coarse corpus with its bias column) the rows start only 2-byte
-//    aligned and take 2-byte loads.
+// operands with f32 accumulation) both collections count with
+// vsc_count_above_bf16 (launch key count_above.bf16): the tensor-core
+// product of wgmma_gemm.cuh (TMA, 4-stage mbarrier ring, wgmma m64n256k16)
+// with a count epilogue, the product every bf16 kernel runs. So the
+// streaming verify (kept == count) counts the scores of fused_topk.bf16's
+// candidates, and the pooled prune those of pool_writer.bf16's pool, bit
+// for bit; the pooled count runs on the ambiguous rows alone, each at
+// another place in its query tile than in the pool's launch, and a wgmma
+// score does not depend on its row's place (tests/test_torch_cuda.py holds
+// a permuted row subset against the full call). Bound: operations, 2*M*N*D
+// at 989 TFLOP/s ([9000 x 240,000 x 512] is 2.2 TFLOP, 2.2 ms), the
+// operands 2 bytes a value and the corpus read from HBM about once per
+// group of 8 query tiles. The epilogue is short, so it runs near
+// row_max.bf16's rate: per finished 128 x 256 tile each thread counts its
+// columns >= tau (columns at or past n_valid left out, so tau = -inf
+// counts every valid column), the quad sums them with two shuffles, and
+// the owner adds them to the group's running count per row in shared
+// memory; a block commits each row once per group it leaves with one
+// atomicAdd, and rows >= M never. Rows take a multiple of 8 values
+// (ops/kernels.py pad_columns).
 #include "reduce_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -64,22 +61,6 @@ struct CountAbove {
     if (v > 0) atomicAdd(out + row, v);
   }
 };
-
-template <class T>
-int run_count_above(int device, const T* q, const T* refs, int m, int n,
-                    int d, float tau, int n_valid, int vec, int grid, int* out,
-                    void* stream) {
-  if (m <= 0) return 0;
-  if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
-  if (err != cudaSuccess) return (int)err;
-  err = reduce::launch(q, refs, m, d, n_valid, vec, grid,
-                       reduce::RowFold<CountAbove>{{tau, out}}, 0, s);
-  return (int)err;
-}
 
 // The count epilogue of the tensor-core product (wgmma_gemm.cuh): each
 // owner thread keeps rows row0 and row0 + 8 of every query tile of the
@@ -145,7 +126,7 @@ struct Bf16Count {
 // vec).
 extern "C" int vsc_count_above_occupancy(int device, int vec,
                                          int* blocks_per_sm) {
-  return reduce::resident_blocks<reduce::RowFold<CountAbove>, float>(
+  return reduce::resident_blocks<reduce::RowFold<CountAbove>>(
       device, vec, 0, blocks_per_sm);
 }
 
@@ -154,13 +135,19 @@ extern "C" int vsc_count_above_occupancy(int device, int vec,
 extern "C" int vsc_count_above(int device, const float* q, const float* refs,
                                int m, int n, int d, float tau, int n_valid,
                                int vec, int grid, int* out, void* stream) {
-  return run_count_above(device, q, refs, m, n, d, tau, n_valid, vec, grid,
-                         out, stream);
+  if (m <= 0) return 0;
+  if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce::launch(q, refs, m, d, n_valid, vec, grid,
+                             reduce::RowFold<CountAbove>{{tau, out}}, 0, s);
 }
 
-// Blocks of the streaming collection's bf16 kernel (tensor cores) one SM
-// holds at once (its grid: SMs x this, at most the work items of
-// ops/kernels.py wgmma_tiles).
+// Blocks of the bf16 kernel (tensor cores) one SM holds at once (its grid:
+// SMs x this, at most the work items of ops/kernels.py wgmma_tiles).
 extern "C" int vsc_count_above_bf16_occupancy(int device, int* blocks_per_sm) {
   return wg::resident_blocks<Bf16Count>(device, blocks_per_sm);
 }
@@ -170,9 +157,9 @@ extern "C" int vsc_count_above_bf16_smem_bytes() {
   return wg::smem_bytes<Bf16Count>();
 }
 
-// The streaming collection's bf16 variant: q [m, d] and refs [n, d] bf16
-// row-major, d % 8 == 0 (zero pad columns past the data's width) and both
-// bases 16-byte aligned; out is [m] int32; `grid` persistent blocks.
+// The bf16 variant: q [m, d] and refs [n, d] bf16 row-major, d % 8 == 0
+// (zero pad columns past the data's width) and both bases 16-byte aligned;
+// out is [m] int32; `grid` persistent blocks.
 extern "C" int vsc_count_above_bf16(int device, const __nv_bfloat16* q,
                                     const __nv_bfloat16* refs, int m, int n,
                                     int d, float tau, int n_valid, int grid,
@@ -185,23 +172,4 @@ extern "C" int vsc_count_above_bf16(int device, const __nv_bfloat16* q,
   err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
   if (err != cudaSuccess) return (int)err;
   return (int)wg::launch(q, refs, m, d, n_valid, grid, Bf16Count{tau, out, m}, s);
-}
-
-// Blocks of the pooled collection's bf16 kernel (CUDA cores) one SM holds
-// at once (16-byte loads if vec).
-extern "C" int vsc_count_above_bf16_pool_occupancy(int device, int vec,
-                                                   int* blocks_per_sm) {
-  return reduce::resident_blocks<reduce::RowFold<CountAbove>, __nv_bfloat16>(
-      device, vec, 0, blocks_per_sm);
-}
-
-// The pooled collection's bf16 variant: q and refs bf16, the rest as
-// vsc_count_above.
-extern "C" int vsc_count_above_bf16_pool(int device, const __nv_bfloat16* q,
-                                         const __nv_bfloat16* refs, int m,
-                                         int n, int d, float tau, int n_valid,
-                                         int vec, int grid, int* out,
-                                         void* stream) {
-  return run_count_above(device, q, refs, m, n, d, tau, n_valid, vec, grid,
-                         out, stream);
 }

@@ -58,16 +58,16 @@
 // 512] is 2.2 TFLOP, 2.2 ms). It is the tensor-core product of
 // wgmma_gemm.cuh (TMA, mbarrier ring, wgmma m64n256k16, bf16 in, f32
 // accumulation; the corpus read from HBM about once per group of query
-// tiles), the product count_above.bf16 and row_max.bf16 run, so the
-// streaming verify compares candidates and counts of the same bits. (The
-// f32 fmaf chain on widened operands, this variant's earlier design, cannot
-// pass 67/989 = 6.8% of the bf16 bound.) Its epilogue, TcTopK below, stalls
-// the tensor cores while it runs, so it is kept short:
-//   1. A 256-column tile holds exactly two pool segments (j < 16 and
-//      j >= 16 in wgmma_gemm.cuh's lane layout). Each thread takes the best
-//      2 of its 32 values per segment for each of its two rows with
-//      selects, and two xor shuffles leave the quad with each segment's
-//      best 2 for rows row0 and row0 + 8.
+// tiles), the product count_above.bf16, row_max.bf16 and pool_writer.bf16
+// run, so the streaming verify compares candidates and counts of the same
+// bits, and its winners are pool_writer.bf16's. (The f32 fmaf chain on
+// widened operands, this variant's earlier design, cannot pass 67/989 =
+// 6.8% of the bf16 bound.) Its epilogue, TcTopK below, stalls the tensor
+// cores while it runs, so it is kept short:
+//   1. A 256-column tile holds exactly two pool segments, whose winners
+//      for rows row0 and row0 + 8 the quad takes with wgmma_gemm.cuh's
+//      segment_top2 (selects over each thread's 32 values per segment and
+//      row, two xor shuffles), as pool_writer.bf16 does.
 //   2. Lane 0 of the quad offers row0's two segments to the row's kappa-set,
 //      lane 1 row0 + 8's. Shared memory holds each row's admission
 //      threshold, the set's worst (value, column) and its slot: after the
@@ -92,17 +92,17 @@
 // group) (ops/kernels.py wgmma_pieces). Rows take a multiple of 8 values
 // (ops/kernels.py pad_columns).
 #include "reduce_gemm.cuh"
-#include "segment_top2.cuh"
 #include "wgmma_gemm.cuh"
 
 using vsc::Top2;
 using vsc::better;
 using vsc::merge;
+using vsc::pick;
+using vsc::shfl_xor_top2;
 using namespace vsc::reduce;
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRowsPerWarp = BM / (THREADS / 32);  // 16
 
 struct Slot {
@@ -123,16 +123,6 @@ __device__ __forceinline__ Slot worst_slot(const float* sv, const int* si,
     if (better(w.v, w.i, v, i)) w = {v, i, s};
   }
   return w;
-}
-
-__device__ __forceinline__ Top2 shfl_xor_top2(const Top2& t, int mask) {
-  return {__shfl_xor_sync(kFull, t.v1, mask), __shfl_xor_sync(kFull, t.i1, mask),
-          __shfl_xor_sync(kFull, t.v2, mask), __shfl_xor_sync(kFull, t.i2, mask)};
-}
-
-// a if c else b, field by field (no reference to a selected struct).
-__device__ __forceinline__ Top2 pick(bool c, const Top2& a, const Top2& b) {
-  return {c ? a.v1 : b.v1, c ? a.i1 : b.i1, c ? a.v2 : b.v2, c ? a.i2 : b.i2};
 }
 
 // The 8 lanes of a row group (tx: lane bits 0, 1 and 4) each hold a top-2
@@ -402,40 +392,8 @@ struct TcTopK {
                                        const float (&acc)[vsc::wg::kAcc],
                                        const vsc::wg::Item& it,
                                        int valid_cols) const {
-    const int cbase = it.c_tile * vsc::wg::BN;
     Top2 b[2][2];  // [row row0 + 8h][segment]
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int g = 0; g < 2; ++g)
-        b[h][g] = {-CUDART_INF_F, INT_MAX, -CUDART_INF_F, INT_MAX};
-#pragma unroll
-    for (int j = 0; j < vsc::wg::kAcc / 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        // A thread's columns come in ascending order, so a strict '>'
-        // keeps the lower column on equal values (the pool order); -inf
-        // (columns past n_valid) never enters.
-        const int col = 8 * j + l.col0 + e;
-        const bool valid = !kMasked || col < valid_cols;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          Top2& t = b[h][j / 16];
-          const float v = valid ? acc[4 * j + 2 * h + e] : -CUDART_INF_F;
-          const bool first = v > t.v1, second = v > t.v2;
-          t.v2 = first ? t.v1 : second ? v : t.v2;
-          t.i2 = first ? t.i1 : second ? cbase + col : t.i2;
-          t.v1 = first ? v : t.v1;
-          t.i1 = first ? cbase + col : t.i1;
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int g = 0; g < 2; ++g) b[h][g] = merge(b[h][g], shfl_xor_top2(b[h][g], off));
+    vsc::wg::segment_top2<kMasked>(acc, l, it.c_tile, valid_cols, b);
     if (l.quad >= 2) return;
     const bool hi = l.quad == 1;
     const int r = l.row0 + 8 * l.quad;
@@ -504,7 +462,7 @@ int run_tc_topk(const __nv_bfloat16* q, const __nv_bfloat16* refs, int m, int d,
 // vec).
 extern "C" int vsc_fused_topk_occupancy(int device, int vec,
                                         int* blocks_per_sm) {
-  return vsc::reduce::resident_blocks<TopK, float>(
+  return vsc::reduce::resident_blocks<TopK>(
       device, vec, smem_set_bytes(kSmemKappaMax), blocks_per_sm);
 }
 

@@ -8,36 +8,69 @@
 // TPU kernels' band-major layout, f32 placement matmul and -3e38 sentinel
 // were Mosaic artifacts and are not carried over.
 //
-// Bound: operations. 2*M*N*D flops ([9000 x 1,000,064 x 512] is 9.2 TFLOP,
-// ~137 ms at 67 TFLOP/s f32), against ~3 GB of refs + pool traffic (~1 ms).
-// Design: one block owns a [64 rows x 128 columns] tile, i.e. whole
-// segments, so the segment reduction happens in registers and warp
-// shuffles right after the product; the [M, N] scores never reach device
-// memory. Blocks walk the row tiles fastest, so consecutive blocks reuse
-// the same 256 KB refs segment out of L2.
+// f32 (vsc_pool_writer). Bound: operations. 2*M*N*D flops ([9000 x
+// 1,000,064 x 512] is 9.2 TFLOP, ~137 ms at 67 TFLOP/s f32), against ~3 GB
+// of refs + pool traffic (~1 ms). Design (tile_gemm.cuh): one block owns a
+// [64 rows x 128 columns] tile, i.e. whole segments, so the segment
+// reduction happens in registers and warp shuffles right after the product;
+// the [M, N] scores never reach device memory. Blocks walk the row tiles
+// fastest, so consecutive blocks reuse the same 256 KB refs segment out of
+// L2. Every score is the f32 fmaf chain of reduce_gemm.cuh, so the pool is
+// what the f32 row_max, count_above and fused_topk score, bit for bit.
 //
-// The bf16 variant (vsc_pool_writer_bf16) replaces the Pallas kernels' bf16
-// branch (pallas_kernels.py:228-230 and :389-391: bf16 operands in one
-// native pass, f32 accumulation), which the JAX searcher takes over a bf16
-// corpus and pool_writer(precision="default") takes by rounding f32 inputs.
-// Bound: operations, 2*M*N*D; against the bf16 tensor-core peak (989
-// TFLOP/s) its share is low by design: the operands are widened to f32 as
-// they are staged (tile_gemm.cuh) and the f32 kernel's fmaf chain runs on
-// them, so its pool is the f32 kernel's on the widened inputs bit for bit,
-// and the bf16 count_above and fused_topk see the same scores. The refs
-// move half the bytes.
+// bf16 (vsc_pool_writer_bf16) replaces the Pallas kernels' bf16 branch
+// (pallas_kernels.py:228-230 and :389-391: bf16 operands in one native
+// pass, f32 accumulation), the pooled collection over a bf16 corpus. Bound:
+// operations, 2*M*N*D at 989 TFLOP/s ([9000 x 1,000,020 x 512] is 9.2
+// TFLOP, 9.3 ms). It is the tensor-core product of wgmma_gemm.cuh (TMA into
+// a 4-stage mbarrier ring, wgmma m64n256k16, bf16 in, f32 accumulation; the
+// corpus read from HBM about once per group of 8 query tiles), the product
+// of every bf16 kernel, with a pool epilogue: a 256-column tile holds two
+// whole segments, whose winners the quad takes with segment_top2 (the one
+// fused_topk.bf16 takes its candidates with), and its four lanes store
+// them: lane 0 row0's values, lane 1 its ids, lanes 2 and 3 those of row
+// row0 + 8, each as one 16-byte piece (the two segments' 2 slots) where
+// the row's offset allows it, else two 8-byte ones. The epilogue keeps no
+// state across items. So the pool's best winner is row_max.bf16, its
+// winners ordered are fused_topk.bf16's, and count_above.bf16 counts its
+// scores: the pooled prune (a row is complete when the corpus count equals
+// its kept entries) compares the same bits. The stores are ~1.1 GB at SSCD
+// (9000 x 7,872 segments x 16 bytes), scattered one row N/128 x 8 bytes
+// apart, well under the operations bound.
+// Work: the plan covers the corpus tiles up to n_valid (wg::plan). The
+// kernel writes segments [0, min(2 x those tiles, N/128)): with N/128 odd,
+// the last tile's second segment lies past the output and is not written.
+// The segments past them (zero rows the searcher pads the corpus with)
+// score -inf; the wrapper fills them (ops/kernels.py pool_segments). Rows
+// take a multiple of 8 values (ops/kernels.py pad_columns).
 #include <climits>
 
-#include "segment_top2.cuh"
+#include "tile_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 using namespace vsc;
 
 namespace {
 
-template <class T>
+// Best 2 of one row's segment [col0, col0 + 128) in tile_gemm.cuh's layout:
+// ``row_acc`` is the lane's 4 scores of that row; columns >= n_valid score
+// -inf. Every lane of the warp must call it and every lane gets the result.
+__device__ __forceinline__ Top2 warp_top2(const float (&row_acc)[COLS_PER_LANE],
+                                          int col0, int n_valid, int lane) {
+  Top2 t = {-CUDART_INF_F, INT_MAX, -CUDART_INF_F, INT_MAX};
+#pragma unroll
+  for (int c = 0; c < COLS_PER_LANE; ++c) {
+    const int col = col0 + lane * COLS_PER_LANE + c;
+    insert(t, col < n_valid ? row_acc[c] : -CUDART_INF_F, col);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) t = merge(t, shfl_xor_top2(t, off));
+  return t;
+}
+
 __global__ void __launch_bounds__(THREADS)
-    pool_writer_kernel(const T* __restrict__ q,
-                       const T* __restrict__ refs, int m, int n, int d,
+    pool_writer_kernel(const float* __restrict__ q,
+                       const float* __restrict__ refs, int m, int n, int d,
                        int n_valid, int n_row_tiles, float* __restrict__ out_v,
                        int* __restrict__ out_i) {
   __shared__ TileSmem sm;
@@ -54,7 +87,7 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const Top2 t = segment_top2(acc[r], col0, n_valid, lane);
+    const Top2 t = warp_top2(acc[r], col0, n_valid, lane);
     const int row = row0 + warp * ROWS_PER_WARP + r;
     if (lane == r && row < m) {
       const size_t o = ((size_t)row * n_seg + seg) * 2;
@@ -66,21 +99,49 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <class T>
-int run_pool_writer(int device, const T* q, const T* refs, int m, int n,
-                    int d, int n_valid, float* out_v, int* out_i,
-                    void* stream) {
-  if (m <= 0 || n <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int n_row_tiles = (m + BM - 1) / BM;
-  const long long blocks = (long long)n_row_tiles * (n / BN);
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  pool_writer_kernel<T><<<(unsigned)blocks, THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      q, refs, m, n, d, n_valid, n_row_tiles, out_v, out_i);
-  return (int)cudaGetLastError();
-}
+// The pool epilogue of the tensor-core product (wgmma_gemm.cuh): no state
+// across items, so begin and flush have nothing to do.
+struct Bf16Pool {
+  static constexpr int kStages = wg::kStages, kGroup = wg::kGroup;
+  float* out_v;
+  int* out_i;
+  int m, n_seg;
+  struct Smem {};
+
+  __device__ __forceinline__ void begin(Smem&, const wg::Lane&) const {}
+
+  template <bool kMasked>
+  __device__ __forceinline__ void item(Smem&, const wg::Lane& l,
+                                       const float (&acc)[wg::kAcc],
+                                       const wg::Item& it, int valid_cols) const {
+    Top2 b[2][2];  // [row row0 + 8h][segment]
+    wg::segment_top2<kMasked>(acc, l, it.c_tile, valid_cols, b);
+    const bool hi = l.quad >= 2, ids = l.quad & 1;
+    const int row = it.q_tile * wg::BM + l.row0 + (hi ? 8 : 0);
+    if (row >= m) return;
+    const Top2 t0 = pick(hi, b[1][0], b[0][0]), t1 = pick(hi, b[1][1], b[0][1]);
+    const int seg = 2 * it.c_tile;
+    const size_t o = ((size_t)row * n_seg + seg) * 2;  // even: 8-byte aligned
+    // Values or ids of the two segments, as 32-bit words.
+    const uint32_t w0 = ids ? (uint32_t)t0.i1 : __float_as_uint(t0.v1);
+    const uint32_t w1 = ids ? (uint32_t)t0.i2 : __float_as_uint(t0.v2);
+    const uint32_t w2 = ids ? (uint32_t)t1.i1 : __float_as_uint(t1.v1);
+    const uint32_t w3 = ids ? (uint32_t)t1.i2 : __float_as_uint(t1.v2);
+    uint32_t* out = ids ? reinterpret_cast<uint32_t*>(out_i)
+                        : reinterpret_cast<uint32_t*>(out_v);
+    if (seg + 1 >= n_seg) {  // the second segment lies past the output
+      *reinterpret_cast<uint2*>(out + o) = make_uint2(w0, w1);
+    } else if ((o & 3) == 0) {
+      *reinterpret_cast<uint4*>(out + o) = make_uint4(w0, w1, w2, w3);
+    } else {
+      *reinterpret_cast<uint2*>(out + o) = make_uint2(w0, w1);
+      *reinterpret_cast<uint2*>(out + o + 2) = make_uint2(w2, w3);
+    }
+  }
+
+  __device__ __forceinline__ void flush(Smem&, const wg::Lane&,
+                                        const wg::Item&) const {}
+};
 
 }  // namespace
 
@@ -89,15 +150,42 @@ int run_pool_writer(int device, const T* q, const T* refs, int m, int n,
 extern "C" int vsc_pool_writer(int device, const float* q, const float* refs,
                                int m, int n, int d, int n_valid, float* out_v,
                                int* out_i, void* stream) {
-  return run_pool_writer(device, q, refs, m, n, d, n_valid, out_v, out_i,
-                         stream);
+  if (m <= 0 || n <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int n_row_tiles = (m + BM - 1) / BM;
+  const long long blocks = (long long)n_row_tiles * (n / BN);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  pool_writer_kernel<<<(unsigned)blocks, THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      q, refs, m, n, d, n_valid, n_row_tiles, out_v, out_i);
+  return (int)cudaGetLastError();
 }
 
-// The bf16 variant: q and refs bf16, the rest as vsc_pool_writer.
+// Blocks of the bf16 kernel (tensor cores) one SM holds at once: its grid is
+// SMs x this, at most the work items of ops/kernels.py wgmma_tiles.
+extern "C" int vsc_pool_writer_bf16_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<Bf16Pool>(device, blocks_per_sm);
+}
+
+// Bytes of dynamic shared memory one block of that kernel takes.
+extern "C" int vsc_pool_writer_bf16_smem_bytes() {
+  return wg::smem_bytes<Bf16Pool>();
+}
+
+// The bf16 variant: q [m, d] and refs [n, d] bf16 row-major, n a multiple
+// of 128, d % 8 == 0 (zero pad columns past the data's width) and both
+// bases 16-byte aligned; out_v / out_i are [m, n/128, 2]; `grid` persistent
+// blocks. Writes the segments ops/kernels.py pool_segments says it writes.
 extern "C" int vsc_pool_writer_bf16(int device, const __nv_bfloat16* q,
                                     const __nv_bfloat16* refs, int m, int n,
-                                    int d, int n_valid, float* out_v,
+                                    int d, int n_valid, int grid, float* out_v,
                                     int* out_i, void* stream) {
-  return run_pool_writer(device, q, refs, m, n, d, n_valid, out_v, out_i,
-                         stream);
+  if (m <= 0 || n <= 0) return 0;
+  if (n % BN || n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wg::launch(q, refs, m, d, n_valid, grid,
+                         Bf16Pool{out_v, out_i, m, n / BN},
+                         static_cast<cudaStream_t>(stream));
 }

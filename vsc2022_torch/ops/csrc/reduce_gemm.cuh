@@ -6,13 +6,15 @@
 //
 // Arithmetic. Every score is the sequential sum over k = 0..D-1 of
 // fmaf(q, r, acc) from +0.0f, the order of tile_gemm.cuh, so these kernels
-// see the scores of pool_writer bit for bit for the same (query, ref) pair.
+// see the scores of the f32 pool_writer bit for bit for the same (query,
+// ref) pair.
 // The depth is zero-filled up to a multiple of BK, and fmaf(0, 0, acc) ==
 // acc for every acc the chain can reach (it never holds -0.0f: it starts
 // at +0.0f and an exact cancellation rounds to +0). No split-K, no TF32, no
 // reassociation: the pooled prune (similarity.py, `totals == kept`) and
 // the streaming verify need counts of exactly the scores the pool and the
-// candidates hold.
+// candidates hold. The bf16 kernels run the tensor-core product of
+// wgmma_gemm.cuh instead, all four on it, for the same reason.
 //
 // Work. A work item is a [128 query rows x 128 ref columns] tile (one
 // winner-pool segment per row), items are numbered row tile major (item =
@@ -46,36 +48,18 @@
 // one of the stages are in flight while one is multiplied, and while the
 // epilogue runs.
 //
-// bf16 operands (the bf16 variants of count_above and fused_topk, the
-// counterpart of the Pallas kernels' bf16 branch: bf16 q and refs, f32
-// accumulation; row_max.bf16 runs on the tensor cores, wgmma_gemm.cuh).
-// Each value is widened to f32 on its way into the same f32 ring (exact: a
-// bf16 is the upper half of an f32), so the multiply, the fmaf chain and the
-// epilogues are the f32 kernel's, and a bf16 kernel's score equals the f32
-// kernel's score on the widened inputs, and pool_writer.bf16's, bit for bit. cp.async cannot convert,
-// so these loads go through registers: 16-byte loads (8 values) when
-// D % 8 == 0 and both operands are 16-byte aligned, 2-byte loads otherwise
-// (D = 1025 rows start 2-byte aligned). Each step issues the loads of the
-// slice kStages - 1 ahead before its multiply and widens them into their
-// (free) stage after it, so the multiply hides their latency: loaded and
-// stored at the top of the step instead, they cost 7% at D = 512 and 40-65%
-// at D = 511 and 1025, where 64 2-byte loads a thread take several round
-// trips (PERF.md, section 6).
-//
 // Registers. The k-contiguous fragments (8 + 8 float4 per 4 k-steps) and
 // the 64 accumulators take the thread's 255 registers, so an SM holds one
 // block (8 warps); a 64-deep slice keeps the barriers to one per 4,096
 // FMAs a thread. Tuned on the H100 (PERF.md, section 6).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <climits>
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
 namespace vsc {
 namespace reduce {
@@ -150,105 +134,6 @@ __device__ __forceinline__ void load_rows(float* dst,
       cp_async4(to, ok ? p + e * stride : src, ok);
   }
 }
-
-// The two bf16 values of a 32-bit word widened to f32 (exact): the lower
-// address is the low half.
-__device__ __forceinline__ float bf16_lo(unsigned w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(unsigned w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// Rows [row0, row0 + ROWS) x k-slice [k0, k0 + BK) of a row-major [*, d]
-// bf16 operand, in two halves: fetch() loads this thread's pieces into
-// registers (16-byte loads of 8 values when kVec, where d % 8 == 0 so a
-// piece is wholly inside or outside the row; 2-byte loads otherwise), and
-// store() widens them to f32 into ROWS rows of LD floats. Rows >= lim and
-// k >= d read as zeros.
-template <int ROWS, bool kVec>
-struct Bf16Rows {
-  static constexpr int VALUES = kVec ? 8 : 1;    // per load
-  static constexpr int PIECES = BK / VALUES;     // per row
-  static constexpr int STEP = THREADS / PIECES;  // rows per pass of the block
-  static constexpr int PASSES = ROWS / STEP;
-  static_assert(THREADS % PIECES == 0 && ROWS % STEP == 0, "copy shape");
-  using Raw = typename std::conditional<kVec, uint4, unsigned short>::type;
-  Raw v[PASSES];
-
-  __device__ __forceinline__ void fetch(const __nv_bfloat16* __restrict__ src,
-                                        int lim, int d, int row0, int k0) {
-    const int c = threadIdx.x % PIECES, r = threadIdx.x / PIECES;
-    const bool k_ok = k0 + VALUES * c < d;
-    const __nv_bfloat16* p = src + (size_t)(row0 + r) * d + k0 + VALUES * c;
-    const size_t stride = (size_t)STEP * d;
-#pragma unroll
-    for (int e = 0; e < PASSES; ++e) {
-      const bool ok = k_ok && row0 + r + STEP * e < lim;
-      if constexpr (kVec)
-        v[e] = ok ? __ldg(reinterpret_cast<const uint4*>(p + e * stride))
-                  : make_uint4(0u, 0u, 0u, 0u);
-      else
-        v[e] = ok ? __ldg(reinterpret_cast<const unsigned short*>(p + e * stride))
-                  : (unsigned short)0;
-    }
-  }
-
-  __device__ __forceinline__ void store(float* dst) const {
-    const int c = threadIdx.x % PIECES, r = threadIdx.x / PIECES;
-#pragma unroll
-    for (int e = 0; e < PASSES; ++e) {
-      float* to = dst + (r + STEP * e) * LD + VALUES * c;
-      if constexpr (kVec) {
-        const uint4 w = v[e];
-        *reinterpret_cast<float4*>(to) =
-            make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
-        *reinterpret_cast<float4*>(to + 4) =
-            make_float4(bf16_lo(w.z), bf16_hi(w.z), bf16_lo(w.w), bf16_hi(w.w));
-      } else {
-        *to = bf16_lo(v[e]);
-      }
-    }
-  }
-};
-
-// One ring stage of q and refs rows, in two halves around the multiply of
-// the current stage: fetch() starts the copies, commit() finishes them.
-// f32 operands: fetch() issues cp.async (the wait and the barrier of a
-// later step see them land), commit() has nothing to do.
-template <class T, bool kVec>
-struct StageLoader {
-  __device__ __forceinline__ void fetch(float* dst, const float* q,
-                                        const float* refs, int m, int n_valid,
-                                        int d, int q_row0, int r_row0, int k0) {
-    load_rows<BM, kVec>(dst, q, m, d, q_row0, k0);
-    load_rows<BN, kVec>(dst + BM * LD, refs, n_valid, d, r_row0, k0);
-  }
-  __device__ __forceinline__ void commit() {}
-};
-
-// bf16 operands: fetch() loads into registers, which the multiply of the
-// current stage then hides the latency of, and commit() widens them into
-// the stage (free since the step's barrier) after the multiply.
-template <bool kVec>
-struct StageLoader<__nv_bfloat16, kVec> {
-  Bf16Rows<BM, kVec> a;
-  Bf16Rows<BN, kVec> b;
-  float* dst;
-
-  __device__ __forceinline__ void fetch(float* stage, const __nv_bfloat16* q,
-                                        const __nv_bfloat16* refs, int m,
-                                        int n_valid, int d, int q_row0,
-                                        int r_row0, int k0) {
-    dst = stage;
-    a.fetch(q, m, d, q_row0, k0);
-    b.fetch(refs, n_valid, d, r_row0, k0);
-  }
-  __device__ __forceinline__ void commit() {
-    a.store(dst);
-    b.store(dst + BM * LD);
-  }
-};
 
 // acc[i][j] += the BK k-steps of one stage, in k order.
 __device__ __forceinline__ void multiply_slice(const float* stage, int row,
@@ -362,10 +247,9 @@ struct RowFold {
   }
 };
 
-// T: the operand type, float or __nv_bfloat16 (widened on the way in).
-template <class E, class T, bool kVec>
+template <class E, bool kVec>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-    reduce_kernel(const T* __restrict__ q, const T* __restrict__ refs,
+    reduce_kernel(const float* __restrict__ q, const float* __restrict__ refs,
                   int m, int d, int n_valid, E ep) {
   extern __shared__ __align__(16) float ring[];
   __shared__ typename E::Smem esm;
@@ -393,10 +277,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   // Consumer item (rt, ct); producer step (lrt, lct, lkt).
   int rt = (int)(begin / col_tiles), ct = (int)(begin % col_tiles);
   int lrt = rt, lct = ct, lkt = 0;
-  StageLoader<T, kVec> loader;
   auto load_step = [&](int stage) {
-    loader.fetch(ring + stage * STAGE_FLOATS, q, refs, m, n_valid, d,
-                 lrt * BM, lct * BN, lkt * BK);
+    float* dst = ring + stage * STAGE_FLOATS;
+    load_rows<BM, kVec>(dst, q, m, d, lrt * BM, lkt * BK);
+    load_rows<BN, kVec>(dst + BM * LD, refs, n_valid, d, lct * BN, lkt * BK);
     if (++lkt == kt_n) {
       lkt = 0;
       if (++lct == col_tiles) {
@@ -407,10 +291,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   };
 #pragma unroll
   for (int p = 0; p < kStages - 1; ++p) {
-    if (p < steps) {
-      load_step(p);
-      loader.commit();
-    }
+    if (p < steps) load_step(p);
     cp_async_commit();  // possibly empty: keeps the group count uniform
   }
 
@@ -431,7 +312,6 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
       load_step(cstage == 0 ? kStages - 1 : cstage - 1);
     cp_async_commit();
     multiply_slice(ring + cstage * STAGE_FLOATS, t.row, t.col, acc);
-    if (ahead) loader.commit();
     cstage = cstage + 1 == kStages ? 0 : cstage + 1;
     if (++ckt < kt_n) continue;
 
@@ -453,37 +333,36 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   }
 }
 
-template <class E, class T, bool kVec>
+template <class E, bool kVec>
 cudaError_t configure(int smem_bytes) {
   cudaError_t err = cudaFuncSetAttribute(
-      reduce_kernel<E, T, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      reduce_kernel<E, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(reduce_kernel<E, T, kVec>,
+  return cudaFuncSetAttribute(reduce_kernel<E, kVec>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
 // Blocks of the kernel an SM holds at once with `extra` bytes of dynamic
 // shared memory past the ring (0: it cannot launch).
-template <class E, class T>
+template <class E>
 int resident_blocks(int device, int vec, int extra, int* blocks_per_sm) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int smem = ring_bytes<E>() + extra;
-  err = vec ? configure<E, T, true>(smem) : configure<E, T, false>(smem);
+  err = vec ? configure<E, true>(smem) : configure<E, false>(smem);
   if (err != cudaSuccess) return (int)err;
-  void (*kernel)(const T*, const T*, int, int, int, E) =
-      vec ? &reduce_kernel<E, T, true> : &reduce_kernel<E, T, false>;
+  void (*kernel)(const float*, const float*, int, int, int, E) =
+      vec ? &reduce_kernel<E, true> : &reduce_kernel<E, false>;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, kernel, THREADS, smem);
 }
 
 // Whether the 16-byte copies may be used: a row is a whole number of 16-byte
-// pieces (D % 4 == 0 in f32, D % 8 == 0 in bf16) and both bases are aligned.
-template <class T>
-bool vec_ok(const T* q, const T* refs, int d) {
-  return d % (16 / (int)sizeof(T)) == 0 &&
+// pieces (D % 4 == 0) and both bases are aligned.
+inline bool vec_ok(const float* q, const float* refs, int d) {
+  return d % 4 == 0 &&
          ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(refs)) &
           15) == 0;
 }
@@ -491,8 +370,8 @@ bool vec_ok(const T* q, const T* refs, int d) {
 // Launch `grid` blocks over the items of an [m, n_valid] call, with `extra`
 // bytes of dynamic shared memory past the ring; nothing when there are no
 // items.
-template <class E, class T>
-cudaError_t launch(const T* q, const T* refs, int m, int d,
+template <class E>
+cudaError_t launch(const float* q, const float* refs, int m, int d,
                    int n_valid, int vec, int grid, const E& ep, int extra,
                    cudaStream_t s) {
   if (m <= 0 || n_valid <= 0) return cudaSuccess;
@@ -506,14 +385,14 @@ cudaError_t launch(const T* q, const T* refs, int m, int d,
     return cudaErrorInvalidValue;
   const int smem = ring_bytes<E>() + extra;
   cudaError_t err =
-      vec ? configure<E, T, true>(smem) : configure<E, T, false>(smem);
+      vec ? configure<E, true>(smem) : configure<E, false>(smem);
   if (err != cudaSuccess) return err;
   if (vec)
-    reduce_kernel<E, T, true><<<grid, THREADS, smem, s>>>(q, refs, m, d,
-                                                          n_valid, ep);
+    reduce_kernel<E, true><<<grid, THREADS, smem, s>>>(q, refs, m, d, n_valid,
+                                                       ep);
   else
-    reduce_kernel<E, T, false><<<grid, THREADS, smem, s>>>(q, refs, m, d,
-                                                           n_valid, ep);
+    reduce_kernel<E, false><<<grid, THREADS, smem, s>>>(q, refs, m, d, n_valid,
+                                                        ep);
   return cudaGetLastError();
 }
 

@@ -24,8 +24,8 @@
 // is the tensor-core product of wgmma_gemm.cuh (TMA into a 4-stage mbarrier
 // ring, wgmma m64n256k16, bf16 in, f32 accumulation) with a row-max
 // epilogue. (Widening the operands into the f32 fmaf chain of
-// reduce_gemm.cuh, as the other bf16 kernels do, cannot pass 67/989 = 6.8%
-// of the bf16 bound.) Bound: operations, 2*M*N*D at 989 TFLOP/s ([9000 x
+// reduce_gemm.cuh, the bf16 kernels' first design, cannot pass 67/989 =
+// 6.8% of the bf16 bound.) Bound: operations, 2*M*N*D at 989 TFLOP/s ([9000 x
 // 250,020 x 511] is 2.3 TFLOP, 2.3 ms); the operands are 2 bytes a value
 // and the corpus comes from HBM about once per group of 8 query tiles (the
 // row-tile order would stream it once per 128 query rows: 71 x 256 MB at
@@ -45,9 +45,10 @@
 // query rows >= M are never committed. The tensor cores sum in their own
 // order: the scores are exact on integer inputs, within a few f32 rounding
 // steps of the f32 kernel on the widened inputs elsewhere, and bit for bit
-// those of the streaming pair on the same product (count_above.bf16,
-// fused_topk.bf16): the row max is fused_topk.bf16's best value, which
-// chip_smoke.py checks on every stream path's inputs. Rows take a multiple
+// those of the other bf16 kernels on the same product (count_above.bf16,
+// pool_writer.bf16, fused_topk.bf16): the row max is the pool's best
+// winner and fused_topk.bf16's best value, which chip_smoke.py checks on
+// every bf16 path's inputs. Rows take a multiple
 // of 8 values (ops/kernels.py pad_columns).
 #include "reduce_gemm.cuh"
 #include "wgmma_gemm.cuh"
@@ -149,10 +150,9 @@ struct Bf16RowMax {
   }
 };
 
-template <class T>
-int run_row_max(int device, const T* q, const T* refs, int m, int n, int d,
-                int n_valid, int vec, int grid, unsigned* keys, float* out,
-                void* stream) {
+int run_row_max(int device, const float* q, const float* refs, int m, int n,
+                int d, int n_valid, int vec, int grid, unsigned* keys,
+                float* out, void* stream) {
   if (m <= 0) return 0;
   if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -171,7 +171,7 @@ int run_row_max(int device, const T* q, const T* refs, int m, int n, int d,
 
 // Blocks of the row_max kernel one SM holds at once (16-byte copies if vec).
 extern "C" int vsc_row_max_occupancy(int device, int vec, int* blocks_per_sm) {
-  return reduce::resident_blocks<reduce::RowFold<RowMax>, float>(
+  return reduce::resident_blocks<reduce::RowFold<RowMax>>(
       device, vec, 0, blocks_per_sm);
 }
 

@@ -1,17 +1,15 @@
 // The winner-pool contract: the best 2 entries of one 128-column segment of
 // one query row, under the pool's order (larger value first, then the lower
-// column). Top2, better and merge are the contract itself, shared with
-// fused_topk.cu, which reduces its segments in reduce_gemm.cuh's layout.
-//
-// In pool_writer a row's 128 scores of a tile live in one warp
-// (tile_gemm.cuh: lane l holds columns 4l..4l+3), so segment_top2 is a
-// per-lane insert over 4 columns and a butterfly merge over the 32 lanes;
-// every lane ends with the result.
+// column). Top2, better, insert and merge are the contract itself, shared by
+// every kernel that takes a segment's winners: pool_writer (the f32 tile
+// product of tile_gemm.cuh and, in bf16, the tensor-core product of
+// wgmma_gemm.cuh, whose segment_top2 takes them from an accumulator tile)
+// and fused_topk (both products).
 #pragma once
 
-#include <climits>
+#include <cuda_runtime.h>
 
-#include "tile_gemm.cuh"
+#include <climits>
 
 namespace vsc {
 
@@ -56,27 +54,15 @@ __device__ __forceinline__ Top2 merge(const Top2& a, const Top2& b) {
   return r;
 }
 
-// Best 2 of one row's segment [col0, col0 + 128): ``row_acc`` is the lane's
-// 4 scores of that row; columns >= n_valid score -inf. Every lane of the warp
-// must call it and every lane gets the result.
-__device__ __forceinline__ Top2 segment_top2(const float (&row_acc)[COLS_PER_LANE],
-                                             int col0, int n_valid, int lane) {
-  Top2 t = {-CUDART_INF_F, INT_MAX, -CUDART_INF_F, INT_MAX};
-#pragma unroll
-  for (int c = 0; c < COLS_PER_LANE; ++c) {
-    const int col = col0 + lane * COLS_PER_LANE + c;
-    insert(t, col < n_valid ? row_acc[c] : -CUDART_INF_F, col);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    Top2 o;
-    o.v1 = __shfl_xor_sync(0xffffffffu, t.v1, off);
-    o.i1 = __shfl_xor_sync(0xffffffffu, t.i1, off);
-    o.v2 = __shfl_xor_sync(0xffffffffu, t.v2, off);
-    o.i2 = __shfl_xor_sync(0xffffffffu, t.i2, off);
-    t = merge(t, o);
-  }
-  return t;
+__device__ __forceinline__ Top2 shfl_xor_top2(const Top2& t, int mask) {
+  constexpr unsigned kFull = 0xffffffffu;
+  return {__shfl_xor_sync(kFull, t.v1, mask), __shfl_xor_sync(kFull, t.i1, mask),
+          __shfl_xor_sync(kFull, t.v2, mask), __shfl_xor_sync(kFull, t.i2, mask)};
+}
+
+// a if c else b, field by field (no reference to a selected struct).
+__device__ __forceinline__ Top2 pick(bool c, const Top2& a, const Top2& b) {
+  return {c ? a.v1 : b.v1, c ? a.i1 : b.i1, c ? a.v2 : b.v2, c ? a.i2 : b.i2};
 }
 
 }  // namespace vsc

@@ -1,8 +1,7 @@
-// The f32 tile product of pool_writer (with segment_top2.cuh). row_max,
-// count_above and fused_topk run the pipelined persistent product of
-// reduce_gemm.cuh, with the same arithmetic per score (row_max.bf16 and the
-// streaming collection's count_above.bf16 and fused_topk.bf16 run the
-// tensor-core product of wgmma_gemm.cuh instead).
+// The f32 tile product of pool_writer. row_max, count_above and fused_topk
+// run the pipelined persistent product of reduce_gemm.cuh, with the same
+// arithmetic per score (the bf16 kernels run the tensor-core product of
+// wgmma_gemm.cuh instead).
 //
 // One block of 256 threads computes a [BM x BN] = [64 query rows x 128 ref
 // columns] tile of q . refs^T in full f32 FMA on the CUDA cores (the JAX
@@ -17,14 +16,9 @@
 // corpus count and the row max see bit-identical scores for the same
 // (query, ref) pair.
 //
-// The operands are f32 or bf16 (the bf16 pool_writer): bf16 values are
-// widened to f32 as they are staged into shared memory (exact), so the bf16
-// kernel's scores equal the f32 kernel's on the widened inputs bit for bit.
-//
 // Simple first: no cp.async, TMA or wgmma, one shared-memory stage.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -44,17 +38,11 @@ struct __align__(16) TileSmem {
   float b[BK][BN + 4];  // refs tile, transposed: b[k][col]
 };
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 // acc[r][c] = sum_k q[row0 + 8*warp + r][k] * refs[col0 + 4*lane + c][k].
 // Rows >= m and columns >= n read as zeros. Every thread of the block must
-// call this (it synchronizes the block). T: float or __nv_bfloat16.
-template <class T>
+// call this (it synchronizes the block).
 __device__ __forceinline__ void tile_product(
-    const T* __restrict__ q, const T* __restrict__ refs, int m, int n,
+    const float* __restrict__ q, const float* __restrict__ refs, int m, int n,
     int d, int row0, int col0, TileSmem& sm,
     float acc[ROWS_PER_WARP][COLS_PER_LANE]) {
   const int tid = threadIdx.x;
@@ -71,14 +59,14 @@ __device__ __forceinline__ void tile_product(
       const int e = tid + i * THREADS;
       const int r = e / BK, kk = e % BK;
       const int gr = row0 + r, gk = k0 + kk;
-      sm.a[kk][r] = (gr < m && gk < d) ? widen(q[(size_t)gr * d + gk]) : 0.f;
+      sm.a[kk][r] = (gr < m && gk < d) ? q[(size_t)gr * d + gk] : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < (BN * BK) / THREADS; ++i) {
       const int e = tid + i * THREADS;
       const int c = e / BK, kk = e % BK;
       const int gc = col0 + c, gk = k0 + kk;
-      sm.b[kk][c] = (gc < n && gk < d) ? widen(refs[(size_t)gc * d + gk]) : 0.f;
+      sm.b[kk][c] = (gc < n && gk < d) ? refs[(size_t)gc * d + gk] : 0.f;
     }
     __syncthreads();
 #pragma unroll

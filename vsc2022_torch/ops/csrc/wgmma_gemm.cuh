@@ -2,14 +2,16 @@
 // (TMA, mbarrier ring, wgmma), for the retrieval kernels that keep no
 // score: each finished [128 query rows x 256 corpus rows] accumulator tile
 // is handed to an epilogue functor, and the [M, N] scores never reach
-// device memory. Three epilogues run on it: row_max.bf16 (row_max.cu), the
-// streaming collection's count_above.bf16 (count_above.cu) and
-// fused_topk.bf16 (fused_topk.cu). The product loop is one instruction
-// sequence for all three (the same wgmma shape, k-slice depth, kt / kk
-// order and zero-filled k padding), so they see bit-identical f32
-// accumulators for a (q, r) pair at the same padded D: the streaming
-// verify compares fused_topk.bf16's candidates with count_above.bf16's
-// counts bit for bit.
+// device memory. Four epilogues run on it, every bf16 retrieval kernel:
+// row_max.bf16 (row_max.cu), count_above.bf16 (count_above.cu),
+// pool_writer.bf16 (pool_writer.cu) and fused_topk.bf16 (fused_topk.cu).
+// The product loop is one instruction sequence for all four (the same
+// wgmma shape, k-slice depth, kt / kk order and zero-filled k padding), so
+// they see bit-identical f32 accumulators for a (q, r) pair at the same
+// padded D, and pool_writer.bf16 and fused_topk.bf16 take each segment's
+// winners with the one segment_top2 below: the streaming verify compares
+// fused_topk.bf16's candidates, and the pooled prune the pool, with
+// count_above.bf16's counts bit for bit.
 //
 // Arithmetic. bf16 q [M, D] and refs [N, D] (both K-major, as they lie in
 // memory) go to shared memory unwidened; wgmma.mma_async m64n256k16
@@ -48,9 +50,12 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <climits>
 #include <cstdint>
+
+#include "segment_top2.cuh"
 
 namespace vsc {
 namespace wg {
@@ -230,6 +235,53 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[kAcc], uint64_t desc
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The best 2 of each pool segment of a finished tile for the thread's two
+// rows: b[h][g] for row row0 + 8h and segment g, the tile's columns
+// [128g, 128g + 128) (j < 16 and j >= 16 in the lane layout), with global
+// column ids. Each thread takes the best 2 of its 32 values per row and
+// segment with selects, and two xor shuffles merge the quad, so all four
+// lanes of the quad end with all four results. Every lane of the warp must
+// call it. Ties go to the lower column; with kMasked, columns at or past
+// valid_cols read -inf and never enter (a slot no valid column reached
+// stays (-inf, INT_MAX)).
+template <bool kMasked>
+__device__ __forceinline__ void segment_top2(const float (&acc)[kAcc],
+                                             const Lane& l, int c_tile,
+                                             int valid_cols, Top2 (&b)[2][2]) {
+  const int cbase = c_tile * BN;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int g = 0; g < 2; ++g)
+      b[h][g] = {-CUDART_INF_F, INT_MAX, -CUDART_INF_F, INT_MAX};
+#pragma unroll
+  for (int j = 0; j < kAcc / 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      // A thread's columns come in ascending order, so a strict '>' keeps
+      // the lower column on equal values (the pool order).
+      const int col = 8 * j + l.col0 + e;
+      const bool valid = !kMasked || col < valid_cols;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        Top2& t = b[h][j / 16];
+        const float v = valid ? acc[4 * j + 2 * h + e] : -CUDART_INF_F;
+        const bool first = v > t.v1, second = v > t.v2;
+        t.v2 = first ? t.v1 : second ? v : t.v2;
+        t.i2 = first ? t.i1 : second ? cbase + col : t.i2;
+        t.v1 = first ? v : t.v1;
+        t.i1 = first ? cbase + col : t.i1;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int g = 0; g < 2; ++g) b[h][g] = merge(b[h][g], shfl_xor_top2(b[h][g], off));
 }
 
 // The product and its epilogue E. E names its ring depth and group size

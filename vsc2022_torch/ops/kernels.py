@@ -5,8 +5,9 @@ C++ for sm_90a in ``ops/csrc`` (built by ``ops/_build.py`` at first use)
 and comes with:
 
   * a wrapper (``row_max``, ``count_above``, ``pool_writer`` and
-    ``fused_topk`` for the retrieval path, ``chamfer_fine_sims`` for the
-    DnS alignment) that, for
+    ``fused_topk`` for the retrieval path, ``scores`` for its re-search
+    over a bf16 corpus, ``chamfer_fine_sims`` for the DnS alignment)
+    that, for
     a CUDA tensor, launches the kernel or raises, and for a CPU tensor
     runs the plain version. Nothing else selects the plain version: there
     is no fallback when a build or a launch fails;
@@ -20,25 +21,25 @@ The four retrieval kernels take f32 or bf16 operands (q and refs of one
 dtype; the outputs stay f32 / int32). A bf16 pair launches the kernel's
 bf16 variant, counted under ``<name>.bf16``: the counterpart of the
 Pallas kernels' bf16 branch (one bf16 pass, f32 accumulation). A bf16
-CUDA tensor never reaches the f32 kernel. The searcher compares two pairs
-of kernels bit for bit, and each pair scores on one product:
+CUDA tensor never reaches the f32 kernel. Each dtype scores on one
+product, which every kernel of that dtype shares, so the searcher's
+collections compare their candidates with their counts bit for bit:
 
-* the streaming pair, ``fused_topk`` and ``count_above(pair="stream")``
-  (the default), and with them ``row_max``, run on the tensor cores
-  (``ops/csrc/wgmma_gemm.cuh``: TMA, wgmma, bf16 in, f32 accumulation).
-  The tensor cores sum in their own order: exact on integer inputs,
-  within a few f32 roundings of the plain versions elsewhere, and equal to
-  each other bit for bit (``fused_topk``'s best value is ``row_max``, its
-  entries ≥ τ are what ``count_above`` counts wherever no segment hides
-  one). Their rows hold a multiple of 8 values (``pad_columns``): the
-  searchers keep a padded copy of a bf16 corpus
+* f32: the CUDA cores' fmaf chain (``ops/csrc/reduce_gemm.cuh``, and
+  ``tile_gemm.cuh`` for ``pool_writer``), one sequential sum per score.
+* bf16: the tensor cores (``ops/csrc/wgmma_gemm.cuh``: TMA, wgmma, bf16
+  in, f32 accumulation), for ``row_max``, ``count_above``,
+  ``pool_writer`` and ``fused_topk`` alike, and for ``scores``, which
+  writes the product out for the searchers' corpus re-search (bf16 only:
+  in f32 the re-search is ``torch.matmul``). The tensor cores sum in their
+  own order: exact on integer inputs, within a few f32 roundings of the
+  plain versions elsewhere, and equal to each other bit for bit (the
+  pool's best winner is ``row_max``, its winners ordered are
+  ``fused_topk``'s, its entries ≥ τ are what ``count_above`` counts
+  wherever no segment hides one). Their rows hold a multiple of 8 values
+  (``pad_columns``): the searchers keep a padded copy of a bf16 corpus
   (``SimilaritySearcher.tensor_core_refs``), and the wrappers pad
   whatever is not.
-* the pooled pair, ``pool_writer`` and ``count_above(pair="pooled")``
-  (counted under ``count_above.bf16.pool``), widen the bf16 operands to
-  f32 and run the f32 kernels' arithmetic on the CUDA cores, so their
-  scores equal the f32 kernels' on the widened inputs, and each other's,
-  bit for bit.
 
 No wrapper gives way from one variant to another.
 
@@ -66,7 +67,7 @@ SEG_KEEP = 2  # entries the pool keeps per segment
 REDUCE_TILE = 128
 
 # Query rows and corpus rows of one work item of the tensor-core product
-# (wgmma_gemm.cuh: row_max.bf16, count_above.bf16, fused_topk.bf16), and
+# (wgmma_gemm.cuh: every bf16 kernel), and
 # the query tiles of one group: a block walks a group's corpus tiles with
 # the group's query tiles inner, so each corpus tile comes from HBM about
 # once per group.
@@ -92,14 +93,15 @@ TOPK_SCRATCH_BYTES = 1 << 30
 # The retrieval kernels, each with a bf16 variant.
 RETRIEVAL_KERNELS = ("row_max", "count_above", "pool_writer", "fused_topk")
 BF16 = ".bf16"  # suffix of a bf16 variant's launch count
-# Launch count of the pooled collection's bf16 count (CUDA cores, matched
-# to pool_writer.bf16); count_above.bf16 is the streaming one.
-COUNT_ABOVE_POOL = "count_above" + BF16 + ".pool"
-PAIRS = ("stream", "pooled")  # count_above's partner: fused_topk or the pool
+
+# The re-search's scores over a bf16 corpus (bf16 only).
+SCORES = "scores" + BF16
+# The kernels whose bf16 variant runs on the tensor cores (wgmma_gemm.cuh).
+TENSOR_CORE_KERNELS = RETRIEVAL_KERNELS + ("scores",)
 
 launches: Dict[str, int] = {
     **{name: 0 for name in RETRIEVAL_KERNELS}, "chamfer": 0,
-    **{name + BF16: 0 for name in RETRIEVAL_KERNELS}, COUNT_ABOVE_POOL: 0,
+    **{name + BF16: 0 for name in RETRIEVAL_KERNELS}, SCORES: 0,
 }
 
 
@@ -149,6 +151,12 @@ def count_above_plain(
     return out
 
 
+def scores_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """q·refs[j]ᵀ for j < n_valid, [M, n_valid] f32 (bf16 widened). Pad
+    columns of refs past q's width are left out."""
+    return torch.matmul(q.float(), refs[:n_valid, : q.shape[1]].float().T)
+
+
 def _first_max(s3: torch.Tensor, lanes: torch.Tensor):
     """(max, lowest lane holding it) over the last axis."""
     best = s3.amax(2)
@@ -162,14 +170,17 @@ def pool_writer_plain(
     """The winner pool: for every 128-column segment of q·refsᵀ, its best
     two entries (values best-first, then global column ids; ties to the
     lower column, columns ≥ n_valid at −inf). Returns ([M, N/128, 2] f32,
-    [M, N/128, 2] int32)."""
+    [M, N/128, 2] int32). The id of a −inf slot is unspecified (here a
+    column of its segment; the bf16 kernel writes 2³¹ − 1): only finite
+    slots carry a column. Pad columns of refs past q's width are left
+    out."""
     m, n = q.shape[0], refs.shape[0]
     n_seg = n // SEG_LANES
     vals = torch.empty((m, n_seg, SEG_KEEP), dtype=torch.float32, device=q.device)
     ids = torch.empty((m, n_seg, SEG_KEEP), dtype=torch.int32, device=q.device)
     lanes = torch.arange(SEG_LANES, dtype=torch.int16, device=q.device)
     seg_base = torch.arange(n_seg, dtype=torch.int32, device=q.device) * SEG_LANES
-    refs = refs.float()
+    refs = refs[:, : q.shape[1]].float()
     step = _row_chunk(n)
     for start in range(0, m, step):
         s = torch.matmul(q[start : start + step].float(), refs.T)
@@ -307,14 +318,6 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {rc})")
 
 
-def _variant(name: str, q: torch.Tensor) -> Tuple[str, str]:
-    """(launch-count key, C name) of kernel ``name`` for q's dtype: the
-    bf16 variant for bf16 operands."""
-    if q.dtype == torch.bfloat16:
-        return name + BF16, f"{name}_bf16"
-    return name, name
-
-
 # ---- the persistent schedule of row_max, count_above and fused_topk -------
 
 
@@ -409,6 +412,15 @@ def wgmma_grid(m: int, n_valid: int, slots: int) -> int:
     return min(slots, q_tiles * c_tiles)
 
 
+def pool_segments(n: int, n_valid: int) -> int:
+    """Segments [0, s) of an [M, n/128, 2] pool that pool_writer.bf16's
+    kernel writes: the two of each corpus tile its plan covers (the tiles
+    of ``wgmma_tiles``, up to n_valid), at most n/128 (with n/128 odd the
+    last tile's second segment lies past the pool). The wrapper fills the
+    rest, [s, n/128), at −inf: they hold no valid column."""
+    return min(2 * wgmma_tiles(1, n_valid)[1], n // SEG_LANES)
+
+
 def wgmma_corpus_passes(m: int, n_valid: int, grid: int,
                         group_size: int = WGMMA_GROUP) -> float:
     """Corpus tiles the blocks of a ``grid``-block launch fetch, over the
@@ -477,7 +489,7 @@ def _occupancy_slots(t: torch.Tensor, name: str, *args: int) -> int:
 
 
 def _reduce_slots(t: torch.Tensor, name: str, vec: int) -> int:
-    """Slots of a reduce_gemm.cuh kernel (e.g. ``count_above_bf16``) with
+    """Slots of a reduce_gemm.cuh kernel (e.g. ``count_above``) with
     16-byte copies if ``vec``."""
     return _occupancy_slots(t, name, vec)
 
@@ -485,7 +497,8 @@ def _reduce_slots(t: torch.Tensor, name: str, vec: int) -> int:
 def _wgmma_slots(t: torch.Tensor, name: str = "row_max_bf16", *args: int) -> int:
     """Slots of a kernel of the tensor-core product (wgmma_gemm.cuh), by
     its C name (``row_max_bf16``, ``count_above_bf16``,
-    ``fused_topk_bf16`` with its placement and κ)."""
+    ``pool_writer_bf16``, ``scores_bf16``, ``fused_topk_bf16`` with its
+    placement and κ)."""
     return _occupancy_slots(t, name, *args)
 
 
@@ -493,15 +506,12 @@ def _reduce_plan(name: str, q: torch.Tensor, refs: torch.Tensor,
                  n_valid: int) -> Tuple[int, int]:
     """(vec, grid) of a reduce_gemm.cuh launch of kernel ``name`` (its C
     name): 16-byte copies when a row is a whole number of 16-byte pieces
-    (D % 4 == 0 in f32, D % 8 == 0 in bf16) and both bases are 16-byte
-    aligned; 4-byte copies (f32) or 2-byte loads (bf16) otherwise. One
-    wave of blocks (0 when there is no work item)."""
+    (D % 4 == 0) and both bases are 16-byte aligned, 4-byte copies
+    otherwise. One wave of blocks (0 when there is no work item)."""
     m, d = q.shape
     if d == 0:
         raise ValueError(f"{name}: the kernel takes D >= 1")
-    per_16_bytes = 16 // q.element_size()
-    vec = int(d % per_16_bytes == 0 and q.data_ptr() % 16 == 0
-              and refs.data_ptr() % 16 == 0)
+    vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0 and refs.data_ptr() % 16 == 0)
     if n_valid == 0:
         return vec, 0
     return vec, reduce_grid(m, n_valid, _reduce_slots(q, name, vec))
@@ -548,19 +558,12 @@ def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
 
 
 def count_above(
-    q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int,
-    pair: str = "stream",
+    q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int
 ) -> torch.Tensor:
     """Exact per-row count of q·refsᵀ ≥ τ over the first ``n_valid``
-    columns, [M] int32, on the product of its partner kernel, ``pair``:
-    "stream" (fused_topk's) or "pooled" (pool_writer's). In f32 both are
-    the one f32 kernel; in bf16, "stream" is the tensor-core count
-    (``count_above.bf16``) and "pooled" the CUDA-core one
-    (``count_above.bf16.pool``). A bf16 ``refs`` may carry
-    ``pad_columns``' zero pad columns."""
+    columns, [M] int32. A bf16 ``refs`` may carry ``pad_columns``' zero
+    pad columns."""
     n_valid = int(n_valid)
-    if pair not in PAIRS:
-        raise ValueError(f"pair must be one of {PAIRS}, got {pair!r}")
     bf16 = q.dtype == torch.bfloat16
     _check(q, refs, n_valid, pad_ok=bf16)
     if q.device.type == "cpu":
@@ -573,29 +576,22 @@ def count_above(
     if bf16:
         if d == 0:
             raise ValueError("count_above_bf16: the kernel takes D >= 1")
-        if refs.shape[1] != d:  # padded refs: the queries take the same zeros
-            q = pad_columns(q)
-        if pair == "stream":
-            q, refs = pad_columns(q), pad_columns(refs)
-            grid = wgmma_grid(m, n_valid, _wgmma_slots(q, "count_above_bf16"))
-            rc = lib.vsc_count_above_bf16(
-                q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0],
-                q.shape[1], float(tau), n_valid, grid, out.data_ptr(), _stream(q),
-            )
-            _raise_on(rc, "count_above_bf16")
-            launches["count_above" + BF16] += 1
-            return out
-        cname, key = "count_above_bf16_pool", COUNT_ABOVE_POOL
-    else:
-        cname, key = "count_above", "count_above"
-    d = q.shape[1]
-    vec, grid = _reduce_plan(cname, q, refs, n_valid)
-    rc = getattr(lib, f"vsc_{cname}")(
+        q, refs = pad_columns(q), pad_columns(refs)
+        grid = wgmma_grid(m, n_valid, _wgmma_slots(q, "count_above_bf16"))
+        rc = lib.vsc_count_above_bf16(
+            q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0],
+            q.shape[1], float(tau), n_valid, grid, out.data_ptr(), _stream(q),
+        )
+        _raise_on(rc, "count_above_bf16")
+        launches["count_above" + BF16] += 1
+        return out
+    vec, grid = _reduce_plan("count_above", q, refs, n_valid)
+    rc = lib.vsc_count_above(
         q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0], d,
         float(tau), n_valid, vec, grid, out.data_ptr(), _stream(q),
     )
-    _raise_on(rc, cname)
-    launches[key] += 1
+    _raise_on(rc, "count_above")
+    launches["count_above"] += 1
     return out
 
 
@@ -603,9 +599,13 @@ def pool_writer(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused q·refsᵀ winner pool: best 2 per 128-column segment,
-    ([M, N/128, 2] f32, [M, N/128, 2] int32). N must be a multiple of 128."""
+    ([M, N/128, 2] f32, [M, N/128, 2] int32). N must be a multiple of 128.
+    A bf16 ``refs`` may carry ``pad_columns``' zero pad columns. The ids
+    of −inf slots are unspecified and differ between the f32 and bf16
+    kernels; a finite slot's id is its column, ties to the lower one."""
     n_valid = int(n_valid)
-    _check(q, refs, n_valid)
+    bf16 = q.dtype == torch.bfloat16
+    _check(q, refs, n_valid, pad_ok=bf16)
     n = refs.shape[0]
     if n % SEG_LANES:
         raise ValueError(f"refs rows ({n}) must be a multiple of {SEG_LANES}")
@@ -617,14 +617,60 @@ def pool_writer(
     ids = torch.empty(shape, dtype=torch.int32, device=q.device)
     if vals.numel() == 0:
         return vals, ids
-    key, cname = _variant("pool_writer", q)
-    rc = getattr(_build.library(), f"vsc_{cname}")(
+    lib = _build.library()
+    if bf16:
+        if d == 0:
+            raise ValueError("pool_writer_bf16: the kernel takes D >= 1")
+        q, refs = pad_columns(q), pad_columns(refs)
+        written = pool_segments(n, n_valid)
+        vals[:, written:] = float("-inf")
+        ids[:, written:] = 2**31 - 1
+        grid = wgmma_grid(m, n_valid, _wgmma_slots(q, "pool_writer_bf16"))
+        rc = lib.vsc_pool_writer_bf16(
+            q.device.index, q.data_ptr(), refs.data_ptr(), m, n, q.shape[1],
+            n_valid, grid, vals.data_ptr(), ids.data_ptr(), _stream(q),
+        )
+        _raise_on(rc, "pool_writer_bf16")
+        launches["pool_writer" + BF16] += 1
+        return vals, ids
+    rc = lib.vsc_pool_writer(
         q.device.index, q.data_ptr(), refs.data_ptr(), m, n, d, n_valid,
         vals.data_ptr(), ids.data_ptr(), _stream(q),
     )
-    _raise_on(rc, cname)
-    launches[key] += 1
+    _raise_on(rc, "pool_writer")
+    launches["pool_writer"] += 1
     return vals, ids
+
+
+def scores(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """q·refs[j]ᵀ for j < n_valid, [M, n_valid] f32, on the bf16 kernels'
+    product: for bf16 CUDA tensors the tensor-core kernel, whose scores
+    are those ``row_max``, ``count_above``, ``pool_writer`` and
+    ``fused_topk`` see, bit for bit. A bf16 ``refs`` may carry
+    ``pad_columns``' zero pad columns. f32 CUDA tensors raise: there the
+    searchers score with ``torch.matmul``."""
+    n_valid = int(n_valid)
+    bf16 = q.dtype == torch.bfloat16
+    _check(q, refs, n_valid, pad_ok=bf16)
+    if q.device.type == "cpu":
+        return scores_plain(q, refs, n_valid)
+    if not bf16:
+        raise TypeError("scores: the kernel takes bf16 operands")
+    m, d = q.shape
+    out = torch.empty((m, n_valid), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    if d == 0:
+        raise ValueError("scores_bf16: the kernel takes D >= 1")
+    q, refs = pad_columns(q), pad_columns(refs)
+    grid = wgmma_grid(m, n_valid, _wgmma_slots(q, "scores_bf16"))
+    rc = _build.library().vsc_scores_bf16(
+        q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0],
+        q.shape[1], n_valid, grid, out.data_ptr(), _stream(q),
+    )
+    _raise_on(rc, "scores_bf16")
+    launches[SCORES] += 1
+    return out
 
 
 def fused_topk(

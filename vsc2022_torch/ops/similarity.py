@@ -29,14 +29,16 @@ modes, routed as it routes them (``_collection_mode``):
      rows without that count prune.
 
 Both end in the exact global cut: score descending, ties by (q, r)
-ascending. Each collection's kernels share one tile product, so they see
-bit-identical scores: the stream's candidates and counts (over a bf16
-corpus: the tensor-core product, reading ``tensor_core_refs``), the
-pool and its count (the CUDA-core product; ``count_above``'s ``pair``
-argument names the partner). A re-searched row's scores come from
-``torch.matmul`` and can differ from the kernels' in the last bits, so
-that search collects down to a rounding margin below τ, wider where the
-tensor cores scored.
+ascending. The kernels of one dtype share one tile product, so both
+collections compare bit-identical scores: the stream's candidates with
+its counts, the pool with its count (f32: the CUDA cores' fmaf chain;
+bf16: the tensor-core product, where both collections pad the queries
+once and read ``tensor_core_refs``). A re-searched row's scores come from
+that product too over a bf16 corpus (``kernels.scores``), and from
+``torch.matmul`` over an f32 one; the search collects down to a rounding
+margin below τ, since the f32 re-search may differ from the kernels' in
+the last bits (over a bf16 corpus, where the re-search shares the
+kernels' product, the margin is only defensive).
 
 The corpus stages as the JAX searcher stages it: zero rows pad it to a
 multiple of ``min(COL_BLOCK, N rounded up to 128)``, so the routing sees
@@ -46,8 +48,9 @@ it on the device onto exactly the layout a fresh stage gives.
 ``dtype="bfloat16"`` stages the corpus, and every query, in bf16 rounded
 to nearest even (as ``ml_dtypes`` rounds for the JAX searcher): half the
 device memory and bytes moved. Scores are bf16 × bf16 products with f32
-accumulation, from the kernels' bf16 variants; the re-searches and
-``row_topk`` widen both sides to f32 before ``torch.matmul``.
+accumulation, from the kernels' bf16 variants, the re-searches' included
+(``kernels.scores``); ``row_topk`` widens both sides to f32 before
+``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -84,8 +87,8 @@ POOL_MIN_CORPUS = 1 << 18
 # Forces a collection mode: "pooled" (still streams when the pool is
 # infeasible) or "stream". The port's name for VSC2022_TPU_COLLECTION.
 COLLECTION_ENV = "VSC2022_TORCH_COLLECTION"
-# The re-search margin where the tensor cores scored, in units of the f32
-# one (``SimilaritySearcher._corpus_above`` derives it).
+# The re-search margin over a bf16 corpus (the tensor cores score), in
+# units of the f32 one (``SimilaritySearcher._corpus_above`` derives it).
 TENSOR_CORE_SLACK = 2.0
 
 
@@ -286,19 +289,17 @@ class SimilaritySearcher:
 
     @property
     def _tensor_cores(self) -> bool:
-        """Whether ``row_max`` and the streaming pair score on the tensor
-        cores (a bf16 corpus)."""
+        """Whether the kernels score on the tensor cores (a bf16 corpus)."""
         return self.torch_dtype == torch.bfloat16
 
     def tensor_core_refs(self) -> torch.Tensor:
-        """The staged corpus as ``row_max``, ``fused_topk`` and the
-        streaming ``count_above`` read it: an f32 corpus as staged; a bf16
-        one as the tensor-core product reads it, rows of a multiple of 8
-        values (``kernels.pad_columns``): the staged corpus itself when its
-        D is one (serving's D = 512 costs no memory), else a zero-padded
-        copy (the DnS corpus's D = 1025: 1,032 columns), made on first use
-        and kept until ``append_rows`` or ``keep_rows`` changes the corpus.
-        ``pool_writer`` and the pooled count read the staged corpus."""
+        """The staged corpus as the kernels read it: an f32 corpus as
+        staged; a bf16 one as the tensor-core product reads it, rows of a
+        multiple of 8 values (``kernels.pad_columns``): the staged corpus
+        itself when its D is one (serving's and SSCD's D = 512 cost no
+        memory), else a zero-padded copy (the DnS corpus's D = 1025: 1,032
+        columns), made on first use and kept until ``append_rows`` or
+        ``keep_rows`` changes the corpus."""
         if not self._tensor_cores:
             return self._refs
         if self._tc_copy is None:
@@ -339,43 +340,52 @@ class SimilaritySearcher:
             kappa = 1 << (kappa - 1).bit_length()  # next power of two
         return min(kappa, self.n_refs), min(k, nq * self.n_refs)
 
-    def _corpus_above(self, q_rows: torch.Tensor, tau: float,
-                      tensor_cores: bool = False):
-        """Every corpus entry ≥ τ of the given query rows, by a chunked
-        ``torch.matmul``: (scores, local row index, ref id).
+    def _corpus_above(self, q_rows: torch.Tensor, tau: float):
+        """Every corpus entry ≥ τ of the given query rows, chunked over the
+        rows: (scores, local row index, ref id).
 
-        τ and the counts come from the kernels' scores, and ``torch.matmul``
-        may round the same (q, r) product differently. Two f32 sums of D
-        products differ by at most 2·D·u·‖q‖·‖r‖ (u = 2⁻²⁴), so entries are
-        kept down to that margin below τ: no entry the kernels scored ≥ τ
-        is lost, and the exact final cut drops the surplus. A bf16 corpus
-        and its queries are widened to f32 first: a product of two bf16
-        values is exact in f32, in the kernels as here, so the two sums
-        differ only in how they add.
+        The scores: over a bf16 corpus the kernels' own product
+        (``kernels.scores``: the tensor cores on the card), as the JAX
+        searcher re-searches with its collection's block product, so a
+        re-searched pair scores as the kernels score it and both
+        collections, which re-search different rows, rank every pair
+        alike; over an f32 corpus ``torch.matmul``.
 
-        ``tensor_cores``: the kernels scored on the tensor cores (the
-        streaming pair over a bf16 corpus). They add the exact products in
-        blocks of n_b ≥ 2 (with the accumulator), each addend aligned to
-        the block's largest exponent and truncated to f32 precision: at
-        most 2u of that largest term per addend, so a block of sums of
-        magnitude ≤ Σ|qᵢrᵢ| errs by at most (n_b + 1)·2u·Σ|qᵢrᵢ| and the
-        D/n_b blocks by 2·(1 + 1/n_b)·D·u·Σ|qᵢrᵢ| ≤ 3·D·u·‖q‖·‖r‖.
-        ``torch.matmul``'s f32 sum errs by at most D·u·‖q‖·‖r‖, so the two
-        differ by at most 4·D·u·‖q‖·‖r‖: TENSOR_CORE_SLACK (2) times the
-        f32 margin. The wider margin costs only re-searched entries, which
-        the final cut drops.
+        The margin: τ and the counts come from the kernels' scores, and a
+        product that sums differently may round the same (q, r) product
+        differently, so entries are kept down to a margin below τ: no
+        entry the kernels scored ≥ τ is lost, and the exact final cut
+        drops the surplus. Two f32 sums of D exact products differ by at
+        most 2·D·u·‖q‖·‖r‖ (u = 2⁻²⁴): the f32 margin, which the f32
+        re-search needs. Over a bf16 corpus the re-search shares the
+        kernels' product bit for bit, so its margin is only defensive: it
+        takes TENSOR_CORE_SLACK (2) times the f32 one, what a re-search
+        by an f32 sum would need against the tensor cores (they add the
+        exact products in blocks, each addend truncated to the block's
+        largest exponent: at most 3·D·u·‖q‖·‖r‖ off the exact sum, 4·D·u
+        off an f32 one). It costs only re-searched entries, which the
+        final cut drops.
         """
-        refs = self._refs[: self.n_refs].float()
-        q_rows = q_rows.float()
+        if self._tensor_cores:
+            refs = self.tensor_core_refs()
+            q_rows = kernels.pad_columns(q_rows)
+
+            def score(rows):
+                return kernels.scores(rows, refs, self.n_refs)
+        else:
+            refs = self._refs[: self.n_refs]
+
+            def score(rows):
+                return torch.matmul(rows, refs.T)
         slack = self.dim * float(torch.finfo(torch.float32).eps) * self._ref_norm_max
-        if tensor_cores:
+        if self._tensor_cores:
             slack *= TENSOR_CORE_SLACK
         parts_s, parts_q, parts_r = [], [], []
         step = self._row_chunk()
         for start in range(0, q_rows.shape[0], step):
             rows = q_rows[start : start + step]
-            s = torch.matmul(rows, refs.T)
-            floor = tau - slack * rows.norm(dim=1, keepdim=True)
+            s = score(rows)
+            floor = tau - slack * rows.float().norm(dim=1, keepdim=True)
             rr, cc = torch.nonzero(s >= floor, as_tuple=True)
             parts_s.append(s[rr, cc])
             parts_q.append(rr + start)
@@ -454,6 +464,13 @@ class SimilaritySearcher:
         logger.info("global_topk k=%d: %s", k_eff, self.last_stats)
         return result
 
+    def _kernel_operands(self, q: torch.Tensor):
+        """(queries, corpus) as a collection hands them to its kernels: over
+        a bf16 corpus the queries padded once and ``tensor_core_refs``, so
+        that the candidates and the counts score on one product."""
+        refs = self.tensor_core_refs()
+        return (kernels.pad_columns(q) if self._tensor_cores else q), refs
+
     def _collect_stream(self, q: torch.Tensor, kappa: int, k_eff: int, clock):
         """The streaming collection: per-row top-κ candidates, τ, exact
         corpus counts for every row, and a corpus re-search of the rows
@@ -461,11 +478,7 @@ class SimilaritySearcher:
         (scores, query rows, ref ids) holding every entry that can make
         the cut, and the stats."""
         nq = q.shape[0]
-        # The candidates and the counts score on one product: over a bf16
-        # corpus the tensor cores, reading the padded copy with the queries
-        # padded once for both.
-        refs = self.tensor_core_refs()
-        q_k = kernels.pad_columns(q) if self._tensor_cores else q
+        q_k, refs = self._kernel_operands(q)
         top_s, top_i = kernels.fused_topk(q_k, refs, self.n_refs, kappa)
         clock.mark("candidates")
         # τ is the global k-th candidate; with k beyond the rows' κ
@@ -474,8 +487,7 @@ class SimilaritySearcher:
             tau = NEG_INF
         else:
             tau = float(torch.topk(top_s.reshape(-1), k_eff).values[-1])
-        counts = kernels.count_above(q_k, refs, tau, self.n_refs,
-                                     pair="stream").long()
+        counts = kernels.count_above(q_k, refs, tau, self.n_refs).long()
         above = (top_s >= tau) & torch.isfinite(top_s)
         kept = above.sum(1)
         # counts are exact corpus counts, so kept ≠ count flags exactly
@@ -488,8 +500,7 @@ class SimilaritySearcher:
         parts_s, parts_q, parts_r = [top_s[kq, kc]], [kq], [top_i[kq, kc].long()]
         corpus_rows = torch.nonzero(deficient, as_tuple=True)[0]
         if corpus_rows.numel():
-            cs, cq, cr = self._corpus_above(q[corpus_rows], tau,
-                                            tensor_cores=self._tensor_cores)
+            cs, cq, cr = self._corpus_above(q[corpus_rows], tau)
             parts_s.append(cs)
             parts_q.append(corpus_rows[cq])
             parts_r.append(cr)
@@ -500,7 +511,8 @@ class SimilaritySearcher:
         """The pooled collection (module docstring, steps 1-4); returns
         what ``_collect_stream`` returns."""
         nq = q.shape[0]
-        pv, pi = kernels.pool_writer(q, self._refs, self.n_refs)
+        q_k, refs = self._kernel_operands(q)
+        pv, pi = kernels.pool_writer(q_k, refs, self.n_refs)
         pv = pv.view(nq, -1)  # [nq, P]: slot pairs adjacent per segment
         pi = pi.view(nq, -1)
         n_valid_pool = int((pv > NEG_INF).sum())
@@ -528,9 +540,8 @@ class SimilaritySearcher:
         corpus_rows = torch.empty(0, dtype=torch.long, device=q.device)
         amb_rows = torch.nonzero(ambiguous, as_tuple=True)[0]
         if amb_rows.numel():
-            totals = kernels.count_above(
-                q[amb_rows], self._refs, tau, self.n_refs, pair="pooled"
-            ).long()
+            totals = kernels.count_above(q_k[amb_rows], refs, tau,
+                                         self.n_refs).long()
             complete = totals == kept[amb_rows]
             hidden = totals > pool_counts[amb_rows]
             pool_repair[amb_rows[~complete & ~hidden]] = True
