@@ -51,11 +51,24 @@ Phases (any failure exits non-zero):
      collections) and the DnS bf16 search (6b, in process). Each
      is timed beside the f32 kernel on the widened inputs. Their bound
      takes the bf16 tensor-core peak, their library call a cuBLAS bf16
-     product.
+     product (scores.bf16's: bf16 in, f32 out, where torch has it).
+     The int8 (SQ8) variants of all five (f32 queries, int8 codes and
+     per-row scales), first at small ragged shapes (D = 511, 512, 1025),
+     then on the int8 paths' inputs (4c; 6c, its forced pooled search
+     too; the DnS int8 search in process): exact against their plain
+     versions on integer queries with power-of-two scales, within
+     FLOAT_ATOL on floats, bit for bit against each other (pool_identity:
+     the pool's best winner is row_max.int8, its winners ordered
+     fused_topk.int8's, its segments scores.int8's best 2, count_above.int8
+     its count, also on the ambiguous rows alone) and, with every scale 1,
+     against the f32 kernel on the widened codes. Each is timed beside the
+     f32 kernel on the widened codes; the bound takes the f32 peak, the
+     library call cuBLAS f32 over the widened codes, times the scales.
   3. global_topk against a dense brute-force oracle at
      1,000 x 100,000 x 512, forced to each collection mode (stream, the
-     default at this size, and pooled), over an f32 and a bf16 corpus
-     (the oracle: the widened bf16 inputs): identical on integer-valued
+     default at this size, and pooled), over an f32, a bf16 and an int8
+     corpus (the oracle: the widened bf16 inputs; cuBLAS over the widened
+     codes times the scales, the dequantized corpus): identical on integer-valued
      inputs, and on unit-norm floats all k pairs, with the oracle's scores
      within the stated tolerance.
   4. The main path, through the sscd_baseline entry point with
@@ -72,6 +85,11 @@ Phases (any failure exits non-zero):
      the pool's own operands) and scores.bf16 (the re-searched rows) must
      launch, and no f32 kernel.
      Stage seconds, last_stats and quality are logged beside phase 4's.
+ 4c. The same two entry points with --int8: both corpora as int8 codes
+     and per-row scales, the queries f32; row_max.int8, pool_writer.int8,
+     count_above.int8 (over the pool's own operands) and scores.int8 must
+     launch, and no other kernel; every searched corpus holds its codes
+     and scales only (staged bytes logged beside the f32 corpus's).
   5. The DnS track, through its entry points: dns_index for the coarse
      student with --score_norm_features, dns_index for the fine attention
      student, then dns_baseline with --ground_truth, on raw L3-iMAC rows
@@ -121,6 +139,14 @@ Phases (any failure exits non-zero):
      widened rows); its quality is logged. Its search, repeated in process
      on phase 5's inputs rounded to bf16 in both collection modes, gives
      the same arrays either way and re-searches as the server did.
+ 6c. The same server with --int8 (search and noise corpora as SQ8 codes,
+     localizer tables bf16), requests (a)-(h): stats says int8, the
+     snapshot restart answers (g) byte for byte, the candidates equal an
+     in-process ScoreNormalizedVideoIndex(dtype="int8"), pooled equals
+     stream (scores included), and only int8 kernels launch; then one DnS
+     two-file request with the 1,025-wide coarse corpus in int8 (1,040
+     columns of codes), its quality logged, and its search repeated in
+     process on phase 5's inputs in both collection modes.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object with each kernel's numbers, and {"ok": true, "device": ...}.
@@ -218,6 +244,13 @@ BF16 = ".bf16"
 SSCD_BF16_KERNELS = tuple(k + BF16 for k in SSCD_KERNELS) + ("scores" + BF16,)
 SERVE_BF16_KERNELS = tuple(k + BF16 for k in SERVE_KERNELS)
 DNS_SERVE_BF16_KERNELS = ("fused_topk.bf16", "count_above.bf16", "chamfer")
+# And in int8 (SQ8: sscd_baseline --int8, serve --int8): the int8 variants,
+# the re-search's scores.int8 included; the DnS server's chamfer stays f32
+# (its tables are bf16, widened).
+INT8 = ".int8"
+SSCD_INT8_KERNELS = tuple(k + INT8 for k in SSCD_KERNELS) + ("scores" + INT8,)
+SERVE_INT8_KERNELS = tuple(k + INT8 for k in SERVE_KERNELS)
+DNS_SERVE_INT8_KERNELS = ("fused_topk.int8", "count_above.int8", "chamfer")
 
 
 def log(msg: str) -> None:
@@ -251,13 +284,19 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(m: int, n_valid: int, n: int, d: int, out_bytes: int, bf16: bool = False):
+def bound(m: int, n_valid: int, n: int, d: int, out_bytes: int, bf16: bool = False,
+          int8: bool = False):
     """Least time for the work: max(flops / peak, bytes / HBM peak), each
     input read once and each output written once. f32 operands: the f32
     CUDA-core peak; bf16 operands (2 bytes each): the bf16 tensor-core
-    peak, the least time the card could take for bf16 products."""
+    peak, the least time the card could take for bf16 products. int8
+    codes (1 byte a value, 4 bytes of scale a row) against f32 queries:
+    the f32 peak (the products are f32: the queries are not quantized)."""
     flops = 2.0 * m * n_valid * d
-    moved = (2.0 if bf16 else 4.0) * (m * d + n * d) + out_bytes
+    if int8:
+        moved = 4.0 * m * d + (d + 4.0) * n + out_bytes
+    else:
+        moved = (2.0 if bf16 else 4.0) * (m * d + n * d) + out_bytes
     t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
     t_bytes = moved / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -270,19 +309,35 @@ def _lib_chunk(n: int) -> int:
     return max(1, (1 << 30) // max(n, 1))
 
 
-def row_max_library(torch, q, refs, n_valid):
-    r = refs[:n_valid, :q.shape[1]]  # without row_max.bf16's pad columns
+def _lib_operands(q, refs, scale):
+    """The library's operands: int8 codes (those with a ``scale``) widened
+    to f32 (in the timed call: the library path has no int8 x f32
+    product), without pad columns past q's width."""
+    r = refs[:, :q.shape[1]]
+    return r.float() if scale is not None else r
+
+
+def _lib_scores(torch, q, r, scale, n):
+    """One cuBLAS product of a query chunk, times the scales of an int8
+    corpus's first ``n`` rows."""
+    s = torch.matmul(q, r.T)
+    return s if scale is None else s * scale[:n]
+
+
+def row_max_library(torch, q, refs, n_valid, scale=None):
+    r = _lib_operands(q, refs[:n_valid], scale)
     step = _lib_chunk(n_valid)
     return torch.cat([
-        torch.matmul(q[s:s + step], r.T).amax(1) for s in range(0, q.shape[0], step)
+        _lib_scores(torch, q[s:s + step], r, scale, n_valid).amax(1)
+        for s in range(0, q.shape[0], step)
     ])
 
 
-def count_above_library(torch, q, refs, tau, n_valid):
-    r = refs[:n_valid]
+def count_above_library(torch, q, refs, tau, n_valid, scale=None):
+    r = _lib_operands(q, refs[:n_valid], scale)
     step = _lib_chunk(n_valid)
     return torch.cat([
-        (torch.matmul(q[s:s + step], r.T) >= tau).sum(1)
+        (_lib_scores(torch, q[s:s + step], r, scale, n_valid) >= tau).sum(1)
         for s in range(0, q.shape[0], step)
     ])
 
@@ -299,29 +354,45 @@ def chamfer_library(torch, qf, rf, symmetric):
     return fg
 
 
-def pool_library(torch, q, refs, n_valid):
+def pool_library(torch, q, refs, n_valid, scale=None):
     n = refs.shape[0]
+    r = _lib_operands(q, refs, scale)
     step = _lib_chunk(n)
     outs = []
     for s in range(0, q.shape[0], step):
-        sc = torch.matmul(q[s:s + step], refs.T)
+        sc = _lib_scores(torch, q[s:s + step], r, scale, n)
         sc[:, n_valid:] = float("-inf")
         outs.append(torch.topk(sc.view(sc.shape[0], -1, 128), 2, dim=2).values)
     return torch.cat(outs)
 
 
-def topk_library(torch, q, refs, n_valid, kappa):
+def topk_library(torch, q, refs, n_valid, kappa, scale=None):
     """Chunked torch.matmul, per-segment topk(2), then topk(κ) per row."""
     n = refs.shape[0]
+    r = _lib_operands(q, refs, scale)
     step = _lib_chunk(n)
     outs = []
     for s in range(0, q.shape[0], step):
-        sc = torch.matmul(q[s:s + step], refs.T)
+        sc = _lib_scores(torch, q[s:s + step], r, scale, n)
         sc[:, n_valid:] = float("-inf")
         seg = torch.topk(sc.view(sc.shape[0], -1, 128), 2, dim=2).values
         seg = seg.reshape(sc.shape[0], -1)
         outs.append(torch.topk(seg, min(kappa, seg.shape[1]), dim=1).values)
     return torch.cat(outs)
+
+
+def scores_library_f32(torch, q, refs, n_valid):
+    """Milliseconds of one bf16 product with f32 output (``torch.mm`` with
+    ``out_dtype``, the same function as scores.bf16), or None where this
+    torch has no such call on the card (logged)."""
+    r = refs[:n_valid, :q.shape[1]]
+    try:
+        torch.mm(q[:1], r[:1].T, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        log(f"phase 2: torch {torch.__version__} has no bf16 product with f32 "
+            f"output on the card ({type(e).__name__}: {str(e).splitlines()[0][:120]})")
+        return None
+    return cuda_ms(torch, lambda: torch.mm(q, r.T, out_dtype=torch.float32), 1)
 
 
 # ---- phase 2: kernels against their plain versions -------------------------
@@ -341,9 +412,10 @@ def make_inputs(torch, kind, m, n, d, seed, dev):
     return q, r
 
 
-def compare_row_max(torch, kernels, q, r, n_valid, kind):
-    got = kernels.row_max(q, r, n_valid)
-    want = kernels.row_max_plain(q, r, n_valid)
+def compare_row_max(torch, kernels, q, r, n_valid, kind, **kw):
+    """``kw``: an int8 corpus's ``scale`` (as for every compare_*)."""
+    got = kernels.row_max(q, r, n_valid, **kw)
+    want = kernels.row_max_plain(q, r, n_valid, **kw)
     finite = torch.isfinite(want)
     check(torch.equal(torch.isfinite(got), finite), "row_max: -inf rows differ")
     err = float((got[finite] - want[finite]).abs().max()) if finite.any() else 0.0
@@ -354,9 +426,9 @@ def compare_row_max(torch, kernels, q, r, n_valid, kind):
     return err
 
 
-def compare_count_above(torch, kernels, q, r, tau, n_valid, kind):
-    got = kernels.count_above(q, r, tau, n_valid)
-    want = kernels.count_above_plain(q, r, tau, n_valid)
+def compare_count_above(torch, kernels, q, r, tau, n_valid, kind, **kw):
+    got = kernels.count_above(q, r, tau, n_valid, **kw)
+    want = kernels.count_above_plain(q, r, tau, n_valid, **kw)
     err = float((got - want).abs().max()) if got.numel() else 0.0
     # Floats: a score within an ULP of τ may count on one side only.
     tol = 0.0 if kind == "int" else 2.0
@@ -364,27 +436,29 @@ def compare_count_above(torch, kernels, q, r, tau, n_valid, kind):
     return err
 
 
-def compare_scores(torch, kernels, q, r, n_valid, kind):
-    """scores.bf16 against its plain version: exact on integers, within
-    BF16_TC_ATOL on floats. Returns the largest error."""
-    got = kernels.scores(q, r, n_valid)
-    want = kernels.scores_plain(q, r, n_valid)
+def compare_scores(torch, kernels, q, r, n_valid, kind, **kw):
+    """scores.bf16 (scores.int8) against its plain version: exact on
+    integers, within BF16_TC_ATOL (FLOAT_ATOL) on floats. Returns the
+    largest error."""
+    got = kernels.scores(q, r, n_valid, **kw)
+    want = kernels.scores_plain(q, r, n_valid, **kw)
     err = float((got - want).abs().max()) if got.numel() else 0.0
-    tol = 0.0 if kind == "int" else BF16_TC_ATOL
+    tol = 0.0 if kind == "int" else (
+        BF16_TC_ATOL if q.dtype == torch.bfloat16 else FLOAT_ATOL)
     check(err <= tol, f"scores {kind} [{q.shape[0]}x{n_valid}x{q.shape[1]}]: max abs "
           f"err {err} > {tol}")
     return err
 
 
-def compare_pool(torch, kernels, q, r, n_valid, kind, check_ids_dense=False):
+def compare_pool(torch, kernels, q, r, n_valid, kind, check_ids_dense=False, **kw):
     """Integers: the kernel's pool equals the plain version's exactly (ids
     wherever the value is finite). Floats: the -inf slots agree, every
     value lies within the tolerance (bf16: BF16_TC_ATOL) of the plain
     version's, and the ids agree wherever no winner lies within twice that
     of its runner-up (``check_ids_dense``: also every id's plain score is
     within the tolerance of its value). Returns the largest value error."""
-    pv, pi = kernels.pool_writer(q, r, n_valid)
-    ev, ei = kernels.pool_writer_plain(q, r, n_valid)
+    pv, pi = kernels.pool_writer(q, r, n_valid, **kw)
+    ev, ei = kernels.pool_writer_plain(q, r, n_valid, **kw)
     finite = torch.isfinite(ev)
     check(bool((torch.isfinite(pv) == finite).all()), "pool_writer: -inf slots differ")
     err = float((pv[finite] - ev[finite]).abs().max()) if finite.any() else 0.0
@@ -396,7 +470,7 @@ def compare_pool(torch, kernels, q, r, n_valid, kind, check_ids_dense=False):
         return err
     tol = BF16_TC_ATOL if q.dtype == torch.bfloat16 else FLOAT_ATOL
     check(err <= tol, f"pool_writer float {shape}: value err {err} > {tol}")
-    top3, _ = plain_segments(torch, q, r, n_valid)
+    top3, _ = plain_segments(torch, q, r, n_valid, **kw)
     first = top3[:, :, 0] - top3[:, :, 1] > 2 * tol
     second = first & (top3[:, :, 1] - top3[:, :, 2] > 2 * tol)
     del top3
@@ -406,6 +480,8 @@ def compare_pool(torch, kernels, q, r, n_valid, kind, check_ids_dense=False):
           "winners lie apart")
     if check_ids_dense:
         scores = torch.matmul(q.float(), r[:, :q.shape[1]].float().T)
+        if kw:
+            scores *= kw["scale"]
         rows = torch.arange(q.shape[0], device=q.device)[:, None, None].expand_as(pi)
         at = scores[rows[finite], pi[finite].long()]
         id_err = float((at - pv[finite]).abs().max())
@@ -414,11 +490,12 @@ def compare_pool(torch, kernels, q, r, n_valid, kind, check_ids_dense=False):
     return err
 
 
-def plain_segments(torch, q, r, n_valid, ids=None):
-    """The plain scores (the widened f32 product, columns >= n_valid at
-    -inf) per row: the best three of each 128-column segment, [M, N/128,
-    3]; with ``ids`` [M, K], also the scores at those columns. Chunked over
-    rows; r may carry pad columns past q's width."""
+def plain_segments(torch, q, r, n_valid, ids=None, scale=None):
+    """The plain scores (the widened f32 product, times an int8 corpus's
+    ``scale``, columns >= n_valid at -inf) per row: the best three of each
+    128-column segment, [M, N/128, 3]; with ``ids`` [M, K], also the
+    scores at those columns. Chunked over rows; r may carry pad columns
+    past q's width."""
     m, d = q.shape
     rr = r[:, :d].float()
     pad = -rr.shape[0] % 128
@@ -426,6 +503,8 @@ def plain_segments(torch, q, r, n_valid, ids=None):
     top3, at = [], []
     for s0 in range(0, m, step):
         sc = torch.matmul(q[s0:s0 + step].float(), rr.T)
+        if scale is not None:
+            sc *= scale
         sc[:, n_valid:] = float("-inf")
         if ids is not None:
             at.append(sc.gather(1, ids[s0:s0 + step].long()))
@@ -436,19 +515,24 @@ def plain_segments(torch, q, r, n_valid, ids=None):
     return torch.cat(top3), (torch.cat(at) if ids is not None else None)
 
 
-def compare_topk(torch, kernels, q, r, n_valid, kappa, kind):
+def compare_topk(torch, kernels, q, r, n_valid, kappa, kind, **kw):
     """Integers: the kernel equals the plain version exactly (values, ids
-    and order). f32 floats: the kernel's ids equal those of the pool_writer
-    kernel's winners ordered best-first, and its values are bit-identical
-    to pool_writer's at the same (row, id); 0 is returned as the error.
-    bf16 floats (the tensor cores): compare_topk_tc."""
+    and order). f32 and int8 floats: the kernel's ids equal those of the
+    pool_writer kernel's winners ordered best-first, and its values are
+    bit-identical to pool_writer's at the same (row, id); 0 is returned as
+    the error. bf16 floats (the tensor cores): compare_topk_tc."""
     if kind == "float" and q.dtype == torch.bfloat16:
         return compare_topk_tc(torch, kernels, q, r, n_valid, kappa)
-    got_v, got_i = kernels.fused_topk(q, r, n_valid, kappa)
+    got_v, got_i = kernels.fused_topk(q, r, n_valid, kappa, **kw)
     if kind == "int":
-        want_v, want_i = kernels.fused_topk_plain(q, r, n_valid, kappa)
+        want_v, want_i = kernels.fused_topk_plain(q, r, n_valid, kappa, **kw)
     else:
-        pv, pi = kernels.pool_writer(q, r, n_valid)
+        if r.shape[0] % 128:  # the pool takes whole segments
+            pad = 128 - r.shape[0] % 128
+            r = torch.cat([r, r.new_zeros((pad, r.shape[1]))])
+            if kw:
+                kw = {"scale": torch.cat([kw["scale"], kw["scale"].new_zeros(pad)])}
+        pv, pi = kernels.pool_writer(q, r, n_valid, **kw)
         want_v, want_i = kernels.ordered_topk(pv.view(q.shape[0], -1),
                                               pi.view(q.shape[0], -1), kappa)
         del pv, pi
@@ -530,12 +614,14 @@ def stream_pair_identity(torch, kernels, q, r, n_valid, kappa, label):
         f"{int(clean.sum())} clean rows, >= on the {int((~clean).sum())} others")
 
 
-def pool_identity(torch, kernels, q, r, n_valid, label, kappa=32):
-    """The other kernels of q's dtype against the pool_writer kernel on the
-    same float inputs, bit for bit, as the searcher hands them over (bf16:
-    the queries and r padded to a multiple of 8 columns): the row max is
-    the pool's best winner; fused_topk is the pool's winners ordered
-    (bf16; the f32 kernels are held so by compare_topk); and with tau the
+def pool_identity(torch, kernels, q, r, n_valid, label, kappa=32, **kw):
+    """The other kernels of the operands' dtype against the pool_writer
+    kernel on the same float inputs, bit for bit, as the searcher hands
+    them over (bf16: the queries and r padded to a multiple of 8 columns;
+    int8: codes r with their ``scale`` in ``kw``): the row max is the
+    pool's best winner; fused_topk is the pool's winners ordered and each
+    segment's best 2 of scores are the pool (bf16 and int8; the f32
+    kernels are held so by compare_topk); and with tau the
     global k-th pool value, k = K_PER_ROW per query row (as the pooled
     collection takes it), the count equals the pool count >= tau on every
     row with amb == 0 (no segment holding two entries >= tau), is no
@@ -545,35 +631,39 @@ def pool_identity(torch, kernels, q, r, n_valid, label, kappa=32):
     m, d = q.shape
     k = K_PER_ROW * m
     if r.shape[0] % 128:
-        r = torch.cat([r, r.new_zeros((128 - r.shape[0] % 128, r.shape[1]))])
-    bf16 = q.dtype == torch.bfloat16
+        pad = 128 - r.shape[0] % 128
+        r = torch.cat([r, r.new_zeros((pad, r.shape[1]))])
+        if kw:
+            kw = {"scale": torch.cat([kw["scale"], kw["scale"].new_zeros(pad)])}
+    bf16, int8 = q.dtype == torch.bfloat16, r.dtype == torch.int8
     if bf16:
         q, r = kernels.pad_columns(q), kernels.pad_columns(r)
-    pv, pi = kernels.pool_writer(q, r, n_valid)
+    pv, pi = kernels.pool_writer(q, r, n_valid, **kw)
     best = pv.view(m, -1).amax(1)
-    got = kernels.row_max(q, r, n_valid)
+    got = kernels.row_max(q, r, n_valid, **kw)
     check(torch.equal(got.view(torch.int32), best.view(torch.int32)),
           f"{label}: row_max differs from pool_writer's best winner "
           f"on {int((got != best).sum())} rows")
-    if bf16:
+    suffix = BF16 if bf16 else INT8 if int8 else ""
+    if bf16 or int8:
         want = kernels.ordered_topk(pv.view(m, -1), pi.view(m, -1), kappa)
-        top = kernels.fused_topk(q, r, n_valid, kappa)
+        top = kernels.fused_topk(q, r, n_valid, kappa, **kw)
         check(all(torch.equal(a, b) for a, b in zip(top, want)),
-              f"{label}: fused_topk.bf16 (kappa {kappa}) differs from the pool's "
+              f"{label}: fused_topk{suffix} (kappa {kappa}) differs from the pool's "
               "winners ordered")
         del want, top
         # The re-search's scores of the first rows: each segment's best 2
         # values are the pool's, and the pool's ids score its values.
         h = min(m, SCORES_ROWS)
         sc = torch.full((h, r.shape[0]), float("-inf"), device=q.device)
-        sc[:, :n_valid] = kernels.scores(q[:h], r, n_valid)
+        sc[:, :n_valid] = kernels.scores(q[:h], r, n_valid, **kw)
         best2 = torch.topk(sc.view(h, -1, 128), 2, dim=2).values
         ids = pi[:h].view(h, -1).long().clamp(max=r.shape[0] - 1)  # -inf slots
         at = sc.gather(1, ids).view(h, -1, 2)
         finite = torch.isfinite(pv[:h])
         check(torch.equal(best2.view(torch.int32), pv[:h].view(torch.int32))
               and torch.equal(at[finite].view(torch.int32), pv[:h][finite].view(torch.int32)),
-              f"{label}: scores.bf16 of the first {h} rows differ from the pool")
+              f"{label}: scores{suffix} of the first {h} rows differ from the pool")
         del sc, best2, ids, at
     del pi
     finite = int(torch.isfinite(pv).sum())
@@ -582,7 +672,7 @@ def pool_identity(torch, kernels, q, r, n_valid, label, kappa=32):
     pool_counts = above.view(m, -1).sum(1)
     amb = above.all(2).sum(1)
     del pv, above
-    counts = kernels.count_above(q, r, tau, n_valid).long()
+    counts = kernels.count_above(q, r, tau, n_valid, **kw).long()
     clean = amb == 0
     check(torch.equal(counts[clean], pool_counts[clean]),
           f"{label}: count_above differs from the pool count on "
@@ -591,16 +681,15 @@ def pool_identity(torch, kernels, q, r, n_valid, label, kappa=32):
           f"{label}: count_above below the pool count")
     amb_rows = torch.nonzero(~clean, as_tuple=True)[0]
     if amb_rows.numel():
-        sub = kernels.count_above(q[amb_rows], r, tau, n_valid).long()
+        sub = kernels.count_above(q[amb_rows], r, tau, n_valid, **kw).long()
         check(torch.equal(sub, counts[amb_rows]),
               f"{label}: count_above on the {amb_rows.numel()} rows with amb > 0 "
               "alone differs from the full call's")
-    suffix = BF16 if bf16 else ""
     log(f"phase 2: {label} [{m} x {n_valid} x {d}]: row_max{suffix} == "
         f"pool_writer{suffix}'s best winner bit for bit on all {m} rows"
         + (f"; fused_topk{suffix} == its winners ordered (kappa {kappa}); the "
            f"segments' best 2 of scores{suffix} == the pool on the first "
-           f"{min(m, SCORES_ROWS)} rows" if bf16 else "")
+           f"{min(m, SCORES_ROWS)} rows" if bf16 or int8 else "")
         + f"; tau {tau!r} (k = {k}): count_above{suffix} == pool count on "
         f"{int(clean.sum())} rows with amb == 0, >= on the {amb_rows.numel()} "
         "others, and on those rows alone == the full call's")
@@ -672,8 +761,121 @@ def phase_kernels_bf16_small(torch, kernels, dev):
 
 
 def kernel_key(torch, name, args):
-    """The launch-count key of a wrapper call: <name>[.bf16]."""
+    """The launch-count key of a wrapper call: <name>[.bf16|.int8]."""
+    if args[1].dtype == torch.int8:
+        return name + INT8
     return name + (BF16 if args[0].dtype == torch.bfloat16 else "")
+
+
+def int8_rows(torch, kind, n, d, seed, dev):
+    """int8 codes [n, padded_width(d, 16)] (zero pad columns, as the
+    searchers stage them) and scales [n] on the card: integer codes with
+    power-of-two scales (every score of integer queries exact), or the
+    quantized unit-norm rows (quantize_rows_int8)."""
+    import numpy as np
+
+    from vsc2022_torch.ops import kernels
+    from vsc2022_torch.ops.similarity import quantize_rows_int8
+
+    rng = np.random.default_rng(seed)
+    codes = np.zeros((n, kernels.padded_width(d, kernels.I8_ROW_ALIGN)), np.int8)
+    if kind == "int":
+        codes[:, :d] = rng.integers(-127, 128, (n, d))
+        scale = (2.0 ** -rng.integers(0, 8, n)).astype(np.float32)
+    else:
+        x = rng.standard_normal((n, d), dtype=np.float32)
+        codes[:, :d], scale = quantize_rows_int8(x / np.linalg.norm(x, axis=1,
+                                                                   keepdims=True))
+    return torch.from_numpy(codes).to(dev), torch.from_numpy(scale).to(dev)
+
+
+def int8_int_queries(torch, m, d, seed, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randint(-3, 4, (m, d), generator=g, device=dev).float()
+
+
+def unit_scale_identity(torch, kernels, name, args, label):
+    """An int8 kernel on a path's codes with every scale 1 against its f32
+    kernel on the widened codes, bit for bit (the same fmaf chain)."""
+    q, codes = args[0], args[1]
+    d = q.shape[1]
+    kw = {"scale": torch.ones(codes.shape[0], device=codes.device)}
+    wide = codes[:, :d].float().contiguous()
+    if name == "row_max":
+        n_valid = int(args[2])
+        a, b = kernels.row_max(q, codes, n_valid, **kw), kernels.row_max(q, wide, n_valid)
+    elif name == "count_above":
+        tau, n_valid = float(args[2]), int(args[3])
+        a = kernels.count_above(q, codes, tau, n_valid, **kw)
+        b = kernels.count_above(q, wide, tau, n_valid)
+    elif name == "fused_topk":
+        n_valid, kappa = int(args[2]), int(args[3])
+        a = torch.cat(kernels.fused_topk(q, codes, n_valid, kappa, **kw), 1)
+        b = torch.cat(kernels.fused_topk(q, wide, n_valid, kappa), 1)
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    elif name == "pool_writer":
+        n_valid = int(args[2])
+        (av, ai), (bv, bi) = (kernels.pool_writer(q, codes, n_valid, **kw),
+                              kernels.pool_writer(q, wide, n_valid))
+        finite = torch.isfinite(bv)
+        a = torch.cat([av.view(torch.int32).reshape(-1), ai[finite]])
+        b = torch.cat([bv.view(torch.int32).reshape(-1), bi[finite]])
+    else:  # scores: the f32 kernel's scores are its pool's; held by pool_identity
+        return
+    check(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                      b.view(torch.int32) if b.dtype == torch.float32 else b),
+          f"{label}: {name}.int8 with unit scales differs from the f32 kernel on "
+          "the widened codes")
+    log(f"phase 2: {label}: {name}.int8 with unit scales == the f32 {name} on "
+        f"the widened codes, bit for bit [{q.shape[0]} x {codes.shape[0]} x {d}]")
+
+
+def phase_kernels_int8_small(torch, kernels, dev):
+    """The int8 variants at small ragged shapes, D in {511, 512, 1025}:
+    exact against their plain versions on integer queries and power-of-two
+    scales; on quantized unit rows within FLOAT_ATOL of their plain
+    versions, bit for bit against each other (pool_identity) and, with
+    unit scales, against their f32 kernels. Returns the largest float
+    error."""
+    err = 0.0
+    m, n, n_valid = 150, 5120, 4990
+    for d in (511, 512, 1025):
+        label = f"int8 D={d}"
+        for kind in ("int", "float"):
+            codes, scale = int8_rows(torch, kind, n, d, 30 + d, dev)
+            codes[n_valid + 10:], scale[n_valid + 10:] = 0, 0.0
+            codes[8:14], scale[8:14] = codes[7], scale[7]  # ties in segment 0
+            if kind == "int":
+                q = int8_int_queries(torch, m, d, 31 + d, dev)
+            else:
+                q, _ = make_inputs(torch, "float", m, 1, d, 31 + d, dev)
+            kw = {"scale": scale}
+            if kind == "int":
+                compare_row_max(torch, kernels, q, codes, n_valid, "int", **kw)
+                for tau in (40.0, float("-inf")):
+                    compare_count_above(torch, kernels, q, codes, tau, n_valid, "int", **kw)
+                compare_pool(torch, kernels, q, codes, n_valid, "int", **kw)
+                for kappa in (7, 32, 300):
+                    compare_topk(torch, kernels, q, codes, n_valid, kappa, "int", **kw)
+                compare_scores(torch, kernels, q, codes, n_valid, "int", **kw)
+                continue
+            err = max(err, compare_row_max(torch, kernels, q, codes, n_valid, "float", **kw),
+                      compare_pool(torch, kernels, q, codes, n_valid, "float",
+                                   check_ids_dense=True, **kw),
+                      compare_scores(torch, kernels, q, codes, n_valid, "float", **kw))
+            compare_topk(torch, kernels, q, codes, n_valid, 32, "float", **kw)
+            pool_identity(torch, kernels, q, codes, n_valid, label, **kw)
+            for name, args in (("row_max", (q, codes, n_valid)),
+                               ("count_above", (q, codes, 0.3, n_valid)),
+                               ("fused_topk", (q, codes, n_valid, 32)),
+                               ("pool_writer", (q, codes, n_valid))):
+                unit_scale_identity(torch, kernels, name, args, label)
+    log("phase 2: int8 variants at small shapes: exact on integers; on floats "
+        f"within {err} of their plain versions (tolerance {FLOAT_ATOL}), bit for "
+        "bit against each other and, with unit scales, against the f32 kernels, "
+        "at D = 511, 512, 1025")
+    return err
 
 
 def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
@@ -692,69 +894,84 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
         if name == "chamfer":
             continue
         q, r = args[0], args[1]
-        bf16 = q.dtype == torch.bfloat16
+        bf16, int8 = q.dtype == torch.bfloat16, r.dtype == torch.int8
+        # An int8 call's scale came as its last (keyword) argument.
+        kw = {"scale": args[-1]} if int8 else {}
+        sc = kw.get("scale")
         n_valid = int(args[3] if name == "count_above" else args[2])
         key = kernel_key(torch, name, args)
         (m, dd), n = q.shape, r.shape[0]
-        qi, ri = make_inputs(torch, "int", m, n, dd, seed=3, dev=dev)
+        if int8:
+            ri, sci = int8_rows(torch, "int", n, dd, 3, dev)
+            qi, kwi = int8_int_queries(torch, m, dd, 3, dev), {"scale": sci}
+        else:
+            qi, ri = make_inputs(torch, "int", m, n, dd, seed=3, dev=dev)
+            kwi = {}
         if bf16:
             qi, ri = qi.to(torch.bfloat16), ri.to(torch.bfloat16)
         if name == "row_max":
-            compare_row_max(torch, kernels, qi, ri, n_valid, "int")
+            compare_row_max(torch, kernels, qi, ri, n_valid, "int", **kwi)
         elif name == "count_above":
-            compare_count_above(torch, kernels, qi, ri, 40.0, n_valid, "int")
+            compare_count_above(torch, kernels, qi, ri, 40.0, n_valid, "int", **kwi)
         elif name == "fused_topk":
-            compare_topk(torch, kernels, qi, ri, n_valid, int(args[3]), "int")
+            compare_topk(torch, kernels, qi, ri, n_valid, int(args[3]), "int", **kwi)
         elif name == "scores":
-            compare_scores(torch, kernels, qi, ri, n_valid, "int")
+            compare_scores(torch, kernels, qi, ri, n_valid, "int", **kwi)
         else:
-            compare_pool(torch, kernels, qi, ri, n_valid, "int")
-        del qi, ri
+            compare_pool(torch, kernels, qi, ri, n_valid, "int", **kwi)
+        del qi, ri, kwi
         torch.cuda.empty_cache()
         label = f"{path} {key} inputs"
-        if name != "fused_topk":
-            pool_identity(torch, kernels, q, r, n_valid, label)
+        if name != "fused_topk" or int8:
+            pool_identity(torch, kernels, q, r, n_valid, label, **kw)
             torch.cuda.empty_cache()
         if name == "fused_topk" and bf16:
             stream_pair_identity(torch, kernels, q, r, n_valid, int(args[3]), label)
             torch.cuda.empty_cache()
+        if int8:
+            unit_scale_identity(torch, kernels, name, args, label)
+            torch.cuda.empty_cache()
         if name == "row_max":
-            err = compare_row_max(torch, kernels, q, r, n_valid, "float")
-            call = lambda a, b: kernels.row_max(a, b, n_valid)  # noqa: E731
-            plain = lambda: kernels.row_max_plain(q, r, n_valid)  # noqa: E731
-            lib = lambda: row_max_library(torch, q, r, n_valid)  # noqa: E731
+            err = compare_row_max(torch, kernels, q, r, n_valid, "float", **kw)
+            call = lambda a, b, **k: kernels.row_max(a, b, n_valid, **k)  # noqa: E731
+            plain = lambda: kernels.row_max_plain(q, r, n_valid, **kw)  # noqa: E731
+            lib = lambda: row_max_library(torch, q, r, n_valid, sc)  # noqa: E731
             out_bytes = 4 * m
         elif name == "count_above":
             tau = float(args[2])
-            err = compare_count_above(torch, kernels, q, r, tau, n_valid, "float")
-            call = lambda a, b: kernels.count_above(a, b, tau, n_valid)  # noqa: E731
-            plain = lambda: kernels.count_above_plain(q, r, tau, n_valid)  # noqa: E731
-            lib = lambda: count_above_library(torch, q, r, tau, n_valid)  # noqa: E731
+            err = compare_count_above(torch, kernels, q, r, tau, n_valid, "float", **kw)
+            call = lambda a, b, **k: kernels.count_above(a, b, tau, n_valid, **k)  # noqa: E731
+            plain = lambda: kernels.count_above_plain(q, r, tau, n_valid, **kw)  # noqa: E731
+            lib = lambda: count_above_library(torch, q, r, tau, n_valid, sc)  # noqa: E731
             out_bytes = 4 * m
         elif name == "fused_topk":
             kappa = int(args[3])
-            err = compare_topk(torch, kernels, q, r, n_valid, kappa, "float")
-            call = lambda a, b: kernels.fused_topk(a, b, n_valid, kappa)  # noqa: E731
-            plain = lambda: kernels.fused_topk_plain(q, r, n_valid, kappa)  # noqa: E731
-            lib = lambda: topk_library(torch, q, r, n_valid, kappa)  # noqa: E731
+            err = compare_topk(torch, kernels, q, r, n_valid, kappa, "float", **kw)
+            call = lambda a, b, **k: kernels.fused_topk(a, b, n_valid, kappa, **k)  # noqa: E731
+            plain = lambda: kernels.fused_topk_plain(q, r, n_valid, kappa, **kw)  # noqa: E731
+            lib = lambda: topk_library(torch, q, r, n_valid, kappa, sc)  # noqa: E731
             out_bytes = 8 * m * kappa
         elif name == "scores":
-            err = compare_scores(torch, kernels, q, r, n_valid, "float")
-            call = lambda a, b: kernels.scores(a, b, n_valid)  # noqa: E731
-            plain = lambda: kernels.scores_plain(q, r, n_valid)  # noqa: E731
-            lib = lambda: torch.matmul(q, r[:n_valid, :dd].T)  # noqa: E731
+            err = compare_scores(torch, kernels, q, r, n_valid, "float", **kw)
+            call = lambda a, b, **k: kernels.scores(a, b, n_valid, **k)  # noqa: E731
+            plain = lambda: kernels.scores_plain(q, r, n_valid, **kw)  # noqa: E731
+            if int8:  # cuBLAS f32 over the widened codes, then the scales
+                lib = lambda: (torch.matmul(q, r[:n_valid, :dd].float().T)  # noqa: E731
+                               * sc[:n_valid])
+            else:  # cuBLAS bf16 with bf16 output (f32 output: scores_library_f32)
+                lib = lambda: torch.matmul(q, r[:n_valid, :dd].T)  # noqa: E731
             out_bytes = 4 * m * n_valid
         else:
-            err = compare_pool(torch, kernels, q, r, n_valid, "float")
-            call = lambda a, b: kernels.pool_writer(a, b, n_valid)  # noqa: E731
-            plain = lambda: kernels.pool_writer_plain(q, r, n_valid)  # noqa: E731
-            lib = lambda: pool_library(torch, q, r, n_valid)  # noqa: E731
+            err = compare_pool(torch, kernels, q, r, n_valid, "float", **kw)
+            call = lambda a, b, **k: kernels.pool_writer(a, b, n_valid, **k)  # noqa: E731
+            plain = lambda: kernels.pool_writer_plain(q, r, n_valid, **kw)  # noqa: E731
+            lib = lambda: pool_library(torch, q, r, n_valid, sc)  # noqa: E731
             out_bytes = 8 * m * (n // 128) * 2
         torch.cuda.empty_cache()
-        kernel_ms = cuda_ms(torch, lambda: call(q, r), 3)
+        kernel_ms = cuda_ms(torch, lambda: call(q, r, **kw), 3)
         plain_ms = cuda_ms(torch, plain, 1)
         library_ms = cuda_ms(torch, lib, 1)
-        bound_ms, bound_by = bound(m, n_valid, n, dd, out_bytes, bf16=bf16)
+        bound_ms, bound_by = bound(m, n_valid, n, dd, out_bytes, bf16=bf16, int8=int8)
         records[key] = {
             "shape": [m, n_valid, dd] + ([int(args[3])] if name == "fused_topk" else []),
             "max_abs_err": err, "ms": kernel_ms,
@@ -762,9 +979,19 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
         extra = ""
-        if bf16 and name != "scores":  # scores.bf16 has no f32 kernel
-            # Without the tensor-core kernels' pad columns.
-            qf, rf = q[:, :r.shape[1]].float(), r[:, :q.shape[1]].float()
+        if name == "scores" and bf16:
+            f32_out = scores_library_f32(torch, q, r, n_valid)
+            if f32_out is not None:
+                # The same function as scores.bf16: the library column.
+                records[key]["library_bf16_out_ms"] = library_ms
+                records[key]["library_ms"] = f32_out
+                extra = (f" library f32-out {f32_out:.3f} ms (bf16-out "
+                         f"{library_ms:.3f} ms)")
+        if (bf16 or int8) and name != "scores":  # scores has no f32 kernel
+            # Without the tensor-core kernels' pad columns; int8 codes
+            # widened, without their scales (the f32 kernel's work on the
+            # same values).
+            qf, rf = q[:, :r.shape[1]].float(), r[:, :q.shape[1]].float().contiguous()
             records[key]["f32_ms"] = cuda_ms(torch, lambda: call(qf, rf), 3)
             extra = (f" f32_ms={records[key]['f32_ms']:.3f} (the f32 kernel on the "
                      "widened inputs)")
@@ -799,7 +1026,7 @@ def collection_mode(mode):
 
 
 def phase_search(torch, np, dev, m, n, d, k):
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32", "bfloat16", "int8"):
         for mode in ("stream", "pooled"):
             with collection_mode(mode):
                 search_vs_oracle(torch, np, dev, m, n, d, k, mode, dtype)
@@ -807,7 +1034,8 @@ def phase_search(torch, np, dev, m, n, d, k):
 
 def search_vs_oracle(torch, np, dev, m, n, d, k, mode, dtype):
     """The oracle scores the inputs as the searcher stages them (bf16:
-    rounded to nearest even, then widened)."""
+    rounded to nearest even, then widened; int8: cuBLAS f32 over the
+    widened codes, times the scales: the dequantized corpus)."""
     from vsc2022_torch.ops.similarity import SimilaritySearcher
 
     for kind in ("int", "float"):
@@ -829,7 +1057,13 @@ def search_vs_oracle(torch, np, dev, m, n, d, k, mode, dtype):
         t_search = time.perf_counter() - t0
         if dtype == "bfloat16":
             q, r = q.bfloat16().float(), r.bfloat16().float()
-        scores = torch.matmul(q, r.T)
+        if dtype == "int8":
+            check(searcher._refs.dtype == torch.int8 and searcher._tc_copy is None,
+                  "the int8 searcher staged another corpus than its codes")
+            scores = (torch.matmul(q, searcher._refs[:n, :d].float().T)
+                      * searcher._scale[:n])
+        else:
+            scores = torch.matmul(q, r.T)
         kth = torch.topk(scores.reshape(-1), k).values[-1]
         rr, cc = torch.nonzero(scores >= kth, as_tuple=True)
         vals = scores[rr, cc].cpu().numpy()
@@ -995,7 +1229,9 @@ def capture_inputs(kernels, keep_all=()):
 @contextlib.contextmanager
 def search_stats():
     """The last_stats of every SimilaritySearcher.global_topk call while
-    the block runs, in call order."""
+    the block runs, in call order, with the staged corpus it searched:
+    its dtype, its device bytes (``staged_bytes``) and whether a second
+    (tensor-core) copy is held."""
     from vsc2022_torch.ops.similarity import SimilaritySearcher
 
     seen = []
@@ -1004,6 +1240,10 @@ def search_stats():
     def global_topk(self, *args, **kwargs):
         out = original(self, *args, **kwargs)
         seen.append({k: v for k, v in self.last_stats.items() if k != "seconds"})
+        seen[-1]["corpus"] = {"dtype": str(self._refs.dtype).split(".")[-1],
+                              "rows": int(self._refs.shape[0]),
+                              "bytes": self.staged_bytes(),
+                              "copy": self._tc_copy is not None}
         return out
 
     SimilaritySearcher.global_topk = global_topk
@@ -1130,7 +1370,111 @@ def phase_main_path_bf16(torch, np, kernels, paths, f32):
     log(f"phase 4b: descriptor_eval --bf16 {time.perf_counter() - t0:.2f} s, uAP "
         f"{uap:.4f}; f32: {f32['descriptor_uap']:.4f}")
     check(uap is not None and uap > 0.3, f"descriptor_eval --bf16 uAP {uap}")
-    return launches, captured
+    return launches, captured, dict(result, descriptor_uap=uap)
+
+
+def numpy_sq8(np, rows):
+    """SQ8 codes and scales of f32 rows in numpy (the JAX package's
+    formula): the plain version of the searchers' device quantization."""
+    scale = (np.abs(rows).max(axis=1) / 127.0).astype(np.float32)
+    with np.errstate(divide="ignore"):
+        inv = np.where(scale > 0, 1.0 / scale, 0.0).astype(np.float32)
+    return np.clip(np.rint(rows * inv[:, None]), -127, 127).astype(np.int8), scale
+
+
+def device_quantization_is_numpys(torch, np, sn_refs):
+    """The int8 searcher's quantization on the card against numpy's, bit
+    for bit, on every fourth score-normalized reference row of phase 4c
+    (the rows its search corpus quantized, ones column included)."""
+    from vsc2022_torch.ops.similarity import SimilaritySearcher
+
+    with np.load(sn_refs) as z:
+        rows = np.ascontiguousarray(z["features"][::4], dtype=np.float32)
+    searcher = SimilaritySearcher(rows, dtype="int8", device="cuda")
+    codes, scale = numpy_sq8(np, rows)
+    n, d = rows.shape
+    check(np.array_equal(searcher._refs[:n, :d].cpu().numpy(), codes)
+          and np.array_equal(searcher._scale[:n].cpu().numpy().view(np.uint32),
+                             scale.view(np.uint32)),
+          "the searcher's quantization on the card differs from numpy's")
+    log(f"phase 4c: the searcher's quantization on the card == numpy's, bit for "
+        f"bit, on {n} x {d} score-normalized reference rows")
+
+
+def phase_main_path_int8(torch, np, kernels, paths, f32, bf16):
+    """Phase 4c: the same entry points with --int8 on phase 4's corpus (the
+    noise-NN and the retrieval over int8 codes with per-row scales, the
+    queries f32; localization f32). Logs stage seconds, last_stats, the
+    staged corpus bytes and quality beside the f32 and bf16 runs' (``f32``,
+    ``bf16``: phase 4's and 4b's results); checks that every searched
+    corpus is int8 codes and scales only. Returns the launch counts, the
+    int8 kernels' first inputs and sscd_baseline's result."""
+    from vsc2022_torch import descriptor_eval
+    from vsc2022_torch.baseline import sscd_baseline
+
+    out = SMOKE_DIR / "out_int8"
+    args = sscd_baseline.parser.parse_args([
+        "--query_features", paths["queries"], "--ref_features", paths["refs"],
+        "--score_norm_features", paths["noise"], "--ground_truth", paths["gt"],
+        "--output_path", str(out), "--overwrite", "--device", "cuda", "--int8"])
+    with capture_inputs(kernels) as captured, search_stats() as stats:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = sscd_baseline.main(args)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+    log(f"phase 4c: sscd_baseline --int8 {wall:.2f} s; stages (s): "
+        + json.dumps({k: round(v, 3) for k, v in result["stages"].items()})
+        + "; f32 (phase 4): "
+        + json.dumps({k: round(v, 3) for k, v in f32["stages"].items()})
+        + "; bf16 (phase 4b): "
+        + json.dumps({k: round(v, 3) for k, v in bf16["stages"].items()}))
+    log(f"phase 4c: global_topk last_stats: {json.dumps(stats)}; f32: "
+        f"{json.dumps(f32['stats'])}")
+    log(f"phase 4c: kernel launches on the int8 path: {json.dumps(launches)}")
+    log(f"phase 4c: candidate uAP {result['candidate_uap']:.4f}, segment AP "
+        f"{result['segment_ap']:.4f}; f32: {f32['candidate_uap']:.4f}, "
+        f"{f32['segment_ap']:.4f}; bf16: {bf16['candidate_uap']:.4f}, "
+        f"{bf16['segment_ap']:.4f}")
+    for name in SSCD_INT8_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched on the int8 path")
+    for name in SSCD_KERNELS:
+        check(captured[name][1].dtype == torch.int8
+              and captured[name][0].dtype == torch.float32,
+              f"the int8 path handed {name} {captured[name][0].dtype} queries and "
+              f"{captured[name][1].dtype} refs")
+    other = [k for k, c in launches.items() if c and not k.endswith(INT8)]
+    check(not other, f"the int8 path reached the kernels {other}")
+    pool_args, count_args = captured["pool_writer"], captured["count_above"]
+    check(count_args[1] is pool_args[1] and count_args[-1] is pool_args[-1]
+          and count_args[0].shape[1] == pool_args[0].shape[1],
+          "the pooled count and the pool read different operands")
+    # The searched corpus: codes and scales only (no f32 or padded copy).
+    corpus = stats[0]["corpus"]
+    f32_bytes = f32["stats"][0]["corpus"]["bytes"]
+    check(all(st["corpus"]["dtype"] == "int8" and not st["corpus"]["copy"]
+              for st in stats), f"an int8 search read another corpus: {stats}")
+    codes = pool_args[1]
+    check(corpus["bytes"] == codes.numel() + 4 * codes.shape[0],
+          f"the int8 corpus holds {corpus['bytes']} bytes, not its codes and scales")
+    log(f"phase 4c: the staged search corpus: {corpus['rows']} x {codes.shape[1]} "
+        f"int8 codes + {corpus['rows']} f32 scales = {corpus['bytes']} bytes "
+        f"({corpus['bytes'] / f32_bytes:.3f} of the f32 corpus's {f32_bytes}); "
+        f"the noise corpus: {captured['row_max'][1].shape[0]} x "
+        f"{captured['row_max'][1].shape[1]} {captured['row_max'][1].dtype}")
+    check(result["candidate_uap"] > 0.5, f"int8 candidate uAP {result['candidate_uap']}")
+    check(result["segment_ap"] > 0.2, f"int8 segment AP {result['segment_ap']}")
+    device_quantization_is_numpys(torch, np, out / "sn_refs.npz")
+    t0 = time.perf_counter()
+    uap = descriptor_eval.main(descriptor_eval.parser.parse_args([
+        "--query_features", paths["queries"], "--ref_features", paths["refs"],
+        "--ground_truth", paths["gt"], "--candidates_output",
+        str(out / "descriptor_candidates.csv"), "--device", "cuda", "--int8",
+    ]))
+    log(f"phase 4c: descriptor_eval --int8 {time.perf_counter() - t0:.2f} s, uAP "
+        f"{uap:.4f}; f32: {f32['descriptor_uap']:.4f}")
+    check(uap is not None and uap > 0.3, f"descriptor_eval --int8 uAP {uap}")
+    return launches, captured, dict(result, descriptor_uap=uap)
 
 
 # ---- phase 5: the DnS track ---------------------------------------------------
@@ -1460,15 +1804,22 @@ def serve_corpus(np):
     return c
 
 
-def phase_serve(torch, np, kernels, dev, corpus, bf16=False):
+SERVE_DTYPES = {  # dtype: (tag, phase, server flags, kernels of a search)
+    "float32": ("f32", "6", {"f32": True}, SERVE_KERNELS),
+    "bfloat16": ("bf16", "6b", {}, SERVE_BF16_KERNELS),
+    "int8": ("int8", "6c", {"int8": True}, SERVE_INT8_KERNELS),
+}
+
+
+def phase_serve(torch, np, kernels, dev, corpus, dtype="float32"):
     """Drives the server through requests (a)-(h) and checks them against
     an in-process ScoreNormalizedVideoIndex over the same live corpus.
-    ``bf16``: the server starts with no dtype flag, the JAX package's
-    default, and stages bf16 (phase 6b); otherwise with --f32. Returns the
-    server's launch counts over (a)-(h), the kernel inputs of the same
-    search run in-process (bf16: scores.bf16's too), the launch counts and
-    the inputs of pool_writer (and bf16: scores.bf16) of that search forced
-    to the pool, and (a)'s quality."""
+    ``dtype``: "float32" (--f32, phase 6), "bfloat16" (no dtype flag, the
+    JAX package's default, phase 6b) or "int8" (--int8, phase 6c). Returns
+    the server's launch counts over (a)-(h), the kernel inputs of the same
+    search run in-process (bf16 and int8: the re-search's scores too), the
+    launch counts and the inputs of pool_writer (and scores) of that search
+    forced to the pool, and (a)'s quality."""
     import logging
 
     from vsc2022_torch.baseline import pipeline
@@ -1476,14 +1827,13 @@ def phase_serve(torch, np, kernels, dev, corpus, bf16=False):
     from vsc2022_torch.retrieval.candidates import MaxScoreAggregation, rank_candidates
     from vsc2022_torch.retrieval.index import ScoreNormalizedVideoIndex
 
-    tag, phase = ("bf16", "6b") if bf16 else ("f32", "6")
-    dtype = "bfloat16" if bf16 else "float32"
+    tag, phase, flags, search_kernels = SERVE_DTYPES[dtype]
+    suffix = {"bfloat16": BF16, "int8": INT8}.get(dtype, "")
     work, paths = corpus["work"], corpus["paths"]
     queries, refs, removed = corpus["queries"], corpus["refs"], corpus["removed"]
     csv = {x: (str(work / f"{tag}_{x}_c.csv"), str(work / f"{tag}_{x}_m.csv"))
            for x in ("a", "c", "g", "fresh")}
     snap = str(work / f"{tag}_snap.npz")
-    flags = {} if bf16 else {"f32": True}
 
     def step(label, fn):
         return timed(label, fn, phase)
@@ -1518,11 +1868,10 @@ def phase_serve(torch, np, kernels, dev, corpus, bf16=False):
                   f"stats {stats}")
             launches = client.launches()
         log(f"phase {phase}: server kernel launches over (a)-(h): {json.dumps(launches)}")
-        for name in (SERVE_BF16_KERNELS if bf16 else SERVE_KERNELS):
+        for name in search_kernels:
             check(launches[name] > 0, f"kernel {name} never launched by the server")
-        if bf16:
-            check(not any(launches[k] for k in SERVE_KERNELS), "the bf16 server "
-                  "reached an f32 kernel")
+        other = [k for k, c in launches.items() if c and not k.endswith(suffix)]
+        check(not suffix or not other, f"the {tag} server reached the kernels {other}")
         with spawn_server(snap, server_log, score_norm_features=paths["noise"],
                           matches=True, **flags) as client:
             step("fresh server on the snapshot: (a)'s queries", lambda: client.search(
@@ -1538,7 +1887,11 @@ def phase_serve(torch, np, kernels, dev, corpus, bf16=False):
     index = ScoreNormalizedVideoIndex(DIM, corpus["noise"], beta=1.2, dtype=dtype,
                                       device=dev)
     index.add(refs)
-    index._get_searcher()  # staged before the timed searches
+    staged = index._get_searcher().searcher  # staged before the timed searches
+    log(f"phase {phase}: in-process index: the staged search corpus holds "
+        f"{staged.staged_bytes()} bytes ({staged._refs.shape[0]} x "
+        f"{staged._refs.shape[1]} {staged._refs.dtype}"
+        + (" + f32 scales" if staged._scale is not None else "") + ")")
     k, keep = 1200 * N_QUERY_VIDEOS, 25 * N_QUERY_VIDEOS
 
     def search():
@@ -1582,10 +1935,10 @@ def phase_serve(torch, np, kernels, dev, corpus, bf16=False):
     check(quality["candidate_uap"] > 0.5, f"serving uAP {quality['candidate_uap']}")
     del index
     torch.cuda.empty_cache()
-    # The re-search's scores.bf16 on both collections' re-searched rows.
-    if bf16:
+    # The re-search's scores (bf16, int8) on both collections' re-searched rows.
+    if suffix:
         check("scores" in captured and "scores" in pooled_captured,
-              "the bf16 (a) search re-searched no row in one of its collections")
+              f"the {tag} (a) search re-searched no row in one of its collections")
     path_kernels = ("row_max", "fused_topk", "count_above", "scores")
     pooled_captured = {n: pooled_captured[n] for n in ("pool_writer", "scores")
                        if n in pooled_captured}
@@ -1593,38 +1946,41 @@ def phase_serve(torch, np, kernels, dev, corpus, bf16=False):
             (pooled_launches, pooled_captured), quality)
 
 
-def serve_dns_request(bf16=False):
+def serve_dns_request(dtype="float32"):
     """One DnS two-file request against phase 5's files. f32 (--f32): the
     same rows as dns_baseline's output, scores within FLOAT_ATOL. bf16 (no
-    dtype flag: bf16 corpus and tables, the f32 chamfer over widened rows):
-    its quality on phase 5's ground truth, logged."""
+    dtype flag: bf16 corpus and tables, the f32 chamfer over widened rows)
+    and int8 (--int8: the 1,025-wide coarse corpus as int8 codes padded to
+    1,040 columns, bf16 tables): its quality on phase 5's ground truth,
+    logged."""
     import logging
 
     from vsc2022_torch.baseline import pipeline
 
-    tag = "bf16" if bf16 else "f32"
+    tag, phase, flags, _ = SERVE_DTYPES[dtype]
     work = SMOKE_DIR / "dns"
     idx, out = work / "idx", work / "out"
     c_csv, m_csv = str(work / f"serve_{tag}_c.csv"), str(work / f"serve_{tag}_m.csv")
     with open(work / f"server_{tag}.log", "w") as server_log:
         with spawn_server(str(idx / "refs_cg_student_sn.npz"), server_log,
                           ref_fine_features=str(idx / "refs_fg_att_student.npz"),
-                          **({} if bf16 else {"f32": True})) as client:
+                          **flags) as client:
             client.launches(reset=True)
             timed(f"DnS two-file request ({tag})", lambda: client.search(
                 str(idx / "queries_cg_student_sn.npz"),
                 query_fine_features=str(idx / "queries_fg_att_student.npz"),
-                candidates_csv=c_csv, matches_csv=m_csv), "6b" if bf16 else "6")
+                candidates_csv=c_csv, matches_csv=m_csv), phase)
             launches = client.launches()
-    for name in (DNS_SERVE_BF16_KERNELS if bf16 else DNS_SERVE_KERNELS):
+    for name in {"float32": DNS_SERVE_KERNELS, "bfloat16": DNS_SERVE_BF16_KERNELS,
+                 "int8": DNS_SERVE_INT8_KERNELS}[dtype]:
         check(launches[name] > 0, f"kernel {name} never launched by the DnS server")
-    if bf16:
+    if dtype != "float32":
         quality = pipeline.report_metrics(str(work / "gt.csv"), c_csv, m_csv,
                                           logging.getLogger("chip_smoke"))
-        log(f"phase 6b: DnS request with bf16 tables: candidate uAP "
+        log(f"phase {phase}: DnS request ({tag} corpus, bf16 tables): candidate uAP "
             f"{quality['candidate_uap']:.4f}, segment AP {quality['segment_ap']:.4f}; "
             f"server launches {json.dumps(launches)}")
-        check(quality["candidate_uap"] > 0.5, f"bf16 DnS uAP {quality['candidate_uap']}")
+        check(quality["candidate_uap"] > 0.5, f"{tag} DnS uAP {quality['candidate_uap']}")
         return launches
     n_c = check_same_rows(c_csv, out / "candidates.csv", "DnS server candidates")
     n_m = check_same_rows(m_csv, out / "matches.csv", "DnS server matches")
@@ -1655,17 +2011,21 @@ def time_collection_modes(torch, np, args, k, label):
     return secs
 
 
-def dns_bf16_search(torch, np, kernels, args, k, server_launches):
-    """The DnS bf16 request's search in process: the DnS path's corpus and
-    queries (fused_topk's input) rounded to bf16 as the bf16 server stages
-    them, searched in both collection modes (the same arrays). The stream
-    search must re-search as the server's did (its scores.bf16 launches).
-    Returns scores.bf16's first input there, the pad columns of the queries
-    dropped (its timed calls pad them)."""
+def dns_search(torch, np, kernels, args, k, server_launches, dtype):
+    """The DnS bf16 or int8 request's search in process: the DnS path's
+    corpus and queries (fused_topk's input) staged as that server stages
+    them (bf16: both rounded; int8: the corpus quantized, the queries f32),
+    searched in both collection modes (the same arrays). The stream search
+    must re-search as the server's did (its scores launches). Returns the
+    first inputs there of scores (bf16) or of fused_topk, count_above and
+    scores (int8: the DnS widths of the int8 kernels), the pad columns of
+    the queries dropped (their timed calls pad them)."""
     from vsc2022_torch.ops.similarity import SimilaritySearcher
 
+    tag, phase, _, _ = SERVE_DTYPES[dtype]
+    key = "scores" + (INT8 if dtype == "int8" else BF16)
     q, refs, n_valid = args[0], args[1], int(args[2])
-    searcher = SimilaritySearcher(refs[:n_valid].cpu().numpy(), dtype="bfloat16",
+    searcher = SimilaritySearcher(refs[:n_valid].cpu().numpy(), dtype=dtype,
                                   device=q.device)
     out, launches = {}, {}
     for mode in ("stream", "pooled"):
@@ -1673,22 +2033,20 @@ def dns_bf16_search(torch, np, kernels, args, k, server_launches):
             kernels.reset_launches()
             out[mode] = searcher.global_topk(q, k)
             launches[mode] = {n: c for n, c in kernels.launches.items() if c}
-            check(searcher.last_stats["mode"] == mode, f"DnS bf16: {mode} not taken")
+            check(searcher.last_stats["mode"] == mode, f"DnS {tag}: {mode} not taken")
         if mode == "stream":
-            scores_args = captured.get("scores")
+            stream_captured = captured
     check(all(np.array_equal(a, b) for a, b in zip(out["stream"], out["pooled"])),
-          "DnS bf16: stream and pooled global_topk differ")
-    log(f"phase 6b: DnS bf16 search in process [{q.shape[0]} x {n_valid} x "
+          f"DnS {tag}: stream and pooled global_topk differ")
+    log(f"phase {phase}: DnS {tag} search in process [{q.shape[0]} x {n_valid} x "
         f"{q.shape[1]}] k={k}: stream and pooled identical; launches "
-        f"{json.dumps(launches)}; the server's scores.bf16 launches: "
-        f"{server_launches.get(kernels.SCORES, 0)}")
-    check(launches["stream"].get(kernels.SCORES, 0)
-          == server_launches.get(kernels.SCORES, 0),
-          "DnS bf16: the in-process stream search re-searched otherwise than the server")
-    if scores_args is None:
-        return {}
-    rows, tc_refs = scores_args[0], scores_args[1]
-    return {"scores": (rows[:, :q.shape[1]].contiguous(), tc_refs) + scores_args[2:]}
+        f"{json.dumps(launches)}; the server's {key} launches: "
+        f"{server_launches.get(key, 0)}")
+    check(launches["stream"].get(key, 0) == server_launches.get(key, 0),
+          f"DnS {tag}: the in-process stream search re-searched otherwise than the server")
+    names = ("fused_topk", "count_above", "scores") if dtype == "int8" else ("scores",)
+    return {name: (stream_captured[name][0][:, :q.shape[1]].contiguous(),)
+            + stream_captured[name][1:] for name in names if name in stream_captured}
 
 
 def log_pool_plans(kernels, lib, probe, sms):
@@ -1815,16 +2173,23 @@ def main() -> int:
     try:
         phase_kernels_small(torch, kernels, dev)
         phase_kernels_bf16_small(torch, kernels, dev)
+        phase_kernels_int8_small(torch, kernels, dev)
         phase_search(torch, np, dev, 1000, 100_000, DIM, 20_000)
         launches, captured, paths, sscd_f32 = phase_main_path(torch, np, kernels)
         records = phase_kernels_main(torch, kernels, dev, captured)
         del captured
         torch.cuda.empty_cache()
-        bf16_launches, bf16_captured = phase_main_path_bf16(torch, np, kernels, paths,
-                                                            sscd_f32)
+        bf16_launches, bf16_captured, sscd_bf16 = phase_main_path_bf16(
+            torch, np, kernels, paths, sscd_f32)
         records.update(phase_kernels_main(torch, kernels, dev, bf16_captured))
         launches.update({k: bf16_launches[k] for k in SSCD_BF16_KERNELS})
         del bf16_captured
+        torch.cuda.empty_cache()
+        int8_launches, int8_captured, _ = phase_main_path_int8(
+            torch, np, kernels, paths, sscd_f32, sscd_bf16)
+        records.update(phase_kernels_main(torch, kernels, dev, int8_captured))
+        launches.update({k: int8_launches[k] for k in SSCD_INT8_KERNELS})
+        del int8_captured
         torch.cuda.empty_cache()
         dns_launches, dns_captured = phase_dns_path(torch, np, kernels)
         corpus = serve_corpus(np)
@@ -1832,9 +2197,12 @@ def main() -> int:
                                                            corpus)
         serve_dns_request()
         serve_bf16_launches, serve_bf16_captured, (pooled_launches, pooled_captured), _ = (
-            phase_serve(torch, np, kernels, dev, corpus, bf16=True))
+            phase_serve(torch, np, kernels, dev, corpus, dtype="bfloat16"))
+        dns_bf16_launches = serve_dns_request("bfloat16")
+        serve_int8_launches, serve_int8_captured, pooled_int8, _ = phase_serve(
+            torch, np, kernels, dev, corpus, dtype="int8")
         del corpus
-        dns_bf16_launches = serve_dns_request(bf16=True)
+        dns_int8_launches = serve_dns_request("int8")
     finally:
         if not args.keep:
             shutil.rmtree(SMOKE_DIR, ignore_errors=True)
@@ -1842,8 +2210,10 @@ def main() -> int:
                           1200 * N_QUERY_VIDEOS, "serving")
     time_collection_modes(torch, np, dns_captured["fused_topk"],
                           1200 * DNS_QUERIES, "DnS")
-    dns_bf16_captured = dns_bf16_search(torch, np, kernels, dns_captured["fused_topk"],
-                                        1200 * DNS_QUERIES, dns_bf16_launches)
+    dns_bf16_captured = dns_search(torch, np, kernels, dns_captured["fused_topk"],
+                                   1200 * DNS_QUERIES, dns_bf16_launches, "bfloat16")
+    dns_int8_captured = dns_search(torch, np, kernels, dns_captured["fused_topk"],
+                                   1200 * DNS_QUERIES, dns_int8_launches, "int8")
     records["chamfer"] = phase_chamfer(torch, kernels, dev, dns_captured.pop("chamfer"))
     launches["chamfer"] = dns_launches["chamfer"]
     dns_records = phase_kernels_main(torch, kernels, dev, dns_captured, path="DnS")
@@ -1857,25 +2227,41 @@ def main() -> int:
     # scores.bf16 on the rows the DnS bf16 search re-searches.
     dns_records.update(phase_kernels_main(torch, kernels, dev, dns_bf16_captured,
                                           path="DnS bf16 search"))
-    del dns_captured, dns_bf16_captured
+    # The int8 variants at the DnS width (D = 1025, codes of 1,040 columns)
+    # on the DnS int8 search's own inputs; their launches are the int8 DnS
+    # server request's.
+    dns_records.update(phase_kernels_main(torch, kernels, dev, dns_int8_captured,
+                                          path="DnS int8 search"))
+    del dns_captured, dns_bf16_captured, dns_int8_captured
     serve_records = phase_kernels_main(torch, kernels, dev, serve_captured,
                                        path="serving")
     del serve_captured
     serve_records.update(phase_kernels_main(torch, kernels, dev, serve_bf16_captured,
                                             path="serving"))
     del serve_bf16_captured
-    # pool_writer.bf16 and scores.bf16 on the bf16 serving search forced to
+    serve_records.update(phase_kernels_main(torch, kernels, dev, serve_int8_captured,
+                                            path="serving"))
+    del serve_int8_captured
+    # pool_writer and scores of the bf16 and int8 serving searches forced to
     # the pool.
+    pooled_launches.update({k: v for k, v in pooled_int8[0].items() if k.endswith(INT8)})
     pooled_records = phase_kernels_main(torch, kernels, dev, pooled_captured,
                                         path="serving (forced pooled)")
-    del pooled_captured
+    pooled_records.update(phase_kernels_main(torch, kernels, dev, pooled_int8[1],
+                                             path="serving (forced pooled)"))
+    del pooled_captured, pooled_int8
     # The streaming kernels' main record is the serving path's (the SSCD
     # path pools).
     for name, counts in (("fused_topk", serve_launches),
-                         ("fused_topk.bf16", serve_bf16_launches)):
+                         ("fused_topk.bf16", serve_bf16_launches),
+                         ("fused_topk.int8", serve_int8_launches)):
         records[name] = serve_records.pop(name)
         launches[name] = counts[name]
-    path_of = {"chamfer": "dns", "fused_topk": "serving", "fused_topk.bf16": "serving"}
+    path_of = {"chamfer": "dns", "fused_topk": "serving", "fused_topk.bf16": "serving",
+               "fused_topk.int8": "serving"}
+
+    def by_dtype(name, f32, bf16, int8):
+        return bf16 if name.endswith(BF16) else int8 if name.endswith(INT8) else f32
 
     rows = []
     for name, rec in records.items():
@@ -1891,14 +2277,15 @@ def main() -> int:
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "path": path_of.get(name, "sscd"),
         }
-        for key in ("path_total", "f32_ms"):
+        for key in ("path_total", "f32_ms", "library_bf16_out_ms"):
             if key in rec:
                 row[key] = rec[key]
         if name in dns_records:  # the same kernel on the DnS path
-            counts = dns_bf16_launches if name.endswith(BF16) else dns_launches
+            counts = by_dtype(name, dns_launches, dns_bf16_launches, dns_int8_launches)
             row["dns"] = dict(dns_records[name], launches=counts.get(name, 0))
         if name in serve_records:  # and on the serving path
-            counts = serve_bf16_launches if name.endswith(BF16) else serve_launches
+            counts = by_dtype(name, serve_launches, serve_bf16_launches,
+                              serve_int8_launches)
             row["serving"] = dict(serve_records[name], launches=counts[name])
         if name in pooled_records:  # and its search forced to the pool
             row["serving_pooled"] = dict(pooled_records[name],

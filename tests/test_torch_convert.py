@@ -3,6 +3,7 @@ package's state."""
 
 import numpy as np
 import pytest
+import torch
 
 from vsc2022_torch.convert import searcher_from_arrays, tn_params_from_jax
 from vsc2022_torch.ops.tn_align import TNParams
@@ -30,7 +31,13 @@ def test_searcher_from_arrays_rejects_unported_corpora():
     r = np.ones((8, 4), np.float32)
     with pytest.raises(NotImplementedError):
         searcher_from_arrays(r, 8, ref_sq=np.ones(8, np.float32), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # An int8 corpus is ported: its codes and the scales in the ref_sq slot
+    # stage as they are; without its scales it is refused.
+    ts = searcher_from_arrays(r.astype(np.int8), 8, ref_sq=np.full(8, 0.5, np.float32),
+                              device="cpu")
+    assert ts.dtype == "int8" and ts.n_refs == 8
+    assert ts._refs.dtype == torch.int8 and float(ts._scale[0]) == 0.5
+    with pytest.raises(ValueError):
         searcher_from_arrays(r.astype(np.int8), 8, device="cpu")
     with pytest.raises(ValueError):
         searcher_from_arrays(r, 9, device="cpu")

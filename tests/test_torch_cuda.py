@@ -23,7 +23,13 @@ winners ordered, and count_above.bf16 the pool count wherever the pool
 holds every entry >= tau, on any subset of the rows. scores.bf16 writes
 that product out for the searchers' corpus re-search: its per-segment top
 2 is the pool, bit for bit, so the pooled and streaming collections return
-the same pairs and scores.
+the same pairs and scores. The int8 (SQ8) variants (row_max.int8,
+count_above.int8, pool_writer.int8, fused_topk.int8, scores.int8) take f32
+queries against int8 codes and per-row scales on the f32 chain over the
+widened codes: exact against their plain versions on integer queries and
+power-of-two scales, within 1e-5 on unit-norm floats, bit for bit their
+f32 kernels on codes.float() where every scale is 1, and bit for bit
+against each other.
 """
 
 import math
@@ -83,6 +89,8 @@ def test_kernels_match_plain(cuda_device, m, n, d, n_valid):
         "row_max": 1, "count_above": 1, "pool_writer": 1, "fused_topk": 0,
         "chamfer": 0, "row_max.bf16": 0, "count_above.bf16": 0,
         "pool_writer.bf16": 0, "fused_topk.bf16": 0, "scores.bf16": 0,
+        "row_max.int8": 0, "count_above.int8": 0, "pool_writer.int8": 0,
+        "fused_topk.int8": 0, "scores.int8": 0,
     }
 
 
@@ -1079,3 +1087,232 @@ def test_bf16_searcher_pooled_equals_stream_on_floats(cuda_device, monkeypatch, 
     for a, b in zip(out["stream"], out["pooled"]):
         np.testing.assert_array_equal(a, b)
 
+
+
+# ---- the int8 (SQ8) variants ----------------------------------------------------
+
+INT8_ATOL = 1e-5  # unit-norm floats: torch.matmul sums in another order
+
+
+def _int8_case(device, m, n, d, seed, kind="int"):
+    """f32 queries [m, d], int8 codes [n, padded_width(d, 16)] (zero pad
+    columns, as the searchers stage them) and scales [n]: integer queries
+    and power-of-two scales (every score exact), or unit-norm float
+    queries and the scales of quantized unit rows. Rows past 90% of n are
+    zero codes at scale 0 (the searchers' pad rows)."""
+    from vsc2022_torch.ops.similarity import quantize_rows_int8
+
+    rng = np.random.RandomState(seed)
+    width = kernels.padded_width(d, kernels.I8_ROW_ALIGN)
+    codes = np.zeros((n, width), np.int8)
+    if kind == "int":
+        q = rng.randint(-3, 4, size=(m, d)).astype(np.float32)
+        codes[:, :d] = rng.randint(-127, 128, size=(n, d))
+        scale = (2.0 ** -rng.randint(0, 8, size=n)).astype(np.float32)
+    else:
+        q = _unit_rows(rng, m, d)
+        codes[:, :d], scale = quantize_rows_int8(_unit_rows(rng, n, d))
+    codes[7:12] = codes[5]  # equal columns in segment 0
+    scale[7:12] = scale[5]
+    live = (9 * n) // 10
+    codes[live:], scale[live:] = 0, 0.0
+    return (torch.from_numpy(q).to(device), torch.from_numpy(codes).to(device),
+            torch.from_numpy(scale).to(device), live)
+
+
+@pytest.mark.parametrize("m", [1, 65, 300])
+@pytest.mark.parametrize("d", [1, 33, 511, 512, 1025])
+def test_int8_kernels_exact_on_integers(cuda_device, d, m):
+    # Integer queries, codes and power-of-two scales: every score is exact,
+    # so all five variants equal their plain versions exactly, tie order
+    # included, at ragged M and N (the pool's N a multiple of 128).
+    n = 2560 if d < 1025 else 1280
+    q, codes, scale, n_valid = _int8_case(cuda_device, m, n, d, 190 + d + m)
+    n_valid -= 3  # ragged
+    kernels.reset_launches()
+    kw = {"scale": scale}
+    assert torch.equal(kernels.row_max(q, codes, n_valid, **kw),
+                       kernels.row_max_plain(q, codes, n_valid, **kw))
+    for tau in (40.0, float("-inf")):
+        assert torch.equal(kernels.count_above(q, codes, tau, n_valid, **kw),
+                           kernels.count_above_plain(q, codes, tau, n_valid, **kw))
+    pv, pi = kernels.pool_writer(q, codes, n_valid, **kw)
+    ev, ei = kernels.pool_writer_plain(q, codes, n_valid, **kw)
+    assert torch.equal(pv, ev)
+    finite = torch.isfinite(ev)
+    assert torch.equal(pi[finite], ei[finite])
+    for kappa in (1, 32, 100):
+        got = kernels.fused_topk(q, codes[: n - 5], n_valid, kappa, scale=scale[: n - 5])
+        want = kernels.fused_topk_plain(q, codes[: n - 5], n_valid, kappa,
+                                        scale=scale[: n - 5])
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(kernels.scores(q, codes, n_valid, **kw),
+                       kernels.scores_plain(q, codes, n_valid, **kw))
+    assert {k: v for k, v in kernels.launches.items() if v} == {
+        "row_max.int8": 1, "count_above.int8": 2, "pool_writer.int8": 1,
+        "fused_topk.int8": 3, "scores.int8": 1}
+
+
+@pytest.mark.parametrize("d", [511, 512, 1025])
+def test_int8_kernels_with_unit_scales_are_the_f32_kernels(cuda_device, d):
+    # With every scale 1 each int8 variant is its f32 kernel on
+    # codes.float(), bit for bit, on float queries (the same fmaf chain).
+    q, codes, _, n_valid = _int8_case(cuda_device, 150, 3840, d, 200 + d, "float")
+    ones = torch.ones(codes.shape[0], device=cuda_device)
+    wide = codes[:, :d].float().contiguous()
+    kw = {"scale": ones}
+    same = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))  # noqa: E731
+    assert same(kernels.row_max(q, codes, n_valid, **kw), kernels.row_max(q, wide, n_valid))
+    assert torch.equal(kernels.count_above(q, codes, 20.0, n_valid, **kw),
+                       kernels.count_above(q, wide, 20.0, n_valid))
+    (pv, pi), (fv, fi) = (kernels.pool_writer(q, codes, n_valid, **kw),
+                          kernels.pool_writer(q, wide, n_valid))
+    finite = torch.isfinite(fv)
+    assert same(pv, fv) and torch.equal(pi[finite], fi[finite])
+    for a, b in zip(kernels.fused_topk(q, codes, n_valid, 32, **kw),
+                    kernels.fused_topk(q, wide, n_valid, 32)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [511, 512, 1025])
+def test_int8_kernels_bit_identical_to_each_other(cuda_device, d):
+    # On floats the five int8 variants score alike: each segment's best 2
+    # of scores.int8 are the pool, the pool's best winner is row_max.int8,
+    # its winners ordered are fused_topk.int8's, count_above.int8 counts
+    # scores.int8 >= tau, also on a permuted subset of the rows; all within
+    # INT8_ATOL of the plain versions.
+    q, codes, scale, n_valid = _int8_case(cuda_device, 260, 3840, d, 210 + d, "float")
+    m, kw = q.shape[0], {"scale": scale}
+    s = kernels.scores(q, codes, n_valid, **kw)
+    torch.testing.assert_close(s, kernels.scores_plain(q, codes, n_valid, **kw),
+                               rtol=0, atol=INT8_ATOL)
+    full = torch.full((m, codes.shape[0]), float("-inf"), device=q.device)
+    full[:, :n_valid] = s
+    vals, idx = torch.sort(full.view(m, -1, kernels.SEG_LANES), dim=2,
+                           descending=True, stable=True)
+    seg_base = kernels.SEG_LANES * torch.arange(vals.shape[1], device=q.device)
+    want_v, want_i = vals[:, :, :2], idx[:, :, :2].int() + seg_base[None, :, None].int()
+    pv, pi = kernels.pool_writer(q, codes, n_valid, **kw)
+    assert torch.equal(pv.view(torch.int32), want_v.contiguous().view(torch.int32))
+    finite = torch.isfinite(want_v)
+    assert torch.equal(pi[finite], want_i[finite])
+    best = kernels.row_max(q, codes, n_valid, **kw)
+    assert torch.equal(best.view(torch.int32), s.amax(1).view(torch.int32))
+    top = kernels.fused_topk(q, codes, n_valid, 32, **kw)
+    want = kernels.ordered_topk(pv.view(m, -1), pi.view(m, -1), 32)
+    assert all(torch.equal(a, b) for a, b in zip(top, want))
+    tau = float(torch.topk(pv.reshape(-1), 3 * m).values[-1])
+    counts = kernels.count_above(q, codes, tau, n_valid, **kw)
+    assert torch.equal(counts, (s >= tau).sum(1, dtype=torch.int32))
+    sub = torch.from_numpy(np.random.RandomState(d).permutation(m)[:50]).to(cuda_device)
+    assert torch.equal(kernels.count_above(q[sub], codes, tau, n_valid, **kw), counts[sub])
+    assert torch.equal(kernels.scores(q[sub], codes, n_valid, **kw).view(torch.int32),
+                       s[sub].view(torch.int32))
+    torch.testing.assert_close(best, kernels.row_max_plain(q, codes, n_valid, **kw),
+                               rtol=0, atol=INT8_ATOL)
+
+
+@pytest.mark.parametrize("slots", [1, 7])
+def test_int8_reduce_kernels_any_grid(cuda_device, monkeypatch, slots):
+    # Few blocks: each block's range spans several row tiles.
+    monkeypatch.setattr(kernels, "_occupancy_slots", lambda t, name, *a: slots)
+    q, codes, scale, n_valid = _int8_case(cuda_device, 300, 1408, 40, 220 + slots)
+    kw = {"scale": scale}
+    assert torch.equal(kernels.row_max(q, codes, n_valid, **kw),
+                       kernels.row_max_plain(q, codes, n_valid, **kw))
+    assert torch.equal(kernels.count_above(q, codes, 30.0, n_valid, **kw),
+                       kernels.count_above_plain(q, codes, 30.0, n_valid, **kw))
+    for a, b in zip(kernels.fused_topk(q, codes, n_valid, 40, **kw),
+                    kernels.fused_topk_plain(q, codes, n_valid, 40, **kw)):
+        assert torch.equal(a, b)
+
+
+def test_int8_zero_rows_and_pad_rows(cuda_device):
+    # An all-zero valid row (scale 0) scores 0; rows past n_valid never
+    # enter, even where every valid score is negative.
+    q = -torch.ones((3, 16), device=cuda_device)
+    codes = torch.zeros((256, 16), dtype=torch.int8, device=cuda_device)
+    codes[:100] = 5
+    scale = torch.zeros(256, device=cuda_device)
+    scale[:100] = 0.5
+    codes[40], scale[40] = 0, 0.0  # valid, all zero
+    kw = {"scale": scale}
+    assert (kernels.row_max(q, codes, 100, **kw) == 0.0).all()
+    codes[40], scale[40] = 5, 0.5
+    assert (kernels.row_max(q, codes, 100, **kw) == -40.0).all()
+    assert (kernels.count_above(q, codes, -40.0, 100, **kw) == 100).all()
+    pv, _ = kernels.pool_writer(q, codes, 100, **kw)
+    assert (pv[:, 0] == -40.0).all() and (pv[:, 1] == float("-inf")).all()
+    top_v, _ = kernels.fused_topk(q, codes, 100, 8, **kw)  # one segment's 2
+    assert (top_v[:, :2] == -40.0).all() and (top_v[:, 2:] == float("-inf")).all()
+
+
+def test_int8_wrappers_raise_on_cuda_mismatches(cuda_device):
+    q = torch.ones((3, 16), device=cuda_device)
+    codes = torch.ones((128, 16), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(TypeError):
+        kernels.row_max(q, codes, 100)
+    with pytest.raises(ValueError):
+        kernels.scores(q, codes, 100, scale=torch.ones(128))  # scale on the CPU
+    with pytest.raises(ValueError):
+        kernels.count_above(q, codes.t(), 0.0, 16, scale=torch.ones(16, device=cuda_device))
+
+
+@pytest.mark.parametrize("d", [512, 1025])
+def test_int8_searcher_pooled_equals_stream_on_floats(cuda_device, monkeypatch, d):
+    # Every score of an int8 search, re-searched rows included, comes from
+    # the int8 kernels' chain: the two collections (which re-search
+    # different rows) return the same pairs and scores, bit for bit; the
+    # corpus is staged as codes and scales only.
+    from vsc2022_torch.ops.similarity import COLLECTION_ENV, SimilaritySearcher
+
+    rng = np.random.RandomState(230 + d)
+    q, r = _unit_rows(rng, 400, d), _unit_rows(rng, 20000, d)
+    r[100:140] = r[99] + 0.01 * rng.randn(40, d).astype(np.float32)
+    q[:20] = r[99]
+    searcher = SimilaritySearcher(r, dtype="int8", device=cuda_device)
+    assert searcher._refs.dtype == torch.int8 and searcher._tc_copy is None
+    out, stats = {}, {}
+    for mode in ("stream", "pooled"):
+        monkeypatch.setenv(COLLECTION_ENV, mode)
+        kernels.reset_launches()
+        out[mode] = searcher.global_topk(q, 4000, kappa=16)
+        stats[mode] = dict(searcher.last_stats)
+        assert stats[mode]["mode"] == mode and stats[mode]["corpus_rows"] > 0
+        launched = {k for k, v in kernels.launches.items() if v}
+        assert launched <= set(kernels.INT8_KERNELS) and "scores.int8" in launched
+    for a, b in zip(out["stream"], out["pooled"]):
+        np.testing.assert_array_equal(a, b)
+    assert searcher.staged_bytes() == searcher._refs.numel() + 4 * searcher._scale.numel()
+
+
+def _numpy_sq8(rows):
+    """The SQ8 quantization in numpy (the JAX package's formula)."""
+    scale = (np.abs(rows).max(axis=1) / 127.0).astype(np.float32)
+    with np.errstate(divide="ignore"):
+        inv = np.where(scale > 0, 1.0 / scale, 0.0).astype(np.float32)
+    return np.clip(np.rint(rows * inv[:, None]), -127, 127).astype(np.int8), scale
+
+
+@pytest.mark.parametrize("d", [13, 512, 1025])
+def test_int8_device_quantization_is_numpys(cuda_device, d):
+    # The searcher quantizes on the card, a block of rows at a time: the
+    # same codes and scales as numpy, bit for bit (a correctly rounded
+    # division, product and round half to even), on its stage and append.
+    rng = np.random.RandomState(240 + d)
+    rows = (rng.randn(3000, d) * 10.0 ** rng.randint(-6, 4, size=(3000, 1))).astype(
+        np.float32)
+    rows[0] = 0.0
+    rows[1] = 5.0  # every code at the clip
+    rows[2, :] = 0.0
+    rows[2, 0], rows[2, 1:4] = 127.0, [0.5, 1.5, -2.5]  # halfway: to even
+    from vsc2022_torch.ops.similarity import SimilaritySearcher
+
+    searcher = SimilaritySearcher(rows[:2000], dtype="int8", device=cuda_device)
+    searcher.append_rows(rows[2000:])
+    codes, scale = _numpy_sq8(rows)
+    assert np.array_equal(searcher._refs[:3000, :d].cpu().numpy(), codes)
+    assert np.array_equal(searcher._scale[:3000].cpu().numpy().view(np.uint32),
+                          scale.view(np.uint32))
+    assert not searcher._refs[:, d:].any() and not searcher._refs[3000:].any()
+    assert codes[2, 1:4].tolist() == [0, 2, -2]

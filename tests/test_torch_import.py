@@ -139,11 +139,20 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     kernels.row_max(q.bfloat16(), r.bfloat16(), 100)
     kernels.pool_writer(q.bfloat16(), r.bfloat16(), 100)
     kernels.scores(q.bfloat16(), r.bfloat16(), 100)
+    # int8 codes (f32 queries, per-row scales) too.
+    codes, scale = torch.ones((128, 16), dtype=torch.int8), torch.ones(128)
+    kernels.row_max(q, codes, 100, scale=scale)
+    kernels.count_above(q, codes, 0.0, 100, scale=scale)
+    kernels.pool_writer(q, codes, 100, scale=scale)
+    kernels.fused_topk(q, codes, 90, 4, scale=scale)
+    kernels.scores(q, codes, 100, scale=scale)
     # Plain versions never count as kernel launches.
     assert kernels.launches == {
         "row_max": 0, "count_above": 0, "pool_writer": 0, "fused_topk": 0,
         "chamfer": 0, "row_max.bf16": 0, "count_above.bf16": 0,
         "pool_writer.bf16": 0, "fused_topk.bf16": 0, "scores.bf16": 0,
+        "row_max.int8": 0, "count_above.int8": 0, "pool_writer.int8": 0,
+        "fused_topk.int8": 0, "scores.int8": 0,
     }
     with pytest.raises(ValueError, match="multiple of 128"):
         kernels.pool_writer(q, torch.ones((100, 8)), 100)
@@ -197,14 +206,47 @@ def test_serve_entry_point_defaults_to_cuda_and_raises(no_gpu):
 
 @pytest.mark.parametrize("entry", ["sscd_baseline", "descriptor_eval"])
 def test_unported_storage_modes_raise(entry, tmp_path):
-    # bf16 is ported; int8 (SQ8) storage is not.
+    # bf16 and int8 (SQ8) storage are both ported: --int8 runs (on the CPU
+    # here) and its search corpus is int8; --sharded still raises.
     from vsc2022_torch import descriptor_eval
     from vsc2022_torch.baseline import sscd_baseline
+    from vsc2022_torch.metrics import Dataset
+    from vsc2022_torch.ops import similarity
+    from vsc2022_torch.storage import store_features
+    from vsc2022_torch.types import VideoFeature
 
+    rng = np.random.RandomState(0)
+
+    def vids(n):
+        return [VideoFeature(video_id=i, timestamps=np.arange(20, dtype=np.float64),
+                             feature=rng.randint(-3, 4, (20, 8)).astype(np.float32))
+                for i in range(n)]
+
+    paths = {k: str(tmp_path / f"{k}.npz") for k in ("q", "r")}
+    store_features(paths["q"], vids(2), Dataset.QUERIES)
+    store_features(paths["r"], vids(5), Dataset.REFS)
     module = sscd_baseline if entry == "sscd_baseline" else descriptor_eval
-    argv = ["--query_features", "q.npz", "--ref_features", "r.npz",
+    argv = ["--query_features", paths["q"], "--ref_features", paths["r"],
             "--device", "cpu", "--int8"]
     if entry == "sscd_baseline":
         argv += ["--output_path", str(tmp_path / "out")]
-    with pytest.raises(NotImplementedError, match="int8"):
+    else:
+        argv += ["--candidates_output", str(tmp_path / "c.csv")]
+    staged = []
+    search = similarity.SimilaritySearcher.global_topk
+
+    def spy(self, *args, **kwargs):
+        staged.append((self.dtype, self._refs.dtype))
+        return search(self, *args, **kwargs)
+
+    similarity.SimilaritySearcher.global_topk = spy
+    try:
         module.main(module.parser.parse_args(argv))
+    finally:
+        similarity.SimilaritySearcher.global_topk = search
+    assert staged == [("int8", torch.int8)]
+    out = tmp_path / ("out/candidates.csv" if entry == "sscd_baseline" else "c.csv")
+    assert out.read_text().count("\n") > 1
+    if entry == "descriptor_eval":
+        with pytest.raises(NotImplementedError, match="sharded"):
+            module.main(module.parser.parse_args(argv[:-3] + ["--sharded"]))

@@ -206,6 +206,15 @@ def test_empty_and_unported_modes():
         assert arr.size == 0
     for arr in ts.global_topk(np.ones((2, 4), np.float32), 0):
         assert arr.size == 0
-    for kw in ({"metric": "L2"}, {"dtype": "int8"}, {"precision": "default"}):
+    for kw in ({"metric": "L2"}, {"precision": "default"},
+               {"metric": "L2", "dtype": "int8"}):
         with pytest.raises(NotImplementedError):
             TorchSearcher(r, device="cpu", **kw)
+    # int8 (SQ8) storage is ported: it stages codes and runs the same
+    # empty-query and k = 0 contracts.
+    i8 = TorchSearcher(r, device="cpu", dtype="int8")
+    assert i8._refs.dtype == torch.int8 and i8.n_refs == 10
+    for arr in i8.global_topk(np.zeros((0, 4), np.float32), 5):
+        assert arr.size == 0
+    for arr in i8.global_topk(np.ones((2, 4), np.float32), 0):
+        assert arr.size == 0

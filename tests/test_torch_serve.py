@@ -404,10 +404,17 @@ def test_serve_requests_match_jax_dns(served):
 def test_unported_modes_raise(served):
     # The JAX default (bf16, no dtype flag) is ported: tests below start it.
     base = ["--ref_features", served["r"], "--device", "cpu"]
-    for extra in (["--int8"], ["--sharded"], ["--bf16", "--ivf", "4"],
+    for extra in (["--sharded"], ["--bf16", "--ivf", "4"],
                   ["--f32", "--num_processes", "2"], ["--baseline", "sscd"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             torch_serve.main(torch_serve.parser.parse_args(base + extra))
+    # --int8 is ported: it passes the startup check and stages SQ8 codes
+    # with bf16 localizer tables, as the JAX server picks them
+    # (tests/test_torch_int8.py runs it).
+    args = torch_serve.parser.parse_args(base + ["--int8"])
+    torch_serve.check_ported(args)
+    assert torch_serve.staging_dtype(args) == "int8"
+    assert torch_serve.table_dtype(args) == "bfloat16"
 
 
 # ---- failure consistency (tests/test_serve.py Test*FailureConsistency) --------------

@@ -15,8 +15,9 @@ query, β=1.2 score normalization).
 Runs on ``cuda`` unless ``--device cpu`` is given. ``--bf16`` runs the
 score normalization's noise-NN and the retrieval over bf16 corpora (f32
 accumulation; localization stays f32, as in the JAX package). ``--int8``
-is not ported yet and raises; ``--profile_dir`` writes a ``torch.profiler``
-trace.
+stages both corpora as SQ8-style int8 codes with per-row scales (queries
+f32; search exact over the dequantized corpus). ``--profile_dir`` writes
+a ``torch.profiler`` trace.
 """
 
 import argparse
@@ -80,7 +81,8 @@ _dtype_group.add_argument(
 )
 _dtype_group.add_argument(
     "--int8", action="store_true",
-    help="SQ8-style int8 retrieval corpora (not ported yet: raises).",
+    help="SQ8-style per-row int8 retrieval corpora (a quarter of f32's "
+    "device memory; queries f32, search exact over the dequantized corpus).",
 )
 parser.add_argument(
     "--score_normalized_inputs", action="store_true",
@@ -186,10 +188,6 @@ def match(
 def main(args) -> Dict[str, object]:
     """Run the matching pipeline; returns the per-stage seconds and, with
     ``--ground_truth``, both APs."""
-    if args.int8:
-        raise NotImplementedError(
-            "--int8 retrieval is not ported yet: run in f32 or --bf16"
-        )
     if os.path.exists(args.output_path) and not args.overwrite:
         raise Exception(
             f"Refusing to clobber {args.output_path} (pass --overwrite)."
@@ -208,7 +206,7 @@ def main(args) -> Dict[str, object]:
     score_normalization = bool(
         args.score_norm_features or args.score_normalized_inputs
     )
-    dtype = "bfloat16" if args.bf16 else "float32"
+    dtype = "bfloat16" if args.bf16 else "int8" if args.int8 else "float32"
     if args.score_norm_features:
         with pipeline.timed(stages, "score_norm", device):
             noise = load_features(args.score_norm_features, Dataset.REFS)

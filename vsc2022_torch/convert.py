@@ -26,8 +26,12 @@ def searcher_from_arrays(
 ) -> SimilaritySearcher:
     """The port's searcher over the corpus a JAX ``SimilaritySearcher``
     stages: ``refs`` its padded ``_refs`` [N_pad, D], ``n_valid`` its
-    ``_n_valid``, ``ref_sq`` its ``_ref_sq`` (all zeros for an IP corpus;
-    anything else is an L2 or int8 corpus, not ported yet).
+    ``_n_valid``, ``ref_sq`` its ``_ref_sq`` (all zeros for an f32 or
+    bf16 IP corpus; anything else there is an L2 corpus, not ported yet).
+
+    An int8 corpus (int8 ``refs``) carries its per-row scales in the
+    ``ref_sq`` slot: its codes and scales are staged as they are
+    (``SimilaritySearcher.from_int8``), not quantized again.
 
     A bf16 corpus arrives as an ``ml_dtypes.bfloat16`` array, which
     ``torch.from_numpy`` refuses: its bits are read through a 16-bit
@@ -38,9 +42,16 @@ def searcher_from_arrays(
     n_valid = int(n_valid)
     if refs.ndim != 2 or not 0 <= n_valid <= refs.shape[0]:
         raise ValueError(f"refs {refs.shape} with n_valid {n_valid}")
+    if refs.dtype == np.int8:
+        if ref_sq is None or np.asarray(ref_sq).shape != (refs.shape[0],):
+            raise ValueError("an int8 corpus needs its scales (ref_sq) [N_pad]")
+        return SimilaritySearcher.from_int8(
+            refs[:n_valid], np.asarray(ref_sq)[:n_valid], device=device
+        )
     if ref_sq is not None and np.any(np.asarray(ref_sq) != 0):
         raise NotImplementedError(
-            "a non-zero ref_sq means an L2 or int8 corpus, not ported yet"
+            "a non-zero ref_sq beside f32 or bf16 rows means an L2 corpus, "
+            "not ported yet"
         )
     if refs.dtype.name == "bfloat16":
         bits = torch.from_numpy(np.array(refs[:n_valid]).view(np.int16))
@@ -48,7 +59,7 @@ def searcher_from_arrays(
         return SimilaritySearcher(widened, dtype="bfloat16", device=device)
     if refs.dtype != np.float32:
         raise NotImplementedError(
-            f"{refs.dtype} corpora are not ported yet (float32 and bfloat16 only)"
+            f"{refs.dtype} corpora are not ported yet (float32, bfloat16 and int8 only)"
         )
     return SimilaritySearcher(refs[:n_valid], device=device)
 

@@ -6,7 +6,9 @@ the root ``descriptor_eval.py``, plus ``--device``).
         --ref_features r.npz --ground_truth gt.csv [--candidates_output c.csv]
 
 ``--bf16`` stages the reference corpus and the queries in bfloat16 (f32
-accumulation). ``--sharded`` and ``--int8`` are not ported yet and raise.
+accumulation); ``--int8`` stages the reference corpus as SQ8-style int8
+codes with per-row scales (queries f32). ``--sharded`` is not ported yet
+and raises.
 """
 
 import argparse
@@ -46,7 +48,9 @@ _dtype_group.add_argument(
 )
 _dtype_group.add_argument(
     "--int8", action="store_true",
-    help="SQ8-style int8 reference corpus (not ported yet: raises).",
+    help="Stage the reference corpus as SQ8-style per-row int8 (a quarter "
+    "of f32's device memory; queries f32, search exact over the dequantized "
+    "corpus).",
 )
 parser.add_argument(
     "--device", type=str, default="cuda", choices=("cuda", "cpu"),
@@ -56,12 +60,13 @@ parser.add_argument(
 
 def main(args) -> Optional[float]:
     """Run the evaluation; returns the micro-AP when GT is given."""
-    if args.sharded or args.int8:
-        raise NotImplementedError("--sharded / --int8 are not ported yet")
+    if args.sharded:
+        raise NotImplementedError("--sharded is not ported yet")
     ap, candidates = evaluate_descriptor_track(
         args.query_features, args.ref_features, args.ground_truth,
         protocol=DescriptorEvalProtocol(
-            dtype="bfloat16" if args.bf16 else "float32", device=args.device,
+            dtype="bfloat16" if args.bf16 else "int8" if args.int8 else "float32",
+            device=args.device,
         ),
     )
     if ap is not None:

@@ -41,7 +41,7 @@ class DescriptorEvalProtocol:
 
     retrieval_per_query: int = RETRIEVAL_CANDIDATES_PER_QUERY
     pairs_per_query: int = AGGREGATED_CANDIDATES_PER_QUERY
-    dtype: str = "float32"  # the staged corpus: "float32" or "bfloat16"
+    dtype: str = "float32"  # the staged corpus: "float32", "bfloat16" or "int8"
     device: DeviceLike = "cuda"
 
     def retrieve(self, query_features, ref_features) -> List[CandidatePair]:

@@ -31,11 +31,14 @@ import torch
 
 from vsc2022_torch.device import DeviceLike, resolve_device
 from vsc2022_torch.metrics import CandidatePair, Match
-from vsc2022_torch.ops.similarity import STORAGE_DTYPES
 from vsc2022_torch.ops.tn_align import TNParams, tn_align_packed
 from vsc2022_torch.types import VideoFeature
 
 logger = logging.getLogger(__name__)
+
+# The reference tables' storage dtypes (the alignment reads raw
+# similarities: an int8 search corpus keeps bf16 tables).
+TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # Per-chunk progress lines only matter on runs big enough to have
 # waited for: single small calls (tests, per-pair probes) stay quiet.
@@ -103,12 +106,12 @@ class TNLocalization(LocalizationWithMetadata):
         super().__init__(queries, refs)
         if model_type != "TN":
             raise ValueError(f"Unsupported alignment model type: {model_type}")
-        if table_dtype not in STORAGE_DTYPES:
+        if table_dtype not in TABLE_DTYPES:
             raise ValueError(f"Unsupported table_dtype: {table_dtype}")
         del concurrency, kwargs
         self.similarity_bias = similarity_bias
         # The storage dtype of the reference tables ("ref", "ref_fine").
-        self._table_dtype = STORAGE_DTYPES[table_dtype]
+        self._table_dtype = TABLE_DTYPES[table_dtype]
         self.device = resolve_device(device)
         # Device tables of frame rows by name: (table, {video: (start, n)}).
         self._tables: Dict[str, Tuple[torch.Tensor, Dict]] = {}

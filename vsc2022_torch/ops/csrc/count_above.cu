@@ -20,6 +20,15 @@
 // is complete when this count equals its kept entries) and the streaming
 // verify rely on.
 //
+// Over an int8 (SQ8) corpus both collections count with
+// vsc_count_above_int8 (launch key count_above.int8; JAX:
+// streaming_count_above and the repair counts on the IP8 branch, XLA,
+// vsc2022_tpu/ops/similarity.py:459-472, 1135-1150): reduce_gemm.cuh's
+// int8 corpus, the codes widened exactly into the same chain and each
+// score scaled once before the compare, so it counts the scores of
+// pool_writer.int8's pool and fused_topk.int8's candidates bit for bit.
+// Bound: operations, as the f32 kernel; a quarter of its corpus bytes.
+//
 // Over a bf16 corpus (the JAX searcher's streaming_count_above on bf16
 // operands with f32 accumulation) both collections count with
 // vsc_count_above_bf16 (launch key count_above.bf16): the tensor-core
@@ -144,6 +153,32 @@ extern "C" int vsc_count_above(int device, const float* q, const float* refs,
   if (err != cudaSuccess) return (int)err;
   return (int)reduce::launch(q, refs, m, d, n_valid, vec, grid,
                              reduce::RowFold<CountAbove>{{tau, out}}, 0, s);
+}
+
+// Blocks of the int8 kernel one SM holds at once.
+extern "C" int vsc_count_above_int8_occupancy(int device, int* blocks_per_sm) {
+  return reduce::resident_blocks_int8<reduce::RowFold<CountAbove>>(
+      device, 0, blocks_per_sm);
+}
+
+// The int8 variant (SQ8 corpus): q [m, d] f32 and codes [n, d] int8
+// row-major, d a multiple of 16 (zero pad columns past the data's width),
+// both bases 16-byte aligned, scale [n] f32; out and `grid` as for
+// vsc_count_above.
+extern "C" int vsc_count_above_int8(int device, const float* q,
+                                    const int8_t* codes, const float* scale,
+                                    int m, int n, int d, float tau,
+                                    int n_valid, int grid, int* out,
+                                    void* stream) {
+  if (m <= 0) return 0;
+  if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce::launch_int8(q, codes, scale, m, d, n_valid, grid,
+                                  reduce::RowFold<CountAbove>{{tau, out}}, 0, s);
 }
 
 // Blocks of the bf16 kernel (tensor cores) one SM holds at once (its grid:

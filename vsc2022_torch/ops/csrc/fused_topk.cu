@@ -51,6 +51,16 @@
 // rows best-first with ordered_topk over [M, S * kappa], the counterpart of
 // the JAX wrapper's lax.top_k after its kernel.
 //
+// The int8 variant (vsc_fused_topk_int8) is the streaming collection over
+// an int8 (SQ8) corpus (the JAX searcher's block scores on the IP8 branch,
+// XLA: the codes widened into an f32 dot at HIGHEST, one scale multiply
+// per column, vsc2022_tpu/ops/similarity.py:259-283). It is this kernel
+// over reduce_gemm.cuh's int8 corpus (the codes widened exactly once per
+// slice into the same fmaf chain, each finished score scaled once before
+// the selection), on the same schedule; its winners are pool_writer.int8's
+// and count_above.int8 counts its scores, bit for bit. Bound: operations,
+// as the f32 kernel.
+//
 // The bf16 variant (vsc_fused_topk_bf16) is the streaming collection over a
 // bf16 corpus (the JAX searcher's bf16 x bf16 block scores with f32
 // accumulation, similarity.py:271; the port's server stages bf16 by
@@ -164,6 +174,7 @@ struct TopK {
   int kappa;
   int pieces;    // S: slots per row
   bool in_smem;  // the sets in shared memory (kappa <= kSmemKappaMax)
+  int ring_floats;  // where they start: the ring's size (ring_bytes / 4)
 
   struct State {};  // nothing in registers across the loop
   struct Smem {
@@ -185,7 +196,7 @@ struct TopK {
   __device__ __forceinline__ float* set_v(const Work& w, int rt, int r) const {
     if (in_smem) {
       extern __shared__ __align__(16) float dyn[];
-      return dyn + kStages * STAGE_FLOATS + r * (kappa + 1);
+      return dyn + ring_floats + r * (kappa + 1);
     }
     return out_v + ((size_t)(rt * BM + r) * pieces + slot(w, rt)) * kappa;
   }
@@ -485,9 +496,42 @@ extern "C" int vsc_fused_topk(int device, const float* q, const float* refs,
   err = fill_output(out_v, out_i, m, pieces, kappa, s);
   if (err != cudaSuccess) return (int)err;
   const bool in_smem = kappa <= kSmemKappaMax;
-  return (int)vsc::reduce::launch(q, refs, m, d, n_valid, vec, grid,
-                                  TopK{out_v, out_i, kappa, pieces, in_smem},
-                                  in_smem ? smem_set_bytes(kappa) : 0, s);
+  const int ring = vec ? ring_bytes<TopK, F32Corpus<true>>()
+                       : ring_bytes<TopK, F32Corpus<false>>();
+  return (int)vsc::reduce::launch(
+      q, refs, m, d, n_valid, vec, grid,
+      TopK{out_v, out_i, kappa, pieces, in_smem, ring / 4},
+      in_smem ? smem_set_bytes(kappa) : 0, s);
+}
+
+// Blocks of the int8 kernel one SM holds at once.
+extern "C" int vsc_fused_topk_int8_occupancy(int device, int* blocks_per_sm) {
+  return vsc::reduce::resident_blocks_int8<TopK>(
+      device, smem_set_bytes(kSmemKappaMax), blocks_per_sm);
+}
+
+// The int8 variant (SQ8 corpus): q [m, d] f32 and codes [n, d] int8
+// row-major, d a multiple of 16 (zero pad columns past the data's width),
+// both bases 16-byte aligned, scale [n] f32; `grid` and `pieces` as for
+// vsc_fused_topk (the same schedule: ops/kernels.py topk_grid).
+extern "C" int vsc_fused_topk_int8(int device, const float* q,
+                                   const int8_t* codes, const float* scale,
+                                   int m, int n, int d, int n_valid, int kappa,
+                                   int grid, int pieces, float* out_v,
+                                   int* out_i, void* stream) {
+  if (m <= 0) return 0;
+  if (kappa <= 0 || pieces <= 0 || n_valid < 0 || n_valid > n)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = fill_output(out_v, out_i, m, pieces, kappa, s);
+  if (err != cudaSuccess) return (int)err;
+  const bool in_smem = kappa <= kSmemKappaMax;
+  return (int)vsc::reduce::launch_int8(
+      q, codes, scale, m, d, n_valid, grid,
+      TopK{out_v, out_i, kappa, pieces, in_smem, ring_bytes<TopK, I8Corpus>() / 4},
+      in_smem ? smem_set_bytes(kappa) : 0, s);
 }
 
 // Blocks of the bf16 kernel (tensor cores) one SM holds at once: its grid

@@ -18,6 +18,17 @@
 // L2. Every score is the f32 fmaf chain of reduce_gemm.cuh, so the pool is
 // what the f32 row_max, count_above and fused_topk score, bit for bit.
 //
+// int8 (vsc_pool_writer_int8, launch key pool_writer.int8) is the pooled
+// collection over an int8 (SQ8) corpus; the Pallas kernels are gated off
+// for int8 and JAX builds that pool with XLA (pool_build_xla on the IP8
+// branch, vsc2022_tpu/ops/similarity.py:704-735: codes widened into an
+// f32 dot at HIGHEST, one scale multiply per column). Here it is the f32
+// kernel with the codes widened exactly as tile_gemm.cuh copies them, and
+// each finished score scaled once (ColumnScale) before the segment
+// reduction, so the pool is what row_max.int8, count_above.int8,
+// fused_topk.int8 and scores.int8 score, bit for bit. Bound: operations,
+// as the f32 kernel; its corpus bytes are a quarter of f32's.
+//
 // bf16 (vsc_pool_writer_bf16) replaces the Pallas kernels' bf16 branch
 // (pallas_kernels.py:228-230 and :389-391: bf16 operands in one native
 // pass, f32 accumulation), the pooled collection over a bf16 corpus. Bound:
@@ -68,11 +79,14 @@ __device__ __forceinline__ Top2 warp_top2(const float (&row_acc)[COLS_PER_LANE],
   return t;
 }
 
+// T: the corpus rows' type (f32, or int8 codes whose scores take the
+// column hook `scaled`).
+template <class T>
 __global__ void __launch_bounds__(THREADS)
     pool_writer_kernel(const float* __restrict__ q,
-                       const float* __restrict__ refs, int m, int n, int d,
-                       int n_valid, int n_row_tiles, float* __restrict__ out_v,
-                       int* __restrict__ out_i) {
+                       const T* __restrict__ refs, ColumnScale scaled, int m,
+                       int n, int d, int n_valid, int n_row_tiles,
+                       float* __restrict__ out_v, int* __restrict__ out_i) {
   __shared__ TileSmem sm;
   const int rt = blockIdx.x % n_row_tiles;
   const int seg = blockIdx.x / n_row_tiles;
@@ -85,6 +99,7 @@ __global__ void __launch_bounds__(THREADS)
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  if constexpr (sizeof(T) == 1) scaled.apply(acc, col0 + lane * COLS_PER_LANE);
 #pragma unroll
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
     const Top2 t = warp_top2(acc[r], col0, n_valid, lane);
@@ -143,6 +158,22 @@ struct Bf16Pool {
                                         const wg::Item&) const {}
 };
 
+template <class T>
+int run_pool_writer(int device, const float* q, const T* refs,
+                    ColumnScale scaled, int m, int n, int d, int n_valid,
+                    float* out_v, int* out_i, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int n_row_tiles = (m + BM - 1) / BM;
+  const long long blocks = (long long)n_row_tiles * (n / BN);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  pool_writer_kernel<T><<<(unsigned)blocks, THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      q, refs, scaled, m, n, d, n_valid, n_row_tiles, out_v, out_i);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q [m, d], refs [n, d] (n a multiple of 128), both f32 row-major on the
@@ -150,16 +181,19 @@ struct Bf16Pool {
 extern "C" int vsc_pool_writer(int device, const float* q, const float* refs,
                                int m, int n, int d, int n_valid, float* out_v,
                                int* out_i, void* stream) {
-  if (m <= 0 || n <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int n_row_tiles = (m + BM - 1) / BM;
-  const long long blocks = (long long)n_row_tiles * (n / BN);
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  pool_writer_kernel<<<(unsigned)blocks, THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      q, refs, m, n, d, n_valid, n_row_tiles, out_v, out_i);
-  return (int)cudaGetLastError();
+  return run_pool_writer(device, q, refs, ColumnScale{nullptr, 0}, m, n, d,
+                         n_valid, out_v, out_i, stream);
+}
+
+// The int8 variant (SQ8 corpus): q [m, d] f32, codes [n, d] int8 (n a
+// multiple of 128) and scale [n] f32, row-major on the device; a score is
+// (q . codes[j]) * scale[j]. Output as for vsc_pool_writer.
+extern "C" int vsc_pool_writer_int8(int device, const float* q,
+                                    const int8_t* codes, const float* scale,
+                                    int m, int n, int d, int n_valid,
+                                    float* out_v, int* out_i, void* stream) {
+  return run_pool_writer(device, q, codes, ColumnScale{scale, n}, m, n, d,
+                         n_valid, out_v, out_i, stream);
 }
 
 // Blocks of the bf16 kernel (tensor cores) one SM holds at once: its grid is

@@ -17,6 +17,17 @@
 // reads or the fill, bound the inner loop. Its scores are pool_writer's bit
 // for bit: the row max equals the pool's best winner.
 //
+// The int8 variant (vsc_row_max_int8) is the noise-NN over an int8 (SQ8)
+// corpus: the JAX searcher's k = 1 streaming top-k over int8 storage, XLA
+// with the codes widened into an f32 dot at HIGHEST and one scale multiply
+// per column (vsc2022_tpu/ops/similarity.py:259-283, the IP8 branch). It
+// is this kernel over reduce_gemm.cuh's int8 corpus: the codes widened
+// exactly into the same fmaf chain, the scale applied once per finished
+// score before the max. Bound: operations, as the f32 kernel (2*M*N*D at
+// 67 TFLOP/s); the corpus bytes are a quarter of f32's. With every scale 1
+// it is the f32 kernel on codes.float(), bit for bit; its scores are those
+// of the other .int8 kernels.
+//
 // The bf16 variant (vsc_row_max_bf16) is the noise-NN over a bf16 corpus
 // (score_norm(dtype="bfloat16") and the serving bias): fused_row_max has no
 // bf16 branch, and the JAX searcher computes it with XLA on bf16 operands
@@ -150,9 +161,11 @@ struct Bf16RowMax {
   }
 };
 
-int run_row_max(int device, const float* q, const float* refs, int m, int n,
-                int d, int n_valid, int vec, int grid, unsigned* keys,
-                float* out, void* stream) {
+// Fills the keys, runs `launch` (the reduce_gemm.cuh kernel) and turns the
+// keys into f32.
+template <class Launch>
+int run_row_max(int device, int m, int n, int n_valid, unsigned* keys,
+                float* out, void* stream, Launch launch) {
   if (m <= 0) return 0;
   if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -160,8 +173,7 @@ int run_row_max(int device, const float* q, const float* refs, int m, int n,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int fill_blocks = (m + 255) / 256;
   fill_keys<<<fill_blocks, 256, 0, s>>>(keys, m);
-  err = reduce::launch(q, refs, m, d, n_valid, vec, grid,
-                       reduce::RowFold<RowMax>{{keys}}, 0, s);
+  err = launch(s);
   if (err != cudaSuccess) return (int)err;
   keys_to_f32<<<fill_blocks, 256, 0, s>>>(keys, out, m);
   return (int)cudaGetLastError();
@@ -183,8 +195,34 @@ extern "C" int vsc_row_max(int device, const float* q, const float* refs,
                            int m, int n, int d, int n_valid, int vec,
                            int grid, unsigned* keys, float* out,
                            void* stream) {
-  return run_row_max(device, q, refs, m, n, d, n_valid, vec, grid, keys, out,
-                     stream);
+  return run_row_max(device, m, n, n_valid, keys, out, stream,
+                     [&](cudaStream_t s) {
+                       return reduce::launch(q, refs, m, d, n_valid, vec, grid,
+                                             reduce::RowFold<RowMax>{{keys}}, 0,
+                                             s);
+                     });
+}
+
+// Blocks of the int8 kernel one SM holds at once.
+extern "C" int vsc_row_max_int8_occupancy(int device, int* blocks_per_sm) {
+  return reduce::resident_blocks_int8<reduce::RowFold<RowMax>>(
+      device, 0, blocks_per_sm);
+}
+
+// The int8 variant (SQ8 corpus): q [m, d] f32 and codes [n, d] int8
+// row-major, d a multiple of 16 (zero pad columns past the data's width),
+// both bases 16-byte aligned, scale [n] f32 (a score is (q . codes[j]) *
+// scale[j]); keys, out and `grid` as for vsc_row_max.
+extern "C" int vsc_row_max_int8(int device, const float* q, const int8_t* codes,
+                                const float* scale, int m, int n, int d,
+                                int n_valid, int grid, unsigned* keys,
+                                float* out, void* stream) {
+  return run_row_max(device, m, n, n_valid, keys, out, stream,
+                     [&](cudaStream_t s) {
+                       return reduce::launch_int8(
+                           q, codes, scale, m, d, n_valid, grid,
+                           reduce::RowFold<RowMax>{{keys}}, 0, s);
+                     });
 }
 
 // Blocks of the bf16 kernel one SM holds at once (its grid: SMs x this,

@@ -41,10 +41,23 @@ collections compare their candidates with their counts bit for bit:
   (``SimilaritySearcher.tensor_core_refs``), and the wrappers pad
   whatever is not.
 
+* int8 (SQ8 storage; ``<name>.int8``): f32 queries against int8 codes
+  with one f32 scale per corpus row (``scale=``); a score is (q ·
+  float(codes[j])) × scale[j]. The f32 fmaf chain over the codes widened
+  exactly (``reduce_gemm.cuh``'s int8 corpus; ``tile_gemm.cuh`` for
+  ``pool_writer`` and ``scores``), the scale applied once per finished
+  score, before the max, the count or the selection. So with every scale
+  1 each int8 kernel equals its f32 kernel on ``codes.float()`` bit for
+  bit, and the five int8 kernels agree with each other as the f32 ones
+  do. Codes rows hold a multiple of 16 values (``pad_columns(codes,
+  I8_ROW_ALIGN)``; the searchers stage them so), the queries as many
+  (zero columns: the wrappers pad them).
+
 No wrapper gives way from one variant to another.
 
-The plain versions widen bf16 inputs to f32 before ``torch.matmul``
-(whose bf16 product would round every score to bf16).
+The plain versions widen bf16 inputs and int8 codes to f32 before
+``torch.matmul`` (whose bf16 product would round every score to bf16),
+then multiply by the scales.
 
 The source notes in ``ops/csrc/*.cu`` say which TPU kernel each one
 replaces, what bounds it on an H100 and what its design does about it.
@@ -53,7 +66,7 @@ replaces, what bounds it on an H100 and what its design does about it.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +96,8 @@ WGMMA_SMEM_SETS_GROUP = 2
 WGMMA_SMEM_SETS_KAPPA_MAX = 38
 # bf16 values per 16 bytes: TMA wants rows whose stride is a multiple.
 ROW_ALIGN = 8
+# int8 codes per 16 bytes: the int8 kernels copy whole 16-byte pieces.
+I8_ROW_ALIGN = 16
 
 # Elements of one score chunk in the plain versions (512 MB of f32).
 PLAIN_CHUNK_ELEMENTS = 1 << 27
@@ -90,18 +105,23 @@ PLAIN_CHUNK_ELEMENTS = 1 << 27
 # Ceiling on fused_topk's [M, S, κ] output: large κ takes a smaller grid.
 TOPK_SCRATCH_BYTES = 1 << 30
 
-# The retrieval kernels, each with a bf16 variant.
+# The retrieval kernels, each with a bf16 and an int8 variant.
 RETRIEVAL_KERNELS = ("row_max", "count_above", "pool_writer", "fused_topk")
 BF16 = ".bf16"  # suffix of a bf16 variant's launch count
+INT8 = ".int8"  # suffix of an int8 variant's launch count
 
-# The re-search's scores over a bf16 corpus (bf16 only).
+# The re-search's scores over a bf16 corpus (bf16 only) and over an int8 one.
 SCORES = "scores" + BF16
+SCORES_INT8 = "scores" + INT8
 # The kernels whose bf16 variant runs on the tensor cores (wgmma_gemm.cuh).
 TENSOR_CORE_KERNELS = RETRIEVAL_KERNELS + ("scores",)
+# The int8 variants, all on the f32 chain over widened codes.
+INT8_KERNELS = tuple(name + INT8 for name in RETRIEVAL_KERNELS) + (SCORES_INT8,)
 
 launches: Dict[str, int] = {
     **{name: 0 for name in RETRIEVAL_KERNELS}, "chamfer": 0,
     **{name + BF16: 0 for name in RETRIEVAL_KERNELS}, SCORES: 0,
+    **{name: 0 for name in INT8_KERNELS},
 }
 
 
@@ -117,44 +137,59 @@ def _row_chunk(n_cols: int) -> int:
 # ---- plain versions -------------------------------------------------------
 
 
-def row_max_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
-    """max_j q·refs[j]ᵀ over j < n_valid, per row ([M] f32; −inf when
-    n_valid == 0). Pad columns of refs past q's width are left out."""
+def _plain_scores(q: torch.Tensor, r: torch.Tensor,
+                  scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """q·rᵀ in f32 (r widened), times the per-column ``scale`` (int8)."""
+    s = torch.matmul(q.float(), r.T)
+    return s if scale is None else s * scale
+
+
+def row_max_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
+                  scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """max_j q·refs[j]ᵀ (× scale[j] for int8 codes) over j < n_valid, per
+    row ([M] f32; −inf when n_valid == 0). Pad columns of refs past q's
+    width are left out."""
     m, d = q.shape
     out = torch.full((m,), float("-inf"), dtype=torch.float32, device=q.device)
     if n_valid == 0:
         return out
-    # bf16 widens (exactly); f32 is returned as is.
+    # bf16 and int8 widen (exactly); f32 is returned as is.
     r = refs[:n_valid, :d].float()
+    sc = None if scale is None else scale[:n_valid]
     step = _row_chunk(n_valid)
     for start in range(0, m, step):
-        out[start : start + step] = torch.matmul(
-            q[start : start + step].float(), r.T
-        ).amax(1)
+        out[start : start + step] = _plain_scores(
+            q[start : start + step], r, sc).amax(1)
     return out
 
 
 def count_above_plain(
-    q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int
+    q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int,
+    scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Per-row count of q·refs[j]ᵀ ≥ τ over j < n_valid ([M] int32). Pad
-    columns of refs past q's width are left out."""
+    """Per-row count of q·refs[j]ᵀ (× scale[j] for int8 codes) ≥ τ over
+    j < n_valid ([M] int32). Pad columns of refs past q's width are left
+    out."""
     m, d = q.shape
     out = torch.zeros((m,), dtype=torch.int32, device=q.device)
     if n_valid == 0:
         return out
     r = refs[:n_valid, :d].float()
+    sc = None if scale is None else scale[:n_valid]
     step = _row_chunk(n_valid)
     for start in range(0, m, step):
-        s = torch.matmul(q[start : start + step].float(), r.T)
+        s = _plain_scores(q[start : start + step], r, sc)
         out[start : start + step] = (s >= tau).sum(1, dtype=torch.int32)
     return out
 
 
-def scores_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
-    """q·refs[j]ᵀ for j < n_valid, [M, n_valid] f32 (bf16 widened). Pad
-    columns of refs past q's width are left out."""
-    return torch.matmul(q.float(), refs[:n_valid, : q.shape[1]].float().T)
+def scores_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
+                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q·refs[j]ᵀ (× scale[j] for int8 codes) for j < n_valid, [M,
+    n_valid] f32 (bf16 and int8 widened). Pad columns of refs past q's
+    width are left out."""
+    return _plain_scores(q, refs[:n_valid, : q.shape[1]].float(),
+                         None if scale is None else scale[:n_valid])
 
 
 def _first_max(s3: torch.Tensor, lanes: torch.Tensor):
@@ -165,9 +200,11 @@ def _first_max(s3: torch.Tensor, lanes: torch.Tensor):
 
 
 def pool_writer_plain(
-    q: torch.Tensor, refs: torch.Tensor, n_valid: int
+    q: torch.Tensor, refs: torch.Tensor, n_valid: int,
+    scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The winner pool: for every 128-column segment of q·refsᵀ, its best
+    """The winner pool: for every 128-column segment of q·refsᵀ (× scale
+    per column for int8 codes), its best
     two entries (values best-first, then global column ids; ties to the
     lower column, columns ≥ n_valid at −inf). Returns ([M, N/128, 2] f32,
     [M, N/128, 2] int32). The id of a −inf slot is unspecified (here a
@@ -183,7 +220,7 @@ def pool_writer_plain(
     refs = refs[:, : q.shape[1]].float()
     step = _row_chunk(n)
     for start in range(0, m, step):
-        s = torch.matmul(q[start : start + step].float(), refs.T)
+        s = _plain_scores(q[start : start + step], refs, scale)
         s[:, n_valid:] = float("-inf")
         s3 = s.view(s.shape[0], n_seg, SEG_LANES)
         m1, a1 = _first_max(s3, lanes)
@@ -214,21 +251,25 @@ def ordered_topk(
 
 
 def fused_topk_plain(
-    q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int
+    q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int,
+    scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row top-κ of the winner pool (``pool_writer_plain``'s: best 2
     per 128-column segment, columns ≥ n_valid at −inf), ordered by score
     descending, then column ascending: ([M, κ] f32, [M, κ] int32), padded
     with −inf and id 0. Any N (the pool zero-pads refs to whole segments).
-    Pad columns of refs past q's width are left out."""
+    Pad columns of refs past q's width are left out; int8 codes take their
+    ``scale``."""
     refs = refs[:, : q.shape[1]]
     n = refs.shape[0]
     n_seg = -(-n // SEG_LANES)
     if n_seg * SEG_LANES != n:
         pad = refs.new_zeros((n_seg * SEG_LANES - n, refs.shape[1]))
         refs = torch.cat([refs, pad])
+        if scale is not None:
+            scale = torch.cat([scale[:n], scale.new_zeros(n_seg * SEG_LANES - n)])
     m = q.shape[0]
-    vals, ids = pool_writer_plain(q, refs, n_valid)
+    vals, ids = pool_writer_plain(q, refs, n_valid, scale)
     return ordered_topk(vals.view(m, -1), ids.view(m, -1), kappa)
 
 
@@ -266,17 +307,17 @@ def chamfer_fine_sims_plain(
 _OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def padded_width(d: int) -> int:
-    """Columns of a row of ``d`` values padded to a multiple of ROW_ALIGN."""
-    return -(-d // ROW_ALIGN) * ROW_ALIGN
+def padded_width(d: int, align: int = ROW_ALIGN) -> int:
+    """Columns of a row of ``d`` values padded to a multiple of ``align``."""
+    return -(-d // align) * align
 
 
-def pad_columns(x: torch.Tensor) -> torch.Tensor:
-    """[N, D] rows as a contiguous, 16-byte-aligned [N, padded_width(D)]
-    tensor whose columns past D are zero (zeros add nothing to a product);
-    ``x`` itself when it is one already."""
+def pad_columns(x: torch.Tensor, align: int = ROW_ALIGN) -> torch.Tensor:
+    """[N, D] rows as a contiguous, 16-byte-aligned [N, padded_width(D,
+    align)] tensor whose columns past D are zero (zeros add nothing to a
+    product); ``x`` itself when it is one already."""
     n, d = x.shape
-    width = padded_width(d)
+    width = padded_width(d, align)
     if width == d and x.is_contiguous() and x.data_ptr() % 16 == 0:
         return x
     out = x.new_zeros((n, width))  # the allocator aligns to 512 bytes
@@ -285,17 +326,33 @@ def pad_columns(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
-           pad_ok: bool = False) -> None:
-    """``pad_ok``: refs may also have padded_width(D) columns."""
+           pad_ok: bool = False, scale: Optional[torch.Tensor] = None) -> None:
+    """``pad_ok``: refs may also have padded_width(D) columns (int8 codes
+    always may: padded_width(D, I8_ROW_ALIGN)). int8 codes take f32
+    queries and their f32 ``scale`` [N]; every other pairing raises."""
     if q.device != refs.device:
         raise ValueError(f"q on {q.device}, refs on {refs.device}")
-    if q.dtype not in _OPERAND_DTYPES or refs.dtype not in _OPERAND_DTYPES:
-        raise TypeError(f"f32 or bf16 only: got {q.dtype} and {refs.dtype}")
-    if q.dtype != refs.dtype:
-        raise TypeError(f"q and refs must share a dtype: got {q.dtype} and {refs.dtype}")
+    int8 = refs.dtype == torch.int8
+    if int8:
+        if q.dtype != torch.float32:
+            raise TypeError(f"int8 codes take f32 queries: got {q.dtype}")
+        if scale is None:
+            raise TypeError("int8 codes need their scale")
+        if (scale.dtype != torch.float32 or scale.dim() != 1
+                or scale.shape[0] != refs.shape[0] or scale.device != refs.device):
+            raise ValueError(f"scale {tuple(scale.shape)} {scale.dtype} on "
+                             f"{scale.device} for codes {tuple(refs.shape)}")
+    else:
+        if scale is not None:
+            raise TypeError(f"scale goes with int8 codes only, not {refs.dtype}")
+        if q.dtype not in _OPERAND_DTYPES or refs.dtype not in _OPERAND_DTYPES:
+            raise TypeError(f"f32, bf16 or int8 codes only: got {q.dtype} and {refs.dtype}")
+        if q.dtype != refs.dtype:
+            raise TypeError(f"q and refs must share a dtype: got {q.dtype} and {refs.dtype}")
+    align = I8_ROW_ALIGN if int8 else ROW_ALIGN
     if q.dim() != 2 or refs.dim() != 2 or (
         refs.shape[1] != q.shape[1]
-        and not (pad_ok and refs.shape[1] == padded_width(q.shape[1]))
+        and not ((pad_ok or int8) and refs.shape[1] == padded_width(q.shape[1], align))
     ):
         raise ValueError(f"shapes {tuple(q.shape)} and {tuple(refs.shape)}")
     if not 0 <= n_valid <= refs.shape[0]:
@@ -305,6 +362,8 @@ def _check(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
     if q.device.type == "cuda":
         if not (q.is_contiguous() and refs.is_contiguous()):
             raise ValueError("the kernels take contiguous row-major tensors")
+        if int8 and not scale.is_contiguous():
+            raise ValueError("the kernels take a contiguous scale")
         if max(q.shape[0], refs.shape[0], q.shape[1]) >= 2**31:
             raise ValueError("dimensions must fit in int32")
 
@@ -517,21 +576,50 @@ def _reduce_plan(name: str, q: torch.Tensor, refs: torch.Tensor,
     return vec, reduce_grid(m, n_valid, _reduce_slots(q, name, vec))
 
 
-def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
+def _int8_operands(q: torch.Tensor, codes: torch.Tensor):
+    """f32 queries and int8 codes as the int8 kernels take them: both rows
+    of padded_width(D, I8_ROW_ALIGN) values (no copy of codes the searcher
+    staged padded, nor of queries padded already)."""
+    if q.shape[1] == 0:
+        raise ValueError("the int8 kernels take D >= 1")
+    return pad_columns(q, I8_ROW_ALIGN), pad_columns(codes, I8_ROW_ALIGN)
+
+
+def _int8_grid(name: str, q: torch.Tensor, n_valid: int) -> int:
+    """One wave of reduce_gemm.cuh blocks of the int8 kernel ``name`` (its
+    C name), 0 when there is no work item."""
+    if n_valid == 0:
+        return 0
+    return reduce_grid(q.shape[0], n_valid, _occupancy_slots(q, name))
+
+
+def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
+            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused q·refsᵀ row max over the first ``n_valid`` columns, [M] f32.
     A bf16 ``refs`` may carry ``pad_columns``' zero pad columns
-    (padded_width(D) columns for q's D), as the searchers stage it."""
+    (padded_width(D) columns for q's D), as the searchers stage it; int8
+    codes take their ``scale`` (scores q·codes[j] × scale[j])."""
     n_valid = int(n_valid)
     bf16 = q.dtype == torch.bfloat16
-    _check(q, refs, n_valid, pad_ok=bf16)
+    _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
     if q.device.type == "cpu":
-        return row_max_plain(q, refs, n_valid)
+        return row_max_plain(q, refs, n_valid, scale)
     m, d = q.shape
     out = torch.empty((m,), dtype=torch.float32, device=q.device)
     if m == 0:
         return out
     keys = torch.empty((m,), dtype=torch.int32, device=q.device)
     lib = _build.library()
+    if refs.dtype == torch.int8:
+        q, refs = _int8_operands(q, refs)
+        rc = lib.vsc_row_max_int8(
+            q.device.index, q.data_ptr(), refs.data_ptr(), scale.data_ptr(), m,
+            refs.shape[0], q.shape[1], n_valid, _int8_grid("row_max_int8", q, n_valid),
+            keys.data_ptr(), out.data_ptr(), _stream(q),
+        )
+        _raise_on(rc, "row_max_int8")
+        launches["row_max" + INT8] += 1
+        return out
     if bf16:
         if d == 0:
             raise ValueError("row_max_bf16: the kernel takes D >= 1")
@@ -558,21 +646,32 @@ def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
 
 
 def count_above(
-    q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int
+    q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int,
+    scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Exact per-row count of q·refsᵀ ≥ τ over the first ``n_valid``
     columns, [M] int32. A bf16 ``refs`` may carry ``pad_columns``' zero
-    pad columns."""
+    pad columns; int8 codes take their ``scale``."""
     n_valid = int(n_valid)
     bf16 = q.dtype == torch.bfloat16
-    _check(q, refs, n_valid, pad_ok=bf16)
+    _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
     if q.device.type == "cpu":
-        return count_above_plain(q, refs, float(tau), n_valid)
+        return count_above_plain(q, refs, float(tau), n_valid, scale)
     m, d = q.shape
     out = torch.empty((m,), dtype=torch.int32, device=q.device)
     if m == 0:
         return out
     lib = _build.library()
+    if refs.dtype == torch.int8:
+        q, refs = _int8_operands(q, refs)
+        rc = lib.vsc_count_above_int8(
+            q.device.index, q.data_ptr(), refs.data_ptr(), scale.data_ptr(), m,
+            refs.shape[0], q.shape[1], float(tau), n_valid,
+            _int8_grid("count_above_int8", q, n_valid), out.data_ptr(), _stream(q),
+        )
+        _raise_on(rc, "count_above_int8")
+        launches["count_above" + INT8] += 1
+        return out
     if bf16:
         if d == 0:
             raise ValueError("count_above_bf16: the kernel takes D >= 1")
@@ -596,21 +695,23 @@ def count_above(
 
 
 def pool_writer(
-    q: torch.Tensor, refs: torch.Tensor, n_valid: int
+    q: torch.Tensor, refs: torch.Tensor, n_valid: int,
+    scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused q·refsᵀ winner pool: best 2 per 128-column segment,
     ([M, N/128, 2] f32, [M, N/128, 2] int32). N must be a multiple of 128.
-    A bf16 ``refs`` may carry ``pad_columns``' zero pad columns. The ids
-    of −inf slots are unspecified and differ between the f32 and bf16
-    kernels; a finite slot's id is its column, ties to the lower one."""
+    A bf16 ``refs`` may carry ``pad_columns``' zero pad columns; int8
+    codes take their ``scale``. The ids of −inf slots are unspecified and
+    differ between the kernels; a finite slot's id is its column, ties to
+    the lower one."""
     n_valid = int(n_valid)
     bf16 = q.dtype == torch.bfloat16
-    _check(q, refs, n_valid, pad_ok=bf16)
+    _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
     n = refs.shape[0]
     if n % SEG_LANES:
         raise ValueError(f"refs rows ({n}) must be a multiple of {SEG_LANES}")
     if q.device.type == "cpu":
-        return pool_writer_plain(q, refs, n_valid)
+        return pool_writer_plain(q, refs, n_valid, scale)
     m, d = q.shape
     shape = (m, n // SEG_LANES, SEG_KEEP)
     vals = torch.empty(shape, dtype=torch.float32, device=q.device)
@@ -618,6 +719,15 @@ def pool_writer(
     if vals.numel() == 0:
         return vals, ids
     lib = _build.library()
+    if refs.dtype == torch.int8:
+        q, refs = _int8_operands(q, refs)
+        rc = lib.vsc_pool_writer_int8(
+            q.device.index, q.data_ptr(), refs.data_ptr(), scale.data_ptr(), m, n,
+            q.shape[1], n_valid, vals.data_ptr(), ids.data_ptr(), _stream(q),
+        )
+        _raise_on(rc, "pool_writer_int8")
+        launches["pool_writer" + INT8] += 1
+        return vals, ids
     if bf16:
         if d == 0:
             raise ValueError("pool_writer_bf16: the kernel takes D >= 1")
@@ -642,23 +752,35 @@ def pool_writer(
     return vals, ids
 
 
-def scores(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
-    """q·refs[j]ᵀ for j < n_valid, [M, n_valid] f32, on the bf16 kernels'
-    product: for bf16 CUDA tensors the tensor-core kernel, whose scores
-    are those ``row_max``, ``count_above``, ``pool_writer`` and
-    ``fused_topk`` see, bit for bit. A bf16 ``refs`` may carry
-    ``pad_columns``' zero pad columns. f32 CUDA tensors raise: there the
-    searchers score with ``torch.matmul``."""
+def scores(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
+           scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q·refs[j]ᵀ (× scale[j] for int8 codes) for j < n_valid, [M,
+    n_valid] f32, on the product of the other kernels of its dtype: for
+    bf16 CUDA tensors the tensor-core kernel, for int8 codes the f32 chain
+    over widened codes, whose scores are those ``row_max``,
+    ``count_above``, ``pool_writer`` and ``fused_topk`` see, bit for bit.
+    A bf16 ``refs`` may carry ``pad_columns``' zero pad columns. f32 CUDA
+    tensors raise: there the searchers score with ``torch.matmul``."""
     n_valid = int(n_valid)
     bf16 = q.dtype == torch.bfloat16
-    _check(q, refs, n_valid, pad_ok=bf16)
+    _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
     if q.device.type == "cpu":
-        return scores_plain(q, refs, n_valid)
-    if not bf16:
-        raise TypeError("scores: the kernel takes bf16 operands")
+        return scores_plain(q, refs, n_valid, scale)
+    int8 = refs.dtype == torch.int8
+    if not (bf16 or int8):
+        raise TypeError("scores: the kernel takes bf16 operands or int8 codes")
     m, d = q.shape
     out = torch.empty((m, n_valid), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
+        return out
+    if int8:
+        q, refs = _int8_operands(q, refs)
+        rc = _build.library().vsc_scores_int8(
+            q.device.index, q.data_ptr(), refs.data_ptr(), scale.data_ptr(), m,
+            refs.shape[0], q.shape[1], n_valid, out.data_ptr(), _stream(q),
+        )
+        _raise_on(rc, "scores_int8")
+        launches[SCORES_INT8] += 1
         return out
     if d == 0:
         raise ValueError("scores_bf16: the kernel takes D >= 1")
@@ -674,7 +796,8 @@ def scores(q: torch.Tensor, refs: torch.Tensor, n_valid: int) -> torch.Tensor:
 
 
 def fused_topk(
-    q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int
+    q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int,
+    scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused q·refsᵀ per-row top-κ of the winner pool (best 2 per
     128-column segment), ordered by score descending, then column
@@ -682,24 +805,32 @@ def fused_topk(
     N and any κ ≥ 1. The kernel collects one κ-set per row and block
     (S pieces per row: ``topk_grid``, or ``wgmma_topk_grid`` in bf16);
     ``ordered_topk`` merges them. A bf16 ``refs`` may carry
-    ``pad_columns``' zero pad columns."""
+    ``pad_columns``' zero pad columns; int8 codes take their ``scale``
+    (on f32's schedule, ``topk_grid``)."""
     n_valid, kappa = int(n_valid), int(kappa)
     bf16 = q.dtype == torch.bfloat16
-    _check(q, refs, n_valid, pad_ok=bf16)
+    _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
     if kappa < 1:
         raise ValueError(f"kappa must be >= 1, got {kappa}")
     if q.device.type == "cpu":
-        return fused_topk_plain(q, refs, n_valid, kappa)
+        return fused_topk_plain(q, refs, n_valid, kappa, scale)
     m = q.shape[0]
     if m == 0:
         return (torch.empty((0, kappa), dtype=torch.float32, device=q.device),
                 torch.empty((0, kappa), dtype=torch.int32, device=q.device))
+    if refs.dtype == torch.int8:
+        q, refs = _int8_operands(q, refs)
+        grid, pieces = topk_grid(m, n_valid, kappa,
+                                 _int8_grid("fused_topk_int8", q, n_valid))
+        return _launch_topk("fused_topk_int8", "fused_topk" + INT8,
+                            (q, refs, scale), n_valid, kappa, pieces,
+                            (kappa, grid, pieces))
     if bf16:
         return _fused_topk_bf16(q, refs, n_valid, kappa,
                                 kappa <= WGMMA_SMEM_SETS_KAPPA_MAX)
     vec, grid = _reduce_plan("fused_topk", q, refs, n_valid)
     grid, pieces = topk_grid(m, n_valid, kappa, grid)
-    return _launch_topk("fused_topk", "fused_topk", q, refs, n_valid, kappa,
+    return _launch_topk("fused_topk", "fused_topk", (q, refs), n_valid, kappa,
                         pieces, (kappa, vec, grid, pieces))
 
 
@@ -721,21 +852,23 @@ def _fused_topk_bf16(
     slots = _wgmma_slots(q, "fused_topk_bf16", smem_sets, kappa if smem_sets else 0)
     grid, pieces = wgmma_topk_grid(m, n_valid, kappa,
                                    wgmma_grid(m, n_valid, slots), group)
-    return _launch_topk("fused_topk_bf16", "fused_topk" + BF16, q, refs, n_valid,
+    return _launch_topk("fused_topk_bf16", "fused_topk" + BF16, (q, refs), n_valid,
                         kappa, pieces, (kappa, smem_sets, grid, pieces))
 
 
 def _launch_topk(
-    cname: str, key: str, q: torch.Tensor, refs: torch.Tensor, n_valid: int,
+    cname: str, key: str, operands: Tuple[torch.Tensor, ...], n_valid: int,
     kappa: int, pieces: int, args: Tuple[int, ...],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launches ``vsc_<cname>`` into S = ``pieces`` κ-sets per row, counts
-    it under ``key`` and merges the sets."""
+    """Launches ``vsc_<cname>`` on ``operands`` (q, refs[, scale]) into S
+    = ``pieces`` κ-sets per row, counts it under ``key`` and merges the
+    sets."""
+    q, refs = operands[0], operands[1]
     m = q.shape[0]
     out_v = torch.empty((m, pieces * kappa), dtype=torch.float32, device=q.device)
     out_i = torch.empty((m, pieces * kappa), dtype=torch.int32, device=q.device)
     rc = getattr(_build.library(), f"vsc_{cname}")(
-        q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0],
+        q.device.index, *(t.data_ptr() for t in operands), m, refs.shape[0],
         q.shape[1], n_valid, *args, out_v.data_ptr(), out_i.data_ptr(),
         _stream(q),
     )

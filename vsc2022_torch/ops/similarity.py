@@ -1,8 +1,8 @@
 """Exact brute-force similarity search over a staged reference matrix.
 
 Counterpart of ``vsc2022_tpu/ops/similarity.py``: ``SimilaritySearcher``
-with ``metric="IP"``, ``precision="highest"`` and ``dtype`` "float32" or
-"bfloat16". It ports the contracts, not the TPU machinery.
+with ``metric="IP"``, ``precision="highest"`` and ``dtype`` "float32",
+"bfloat16" or "int8". It ports the contracts, not the TPU machinery.
 ``global_topk`` collects candidates in one of the JAX searcher's two
 modes, routed as it routes them (``_collection_mode``):
 
@@ -51,6 +51,15 @@ device memory and bytes moved. Scores are bf16 × bf16 products with f32
 accumulation, from the kernels' bf16 variants, the re-searches' included
 (``kernels.scores``); ``row_topk`` widens both sides to f32 before
 ``torch.matmul``.
+
+``dtype="int8"`` is the SQ8 tier (``quantize_rows_int8``): the corpus
+stages as int8 codes, zero-padded to a multiple of 16 columns, with one
+f32 scale per row, a quarter of f32's device memory and no f32 copy. The
+queries stay f32. A score is (q · float(codes[j])) × scale[j], exact over
+the dequantized corpus, from the kernels' int8 variants (the f32 chain
+over widened codes, the scale once per score), the re-searches' included
+(``kernels.scores``), so both collections compare bit-identical scores.
+``append_rows`` and ``keep_rows`` carry each row's scale with its codes.
 """
 
 from __future__ import annotations
@@ -101,20 +110,50 @@ def _host_f32(x) -> np.ndarray:
     return np.require(x, np.float32, ["C_CONTIGUOUS", "WRITEABLE"])
 
 
-# The storage dtypes ported so far, by name (int8 storage is not yet).
-STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# The storage dtypes, by name.
+STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "int8": torch.int8}
 
 
-def _max_row_norm(rows: torch.Tensor) -> float:
+def _quantize(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SQ8 codes and scales of f32 rows [N, D], on their device: f32
+    operations only, each correctly rounded (a division, a product and a
+    round half to even), so every device gives the same bytes as numpy.
+    The divisor 127 is a tensor on the device: on the GPU torch divides by
+    a Python scalar as a product with its reciprocal, one rounding off."""
+    if rows.shape[1] == 0:
+        scale = rows.new_zeros(rows.shape[0])
+    else:
+        scale = rows.abs().amax(1) / rows.new_tensor(127.0)
+    inv = torch.where(scale > 0, 1.0 / scale, torch.zeros_like(scale))
+    codes = torch.round(rows * inv[:, None]).clamp_(-127, 127).to(torch.int8)
+    return codes, scale
+
+
+def quantize_rows_int8(rows) -> Tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-row int8 quantization (the FAISS SQ8 analog), as the
+    JAX package quantizes: scale = max|row| / 127 in f32, inv = 1/scale (0
+    where the scale is 0), codes = clip(rint(row · inv), −127, 127).
+    Returns (codes [N, D] int8, scale [N] f32). Scores over the codes are
+    defined over the dequantized rows: (q · codes[j]) × scale[j]. The
+    searchers quantize the same way on their device, a block of rows at a
+    time."""
+    codes, scale = _quantize(torch.from_numpy(_host_f32(rows)))
+    return codes.numpy(), scale.numpy()
+
+
+def _max_row_norm(rows: torch.Tensor, scale: Optional[torch.Tensor] = None) -> float:
     """The largest L2 row norm, taken in f32 (a bf16 tensor's own norm is
-    bf16), chunked so that no f32 copy of a large bf16 corpus is made."""
+    bf16; int8 codes' norms times their scales: the dequantized rows'),
+    chunked so that no f32 copy of a large corpus is made."""
     if rows.shape[0] == 0:
         return 0.0
     step = max(1, PLAIN_CHUNK_ELEMENTS // max(rows.shape[1], 1))
-    return max(
-        float(rows[i : i + step].float().norm(dim=1).max())
-        for i in range(0, rows.shape[0], step)
-    )
+    norms = (rows[i : i + step].float().norm(dim=1) for i in range(0, rows.shape[0], step))
+    if scale is not None:
+        norms = (nrm * scale[i : i + step]
+                 for i, nrm in zip(range(0, rows.shape[0], step), norms))
+    return max(float(nrm.max()) for nrm in norms)
 
 
 def _col_block(n_rows: int) -> int:
@@ -173,12 +212,12 @@ class SimilaritySearcher:
     """Brute-force inner-product searcher over a fixed reference matrix.
 
     The references are staged to ``device`` once, in ``dtype``
-    ("float32" or "bfloat16"), zero-padded to a multiple of min(COL_BLOCK,
-    N rounded up to 128) rows, as the JAX searcher pads them; ``n_refs``
-    rows are valid. ``metric`` and ``precision`` take only the values
-    ported so far ("IP", "highest") and raise on the others; so does
-    ``dtype="int8"``. ``precision="default"`` keeps raising: the JAX
-    searcher leaves it to XLA, whose result depends on the backend.
+    ("float32", "bfloat16" or "int8": codes and scales), zero-padded to a
+    multiple of min(COL_BLOCK, N rounded up to 128) rows, as the JAX
+    searcher pads them; ``n_refs`` rows are valid. ``metric`` and
+    ``precision`` take only the values ported so far ("IP", "highest")
+    and raise on the others. ``precision="default"`` keeps raising: the
+    JAX searcher leaves it to XLA, whose result depends on the backend.
     """
 
     def __init__(
@@ -197,35 +236,99 @@ class SimilaritySearcher:
             raise NotImplementedError(
                 f"precision={precision!r} is not ported yet (full f32 only)"
             )
-        if dtype not in STORAGE_DTYPES:
-            raise NotImplementedError(
-                f"dtype={dtype!r} storage is not ported yet "
-                "(float32 and bfloat16 only)"
-            )
+        self._configure(dtype, device)
         self.metric = metric
         self.precision = precision
-        self.dtype = dtype
-        # Corpus and query staging dtype; the kernels' variant follows it.
-        self.torch_dtype = STORAGE_DTYPES[dtype]
-        self.device = resolve_device(device)
-        refs_t = torch.from_numpy(_host_f32(refs))
-        if refs_t.dim() != 2:
-            raise ValueError(f"refs must be [N, D]; got {tuple(refs_t.shape)}")
+        refs = _host_f32(refs)
+        if refs.ndim != 2:
+            raise ValueError(f"refs must be [N, D]; got {refs.shape}")
+        if self._int8:
+            self.n_refs, self.dim = refs.shape
+            self._stage_int8(self.n_refs)
+            self._quantize_into(refs, 0)
+            self._ref_norm_max = _max_row_norm(self._refs, self._scale)
+            return
+        refs_t = torch.from_numpy(refs)
         self.n_refs, self.dim = refs_t.shape
         self._refs = self._zeros(self._padded_refs(self.n_refs))
         # Rounded to bf16 (nearest even) on the device, in the copy.
         self._refs[: self.n_refs] = refs_t.to(self.device)
         self._ref_norm_max = _max_row_norm(self._refs)
+
+    @classmethod
+    def from_int8(cls, codes, scale, device: DeviceLike = "cuda") -> "SimilaritySearcher":
+        """An int8 searcher over codes [N, D] int8 and their scales [N] f32
+        taken as they are (not quantized again), e.g. a JAX int8
+        searcher's valid rows; the layout a fresh int8 stage of rows with
+        these codes gives."""
+        self = cls.__new__(cls)
+        self._configure("int8", device)
+        self.metric, self.precision = "IP", "highest"
+        codes = np.require(codes, np.int8, ["C_CONTIGUOUS", "WRITEABLE"])
+        scale = np.require(scale, np.float32, ["C_CONTIGUOUS", "WRITEABLE"])
+        if codes.ndim != 2 or scale.shape != (codes.shape[0],):
+            raise ValueError(f"codes {codes.shape} with scale {scale.shape}")
+        self.n_refs, self.dim = codes.shape
+        self._stage_int8(self.n_refs)
+        self._refs[: self.n_refs, : self.dim] = torch.from_numpy(codes).to(self.device)
+        self._scale[: self.n_refs] = torch.from_numpy(scale).to(self.device)
+        self._ref_norm_max = _max_row_norm(self._refs, self._scale)
+        return self
+
+    def _configure(self, dtype: str, device: DeviceLike) -> None:
+        if dtype not in STORAGE_DTYPES:
+            raise NotImplementedError(
+                f"dtype={dtype!r} storage is not ported yet "
+                "(float32, bfloat16 and int8 only)"
+            )
+        self.dtype = dtype
+        # Corpus staging dtype; the kernels' variant follows it. The
+        # queries stage in query_dtype: int8 corpora take f32 queries.
+        self.torch_dtype = STORAGE_DTYPES[dtype]
+        self._int8 = dtype == "int8"
+        self.query_dtype = torch.float32 if self._int8 else self.torch_dtype
+        self.device = resolve_device(device)
+        # int8: the per-row scales [N_pad] f32 (0 on the pad rows).
+        self._scale: Optional[torch.Tensor] = None
         # The tensor-core kernels' copy of a bf16 corpus
         # (kernels.pad_columns), built on first use; dropped whenever the
         # corpus changes.
         self._tc_copy: Optional[torch.Tensor] = None
         self.last_stats: dict = {}
 
+    def _stage_int8(self, n_rows: int) -> None:
+        """The zero int8 corpus of ``n_rows`` rows as it stages: codes rows
+        padded with zero columns to a multiple of ``kernels.I8_ROW_ALIGN``
+        (the int8 kernels' 16-byte copies) and zero rows to the padded row
+        count, at scale 0."""
+        n_pad = self._padded_refs(n_rows)
+        self._refs = self._zeros(n_pad)
+        self._scale = torch.zeros(n_pad, dtype=torch.float32, device=self.device)
+
+    def _quantize_into(self, rows: np.ndarray, start: int) -> None:
+        """Quantize f32 host rows on the device, a block at a time (no f32
+        copy of the corpus stays there), into staged rows [start, start +
+        len(rows))."""
+        step = max(1, PLAIN_CHUNK_ELEMENTS // 4 // max(self.dim, 1))
+        for i in range(0, rows.shape[0], step):
+            block = torch.from_numpy(rows[i : i + step]).to(self.device)
+            codes, scale = _quantize(block)
+            at = start + i
+            self._refs[at : at + block.shape[0], : self.dim] = codes
+            self._scale[at : at + block.shape[0]] = scale
+
     def _zeros(self, n_rows: int) -> torch.Tensor:
+        width = (kernels.padded_width(self.dim, kernels.I8_ROW_ALIGN)
+                 if self._int8 else self.dim)
         return torch.zeros(
-            (n_rows, self.dim), dtype=self.torch_dtype, device=self.device
+            (n_rows, width), dtype=self.torch_dtype, device=self.device
         )
+
+    def staged_bytes(self) -> int:
+        """Device bytes of the staged corpus: the rows (int8: the codes
+        and the scales) and the tensor-core copy, if one is held."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self._refs, self._scale, self._tc_copy) if t is not None)
 
     @staticmethod
     def _padded_refs(n_rows: int) -> int:
@@ -236,22 +339,31 @@ class SimilaritySearcher:
         landing right after the valid ones; the resident rows are copied
         device-side when the padding must grow. The result is the layout
         a fresh stage of all the rows gives."""
-        new = torch.from_numpy(_host_f32(new_rows))
-        if new.dim() != 2 or new.shape[1] != self.dim:
+        new_rows = _host_f32(new_rows)
+        if new_rows.ndim != 2 or new_rows.shape[1] != self.dim:
             raise ValueError(
-                f"rows must be [N, {self.dim}]; got {tuple(new.shape)}"
+                f"rows must be [N, {self.dim}]; got {new_rows.shape}"
             )
-        total = self.n_refs + new.shape[0]
+        start, total = self.n_refs, self.n_refs + new_rows.shape[0]
         n_pad = self._padded_refs(total)
-        refs = self._refs
-        if n_pad > refs.shape[0]:
+        if n_pad > self._refs.shape[0]:
             refs = self._zeros(n_pad)
-            refs[: self.n_refs] = self._refs[: self.n_refs]
-        refs[self.n_refs : total] = new.to(self.device)
+            refs[:start] = self._refs[:start]
+            self._refs = refs
+            if self._int8:
+                scale = torch.zeros(n_pad, dtype=torch.float32, device=self.device)
+                scale[:start] = self._scale[:start]
+                self._scale = scale
+        if self._int8:  # new rows bring their own scales
+            self._quantize_into(new_rows, start)
+        else:
+            self._refs[start:total] = torch.from_numpy(new_rows).to(self.device)
         self._ref_norm_max = max(
-            self._ref_norm_max, _max_row_norm(refs[self.n_refs : total])
+            self._ref_norm_max,
+            _max_row_norm(self._refs[start:total],
+                          None if self._scale is None else self._scale[start:total]),
         )
-        self._refs, self.n_refs = refs, total
+        self.n_refs = total
         self._tc_copy = None
 
     def keep_rows(self, keep_idx) -> None:
@@ -261,17 +373,23 @@ class SimilaritySearcher:
         fresh stage of the survivors gives, zero padding included."""
         keep_idx = _check_keep_idx(keep_idx, self.n_refs)
         total = int(keep_idx.size)
-        refs = self._zeros(self._padded_refs(total))
+        n_pad = self._padded_refs(total)
+        refs = self._zeros(n_pad)
         idx = torch.from_numpy(keep_idx).to(self.device)
         refs[:total] = self._refs.index_select(0, idx)
+        if self._int8:  # the scales compact with their rows
+            scale = torch.zeros(n_pad, dtype=torch.float32, device=self.device)
+            scale[:total] = self._scale.index_select(0, idx)
+            self._scale = scale
         self._refs, self.n_refs = refs, total
-        self._ref_norm_max = _max_row_norm(refs)
+        self._ref_norm_max = _max_row_norm(refs, self._scale)
         self._tc_copy = None
 
     def _stage_queries(self, queries) -> torch.Tensor:
-        """The queries on the device as contiguous rows of the staged
-        dtype (bf16 rounds to nearest even); a tensor already there (e.g.
-        bias-augmented queries) passes through."""
+        """The queries on the device as contiguous rows of the query dtype
+        (bf16 rounds to nearest even; an int8 corpus takes f32 queries); a
+        tensor already there (e.g. bias-augmented queries) passes
+        through."""
         if isinstance(queries, torch.Tensor):
             q = queries
         else:
@@ -280,7 +398,7 @@ class SimilaritySearcher:
             raise ValueError(
                 f"queries must be [M, {self.dim}]; got {tuple(q.shape)}"
             )
-        return q.to(self.device).to(self.torch_dtype).contiguous()
+        return q.to(self.device).to(self.query_dtype).contiguous()
 
     def _row_chunk(self) -> int:
         return max(1, PLAIN_CHUNK_ELEMENTS // max(self.n_refs, 1))
@@ -293,8 +411,9 @@ class SimilaritySearcher:
         return self.torch_dtype == torch.bfloat16
 
     def tensor_core_refs(self) -> torch.Tensor:
-        """The staged corpus as the kernels read it: an f32 corpus as
-        staged; a bf16 one as the tensor-core product reads it, rows of a
+        """The staged corpus as the kernels read it: an f32 corpus and
+        int8 codes (rows of a multiple of 16 values) as staged; a bf16
+        one as the tensor-core product reads it, rows of a
         multiple of 8 values (``kernels.pad_columns``): the staged corpus
         itself when its D is one (serving's and SSCD's D = 512 cost no
         memory), else a zero-padded copy (the DnS corpus's D = 1025: 1,032
@@ -306,25 +425,48 @@ class SimilaritySearcher:
             self._tc_copy = kernels.pad_columns(self._refs)
         return self._tc_copy
 
+    @property
+    def _kernel_kwargs(self) -> dict:
+        """What every kernel call takes besides its operands: an int8
+        corpus's scales."""
+        return {"scale": self._scale} if self._int8 else {}
+
+    def row_max(self, q: torch.Tensor) -> torch.Tensor:
+        """Best score per row of staged queries (``_stage_queries``), on
+        the device: the ``row_max`` kernel."""
+        return kernels.row_max(q, self.tensor_core_refs(), self.n_refs,
+                               **self._kernel_kwargs)
+
     def row_nn(self, queries) -> np.ndarray:
         """Best score per row (k=1), e.g. for score normalization; the
         ``row_max`` kernel on the device."""
-        q = self._stage_queries(queries)
-        return kernels.row_max(q, self.tensor_core_refs(), self.n_refs).cpu().numpy()
+        return self.row_max(self._stage_queries(queries)).cpu().numpy()
+
+    def _int8_scores(self, q: torch.Tensor) -> torch.Tensor:
+        """q·rᵀ over the valid rows of an int8 corpus in f32: the codes
+        widened a block of rows at a time (no f32 copy of the corpus),
+        ``torch.matmul``, then the scales."""
+        step = max(1, PLAIN_CHUNK_ELEMENTS // max(self.dim, 1))
+        return torch.cat([
+            torch.matmul(q, self._refs[c : min(c + step, self.n_refs), : self.dim].float().T)
+            * self._scale[c : min(c + step, self.n_refs)]
+            for c in range(0, self.n_refs, step)
+        ], 1)
 
     def row_topk(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Exact per-row top-k: (scores [Nq, k], idx [Nq, k]), best-first,
         ties to the lower index (a chunked ``torch.matmul`` in f32, bf16
-        rows widened, plus a stable sort)."""
+        rows and int8 codes widened, plus a stable sort)."""
         k = min(k, self.n_refs)
         q = self._stage_queries(queries).float()
         nq = q.shape[0]
         out_s = np.empty((nq, k), dtype=np.float32)
         out_i = np.empty((nq, k), dtype=np.int64)
-        refs = self._refs[: self.n_refs].float()
+        refs = None if self._int8 else self._refs[: self.n_refs].float()
         step = self._row_chunk()
         for start in range(0, nq, step):
-            s = torch.matmul(q[start : start + step], refs.T)
+            rows = q[start : start + step]
+            s = self._int8_scores(rows) if self._int8 else torch.matmul(rows, refs.T)
             vals, idx = torch.sort(s, dim=1, descending=True, stable=True)
             out_s[start : start + step] = vals[:, :k].cpu().numpy()
             out_i[start : start + step] = idx[:, :k].cpu().numpy()
@@ -344,12 +486,13 @@ class SimilaritySearcher:
         """Every corpus entry ≥ τ of the given query rows, chunked over the
         rows: (scores, local row index, ref id).
 
-        The scores: over a bf16 corpus the kernels' own product
-        (``kernels.scores``: the tensor cores on the card), as the JAX
-        searcher re-searches with its collection's block product, so a
-        re-searched pair scores as the kernels score it and both
-        collections, which re-search different rows, rank every pair
-        alike; over an f32 corpus ``torch.matmul``.
+        The scores: over a bf16 or int8 corpus the kernels' own product
+        (``kernels.scores``: the tensor cores, or the int8 kernels' f32
+        chain over widened codes, on the card), as the JAX searcher
+        re-searches with its collection's block product, so a re-searched
+        pair scores as the kernels score it and both collections, which
+        re-search different rows, rank every pair alike; over an f32
+        corpus ``torch.matmul``.
 
         The margin: τ and the counts come from the kernels' scores, and a
         product that sums differently may round the same (q, r) product
@@ -364,14 +507,15 @@ class SimilaritySearcher:
         exact products in blocks, each addend truncated to the block's
         largest exponent: at most 3·D·u·‖q‖·‖r‖ off the exact sum, 4·D·u
         off an f32 one). It costs only re-searched entries, which the
-        final cut drops.
+        final cut drops. Over an int8 corpus the re-search shares the
+        kernels' chain bit for bit too; its margin is the f32 one over the
+        dequantized rows' norms (``_ref_norm_max``: ‖codes‖ · scale).
         """
-        if self._tensor_cores:
-            refs = self.tensor_core_refs()
-            q_rows = kernels.pad_columns(q_rows)
+        if self._tensor_cores or self._int8:
+            q_rows, refs, kw = self._kernel_operands(q_rows)
 
             def score(rows):
-                return kernels.scores(rows, refs, self.n_refs)
+                return kernels.scores(rows, refs, self.n_refs, **kw)
         else:
             refs = self._refs[: self.n_refs]
 
@@ -465,11 +609,17 @@ class SimilaritySearcher:
         return result
 
     def _kernel_operands(self, q: torch.Tensor):
-        """(queries, corpus) as a collection hands them to its kernels: over
-        a bf16 corpus the queries padded once and ``tensor_core_refs``, so
-        that the candidates and the counts score on one product."""
+        """(queries, corpus, keyword arguments) as a collection hands them
+        to its kernels: over a bf16 corpus the queries padded once and
+        ``tensor_core_refs``; over an int8 one the queries padded once to
+        the codes' width, the codes and their scales; so that the
+        candidates and the counts score on one product."""
         refs = self.tensor_core_refs()
-        return (kernels.pad_columns(q) if self._tensor_cores else q), refs
+        if self._tensor_cores:
+            q = kernels.pad_columns(q)
+        elif self._int8:
+            q = kernels.pad_columns(q, kernels.I8_ROW_ALIGN)
+        return q, refs, self._kernel_kwargs
 
     def _collect_stream(self, q: torch.Tensor, kappa: int, k_eff: int, clock):
         """The streaming collection: per-row top-κ candidates, τ, exact
@@ -478,8 +628,8 @@ class SimilaritySearcher:
         (scores, query rows, ref ids) holding every entry that can make
         the cut, and the stats."""
         nq = q.shape[0]
-        q_k, refs = self._kernel_operands(q)
-        top_s, top_i = kernels.fused_topk(q_k, refs, self.n_refs, kappa)
+        q_k, refs, kw = self._kernel_operands(q)
+        top_s, top_i = kernels.fused_topk(q_k, refs, self.n_refs, kappa, **kw)
         clock.mark("candidates")
         # τ is the global k-th candidate; with k beyond the rows' κ
         # candidates the true k-th is unknowable from them: −inf.
@@ -487,7 +637,7 @@ class SimilaritySearcher:
             tau = NEG_INF
         else:
             tau = float(torch.topk(top_s.reshape(-1), k_eff).values[-1])
-        counts = kernels.count_above(q_k, refs, tau, self.n_refs).long()
+        counts = kernels.count_above(q_k, refs, tau, self.n_refs, **kw).long()
         above = (top_s >= tau) & torch.isfinite(top_s)
         kept = above.sum(1)
         # counts are exact corpus counts, so kept ≠ count flags exactly
@@ -511,8 +661,8 @@ class SimilaritySearcher:
         """The pooled collection (module docstring, steps 1-4); returns
         what ``_collect_stream`` returns."""
         nq = q.shape[0]
-        q_k, refs = self._kernel_operands(q)
-        pv, pi = kernels.pool_writer(q_k, refs, self.n_refs)
+        q_k, refs, kw = self._kernel_operands(q)
+        pv, pi = kernels.pool_writer(q_k, refs, self.n_refs, **kw)
         pv = pv.view(nq, -1)  # [nq, P]: slot pairs adjacent per segment
         pi = pi.view(nq, -1)
         n_valid_pool = int((pv > NEG_INF).sum())
@@ -541,7 +691,7 @@ class SimilaritySearcher:
         amb_rows = torch.nonzero(ambiguous, as_tuple=True)[0]
         if amb_rows.numel():
             totals = kernels.count_above(q_k[amb_rows], refs, tau,
-                                         self.n_refs).long()
+                                         self.n_refs, **kw).long()
             complete = totals == kept[amb_rows]
             hidden = totals > pool_counts[amb_rows]
             pool_repair[amb_rows[~complete & ~hidden]] = True

@@ -131,6 +131,7 @@ class ServeClient:
         matches: bool = False,
         bf16: bool = False,
         f32: bool = False,
+        int8: bool = False,
         vcsl_faithful_tn: bool = False,
         no_warmup: bool = False,
         device: str = "cuda",
@@ -141,10 +142,10 @@ class ServeClient:
     ) -> "ServeClient":
         """Start ``python -m vsc2022_torch.retrieval.serve`` as a child
         process and attach over its stdin/stdout. Keyword flags mirror the
-        server's (with neither ``bf16`` nor ``f32`` it stages bf16, its
-        default); anything else goes through ``extra_args``. The child
-        ends with the client (``close`` sends ``quit``) and is killed if
-        the calling process dies."""
+        server's (with none of ``bf16``, ``f32`` and ``int8`` it stages
+        bf16, its default); anything else goes through ``extra_args``.
+        The child ends with the client (``close`` sends ``quit``) and is
+        killed if the calling process dies."""
         cmd = [
             sys.executable, "-m", "vsc2022_torch.retrieval.serve",
             "--ref_features", os.path.abspath(ref_features),
@@ -155,6 +156,7 @@ class ServeClient:
         if ref_fine_features:
             cmd += ["--ref_fine_features", os.path.abspath(ref_fine_features)]
         for flag, on in (("--matches", matches), ("--bf16", bf16), ("--f32", f32),
+                         ("--int8", int8),
                          ("--vcsl_faithful_tn", vcsl_faithful_tn),
                          ("--no_warmup", no_warmup)):
             if on:

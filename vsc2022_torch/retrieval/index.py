@@ -12,10 +12,12 @@ device and removed rows compact away there, onto exactly the layout a
 fresh stage gives. ``ScoreNormalizedVideoIndex`` serves score-normalized
 search from one staged corpus and noise corpus.
 
-Ported so far: ``codec_str="Flat"`` with ``dtype`` "float32" or
-"bfloat16", and the global-k search (``global_k >= 0``, the
-VSC-rules-conforming mode). Other codecs, ``dtype="int8"`` and the
-per-query KNN mode (``global_k < 0``) raise until they are ported.
+Ported so far: ``codec_str`` "Flat" (with ``dtype`` "float32",
+"bfloat16" or "int8") and "SQ8" (``dtype="int8"``), and the global-k
+search (``global_k >= 0``, the VSC-rules-conforming mode). The IVF codecs
+("IVF{nlist}[,Flat|SQ8]") and the per-query KNN mode (``global_k < 0``)
+raise until they are ported; other codec strings raise ``ValueError``, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import re
 import time
 from typing import Iterable, List, Optional, Tuple
 
@@ -46,18 +49,28 @@ class VideoIndex:
         device: DeviceLike = "cuda",
     ):
         """``codec_str`` mirrors the reference's FAISS factory argument
-        (reference: vsc/index.py:78); only "Flat" (exact inner-product
-        search over the staged dtype) is ported. ``dtype="bfloat16"``
-        stores and searches the corpus in bf16 (scores at bf16
-        resolution, f32 accumulation)."""
-        if codec_str != "Flat":
+        (reference: vsc/index.py:78): "Flat" is the exact inner-product
+        search over the staged dtype, "SQ8" FAISS's 8-bit scalar
+        quantizer, here per-row int8 storage (``dtype="int8"``: a quarter
+        of f32's device memory, search exact over the dequantized
+        corpus). ``dtype="bfloat16"`` stores and searches the corpus in
+        bf16 (scores at bf16 resolution, f32 accumulation). The IVF
+        codecs are not ported yet and raise."""
+        if re.fullmatch(r"IVF(\d+)(?:,(Flat|SQ8))?", codec_str):
             raise NotImplementedError(
-                f"codec {codec_str!r} is not ported yet (Flat only)"
+                f"codec {codec_str!r}: the IVF tier is not ported yet"
+            )
+        if codec_str == "SQ8":
+            dtype = "int8"
+        elif codec_str != "Flat":
+            raise ValueError(
+                f"Unsupported codec {codec_str!r}: Flat (f32/bf16/int8), "
+                "SQ8 (int8) or IVF{nlist}[,Flat|SQ8]"
             )
         if dtype not in STORAGE_DTYPES:
             raise NotImplementedError(
                 f"dtype={dtype!r} storage is not ported yet "
-                "(float32 and bfloat16 only)"
+                "(float32, bfloat16 and int8 only)"
             )
         self.dim = dim
         self.dtype = dtype

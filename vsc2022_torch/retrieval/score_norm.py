@@ -127,7 +127,8 @@ def score_normalize(
     """Normalize queries and refs against the noise corpus
     ``score_norm_refs``; the noise-NN runs on ``device``, over a noise
     corpus staged in ``dtype`` (bf16: the queries too, so the biases
-    come from bf16 products; the appended column stays f32)."""
+    come from bf16 products; int8: SQ8 codes with per-row scales against
+    f32 queries; the appended column stays f32)."""
     _check_independent(refs, score_norm_refs)
     if score_norm_refs is not None and replace_dim:
         queries, refs, score_norm_refs = _drop_min_variance_dim(

@@ -14,7 +14,10 @@ writes a candidates CSV.
 * ``--bf16`` (the default) stages the search corpus, the noise corpus and
   the localizer's reference tables in bfloat16 (half the device memory;
   scores at bf16 resolution, f32 accumulation); ``--f32`` opts out, for
-  bit parity with the batch drivers' default.
+  bit parity with the batch drivers' default; ``--int8`` stages the search
+  and noise corpora as SQ8-style int8 codes with per-row scales (a quarter
+  of f32's memory; queries f32, search exact over the dequantized corpus)
+  and keeps the localizer's tables in bf16, as the JAX server does.
 * ``--score_norm_features``: the noise corpus stages beside the
   references and every request's CSLS bias is computed on the device
   (``ScoreNormalizedVideoIndex``).
@@ -69,7 +72,7 @@ with requests serialized on one device lock; the parent's stdout gets
 ``listening\\t<host>:<port>`` with the bound port (``:0`` picks one).
 
 Not ported yet (each raises at startup, or answers ``error`` for a
-command): ``--int8``, ``--ivf``, ``--sharded``, the multi-host flags,
+command): ``--ivf``, ``--sharded``, the multi-host flags,
 ``--baseline`` with ``extract`` / ``searchv``, and ``probe``.
 
     python -m vsc2022_torch.retrieval.serve --ref_features refs.npz \\
@@ -137,7 +140,9 @@ _dtype_group.add_argument(
 )
 _dtype_group.add_argument(
     "--int8", action="store_true",
-    help="Per-row int8 search corpus (not ported yet)",
+    help="Stage the search corpus in symmetric per-row int8 (the FAISS SQ8 "
+    "analog: a quarter of f32's memory; search exact over the dequantized "
+    "corpus). The localizer's reference tables stay bfloat16.",
 )
 parser.add_argument(
     "--ivf", type=int, default=None, metavar="NLIST",
@@ -205,21 +210,23 @@ _extract.add_argument("--video_extensions", default="mp4")
 
 def staging_dtype(args) -> str:
     """The serving staging dtype: bfloat16 by default, as in the JAX
-    server; ``--f32`` opts out. (``--int8`` is refused by check_ported.)"""
+    server; ``--f32`` opts out, ``--int8`` stages SQ8 codes."""
+    if args.int8:
+        return "int8"
     return "float32" if args.f32 else "bfloat16"
 
 
 def table_dtype(args) -> str:
     """The localizer's reference-table dtype, as the JAX server picks it:
-    the staging dtype (JAX keeps bf16 tables under --int8, not ported)."""
-    return staging_dtype(args)
+    the staging dtype, except that int8 staging keeps bf16 tables (the
+    alignment reads raw similarities; the corpus scales do not apply)."""
+    dtype = staging_dtype(args)
+    return "bfloat16" if dtype == "int8" else dtype
 
 
 def check_ported(args) -> None:
     """Raise for every flag whose mode is not ported yet."""
     unported = []
-    if args.int8:
-        unported.append("--int8 (SQ8) serving")
     if args.ivf is not None or args.ivf_nprobe is not None:
         unported.append("--ivf")
     if args.sharded:

@@ -18,6 +18,12 @@ launch on one stream, with the same results.
 JAX fused path does: the bias column is rounded to bf16 with the queries
 it is appended to, and ``last_q_sn`` holds that bf16 matrix, which the
 serving localizer aligns with.
+
+``dtype="int8"`` stages both corpora as int8 codes with per-row scales
+(the SN references' constant-1 column quantized with its row, as in the
+JAX package), while the queries and the bias column stay f32: the bias
+is the ``row_max`` kernel's int8 variant over the noise codes, and
+``last_q_sn`` is f32.
 """
 
 from __future__ import annotations
@@ -28,7 +34,6 @@ import numpy as np
 import torch
 
 from vsc2022_torch.device import DeviceLike
-from vsc2022_torch.ops import kernels
 from vsc2022_torch.ops.similarity import SimilaritySearcher
 
 
@@ -80,7 +85,7 @@ class ScoreNormalizedSearcher:
         promotes them."""
         ns = self.noise_searcher
         q = ns._stage_queries(queries)
-        bias = kernels.row_max(q, ns.tensor_core_refs(), ns.n_refs)
+        bias = ns.row_max(q)
         return torch.cat([q.float(), (-self.beta * bias)[:, None]], dim=1)
 
     def global_topk(
@@ -90,7 +95,7 @@ class ScoreNormalizedSearcher:
         s, ns = self.searcher, self.noise_searcher
         if len(q_sn) and k > 0 and s.n_refs and ns.n_refs:
             # JAX's fused path (taken on these conditions) rounds the bias
-            # to the query dtype and keeps that matrix.
-            q_sn = q_sn.to(s.torch_dtype)
+            # to the query dtype and keeps that matrix (f32 under int8).
+            q_sn = q_sn.to(s.query_dtype)
         self.last_q_sn = q_sn
         return s.global_topk(q_sn, k, kappa=kappa)
