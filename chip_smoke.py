@@ -90,6 +90,10 @@ Phases (any failure exits non-zero):
      count_above.int8 (over the pool's own operands) and scores.int8 must
      launch, and no other kernel; every searched corpus holds its codes
      and scales only (staged bytes logged beside the f32 corpus's).
+     Here and in 4b, 6b, 6c and the DnS searches in process, the
+     re-search's rows per scores launch are logged and checked: whole
+     128-row work items where the score budget holds 128 rows (128 at
+     SSCD, 512 at serving), as phase 2 then times scores on them.
   5. The DnS track, through its entry points: dns_index for the coarse
      student with --score_norm_features, dns_index for the fine attention
      student, then dns_baseline with --ground_truth, on raw L3-iMAC rows
@@ -1253,6 +1257,29 @@ def search_stats():
         SimilaritySearcher.global_topk = original
 
 
+def log_research_chunks(kernels, phase, label, stats, args, launches):
+    """The re-search's rows per scores launch, logged before phase 2 times
+    that kernel on its first call (``args``): the searcher scores its
+    re-searched rows in chunks of the score budget's rows
+    (PLAIN_CHUNK_ELEMENTS // corpus rows) rounded down to whole 128-row
+    work items where the budget holds 128 or more, so the first launch
+    takes that chunk or every re-searched row of its search, whichever is
+    fewer. ``stats``: the last_stats of the path's searches in call order;
+    ``launches``: the scores launches of the path."""
+    rows = [st["corpus_rows"] for st in stats if st.get("corpus_rows")]
+    check(args is not None and bool(rows), f"{label}: no row was re-searched")
+    n, first = int(args[2]), args[0].shape[0]
+    budget = kernels.PLAIN_CHUNK_ELEMENTS // n
+    tile = kernels.REDUCE_TILE
+    chunk = budget - budget % tile if budget >= tile else budget
+    check(first == min(rows[0], chunk),
+          f"{label}: the first re-search launch took {first} rows, not "
+          f"min({rows[0]}, {chunk})")
+    log(f"phase {phase}: {label}: the re-search's rows per launch: {first} (chunk "
+        f"{chunk} rows: the budget's {budget} rows over {n} corpus rows, in whole "
+        f"{tile}-row items); {sum(rows)} rows re-searched in {launches} launches")
+
+
 def phase_main_path(torch, np, kernels):
     """Returns the launch counts of the main path's run, the inputs each
     kernel was first given there, the corpus paths and the driver's
@@ -1344,6 +1371,8 @@ def phase_main_path_bf16(torch, np, kernels, paths, f32):
     log(f"phase 4b: global_topk last_stats: {json.dumps(stats)}; f32: "
         f"{json.dumps(f32['stats'])}")
     log(f"phase 4b: kernel launches on the bf16 path: {json.dumps(launches)}")
+    log_research_chunks(kernels, "4b", "sscd_baseline --bf16", stats,
+                        captured.get("scores"), launches["scores" + BF16])
     log(f"phase 4b: candidate uAP {result['candidate_uap']:.4f}, segment AP "
         f"{result['segment_ap']:.4f}; f32: {f32['candidate_uap']:.4f}, "
         f"{f32['segment_ap']:.4f}")
@@ -1432,6 +1461,8 @@ def phase_main_path_int8(torch, np, kernels, paths, f32, bf16):
     log(f"phase 4c: global_topk last_stats: {json.dumps(stats)}; f32: "
         f"{json.dumps(f32['stats'])}")
     log(f"phase 4c: kernel launches on the int8 path: {json.dumps(launches)}")
+    log_research_chunks(kernels, "4c", "sscd_baseline --int8", stats,
+                        captured.get("scores"), launches["scores" + INT8])
     log(f"phase 4c: candidate uAP {result['candidate_uap']:.4f}, segment AP "
         f"{result['segment_ap']:.4f}; f32: {f32['candidate_uap']:.4f}, "
         f"{f32['segment_ap']:.4f}; bf16: {bf16['candidate_uap']:.4f}, "
@@ -1900,7 +1931,9 @@ def phase_serve(torch, np, kernels, dev, corpus, dtype="float32"):
         return out[:keep], time.perf_counter() - t0
 
     with capture_inputs(kernels) as captured:
+        kernels.reset_launches()
         cands, t_stream = search()
+        stream_launches = dict(kernels.launches)
     stream_stats = dict(index._searcher.searcher.last_stats)
     mode = stream_stats["mode"]
     check(mode == "stream", f"the serving catalogue ran {mode}")
@@ -1920,6 +1953,12 @@ def phase_serve(torch, np, kernels, dev, corpus, dtype="float32"):
     for stats in (stream_stats, pooled_stats):
         stats.pop("seconds", None)
         log(f"phase {phase}: (a) in-process global_topk last_stats: {json.dumps(stats)}")
+    if suffix:
+        for mode, st, cap, counts in (("stream", stream_stats, captured, stream_launches),
+                                      ("pooled", pooled_stats, pooled_captured,
+                                       pooled_launches)):
+            log_research_chunks(kernels, phase, f"(a) in process, {mode}", [st],
+                                cap.get("scores"), counts["scores" + suffix])
     log(f"phase {phase}: (a) in-process: stream {t_stream:.3f} s, pooled "
         f"{t_pooled:.3f} s, {len(cands)} pairs each, the same; server vs "
         f"in-process scores within {err}")
@@ -2036,6 +2075,10 @@ def dns_search(torch, np, kernels, args, k, server_launches, dtype):
             check(searcher.last_stats["mode"] == mode, f"DnS {tag}: {mode} not taken")
         if mode == "stream":
             stream_captured = captured
+            if "scores" in captured:
+                log_research_chunks(kernels, phase, f"DnS {tag} search in process, stream",
+                                    [searcher.last_stats], captured["scores"],
+                                    launches["stream"].get(key, 0))
     check(all(np.array_equal(a, b) for a, b in zip(out["stream"], out["pooled"])),
           f"DnS {tag}: stream and pooled global_topk differ")
     log(f"phase {phase}: DnS {tag} search in process [{q.shape[0]} x {n_valid} x "

@@ -29,7 +29,10 @@ queries against int8 codes and per-row scales on the f32 chain over the
 widened codes: exact against their plain versions on integer queries and
 power-of-two scales, within 1e-5 on unit-norm floats, bit for bit their
 f32 kernels on codes.float() where every scale is 1, and bit for bit
-against each other.
+against each other; scores.int8, on reduce_gemm.cuh's product as the other
+three reduce kernels, also at the re-search's row chunks (row counts
+around a 128-row item, every column tail) and at any grid, writing
+nothing past its [M, n_valid] output.
 """
 
 import math
@@ -1225,6 +1228,58 @@ def test_int8_reduce_kernels_any_grid(cuda_device, monkeypatch, slots):
     for a, b in zip(kernels.fused_topk(q, codes, n_valid, 40, **kw),
                     kernels.fused_topk_plain(q, codes, n_valid, 40, **kw)):
         assert torch.equal(a, b)
+    assert torch.equal(kernels.scores(q, codes, n_valid, **kw),
+                       kernels.scores_plain(q, codes, n_valid, **kw))
+
+
+@pytest.mark.parametrize("n_valid", [1408, 1280, 1300, 100])
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 134, 559])
+@pytest.mark.parametrize("d", [511, 1025])
+def test_int8_scores_at_the_research_chunks(cuda_device, d, m, n_valid):
+    # scores.int8 on reduce_gemm.cuh's 128 x 128 items: row counts around
+    # and inside an item (the re-search's chunks: 128 and 559 rows, 134 in
+    # earlier searchers), every column tail (n_valid = n, a multiple of 128
+    # below n, a partial item, under one item), codes 512 and 1040 wide.
+    # Exact on integers; on floats within INT8_ATOL of the plain version,
+    # its row max row_max.int8's and its count >= tau count_above.int8's,
+    # bit for bit.
+    n = 1408
+    q, codes, scale, _ = _int8_case(cuda_device, m, n, d, 250 + m + d)
+    kw = {"scale": scale}
+    kernels.reset_launches()
+    got = kernels.scores(q, codes, n_valid, **kw)
+    assert got.shape == (m, n_valid) and kernels.launches["scores.int8"] == 1
+    assert torch.equal(got, kernels.scores_plain(q, codes, n_valid, **kw))
+    q, codes, scale, _ = _int8_case(cuda_device, m, n, d, 260 + m + d, "float")
+    kw = {"scale": scale}
+    got = kernels.scores(q, codes, n_valid, **kw)
+    torch.testing.assert_close(got, kernels.scores_plain(q, codes, n_valid, **kw),
+                               rtol=0, atol=INT8_ATOL)
+    best = kernels.row_max(q, codes, n_valid, **kw)
+    assert torch.equal(best.view(torch.int32), got.amax(1).view(torch.int32))
+    tau = float(got.reshape(-1).kthvalue(max(1, got.numel() - 3 * m)).values)
+    assert torch.equal(kernels.count_above(q, codes, tau, n_valid, **kw),
+                       (got >= tau).sum(1, dtype=torch.int32))
+
+
+def test_int8_scores_write_nothing_past_their_rows(cuda_device):
+    # The kernel's rows >= m inside a 128-row item, and columns >= n_valid
+    # inside a 128-column item, are never stored: a [m, n_valid] view at
+    # the start of a larger buffer leaves the rest untouched.
+    q, codes, scale, _ = _int8_case(cuda_device, 134, 1408, 511, 270)
+    m, n_valid = 134, 1300
+    qp = kernels.pad_columns(q, kernels.I8_ROW_ALIGN)
+    buf = torch.full((m * n_valid + 4096,), 7.0, device=cuda_device)
+    rc = kernels._build.library().vsc_scores_int8(
+        q.device.index, qp.data_ptr(), codes.data_ptr(),
+        scale.data_ptr(), m, codes.shape[0], codes.shape[1], n_valid,
+        kernels._int8_grid("scores_int8", qp, n_valid), buf.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert (buf[m * n_valid:] == 7.0).all()
+    assert torch.equal(buf[: m * n_valid].view(m, n_valid),
+                       kernels.scores_plain(q, codes, n_valid, scale=scale))
 
 
 def test_int8_zero_rows_and_pad_rows(cuda_device):

@@ -2,7 +2,8 @@
 the fused fine+coarse similarity, the students (weights carried across by
 ``dns_student_from_jax``), the npz checkpoints and TorchScript students
 both entry points take, the DnS localizer, and dns_index → dns_baseline end to
-end through both packages' ``main()``s.
+end through both packages' ``main()``s. The port's parsers take the JAX
+package's command lines, ``--accelerator`` included.
 
 Tolerances: f32 within 1e-5 (XLA and torch sum the f32 products in other
 orders); fp16 features within one fp16 ULP (the two f32 results can
@@ -23,6 +24,7 @@ import torch
 from vsc2022_torch.baseline import dns_baseline as torch_baseline
 from vsc2022_torch.baseline import dns_index as torch_index
 from vsc2022_torch.convert import dns_student_from_jax
+from vsc2022_torch.device import resolve_device
 from vsc2022_torch.metrics import CandidatePair as TorchPair
 from vsc2022_torch.models.dns import DnSStudent as TorchStudent
 from vsc2022_torch.types import VideoFeature as TVF
@@ -408,3 +410,84 @@ def test_tables_stage_only_the_candidates_videos_and_grow():
     want = torch_baseline.DnSLocalization(qf, rf, qc, rc, **kw).localize_all(later)
     assert got and [_key(m) + (m.score,) for m in got] == [
         _key(m) + (m.score,) for m in want]
+
+
+# ---- the JAX entry points' --accelerator flag ----------------------------------
+
+# The JAX package's own command lines (vsc2022_tpu/baseline/dns_index.py,
+# dns_baseline.py), without their --accelerator.
+JAX_COMMAND_LINES = {
+    "dns_index": (jax_index.parser, torch_index.parser, [
+        "--query_features", "q.npz", "--ref_features", "r.npz",
+        "--score_norm_features", "n.npz", "--output_path", "idx",
+        "--student", "cg", "--checkpoint_path", "cg.npz"]),
+    "dns_baseline": (jax_baseline.parser, torch_baseline.parser, [
+        "--query_coarse_features", "qc.npz", "--ref_coarse_features", "rc.npz",
+        "--query_fine_features", "qf.npz", "--ref_fine_features", "rf.npz",
+        "--output_path", "out", "--ground_truth", "gt.csv"]),
+}
+
+
+@pytest.mark.parametrize("accelerator,device", [
+    (None, "cuda"), ("cpu", "cpu"), ("tpu", "cuda")])
+@pytest.mark.parametrize("entry", sorted(JAX_COMMAND_LINES))
+def test_port_parsers_take_the_jax_command_lines(entry, accelerator, device):
+    # Every JAX command line parses in the port: --accelerator cpu selects
+    # the CPU, tpu (the JAX default) the card, as no flag does.
+    jax_parser, torch_parser, argv = JAX_COMMAND_LINES[entry]
+    if accelerator is not None:
+        argv = argv + ["--accelerator", accelerator]
+    jax_args, args = jax_parser.parse_args(argv), torch_parser.parse_args(argv)
+    assert jax_args.accelerator == (accelerator or "tpu")
+    assert args.device == device
+    assert args.output_path == jax_args.output_path
+    if device == "cpu":
+        assert resolve_device(args.device) == torch.device("cpu")
+
+
+@pytest.mark.parametrize("flags,device", [
+    (["--accelerator", "cuda"], "cuda"), (["--device", "cpu"], "cpu"),
+    (["--device", "cpu", "--accelerator", "cpu"], "cpu"),
+    (["--accelerator", "tpu", "--device", "cuda"], "cuda")])
+@pytest.mark.parametrize("entry", sorted(JAX_COMMAND_LINES))
+def test_port_device_flags_that_agree(entry, flags, device):
+    _, torch_parser, argv = JAX_COMMAND_LINES[entry]
+    assert torch_parser.parse_args(argv + flags).device == device
+
+
+@pytest.mark.parametrize("flags", [
+    ["--device", "cpu", "--accelerator", "tpu"],
+    ["--accelerator", "cuda", "--device", "cpu"],
+    ["--accelerator", "cpu", "--accelerator", "tpu"]])
+@pytest.mark.parametrize("entry", sorted(JAX_COMMAND_LINES))
+def test_port_device_flags_that_disagree_are_an_error(entry, flags, capsys):
+    _, torch_parser, argv = JAX_COMMAND_LINES[entry]
+    with pytest.raises(SystemExit) as exc:
+        torch_parser.parse_args(argv + flags)
+    assert exc.value.code == 2
+    assert "earlier flag selected" in capsys.readouterr().err
+
+
+def test_two_stage_flow_with_accelerator_cpu(raw_corpus, tmp_path):
+    # The JAX package's command lines with --accelerator cpu run the port's
+    # dns_index -> dns_baseline on the CPU, end to end.
+    p = raw_corpus
+    idx, out = tmp_path / "idx", tmp_path / "out"
+    for student, ckpt, noise in (("cg", p["cg"], p["n"]), ("fg", p["fg"], None)):
+        argv = ["--query_features", p["q"], "--ref_features", p["r"],
+                "--output_path", str(idx), "--student", student,
+                "--checkpoint_path", ckpt, "--accelerator", "cpu"]
+        if noise:
+            argv += ["--score_norm_features", noise]
+        jax_index.parser.parse_args(argv)
+        torch_index.main(torch_index.parser.parse_args(argv))
+    argv = ["--query_coarse_features", str(idx / "queries_cg_student_sn.npz"),
+            "--ref_coarse_features", str(idx / "refs_cg_student_sn.npz"),
+            "--query_fine_features", str(idx / "queries_fg_att_student.npz"),
+            "--ref_fine_features", str(idx / "refs_fg_att_student.npz"),
+            "--torchscript_path", p["ts"], "--output_path", str(out),
+            "--ground_truth", p["gt"], "--accelerator", "cpu"]
+    jax_baseline.parser.parse_args(argv)
+    result = torch_baseline.main(torch_baseline.parser.parse_args(argv))
+    assert result["candidate_uap"] == 1.0 and result["segment_ap"] > 0.5
+    assert os.path.getsize(out / "matches.csv") > 0

@@ -250,3 +250,25 @@ def test_unported_storage_modes_raise(entry, tmp_path):
     if entry == "descriptor_eval":
         with pytest.raises(NotImplementedError, match="sharded"):
             module.main(module.parser.parse_args(argv[:-3] + ["--sharded"]))
+
+
+@pytest.mark.parametrize("flags,rc,message", [
+    (["--int8", "--only", "scores"], 2, "no CUDA device"),
+    (["--int8"], 2, "no CUDA device"),
+    (["--only", "scores"], 2, "--only scores times scores.int8: add --int8"),
+    (["--bf16", "--int8"], 2, "not allowed with argument"),
+])
+def test_bench_reduce_flags(flags, rc, message):
+    # tools/bench_reduce.py takes --int8 (and --only scores with it) and,
+    # with no card (none is visible to the child), stops with its own
+    # message; flags that do not go together are argparse's errors.
+    out = subprocess.run(
+        [sys.executable, str(REPO / "tools" / "bench_reduce.py"), *flags],
+        capture_output=True, text=True, cwd=REPO, timeout=300,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+    )
+    assert out.returncode == rc, out.stderr
+    assert message in out.stderr
+    assert out.stdout == ""
+    if message == "no CUDA device":
+        assert "usage:" not in out.stderr

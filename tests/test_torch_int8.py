@@ -13,7 +13,9 @@ in f32, then × scale per column).
   JAX's, tie order included. Float inputs are held against the dense
   oracle over the dequantized corpus (JAX's ``test_float_fuzz`` tolerance:
   rtol 1e-5, atol 1e-6). A grown or shrunk searcher equals a fresh stage
-  of the same rows (codes, scales, padding) and searches alike.
+  of the same rows (codes, scales, padding) and searches alike. The
+  re-search scores its rows in chunks of whole 128-row items where the
+  score budget allows, with JAX's results.
 - Score normalization, the SN searcher (both corpora int8, the ones column
   quantized with its row) and the index (``codec_str="SQ8"``): the same
   selections as JAX, scores within 1e-5 where the bias column is a float.
@@ -34,7 +36,7 @@ from test_torch_serve import BETA, D, _corpus, _servers
 from vsc2022_torch import descriptor_eval as torch_descriptor_eval
 from vsc2022_torch.baseline import sscd_baseline as torch_driver
 from vsc2022_torch.convert import searcher_from_arrays
-from vsc2022_torch.ops import kernels
+from vsc2022_torch.ops import kernels, similarity
 from vsc2022_torch.ops.similarity import COLLECTION_ENV
 from vsc2022_torch.ops.similarity import SimilaritySearcher as TorchSearcher
 from vsc2022_torch.ops.similarity import quantize_rows_int8 as torch_quantize
@@ -349,6 +351,56 @@ def test_int8_research_scores_on_the_kernels_product(monkeypatch, mode):
         ts.last_stats["corpus_rows"]
     assert all(refs is ts._refs and scale is ts._scale and n == ts.n_refs
                for _, refs, n, scale in calls)
+
+
+@pytest.mark.parametrize("budget_rows,chunk", [
+    (134, 128), (559, 512), (4329, 4224), (128, 128), (127, 127), (67, 67), (1, 1)])
+def test_row_chunk_fills_the_products_128_row_items(monkeypatch, budget_rows, chunk):
+    # The re-search's row chunk: the score budget's rows rounded down to
+    # whole 128-row items (kernels.REDUCE_TILE) where the budget holds 128
+    # rows or more; below that the budget's rows as they are. 134, 559 and
+    # 4329 are the budget's rows at the SSCD, serving and DnS corpora.
+    n = 1000
+    ts = TorchSearcher(_dyadic_rows(n, 12, 60), dtype=INT8, device="cpu")
+    monkeypatch.setattr(similarity, "PLAIN_CHUNK_ELEMENTS", budget_rows * n + n - 1)
+    assert ts._row_chunk() == chunk
+    assert chunk <= budget_rows and (chunk < kernels.REDUCE_TILE
+                                     or chunk % kernels.REDUCE_TILE == 0)
+
+
+@pytest.mark.parametrize("mode", ["stream", "pooled"])
+@pytest.mark.parametrize("budget_rows,chunks", [
+    (134, [128, 128, 44]), (100, [100, 100, 100])])
+def test_int8_research_in_whole_items_identical_to_jax(monkeypatch, mode, budget_rows,
+                                                       chunks):
+    # k over nq·κ and over the pool's entries (2 per segment and row): τ =
+    # −inf in both collections, so all 300 rows are re-searched, in chunks of
+    # whole 128-row items when the budget holds 134 rows and of the
+    # budget's 100 rows when it holds fewer than 128: pairs, scores and tie
+    # order identical to the JAX int8 searcher's either way.
+    calls = []
+    real = kernels.scores
+
+    def spy(q, refs, n_valid, scale=None):
+        calls.append(q.shape[0])
+        return real(q, refs, n_valid, scale=scale)
+
+    monkeypatch.setattr(kernels, "scores", spy)
+    monkeypatch.setenv(COLLECTION_ENV, mode)
+    monkeypatch.setenv("VSC2022_TPU_COLLECTION", mode)
+    nq, n = 300, 1100
+    q, r = _ints((nq, 12), 61), _dyadic_rows(n, 12, 62)
+    r[10:20] = r[9]
+    q[1] = q[4] = np.sign(r[9])
+    want = JaxSearcher(r, dtype=INT8).global_topk(q, 6000, kappa=4)
+    ts = TorchSearcher(r, dtype=INT8, device="cpu")
+    monkeypatch.setattr(similarity, "PLAIN_CHUNK_ELEMENTS", budget_rows * n + n - 1)
+    got = ts.global_topk(q, 6000, kappa=4)
+    assert ts.last_stats["mode"] == mode and ts.last_stats["corpus_rows"] == nq
+    assert calls == chunks
+    for e, g in zip(want, got):
+        np.testing.assert_array_equal(g, e)
+        assert g.dtype == e.dtype
 
 
 # ---- score normalization, the SN searcher and the index ------------------------------

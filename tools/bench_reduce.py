@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Times the port's row_max, count_above, fused_topk and pool_writer
-kernels at the shapes its paths give them, beside their bound and one
-PyTorch library call.
+kernels (and, with --int8, scores.int8) at the shapes its paths give them,
+beside their bound and one PyTorch library call.
 
     python3 tools/bench_reduce.py             # needs one CUDA GPU
     python3 tools/bench_reduce.py --reps 5 --only row_max
+    python3 tools/bench_reduce.py --int8 [--only scores]
 
 Inputs are unit-norm random rows made on the card from a seed, with the
 paths' widths (D = 511 after score normalization's dimension drop, 512
@@ -33,6 +34,23 @@ with its kappa-sets in shared memory (the searcher's placement at κ = 32:
 cuBLAS bf16 ``torch.matmul`` plus the same reduction, and the bound takes
 the bf16 tensor-core peak and 2-byte operands. The tensor-core plans
 (grid, group, S, corpus passes) are printed.
+
+``--int8`` times the int8 (SQ8) variants instead: f32 queries against the
+same rows quantized on the card (int8 codes padded to 16 columns, one f32
+scale a row), the five of them, scores.int8 (the searchers' re-search,
+which writes every score out) included at the re-search's row chunks
+(``SimilaritySearcher._row_chunk``: 128 rows at SSCD, 512 at serving,
+the DnS search's 1,662 re-searched rows in one chunk, and the earlier
+unrounded chunks of 134 and 559 rows). Each is timed beside its f32
+kernel on the widened codes (``f32_ms``; scores.int8 has none: the f32
+re-search is torch.matmul) and beside chip_smoke.py's library yardstick
+(cuBLAS f32 over the codes widened in the timed call, times the scales),
+within chip_smoke.FLOAT_ATOL of it (counts within 2); on the first 256
+rows the five are held bit for bit against each other
+(chip_smoke.pool_identity) and, with every scale 1, against the f32
+kernels (chip_smoke.unit_scale_identity). The bound takes the f32 peak,
+1-byte codes and 4-byte scales; each kernel's resident blocks per SM and
+grid are printed.
 
 Copied into a tree of the parent commit (beside its vsc2022_torch/ and
 chip_smoke.py), it times that tree's kernels, skipping the occupancy and
@@ -65,6 +83,12 @@ SHAPES = [
     ("fused_topk", "dns", 7682, 31_004, 1025),
     ("fused_topk", "serving, one video", 60, 240_000, 512),
     ("pool_writer", "sscd", 9000, 1_000_020, 512),
+    # scores.int8 (--int8 only): the re-search's row chunks.
+    ("scores", "sscd", 128, 1_000_020, 512),
+    ("scores", "serving", 512, 240_000, 512),
+    ("scores", "dns", 1662, 31_004, 1025),
+    ("scores", "sscd, unrounded chunk", 134, 1_000_020, 512),
+    ("scores", "serving, unrounded chunk", 559, 240_000, 512),
 ]
 TAU = 0.15  # ~3.4 sigma of unit-norm scores at D = 512
 KAPPA = 32  # the searcher's candidates per query row
@@ -74,11 +98,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=3, help="timed launches per shape")
     ap.add_argument("--only", choices=("row_max", "count_above", "fused_topk",
-                                       "pool_writer"),
-                    help="time one kernel only")
-    ap.add_argument("--bf16", action="store_true",
-                    help="time the bf16 variants against the f32 kernels")
+                                       "pool_writer", "scores"),
+                    help="time one kernel only (scores: with --int8)")
+    dtype = ap.add_mutually_exclusive_group()
+    dtype.add_argument("--bf16", action="store_true",
+                       help="time the bf16 variants against the f32 kernels")
+    dtype.add_argument("--int8", action="store_true",
+                       help="time the int8 variants against the f32 kernels")
     args = ap.parse_args()
+    if args.only == "scores" and not args.int8:
+        ap.error("--only scores times scores.int8: add --int8")
 
     import torch
 
@@ -94,11 +123,15 @@ def main() -> int:
     _build.build(verbose=True)
     lib = _build.library()
     tol = getattr(cs, "BF16_TC_ATOL", getattr(cs, "BF16_ROW_MAX_ATOL", 1e-5))
-    _report_plans(torch, cs, kernels, lib, dev, args.bf16)
+    _report_plans(torch, cs, kernels, lib, dev, args.bf16, args.int8)
 
     rows = []
     for name, path, m, n_valid, d in SHAPES:
-        if args.only and name != args.only:
+        if (args.only and name != args.only) or (name == "scores" and not args.int8):
+            continue
+        if args.int8:
+            rows.append(_bench_int8(torch, cs, kernels, name, path, m, n_valid, d,
+                                    args.reps))
             continue
         g = torch.Generator(device=dev)
         g.manual_seed(m + n_valid + d)
@@ -181,6 +214,74 @@ def main() -> int:
     return 0
 
 
+def _unit_rows(torch, m, d, g, dev):
+    x = torch.randn((m, d), generator=g, device=dev)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def _bench_int8(torch, cs, kernels, name, path, m, n_valid, d, reps):
+    """One shape of ``--int8``: the int8 kernel over unit rows quantized on
+    the card (rows past n_valid zero codes at scale 0, as the searcher pads
+    its corpus), checked, then timed beside the f32 kernel on the widened
+    codes, the library yardstick and the bound. Returns its row."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(m + n_valid + d)
+    q = _unit_rows(torch, m, d, g, dev)
+    n = -(-n_valid // 128) * 128
+    codes = torch.zeros((n, kernels.padded_width(d, kernels.I8_ROW_ALIGN)),
+                        dtype=torch.int8, device=dev)
+    scale = torch.zeros(n, device=dev)
+    step = 1 << 17
+    for a in range(0, n_valid, step):  # SQ8, a block of rows at a time
+        r = _unit_rows(torch, min(step, n_valid - a), d, g, dev)
+        sc = r.abs().amax(1) / r.new_tensor(127.0)
+        codes[a:a + r.shape[0], :d] = torch.round(r / sc[:, None]).clamp_(-127, 127)
+        scale[a:a + r.shape[0]] = sc
+    del r
+    kw = {"scale": scale}
+    run = _call(kernels, name, q, codes, n_valid, **kw)
+    lib_call = _library(torch, cs, name, q, codes, n_valid, scale)
+    label = name + ".int8"
+    got, want = run(), lib_call()
+    if name in ("fused_topk", "pool_writer"):
+        got = got[0]
+    err = float((got.double() - want.double()).abs().nan_to_num(0.0).max())
+    cs.check(err <= (2 if name == "count_above" else cs.FLOAT_ATOL),
+             f"{label} {path}: off the library by {err}")
+    del got, want
+    head = q[:256].contiguous()
+    cs.pool_identity(torch, kernels, head, codes, n_valid, f"bench {path}", **kw)
+    args = {"count_above": (head, codes, TAU, n_valid),
+            "fused_topk": (head, codes, n_valid, KAPPA)}.get(name, (head, codes, n_valid))
+    cs.unit_scale_identity(torch, kernels, name, args, f"bench {path}")
+    torch.cuda.empty_cache()
+    grid = 0
+    if hasattr(kernels, "_int8_grid") and name != "pool_writer" and (
+            name != "scores" or hasattr(kernels._build.library(), "vsc_scores_int8_occupancy")):
+        grid = kernels._int8_grid(f"{name}_int8", q, n_valid)
+    ms = cs.cuda_ms(torch, run, reps)
+    library_ms = cs.cuda_ms(torch, lib_call, 2)
+    out_bytes = {"fused_topk": 8 * m * KAPPA, "pool_writer": 16 * m * (n // 128),
+                 "scores": 4 * m * n_valid}.get(name, 4 * m)
+    bound_ms, bound_by = cs.bound(m, n_valid, n, d, out_bytes, int8=True)
+    row = {"kernel": label, "path": path, "shape": [m, n_valid, d], "ms": ms,
+           "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / ms, "max_abs_err": err, "grid": grid}
+    if name != "scores":  # the f32 re-search is torch.matmul: no f32 kernel
+        wide = codes[:, :d].float().contiguous()
+        row["f32_ms"] = cs.cuda_ms(torch, _call(kernels, name, q, wide, n_valid), reps)
+        del wide
+    print(f"{label} {path} [{m} x {n_valid} x {d}]: kernel {ms:.3f} ms"
+          + (f" (grid {grid})" if grid else "") + ", "
+          + (f"f32 kernel {row['f32_ms']:.3f} ms, " if "f32_ms" in row else "")
+          + f"library {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
+    del q, codes, scale, head
+    torch.cuda.empty_cache()
+    return row
+
+
 # The bf16 variants on the tensor cores in a tree whose kernels module
 # has no TENSOR_CORE_KERNELS: the parent commit's, where pool_writer.bf16
 # alone still ran on the CUDA cores.
@@ -191,11 +292,21 @@ def _on_tensor_cores(kernels, name):
     return name in getattr(kernels, "TENSOR_CORE_KERNELS", PARENT_TENSOR_CORE_KERNELS)
 
 
-def _report_plans(torch, cs, kernels, lib, dev, bf16):
+def _report_plans(torch, cs, kernels, lib, dev, bf16, int8=False):
     """Resident blocks per SM of the kernels of reduce_gemm.cuh timed, and
     the tensor-core plans (grid, group, S, corpus passes) at the paths'
     shapes."""
     probe = torch.empty(0, device=dev)
+    if int8:
+        for name in ("row_max", "count_above", "fused_topk", "scores"):
+            if not hasattr(lib, f"vsc_{name}_int8_occupancy"):
+                continue
+            blocks = ctypes.c_int(0)
+            rc = getattr(lib, f"vsc_{name}_int8_occupancy")(0, ctypes.addressof(blocks))
+            cs.check(rc == 0, f"{name}.int8 occupancy query failed ({rc})")
+            print(f"{name}.int8 (reduce_gemm.cuh, I8Corpus): {blocks.value} "
+                  "resident blocks per SM", flush=True)
+        return
     if bf16 and hasattr(kernels, "wgmma_grid"):
         slots = kernels._wgmma_slots(probe)
         for _, path, m, n_valid, _ in SHAPES[:3]:
@@ -261,15 +372,18 @@ def _pool_check(torch, cs, kernels, name, head, r, n_valid, path, d):
                  f"{path} [D={d}]: row_max differs from pool_writer's best winner")
 
 
-def _call(kernels, name, q, r, n_valid):
-    """The kernel's wrapper on (q, r) at the bench's τ and κ."""
+def _call(kernels, name, q, r, n_valid, **kw):
+    """The kernel's wrapper on (q, r) at the bench's τ and κ; ``kw``: int8
+    codes' ``scale``."""
     if name == "row_max":
-        return lambda: kernels.row_max(q, r, n_valid)
+        return lambda: kernels.row_max(q, r, n_valid, **kw)
     if name == "pool_writer":
-        return lambda: kernels.pool_writer(q, r, n_valid)
+        return lambda: kernels.pool_writer(q, r, n_valid, **kw)
     if name == "count_above":
-        return lambda: kernels.count_above(q, r, TAU, n_valid)
-    return lambda: kernels.fused_topk(q, r, n_valid, KAPPA)
+        return lambda: kernels.count_above(q, r, TAU, n_valid, **kw)
+    if name == "scores":
+        return lambda: kernels.scores(q, r, n_valid, **kw)
+    return lambda: kernels.fused_topk(q, r, n_valid, KAPPA, **kw)
 
 
 def _other_placement(kernels, q, r, n_valid, smem_sets):
@@ -278,16 +392,21 @@ def _other_placement(kernels, q, r, n_valid, smem_sets):
     return lambda: kernels._fused_topk_bf16(q, r, n_valid, KAPPA, smem_sets)
 
 
-def _library(torch, cs, name, q, r, n_valid):
+def _library(torch, cs, name, q, r, n_valid, scale=None):
     """One PyTorch call per chunk computing the same function (timing
-    only): cuBLAS torch.matmul in q's dtype plus the reduction."""
+    only): cuBLAS torch.matmul in q's dtype plus the reduction; over int8
+    codes (``scale``), f32 over the codes widened in the timed call, times
+    the scales."""
     if name == "row_max":
-        return lambda: cs.row_max_library(torch, q, r, n_valid)
+        return lambda: cs.row_max_library(torch, q, r, n_valid, scale)
     if name == "count_above":
-        return lambda: cs.count_above_library(torch, q, r, TAU, n_valid)
+        return lambda: cs.count_above_library(torch, q, r, TAU, n_valid, scale)
     if name == "pool_writer":
-        return lambda: cs.pool_library(torch, q, r, n_valid)
-    return lambda: cs.topk_library(torch, q, r, n_valid, KAPPA)
+        return lambda: cs.pool_library(torch, q, r, n_valid, scale)
+    if name == "scores":
+        d = q.shape[1]
+        return lambda: torch.matmul(q, r[:n_valid, :d].float().T) * scale[:n_valid]
+    return lambda: cs.topk_library(torch, q, r, n_valid, KAPPA, scale)
 
 
 if __name__ == "__main__":

@@ -4,10 +4,11 @@ descriptors, localization on the fine chamfer similarity fused with the
 coarse similarity.
 
 Counterpart of ``vsc2022_tpu/baseline/dns_baseline.py`` (reference:
-vsc/baseline/dns_baseline.py), with the same flags and ``--device`` in
-place of ``--accelerator``. Search runs on the 1024-d coarse (score
-normalized) descriptors; each localized pair's similarity is the fine
-chamfer (the ``chamfer`` kernel, symmetrized, rescaled to [0, 1])
+vsc/baseline/dns_baseline.py), with the same flags: ``--accelerator cpu``
+runs on the CPU, ``--accelerator tpu`` (or ``cuda``) on the card, and
+``--device {cuda,cpu}`` says the same. Search runs on the 1024-d coarse
+(score normalized) descriptors; each localized pair's similarity is the
+fine chamfer (the ``chamfer`` kernel, symmetrized, rescaled to [0, 1])
 geometric-mean fused with the coarse similarity, √(clip(fg)·clip(cg)),
 then TN-aligned with the SSCD path's parameters.
 
@@ -18,8 +19,8 @@ then TN-aligned with the SSCD path's parameters.
         --ref_fine_features idx/refs_fg_att_student.npz \\
         --ground_truth gt.csv --output_path out/
 
-Runs on ``cuda`` unless ``--device cpu`` is given; ``--profile_dir``
-writes a ``torch.profiler`` trace.
+Runs on ``cuda`` unless ``--device cpu`` or ``--accelerator cpu`` is
+given; ``--profile_dir`` writes a ``torch.profiler`` trace.
 """
 
 import argparse
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from vsc2022_torch.baseline import pipeline
-from vsc2022_torch.device import DeviceLike, resolve_device
+from vsc2022_torch.device import DeviceLike, add_device_flags, resolve_device
 from vsc2022_torch.localization import TNLocalizationMaxSim
 from vsc2022_torch.metrics import CandidatePair, Dataset, Match
 from vsc2022_torch.models.dns import NUM_REGIONS
@@ -88,10 +89,7 @@ parser.add_argument(
     "--profile_dir", type=str, default=None,
     help="Write a torch.profiler (chrome trace) of the matching run.",
 )
-parser.add_argument(
-    "--device", type=str, default="cuda", choices=("cuda", "cpu"),
-    help="Device to run on (default cuda; raises when no GPU is present).",
-)
+add_device_flags(parser)
 
 
 def _chamfer_fuse(

@@ -3,12 +3,14 @@
 frame features through a DnS student.
 
 Counterpart of ``vsc2022_tpu/baseline/dns_index.py`` (reference:
-vsc/baseline/dns_index.py), with the same flags and ``--device`` in
-place of ``--accelerator``. Per video, ``student.index_video`` runs the
-student on the device; fine binarization students are stored as
-booleans (``> 0``), fine attention students as fp16, coarse students as
-f32, optionally score-normalized with β = 1.2 and no dimension
-replacement. Output files are ``{queries,refs}_{network_name}[_sn].npz``.
+vsc/baseline/dns_index.py), with the same flags: ``--accelerator cpu``
+runs on the CPU, ``--accelerator tpu`` (or ``cuda``) on the card, and
+``--device {cuda,cpu}`` says the same. Per video,
+``student.index_video`` runs the student on the device; fine binarization
+students are stored as booleans (``> 0``), fine attention students as
+fp16, coarse students as f32, optionally score-normalized with β = 1.2
+and no dimension replacement. Output files are
+``{queries,refs}_{network_name}[_sn].npz``.
 
     python -m vsc2022_torch.baseline.dns_index --student cg \\
         --query_features q_raw.npz --ref_features r_raw.npz \\
@@ -19,7 +21,8 @@ Weights come from an npz variable tree of the JAX package's layout
 (``--checkpoint_path``), from a student TorchScript whose state dict
 carries the published names (``--torchscript_path``; its
 ``student_type`` / ``fg_type`` attributes override the flags), or from a
-seeded random init. Runs on ``cuda`` unless ``--device cpu`` is given.
+seeded random init. Runs on ``cuda`` unless ``--device cpu`` or
+``--accelerator cpu`` is given.
 """
 
 import argparse
@@ -33,7 +36,7 @@ import torch
 
 from vsc2022_torch.baseline import pipeline
 from vsc2022_torch.convert import dns_student_from_jax
-from vsc2022_torch.device import resolve_device
+from vsc2022_torch.device import add_device_flags, resolve_device
 from vsc2022_torch.metrics import Dataset
 from vsc2022_torch.models.dns import DnSStudent
 from vsc2022_torch.retrieval.score_norm import score_normalize
@@ -78,10 +81,7 @@ parser.add_argument(
     help="Student TorchScript (the reference's invocation style); its "
     "state dict loads into the port's student by name.",
 )
-parser.add_argument(
-    "--device", type=str, default="cuda", choices=("cuda", "cpu"),
-    help="Device to run on (default cuda; raises when no GPU is present).",
-)
+add_device_flags(parser)
 
 
 def index_videos(

@@ -7,6 +7,7 @@ the CPU on its own.
 
 from __future__ import annotations
 
+import argparse
 from typing import Union
 
 import torch
@@ -29,3 +30,45 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"Unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+# The devices the JAX entry points' ``--accelerator`` values name here: the CPU,
+# or the card (their ``tpu`` is this port's accelerator).
+ACCELERATOR_DEVICES = {"cpu": "cpu", "cuda": "cuda", "tpu": "cuda"}
+
+
+class _Unset(str):
+    """The device flags' default, ``"cuda"``, told apart from a given
+    ``cuda`` by its identity."""
+
+
+_DEFAULT_DEVICE = _Unset("cuda")
+
+
+class _DeviceFlag(argparse.Action):
+    """``--device`` and ``--accelerator`` set one ``device``; a second
+    flag that names another device is an error."""
+
+    def __call__(self, parser, namespace, value, option_string=None):
+        device = ACCELERATOR_DEVICES[value]
+        if namespace.device is not _DEFAULT_DEVICE and namespace.device != device:
+            parser.error(f"{option_string} {value} selects {device}, but an "
+                         f"earlier flag selected {namespace.device}")
+        namespace.device = device
+
+
+def add_device_flags(parser: argparse.ArgumentParser) -> None:
+    """``--device {cuda,cpu}`` and the JAX entry points' ``--accelerator
+    {cpu,cuda,tpu}`` (``tpu`` and ``cuda`` select the card). Either sets
+    ``args.device``, ``cuda`` when neither is given."""
+    parser.add_argument(
+        "--device", action=_DeviceFlag, choices=("cuda", "cpu"),
+        default=_DEFAULT_DEVICE,
+        help="Device to run on (default cuda; raises when no GPU is present).",
+    )
+    parser.add_argument(
+        "--accelerator", dest="device", action=_DeviceFlag,
+        choices=tuple(ACCELERATOR_DEVICES), default=_DEFAULT_DEVICE,
+        help="The JAX entry points' flag: cpu runs on the CPU, cuda or tpu on "
+        "the card.",
+    )

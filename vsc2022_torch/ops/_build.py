@@ -129,14 +129,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     argtypes["pool_writer_bf16_smem_bytes"] = []
     argtypes["fused_topk_bf16_smem_bytes"] = [i, i]
     # The int8 (SQ8) kernels take f32 queries, int8 codes and their f32
-    # scales; row_max, count_above and fused_topk run reduce_gemm.cuh's
-    # schedule (a grid), pool_writer and scores tile_gemm.cuh's.
+    # scales; row_max, count_above, fused_topk and scores run
+    # reduce_gemm.cuh's schedule (a grid), pool_writer tile_gemm.cuh's.
     argtypes["row_max_int8"] = [i, p, p, p, i, i, i, i, i, p, p, p]
     argtypes["count_above_int8"] = [i, p, p, p, i, i, i, f, i, i, p, p]
     argtypes["fused_topk_int8"] = [i, p, p, p, i, i, i, i, i, i, i, p, p, p]
     argtypes["pool_writer_int8"] = [i, p, p, p, i, i, i, i, p, p, p]
-    argtypes["scores_int8"] = [i, p, p, p, i, i, i, i, p, p]
-    for name in ("row_max", "count_above", "fused_topk"):
+    argtypes["scores_int8"] = [i, p, p, p, i, i, i, i, i, p, p]
+    for name in ("row_max", "count_above", "fused_topk", "scores"):
         argtypes[f"{name}_int8_occupancy"] = [i, p]
     argtypes["chamfer"] = [i, p, p, i, i, i, i, i, i, p, p]
     for name, types in argtypes.items():

@@ -1,8 +1,10 @@
 // Persistent, pipelined f32 tile product of the retrieval kernels that keep
 // no score: row_max, count_above (one value per query row: a max, a count)
-// and fused_topk (a top-kappa set per query row). The [M, N] scores never
+// and fused_topk (a top-kappa set per query row). Their [M, N] scores never
 // reach device memory; each kernel is this product plus an epilogue that
-// consumes every finished tile.
+// consumes every finished tile. One kernel writes its scores out:
+// scores.int8 (scores.cu, I8ScoreStore), the searchers' re-search over an
+// int8 corpus, which must score as the int8 kernels do.
 //
 // Arithmetic. Every score is the sequential sum over k = 0..D-1 of
 // fmaf(q, r, acc) from +0.0f, the order of tile_gemm.cuh, so these kernels
@@ -48,8 +50,8 @@
 // one of the stages are in flight while one is multiplied, and while the
 // epilogue runs.
 //
-// int8 corpora (SQ8: the row_max, count_above and fused_topk kernels'
-// .int8 variants). The queries stay f32 and the corpus is int8 codes with
+// int8 corpora (SQ8: the row_max, count_above, fused_topk and scores
+// kernels' .int8 variants). The queries stay f32 and the corpus is int8 codes with
 // one f32 scale per row; a score is (q . float(codes)) * scale. The codes
 // land by 16-byte cp.async in a ring of their own (rows of a multiple of
 // 16 codes, zero-padded, so every copy is whole) and each landed slice is

@@ -37,17 +37,25 @@
 // another order, so a re-searched pair would score a few ulps from its
 // neighbours' kernel scores and the two collections, which re-search
 // different rows, could rank near-equal pairs apart. This kernel is
-// tile_gemm.cuh's product (pool_writer.int8's) with the column hook
-// (ColumnScale) and an epilogue that writes each score: a re-searched
-// pair scores as row_max.int8, count_above.int8, pool_writer.int8 and
-// fused_topk.int8 score it, bit for bit. Bound: bytes at the re-search's
-// shapes (the [M, n_valid] f32 scores written; ~480 rows over the SSCD
-// corpus write 1.9 GB); one block per 64 x 128 tile, each lane storing
-// its 4 columns of a row as one 16-byte store where the row's offset
-// allows it.
-#include <climits>
-
-#include "tile_gemm.cuh"
+// reduce_gemm.cuh's int8 product (I8Corpus: codes by 16-byte cp.async
+// into a ring of their own, each 64-deep slice widened once into an f32
+// stage, the scale in its finish hook), the one row_max.int8,
+// count_above.int8 and fused_topk.int8 run, with an epilogue that stores
+// each score (I8ScoreStore): a re-searched pair scores as those three and
+// pool_writer.int8 (tile_gemm.cuh, the same chain) score it, bit for bit.
+// Bound: operations, 2*M*N*D at 67 TFLOP/s: a 128-row chunk of the SSCD
+// re-search ([128 x 1,000,020 x 512]) is 0.13 TFLOP, 1.96 ms, for 0.52 GB
+// of codes read and 0.51 GB of scores written (0.31 ms at 3.35 TB/s).
+// Design: the persistent, pipelined schedule of reduce_gemm.cuh (one wave
+// of blocks walking 128 x 128 items row tile major, the ring running
+// across items), so copies overlap the FMAs; the searcher hands it row
+// chunks of a multiple of 128 rows (ops/similarity.py _row_chunk), so its
+// items are full. The epilogue keeps no state: each thread stores its 8 x
+// 8 scores from registers, and for each (i, j) the 8 lanes tx of a warp's
+// 4 rows cover 8 adjacent columns, whole 32-byte sectors wherever the
+// row's offset is a multiple of 8 floats; rows >= M and columns >= n_valid
+// are not written.
+#include "reduce_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
 using namespace vsc;
@@ -96,57 +104,63 @@ struct Bf16Scores {
                                         const wg::Item&) const {}
 };
 
-// The int8 scores: one block per [64 x 128] tile of [m, n_valid].
-__global__ void __launch_bounds__(THREADS)
-    scores_int8_kernel(const float* __restrict__ q,
-                       const int8_t* __restrict__ codes, ColumnScale scaled,
-                       int m, int n_valid, int d, int n_row_tiles,
-                       float* __restrict__ out) {
-  __shared__ TileSmem sm;
-  const int row0 = (blockIdx.x % n_row_tiles) * BM;
-  const int col0 = (blockIdx.x / n_row_tiles) * BN;
-  float acc[ROWS_PER_WARP][COLS_PER_LANE];
-  tile_product(q, codes, m, n_valid, d, row0, col0, sm, acc);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col = col0 + lane * COLS_PER_LANE;
-  scaled.apply(acc, col);
-  if (col >= n_valid) return;
+// The int8 scores' epilogue on reduce_gemm.cuh (its epilogue contract):
+// no state across items; each finished item's scores, already scaled
+// (I8Corpus::finish), go to out[row * n_valid + col].
+struct I8ScoreStore {
+  static constexpr int kStages = reduce::STAGES;
+  float* out;
+  int n_valid;
+  struct State {};
+  struct Smem {};
+
+  __device__ __forceinline__ void begin(State&, Smem&, const reduce::Tile&,
+                                        const reduce::Work&) const {}
+
+  template <bool kMasked>
+  __device__ __forceinline__ void item(State&, Smem&, const reduce::Tile& t,
+                                       const reduce::Work& w,
+                                       float acc[reduce::TM][reduce::TN],
+                                       int rt, int ct, int valid_cols) const {
 #pragma unroll
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int row = row0 + warp * ROWS_PER_WARP + r;
-    if (row >= m) break;
-    float* dst = out + (size_t)row * n_valid + col;
-    if (col + COLS_PER_LANE <= n_valid &&
-        (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    } else {
+    for (int i = 0; i < reduce::TM; ++i) {
+      const int row = rt * reduce::BM + t.row + 4 * i;
+      if (row >= w.m) continue;
+      float* dst = out + (size_t)row * n_valid + (size_t)ct * reduce::BN + t.col;
 #pragma unroll
-      for (int c = 0; c < COLS_PER_LANE; ++c)
-        if (col + c < n_valid) dst[c] = acc[r][c];
+      for (int j = 0; j < reduce::TN; ++j)
+        if (!kMasked || 8 * j < valid_cols) dst[8 * j] = acc[i][j];
     }
   }
-}
+
+  __device__ __forceinline__ void flush(State&, Smem&, const reduce::Tile&,
+                                        const reduce::Work&, int) const {}
+};
 
 }  // namespace
 
-// The int8 variant: q [m, d] f32, codes [n, d] int8 and scale [n] f32,
-// row-major on the device; out is [m, n_valid] f32, out[i, j] =
-// (q[i] . codes[j]) * scale[j].
+// Blocks of the int8 kernel one SM holds at once (its grid: SMs x this,
+// at most the work items of ops/kernels.py reduce_tiles).
+extern "C" int vsc_scores_int8_occupancy(int device, int* blocks_per_sm) {
+  return reduce::resident_blocks_int8<I8ScoreStore>(device, 0, blocks_per_sm);
+}
+
+// The int8 variant: q [m, d] f32 and codes [n, d] int8 row-major, d a
+// multiple of 16 (zero pad columns past the data's width), both bases
+// 16-byte aligned, scale [n] f32; out is [m, n_valid] f32, out[i, j] =
+// (q[i] . codes[j]) * scale[j]; `grid` persistent blocks (one wave, at
+// most the work items), as for vsc_row_max_int8.
 extern "C" int vsc_scores_int8(int device, const float* q, const int8_t* codes,
                                const float* scale, int m, int n, int d,
-                               int n_valid, float* out, void* stream) {
+                               int n_valid, int grid, float* out,
+                               void* stream) {
   if (m <= 0 || n_valid <= 0) return 0;
   if (n_valid > n) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int n_row_tiles = (m + BM - 1) / BM;
-  const long long blocks = (long long)n_row_tiles * ((n_valid + BN - 1) / BN);
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  scores_int8_kernel<<<(unsigned)blocks, THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      q, codes, ColumnScale{scale, n}, m, n_valid, d, n_row_tiles, out);
-  return (int)cudaGetLastError();
+  return (int)reduce::launch_int8(q, codes, scale, m, d, n_valid, grid,
+                                  I8ScoreStore{out, n_valid}, 0,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // Blocks of the kernel one SM holds at once: its grid is SMs x this, at

@@ -1,25 +1,26 @@
-// The f32 tile product of pool_writer. row_max, count_above and fused_topk
-// run the pipelined persistent product of reduce_gemm.cuh, with the same
-// arithmetic per score (the bf16 kernels run the tensor-core product of
-// wgmma_gemm.cuh instead).
+// The f32 tile product of pool_writer and pool_writer.int8, the only
+// kernels on it. row_max, count_above, fused_topk, their .int8 variants and
+// scores.int8 run the pipelined persistent product of reduce_gemm.cuh, with
+// the same arithmetic per score (the bf16 kernels run the tensor-core
+// product of wgmma_gemm.cuh instead).
 //
 // One block of 256 threads computes a [BM x BN] = [64 query rows x 128 ref
 // columns] tile of q . refs^T in full f32 FMA on the CUDA cores (the JAX
 // kernels run at Precision.HIGHEST; no TF32). The depth D streams through
 // shared memory BK values at a time. Warp w owns rows 8w..8w+7 of the tile
 // and lane l owns columns 4l..4l+3, so a thread holds an 8 x 4 register tile
-// and each row's 128 scores live in one warp: the kernels' row reductions are
-// warp shuffles, with no second pass through shared memory.
+// and each row's 128 scores live in one warp: the pool's per-segment top 2
+// is a warp reduction, with no second pass through shared memory.
 //
 // Every score is the sequential sum over k = 0..D-1 of fmaf(q, r, acc), the
 // order of reduce_gemm.cuh too, so the pool, the top-kappa candidates, the
 // corpus count and the row max see bit-identical scores for the same
 // (query, ref) pair.
 //
-// int8 corpora (SQ8: pool_writer.int8, scores.int8): the corpus operand
-// is int8 codes, each widened exactly to f32 as it is copied into shared
-// memory, so the chain is the f32 chain on codes.float(), and the scores
-// of reduce_gemm.cuh's int8 kernels bit for bit; the kernel applies the
+// int8 corpora (SQ8: pool_writer.int8): the corpus operand is int8 codes,
+// each widened exactly to f32 as it is copied into shared memory, so the
+// chain is the f32 chain on codes.float(), and the scores of
+// reduce_gemm.cuh's int8 kernels bit for bit; the kernel applies the
 // corpus row's scale to each finished score (ColumnScale).
 //
 // Simple first: no cp.async, TMA or wgmma, one shared-memory stage.

@@ -44,9 +44,9 @@ collections compare their candidates with their counts bit for bit:
 * int8 (SQ8 storage; ``<name>.int8``): f32 queries against int8 codes
   with one f32 scale per corpus row (``scale=``); a score is (q ·
   float(codes[j])) × scale[j]. The f32 fmaf chain over the codes widened
-  exactly (``reduce_gemm.cuh``'s int8 corpus; ``tile_gemm.cuh`` for
-  ``pool_writer`` and ``scores``), the scale applied once per finished
-  score, before the max, the count or the selection. So with every scale
+  exactly (``reduce_gemm.cuh``'s int8 corpus, ``scores`` included;
+  ``tile_gemm.cuh`` for ``pool_writer``), the scale applied once per
+  finished score, before the max, the count or the selection. So with every scale
   1 each int8 kernel equals its f32 kernel on ``codes.float()`` bit for
   bit, and the five int8 kernels agree with each other as the f32 ones
   do. Codes rows hold a multiple of 16 values (``pad_columns(codes,
@@ -75,8 +75,9 @@ from vsc2022_torch.ops import _build
 
 SEG_LANES = 128  # columns per winner-pool segment
 SEG_KEEP = 2  # entries the pool keeps per segment
-# Query rows and ref columns of one row_max / count_above / fused_topk work
-# item (reduce_gemm.cuh): 128 rows by one 128-column pool segment.
+# Query rows and ref columns of one work item of reduce_gemm.cuh (row_max,
+# count_above, fused_topk and the .int8 variants of these and of scores):
+# 128 rows by one 128-column pool segment.
 REDUCE_TILE = 128
 
 # Query rows and corpus rows of one work item of the tensor-core product
@@ -381,8 +382,8 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 def reduce_tiles(m: int, n_valid: int) -> Tuple[int, int]:
-    """(row tiles, column tiles) of an [m, n_valid] row_max / count_above /
-    fused_topk call; its work items are their product."""
+    """(row tiles, column tiles) of an [m, n_valid] call of a kernel of
+    reduce_gemm.cuh; its work items are their product."""
     return -(-m // REDUCE_TILE), -(-n_valid // REDUCE_TILE)
 
 
@@ -777,7 +778,8 @@ def scores(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
         q, refs = _int8_operands(q, refs)
         rc = _build.library().vsc_scores_int8(
             q.device.index, q.data_ptr(), refs.data_ptr(), scale.data_ptr(), m,
-            refs.shape[0], q.shape[1], n_valid, out.data_ptr(), _stream(q),
+            refs.shape[0], q.shape[1], n_valid, _int8_grid("scores_int8", q, n_valid),
+            out.data_ptr(), _stream(q),
         )
         _raise_on(rc, "scores_int8")
         launches[SCORES_INT8] += 1

@@ -75,7 +75,9 @@ import torch
 
 from vsc2022_torch.device import DeviceLike, resolve_device
 from vsc2022_torch.ops import kernels
-from vsc2022_torch.ops.kernels import PLAIN_CHUNK_ELEMENTS, SEG_KEEP, SEG_LANES
+from vsc2022_torch.ops.kernels import (
+    PLAIN_CHUNK_ELEMENTS, REDUCE_TILE, SEG_KEEP, SEG_LANES,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -401,7 +403,14 @@ class SimilaritySearcher:
         return q.to(self.device).to(self.query_dtype).contiguous()
 
     def _row_chunk(self) -> int:
-        return max(1, PLAIN_CHUNK_ELEMENTS // max(self.n_refs, 1))
+        """Query rows per chunk of scores over the corpus: the
+        PLAIN_CHUNK_ELEMENTS budget, rounded down to a multiple of the
+        128-row work items of the re-search's products (scores.int8's,
+        ``kernels.REDUCE_TILE``, and scores.bf16's, ``kernels.WGMMA_ROWS``)
+        where the budget holds 128 rows or more, so the kernels compute no
+        empty rows. Each row's scores are independent of its chunk."""
+        rows = max(1, PLAIN_CHUNK_ELEMENTS // max(self.n_refs, 1))
+        return rows - rows % REDUCE_TILE if rows >= REDUCE_TILE else rows
 
     # ---- per-row searches ------------------------------------------------
 
