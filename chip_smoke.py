@@ -109,6 +109,20 @@ Phases (any failure exits non-zero):
      and on integer-valued inputs of the largest call's shape, and the
      path's row_max, fused_topk and count_above calls (D = 1024 and 1025)
      as in phase 2.
+ 5d. The DnS fine similarity at precision "default". chamfer.bf16
+     (mma.sync on the tensor cores) on every chamfer input of phase 5
+     rounded to bf16, within BF16_TC_ATOL of its plain version, and on
+     integer inputs of the largest call's shape with zero-pad frames,
+     exactly; kernel, plain, library (one bf16 bmm with f32 output, then
+     amax and mean), f32-chamfer (the same rounded rows) and bound ms on
+     the largest call and summed over the calls. Then the path function,
+     `dns_baseline._gathered_dns_sims(..., precision="default")`, on
+     phase 5's staged tables and each of its batches' index matrices:
+     counts zeroed just before and read just after (chamfer.bf16 once a
+     batch, nothing else), held against the same function on the plain
+     chamfer; its largest difference from the "highest" sims is logged,
+     not checked. The entry points stay at "highest" (as JAX's
+     DnSLocalization does) and launch chamfer.bf16 0 times.
 
   6. Serving, through `python -m vsc2022_torch.retrieval.serve --f32
      --score_norm_features ... --matches` driven by the port's client: a
@@ -230,7 +244,10 @@ KERNEL_META = {
 # The TPU kernel each bf16 variant replaces: pool_writer's bf16 branch; the
 # other three have none (the JAX searcher computes them over a bf16 corpus
 # with XLA, similarity.py:271, 464), so their Pallas function stands.
-BF16_REPLACES = {"pool_writer": "vsc2022_tpu/ops/pallas_kernels.py:228"}
+BF16_REPLACES = {"pool_writer": "vsc2022_tpu/ops/pallas_kernels.py:228",
+                 "chamfer": "vsc2022_tpu/ops/pallas_kernels.py:700"}
+# A bf16 variant in a source of its own.
+BF16_SOURCES = {"chamfer": "vsc2022_torch/ops/csrc/chamfer_bf16.cu"}
 # Each kernel's wrapper in vsc2022_torch.ops.kernels.
 WRAPPERS = {"row_max": "row_max", "count_above": "count_above",
             "pool_writer": "pool_writer", "fused_topk": "fused_topk",
@@ -346,11 +363,12 @@ def count_above_library(torch, q, refs, tau, n_valid, scale=None):
     ])
 
 
-def chamfer_library(torch, qf, rf, symmetric):
-    """One torch.bmm over frame-major rows, then amax and mean."""
+def chamfer_library(torch, qf, rf, symmetric, **kw):
+    """One torch.bmm over frame-major rows, then amax and mean; ``kw``
+    (``out_dtype``) goes to the product."""
     b, nq, r, d = qf.shape
     nr = rf.shape[1]
-    p = torch.bmm(qf.view(b, nq * r, d), rf.view(b, nr * r, d).transpose(1, 2))
+    p = torch.bmm(qf.view(b, nq * r, d), rf.view(b, nr * r, d).transpose(1, 2), **kw)
     p = p.view(b, nq, r, nr, r)  # [b, i, a, j, c]
     fg = p.amax(4).mean(2)
     if symmetric:
@@ -1257,6 +1275,27 @@ def search_stats():
         SimilaritySearcher.global_topk = original
 
 
+@contextlib.contextmanager
+def capture_dns_batches():
+    """The arguments of every ``dns_baseline._gathered_dns_sims`` call while
+    the block runs, [(args, kwargs), ...] in call order: the staged device
+    tables, each batch's index matrices, the bias and ``symmetric``."""
+    from vsc2022_torch.baseline import dns_baseline
+
+    seen = []
+    original = dns_baseline._gathered_dns_sims
+
+    def gathered(*args, **kwargs):
+        seen.append((args, kwargs))
+        return original(*args, **kwargs)
+
+    dns_baseline._gathered_dns_sims = gathered
+    try:
+        yield seen
+    finally:
+        dns_baseline._gathered_dns_sims = original
+
+
 def log_research_chunks(kernels, phase, label, stats, args, launches):
     """The re-search's rows per scores launch, logged before phase 2 times
     that kernel on its first call (``args``): the searcher scores its
@@ -1634,8 +1673,9 @@ def small_dns_cuda_vs_cpu(np, work: Path):
 
 
 def phase_dns_path(torch, np, kernels):
-    """Returns the DnS path's launch counts and the inputs its kernels were
-    given there (every chamfer call; the first call of the others)."""
+    """Returns the DnS path's launch counts, the inputs its kernels were
+    given there (every chamfer call; the first call of the others) and the
+    arguments of its fused similarity batches (``_gathered_dns_sims``)."""
     from vsc2022_torch.metrics import CandidatePair, Match
 
     work = SMOKE_DIR / "dns"
@@ -1652,7 +1692,7 @@ def phase_dns_path(torch, np, kernels):
         f"planted copies; made in {time.perf_counter() - t0:.1f} s")
 
     with capture_inputs(kernels, keep_all=("chamfer",)) as captured, \
-            search_stats() as stats:
+            search_stats() as stats, capture_dns_batches() as batches:
         kernels.reset_launches()
         t0 = time.perf_counter()
         results, out = run_dns(paths, work, "cuda")
@@ -1672,6 +1712,10 @@ def phase_dns_path(torch, np, kernels):
     for name in DNS_KERNELS:
         check(launches[name] > 0 and name in captured,
               f"kernel {name} never launched on the DnS path")
+    # DnSLocalization stays at precision "highest", as JAX's: one f32
+    # chamfer per batch, no chamfer.bf16 (phase 5d drives that one).
+    check(len(batches) == launches["chamfer"] and launches["chamfer.bf16"] == 0,
+          f"{len(batches)} similarity batches, launches {launches}")
 
     with np.load(work / "idx" / "queries_cg_student_sn.npz") as z:
         check(z["features"].shape[1] == 1025 and z["features"].dtype == np.float32,
@@ -1688,13 +1732,16 @@ def phase_dns_path(torch, np, kernels):
     check(all(math.isfinite(c.score) for c in cands + matches), "non-finite DnS score")
     check(res["candidate_uap"] >= 0.9, f"DnS candidate uAP {res['candidate_uap']}")
     check(res["segment_ap"] > 0, f"DnS segment AP {res['segment_ap']}")
-    return launches, captured
+    return launches, captured, batches
 
 
-def chamfer_bound(b, nq, nr, d):
+def chamfer_bound(b, nq, nr, d, bf16=False):
+    """f32 operands at the f32 CUDA-core peak; bf16 ones (2 bytes a value)
+    at the bf16 tensor-core peak. The output is f32."""
     flops = 2.0 * b * (nq * DNS_REGIONS) * (nr * DNS_REGIONS) * d
-    moved = 4.0 * (b * (nq + nr) * DNS_REGIONS * d + b * nq * nr)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, moved / PEAK_BYTES
+    moved = (2.0 if bf16 else 4.0) * b * (nq + nr) * DNS_REGIONS * d + 4.0 * b * nq * nr
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, moved / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1746,6 +1793,159 @@ def phase_chamfer(torch, kernels, dev, calls):
         "path_total": {"calls": len(calls), "ms": total_ms, "plain_ms": total_plain,
                        "library_ms": total_lib, "bound_ms": total_bound},
     }
+
+
+# ---- phase 5d: the DnS fine similarity at precision "default" ----------------
+
+
+def chamfer_library_bf16_kw(torch, dev):
+    """The bf16 chamfer's library yardstick: one bf16 torch.bmm with an f32
+    result (``out_dtype``), the same function as chamfer.bf16; where this
+    torch has no such call on the card, the bf16-output product stands in
+    (logged). Returns (bmm keywords, what ran)."""
+    x = torch.ones((1, 8, 8), dtype=torch.bfloat16, device=dev)
+    try:
+        torch.bmm(x, x, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        log(f"phase 5d: torch {torch.__version__} has no bf16 bmm with f32 output on "
+            f"the card ({type(e).__name__}: {str(e).splitlines()[0][:120]}); the "
+            "bf16-output bmm stands in")
+        return {}, "bf16 bmm with bf16 output"
+    return {"out_dtype": torch.float32}, "bf16 bmm with f32 output"
+
+
+def chamfer_bf16_blocks_per_sm(kernels, dev) -> int:
+    import ctypes
+
+    blocks = ctypes.c_int(0)
+    rc = kernels._build.library().vsc_chamfer_bf16_occupancy(dev.index, ctypes.byref(blocks))
+    check(rc == 0, f"chamfer.bf16 occupancy query failed (cudaError {rc})")
+    return blocks.value
+
+
+def phase_chamfer_bf16(torch, kernels, dev, calls, batches, entry_launches):
+    """Phase 5d: chamfer.bf16 on every chamfer input of phase 5 rounded to
+    bf16 (within BF16_TC_ATOL of its plain version), on integer inputs of
+    the largest call's shape with zero-pad frames (exact), timed beside
+    the plain version, the library call and the f32 kernel on the same
+    rounded rows (f32_ms); then the path function, the port's
+    ``_gathered_dns_sims(..., precision="default")`` on phase 5's staged
+    tables and each of its batches' index matrices, with the launch counts
+    zeroed just before and read just after, held against the same
+    function on the plain chamfer. Returns (record, launches)."""
+    from vsc2022_torch.baseline import dns_baseline
+
+    bf16 = torch.bfloat16
+    lib_kw, lib_what = chamfer_library_bf16_kw(torch, dev)
+    err = 0.0
+    totals = dict.fromkeys(("ms", "plain_ms", "library_ms", "f32_ms", "bound_ms"), 0.0)
+    for qf, rf, sym in calls:
+        qb, rb = qf.to(bf16), rf.to(bf16)
+        got = kernels.chamfer_fine_sims(qb, rb, sym)
+        err = max(err, float((got - kernels.chamfer_fine_sims_plain(qb, rb, sym)).abs().max()))
+        del got
+        totals["ms"] += cuda_ms(torch, lambda: kernels.chamfer_fine_sims(qb, rb, sym), 3)
+        totals["plain_ms"] += cuda_ms(
+            torch, lambda: kernels.chamfer_fine_sims_plain(qb, rb, sym), 1)
+        totals["library_ms"] += cuda_ms(
+            torch, lambda: chamfer_library(torch, qb, rb, sym, **lib_kw), 1)
+        qw, rw = qb.float(), rb.float()
+        totals["f32_ms"] += cuda_ms(torch, lambda: kernels.chamfer_fine_sims(qw, rw, sym), 3)
+        totals["bound_ms"] += chamfer_bound(qb.shape[0], qb.shape[1], rb.shape[1],
+                                            qb.shape[3], bf16=True)[0]
+        del qb, rb, qw, rw
+    check(err <= BF16_TC_ATOL, f"chamfer.bf16 on the DnS path's inputs: max abs err {err}")
+    torch.cuda.empty_cache()
+
+    qf, rf, sym = max(calls, key=lambda a: a[0].shape[0] * a[0].shape[1] * a[1].shape[1])
+    (b, nq, _, d), nr = qf.shape, rf.shape[1]
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    qi = torch.randint(-3, 4, qf.shape, generator=g, device=dev).to(bf16)
+    ri = torch.randint(-3, 4, rf.shape, generator=g, device=dev).to(bf16)
+    qi[:, nq // 2:] = 0.0  # zero-pad frames on both sides
+    ri[:, nr - nr // 4:] = 0.0
+    for s_ in (sym, not sym):
+        got = kernels.chamfer_fine_sims(qi, ri, s_)
+        int_err = float((got - kernels.chamfer_fine_sims_plain(qi, ri, s_)).abs().max())
+        check(int_err == 0.0, f"chamfer.bf16 on integer inputs [{b}, {nq}, {nr}] "
+              f"symmetric={s_}: err {int_err}")
+        check(bool((got[:, nq // 2:] == 0).all() and (got[:, :, nr - nr // 4:] == 0).all()),
+              "chamfer.bf16: a zero-pad frame scored non-zero")
+    del qi, ri, got
+    torch.cuda.empty_cache()
+
+    qb, rb = qf.to(bf16), rf.to(bf16)
+    kernel_ms = cuda_ms(torch, lambda: kernels.chamfer_fine_sims(qb, rb, sym), 5)
+    plain_ms = cuda_ms(torch, lambda: kernels.chamfer_fine_sims_plain(qb, rb, sym), 2)
+    library_ms = cuda_ms(torch, lambda: chamfer_library(torch, qb, rb, sym, **lib_kw), 2)
+    lib_err = float((chamfer_library(torch, qb, rb, sym, **lib_kw)
+                     - kernels.chamfer_fine_sims_plain(qb, rb, sym)).abs().max())
+    if lib_kw:
+        check(lib_err <= BF16_TC_ATOL, f"chamfer.bf16 library yardstick off by {lib_err}")
+    qw, rw = qb.float(), rb.float()
+    f32_ms = cuda_ms(torch, lambda: kernels.chamfer_fine_sims(qw, rw, sym), 5)
+    del qb, rb, qw, rw
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = chamfer_bound(b, nq, nr, d, bf16=True)
+    blocks = chamfer_bf16_blocks_per_sm(kernels, dev)
+    log(f"phase 5d: chamfer.bf16 (mma.sync, {blocks} block(s) per SM, grid "
+        f"{-(-nr // 32)} x {-(-nq // 16)} x {b}) on the DnS path's largest call rounded "
+        f"to bf16 [B={b}, NQ={nq}, NR={nr}, D={d}] kernel_ms={kernel_ms:.3f} "
+        f"plain_ms={plain_ms:.3f} library_ms={library_ms:.3f} ({lib_what}; max abs "
+        f"err {lib_err}) f32_ms={f32_ms:.3f} (the f32 chamfer on the same rows) "
+        f"bound_ms={bound_ms:.3f} ({bound_by}); all {len(calls)} calls: kernel "
+        f"{totals['ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, library "
+        f"{totals['library_ms']:.3f} ms, f32 {totals['f32_ms']:.3f} ms, bound "
+        f"{totals['bound_ms']:.3f} ms; max_abs_err={err} (floats), 0 (integers)")
+
+    def run(precision):
+        return [dns_baseline._gathered_dns_sims(*args, **dict(kw, precision=precision))
+                for args, kw in batches]
+
+    kernels.reset_launches()
+    sims = run("default")
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    check(launches["chamfer.bf16"] == len(batches) > 0
+          and sum(launches.values()) == len(batches),
+          f"the path function at default over {len(batches)} batches launched {launches}")
+    highest = run("highest")
+    original = kernels.chamfer_fine_sims
+    kernels.chamfer_fine_sims = kernels.chamfer_fine_sims_plain
+    try:
+        plain = run("default")
+    finally:
+        kernels.chamfer_fine_sims = original
+    path_err = vs_highest = 0.0
+    for got, want, hi in zip(sims, plain, highest):
+        check(got.shape == want.shape == hi.shape and bool(torch.isfinite(got).all()),
+              f"path function at default: {tuple(got.shape)} vs {tuple(hi.shape)}")
+        path_err = max(path_err, float((got - want).abs().max()))
+        vs_highest = max(vs_highest, float((got - hi).abs().max()))
+    check(path_err <= BF16_TC_ATOL,
+          f"_gathered_dns_sims at default: {path_err} from the plain chamfer's")
+    default_ms = cuda_ms(torch, lambda: run("default"), 1)
+    highest_ms = cuda_ms(torch, lambda: run("highest"), 1)
+    del sims, plain, highest
+    torch.cuda.empty_cache()
+    log(f"phase 5d: _gathered_dns_sims(precision='default') over phase 5's "
+        f"{len(batches)} batches: launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+        f"the entry points (phase 5) launched chamfer.bf16 "
+        f"{entry_launches['chamfer.bf16']} times (DnSLocalization stays at 'highest'); "
+        f"max abs err against the plain chamfer {path_err}; largest difference from "
+        f"the 'highest' sims {vs_highest} (reported, not checked); all batches "
+        f"{default_ms:.3f} ms at default, {highest_ms:.3f} ms at highest")
+    record = {
+        "shape": [b, nq, nr, d], "max_abs_err": err, "ms": kernel_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "f32_ms": f32_ms,
+        "path_total": dict(totals, calls=len(calls)),
+        "path_function": {"batches": len(batches), "max_abs_err": path_err,
+                          "max_diff_from_highest": vs_highest, "ms": default_ms,
+                          "highest_ms": highest_ms},
+    }
+    return record, launches["chamfer.bf16"]
 
 
 # ---- phase 6: the resident server ---------------------------------------------
@@ -2234,7 +2434,7 @@ def main() -> int:
         launches.update({k: int8_launches[k] for k in SSCD_INT8_KERNELS})
         del int8_captured
         torch.cuda.empty_cache()
-        dns_launches, dns_captured = phase_dns_path(torch, np, kernels)
+        dns_launches, dns_captured, dns_batches = phase_dns_path(torch, np, kernels)
         corpus = serve_corpus(np)
         serve_launches, serve_captured, _, _ = phase_serve(torch, np, kernels, dev,
                                                            corpus)
@@ -2257,8 +2457,13 @@ def main() -> int:
                                    1200 * DNS_QUERIES, dns_bf16_launches, "bfloat16")
     dns_int8_captured = dns_search(torch, np, kernels, dns_captured["fused_topk"],
                                    1200 * DNS_QUERIES, dns_int8_launches, "int8")
-    records["chamfer"] = phase_chamfer(torch, kernels, dev, dns_captured.pop("chamfer"))
+    chamfer_calls = dns_captured.pop("chamfer")
+    records["chamfer"] = phase_chamfer(torch, kernels, dev, chamfer_calls)
     launches["chamfer"] = dns_launches["chamfer"]
+    records["chamfer.bf16"], launches["chamfer.bf16"] = phase_chamfer_bf16(
+        torch, kernels, dev, chamfer_calls, dns_batches, dns_launches)
+    del chamfer_calls, dns_batches
+    torch.cuda.empty_cache()
     dns_records = phase_kernels_main(torch, kernels, dev, dns_captured, path="DnS")
     # The bf16 variants at the DnS widths (D = 1024, 1025), on the DnS
     # path's inputs rounded to bf16; their launches are the bf16 DnS
@@ -2300,7 +2505,8 @@ def main() -> int:
                          ("fused_topk.int8", serve_int8_launches)):
         records[name] = serve_records.pop(name)
         launches[name] = counts[name]
-    path_of = {"chamfer": "dns", "fused_topk": "serving", "fused_topk.bf16": "serving",
+    path_of = {"chamfer": "dns", "chamfer.bf16": "dns, precision default (phase 5d)",
+               "fused_topk": "serving", "fused_topk.bf16": "serving",
                "fused_topk.int8": "serving"}
 
     def by_dtype(name, f32, bf16, int8):
@@ -2312,6 +2518,7 @@ def main() -> int:
         source, replaces = KERNEL_META[base]
         if name.endswith(BF16):
             replaces = BF16_REPLACES.get(base, replaces)
+            source = BF16_SOURCES.get(base, source)
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
@@ -2320,7 +2527,7 @@ def main() -> int:
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "path": path_of.get(name, "sscd"),
         }
-        for key in ("path_total", "f32_ms", "library_bf16_out_ms"):
+        for key in ("path_total", "f32_ms", "library_bf16_out_ms", "path_function"):
             if key in rec:
                 row[key] = rec[key]
         if name in dns_records:  # the same kernel on the DnS path

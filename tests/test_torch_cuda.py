@@ -32,7 +32,11 @@ f32 kernels on codes.float() where every scale is 1, and bit for bit
 against each other; scores.int8, on reduce_gemm.cuh's product as the other
 three reduce kernels, also at the re-search's row chunks (row counts
 around a 128-row item, every column tail) and at any grid, writing
-nothing past its [M, n_valid] output.
+nothing past its [M, n_valid] output. chamfer.bf16, the DnS chamfer at
+precision "default" (mma.sync on the tensor cores), is held against its
+plain version (the widened f32 chamfer) at frame counts on both sides of
+its 16 x 32 frame tiles: exact on integers, within BF16_TC_ATOL on
+unit-norm rows, zero on pad frames, writing nothing past its output.
 """
 
 import math
@@ -92,8 +96,8 @@ def test_kernels_match_plain(cuda_device, m, n, d, n_valid):
         "row_max": 1, "count_above": 1, "pool_writer": 1, "fused_topk": 0,
         "chamfer": 0, "row_max.bf16": 0, "count_above.bf16": 0,
         "pool_writer.bf16": 0, "fused_topk.bf16": 0, "scores.bf16": 0,
-        "row_max.int8": 0, "count_above.int8": 0, "pool_writer.int8": 0,
-        "fused_topk.int8": 0, "scores.int8": 0,
+        "chamfer.bf16": 0, "row_max.int8": 0, "count_above.int8": 0,
+        "pool_writer.int8": 0, "fused_topk.int8": 0, "scores.int8": 0,
     }
 
 
@@ -316,14 +320,92 @@ def test_chamfer_matches_plain(cuda_device, kind, b, nq, nr, d, symmetric):
 
 def test_chamfer_wrapper_raises(cuda_device):
     q = torch.zeros((1, 4, 9, 8), device=cuda_device)
-    with pytest.raises(NotImplementedError):
-        kernels.chamfer_fine_sims(q.bfloat16(), q.bfloat16())
+    # bf16 region features launch chamfer.bf16; mixed dtypes raise, and so
+    # does a bf16 row of D % 8 != 0 (16-byte copies of bf16).
+    kernels.reset_launches()
+    assert (kernels.chamfer_fine_sims(q.bfloat16(), q.bfloat16()) == 0).all()
+    assert kernels.launches["chamfer.bf16"] == 1 and kernels.launches["chamfer"] == 0
+    with pytest.raises(TypeError, match="share a dtype"):
+        kernels.chamfer_fine_sims(q.bfloat16(), q)
+    with pytest.raises(ValueError, match="D % 8"):
+        kernels.chamfer_fine_sims(q[..., :4].bfloat16().contiguous(),
+                                  q[..., :4].bfloat16().contiguous())
     with pytest.raises(ValueError):
         kernels.chamfer_fine_sims(q, torch.zeros((1, 4, 9, 8)))
     with pytest.raises(ValueError):
         kernels.chamfer_fine_sims(q[..., :6].contiguous(), q[..., :6].contiguous())
     with pytest.raises(ValueError):
         kernels.chamfer_fine_sims(q[:, :, :8].contiguous(), q[:, :, :8].contiguous())
+
+
+# ---- chamfer.bf16: the DnS chamfer at precision "default" (mma.sync) ---------
+
+# Frame counts on both sides of the kernel's 16 x 32 frame tiles.
+CHAMFER_FRAMES = [1, 17, 32, 64, 100, 128]
+
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("d", [8, 24, 512])
+@pytest.mark.parametrize("nr", CHAMFER_FRAMES)
+@pytest.mark.parametrize("nq", CHAMFER_FRAMES)
+def test_chamfer_bf16_matches_plain(cuda_device, kind, nq, nr, d):
+    # The tensor cores sum the exact bf16 products in f32 in their own
+    # order: exact on integers (every partial sum an integer below 2^24),
+    # within BF16_TC_ATOL of the widened f32 chamfer on unit-norm rows.
+    b, symmetric = 2, (nq + nr + d) % 2 == 0
+    if kind == "int":
+        qf, rf = _ints((b, nq, 9, d), 80 + nq), _ints((b, nr, 9, d), 81 + nr)
+    else:
+        rng = np.random.RandomState(82 + d)
+        qf = torch.from_numpy(rng.randn(b, nq, 9, d).astype(np.float32))
+        rf = torch.from_numpy(rng.randn(b, nr, 9, d).astype(np.float32))
+        qf /= qf.norm(dim=3, keepdim=True)
+        rf /= rf.norm(dim=3, keepdim=True)
+    qf[:, nq - nq // 5 :] = 0.0  # zero-pad frames
+    rf[:, nr - nr // 7 :] = 0.0
+    qb, rb = qf.to(BF16).to(cuda_device), rf.to(BF16).to(cuda_device)
+    kernels.reset_launches()
+    got = kernels.chamfer_fine_sims(qb, rb, symmetric)
+    assert kernels.launches["chamfer.bf16"] == 1 and kernels.launches["chamfer"] == 0
+    want = kernels.chamfer_fine_sims_plain(qb, rb, symmetric)
+    tol = 0.0 if kind == "int" else BF16_TC_ATOL
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    assert bool((got[:, nq - nq // 5 :] == 0).all())
+    assert bool((got[:, :, nr - nr // 7 :] == 0).all())
+
+
+@pytest.mark.parametrize("nq,nr", [(17, 100), (100, 17), (1, 1), (33, 65)])
+def test_chamfer_bf16_writes_nothing_past_its_output(cuda_device, nq, nr):
+    # Frames past NQ and NR inside a 16 x 32 frame tile are never stored:
+    # a [B, NQ, NR] view at the start of a larger buffer leaves the rest.
+    b, d = 3, 24
+    qf = _ints((b, nq, 9, d), 90).to(BF16).to(cuda_device)
+    rf = _ints((b, nr, 9, d), 91).to(BF16).to(cuda_device)
+    n_out = b * nq * nr
+    buf = torch.full((n_out + 4096,), 7.0, device=cuda_device)
+    rc = kernels._build.library().vsc_chamfer_bf16(
+        qf.device.index, qf.data_ptr(), rf.data_ptr(), b, nq, nr, 9, d, 1,
+        buf.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert bool((buf[n_out:] == 7.0).all())
+    assert torch.equal(buf[:n_out].view(b, nq, nr),
+                       kernels.chamfer_fine_sims_plain(qf, rf, True))
+
+
+def test_chamfer_bf16_within_tolerance_of_f32_on_the_dns_width(cuda_device):
+    # The DnS fine features (D = 512, 9 regions, buckets of 32-128 frames):
+    # chamfer.bf16 on the rounded rows against the f32 chamfer kernel on the
+    # same rows widened.
+    rng = np.random.RandomState(95)
+    qf = torch.from_numpy(rng.randn(4, 64, 9, 512).astype(np.float32))
+    rf = torch.from_numpy(rng.randn(4, 128, 9, 512).astype(np.float32))
+    qf, rf = (x / x.norm(dim=3, keepdim=True) for x in (qf, rf))
+    qb, rb = qf.to(BF16).to(cuda_device), rf.to(BF16).to(cuda_device)
+    for symmetric in (True, False):
+        got = kernels.chamfer_fine_sims(qb, rb, symmetric)
+        f32 = kernels.chamfer_fine_sims(qb.float(), rb.float(), symmetric)
+        torch.testing.assert_close(got, f32, rtol=0, atol=BF16_TC_ATOL)
 
 
 def test_global_topk_cuda_equals_cpu(cuda_device):

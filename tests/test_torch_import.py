@@ -114,12 +114,15 @@ def test_entry_points_default_to_cuda_and_raise(no_gpu, tmp_path):
 
 
 def test_tensor_core_kernels_are_the_bf16_launch_keys():
-    """Every bf16 launch key is a kernel of the tensor-core product, and
-    each of those has a wrapper (tools/bench_reduce.py reads the set)."""
+    """Every bf16 launch key but the chamfer's (chamfer_bf16.cu, its own
+    mma.sync product) is a kernel of the tensor-core product
+    (wgmma_gemm.cuh), and each of those has a wrapper
+    (tools/bench_reduce.py reads the set)."""
     from vsc2022_torch.ops import kernels
 
     bf16_keys = {k[: -len(kernels.BF16)] for k in kernels.launches
-                 if k.endswith(kernels.BF16)}
+                 if k.endswith(kernels.BF16) and k != kernels.CHAMFER_BF16}
+    assert kernels.CHAMFER_BF16 in kernels.launches
     assert set(kernels.TENSOR_CORE_KERNELS) == bf16_keys
     assert all(callable(getattr(kernels, name)) for name in kernels.TENSOR_CORE_KERNELS)
 
@@ -151,8 +154,8 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
         "row_max": 0, "count_above": 0, "pool_writer": 0, "fused_topk": 0,
         "chamfer": 0, "row_max.bf16": 0, "count_above.bf16": 0,
         "pool_writer.bf16": 0, "fused_topk.bf16": 0, "scores.bf16": 0,
-        "row_max.int8": 0, "count_above.int8": 0, "pool_writer.int8": 0,
-        "fused_topk.int8": 0, "scores.int8": 0,
+        "chamfer.bf16": 0, "row_max.int8": 0, "count_above.int8": 0,
+        "pool_writer.int8": 0, "fused_topk.int8": 0, "scores.int8": 0,
     }
     with pytest.raises(ValueError, match="multiple of 128"):
         kernels.pool_writer(q, torch.ones((100, 8)), 100)
@@ -163,8 +166,12 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     with pytest.raises(TypeError, match="share a dtype"):
         kernels.count_above(q.bfloat16(), r, 0.0, 100)
     fine = torch.ones((1, 4, 9, 8))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        kernels.chamfer_fine_sims(fine.bfloat16(), fine.bfloat16())
+    # bf16 region features (precision "default") take the plain version on
+    # the widened values; mixed dtypes raise.
+    assert torch.equal(kernels.chamfer_fine_sims(fine.bfloat16(), fine.bfloat16()),
+                       kernels.chamfer_fine_sims(fine, fine))
+    with pytest.raises(TypeError, match="share a dtype"):
+        kernels.chamfer_fine_sims(fine.bfloat16(), fine)
     with pytest.raises(ValueError):
         kernels.chamfer_fine_sims(fine, torch.ones((2, 4, 9, 8)))
 

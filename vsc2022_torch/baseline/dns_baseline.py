@@ -34,6 +34,7 @@ import torch
 from vsc2022_torch.baseline import pipeline
 from vsc2022_torch.device import DeviceLike, add_device_flags, resolve_device
 from vsc2022_torch.localization import TNLocalizationMaxSim
+from vsc2022_torch.localization.localize import gather_rows
 from vsc2022_torch.metrics import CandidatePair, Dataset, Match
 from vsc2022_torch.models.dns import NUM_REGIONS
 from vsc2022_torch.ops import kernels
@@ -92,6 +93,12 @@ parser.add_argument(
 add_device_flags(parser)
 
 
+# The JAX precisions of the fine similarity: "highest" is full f32 (the
+# f32 chamfer); "default" one bf16 pass with f32 accumulation (the bf16
+# chamfer, the counterpart of the Pallas kernel's bf16 branch).
+PRECISIONS = ("highest", "default")
+
+
 def _chamfer_fuse(
     qf: torch.Tensor,  # [B, NQ, R, D] fine
     rf: torch.Tensor,  # [B, NR, R, D]
@@ -99,12 +106,59 @@ def _chamfer_fuse(
     rc: torch.Tensor,  # [B, NR, DC]
     bias: float,
     symmetric: bool = True,
+    precision: str = "highest",
 ) -> torch.Tensor:
     """Chamfer (symmetrized), rescaled to [0, 1], geometric-mean fused
-    with the biased coarse similarity: [B, NQ, NR]."""
+    with the biased coarse similarity: [B, NQ, NR]. At "default" the
+    operands round to bf16 (nearest even), as JAX's DEFAULT precision
+    takes them: the fine ones go to the bf16 chamfer, and the coarse
+    product is the f32 product of the rounded values (exact bf16 products,
+    f32 sums)."""
+    if precision not in PRECISIONS:
+        raise NotImplementedError(
+            f"precision {precision!r} is not ported: the DnS similarity takes "
+            f"{' or '.join(map(repr, PRECISIONS))}"
+        )
+    if precision == "default":
+        qf, rf = qf.to(torch.bfloat16), rf.to(torch.bfloat16)
+        qc, rc = (x.to(torch.bfloat16).float() for x in (qc, rc))
     fg = kernels.chamfer_fine_sims(qf, rf, symmetric) / 2.0 + 0.5
     cg = torch.bmm(qc, rc.transpose(1, 2)) + bias
     return torch.sqrt(torch.clamp(fg, min=1e-7) * torch.clamp(cg, min=1e-7))
+
+
+def _fused_fine_coarse_sims(
+    qf: torch.Tensor, rf: torch.Tensor, qc: torch.Tensor, rc: torch.Tensor,
+    bias: float, symmetric: bool = True, precision: str = "highest",
+) -> torch.Tensor:
+    """Chamfer+coarse fusion over explicit feature batches."""
+    return _chamfer_fuse(qf, rf, qc, rc, bias, symmetric, precision)
+
+
+def _gathered_dns_sims(
+    qc_table: torch.Tensor,  # [1+Tq, DC] coarse (row 0 = zero pad)
+    rc_table: torch.Tensor,  # [1+Tr, DC]
+    qf_table: torch.Tensor,  # [1+Tq, R*D] fine (row 0 = zero pad)
+    rf_table: torch.Tensor,  # [1+Tr, R*D]
+    qc_idx, rc_idx, qf_idx, rf_idx,  # [B, N*] rows
+    bias: float,
+    symmetric: bool = True,
+    precision: str = "highest",
+    regions: int = NUM_REGIONS,
+) -> torch.Tensor:
+    """Chamfer+coarse fusion from device-resident feature tables: the
+    per-batch inputs are index matrices into the query and ref tables.
+    Tables stored bf16 are widened as they are gathered; at "default" the
+    fine rows go to the bf16 chamfer as bf16 (the same values)."""
+    fine = torch.bfloat16 if precision == "default" else torch.float32
+    qc = gather_rows(qc_table, qc_idx).float()
+    rc = gather_rows(rc_table, rc_idx).float()
+    qf = gather_rows(qf_table, qf_idx).to(fine)
+    rf = gather_rows(rf_table, rf_idx).to(fine)
+    return _chamfer_fuse(
+        qf.view(*qf.shape[:2], regions, -1), rf.view(*rf.shape[:2], regions, -1),
+        qc, rc, bias, symmetric, precision,
+    )
 
 
 class DnSLocalization(TNLocalizationMaxSim):
@@ -207,14 +261,11 @@ class DnSLocalization(TNLocalizationMaxSim):
         r_len = np.minimum(r_len_c, r_len_f)
         q_mask = np.arange(nq)[None, :] < q_len[:, None]
         r_mask = np.arange(nr)[None, :] < r_len[:, None]
-        b = len(candidates)
-        qc = self._gather(qc_tab, np.where(q_mask, qc_idx, 0))
-        rc = self._gather(rc_tab, np.where(r_mask, rc_idx, 0))
-        qf = self._gather(qf_tab, np.where(q_mask, qf_idx, 0))
-        rf = self._gather(rf_tab, np.where(r_mask, rf_idx, 0))
-        sims = _chamfer_fuse(
-            qf.view(b, nq, NUM_REGIONS, -1), rf.view(b, nr, NUM_REGIONS, -1),
-            qc, rc, float(self.similarity_bias), self.symmetric,
+        sims = _gathered_dns_sims(
+            qc_tab, rc_tab, qf_tab, rf_tab,
+            np.where(q_mask, qc_idx, 0), np.where(r_mask, rc_idx, 0),
+            np.where(q_mask, qf_idx, 0), np.where(r_mask, rf_idx, 0),
+            float(self.similarity_bias), symmetric=self.symmetric,
         )
         return (
             sims,

@@ -45,6 +45,14 @@ TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _PROGRESS_MIN = 256
 
 
+def gather_rows(table: torch.Tensor, idx) -> torch.Tensor:
+    """[B, n_pad, d] rows of ``table`` at the [B, n_pad] row indices
+    ``idx`` (numpy or torch), gathered on the table's device, in its
+    dtype."""
+    idx = torch.as_tensor(idx, device=table.device)
+    return table.index_select(0, idx.reshape(-1)).view(*idx.shape, table.shape[1])
+
+
 def _bucket(n: int, minimum: int = 32) -> int:
     """Round up to the next power of two (≥ minimum) for shape bucketing."""
     n = max(n, minimum)
@@ -264,9 +272,7 @@ class TNLocalization(LocalizationWithMetadata):
     def _gather(self, table: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
         """[B, n_pad, d] f32 rows of ``table`` at ``idx``, gathered on the
         device (a bf16 table's rows widened after the gather)."""
-        flat = torch.from_numpy(idx.reshape(-1)).to(self.device)
-        rows = table.index_select(0, flat).view(*idx.shape, table.shape[1])
-        return rows.float()
+        return gather_rows(table, idx).float()
 
     def _batch_sims(
         self, candidates: Sequence[CandidatePair], nq: int, nr: int

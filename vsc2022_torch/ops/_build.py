@@ -139,6 +139,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("row_max", "count_above", "fused_topk", "scores"):
         argtypes[f"{name}_int8_occupancy"] = [i, p]
     argtypes["chamfer"] = [i, p, p, i, i, i, i, i, i, p, p]
+    # The bf16 chamfer (tensor cores) takes the same arguments.
+    argtypes["chamfer_bf16"] = argtypes["chamfer"]
+    argtypes["chamfer_bf16_occupancy"] = [i, p]
     for name, types in argtypes.items():
         fn = getattr(lib, f"vsc_{name}")
         fn.argtypes = types

@@ -53,6 +53,14 @@ collections compare their candidates with their counts bit for bit:
   I8_ROW_ALIGN)``; the searchers stage them so), the queries as many
   (zero columns: the wrappers pad them).
 
+The DnS chamfer takes f32 or bf16 region features (qf and rf of one
+dtype; the output stays f32): f32 (precision "highest") runs ``chamfer``,
+the CUDA cores' fmaf chain (``ops/csrc/chamfer.cu``); bf16 (precision
+"default") runs ``chamfer.bf16``, the counterpart of the Pallas chamfer's
+bf16 branch: ``mma.sync`` on the tensor cores, exact bf16 products summed
+in f32 in their own order (``ops/csrc/chamfer_bf16.cu``, rows of a
+multiple of 8 values).
+
 No wrapper gives way from one variant to another.
 
 The plain versions widen bf16 inputs and int8 codes to f32 before
@@ -119,9 +127,12 @@ TENSOR_CORE_KERNELS = RETRIEVAL_KERNELS + ("scores",)
 # The int8 variants, all on the f32 chain over widened codes.
 INT8_KERNELS = tuple(name + INT8 for name in RETRIEVAL_KERNELS) + (SCORES_INT8,)
 
+# The DnS chamfer over bf16 region features (precision="default").
+CHAMFER_BF16 = "chamfer" + BF16
+
 launches: Dict[str, int] = {
     **{name: 0 for name in RETRIEVAL_KERNELS}, "chamfer": 0,
-    **{name + BF16: 0 for name in RETRIEVAL_KERNELS}, SCORES: 0,
+    **{name + BF16: 0 for name in RETRIEVAL_KERNELS}, SCORES: 0, CHAMFER_BF16: 0,
     **{name: 0 for name in INT8_KERNELS},
 }
 
@@ -280,9 +291,11 @@ def chamfer_fine_sims_plain(
     """DnS chamfer [B, NQ, NR]: mean over query regions a of the max over
     ref regions c of ⟨qf[b, i, a], rf[b, j, c]⟩, averaged with mean_c
     max_a when ``symmetric``; no rescale. qf [B, NQ, R, D], rf
-    [B, NR, R, D]. The XLA formulation of the JAX ``_chamfer_fuse``: one
-    batched product [B, NQ·R, D] × [B, D, R·NR] (ref rows region-major),
-    reshaped to [B, NQ, a, c, NR] and reduced, chunked over B."""
+    [B, NR, R, D], f32 or bf16 (widened to f32: each product is the f32
+    sum of the exact bf16 products). The XLA formulation of the JAX
+    ``_chamfer_fuse``: one batched product [B, NQ·R, D] × [B, D, R·NR]
+    (ref rows region-major), reshaped to [B, NQ, a, c, NR] and reduced,
+    chunked over B."""
     b, nq, r, d = qf.shape
     nr = rf.shape[1]
     out = torch.empty((b, nq, nr), dtype=torch.float32, device=qf.device)
@@ -292,8 +305,8 @@ def chamfer_fine_sims_plain(
     regions = torch.tensor(float(r), device=qf.device)
     step = max(1, PLAIN_CHUNK_ELEMENTS // max(nq * r * r * nr, 1))
     for s in range(0, b, step):
-        q = qf[s : s + step].reshape(-1, nq * r, d)
-        rr = rf[s : s + step].transpose(1, 2).reshape(-1, r * nr, d)
+        q = qf[s : s + step].float().reshape(-1, nq * r, d)
+        rr = rf[s : s + step].float().transpose(1, 2).reshape(-1, r * nr, d)
         p = torch.bmm(q, rr.transpose(1, 2)).view(-1, nq, r, r, nr)
         fg = p.amax(dim=3).sum(dim=2) / regions
         if symmetric:
@@ -879,23 +892,24 @@ def _launch_topk(
     return ordered_topk(out_v, out_i, kappa)
 
 
-CHAMFER_REGIONS = 9  # the kernel keeps a 9 x 9 region product per thread
+CHAMFER_REGIONS = 9  # the kernels keep the 9 x 9 region products of a frame pair
 
 
 def chamfer_fine_sims(
     qf: torch.Tensor, rf: torch.Tensor, symmetric: bool = True
 ) -> torch.Tensor:
     """Fused DnS chamfer [B, NQ, NR] f32 of fine region features qf
-    [B, NQ, 9, D] and rf [B, NR, 9, D] (f32, before the [0, 1] rescale);
-    any NQ and NR. Zero-pad frames give 0."""
+    [B, NQ, 9, D] and rf [B, NR, 9, D] (before the [0, 1] rescale); any
+    NQ and NR. Zero-pad frames give 0. f32 operands (precision "highest")
+    launch ``chamfer`` (f32 FMA on the CUDA cores, D % 4 == 0); bf16
+    operands (precision "default") launch ``chamfer.bf16`` (the tensor
+    cores: exact bf16 products, f32 sums; D % 8 == 0)."""
     if qf.device != rf.device:
         raise ValueError(f"qf on {qf.device}, rf on {rf.device}")
-    if qf.dtype == torch.bfloat16 or rf.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "the bf16 (precision='default') chamfer is not ported yet"
+    if qf.dtype not in _OPERAND_DTYPES or rf.dtype != qf.dtype:
+        raise TypeError(
+            f"qf and rf must share a dtype, f32 or bf16: got {qf.dtype} and {rf.dtype}"
         )
-    if qf.dtype != torch.float32 or rf.dtype != torch.float32:
-        raise TypeError(f"f32 only: got {qf.dtype} and {rf.dtype}")
     if (
         qf.dim() != 4 or rf.dim() != 4 or qf.shape[0] != rf.shape[0]
         or qf.shape[2:] != rf.shape[2:]
@@ -907,9 +921,11 @@ def chamfer_fine_sims(
         raise ValueError(f"unsupported device {qf.device}")
     b, nq, r, d = qf.shape
     nr = rf.shape[1]
-    if r != CHAMFER_REGIONS or d % 4:
+    bf16 = qf.dtype == torch.bfloat16
+    align = ROW_ALIGN if bf16 else 4  # 16-byte copies of a row
+    if r != CHAMFER_REGIONS or d % align:
         raise ValueError(
-            f"the kernel takes {CHAMFER_REGIONS} regions and D % 4 == 0; "
+            f"the kernel takes {CHAMFER_REGIONS} regions and D % {align} == 0; "
             f"got R={r}, D={d}"
         )
     if not (qf.is_contiguous() and rf.is_contiguous()):
@@ -921,10 +937,11 @@ def chamfer_fine_sims(
     out = torch.empty((b, nq, nr), dtype=torch.float32, device=qf.device)
     if out.numel() == 0:
         return out
-    rc = _build.library().vsc_chamfer(
+    cname, key = ("chamfer_bf16", CHAMFER_BF16) if bf16 else ("chamfer", "chamfer")
+    rc = getattr(_build.library(), f"vsc_{cname}")(
         qf.device.index, qf.data_ptr(), rf.data_ptr(), b, nq, nr, r, d,
         int(bool(symmetric)), out.data_ptr(), _stream(qf),
     )
-    _raise_on(rc, "chamfer")
-    launches["chamfer"] += 1
+    _raise_on(rc, cname)
+    launches[key] += 1
     return out
