@@ -44,11 +44,25 @@ Phases (any failure exits non-zero):
      tau the global k-th candidate (k = 20 per row) count_above.bf16
      equals the candidates >= tau on every row whose set is not full at
      tau and where no segment holds more than two entries >= tau (found
-     with the plain version and a margin). scores.bf16, the same product
-     written out for the corpus re-search, is held against its plain
-     version, and its segments' best 2 against the pool bit for bit, on
-     the rows each bf16 path re-searches: SSCD (4b), serving (6b, both
-     collections) and the DnS bf16 search (6b, in process). Each
+     with the plain version and a margin). scores_above.bf16, the corpus
+     re-search (the entries at or above each row's floor on the same
+     product), at small shapes on 133 rows with mixed floors (-inf, +inf,
+     ties on the floor) and with capacity 1 (it launches again for the
+     same set), then on the rows, floors and capacity each bf16 path
+     re-searches with: SSCD (4b), serving (6b, both collections) and the
+     DnS bf16 search (6b, in process): exact against its plain version
+     on integers, and on floats its entries are nonzero(scores.bf16 >=
+     floor), each once, its scores the dense kernel's bit for bit, within
+     BF16_TC_ATOL of the plain scores. It is timed through its wrapper
+     (its one sync included) and alone, beside its plain version,
+     torch.mm with f32 output (the same scores: its library call), the
+     library route to the same entries (mm, >= floor, nonzero, gather)
+     and the dense route it replaced (scores.bf16 chunks, then nonzero),
+     also on the first 512 rows where there are more; its peak device
+     memory is read beside the dense route's. scores.bf16,
+     the same product written out (off every path), is held against its
+     plain version, and its segments' best 2 against the pool bit for bit,
+     on the same rows. Each other bf16 variant
      is timed beside the f32 kernel on the widened inputs. Their bound
      takes the bf16 tensor-core peak, their library call a cuBLAS bf16
      product (scores.bf16's: bf16 in, f32 out, where torch has it).
@@ -82,8 +96,8 @@ Phases (any failure exits non-zero):
  4b. The same two entry points with --bf16 on the same files: the
      noise-NN and the retrieval over bf16 corpora; row_max.bf16,
      pool_writer.bf16, count_above.bf16 (the ambiguous rows' count, over
-     the pool's own operands) and scores.bf16 (the re-searched rows) must
-     launch, and no f32 kernel.
+     the pool's own operands) and scores_above.bf16 (the re-searched rows)
+     must launch, and no f32 kernel and no scores.bf16.
      Stage seconds, last_stats and quality are logged beside phase 4's.
  4c. The same two entry points with --int8: both corpora as int8 codes
      and per-row scales, the queries f32; row_max.int8, pool_writer.int8,
@@ -91,9 +105,10 @@ Phases (any failure exits non-zero):
      launch, and no other kernel; every searched corpus holds its codes
      and scales only (staged bytes logged beside the f32 corpus's).
      Here and in 4b, 6b, 6c and the DnS searches in process, the
-     re-search's rows per scores launch are logged and checked: whole
-     128-row work items where the score budget holds 128 rows (128 at
-     SSCD, 512 at serving), as phase 2 then times scores on them.
+     re-search's rows per launch are logged and checked: in bf16 one
+     scores_above.bf16 launch per re-search over all its rows; in int8
+     whole 128-row work items of scores.int8 where the score budget holds
+     128 rows (128 at SSCD, 512 at serving), as phase 2 then times them.
   5. The DnS track, through its entry points: dns_index for the coarse
      student with --score_norm_features, dns_index for the fine attention
      student, then dns_baseline with --ground_truth, on raw L3-iMAC rows
@@ -152,8 +167,9 @@ Phases (any failure exits non-zero):
      scores equal), and row_max.bf16,
      fused_topk.bf16 and count_above.bf16 launch on the tensor cores (no
      f32 kernel). Then one DnS two-file request with bf16 tables over
-     phase 5's files (fused_topk.bf16, count_above.bf16 and scores.bf16 at
-     D = 1025 over the searcher's 1,032-column copy, the f32 chamfer over
+     phase 5's files (fused_topk.bf16, count_above.bf16 and
+     scores_above.bf16 at D = 1025 over the searcher's 1,032-column copy,
+     the f32 chamfer over
      widened rows); its quality is logged. Its search, repeated in process
      on phase 5's inputs rounded to bf16 in both collection modes, gives
      the same arrays either way and re-searches as the server did.
@@ -237,9 +253,12 @@ KERNEL_META = {
     "chamfer": ("vsc2022_torch/ops/csrc/chamfer.cu",
                 "vsc2022_tpu/ops/pallas_kernels.py:729"),
     # Not a Pallas kernel: the block product (XLA) the JAX searcher's
-    # corpus re-search shares with its streaming collection.
+    # corpus re-search shares with its streaming collection, and that
+    # re-search (a per-row top-k of the flagged rows).
     "scores": ("vsc2022_torch/ops/csrc/scores.cu",
                "vsc2022_tpu/ops/similarity.py:259"),
+    "scores_above": ("vsc2022_torch/ops/csrc/scores.cu",
+                     "vsc2022_tpu/ops/similarity.py:1162"),
 }
 # The TPU kernel each bf16 variant replaces: pool_writer's bf16 branch; the
 # other three have none (the JAX searcher computes them over a bf16 corpus
@@ -251,7 +270,8 @@ BF16_SOURCES = {"chamfer": "vsc2022_torch/ops/csrc/chamfer_bf16.cu"}
 # Each kernel's wrapper in vsc2022_torch.ops.kernels.
 WRAPPERS = {"row_max": "row_max", "count_above": "count_above",
             "pool_writer": "pool_writer", "fused_topk": "fused_topk",
-            "scores": "scores", "chamfer": "chamfer_fine_sims"}
+            "scores": "scores", "scores_above": "scores_above",
+            "chamfer": "chamfer_fine_sims"}
 # The kernels each path must launch: the SSCD corpus (1,000,020 rows) is
 # pooled; the DnS and serving corpora stream.
 SSCD_KERNELS = ("row_max", "count_above", "pool_writer")
@@ -259,10 +279,12 @@ DNS_KERNELS = ("row_max", "fused_topk", "count_above", "chamfer")
 SERVE_KERNELS = ("row_max", "fused_topk", "count_above")
 DNS_SERVE_KERNELS = ("fused_topk", "count_above", "chamfer")  # cg npz is normalized
 # The same paths in bf16 (sscd_baseline --bf16, the server's default): the
-# bf16 variants, and on the SSCD path the re-search's scores.bf16; the DnS
-# server's chamfer stays f32 (its bf16 tables widen).
+# bf16 variants, and on the SSCD path the re-search's scores_above.bf16
+# (the dense scores.bf16 is off every path); the DnS server's chamfer
+# stays f32 (its bf16 tables widen).
 BF16 = ".bf16"
-SSCD_BF16_KERNELS = tuple(k + BF16 for k in SSCD_KERNELS) + ("scores" + BF16,)
+SCORES_ABOVE = "scores_above" + BF16
+SSCD_BF16_KERNELS = tuple(k + BF16 for k in SSCD_KERNELS) + (SCORES_ABOVE,)
 SERVE_BF16_KERNELS = tuple(k + BF16 for k in SERVE_KERNELS)
 DNS_SERVE_BF16_KERNELS = ("fused_topk.bf16", "count_above.bf16", "chamfer")
 # And in int8 (SQ8: sscd_baseline --int8, serve --int8): the int8 variants,
@@ -403,18 +425,29 @@ def topk_library(torch, q, refs, n_valid, kappa, scale=None):
     return torch.cat(outs)
 
 
-def scores_library_f32(torch, q, refs, n_valid):
+def scores_library_f32(torch, q, refs, n_valid, floor=None):
     """Milliseconds of one bf16 product with f32 output (``torch.mm`` with
     ``out_dtype``, the same function as scores.bf16), or None where this
-    torch has no such call on the card (logged)."""
+    torch has no such call on the card (logged). With a ``floor`` [M],
+    (the product's ms, the ms of the library route to scores_above.bf16's
+    result: the product, ``>= floor``, ``nonzero`` and the gather)."""
     r = refs[:n_valid, :q.shape[1]]
     try:
         torch.mm(q[:1], r[:1].T, out_dtype=torch.float32)
     except (TypeError, RuntimeError, NotImplementedError) as e:
         log(f"phase 2: torch {torch.__version__} has no bf16 product with f32 "
             f"output on the card ({type(e).__name__}: {str(e).splitlines()[0][:120]})")
-        return None
-    return cuda_ms(torch, lambda: torch.mm(q, r.T, out_dtype=torch.float32), 1)
+        return None if floor is None else (None, None)
+    mm_ms = cuda_ms(torch, lambda: torch.mm(q, r.T, out_dtype=torch.float32), 1)
+    if floor is None:
+        return mm_ms
+
+    def route():
+        s = torch.mm(q, r.T, out_dtype=torch.float32)
+        rr, cc = torch.nonzero(s >= floor[:, None], as_tuple=True)
+        return s[rr, cc], rr, cc
+
+    return mm_ms, cuda_ms(torch, route, 1)
 
 
 # ---- phase 2: kernels against their plain versions -------------------------
@@ -469,6 +502,91 @@ def compare_scores(torch, kernels, q, r, n_valid, kind, **kw):
         BF16_TC_ATOL if q.dtype == torch.bfloat16 else FLOAT_ATOL)
     check(err <= tol, f"scores {kind} [{q.shape[0]}x{n_valid}x{q.shape[1]}]: max abs "
           f"err {err} > {tol}")
+    return err
+
+
+def above_entries(torch, out):
+    """scores_above's (scores, rows, cols) ordered by (row, col), indices
+    int64; fails unless each (row, col) appears once."""
+    s, rr, cc = out
+    key, order = torch.sort(rr.long() * (1 << 32) + cc.long())
+    check(bool((key[1:] != key[:-1]).all()), "scores_above: an entry appears twice")
+    return s[order], rr[order].long(), cc[order].long()
+
+
+def int_floors(torch, m, d, dev):
+    """Per-row floors over integer scores (randint(-3, 4) rows: sigma 4
+    sqrt(D)): 4 sigma, -inf on every 97th row, +inf on every 89th from the
+    1st."""
+    floor = torch.full((m,), 16.0 * math.sqrt(d), device=dev)
+    floor[::97] = float("-inf")
+    floor[1::89] = float("inf")
+    return floor
+
+
+def compare_scores_above(torch, kernels, q, r, n_valid, floor, kind, capacity=None):
+    """scores_above.bf16 with ``capacity`` against its plain version,
+    each entry once. Integers: the same entries, bit for bit. Floats: the
+    same entries as nonzero(scores.bf16 >= floor), each score the dense
+    kernel's at its (row, col) bit for bit; against the plain version,
+    every score within BF16_TC_ATOL of the plain score at its (row, col),
+    every plain entry >= floor + that tolerance emitted and every emitted
+    one's plain score >= floor - it. Returns the largest error against the
+    plain scores."""
+    got = above_entries(torch, kernels.scores_above(q, r, n_valid, floor,
+                                                    capacity=capacity))
+    shape = f"[{q.shape[0]}x{n_valid}x{q.shape[1]}]"
+    if kind == "int":
+        want = above_entries(torch, kernels.scores_above_plain(q, r, n_valid, floor))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"scores_above int {shape}: differs from the plain version")
+        return 0.0
+    s, rr, cc = got
+    dense = kernels.scores(q, r, n_valid)
+    wr, wc = torch.nonzero(dense >= floor[:, None], as_tuple=True)
+    check(torch.equal(rr, wr) and torch.equal(cc, wc)
+          and torch.equal(s.view(torch.int32), dense[rr, cc].view(torch.int32)),
+          f"scores_above float {shape}: differs from nonzero(scores.bf16 >= floor)")
+    del dense, wr, wc
+    plain = kernels.scores_plain(q, r, n_valid)
+    err = float((s - plain[rr, cc]).abs().max()) if s.numel() else 0.0
+    tol = BF16_TC_ATOL
+    emitted = torch.zeros(plain.shape, dtype=torch.bool, device=q.device)
+    emitted[rr, cc] = True
+    missed = int(((plain >= floor[:, None] + tol) & ~emitted).sum())
+    low = int((plain[rr, cc] < floor[rr] - tol).sum())
+    del plain, emitted
+    check(err <= tol and missed == 0 and low == 0,
+          f"scores_above float {shape}: max abs err {err} (tolerance {tol}), "
+          f"{missed} plain entries >= floor + tol missed, {low} emitted below "
+          "floor - tol")
+    return err
+
+
+def scores_above_small(torch, kernels, q, r, n_valid, kind):
+    """scores_above.bf16 at a small shape: on the first 133 rows (no
+    multiple of 128) with mixed floors (int_floors; on floats a score of
+    each row, so ties sit on the floor), against its plain version; with
+    capacity 1 it launches twice and returns the same set."""
+    q = q[:133]
+    if kind == "int":
+        floor = int_floors(torch, q.shape[0], q.shape[1], q.device)
+    else:
+        dense = kernels.scores(q, r, n_valid)
+        floor = torch.sort(dense, dim=1, descending=True).values[:, 40].contiguous()
+        floor[::17] = float("-inf")
+        del dense
+    err = compare_scores_above(torch, kernels, q, r, n_valid, floor, kind)
+    full = above_entries(torch, kernels.scores_above(q, r, n_valid, floor))
+    before = kernels.launches[SCORES_ABOVE]
+    exact = above_entries(torch, kernels.scores_above(q, r, n_valid, floor,
+                                                      capacity=full[0].numel()))
+    again = above_entries(torch, kernels.scores_above(q, r, n_valid, floor, capacity=1))
+    check(full[0].numel() > 1 and kernels.launches[SCORES_ABOVE] - before == 3
+          and all(torch.equal(a, b) and torch.equal(a, c)
+                  for a, b, c in zip(full, exact, again)),
+          f"scores_above {kind}: the exact capacity took other than one launch, or "
+          "capacity 1 other than two, or they returned other entries")
     return err
 
 
@@ -766,6 +884,7 @@ def phase_kernels_bf16_small(torch, kernels, dev):
                     compare_pool(torch, kernels, q, r, n_valid, "int")
                     for kappa in (7, 32, 300):
                         compare_topk(torch, kernels, q, r, n_valid, kappa, "int")
+                    scores_above_small(torch, kernels, q, r, n_valid, "int")
                 else:
                     tc_err = max(tc_err, compare_row_max(
                         torch, kernels, q, r, n_valid, "float"))
@@ -775,10 +894,14 @@ def phase_kernels_bf16_small(torch, kernels, dev):
                     tc_err = max(tc_err, compare_topk(
                         torch, kernels, q, r, n_valid, 32, "float"))
                     stream_pair_identity(torch, kernels, q, r, n_valid, 32, label)
+                    tc_err = max(tc_err, scores_above_small(
+                        torch, kernels, q, r, n_valid, "float"))
     log("phase 2: bf16 variants at small shapes: exact on integers; on floats "
         f"within {tc_err} of their plain versions (tolerance {BF16_TC_ATOL}) and "
-        "bit for bit against each other, at D = 511, 512, 513, 1025, 16-byte "
-        "and 2-byte aligned")
+        "bit for bit against each other (scores_above.bf16: the entries of "
+        "nonzero(scores.bf16 >= floor), each once, its scores bit for bit; "
+        "capacity 1 launches again for the same set), at D = 511, 512, 513, "
+        "1025, 16-byte and 2-byte aligned")
     return tc_err
 
 
@@ -900,6 +1023,130 @@ def phase_kernels_int8_small(torch, kernels, dev):
     return err
 
 
+def dense_route(torch, kernels, q, r, n_valid, floor):
+    """The bf16 re-search before scores_above.bf16: dense scores.bf16 in
+    chunks of PLAIN_CHUNK_ELEMENTS scores (whole 128-row items), then
+    ``>= floor``, ``nonzero`` and the gather, chunk by chunk."""
+    budget = kernels.PLAIN_CHUNK_ELEMENTS // n_valid
+    step = budget - budget % kernels.REDUCE_TILE if budget >= kernels.REDUCE_TILE else budget
+    parts = []
+    for s0 in range(0, q.shape[0], max(step, 1)):
+        sc = kernels.scores(q[s0:s0 + step], r, n_valid)
+        rr, cc = torch.nonzero(sc >= floor[s0:s0 + step, None], as_tuple=True)
+        parts.append((sc[rr, cc], rr + s0, cc))
+    return parts
+
+
+def scores_above_kernel_ms(torch, kernels, q, r, n_valid, floor, capacity):
+    """Milliseconds of scores_above.bf16's kernel alone: back-to-back
+    launches into one preallocated capacity that holds every entry, with
+    no counter read (the wrapper's one sync left out). Launched through
+    the library, so they count nowhere."""
+    from vsc2022_torch.ops import _build
+
+    q, r = kernels.pad_columns(q), kernels.pad_columns(r)
+    m = q.shape[0]
+    grid = kernels.wgmma_grid(m, n_valid, kernels._wgmma_slots(q, "scores_above_bf16"))
+    out = [torch.empty(max(capacity, 1), dtype=t, device=q.device)
+           for t in (torch.float32, torch.int32, torch.int32)]
+    count = torch.empty(1, dtype=torch.int64, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+
+    def launch():
+        rc = _build.library().vsc_scores_above_bf16(
+            q.device.index, q.data_ptr(), r.data_ptr(), floor.data_ptr(), m, r.shape[0],
+            q.shape[1], n_valid, grid, capacity, *(t.data_ptr() for t in out),
+            count.data_ptr(), stream)
+        check(rc == 0, f"vsc_scores_above_bf16 failed to launch ({rc})")
+
+    return cuda_ms(torch, launch, 5)
+
+
+def peak_bytes(torch, fn) -> int:
+    """Device memory ``fn`` allocates at its peak beyond what was
+    allocated before (``torch.cuda.max_memory_allocated``)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - before
+
+
+def scores_above_records(torch, kernels, dev, args, path):
+    """scores_above.bf16 on the inputs a bf16 path's re-search gave it
+    (q, refs, n_valid, floor, capacity): exact against its plain version
+    on integer inputs of the same shape (int_floors), and on the path's
+    inputs held against dense scores.bf16 bit for bit and its plain
+    version within BF16_TC_ATOL (compare_scores_above). Timed with the
+    path's capacity beside its plain version, the library product
+    (``torch.mm``, f32 out: the same scores, ``library_ms``), the library
+    route to the same entries (the product, ``>= floor``, ``nonzero``,
+    the gather) and the dense route it replaced (``dense_route``); where
+    the re-search took more than 512 rows, also on the first 512 (the
+    dense route's first chunk at serving). Bound: operations against
+    bytes (operands once, the floor, 12 bytes an emitted entry). Then
+    scores.bf16's own record on the same operands (phase_kernels_main).
+    Returns {key: record}."""
+    q, r, n_valid, floor, capacity = args[0], args[1], int(args[2]), args[3], args[4]
+    (m, d), n = q.shape, r.shape[0]
+    qi, ri = make_inputs(torch, "int", m, n, d, seed=3, dev=dev)
+    compare_scores_above(torch, kernels, qi.bfloat16(), ri.bfloat16(), n_valid,
+                         int_floors(torch, m, d, dev), "int")
+    del qi, ri
+    torch.cuda.empty_cache()
+    err = compare_scores_above(torch, kernels, q, r, n_valid, floor, "float", capacity)
+    torch.cuda.empty_cache()
+    entries = kernels.scores_above(q, r, n_valid, floor, capacity=capacity)[0].numel()
+    ms = cuda_ms(torch, lambda: kernels.scores_above(q, r, n_valid, floor,
+                                                     capacity=capacity), 3)
+    kernel_ms = scores_above_kernel_ms(torch, kernels, q, r, n_valid, floor,
+                                       max(capacity, entries))
+    plain_ms = cuda_ms(torch, lambda: kernels.scores_above_plain(q, r, n_valid, floor), 1)
+    torch.cuda.empty_cache()
+    library_ms, route_ms = scores_library_f32(torch, q, r, n_valid, floor)
+    torch.cuda.empty_cache()
+    dense_ms = cuda_ms(torch, lambda: dense_route(torch, kernels, q, r, n_valid, floor), 1)
+    torch.cuda.empty_cache()
+    peak = peak_bytes(torch, lambda: kernels.scores_above(q, r, n_valid, floor,
+                                                         capacity=capacity))
+    dense_peak = peak_bytes(torch, lambda: dense_route(torch, kernels, q, r, n_valid, floor))
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = bound(m, n_valid, n, d, 4 * m + 12 * entries, bf16=True)
+    rec = {"shape": [m, n_valid, d], "max_abs_err": err, "ms": ms,
+           "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_route_ms": route_ms,
+           "dense_route_ms": dense_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "entries": entries, "capacity": capacity, "peak_bytes": peak,
+           "dense_route_peak_bytes": dense_peak}
+    extra = ""
+    if m > 512:
+        h = 512
+        h_cap = kernels.scores_above(q[:h], r, n_valid, floor[:h])[0].numel()
+        rec["head"] = {
+            "rows": h,
+            "ms": cuda_ms(torch, lambda: kernels.scores_above(
+                q[:h], r, n_valid, floor[:h], capacity=h_cap), 3),
+            "library_ms": scores_library_f32(torch, q[:h], r, n_valid),
+            "dense_ms": cuda_ms(torch, lambda: kernels.scores(q[:h], r, n_valid), 3),
+            "bound_ms": bound(h, n_valid, n, d, 4 * h + 12 * h_cap, bf16=True)[0],
+        }
+        extra = f"; the first {h} rows: {json.dumps(rec['head'])}"
+        torch.cuda.empty_cache()
+    log(f"phase 2: {SCORES_ABOVE} on the {path} path's inputs [{m} x {n_valid} x {d}]: "
+        f"{entries} entries (capacity {capacity}) kernel_ms={ms:.3f} (the wrapper, "
+        f"its sync included; the kernel alone {kernel_ms:.3f}) "
+        f"plain_ms={plain_ms:.3f} library_ms={library_ms} (torch.mm, f32 out) "
+        f"library_route_ms={route_ms} dense_route_ms={dense_ms:.3f} (scores.bf16 "
+        f"chunks + nonzero) bound_ms={bound_ms:.3f} ({bound_by}) max_abs_err={err}; "
+        f"peak device memory {peak} bytes (the dense route {dense_peak})"
+        + extra)
+    records = {SCORES_ABOVE: rec}
+    records.update(phase_kernels_main(torch, kernels, dev, {"scores": (q, r, n_valid)}, path))
+    return records
+
+
 def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
     """Each retrieval kernel on the inputs a path gave it (its first call
     there), and on integer-valued inputs of the same shape; the kernels of
@@ -914,6 +1161,9 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
     records = {}
     for name, args in captured.items():
         if name == "chamfer":
+            continue
+        if name == "scores_above":
+            records.update(scores_above_records(torch, kernels, dev, args, path))
             continue
         q, r = args[0], args[1]
         bf16, int8 = q.dtype == torch.bfloat16, r.dtype == torch.int8
@@ -1296,18 +1546,29 @@ def capture_dns_batches():
         dns_baseline._gathered_dns_sims = original
 
 
-def log_research_chunks(kernels, phase, label, stats, args, launches):
-    """The re-search's rows per scores launch, logged before phase 2 times
-    that kernel on its first call (``args``): the searcher scores its
-    re-searched rows in chunks of the score budget's rows
-    (PLAIN_CHUNK_ELEMENTS // corpus rows) rounded down to whole 128-row
-    work items where the budget holds 128 or more, so the first launch
-    takes that chunk or every re-searched row of its search, whichever is
-    fewer. ``stats``: the last_stats of the path's searches in call order;
-    ``launches``: the scores launches of the path."""
+def log_research_chunks(kernels, phase, label, stats, args, launches, bf16=False):
+    """The re-search's rows per launch, logged before phase 2 times its
+    kernel on its first call (``args``). ``stats``: the last_stats of the
+    path's searches in call order; ``launches``: the path's launches of
+    that kernel. Over a bf16 corpus (``bf16``) each re-search is one
+    scores_above.bf16 launch over all its rows, so the first launch takes
+    the first search's re-searched rows and the launches are the searches
+    that re-searched. Over an int8 corpus scores.int8 takes chunks of the
+    score budget's rows (PLAIN_CHUNK_ELEMENTS // corpus rows) rounded down
+    to whole 128-row work items where the budget holds 128 or more, so the
+    first launch takes that chunk or every re-searched row of its search,
+    whichever is fewer."""
     rows = [st["corpus_rows"] for st in stats if st.get("corpus_rows")]
     check(args is not None and bool(rows), f"{label}: no row was re-searched")
     n, first = int(args[2]), args[0].shape[0]
+    if bf16:
+        check(first == rows[0] and launches == len(rows),
+              f"{label}: the first re-search launch took {first} of {rows[0]} rows; "
+              f"{launches} launches for {len(rows)} re-searches")
+        log(f"phase {phase}: {label}: one {SCORES_ABOVE} launch per re-search "
+            f"({launches}), the first over all its {first} rows x {n} corpus rows "
+            f"(capacity {args[4]}); {sum(rows)} rows re-searched")
+        return
     budget = kernels.PLAIN_CHUNK_ELEMENTS // n
     tile = kernels.REDUCE_TILE
     chunk = budget - budget % tile if budget >= tile else budget
@@ -1411,7 +1672,8 @@ def phase_main_path_bf16(torch, np, kernels, paths, f32):
         f"{json.dumps(f32['stats'])}")
     log(f"phase 4b: kernel launches on the bf16 path: {json.dumps(launches)}")
     log_research_chunks(kernels, "4b", "sscd_baseline --bf16", stats,
-                        captured.get("scores"), launches["scores" + BF16])
+                        captured.get("scores_above"), launches[SCORES_ABOVE], bf16=True)
+    check(launches["scores" + BF16] == 0, "the bf16 path launched the dense scores.bf16")
     log(f"phase 4b: candidate uAP {result['candidate_uap']:.4f}, segment AP "
         f"{result['segment_ap']:.4f}; f32: {f32['candidate_uap']:.4f}, "
         f"{f32['segment_ap']:.4f}")
@@ -2153,12 +2415,14 @@ def phase_serve(torch, np, kernels, dev, corpus, dtype="float32"):
     for stats in (stream_stats, pooled_stats):
         stats.pop("seconds", None)
         log(f"phase {phase}: (a) in-process global_topk last_stats: {json.dumps(stats)}")
+    research = "scores_above" if suffix == BF16 else "scores"
     if suffix:
         for mode, st, cap, counts in (("stream", stream_stats, captured, stream_launches),
                                       ("pooled", pooled_stats, pooled_captured,
                                        pooled_launches)):
             log_research_chunks(kernels, phase, f"(a) in process, {mode}", [st],
-                                cap.get("scores"), counts["scores" + suffix])
+                                cap.get(research), counts[research + suffix],
+                                bf16=suffix == BF16)
     log(f"phase {phase}: (a) in-process: stream {t_stream:.3f} s, pooled "
         f"{t_pooled:.3f} s, {len(cands)} pairs each, the same; server vs "
         f"in-process scores within {err}")
@@ -2174,12 +2438,14 @@ def phase_serve(torch, np, kernels, dev, corpus, dtype="float32"):
     check(quality["candidate_uap"] > 0.5, f"serving uAP {quality['candidate_uap']}")
     del index
     torch.cuda.empty_cache()
-    # The re-search's scores (bf16, int8) on both collections' re-searched rows.
+    # The re-search (bf16: scores_above; int8: scores) on both collections'
+    # re-searched rows.
     if suffix:
-        check("scores" in captured and "scores" in pooled_captured,
+        check(research in captured and research in pooled_captured,
               f"the {tag} (a) search re-searched no row in one of its collections")
-    path_kernels = ("row_max", "fused_topk", "count_above", "scores")
-    pooled_captured = {n: pooled_captured[n] for n in ("pool_writer", "scores")
+    path_kernels = ("row_max", "fused_topk", "count_above", "scores", "scores_above")
+    pooled_captured = {n: pooled_captured[n] for n in ("pool_writer", "scores",
+                                                       "scores_above")
                        if n in pooled_captured}
     return (launches, {n: captured[n] for n in path_kernels if n in captured},
             (pooled_launches, pooled_captured), quality)
@@ -2255,14 +2521,16 @@ def dns_search(torch, np, kernels, args, k, server_launches, dtype):
     corpus and queries (fused_topk's input) staged as that server stages
     them (bf16: both rounded; int8: the corpus quantized, the queries f32),
     searched in both collection modes (the same arrays). The stream search
-    must re-search as the server's did (its scores launches). Returns the
-    first inputs there of scores (bf16) or of fused_topk, count_above and
-    scores (int8: the DnS widths of the int8 kernels), the pad columns of
-    the queries dropped (their timed calls pad them)."""
+    must re-search as the server's did (its scores_above.bf16 or
+    scores.int8 launches). Returns the first inputs there of scores_above
+    (bf16) or of fused_topk, count_above and scores (int8: the DnS widths
+    of the int8 kernels), the pad columns of the queries dropped (their
+    timed calls pad them)."""
     from vsc2022_torch.ops.similarity import SimilaritySearcher
 
     tag, phase, _, _ = SERVE_DTYPES[dtype]
-    key = "scores" + (INT8 if dtype == "int8" else BF16)
+    research = "scores" if dtype == "int8" else "scores_above"
+    key = research + (INT8 if dtype == "int8" else BF16)
     q, refs, n_valid = args[0], args[1], int(args[2])
     searcher = SimilaritySearcher(refs[:n_valid].cpu().numpy(), dtype=dtype,
                                   device=q.device)
@@ -2275,10 +2543,10 @@ def dns_search(torch, np, kernels, args, k, server_launches, dtype):
             check(searcher.last_stats["mode"] == mode, f"DnS {tag}: {mode} not taken")
         if mode == "stream":
             stream_captured = captured
-            if "scores" in captured:
+            if research in captured:
                 log_research_chunks(kernels, phase, f"DnS {tag} search in process, stream",
-                                    [searcher.last_stats], captured["scores"],
-                                    launches["stream"].get(key, 0))
+                                    [searcher.last_stats], captured[research],
+                                    launches["stream"].get(key, 0), bf16=dtype != "int8")
     check(all(np.array_equal(a, b) for a, b in zip(out["stream"], out["pooled"])),
           f"DnS {tag}: stream and pooled global_topk differ")
     log(f"phase {phase}: DnS {tag} search in process [{q.shape[0]} x {n_valid} x "
@@ -2287,7 +2555,7 @@ def dns_search(torch, np, kernels, args, k, server_launches, dtype):
         f"{server_launches.get(key, 0)}")
     check(launches["stream"].get(key, 0) == server_launches.get(key, 0),
           f"DnS {tag}: the in-process stream search re-searched otherwise than the server")
-    names = ("fused_topk", "count_above", "scores") if dtype == "int8" else ("scores",)
+    names = ("fused_topk", "count_above", "scores") if dtype == "int8" else (research,)
     return {name: (stream_captured[name][0][:, :q.shape[1]].contiguous(),)
             + stream_captured[name][1:] for name in names if name in stream_captured}
 
@@ -2425,7 +2693,7 @@ def main() -> int:
         bf16_launches, bf16_captured, sscd_bf16 = phase_main_path_bf16(
             torch, np, kernels, paths, sscd_f32)
         records.update(phase_kernels_main(torch, kernels, dev, bf16_captured))
-        launches.update({k: bf16_launches[k] for k in SSCD_BF16_KERNELS})
+        launches.update({k: bf16_launches[k] for k in SSCD_BF16_KERNELS + ("scores" + BF16,)})
         del bf16_captured
         torch.cuda.empty_cache()
         int8_launches, int8_captured, _ = phase_main_path_int8(
@@ -2472,7 +2740,8 @@ def main() -> int:
         name: tuple(a.to(torch.bfloat16) if isinstance(a, torch.Tensor) else a
                     for a in call)
         for name, call in dns_captured.items()}, path="DnS"))
-    # scores.bf16 on the rows the DnS bf16 search re-searches.
+    # scores_above.bf16 (and scores.bf16) on the rows the DnS bf16 search
+    # re-searches.
     dns_records.update(phase_kernels_main(torch, kernels, dev, dns_bf16_captured,
                                           path="DnS bf16 search"))
     # The int8 variants at the DnS width (D = 1025, codes of 1,040 columns)
@@ -2490,8 +2759,8 @@ def main() -> int:
     serve_records.update(phase_kernels_main(torch, kernels, dev, serve_int8_captured,
                                             path="serving"))
     del serve_int8_captured
-    # pool_writer and scores of the bf16 and int8 serving searches forced to
-    # the pool.
+    # pool_writer and the re-search of the bf16 and int8 serving searches
+    # forced to the pool.
     pooled_launches.update({k: v for k, v in pooled_int8[0].items() if k.endswith(INT8)})
     pooled_records = phase_kernels_main(torch, kernels, dev, pooled_captured,
                                         path="serving (forced pooled)")
@@ -2527,7 +2796,9 @@ def main() -> int:
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "path": path_of.get(name, "sscd"),
         }
-        for key in ("path_total", "f32_ms", "library_bf16_out_ms", "path_function"):
+        for key in ("path_total", "f32_ms", "library_bf16_out_ms", "path_function",
+                    "kernel_only_ms", "library_route_ms", "dense_route_ms", "entries",
+                    "capacity", "peak_bytes", "dense_route_peak_bytes", "head"):
             if key in rec:
                 row[key] = rec[key]
         if name in dns_records:  # the same kernel on the DnS path

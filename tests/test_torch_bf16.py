@@ -381,17 +381,18 @@ def test_collections_hand_each_kernel_its_pair(monkeypatch, d):
 @pytest.mark.parametrize("d", [16, 13])
 def test_research_scores_on_the_kernels_product(monkeypatch, d, mode):
     # A re-searched row of a bf16 corpus scores on the kernels' own product
-    # (kernels.scores over the padded queries and tensor_core_refs), as the
-    # JAX searcher re-searches with its collection's block product; an f32
-    # corpus re-searches with torch.matmul. Both agree with JAX.
+    # (kernels.scores_above over the padded queries and tensor_core_refs,
+    # one call over every re-searched row), as the JAX searcher re-searches
+    # with its collection's block product; an f32 corpus re-searches with
+    # torch.matmul. Both agree with JAX.
     calls = []
-    real = kernels.scores
+    real = kernels.scores_above
 
-    def spy(q, refs, n_valid):
+    def spy(q, refs, n_valid, floor, capacity=None):
         calls.append((q, refs, n_valid))
-        return real(q, refs, n_valid)
+        return real(q, refs, n_valid, floor, capacity=capacity)
 
-    monkeypatch.setattr(kernels, "scores", spy)
+    monkeypatch.setattr(kernels, "scores_above", spy)
     monkeypatch.setenv(COLLECTION_ENV, mode)
     q, r = _ints((11, d), 40 + d), _ints((3000, d), 41 + d)
     r[10:20] = 3.0  # 10 equal columns in segment 0: re-searched rows
@@ -404,6 +405,7 @@ def test_research_scores_on_the_kernels_product(monkeypatch, d, mode):
             np.testing.assert_array_equal(g, e)
         assert ts.last_stats["mode"] == mode and ts.last_stats["corpus_rows"] > 0
         if dtype == BF16:
+            assert len(calls) == 1
             assert sum(rows.shape[0] for rows, _, _ in calls) == ts.last_stats["corpus_rows"]
             assert all(refs is ts.tensor_core_refs() and n == ts.n_refs
                        and rows.shape[1] == kernels.padded_width(d)

@@ -21,9 +21,13 @@ unit-norm floats, and bit for bit against each other, as the f32 kernels
 are: the pool's best winner is row_max.bf16, fused_topk.bf16 is the pool's
 winners ordered, and count_above.bf16 the pool count wherever the pool
 holds every entry >= tau, on any subset of the rows. scores.bf16 writes
-that product out for the searchers' corpus re-search: its per-segment top
-2 is the pool, bit for bit, so the pooled and streaming collections return
-the same pairs and scores. The int8 (SQ8) variants (row_max.int8,
+that product out: its per-segment top 2 is the pool, bit for bit.
+scores_above.bf16, the searchers' corpus re-search, emits the entries at
+or above each row's floor on the same product: exact against its plain
+version on integers, and on floats each entry's score is scores.bf16's
+bit for bit and the set nonzero(scores.bf16 >= floor), each entry once,
+at any grid and when its capacity runs out (it launches again). So the
+pooled and streaming collections return the same pairs and scores. The int8 (SQ8) variants (row_max.int8,
 count_above.int8, pool_writer.int8, fused_topk.int8, scores.int8) take f32
 queries against int8 codes and per-row scales on the f32 chain over the
 widened codes: exact against their plain versions on integer queries and
@@ -96,6 +100,7 @@ def test_kernels_match_plain(cuda_device, m, n, d, n_valid):
         "row_max": 1, "count_above": 1, "pool_writer": 1, "fused_topk": 0,
         "chamfer": 0, "row_max.bf16": 0, "count_above.bf16": 0,
         "pool_writer.bf16": 0, "fused_topk.bf16": 0, "scores.bf16": 0,
+        "scores_above.bf16": 0,
         "chamfer.bf16": 0, "row_max.int8": 0, "count_above.int8": 0,
         "pool_writer.int8": 0, "fused_topk.int8": 0, "scores.int8": 0,
     }
@@ -944,9 +949,11 @@ def test_bf16_searcher_pooled_hands_the_pool_the_tensor_core_copy(cuda_device,
     assert gpu.last_stats["mode"] == "pooled" and gpu.last_stats["amb_rows"] > 0
     assert gpu._tc_copy.shape == (gpu._refs.shape[0], 1032)
     assert kernels.launches["pool_writer.bf16"] == kernels.launches["count_above.bf16"] == 1
-    # Re-searched rows score on the same product (scores.bf16).
-    assert (kernels.launches["scores.bf16"] > 0) == (gpu.last_stats["corpus_rows"] > 0)
-    assert sum(kernels.launches.values()) == 2 + kernels.launches["scores.bf16"]
+    # Re-searched rows score on the same product (scores_above.bf16), in
+    # one launch; the dense scores.bf16 is off the path.
+    research = int(gpu.last_stats["corpus_rows"] > 0)
+    assert kernels.launches["scores_above.bf16"] == research
+    assert sum(kernels.launches.values()) == 2 + research
     want = SimilaritySearcher(r, dtype="bfloat16", device="cpu").global_topk(
         q, 2000, kappa=16)
     for g, w in zip(got, want):
@@ -1172,6 +1179,119 @@ def test_bf16_searcher_pooled_equals_stream_on_floats(cuda_device, monkeypatch, 
     for a, b in zip(out["stream"], out["pooled"]):
         np.testing.assert_array_equal(a, b)
 
+
+
+# ---- scores_above.bf16: the re-search's entries >= each row's floor -----------
+
+
+def _entries(out):
+    """scores_above's (scores, rows, cols) ordered by (row, col), indices
+    int64; fails unless each (row, col) appears once."""
+    s, r, c = out
+    assert s.shape == r.shape == c.shape and r.dtype == c.dtype == torch.int32
+    key, order = torch.sort(r.long() * (1 << 32) + c.long())
+    assert bool((key[1:] != key[:-1]).all()), "an entry appears twice"
+    return s[order], r[order].long(), c[order].long()
+
+
+def _row_floors(scores, seed):
+    """Per-row floors over dense scores [M, n_valid]: a score of the row
+    at a random depth (its ties sit on the floor), −inf on every 11th row
+    and +inf on every 13th from the 5th."""
+    m, n_valid = scores.shape
+    depth = np.random.RandomState(seed).randint(0, min(200, n_valid), m)
+    ranked = torch.sort(scores, dim=1, descending=True).values
+    floor = ranked.gather(1, torch.from_numpy(depth).to(scores.device)[:, None])[:, 0]
+    floor[::11] = float("-inf")
+    floor[5::13] = float("inf")
+    return floor.contiguous()
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("m", [1, 65, 300])
+@pytest.mark.parametrize("d", [13, 33, 512, 1025])
+def test_bf16_scores_above_exact_on_integers(cuda_device, d, m, offset):
+    # Integers: exact in any order, so the kernel's entries are the plain
+    # version's, each once; D = 13 and 33 take pad columns, n_valid short
+    # of the corpus leaves the last tile ragged. Given the exact count as
+    # its capacity, it launches once.
+    q = _bf16_ints((m, d), 190 + d, cuda_device, offset)
+    r = _bf16_ints((RAGGED_N, d), 191 + d, cuda_device, offset)
+    for refs in (r, kernels.pad_columns(r)):  # as given, and as staged
+        for n_valid in (1, 1000, RAGGED_N - 1):
+            floor = _row_floors(kernels.scores_plain(q, r, n_valid), d + m)
+            want = _entries(kernels.scores_above_plain(q, r, n_valid, floor))
+            kernels.reset_launches()
+            got = _entries(kernels.scores_above(q, refs, n_valid, floor,
+                                                capacity=want[0].numel()))
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            assert kernels.launches["scores_above.bf16"] == 1
+            assert sum(kernels.launches.values()) == 1
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [13, 511, 512, 1025])
+def test_bf16_scores_above_bit_identical_to_dense_scores(cuda_device, d, offset):
+    # Floats: each emitted score is the dense scores.bf16 at its (row, col),
+    # bit for bit, and the set is nonzero(dense >= floor), on 133 rows (no
+    # multiple of 128) and on a permuted subset of them (each row at
+    # another place in its tile); within BF16_TC_ATOL of the plain scores.
+    q, r, n_valid = _bf16_case(cuda_device, d, offset, 200 + d)
+    q, rt = q[:133], kernels.pad_columns(r)
+    dense = kernels.scores(q, rt, n_valid)
+    floor = _row_floors(dense, d)
+    for rows in (torch.arange(133, device=cuda_device),
+                 torch.from_numpy(np.random.RandomState(d).permutation(133)[:50])
+                 .to(cuda_device)):
+        rr, cc = torch.nonzero(dense[rows] >= floor[rows, None], as_tuple=True)
+        s, gr, gc = _entries(kernels.scores_above(q[rows], rt, n_valid, floor[rows]))
+        assert torch.equal(gr, rr) and torch.equal(gc, cc)
+        assert torch.equal(s.view(torch.int32), dense[rows][rr, cc].view(torch.int32))
+    plain = kernels.scores_plain(q, r, n_valid)
+    torch.testing.assert_close(s, plain[rows][rr, cc], rtol=0, atol=BF16_TC_ATOL)
+
+
+@pytest.mark.parametrize("capacity", [0, 1, 1000])
+def test_bf16_scores_above_relaunches_when_the_capacity_runs_out(cuda_device, capacity):
+    # The kernel counts past its capacity, so the wrapper launches once
+    # more with exactly the total and returns the full set; with the exact
+    # total it launches once.
+    q = _bf16_ints((300, 64), 210, cuda_device)
+    r = _bf16_ints((RAGGED_N, 64), 211, cuda_device)
+    floor = torch.full((300,), 20.0, device=cuda_device)  # ~a quarter of the scores
+    want = _entries(kernels.scores_above_plain(q, r, RAGGED_N - 3, floor))
+    assert want[0].numel() > capacity
+    kernels.reset_launches()
+    got = _entries(kernels.scores_above(q, r, RAGGED_N - 3, floor, capacity=capacity))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert kernels.launches["scores_above.bf16"] == 2
+    kernels.reset_launches()
+    got = _entries(kernels.scores_above(q, r, RAGGED_N - 3, floor,
+                                        capacity=want[0].numel()))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert kernels.launches["scores_above.bf16"] == 1
+
+
+@pytest.mark.parametrize("slots", [1, 7])
+def test_bf16_scores_above_any_grid(cuda_device, monkeypatch, slots):
+    # Few blocks walk many items each, across groups (12 query tiles).
+    monkeypatch.setattr(kernels, "_wgmma_slots", lambda t, *args: slots)
+    q = _bf16_ints((1500, 40), 212, cuda_device)
+    r = _bf16_ints((RAGGED_N, 40), 213, cuda_device)
+    floor = torch.full((1500,), 30.0, device=cuda_device)
+    for n_valid in (1, 257, RAGGED_N):
+        got = _entries(kernels.scores_above(q, r, n_valid, floor))
+        want = _entries(kernels.scores_above_plain(q, r, n_valid, floor))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_bf16_scores_above_takes_bf16_only(cuda_device):
+    q, r = _ints((4, 16), 214).to(cuda_device), _ints((128, 16), 215).to(cuda_device)
+    floor = torch.zeros(4, device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        kernels.scores_above(q, r, 100, floor)
+    with pytest.raises(ValueError, match="floor"):
+        kernels.scores_above(q.to(BF16), r.to(BF16), 100, floor.cpu())
 
 
 # ---- the int8 (SQ8) variants ----------------------------------------------------

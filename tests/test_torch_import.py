@@ -142,6 +142,7 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     kernels.row_max(q.bfloat16(), r.bfloat16(), 100)
     kernels.pool_writer(q.bfloat16(), r.bfloat16(), 100)
     kernels.scores(q.bfloat16(), r.bfloat16(), 100)
+    kernels.scores_above(q.bfloat16(), r.bfloat16(), 100, torch.zeros(3), capacity=1)
     # int8 codes (f32 queries, per-row scales) too.
     codes, scale = torch.ones((128, 16), dtype=torch.int8), torch.ones(128)
     kernels.row_max(q, codes, 100, scale=scale)
@@ -154,6 +155,7 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
         "row_max": 0, "count_above": 0, "pool_writer": 0, "fused_topk": 0,
         "chamfer": 0, "row_max.bf16": 0, "count_above.bf16": 0,
         "pool_writer.bf16": 0, "fused_topk.bf16": 0, "scores.bf16": 0,
+        "scores_above.bf16": 0,
         "chamfer.bf16": 0, "row_max.int8": 0, "count_above.int8": 0,
         "pool_writer.int8": 0, "fused_topk.int8": 0, "scores.int8": 0,
     }
@@ -257,6 +259,18 @@ def test_unported_storage_modes_raise(entry, tmp_path):
     if entry == "descriptor_eval":
         with pytest.raises(NotImplementedError, match="sharded"):
             module.main(module.parser.parse_args(argv[:-3] + ["--sharded"]))
+
+
+def test_bench_scores_above_needs_a_card():
+    # tools/bench_scores_above.py stops with its own message when no card
+    # is visible, before it imports the kernels.
+    out = subprocess.run(
+        [sys.executable, str(REPO / "tools" / "bench_scores_above.py")],
+        capture_output=True, text=True, cwd=REPO, timeout=300,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+    )
+    assert out.returncode == 2 and "no CUDA device" in out.stderr
+    assert out.stdout == ""
 
 
 @pytest.mark.parametrize("flags,rc,message", [

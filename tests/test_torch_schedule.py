@@ -94,7 +94,7 @@ def test_each_row_tile_is_split_evenly_at_the_path_shapes():
 # ---- ctypes declarations against the C sources -------------------------------
 
 _SIGNATURE = re.compile(r'extern "C" int (vsc_\w+)\(([^)]*)\)')
-_SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float}
+_SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
 
 
 def _ctype(param: str):

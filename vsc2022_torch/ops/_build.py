@@ -102,7 +102,7 @@ def build(verbose: bool = False) -> Path:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     argtypes = {
         "pool_writer": [i, p, p, i, i, i, i, p, p, p],
         "row_max": [i, p, p, i, i, i, i, i, i, p, p, p],
@@ -114,14 +114,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     }
     # The bf16 kernels, all on the tensor-core product of wgmma_gemm.cuh,
     # take no copy width; fused_topk's takes its sets' placement (and, for
-    # its occupancy, κ), pool_writer's a grid. scores_bf16 is the
-    # re-search's product (bf16 only).
+    # its occupancy, κ), pool_writer's a grid. scores_bf16 writes the
+    # product out; scores_above_bf16, the re-search's, takes a floor per
+    # row and a 64-bit capacity (bf16 only).
     argtypes["row_max_bf16"] = [i, p, p, i, i, i, i, i, p, p, p]
     argtypes["count_above_bf16"] = [i, p, p, i, i, i, f, i, i, p, p]
     argtypes["pool_writer_bf16"] = [i, p, p, i, i, i, i, i, p, p, p]
     argtypes["fused_topk_bf16"] = [i, p, p, i, i, i, i, i, i, i, i, p, p, p]
     argtypes["scores_bf16"] = [i, p, p, i, i, i, i, i, p, p]
-    for name in ("row_max", "count_above", "pool_writer", "scores"):
+    argtypes["scores_above_bf16"] = [i, p, p, p, i, i, i, i, i, l, p, p, p, p, p]
+    for name in ("row_max", "count_above", "pool_writer", "scores", "scores_above"):
         argtypes[f"{name}_bf16_occupancy"] = [i, p]
     argtypes["fused_topk_bf16_occupancy"] = [i, i, i, p]
     # Their blocks' dynamic shared memory (bytes), for chip_smoke.py's plans.

@@ -1,6 +1,7 @@
 // scores: q . refs^T over the first n_valid columns, written out [M,
 // n_valid] f32, on the bf16 tensor-core product, or (scores.int8) on the
-// int8 kernels' f32 chain.
+// int8 kernels' f32 chain; scores_above.bf16: only the entries at or above
+// each row's floor, on the same tensor-core product.
 //
 // Not a port of a Pallas kernel. The searchers re-search a few query rows
 // over the whole corpus (ops/similarity.py _corpus_above: rows whose
@@ -27,7 +28,41 @@
 // column pairs one 8-byte store where the row's offset allows it (else two
 // 4-byte ones), so a warp writes 8 rows x 32 contiguous bytes per store;
 // rows >= M and columns >= n_valid are not written. Rows take a multiple
-// of 8 values (ops/kernels.py pad_columns).
+// of 8 values (ops/kernels.py pad_columns). The searchers no longer call it:
+// it stays as the dense reference of scores_above.bf16.
+//
+// scores_above.bf16 (vsc_scores_above_bf16): the re-search over a bf16
+// corpus. The searcher keeps only the entries at or above a floor per
+// row (tau less its margin), and the final cut sorts them by (score, q, r),
+// so it needs neither the dense [M, n_valid] matrix nor any order. This
+// epilogue on the same product emits each entry (i, j < n_valid) with
+// s = q_i . r_j >= floor[i] once, as (s, i, j), in no order: s is the
+// accumulator scores.bf16 stores at (i, j), bit for bit, and the test is
+// the f32 >= that torch does on those values, so the set is nonzero(
+// scores.bf16 >= floor[:, None]). Bound: operations at the re-search's
+// shapes (~3,700 rows x 240,000 x 512 at serving is 0.91 TFLOP, 0.92 ms
+// at 989 TFLOP/s; the corpus comes from HBM about once per group of 8
+// query tiles, ~0.25 GB), where the dense epilogue wrote 4 bytes a score
+// for the caller to throw away. Design: per finished 128 x 256 tile each
+// consumer thread loads its two rows' floors and counts its 128
+// accumulators that pass; a shuffle scan gives each lane of the warp its
+// offset and the warp's total (nothing more when nothing passes, the
+// common case). Each warp stages its entries in a batch of 256 in shared
+// memory and reserves output slots for a whole batch with one 64-bit
+// atomicAdd on the launch's counter, then copies it out in order, when
+// the next item's entries would not fit and when the block leaves a
+// group or ends (an item with more than a batch, as tau = -inf gives,
+// goes straight out under one atomicAdd of its own). One atomicAdd per
+// warp and item, the first design, cost up to 1.7x the product alone on
+// the serving re-search's rows, where most warp-items hold an entry;
+// batching the reservations and stores took most of that back
+// (tools/bench_scores_above.py). Writes
+// past the capacity are dropped but counted, so after the launch the
+// counter holds the exact total and the wrapper (ops/kernels.py
+// scores_above) launches again with that capacity when it ran out. The
+// batches take 24 KB of shared memory beside the 4-stage ring (one block
+// per SM, as every bf16 kernel); the plan is scores.bf16's (groups of 8
+// query tiles: one corpus pass per 1,024 query rows).
 //
 // int8 (vsc_scores_int8, launch key scores.int8): the re-search over an
 // int8 (SQ8) corpus, JAX's block product on the IP8 branch
@@ -102,6 +137,132 @@ struct Bf16Scores {
 
   __device__ __forceinline__ void flush(Smem&, const wg::Lane&,
                                         const wg::Item&) const {}
+};
+
+// The above-floor epilogue. acc[k] is row row0 + 8 * ((k >> 1) & 1),
+// column 8 * (k / 4) + col0 + (k & 1) of the tile. Each consumer warp
+// stages its entries in a batch of its own in shared memory and reserves
+// output slots for a whole batch with one atomicAdd (drain), when the next
+// item's entries would not fit and when the block leaves a group or ends;
+// an item whose entries alone exceed a batch (tau = -inf) goes straight
+// out under one atomicAdd of its own.
+struct Bf16ScoresAbove {
+  static constexpr int kStages = wg::kStages, kGroup = wg::kGroup;
+  static constexpr int kWarps = 4 * wg::kConsumers;  // consumer warps
+  static constexpr int kBatch = 256;                  // entries a warp stages
+  const float* floors;
+  int m;
+  long long cap;
+  float* out_s;
+  int* out_r;
+  int* out_c;
+  unsigned long long* count;
+  struct Smem {
+    float s[kWarps][kBatch];
+    int r[kWarps][kBatch];
+    int c[kWarps][kBatch];
+    int fill[kWarps];
+  };
+
+  __device__ __forceinline__ void begin(Smem& sm, const wg::Lane&) const {
+    if ((threadIdx.x & 31) == 0) sm.fill[threadIdx.x >> 5] = 0;
+    __syncwarp();
+  }
+
+  template <bool kMasked>
+  static __device__ __forceinline__ bool passes(const float (&acc)[wg::kAcc],
+                                                const float (&fl)[2],
+                                                const wg::Lane& l, int k,
+                                                int valid_cols) {
+    return (!kMasked || 8 * (k / 4) + l.col0 + (k & 1) < valid_cols) &&
+           acc[k] >= fl[(k >> 1) & 1];
+  }
+
+  // n slots for the warp's entries: lane 0 reserves them, every lane gets
+  // the first.
+  __device__ __forceinline__ long long reserve(int n) const {
+    unsigned long long base = 0;
+    if ((threadIdx.x & 31) == 0) base = atomicAdd(count, (unsigned long long)n);
+    return (long long)__shfl_sync(0xffffffffu, base, 0);
+  }
+
+  // The warp's staged entries out, in order (whole sectors), and its batch
+  // emptied. Every lane of the warp calls it.
+  __device__ __forceinline__ void drain(Smem& sm) const {
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, n = sm.fill[w];
+    if (n == 0) return;
+    const long long base = reserve(n);
+    for (int i = lane; i < n && base + i < cap; i += 32) {
+      out_s[base + i] = sm.s[w][i];
+      out_r[base + i] = sm.r[w][i];
+      out_c[base + i] = sm.c[w][i];
+    }
+    __syncwarp();
+    if (lane == 0) sm.fill[w] = 0;
+    __syncwarp();
+  }
+
+  template <bool kMasked>
+  __device__ __forceinline__ void item(Smem& sm, const wg::Lane& l,
+                                       const float (&acc)[wg::kAcc],
+                                       const wg::Item& it, int valid_cols) const {
+    int row[2];
+    float fl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      row[h] = it.q_tile * wg::BM + l.row0 + 8 * h;
+      fl[h] = row[h] < m ? floors[row[h]] : CUDART_NAN_F;  // NaN: nothing passes
+    }
+    int mine = 0;
+#pragma unroll
+    for (int k = 0; k < wg::kAcc; ++k) mine += passes<kMasked>(acc, fl, l, k, valid_cols);
+    // The warp's inclusive scan of its lanes' counts; lane 31 holds the total.
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    int incl = mine;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    if (total == 0) return;
+    const int cbase = it.c_tile * wg::BN;
+    if (total > kBatch) {  // straight out
+      long long pos = reserve(total) + (incl - mine);
+#pragma unroll
+      for (int k = 0; k < wg::kAcc; ++k) {
+        if (passes<kMasked>(acc, fl, l, k, valid_cols)) {
+          if (pos < cap) {
+            out_s[pos] = acc[k];
+            out_r[pos] = row[(k >> 1) & 1];
+            out_c[pos] = cbase + 8 * (k / 4) + l.col0 + (k & 1);
+          }
+          ++pos;
+        }
+      }
+      return;
+    }
+    if (sm.fill[w] + total > kBatch) drain(sm);
+    const int fill = sm.fill[w];
+    int pos = fill + incl - mine;
+#pragma unroll
+    for (int k = 0; k < wg::kAcc; ++k) {
+      if (passes<kMasked>(acc, fl, l, k, valid_cols)) {
+        sm.s[w][pos] = acc[k];
+        sm.r[w][pos] = row[(k >> 1) & 1];
+        sm.c[w][pos] = cbase + 8 * (k / 4) + l.col0 + (k & 1);
+        ++pos;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) sm.fill[w] = fill + total;
+    __syncwarp();
+  }
+
+  __device__ __forceinline__ void flush(Smem& sm, const wg::Lane&,
+                                        const wg::Item&) const {
+    drain(sm);
+  }
 };
 
 // The int8 scores' epilogue on reduce_gemm.cuh (its epilogue contract):
@@ -182,4 +343,31 @@ extern "C" int vsc_scores_bf16(int device, const __nv_bfloat16* q,
   return (int)wg::launch(q, refs, m, d, n_valid, grid,
                          Bf16Scores{out, m, n_valid},
                          static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the above-floor kernel one SM holds at once (its grid: SMs x
+// this, at most the work items of ops/kernels.py wgmma_tiles).
+extern "C" int vsc_scores_above_bf16_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<Bf16ScoresAbove>(device, blocks_per_sm);
+}
+
+// q [m, d] and refs [n, d] bf16 as for vsc_scores_bf16, floors [m] f32;
+// out_s [cap] f32, out_r and out_c [cap] int32; count: one unsigned 64-bit
+// counter, zeroed here. After the launch count holds the number of entries
+// (i, j < n_valid) with q_i . refs_j >= floors[i]; the first min(count, cap)
+// of them, in no order, are (out_s, out_r, out_c)[0, min(count, cap)).
+extern "C" int vsc_scores_above_bf16(int device, const __nv_bfloat16* q,
+                                     const __nv_bfloat16* refs, const float* floors,
+                                     int m, int n, int d, int n_valid, int grid,
+                                     long long cap, float* out_s, int* out_r,
+                                     int* out_c, unsigned long long* count,
+                                     void* stream) {
+  if (m < 0 || n_valid < 0 || n_valid > n || cap < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(count, 0, sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wg::launch(q, refs, m, d, n_valid, grid,
+                         Bf16ScoresAbove{floors, m, cap, out_s, out_r, out_c, count}, s);
 }

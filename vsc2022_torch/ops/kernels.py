@@ -5,9 +5,9 @@ C++ for sm_90a in ``ops/csrc`` (built by ``ops/_build.py`` at first use)
 and comes with:
 
   * a wrapper (``row_max``, ``count_above``, ``pool_writer`` and
-    ``fused_topk`` for the retrieval path, ``scores`` for its re-search
-    over a bf16 corpus, ``chamfer_fine_sims`` for the DnS alignment)
-    that, for
+    ``fused_topk`` for the retrieval path, ``scores_above`` for its
+    re-search over a bf16 corpus and ``scores`` over an int8 one,
+    ``chamfer_fine_sims`` for the DnS alignment) that, for
     a CUDA tensor, launches the kernel or raises, and for a CPU tensor
     runs the plain version. Nothing else selects the plain version: there
     is no fallback when a build or a launch fails;
@@ -29,9 +29,10 @@ collections compare their candidates with their counts bit for bit:
   ``tile_gemm.cuh`` for ``pool_writer``), one sequential sum per score.
 * bf16: the tensor cores (``ops/csrc/wgmma_gemm.cuh``: TMA, wgmma, bf16
   in, f32 accumulation), for ``row_max``, ``count_above``,
-  ``pool_writer`` and ``fused_topk`` alike, and for ``scores``, which
-  writes the product out for the searchers' corpus re-search (bf16 only:
-  in f32 the re-search is ``torch.matmul``). The tensor cores sum in their
+  ``pool_writer`` and ``fused_topk`` alike, for ``scores``, which writes
+  the product out, and for ``scores_above``, which keeps only the entries
+  at or above a floor per row for the searchers' corpus re-search (bf16
+  only: in f32 the re-search is ``torch.matmul``). The tensor cores sum in their
   own order: exact on integer inputs, within a few f32 roundings of the
   plain versions elsewhere, and equal to each other bit for bit (the
   pool's best winner is ``row_max``, its winners ordered are
@@ -114,16 +115,22 @@ PLAIN_CHUNK_ELEMENTS = 1 << 27
 # Ceiling on fused_topk's [M, S, κ] output: large κ takes a smaller grid.
 TOPK_SCRATCH_BYTES = 1 << 30
 
+# scores_above's capacity per query row when the caller gives none.
+SCORES_ABOVE_ROW_CAPACITY = 256
+
 # The retrieval kernels, each with a bf16 and an int8 variant.
 RETRIEVAL_KERNELS = ("row_max", "count_above", "pool_writer", "fused_topk")
 BF16 = ".bf16"  # suffix of a bf16 variant's launch count
 INT8 = ".int8"  # suffix of an int8 variant's launch count
 
-# The re-search's scores over a bf16 corpus (bf16 only) and over an int8 one.
+# The product written out, over a bf16 corpus (bf16 only) and over an int8
+# one (the re-search's scores there); the re-search's entries at or above a
+# floor over a bf16 corpus.
 SCORES = "scores" + BF16
 SCORES_INT8 = "scores" + INT8
+SCORES_ABOVE = "scores_above" + BF16
 # The kernels whose bf16 variant runs on the tensor cores (wgmma_gemm.cuh).
-TENSOR_CORE_KERNELS = RETRIEVAL_KERNELS + ("scores",)
+TENSOR_CORE_KERNELS = RETRIEVAL_KERNELS + ("scores", "scores_above")
 # The int8 variants, all on the f32 chain over widened codes.
 INT8_KERNELS = tuple(name + INT8 for name in RETRIEVAL_KERNELS) + (SCORES_INT8,)
 
@@ -132,7 +139,8 @@ CHAMFER_BF16 = "chamfer" + BF16
 
 launches: Dict[str, int] = {
     **{name: 0 for name in RETRIEVAL_KERNELS}, "chamfer": 0,
-    **{name + BF16: 0 for name in RETRIEVAL_KERNELS}, SCORES: 0, CHAMFER_BF16: 0,
+    **{name + BF16: 0 for name in RETRIEVAL_KERNELS}, SCORES: 0, SCORES_ABOVE: 0,
+    CHAMFER_BF16: 0,
     **{name: 0 for name in INT8_KERNELS},
 }
 
@@ -202,6 +210,32 @@ def scores_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
     width are left out."""
     return _plain_scores(q, refs[:n_valid, : q.shape[1]].float(),
                          None if scale is None else scale[:n_valid])
+
+
+def scores_above_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
+                       floor: torch.Tensor):
+    """Every (i, j < n_valid) whose score q·refs[j]ᵀ (bf16 widened) is
+    ≥ floor[i]: (scores [E] f32, rows [E] int32, cols [E] int32) in row-major
+    order. ``scores_plain``, then ``nonzero``, chunked over rows. Pad
+    columns of refs past q's width are left out."""
+    r = refs[:n_valid, : q.shape[1]].float()
+    parts_s, parts_r, parts_c = [], [], []
+    step = _row_chunk(n_valid)
+    for start in range(0, q.shape[0] if n_valid else 0, step):
+        s = _plain_scores(q[start : start + step], r, None)
+        rr, cc = torch.nonzero(s >= floor[start : start + step, None], as_tuple=True)
+        parts_s.append(s[rr, cc])
+        parts_r.append((rr + start).int())
+        parts_c.append(cc.int())
+    if not parts_s:
+        return _no_entries(q.device)
+    return torch.cat(parts_s), torch.cat(parts_r), torch.cat(parts_c)
+
+
+def _no_entries(device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return (torch.empty(0, dtype=torch.float32, device=device),
+            torch.empty(0, dtype=torch.int32, device=device),
+            torch.empty(0, dtype=torch.int32, device=device))
 
 
 def _first_max(s3: torch.Tensor, lanes: torch.Tensor):
@@ -773,8 +807,11 @@ def scores(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
     bf16 CUDA tensors the tensor-core kernel, for int8 codes the f32 chain
     over widened codes, whose scores are those ``row_max``,
     ``count_above``, ``pool_writer`` and ``fused_topk`` see, bit for bit.
-    A bf16 ``refs`` may carry ``pad_columns``' zero pad columns. f32 CUDA
-    tensors raise: there the searchers score with ``torch.matmul``."""
+    The searchers re-search an int8 corpus with it; over a bf16 corpus
+    they take ``scores_above``, and the bf16 kernel stays as its dense
+    reference. A bf16 ``refs`` may carry ``pad_columns``' zero pad
+    columns. f32 CUDA tensors raise: there the searchers score with
+    ``torch.matmul``."""
     n_valid = int(n_valid)
     bf16 = q.dtype == torch.bfloat16
     _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
@@ -808,6 +845,62 @@ def scores(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
     _raise_on(rc, "scores_bf16")
     launches[SCORES] += 1
     return out
+
+
+def scores_above(
+    q: torch.Tensor, refs: torch.Tensor, n_valid: int, floor: torch.Tensor,
+    capacity: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every (i, j < n_valid) whose score q·refs[j]ᵀ is ≥ floor[i], each
+    once and in no order: (scores [E] f32, rows [E] int32, cols [E] int32).
+    ``floor``: [M] f32 on q's device. For bf16 CUDA tensors the tensor-core
+    kernel: each score is the one ``scores`` writes at (i, j), bit for bit,
+    and the set is nonzero(scores(q, refs, n_valid) >= floor[:, None]); no
+    dense [M, n_valid] matrix is made. ``capacity``: the entries the caller
+    expects (default SCORES_ABOVE_ROW_CAPACITY a row). The kernel counts
+    every entry; when they are more, the wrapper launches it again with
+    exactly that capacity (each launch counted). A bf16 ``refs`` may carry
+    ``pad_columns``' zero pad columns. Other dtypes on CUDA raise: the
+    searchers re-search an f32 corpus with ``torch.matmul`` and an int8 one
+    with ``scores``."""
+    n_valid = int(n_valid)
+    bf16 = q.dtype == torch.bfloat16
+    _check(q, refs, n_valid, pad_ok=bf16)
+    if (floor.dtype != torch.float32 or floor.shape != (q.shape[0],)
+            or floor.device != q.device):
+        raise ValueError(f"floor must be [{q.shape[0]}] f32 on {q.device}: got "
+                         f"{tuple(floor.shape)} {floor.dtype} on {floor.device}")
+    if capacity is not None and int(capacity) < 0:
+        raise ValueError(f"capacity {capacity} < 0")
+    if q.device.type == "cpu":
+        return scores_above_plain(q, refs, n_valid, floor)
+    if not bf16:
+        raise TypeError(f"scores_above: the kernel takes bf16 operands, not {q.dtype}")
+    m, d = q.shape
+    if d == 0:
+        raise ValueError("scores_above_bf16: the kernel takes D >= 1")
+    if m == 0 or n_valid == 0:
+        return _no_entries(q.device)
+    q, refs, floor = pad_columns(q), pad_columns(refs), floor.contiguous()
+    cap = min(m * n_valid, m * SCORES_ABOVE_ROW_CAPACITY if capacity is None
+              else int(capacity))
+    grid = wgmma_grid(m, n_valid, _wgmma_slots(q, "scores_above_bf16"))
+    count = torch.empty(1, dtype=torch.int64, device=q.device)
+    while True:
+        out_s = torch.empty(cap, dtype=torch.float32, device=q.device)
+        out_r = torch.empty(cap, dtype=torch.int32, device=q.device)
+        out_c = torch.empty(cap, dtype=torch.int32, device=q.device)
+        rc = _build.library().vsc_scores_above_bf16(
+            q.device.index, q.data_ptr(), refs.data_ptr(), floor.data_ptr(), m,
+            refs.shape[0], q.shape[1], n_valid, grid, cap, out_s.data_ptr(),
+            out_r.data_ptr(), out_c.data_ptr(), count.data_ptr(), _stream(q),
+        )
+        _raise_on(rc, "scores_above_bf16")
+        launches[SCORES_ABOVE] += 1
+        total = int(count)  # the call's one sync
+        if total <= cap:
+            return out_s[:total], out_r[:total], out_c[:total]
+        cap = total
 
 
 def fused_topk(

@@ -24,7 +24,7 @@ modes, routed as it routes them (``_collection_mode``):
   4. Rows with kept < pool count and ``amb == 0`` repair from the pool.
      Rows with ``amb > 0`` get an exact corpus count (the ``count_above``
      kernel); only a count above the row's pool count triggers an exact
-     corpus re-search (chunked ``torch.matmul``), and a count equal to
+     corpus re-search, and a count equal to
      the kept entries needs no repair at all. Never repair ``amb > 0``
      rows without that count prune.
 
@@ -34,8 +34,10 @@ collections compare bit-identical scores: the stream's candidates with
 its counts, the pool with its count (f32: the CUDA cores' fmaf chain;
 bf16: the tensor-core product, where both collections pad the queries
 once and read ``tensor_core_refs``). A re-searched row's scores come from
-that product too over a bf16 corpus (``kernels.scores``), and from
-``torch.matmul`` over an f32 one; the search collects down to a rounding
+that product too over a bf16 corpus (``kernels.scores_above``: only the
+entries at or above the row's floor, one launch over every re-searched
+row), and from a chunked ``torch.matmul`` over an f32 one; the search
+collects down to a rounding
 margin below τ, since the f32 re-search may differ from the kernels' in
 the last bits (over a bf16 corpus, where the re-search shares the
 kernels' product, the margin is only defensive).
@@ -49,7 +51,7 @@ it on the device onto exactly the layout a fresh stage gives.
 to nearest even (as ``ml_dtypes`` rounds for the JAX searcher): half the
 device memory and bytes moved. Scores are bf16 × bf16 products with f32
 accumulation, from the kernels' bf16 variants, the re-searches' included
-(``kernels.scores``); ``row_topk`` widens both sides to f32 before
+(``kernels.scores_above``); ``row_topk`` widens both sides to f32 before
 ``torch.matmul``.
 
 ``dtype="int8"`` is the SQ8 tier (``quantize_rows_int8``): the corpus
@@ -101,6 +103,14 @@ COLLECTION_ENV = "VSC2022_TORCH_COLLECTION"
 # The re-search margin over a bf16 corpus (the tensor cores score), in
 # units of the f32 one (``SimilaritySearcher._corpus_above`` derives it).
 TENSOR_CORE_SLACK = 2.0
+# The bf16 re-search (``kernels.scores_above``): the entries a row may hold
+# between its floor and τ beyond those the caller counted ≥ τ (its
+# capacity's headroom), the bytes of one entry (score, row, column) and the
+# entries one launch may hold: the 512 MB of a dense chunk of
+# PLAIN_CHUNK_ELEMENTS scores.
+ABOVE_HEADROOM = 64
+ABOVE_ENTRY_BYTES = 12
+ABOVE_BUDGET_ENTRIES = 4 * PLAIN_CHUNK_ELEMENTS // ABOVE_ENTRY_BYTES
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -403,12 +413,12 @@ class SimilaritySearcher:
         return q.to(self.device).to(self.query_dtype).contiguous()
 
     def _row_chunk(self) -> int:
-        """Query rows per chunk of scores over the corpus: the
-        PLAIN_CHUNK_ELEMENTS budget, rounded down to a multiple of the
-        128-row work items of the re-search's products (scores.int8's,
-        ``kernels.REDUCE_TILE``, and scores.bf16's, ``kernels.WGMMA_ROWS``)
-        where the budget holds 128 rows or more, so the kernels compute no
-        empty rows. Each row's scores are independent of its chunk."""
+        """Query rows per chunk of dense scores over the corpus (the int8
+        and f32 re-searches, ``row_topk``): the PLAIN_CHUNK_ELEMENTS
+        budget, rounded down to a multiple of scores.int8's 128-row work
+        items (``kernels.REDUCE_TILE``) where the budget holds 128 rows or
+        more, so the kernel computes no empty rows. Each row's scores are
+        independent of its chunk."""
         rows = max(1, PLAIN_CHUNK_ELEMENTS // max(self.n_refs, 1))
         return rows - rows % REDUCE_TILE if rows >= REDUCE_TILE else rows
 
@@ -491,22 +501,30 @@ class SimilaritySearcher:
             kappa = 1 << (kappa - 1).bit_length()  # next power of two
         return min(kappa, self.n_refs), min(k, nq * self.n_refs)
 
-    def _corpus_above(self, q_rows: torch.Tensor, tau: float):
-        """Every corpus entry ≥ τ of the given query rows, chunked over the
-        rows: (scores, local row index, ref id).
+    def _corpus_above(self, q_rows: torch.Tensor, tau: float, count: int):
+        """Every corpus entry ≥ τ of the given query rows, and a few below
+        it: (scores, local row index, ref id), in no particular order.
+        ``count``: the entries ≥ τ these rows hold as the kernels count
+        them (the capacity hint of the bf16 re-search).
 
         The scores: over a bf16 or int8 corpus the kernels' own product
-        (``kernels.scores``: the tensor cores, or the int8 kernels' f32
-        chain over widened codes, on the card), as the JAX searcher
-        re-searches with its collection's block product, so a re-searched
-        pair scores as the kernels score it and both collections, which
-        re-search different rows, rank every pair alike; over an f32
-        corpus ``torch.matmul``.
+        (the tensor cores, or the int8 kernels' f32 chain over widened
+        codes, on the card), as the JAX searcher re-searches with its
+        collection's block product, so a re-searched pair scores as the
+        kernels score it and both collections, which re-search different
+        rows, rank every pair alike; over an f32 corpus ``torch.matmul``.
+        A bf16 corpus takes ``kernels.scores_above``: one launch over all
+        the rows keeps the entries at or above each row's floor and makes
+        no dense score matrix (chunks of rows only where its capacity,
+        ``count`` plus ABOVE_HEADROOM a row, would pass
+        ABOVE_BUDGET_ENTRIES: τ = −inf keeps every entry). An int8 or f32
+        corpus scores chunks of rows densely (``kernels.scores``,
+        ``torch.matmul``) and keeps the same entries.
 
         The margin: τ and the counts come from the kernels' scores, and a
         product that sums differently may round the same (q, r) product
-        differently, so entries are kept down to a margin below τ: no
-        entry the kernels scored ≥ τ is lost, and the exact final cut
+        differently, so entries are kept down to a floor a margin below τ:
+        no entry the kernels scored ≥ τ is lost, and the exact final cut
         drops the surplus. Two f32 sums of D exact products differ by at
         most 2·D·u·‖q‖·‖r‖ (u = 2⁻²⁴): the f32 margin, which the f32
         re-search needs. Over a bf16 corpus the re-search shares the
@@ -520,26 +538,37 @@ class SimilaritySearcher:
         kernels' chain bit for bit too; its margin is the f32 one over the
         dequantized rows' norms (``_ref_norm_max``: ‖codes‖ · scale).
         """
-        if self._tensor_cores or self._int8:
-            q_rows, refs, kw = self._kernel_operands(q_rows)
-
-            def score(rows):
-                return kernels.scores(rows, refs, self.n_refs, **kw)
-        else:
-            refs = self._refs[: self.n_refs]
-
-            def score(rows):
-                return torch.matmul(rows, refs.T)
         slack = self.dim * float(torch.finfo(torch.float32).eps) * self._ref_norm_max
         if self._tensor_cores:
             slack *= TENSOR_CORE_SLACK
+        if self._tensor_cores or self._int8:
+            q_rows, refs, kw = self._kernel_operands(q_rows)
+        else:
+            refs = self._refs[: self.n_refs]
+        floor = tau - slack * q_rows.float().norm(dim=1)
         parts_s, parts_q, parts_r = [], [], []
+        if self._tensor_cores:
+            m = q_rows.shape[0]
+            capacity = count + ABOVE_HEADROOM * m
+            step = m if capacity <= ABOVE_BUDGET_ENTRIES else max(
+                1, ABOVE_BUDGET_ENTRIES // self.n_refs)
+            for start in range(0, m, step):
+                rows = q_rows[start : start + step]
+                cap = capacity if step == m else rows.shape[0] * self.n_refs
+                s, rr, cc = kernels.scores_above(
+                    rows, refs, self.n_refs, floor[start : start + step], capacity=cap)
+                parts_s.append(s)
+                parts_q.append(rr.long() + start)
+                parts_r.append(cc.long())
+            return torch.cat(parts_s), torch.cat(parts_q), torch.cat(parts_r)
         step = self._row_chunk()
         for start in range(0, q_rows.shape[0], step):
             rows = q_rows[start : start + step]
-            s = score(rows)
-            floor = tau - slack * rows.float().norm(dim=1, keepdim=True)
-            rr, cc = torch.nonzero(s >= floor, as_tuple=True)
+            if self._int8:
+                s = kernels.scores(rows, refs, self.n_refs, **kw)
+            else:
+                s = torch.matmul(rows, refs.T)
+            rr, cc = torch.nonzero(s >= floor[start : start + step, None], as_tuple=True)
             parts_s.append(s[rr, cc])
             parts_q.append(rr + start)
             parts_r.append(cc)
@@ -659,7 +688,8 @@ class SimilaritySearcher:
         parts_s, parts_q, parts_r = [top_s[kq, kc]], [kq], [top_i[kq, kc].long()]
         corpus_rows = torch.nonzero(deficient, as_tuple=True)[0]
         if corpus_rows.numel():
-            cs, cq, cr = self._corpus_above(q[corpus_rows], tau)
+            cs, cq, cr = self._corpus_above(q[corpus_rows], tau,
+                                            int(counts[corpus_rows].sum()))
             parts_s.append(cs)
             parts_q.append(corpus_rows[cq])
             parts_r.append(cr)
@@ -679,7 +709,7 @@ class SimilaritySearcher:
         if n_valid_pool < k_eff:
             # Fewer valid pool entries than k: every row is suspect, so
             # every row is searched exactly (τ = −inf keeps everything).
-            return self._corpus_above(q, NEG_INF), {
+            return self._corpus_above(q, NEG_INF, nq * self.n_refs), {
                 "tau": NEG_INF, "corpus_rows": nq,
             }
         tau = float(torch.topk(pv.reshape(-1), k_eff).values[-1])
@@ -697,6 +727,7 @@ class SimilaritySearcher:
         ambiguous = flagged & (amb > 0)
         pool_repair = flagged & (amb == 0)
         corpus_rows = torch.empty(0, dtype=torch.long, device=q.device)
+        corpus_count = 0
         amb_rows = torch.nonzero(ambiguous, as_tuple=True)[0]
         if amb_rows.numel():
             totals = kernels.count_above(q_k[amb_rows], refs, tau,
@@ -705,6 +736,7 @@ class SimilaritySearcher:
             hidden = totals > pool_counts[amb_rows]
             pool_repair[amb_rows[~complete & ~hidden]] = True
             corpus_rows = amb_rows[hidden & ~complete]
+            corpus_count = int(totals[hidden & ~complete].sum())
             flagged[amb_rows[complete]] = False  # pruned: nothing missing
         clock.mark("select_and_count")
 
@@ -721,7 +753,7 @@ class SimilaritySearcher:
             parts_q.append(pool_rows[rr])
             parts_r.append(pi[pool_rows][rr, cc].long())
         if corpus_rows.numel():
-            cs, cq, cr = self._corpus_above(q[corpus_rows], tau)
+            cs, cq, cr = self._corpus_above(q[corpus_rows], tau, corpus_count)
             parts_s.append(cs)
             parts_q.append(corpus_rows[cq])
             parts_r.append(cr)
