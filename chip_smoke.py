@@ -66,18 +66,27 @@ Phases (any failure exits non-zero):
      is timed beside the f32 kernel on the widened inputs. Their bound
      takes the bf16 tensor-core peak, their library call a cuBLAS bf16
      product (scores.bf16's: bf16 in, f32 out, where torch has it).
-     The int8 (SQ8) variants of all five (f32 queries, int8 codes and
-     per-row scales), first at small ragged shapes (D = 511, 512, 1025),
-     then on the int8 paths' inputs (4c; 6c, its forced pooled search
-     too; the DnS int8 search in process): exact against their plain
-     versions on integer queries with power-of-two scales, within
-     FLOAT_ATOL on floats, bit for bit against each other (pool_identity:
-     the pool's best winner is row_max.int8, its winners ordered
-     fused_topk.int8's, its segments scores.int8's best 2, count_above.int8
-     its count, also on the ambiguous rows alone) and, with every scale 1,
-     against the f32 kernel on the widened codes. Each is timed beside the
-     f32 kernel on the widened codes; the bound takes the f32 peak, the
-     library call cuBLAS f32 over the widened codes, times the scales.
+     The int8 (SQ8) variants of all six (f32 queries, int8 codes and
+     per-row scales, on the tensor-core product with its int8 corpus
+     policy: the queries split into three exact bf16 terms, three passes
+     over the codes widened in shared memory, the scale after the
+     product), first at small ragged shapes (D = 511, 512, 1025), then on
+     the int8 paths' inputs (4c; 6c, its forced pooled search too; the DnS
+     int8 search in process): exact against their plain versions on
+     integer queries with power-of-two scales, within FLOAT_ATOL on
+     floats, bit for bit against each other (pool_identity: the pool's
+     best winner is row_max.int8, its winners ordered fused_topk.int8's,
+     its segments scores.int8's best 2, count_above.int8 its count, also
+     on the ambiguous rows alone; scores_above.int8's entries
+     nonzero(scores.int8 >= floor), each once, with capacity 1 launching
+     again for the same set) and, with every scale 1 and the queries
+     rounded to bf16, against the bf16 kernel on the widened codes (the
+     mid and lo passes add zeros). Each is timed beside the f32 kernel on
+     the widened codes (their earlier route); the bound is three bf16
+     passes at the tensor-core peak, the library call cuBLAS f32 over the
+     widened codes, times the scales. scores_above.int8 is held and timed
+     on the rows, floors and capacity each int8 path re-searches with, as
+     scores_above.bf16.
   3. global_topk against a dense brute-force oracle at
      1,000 x 100,000 x 512, forced to each collection mode (stream, the
      default at this size, and pooled), over an f32, a bf16 and an int8
@@ -101,14 +110,13 @@ Phases (any failure exits non-zero):
      Stage seconds, last_stats and quality are logged beside phase 4's.
  4c. The same two entry points with --int8: both corpora as int8 codes
      and per-row scales, the queries f32; row_max.int8, pool_writer.int8,
-     count_above.int8 (over the pool's own operands) and scores.int8 must
-     launch, and no other kernel; every searched corpus holds its codes
-     and scales only (staged bytes logged beside the f32 corpus's).
-     Here and in 4b, 6b, 6c and the DnS searches in process, the
-     re-search's rows per launch are logged and checked: in bf16 one
-     scores_above.bf16 launch per re-search over all its rows; in int8
-     whole 128-row work items of scores.int8 where the score budget holds
-     128 rows (128 at SSCD, 512 at serving), as phase 2 then times them.
+     count_above.int8 (over the pool's own operands) and scores_above.int8
+     must launch, and no other kernel (no scores.int8); every searched
+     corpus holds its codes and scales only (staged bytes logged beside
+     the f32 corpus's). Here and in 4b, 6b, 6c and the DnS searches in
+     process, the re-search's rows per launch are logged and checked: one
+     scores_above launch of the corpus's dtype per re-search over all its
+     rows, with its capacity.
   5. The DnS track, through its entry points: dns_index for the coarse
      student with --score_norm_features, dns_index for the fine attention
      student, then dns_baseline with --ground_truth, on raw L3-iMAC rows
@@ -177,7 +185,8 @@ Phases (any failure exits non-zero):
      localizer tables bf16), requests (a)-(h): stats says int8, the
      snapshot restart answers (g) byte for byte, the candidates equal an
      in-process ScoreNormalizedVideoIndex(dtype="int8"), pooled equals
-     stream (scores included), and only int8 kernels launch; then one DnS
+     stream (scores included), only int8 kernels launch, and each
+     collection re-searches in one scores_above.int8 launch; then one DnS
      two-file request with the 1,025-wide coarse corpus in int8 (1,040
      columns of codes), its quality logged, and its search repeated in
      process on phase 5's inputs in both collection modes.
@@ -288,10 +297,11 @@ SSCD_BF16_KERNELS = tuple(k + BF16 for k in SSCD_KERNELS) + (SCORES_ABOVE,)
 SERVE_BF16_KERNELS = tuple(k + BF16 for k in SERVE_KERNELS)
 DNS_SERVE_BF16_KERNELS = ("fused_topk.bf16", "count_above.bf16", "chamfer")
 # And in int8 (SQ8: sscd_baseline --int8, serve --int8): the int8 variants,
-# the re-search's scores.int8 included; the DnS server's chamfer stays f32
-# (its tables are bf16, widened).
+# the re-search's scores_above.int8 included (scores.int8 is off every
+# path); the DnS server's chamfer stays f32 (its tables are bf16, widened).
 INT8 = ".int8"
-SSCD_INT8_KERNELS = tuple(k + INT8 for k in SSCD_KERNELS) + ("scores" + INT8,)
+SCORES_ABOVE_INT8 = "scores_above" + INT8
+SSCD_INT8_KERNELS = tuple(k + INT8 for k in SSCD_KERNELS) + (SCORES_ABOVE_INT8,)
 SERVE_INT8_KERNELS = tuple(k + INT8 for k in SERVE_KERNELS)
 DNS_SERVE_INT8_KERNELS = ("fused_topk.int8", "count_above.int8", "chamfer")
 
@@ -334,13 +344,15 @@ def bound(m: int, n_valid: int, n: int, d: int, out_bytes: int, bf16: bool = Fal
     CUDA-core peak; bf16 operands (2 bytes each): the bf16 tensor-core
     peak, the least time the card could take for bf16 products. int8
     codes (1 byte a value, 4 bytes of scale a row) against f32 queries:
-    the f32 peak (the products are f32: the queries are not quantized)."""
+    the three bf16 passes of the split queries at the tensor-core peak
+    (each product of a code with a query term exact)."""
     flops = 2.0 * m * n_valid * d
     if int8:
         moved = 4.0 * m * d + (d + 4.0) * n + out_bytes
+        flops *= 3
     else:
         moved = (2.0 if bf16 else 4.0) * (m * d + n * d) + out_bytes
-    t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+    t_ops = flops / (PEAK_BF16_FLOPS if bf16 or int8 else PEAK_F32_FLOPS)
     t_bytes = moved / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -514,41 +526,45 @@ def above_entries(torch, out):
     return s[order], rr[order].long(), cc[order].long()
 
 
-def int_floors(torch, m, d, dev):
+def int_floors(torch, m, d, dev, sigma=4.0):
     """Per-row floors over integer scores (randint(-3, 4) rows: sigma 4
-    sqrt(D)): 4 sigma, -inf on every 97th row, +inf on every 89th from the
-    1st."""
-    floor = torch.full((m,), 16.0 * math.sqrt(d), device=dev)
+    sqrt(D); int8_int_queries against int8_rows' integer codes at scale 1:
+    sigma 146.6 sqrt(D)): 4 sigma, -inf on every 97th row, +inf on every
+    89th from the 1st."""
+    floor = torch.full((m,), 4.0 * sigma * math.sqrt(d), device=dev)
     floor[::97] = float("-inf")
     floor[1::89] = float("inf")
     return floor
 
 
-def compare_scores_above(torch, kernels, q, r, n_valid, floor, kind, capacity=None):
-    """scores_above.bf16 with ``capacity`` against its plain version,
-    each entry once. Integers: the same entries, bit for bit. Floats: the
-    same entries as nonzero(scores.bf16 >= floor), each score the dense
-    kernel's at its (row, col) bit for bit; against the plain version,
-    every score within BF16_TC_ATOL of the plain score at its (row, col),
-    every plain entry >= floor + that tolerance emitted and every emitted
-    one's plain score >= floor - it. Returns the largest error against the
-    plain scores."""
+def compare_scores_above(torch, kernels, q, r, n_valid, floor, kind, capacity=None,
+                         **kw):
+    """scores_above.bf16 (scores_above.int8: int8 codes r with their
+    ``scale`` in ``kw``) with ``capacity`` against its plain version, each
+    entry once. Integers: the same entries, bit for bit. Floats: the same
+    entries as nonzero(scores >= floor), each score the dense kernel's
+    (scores.bf16, scores.int8) at its (row, col) bit for bit; against the
+    plain version, every score within BF16_TC_ATOL of the plain score at
+    its (row, col), every plain entry >= floor + that tolerance emitted and
+    every emitted one's plain score >= floor - it. Returns the largest
+    error against the plain scores."""
     got = above_entries(torch, kernels.scores_above(q, r, n_valid, floor,
-                                                    capacity=capacity))
+                                                    capacity=capacity, **kw))
     shape = f"[{q.shape[0]}x{n_valid}x{q.shape[1]}]"
     if kind == "int":
-        want = above_entries(torch, kernels.scores_above_plain(q, r, n_valid, floor))
+        want = above_entries(torch, kernels.scores_above_plain(q, r, n_valid, floor,
+                                                               **kw))
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
               f"scores_above int {shape}: differs from the plain version")
         return 0.0
     s, rr, cc = got
-    dense = kernels.scores(q, r, n_valid)
+    dense = kernels.scores(q, r, n_valid, **kw)
     wr, wc = torch.nonzero(dense >= floor[:, None], as_tuple=True)
     check(torch.equal(rr, wr) and torch.equal(cc, wc)
           and torch.equal(s.view(torch.int32), dense[rr, cc].view(torch.int32)),
-          f"scores_above float {shape}: differs from nonzero(scores.bf16 >= floor)")
+          f"scores_above float {shape}: differs from nonzero(scores >= floor)")
     del dense, wr, wc
-    plain = kernels.scores_plain(q, r, n_valid)
+    plain = kernels.scores_plain(q, r, n_valid, **kw)
     err = float((s - plain[rr, cc]).abs().max()) if s.numel() else 0.0
     tol = BF16_TC_ATOL
     emitted = torch.zeros(plain.shape, dtype=torch.bool, device=q.device)
@@ -563,26 +579,30 @@ def compare_scores_above(torch, kernels, q, r, n_valid, floor, kind, capacity=No
     return err
 
 
-def scores_above_small(torch, kernels, q, r, n_valid, kind):
-    """scores_above.bf16 at a small shape: on the first 133 rows (no
+def scores_above_small(torch, kernels, q, r, n_valid, kind, **kw):
+    """scores_above.bf16 (scores_above.int8 over codes r with their
+    ``scale`` in ``kw``) at a small shape: on the first 133 rows (no
     multiple of 128) with mixed floors (int_floors; on floats a score of
     each row, so ties sit on the floor), against its plain version; with
     capacity 1 it launches twice and returns the same set."""
     q = q[:133]
+    key = SCORES_ABOVE_INT8 if kw else SCORES_ABOVE
     if kind == "int":
-        floor = int_floors(torch, q.shape[0], q.shape[1], q.device)
+        floor = int_floors(torch, q.shape[0], q.shape[1], q.device,
+                           sigma=146.6 if kw else 4.0)
     else:
-        dense = kernels.scores(q, r, n_valid)
+        dense = kernels.scores(q, r, n_valid, **kw)
         floor = torch.sort(dense, dim=1, descending=True).values[:, 40].contiguous()
         floor[::17] = float("-inf")
         del dense
-    err = compare_scores_above(torch, kernels, q, r, n_valid, floor, kind)
-    full = above_entries(torch, kernels.scores_above(q, r, n_valid, floor))
-    before = kernels.launches[SCORES_ABOVE]
+    err = compare_scores_above(torch, kernels, q, r, n_valid, floor, kind, **kw)
+    full = above_entries(torch, kernels.scores_above(q, r, n_valid, floor, **kw))
+    before = kernels.launches[key]
     exact = above_entries(torch, kernels.scores_above(q, r, n_valid, floor,
-                                                      capacity=full[0].numel()))
-    again = above_entries(torch, kernels.scores_above(q, r, n_valid, floor, capacity=1))
-    check(full[0].numel() > 1 and kernels.launches[SCORES_ABOVE] - before == 3
+                                                      capacity=full[0].numel(), **kw))
+    again = above_entries(torch, kernels.scores_above(q, r, n_valid, floor, capacity=1,
+                                                      **kw))
+    check(full[0].numel() > 1 and kernels.launches[key] - before == 3
           and all(torch.equal(a, b) and torch.equal(a, c)
                   for a, b, c in zip(full, exact, again)),
           f"scores_above {kind}: the exact capacity took other than one launch, or "
@@ -940,49 +960,78 @@ def int8_int_queries(torch, m, d, seed, dev):
     return torch.randint(-3, 4, (m, d), generator=g, device=dev).float()
 
 
+def plane_split(torch, plane):
+    """A stand-in for kernels.split_bf16x3 on integer rows in [-3, 3]
+    (int8_int_queries): the row in one plane (1 mid, 2 lo; 0 hi is the true
+    split's (q, 0, 0)) and zeros in the other two, or (plane 3) three
+    nonzero integer parts, one a plane, that sum to it. Exact scores then
+    prove that a kernel loads and sums every plane: on floats the mid and
+    lo planes' share of a score lies below every tolerance."""
+    def split(x):
+        check(torch.equal(x, x.round()) and float(x.abs().max()) <= 3,
+              "plane_split takes integer rows in [-3, 3]")
+        terms = torch.zeros((3,) + tuple(x.shape), dtype=torch.bfloat16, device=x.device)
+        if plane < 3:
+            terms[plane] = x
+        else:
+            a = x.clamp(-1, 1)
+            b = (x - a).clamp(-1, 1)
+            terms[0], terms[1], terms[2] = a, b, x - a - b
+            check(all(bool(t.any()) for t in terms), "plane_split: an empty part")
+        return terms
+    return split
+
+
 def unit_scale_identity(torch, kernels, name, args, label):
-    """An int8 kernel on a path's codes with every scale 1 against its f32
-    kernel on the widened codes, bit for bit (the same fmaf chain)."""
-    q, codes = args[0], args[1]
+    """An int8 kernel on a path's codes with every scale 1 and the queries
+    rounded to bf16 against its bf16 kernel on the widened codes, bit for
+    bit: the split of a bf16-exact row is (q, 0, 0), so the mid and lo
+    passes add exact zeros and the hi pass is the bf16 product."""
+    qb = args[0].to(torch.bfloat16)
+    q, codes = qb.float(), args[1]
     d = q.shape[1]
     kw = {"scale": torch.ones(codes.shape[0], device=codes.device)}
-    wide = codes[:, :d].float().contiguous()
+    wide = codes[:, :d].to(torch.bfloat16).contiguous()
     if name == "row_max":
         n_valid = int(args[2])
-        a, b = kernels.row_max(q, codes, n_valid, **kw), kernels.row_max(q, wide, n_valid)
+        a, b = kernels.row_max(q, codes, n_valid, **kw), kernels.row_max(qb, wide, n_valid)
     elif name == "count_above":
         tau, n_valid = float(args[2]), int(args[3])
         a = kernels.count_above(q, codes, tau, n_valid, **kw)
-        b = kernels.count_above(q, wide, tau, n_valid)
+        b = kernels.count_above(qb, wide, tau, n_valid)
     elif name == "fused_topk":
         n_valid, kappa = int(args[2]), int(args[3])
         a = torch.cat(kernels.fused_topk(q, codes, n_valid, kappa, **kw), 1)
-        b = torch.cat(kernels.fused_topk(q, wide, n_valid, kappa), 1)
+        b = torch.cat(kernels.fused_topk(qb, wide, n_valid, kappa), 1)
         a, b = a.view(torch.int32), b.view(torch.int32)
     elif name == "pool_writer":
         n_valid = int(args[2])
         (av, ai), (bv, bi) = (kernels.pool_writer(q, codes, n_valid, **kw),
-                              kernels.pool_writer(q, wide, n_valid))
-        finite = torch.isfinite(bv)
-        a = torch.cat([av.view(torch.int32).reshape(-1), ai[finite]])
-        b = torch.cat([bv.view(torch.int32).reshape(-1), bi[finite]])
-    else:  # scores: the f32 kernel's scores are its pool's; held by pool_identity
+                              kernels.pool_writer(qb, wide, n_valid))
+        a = torch.cat([av.view(torch.int32).reshape(-1), ai.reshape(-1)])
+        b = torch.cat([bv.view(torch.int32).reshape(-1), bi.reshape(-1)])
+    elif name == "scores":
+        n_valid = int(args[2])
+        a, b = kernels.scores(q, codes, n_valid, **kw), kernels.scores(qb, wide, n_valid)
+    else:  # scores_above: its entries are scores' (compare_scores_above)
         return
     check(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
                       b.view(torch.int32) if b.dtype == torch.float32 else b),
-          f"{label}: {name}.int8 with unit scales differs from the f32 kernel on "
-          "the widened codes")
-    log(f"phase 2: {label}: {name}.int8 with unit scales == the f32 {name} on "
-        f"the widened codes, bit for bit [{q.shape[0]} x {codes.shape[0]} x {d}]")
+          f"{label}: {name}.int8 with unit scales and bf16-exact queries differs "
+          f"from {name}.bf16 on the widened codes")
+    log(f"phase 2: {label}: {name}.int8 with unit scales and bf16-exact queries == "
+        f"{name}.bf16 on the widened codes, bit for bit [{q.shape[0]} x "
+        f"{codes.shape[0]} x {d}]")
 
 
 def phase_kernels_int8_small(torch, kernels, dev):
     """The int8 variants at small ragged shapes, D in {511, 512, 1025}:
     exact against their plain versions on integer queries and power-of-two
-    scales; on quantized unit rows within FLOAT_ATOL of their plain
-    versions, bit for bit against each other (pool_identity) and, with
-    unit scales, against their f32 kernels. Returns the largest float
-    error."""
+    scales, also with the queries' split replaced by plane_split's (each
+    plane alone, then all three); on quantized unit rows within FLOAT_ATOL of their plain
+    versions, bit for bit against each other (pool_identity,
+    scores_above_small) and, with unit scales and bf16-exact queries,
+    against their bf16 kernels. Returns the largest float error."""
     err = 0.0
     m, n, n_valid = 150, 5120, 4990
     for d in (511, 512, 1025):
@@ -997,67 +1046,90 @@ def phase_kernels_int8_small(torch, kernels, dev):
                 q, _ = make_inputs(torch, "float", m, 1, d, 31 + d, dev)
             kw = {"scale": scale}
             if kind == "int":
-                compare_row_max(torch, kernels, q, codes, n_valid, "int", **kw)
-                for tau in (40.0, float("-inf")):
-                    compare_count_above(torch, kernels, q, codes, tau, n_valid, "int", **kw)
-                compare_pool(torch, kernels, q, codes, n_valid, "int", **kw)
-                for kappa in (7, 32, 300):
-                    compare_topk(torch, kernels, q, codes, n_valid, kappa, "int", **kw)
-                compare_scores(torch, kernels, q, codes, n_valid, "int", **kw)
+                split = kernels.split_bf16x3
+                for plane in (None, 1, 2, 3):
+                    if plane is not None:
+                        kernels.split_bf16x3 = plane_split(torch, plane)
+                    try:
+                        compare_row_max(torch, kernels, q, codes, n_valid, "int", **kw)
+                        for tau in (40.0, float("-inf")):
+                            compare_count_above(torch, kernels, q, codes, tau, n_valid,
+                                                "int", **kw)
+                        compare_pool(torch, kernels, q, codes, n_valid, "int", **kw)
+                        for kappa in (7, 32, 300):
+                            compare_topk(torch, kernels, q, codes, n_valid, kappa, "int",
+                                         **kw)
+                        compare_scores(torch, kernels, q, codes, n_valid, "int", **kw)
+                        scores_above_small(torch, kernels, q, codes, n_valid, "int", **kw)
+                    finally:
+                        kernels.split_bf16x3 = split
+                log(f"phase 2: {label}: the six int8 kernels exact on integer queries "
+                    "split as (q, 0, 0), as (0, q, 0), as (0, 0, q) and as three "
+                    "nonzero integer parts: every query plane is loaded and summed")
                 continue
             err = max(err, compare_row_max(torch, kernels, q, codes, n_valid, "float", **kw),
                       compare_pool(torch, kernels, q, codes, n_valid, "float",
                                    check_ids_dense=True, **kw),
-                      compare_scores(torch, kernels, q, codes, n_valid, "float", **kw))
+                      compare_scores(torch, kernels, q, codes, n_valid, "float", **kw),
+                      scores_above_small(torch, kernels, q, codes, n_valid, "float", **kw))
             compare_topk(torch, kernels, q, codes, n_valid, 32, "float", **kw)
             pool_identity(torch, kernels, q, codes, n_valid, label, **kw)
             for name, args in (("row_max", (q, codes, n_valid)),
                                ("count_above", (q, codes, 0.3, n_valid)),
                                ("fused_topk", (q, codes, n_valid, 32)),
-                               ("pool_writer", (q, codes, n_valid))):
+                               ("pool_writer", (q, codes, n_valid)),
+                               ("scores", (q, codes, n_valid))):
                 unit_scale_identity(torch, kernels, name, args, label)
     log("phase 2: int8 variants at small shapes: exact on integers; on floats "
         f"within {err} of their plain versions (tolerance {FLOAT_ATOL}), bit for "
-        "bit against each other and, with unit scales, against the f32 kernels, "
-        "at D = 511, 512, 1025")
+        "bit against each other (scores_above.int8: the entries of "
+        "nonzero(scores.int8 >= floor), each once; capacity 1 launches again for "
+        "the same set) and, with unit scales and bf16-exact queries, against the "
+        "bf16 kernels, at D = 511, 512, 1025")
     return err
 
 
-def dense_route(torch, kernels, q, r, n_valid, floor):
-    """The bf16 re-search before scores_above.bf16: dense scores.bf16 in
-    chunks of PLAIN_CHUNK_ELEMENTS scores (whole 128-row items), then
-    ``>= floor``, ``nonzero`` and the gather, chunk by chunk."""
+def dense_route(torch, kernels, q, r, n_valid, floor, **kw):
+    """The re-search before scores_above.bf16 (.int8): dense scores.bf16
+    (scores.int8) in chunks of PLAIN_CHUNK_ELEMENTS scores (whole 128-row
+    items), then ``>= floor``, ``nonzero`` and the gather, chunk by chunk."""
     budget = kernels.PLAIN_CHUNK_ELEMENTS // n_valid
     step = budget - budget % kernels.REDUCE_TILE if budget >= kernels.REDUCE_TILE else budget
     parts = []
     for s0 in range(0, q.shape[0], max(step, 1)):
-        sc = kernels.scores(q[s0:s0 + step], r, n_valid)
+        sc = kernels.scores(q[s0:s0 + step], r, n_valid, **kw)
         rr, cc = torch.nonzero(sc >= floor[s0:s0 + step, None], as_tuple=True)
         parts.append((sc[rr, cc], rr + s0, cc))
     return parts
 
 
-def scores_above_kernel_ms(torch, kernels, q, r, n_valid, floor, capacity):
-    """Milliseconds of scores_above.bf16's kernel alone: back-to-back
-    launches into one preallocated capacity that holds every entry, with
-    no counter read (the wrapper's one sync left out). Launched through
-    the library, so they count nowhere."""
+def scores_above_kernel_ms(torch, kernels, q, r, n_valid, floor, capacity, scale=None):
+    """Milliseconds of scores_above.bf16's (over int8 codes with their
+    ``scale``: scores_above.int8's) kernel alone: back-to-back launches
+    into one preallocated capacity that holds every entry, with no counter
+    read (the wrapper's one sync left out; the int8 queries split once,
+    outside). Launched through the library, so they count nowhere."""
     from vsc2022_torch.ops import _build
 
-    q, r = kernels.pad_columns(q), kernels.pad_columns(r)
     m = q.shape[0]
-    grid = kernels.wgmma_grid(m, n_valid, kernels._wgmma_slots(q, "scores_above_bf16"))
+    if scale is None:
+        q, r = kernels.pad_columns(q), kernels.pad_columns(r)
+        cname, operands = "scores_above_bf16", (q, r)
+    else:
+        terms = kernels.split_bf16x3(kernels.pad_columns(q, kernels.I8_ROW_ALIGN))
+        cname, operands = "scores_above_int8", (terms, r, scale)
+    grid = kernels.wgmma_grid(m, n_valid, kernels._wgmma_slots(q, cname))
     out = [torch.empty(max(capacity, 1), dtype=t, device=q.device)
            for t in (torch.float32, torch.int32, torch.int32)]
     count = torch.empty(1, dtype=torch.int64, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
 
     def launch():
-        rc = _build.library().vsc_scores_above_bf16(
-            q.device.index, q.data_ptr(), r.data_ptr(), floor.data_ptr(), m, r.shape[0],
-            q.shape[1], n_valid, grid, capacity, *(t.data_ptr() for t in out),
-            count.data_ptr(), stream)
-        check(rc == 0, f"vsc_scores_above_bf16 failed to launch ({rc})")
+        rc = getattr(_build.library(), f"vsc_{cname}")(
+            q.device.index, *(t.data_ptr() for t in operands), floor.data_ptr(), m,
+            r.shape[0], r.shape[1], n_valid, grid, capacity,
+            *(t.data_ptr() for t in out), count.data_ptr(), stream)
+        check(rc == 0, f"vsc_{cname} failed to launch ({rc})")
 
     return cuda_ms(torch, launch, 5)
 
@@ -1075,45 +1147,74 @@ def peak_bytes(torch, fn) -> int:
 
 
 def scores_above_records(torch, kernels, dev, args, path):
-    """scores_above.bf16 on the inputs a bf16 path's re-search gave it
-    (q, refs, n_valid, floor, capacity): exact against its plain version
-    on integer inputs of the same shape (int_floors), and on the path's
-    inputs held against dense scores.bf16 bit for bit and its plain
-    version within BF16_TC_ATOL (compare_scores_above). Timed with the
-    path's capacity beside its plain version, the library product
-    (``torch.mm``, f32 out: the same scores, ``library_ms``), the library
-    route to the same entries (the product, ``>= floor``, ``nonzero``,
-    the gather) and the dense route it replaced (``dense_route``); where
-    the re-search took more than 512 rows, also on the first 512 (the
-    dense route's first chunk at serving). Bound: operations against
-    bytes (operands once, the floor, 12 bytes an emitted entry). Then
-    scores.bf16's own record on the same operands (phase_kernels_main).
-    Returns {key: record}."""
+    """scores_above.bf16 (scores_above.int8) on the inputs a path's
+    re-search gave it (q, refs, n_valid, floor, capacity[, scale]): exact
+    against its plain version on integer inputs of the same shape
+    (int_floors), and on the path's inputs held against dense scores.bf16
+    (scores.int8) bit for bit and its plain version within BF16_TC_ATOL
+    (compare_scores_above). Timed with the path's capacity beside its
+    plain version, the library product (bf16: ``torch.mm`` with f32 out;
+    int8: cuBLAS f32 over the widened codes, times the scales: the same
+    scores, ``library_ms``), the library route to the same entries (the
+    product, ``>= floor``, ``nonzero``, the gather) and the dense route it
+    replaced (``dense_route``); where the re-search took more than 512
+    rows, also on the first 512 (the dense route's first chunk at
+    serving). Bound: operations against bytes (operands once, the floor,
+    12 bytes an emitted entry). Then the dense kernel's own record on the
+    same operands (phase_kernels_main). Returns {key: record}."""
     q, r, n_valid, floor, capacity = args[0], args[1], int(args[2]), args[3], args[4]
+    int8 = r.dtype == torch.int8
+    kw = {"scale": args[5]} if int8 else {}
+    key = SCORES_ABOVE_INT8 if int8 else SCORES_ABOVE
     (m, d), n = q.shape, r.shape[0]
-    qi, ri = make_inputs(torch, "int", m, n, d, seed=3, dev=dev)
-    compare_scores_above(torch, kernels, qi.bfloat16(), ri.bfloat16(), n_valid,
-                         int_floors(torch, m, d, dev), "int")
+    if int8:
+        ri, sci = int8_rows(torch, "int", n, d, 3, dev)
+        qi, kwi = int8_int_queries(torch, m, d, 3, dev), {"scale": sci}
+        compare_scores_above(torch, kernels, qi, ri, n_valid,
+                             int_floors(torch, m, d, dev, sigma=146.6), "int", **kwi)
+        del sci, kwi
+    else:
+        qi, ri = make_inputs(torch, "int", m, n, d, seed=3, dev=dev)
+        compare_scores_above(torch, kernels, qi.bfloat16(), ri.bfloat16(), n_valid,
+                             int_floors(torch, m, d, dev), "int")
     del qi, ri
     torch.cuda.empty_cache()
-    err = compare_scores_above(torch, kernels, q, r, n_valid, floor, "float", capacity)
+    err = compare_scores_above(torch, kernels, q, r, n_valid, floor, "float", capacity,
+                               **kw)
     torch.cuda.empty_cache()
-    entries = kernels.scores_above(q, r, n_valid, floor, capacity=capacity)[0].numel()
+    entries = kernels.scores_above(q, r, n_valid, floor, capacity=capacity, **kw)[0].numel()
     ms = cuda_ms(torch, lambda: kernels.scores_above(q, r, n_valid, floor,
-                                                     capacity=capacity), 3)
+                                                     capacity=capacity, **kw), 3)
     kernel_ms = scores_above_kernel_ms(torch, kernels, q, r, n_valid, floor,
-                                       max(capacity, entries))
-    plain_ms = cuda_ms(torch, lambda: kernels.scores_above_plain(q, r, n_valid, floor), 1)
+                                       max(capacity, entries), kw.get("scale"))
+    plain_ms = cuda_ms(torch, lambda: kernels.scores_above_plain(q, r, n_valid, floor,
+                                                                 **kw), 1)
     torch.cuda.empty_cache()
-    library_ms, route_ms = scores_library_f32(torch, q, r, n_valid, floor)
+    if int8:
+        sc = kw["scale"]
+
+        def product():
+            return torch.matmul(q, r[:n_valid, :d].float().T) * sc[:n_valid]
+
+        def lib_route():
+            s_ = product()
+            rr, cc = torch.nonzero(s_ >= floor[:, None], as_tuple=True)
+            return s_[rr, cc], rr, cc
+
+        library_ms, route_ms = cuda_ms(torch, product, 1), cuda_ms(torch, lib_route, 1)
+    else:
+        library_ms, route_ms = scores_library_f32(torch, q, r, n_valid, floor)
     torch.cuda.empty_cache()
-    dense_ms = cuda_ms(torch, lambda: dense_route(torch, kernels, q, r, n_valid, floor), 1)
+    dense_ms = cuda_ms(torch, lambda: dense_route(torch, kernels, q, r, n_valid, floor,
+                                                  **kw), 1)
     torch.cuda.empty_cache()
     peak = peak_bytes(torch, lambda: kernels.scores_above(q, r, n_valid, floor,
-                                                         capacity=capacity))
-    dense_peak = peak_bytes(torch, lambda: dense_route(torch, kernels, q, r, n_valid, floor))
+                                                         capacity=capacity, **kw))
+    dense_peak = peak_bytes(torch, lambda: dense_route(torch, kernels, q, r, n_valid,
+                                                       floor, **kw))
     torch.cuda.empty_cache()
-    bound_ms, bound_by = bound(m, n_valid, n, d, 4 * m + 12 * entries, bf16=True)
+    bound_ms, bound_by = bound(m, n_valid, n, d, 4 * m + 12 * entries, bf16=not int8,
+                               int8=int8)
     rec = {"shape": [m, n_valid, d], "max_abs_err": err, "ms": ms,
            "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "library_route_ms": route_ms,
@@ -1123,27 +1224,34 @@ def scores_above_records(torch, kernels, dev, args, path):
     extra = ""
     if m > 512:
         h = 512
-        h_cap = kernels.scores_above(q[:h], r, n_valid, floor[:h])[0].numel()
+        h_cap = kernels.scores_above(q[:h], r, n_valid, floor[:h], **kw)[0].numel()
+        h_lib = (cuda_ms(torch, lambda: torch.matmul(q[:h], r[:n_valid, :d].float().T)
+                         * kw["scale"][:n_valid], 1) if int8
+                 else scores_library_f32(torch, q[:h], r, n_valid))
         rec["head"] = {
             "rows": h,
             "ms": cuda_ms(torch, lambda: kernels.scores_above(
-                q[:h], r, n_valid, floor[:h], capacity=h_cap), 3),
-            "library_ms": scores_library_f32(torch, q[:h], r, n_valid),
-            "dense_ms": cuda_ms(torch, lambda: kernels.scores(q[:h], r, n_valid), 3),
-            "bound_ms": bound(h, n_valid, n, d, 4 * h + 12 * h_cap, bf16=True)[0],
+                q[:h], r, n_valid, floor[:h], capacity=h_cap, **kw), 3),
+            "library_ms": h_lib,
+            "dense_ms": cuda_ms(torch, lambda: kernels.scores(q[:h], r, n_valid, **kw), 3),
+            "bound_ms": bound(h, n_valid, n, d, 4 * h + 12 * h_cap, bf16=not int8,
+                              int8=int8)[0],
         }
         extra = f"; the first {h} rows: {json.dumps(rec['head'])}"
         torch.cuda.empty_cache()
-    log(f"phase 2: {SCORES_ABOVE} on the {path} path's inputs [{m} x {n_valid} x {d}]: "
+    log(f"phase 2: {key} on the {path} path's inputs [{m} x {n_valid} x {d}]: "
         f"{entries} entries (capacity {capacity}) kernel_ms={ms:.3f} (the wrapper, "
         f"its sync included; the kernel alone {kernel_ms:.3f}) "
-        f"plain_ms={plain_ms:.3f} library_ms={library_ms} (torch.mm, f32 out) "
-        f"library_route_ms={route_ms} dense_route_ms={dense_ms:.3f} (scores.bf16 "
-        f"chunks + nonzero) bound_ms={bound_ms:.3f} ({bound_by}) max_abs_err={err}; "
-        f"peak device memory {peak} bytes (the dense route {dense_peak})"
-        + extra)
-    records = {SCORES_ABOVE: rec}
-    records.update(phase_kernels_main(torch, kernels, dev, {"scores": (q, r, n_valid)}, path))
+        f"plain_ms={plain_ms:.3f} library_ms={library_ms} ("
+        + ("cuBLAS f32 over the widened codes x scales" if int8 else "torch.mm, f32 out")
+        + f") library_route_ms={route_ms} dense_route_ms={dense_ms:.3f} (scores"
+        f"{INT8 if int8 else BF16} chunks + nonzero) bound_ms={bound_ms:.3f} "
+        f"({bound_by}) max_abs_err={err}; peak device memory {peak} bytes (the dense "
+        f"route {dense_peak})" + extra)
+    records = {key: rec}
+    records.update(phase_kernels_main(torch, kernels, dev,
+                                      {"scores": (q, r, n_valid) + tuple(kw.values())},
+                                      path))
     return records
 
 
@@ -1155,9 +1263,13 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
     (stream_pair_identity); timings and bounds from those inputs. bf16
     inputs run the bf16 variants, each timed beside its f32 kernel on the
     widened inputs (f32_ms); their library call is a cuBLAS bf16 product.
-    Their refs may carry the searcher's zero pad columns; their timed calls
-    pad the queries (no copy when the path padded them). Returns {key:
-    record}, keyed as the launch counts."""
+    int8 inputs (codes with their scale) run the int8 variants, timed
+    beside the f32 kernel on the widened codes (f32_ms) and the bf16 kernel
+    on the widened codes and the queries rounded to bf16 (bf16_ms: one
+    pass where they take three); their library call is cuBLAS f32 over the
+    widened codes, times the scales. Their refs may carry the searcher's
+    zero pad columns; their timed calls pad the queries (no copy when the
+    path padded them). Returns {key: record}, keyed as the launch counts."""
     records = {}
     for name, args in captured.items():
         if name == "chamfer":
@@ -1268,6 +1380,13 @@ def phase_kernels_main(torch, kernels, dev, captured, path="sscd"):
             extra = (f" f32_ms={records[key]['f32_ms']:.3f} (the f32 kernel on the "
                      "widened inputs)")
             del qf, rf
+            torch.cuda.empty_cache()
+        if int8:  # one bf16 pass where the int8 kernel takes three
+            qb, rb = q.to(torch.bfloat16), r[:, :dd].to(torch.bfloat16).contiguous()
+            records[key]["bf16_ms"] = cuda_ms(torch, lambda: call(qb, rb), 3)
+            extra += (f" bf16_ms={records[key]['bf16_ms']:.3f} (the bf16 kernel on the "
+                      "widened codes, the queries rounded)")
+            del qb, rb
             torch.cuda.empty_cache()
         log(f"phase 2: {key} on the {path} path's inputs [{m} x {n_valid} x {dd}] "
             f"kernel_ms={kernel_ms:.3f} plain_ms={plain_ms:.3f} "
@@ -1546,38 +1665,23 @@ def capture_dns_batches():
         dns_baseline._gathered_dns_sims = original
 
 
-def log_research_chunks(kernels, phase, label, stats, args, launches, bf16=False):
+def log_research_chunks(phase, label, stats, args, launches, key):
     """The re-search's rows per launch, logged before phase 2 times its
     kernel on its first call (``args``). ``stats``: the last_stats of the
     path's searches in call order; ``launches``: the path's launches of
-    that kernel. Over a bf16 corpus (``bf16``) each re-search is one
-    scores_above.bf16 launch over all its rows, so the first launch takes
-    the first search's re-searched rows and the launches are the searches
-    that re-searched. Over an int8 corpus scores.int8 takes chunks of the
-    score budget's rows (PLAIN_CHUNK_ELEMENTS // corpus rows) rounded down
-    to whole 128-row work items where the budget holds 128 or more, so the
-    first launch takes that chunk or every re-searched row of its search,
-    whichever is fewer."""
+    ``key``, the scores_above kernel of the corpus's dtype (bf16 or int8).
+    Each re-search is one launch over all its rows, so the first launch
+    takes the first search's re-searched rows and the launches are the
+    searches that re-searched."""
     rows = [st["corpus_rows"] for st in stats if st.get("corpus_rows")]
     check(args is not None and bool(rows), f"{label}: no row was re-searched")
     n, first = int(args[2]), args[0].shape[0]
-    if bf16:
-        check(first == rows[0] and launches == len(rows),
-              f"{label}: the first re-search launch took {first} of {rows[0]} rows; "
-              f"{launches} launches for {len(rows)} re-searches")
-        log(f"phase {phase}: {label}: one {SCORES_ABOVE} launch per re-search "
-            f"({launches}), the first over all its {first} rows x {n} corpus rows "
-            f"(capacity {args[4]}); {sum(rows)} rows re-searched")
-        return
-    budget = kernels.PLAIN_CHUNK_ELEMENTS // n
-    tile = kernels.REDUCE_TILE
-    chunk = budget - budget % tile if budget >= tile else budget
-    check(first == min(rows[0], chunk),
-          f"{label}: the first re-search launch took {first} rows, not "
-          f"min({rows[0]}, {chunk})")
-    log(f"phase {phase}: {label}: the re-search's rows per launch: {first} (chunk "
-        f"{chunk} rows: the budget's {budget} rows over {n} corpus rows, in whole "
-        f"{tile}-row items); {sum(rows)} rows re-searched in {launches} launches")
+    check(first == rows[0] and launches == len(rows),
+          f"{label}: the first re-search launch took {first} of {rows[0]} rows; "
+          f"{launches} launches for {len(rows)} re-searches")
+    log(f"phase {phase}: {label}: one {key} launch per re-search "
+        f"({launches}), the first over all its {first} rows x {n} corpus rows "
+        f"(capacity {args[4]}); {sum(rows)} rows re-searched")
 
 
 def phase_main_path(torch, np, kernels):
@@ -1671,8 +1775,8 @@ def phase_main_path_bf16(torch, np, kernels, paths, f32):
     log(f"phase 4b: global_topk last_stats: {json.dumps(stats)}; f32: "
         f"{json.dumps(f32['stats'])}")
     log(f"phase 4b: kernel launches on the bf16 path: {json.dumps(launches)}")
-    log_research_chunks(kernels, "4b", "sscd_baseline --bf16", stats,
-                        captured.get("scores_above"), launches[SCORES_ABOVE], bf16=True)
+    log_research_chunks("4b", "sscd_baseline --bf16", stats,
+                        captured.get("scores_above"), launches[SCORES_ABOVE], SCORES_ABOVE)
     check(launches["scores" + BF16] == 0, "the bf16 path launched the dense scores.bf16")
     log(f"phase 4b: candidate uAP {result['candidate_uap']:.4f}, segment AP "
         f"{result['segment_ap']:.4f}; f32: {f32['candidate_uap']:.4f}, "
@@ -1762,8 +1866,10 @@ def phase_main_path_int8(torch, np, kernels, paths, f32, bf16):
     log(f"phase 4c: global_topk last_stats: {json.dumps(stats)}; f32: "
         f"{json.dumps(f32['stats'])}")
     log(f"phase 4c: kernel launches on the int8 path: {json.dumps(launches)}")
-    log_research_chunks(kernels, "4c", "sscd_baseline --int8", stats,
-                        captured.get("scores"), launches["scores" + INT8])
+    log_research_chunks("4c", "sscd_baseline --int8", stats,
+                        captured.get("scores_above"), launches[SCORES_ABOVE_INT8],
+                        SCORES_ABOVE_INT8)
+    check(launches["scores" + INT8] == 0, "the int8 path launched the dense scores.int8")
     log(f"phase 4c: candidate uAP {result['candidate_uap']:.4f}, segment AP "
         f"{result['segment_ap']:.4f}; f32: {f32['candidate_uap']:.4f}, "
         f"{f32['segment_ap']:.4f}; bf16: {bf16['candidate_uap']:.4f}, "
@@ -2415,14 +2521,14 @@ def phase_serve(torch, np, kernels, dev, corpus, dtype="float32"):
     for stats in (stream_stats, pooled_stats):
         stats.pop("seconds", None)
         log(f"phase {phase}: (a) in-process global_topk last_stats: {json.dumps(stats)}")
-    research = "scores_above" if suffix == BF16 else "scores"
+    research = "scores_above"
     if suffix:
         for mode, st, cap, counts in (("stream", stream_stats, captured, stream_launches),
                                       ("pooled", pooled_stats, pooled_captured,
                                        pooled_launches)):
-            log_research_chunks(kernels, phase, f"(a) in process, {mode}", [st],
+            log_research_chunks(phase, f"(a) in process, {mode}", [st],
                                 cap.get(research), counts[research + suffix],
-                                bf16=suffix == BF16)
+                                research + suffix)
     log(f"phase {phase}: (a) in-process: stream {t_stream:.3f} s, pooled "
         f"{t_pooled:.3f} s, {len(cands)} pairs each, the same; server vs "
         f"in-process scores within {err}")
@@ -2438,8 +2544,8 @@ def phase_serve(torch, np, kernels, dev, corpus, dtype="float32"):
     check(quality["candidate_uap"] > 0.5, f"serving uAP {quality['candidate_uap']}")
     del index
     torch.cuda.empty_cache()
-    # The re-search (bf16: scores_above; int8: scores) on both collections'
-    # re-searched rows.
+    # The re-search (scores_above of the corpus's dtype) on both
+    # collections' re-searched rows.
     if suffix:
         check(research in captured and research in pooled_captured,
               f"the {tag} (a) search re-searched no row in one of its collections")
@@ -2522,14 +2628,14 @@ def dns_search(torch, np, kernels, args, k, server_launches, dtype):
     them (bf16: both rounded; int8: the corpus quantized, the queries f32),
     searched in both collection modes (the same arrays). The stream search
     must re-search as the server's did (its scores_above.bf16 or
-    scores.int8 launches). Returns the first inputs there of scores_above
-    (bf16) or of fused_topk, count_above and scores (int8: the DnS widths
+    scores_above.int8 launches). Returns the first inputs there of
+    scores_above (and, int8, of fused_topk and count_above: the DnS widths
     of the int8 kernels), the pad columns of the queries dropped (their
     timed calls pad them)."""
     from vsc2022_torch.ops.similarity import SimilaritySearcher
 
     tag, phase, _, _ = SERVE_DTYPES[dtype]
-    research = "scores" if dtype == "int8" else "scores_above"
+    research = "scores_above"
     key = research + (INT8 if dtype == "int8" else BF16)
     q, refs, n_valid = args[0], args[1], int(args[2])
     searcher = SimilaritySearcher(refs[:n_valid].cpu().numpy(), dtype=dtype,
@@ -2544,9 +2650,9 @@ def dns_search(torch, np, kernels, args, k, server_launches, dtype):
         if mode == "stream":
             stream_captured = captured
             if research in captured:
-                log_research_chunks(kernels, phase, f"DnS {tag} search in process, stream",
+                log_research_chunks(phase, f"DnS {tag} search in process, stream",
                                     [searcher.last_stats], captured[research],
-                                    launches["stream"].get(key, 0), bf16=dtype != "int8")
+                                    launches["stream"].get(key, 0), key)
     check(all(np.array_equal(a, b) for a, b in zip(out["stream"], out["pooled"])),
           f"DnS {tag}: stream and pooled global_topk differ")
     log(f"phase {phase}: DnS {tag} search in process [{q.shape[0]} x {n_valid} x "
@@ -2555,7 +2661,7 @@ def dns_search(torch, np, kernels, args, k, server_launches, dtype):
         f"{server_launches.get(key, 0)}")
     check(launches["stream"].get(key, 0) == server_launches.get(key, 0),
           f"DnS {tag}: the in-process stream search re-searched otherwise than the server")
-    names = ("fused_topk", "count_above", "scores") if dtype == "int8" else (research,)
+    names = ("fused_topk", "count_above", research) if dtype == "int8" else (research,)
     return {name: (stream_captured[name][0][:, :q.shape[1]].contiguous(),)
             + stream_captured[name][1:] for name in names if name in stream_captured}
 
@@ -2699,7 +2805,7 @@ def main() -> int:
         int8_launches, int8_captured, _ = phase_main_path_int8(
             torch, np, kernels, paths, sscd_f32, sscd_bf16)
         records.update(phase_kernels_main(torch, kernels, dev, int8_captured))
-        launches.update({k: int8_launches[k] for k in SSCD_INT8_KERNELS})
+        launches.update({k: int8_launches[k] for k in SSCD_INT8_KERNELS + ("scores" + INT8,)})
         del int8_captured
         torch.cuda.empty_cache()
         dns_launches, dns_captured, dns_batches = phase_dns_path(torch, np, kernels)
@@ -2796,7 +2902,7 @@ def main() -> int:
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "path": path_of.get(name, "sscd"),
         }
-        for key in ("path_total", "f32_ms", "library_bf16_out_ms", "path_function",
+        for key in ("path_total", "f32_ms", "bf16_ms", "library_bf16_out_ms", "path_function",
                     "kernel_only_ms", "library_route_ms", "dense_route_ms", "entries",
                     "capacity", "peak_bytes", "dense_route_peak_bytes", "head"):
             if key in rec:

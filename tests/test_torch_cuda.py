@@ -27,16 +27,21 @@ or above each row's floor on the same product: exact against its plain
 version on integers, and on floats each entry's score is scores.bf16's
 bit for bit and the set nonzero(scores.bf16 >= floor), each entry once,
 at any grid and when its capacity runs out (it launches again). So the
-pooled and streaming collections return the same pairs and scores. The int8 (SQ8) variants (row_max.int8,
-count_above.int8, pool_writer.int8, fused_topk.int8, scores.int8) take f32
-queries against int8 codes and per-row scales on the f32 chain over the
-widened codes: exact against their plain versions on integer queries and
-power-of-two scales, within 1e-5 on unit-norm floats, bit for bit their
-f32 kernels on codes.float() where every scale is 1, and bit for bit
-against each other; scores.int8, on reduce_gemm.cuh's product as the other
-three reduce kernels, also at the re-search's row chunks (row counts
-around a 128-row item, every column tail) and at any grid, writing
-nothing past its [M, n_valid] output. chamfer.bf16, the DnS chamfer at
+pooled and streaming collections return the same pairs and scores. The
+int8 (SQ8) variants (row_max.int8, count_above.int8, pool_writer.int8,
+fused_topk.int8, scores.int8, scores_above.int8) take f32 queries against
+int8 codes and per-row scales on the same tensor-core product, with the
+int8 corpus policy (the queries split into three exact bf16 terms, three
+passes over the codes widened in shared memory, the scale after the
+product): exact against their plain versions on integer queries and
+power-of-two scales, within BF16_TC_ATOL on unit-norm floats, bit for bit
+against each other (scores_above.int8's entries are nonzero(scores.int8 >=
+floor), each once, also on a permuted row subset, launching again when its
+capacity runs out), and, with every scale 1 and bf16-exact queries, bit
+for bit their bf16 kernels on the widened codes (the mid and lo passes add
+zeros); scores.int8 also at row counts around a 128-row tile, every column
+tail and any grid, writing nothing past its [M, n_valid] output.
+chamfer.bf16, the DnS chamfer at
 precision "default" (mma.sync on the tensor cores), is held against its
 plain version (the widened f32 chamfer) at frame counts on both sides of
 its 16 x 32 frame tiles: exact on integers, within BF16_TC_ATOL on
@@ -103,6 +108,7 @@ def test_kernels_match_plain(cuda_device, m, n, d, n_valid):
         "scores_above.bf16": 0,
         "chamfer.bf16": 0, "row_max.int8": 0, "count_above.int8": 0,
         "pool_writer.int8": 0, "fused_topk.int8": 0, "scores.int8": 0,
+        "scores_above.int8": 0,
     }
 
 
@@ -817,12 +823,12 @@ def test_stream_fused_topk_exact_at_every_kappa(cuda_device, kappa):
     q[:3] = 3.0
     _stream_pair_exact(q, r, r, 4900, (), (kappa,))
     if kappa <= kernels.WGMMA_SMEM_SETS_KAPPA_MAX:
-        got = kernels._fused_topk_bf16(q, r, 4900, kappa, smem_sets=False)
+        got = kernels._fused_topk_tc(q, r, 4900, kappa, smem_sets=False)
         want = kernels.fused_topk_plain(q, r, 4900, kappa)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     else:
         with pytest.raises(ValueError, match="shared memory"):
-            kernels._fused_topk_bf16(q, r, 4900, kappa, smem_sets=True)
+            kernels._fused_topk_tc(q, r, 4900, kappa, smem_sets=True)
 
 
 def test_stream_pair_all_equal_rows_tie_to_the_lower_column(cuda_device):
@@ -908,7 +914,7 @@ def test_stream_fused_topk_placements_agree(cuda_device, d, offset):
     for kappa in (5, 32):
         want = kernels.fused_topk(q, r, n_valid, kappa)
         for smem_sets in (False, True):
-            got = kernels._fused_topk_bf16(q, r, n_valid, kappa, smem_sets)
+            got = kernels._fused_topk_tc(q, r, n_valid, kappa, smem_sets)
             assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
@@ -1296,7 +1302,10 @@ def test_bf16_scores_above_takes_bf16_only(cuda_device):
 
 # ---- the int8 (SQ8) variants ----------------------------------------------------
 
-INT8_ATOL = 1e-5  # unit-norm floats: torch.matmul sums in another order
+# Unit-norm floats: the tensor cores sum the 3·D exact products of the
+# split queries in their own order, torch.matmul the f32 products in its
+# own: BF16_TC_ATOL.
+INT8_ATOL = BF16_TC_ATOL
 
 
 def _int8_case(device, m, n, d, seed, kind="int"):
@@ -1326,15 +1335,24 @@ def _int8_case(device, m, n, d, seed, kind="int"):
 
 
 @pytest.mark.parametrize("m", [1, 65, 300])
-@pytest.mark.parametrize("d", [1, 33, 511, 512, 1025])
+@pytest.mark.parametrize("d", [1, 33, 511, 512, 513, 1025])
 def test_int8_kernels_exact_on_integers(cuda_device, d, m):
     # Integer queries, codes and power-of-two scales: every score is exact,
-    # so all five variants equal their plain versions exactly, tie order
+    # so all six variants equal their plain versions exactly, tie order
     # included, at ragged M and N (the pool's N a multiple of 128).
     n = 2560 if d < 1025 else 1280
     q, codes, scale, n_valid = _int8_case(cuda_device, m, n, d, 190 + d + m)
-    n_valid -= 3  # ragged
     kernels.reset_launches()
+    _int8_kernels_exact(q, codes, scale, n_valid - 3, d + m)  # ragged n_valid
+    assert {k: v for k, v in kernels.launches.items() if v} == {
+        "row_max.int8": 1, "count_above.int8": 2, "pool_writer.int8": 1,
+        "fused_topk.int8": 3, "scores.int8": 1, "scores_above.int8": 1}
+
+
+def _int8_kernels_exact(q, codes, scale, n_valid, seed):
+    """All six int8 variants equal their plain versions exactly on integer
+    queries (every score exact), tie order included."""
+    n, d = codes.shape[0], q.shape[1]
     kw = {"scale": scale}
     assert torch.equal(kernels.row_max(q, codes, n_valid, **kw),
                        kernels.row_max_plain(q, codes, n_valid, **kw))
@@ -1353,39 +1371,87 @@ def test_int8_kernels_exact_on_integers(cuda_device, d, m):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(kernels.scores(q, codes, n_valid, **kw),
                        kernels.scores_plain(q, codes, n_valid, **kw))
-    assert {k: v for k, v in kernels.launches.items() if v} == {
-        "row_max.int8": 1, "count_above.int8": 2, "pool_writer.int8": 1,
-        "fused_topk.int8": 3, "scores.int8": 1}
+    floor = _row_floors(kernels.scores_plain(q, codes, n_valid, **kw), seed)
+    want = _entries(kernels.scores_above_plain(q, codes, n_valid, floor, **kw))
+    got = _entries(kernels.scores_above(q, codes, n_valid, floor,
+                                        capacity=want[0].numel(), **kw))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _plane_split(plane):
+    """A stand-in for kernels.split_bf16x3 on integer rows [M, D] in
+    [-3, 3]: the row in one plane (0 hi, 1 mid, 2 lo) and zeros in the
+    other two, or (plane 3) the row as three nonzero integer parts, one a
+    plane, that sum to it. The true split puts an integer row all in hi."""
+    def split(x):
+        assert torch.equal(x, x.round()) and x.abs().max() <= 3
+        terms = torch.zeros((3,) + tuple(x.shape), dtype=BF16, device=x.device)
+        if plane < 3:
+            terms[plane] = x
+        else:
+            a = x.clamp(-1, 1)
+            b = (x - a).clamp(-1, 1)
+            terms[0], terms[1], terms[2] = a, b, x - a - b
+        return terms
+    return split
+
+
+@pytest.mark.parametrize("plane", [0, 1, 2, 3])
+@pytest.mark.parametrize("d", [33, 512, 1025])
+def test_int8_kernels_load_and_sum_every_query_plane(cuda_device, monkeypatch, d, plane):
+    # The split of an integer query is (q, 0, 0), so the exact checks above
+    # feed the mid and lo passes zeros, and a kernel that skipped them or
+    # read the hi plane thrice would pass; on floats their share of a score
+    # is below every tolerance. Here each plane in turn carries the whole
+    # integer row (the other two zero), then all three carry parts of it:
+    # each of the six kernels must equal its plain version on the row,
+    # exactly, which it does only if it loads and sums every plane.
+    monkeypatch.setattr(kernels, "split_bf16x3", _plane_split(plane))
+    q, codes, scale, n_valid = _int8_case(cuda_device, 130, 2560, d, 240 + d)
+    if plane == 3:
+        assert all(t.any() for t in _plane_split(3)(q))
+    _int8_kernels_exact(q, codes, scale, n_valid - 3, d + plane)
 
 
 @pytest.mark.parametrize("d", [511, 512, 1025])
 def test_int8_kernels_with_unit_scales_are_the_f32_kernels(cuda_device, d):
-    # With every scale 1 each int8 variant is its f32 kernel on
-    # codes.float(), bit for bit, on float queries (the same fmaf chain).
+    # With every scale 1 and bf16-exact queries (the unit rows rounded to
+    # bf16), each int8 variant is its bf16 kernel on codes.bfloat16(), bit
+    # for bit: the split gives (q, 0, 0), the mid and lo passes add exact
+    # zeros, and the hi pass is the bf16 product. (Before the int8 kernels
+    # moved onto the tensor cores this held them to the f32 kernels on
+    # codes.float(), their product then.)
     q, codes, _, n_valid = _int8_case(cuda_device, 150, 3840, d, 200 + d, "float")
+    qb = q.to(BF16)
+    q = qb.float()
     ones = torch.ones(codes.shape[0], device=cuda_device)
-    wide = codes[:, :d].float().contiguous()
+    wide = codes[:, :d].to(BF16).contiguous()
     kw = {"scale": ones}
     same = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))  # noqa: E731
-    assert same(kernels.row_max(q, codes, n_valid, **kw), kernels.row_max(q, wide, n_valid))
+    assert same(kernels.row_max(q, codes, n_valid, **kw), kernels.row_max(qb, wide, n_valid))
     assert torch.equal(kernels.count_above(q, codes, 20.0, n_valid, **kw),
-                       kernels.count_above(q, wide, 20.0, n_valid))
+                       kernels.count_above(qb, wide, 20.0, n_valid))
     (pv, pi), (fv, fi) = (kernels.pool_writer(q, codes, n_valid, **kw),
-                          kernels.pool_writer(q, wide, n_valid))
-    finite = torch.isfinite(fv)
-    assert same(pv, fv) and torch.equal(pi[finite], fi[finite])
+                          kernels.pool_writer(qb, wide, n_valid))
+    assert same(pv, fv) and torch.equal(pi, fi)
     for a, b in zip(kernels.fused_topk(q, codes, n_valid, 32, **kw),
-                    kernels.fused_topk(q, wide, n_valid, 32)):
+                    kernels.fused_topk(qb, wide, n_valid, 32)):
+        assert torch.equal(a, b)
+    assert same(kernels.scores(q, codes, n_valid, **kw), kernels.scores(qb, wide, n_valid))
+    floor = _row_floors(kernels.scores(qb, wide, n_valid), d)
+    for a, b in zip(_entries(kernels.scores_above(q, codes, n_valid, floor, **kw)),
+                    _entries(kernels.scores_above(qb, wide, n_valid, floor))):
         assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("d", [511, 512, 1025])
 def test_int8_kernels_bit_identical_to_each_other(cuda_device, d):
-    # On floats the five int8 variants score alike: each segment's best 2
+    # On floats the six int8 variants score alike: each segment's best 2
     # of scores.int8 are the pool, the pool's best winner is row_max.int8,
     # its winners ordered are fused_topk.int8's, count_above.int8 counts
-    # scores.int8 >= tau, also on a permuted subset of the rows; all within
-    # INT8_ATOL of the plain versions.
+    # scores.int8 >= tau, and scores_above.int8 emits nonzero(scores.int8 >=
+    # floor) with its scores, also on a permuted subset of the rows; all
+    # within INT8_ATOL of the plain versions.
     q, codes, scale, n_valid = _int8_case(cuda_device, 260, 3840, d, 210 + d, "float")
     m, kw = q.shape[0], {"scale": scale}
     s = kernels.scores(q, codes, n_valid, **kw)
@@ -1413,13 +1479,20 @@ def test_int8_kernels_bit_identical_to_each_other(cuda_device, d):
     assert torch.equal(kernels.count_above(q[sub], codes, tau, n_valid, **kw), counts[sub])
     assert torch.equal(kernels.scores(q[sub], codes, n_valid, **kw).view(torch.int32),
                        s[sub].view(torch.int32))
+    floor = _row_floors(s, d)
+    for rows in (torch.arange(m, device=cuda_device), sub):
+        rr, cc = torch.nonzero(s[rows] >= floor[rows, None], as_tuple=True)
+        es, er, ec = _entries(kernels.scores_above(q[rows], codes, n_valid, floor[rows],
+                                                   **kw))
+        assert torch.equal(er, rr) and torch.equal(ec, cc)
+        assert torch.equal(es.view(torch.int32), s[rows][rr, cc].view(torch.int32))
     torch.testing.assert_close(best, kernels.row_max_plain(q, codes, n_valid, **kw),
                                rtol=0, atol=INT8_ATOL)
 
 
 @pytest.mark.parametrize("slots", [1, 7])
 def test_int8_reduce_kernels_any_grid(cuda_device, monkeypatch, slots):
-    # Few blocks: each block's range spans several row tiles.
+    # Few blocks: each block's range spans several query tiles and groups.
     monkeypatch.setattr(kernels, "_occupancy_slots", lambda t, name, *a: slots)
     q, codes, scale, n_valid = _int8_case(cuda_device, 300, 1408, 40, 220 + slots)
     kw = {"scale": scale}
@@ -1432,16 +1505,45 @@ def test_int8_reduce_kernels_any_grid(cuda_device, monkeypatch, slots):
         assert torch.equal(a, b)
     assert torch.equal(kernels.scores(q, codes, n_valid, **kw),
                        kernels.scores_plain(q, codes, n_valid, **kw))
+    pool = kernels.pool_writer(q, codes, n_valid, **kw)
+    want = kernels.pool_writer_plain(q, codes, n_valid, **kw)
+    finite = torch.isfinite(want[0])
+    assert torch.equal(pool[0], want[0]) and torch.equal(pool[1][finite], want[1][finite])
+    floor = torch.full((q.shape[0],), 30.0, device=cuda_device)
+    assert all(torch.equal(a, b) for a, b in zip(
+        _entries(kernels.scores_above(q, codes, n_valid, floor, **kw)),
+        _entries(kernels.scores_above_plain(q, codes, n_valid, floor, **kw))))
+
+
+@pytest.mark.parametrize("capacity", [0, 1, 1000])
+def test_int8_scores_above_relaunches_when_the_capacity_runs_out(cuda_device, capacity):
+    # As scores_above.bf16: past its capacity the kernel counts on, and the
+    # wrapper launches once more with exactly the total.
+    q, codes, scale, n_valid = _int8_case(cuda_device, 300, 1408, 64, 275)
+    kw = {"scale": scale}
+    floor = torch.full((300,), 20.0, device=cuda_device)
+    want = _entries(kernels.scores_above_plain(q, codes, n_valid, floor, **kw))
+    assert want[0].numel() > capacity
+    kernels.reset_launches()
+    got = _entries(kernels.scores_above(q, codes, n_valid, floor, capacity=capacity, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert kernels.launches["scores_above.int8"] == 2
+    kernels.reset_launches()
+    got = _entries(kernels.scores_above(q, codes, n_valid, floor,
+                                        capacity=want[0].numel(), **kw))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert kernels.launches["scores_above.int8"] == 1
 
 
 @pytest.mark.parametrize("n_valid", [1408, 1280, 1300, 100])
 @pytest.mark.parametrize("m", [1, 127, 128, 129, 134, 559])
 @pytest.mark.parametrize("d", [511, 1025])
 def test_int8_scores_at_the_research_chunks(cuda_device, d, m, n_valid):
-    # scores.int8 on reduce_gemm.cuh's 128 x 128 items: row counts around
-    # and inside an item (the re-search's chunks: 128 and 559 rows, 134 in
-    # earlier searchers), every column tail (n_valid = n, a multiple of 128
-    # below n, a partial item, under one item), codes 512 and 1040 wide.
+    # scores.int8 at row counts around and inside a 128-row query tile (the
+    # int8 re-search's chunks before it took scores_above.int8: 128 and 559
+    # rows, 134 in earlier searchers), every column tail (n_valid = n, a
+    # multiple of 128 below n, a partial 256-row corpus tile, under one),
+    # codes 512 and 1040 wide.
     # Exact on integers; on floats within INT8_ATOL of the plain version,
     # its row max row_max.int8's and its count >= tau count_above.int8's,
     # bit for bit.
@@ -1465,17 +1567,17 @@ def test_int8_scores_at_the_research_chunks(cuda_device, d, m, n_valid):
 
 
 def test_int8_scores_write_nothing_past_their_rows(cuda_device):
-    # The kernel's rows >= m inside a 128-row item, and columns >= n_valid
-    # inside a 128-column item, are never stored: a [m, n_valid] view at
-    # the start of a larger buffer leaves the rest untouched.
+    # The kernel's rows >= m inside a 128-row query tile, and columns >=
+    # n_valid inside a 256-row corpus tile, are never stored: a [m, n_valid]
+    # view at the start of a larger buffer leaves the rest untouched.
     q, codes, scale, _ = _int8_case(cuda_device, 134, 1408, 511, 270)
     m, n_valid = 134, 1300
-    qp = kernels.pad_columns(q, kernels.I8_ROW_ALIGN)
+    terms = kernels.split_bf16x3(kernels.pad_columns(q, kernels.I8_ROW_ALIGN))
     buf = torch.full((m * n_valid + 4096,), 7.0, device=cuda_device)
     rc = kernels._build.library().vsc_scores_int8(
-        q.device.index, qp.data_ptr(), codes.data_ptr(),
+        q.device.index, terms.data_ptr(), codes.data_ptr(),
         scale.data_ptr(), m, codes.shape[0], codes.shape[1], n_valid,
-        kernels._int8_grid("scores_int8", qp, n_valid), buf.data_ptr(),
+        kernels._int8_grid("scores_int8", q, n_valid), buf.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
@@ -1518,9 +1620,10 @@ def test_int8_wrappers_raise_on_cuda_mismatches(cuda_device):
 @pytest.mark.parametrize("d", [512, 1025])
 def test_int8_searcher_pooled_equals_stream_on_floats(cuda_device, monkeypatch, d):
     # Every score of an int8 search, re-searched rows included, comes from
-    # the int8 kernels' chain: the two collections (which re-search
-    # different rows) return the same pairs and scores, bit for bit; the
-    # corpus is staged as codes and scales only.
+    # the int8 kernels' product: the two collections (which re-search
+    # different rows, each with one scores_above.int8 launch) return the
+    # same pairs and scores, bit for bit; the corpus is staged as codes and
+    # scales only.
     from vsc2022_torch.ops.similarity import COLLECTION_ENV, SimilaritySearcher
 
     rng = np.random.RandomState(230 + d)
@@ -1537,7 +1640,8 @@ def test_int8_searcher_pooled_equals_stream_on_floats(cuda_device, monkeypatch, 
         stats[mode] = dict(searcher.last_stats)
         assert stats[mode]["mode"] == mode and stats[mode]["corpus_rows"] > 0
         launched = {k for k, v in kernels.launches.items() if v}
-        assert launched <= set(kernels.INT8_KERNELS) and "scores.int8" in launched
+        assert launched <= set(kernels.INT8_KERNELS) and "scores.int8" not in launched
+        assert kernels.launches["scores_above.int8"] == 1
     for a, b in zip(out["stream"], out["pooled"]):
         np.testing.assert_array_equal(a, b)
     assert searcher.staged_bytes() == searcher._refs.numel() + 4 * searcher._scale.numel()

@@ -127,6 +127,22 @@ def test_tensor_core_kernels_are_the_bf16_launch_keys():
     assert all(callable(getattr(kernels, name)) for name in kernels.TENSOR_CORE_KERNELS)
 
 
+def test_int8_launch_keys_are_the_tensor_core_kernels():
+    """Every int8 kernel runs on the tensor-core product (wgmma_gemm.cuh's
+    int8 corpus policy): one int8 launch key per TENSOR_CORE_KERNELS name,
+    and no other product of ops/csrc holds an int8 path."""
+    from vsc2022_torch.ops import kernels
+
+    int8_keys = {k[: -len(kernels.INT8)] for k in kernels.launches
+                 if k.endswith(kernels.INT8)}
+    assert int8_keys == set(kernels.TENSOR_CORE_KERNELS)
+    assert kernels.INT8_KERNELS == tuple(n + kernels.INT8 for n in kernels.TENSOR_CORE_KERNELS)
+    csrc = pathlib.Path(kernels.__file__).resolve().parent / "csrc"
+    for name in ("reduce_gemm.cuh", "tile_gemm.cuh"):
+        assert "int8_t" not in (csrc / name).read_text()
+    assert "struct I8Corpus" in (csrc / "wgmma_gemm.cuh").read_text()
+
+
 def test_kernel_wrappers_take_plain_version_only_on_cpu():
     from vsc2022_torch.ops import kernels
 
@@ -150,6 +166,7 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     kernels.pool_writer(q, codes, 100, scale=scale)
     kernels.fused_topk(q, codes, 90, 4, scale=scale)
     kernels.scores(q, codes, 100, scale=scale)
+    kernels.scores_above(q, codes, 100, torch.zeros(3), capacity=1, scale=scale)
     # Plain versions never count as kernel launches.
     assert kernels.launches == {
         "row_max": 0, "count_above": 0, "pool_writer": 0, "fused_topk": 0,
@@ -158,6 +175,7 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
         "scores_above.bf16": 0,
         "chamfer.bf16": 0, "row_max.int8": 0, "count_above.int8": 0,
         "pool_writer.int8": 0, "fused_topk.int8": 0, "scores.int8": 0,
+        "scores_above.int8": 0,
     }
     with pytest.raises(ValueError, match="multiple of 128"):
         kernels.pool_writer(q, torch.ones((100, 8)), 100)

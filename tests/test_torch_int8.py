@@ -14,8 +14,12 @@ in f32, then × scale per column).
   oracle over the dequantized corpus (JAX's ``test_float_fuzz`` tolerance:
   rtol 1e-5, atol 1e-6). A grown or shrunk searcher equals a fresh stage
   of the same rows (codes, scales, padding) and searches alike. The
-  re-search scores its rows in chunks of whole 128-row items where the
-  score budget allows, with JAX's results.
+  re-search is one ``scores_above`` call over every re-searched row, in
+  chunks only where τ = −inf would overrun its entry budget, with JAX's
+  results.
+- The query split of the int8 kernels (``split_bf16x3``): hi + mid + lo
+  equals every f32 query row bit for bit (normal, unit-norm, integer and
+  wide-exponent rows), each term bf16, mid and lo zero on integers.
 - Score normalization, the SN searcher (both corpora int8, the ones column
   quantized with its row) and the index (``codec_str="SQ8"``): the same
   selections as JAX, scores within 1e-5 where the bias column is a float.
@@ -157,6 +161,58 @@ def test_searcher_from_a_jax_int8_corpus():
     q = _ints((17, 20), 4)
     for a, b in zip(js.global_topk(q, 400), ts.global_topk(q, 400)):
         np.testing.assert_array_equal(b, a)
+
+
+# ---- the query split of the int8 kernels ------------------------------------------
+
+
+def _split_rows(kind):
+    rng = np.random.RandomState(17)
+    if kind == "normal":
+        x = rng.randn(300, 40)
+    elif kind == "unit":
+        x = rng.randn(300, 512)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    elif kind == "integer":
+        x = rng.randint(-3000, 3001, size=(300, 40))
+    else:  # wide exponents: every binade from 2^-100 to 2^100, both signs
+        x = rng.uniform(1.0, 2.0, size=(300, 40)) * 2.0 ** rng.randint(-100, 101,
+                                                                      size=(300, 40))
+        x *= rng.choice([-1.0, 1.0], size=x.shape)
+        x[0, :5] = 0.0
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+
+
+@pytest.mark.parametrize("kind", ["normal", "unit", "integer", "wide"])
+def test_split_bf16x3_is_exact(kind):
+    q = _split_rows(kind)
+    terms = kernels.split_bf16x3(q)
+    assert terms.dtype == torch.bfloat16 and terms.shape == (3,) + tuple(q.shape)
+    assert terms.is_contiguous()
+    hi, mid, lo = terms.double()
+    # Exact: three bf16 values whose sum needs at most 25 significant bits,
+    # which f64 holds, equal the f32 row bit for bit.
+    assert torch.equal(hi + mid + lo, q.double())
+    # Each term is bf16-representable (it is a bf16) and the terms shrink:
+    # |mid| <= 2^-8 |q|, |lo| <= 2^-16 |q|.
+    qa = q.double().abs()
+    assert (mid.abs() <= qa * 2.0 ** -8).all() and (lo.abs() <= qa * 2.0 ** -16).all()
+    if kind == "integer":  # |q| <= 256: at most 8 significant bits, bf16-exact
+        small = qa <= 256
+        assert not mid[small].any() and not lo[small].any()
+    if kind == "normal":
+        assert mid.any() and lo.any()
+
+
+def test_split_bf16x3_of_bf16_exact_rows_is_the_row():
+    # A bf16-exact f32 row (an integer one, or a bf16 row widened) splits
+    # into (q, 0, 0): the int8 kernels then score it as the bf16 product.
+    q = _split_rows("normal").bfloat16().float()
+    hi, mid, lo = kernels.split_bf16x3(q)
+    assert torch.equal(hi.float(), q) and not mid.float().any() and not lo.float().any()
+    ints = torch.from_numpy(_ints((50, 24), 3))
+    hi, mid, lo = kernels.split_bf16x3(ints)
+    assert torch.equal(hi.float(), ints) and not mid.float().any() and not lo.float().any()
 
 
 # ---- the plain int8 kernels ---------------------------------------------------------
@@ -327,16 +383,17 @@ def test_int8_quality_unit_norm_copies_rank_first():
 
 @pytest.mark.parametrize("mode", ["stream", "pooled"])
 def test_int8_research_scores_on_the_kernels_product(monkeypatch, mode):
-    # A re-searched row of an int8 corpus scores on the kernels' own chain
-    # (kernels.scores over the padded queries, the codes and their scales).
+    # A re-searched row of an int8 corpus scores on the kernels' own
+    # product (kernels.scores_above over the padded queries, the codes and
+    # their scales).
     calls = []
-    real = kernels.scores
+    real = kernels.scores_above
 
-    def spy(q, refs, n_valid, scale=None):
+    def spy(q, refs, n_valid, floor, capacity=None, scale=None):
         calls.append((q, refs, n_valid, scale))
-        return real(q, refs, n_valid, scale=scale)
+        return real(q, refs, n_valid, floor, capacity=capacity, scale=scale)
 
-    monkeypatch.setattr(kernels, "scores", spy)
+    monkeypatch.setattr(kernels, "scores_above", spy)
     monkeypatch.setenv(COLLECTION_ENV, mode)
     monkeypatch.setenv("VSC2022_TPU_COLLECTION", mode)
     q, r = _ints((11, 13), 53), _dyadic_rows(3000, 13, 54)
@@ -353,39 +410,44 @@ def test_int8_research_scores_on_the_kernels_product(monkeypatch, mode):
                for _, refs, n, scale in calls)
 
 
-@pytest.mark.parametrize("budget_rows,chunk", [
-    (134, 128), (559, 512), (4329, 4224), (128, 128), (127, 127), (67, 67), (1, 1)])
-def test_row_chunk_fills_the_products_128_row_items(monkeypatch, budget_rows, chunk):
-    # The re-search's row chunk: the score budget's rows rounded down to
-    # whole 128-row items (kernels.REDUCE_TILE) where the budget holds 128
-    # rows or more; below that the budget's rows as they are. 134, 559 and
-    # 4329 are the budget's rows at the SSCD, serving and DnS corpora.
+@pytest.mark.parametrize("dtype", ["float32", INT8])
+@pytest.mark.parametrize("budget_rows", [134, 559, 4329, 128, 127, 67, 1])
+def test_row_chunk_fills_the_products_128_row_items(monkeypatch, dtype, budget_rows):
+    # The row chunk of the dense scores that are left (the f32 re-search's
+    # torch.matmul and row_topk): the score budget's rows as they are, at
+    # most the budget and never below 1 row. No kernel scores these chunks
+    # any more (the int8 re-search is one scores_above call), so nothing
+    # rounds them to the 128-row items (kernels.REDUCE_TILE) they were cut
+    # to while scores.int8 scored them. 134, 559 and 4329 are the budget's
+    # rows at the SSCD, serving and DnS corpora.
     n = 1000
-    ts = TorchSearcher(_dyadic_rows(n, 12, 60), dtype=INT8, device="cpu")
+    ts = TorchSearcher(_dyadic_rows(n, 12, 60), dtype=dtype, device="cpu")
     monkeypatch.setattr(similarity, "PLAIN_CHUNK_ELEMENTS", budget_rows * n + n - 1)
-    assert ts._row_chunk() == chunk
-    assert chunk <= budget_rows and (chunk < kernels.REDUCE_TILE
-                                     or chunk % kernels.REDUCE_TILE == 0)
+    assert ts._row_chunk() == budget_rows
+    monkeypatch.setattr(similarity, "PLAIN_CHUNK_ELEMENTS", n - 1)
+    assert ts._row_chunk() == 1
 
 
 @pytest.mark.parametrize("mode", ["stream", "pooled"])
 @pytest.mark.parametrize("budget_rows,chunks", [
-    (134, [128, 128, 44]), (100, [100, 100, 100])])
+    (134, [134, 134, 32]), (100, [100, 100, 100])])
 def test_int8_research_in_whole_items_identical_to_jax(monkeypatch, mode, budget_rows,
                                                        chunks):
     # k over nq·κ and over the pool's entries (2 per segment and row): τ =
-    # −inf in both collections, so all 300 rows are re-searched, in chunks of
-    # whole 128-row items when the budget holds 134 rows and of the
-    # budget's 100 rows when it holds fewer than 128: pairs, scores and tie
-    # order identical to the JAX int8 searcher's either way.
+    # −inf in both collections, so all 300 rows are re-searched with every
+    # entry kept. scores_above then takes chunks of rows whose every entry
+    # fits its budget (the budget's rows: here 134 and 100 rows' worth of
+    # the 1,100-row corpus; the kernel's 128-row items no longer shape the
+    # chunks): pairs, scores and tie order identical to the JAX int8
+    # searcher's either way.
     calls = []
-    real = kernels.scores
+    real = kernels.scores_above
 
-    def spy(q, refs, n_valid, scale=None):
+    def spy(q, refs, n_valid, floor, capacity=None, scale=None):
         calls.append(q.shape[0])
-        return real(q, refs, n_valid, scale=scale)
+        return real(q, refs, n_valid, floor, capacity=capacity, scale=scale)
 
-    monkeypatch.setattr(kernels, "scores", spy)
+    monkeypatch.setattr(kernels, "scores_above", spy)
     monkeypatch.setenv(COLLECTION_ENV, mode)
     monkeypatch.setenv("VSC2022_TPU_COLLECTION", mode)
     nq, n = 300, 1100
@@ -394,7 +456,7 @@ def test_int8_research_in_whole_items_identical_to_jax(monkeypatch, mode, budget
     q[1] = q[4] = np.sign(r[9])
     want = JaxSearcher(r, dtype=INT8).global_topk(q, 6000, kappa=4)
     ts = TorchSearcher(r, dtype=INT8, device="cpu")
-    monkeypatch.setattr(similarity, "PLAIN_CHUNK_ELEMENTS", budget_rows * n + n - 1)
+    monkeypatch.setattr(similarity, "ABOVE_BUDGET_ENTRIES", budget_rows * n + n - 1)
     got = ts.global_topk(q, 6000, kappa=4)
     assert ts.last_stats["mode"] == mode and ts.last_stats["corpus_rows"] == nq
     assert calls == chunks

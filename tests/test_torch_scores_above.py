@@ -1,20 +1,25 @@
-"""The bf16 re-search's entries at or above each row's floor
-(``kernels.scores_above``, scores_above.bf16 on the card) on the CPU.
+"""The tensor-core re-search's entries at or above each row's floor
+(``kernels.scores_above``, scores_above.bf16 and scores_above.int8 on the
+card) on the CPU.
 
 - The plain version is ``scores_plain`` then ``nonzero(>= floor)``: the
   same (row, col) set, each entry once, and bit-identical scores, at odd
   widths (D = 13 keeps pad columns), ``n_valid`` short of the corpus and
   per-row floors that mix −inf, +inf and finite values. The wrapper runs
   it for CPU tensors whatever the capacity hint.
-- The searcher over a bf16 corpus re-searches with one ``scores_above``
-  call per ``_corpus_above`` over every re-searched row, with a capacity
-  that holds what it returns, and its ``global_topk`` is the JAX
-  searcher's in both collection modes (integer inputs: every score exact).
+- Over int8 codes the plain version takes their ``scale``: the entries of
+  ``scores_plain(..., scale)`` ≥ floor, bit for bit.
+- The searcher over a bf16 or int8 corpus re-searches with one
+  ``scores_above`` call per ``_corpus_above`` over every re-searched row,
+  with a capacity that holds what it returns (int8: with the codes'
+  scales), and its ``global_topk`` is the JAX searcher's in both
+  collection modes (integer inputs, dyadic int8 rows: every score exact).
   Where τ = −inf keeps every entry, the rows go in chunks whose every
-  entry fits the budget, and the answer is still JAX's.
+  entry fits the budget, and the answer is still JAX's. An f32 corpus
+  re-searches densely.
 
-The kernel itself is held against this plain version and against dense
-scores.bf16 on the card (``tests/test_torch_cuda.py``).
+The kernels themselves are held against this plain version and against
+dense scores.bf16 / scores.int8 on the card (``tests/test_torch_cuda.py``).
 """
 
 import numpy as np
@@ -28,6 +33,7 @@ from vsc2022_torch.ops.similarity import SimilaritySearcher as TorchSearcher
 from vsc2022_tpu.ops.similarity import SimilaritySearcher as JaxSearcher
 
 BF16 = "bfloat16"
+INT8 = "int8"
 
 
 def _ints(shape, seed):
@@ -96,6 +102,45 @@ def test_plain_is_dense_scores_then_nonzero(d, dtype, kind):
         assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
+def _dyadic_rows(n, d, seed):
+    """Rows of integer codes in [-127, 127] with one ±127 a row, times
+    2⁻ᵏ: the SQ8 scale is 2⁻ᵏ exactly and every score of integer queries
+    exact."""
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(-127, 128, size=(n, d)).astype(np.float32)
+    codes[np.arange(n), rng.randint(0, d, size=n)] = rng.choice([-127.0, 127.0], n)
+    return codes * (2.0 ** -rng.randint(0, 7, size=(n, 1))).astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [13, 16, 64])
+@pytest.mark.parametrize("kind", ["int", "float"])
+def test_plain_int8_is_dense_scores_then_nonzero(d, kind):
+    # Over int8 codes (padded to 16 columns, as staged) with their scales.
+    m, n, n_valid = 37, 1300, 1237
+    if kind == "int":
+        q = torch.from_numpy(_ints((m, d), d))
+        rows = _dyadic_rows(n, d, d + 1)
+    else:
+        q, rows = _unit_rows((m, d), d), _unit_rows((n, d), d + 1).numpy()
+    codes, scale = similarity.quantize_rows_int8(rows)
+    codes = kernels.pad_columns(torch.from_numpy(codes), kernels.I8_ROW_ALIGN)
+    scale = torch.from_numpy(scale)
+    dense = kernels.scores_plain(q, codes, n_valid, scale=scale)
+    floor = _floors(dense)
+    rr, cc = torch.nonzero(dense >= floor[:, None], as_tuple=True)
+    got = kernels.scores_above_plain(q, codes, n_valid, floor, scale=scale)
+    gs, gr, gc = _sorted(got)
+    assert torch.equal(gr, rr) and torch.equal(gc, cc)
+    assert torch.equal(gs.view(torch.int32), dense[rr, cc].view(torch.int32))
+    for capacity in (None, 1):
+        again = kernels.scores_above(q, codes, n_valid, floor, capacity=capacity,
+                                     scale=scale)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+    # Without the scales the codes' scores differ: the wrapper refuses.
+    with pytest.raises(TypeError, match="scale"):
+        kernels.scores_above(q, codes, n_valid, floor)
+
+
 @pytest.mark.parametrize("n_valid", [0, 1, 255])
 def test_plain_edges(n_valid):
     q = torch.from_numpy(_ints((5, 16), 3)).bfloat16()
@@ -137,9 +182,9 @@ def _spy(monkeypatch):
     real_above = kernels.scores_above
     real_corpus = TorchSearcher._corpus_above
 
-    def scores_above(q, refs, n_valid, floor, capacity=None):
-        out = real_above(q, refs, n_valid, floor, capacity=capacity)
-        above.append((q, refs, n_valid, capacity, out[0].numel()))
+    def scores_above(q, refs, n_valid, floor, capacity=None, scale=None):
+        out = real_above(q, refs, n_valid, floor, capacity=capacity, scale=scale)
+        above.append((q, refs, n_valid, capacity, out[0].numel(), scale))
         return out
 
     def corpus_above(self, q_rows, tau, count):
@@ -171,10 +216,38 @@ def test_bf16_research_is_one_launch_and_jax_identical(monkeypatch, d, mode):
     # padded operands; its capacity holds every entry it returns (so the
     # kernel launches once), and it is the count ≥ τ plus the headroom.
     assert len(corpus) == len(above) == 1
-    (rows, refs, n_valid, capacity, entries), (n_rows, count) = above[0], corpus[0]
+    (rows, refs, n_valid, capacity, entries, scale), (n_rows, count) = above[0], corpus[0]
     assert rows.shape[0] == n_rows == stats["corpus_rows"]
     assert refs is ts.tensor_core_refs() and n_valid == ts.n_refs
     assert rows.shape[1] == kernels.padded_width(d)
+    assert capacity == count + similarity.ABOVE_HEADROOM * n_rows
+    assert count <= entries <= capacity and scale is None
+
+
+@pytest.mark.parametrize("mode", ["stream", "pooled"])
+@pytest.mark.parametrize("d", [13, 16, 1025])
+def test_int8_research_is_one_launch_and_jax_identical(monkeypatch, d, mode):
+    # Over an int8 corpus (dyadic rows, integer queries: every score exact)
+    # the re-search is one scores_above call over every re-searched row,
+    # on the codes as staged with their scales, and the answer is JAX's.
+    monkeypatch.setenv(COLLECTION_ENV, mode)
+    monkeypatch.setenv("VSC2022_TPU_COLLECTION", mode)
+    above, corpus = _spy(monkeypatch)
+    q, r = _ints((11, d), 80 + d), _dyadic_rows(3000, d, 81 + d)
+    r[10:20] = r[9]  # equal columns in segment 0: re-searched rows
+    q[1] = q[4] = np.sign(r[9])
+    ts = TorchSearcher(r, dtype=INT8, device="cpu")
+    want = JaxSearcher(r, dtype=INT8).global_topk(q, 60, kappa=8)
+    for e, g in zip(want, ts.global_topk(q, 60, kappa=8)):
+        np.testing.assert_array_equal(g, e)
+    stats = ts.last_stats
+    assert stats["mode"] == mode and stats["corpus_rows"] > 0 and stats["tau"] > -np.inf
+    assert len(corpus) == len(above) == 1
+    (rows, refs, n_valid, capacity, entries, scale), (n_rows, count) = above[0], corpus[0]
+    assert rows.shape[0] == n_rows == stats["corpus_rows"]
+    assert rows.dtype == torch.float32
+    assert rows.shape[1] == refs.shape[1] == kernels.padded_width(d, kernels.I8_ROW_ALIGN)
+    assert refs is ts._refs and scale is ts._scale and n_valid == ts.n_refs
     assert capacity == count + similarity.ABOVE_HEADROOM * n_rows
     assert count <= entries <= capacity
 
@@ -197,18 +270,21 @@ def test_bf16_research_at_minus_inf_chunks_within_the_budget(monkeypatch, mode):
     assert len(corpus) == 1 and corpus[0] == (11, 11 * 300)
     assert [a[0].shape[0] for a in above] == [3, 3, 3, 2]  # 1000 // 300 rows
     assert all(cap == rows.shape[0] * 300 == entries
-               for rows, _, _, cap, entries in above)
+               for rows, _, _, cap, entries, _ in above)
 
 
 def test_f32_and_int8_research_stay_dense(monkeypatch):
-    # Only a bf16 corpus takes scores_above; an f32 one re-searches with
-    # torch.matmul and an int8 one with scores.int8, as before.
+    # An f32 corpus re-searches densely with torch.matmul, no scores_above
+    # call; an int8 one, whose re-search was dense (scores.int8 chunks)
+    # before it moved onto the tensor cores, now takes one scores_above
+    # call, as a bf16 one does.
     above, corpus = _spy(monkeypatch)
     q, r = _ints((11, 16), 70), _ints((3000, 16), 71)
     r[10:20] = 3.0
     q[1] = q[4] = 3.0
-    for dtype in ("float32", "int8"):
+    for dtype, calls in (("float32", 0), ("int8", 1)):
         ts = TorchSearcher(r, dtype=dtype, device="cpu")
         ts.global_topk(q, 100, kappa=8)
         assert ts.last_stats["corpus_rows"] > 0
-    assert len(corpus) == 2 and not above
+        assert len(above) == calls
+    assert len(corpus) == 2 and above[0][5] is ts._scale

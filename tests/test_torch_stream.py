@@ -220,6 +220,62 @@ def test_bf16_stream_research_margin_covers_the_tensor_cores(monkeypatch):
     assert (1, 12) not in set(zip(qi, ri))
 
 
+def test_int8_stream_research_margin_covers_the_tensor_cores(monkeypatch):
+    """As test_bf16_stream_research_margin_covers_the_tensor_cores, over an
+    int8 corpus, whose kernels add 3·D exact products (the query split into
+    three bf16 terms). Stand-in kernels score δ above the re-search, δ the
+    derived worst case of the tensor cores against an f32 sum,
+    (9·(1 + 2⁻⁷) + 2)·D·u·‖q‖·‖r‖ (_corpus_above): the int8 margin,
+    INT8_TENSOR_CORE_SLACK times the f32 one, loses no entry the kernels
+    counted, and the bf16 margin does."""
+    d, k = 24, 3
+    rng = np.random.RandomState(8)
+    q = (0.01 * rng.randn(6, d)).astype(np.float32)
+    r = (0.01 * rng.randn(3011, d)).astype(np.float32)
+    q[:, 1] = 0.0
+    q[1] = 0.0
+    q[1, 0] = 1.0
+    r[3000] = 0.0
+    r[3000, 1] = 1000.0  # max ‖r‖ ≈ 1000 widens the margin; scores 0
+    # Row 1 scores columns 10-12 (segment 0) and 200 (segment 1) far above
+    # the rest. Each of these rows is 127·s at column 0, s dyadic, so its
+    # SQ8 scale is s and its score 127·s, exactly: y + 8, 4 and 1 steps and
+    # y. The kernels report δ more: τ = y + δ, segment 0 hides column 12,
+    # so row 1 is counted and re-searched from y + δ − margin.
+    step = 127 * 2.0 ** -18
+    y = 127 * 2.0 ** -9
+    for j, t in ((10, 8), (11, 4), (12, 1), (200, 0)):
+        r[j] = 0.0
+        r[j, 0] = y + t * step
+    ts = TorchSearcher(r, dtype="int8", device="cpu")
+    u = float(np.finfo(np.float32).eps) / 2
+    assert 999.0 < ts._ref_norm_max < 1001.0
+    bound = (9 * (1 + 2.0 ** -7) + 2) * d * u * ts._ref_norm_max
+    delta = step + bound  # y + step lies between the two floors
+    topk = kernels.fused_topk
+
+    def topk_up(q, refs, n_valid, kappa, scale=None):
+        vals, ids = topk(q, refs, n_valid, kappa, scale=scale)
+        return vals + delta, ids
+
+    def count_up(q, refs, tau, n_valid, scale=None):
+        s = kernels.scores_plain(q, refs, n_valid, scale=scale) + delta
+        return (s >= tau).sum(1, dtype=torch.int32)
+
+    monkeypatch.setattr(kernels, "fused_topk", topk_up)
+    monkeypatch.setattr(kernels, "count_above", count_up)
+    monkeypatch.setenv(COLLECTION_ENV, "stream")
+    qi, ri, s = ts.global_topk(q, k, kappa=8)
+    assert ts.last_stats["corpus_rows"] == 1
+    assert list(zip(qi, ri)) == [(1, 10), (1, 11), (1, 12)]
+    np.testing.assert_array_equal(s, np.float32([y + 8 * step, y + 4 * step, y + step]))
+    # The bf16 margin alone loses column 12.
+    monkeypatch.setattr(torch_similarity, "INT8_TENSOR_CORE_SLACK",
+                        torch_similarity.TENSOR_CORE_SLACK)
+    qi, ri, _ = ts.global_topk(q, k, kappa=8)
+    assert (1, 12) not in set(zip(qi, ri))
+
+
 def test_bf16_pooled_research_margin_covers_the_tensor_cores(monkeypatch):
     """The pooled counterpart: over a bf16 corpus the pooled re-search,
     too, takes the defensive TENSOR_CORE_SLACK times the f32 margin, here

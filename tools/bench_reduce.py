@@ -37,20 +37,26 @@ the bf16 tensor-core peak and 2-byte operands. The tensor-core plans
 
 ``--int8`` times the int8 (SQ8) variants instead: f32 queries against the
 same rows quantized on the card (int8 codes padded to 16 columns, one f32
-scale a row), the five of them, scores.int8 (the searchers' re-search,
-which writes every score out) included at the re-search's row chunks
-(``SimilaritySearcher._row_chunk``: 128 rows at SSCD, 512 at serving,
-the DnS search's 1,662 re-searched rows in one chunk, and the earlier
-unrounded chunks of 134 and 559 rows). Each is timed beside its f32
-kernel on the widened codes (``f32_ms``; scores.int8 has none: the f32
-re-search is torch.matmul) and beside chip_smoke.py's library yardstick
-(cuBLAS f32 over the codes widened in the timed call, times the scales),
-within chip_smoke.FLOAT_ATOL of it (counts within 2); on the first 256
-rows the five are held bit for bit against each other
-(chip_smoke.pool_identity) and, with every scale 1, against the f32
-kernels (chip_smoke.unit_scale_identity). The bound takes the f32 peak,
-1-byte codes and 4-byte scales; each kernel's resident blocks per SM and
-grid are printed.
+scale a row), the four of them and scores.int8 (the dense product, the
+reference of the re-search's scores_above.int8, which
+tools/bench_scores_above.py --int8 times) at the row chunks the int8
+re-search once took (128 rows at SSCD, 512 at serving, the DnS search's
+1,662 re-searched rows, and 134 and 559). All run on the tensor-core
+product of wgmma_gemm.cuh with the int8 corpus policy (the queries split
+into three exact bf16 terms, three passes over the codes widened in
+shared memory). Each is timed beside the f32 kernel on the widened codes
+(``f32_ms``, the f32 CUDA-core chain the int8 kernels ran on before;
+scores.int8 has none), the bf16 kernel on the widened codes and the
+queries rounded to bf16 (``bf16_ms``: one pass where int8 takes three)
+and chip_smoke.py's library yardstick (cuBLAS f32 over the codes widened
+in the timed call, times the scales), within chip_smoke.FLOAT_ATOL of it
+(counts within 2); on the first 256 rows they are held bit for bit
+against each other (chip_smoke.pool_identity) and, with every scale 1
+and bf16-exact queries, against their bf16 kernels
+(chip_smoke.unit_scale_identity). The bound is the 3-pass one: 3 x
+2*M*N*D at the bf16 tensor-core peak, against 4-byte queries, 1-byte
+codes and 4-byte scales; each kernel's resident blocks per SM and grid
+are printed.
 
 Copied into a tree of the parent commit (beside its vsc2022_torch/ and
 chip_smoke.py), it times that tree's kernels, skipping the occupancy and
@@ -83,7 +89,7 @@ SHAPES = [
     ("fused_topk", "dns", 7682, 31_004, 1025),
     ("fused_topk", "serving, one video", 60, 240_000, 512),
     ("pool_writer", "sscd", 9000, 1_000_020, 512),
-    # scores.int8 (--int8 only): the re-search's row chunks.
+    # scores.int8 (--int8 only): the int8 re-search's former row chunks.
     ("scores", "sscd", 128, 1_000_020, 512),
     ("scores", "serving", 512, 240_000, 512),
     ("scores", "dns", 1662, 31_004, 1025),
@@ -257,9 +263,11 @@ def _bench_int8(torch, cs, kernels, name, path, m, n_valid, d, reps):
     cs.unit_scale_identity(torch, kernels, name, args, f"bench {path}")
     torch.cuda.empty_cache()
     grid = 0
-    if hasattr(kernels, "_int8_grid") and name != "pool_writer" and (
-            name != "scores" or hasattr(kernels._build.library(), "vsc_scores_int8_occupancy")):
-        grid = kernels._int8_grid(f"{name}_int8", q, n_valid)
+    lib = kernels._build.library()
+    occupancy = getattr(lib, f"vsc_{name}_int8_occupancy", None)
+    if hasattr(kernels, "_int8_grid") and occupancy is not None:
+        extra = (1, KAPPA) if len(occupancy.argtypes) == 4 else ()  # fused_topk's sets
+        grid = kernels._int8_grid(f"{name}_int8", q, n_valid, *extra)
     ms = cs.cuda_ms(torch, run, reps)
     library_ms = cs.cuda_ms(torch, lib_call, 2)
     out_bytes = {"fused_topk": 8 * m * KAPPA, "pool_writer": 16 * m * (n // 128),
@@ -272,9 +280,13 @@ def _bench_int8(torch, cs, kernels, name, path, m, n_valid, d, reps):
         wide = codes[:, :d].float().contiguous()
         row["f32_ms"] = cs.cuda_ms(torch, _call(kernels, name, q, wide, n_valid), reps)
         del wide
+    wide, qb = codes[:, :d].to(torch.bfloat16).contiguous(), q.to(torch.bfloat16)
+    row["bf16_ms"] = cs.cuda_ms(torch, _call(kernels, name, qb, wide, n_valid), reps)
+    del wide, qb
     print(f"{label} {path} [{m} x {n_valid} x {d}]: kernel {ms:.3f} ms"
           + (f" (grid {grid})" if grid else "") + ", "
           + (f"f32 kernel {row['f32_ms']:.3f} ms, " if "f32_ms" in row else "")
+          + f"bf16 kernel {row['bf16_ms']:.3f} ms, "
           + f"library {library_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
           f"{100 * bound_ms / ms:.1f}% of the bound", flush=True)
     del q, codes, scale, head
@@ -298,14 +310,16 @@ def _report_plans(torch, cs, kernels, lib, dev, bf16, int8=False):
     shapes."""
     probe = torch.empty(0, device=dev)
     if int8:
-        for name in ("row_max", "count_above", "fused_topk", "scores"):
-            if not hasattr(lib, f"vsc_{name}_int8_occupancy"):
+        for name in ("row_max", "count_above", "pool_writer", "fused_topk", "scores",
+                     "scores_above"):
+            fn = getattr(lib, f"vsc_{name}_int8_occupancy", None)
+            if fn is None:
                 continue
             blocks = ctypes.c_int(0)
-            rc = getattr(lib, f"vsc_{name}_int8_occupancy")(0, ctypes.addressof(blocks))
+            extra = (1, KAPPA) if len(fn.argtypes) == 4 else ()  # fused_topk's sets
+            rc = fn(0, *extra, ctypes.addressof(blocks))
             cs.check(rc == 0, f"{name}.int8 occupancy query failed ({rc})")
-            print(f"{name}.int8 (reduce_gemm.cuh, I8Corpus): {blocks.value} "
-                  "resident blocks per SM", flush=True)
+            print(f"{name}.int8: {blocks.value} resident blocks per SM", flush=True)
         return
     if bf16 and hasattr(kernels, "wgmma_grid"):
         slots = kernels._wgmma_slots(probe)
@@ -389,7 +403,9 @@ def _call(kernels, name, q, r, n_valid, **kw):
 def _other_placement(kernels, q, r, n_valid, smem_sets):
     """fused_topk.bf16 on (q, r) at κ = KAPPA with its sets placed as
     given: in shared memory (smem_sets) or in its output."""
-    return lambda: kernels._fused_topk_bf16(q, r, n_valid, KAPPA, smem_sets)
+    # The parent commit's name of the tensor-core fused_topk helper.
+    tc = getattr(kernels, "_fused_topk_tc", None) or kernels._fused_topk_bf16
+    return lambda: tc(q, r, n_valid, KAPPA, smem_sets)
 
 
 def _library(torch, cs, name, q, r, n_valid, scale=None):

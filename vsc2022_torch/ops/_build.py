@@ -116,7 +116,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     # take no copy width; fused_topk's takes its sets' placement (and, for
     # its occupancy, κ), pool_writer's a grid. scores_bf16 writes the
     # product out; scores_above_bf16, the re-search's, takes a floor per
-    # row and a 64-bit capacity (bf16 only).
+    # row and a 64-bit capacity.
     argtypes["row_max_bf16"] = [i, p, p, i, i, i, i, i, p, p, p]
     argtypes["count_above_bf16"] = [i, p, p, i, i, i, f, i, i, p, p]
     argtypes["pool_writer_bf16"] = [i, p, p, i, i, i, i, i, p, p, p]
@@ -130,16 +130,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     argtypes["count_above_bf16_smem_bytes"] = []
     argtypes["pool_writer_bf16_smem_bytes"] = []
     argtypes["fused_topk_bf16_smem_bytes"] = [i, i]
-    # The int8 (SQ8) kernels take f32 queries, int8 codes and their f32
-    # scales; row_max, count_above, fused_topk and scores run
-    # reduce_gemm.cuh's schedule (a grid), pool_writer tile_gemm.cuh's.
+    # The int8 (SQ8) kernels, on the same tensor-core product, take the
+    # split query terms [3, M, D] (bf16), int8 codes and their f32 scales,
+    # and otherwise the arguments of their bf16 kernels.
     argtypes["row_max_int8"] = [i, p, p, p, i, i, i, i, i, p, p, p]
     argtypes["count_above_int8"] = [i, p, p, p, i, i, i, f, i, i, p, p]
-    argtypes["fused_topk_int8"] = [i, p, p, p, i, i, i, i, i, i, i, p, p, p]
-    argtypes["pool_writer_int8"] = [i, p, p, p, i, i, i, i, p, p, p]
+    argtypes["fused_topk_int8"] = [i, p, p, p, i, i, i, i, i, i, i, i, p, p, p]
+    argtypes["pool_writer_int8"] = [i, p, p, p, i, i, i, i, i, p, p, p]
     argtypes["scores_int8"] = [i, p, p, p, i, i, i, i, i, p, p]
-    for name in ("row_max", "count_above", "fused_topk", "scores"):
+    argtypes["scores_above_int8"] = [i, p, p, p, p, i, i, i, i, i, l, p, p, p, p, p]
+    for name in ("row_max", "count_above", "pool_writer", "scores", "scores_above"):
         argtypes[f"{name}_int8_occupancy"] = [i, p]
+    argtypes["fused_topk_int8_occupancy"] = [i, i, i, p]
     argtypes["chamfer"] = [i, p, p, i, i, i, i, i, i, p, p]
     # The bf16 chamfer (tensor cores) takes the same arguments.
     argtypes["chamfer_bf16"] = argtypes["chamfer"]

@@ -20,15 +20,6 @@
 // is complete when this count equals its kept entries) and the streaming
 // verify rely on.
 //
-// Over an int8 (SQ8) corpus both collections count with
-// vsc_count_above_int8 (launch key count_above.int8; JAX:
-// streaming_count_above and the repair counts on the IP8 branch, XLA,
-// vsc2022_tpu/ops/similarity.py:459-472, 1135-1150): reduce_gemm.cuh's
-// int8 corpus, the codes widened exactly into the same chain and each
-// score scaled once before the compare, so it counts the scores of
-// pool_writer.int8's pool and fused_topk.int8's candidates bit for bit.
-// Bound: operations, as the f32 kernel; a quarter of its corpus bytes.
-//
 // Over a bf16 corpus (the JAX searcher's streaming_count_above on bf16
 // operands with f32 accumulation) both collections count with
 // vsc_count_above_bf16 (launch key count_above.bf16): the tensor-core
@@ -50,6 +41,18 @@
 // memory; a block commits each row once per group it leaves with one
 // atomicAdd, and rows >= M never. Rows take a multiple of 8 values
 // (ops/kernels.py pad_columns).
+//
+// Over an int8 (SQ8) corpus both collections count with
+// vsc_count_above_int8 (launch key count_above.int8; JAX:
+// streaming_count_above and the repair counts on the IP8 branch, XLA,
+// vsc2022_tpu/ops/similarity.py:459-472, 1135-1150): the same epilogue on
+// wgmma_gemm.cuh's int8 corpus policy (three exact bf16 passes of the
+// split f32 queries over the widened codes, each score scaled once before
+// the compare), the product of pool_writer.int8, fused_topk.int8 and the
+// re-search's scores_above.int8, so it counts the scores of the int8 pool
+// and candidates bit for bit. Bound: operations, 3 x 2*M*N*D at 989
+// TFLOP/s ([7682 x 31,004 x 1025] at DnS is 1.48 ms); the corpus bytes are
+// a quarter of f32's. Codes rows take a multiple of 16 values.
 #include "reduce_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -71,10 +74,10 @@ struct CountAbove {
   }
 };
 
-// The count epilogue of the tensor-core product (wgmma_gemm.cuh): each
-// owner thread keeps rows row0 and row0 + 8 of every query tile of the
-// group in shared memory.
-struct Bf16Count {
+// The count epilogue of the tensor-core product (wgmma_gemm.cuh, either
+// corpus): each owner thread keeps rows row0 and row0 + 8 of every query
+// tile of the group in shared memory.
+struct TcCount {
   static constexpr int kStages = wg::kStages, kGroup = wg::kGroup;
   float tau;
   int* out;
@@ -155,41 +158,15 @@ extern "C" int vsc_count_above(int device, const float* q, const float* refs,
                              reduce::RowFold<CountAbove>{{tau, out}}, 0, s);
 }
 
-// Blocks of the int8 kernel one SM holds at once.
-extern "C" int vsc_count_above_int8_occupancy(int device, int* blocks_per_sm) {
-  return reduce::resident_blocks_int8<reduce::RowFold<CountAbove>>(
-      device, 0, blocks_per_sm);
-}
-
-// The int8 variant (SQ8 corpus): q [m, d] f32 and codes [n, d] int8
-// row-major, d a multiple of 16 (zero pad columns past the data's width),
-// both bases 16-byte aligned, scale [n] f32; out and `grid` as for
-// vsc_count_above.
-extern "C" int vsc_count_above_int8(int device, const float* q,
-                                    const int8_t* codes, const float* scale,
-                                    int m, int n, int d, float tau,
-                                    int n_valid, int grid, int* out,
-                                    void* stream) {
-  if (m <= 0) return 0;
-  if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)reduce::launch_int8(q, codes, scale, m, d, n_valid, grid,
-                                  reduce::RowFold<CountAbove>{{tau, out}}, 0, s);
-}
-
 // Blocks of the bf16 kernel (tensor cores) one SM holds at once (its grid:
 // SMs x this, at most the work items of ops/kernels.py wgmma_tiles).
 extern "C" int vsc_count_above_bf16_occupancy(int device, int* blocks_per_sm) {
-  return wg::resident_blocks<Bf16Count>(device, blocks_per_sm);
+  return wg::resident_blocks<TcCount>(device, blocks_per_sm);
 }
 
 // Bytes of dynamic shared memory one block of that kernel takes.
 extern "C" int vsc_count_above_bf16_smem_bytes() {
-  return wg::smem_bytes<Bf16Count>();
+  return wg::smem_bytes<TcCount>();
 }
 
 // The bf16 variant: q [m, d] and refs [n, d] bf16 row-major, d % 8 == 0
@@ -206,5 +183,31 @@ extern "C" int vsc_count_above_bf16(int device, const __nv_bfloat16* q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)wg::launch(q, refs, m, d, n_valid, grid, Bf16Count{tau, out, m}, s);
+  return (int)wg::launch(q, refs, m, d, n_valid, grid, TcCount{tau, out, m}, s);
+}
+
+// Blocks of the int8 kernel (tensor cores) one SM holds at once.
+extern "C" int vsc_count_above_int8_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<TcCount, wg::I8Corpus>(device, blocks_per_sm);
+}
+
+// The int8 variant (SQ8 corpus): terms [3, m, d] bf16 (the f32 queries
+// split, ops/kernels.py split_bf16x3), codes [n, d] int8 row-major, d a
+// multiple of 16 (zero pad columns past the data's width), both bases
+// 16-byte aligned, scale [n] f32 (a score is (q . codes[j]) * scale[j]);
+// out and `grid` as for vsc_count_above_bf16.
+extern "C" int vsc_count_above_int8(int device, const __nv_bfloat16* terms,
+                                    const int8_t* codes, const float* scale,
+                                    int m, int n, int d, float tau,
+                                    int n_valid, int grid, int* out,
+                                    void* stream) {
+  if (m <= 0) return 0;
+  if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wg::launch_int8(terms, codes, scale, m, d, n_valid, grid,
+                              TcCount{tau, out, m}, s);
 }

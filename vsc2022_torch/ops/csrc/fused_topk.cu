@@ -51,16 +51,6 @@
 // rows best-first with ordered_topk over [M, S * kappa], the counterpart of
 // the JAX wrapper's lax.top_k after its kernel.
 //
-// The int8 variant (vsc_fused_topk_int8) is the streaming collection over
-// an int8 (SQ8) corpus (the JAX searcher's block scores on the IP8 branch,
-// XLA: the codes widened into an f32 dot at HIGHEST, one scale multiply
-// per column, vsc2022_tpu/ops/similarity.py:259-283). It is this kernel
-// over reduce_gemm.cuh's int8 corpus (the codes widened exactly once per
-// slice into the same fmaf chain, each finished score scaled once before
-// the selection), on the same schedule; its winners are pool_writer.int8's
-// and count_above.int8 counts its scores, bit for bit. Bound: operations,
-// as the f32 kernel.
-//
 // The bf16 variant (vsc_fused_topk_bf16) is the streaming collection over a
 // bf16 corpus (the JAX searcher's bf16 x bf16 block scores with f32
 // accumulation, similarity.py:271; the port's server stages bf16 by
@@ -101,6 +91,18 @@
 // writes its pieces of a group into slot b - (the first block of the
 // group) (ops/kernels.py wgmma_pieces). Rows take a multiple of 8 values
 // (ops/kernels.py pad_columns).
+//
+// The int8 variant (vsc_fused_topk_int8) is the streaming collection over
+// an int8 (SQ8) corpus (the JAX searcher's block scores on the IP8 branch,
+// XLA: the codes widened into an f32 dot at HIGHEST, one scale multiply
+// per column, vsc2022_tpu/ops/similarity.py:259-283). It is TcTopK, with
+// the same two placements of the sets, on wgmma_gemm.cuh's int8 corpus
+// policy (the f32 queries split into three exact bf16 terms, three wgmma
+// passes over the codes widened in shared memory, each finished score
+// scaled once before the selection); its winners are pool_writer.int8's
+// and count_above.int8 counts its scores, bit for bit. Bound: operations,
+// 3 x 2*M*N*D at 989 TFLOP/s ([9000 x 240,000 x 512] is 6.7 ms). Codes
+// rows take a multiple of 16 values.
 #include "reduce_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -456,15 +458,43 @@ struct TcTopK {
   }
 };
 
-template <bool kSmemSets>
-int run_tc_topk(const __nv_bfloat16* q, const __nv_bfloat16* refs, int m, int d,
-                int n_valid, int kappa, int grid, int pieces, float* out_v,
-                int* out_i, cudaStream_t s) {
+// The epilogue of a launch with that placement; `launch` runs it over its
+// corpus (ep, shared-memory bytes of the sets).
+template <bool kSmemSets, class Launch>
+int run_tc_topk(int m, int d, int n_valid, int kappa, int pieces, float* out_v,
+                int* out_i, Launch launch) {
   using E = TcTopK<kSmemSets>;
   const vsc::wg::Plan p = vsc::wg::plan(m, n_valid, d);
-  const E ep{out_v, out_i, m, kappa, pieces, p.items, p.c_tiles * E::kGroup};
-  return (int)vsc::wg::launch(q, refs, m, d, n_valid, grid, ep, s,
-                              E::set_bytes(kappa));
+  return (int)launch(E{out_v, out_i, m, kappa, pieces, p.items, p.c_tiles * E::kGroup},
+                     E::set_bytes(kappa));
+}
+
+// Output filled, then the placement smem_sets selects, over the corpus
+// `launch` (a generic lambda: (epilogue, extra shared bytes)) takes.
+template <class Launch>
+int tc_topk(int device, int m, int n, int d, int n_valid, int kappa, int smem_sets,
+            int pieces, float* out_v, int* out_i, cudaStream_t s, Launch launch) {
+  if (m <= 0) return 0;
+  if (kappa <= 0 || pieces <= 0 || n_valid < 0 || n_valid > n ||
+      (smem_sets && kappa > kTcSmemKappaMax))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = fill_output(out_v, out_i, m, pieces, kappa, s);
+  if (err != cudaSuccess) return (int)err;
+  return smem_sets ? run_tc_topk<true>(m, d, n_valid, kappa, pieces, out_v, out_i, launch)
+                   : run_tc_topk<false>(m, d, n_valid, kappa, pieces, out_v, out_i, launch);
+}
+
+// Blocks an SM holds at once of the placement smem_sets selects over
+// corpus C.
+template <class C>
+int tc_topk_occupancy(int device, int smem_sets, int kappa, int* blocks_per_sm) {
+  if (smem_sets && (kappa <= 0 || kappa > kTcSmemKappaMax))
+    return (int)cudaErrorInvalidValue;
+  return smem_sets ? vsc::wg::resident_blocks<TcTopK<true>, C>(
+                         device, blocks_per_sm, TcTopK<true>::set_bytes(kappa))
+                   : vsc::wg::resident_blocks<TcTopK<false>, C>(device, blocks_per_sm);
 }
 
 }  // namespace
@@ -496,41 +526,10 @@ extern "C" int vsc_fused_topk(int device, const float* q, const float* refs,
   err = fill_output(out_v, out_i, m, pieces, kappa, s);
   if (err != cudaSuccess) return (int)err;
   const bool in_smem = kappa <= kSmemKappaMax;
-  const int ring = vec ? ring_bytes<TopK, F32Corpus<true>>()
-                       : ring_bytes<TopK, F32Corpus<false>>();
+  const int ring = ring_bytes<TopK>();
   return (int)vsc::reduce::launch(
       q, refs, m, d, n_valid, vec, grid,
       TopK{out_v, out_i, kappa, pieces, in_smem, ring / 4},
-      in_smem ? smem_set_bytes(kappa) : 0, s);
-}
-
-// Blocks of the int8 kernel one SM holds at once.
-extern "C" int vsc_fused_topk_int8_occupancy(int device, int* blocks_per_sm) {
-  return vsc::reduce::resident_blocks_int8<TopK>(
-      device, smem_set_bytes(kSmemKappaMax), blocks_per_sm);
-}
-
-// The int8 variant (SQ8 corpus): q [m, d] f32 and codes [n, d] int8
-// row-major, d a multiple of 16 (zero pad columns past the data's width),
-// both bases 16-byte aligned, scale [n] f32; `grid` and `pieces` as for
-// vsc_fused_topk (the same schedule: ops/kernels.py topk_grid).
-extern "C" int vsc_fused_topk_int8(int device, const float* q,
-                                   const int8_t* codes, const float* scale,
-                                   int m, int n, int d, int n_valid, int kappa,
-                                   int grid, int pieces, float* out_v,
-                                   int* out_i, void* stream) {
-  if (m <= 0) return 0;
-  if (kappa <= 0 || pieces <= 0 || n_valid < 0 || n_valid > n)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = fill_output(out_v, out_i, m, pieces, kappa, s);
-  if (err != cudaSuccess) return (int)err;
-  const bool in_smem = kappa <= kSmemKappaMax;
-  return (int)vsc::reduce::launch_int8(
-      q, codes, scale, m, d, n_valid, grid,
-      TopK{out_v, out_i, kappa, pieces, in_smem, ring_bytes<TopK, I8Corpus>() / 4},
       in_smem ? smem_set_bytes(kappa) : 0, s);
 }
 
@@ -540,11 +539,7 @@ extern "C" int vsc_fused_topk_int8(int device, const float* q,
 // 38); 0, the one with the sets in the output.
 extern "C" int vsc_fused_topk_bf16_occupancy(int device, int smem_sets,
                                              int kappa, int* blocks_per_sm) {
-  if (smem_sets && (kappa <= 0 || kappa > kTcSmemKappaMax))
-    return (int)cudaErrorInvalidValue;
-  return smem_sets ? vsc::wg::resident_blocks<TcTopK<true>>(
-                         device, blocks_per_sm, TcTopK<true>::set_bytes(kappa))
-                   : vsc::wg::resident_blocks<TcTopK<false>>(device, blocks_per_sm);
+  return tc_topk_occupancy<vsc::wg::Bf16Corpus>(device, smem_sets, kappa, blocks_per_sm);
 }
 
 // Bytes of dynamic shared memory one block of the bf16 kernel takes in the
@@ -566,17 +561,34 @@ extern "C" int vsc_fused_topk_bf16(int device, const __nv_bfloat16* q,
                                    int d, int n_valid, int kappa, int smem_sets,
                                    int grid, int pieces, float* out_v,
                                    int* out_i, void* stream) {
-  if (m <= 0) return 0;
-  if (kappa <= 0 || pieces <= 0 || n_valid < 0 || n_valid > n ||
-      (smem_sets && kappa > kTcSmemKappaMax))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = fill_output(out_v, out_i, m, pieces, kappa, s);
-  if (err != cudaSuccess) return (int)err;
-  return smem_sets ? run_tc_topk<true>(q, refs, m, d, n_valid, kappa, grid,
-                                       pieces, out_v, out_i, s)
-                   : run_tc_topk<false>(q, refs, m, d, n_valid, kappa, grid,
-                                        pieces, out_v, out_i, s);
+  return tc_topk(device, m, n, d, n_valid, kappa, smem_sets, pieces, out_v, out_i, s,
+                 [&](const auto& ep, int extra) {
+                   return vsc::wg::launch(q, refs, m, d, n_valid, grid, ep, s, extra);
+                 });
+}
+
+// Blocks of the int8 kernel (tensor cores) one SM holds at once, as for
+// vsc_fused_topk_bf16_occupancy.
+extern "C" int vsc_fused_topk_int8_occupancy(int device, int smem_sets,
+                                             int kappa, int* blocks_per_sm) {
+  return tc_topk_occupancy<vsc::wg::I8Corpus>(device, smem_sets, kappa, blocks_per_sm);
+}
+
+// The int8 variant (SQ8 corpus): terms [3, m, d] bf16 (the f32 queries
+// split, ops/kernels.py split_bf16x3), codes [n, d] int8 row-major, d a
+// multiple of 16 (zero pad columns past the data's width), both bases
+// 16-byte aligned, scale [n] f32; the rest as for vsc_fused_topk_bf16 (the
+// same plan: ops/kernels.py wgmma_pieces).
+extern "C" int vsc_fused_topk_int8(int device, const __nv_bfloat16* terms,
+                                   const int8_t* codes, const float* scale,
+                                   int m, int n, int d, int n_valid, int kappa,
+                                   int smem_sets, int grid, int pieces,
+                                   float* out_v, int* out_i, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tc_topk(device, m, n, d, n_valid, kappa, smem_sets, pieces, out_v, out_i, s,
+                 [&](const auto& ep, int extra) {
+                   return vsc::wg::launch_int8(terms, codes, scale, m, d, n_valid,
+                                               grid, ep, s, extra);
+                 });
 }

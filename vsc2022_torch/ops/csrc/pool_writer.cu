@@ -18,17 +18,6 @@
 // L2. Every score is the f32 fmaf chain of reduce_gemm.cuh, so the pool is
 // what the f32 row_max, count_above and fused_topk score, bit for bit.
 //
-// int8 (vsc_pool_writer_int8, launch key pool_writer.int8) is the pooled
-// collection over an int8 (SQ8) corpus; the Pallas kernels are gated off
-// for int8 and JAX builds that pool with XLA (pool_build_xla on the IP8
-// branch, vsc2022_tpu/ops/similarity.py:704-735: codes widened into an
-// f32 dot at HIGHEST, one scale multiply per column). Here it is the f32
-// kernel with the codes widened exactly as tile_gemm.cuh copies them, and
-// each finished score scaled once (ColumnScale) before the segment
-// reduction, so the pool is what row_max.int8, count_above.int8,
-// fused_topk.int8 and scores.int8 score, bit for bit. Bound: operations,
-// as the f32 kernel; its corpus bytes are a quarter of f32's.
-//
 // bf16 (vsc_pool_writer_bf16) replaces the Pallas kernels' bf16 branch
 // (pallas_kernels.py:228-230 and :389-391: bf16 operands in one native
 // pass, f32 accumulation), the pooled collection over a bf16 corpus. Bound:
@@ -48,12 +37,27 @@
 // its kept entries) compares the same bits. The stores are ~1.1 GB at SSCD
 // (9000 x 7,872 segments x 16 bytes), scattered one row N/128 x 8 bytes
 // apart, well under the operations bound.
-// Work: the plan covers the corpus tiles up to n_valid (wg::plan). The
+//
+// int8 (vsc_pool_writer_int8, launch key pool_writer.int8) is the pooled
+// collection over an int8 (SQ8) corpus; the Pallas kernels are gated off
+// for int8 and JAX builds that pool with XLA (pool_build_xla on the IP8
+// branch, vsc2022_tpu/ops/similarity.py:704-735: codes widened into an
+// f32 dot at HIGHEST, one scale multiply per column). Here it is the same
+// pool epilogue on wgmma_gemm.cuh's int8 corpus policy (three exact bf16
+// passes of the split f32 queries over the codes widened in shared memory,
+// each score scaled once before the segment reduction), so the pool is
+// what row_max.int8, count_above.int8, fused_topk.int8 and
+// scores_above.int8 score, bit for bit. Bound: operations, 3 x 2*M*N*D at
+// 989 TFLOP/s ([9000 x 1,000,020 x 512] is 28.0 ms); its corpus bytes are
+// a quarter of f32's.
+//
+// Work (bf16 and int8): the plan covers the corpus tiles up to n_valid (wg::plan). The
 // kernel writes segments [0, min(2 x those tiles, N/128)): with N/128 odd,
 // the last tile's second segment lies past the output and is not written.
 // The segments past them (zero rows the searcher pads the corpus with)
 // score -inf; the wrapper fills them (ops/kernels.py pool_segments). Rows
-// take a multiple of 8 values (ops/kernels.py pad_columns).
+// take a multiple of 8 values, codes rows of 16 (ops/kernels.py
+// pad_columns).
 #include <climits>
 
 #include "tile_gemm.cuh"
@@ -79,14 +83,11 @@ __device__ __forceinline__ Top2 warp_top2(const float (&row_acc)[COLS_PER_LANE],
   return t;
 }
 
-// T: the corpus rows' type (f32, or int8 codes whose scores take the
-// column hook `scaled`).
-template <class T>
 __global__ void __launch_bounds__(THREADS)
     pool_writer_kernel(const float* __restrict__ q,
-                       const T* __restrict__ refs, ColumnScale scaled, int m,
-                       int n, int d, int n_valid, int n_row_tiles,
-                       float* __restrict__ out_v, int* __restrict__ out_i) {
+                       const float* __restrict__ refs, int m, int n, int d,
+                       int n_valid, int n_row_tiles, float* __restrict__ out_v,
+                       int* __restrict__ out_i) {
   __shared__ TileSmem sm;
   const int rt = blockIdx.x % n_row_tiles;
   const int seg = blockIdx.x / n_row_tiles;
@@ -99,7 +100,6 @@ __global__ void __launch_bounds__(THREADS)
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if constexpr (sizeof(T) == 1) scaled.apply(acc, col0 + lane * COLS_PER_LANE);
 #pragma unroll
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
     const Top2 t = warp_top2(acc[r], col0, n_valid, lane);
@@ -114,9 +114,9 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// The pool epilogue of the tensor-core product (wgmma_gemm.cuh): no state
-// across items, so begin and flush have nothing to do.
-struct Bf16Pool {
+// The pool epilogue of the tensor-core product (wgmma_gemm.cuh, either
+// corpus): no state across items, so begin and flush have nothing to do.
+struct TcPool {
   static constexpr int kStages = wg::kStages, kGroup = wg::kGroup;
   float* out_v;
   int* out_i;
@@ -158,22 +158,6 @@ struct Bf16Pool {
                                         const wg::Item&) const {}
 };
 
-template <class T>
-int run_pool_writer(int device, const float* q, const T* refs,
-                    ColumnScale scaled, int m, int n, int d, int n_valid,
-                    float* out_v, int* out_i, void* stream) {
-  if (m <= 0 || n <= 0) return 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int n_row_tiles = (m + BM - 1) / BM;
-  const long long blocks = (long long)n_row_tiles * (n / BN);
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  pool_writer_kernel<T><<<(unsigned)blocks, THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      q, refs, scaled, m, n, d, n_valid, n_row_tiles, out_v, out_i);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // q [m, d], refs [n, d] (n a multiple of 128), both f32 row-major on the
@@ -181,30 +165,27 @@ int run_pool_writer(int device, const float* q, const T* refs,
 extern "C" int vsc_pool_writer(int device, const float* q, const float* refs,
                                int m, int n, int d, int n_valid, float* out_v,
                                int* out_i, void* stream) {
-  return run_pool_writer(device, q, refs, ColumnScale{nullptr, 0}, m, n, d,
-                         n_valid, out_v, out_i, stream);
-}
-
-// The int8 variant (SQ8 corpus): q [m, d] f32, codes [n, d] int8 (n a
-// multiple of 128) and scale [n] f32, row-major on the device; a score is
-// (q . codes[j]) * scale[j]. Output as for vsc_pool_writer.
-extern "C" int vsc_pool_writer_int8(int device, const float* q,
-                                    const int8_t* codes, const float* scale,
-                                    int m, int n, int d, int n_valid,
-                                    float* out_v, int* out_i, void* stream) {
-  return run_pool_writer(device, q, codes, ColumnScale{scale, n}, m, n, d,
-                         n_valid, out_v, out_i, stream);
+  if (m <= 0 || n <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int n_row_tiles = (m + BM - 1) / BM;
+  const long long blocks = (long long)n_row_tiles * (n / BN);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  pool_writer_kernel<<<(unsigned)blocks, THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      q, refs, m, n, d, n_valid, n_row_tiles, out_v, out_i);
+  return (int)cudaGetLastError();
 }
 
 // Blocks of the bf16 kernel (tensor cores) one SM holds at once: its grid is
 // SMs x this, at most the work items of ops/kernels.py wgmma_tiles.
 extern "C" int vsc_pool_writer_bf16_occupancy(int device, int* blocks_per_sm) {
-  return wg::resident_blocks<Bf16Pool>(device, blocks_per_sm);
+  return wg::resident_blocks<TcPool>(device, blocks_per_sm);
 }
 
 // Bytes of dynamic shared memory one block of that kernel takes.
 extern "C" int vsc_pool_writer_bf16_smem_bytes() {
-  return wg::smem_bytes<Bf16Pool>();
+  return wg::smem_bytes<TcPool>();
 }
 
 // The bf16 variant: q [m, d] and refs [n, d] bf16 row-major, n a multiple
@@ -220,6 +201,30 @@ extern "C" int vsc_pool_writer_bf16(int device, const __nv_bfloat16* q,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   return (int)wg::launch(q, refs, m, d, n_valid, grid,
-                         Bf16Pool{out_v, out_i, m, n / BN},
+                         TcPool{out_v, out_i, m, n / BN},
                          static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the int8 kernel (tensor cores) one SM holds at once.
+extern "C" int vsc_pool_writer_int8_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<TcPool, wg::I8Corpus>(device, blocks_per_sm);
+}
+
+// The int8 variant (SQ8 corpus): terms [3, m, d] bf16 (the f32 queries
+// split, ops/kernels.py split_bf16x3), codes [n, d] int8 and scale [n] f32
+// row-major on the device, n a multiple of 128, d a multiple of 16 (zero
+// pad columns past the data's width), both bases 16-byte aligned; a score
+// is (q . codes[j]) * scale[j]. Output, `grid` and the segments written as
+// for vsc_pool_writer_bf16.
+extern "C" int vsc_pool_writer_int8(int device, const __nv_bfloat16* terms,
+                                    const int8_t* codes, const float* scale,
+                                    int m, int n, int d, int n_valid, int grid,
+                                    float* out_v, int* out_i, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  if (n % BN || n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wg::launch_int8(terms, codes, scale, m, d, n_valid, grid,
+                              TcPool{out_v, out_i, m, n / BN},
+                              static_cast<cudaStream_t>(stream));
 }

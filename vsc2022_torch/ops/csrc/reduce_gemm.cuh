@@ -1,10 +1,8 @@
 // Persistent, pipelined f32 tile product of the retrieval kernels that keep
 // no score: row_max, count_above (one value per query row: a max, a count)
-// and fused_topk (a top-kappa set per query row). Their [M, N] scores never
-// reach device memory; each kernel is this product plus an epilogue that
-// consumes every finished tile. One kernel writes its scores out:
-// scores.int8 (scores.cu, I8ScoreStore), the searchers' re-search over an
-// int8 corpus, which must score as the int8 kernels do.
+// and fused_topk (a top-kappa set per query row), over f32 operands. Their
+// [M, N] scores never reach device memory; each kernel is this product plus
+// an epilogue that consumes every finished tile.
 //
 // Arithmetic. Every score is the sequential sum over k = 0..D-1 of
 // fmaf(q, r, acc) from +0.0f, the order of tile_gemm.cuh, so these kernels
@@ -15,8 +13,8 @@
 // at +0.0f and an exact cancellation rounds to +0). No split-K, no TF32, no
 // reassociation: the pooled prune (similarity.py, `totals == kept`) and
 // the streaming verify need counts of exactly the scores the pool and the
-// candidates hold. The bf16 kernels run the tensor-core product of
-// wgmma_gemm.cuh instead, all four on it, for the same reason.
+// candidates hold. The bf16 and int8 kernels run the tensor-core product of
+// wgmma_gemm.cuh instead, all of one dtype on it, for the same reason.
 //
 // Work. A work item is a [128 query rows x 128 ref columns] tile (one
 // winner-pool segment per row), items are numbered row tile major (item =
@@ -50,21 +48,6 @@
 // one of the stages are in flight while one is multiplied, and while the
 // epilogue runs.
 //
-// int8 corpora (SQ8: the row_max, count_above, fused_topk and scores
-// kernels' .int8 variants). The queries stay f32 and the corpus is int8 codes with
-// one f32 scale per row; a score is (q . float(codes)) * scale. The codes
-// land by 16-byte cp.async in a ring of their own (rows of a multiple of
-// 16 codes, zero-padded, so every copy is whole) and each landed slice is
-// widened once into one f32 stage, which the same multiply_slice reads:
-// 32 conversions a thread per 64-deep slice against 4,096 FMAs (widening
-// where a thread reads its fragment instead would convert each code once
-// per reading thread, 16 times, in the inner loop). A widened code is
-// exact, so the chain is the f32 chain on codes.float(), bit for bit. The
-// scale is one multiply per finished score, in the corpus's column hook
-// (I8Corpus::finish), before the epilogue takes its max, count or
-// selection; columns at or past n_valid are masked by the epilogue after
-// it. The widening costs one more barrier per slice.
-//
 // Registers. The k-contiguous fragments (8 + 8 float4 per 4 k-steps) and
 // the 64 accumulators take the thread's 255 registers, so an SM holds one
 // block (8 warps); a 64-deep slice keeps the barriers to one per 4,096
@@ -91,10 +74,6 @@ constexpr int BK = 64;         // depth per ring stage
 constexpr int STAGES = 3;      // ring depth of the row reductions
 constexpr int LD = BK + 4;     // padded row of a stage, in floats
 constexpr int STAGE_FLOATS = (BM + BN) * LD;
-// An int8 corpus's landing stage: BN rows of BK codes, each padded to LDB
-// bytes so that the widening reads of a quarter-warp hit distinct banks.
-constexpr int LDB = BK + 16;
-constexpr int I8_ALIGN = 16;  // codes per row: a multiple (16-byte copies)
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
@@ -178,126 +157,11 @@ __device__ __forceinline__ void multiply_slice(const float* a_stage,
   }
 }
 
-// ---- the corpus operand ----------------------------------------------------
-//
-// A corpus policy R gives the kernel its corpus rows and the hook through
-// which every finished score leaves the chain:
-//   kVecQ                     16-byte copies of the queries
-//   kWiden                    the landed slice must be widened first
-//   ring_bytes(stages)        dynamic shared memory of a `stages` ring
-//   float* q_stage(ring, s)   stage s's query rows (BM x LD floats)
-//   float* b_stage(ring, s, stages)   the corpus rows multiply_slice reads
-//   void load(ring, s, stages, lim, d, row0, k0)   copy a corpus slice
-//   void widen(ring, s, stages)                     (kWiden only)
-//   void finish(acc, col, n_valid)   the per-column hook: the thread's
-//       scores of columns col + 8j, once, before the epilogue sees them.
-//       An L2 corpus (2 q.r - |r|^2) is another hook of this form.
-
-// f32 rows: each stage holds the query rows and then the corpus rows.
-template <bool kVec>
-struct F32Corpus {
-  static constexpr bool kVecQ = kVec, kWiden = false;
-  const float* rows;
-
-  static constexpr int ring_bytes(int stages) {
-    return stages * STAGE_FLOATS * (int)sizeof(float);
-  }
-  __device__ __forceinline__ static float* q_stage(float* ring, int s) {
-    return ring + s * STAGE_FLOATS;
-  }
-  __device__ __forceinline__ static const float* b_stage(float* ring, int s,
-                                                         int) {
-    return ring + s * STAGE_FLOATS + BM * LD;
-  }
-  __device__ __forceinline__ void load(float* ring, int s, int, int lim, int d,
-                                       int row0, int k0) const {
-    load_rows<BN, kVec>(ring + s * STAGE_FLOATS + BM * LD, rows, lim, d, row0,
-                        k0);
-  }
-  __device__ __forceinline__ void widen(float*, int, int) const {}
-  __device__ __forceinline__ void finish(float (&)[TM][TN], int, int) const {}
-};
-
-// int8 codes with a scale per row (SQ8): the ring holds `stages` query
-// stages, then one widened f32 corpus stage, then `stages` landing stages
-// of codes.
-struct I8Corpus {
-  static constexpr bool kVecQ = true, kWiden = true;
-  const int8_t* codes;  // [*, d], d a multiple of I8_ALIGN
-  const float* scale;   // one per corpus row
-
-  static constexpr int ring_bytes(int stages) {
-    return stages * (BM * LD * (int)sizeof(float) + BN * LDB) +
-           BN * LD * (int)sizeof(float);
-  }
-  __device__ __forceinline__ static float* q_stage(float* ring, int s) {
-    return ring + s * BM * LD;
-  }
-  __device__ __forceinline__ static const float* b_stage(float* ring, int,
-                                                         int stages) {
-    return ring + stages * BM * LD;
-  }
-  __device__ __forceinline__ static int8_t* landing(float* ring, int s,
-                                                    int stages) {
-    return reinterpret_cast<int8_t*>(ring + stages * BM * LD + BN * LD) +
-           s * BN * LDB;
-  }
-  // Consecutive threads copy consecutive 16-code pieces of a row; rows >=
-  // lim and pieces at or past d (a multiple of 16) read as zeros.
-  __device__ __forceinline__ void load(float* ring, int s, int stages, int lim,
-                                       int d, int row0, int k0) const {
-    constexpr int PIECES = BK / 16, STEP = THREADS / PIECES;
-    const int c = threadIdx.x % PIECES, r = threadIdx.x / PIECES;
-    const int k = k0 + 16 * c;
-    const int8_t* p = codes + (size_t)(row0 + r) * d + k;
-    int8_t* dst = landing(ring, s, stages) + r * LDB + 16 * c;
-#pragma unroll
-    for (int e = 0; e < BN / STEP; ++e) {
-      const bool ok = k < d && row0 + r + STEP * e < lim;
-      cp_async16(dst + STEP * e * LDB, ok ? p + (size_t)STEP * e * d : codes,
-                 ok);
-    }
-  }
-  // Landing stage s into the f32 stage: each thread widens two 16-code
-  // pieces (rows p % BN, k-quarters p / BN), exactly.
-  __device__ __forceinline__ void widen(float* ring, int s, int stages) const {
-    const int8_t* src = landing(ring, s, stages);
-    float* dst = ring + stages * BM * LD;
-#pragma unroll
-    for (int e = 0; e < BN * (BK / 16) / THREADS; ++e) {
-      const int p = threadIdx.x + e * THREADS;
-      const int row = p % BN, kq = 16 * (p / BN);
-      const int4 v = *reinterpret_cast<const int4*>(src + row * LDB + kq);
-      const unsigned w[4] = {(unsigned)v.x, (unsigned)v.y, (unsigned)v.z,
-                             (unsigned)v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(dst + row * LD + kq + 4 * i) =
-            make_float4(code(w[i], 0), code(w[i], 1), code(w[i], 2),
-                        code(w[i], 3));
-    }
-  }
-  // Byte b of w (little-endian: the lower column first) as a signed code
-  // (the narrowing keeps the low 8 bits, two's complement).
-  __device__ __forceinline__ static float code(unsigned w, int b) {
-    return (float)(int8_t)(w >> (8 * b));
-  }
-  __device__ __forceinline__ void finish(float (&acc)[TM][TN], int col,
-                                         int n_valid) const {
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const float sc = col + 8 * j < n_valid ? scale[col + 8 * j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) acc[i][j] *= sc;
-    }
-  }
-};
-
-// Bytes of the ring of an epilogue's kernel over corpus R: E::kStages
-// stages.
-template <class E, class R = F32Corpus<true>>
+// Bytes of the ring of an epilogue's kernel: E::kStages stages, each the
+// query rows and then the corpus rows of one k-slice.
+template <class E>
 constexpr int ring_bytes() {
-  return R::ring_bytes(E::kStages);
+  return E::kStages * STAGE_FLOATS * (int)sizeof(float);
 }
 
 // A thread's place in the block tile: it holds rows `row + 4i` and columns
@@ -386,9 +250,10 @@ struct RowFold {
   }
 };
 
-template <class E, class R>
+// kVec: 16-byte copies of both operands (vec_ok), else 4-byte ones.
+template <class E, bool kVec>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-    reduce_kernel(const float* __restrict__ q, R corpus, int m, int d,
+    reduce_kernel(const float* __restrict__ q, const float* refs, int m, int d,
                   int n_valid, E ep) {
   extern __shared__ __align__(16) float ring[];
   __shared__ typename E::Smem esm;
@@ -417,9 +282,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   int rt = (int)(begin / col_tiles), ct = (int)(begin % col_tiles);
   int lrt = rt, lct = ct, lkt = 0;
   auto load_step = [&](int stage) {
-    load_rows<BM, R::kVecQ>(R::q_stage(ring, stage), q, m, d, lrt * BM,
-                            lkt * BK);
-    corpus.load(ring, stage, kStages, n_valid, d, lct * BN, lkt * BK);
+    float* dst = ring + stage * STAGE_FLOATS;
+    load_rows<BM, kVec>(dst, q, m, d, lrt * BM, lkt * BK);
+    load_rows<BN, kVec>(dst + BM * LD, refs, n_valid, d, lct * BN, lkt * BK);
     if (++lkt == kt_n) {
       lkt = 0;
       if (++lct == col_tiles) {
@@ -450,18 +315,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     if (ahead)  // into the stage step s - 1 used
       load_step(cstage == 0 ? kStages - 1 : cstage - 1);
     cp_async_commit();
-    if constexpr (R::kWiden) {
-      corpus.widen(ring, cstage, kStages);
-      __syncthreads();  // the widened stage is whole
-    }
-    multiply_slice(R::q_stage(ring, cstage), R::b_stage(ring, cstage, kStages),
-                   t.row, t.col, acc);
+    multiply_slice(ring + cstage * STAGE_FLOATS,
+                   ring + cstage * STAGE_FLOATS + BM * LD, t.row, t.col, acc);
     cstage = cstage + 1 == kStages ? 0 : cstage + 1;
     if (++ckt < kt_n) continue;
 
     // Item (rt, ct) is complete.
     ckt = 0;
-    corpus.finish(acc, ct * BN + t.col, n_valid);
     const int valid_cols = n_valid - (ct * BN + t.col);
     if (ct * BN + BN <= n_valid)
       ep.template item<false>(st, esm, t, work, acc, rt, ct, valid_cols);
@@ -478,26 +338,26 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   }
 }
 
-template <class E, class R>
+template <class E, bool kVec>
 cudaError_t configure(int smem_bytes) {
   cudaError_t err = cudaFuncSetAttribute(
-      reduce_kernel<E, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      reduce_kernel<E, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(reduce_kernel<E, R>,
+  return cudaFuncSetAttribute(reduce_kernel<E, kVec>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <class E, class R>
+template <class E, bool kVec>
 int resident_blocks_of(int device, int extra, int* blocks_per_sm) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int smem = ring_bytes<E, R>() + extra;
-  err = configure<E, R>(smem);
+  const int smem = ring_bytes<E>() + extra;
+  err = configure<E, kVec>(smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, reduce_kernel<E, R>, THREADS, smem);
+      blocks_per_sm, reduce_kernel<E, kVec>, THREADS, smem);
 }
 
 // Blocks of the kernel an SM holds at once with `extra` bytes of dynamic
@@ -505,14 +365,8 @@ int resident_blocks_of(int device, int extra, int* blocks_per_sm) {
 // copies if vec.
 template <class E>
 int resident_blocks(int device, int vec, int extra, int* blocks_per_sm) {
-  return vec ? resident_blocks_of<E, F32Corpus<true>>(device, extra, blocks_per_sm)
-             : resident_blocks_of<E, F32Corpus<false>>(device, extra, blocks_per_sm);
-}
-
-// The same over an int8 corpus.
-template <class E>
-int resident_blocks_int8(int device, int extra, int* blocks_per_sm) {
-  return resident_blocks_of<E, I8Corpus>(device, extra, blocks_per_sm);
+  return vec ? resident_blocks_of<E, true>(device, extra, blocks_per_sm)
+             : resident_blocks_of<E, false>(device, extra, blocks_per_sm);
 }
 
 // Whether the 16-byte copies may be used: a row is a whole number of 16-byte
@@ -523,11 +377,11 @@ inline bool vec_ok(const float* q, const float* refs, int d) {
           15) == 0;
 }
 
-// Launch `grid` blocks of the kernel over corpus R on the items of an
-// [m, n_valid] call, with `extra` bytes of dynamic shared memory past the
-// ring; nothing when there are no items.
-template <class E, class R>
-cudaError_t launch_on(const float* q, const R& corpus, int m, int d,
+// Launch `grid` blocks of the kernel on the items of an [m, n_valid] call,
+// with `extra` bytes of dynamic shared memory past the ring; nothing when
+// there are no items.
+template <class E, bool kVec>
+cudaError_t launch_on(const float* q, const float* refs, int m, int d,
                       int n_valid, int grid, const E& ep, int extra,
                       cudaStream_t s) {
   if (m <= 0 || n_valid <= 0) return cudaSuccess;
@@ -538,10 +392,10 @@ cudaError_t launch_on(const float* q, const R& corpus, int m, int d,
   if ((unsigned long long)grid > items ||
       (items / grid + 1) * ((d + BK - 1) / BK) > (unsigned long long)INT_MAX)
     return cudaErrorInvalidValue;
-  const int smem = ring_bytes<E, R>() + extra;
-  cudaError_t err = configure<E, R>(smem);
+  const int smem = ring_bytes<E>() + extra;
+  cudaError_t err = configure<E, kVec>(smem);
   if (err != cudaSuccess) return err;
-  reduce_kernel<E, R><<<grid, THREADS, smem, s>>>(q, corpus, m, d, n_valid, ep);
+  reduce_kernel<E, kVec><<<grid, THREADS, smem, s>>>(q, refs, m, d, n_valid, ep);
   return cudaGetLastError();
 }
 
@@ -551,24 +405,8 @@ cudaError_t launch(const float* q, const float* refs, int m, int d,
                    int n_valid, int vec, int grid, const E& ep, int extra,
                    cudaStream_t s) {
   if (vec && !vec_ok(q, refs, d)) return cudaErrorInvalidValue;
-  return vec ? launch_on(q, F32Corpus<true>{refs}, m, d, n_valid, grid, ep,
-                         extra, s)
-             : launch_on(q, F32Corpus<false>{refs}, m, d, n_valid, grid, ep,
-                         extra, s);
-}
-
-// int8 codes [*, d] and their scales: d a multiple of I8_ALIGN, q [m, d]
-// f32, both bases 16-byte aligned.
-template <class E>
-cudaError_t launch_int8(const float* q, const int8_t* codes,
-                        const float* scale, int m, int d, int n_valid,
-                        int grid, const E& ep, int extra, cudaStream_t s) {
-  if (d % I8_ALIGN ||
-      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(codes)) &
-       15))
-    return cudaErrorInvalidValue;
-  return launch_on(q, I8Corpus{codes, scale}, m, d, n_valid, grid, ep, extra,
-                   s);
+  return vec ? launch_on<E, true>(q, refs, m, d, n_valid, grid, ep, extra, s)
+             : launch_on<E, false>(q, refs, m, d, n_valid, grid, ep, extra, s);
 }
 
 }  // namespace reduce

@@ -17,17 +17,6 @@
 // reads or the fill, bound the inner loop. Its scores are pool_writer's bit
 // for bit: the row max equals the pool's best winner.
 //
-// The int8 variant (vsc_row_max_int8) is the noise-NN over an int8 (SQ8)
-// corpus: the JAX searcher's k = 1 streaming top-k over int8 storage, XLA
-// with the codes widened into an f32 dot at HIGHEST and one scale multiply
-// per column (vsc2022_tpu/ops/similarity.py:259-283, the IP8 branch). It
-// is this kernel over reduce_gemm.cuh's int8 corpus: the codes widened
-// exactly into the same fmaf chain, the scale applied once per finished
-// score before the max. Bound: operations, as the f32 kernel (2*M*N*D at
-// 67 TFLOP/s); the corpus bytes are a quarter of f32's. With every scale 1
-// it is the f32 kernel on codes.float(), bit for bit; its scores are those
-// of the other .int8 kernels.
-//
 // The bf16 variant (vsc_row_max_bf16) is the noise-NN over a bf16 corpus
 // (score_norm(dtype="bfloat16") and the serving bias): fused_row_max has no
 // bf16 branch, and the JAX searcher computes it with XLA on bf16 operands
@@ -61,6 +50,20 @@
 // winner and fused_topk.bf16's best value, which chip_smoke.py checks on
 // every bf16 path's inputs. Rows take a multiple
 // of 8 values (ops/kernels.py pad_columns).
+//
+// The int8 variant (vsc_row_max_int8) is the noise-NN over an int8 (SQ8)
+// corpus (score normalization's noise corpus and the serving bias under
+// --int8): the JAX searcher's k = 1 streaming top-k over int8 storage, XLA
+// with the codes widened into an f32 dot at HIGHEST and one scale multiply
+// per column (vsc2022_tpu/ops/similarity.py:259-283, the IP8 branch). It
+// is the row-max epilogue on wgmma_gemm.cuh's int8 corpus policy: the f32
+// queries split into three exact bf16 terms, three wgmma passes over the
+// codes widened to bf16 in shared memory, each finished score scaled once
+// before the max. Bound: operations, 3 x 2*M*N*D at 989 TFLOP/s ([9000 x
+// 250,020 x 511] is 6.98 ms); the corpus bytes are a quarter of f32's. Its
+// scores are those of the other .int8 kernels bit for bit, and with unit
+// scales and bf16-exact queries those of row_max.bf16 on the widened
+// codes (the mid and lo passes add zeros).
 #include "reduce_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -103,10 +106,10 @@ struct RowMax {
   }
 };
 
-// The row-max epilogue of the tensor-core product (wgmma_gemm.cuh): each
-// owner thread keeps rows row0 and row0 + 8 of every query tile of the
-// group in shared memory.
-struct Bf16RowMax {
+// The row-max epilogue of the tensor-core product (wgmma_gemm.cuh, either
+// corpus): each owner thread keeps rows row0 and row0 + 8 of every query
+// tile of the group in shared memory.
+struct TcRowMax {
   static constexpr int kStages = wg::kStages, kGroup = wg::kGroup;
   unsigned* keys;
   int m;
@@ -161,8 +164,8 @@ struct Bf16RowMax {
   }
 };
 
-// Fills the keys, runs `launch` (the reduce_gemm.cuh kernel) and turns the
-// keys into f32.
+// Fills the keys, runs `launch` (the product with the row-max epilogue) and
+// turns the keys into f32.
 template <class Launch>
 int run_row_max(int device, int m, int n, int n_valid, unsigned* keys,
                 float* out, void* stream, Launch launch) {
@@ -203,32 +206,10 @@ extern "C" int vsc_row_max(int device, const float* q, const float* refs,
                      });
 }
 
-// Blocks of the int8 kernel one SM holds at once.
-extern "C" int vsc_row_max_int8_occupancy(int device, int* blocks_per_sm) {
-  return reduce::resident_blocks_int8<reduce::RowFold<RowMax>>(
-      device, 0, blocks_per_sm);
-}
-
-// The int8 variant (SQ8 corpus): q [m, d] f32 and codes [n, d] int8
-// row-major, d a multiple of 16 (zero pad columns past the data's width),
-// both bases 16-byte aligned, scale [n] f32 (a score is (q . codes[j]) *
-// scale[j]); keys, out and `grid` as for vsc_row_max.
-extern "C" int vsc_row_max_int8(int device, const float* q, const int8_t* codes,
-                                const float* scale, int m, int n, int d,
-                                int n_valid, int grid, unsigned* keys,
-                                float* out, void* stream) {
-  return run_row_max(device, m, n, n_valid, keys, out, stream,
-                     [&](cudaStream_t s) {
-                       return reduce::launch_int8(
-                           q, codes, scale, m, d, n_valid, grid,
-                           reduce::RowFold<RowMax>{{keys}}, 0, s);
-                     });
-}
-
 // Blocks of the bf16 kernel one SM holds at once (its grid: SMs x this,
 // at most the work items of ops/kernels.py wgmma_items).
 extern "C" int vsc_row_max_bf16_occupancy(int device, int* blocks_per_sm) {
-  return wg::resident_blocks<Bf16RowMax>(device, blocks_per_sm);
+  return wg::resident_blocks<TcRowMax>(device, blocks_per_sm);
 }
 
 // The bf16 variant: q [m, d] and refs [n, d] bf16 row-major, d % 8 == 0
@@ -238,15 +219,30 @@ extern "C" int vsc_row_max_bf16(int device, const __nv_bfloat16* q,
                                 const __nv_bfloat16* refs, int m, int n,
                                 int d, int n_valid, int grid, unsigned* keys,
                                 float* out, void* stream) {
-  if (m <= 0) return 0;
-  if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int fill_blocks = (m + 255) / 256;
-  fill_keys<<<fill_blocks, 256, 0, s>>>(keys, m);
-  err = wg::launch(q, refs, m, d, n_valid, grid, Bf16RowMax{keys, m}, s);
-  if (err != cudaSuccess) return (int)err;
-  keys_to_f32<<<fill_blocks, 256, 0, s>>>(keys, out, m);
-  return (int)cudaGetLastError();
+  return run_row_max(device, m, n, n_valid, keys, out, stream,
+                     [&](cudaStream_t s) {
+                       return wg::launch(q, refs, m, d, n_valid, grid,
+                                         TcRowMax{keys, m}, s);
+                     });
+}
+
+// Blocks of the int8 kernel (tensor cores) one SM holds at once.
+extern "C" int vsc_row_max_int8_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<TcRowMax, wg::I8Corpus>(device, blocks_per_sm);
+}
+
+// The int8 variant (SQ8 corpus): terms [3, m, d] bf16 (the f32 queries
+// split, ops/kernels.py split_bf16x3), codes [n, d] int8 row-major, d a
+// multiple of 16 (zero pad columns past the data's width), both bases
+// 16-byte aligned, scale [n] f32 (a score is (q . codes[j]) * scale[j]);
+// keys, out and `grid` as for vsc_row_max_bf16.
+extern "C" int vsc_row_max_int8(int device, const __nv_bfloat16* terms,
+                                const int8_t* codes, const float* scale, int m,
+                                int n, int d, int n_valid, int grid,
+                                unsigned* keys, float* out, void* stream) {
+  return run_row_max(device, m, n, n_valid, keys, out, stream,
+                     [&](cudaStream_t s) {
+                       return wg::launch_int8(terms, codes, scale, m, d, n_valid,
+                                              grid, TcRowMax{keys, m}, s);
+                     });
 }

@@ -1,7 +1,7 @@
 // scores: q . refs^T over the first n_valid columns, written out [M,
-// n_valid] f32, on the bf16 tensor-core product, or (scores.int8) on the
-// int8 kernels' f32 chain; scores_above.bf16: only the entries at or above
-// each row's floor, on the same tensor-core product.
+// n_valid] f32; scores_above: only the entries at or above each row's
+// floor. Both on the tensor-core product of wgmma_gemm.cuh, over a bf16
+// corpus (.bf16) or an int8 one (.int8).
 //
 // Not a port of a Pallas kernel. The searchers re-search a few query rows
 // over the whole corpus (ops/similarity.py _corpus_above: rows whose
@@ -64,41 +64,30 @@
 // per SM, as every bf16 kernel); the plan is scores.bf16's (groups of 8
 // query tiles: one corpus pass per 1,024 query rows).
 //
-// int8 (vsc_scores_int8, launch key scores.int8): the re-search over an
-// int8 (SQ8) corpus, JAX's block product on the IP8 branch
-// (_corpus_rows_topk_packed, vsc2022_tpu/ops/similarity.py:1806). The
-// int8 kernels score on the f32 fmaf chain over exactly widened codes,
-// one scale multiply per finished score; torch.matmul would sum in
-// another order, so a re-searched pair would score a few ulps from its
-// neighbours' kernel scores and the two collections, which re-search
-// different rows, could rank near-equal pairs apart. This kernel is
-// reduce_gemm.cuh's int8 product (I8Corpus: codes by 16-byte cp.async
-// into a ring of their own, each 64-deep slice widened once into an f32
-// stage, the scale in its finish hook), the one row_max.int8,
-// count_above.int8 and fused_topk.int8 run, with an epilogue that stores
-// each score (I8ScoreStore): a re-searched pair scores as those three and
-// pool_writer.int8 (tile_gemm.cuh, the same chain) score it, bit for bit.
-// Bound: operations, 2*M*N*D at 67 TFLOP/s: a 128-row chunk of the SSCD
-// re-search ([128 x 1,000,020 x 512]) is 0.13 TFLOP, 1.96 ms, for 0.52 GB
-// of codes read and 0.51 GB of scores written (0.31 ms at 3.35 TB/s).
-// Design: the persistent, pipelined schedule of reduce_gemm.cuh (one wave
-// of blocks walking 128 x 128 items row tile major, the ring running
-// across items), so copies overlap the FMAs; the searcher hands it row
-// chunks of a multiple of 128 rows (ops/similarity.py _row_chunk), so its
-// items are full. The epilogue keeps no state: each thread stores its 8 x
-// 8 scores from registers, and for each (i, j) the 8 lanes tx of a warp's
-// 4 rows cover 8 adjacent columns, whole 32-byte sectors wherever the
-// row's offset is a multiple of 8 floats; rows >= M and columns >= n_valid
-// are not written.
-#include "reduce_gemm.cuh"
+// int8 (vsc_scores_int8 and vsc_scores_above_int8, launch keys scores.int8
+// and scores_above.int8): the re-search over an int8 (SQ8) corpus, JAX's
+// block product on the IP8 branch (_corpus_rows_topk_packed,
+// vsc2022_tpu/ops/similarity.py:1806). The int8 kernels score on
+// wgmma_gemm.cuh's int8 corpus policy (three exact bf16 passes of the
+// split f32 queries over the codes widened in shared memory, the scale
+// once per finished score); torch.matmul would sum in another order, so
+// a re-searched pair would score a few ulps from its neighbours' kernel
+// scores and the two collections, which re-search different rows, could
+// rank near-equal pairs apart. These are the two epilogues above on that
+// policy: a re-searched pair scores as row_max.int8, count_above.int8,
+// pool_writer.int8 and fused_topk.int8 score it, bit for bit. The
+// searchers re-search with scores_above.int8, one launch over every
+// re-searched row, as over bf16; scores.int8 stays as its dense
+// reference. Bound: operations, 3 x 2*M*N*D at 989 TFLOP/s (~3,700 rows x
+// 240,000 x 512 at serving is 2.8 ms); the codes are 1 byte a value.
 #include "wgmma_gemm.cuh"
 
 using namespace vsc;
 
 namespace {
 
-// The score epilogue: no state across items.
-struct Bf16Scores {
+// The score epilogue (either corpus): no state across items.
+struct TcScores {
   static constexpr int kStages = wg::kStages, kGroup = wg::kGroup;
   float* out;
   int m, n_valid;
@@ -139,14 +128,14 @@ struct Bf16Scores {
                                         const wg::Item&) const {}
 };
 
-// The above-floor epilogue. acc[k] is row row0 + 8 * ((k >> 1) & 1),
+// The above-floor epilogue (either corpus). acc[k] is row row0 + 8 * ((k >> 1) & 1),
 // column 8 * (k / 4) + col0 + (k & 1) of the tile. Each consumer warp
 // stages its entries in a batch of its own in shared memory and reserves
 // output slots for a whole batch with one atomicAdd (drain), when the next
 // item's entries would not fit and when the block leaves a group or ends;
 // an item whose entries alone exceed a batch (tau = -inf) goes straight
 // out under one atomicAdd of its own.
-struct Bf16ScoresAbove {
+struct TcScoresAbove {
   static constexpr int kStages = wg::kStages, kGroup = wg::kGroup;
   static constexpr int kWarps = 4 * wg::kConsumers;  // consumer warps
   static constexpr int kBatch = 256;                  // entries a warp stages
@@ -265,69 +254,12 @@ struct Bf16ScoresAbove {
   }
 };
 
-// The int8 scores' epilogue on reduce_gemm.cuh (its epilogue contract):
-// no state across items; each finished item's scores, already scaled
-// (I8Corpus::finish), go to out[row * n_valid + col].
-struct I8ScoreStore {
-  static constexpr int kStages = reduce::STAGES;
-  float* out;
-  int n_valid;
-  struct State {};
-  struct Smem {};
-
-  __device__ __forceinline__ void begin(State&, Smem&, const reduce::Tile&,
-                                        const reduce::Work&) const {}
-
-  template <bool kMasked>
-  __device__ __forceinline__ void item(State&, Smem&, const reduce::Tile& t,
-                                       const reduce::Work& w,
-                                       float acc[reduce::TM][reduce::TN],
-                                       int rt, int ct, int valid_cols) const {
-#pragma unroll
-    for (int i = 0; i < reduce::TM; ++i) {
-      const int row = rt * reduce::BM + t.row + 4 * i;
-      if (row >= w.m) continue;
-      float* dst = out + (size_t)row * n_valid + (size_t)ct * reduce::BN + t.col;
-#pragma unroll
-      for (int j = 0; j < reduce::TN; ++j)
-        if (!kMasked || 8 * j < valid_cols) dst[8 * j] = acc[i][j];
-    }
-  }
-
-  __device__ __forceinline__ void flush(State&, Smem&, const reduce::Tile&,
-                                        const reduce::Work&, int) const {}
-};
-
 }  // namespace
-
-// Blocks of the int8 kernel one SM holds at once (its grid: SMs x this,
-// at most the work items of ops/kernels.py reduce_tiles).
-extern "C" int vsc_scores_int8_occupancy(int device, int* blocks_per_sm) {
-  return reduce::resident_blocks_int8<I8ScoreStore>(device, 0, blocks_per_sm);
-}
-
-// The int8 variant: q [m, d] f32 and codes [n, d] int8 row-major, d a
-// multiple of 16 (zero pad columns past the data's width), both bases
-// 16-byte aligned, scale [n] f32; out is [m, n_valid] f32, out[i, j] =
-// (q[i] . codes[j]) * scale[j]; `grid` persistent blocks (one wave, at
-// most the work items), as for vsc_row_max_int8.
-extern "C" int vsc_scores_int8(int device, const float* q, const int8_t* codes,
-                               const float* scale, int m, int n, int d,
-                               int n_valid, int grid, float* out,
-                               void* stream) {
-  if (m <= 0 || n_valid <= 0) return 0;
-  if (n_valid > n) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  return (int)reduce::launch_int8(q, codes, scale, m, d, n_valid, grid,
-                                  I8ScoreStore{out, n_valid}, 0,
-                                  static_cast<cudaStream_t>(stream));
-}
 
 // Blocks of the kernel one SM holds at once: its grid is SMs x this, at
 // most the work items of ops/kernels.py wgmma_tiles.
 extern "C" int vsc_scores_bf16_occupancy(int device, int* blocks_per_sm) {
-  return wg::resident_blocks<Bf16Scores>(device, blocks_per_sm);
+  return wg::resident_blocks<TcScores>(device, blocks_per_sm);
 }
 
 // q [m, d] and refs [n, d] bf16 row-major, d % 8 == 0 (zero pad columns
@@ -341,14 +273,14 @@ extern "C" int vsc_scores_bf16(int device, const __nv_bfloat16* q,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   return (int)wg::launch(q, refs, m, d, n_valid, grid,
-                         Bf16Scores{out, m, n_valid},
+                         TcScores{out, m, n_valid},
                          static_cast<cudaStream_t>(stream));
 }
 
 // Blocks of the above-floor kernel one SM holds at once (its grid: SMs x
 // this, at most the work items of ops/kernels.py wgmma_tiles).
 extern "C" int vsc_scores_above_bf16_occupancy(int device, int* blocks_per_sm) {
-  return wg::resident_blocks<Bf16ScoresAbove>(device, blocks_per_sm);
+  return wg::resident_blocks<TcScoresAbove>(device, blocks_per_sm);
 }
 
 // q [m, d] and refs [n, d] bf16 as for vsc_scores_bf16, floors [m] f32;
@@ -369,5 +301,49 @@ extern "C" int vsc_scores_above_bf16(int device, const __nv_bfloat16* q,
   err = cudaMemsetAsync(count, 0, sizeof(unsigned long long), s);
   if (err != cudaSuccess) return (int)err;
   return (int)wg::launch(q, refs, m, d, n_valid, grid,
-                         Bf16ScoresAbove{floors, m, cap, out_s, out_r, out_c, count}, s);
+                         TcScoresAbove{floors, m, cap, out_s, out_r, out_c, count}, s);
+}
+
+// Blocks of the int8 kernels (tensor cores) one SM holds at once.
+extern "C" int vsc_scores_int8_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<TcScores, wg::I8Corpus>(device, blocks_per_sm);
+}
+
+extern "C" int vsc_scores_above_int8_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<TcScoresAbove, wg::I8Corpus>(device, blocks_per_sm);
+}
+
+// The int8 variants (SQ8 corpus): terms [3, m, d] bf16 (the f32 queries
+// split, ops/kernels.py split_bf16x3), codes [n, d] int8 row-major, d a
+// multiple of 16 (zero pad columns past the data's width), both bases
+// 16-byte aligned, scale [n] f32; a score is (q . codes[j]) * scale[j].
+// The rest as for vsc_scores_bf16 and vsc_scores_above_bf16.
+extern "C" int vsc_scores_int8(int device, const __nv_bfloat16* terms,
+                               const int8_t* codes, const float* scale, int m,
+                               int n, int d, int n_valid, int grid, float* out,
+                               void* stream) {
+  if (m <= 0 || n_valid <= 0) return 0;
+  if (n_valid > n) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wg::launch_int8(terms, codes, scale, m, d, n_valid, grid,
+                              TcScores{out, m, n_valid},
+                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int vsc_scores_above_int8(int device, const __nv_bfloat16* terms,
+                                     const int8_t* codes, const float* scale,
+                                     const float* floors, int m, int n, int d,
+                                     int n_valid, int grid, long long cap,
+                                     float* out_s, int* out_r, int* out_c,
+                                     unsigned long long* count, void* stream) {
+  if (m < 0 || n_valid < 0 || n_valid > n || cap < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(count, 0, sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wg::launch_int8(terms, codes, scale, m, d, n_valid, grid,
+                              TcScoresAbove{floors, m, cap, out_s, out_r, out_c, count},
+                              s);
 }

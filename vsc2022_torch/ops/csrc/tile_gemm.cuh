@@ -1,8 +1,7 @@
-// The f32 tile product of pool_writer and pool_writer.int8, the only
-// kernels on it. row_max, count_above, fused_topk, their .int8 variants and
-// scores.int8 run the pipelined persistent product of reduce_gemm.cuh, with
-// the same arithmetic per score (the bf16 kernels run the tensor-core
-// product of wgmma_gemm.cuh instead).
+// The f32 tile product of pool_writer, the only kernel on it. row_max,
+// count_above and fused_topk run the pipelined persistent product of
+// reduce_gemm.cuh, with the same arithmetic per score (the bf16 and int8
+// kernels run the tensor-core product of wgmma_gemm.cuh instead).
 //
 // One block of 256 threads computes a [BM x BN] = [64 query rows x 128 ref
 // columns] tile of q . refs^T in full f32 FMA on the CUDA cores (the JAX
@@ -17,12 +16,6 @@
 // corpus count and the row max see bit-identical scores for the same
 // (query, ref) pair.
 //
-// int8 corpora (SQ8: pool_writer.int8): the corpus operand is int8 codes,
-// each widened exactly to f32 as it is copied into shared memory, so the
-// chain is the f32 chain on codes.float(), and the scores of
-// reduce_gemm.cuh's int8 kernels bit for bit; the kernel applies the
-// corpus row's scale to each finished score (ColumnScale).
-//
 // Simple first: no cp.async, TMA or wgmma, one shared-memory stage.
 #pragma once
 
@@ -30,7 +23,6 @@
 #include <math_constants.h>
 
 #include <cstddef>
-#include <cstdint>
 
 namespace vsc {
 
@@ -46,13 +38,11 @@ struct __align__(16) TileSmem {
   float b[BK][BN + 4];  // refs tile, transposed: b[k][col]
 };
 
-// acc[r][c] = sum_k q[row0 + 8*warp + r][k] * refs[col0 + 4*lane + c][k],
-// refs f32 or int8 (widened exactly). Rows >= m and columns >= n read as
-// zeros. Every thread of the block must call this (it synchronizes the
-// block).
-template <class T>
+// acc[r][c] = sum_k q[row0 + 8*warp + r][k] * refs[col0 + 4*lane + c][k].
+// Rows >= m and columns >= n read as zeros. Every thread of the block must
+// call this (it synchronizes the block).
 __device__ __forceinline__ void tile_product(
-    const float* __restrict__ q, const T* __restrict__ refs, int m, int n,
+    const float* __restrict__ q, const float* __restrict__ refs, int m, int n,
     int d, int row0, int col0, TileSmem& sm,
     float acc[ROWS_PER_WARP][COLS_PER_LANE]) {
   const int tid = threadIdx.x;
@@ -76,8 +66,7 @@ __device__ __forceinline__ void tile_product(
       const int e = tid + i * THREADS;
       const int c = e / BK, kk = e % BK;
       const int gc = col0 + c, gk = k0 + kk;
-      sm.b[kk][c] =
-          (gc < n && gk < d) ? static_cast<float>(refs[(size_t)gc * d + gk]) : 0.f;
+      sm.b[kk][c] = (gc < n && gk < d) ? refs[(size_t)gc * d + gk] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -100,23 +89,5 @@ __device__ __forceinline__ void tile_product(
     __syncthreads();
   }
 }
-
-// The per-column hook of an int8 corpus: a finished score times its
-// corpus row's scale, once (an L2 corpus's 2 q.r - |r|^2 would be another
-// hook of this form). Columns >= n read scale 0; the kernels mask columns
-// >= n_valid after it.
-struct ColumnScale {
-  const float* scale;  // [n]
-  int n;
-  __device__ __forceinline__ void apply(float (&acc)[ROWS_PER_WARP][COLS_PER_LANE],
-                                        int col0) const {
-#pragma unroll
-    for (int c = 0; c < COLS_PER_LANE; ++c) {
-      const float s = col0 + c < n ? scale[col0 + c] : 0.f;
-#pragma unroll
-      for (int r = 0; r < ROWS_PER_WARP; ++r) acc[r][c] *= s;
-    }
-  }
-};
 
 }  // namespace vsc

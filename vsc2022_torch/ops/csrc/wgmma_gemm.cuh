@@ -1,38 +1,70 @@
-// Persistent, warp-specialised bf16 tile product on Hopper's tensor cores
-// (TMA, mbarrier ring, wgmma), for the retrieval kernels that keep no
-// score: each finished [128 query rows x 256 corpus rows] accumulator tile
-// is handed to an epilogue functor, and the [M, N] scores never reach
-// device memory. Four epilogues run on it, every bf16 retrieval kernel:
-// row_max.bf16 (row_max.cu), count_above.bf16 (count_above.cu),
-// pool_writer.bf16 (pool_writer.cu) and fused_topk.bf16 (fused_topk.cu).
-// The product loop is one instruction sequence for all four (the same
-// wgmma shape, k-slice depth, kt / kk order and zero-filled k padding), so
-// they see bit-identical f32 accumulators for a (q, r) pair at the same
-// padded D, and pool_writer.bf16 and fused_topk.bf16 take each segment's
+// Persistent, warp-specialised tile product on Hopper's tensor cores (TMA,
+// mbarrier ring, wgmma), for the retrieval kernels: each finished [128
+// query rows x 256 corpus rows] accumulator tile is handed to an epilogue
+// functor, and the [M, N] scores never reach device memory. Six epilogues
+// run on it: row_max (row_max.cu), count_above (count_above.cu),
+// pool_writer (pool_writer.cu), fused_topk (fused_topk.cu), and scores and
+// scores_above (scores.cu), each over a bf16 corpus (.bf16) and an int8 one
+// (.int8, the corpus policy I8Corpus below). The product loop is one
+// instruction sequence for all the epilogues of a corpus policy (the same
+// wgmma shape, k-slice depth, pass / kt / kk order and zero-filled k
+// padding), so they see bit-identical f32 accumulators for a (q, r) pair at
+// the same padded D, and pool_writer and fused_topk take each segment's
 // winners with the one segment_top2 below: the streaming verify compares
-// fused_topk.bf16's candidates, and the pooled prune the pool, with
-// count_above.bf16's counts bit for bit.
+// fused_topk's candidates, and the pooled prune the pool, with count_above's
+// counts bit for bit.
 //
-// Arithmetic. bf16 q [M, D] and refs [N, D] (both K-major, as they lie in
-// memory) go to shared memory unwidened; wgmma.mma_async m64n256k16
-// multiplies them with f32 accumulation. The tensor cores sum each k16
-// step in their own order, so a score is not the sequential fmaf chain of
-// reduce_gemm.cuh: exact on integer inputs (every partial sum < 2^24),
-// within a few f32 rounding steps elsewhere.
+// Arithmetic (Bf16Corpus). bf16 q [M, D] and refs [N, D] (both K-major, as
+// they lie in memory) go to shared memory unwidened; wgmma.mma_async
+// m64n256k16 multiplies them with f32 accumulation. The tensor cores sum
+// each k16 step in their own order, so a score is not the sequential fmaf
+// chain of reduce_gemm.cuh: exact on integer inputs (every partial sum <
+// 2^24), within a few f32 rounding steps elsewhere.
+//
+// Arithmetic (I8Corpus: SQ8, f32 queries against int8 codes with an f32
+// scale per corpus row; a score is (q . codes[j]) * scale[j]). The caller
+// splits each f32 query row into three bf16 rows, hi + mid + lo == q
+// exactly (ops/kernels.py split_bf16x3), stacked [3, M, D]. Each code is
+// exact in bf16 and each product code x term (7 x 8 significant bits) is
+// exact in f32, so three wgmma passes over the same widened code tile into
+// one f32 accumulator give q . codes to within the tensor cores' summation
+// error. Each k-slice runs the passes lo, then mid, then hi (the small
+// terms first) over its one widened corpus slice. With integer
+// (or any bf16-exact) queries mid and lo are zero, the first two passes
+// add exact zeros, and the scores are the bf16 product's on the widened
+// codes bit for bit. finish() multiplies each finished accumulator column
+// by its corpus row's scale, one f32 multiply as JAX's `s * sc`, before
+// the epilogue sees the tile (columns at or past n_valid take 0).
 //
 // Operands. TMA needs a 16-byte-aligned base and a row stride that is a
-// multiple of 16 bytes, so rows hold a multiple of 8 bf16 values
-// (ops/kernels.py pad_columns zero-pads the path's D = 511; the zero
-// columns add 0 to every product). TMA zero-fills whatever lies past the
-// tensor: query rows >= M, corpus rows >= n_valid, k >= D.
+// multiple of 16 bytes, so bf16 rows hold a multiple of 8 values and codes
+// rows a multiple of 16 (ops/kernels.py pad_columns zero-pads the path's
+// D = 511; the zero columns add 0 to every product). TMA zero-fills
+// whatever lies past the tensor: query rows >= M, corpus rows >= n_valid,
+// k >= D.
 //
 // Block. Three warpgroups: warpgroups 0 and 1 consume (64 query rows each,
 // all 256 corpus rows; 128 f32 accumulators a thread, setmaxnreg 232), and
-// one thread of warpgroup 2 produces (setmaxnreg 40). The producer keeps
-// TMA loads of 64-deep k-slices (128 bytes of a row: one 128-byte swizzle
-// row) in flight into a ring of kStages stages, each guarded by a "full"
-// mbarrier (TMA bytes landed) and an "empty" one (both consumers done);
-// the wgmma shared-memory descriptors use the same 128-byte swizzle.
+// warpgroup 2 produces (setmaxnreg 40). Its first thread keeps TMA loads
+// of 64-deep k-slices (128 bytes of a bf16 row: one 128-byte swizzle row)
+// in flight into a ring of kStages stages of 48 KB (16 KB of queries, 32
+// KB of bf16 corpus), each guarded by a "full" mbarrier and an "empty" one
+// (both consumers done); the wgmma shared-memory descriptors use the same
+// 128-byte swizzle. Bf16Corpus: TMA lands both operands and completes
+// "full". I8Corpus: the same bytes hold a query ring of kStages + 2 16 KB
+// stages (one query plane's slice each) and a corpus ring of kStages - 1
+// 32 KB stages. TMA lands a corpus slice's int8 codes (a 64-byte box a
+// row, 16 KB) in the upper half of a corpus stage ("landedB"); warps 1-3
+// of the producer warpgroup (96 threads) widen them in place into the
+// swizzled bf16 tile wgmma reads (widen_codes), fence them to the async
+// proxy and arrive on "fullB"; the consumers run the three passes over it,
+// each with its own query stage, and release it ("emptyB") after the
+// third. So each code is widened once, every epilogue's shared memory fits
+// beside the ring as in bf16, and the corpus ring's depth hides the
+// widening behind three passes of product. (The first design widened each
+// slice once a pass, in one ring of 48 KB stages: 19.7 ms at the SSCD row
+// max against 10.3 for this one, tools/bench_reduce.py --int8, PERF.md
+// section 6.)
 //
 // Work. Query tiles (128 rows) form groups of E::kGroup tiles (kGroup
 // unless the epilogue needs fewer); a work item is (group, corpus tile,
@@ -72,6 +104,13 @@ constexpr int A_BYTES = BM * BK * 2;
 constexpr int B_BYTES = BN * BK * 2;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int kAlign = 1024;       // a 128-byte swizzle pattern repeats per 1 KB
+constexpr int I8_ALIGN = 16;       // int8 codes per row: a multiple (16-byte rows)
+// I8Corpus: the codes of a stage's corpus slice (BN rows of BK bytes) land
+// at this offset of its corpus buffer, the upper half, and the producer's
+// last three warps widen them.
+constexpr int CODE_BYTES = BN * BK;
+constexpr int CODE_OFFSET = B_BYTES - CODE_BYTES;
+constexpr int kWideners = 96;
 
 // The launch's work.
 struct Plan {
@@ -145,7 +184,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 }
 
 // A [box rows x 64] tile at (k0, row0) of a 2-D tensor map into shared
-// memory, completing `bytes` on `bar`.
+// memory, completing its bytes on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int k0,
                                          int row0, uint64_t* bar) {
   asm volatile(
@@ -153,6 +192,28 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0), "r"(smem_u32(bar))
       : "memory");
+}
+
+// The same from plane z of a 3-D tensor map (the split query terms).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int k0,
+                                            int row0, int z, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0), "r"(z),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma's operand reads) before the barrier that publishes them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier 1 of the producer's widening warps.
+__device__ __forceinline__ void wideners_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWideners) : "memory");
 }
 
 // wgmma descriptor of a K-major tile with the 128-byte swizzle: rows of
@@ -284,6 +345,147 @@ __device__ __forceinline__ void segment_top2(const float (&acc)[kAcc],
       for (int g = 0; g < 2; ++g) b[h][g] = merge(b[h][g], shfl_xor_top2(b[h][g], off));
 }
 
+// ---- the corpus operand ------------------------------------------------------
+//
+// A corpus policy C names its kernel (kWiden: wgmma_i8_kernel, else
+// wgmma_kernel) and the mbarriers of its ring (barriers(kStages)), for the
+// host side (kernel_of, smem_bytes, configure, resident_blocks).
+
+// bf16 rows: TMA lands them as wgmma reads them; the scores go out as summed.
+// The ring: kStages stages of one query slice and one corpus slice, a
+// "full" and an "empty" barrier each.
+struct Bf16Corpus {
+  static constexpr bool kWiden = false;
+  static constexpr int barriers(int stages) { return 2 * stages; }
+};
+
+// int8 codes with an f32 scale per corpus row (SQ8), against the split query
+// terms [3, M, D] (hi, mid, lo): for each k-slice the three passes lo, mid,
+// hi over one widened corpus slice; then each column times its row's scale.
+// The ring holds bf16's bytes (kStages x 48 KB) split into a query ring of
+// a_stages 16 KB stages ("fullA" by TMA, "emptyA") and a corpus ring of
+// b_stages 32 KB stages ("landedB" by TMA, "fullB" by the widening warps,
+// "emptyB" once all three passes are done): kStages + 2 and kStages - 1.
+// finish() takes the thread's scores of a finished item, once, before the
+// epilogue (columns at or past valid_cols are not the corpus's).
+struct I8Corpus {
+  static constexpr int kPasses = 3;
+  static constexpr bool kWiden = true;
+  __host__ __device__ static constexpr int a_stages(int stages) { return stages + 2; }
+  __host__ __device__ static constexpr int b_stages(int stages) { return stages - 1; }
+  __host__ __device__ static constexpr int barriers(int stages) {
+    return 2 * a_stages(stages) + 3 * b_stages(stages);
+  }
+  const float* scale;  // one per corpus row
+
+  __device__ __forceinline__ void finish(float (&acc)[kAcc], const Lane& l,
+                                         const Item& it, int valid_cols) const {
+    const float* sc = scale + (size_t)it.c_tile * BN;
+#pragma unroll
+    for (int j = 0; j < kAcc / 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + l.col0 + e;
+        const float f = col < valid_cols ? sc[col] : 0.f;
+        acc[4 * j + e] *= f;
+        acc[4 * j + 2 + e] *= f;
+      }
+    }
+  }
+};
+
+static_assert(I8Corpus::a_stages(3) * A_BYTES + I8Corpus::b_stages(3) * B_BYTES ==
+                      3 * STAGE_BYTES &&
+                  I8Corpus::a_stages(4) * A_BYTES + I8Corpus::b_stages(4) * B_BYTES ==
+                      4 * STAGE_BYTES,
+              "the int8 rings take the bf16 ring's bytes");
+
+// Four int8 codes (the lower column in the low byte) as two bf16x2 words,
+// exactly: each code c, as the unsigned byte c + 128 under the exponent of
+// 2^23, is the f32 2^23 + c + 128; less 2^23 + 128 it is c, and an integer
+// of at most 8 bits keeps its f32 low 16 bits zero, so its bf16 is the f32's
+// upper half. No conversion instruction: 4 byte permutes, 4 adds, 2 permutes.
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    f[b] = __fadd_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | b)),
+                     -8388736.f);
+  return make_uint2(__byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632),
+                    __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632));
+}
+
+// Piece p (codes 16p..16p+15) of corpus row r as two 16-byte bf16 chunks,
+// 2p and 2p + 1 of the row, at their 128-byte-swizzled places (chunk c of
+// row r at c ^ (r % 8): the layout TMA gives a bf16 tile and sw128_desc
+// reads).
+__device__ __forceinline__ void store_piece(unsigned char* tile, int r, int p,
+                                            int4 v) {
+  const uint2 a = widen4((uint32_t)v.x), b = widen4((uint32_t)v.y);
+  const uint2 c = widen4((uint32_t)v.z), d = widen4((uint32_t)v.w);
+  unsigned char* row = tile + 128 * r;
+  *reinterpret_cast<uint4*>(row + 16 * ((2 * p) ^ (r & 7))) = make_uint4(a.x, a.y, b.x, b.y);
+  *reinterpret_cast<uint4*>(row + 16 * ((2 * p + 1) ^ (r & 7))) =
+      make_uint4(c.x, c.y, d.x, d.y);
+}
+
+__device__ __forceinline__ int4 load_piece(const unsigned char* tile, int r, int p) {
+  return *reinterpret_cast<const int4*>(tile + CODE_OFFSET + 64 * r + 16 * p);
+}
+
+// The widening of one corpus stage in place, by the kWideners threads (t:
+// 0..95).
+// The codes of row r lie at CODE_OFFSET + 64 r (16 KB on), its bf16 row at
+// 128 r, so: rows 0-127 write the lower 16 KB, which holds no code; rows
+// 128-191 write the codes of rows 0-127, read by then (barrier); rows
+// 192-255 write the codes of rows 128-255, so they read their own first and
+// write after a second barrier, which also waits for every read of rows
+// 128-191. A warp reads 8 rows x 4 pieces, 512 contiguous bytes, and its
+// stores of one chunk parity cover the 8 chunk positions of a row pair.
+__device__ __forceinline__ void widen_codes(unsigned char* tile, int t) {
+  for (int q = t; q < 128 * 4; q += kWideners)
+    store_piece(tile, q >> 2, q & 3, load_piece(tile, q >> 2, q & 3));
+  wideners_sync();
+  for (int q = 128 * 4 + t; q < 192 * 4; q += kWideners)
+    store_piece(tile, q >> 2, q & 3, load_piece(tile, q >> 2, q & 3));
+  constexpr int kLast = (64 * 4 + kWideners - 1) / kWideners;  // pieces a thread
+  int4 v[kLast];
+#pragma unroll
+  for (int k = 0; k < kLast; ++k) {
+    const int q = 192 * 4 + t + k * kWideners;
+    if (q < BN * 4) v[k] = load_piece(tile, q >> 2, q & 3);
+  }
+  wideners_sync();
+#pragma unroll
+  for (int k = 0; k < kLast; ++k) {
+    const int q = 192 * 4 + t + k * kWideners;
+    if (q < BN * 4) store_piece(tile, q >> 2, q & 3, v[k]);
+  }
+}
+
+// One k-slice of the product: acc (+)= A[64 x 64] . B[256 x 64]^T from the
+// swizzled tiles at a and b, four k16 steps; `first` overwrites acc.
+__device__ __forceinline__ void mma_slice(float (&acc)[kAcc], uint32_t a, uint32_t b,
+                                          bool first) {
+  wgmma_fence();
+  fence_acc(acc);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)  // 16 values = 32 bytes a step
+    wgmma_m64n256k16(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk),
+                     !first || kk > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_acc(acc);
+}
+
+__device__ __forceinline__ void advance(int& stage, unsigned& phase, int stages) {
+  if (++stage == stages) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
 // The product and its epilogue E. E names its ring depth and group size
 // (static constexpr int kStages, kGroup: the product loop does not depend
 // on them), and every consumer thread calls each hook:
@@ -393,29 +595,161 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// Dynamic shared memory of E's kernel: alignment slack, ring, barriers,
-// the epilogue's state and `extra` bytes of it past its Smem.
+// The same product over int8 codes (I8Corpus): a query ring of kA stages
+// (fullA by TMA, emptyA) and a corpus ring of kB stages (landedB by TMA,
+// fullB by the widening warps, emptyB after the third pass), three passes
+// a k-slice, the scale before the epilogue, the hooks as above. A kernel of
+// its own, so that the bf16 kernel keeps its instruction stream (shared
+// device helpers inlined into both moved the bf16 kernels' registers).
 template <class E>
+__global__ void __launch_bounds__(THREADS, 1)
+    wgmma_i8_kernel(__grid_constant__ const CUtensorMap tq,
+                    __grid_constant__ const CUtensorMap tr, Plan p, E ep,
+                    I8Corpus corpus) {
+  constexpr int kStages = E::kStages;
+  constexpr int kA = I8Corpus::a_stages(kStages), kB = I8Corpus::b_stages(kStages);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* ring = smem_raw + ((kAlign - (raw & (kAlign - 1))) & (kAlign - 1));
+  unsigned char* ring_b = ring + kA * A_BYTES;  // the corpus ring
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(ring + kStages * STAGE_BYTES);
+  uint64_t* empty_a = full_a + kA;
+  uint64_t* landed_b = empty_a + kA;
+  uint64_t* full_b = landed_b + kB;
+  uint64_t* empty_b = full_b + kB;
+  typename E::Smem& es = *reinterpret_cast<typename E::Smem*>(empty_b + kB);
+
+  const int begin = (int)((long long)p.items * blockIdx.x / gridDim.x);
+  const int end = (int)((long long)p.items * (blockIdx.x + 1) / gridDim.x);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kA; ++s) {
+      mbar_init(&full_a[s], 1);
+      mbar_init(&empty_a[s], 128 * kConsumers);
+    }
+    for (int s = 0; s < kB; ++s) {
+      mbar_init(&landed_b[s], 1);
+      mbar_init(&full_b[s], kWideners);
+      mbar_init(&empty_b[s], 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warpgroup = threadIdx.x / 128;
+  if (warpgroup == kConsumers) {
+    // ---- producer: one thread keeps both rings full, the last three warps
+    // widen each landed corpus slice ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int pt = threadIdx.x - 128 * kConsumers;
+    int sa = 0, sb = 0;
+    unsigned pa = 0, pb = 0;
+    if (pt == 0) {
+      for (int i = begin; i < end; ++i) {
+        const Item it = item_at<E::kGroup>(p, i);
+        for (int kt = 0; kt < p.kt_n; ++kt) {
+          mbar_wait(&empty_b[sb], pb ^ 1);
+          mbar_expect_tx(&landed_b[sb], CODE_BYTES);
+          tma_load(ring_b + sb * B_BYTES + CODE_OFFSET, &tr, kt * BK, it.c_tile * BN,
+                   &landed_b[sb]);
+          advance(sb, pb, kB);
+          for (int pass = 0; pass < I8Corpus::kPasses; ++pass) {
+            mbar_wait(&empty_a[sa], pa ^ 1);
+            mbar_expect_tx(&full_a[sa], A_BYTES);
+            tma_load_3d(ring + sa * A_BYTES, &tq, kt * BK, it.q_tile * BM,
+                        I8Corpus::kPasses - 1 - pass, &full_a[sa]);
+            advance(sa, pa, kA);
+          }
+        }
+      }
+    } else if (pt >= 128 - kWideners) {
+      for (int i = begin; i < end; ++i) {
+        for (int kt = 0; kt < p.kt_n; ++kt) {
+          mbar_wait(&landed_b[sb], pb);
+          widen_codes(ring_b + sb * B_BYTES, pt - (128 - kWideners));
+          fence_proxy_async();
+          mbar_arrive(&full_b[sb]);
+          advance(sb, pb, kB);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: three passes over each widened slice, then the
+    // scales and the epilogue ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x & 31;
+    Lane ln;
+    ln.row0 = 64 * warpgroup + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+    ln.quad = lane & 3;
+    ln.col0 = 2 * ln.quad;
+    ln.owner = ln.quad == 0;
+    ep.begin(es, ln);
+    float acc[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+    const uint32_t a_off = warpgroup * 64 * BK * 2;  // this warpgroup's 64 rows
+    int sa = 0, sb = 0;
+    unsigned pa = 0, pb = 0;
+    for (int i = begin; i < end; ++i) {
+      const Item it = item_at<E::kGroup>(p, i);
+      for (int kt = 0; kt < p.kt_n; ++kt) {
+        mbar_wait(&full_b[sb], pb);
+        const uint32_t b = smem_u32(ring_b + sb * B_BYTES);
+        for (int pass = 0; pass < I8Corpus::kPasses; ++pass) {
+          mbar_wait(&full_a[sa], pa);
+          mma_slice(acc, smem_u32(ring + sa * A_BYTES) + a_off, b, kt == 0 && pass == 0);
+          mbar_arrive(&empty_a[sa]);
+          advance(sa, pa, kA);
+        }
+        mbar_arrive(&empty_b[sb]);
+        advance(sb, pb, kB);
+      }
+      const int valid_cols = p.n_valid - it.c_tile * BN;
+      corpus.finish(acc, ln, it, valid_cols);
+      if (valid_cols >= BN)
+        ep.template item<false>(es, ln, acc, it, valid_cols);
+      else
+        ep.template item<true>(es, ln, acc, it, valid_cols);
+      if (i + 1 == end || item_at<E::kGroup>(p, i + 1).group != it.group)
+        ep.flush(es, ln, it);
+      __syncwarp();  // converged again before the next wgmma (.aligned)
+    }
+  }
+}
+
+// The kernel of E over corpus C.
+template <class E, class C>
+inline auto kernel_of() {
+  if constexpr (C::kWiden)
+    return wgmma_i8_kernel<E>;
+  else
+    return wgmma_kernel<E>;
+}
+
+// Dynamic shared memory of E's kernel over corpus C: alignment slack, ring,
+// barriers, the epilogue's state and `extra` bytes of it past its Smem.
+template <class E, class C = Bf16Corpus>
 constexpr int smem_bytes(int extra = 0) {
-  return kAlign + E::kStages * (STAGE_BYTES + 2 * (int)sizeof(uint64_t)) +
+  return kAlign + E::kStages * STAGE_BYTES +
+         C::barriers(E::kStages) * (int)sizeof(uint64_t) +
          (int)sizeof(typename E::Smem) + extra;
 }
 
-template <class E>
+template <class E, class C = Bf16Corpus>
 cudaError_t configure(int extra) {
-  return cudaFuncSetAttribute(wgmma_kernel<E>,
+  return cudaFuncSetAttribute(kernel_of<E, C>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes<E>(extra));
+                              smem_bytes<E, C>(extra));
 }
 
-// Blocks of E's kernel an SM holds at once (0: it cannot launch).
-template <class E>
+// Blocks of E's kernel over corpus C an SM holds at once (0: it cannot
+// launch).
+template <class E, class C = Bf16Corpus>
 int resident_blocks(int device, int* blocks_per_sm, int extra = 0) {
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = configure<E>(extra);
+  if (err == cudaSuccess) err = configure<E, C>(extra);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, wgmma_kernel<E>, THREADS, smem_bytes<E>(extra));
+      blocks_per_sm, kernel_of<E, C>(), THREADS, smem_bytes<E, C>(extra));
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -444,20 +778,38 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a row-major [rows, d] bf16 operand, read in [box_rows x 64]
-// boxes with the 128-byte swizzle; out-of-bounds elements read as zero.
+// Tensor map of `planes` row-major [rows, d] bf16 planes one after another
+// (a 2-D map for one plane, else 3-D), read in [box_rows x 64] boxes of one
+// plane with the 128-byte swizzle; out-of-bounds elements read as zero.
 inline bool encode(CUtensorMap* map, const __nv_bfloat16* base, int rows, int d,
-                   int box_rows) {
+                   int box_rows, int planes = 1) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * sizeof(__nv_bfloat16),
+                                 (cuuint64_t)rows * d * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, planes > 1 ? 3 : 2,
             const_cast<__nv_bfloat16*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map of row-major [rows, d] int8 codes (d a multiple of I8_ALIGN),
+// read in [BN x 64]-byte boxes, unswizzled (the widening's layout);
+// out-of-bounds codes read as zero.
+inline bool encode_codes(CUtensorMap* map, const int8_t* base, int rows, int d) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)BN};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(base), dims,
+            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -492,6 +844,29 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* refs, int m,
   cudaError_t err = configure<E>(extra);
   if (err != cudaSuccess) return err;
   wgmma_kernel<E><<<grid, THREADS, smem_bytes<E>(extra), s>>>(tq, tr, p, ep);
+  return cudaGetLastError();
+}
+
+// The same over int8 codes (I8Corpus): terms [3, m, d] bf16 (the split
+// queries hi, mid, lo), codes [>= n_valid, d] int8 with scale [>= n_valid]
+// f32, d a multiple of I8_ALIGN, both bases 16-byte aligned.
+template <class E>
+cudaError_t launch_int8(const __nv_bfloat16* terms, const int8_t* codes,
+                        const float* scale, int m, int d, int n_valid, int grid,
+                        const E& ep, cudaStream_t s, int extra = 0) {
+  if (m <= 0 || n_valid <= 0) return cudaSuccess;
+  const Plan p = plan(m, n_valid, d);
+  if (d <= 0 || d % I8_ALIGN != 0 || p.items < 0 || grid <= 0 || grid > p.items ||
+      ((reinterpret_cast<uintptr_t>(terms) | reinterpret_cast<uintptr_t>(codes)) & 15))
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tr;
+  if (!encode(&tq, terms, m, d, BM, I8Corpus::kPasses) ||
+      !encode_codes(&tr, codes, n_valid, d))
+    return cudaErrorInvalidValue;
+  cudaError_t err = configure<E, I8Corpus>(extra);
+  if (err != cudaSuccess) return err;
+  wgmma_i8_kernel<E><<<grid, THREADS, smem_bytes<E, I8Corpus>(extra), s>>>(
+      tq, tr, p, ep, I8Corpus{scale});
   return cudaGetLastError();
 }
 

@@ -6,8 +6,8 @@ and comes with:
 
   * a wrapper (``row_max``, ``count_above``, ``pool_writer`` and
     ``fused_topk`` for the retrieval path, ``scores_above`` for its
-    re-search over a bf16 corpus and ``scores`` over an int8 one,
-    ``chamfer_fine_sims`` for the DnS alignment) that, for
+    re-search over a bf16 or int8 corpus, ``scores`` for the dense
+    product, ``chamfer_fine_sims`` for the DnS alignment) that, for
     a CUDA tensor, launches the kernel or raises, and for a CPU tensor
     runs the plain version. Nothing else selects the plain version: there
     is no fallback when a build or a launch fails;
@@ -44,15 +44,19 @@ collections compare their candidates with their counts bit for bit:
 
 * int8 (SQ8 storage; ``<name>.int8``): f32 queries against int8 codes
   with one f32 scale per corpus row (``scale=``); a score is (q ·
-  float(codes[j])) × scale[j]. The f32 fmaf chain over the codes widened
-  exactly (``reduce_gemm.cuh``'s int8 corpus, ``scores`` included;
-  ``tile_gemm.cuh`` for ``pool_writer``), the scale applied once per
-  finished score, before the max, the count or the selection. So with every scale
-  1 each int8 kernel equals its f32 kernel on ``codes.float()`` bit for
-  bit, and the five int8 kernels agree with each other as the f32 ones
-  do. Codes rows hold a multiple of 16 values (``pad_columns(codes,
-  I8_ROW_ALIGN)``; the searchers stage them so), the queries as many
-  (zero columns: the wrappers pad them).
+  float(codes[j])) × scale[j]. The tensor-core product of
+  ``wgmma_gemm.cuh`` with its int8 corpus policy, for all six kernels:
+  each query row split exactly into three bf16 rows (``split_bf16x3``),
+  three bf16 passes over the codes widened to bf16 in shared memory into
+  one f32 sum, then the scale once per finished score, before the max,
+  the count or the selection. Every product is exact, so the scores are
+  exact on integer queries and within the tensor cores' summation error
+  elsewhere; the six int8 kernels agree with each other bit for bit, and
+  with unit scales and bf16-exact queries each equals its bf16 kernel on
+  the widened codes (the mid and lo passes add zeros). Codes rows hold a
+  multiple of 16 values (``pad_columns(codes, I8_ROW_ALIGN)``; the
+  searchers stage them so), the queries as many (zero columns: the
+  wrappers pad them).
 
 The DnS chamfer takes f32 or bf16 region features (qf and rf of one
 dtype; the output stays f32): f32 (precision "highest") runs ``chamfer``,
@@ -66,7 +70,7 @@ No wrapper gives way from one variant to another.
 
 The plain versions widen bf16 inputs and int8 codes to f32 before
 ``torch.matmul`` (whose bf16 product would round every score to bf16),
-then multiply by the scales.
+then multiply by the scales; they take the int8 queries in f32, unsplit.
 
 The source notes in ``ops/csrc/*.cu`` say which TPU kernel each one
 replaces, what bounds it on an H100 and what its design does about it.
@@ -84,29 +88,29 @@ from vsc2022_torch.ops import _build
 
 SEG_LANES = 128  # columns per winner-pool segment
 SEG_KEEP = 2  # entries the pool keeps per segment
-# Query rows and ref columns of one work item of reduce_gemm.cuh (row_max,
-# count_above, fused_topk and the .int8 variants of these and of scores):
-# 128 rows by one 128-column pool segment.
+# Query rows and ref columns of one work item of reduce_gemm.cuh (the f32
+# row_max, count_above and fused_topk): 128 rows by one 128-column pool
+# segment.
 REDUCE_TILE = 128
 
 # Query rows and corpus rows of one work item of the tensor-core product
-# (wgmma_gemm.cuh: every bf16 kernel), and
+# (wgmma_gemm.cuh: every bf16 and int8 kernel), and
 # the query tiles of one group: a block walks a group's corpus tiles with
 # the group's query tiles inner, so each corpus tile comes from HBM about
 # once per group.
 WGMMA_ROWS = 128
 WGMMA_COLS = 256
 WGMMA_GROUP = 8
-# fused_topk.bf16's κ-sets: in shared memory beside a 3-stage ring, which
-# leaves room for groups of WGMMA_SMEM_SETS_GROUP query tiles and κ up to
-# WGMMA_SMEM_SETS_KAPPA_MAX (1.6x faster than the other placement at the
-# serving shape on an H100, PERF.md section 6), else in its [M, S, κ]
-# output.
+# fused_topk.bf16's (and .int8's) κ-sets: in shared memory beside a
+# 3-stage ring, which leaves room for groups of WGMMA_SMEM_SETS_GROUP query
+# tiles and κ up to WGMMA_SMEM_SETS_KAPPA_MAX (1.6x faster than the other
+# placement at the serving shape on an H100, PERF.md section 6), else in
+# its [M, S, κ] output.
 WGMMA_SMEM_SETS_GROUP = 2
 WGMMA_SMEM_SETS_KAPPA_MAX = 38
 # bf16 values per 16 bytes: TMA wants rows whose stride is a multiple.
 ROW_ALIGN = 8
-# int8 codes per 16 bytes: the int8 kernels copy whole 16-byte pieces.
+# int8 codes per 16 bytes: TMA wants codes rows of whole 16-byte pieces.
 I8_ROW_ALIGN = 16
 
 # Elements of one score chunk in the plain versions (512 MB of f32).
@@ -123,16 +127,18 @@ RETRIEVAL_KERNELS = ("row_max", "count_above", "pool_writer", "fused_topk")
 BF16 = ".bf16"  # suffix of a bf16 variant's launch count
 INT8 = ".int8"  # suffix of an int8 variant's launch count
 
-# The product written out, over a bf16 corpus (bf16 only) and over an int8
-# one (the re-search's scores there); the re-search's entries at or above a
-# floor over a bf16 corpus.
+# The product written out (off the searchers' paths: the dense reference of
+# scores_above), and the re-search's entries at or above a floor, over a
+# bf16 and over an int8 corpus.
 SCORES = "scores" + BF16
 SCORES_INT8 = "scores" + INT8
 SCORES_ABOVE = "scores_above" + BF16
-# The kernels whose bf16 variant runs on the tensor cores (wgmma_gemm.cuh).
+SCORES_ABOVE_INT8 = "scores_above" + INT8
+# The kernels whose bf16 and int8 variants run on the tensor cores
+# (wgmma_gemm.cuh).
 TENSOR_CORE_KERNELS = RETRIEVAL_KERNELS + ("scores", "scores_above")
-# The int8 variants, all on the f32 chain over widened codes.
-INT8_KERNELS = tuple(name + INT8 for name in RETRIEVAL_KERNELS) + (SCORES_INT8,)
+# The int8 variants.
+INT8_KERNELS = tuple(name + INT8 for name in TENSOR_CORE_KERNELS)
 
 # The DnS chamfer over bf16 region features (precision="default").
 CHAMFER_BF16 = "chamfer" + BF16
@@ -213,16 +219,18 @@ def scores_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
 
 
 def scores_above_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
-                       floor: torch.Tensor):
-    """Every (i, j < n_valid) whose score q·refs[j]ᵀ (bf16 widened) is
-    ≥ floor[i]: (scores [E] f32, rows [E] int32, cols [E] int32) in row-major
-    order. ``scores_plain``, then ``nonzero``, chunked over rows. Pad
-    columns of refs past q's width are left out."""
+                       floor: torch.Tensor, scale: Optional[torch.Tensor] = None):
+    """Every (i, j < n_valid) whose score q·refs[j]ᵀ (bf16 and int8
+    widened; × scale[j] for int8 codes) is ≥ floor[i]: (scores [E] f32,
+    rows [E] int32, cols [E] int32) in row-major order. ``scores_plain``,
+    then ``nonzero``, chunked over rows. Pad columns of refs past q's width
+    are left out."""
     r = refs[:n_valid, : q.shape[1]].float()
+    sc = None if scale is None else scale[:n_valid]
     parts_s, parts_r, parts_c = [], [], []
     step = _row_chunk(n_valid)
     for start in range(0, q.shape[0] if n_valid else 0, step):
-        s = _plain_scores(q[start : start + step], r, None)
+        s = _plain_scores(q[start : start + step], r, sc)
         rr, cc = torch.nonzero(s >= floor[start : start + step, None], as_tuple=True)
         parts_s.append(s[rr, cc])
         parts_r.append((rr + start).int())
@@ -624,21 +632,46 @@ def _reduce_plan(name: str, q: torch.Tensor, refs: torch.Tensor,
     return vec, reduce_grid(m, n_valid, _reduce_slots(q, name, vec))
 
 
+def split_bf16x3(q: torch.Tensor) -> torch.Tensor:
+    """f32 rows [M, D] as three bf16 rows each, [3, M, D] (hi, mid, lo),
+    with hi + mid + lo == q exactly: hi = bf16(q), mid = bf16(q − hi),
+    lo = bf16(q − hi − mid), each rounded to nearest even.
+
+    Why exact: hi keeps the 8 leading significant bits of q, rounded, so
+    |q − hi| ≤ 2⁻⁸·2ᵉ (2ᵉ ≤ |q| < 2ᵉ⁺¹) and q − hi is a multiple of
+    2ᵉ⁻²³: an integer of at most 16 bits times 2ᵉ⁻²³, exact in f32
+    (Sterbenz). mid rounds it to 8 bits the same way, leaving r − mid, an
+    integer of at most 8 bits times 2ᵉ⁻²³, exact in f32 and in bf16, so
+    lo loses nothing. This holds wherever bf16 has those exponents: every
+    nonzero |q| in [2⁻¹¹⁰, 2¹²⁷) (below, the last bits would fall under
+    bf16's smallest subnormal; above, hi could round to ±inf). The int8
+    kernels' queries are embedding rows, far inside. Zero rows split into
+    zeros; a bf16-exact q splits into (q, 0, 0), so its int8 scores are
+    the bf16 product's. Elementwise torch: the product's preprocessing,
+    once per call."""
+    hi = q.to(torch.bfloat16)
+    rest = q - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])
+
+
 def _int8_operands(q: torch.Tensor, codes: torch.Tensor):
-    """f32 queries and int8 codes as the int8 kernels take them: both rows
-    of padded_width(D, I8_ROW_ALIGN) values (no copy of codes the searcher
-    staged padded, nor of queries padded already)."""
+    """(split query terms [3, M, padded_width(D, I8_ROW_ALIGN)] bf16, int8
+    codes of as many columns) as the int8 kernels take them (no copy of
+    codes the searcher staged padded)."""
     if q.shape[1] == 0:
         raise ValueError("the int8 kernels take D >= 1")
-    return pad_columns(q, I8_ROW_ALIGN), pad_columns(codes, I8_ROW_ALIGN)
+    return split_bf16x3(pad_columns(q, I8_ROW_ALIGN)), pad_columns(codes, I8_ROW_ALIGN)
 
 
-def _int8_grid(name: str, q: torch.Tensor, n_valid: int) -> int:
-    """One wave of reduce_gemm.cuh blocks of the int8 kernel ``name`` (its
-    C name), 0 when there is no work item."""
+def _int8_grid(name: str, q: torch.Tensor, n_valid: int, *args: int) -> int:
+    """One wave of blocks of the int8 kernel ``name`` (its C name, on the
+    tensor-core product) over an [M, n_valid] call, 0 when there is no
+    work item."""
     if n_valid == 0:
         return 0
-    return reduce_grid(q.shape[0], n_valid, _occupancy_slots(q, name))
+    return wgmma_grid(q.shape[0], n_valid, _wgmma_slots(q, name, *args))
 
 
 def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
@@ -659,10 +692,10 @@ def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
     keys = torch.empty((m,), dtype=torch.int32, device=q.device)
     lib = _build.library()
     if refs.dtype == torch.int8:
-        q, refs = _int8_operands(q, refs)
+        terms, refs = _int8_operands(q, refs)
         rc = lib.vsc_row_max_int8(
-            q.device.index, q.data_ptr(), refs.data_ptr(), scale.data_ptr(), m,
-            refs.shape[0], q.shape[1], n_valid, _int8_grid("row_max_int8", q, n_valid),
+            q.device.index, terms.data_ptr(), refs.data_ptr(), scale.data_ptr(), m,
+            refs.shape[0], refs.shape[1], n_valid, _int8_grid("row_max_int8", q, n_valid),
             keys.data_ptr(), out.data_ptr(), _stream(q),
         )
         _raise_on(rc, "row_max_int8")
@@ -711,10 +744,10 @@ def count_above(
         return out
     lib = _build.library()
     if refs.dtype == torch.int8:
-        q, refs = _int8_operands(q, refs)
+        terms, refs = _int8_operands(q, refs)
         rc = lib.vsc_count_above_int8(
-            q.device.index, q.data_ptr(), refs.data_ptr(), scale.data_ptr(), m,
-            refs.shape[0], q.shape[1], float(tau), n_valid,
+            q.device.index, terms.data_ptr(), refs.data_ptr(), scale.data_ptr(), m,
+            refs.shape[0], refs.shape[1], float(tau), n_valid,
             _int8_grid("count_above_int8", q, n_valid), out.data_ptr(), _stream(q),
         )
         _raise_on(rc, "count_above_int8")
@@ -767,11 +800,17 @@ def pool_writer(
     if vals.numel() == 0:
         return vals, ids
     lib = _build.library()
+    if refs.dtype == torch.int8 or bf16:
+        # The tensor-core kernels write the segments their plan covers.
+        written = pool_segments(n, n_valid)
+        vals[:, written:] = float("-inf")
+        ids[:, written:] = 2**31 - 1
     if refs.dtype == torch.int8:
-        q, refs = _int8_operands(q, refs)
+        terms, refs = _int8_operands(q, refs)
         rc = lib.vsc_pool_writer_int8(
-            q.device.index, q.data_ptr(), refs.data_ptr(), scale.data_ptr(), m, n,
-            q.shape[1], n_valid, vals.data_ptr(), ids.data_ptr(), _stream(q),
+            q.device.index, terms.data_ptr(), refs.data_ptr(), scale.data_ptr(), m, n,
+            refs.shape[1], n_valid, _int8_grid("pool_writer_int8", q, n_valid),
+            vals.data_ptr(), ids.data_ptr(), _stream(q),
         )
         _raise_on(rc, "pool_writer_int8")
         launches["pool_writer" + INT8] += 1
@@ -780,9 +819,6 @@ def pool_writer(
         if d == 0:
             raise ValueError("pool_writer_bf16: the kernel takes D >= 1")
         q, refs = pad_columns(q), pad_columns(refs)
-        written = pool_segments(n, n_valid)
-        vals[:, written:] = float("-inf")
-        ids[:, written:] = 2**31 - 1
         grid = wgmma_grid(m, n_valid, _wgmma_slots(q, "pool_writer_bf16"))
         rc = lib.vsc_pool_writer_bf16(
             q.device.index, q.data_ptr(), refs.data_ptr(), m, n, q.shape[1],
@@ -803,14 +839,12 @@ def pool_writer(
 def scores(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q·refs[j]ᵀ (× scale[j] for int8 codes) for j < n_valid, [M,
-    n_valid] f32, on the product of the other kernels of its dtype: for
-    bf16 CUDA tensors the tensor-core kernel, for int8 codes the f32 chain
-    over widened codes, whose scores are those ``row_max``,
-    ``count_above``, ``pool_writer`` and ``fused_topk`` see, bit for bit.
-    The searchers re-search an int8 corpus with it; over a bf16 corpus
-    they take ``scores_above``, and the bf16 kernel stays as its dense
-    reference. A bf16 ``refs`` may carry ``pad_columns``' zero pad
-    columns. f32 CUDA tensors raise: there the searchers score with
+    n_valid] f32, on the product of the other kernels of its dtype (bf16
+    tensors or int8 codes: the tensor cores), whose scores are those
+    ``row_max``, ``count_above``, ``pool_writer`` and ``fused_topk`` see,
+    bit for bit. The searchers re-search with ``scores_above``; this stays
+    as its dense reference. A bf16 ``refs`` may carry ``pad_columns``' zero
+    pad columns. f32 CUDA tensors raise: there the searchers score with
     ``torch.matmul``."""
     n_valid = int(n_valid)
     bf16 = q.dtype == torch.bfloat16
@@ -825,10 +859,10 @@ def scores(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
     if out.numel() == 0:
         return out
     if int8:
-        q, refs = _int8_operands(q, refs)
+        terms, refs = _int8_operands(q, refs)
         rc = _build.library().vsc_scores_int8(
-            q.device.index, q.data_ptr(), refs.data_ptr(), scale.data_ptr(), m,
-            refs.shape[0], q.shape[1], n_valid, _int8_grid("scores_int8", q, n_valid),
+            q.device.index, terms.data_ptr(), refs.data_ptr(), scale.data_ptr(), m,
+            refs.shape[0], refs.shape[1], n_valid, _int8_grid("scores_int8", q, n_valid),
             out.data_ptr(), _stream(q),
         )
         _raise_on(rc, "scores_int8")
@@ -849,23 +883,24 @@ def scores(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
 
 def scores_above(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int, floor: torch.Tensor,
-    capacity: Optional[int] = None,
+    capacity: Optional[int] = None, scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Every (i, j < n_valid) whose score q·refs[j]ᵀ is ≥ floor[i], each
-    once and in no order: (scores [E] f32, rows [E] int32, cols [E] int32).
-    ``floor``: [M] f32 on q's device. For bf16 CUDA tensors the tensor-core
-    kernel: each score is the one ``scores`` writes at (i, j), bit for bit,
+    """Every (i, j < n_valid) whose score q·refs[j]ᵀ (× scale[j] for int8
+    codes) is ≥ floor[i], each once and in no order: (scores [E] f32, rows
+    [E] int32, cols [E] int32). ``floor``: [M] f32 on q's device. For bf16
+    CUDA tensors and int8 codes the tensor-core kernel of the operands'
+    dtype: each score is the one ``scores`` writes at (i, j), bit for bit,
     and the set is nonzero(scores(q, refs, n_valid) >= floor[:, None]); no
     dense [M, n_valid] matrix is made. ``capacity``: the entries the caller
     expects (default SCORES_ABOVE_ROW_CAPACITY a row). The kernel counts
     every entry; when they are more, the wrapper launches it again with
     exactly that capacity (each launch counted). A bf16 ``refs`` may carry
-    ``pad_columns``' zero pad columns. Other dtypes on CUDA raise: the
-    searchers re-search an f32 corpus with ``torch.matmul`` and an int8 one
-    with ``scores``."""
+    ``pad_columns``' zero pad columns; int8 codes take their ``scale``.
+    f32 CUDA tensors raise: the searchers re-search an f32 corpus with
+    ``torch.matmul``."""
     n_valid = int(n_valid)
     bf16 = q.dtype == torch.bfloat16
-    _check(q, refs, n_valid, pad_ok=bf16)
+    _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
     if (floor.dtype != torch.float32 or floor.shape != (q.shape[0],)
             or floor.device != q.device):
         raise ValueError(f"floor must be [{q.shape[0]}] f32 on {q.device}: got "
@@ -873,30 +908,40 @@ def scores_above(
     if capacity is not None and int(capacity) < 0:
         raise ValueError(f"capacity {capacity} < 0")
     if q.device.type == "cpu":
-        return scores_above_plain(q, refs, n_valid, floor)
-    if not bf16:
-        raise TypeError(f"scores_above: the kernel takes bf16 operands, not {q.dtype}")
+        return scores_above_plain(q, refs, n_valid, floor, scale)
+    int8 = refs.dtype == torch.int8
+    if not (bf16 or int8):
+        raise TypeError(
+            f"scores_above: the kernel takes bf16 operands or int8 codes, not {q.dtype}")
     m, d = q.shape
+    cname, key = ("scores_above_int8", SCORES_ABOVE_INT8) if int8 else (
+        "scores_above_bf16", SCORES_ABOVE)
     if d == 0:
-        raise ValueError("scores_above_bf16: the kernel takes D >= 1")
+        raise ValueError(f"{cname}: the kernel takes D >= 1")
     if m == 0 or n_valid == 0:
         return _no_entries(q.device)
-    q, refs, floor = pad_columns(q), pad_columns(refs), floor.contiguous()
+    floor = floor.contiguous()
+    if int8:
+        terms, refs = _int8_operands(q, refs)
+        operands, depth = (terms, refs, scale, floor), refs.shape[1]
+    else:
+        q, refs = pad_columns(q), pad_columns(refs)
+        operands, depth = (q, refs, floor), q.shape[1]
     cap = min(m * n_valid, m * SCORES_ABOVE_ROW_CAPACITY if capacity is None
               else int(capacity))
-    grid = wgmma_grid(m, n_valid, _wgmma_slots(q, "scores_above_bf16"))
+    grid = wgmma_grid(m, n_valid, _wgmma_slots(q, cname))
     count = torch.empty(1, dtype=torch.int64, device=q.device)
     while True:
         out_s = torch.empty(cap, dtype=torch.float32, device=q.device)
         out_r = torch.empty(cap, dtype=torch.int32, device=q.device)
         out_c = torch.empty(cap, dtype=torch.int32, device=q.device)
-        rc = _build.library().vsc_scores_above_bf16(
-            q.device.index, q.data_ptr(), refs.data_ptr(), floor.data_ptr(), m,
-            refs.shape[0], q.shape[1], n_valid, grid, cap, out_s.data_ptr(),
-            out_r.data_ptr(), out_c.data_ptr(), count.data_ptr(), _stream(q),
+        rc = getattr(_build.library(), f"vsc_{cname}")(
+            q.device.index, *(t.data_ptr() for t in operands), m, refs.shape[0],
+            depth, n_valid, grid, cap, out_s.data_ptr(), out_r.data_ptr(),
+            out_c.data_ptr(), count.data_ptr(), _stream(q),
         )
-        _raise_on(rc, "scores_above_bf16")
-        launches[SCORES_ABOVE] += 1
+        _raise_on(rc, cname)
+        launches[key] += 1
         total = int(count)  # the call's one sync
         if total <= cap:
             return out_s[:total], out_r[:total], out_c[:total]
@@ -911,10 +956,9 @@ def fused_topk(
     128-column segment), ordered by score descending, then column
     ascending: ([M, κ] f32, [M, κ] int32), padded with −inf and id 0. Any
     N and any κ ≥ 1. The kernel collects one κ-set per row and block
-    (S pieces per row: ``topk_grid``, or ``wgmma_topk_grid`` in bf16);
-    ``ordered_topk`` merges them. A bf16 ``refs`` may carry
-    ``pad_columns``' zero pad columns; int8 codes take their ``scale``
-    (on f32's schedule, ``topk_grid``)."""
+    (S pieces per row: ``topk_grid``, or ``wgmma_topk_grid`` in bf16 and
+    int8); ``ordered_topk`` merges them. A bf16 ``refs`` may carry
+    ``pad_columns``' zero pad columns; int8 codes take their ``scale``."""
     n_valid, kappa = int(n_valid), int(kappa)
     bf16 = q.dtype == torch.bfloat16
     _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
@@ -926,58 +970,58 @@ def fused_topk(
     if m == 0:
         return (torch.empty((0, kappa), dtype=torch.float32, device=q.device),
                 torch.empty((0, kappa), dtype=torch.int32, device=q.device))
-    if refs.dtype == torch.int8:
-        q, refs = _int8_operands(q, refs)
-        grid, pieces = topk_grid(m, n_valid, kappa,
-                                 _int8_grid("fused_topk_int8", q, n_valid))
-        return _launch_topk("fused_topk_int8", "fused_topk" + INT8,
-                            (q, refs, scale), n_valid, kappa, pieces,
-                            (kappa, grid, pieces))
-    if bf16:
-        return _fused_topk_bf16(q, refs, n_valid, kappa,
-                                kappa <= WGMMA_SMEM_SETS_KAPPA_MAX)
+    if bf16 or refs.dtype == torch.int8:
+        return _fused_topk_tc(q, refs, n_valid, kappa,
+                              kappa <= WGMMA_SMEM_SETS_KAPPA_MAX, scale)
     vec, grid = _reduce_plan("fused_topk", q, refs, n_valid)
     grid, pieces = topk_grid(m, n_valid, kappa, grid)
     return _launch_topk("fused_topk", "fused_topk", (q, refs), n_valid, kappa,
-                        pieces, (kappa, vec, grid, pieces))
+                        pieces, (kappa, vec, grid, pieces), m)
 
 
-def _fused_topk_bf16(
-    q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int, smem_sets: bool
+def _fused_topk_tc(
+    q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int, smem_sets: bool,
+    scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fused_topk.bf16 on the card (M ≥ 1) with its κ-sets in shared
-    memory (``smem_sets``, κ ≤ WGMMA_SMEM_SETS_KAPPA_MAX) or in its
-    [M, S, κ] output. ``fused_topk`` takes shared memory wherever κ fits;
-    the card tests and ``tools/bench_reduce.py`` force either placement."""
+    """fused_topk.bf16 (fused_topk.int8 for codes with their ``scale``) on
+    the card (M ≥ 1) with its κ-sets in shared memory (``smem_sets``, κ ≤
+    WGMMA_SMEM_SETS_KAPPA_MAX) or in its [M, S, κ] output. ``fused_topk``
+    takes shared memory wherever κ fits; the card tests and
+    ``tools/bench_reduce.py`` force either placement."""
+    int8 = refs.dtype == torch.int8
+    cname = "fused_topk_int8" if int8 else "fused_topk_bf16"
     if q.shape[1] == 0:
-        raise ValueError("fused_topk_bf16: the kernel takes D >= 1")
+        raise ValueError(f"{cname}: the kernel takes D >= 1")
     if smem_sets and kappa > WGMMA_SMEM_SETS_KAPPA_MAX:
         raise ValueError(f"kappa {kappa} > {WGMMA_SMEM_SETS_KAPPA_MAX}: the sets "
                          "do not fit in shared memory")
-    q, refs = pad_columns(q), pad_columns(refs)
     m, smem_sets = q.shape[0], int(smem_sets)
     group = WGMMA_SMEM_SETS_GROUP if smem_sets else WGMMA_GROUP
-    slots = _wgmma_slots(q, "fused_topk_bf16", smem_sets, kappa if smem_sets else 0)
+    slots = _wgmma_slots(q, cname, smem_sets, kappa if smem_sets else 0)
     grid, pieces = wgmma_topk_grid(m, n_valid, kappa,
                                    wgmma_grid(m, n_valid, slots), group)
-    return _launch_topk("fused_topk_bf16", "fused_topk" + BF16, (q, refs), n_valid,
-                        kappa, pieces, (kappa, smem_sets, grid, pieces))
+    if int8:
+        terms, refs = _int8_operands(q, refs)
+        operands = (terms, refs, scale)
+    else:
+        operands = (pad_columns(q), pad_columns(refs))
+    return _launch_topk(cname, "fused_topk" + (INT8 if int8 else BF16), operands,
+                        n_valid, kappa, pieces, (kappa, smem_sets, grid, pieces), m)
 
 
 def _launch_topk(
     cname: str, key: str, operands: Tuple[torch.Tensor, ...], n_valid: int,
-    kappa: int, pieces: int, args: Tuple[int, ...],
+    kappa: int, pieces: int, args: Tuple[int, ...], m: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launches ``vsc_<cname>`` on ``operands`` (q, refs[, scale]) into S
-    = ``pieces`` κ-sets per row, counts it under ``key`` and merges the
-    sets."""
+    """Launches ``vsc_<cname>`` on ``operands`` (q or the split query
+    terms, refs[, scale]) for ``m`` query rows into S = ``pieces`` κ-sets
+    per row, counts it under ``key`` and merges the sets."""
     q, refs = operands[0], operands[1]
-    m = q.shape[0]
     out_v = torch.empty((m, pieces * kappa), dtype=torch.float32, device=q.device)
     out_i = torch.empty((m, pieces * kappa), dtype=torch.int32, device=q.device)
     rc = getattr(_build.library(), f"vsc_{cname}")(
         q.device.index, *(t.data_ptr() for t in operands), m, refs.shape[0],
-        q.shape[1], n_valid, *args, out_v.data_ptr(), out_i.data_ptr(),
+        refs.shape[1], n_valid, *args, out_v.data_ptr(), out_i.data_ptr(),
         _stream(q),
     )
     _raise_on(rc, cname)

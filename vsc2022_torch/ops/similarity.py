@@ -32,14 +32,14 @@ Both end in the exact global cut: score descending, ties by (q, r)
 ascending. The kernels of one dtype share one tile product, so both
 collections compare bit-identical scores: the stream's candidates with
 its counts, the pool with its count (f32: the CUDA cores' fmaf chain;
-bf16: the tensor-core product, where both collections pad the queries
-once and read ``tensor_core_refs``). A re-searched row's scores come from
-that product too over a bf16 corpus (``kernels.scores_above``: only the
-entries at or above the row's floor, one launch over every re-searched
-row), and from a chunked ``torch.matmul`` over an f32 one; the search
-collects down to a rounding
+bf16 and int8: the tensor-core product, where both collections pad the
+queries once and read ``tensor_core_refs``). A re-searched row's scores
+come from that product too over a bf16 or int8 corpus
+(``kernels.scores_above``: only the entries at or above the row's floor,
+one launch over every re-searched row), and from a chunked
+``torch.matmul`` over an f32 one; the search collects down to a rounding
 margin below τ, since the f32 re-search may differ from the kernels' in
-the last bits (over a bf16 corpus, where the re-search shares the
+the last bits (over a bf16 or int8 corpus, where the re-search shares the
 kernels' product, the margin is only defensive).
 
 The corpus stages as the JAX searcher stages it: zero rows pad it to a
@@ -57,10 +57,12 @@ accumulation, from the kernels' bf16 variants, the re-searches' included
 ``dtype="int8"`` is the SQ8 tier (``quantize_rows_int8``): the corpus
 stages as int8 codes, zero-padded to a multiple of 16 columns, with one
 f32 scale per row, a quarter of f32's device memory and no f32 copy. The
-queries stay f32. A score is (q · float(codes[j])) × scale[j], exact over
-the dequantized corpus, from the kernels' int8 variants (the f32 chain
-over widened codes, the scale once per score), the re-searches' included
-(``kernels.scores``), so both collections compare bit-identical scores.
+queries stay f32. A score is (q · float(codes[j])) × scale[j] over the
+dequantized corpus, from the kernels' int8 variants (the tensor cores:
+three exact bf16 passes of the split queries over the widened codes,
+then the scale once per score), the re-searches' included
+(``kernels.scores_above``), so both collections compare bit-identical
+scores.
 ``append_rows`` and ``keep_rows`` carry each row's scale with its codes.
 """
 
@@ -78,7 +80,7 @@ import torch
 from vsc2022_torch.device import DeviceLike, resolve_device
 from vsc2022_torch.ops import kernels
 from vsc2022_torch.ops.kernels import (
-    PLAIN_CHUNK_ELEMENTS, REDUCE_TILE, SEG_KEEP, SEG_LANES,
+    PLAIN_CHUNK_ELEMENTS, SEG_KEEP, SEG_LANES,
 )
 
 logger = logging.getLogger(__name__)
@@ -103,8 +105,11 @@ COLLECTION_ENV = "VSC2022_TORCH_COLLECTION"
 # The re-search margin over a bf16 corpus (the tensor cores score), in
 # units of the f32 one (``SimilaritySearcher._corpus_above`` derives it).
 TENSOR_CORE_SLACK = 2.0
-# The bf16 re-search (``kernels.scores_above``): the entries a row may hold
-# between its floor and τ beyond those the caller counted ≥ τ (its
+# The same over an int8 corpus, whose scores sum 3·D tensor-core addends
+# (three bf16 passes): three times the bf16 one.
+INT8_TENSOR_CORE_SLACK = 3 * TENSOR_CORE_SLACK
+# The tensor-core re-search (``kernels.scores_above``): the entries a row
+# may hold between its floor and τ beyond those the caller counted ≥ τ (its
 # capacity's headroom), the bytes of one entry (score, row, column) and the
 # entries one launch may hold: the 512 MB of a dense chunk of
 # PLAIN_CHUNK_ELEMENTS scores.
@@ -413,20 +418,18 @@ class SimilaritySearcher:
         return q.to(self.device).to(self.query_dtype).contiguous()
 
     def _row_chunk(self) -> int:
-        """Query rows per chunk of dense scores over the corpus (the int8
-        and f32 re-searches, ``row_topk``): the PLAIN_CHUNK_ELEMENTS
-        budget, rounded down to a multiple of scores.int8's 128-row work
-        items (``kernels.REDUCE_TILE``) where the budget holds 128 rows or
-        more, so the kernel computes no empty rows. Each row's scores are
-        independent of its chunk."""
-        rows = max(1, PLAIN_CHUNK_ELEMENTS // max(self.n_refs, 1))
-        return rows - rows % REDUCE_TILE if rows >= REDUCE_TILE else rows
+        """Query rows per chunk of dense scores over the corpus (the f32
+        re-search, ``row_topk``): the PLAIN_CHUNK_ELEMENTS budget. Each
+        row's scores are independent of its chunk."""
+        return max(1, PLAIN_CHUNK_ELEMENTS // max(self.n_refs, 1))
 
     # ---- per-row searches ------------------------------------------------
 
     @property
     def _tensor_cores(self) -> bool:
-        """Whether the kernels score on the tensor cores (a bf16 corpus)."""
+        """Whether the corpus is bf16 (its kernels read a copy of rows of a
+        multiple of 8 values); int8 codes score on the tensor cores too, on
+        the codes as staged."""
         return self.torch_dtype == torch.bfloat16
 
     def tensor_core_refs(self) -> torch.Tensor:
@@ -505,21 +508,20 @@ class SimilaritySearcher:
         """Every corpus entry ≥ τ of the given query rows, and a few below
         it: (scores, local row index, ref id), in no particular order.
         ``count``: the entries ≥ τ these rows hold as the kernels count
-        them (the capacity hint of the bf16 re-search).
+        them (the capacity hint of the tensor-core re-search).
 
         The scores: over a bf16 or int8 corpus the kernels' own product
-        (the tensor cores, or the int8 kernels' f32 chain over widened
-        codes, on the card), as the JAX searcher re-searches with its
-        collection's block product, so a re-searched pair scores as the
-        kernels score it and both collections, which re-search different
-        rows, rank every pair alike; over an f32 corpus ``torch.matmul``.
-        A bf16 corpus takes ``kernels.scores_above``: one launch over all
-        the rows keeps the entries at or above each row's floor and makes
-        no dense score matrix (chunks of rows only where its capacity,
-        ``count`` plus ABOVE_HEADROOM a row, would pass
-        ABOVE_BUDGET_ENTRIES: τ = −inf keeps every entry). An int8 or f32
-        corpus scores chunks of rows densely (``kernels.scores``,
-        ``torch.matmul``) and keeps the same entries.
+        (the tensor cores, on the card), as the JAX searcher re-searches
+        with its collection's block product, so a re-searched pair scores
+        as the kernels score it and both collections, which re-search
+        different rows, rank every pair alike; over an f32 corpus
+        ``torch.matmul``. A bf16 or int8 corpus takes
+        ``kernels.scores_above``: one launch over all the rows keeps the
+        entries at or above each row's floor and makes no dense score
+        matrix (chunks of rows only where its capacity, ``count`` plus
+        ABOVE_HEADROOM a row, would pass ABOVE_BUDGET_ENTRIES: τ = −inf
+        keeps every entry). An f32 corpus scores chunks of rows densely and
+        keeps the same entries.
 
         The margin: τ and the counts come from the kernels' scores, and a
         product that sums differently may round the same (q, r) product
@@ -527,27 +529,31 @@ class SimilaritySearcher:
         no entry the kernels scored ≥ τ is lost, and the exact final cut
         drops the surplus. Two f32 sums of D exact products differ by at
         most 2·D·u·‖q‖·‖r‖ (u = 2⁻²⁴): the f32 margin, which the f32
-        re-search needs. Over a bf16 corpus the re-search shares the
-        kernels' product bit for bit, so its margin is only defensive: it
-        takes TENSOR_CORE_SLACK (2) times the f32 one, what a re-search
-        by an f32 sum would need against the tensor cores (they add the
-        exact products in blocks, each addend truncated to the block's
-        largest exponent: at most 3·D·u·‖q‖·‖r‖ off the exact sum, 4·D·u
-        off an f32 one). It costs only re-searched entries, which the
-        final cut drops. Over an int8 corpus the re-search shares the
-        kernels' chain bit for bit too; its margin is the f32 one over the
-        dequantized rows' norms (``_ref_norm_max``: ‖codes‖ · scale).
+        re-search needs. Over a bf16 or int8 corpus the re-search shares
+        the kernels' product bit for bit, so its margin is only defensive:
+        what a re-search by an f32 sum would need against the tensor
+        cores. They add N exact products in blocks, each addend truncated
+        to the block's largest exponent: at most 3·N·u·Σ|products| off the
+        exact sum. Over bf16, N = D and Σ|products| ≤ ‖q‖·‖r‖: 3·D·u off
+        the exact sum, 4·D·u·‖q‖·‖r‖ off an f32 sum, so TENSOR_CORE_SLACK
+        (2) times the f32 margin. Over int8 the query is split into hi +
+        mid + lo (|mid| ≤ 2⁻⁸|q|, |lo| ≤ 2⁻¹⁶|q| elementwise), so N = 3·D
+        addends whose absolute values sum to at most (1 + 2⁻⁷)·‖q‖·‖r‖ (r
+        the dequantized row, ``_ref_norm_max``: ‖codes‖ · scale):
+        9·(1 + 2⁻⁷)·D·u off the exact sum, plus D·u for an f32 sum and one
+        rounding for the scale (≤ D·u): 11.1·D·u·‖q‖·‖r‖ at most, under
+        INT8_TENSOR_CORE_SLACK (6) times the f32 margin, 12·D·u. It costs
+        only re-searched entries, which the final cut drops.
         """
         slack = self.dim * float(torch.finfo(torch.float32).eps) * self._ref_norm_max
         if self._tensor_cores:
             slack *= TENSOR_CORE_SLACK
-        if self._tensor_cores or self._int8:
-            q_rows, refs, kw = self._kernel_operands(q_rows)
-        else:
-            refs = self._refs[: self.n_refs]
+        elif self._int8:
+            slack *= INT8_TENSOR_CORE_SLACK
         floor = tau - slack * q_rows.float().norm(dim=1)
         parts_s, parts_q, parts_r = [], [], []
-        if self._tensor_cores:
+        if self._tensor_cores or self._int8:
+            q_rows, refs, kw = self._kernel_operands(q_rows)
             m = q_rows.shape[0]
             capacity = count + ABOVE_HEADROOM * m
             step = m if capacity <= ABOVE_BUDGET_ENTRIES else max(
@@ -556,18 +562,16 @@ class SimilaritySearcher:
                 rows = q_rows[start : start + step]
                 cap = capacity if step == m else rows.shape[0] * self.n_refs
                 s, rr, cc = kernels.scores_above(
-                    rows, refs, self.n_refs, floor[start : start + step], capacity=cap)
+                    rows, refs, self.n_refs, floor[start : start + step], capacity=cap,
+                    **kw)
                 parts_s.append(s)
                 parts_q.append(rr.long() + start)
                 parts_r.append(cc.long())
             return torch.cat(parts_s), torch.cat(parts_q), torch.cat(parts_r)
+        refs = self._refs[: self.n_refs]
         step = self._row_chunk()
         for start in range(0, q_rows.shape[0], step):
-            rows = q_rows[start : start + step]
-            if self._int8:
-                s = kernels.scores(rows, refs, self.n_refs, **kw)
-            else:
-                s = torch.matmul(rows, refs.T)
+            s = torch.matmul(q_rows[start : start + step], refs.T)
             rr, cc = torch.nonzero(s >= floor[start : start + step, None], as_tuple=True)
             parts_s.append(s[rr, cc])
             parts_q.append(rr + start)
