@@ -133,7 +133,8 @@ Phases (any failure exits non-zero):
      path's row_max, fused_topk and count_above calls (D = 1024 and 1025)
      as in phase 2.
  5d. The DnS fine similarity at precision "default". chamfer.bf16
-     (mma.sync on the tensor cores) on every chamfer input of phase 5
+     (TMA and wgmma on the tensor cores, persistent; its plan, resident
+     blocks, registers and spill logged) on every chamfer input of phase 5
      rounded to bf16, within BF16_TC_ATOL of its plain version, and on
      integer inputs of the largest call's shape with zero-pad frames,
      exactly; kernel, plain, library (one bf16 bmm with f32 output, then
@@ -2182,13 +2183,21 @@ def chamfer_library_bf16_kw(torch, dev):
     return {"out_dtype": torch.float32}, "bf16 bmm with f32 output"
 
 
-def chamfer_bf16_blocks_per_sm(kernels, dev) -> int:
+def chamfer_bf16_launch_plan(torch, kernels, dev, b, nq, nr, d) -> dict:
+    """chamfer.bf16's plan of a call (kernels.chamfer_bf16_plan) with the
+    kernel's resident blocks per SM, registers and local (spill) bytes a
+    thread at the plan's ref slices."""
     import ctypes
 
-    blocks = ctypes.c_int(0)
-    rc = kernels._build.library().vsc_chamfer_bf16_occupancy(dev.index, ctypes.byref(blocks))
-    check(rc == 0, f"chamfer.bf16 occupancy query failed (cudaError {rc})")
-    return blocks.value
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = kernels.chamfer_bf16_plan(b, nq, nr, d, sms)
+    blocks, regs, local = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    rc = kernels._build.library().vsc_chamfer_bf16_attributes(
+        dev.index, plan.slots, ctypes.byref(blocks), ctypes.byref(regs), ctypes.byref(local))
+    check(rc == 0 and blocks.value >= 1,
+          f"chamfer.bf16 attributes query failed (cudaError {rc}, {blocks.value} blocks)")
+    return dict(plan._asdict(), blocks_per_sm=blocks.value, registers=regs.value,
+                local_bytes=local.value)
 
 
 def phase_chamfer_bf16(torch, kernels, dev, calls, batches, entry_launches):
@@ -2256,9 +2265,13 @@ def phase_chamfer_bf16(torch, kernels, dev, calls, batches, entry_launches):
     del qb, rb, qw, rw
     torch.cuda.empty_cache()
     bound_ms, bound_by = chamfer_bound(b, nq, nr, d, bf16=True)
-    blocks = chamfer_bf16_blocks_per_sm(kernels, dev)
-    log(f"phase 5d: chamfer.bf16 (mma.sync, {blocks} block(s) per SM, grid "
-        f"{-(-nr // 32)} x {-(-nq // 16)} x {b}) on the DnS path's largest call rounded "
+    plan = chamfer_bf16_launch_plan(torch, kernels, dev, b, nq, nr, d)
+    log(f"phase 5d: chamfer.bf16 (TMA + wgmma.m64n144k16, RT={plan['rt']} ref frames an "
+        f"item, ref tile {'resident' if plan['resident'] else 'streamed'} in "
+        f"{plan['slots']} slices, {plan['items']} items on a persistent grid of "
+        f"{plan['grid']}, {plan['blocks_per_sm']} block(s) per SM, {plan['smem_bytes']} B "
+        f"shared, {plan['registers']} registers, {plan['local_bytes']} local bytes a "
+        f"thread) on the DnS path's largest call rounded "
         f"to bf16 [B={b}, NQ={nq}, NR={nr}, D={d}] kernel_ms={kernel_ms:.3f} "
         f"plain_ms={plain_ms:.3f} library_ms={library_ms:.3f} ({lib_what}; max abs "
         f"err {lib_err}) f32_ms={f32_ms:.3f} (the f32 chamfer on the same rows) "
@@ -2307,7 +2320,7 @@ def phase_chamfer_bf16(torch, kernels, dev, calls, batches, entry_launches):
     record = {
         "shape": [b, nq, nr, d], "max_abs_err": err, "ms": kernel_ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "f32_ms": f32_ms,
+        "bound_by": bound_by, "f32_ms": f32_ms, "plan": plan,
         "path_total": dict(totals, calls=len(calls)),
         "path_function": {"batches": len(batches), "max_abs_err": path_err,
                           "max_diff_from_highest": vs_highest, "ms": default_ms,
@@ -2903,6 +2916,7 @@ def main() -> int:
             "path": path_of.get(name, "sscd"),
         }
         for key in ("path_total", "f32_ms", "bf16_ms", "library_bf16_out_ms", "path_function",
+                    "plan",
                     "kernel_only_ms", "library_route_ms", "dense_route_ms", "entries",
                     "capacity", "peak_bytes", "dense_route_peak_bytes", "head"):
             if key in rec:

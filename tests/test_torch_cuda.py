@@ -42,10 +42,14 @@ for bit their bf16 kernels on the widened codes (the mid and lo passes add
 zeros); scores.int8 also at row counts around a 128-row tile, every column
 tail and any grid, writing nothing past its [M, n_valid] output.
 chamfer.bf16, the DnS chamfer at
-precision "default" (mma.sync on the tensor cores), is held against its
-plain version (the widened f32 chamfer) at frame counts on both sides of
-its 16 x 32 frame tiles: exact on integers, within BF16_TC_ATOL on
-unit-norm rows, zero on pad frames, writing nothing past its output.
+precision "default" (TMA and wgmma on the tensor cores, persistent, both
+chamfer reductions in registers), is held against its plain version (the
+widened f32 chamfer) at frame counts on both sides of its 128 x 16 frame
+tiles: exact on integers, within BF16_TC_ATOL on unit-norm rows, zero on
+pad frames, writing nothing past its output;
+also with the ref tile streamed (D past the resident limit, or fewer
+slices forced), at any persistent grid (bit for bit the default's), with
+more pairs than a wave of blocks, and across pair boundaries.
 """
 
 import math
@@ -349,9 +353,10 @@ def test_chamfer_wrapper_raises(cuda_device):
         kernels.chamfer_fine_sims(q[:, :, :8].contiguous(), q[:, :, :8].contiguous())
 
 
-# ---- chamfer.bf16: the DnS chamfer at precision "default" (mma.sync) ---------
+# ---- chamfer.bf16: the DnS chamfer at precision "default" (wgmma) -----------
 
-# Frame counts on both sides of the kernel's 16 x 32 frame tiles.
+# Frame counts on both sides of the kernel's 128 x 16 frame tiles and of a
+# consumer's 64 query frames.
 CHAMFER_FRAMES = [1, 17, 32, 64, 100, 128]
 
 
@@ -387,21 +392,16 @@ def test_chamfer_bf16_matches_plain(cuda_device, kind, nq, nr, d):
 
 @pytest.mark.parametrize("nq,nr", [(17, 100), (100, 17), (1, 1), (33, 65)])
 def test_chamfer_bf16_writes_nothing_past_its_output(cuda_device, nq, nr):
-    # Frames past NQ and NR inside a 16 x 32 frame tile are never stored:
+    # Frames past NQ and NR inside a frame tile are never stored:
     # a [B, NQ, NR] view at the start of a larger buffer leaves the rest.
     b, d = 3, 24
     qf = _ints((b, nq, 9, d), 90).to(BF16).to(cuda_device)
     rf = _ints((b, nr, 9, d), 91).to(BF16).to(cuda_device)
-    n_out = b * nq * nr
-    buf = torch.full((n_out + 4096,), 7.0, device=cuda_device)
-    rc = kernels._build.library().vsc_chamfer_bf16(
-        qf.device.index, qf.data_ptr(), rf.data_ptr(), b, nq, nr, 9, d, 1,
-        buf.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    torch.cuda.synchronize()
-    assert rc == 0
-    assert bool((buf[n_out:] == 7.0).all())
-    assert torch.equal(buf[:n_out].view(b, nq, nr),
-                       kernels.chamfer_fine_sims_plain(qf, rf, True))
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = kernels.chamfer_bf16_plan(b, nq, nr, d, sms)
+    got, rest = _chamfer_planned(qf, rf, True, plan.grid, plan.slots, extra=4096)
+    assert bool((rest == 7.0).all())
+    assert torch.equal(got, kernels.chamfer_fine_sims_plain(qf, rf, True))
 
 
 def test_chamfer_bf16_within_tolerance_of_f32_on_the_dns_width(cuda_device):
@@ -417,6 +417,135 @@ def test_chamfer_bf16_within_tolerance_of_f32_on_the_dns_width(cuda_device):
         got = kernels.chamfer_fine_sims(qb, rb, symmetric)
         f32 = kernels.chamfer_fine_sims(qb.float(), rb.float(), symmetric)
         torch.testing.assert_close(got, f32, rtol=0, atol=BF16_TC_ATOL)
+
+
+def _chamfer_case(device, kind, b, nq, nr, d, seed):
+    """bf16 region features on the card: integers, or unit-norm rows
+    rounded to bf16, with zero-pad frames at the end of both sides."""
+    if kind == "int":
+        qf, rf = _ints((b, nq, 9, d), seed), _ints((b, nr, 9, d), seed + 1)
+    else:
+        rng = np.random.RandomState(seed)
+        qf = torch.from_numpy(rng.randn(b, nq, 9, d).astype(np.float32))
+        rf = torch.from_numpy(rng.randn(b, nr, 9, d).astype(np.float32))
+        qf /= qf.norm(dim=3, keepdim=True)
+        rf /= rf.norm(dim=3, keepdim=True)
+    qf[:, nq - nq // 5 :] = 0.0
+    rf[:, nr - nr // 7 :] = 0.0
+    return qf.to(BF16).to(device), rf.to(BF16).to(device)
+
+
+def _chamfer_planned(qf, rf, symmetric, grid, slots, extra=0):
+    """chamfer.bf16 launched with a given grid and ref slices into a buffer
+    of ``extra`` more floats, filled with 7.0; returns (output, rest)."""
+    b, nq, _, d = qf.shape
+    nr = rf.shape[1]
+    buf = torch.full((b * nq * nr + extra,), 7.0, device=qf.device)
+    rc = kernels._build.library().vsc_chamfer_bf16(
+        qf.device.index, qf.data_ptr(), rf.data_ptr(), b, nq, nr, 9, d,
+        int(symmetric), grid, slots, buf.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    return buf[: b * nq * nr].view(b, nq, nr), buf[b * nq * nr :]
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("d", [1024, 1032])
+@pytest.mark.parametrize("nq,nr", [(100, 37), (64, 130), (17, 16)])
+def test_chamfer_bf16_streams_past_the_resident_limit(cuda_device, nq, nr, d, kind,
+                                                      symmetric):
+    # D > 512: the ref tile's k-slices exceed shared memory beside the
+    # query ring, so they stream through the slots once a pass (plan).
+    plan = kernels.chamfer_bf16_plan(2, nq, nr, d)
+    assert not plan.resident and plan.slots == kernels.CHAMFER_MAX_SLOTS
+    qb, rb = _chamfer_case(cuda_device, kind, 2, nq, nr, d, 96 + d % 7)
+    kernels.reset_launches()
+    got = kernels.chamfer_fine_sims(qb, rb, symmetric)
+    assert kernels.launches["chamfer.bf16"] == 1
+    want = kernels.chamfer_fine_sims_plain(qb, rb, symmetric)
+    tol = 0.0 if kind == "int" else BF16_TC_ATOL
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("grid,slots", [(1, 8), (3, 2), (7, 3), (50, 8), (132, 5)])
+@pytest.mark.parametrize("nq,nr", [(128, 128), (64, 100), (130, 33)])
+def test_chamfer_bf16_any_grid_and_slots(cuda_device, nq, nr, grid, slots, symmetric):
+    # Every persistent grid walks the same items, and a streamed ref tile
+    # (slots < 8 at D = 512) sums the same k-slices as a resident one: the
+    # output is the default launch's bit for bit, and nothing is written
+    # past it.
+    b, d = 3, 512
+    qb, rb = _chamfer_case(cuda_device, "float", b, nq, nr, d, 97)
+    want = kernels.chamfer_fine_sims(qb, rb, symmetric)
+    items = kernels.chamfer_bf16_plan(b, nq, nr, d).items
+    got, rest = _chamfer_planned(qb, rb, symmetric, min(grid, items), slots, extra=1024)
+    assert torch.equal(got, want)
+    assert bool((rest == 7.0).all())
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("nq,nr", [(128, 16), (50, 40)])
+def test_chamfer_bf16_more_pairs_than_a_wave(cuda_device, nq, nr, symmetric):
+    # 700 pairs: more work items than one block per SM takes in one item
+    # each, so every block walks several pairs.
+    b, d = 700, 64
+    qb, rb = _chamfer_case(cuda_device, "int", b, nq, nr, d, 98)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert kernels.chamfer_bf16_plan(b, nq, nr, d, sms).items > 2 * sms
+    got = kernels.chamfer_fine_sims(qb, rb, symmetric)
+    torch.testing.assert_close(got, kernels.chamfer_fine_sims_plain(qb, rb, symmetric),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("nq,nr", [(100, 17), (30, 40), (128, 33)])
+def test_chamfer_bf16_keeps_pairs_apart(cuda_device, nq, nr, symmetric):
+    # Pair 1 is all zeros between nonzero pairs 0 and 2, and NR is not a
+    # multiple of the 16-frame ref tile: the tile past NR of pair b reads
+    # zeros (the tensor map's pair dimension), never pair b + 1's frames,
+    # so pair 1 scores exactly 0 and the others their plain values.
+    b, d = 3, 72
+    qf, rf = _ints((b, nq, 9, d), 99), _ints((b, nr, 9, d), 100)
+    qf[1] = 0.0
+    rf[1] = 0.0
+    qb, rb = qf.to(BF16).to(cuda_device), rf.to(BF16).to(cuda_device)
+    got = kernels.chamfer_fine_sims(qb, rb, symmetric)
+    assert bool((got[1] == 0).all())
+    torch.testing.assert_close(got, kernels.chamfer_fine_sims_plain(qb, rb, symmetric),
+                               rtol=0, atol=0)
+    # Pair 1 alone nonzero: pairs 0 and 2 score exactly 0.
+    qf2, rf2 = torch.zeros_like(qf), torch.zeros_like(rf)
+    qf2[1], rf2[1] = qf[0], rf[0]
+    got = kernels.chamfer_fine_sims(qf2.to(BF16).to(cuda_device),
+                                    rf2.to(BF16).to(cuda_device), symmetric)
+    assert bool((got[0] == 0).all() and (got[2] == 0).all())
+
+
+def test_chamfer_bf16_plan_mirrors_the_kernel(cuda_device):
+    # kernels.chamfer_bf16_plan's shared memory is the kernel's, and a
+    # block fits on an SM.
+    import ctypes
+
+    lib = kernels._build.library()
+    for slots in range(1, kernels.CHAMFER_MAX_SLOTS + 1):
+        assert lib.vsc_chamfer_bf16_smem_bytes(slots) == kernels.chamfer_bf16_smem_bytes(slots)
+    blocks, regs, local = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(-1)
+    rc = lib.vsc_chamfer_bf16_attributes(
+        cuda_device.index or 0, kernels.CHAMFER_MAX_SLOTS, ctypes.byref(blocks),
+        ctypes.byref(regs), ctypes.byref(local))
+    assert rc == 0 and blocks.value == 1 and regs.value > 0 and local.value >= 0
+    # The launch refuses a grid of no block or of more blocks than items,
+    # more ref slices than fit, and a streamed tile of one slice (D = 576:
+    # nine k-slices; one item).
+    qb = torch.zeros((1, 4, 9, 576), dtype=BF16, device=cuda_device)
+    out = torch.empty((1, 4, 4), device=cuda_device)
+    for grid, slots in ((1, 9), (1, 1), (2, 8), (0, 8)):
+        rc = lib.vsc_chamfer_bf16(
+            qb.device.index or 0, qb.data_ptr(), qb.data_ptr(), 1, 4, 4, 9, 576, 1, grid,
+            slots, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        assert rc != 0
 
 
 def test_global_topk_cuda_equals_cpu(cuda_device):

@@ -115,7 +115,7 @@ def test_entry_points_default_to_cuda_and_raise(no_gpu, tmp_path):
 
 def test_tensor_core_kernels_are_the_bf16_launch_keys():
     """Every bf16 launch key but the chamfer's (chamfer_bf16.cu, its own
-    mma.sync product) is a kernel of the tensor-core product
+    wgmma product) is a kernel of the tensor-core product
     (wgmma_gemm.cuh), and each of those has a wrapper
     (tools/bench_reduce.py reads the set)."""
     from vsc2022_torch.ops import kernels

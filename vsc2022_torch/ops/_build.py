@@ -143,9 +143,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         argtypes[f"{name}_int8_occupancy"] = [i, p]
     argtypes["fused_topk_int8_occupancy"] = [i, i, i, p]
     argtypes["chamfer"] = [i, p, p, i, i, i, i, i, i, p, p]
-    # The bf16 chamfer (tensor cores) takes the same arguments.
-    argtypes["chamfer_bf16"] = argtypes["chamfer"]
-    argtypes["chamfer_bf16_occupancy"] = [i, p]
+    # The bf16 chamfer (tensor cores) takes the same arguments, and its
+    # plan's grid and ref slices (kernels.chamfer_bf16_plan) before out.
+    argtypes["chamfer_bf16"] = [i, p, p, i, i, i, i, i, i, i, i, p, p]
+    argtypes["chamfer_bf16_attributes"] = [i, i, p, p, p]
+    argtypes["chamfer_bf16_smem_bytes"] = [i]
     for name, types in argtypes.items():
         fn = getattr(lib, f"vsc_{name}")
         fn.argtypes = types

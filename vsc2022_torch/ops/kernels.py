@@ -62,9 +62,10 @@ The DnS chamfer takes f32 or bf16 region features (qf and rf of one
 dtype; the output stays f32): f32 (precision "highest") runs ``chamfer``,
 the CUDA cores' fmaf chain (``ops/csrc/chamfer.cu``); bf16 (precision
 "default") runs ``chamfer.bf16``, the counterpart of the Pallas chamfer's
-bf16 branch: ``mma.sync`` on the tensor cores, exact bf16 products summed
-in f32 in their own order (``ops/csrc/chamfer_bf16.cu``, rows of a
-multiple of 8 values).
+bf16 branch: TMA and ``wgmma`` on the tensor cores, exact bf16 products
+summed in f32 in their own order, both chamfer reductions in registers
+(``ops/csrc/chamfer_bf16.cu``, rows of a multiple of 8 values; its work
+plan is ``chamfer_bf16_plan``).
 
 No wrapper gives way from one variant to another.
 
@@ -79,7 +80,7 @@ replaces, what bounds it on an H100 and what its design does about it.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -1031,6 +1032,76 @@ def _launch_topk(
 
 CHAMFER_REGIONS = 9  # the kernels keep the 9 x 9 region products of a frame pair
 
+# chamfer.bf16's work item (ops/csrc/chamfer_bf16.cu): one pair,
+# CHAMFER_QT query frames (two consumers of 64) by CHAMFER_RT ref frames,
+# whose 9 · CHAMFER_RT region rows are the wgmma B operand. Depth goes in
+# k-slices of CHAMFER_BK values through a ring of CHAMFER_STAGES query
+# slices (16 KB) beside up to CHAMFER_MAX_SLOTS ref slices (9 · CHAMFER_RT
+# rows x CHAMFER_BK, 18 KB): the ref tile stays resident while its
+# k-slices fit, else it streams through the slots once a pass.
+CHAMFER_QT = 128
+CHAMFER_RT = 16
+CHAMFER_BK = 64
+CHAMFER_STAGES = 4
+CHAMFER_SMEM_LIMIT = 232_448  # dynamic shared memory of an H100 block
+_CHAMFER_ALIGN = 1024  # slack to align the swizzled tiles
+_CHAMFER_SLICE = CHAMFER_REGIONS * CHAMFER_RT * CHAMFER_BK * 2
+_CHAMFER_Q_STAGE = CHAMFER_QT * CHAMFER_BK * 2
+
+
+def chamfer_bf16_smem_bytes(slots: int) -> int:
+    """Dynamic shared memory of a chamfer.bf16 launch with ``slots`` ref
+    slices: alignment slack, the query ring, the slices, and a full and an
+    empty mbarrier (8 bytes) for each stage and slot."""
+    return (_CHAMFER_ALIGN + CHAMFER_STAGES * _CHAMFER_Q_STAGE + slots * _CHAMFER_SLICE
+            + 8 * (2 * CHAMFER_STAGES + 2 * slots))
+
+
+CHAMFER_MAX_SLOTS = (CHAMFER_SMEM_LIMIT - chamfer_bf16_smem_bytes(0)) // (_CHAMFER_SLICE + 16)
+
+
+class ChamferPlan(NamedTuple):
+    """A chamfer.bf16 launch: ``rt`` ref frames an item, ``q_tiles`` x
+    ``r_tiles`` items a pair, ``items`` in all, ``kt_n`` k-slices, the ref
+    tile ``resident`` (in ``slots`` == kt_n slices) or streamed through
+    ``slots`` slices once a pass, ``smem_bytes`` of shared memory, and a
+    persistent ``grid`` of one block per SM (at most the items)."""
+
+    rt: int
+    q_tiles: int
+    r_tiles: int
+    items: int
+    kt_n: int
+    resident: bool
+    slots: int
+    smem_bytes: int
+    grid: int
+
+
+def chamfer_bf16_plan(b: int, nq: int, nr: int, d: int, sms: int = 132) -> ChamferPlan:
+    """The plan of a chamfer.bf16 call on ``sms`` SMs (one block each)."""
+    kt_n = -(-d // CHAMFER_BK)
+    resident = kt_n <= CHAMFER_MAX_SLOTS
+    slots = kt_n if resident else CHAMFER_MAX_SLOTS
+    q_tiles, r_tiles = -(-nq // CHAMFER_QT), -(-nr // CHAMFER_RT)
+    items = b * q_tiles * r_tiles
+    return ChamferPlan(
+        rt=CHAMFER_RT, q_tiles=q_tiles, r_tiles=r_tiles, items=items, kt_n=kt_n,
+        resident=resident, slots=slots, smem_bytes=chamfer_bf16_smem_bytes(slots),
+        grid=min(items, sms),
+    )
+
+
+def chamfer_bf16_item(i, nq: int, nr: int):
+    """(pair, first query frame, first ref frame) of work item ``i`` (an
+    int or an integer array), as chamfer_bf16.cu numbers them: pair major,
+    then query tile, then ref tile. Block k of a ``grid``-block launch
+    takes items k, k + grid, k + 2·grid, ..."""
+    q_tiles, r_tiles = -(-nq // CHAMFER_QT), -(-nr // CHAMFER_RT)
+    per_pair = q_tiles * r_tiles
+    b, local = i // per_pair, i % per_pair
+    return b, local // r_tiles * CHAMFER_QT, local % r_tiles * CHAMFER_RT
+
 
 def chamfer_fine_sims(
     qf: torch.Tensor, rf: torch.Tensor, symmetric: bool = True
@@ -1074,11 +1145,21 @@ def chamfer_fine_sims(
     out = torch.empty((b, nq, nr), dtype=torch.float32, device=qf.device)
     if out.numel() == 0:
         return out
-    cname, key = ("chamfer_bf16", CHAMFER_BF16) if bf16 else ("chamfer", "chamfer")
-    rc = getattr(_build.library(), f"vsc_{cname}")(
+    lib = _build.library()
+    if bf16:
+        sms = torch.cuda.get_device_properties(qf.device).multi_processor_count
+        plan = chamfer_bf16_plan(b, nq, nr, d, sms)
+        rc = lib.vsc_chamfer_bf16(
+            qf.device.index, qf.data_ptr(), rf.data_ptr(), b, nq, nr, r, d,
+            int(bool(symmetric)), plan.grid, plan.slots, out.data_ptr(), _stream(qf),
+        )
+        _raise_on(rc, "chamfer_bf16")
+        launches[CHAMFER_BF16] += 1
+        return out
+    rc = lib.vsc_chamfer(
         qf.device.index, qf.data_ptr(), rf.data_ptr(), b, nq, nr, r, d,
         int(bool(symmetric)), out.data_ptr(), _stream(qf),
     )
-    _raise_on(rc, cname)
-    launches[key] += 1
+    _raise_on(rc, "chamfer")
+    launches["chamfer"] += 1
     return out
