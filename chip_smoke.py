@@ -191,6 +191,29 @@ Phases (any failure exits non-zero):
      two-file request with the 1,025-wide coarse corpus in int8 (1,040
      columns of codes), its quality logged, and its search repeated in
      process on phase 5's inputs in both collection modes.
+  7. The small search modes. 7a: every L2 variant (row_max, count_above,
+     pool_writer, fused_topk in f32 and bf16; scores_above in bf16)
+     against its plain version at small ragged shapes (D = 33, 512, 1025;
+     exact on integers, within FLOAT_ATOL / BF16_TC_ATOL on unit-norm
+     floats) and the L2 kernels of each collection against each other bit
+     for bit (the pool's best winner is row_max, its winners ordered
+     fused_topk's, its count count_above's on rows with amb == 0 and on
+     the ambiguous rows alone; scores_above's entries the goodness of
+     scores.bf16). 7b: VideoIndex(metric="L2") over phase 6's catalogue
+     (240,000 frames, 150 query videos, k = 180,000) in f32 and bf16, its
+     search forced to each collection plus the searcher's row_nn, launch
+     counts zeroed just before and read after: pooled == stream (ids and
+     distances), both against a dense oracle; each L2 kernel then held
+     against its plain version on those inputs (and integers of their
+     shape) and timed beside its IP kernel, its plain version, torch.mm
+     with the same epilogue and reduction, and its bound. 7c: precision
+     "default": an f32 searcher == a bf16 searcher on the same rows, an
+     int8 one == a bf16 searcher over its unit-scale codes (the one-pass
+     product), bit for bit in both collections; L2 at "default" against
+     the dense oracle of bf16 products and f32 norms. 7d: per-query KNN,
+     VideoIndex.search(global_k=-5), against the dense per-row top-k.
+     7e: python -m vsc2022_torch.matching_eval on phase 4's matches.csv
+     prints the segment AP phase 4 reported.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object with each kernel's numbers, and {"ok": true, "device": ...}.
@@ -2734,6 +2757,493 @@ def log_stream_pair_plans(kernels, lib, probe, sms, label, m, n_valid, kappa):
             f"{smem} bytes of shared memory a block")
 
 
+# ---- phase 7: the small search modes (metric L2, precision "default", KNN) --
+
+
+# The per-query KNN of 7d: frames per query frame.
+KNN_K = 5
+
+
+def l2_norms(q, r):
+    """The squared norms the searchers stage: {ref_sq [N], q_sq [M]}."""
+    from vsc2022_torch.ops.similarity import _row_sq
+
+    return {"ref_sq": _row_sq(r), "q_sq": _row_sq(q)}
+
+
+def l2_plain_rows(torch, kernels, q, r, n_valid, kw):
+    """The plain goodness of q's rows over the first n_valid corpus rows
+    ([M, n_valid]: the widened product, then (2 s - ref_sq) - q_sq)."""
+    s = kernels.scores_plain(q, r, n_valid)
+    return s.mul_(2.0).sub_(kw["ref_sq"][:n_valid]).sub_(kw["q_sq"][:, None])
+
+
+def l2_check(torch, kernels, name, q, r, n_valid, kw, kind, arg=None):
+    """One L2 variant against its plain version (``kw``: ref_sq and q_sq;
+    ``arg``: tau, kappa or the floors): integers exactly, tie order
+    included; floats within the dtype's tolerance (counts within 2, the
+    entries of scores_above as compare_scores_above holds them). Returns
+    the largest error."""
+    bf16 = q.dtype == torch.bfloat16
+    tol = 0.0 if kind == "int" else BF16_TC_ATOL if bf16 else FLOAT_ATOL
+    what = f"{name}{BF16 if bf16 else ''}{kernels.L2} {kind} [{q.shape[0]}x{n_valid}x{q.shape[1]}]"
+    if name == "row_max":
+        got = kernels.row_max(q, r, n_valid, **kw)
+        want = kernels.row_max_plain(q, r, n_valid, **kw)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+    elif name == "count_above":
+        got = kernels.count_above(q, r, arg, n_valid, **kw)
+        want = kernels.count_above_plain(q, r, arg, n_valid, **kw)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        check(err <= (0.0 if kind == "int" else 2.0), f"{what}: count diff {err}")
+        return err
+    elif name in ("pool_writer", "fused_topk"):
+        extra = () if name == "pool_writer" else (arg,)
+        gv, gi = getattr(kernels, name)(q, r, n_valid, *extra, **kw)
+        wv, wi = getattr(kernels, name + "_plain")(q, r, n_valid, *extra, **kw)
+        finite = torch.isfinite(wv)
+        check(torch.equal(torch.isfinite(gv), finite), f"{what}: -inf slots differ")
+        err = float((gv[finite] - wv[finite]).abs().max()) if finite.any() else 0.0
+        if kind == "int":
+            check(torch.equal(gi[finite], wi[finite]), f"{what}: ids differ")
+    else:  # scores_above: arg are the floors
+        s, rr, cc = above_entries(torch, kernels.scores_above(q, r, n_valid, arg, **kw))
+        plain = l2_plain_rows(torch, kernels, q, r, n_valid, kw)
+        if kind == "int":
+            wr, wc = torch.nonzero(plain >= arg[:, None], as_tuple=True)
+            check(torch.equal(rr, wr) and torch.equal(cc, wc)
+                  and torch.equal(s, plain[wr, wc]), f"{what}: differs from the plain version")
+            return 0.0
+        err = float((s - plain[rr, cc]).abs().max()) if s.numel() else 0.0
+        emitted = torch.zeros(plain.shape, dtype=torch.bool, device=q.device)
+        emitted[rr, cc] = True
+        missed = int(((plain >= arg[:, None] + tol) & ~emitted).sum())
+        low = int((plain[rr, cc] < arg[rr] - tol).sum())
+        check(missed == 0 and low == 0, f"{what}: {missed} plain entries >= floor + tol "
+              f"missed, {low} emitted below floor - tol")
+    check(err <= tol, f"{what}: max abs err {err} > {tol}")
+    return err
+
+
+def l2_floors(torch, kernels, q, r, n_valid, kw, depth=40):
+    """Per-row floors: each row's plain goodness at ``depth`` (its ties sit
+    on the floor), -inf on every 17th row."""
+    plain = l2_plain_rows(torch, kernels, q, r, n_valid, kw)
+    floor = torch.sort(plain, dim=1, descending=True).values[:, min(depth, n_valid - 1)]
+    floor[::17] = float("-inf")
+    return floor.contiguous()
+
+
+def l2_identity(torch, kernels, q, r, n_valid, label, kappa=32):
+    """The L2 kernels of q's dtype against each other on the same inputs, as
+    the collections compare them (r: whole 128-row segments): the pool's
+    best winner is row_max, its winners ordered fused_topk's (the stream's
+    candidates), and with tau the global k-th pool value the count is the
+    pool count on every row with amb == 0, no less elsewhere, and on the
+    amb > 0 rows alone (the pooled collection's count of its ambiguous
+    rows) the full call's; over bf16, scores_above's entries are the
+    goodness of scores.bf16 (torch's elementwise f32 epilogue) bit for bit,
+    on the first SCORES_ROWS rows. Bit for bit throughout."""
+    m = q.shape[0]
+    kw = l2_norms(q, r)
+    pv, pi = kernels.pool_writer(q, r, n_valid, **kw)
+    best = kernels.row_max(q, r, n_valid, **kw)
+    check(torch.equal(pv.view(m, -1).amax(1).view(torch.int32), best.view(torch.int32)),
+          f"{label}: row_max.l2 differs from pool_writer.l2's best winner")
+    want = kernels.ordered_topk(pv.view(m, -1), pi.view(m, -1), kappa)
+    check(all(torch.equal(a, b) for a, b in zip(
+        kernels.fused_topk(q, r, n_valid, kappa, **kw), want)),
+        f"{label}: fused_topk.l2 differs from the pool's winners ordered")
+    finite = int(torch.isfinite(pv).sum())
+    tau = float(torch.topk(pv.reshape(-1), min(K_PER_ROW * m, finite)).values[-1])
+    above = pv >= tau
+    pool_counts, amb = above.view(m, -1).sum(1), above.all(2).sum(1)
+    counts = kernels.count_above(q, r, tau, n_valid, **kw).long()
+    clean = amb == 0
+    check(torch.equal(counts[clean], pool_counts[clean])
+          and bool((counts >= pool_counts).all()),
+          f"{label}: count_above.l2 differs from the pool count on rows with amb == 0")
+    rows = torch.nonzero(~clean, as_tuple=True)[0]
+    if rows.numel():
+        sub = kernels.count_above(q[rows], r, tau, n_valid, ref_sq=kw["ref_sq"],
+                                  q_sq=kw["q_sq"][rows]).long()
+        check(torch.equal(sub, counts[rows]),
+              f"{label}: count_above.l2 on the amb > 0 rows alone differs")
+    if q.dtype == torch.bfloat16:
+        h = min(m, SCORES_ROWS)
+        sub = {"ref_sq": kw["ref_sq"], "q_sq": kw["q_sq"][:h]}
+        dense = ((2 * kernels.scores(q[:h], r, n_valid) - kw["ref_sq"][:n_valid])
+                 - kw["q_sq"][:h, None])
+        floor = torch.sort(dense, dim=1, descending=True).values[:, 40].contiguous()
+        s, rr, cc = above_entries(torch, kernels.scores_above(q[:h], r, n_valid, floor,
+                                                              **sub))
+        wr, wc = torch.nonzero(dense >= floor[:, None], as_tuple=True)
+        check(torch.equal(rr, wr) and torch.equal(cc, wc)
+              and torch.equal(s.view(torch.int32), dense[wr, wc].view(torch.int32)),
+              f"{label}: scores_above.bf16.l2 differs from the dense goodness")
+    log(f"phase 7: {label} [{m} x {n_valid} x {q.shape[1]}]: L2 row_max == the pool's "
+        f"best winner, fused_topk == its winners ordered (kappa {kappa}), count_above "
+        f"== the pool count on {int(clean.sum())} rows with amb == 0 (tau {tau!r}) and "
+        f"on the {rows.numel()} others alone == the full call"
+        + (", scores_above == the dense goodness" if q.dtype == torch.bfloat16 else "")
+        + ", bit for bit")
+
+
+def phase_l2_small(torch, kernels, dev):
+    """7a: every L2 variant against its plain version at small ragged
+    shapes (exact on integers, within the tolerance on unit-norm floats),
+    and the kernels of each collection against each other."""
+    m, n = 300, 5120
+    for dt in (torch.float32, torch.bfloat16):
+        for d in (33, 512, 1025):
+            for kind in ("int", "float"):
+                q, r = make_inputs(torch, kind, m, n, d, seed=70 + d, dev=dev)
+                r[[5, 7, 40]] = r[7].clone()  # exact ties inside segment 0
+                q[0] = r[7]
+                q, r = q.to(dt), r.to(dt)
+                n_valid = n - 120
+                kw = l2_norms(q, r)
+                for name, arg in (("row_max", None), ("count_above", -40.0 if kind == "int"
+                                                      else -1.5),
+                                  ("count_above", float("-inf")), ("pool_writer", None),
+                                  ("fused_topk", 7), ("fused_topk", 100)):
+                    l2_check(torch, kernels, name, q, r, n_valid, kw, kind, arg)
+                if dt == torch.bfloat16:
+                    l2_check(torch, kernels, "scores_above", q, r, n_valid, kw, kind,
+                             l2_floors(torch, kernels, q, r, n_valid, kw))
+                if kind == "float":
+                    l2_identity(torch, kernels, q, r, n_valid,
+                                f"small {str(dt).split('.')[-1]} D={d}")
+    log("phase 7a: every L2 variant equals its plain version on integers and lies "
+        f"within {FLOAT_ATOL} (f32) / {BF16_TC_ATOL} (bf16) of it on unit-norm floats")
+
+
+@contextlib.contextmanager
+def topk_results():
+    """The (query_idx, ref_idx, score) of every SimilaritySearcher.global_topk
+    call while the block runs, with its mode."""
+    from vsc2022_torch.ops.similarity import SimilaritySearcher
+
+    seen = []
+    original = SimilaritySearcher.global_topk
+
+    def global_topk(self, *args, **kwargs):
+        out = original(self, *args, **kwargs)
+        seen.append((out, self.last_stats["mode"]))
+        return out
+
+    SimilaritySearcher.global_topk = global_topk
+    try:
+        yield seen
+    finally:
+        SimilaritySearcher.global_topk = original
+
+
+def l2_oracle(torch, np, q, r, k, q_sq, ref_sq):
+    """The dense L2 search: (query_idx, ref_idx, squared distance) of the
+    k best pairs, ties by (q, r), and each row's nearest distance, from
+    cuBLAS f32 products of q and r as the searcher's product takes them
+    and its squared norms; chunked over query rows."""
+    step = max(1, (1 << 28) // r.shape[0])
+    top, nearest = [], []
+    for s0 in range(0, q.shape[0], step):
+        g = (2 * (q[s0:s0 + step] @ r.T) - ref_sq) - q_sq[s0:s0 + step, None]
+        top.append(torch.topk(g.reshape(-1), min(k, g.numel())).values)
+        nearest.append(g.amax(1))
+    kth = torch.topk(torch.cat(top), k).values[-1]
+    vals, rows, cols = [], [], []
+    for s0 in range(0, q.shape[0], step):
+        g = (2 * (q[s0:s0 + step] @ r.T) - ref_sq) - q_sq[s0:s0 + step, None]
+        rr, cc = torch.nonzero(g >= kth, as_tuple=True)
+        vals.append(g[rr, cc].cpu().numpy())
+        rows.append((rr + s0).cpu().numpy())
+        cols.append(cc.cpu().numpy())
+    vals, rows, cols = np.concatenate(vals), np.concatenate(rows), np.concatenate(cols)
+    order = np.lexsort((cols, rows, -vals))[:k]
+    return rows[order], cols[order], -vals[order], -torch.cat(nearest).cpu().numpy()
+
+
+def check_vs_oracle(np, got, want, tol, what):
+    """A float search against the dense oracle: k pairs, sorted, distances
+    within tol, the same pairs wherever clear of the k-th distance by 2
+    tol. Returns the largest distance error."""
+    (qi, ri, s), (oq, orr, os_) = got, want
+    check(len(qi) == len(oq), f"{what}: {len(qi)} pairs, not {len(oq)}")
+    check(bool((np.diff(s) >= 0).all()), f"{what}: distances not ascending")
+    err = float(np.abs(s - os_).max())
+    check(err <= tol, f"{what}: distances off the oracle's by {err} > {tol}")
+    edge = float(os_[-1]) - 2 * tol
+    check({(a, b) for a, b, v in zip(oq, orr, os_) if v < edge} <= set(zip(qi, ri))
+          and {(a, b) for a, b, v in zip(qi, ri, s) if v < edge} <= set(zip(oq, orr)),
+          f"{what}: pair set differs from the oracle's")
+    return err
+
+
+def l2_library(torch, name, q, r, n_valid, kw, arg):
+    """One PyTorch route to an L2 kernel's result (timing only): torch.mm
+    (bf16 with f32 output where torch has it), the same epilogue, and the
+    kernel's reduction, chunked over query rows."""
+    n = r.shape[0] if name in ("pool_writer", "fused_topk") else n_valid
+    rr = r[:n, :q.shape[1]]
+    out_kw = ({"out_dtype": torch.float32}
+              if q.dtype == torch.bfloat16 and mm_out_f32(torch, q.device) else {})
+    step = _lib_chunk(n)
+    outs = []
+    for s0 in range(0, q.shape[0], step):
+        s = torch.mm(q[s0:s0 + step], rr.T, **out_kw).float()
+        s = (2 * s - kw["ref_sq"][:n]) - kw["q_sq"][s0:s0 + step, None]
+        if name == "row_max":
+            outs.append(s.amax(1))
+        elif name == "count_above":
+            outs.append((s >= arg).sum(1))
+        elif name == "scores_above":
+            r_, c_ = torch.nonzero(s >= arg[s0:s0 + step, None], as_tuple=True)
+            outs.append(s[r_, c_])
+        else:
+            s[:, n_valid:] = float("-inf")
+            seg = torch.topk(s.view(s.shape[0], -1, 128), 2, dim=2).values
+            if name == "fused_topk":
+                seg = seg.reshape(s.shape[0], -1)
+                seg = torch.topk(seg, min(arg, seg.shape[1]), dim=1).values
+            outs.append(seg)
+    return outs
+
+
+def mm_out_f32(torch, dev) -> bool:
+    """Whether this torch has torch.mm(bf16, bf16, out_dtype=f32) on ``dev``
+    (else the library route takes cuBLAS's bf16 output, widened)."""
+    try:
+        a = torch.zeros((1, 8), dtype=torch.bfloat16, device=dev)
+        torch.mm(a, a.T, out_dtype=torch.float32)
+        return True
+    except (TypeError, RuntimeError, NotImplementedError):
+        return False
+
+
+def l2_records(torch, kernels, captured, launches, path):
+    """Each L2 kernel on the inputs the path gave it (its first call):
+    against its plain version on those floats and on integers of the same
+    shape, then timed beside its IP kernel on the same inputs (ip_ms;
+    scores_above at the floors of about as many entries), its plain
+    version, one PyTorch route (l2_library) and the bound (the IP
+    kernel's operations; bytes add the two norms). Returns {key: record}."""
+    records = {}
+    for name, args in captured.items():
+        if name not in kernels.RETRIEVAL_KERNELS + ("scores_above",):
+            continue
+        q, r = args[0], args[1]
+        kw = {"ref_sq": args[-2], "q_sq": args[-1]}
+        bf16 = q.dtype == torch.bfloat16
+        key = name + (BF16 if bf16 else "") + kernels.L2
+        n_valid = int(args[3] if name == "count_above" else args[2])
+        arg = {"count_above": lambda: float(args[2]), "fused_topk": lambda: int(args[3]),
+               "scores_above": lambda: args[3]}.get(name, lambda: None)()
+        (m, d), n = q.shape, r.shape[0]
+        err = l2_check(torch, kernels, name, q, r, n_valid, kw, "float", arg)
+        qi, ri = make_inputs(torch, "int", m, n, d, seed=7, dev=q.device)
+        qi, ri = qi.to(q.dtype), ri.to(q.dtype)
+        kwi = l2_norms(qi, ri)
+        arg_i = {"count_above": -8.0 * d, "fused_topk": arg, "scores_above":
+                 (l2_floors(torch, kernels, qi, ri, n_valid, kwi, depth=n_valid // 1000)
+                  if name == "scores_above" else None)}.get(name)
+        l2_check(torch, kernels, name, qi, ri, n_valid, kwi, "int", arg_i)
+        del qi, ri, kwi, arg_i
+        torch.cuda.empty_cache()
+        extra = () if arg is None else (arg,)
+        if name == "count_above":
+            call = lambda **k: kernels.count_above(q, r, arg, n_valid, **k)  # noqa: E731
+            plain = lambda: kernels.count_above_plain(q, r, arg, n_valid, **kw)  # noqa: E731
+        else:
+            fn, pfn = getattr(kernels, name), getattr(kernels, name + "_plain")
+            call = lambda **k: fn(q, r, n_valid, *extra, **k)  # noqa: E731
+            plain = lambda: pfn(q, r, n_valid, *extra, **kw)  # noqa: E731
+        ms = cuda_ms(torch, lambda: call(**kw), 3)
+        if name == "scores_above":
+            # The IP kernel's floors: g >= f is s >= (f + |q|^2 + |r|^2) / 2,
+            # with |r|^2 at its mean (so about as many entries pass).
+            ip_floor = ((arg + kw["q_sq"] + kw["ref_sq"][:n_valid].mean()) / 2).contiguous()
+            ip_ms = cuda_ms(torch, lambda: kernels.scores_above(q, r, n_valid, ip_floor), 3)
+        else:
+            ip_ms = cuda_ms(torch, lambda: call(), 3)
+        plain_ms = cuda_ms(torch, plain, 1)
+        library_ms = cuda_ms(torch, lambda: l2_library(torch, name, q, r, n_valid, kw, arg), 1)
+        if name == "pool_writer":
+            out_bytes = 8 * m * (n // 128) * 2
+        elif name == "fused_topk":
+            out_bytes = 8 * m * arg
+        elif name == "scores_above":  # the entries this call emits
+            out_bytes = 12 * int(call(**kw)[0].numel())
+        else:
+            out_bytes = 4 * m
+        bound_ms, bound_by = bound(m, n_valid, n, d, out_bytes + 4 * (m + n), bf16=bf16)
+        records[key] = {"shape": [m, n_valid, d] + ([arg] if name == "fused_topk" else []),
+                        "max_abs_err": err, "ms": ms, "ip_ms": ip_ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "path": path}
+        log(f"phase 7b: {key} on the {path} inputs [{m} x {n_valid} x {d}] kernel_ms={ms:.3f} "
+            f"ip_ms={ip_ms:.3f} plain_ms={plain_ms:.3f} library_ms={library_ms:.3f} "
+            f"bound_ms={bound_ms:.3f} ({bound_by}) max_abs_err={err}; launches "
+            f"{launches.get(key, 0)}")
+    return records
+
+
+def phase_l2_search(torch, np, kernels, dev, corpus):
+    """7b: VideoIndex(metric="L2") over phase 6's serving catalogue in f32
+    and bf16, its search (k = 1200 a query video) forced to each collection
+    and the searcher's nearest-row distances (row_nn): launch counts zeroed
+    just before and read just after; pooled and stream identical, both
+    against the dense oracle; each L2 kernel then held and timed on the
+    inputs that run gave it. Returns (records, launches)."""
+    from vsc2022_torch.ops.similarity import _row_sq
+    from vsc2022_torch.retrieval.index import VideoIndex
+
+    queries, refs = corpus["queries"], corpus["refs"]
+    q_np = np.concatenate([v.feature for v in queries])
+    k = 1200 * len(queries)
+    records, launches = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        index = VideoIndex(DIM, metric="L2", dtype=dtype, device=dev)
+        index.add(refs)
+        searcher = index._get_searcher()
+        out, secs = {}, {}
+        with capture_inputs(kernels) as captured:
+            kernels.reset_launches()
+            for mode in ("stream", "pooled"):
+                with collection_mode(mode), topk_results() as res:
+                    t0 = time.perf_counter()
+                    pairs = index.search(queries, global_k=k)
+                    secs[mode] = time.perf_counter() - t0
+                (out[mode], ran), = res
+                check(ran == mode, f"L2 {dtype}: {ran} ran, not {mode}")
+                check(sum(len(p.matches) for p in pairs) == k, f"L2 {dtype}: matches lost")
+            nearest = searcher.row_nn(q_np)
+            counts = dict(kernels.launches)
+        sfx = BF16 if dtype == "bfloat16" else ""
+        used = {name + sfx + kernels.L2 for name in kernels.RETRIEVAL_KERNELS} | (
+            {SCORES_ABOVE + kernels.L2} if dtype == "bfloat16" else set())
+        check({key for key, v in counts.items() if v} == used,
+              f"L2 {dtype} search launched {json.dumps(counts)}, not {sorted(used)}")
+        check(all(np.array_equal(a, b) for a, b in zip(out["stream"], out["pooled"])),
+              f"L2 {dtype}: stream and pooled differ")
+        qt = torch.from_numpy(q_np).to(dev).to(searcher.query_dtype).float()
+        rt = searcher._refs[: searcher.n_refs].float()
+        oracle = l2_oracle(torch, np, qt, rt, k, _row_sq(qt), searcher._ref_sq[: searcher.n_refs])
+        tol = BF16_TC_ATOL if dtype == "bfloat16" else FLOAT_ATOL
+        err = check_vs_oracle(np, out["stream"], oracle[:3], tol, f"L2 {dtype} search")
+        nn_err = float(np.abs(nearest - oracle[3]).max())
+        check(nn_err <= tol, f"L2 {dtype} row_nn off the oracle by {nn_err}")
+        log(f"phase 7b: VideoIndex(metric=\"L2\", dtype={dtype}) [{len(q_np)} x "
+            f"{searcher.n_refs} x {DIM}] k={k}: stream {secs['stream']:.3f} s, pooled "
+            f"{secs['pooled']:.3f} s, identical ids and distances; within {err} of the "
+            f"dense oracle (same pairs clear of the k-th distance), row_nn within "
+            f"{nn_err}; launches {json.dumps({k_: v for k_, v in counts.items() if v})}")
+        launches.update({key: counts[key] for key in used})
+        records.update(l2_records(torch, kernels, captured, counts, "serving L2"))
+        del index, searcher, captured, qt, rt
+        torch.cuda.empty_cache()
+    return records, launches
+
+
+def phase_default(torch, np, kernels, dev, corpus):
+    """7c: precision "default". IP over an f32 corpus is a bf16 searcher on
+    the same rows, ids and scores bit for bit, through the bf16 kernels
+    alone; an int8 corpus at "default" is the one-pass product (codes at
+    unit scale: a bf16 searcher over the codes, bit for bit); L2 at
+    "default" against the dense oracle of bf16 products and f32 norms."""
+    from vsc2022_torch.ops.similarity import SimilaritySearcher, _row_sq
+
+    q_np = np.concatenate([v.feature for v in corpus["queries"]])
+    r_np = np.concatenate([v.feature for v in corpus["refs"]])
+    k = 1200 * len(corpus["queries"])
+    # Integer rows of max |code| 127: SQ8 scale 1, codes the rows themselves.
+    codes = np.round(r_np * (127.0 / np.abs(r_np).max(1, keepdims=True)))
+    bf16_kernels = {n + BF16 for n in kernels.TENSOR_CORE_KERNELS}
+    for label, a, b in (
+        ("f32", SimilaritySearcher(r_np, precision="default", device=dev),
+         SimilaritySearcher(r_np, dtype="bfloat16", device=dev)),
+        ("int8", SimilaritySearcher(codes, dtype="int8", precision="default", device=dev),
+         SimilaritySearcher(codes, dtype="bfloat16", device=dev)),
+    ):
+        if label == "int8":
+            check(bool((a._scale[: a.n_refs] == 1.0).all()), "the int8 codes' scales are not 1")
+        for mode in ("stream", "pooled"):
+            with collection_mode(mode):
+                kernels.reset_launches()
+                got = a.global_topk(q_np, k)
+                ran = {key for key, v in kernels.launches.items() if v}
+                want = b.global_topk(q_np, k)
+            check(all(np.array_equal(x, y) for x, y in zip(got, want)),
+                  f"{label} at precision default ({mode}) differs from the bf16 searcher")
+            check(ran <= (bf16_kernels if label == "f32" else set(kernels.INT8_KERNELS)),
+                  f"{label} at precision default launched {sorted(ran)}")
+        log(f"phase 7c: {label} corpus at precision \"default\" == a bf16 searcher over "
+            f"{'the same rows' if label == 'f32' else 'the codes (unit scales)'} "
+            f"[{len(q_np)} x {a.n_refs}], k={k}, both collections, ids and scores bit "
+            f"for bit; kernels {sorted(ran)}")
+        del a, b
+        torch.cuda.empty_cache()
+    s = SimilaritySearcher(r_np, metric="L2", precision="default", device=dev)
+    got = s.global_topk(q_np, k)
+    qf = torch.from_numpy(q_np).to(dev)
+    oracle = l2_oracle(torch, np, qf.bfloat16().float(), s._refs[: s.n_refs].float(), k,
+                       _row_sq(qf), s._ref_sq[: s.n_refs])
+    err = check_vs_oracle(np, got, oracle[:3], BF16_TC_ATOL, "L2 at precision default")
+    log(f"phase 7c: L2 at precision \"default\" within {err} of the dense oracle of bf16 "
+        "products and f32 norms")
+
+
+def phase_knn(torch, np, dev, corpus):
+    """7d: VideoIndex.search(global_k=-KNN_K) (per-query KNN) against the
+    dense per-row top-k: the index regroups the searcher's row_topk, whose
+    scores lie within FLOAT_ATOL of the oracle's, with the same ids on
+    every row whose k + 1 best scores are 2 FLOAT_ATOL apart."""
+    from vsc2022_torch.retrieval.index import VideoIndex
+
+    queries, refs = corpus["queries"], corpus["refs"]
+    index = VideoIndex(DIM, device=dev)
+    index.add(refs)
+    t0 = time.perf_counter()
+    pairs = index.search(queries, global_k=-KNN_K)
+    secs = time.perf_counter() - t0
+    q = torch.from_numpy(np.concatenate([v.feature for v in queries])).to(dev)
+    r = torch.from_numpy(np.concatenate([v.feature for v in refs])).to(dev)
+    step = max(1, (1 << 28) // r.shape[0])
+    vals, ids = zip(*(torch.topk(q[s0:s0 + step] @ r.T, KNN_K + 1, dim=1)
+                      for s0 in range(0, q.shape[0], step)))
+    vals, ids = torch.cat(vals).cpu().numpy(), torch.cat(ids).cpu().numpy()
+    s, i = index._get_searcher().row_topk(q.cpu().numpy(), KNN_K)
+    err = float(np.abs(s - vals[:, :KNN_K]).max())
+    clear = (np.diff(-vals, axis=1) > 2 * FLOAT_ATOL).all(1)
+    check(err <= FLOAT_ATOL and np.array_equal(i[clear], ids[clear, :KNN_K]),
+          f"KNN row_topk: scores off by {err} or ids differ on rows clear of ties")
+    n_q = sum(len(v) for v in queries)
+    got = sorted((p.query_id, p.ref_id, m.score) for p in pairs for m in p.matches)
+    qid = np.concatenate([[v.video_id] * len(v) for v in queries])
+    rid = np.concatenate([[v.video_id] * len(v) for v in refs])
+    want = sorted((qid[a], rid[b], float(v)) for a, row, vrow in zip(range(n_q), i, s)
+                  for b, v in zip(row, vrow))
+    check(got == want, "KNN search: the pairs do not regroup row_topk's results")
+    log(f"phase 7d: VideoIndex.search(global_k=-{KNN_K}) [{n_q} x {r.shape[0]} x {DIM}] "
+        f"{secs:.3f} s: {len(got)} frame matches in {len(pairs)} pairs, row_topk within "
+        f"{err} of the dense top-{KNN_K}, same ids on {int(clear.sum())} of {n_q} rows "
+        "clear of ties")
+
+
+def phase_matching_eval(paths, out_dir, segment_ap):
+    """7e: python -m vsc2022_torch.matching_eval on phase 4's matches.csv
+    prints the segment AP that phase 4's sscd_baseline reported, in the root
+    script's line."""
+    run = subprocess.run(
+        [sys.executable, "-m", "vsc2022_torch.matching_eval", "--predictions",
+         str(out_dir / "matches.csv"), "--ground_truth", paths["gt"]],
+        cwd=str(REPO), capture_output=True, text=True, timeout=300)
+    check(run.returncode == 0, f"matching_eval failed: {run.stderr[-2000:]}")
+    want = f"Matching track segment AP: {segment_ap:.4f}"
+    check(run.stdout.splitlines() == [want],
+          f"matching_eval printed {run.stdout!r}, not {want!r}")
+    log(f"phase 7e: python -m vsc2022_torch.matching_eval printed \"{want}\"")
+
+
 def nvidia_smi_line() -> str:
     try:
         out = subprocess.run(
@@ -2831,8 +3341,13 @@ def main() -> int:
         dns_bf16_launches = serve_dns_request("bfloat16")
         serve_int8_launches, serve_int8_captured, pooled_int8, _ = phase_serve(
             torch, np, kernels, dev, corpus, dtype="int8")
-        del corpus
         dns_int8_launches = serve_dns_request("int8")
+        phase_l2_small(torch, kernels, dev)
+        l2_recs, l2_launches = phase_l2_search(torch, np, kernels, dev, corpus)
+        phase_default(torch, np, kernels, dev, corpus)
+        phase_knn(torch, np, dev, corpus)
+        del corpus
+        phase_matching_eval(paths, SMOKE_DIR / "out", sscd_f32["segment_ap"])
     finally:
         if not args.keep:
             shutil.rmtree(SMOKE_DIR, ignore_errors=True)
@@ -2893,9 +3408,13 @@ def main() -> int:
                          ("fused_topk.int8", serve_int8_launches)):
         records[name] = serve_records.pop(name)
         launches[name] = counts[name]
+    # The L2 variants: phase 7b's search over the serving catalogue.
+    records.update(l2_recs)
+    launches.update(l2_launches)
     path_of = {"chamfer": "dns", "chamfer.bf16": "dns, precision default (phase 5d)",
                "fused_topk": "serving", "fused_topk.bf16": "serving",
-               "fused_topk.int8": "serving"}
+               "fused_topk.int8": "serving",
+               **{name: "serving, metric L2 (phase 7b)" for name in kernels.L2_KERNELS}}
 
     def by_dtype(name, f32, bf16, int8):
         return bf16 if name.endswith(BF16) else int8 if name.endswith(INT8) else f32
@@ -2915,7 +3434,8 @@ def main() -> int:
             "library_ms": rec["library_ms"], "shape": rec["shape"],
             "path": path_of.get(name, "sscd"),
         }
-        for key in ("path_total", "f32_ms", "bf16_ms", "library_bf16_out_ms", "path_function",
+        for key in ("path_total", "f32_ms", "bf16_ms", "ip_ms", "library_bf16_out_ms",
+                    "path_function",
                     "plan",
                     "kernel_only_ms", "library_route_ms", "dense_route_ms", "entries",
                     "capacity", "peak_bytes", "dense_route_peak_bytes", "head"):

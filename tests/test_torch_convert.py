@@ -29,7 +29,9 @@ def test_searcher_from_jax_staging():
 
 def test_searcher_from_arrays_rejects_unported_corpora():
     r = np.ones((8, 4), np.float32)
-    with pytest.raises(NotImplementedError):
+    # A non-zero ref_sq beside f32 rows is an L2 corpus: it needs
+    # metric="L2" (tests/test_torch_l2.py carries one across).
+    with pytest.raises(ValueError, match="L2"):
         searcher_from_arrays(r, 8, ref_sq=np.ones(8, np.float32), device="cpu")
     # An int8 corpus is ported: its codes and the scales in the ref_sq slot
     # stage as they are; without its scales it is refused.

@@ -41,6 +41,17 @@ capacity runs out), and, with every scale 1 and bf16-exact queries, bit
 for bit their bf16 kernels on the widened codes (the mid and lo passes add
 zeros); scores.int8 also at row counts around a 128-row tile, every column
 tail and any grid, writing nothing past its [M, n_valid] output.
+The L2 variants (metric="L2": row_max, count_above, pool_writer and
+fused_topk in f32 and bf16, scores_above in bf16) take each score of
+their product to the goodness (2 s - ref_sq[j]) - q_sq[i] before their
+epilogue: exact against their plain versions on integers, within
+BF16_TC_ATOL on unit-norm floats, and bit for bit against each other as
+the IP kernels are (the pool's best winner is row_max, its winners
+ordered fused_topk's, its count count_above's wherever no segment hides an
+entry; scores_above's entries the goodness of scores.bf16, which torch's
+elementwise f32 operations give); an L2 search returns the same pairs and
+distances in both collections, and an int8 search at precision "default"
+those of a bf16 search over the widened codes (the one-pass product).
 chamfer.bf16, the DnS chamfer at
 precision "default" (TMA and wgmma on the tensor cores, persistent, both
 chamfer reductions in registers), is held against its plain version (the
@@ -112,7 +123,7 @@ def test_kernels_match_plain(cuda_device, m, n, d, n_valid):
         "scores_above.bf16": 0,
         "chamfer.bf16": 0, "row_max.int8": 0, "count_above.int8": 0,
         "pool_writer.int8": 0, "fused_topk.int8": 0, "scores.int8": 0,
-        "scores_above.int8": 0,
+        "scores_above.int8": 0, **{name: 0 for name in kernels.L2_KERNELS},
     }
 
 
@@ -1806,3 +1817,211 @@ def test_int8_device_quantization_is_numpys(cuda_device, d):
                           scale.view(np.uint32))
     assert not searcher._refs[:, d:].any() and not searcher._refs[3000:].any()
     assert codes[2, 1:4].tolist() == [0, 2, -2]
+
+
+# ---- the L2 variants (metric="L2") --------------------------------------------
+
+
+L2_DTYPES = {"f32": torch.float32, "bf16": BF16}
+
+
+def _l2_norms(q, r):
+    """The squared norms the searchers stage: ref_sq [N], q_sq [M] f32."""
+    from vsc2022_torch.ops.similarity import _row_sq
+
+    return {"ref_sq": _row_sq(r), "q_sq": _row_sq(q)}
+
+
+def _l2_dense(q, r, n_valid, kw):
+    """The plain goodness [M, n_valid] (the widened product)."""
+    s = kernels.scores_plain(q, r, n_valid)
+    return (2 * s - kw["ref_sq"][:n_valid]) - kw["q_sq"][:, None]
+
+
+def _l2_kernels_exact(q, r, n_valid, seed):
+    """Every L2 variant of q's dtype against its plain version, exactly
+    (integer inputs), tie order included."""
+    n = r.shape[0]
+    kw = _l2_norms(q, r)
+    assert torch.equal(kernels.row_max(q, r, n_valid, **kw),
+                       kernels.row_max_plain(q, r, n_valid, **kw))
+    for tau in (-40.0, float("-inf")):
+        assert torch.equal(kernels.count_above(q, r, tau, n_valid, **kw),
+                           kernels.count_above_plain(q, r, tau, n_valid, **kw))
+    pv, pi = kernels.pool_writer(q, r, n_valid, **kw)
+    ev, ei = kernels.pool_writer_plain(q, r, n_valid, **kw)
+    finite = torch.isfinite(ev)
+    assert torch.equal(pv, ev) and torch.equal(pi[finite], ei[finite])
+    cut = {"ref_sq": kw["ref_sq"][: n - 5], "q_sq": kw["q_sq"]}
+    for kappa in (1, 32, 100):
+        got = kernels.fused_topk(q, r[: n - 5], n_valid, kappa, **cut)
+        want = kernels.fused_topk_plain(q, r[: n - 5], n_valid, kappa, **cut)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if q.dtype == BF16:
+        floor = _row_floors(_l2_dense(q, r, n_valid, kw), seed)
+        want = _entries(kernels.scores_above_plain(q, r, n_valid, floor, **kw))
+        got = _entries(kernels.scores_above(q, r, n_valid, floor,
+                                            capacity=want[0].numel(), **kw))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 65, 300])
+@pytest.mark.parametrize("d", [1, 33, 512, 513, 1025])
+def test_l2_kernels_exact_on_integers(cuda_device, d, m, dtype):
+    # Integers: every product, norm and goodness is exact, so each L2
+    # variant equals its plain version, at ragged M, D and n_valid (the
+    # pool's N a multiple of 128), one launch each and no IP kernel.
+    n = 2560 if d < 1025 else 1280
+    q = _ints((m, d), 300 + d + m).to(L2_DTYPES[dtype]).to(cuda_device)
+    r = _ints((n, d), 301 + d).to(L2_DTYPES[dtype]).to(cuda_device)
+    r[7:12] = r[5]  # equal columns in segment 0
+    q[0] = r[5]
+    kernels.reset_launches()
+    _l2_kernels_exact(q, r, (9 * n) // 10 - 3, d + m)
+    sfx = "" if dtype == "f32" else ".bf16"
+    want = {f"row_max{sfx}.l2": 1, f"count_above{sfx}.l2": 2,
+            f"pool_writer{sfx}.l2": 1, f"fused_topk{sfx}.l2": 3}
+    if dtype == "bf16":
+        want["scores_above.bf16.l2"] = 1
+    assert {k: v for k, v in kernels.launches.items() if v} == want
+
+
+@pytest.mark.parametrize("slots", [1, 3, 50])
+def test_l2_kernels_any_grid(cuda_device, monkeypatch, slots):
+    # Few persistent blocks: each walks several row tiles or groups.
+    monkeypatch.setattr(kernels, "_occupancy_slots", lambda t, name, *a: slots)
+    for dtype in ("f32", "bf16"):
+        q = _ints((300, 40), 310).to(L2_DTYPES[dtype]).to(cuda_device)
+        r = _ints((2560, 40), 311).to(L2_DTYPES[dtype]).to(cuda_device)
+        _l2_kernels_exact(q, r, 2500, slots)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [511, 512, 1025])
+def test_l2_kernels_floats_bit_identical_to_each_other(cuda_device, d, dtype):
+    # Unit-norm floats: the L2 kernels of one product score every pair
+    # alike, bit for bit, as each collection needs: the pool's best winner
+    # is row_max, its winners ordered fused_topk's, its count count_above's
+    # wherever no segment holds two entries >= tau (and no less elsewhere),
+    # also on a permuted subset of the rows; each within BF16_TC_ATOL of
+    # the plain goodness.
+    q, r, n_valid = _float_case(cuda_device, d, 320 + d)
+    q, r = q.to(L2_DTYPES[dtype]), r.to(L2_DTYPES[dtype])
+    kw = _l2_norms(q, r)
+    m = q.shape[0]
+    pv, pi = kernels.pool_writer(q, r, n_valid, **kw)
+    best = kernels.row_max(q, r, n_valid, **kw)
+    assert torch.equal(pv.view(m, -1).amax(1).view(torch.int32), best.view(torch.int32))
+    torch.testing.assert_close(best, kernels.row_max_plain(q, r, n_valid, **kw),
+                               rtol=0, atol=BF16_TC_ATOL)
+    for kappa in (5, 32, 100):
+        want = kernels.ordered_topk(pv.view(m, -1), pi.view(m, -1), kappa)
+        got = kernels.fused_topk(q, r, n_valid, kappa, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    tau = float(torch.topk(pv.reshape(-1), 3 * m).values[-1])
+    above = pv >= tau
+    clean = above.all(2).sum(1) == 0
+    for rows in (torch.arange(m, device=cuda_device),
+                 torch.from_numpy(np.random.RandomState(d).permutation(m)[:90])
+                 .to(cuda_device)):
+        sub = {"ref_sq": kw["ref_sq"], "q_sq": kw["q_sq"][rows]}
+        counts = kernels.count_above(q[rows], r, tau, n_valid, **sub).long()
+        pool_counts = above[rows].view(len(rows), -1).sum(1)
+        assert torch.equal(counts[clean[rows]], pool_counts[clean[rows]])
+        assert bool((counts >= pool_counts).all())
+    assert clean.any() and (~clean).any()
+
+
+@pytest.mark.parametrize("d", [13, 511, 512, 1025])
+def test_l2_scores_above_bit_identical_to_dense_goodness(cuda_device, d):
+    # Each emitted entry is the goodness of scores.bf16 at its (row, col),
+    # (2 s - ref_sq) - q_sq in torch's f32 elementwise operations, bit for
+    # bit, and the set is nonzero(goodness >= floor), also on a permuted
+    # row subset.
+    q, r, n_valid = _bf16_case(cuda_device, d, 0, 330 + d)
+    q, rt = q[:133], kernels.pad_columns(r)
+    kw = _l2_norms(q, r)
+    dense = (2 * kernels.scores(q, rt, n_valid) - kw["ref_sq"][:n_valid]) - kw["q_sq"][:, None]
+    floor = _row_floors(dense, d)
+    for rows in (torch.arange(133, device=cuda_device),
+                 torch.from_numpy(np.random.RandomState(d).permutation(133)[:50])
+                 .to(cuda_device)):
+        rr, cc = torch.nonzero(dense[rows] >= floor[rows, None], as_tuple=True)
+        s, gr, gc = _entries(kernels.scores_above(
+            q[rows], rt, n_valid, floor[rows], ref_sq=kw["ref_sq"], q_sq=kw["q_sq"][rows]))
+        assert torch.equal(gr, rr) and torch.equal(gc, cc)
+        assert torch.equal(s.view(torch.int32), dense[rows][rr, cc].view(torch.int32))
+    torch.testing.assert_close(s, _l2_dense(q, r, n_valid, kw)[rows][rr, cc],
+                               rtol=0, atol=BF16_TC_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [512, 1025])
+def test_l2_searcher_pooled_equals_stream_on_floats(cuda_device, monkeypatch, d, dtype):
+    # An L2 search (re-searched rows included) scores on one product: the
+    # two collections return the same pairs and squared distances, bit for
+    # bit, through the L2 kernels alone.
+    from vsc2022_torch.ops.similarity import COLLECTION_ENV, SimilaritySearcher
+
+    rng = np.random.RandomState(340 + d)
+    q, r = _unit_rows(rng, 400, d), _unit_rows(rng, 20000, d)
+    r[100:140] = r[99] + 0.01 * rng.randn(40, d).astype(np.float32)
+    q[:20] = r[99]
+    searcher = SimilaritySearcher(r, metric="L2", dtype=dtype, device=cuda_device)
+    out = {}
+    for mode in ("stream", "pooled"):
+        monkeypatch.setenv(COLLECTION_ENV, mode)
+        kernels.reset_launches()
+        out[mode] = searcher.global_topk(q, 4000, kappa=16)
+        assert searcher.last_stats["mode"] == mode and searcher.last_stats["corpus_rows"] > 0
+        launched = {k for k, v in kernels.launches.items() if v}
+        assert launched and launched <= set(kernels.L2_KERNELS)
+    for a, b in zip(out["stream"], out["pooled"]):
+        np.testing.assert_array_equal(a, b)
+    assert (out["stream"][2] >= -1e-5).all()
+
+
+def test_default_f32_searcher_is_the_bf16_searcher(cuda_device):
+    # precision="default" over an f32 corpus: every product on the bf16
+    # kernels over the bf16 copy, so ids and scores are a bf16 searcher's on
+    # the same rows, bit for bit, in both collections.
+    from vsc2022_torch.ops.similarity import COLLECTION_ENV, SimilaritySearcher
+
+    rng = np.random.RandomState(350)
+    q, r = _unit_rows(rng, 300, 512), _unit_rows(rng, 20000, 512)
+    r[100:140] = r[99] + 0.01 * rng.randn(40, 512).astype(np.float32)
+    q[:20] = r[99]
+    a = SimilaritySearcher(r, precision="default", device=cuda_device)
+    b = SimilaritySearcher(r, dtype="bfloat16", device=cuda_device)
+    for mode in ("stream", "pooled"):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv(COLLECTION_ENV, mode)
+            kernels.reset_launches()
+            got = a.global_topk(q, 3000, kappa=16)
+            assert {k for k, v in kernels.launches.items() if v} <= {
+                name + kernels.BF16 for name in kernels.TENSOR_CORE_KERNELS}
+            for x, y in zip(got, b.global_topk(q, 3000, kappa=16)):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_default_int8_searcher_is_the_one_pass_product(cuda_device):
+    # int8 at "default": the queries rounded to bf16 before the split, so
+    # the three-pass product adds exact zeros to the one bf16 pass. With
+    # codes at unit scale (each row holds a code of 127 at max|row| = 127)
+    # that is a bf16 search over the widened codes, bit for bit.
+    from vsc2022_torch.ops.similarity import COLLECTION_ENV, SimilaritySearcher
+
+    rng = np.random.RandomState(360)
+    codes = rng.randint(-127, 128, size=(20000, 512)).astype(np.float32)
+    codes[:, 0] = 127.0
+    q = _unit_rows(rng, 300, 512)
+    a = SimilaritySearcher(codes, dtype="int8", precision="default", device=cuda_device)
+    assert bool((a._scale[: a.n_refs] == 1.0).all())
+    b = SimilaritySearcher(codes, dtype="bfloat16", device=cuda_device)
+    for mode in ("stream", "pooled"):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv(COLLECTION_ENV, mode)
+            got = a.global_topk(q, 3000, kappa=16)
+            for x, y in zip(got, b.global_topk(q, 3000, kappa=16)):
+                np.testing.assert_array_equal(x, y)

@@ -167,6 +167,15 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     kernels.fused_topk(q, codes, 90, 4, scale=scale)
     kernels.scores(q, codes, 100, scale=scale)
     kernels.scores_above(q, codes, 100, torch.zeros(3), capacity=1, scale=scale)
+    # L2 (the squared norms of the corpus rows and of the queries) in f32
+    # and bf16 too.
+    l2 = {"ref_sq": torch.ones(128), "q_sq": torch.ones(3)}
+    for x, y in ((q, r), (q.bfloat16(), r.bfloat16())):
+        kernels.row_max(x, y, 100, **l2)
+        kernels.count_above(x, y, 0.0, 100, **l2)
+        kernels.pool_writer(x, y, 100, **l2)
+        kernels.fused_topk(x, y, 90, 4, **l2)
+    kernels.scores_above(q.bfloat16(), r.bfloat16(), 100, torch.zeros(3), capacity=1, **l2)
     # Plain versions never count as kernel launches.
     assert kernels.launches == {
         "row_max": 0, "count_above": 0, "pool_writer": 0, "fused_topk": 0,
@@ -175,7 +184,10 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
         "scores_above.bf16": 0,
         "chamfer.bf16": 0, "row_max.int8": 0, "count_above.int8": 0,
         "pool_writer.int8": 0, "fused_topk.int8": 0, "scores.int8": 0,
-        "scores_above.int8": 0,
+        "scores_above.int8": 0, "row_max.l2": 0, "count_above.l2": 0,
+        "pool_writer.l2": 0, "fused_topk.l2": 0, "row_max.bf16.l2": 0,
+        "count_above.bf16.l2": 0, "pool_writer.bf16.l2": 0,
+        "fused_topk.bf16.l2": 0, "scores_above.bf16.l2": 0,
     }
     with pytest.raises(ValueError, match="multiple of 128"):
         kernels.pool_writer(q, torch.ones((100, 8)), 100)

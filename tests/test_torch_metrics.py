@@ -147,3 +147,66 @@ def test_empty_predictions_score_zero_where_jax_raises():
     with pytest.raises(KeyError) as got:
         tm.average_precision(gt, [])
     assert got.value.args == want.value.args == ("score",)
+
+
+def _pair_matches(types, seed=7):
+    """PairMatches of one package's types with float frame scores."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for p in range(12):
+        n = int(rng.randint(1, 9))
+        out.append(types.PairMatches(
+            f"Q{p % 4:06d}", f"R{p:06d}",
+            [types.PairMatch(float(i), float(i + 1), float(rng.randn()))
+             for i in range(n)]))
+    return out
+
+
+@pytest.mark.parametrize("agg", [("MaxScoreAggregation", ()),
+                                 ("SumScoreAggregation", ()),
+                                 ("TopKMeanScoreAggregation", ()),
+                                 ("TopKMeanScoreAggregation", (1,)),
+                                 ("TopKMeanScoreAggregation", (3,))])
+def test_aggregations_identical_to_jax(agg):
+    # The same float64 reductions over each pair's frame scores: the
+    # ranked candidates are equal, scores included (tolerance 0).
+    from vsc2022_torch import types as tt
+    from vsc2022_torch.retrieval import candidates as tc
+    from vsc2022_tpu import types as jt
+    from vsc2022_tpu.retrieval import candidates as jc
+
+    name, args = agg
+    want = jc.rank_candidates(_pair_matches(jt), getattr(jc, name)(*args))
+    got = tc.rank_candidates(_pair_matches(tt), getattr(tc, name)(*args))
+    assert [(c.query_id, c.ref_id, c.score) for c in got] == \
+        [(c.query_id, c.ref_id, c.score) for c in want]
+
+
+def test_candidate_to_dataframe_identical_to_jax():
+    import pandas as pd
+
+    for n in (0, 40):
+        want = jm.CandidatePair.to_dataframe(_candidates(jm, n=n, seed=8))
+        got = tm.CandidatePair.to_dataframe(_candidates(tm, n=n, seed=8))
+        pd.testing.assert_frame_equal(got, want)
+
+
+@pytest.mark.parametrize("given_ax", [False, True])
+def test_pr_curve_plot_draws_what_jax_draws(given_ax):
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    rng = np.random.RandomState(9)
+    arrays = (np.sort(rng.rand(20)), np.sort(rng.rand(20)), rng.rand(20))
+    axes = []
+    for mod in (jm, tm):
+        ax = plt.subplots()[1] if given_ax else None
+        axes.append(mod.PrecisionRecallCurve(*arrays).plot(ax, linewidth=1))
+    want, got = axes
+    assert got.get_xlabel() == want.get_xlabel() and got.get_xlim() == want.get_xlim()
+    (lw,), (lg,) = want.get_lines(), got.get_lines()
+    np.testing.assert_array_equal(lg.get_xydata(), lw.get_xydata())
+    assert lg.get_linewidth() == lw.get_linewidth() == 1
+    plt.close("all")

@@ -166,3 +166,101 @@ def test_profile_dir_writes_trace(corpora, tmp_path):
     ]))
     assert (prof / "trace.json").stat().st_size > 0
     assert "Self CPU" in (prof / "summary.txt").read_text()
+
+
+def test_report_metrics_writes_the_pr_plots(corpora, tmp_path):
+    # With --ground_truth the driver renders both PR curves, as JAX's does.
+    paths = corpora["int"]
+    out = tmp_path / "out"
+    torch_driver.main(torch_driver.parser.parse_args([
+        "--query_features", paths["q"], "--ref_features", paths["r"],
+        "--output_path", str(out), "--device", "cpu", "--ground_truth", paths["gt"],
+    ]))
+    for name in ("candidate_precision_recall.pdf", "precision_recall.pdf"):
+        assert (out / name).read_bytes()[:5] == b"%PDF-"
+
+
+def test_report_metrics_without_matplotlib(corpora, tmp_path, monkeypatch, caplog):
+    # No matplotlib (the GPU machine has none): one warning naming both
+    # files, no plot written, the metrics still returned.
+    import logging
+    import sys
+
+    from vsc2022_torch.baseline import pipeline
+
+    paths = corpora["int"]
+    out = tmp_path / "out"
+    torch_driver.main(torch_driver.parser.parse_args([
+        "--query_features", paths["q"], "--ref_features", paths["r"],
+        "--output_path", str(out), "--device", "cpu",
+    ]))
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    log = logging.getLogger("test_report")
+    with caplog.at_level(logging.INFO, logger="test_report"):
+        got = pipeline.report_metrics(paths["gt"], str(out / "candidates.csv"),
+                                      str(out / "matches.csv"), log,
+                                      output_path=str(out))
+    warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
+    assert len(warnings) == 1
+    for name in ("candidate_precision_recall.pdf", "precision_recall.pdf"):
+        assert name in warnings[0].getMessage()
+        assert not (out / name).exists()
+    uap, seg = _jax_metrics(str(out), paths["gt"])
+    assert got == {"candidate_uap": uap, "segment_ap": seg}
+
+
+def test_create_pr_plot_like_jax(tmp_path):
+    from vsc2022_torch import metrics as tm
+    from vsc2022_torch.baseline import pipeline
+    from vsc2022_tpu.baseline import pipeline as jax_pipeline
+
+    rng = np.random.RandomState(3)
+    arrays = (np.sort(rng.rand(30)), np.sort(rng.rand(30)), rng.rand(30))
+    jax_pipeline.create_pr_plot(jm.AveragePrecision(0.5, jm.PrecisionRecallCurve(*arrays)),
+                                str(tmp_path / "jax.pdf"))
+    pipeline.create_pr_plot(tm.AveragePrecision(0.5, tm.PrecisionRecallCurve(*arrays)),
+                            str(tmp_path / "torch.pdf"))
+    for name in ("jax.pdf", "torch.pdf"):
+        assert (tmp_path / name).read_bytes()[:5] == b"%PDF-"
+
+
+def test_sscd_search_matches_jax(corpora):
+    # The module-level search of the reference's API: the same candidate
+    # pairs and scores on the integer corpus (exact scores).
+    from vsc2022_torch.metrics import Dataset as TDataset
+    from vsc2022_torch.storage import load_features as torch_load
+    from vsc2022_tpu.storage import load_features as jax_load
+
+    paths = corpora["int"]
+    want = jax_driver.search(jax_load(paths["q"], Dataset.QUERIES),
+                             jax_load(paths["r"], Dataset.REFS))
+    got = torch_driver.search(torch_load(paths["q"], TDataset.QUERIES),
+                              torch_load(paths["r"], TDataset.REFS), device="cpu")
+    assert [(c.query_id, c.ref_id, c.score) for c in got] == \
+        [(c.query_id, c.ref_id, c.score) for c in want]
+    assert len(got) == 5 * 12  # every (query, ref) pair: under the budget of 25
+
+
+def test_matching_eval_prints_the_root_scripts_line(corpora, tmp_path):
+    # python -m vsc2022_torch.matching_eval prints exactly the line of the
+    # root matching_eval.py on the same files.
+    import subprocess
+    import sys
+
+    paths = corpora["int"]
+    out = tmp_path / "out"
+    torch_driver.main(torch_driver.parser.parse_args([
+        "--query_features", paths["q"], "--ref_features", paths["r"],
+        "--output_path", str(out), "--device", "cpu",
+    ]))
+    args = ["--predictions", str(out / "matches.csv"), "--ground_truth", paths["gt"]]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lines = []
+    for cmd in (["matching_eval.py"], ["-m", "vsc2022_torch.matching_eval"]):
+        run = subprocess.run([sys.executable, *cmd, *args], cwd=root, text=True,
+                             capture_output=True, env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        assert run.returncode == 0, run.stderr
+        lines.append(run.stdout.splitlines())
+    want, got = lines
+    assert got == want and len(got) == 1
+    assert got[0].startswith("Matching track segment AP: ")

@@ -206,9 +206,14 @@ def test_empty_and_unported_modes():
         assert arr.size == 0
     for arr in ts.global_topk(np.ones((2, 4), np.float32), 0):
         assert arr.size == 0
-    for kw in ({"metric": "L2"}, {"precision": "default"},
-               {"metric": "L2", "dtype": "int8"}):
-        with pytest.raises(NotImplementedError):
+    # metric="L2" and precision="default" are ported; int8 storage stays
+    # inner product only, as the JAX searcher asserts.
+    for kw in ({"metric": "L2"}, {"precision": "default"}):
+        assert TorchSearcher(r, device="cpu", **kw).n_refs == 10
+    with pytest.raises(NotImplementedError, match="IP"):
+        TorchSearcher(r, device="cpu", metric="L2", dtype="int8")
+    for kw in ({"metric": "cosine"}, {"precision": "high"}):
+        with pytest.raises(ValueError):
             TorchSearcher(r, device="cpu", **kw)
     # int8 (SQ8) storage is ported: it stages codes and runs the same
     # empty-query and k = 0 contracts.

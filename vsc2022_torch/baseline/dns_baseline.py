@@ -376,7 +376,8 @@ def main(args) -> Dict[str, object]:
         with pipeline.timed(stages, "metrics", device):
             result.update(
                 pipeline.report_metrics(
-                    args.ground_truth, candidate_file, match_file, logger
+                    args.ground_truth, candidate_file, match_file, logger,
+                    output_path=args.output_path,
                 )
             )
     return result

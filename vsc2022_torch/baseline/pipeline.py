@@ -2,8 +2,9 @@
 
 Counterpart of ``vsc2022_tpu/baseline/pipeline.py``. Stage budgets are
 the challenge protocol defaults (reference:
-vsc/baseline/sscd_baseline.py:90-152). The metric report writes no
-PR-curve plots (matplotlib is not a dependency of the port).
+vsc/baseline/sscd_baseline.py:90-152). The metric report renders the
+PR curves as the JAX package's does where matplotlib is installed, and
+logs the files it could not write where it is not.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from vsc2022_torch.device import DeviceLike
 from vsc2022_torch.localization import Localization
 from vsc2022_torch.metrics import (
+    AveragePrecision,
     CandidatePair,
     Match,
     average_precision,
@@ -115,20 +117,55 @@ def write_stage_artifacts(
     return candidate_file, match_file
 
 
+def create_pr_plot(ap: AveragePrecision, filename: str) -> None:
+    """The precision-recall curve of ``ap`` into ``filename`` (e.g. a
+    PDF), on matplotlib's non-interactive backend."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    ax = ap.pr_curve.plot(linewidth=1)
+    plt.savefig(filename)
+    plt.close(ax.figure)
+
+
 def report_metrics(
     ground_truth: str,
     candidate_file: str,
     match_file: str,
     log: logging.Logger,
+    output_path: Optional[str] = None,
 ) -> Dict[str, float]:
     """Score both stages against GT: candidate-level micro-AP and the
-    matching-track segment AP. Returns both."""
+    matching-track segment AP. Returns both. With ``output_path``, render
+    their PR curves there under the reference driver's names
+    (candidate_precision_recall.pdf, precision_recall.pdf; reference:
+    vsc/baseline/sscd_baseline.py:211-231); where matplotlib is not
+    installed, one warning names the files not written."""
     gt = CandidatePair.from_matches(Match.read_csv(ground_truth, is_gt=True))
     cand_ap = average_precision(gt, CandidatePair.read_csv(candidate_file))
     log.info(f"Candidate micro-AP: {cand_ap.ap:.4f}")
     matching = evaluate_matching_track(ground_truth, match_file)
     log.info(f"Matching-track segment AP: {matching.segment_ap.ap:.4f}")
-    for label, path in (("Candidates", candidate_file), ("Matches", match_file)):
+    files = [("Candidates", candidate_file), ("Matches", match_file)]
+    if output_path is not None:
+        plots = [
+            ("Candidate PR plot", cand_ap,
+             os.path.join(output_path, "candidate_precision_recall.pdf")),
+            ("Match PR plot", matching.segment_ap,
+             os.path.join(output_path, "precision_recall.pdf")),
+        ]
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            log.warning("matplotlib is not installed: PR plots not written: %s",
+                        ", ".join(path for _, _, path in plots))
+        else:
+            for label, ap, path in plots:
+                create_pr_plot(ap, path)
+                files.append((label, path))
+    for label, path in files:
         log.info(f"{label}: {path}")
     return {
         "candidate_uap": float(cand_ap.ap),

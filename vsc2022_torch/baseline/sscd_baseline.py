@@ -108,6 +108,25 @@ parser.add_argument(
 )
 
 
+# The reference's module-level API (search / localize_and_verify / match
+# are imported by downstream code).
+
+def search(
+    queries: List[VideoFeature],
+    refs: List[VideoFeature],
+    retrieve_per_query: float = pipeline.RETRIEVE_PER_QUERY,
+    candidates_per_query: float = pipeline.CANDIDATES_PER_QUERY,
+    dtype: str = "float32",
+    device: DeviceLike = "cuda",
+) -> List[CandidatePair]:
+    """Global-k frame search and per-pair max aggregation, cut to the
+    candidate budget (``pipeline.retrieve_candidates``)."""
+    return pipeline.retrieve_candidates(
+        queries, refs, retrieve_per_query, candidates_per_query,
+        dtype=dtype, device=device,
+    )
+
+
 def build_alignment(
     queries: List[VideoFeature],
     refs: List[VideoFeature],
@@ -234,7 +253,8 @@ def main(args) -> Dict[str, object]:
         with pipeline.timed(stages, "metrics", device):
             result.update(
                 pipeline.report_metrics(
-                    args.ground_truth, candidate_file, match_file, logger
+                    args.ground_truth, candidate_file, match_file, logger,
+                    output_path=args.output_path,
                 )
             )
     return result

@@ -8,8 +8,10 @@ identical. Differences from the JAX package's module:
   * CSV files are written and read with the standard ``csv`` module
     instead of pandas; the bytes written are those pandas writes
     (shortest round-trip float repr, ``\n`` line ends, minimal quoting).
-  * ``match_metric`` runs its Python implementation only (no C++ core),
-    and PR curves carry their arrays but do not plot.
+    ``CandidatePair.to_dataframe`` imports pandas when it is called, and
+    ``PrecisionRecallCurve.plot`` matplotlib: neither is needed anywhere
+    else.
+  * ``match_metric`` runs its Python implementation only (no C++ core).
 
 Kept from the JAX package's module:
 
@@ -232,6 +234,28 @@ class CandidatePair:
     score: float
 
     @classmethod
+    def to_dataframe(cls, candidates: Collection["CandidatePair"]):
+        """The candidates as a pandas DataFrame (columns query_id, ref_id,
+        score, ids formatted), as the JAX package and the reference give
+        it. pandas is imported here: nothing else in the port needs it."""
+        import pandas as pd
+
+        if not candidates:
+            return pd.DataFrame([])
+        return pd.DataFrame(
+            {
+                "query_id": [
+                    format_video_id(c.query_id, Dataset.QUERIES)
+                    for c in candidates
+                ],
+                "ref_id": [
+                    format_video_id(c.ref_id, Dataset.REFS) for c in candidates
+                ],
+                "score": [c.score for c in candidates],
+            }
+        )
+
+    @classmethod
     def write_csv(
         cls, candidates: Collection["CandidatePair"], file: Union[str, TextIO]
     ):
@@ -282,6 +306,20 @@ class PrecisionRecallCurve:
     precisions: np.ndarray
     recalls: np.ndarray
     scores: np.ndarray
+
+    def plot(self, ax=None, **kwargs):
+        """Precision against recall on ``ax`` (a new labelled axes when
+        None); matplotlib is imported here, only when plotting."""
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots()
+            ax.set_xlabel("recall")
+            ax.set_ylabel("precision")
+            ax.set_xlim(0, 1.05)
+            ax.set_ylim(0, 1.05)
+        ax.plot(self.recalls, self.precisions, **kwargs)
+        return ax
 
 
 @dataclasses.dataclass

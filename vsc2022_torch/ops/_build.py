@@ -142,6 +142,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("row_max", "count_above", "pool_writer", "scores", "scores_above"):
         argtypes[f"{name}_int8_occupancy"] = [i, p]
     argtypes["fused_topk_int8_occupancy"] = [i, i, i, p]
+    # The L2 variants (metric="L2", f32 and bf16): their IP kernel's
+    # arguments with the squared norms of the query rows and of the corpus
+    # rows (two f32 pointers) after refs, and their own occupancy.
+    for name in ("row_max", "count_above", "pool_writer", "fused_topk", "row_max_bf16",
+                 "count_above_bf16", "pool_writer_bf16", "fused_topk_bf16",
+                 "scores_above_bf16"):
+        ip = argtypes[name]
+        argtypes[name + "_l2"] = ip[:3] + [p, p] + ip[3:]
+        if name != "pool_writer":
+            argtypes[name + "_l2_occupancy"] = argtypes[name + "_occupancy"]
     argtypes["chamfer"] = [i, p, p, i, i, i, i, i, i, p, p]
     # The bf16 chamfer (tensor cores) takes the same arguments, and its
     # plan's grid and ref slices (kernels.chamfer_bf16_plan) before out.

@@ -53,6 +53,16 @@
 // and candidates bit for bit. Bound: operations, 3 x 2*M*N*D at 989
 // TFLOP/s ([7682 x 31,004 x 1025] at DnS is 1.48 ms); the corpus bytes are
 // a quarter of f32's. Codes rows take a multiple of 16 values.
+//
+// The L2 variants (vsc_count_above_l2, vsc_count_above_bf16_l2; launch
+// keys count_above.l2 and count_above.bf16.l2) count the goodness scores
+// (2 s - rs[j]) - qs[i] >= tau of a searcher with metric="L2" (JAX:
+// streaming_count_above and the repair counts, XLA,
+// vsc2022_tpu/ops/similarity.py:453-468, :1130-1150): the same products and
+// epilogues behind l2_goodness.cuh's step, so they count the goodness that
+// the L2 pool and candidates of their product hold, bit for bit. Bound as
+// for the IP kernels.
+#include "l2_goodness.cuh"
 #include "reduce_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -210,4 +220,52 @@ extern "C" int vsc_count_above_int8(int device, const __nv_bfloat16* terms,
   if (err != cudaSuccess) return (int)err;
   return (int)wg::launch_int8(terms, codes, scale, m, d, n_valid, grid,
                               TcCount{tau, out, m}, s);
+}
+
+// Blocks of the f32 L2 kernel one SM holds at once (16-byte copies if vec).
+extern "C" int vsc_count_above_l2_occupancy(int device, int vec,
+                                            int* blocks_per_sm) {
+  return reduce::resident_blocks<reduce::L2<reduce::RowFold<CountAbove>>>(
+      device, vec, 0, blocks_per_sm);
+}
+
+// The f32 L2 variant: vsc_count_above's arguments with qs [m] and rs [n]
+// f32 (the squared norms) after refs; counts (2 q.r - rs) - qs >= tau.
+extern "C" int vsc_count_above_l2(int device, const float* q, const float* refs,
+                                  const float* qs, const float* rs, int m, int n,
+                                  int d, float tau, int n_valid, int vec, int grid,
+                                  int* out, void* stream) {
+  if (m <= 0) return 0;
+  if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce::launch(
+      q, refs, m, d, n_valid, vec, grid,
+      reduce::L2<reduce::RowFold<CountAbove>>{{{tau, out}}, qs, rs}, 0, s);
+}
+
+// Blocks of the bf16 L2 kernel (tensor cores) one SM holds at once.
+extern "C" int vsc_count_above_bf16_l2_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<wg::L2<TcCount>>(device, blocks_per_sm);
+}
+
+// The bf16 L2 variant: vsc_count_above_bf16's arguments with qs [m] and rs
+// [n] f32 after refs.
+extern "C" int vsc_count_above_bf16_l2(int device, const __nv_bfloat16* q,
+                                       const __nv_bfloat16* refs, const float* qs,
+                                       const float* rs, int m, int n, int d,
+                                       float tau, int n_valid, int grid, int* out,
+                                       void* stream) {
+  if (m <= 0) return 0;
+  if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wg::launch(q, refs, m, d, n_valid, grid,
+                         wg::L2<TcCount>{{tau, out, m}, qs, rs, m}, s);
 }

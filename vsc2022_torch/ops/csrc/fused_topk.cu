@@ -103,6 +103,17 @@
 // and count_above.int8 counts its scores, bit for bit. Bound: operations,
 // 3 x 2*M*N*D at 989 TFLOP/s ([9000 x 240,000 x 512] is 6.7 ms). Codes
 // rows take a multiple of 16 values.
+//
+// L2 (vsc_fused_topk_l2, vsc_fused_topk_bf16_l2; launch keys
+// fused_topk.l2 and fused_topk.bf16.l2): the streaming collection of a
+// searcher with metric="L2" (JAX: streaming_topk's block scores, XLA,
+// vsc2022_tpu/ops/similarity.py:253-280). The same products and
+// epilogues behind l2_goodness.cuh's step: each score becomes (2 s -
+// rs[j]) - qs[i] before the segment winners are taken, so the candidates
+// are what count_above's L2 variant of the product counts, bit for bit.
+#include <type_traits>
+
+#include "l2_goodness.cuh"
 #include "reduce_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -590,5 +601,64 @@ extern "C" int vsc_fused_topk_int8(int device, const __nv_bfloat16* terms,
                  [&](const auto& ep, int extra) {
                    return vsc::wg::launch_int8(terms, codes, scale, m, d, n_valid,
                                                grid, ep, s, extra);
+                 });
+}
+
+// Blocks of the f32 L2 kernel one SM holds at once (16-byte copies if vec).
+extern "C" int vsc_fused_topk_l2_occupancy(int device, int vec,
+                                           int* blocks_per_sm) {
+  return vsc::reduce::resident_blocks<vsc::reduce::L2<TopK>>(
+      device, vec, smem_set_bytes(kSmemKappaMax), blocks_per_sm);
+}
+
+// The f32 L2 variant: vsc_fused_topk's arguments with qs [m] and rs [n] f32
+// (the squared norms) after refs; the top-kappa of the goodness scores.
+extern "C" int vsc_fused_topk_l2(int device, const float* q, const float* refs,
+                                 const float* qs, const float* rs, int m, int n,
+                                 int d, int n_valid, int kappa, int vec, int grid,
+                                 int pieces, float* out_v, int* out_i,
+                                 void* stream) {
+  if (m <= 0) return 0;
+  if (kappa <= 0 || pieces <= 0 || n_valid < 0 || n_valid > n)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = fill_output(out_v, out_i, m, pieces, kappa, s);
+  if (err != cudaSuccess) return (int)err;
+  const bool in_smem = kappa <= kSmemKappaMax;
+  const int ring = ring_bytes<TopK>();
+  return (int)vsc::reduce::launch(
+      q, refs, m, d, n_valid, vec, grid,
+      vsc::reduce::L2<TopK>{TopK{out_v, out_i, kappa, pieces, in_smem, ring / 4}, qs,
+                            rs},
+      in_smem ? smem_set_bytes(kappa) : 0, s);
+}
+
+// Blocks of the bf16 L2 kernel (tensor cores) one SM holds at once.
+extern "C" int vsc_fused_topk_bf16_l2_occupancy(int device, int smem_sets,
+                                                int kappa, int* blocks_per_sm) {
+  using vsc::wg::L2;
+  if (smem_sets && (kappa <= 0 || kappa > kTcSmemKappaMax))
+    return (int)cudaErrorInvalidValue;
+  return smem_sets ? vsc::wg::resident_blocks<L2<TcTopK<true>>>(
+                         device, blocks_per_sm, TcTopK<true>::set_bytes(kappa))
+                   : vsc::wg::resident_blocks<L2<TcTopK<false>>>(device, blocks_per_sm);
+}
+
+// The bf16 L2 variant: vsc_fused_topk_bf16's arguments with qs [m] and rs
+// [n] f32 after refs.
+extern "C" int vsc_fused_topk_bf16_l2(int device, const __nv_bfloat16* q,
+                                      const __nv_bfloat16* refs, const float* qs,
+                                      const float* rs, int m, int n, int d,
+                                      int n_valid, int kappa, int smem_sets,
+                                      int grid, int pieces, float* out_v,
+                                      int* out_i, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tc_topk(device, m, n, d, n_valid, kappa, smem_sets, pieces, out_v, out_i, s,
+                 [&](const auto& ep, int extra) {
+                   using E = std::decay_t<decltype(ep)>;
+                   return vsc::wg::launch(q, refs, m, d, n_valid, grid,
+                                          vsc::wg::L2<E>{ep, qs, rs, m}, s, extra);
                  });
 }

@@ -58,8 +58,19 @@
 // score -inf; the wrapper fills them (ops/kernels.py pool_segments). Rows
 // take a multiple of 8 values, codes rows of 16 (ops/kernels.py
 // pad_columns).
+//
+// L2 (vsc_pool_writer_l2, vsc_pool_writer_bf16_l2; launch keys
+// pool_writer.l2 and pool_writer.bf16.l2): the pooled collection of a
+// searcher with metric="L2" (JAX builds that pool with XLA on goodness
+// scores, vsc2022_tpu/ops/similarity.py:704-725). Each score of the tile
+// becomes (2 s - rs[j]) - qs[i] (l2_goodness.cuh) before the segment
+// reduction: the f32 kernel in a kernel of its own (pool_writer_l2_kernel,
+// so that pool_writer_kernel's code stays as it was), the bf16 one behind
+// the tensor-core pool epilogue. The pool is then what the L2 row_max,
+// count_above and fused_topk of its product score, bit for bit.
 #include <climits>
 
+#include "l2_goodness.cuh"
 #include "tile_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -100,6 +111,51 @@ __global__ void __launch_bounds__(THREADS)
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    const Top2 t = warp_top2(acc[r], col0, n_valid, lane);
+    const int row = row0 + warp * ROWS_PER_WARP + r;
+    if (lane == r && row < m) {
+      const size_t o = ((size_t)row * n_seg + seg) * 2;
+      out_v[o] = t.v1;
+      out_v[o + 1] = t.v2;
+      out_i[o] = t.i1;
+      out_i[o + 1] = t.i2;
+    }
+  }
+}
+
+// pool_writer_kernel with each score of the tile taken to its L2 goodness
+// (2 s - rs[j]) - qs[i] before the segment reduction.
+__global__ void __launch_bounds__(THREADS)
+    pool_writer_l2_kernel(const float* __restrict__ q,
+                          const float* __restrict__ refs,
+                          const float* __restrict__ qs,
+                          const float* __restrict__ rs, int m, int n, int d,
+                          int n_valid, int n_row_tiles, float* __restrict__ out_v,
+                          int* __restrict__ out_i) {
+  __shared__ TileSmem sm;
+  const int rt = blockIdx.x % n_row_tiles;
+  const int seg = blockIdx.x / n_row_tiles;
+  const int row0 = rt * BM;
+  const int col0 = seg * BN;
+  const int n_seg = n / BN;
+
+  float acc[ROWS_PER_WARP][COLS_PER_LANE];
+  tile_product(q, refs, m, n, d, row0, col0, sm, acc);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int c = 0; c < COLS_PER_LANE; ++c) {
+    const int col = col0 + lane * COLS_PER_LANE + c;
+    const float rj = col < n_valid ? rs[col] : 0.f;
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+      const int row = row0 + warp * ROWS_PER_WARP + r;
+      acc[r][c] = l2_goodness(acc[r][c], rj, row < m ? qs[row] : 0.f);
+    }
+  }
 #pragma unroll
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
     const Top2 t = warp_top2(acc[r], col0, n_valid, lane);
@@ -227,4 +283,43 @@ extern "C" int vsc_pool_writer_int8(int device, const __nv_bfloat16* terms,
   return (int)wg::launch_int8(terms, codes, scale, m, d, n_valid, grid,
                               TcPool{out_v, out_i, m, n / BN},
                               static_cast<cudaStream_t>(stream));
+}
+
+// The f32 L2 variant: vsc_pool_writer's arguments with qs [m] and rs [n]
+// f32 (the squared norms) after refs; the pool of the goodness scores.
+extern "C" int vsc_pool_writer_l2(int device, const float* q, const float* refs,
+                                  const float* qs, const float* rs, int m, int n,
+                                  int d, int n_valid, float* out_v, int* out_i,
+                                  void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int n_row_tiles = (m + BM - 1) / BM;
+  const long long blocks = (long long)n_row_tiles * (n / BN);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  pool_writer_l2_kernel<<<(unsigned)blocks, THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      q, refs, qs, rs, m, n, d, n_valid, n_row_tiles, out_v, out_i);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of the bf16 L2 kernel (tensor cores) one SM holds at once.
+extern "C" int vsc_pool_writer_bf16_l2_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<wg::L2<TcPool>>(device, blocks_per_sm);
+}
+
+// The bf16 L2 variant: vsc_pool_writer_bf16's arguments with qs [m] and rs
+// [n] f32 after refs.
+extern "C" int vsc_pool_writer_bf16_l2(int device, const __nv_bfloat16* q,
+                                       const __nv_bfloat16* refs, const float* qs,
+                                       const float* rs, int m, int n, int d,
+                                       int n_valid, int grid, float* out_v,
+                                       int* out_i, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  if (n % BN || n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wg::launch(q, refs, m, d, n_valid, grid,
+                         wg::L2<TcPool>{{out_v, out_i, m, n / BN}, qs, rs, m},
+                         static_cast<cudaStream_t>(stream));
 }

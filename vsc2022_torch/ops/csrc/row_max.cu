@@ -64,6 +64,18 @@
 // scores are those of the other .int8 kernels bit for bit, and with unit
 // scales and bf16-exact queries those of row_max.bf16 on the widened
 // codes (the mid and lo passes add zeros).
+//
+// The L2 variants (vsc_row_max_l2, vsc_row_max_bf16_l2; launch keys
+// row_max.l2 and row_max.bf16.l2) are the noise-NN of a searcher with
+// metric="L2" (the JAX searcher's row_nn, a k = 1 streaming top-k over XLA
+// goodness scores, vsc2022_tpu/ops/similarity.py:253-280): the same
+// products and row-max epilogues behind l2_goodness.cuh's step, each score
+// (2 s - rs[j]) - qs[i] before the max. The goodness is <= 0 up to
+// rounding; the ordered keys above are monotone over every f32, negative
+// values and -inf included, so the max is exact as for inner products.
+// Bound as for the IP kernels (the per-column and per-row loads are M + N
+// floats).
+#include "l2_goodness.cuh"
 #include "reduce_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -244,5 +256,46 @@ extern "C" int vsc_row_max_int8(int device, const __nv_bfloat16* terms,
                      [&](cudaStream_t s) {
                        return wg::launch_int8(terms, codes, scale, m, d, n_valid,
                                               grid, TcRowMax{keys, m}, s);
+                     });
+}
+
+// Blocks of the f32 L2 kernel one SM holds at once (16-byte copies if vec).
+extern "C" int vsc_row_max_l2_occupancy(int device, int vec, int* blocks_per_sm) {
+  return reduce::resident_blocks<reduce::L2<reduce::RowFold<RowMax>>>(
+      device, vec, 0, blocks_per_sm);
+}
+
+// The f32 L2 variant: vsc_row_max's arguments with qs [m] and rs [n] f32
+// (the squared norms of the query and corpus rows) after refs; out holds
+// each row's best goodness (2 q.r - rs) - qs.
+extern "C" int vsc_row_max_l2(int device, const float* q, const float* refs,
+                              const float* qs, const float* rs, int m, int n,
+                              int d, int n_valid, int vec, int grid,
+                              unsigned* keys, float* out, void* stream) {
+  return run_row_max(device, m, n, n_valid, keys, out, stream,
+                     [&](cudaStream_t s) {
+                       return reduce::launch(
+                           q, refs, m, d, n_valid, vec, grid,
+                           reduce::L2<reduce::RowFold<RowMax>>{{{keys}}, qs, rs},
+                           0, s);
+                     });
+}
+
+// Blocks of the bf16 L2 kernel (tensor cores) one SM holds at once.
+extern "C" int vsc_row_max_bf16_l2_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<wg::L2<TcRowMax>>(device, blocks_per_sm);
+}
+
+// The bf16 L2 variant: vsc_row_max_bf16's arguments with qs [m] and rs [n]
+// f32 after refs.
+extern "C" int vsc_row_max_bf16_l2(int device, const __nv_bfloat16* q,
+                                   const __nv_bfloat16* refs, const float* qs,
+                                   const float* rs, int m, int n, int d,
+                                   int n_valid, int grid, unsigned* keys,
+                                   float* out, void* stream) {
+  return run_row_max(device, m, n, n_valid, keys, out, stream,
+                     [&](cudaStream_t s) {
+                       return wg::launch(q, refs, m, d, n_valid, grid,
+                                         wg::L2<TcRowMax>{{keys, m}, qs, rs, m}, s);
                      });
 }

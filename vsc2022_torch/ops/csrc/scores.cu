@@ -80,6 +80,16 @@
 // re-searched row, as over bf16; scores.int8 stays as its dense
 // reference. Bound: operations, 3 x 2*M*N*D at 989 TFLOP/s (~3,700 rows x
 // 240,000 x 512 at serving is 2.8 ms); the codes are 1 byte a value.
+//
+// L2 (vsc_scores_above_bf16_l2, launch key scores_above.bf16.l2): the
+// re-search of a searcher with metric="L2" over a bf16 corpus (JAX: the
+// block product's goodness, XLA, vsc2022_tpu/ops/similarity.py:253-280).
+// The above-floor epilogue behind l2_goodness.cuh's step: each emitted
+// entry is the goodness (2 s - rs[j]) - qs[i] that the L2 pool,
+// candidates and counts of the product score, bit for bit, and the set
+// is nonzero(((2 scores.bf16 - rs) - qs) >= floor), which torch's
+// elementwise f32 operations give from the dense scores.
+#include "l2_goodness.cuh"
 #include "wgmma_gemm.cuh"
 
 using namespace vsc;
@@ -346,4 +356,29 @@ extern "C" int vsc_scores_above_int8(int device, const __nv_bfloat16* terms,
   return (int)wg::launch_int8(terms, codes, scale, m, d, n_valid, grid,
                               TcScoresAbove{floors, m, cap, out_s, out_r, out_c, count},
                               s);
+}
+
+// Blocks of the L2 above-floor kernel one SM holds at once.
+extern "C" int vsc_scores_above_bf16_l2_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<wg::L2<TcScoresAbove>>(device, blocks_per_sm);
+}
+
+// The L2 variant: vsc_scores_above_bf16's arguments with qs [m] and rs [n]
+// f32 (the squared norms) after refs; the entries are goodness scores.
+extern "C" int vsc_scores_above_bf16_l2(int device, const __nv_bfloat16* q,
+                                        const __nv_bfloat16* refs, const float* qs,
+                                        const float* rs, const float* floors, int m,
+                                        int n, int d, int n_valid, int grid,
+                                        long long cap, float* out_s, int* out_r,
+                                        int* out_c, unsigned long long* count,
+                                        void* stream) {
+  if (m < 0 || n_valid < 0 || n_valid > n || cap < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(count, 0, sizeof(unsigned long long), s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wg::launch(
+      q, refs, m, d, n_valid, grid,
+      wg::L2<TcScoresAbove>{{floors, m, cap, out_s, out_r, out_c, count}, qs, rs, m}, s);
 }

@@ -67,6 +67,15 @@ summed in f32 in their own order, both chamfer reductions in registers
 (``ops/csrc/chamfer_bf16.cu``, rows of a multiple of 8 values; its work
 plan is ``chamfer_bf16_plan``).
 
+* L2 (metric="L2"; ``<name>.l2`` and ``<name>.bf16.l2``): the f32 and bf16
+  retrieval kernels and ``scores_above``'s bf16 kernel take ``ref_sq`` (the
+  squared norm of each corpus row, [N] f32) and ``q_sq`` (of each query
+  row, [M] f32), and each score of their product becomes the goodness
+  (2·s − ref_sq[j]) − q_sq[i] in f32 and in that order (JAX's
+  ``2.0 * s - rs - q_sq``), before the max, the count or the selection
+  (``ops/csrc/l2_goodness.cuh``). The L2 kernels of one product agree with
+  each other bit for bit, as the IP ones do; int8 codes take no L2.
+
 No wrapper gives way from one variant to another.
 
 The plain versions widen bf16 inputs and int8 codes to f32 before
@@ -127,6 +136,7 @@ SCORES_ABOVE_ROW_CAPACITY = 256
 RETRIEVAL_KERNELS = ("row_max", "count_above", "pool_writer", "fused_topk")
 BF16 = ".bf16"  # suffix of a bf16 variant's launch count
 INT8 = ".int8"  # suffix of an int8 variant's launch count
+L2 = ".l2"  # suffix of an L2 variant's launch count (after the dtype's)
 
 # The product written out (off the searchers' paths: the dense reference of
 # scores_above), and the re-search's entries at or above a floor, over a
@@ -144,11 +154,18 @@ INT8_KERNELS = tuple(name + INT8 for name in TENSOR_CORE_KERNELS)
 # The DnS chamfer over bf16 region features (precision="default").
 CHAMFER_BF16 = "chamfer" + BF16
 
+# The L2 variants: the four retrieval kernels in f32 and bf16, and the
+# re-search over a bf16 corpus.
+L2_KERNELS = (tuple(name + L2 for name in RETRIEVAL_KERNELS)
+              + tuple(name + BF16 + L2 for name in RETRIEVAL_KERNELS)
+              + (SCORES_ABOVE + L2,))
+
 launches: Dict[str, int] = {
     **{name: 0 for name in RETRIEVAL_KERNELS}, "chamfer": 0,
     **{name + BF16: 0 for name in RETRIEVAL_KERNELS}, SCORES: 0, SCORES_ABOVE: 0,
     CHAMFER_BF16: 0,
     **{name: 0 for name in INT8_KERNELS},
+    **{name: 0 for name in L2_KERNELS},
 }
 
 
@@ -165,17 +182,30 @@ def _row_chunk(n_cols: int) -> int:
 
 
 def _plain_scores(q: torch.Tensor, r: torch.Tensor,
-                  scale: Optional[torch.Tensor]) -> torch.Tensor:
-    """q·rᵀ in f32 (r widened), times the per-column ``scale`` (int8)."""
+                  scale: Optional[torch.Tensor],
+                  ref_sq: Optional[torch.Tensor] = None,
+                  q_sq: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q·rᵀ in f32 (r widened), times the per-column ``scale`` (int8), or
+    under L2 (``ref_sq`` per column, ``q_sq`` per row) the goodness
+    (2·s − ref_sq) − q_sq, each step one f32 rounding, in place."""
     s = torch.matmul(q.float(), r.T)
+    if ref_sq is not None:
+        return s.mul_(2.0).sub_(ref_sq).sub_(q_sq[:, None])
     return s if scale is None else s * scale
 
 
+def _rows(x: Optional[torch.Tensor], start: int, step: int) -> Optional[torch.Tensor]:
+    """Rows [start, start + step) of an optional per-row vector."""
+    return None if x is None else x[start : start + step]
+
+
 def row_max_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
-                  scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """max_j q·refs[j]ᵀ (× scale[j] for int8 codes) over j < n_valid, per
-    row ([M] f32; −inf when n_valid == 0). Pad columns of refs past q's
-    width are left out."""
+                  scale: Optional[torch.Tensor] = None,
+                  ref_sq: Optional[torch.Tensor] = None,
+                  q_sq: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """max_j q·refs[j]ᵀ (× scale[j] for int8 codes; the L2 goodness with
+    ``ref_sq`` and ``q_sq``) over j < n_valid, per row ([M] f32; −inf when
+    n_valid == 0). Pad columns of refs past q's width are left out."""
     m, d = q.shape
     out = torch.full((m,), float("-inf"), dtype=torch.float32, device=q.device)
     if n_valid == 0:
@@ -183,29 +213,32 @@ def row_max_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
     # bf16 and int8 widen (exactly); f32 is returned as is.
     r = refs[:n_valid, :d].float()
     sc = None if scale is None else scale[:n_valid]
+    rs = None if ref_sq is None else ref_sq[:n_valid]
     step = _row_chunk(n_valid)
     for start in range(0, m, step):
         out[start : start + step] = _plain_scores(
-            q[start : start + step], r, sc).amax(1)
+            q[start : start + step], r, sc, rs, _rows(q_sq, start, step)).amax(1)
     return out
 
 
 def count_above_plain(
     q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int,
-    scale: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
+    q_sq: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Per-row count of q·refs[j]ᵀ (× scale[j] for int8 codes) ≥ τ over
-    j < n_valid ([M] int32). Pad columns of refs past q's width are left
-    out."""
+    """Per-row count of q·refs[j]ᵀ (× scale[j] for int8 codes; the L2
+    goodness with ``ref_sq`` and ``q_sq``) ≥ τ over j < n_valid ([M]
+    int32). Pad columns of refs past q's width are left out."""
     m, d = q.shape
     out = torch.zeros((m,), dtype=torch.int32, device=q.device)
     if n_valid == 0:
         return out
     r = refs[:n_valid, :d].float()
     sc = None if scale is None else scale[:n_valid]
+    rs = None if ref_sq is None else ref_sq[:n_valid]
     step = _row_chunk(n_valid)
     for start in range(0, m, step):
-        s = _plain_scores(q[start : start + step], r, sc)
+        s = _plain_scores(q[start : start + step], r, sc, rs, _rows(q_sq, start, step))
         out[start : start + step] = (s >= tau).sum(1, dtype=torch.int32)
     return out
 
@@ -220,18 +253,21 @@ def scores_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
 
 
 def scores_above_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
-                       floor: torch.Tensor, scale: Optional[torch.Tensor] = None):
+                       floor: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                       ref_sq: Optional[torch.Tensor] = None,
+                       q_sq: Optional[torch.Tensor] = None):
     """Every (i, j < n_valid) whose score q·refs[j]ᵀ (bf16 and int8
-    widened; × scale[j] for int8 codes) is ≥ floor[i]: (scores [E] f32,
-    rows [E] int32, cols [E] int32) in row-major order. ``scores_plain``,
-    then ``nonzero``, chunked over rows. Pad columns of refs past q's width
-    are left out."""
+    widened; × scale[j] for int8 codes; the L2 goodness with ``ref_sq``
+    and ``q_sq``) is ≥ floor[i]: (scores [E] f32, rows [E] int32, cols [E]
+    int32) in row-major order. ``scores_plain``, then ``nonzero``, chunked
+    over rows. Pad columns of refs past q's width are left out."""
     r = refs[:n_valid, : q.shape[1]].float()
     sc = None if scale is None else scale[:n_valid]
+    rs = None if ref_sq is None else ref_sq[:n_valid]
     parts_s, parts_r, parts_c = [], [], []
     step = _row_chunk(n_valid)
     for start in range(0, q.shape[0] if n_valid else 0, step):
-        s = _plain_scores(q[start : start + step], r, sc)
+        s = _plain_scores(q[start : start + step], r, sc, rs, _rows(q_sq, start, step))
         rr, cc = torch.nonzero(s >= floor[start : start + step, None], as_tuple=True)
         parts_s.append(s[rr, cc])
         parts_r.append((rr + start).int())
@@ -256,10 +292,12 @@ def _first_max(s3: torch.Tensor, lanes: torch.Tensor):
 
 def pool_writer_plain(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int,
-    scale: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
+    q_sq: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The winner pool: for every 128-column segment of q·refsᵀ (× scale
-    per column for int8 codes), its best
+    per column for int8 codes; the L2 goodness with ``ref_sq`` and
+    ``q_sq``), its best
     two entries (values best-first, then global column ids; ties to the
     lower column, columns ≥ n_valid at −inf). Returns ([M, N/128, 2] f32,
     [M, N/128, 2] int32). The id of a −inf slot is unspecified (here a
@@ -275,7 +313,8 @@ def pool_writer_plain(
     refs = refs[:, : q.shape[1]].float()
     step = _row_chunk(n)
     for start in range(0, m, step):
-        s = _plain_scores(q[start : start + step], refs, scale)
+        s = _plain_scores(q[start : start + step], refs, scale,
+                          None if ref_sq is None else ref_sq[:n], _rows(q_sq, start, step))
         s[:, n_valid:] = float("-inf")
         s3 = s.view(s.shape[0], n_seg, SEG_LANES)
         m1, a1 = _first_max(s3, lanes)
@@ -307,14 +346,15 @@ def ordered_topk(
 
 def fused_topk_plain(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int,
-    scale: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
+    q_sq: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row top-κ of the winner pool (``pool_writer_plain``'s: best 2
     per 128-column segment, columns ≥ n_valid at −inf), ordered by score
     descending, then column ascending: ([M, κ] f32, [M, κ] int32), padded
     with −inf and id 0. Any N (the pool zero-pads refs to whole segments).
     Pad columns of refs past q's width are left out; int8 codes take their
-    ``scale``."""
+    ``scale``, L2 its ``ref_sq`` and ``q_sq``."""
     refs = refs[:, : q.shape[1]]
     n = refs.shape[0]
     n_seg = -(-n // SEG_LANES)
@@ -323,8 +363,10 @@ def fused_topk_plain(
         refs = torch.cat([refs, pad])
         if scale is not None:
             scale = torch.cat([scale[:n], scale.new_zeros(n_seg * SEG_LANES - n)])
+        if ref_sq is not None:
+            ref_sq = torch.cat([ref_sq[:n], ref_sq.new_zeros(n_seg * SEG_LANES - n)])
     m = q.shape[0]
-    vals, ids = pool_writer_plain(q, refs, n_valid, scale)
+    vals, ids = pool_writer_plain(q, refs, n_valid, scale, ref_sq, q_sq)
     return ordered_topk(vals.view(m, -1), ids.view(m, -1), kappa)
 
 
@@ -423,6 +465,35 @@ def _check(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
             raise ValueError("the kernels take a contiguous scale")
         if max(q.shape[0], refs.shape[0], q.shape[1]) >= 2**31:
             raise ValueError("dimensions must fit in int32")
+
+
+def _check_l2(q: torch.Tensor, refs: torch.Tensor, ref_sq: Optional[torch.Tensor],
+              q_sq: Optional[torch.Tensor]) -> bool:
+    """Whether a call is L2: ``ref_sq`` [N] and ``q_sq`` [M] f32 on q's
+    device, both given or neither; int8 codes take neither."""
+    if ref_sq is None and q_sq is None:
+        return False
+    if ref_sq is None or q_sq is None:
+        raise TypeError("L2 takes both ref_sq and q_sq")
+    if refs.dtype == torch.int8:
+        raise TypeError("int8 codes take no L2: inner product only")
+    for name, t, n in (("ref_sq", ref_sq, refs.shape[0]), ("q_sq", q_sq, q.shape[0])):
+        if t.dtype != torch.float32 or t.shape != (n,) or t.device != q.device:
+            raise ValueError(f"{name} must be [{n}] f32 on {q.device}: got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        if q.device.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"the kernels take a contiguous {name}")
+    if q.device.type == "cuda" and ref_sq.data_ptr() % 8:
+        raise ValueError("the kernels take an 8-byte aligned ref_sq (two columns a load)")
+    return True
+
+
+def _l2_args(l2: bool, ref_sq: Optional[torch.Tensor], q_sq: Optional[torch.Tensor]):
+    """(C name suffix, launch key suffix, the norms' pointers as the L2
+    kernels take them after refs) of a call."""
+    if not l2:
+        return "", "", ()
+    return "_l2", L2, (q_sq.data_ptr(), ref_sq.data_ptr())
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -676,16 +747,19 @@ def _int8_grid(name: str, q: torch.Tensor, n_valid: int, *args: int) -> int:
 
 
 def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
-            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+            scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
+            q_sq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused q·refsᵀ row max over the first ``n_valid`` columns, [M] f32.
     A bf16 ``refs`` may carry ``pad_columns``' zero pad columns
     (padded_width(D) columns for q's D), as the searchers stage it; int8
-    codes take their ``scale`` (scores q·codes[j] × scale[j])."""
+    codes take their ``scale`` (scores q·codes[j] × scale[j]); ``ref_sq``
+    and ``q_sq`` make it the max of the L2 goodness."""
     n_valid = int(n_valid)
     bf16 = q.dtype == torch.bfloat16
     _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
+    l2 = _check_l2(q, refs, ref_sq, q_sq)
     if q.device.type == "cpu":
-        return row_max_plain(q, refs, n_valid, scale)
+        return row_max_plain(q, refs, n_valid, scale, ref_sq, q_sq)
     m, d = q.shape
     out = torch.empty((m,), dtype=torch.float32, device=q.device)
     if m == 0:
@@ -702,43 +776,47 @@ def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
         _raise_on(rc, "row_max_int8")
         launches["row_max" + INT8] += 1
         return out
+    sfx, key, norms = _l2_args(l2, ref_sq, q_sq)
     if bf16:
         if d == 0:
             raise ValueError("row_max_bf16: the kernel takes D >= 1")
         # Queries are padded per call (no copy when they are padded
         # already), refs only when the caller did not stage them padded.
         q, refs = pad_columns(q), pad_columns(refs)
-        grid = wgmma_grid(m, n_valid, _wgmma_slots(q))
-        rc = lib.vsc_row_max_bf16(
-            q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0],
-            q.shape[1], n_valid, grid, keys.data_ptr(), out.data_ptr(),
-            _stream(q),
+        slots = _wgmma_slots(q, "row_max_bf16_l2") if l2 else _wgmma_slots(q)
+        rc = getattr(lib, "vsc_row_max_bf16" + sfx)(
+            q.device.index, q.data_ptr(), refs.data_ptr(), *norms, m, refs.shape[0],
+            q.shape[1], n_valid, wgmma_grid(m, n_valid, slots), keys.data_ptr(),
+            out.data_ptr(), _stream(q),
         )
-        _raise_on(rc, "row_max_bf16")
-        launches["row_max" + BF16] += 1
+        _raise_on(rc, "row_max_bf16" + sfx)
+        launches["row_max" + BF16 + key] += 1
         return out
-    vec, grid = _reduce_plan("row_max", q, refs, n_valid)
-    rc = lib.vsc_row_max(
-        q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0], d,
+    vec, grid = _reduce_plan("row_max" + sfx, q, refs, n_valid)
+    rc = getattr(lib, "vsc_row_max" + sfx)(
+        q.device.index, q.data_ptr(), refs.data_ptr(), *norms, m, refs.shape[0], d,
         n_valid, vec, grid, keys.data_ptr(), out.data_ptr(), _stream(q),
     )
-    _raise_on(rc, "row_max")
-    launches["row_max"] += 1
+    _raise_on(rc, "row_max" + sfx)
+    launches["row_max" + key] += 1
     return out
 
 
 def count_above(
     q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int,
-    scale: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
+    q_sq: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Exact per-row count of q·refsᵀ ≥ τ over the first ``n_valid``
     columns, [M] int32. A bf16 ``refs`` may carry ``pad_columns``' zero
-    pad columns; int8 codes take their ``scale``."""
+    pad columns; int8 codes take their ``scale``; ``ref_sq`` and ``q_sq``
+    make it the count of the L2 goodness ≥ τ."""
     n_valid = int(n_valid)
     bf16 = q.dtype == torch.bfloat16
     _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
+    l2 = _check_l2(q, refs, ref_sq, q_sq)
     if q.device.type == "cpu":
-        return count_above_plain(q, refs, float(tau), n_valid, scale)
+        return count_above_plain(q, refs, float(tau), n_valid, scale, ref_sq, q_sq)
     m, d = q.shape
     out = torch.empty((m,), dtype=torch.int32, device=q.device)
     if m == 0:
@@ -754,46 +832,51 @@ def count_above(
         _raise_on(rc, "count_above_int8")
         launches["count_above" + INT8] += 1
         return out
+    sfx, key, norms = _l2_args(l2, ref_sq, q_sq)
     if bf16:
         if d == 0:
             raise ValueError("count_above_bf16: the kernel takes D >= 1")
         q, refs = pad_columns(q), pad_columns(refs)
-        grid = wgmma_grid(m, n_valid, _wgmma_slots(q, "count_above_bf16"))
-        rc = lib.vsc_count_above_bf16(
-            q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0],
+        cname = "count_above_bf16" + sfx
+        grid = wgmma_grid(m, n_valid, _wgmma_slots(q, cname))
+        rc = getattr(lib, f"vsc_{cname}")(
+            q.device.index, q.data_ptr(), refs.data_ptr(), *norms, m, refs.shape[0],
             q.shape[1], float(tau), n_valid, grid, out.data_ptr(), _stream(q),
         )
-        _raise_on(rc, "count_above_bf16")
-        launches["count_above" + BF16] += 1
+        _raise_on(rc, cname)
+        launches["count_above" + BF16 + key] += 1
         return out
-    vec, grid = _reduce_plan("count_above", q, refs, n_valid)
-    rc = lib.vsc_count_above(
-        q.device.index, q.data_ptr(), refs.data_ptr(), m, refs.shape[0], d,
+    vec, grid = _reduce_plan("count_above" + sfx, q, refs, n_valid)
+    rc = getattr(lib, "vsc_count_above" + sfx)(
+        q.device.index, q.data_ptr(), refs.data_ptr(), *norms, m, refs.shape[0], d,
         float(tau), n_valid, vec, grid, out.data_ptr(), _stream(q),
     )
-    _raise_on(rc, "count_above")
-    launches["count_above"] += 1
+    _raise_on(rc, "count_above" + sfx)
+    launches["count_above" + key] += 1
     return out
 
 
 def pool_writer(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int,
-    scale: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
+    q_sq: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused q·refsᵀ winner pool: best 2 per 128-column segment,
     ([M, N/128, 2] f32, [M, N/128, 2] int32). N must be a multiple of 128.
     A bf16 ``refs`` may carry ``pad_columns``' zero pad columns; int8
-    codes take their ``scale``. The ids of −inf slots are unspecified and
-    differ between the kernels; a finite slot's id is its column, ties to
-    the lower one."""
+    codes take their ``scale``; ``ref_sq`` and ``q_sq`` make it the pool of
+    the L2 goodness. The ids of −inf slots are unspecified and differ
+    between the kernels; a finite slot's id is its column, ties to the
+    lower one."""
     n_valid = int(n_valid)
     bf16 = q.dtype == torch.bfloat16
     _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
+    l2 = _check_l2(q, refs, ref_sq, q_sq)
     n = refs.shape[0]
     if n % SEG_LANES:
         raise ValueError(f"refs rows ({n}) must be a multiple of {SEG_LANES}")
     if q.device.type == "cpu":
-        return pool_writer_plain(q, refs, n_valid, scale)
+        return pool_writer_plain(q, refs, n_valid, scale, ref_sq, q_sq)
     m, d = q.shape
     shape = (m, n // SEG_LANES, SEG_KEEP)
     vals = torch.empty(shape, dtype=torch.float32, device=q.device)
@@ -816,24 +899,26 @@ def pool_writer(
         _raise_on(rc, "pool_writer_int8")
         launches["pool_writer" + INT8] += 1
         return vals, ids
+    sfx, key, norms = _l2_args(l2, ref_sq, q_sq)
     if bf16:
         if d == 0:
             raise ValueError("pool_writer_bf16: the kernel takes D >= 1")
         q, refs = pad_columns(q), pad_columns(refs)
-        grid = wgmma_grid(m, n_valid, _wgmma_slots(q, "pool_writer_bf16"))
-        rc = lib.vsc_pool_writer_bf16(
-            q.device.index, q.data_ptr(), refs.data_ptr(), m, n, q.shape[1],
+        cname = "pool_writer_bf16" + sfx
+        grid = wgmma_grid(m, n_valid, _wgmma_slots(q, cname))
+        rc = getattr(lib, f"vsc_{cname}")(
+            q.device.index, q.data_ptr(), refs.data_ptr(), *norms, m, n, q.shape[1],
             n_valid, grid, vals.data_ptr(), ids.data_ptr(), _stream(q),
         )
-        _raise_on(rc, "pool_writer_bf16")
-        launches["pool_writer" + BF16] += 1
+        _raise_on(rc, cname)
+        launches["pool_writer" + BF16 + key] += 1
         return vals, ids
-    rc = lib.vsc_pool_writer(
-        q.device.index, q.data_ptr(), refs.data_ptr(), m, n, d, n_valid,
+    rc = getattr(lib, "vsc_pool_writer" + sfx)(
+        q.device.index, q.data_ptr(), refs.data_ptr(), *norms, m, n, d, n_valid,
         vals.data_ptr(), ids.data_ptr(), _stream(q),
     )
-    _raise_on(rc, "pool_writer")
-    launches["pool_writer"] += 1
+    _raise_on(rc, "pool_writer" + sfx)
+    launches["pool_writer" + key] += 1
     return vals, ids
 
 
@@ -885,6 +970,7 @@ def scores(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
 def scores_above(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int, floor: torch.Tensor,
     capacity: Optional[int] = None, scale: Optional[torch.Tensor] = None,
+    ref_sq: Optional[torch.Tensor] = None, q_sq: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every (i, j < n_valid) whose score q·refs[j]ᵀ (× scale[j] for int8
     codes) is ≥ floor[i], each once and in no order: (scores [E] f32, rows
@@ -896,12 +982,14 @@ def scores_above(
     expects (default SCORES_ABOVE_ROW_CAPACITY a row). The kernel counts
     every entry; when they are more, the wrapper launches it again with
     exactly that capacity (each launch counted). A bf16 ``refs`` may carry
-    ``pad_columns``' zero pad columns; int8 codes take their ``scale``.
-    f32 CUDA tensors raise: the searchers re-search an f32 corpus with
-    ``torch.matmul``."""
+    ``pad_columns``' zero pad columns; int8 codes take their ``scale``;
+    ``ref_sq`` and ``q_sq`` (bf16 only) make the scores the L2 goodness
+    (2·s − ref_sq[j]) − q_sq[i]. f32 CUDA tensors raise: the searchers
+    re-search an f32 corpus with ``torch.matmul``."""
     n_valid = int(n_valid)
     bf16 = q.dtype == torch.bfloat16
     _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
+    l2 = _check_l2(q, refs, ref_sq, q_sq)
     if (floor.dtype != torch.float32 or floor.shape != (q.shape[0],)
             or floor.device != q.device):
         raise ValueError(f"floor must be [{q.shape[0]}] f32 on {q.device}: got "
@@ -909,14 +997,15 @@ def scores_above(
     if capacity is not None and int(capacity) < 0:
         raise ValueError(f"capacity {capacity} < 0")
     if q.device.type == "cpu":
-        return scores_above_plain(q, refs, n_valid, floor, scale)
+        return scores_above_plain(q, refs, n_valid, floor, scale, ref_sq, q_sq)
     int8 = refs.dtype == torch.int8
     if not (bf16 or int8):
         raise TypeError(
             f"scores_above: the kernel takes bf16 operands or int8 codes, not {q.dtype}")
     m, d = q.shape
+    sfx, l2_key, _ = _l2_args(l2, ref_sq, q_sq)
     cname, key = ("scores_above_int8", SCORES_ABOVE_INT8) if int8 else (
-        "scores_above_bf16", SCORES_ABOVE)
+        "scores_above_bf16" + sfx, SCORES_ABOVE + l2_key)
     if d == 0:
         raise ValueError(f"{cname}: the kernel takes D >= 1")
     if m == 0 or n_valid == 0:
@@ -927,7 +1016,8 @@ def scores_above(
         operands, depth = (terms, refs, scale, floor), refs.shape[1]
     else:
         q, refs = pad_columns(q), pad_columns(refs)
-        operands, depth = (q, refs, floor), q.shape[1]
+        operands = (q, refs) + ((q_sq, ref_sq) if l2 else ()) + (floor,)
+        depth = q.shape[1]
     cap = min(m * n_valid, m * SCORES_ABOVE_ROW_CAPACITY if capacity is None
               else int(capacity))
     grid = wgmma_grid(m, n_valid, _wgmma_slots(q, cname))
@@ -951,7 +1041,8 @@ def scores_above(
 
 def fused_topk(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int,
-    scale: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
+    q_sq: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused q·refsᵀ per-row top-κ of the winner pool (best 2 per
     128-column segment), ordered by score descending, then column
@@ -959,38 +1050,46 @@ def fused_topk(
     N and any κ ≥ 1. The kernel collects one κ-set per row and block
     (S pieces per row: ``topk_grid``, or ``wgmma_topk_grid`` in bf16 and
     int8); ``ordered_topk`` merges them. A bf16 ``refs`` may carry
-    ``pad_columns``' zero pad columns; int8 codes take their ``scale``."""
+    ``pad_columns``' zero pad columns; int8 codes take their ``scale``;
+    ``ref_sq`` and ``q_sq`` make it the top-κ of the L2 goodness."""
     n_valid, kappa = int(n_valid), int(kappa)
     bf16 = q.dtype == torch.bfloat16
     _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
+    l2 = _check_l2(q, refs, ref_sq, q_sq)
     if kappa < 1:
         raise ValueError(f"kappa must be >= 1, got {kappa}")
     if q.device.type == "cpu":
-        return fused_topk_plain(q, refs, n_valid, kappa, scale)
+        return fused_topk_plain(q, refs, n_valid, kappa, scale, ref_sq, q_sq)
     m = q.shape[0]
     if m == 0:
         return (torch.empty((0, kappa), dtype=torch.float32, device=q.device),
                 torch.empty((0, kappa), dtype=torch.int32, device=q.device))
     if bf16 or refs.dtype == torch.int8:
         return _fused_topk_tc(q, refs, n_valid, kappa,
-                              kappa <= WGMMA_SMEM_SETS_KAPPA_MAX, scale)
-    vec, grid = _reduce_plan("fused_topk", q, refs, n_valid)
+                              kappa <= WGMMA_SMEM_SETS_KAPPA_MAX, scale, ref_sq, q_sq)
+    sfx, key, _ = _l2_args(l2, ref_sq, q_sq)
+    vec, grid = _reduce_plan("fused_topk" + sfx, q, refs, n_valid)
     grid, pieces = topk_grid(m, n_valid, kappa, grid)
-    return _launch_topk("fused_topk", "fused_topk", (q, refs), n_valid, kappa,
-                        pieces, (kappa, vec, grid, pieces), m)
+    operands = (q, refs, q_sq, ref_sq) if l2 else (q, refs)
+    return _launch_topk("fused_topk" + sfx, "fused_topk" + key, operands, n_valid,
+                        kappa, pieces, (kappa, vec, grid, pieces), m)
 
 
 def _fused_topk_tc(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int, smem_sets: bool,
-    scale: Optional[torch.Tensor] = None,
+    scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
+    q_sq: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fused_topk.bf16 (fused_topk.int8 for codes with their ``scale``) on
-    the card (M ≥ 1) with its κ-sets in shared memory (``smem_sets``, κ ≤
+    """fused_topk.bf16 (fused_topk.int8 for codes with their ``scale``;
+    fused_topk.bf16.l2 with ``ref_sq`` and ``q_sq``) on the card (M ≥ 1)
+    with its κ-sets in shared memory (``smem_sets``, κ ≤
     WGMMA_SMEM_SETS_KAPPA_MAX) or in its [M, S, κ] output. ``fused_topk``
     takes shared memory wherever κ fits; the card tests and
     ``tools/bench_reduce.py`` force either placement."""
     int8 = refs.dtype == torch.int8
-    cname = "fused_topk_int8" if int8 else "fused_topk_bf16"
+    l2 = _check_l2(q, refs, ref_sq, q_sq)
+    sfx, l2_key, _ = _l2_args(l2, ref_sq, q_sq)
+    cname = "fused_topk_int8" if int8 else "fused_topk_bf16" + sfx
     if q.shape[1] == 0:
         raise ValueError(f"{cname}: the kernel takes D >= 1")
     if smem_sets and kappa > WGMMA_SMEM_SETS_KAPPA_MAX:
@@ -1005,9 +1104,10 @@ def _fused_topk_tc(
         terms, refs = _int8_operands(q, refs)
         operands = (terms, refs, scale)
     else:
-        operands = (pad_columns(q), pad_columns(refs))
-    return _launch_topk(cname, "fused_topk" + (INT8 if int8 else BF16), operands,
-                        n_valid, kappa, pieces, (kappa, smem_sets, grid, pieces), m)
+        operands = (pad_columns(q), pad_columns(refs)) + ((q_sq, ref_sq) if l2 else ())
+    key = "fused_topk" + (INT8 if int8 else BF16 + l2_key)
+    return _launch_topk(cname, key, operands, n_valid, kappa, pieces,
+                        (kappa, smem_sets, grid, pieces), m)
 
 
 def _launch_topk(
@@ -1015,8 +1115,9 @@ def _launch_topk(
     kappa: int, pieces: int, args: Tuple[int, ...], m: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launches ``vsc_<cname>`` on ``operands`` (q or the split query
-    terms, refs[, scale]) for ``m`` query rows into S = ``pieces`` κ-sets
-    per row, counts it under ``key`` and merges the sets."""
+    terms, refs[, scale][, q_sq, ref_sq]) for ``m`` query rows into S =
+    ``pieces`` κ-sets per row, counts it under ``key`` and merges the
+    sets."""
     q, refs = operands[0], operands[1]
     out_v = torch.empty((m, pieces * kappa), dtype=torch.float32, device=q.device)
     out_i = torch.empty((m, pieces * kappa), dtype=torch.int32, device=q.device)

@@ -1,8 +1,9 @@
 """Exact brute-force similarity search over a staged reference matrix.
 
 Counterpart of ``vsc2022_tpu/ops/similarity.py``: ``SimilaritySearcher``
-with ``metric="IP"``, ``precision="highest"`` and ``dtype`` "float32",
-"bfloat16" or "int8". It ports the contracts, not the TPU machinery.
+with ``metric`` "IP" or "L2", ``precision`` "highest" or "default" and
+``dtype`` "float32", "bfloat16" or "int8" (IP only, as in JAX). It ports
+the contracts, not the TPU machinery.
 ``global_topk`` collects candidates in one of the JAX searcher's two
 modes, routed as it routes them (``_collection_mode``):
 
@@ -64,6 +65,29 @@ then the scale once per score), the re-searches' included
 (``kernels.scores_above``), so both collections compare bit-identical
 scores.
 ``append_rows`` and ``keep_rows`` carry each row's scale with its codes.
+
+``metric="L2"`` (FAISS's ``METRIC_L2``, f32 and bf16 storage): every score
+is the goodness (2·q·r − ‖r‖²) − ‖q‖², the negated squared distance, so
+"better" stays "larger" in every step above; callers get squared
+distances (``row_topk``, ``row_nn``, ``global_topk``). ‖r‖² is staged once
+per corpus row (``_ref_sq``: of the f32 rows, or of the bf16 rows widened
+where the corpus is bf16, as JAX stages it; carried by ``append_rows`` and
+``keep_rows``) and ‖q‖² taken per search from the staged queries, each by
+``_row_sq`` (a fixed order of f32 operations, so a row's value depends on
+nothing but the row). The kernels' L2 variants apply the expression to
+their product's scores (``kernels`` ``ref_sq`` / ``q_sq``), the f32
+re-search to ``torch.matmul``'s, with its margin re-derived for it.
+
+``precision="default"`` is the JAX searcher's one bf16 pass per product
+(XLA's DEFAULT on a TPU; the Pallas pool spells it out,
+``pallas_kernels.py:315-320``). Over an f32 corpus the rows stage in bf16
+(rounded to nearest even, no f32 copy on the device) and the queries stay
+f32 until the product, which casts them to bf16 once: every product runs
+on the bf16 kernels and the re-search on ``scores_above.bf16``. ‖r‖² and
+‖q‖² still come from the f32 rows and queries, as JAX's do. Over a bf16
+corpus "default" is "highest". Over int8 codes the f32 queries are rounded
+to bf16 before the product, whose split then has zero mid and lo terms:
+the three-pass product gives the one-pass one bit for bit.
 """
 
 from __future__ import annotations
@@ -116,6 +140,14 @@ INT8_TENSOR_CORE_SLACK = 3 * TENSOR_CORE_SLACK
 ABOVE_HEADROOM = 64
 ABOVE_ENTRY_BYTES = 12
 ABOVE_BUDGET_ENTRIES = 4 * PLAIN_CHUNK_ELEMENTS // ABOVE_ENTRY_BYTES
+# The fewest query rows the f32 re-search hands cuBLAS at once (zero rows
+# pad a shorter chunk). cuBLAS's f32 product sums each score in k order,
+# the kernels' fmaf chain, at the searchers' shapes (on an H100 the
+# row_max kernel equals torch.matmul's row max on 9,000 rows at D = 512
+# and 513), but a chunk of a few rows takes another algorithm: an 8-row
+# chunk scored the same pairs a few ulps apart, and the two collections,
+# which re-search different rows, returned different scores.
+F32_RESEARCH_MIN_ROWS = 128
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -130,6 +162,31 @@ def _host_f32(x) -> np.ndarray:
 # The storage dtypes, by name.
 STORAGE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                   "int8": torch.int8}
+METRICS = ("IP", "L2")
+PRECISIONS = ("highest", "default")
+
+
+def _f32_scores(rows: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
+    """rows · refsᵀ by ``torch.matmul``, rows padded with zero rows to at
+    least F32_RESEARCH_MIN_ROWS, so that cuBLAS scores them as the f32
+    kernels do."""
+    m = rows.shape[0]
+    if m < F32_RESEARCH_MIN_ROWS:
+        rows = torch.cat([rows, rows.new_zeros((F32_RESEARCH_MIN_ROWS - m, rows.shape[1]))])
+    return torch.matmul(rows, refs.T)[:m]
+
+
+def _row_sq(rows: torch.Tensor) -> torch.Tensor:
+    """Each row's squared L2 norm in f32 ([N]; bf16 rows widened): the sum
+    over k, in order, of r[k]·r[k], one rounding per product and per sum.
+    Elementwise torch operations in a fixed order, so a row's value
+    depends on nothing but the row: not on the rows staged or searched
+    with it, nor on the device."""
+    acc = torch.zeros(rows.shape[0], dtype=torch.float32, device=rows.device)
+    for k in range(rows.shape[1]):
+        col = rows[:, k].float()
+        acc += col * col
+    return acc
 
 
 def _quantize(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -226,15 +283,16 @@ def _empty_result():
 
 
 class SimilaritySearcher:
-    """Brute-force inner-product searcher over a fixed reference matrix.
+    """Brute-force searcher over a fixed reference matrix.
 
     The references are staged to ``device`` once, in ``dtype``
     ("float32", "bfloat16" or "int8": codes and scales), zero-padded to a
     multiple of min(COL_BLOCK, N rounded up to 128) rows, as the JAX
-    searcher pads them; ``n_refs`` rows are valid. ``metric`` and
-    ``precision`` take only the values ported so far ("IP", "highest")
-    and raise on the others. ``precision="default"`` keeps raising: the
-    JAX searcher leaves it to XLA, whose result depends on the backend.
+    searcher pads them; ``n_refs`` rows are valid. ``metric`` is "IP" or
+    "L2" (squared distances out; f32 and bf16 storage only), ``precision``
+    "highest" or "default" (one bf16 pass per product; module docstring).
+    An f32 corpus at "default" stages in bf16 (``torch_dtype``) and keeps
+    its queries f32 (``query_dtype``) until the product.
     """
 
     def __init__(
@@ -245,17 +303,7 @@ class SimilaritySearcher:
         dtype: str = "float32",
         device: DeviceLike = "cuda",
     ):
-        if metric != "IP":
-            raise NotImplementedError(
-                f"metric={metric!r} is not ported yet (IP only)"
-            )
-        if precision != "highest":
-            raise NotImplementedError(
-                f"precision={precision!r} is not ported yet (full f32 only)"
-            )
-        self._configure(dtype, device)
-        self.metric = metric
-        self.precision = precision
+        self._configure(dtype, device, metric, precision)
         refs = _host_f32(refs)
         if refs.ndim != 2:
             raise ValueError(f"refs must be [N, D]; got {refs.shape}")
@@ -267,20 +315,25 @@ class SimilaritySearcher:
             return
         refs_t = torch.from_numpy(refs)
         self.n_refs, self.dim = refs_t.shape
-        self._refs = self._zeros(self._padded_refs(self.n_refs))
+        n_pad = self._padded_refs(self.n_refs)
+        self._refs = self._zeros(n_pad)
+        rows = refs_t.to(self.device)
         # Rounded to bf16 (nearest even) on the device, in the copy.
-        self._refs[: self.n_refs] = refs_t.to(self.device)
+        self._refs[: self.n_refs] = rows
+        if self._l2:
+            self._ref_sq = torch.zeros(n_pad, dtype=torch.float32, device=self.device)
+            self._ref_sq[: self.n_refs] = self._norms_of(rows, self._refs[: self.n_refs])
         self._ref_norm_max = _max_row_norm(self._refs)
 
     @classmethod
-    def from_int8(cls, codes, scale, device: DeviceLike = "cuda") -> "SimilaritySearcher":
+    def from_int8(cls, codes, scale, device: DeviceLike = "cuda",
+                  precision: str = "highest") -> "SimilaritySearcher":
         """An int8 searcher over codes [N, D] int8 and their scales [N] f32
         taken as they are (not quantized again), e.g. a JAX int8
         searcher's valid rows; the layout a fresh int8 stage of rows with
         these codes gives."""
         self = cls.__new__(cls)
-        self._configure("int8", device)
-        self.metric, self.precision = "IP", "highest"
+        self._configure("int8", device, "IP", precision)
         codes = np.require(codes, np.int8, ["C_CONTIGUOUS", "WRITEABLE"])
         scale = np.require(scale, np.float32, ["C_CONTIGUOUS", "WRITEABLE"])
         if codes.ndim != 2 or scale.shape != (codes.shape[0],):
@@ -292,26 +345,45 @@ class SimilaritySearcher:
         self._ref_norm_max = _max_row_norm(self._refs, self._scale)
         return self
 
-    def _configure(self, dtype: str, device: DeviceLike) -> None:
+    def _configure(self, dtype: str, device: DeviceLike, metric: str,
+                   precision: str) -> None:
         if dtype not in STORAGE_DTYPES:
             raise NotImplementedError(
                 f"dtype={dtype!r} storage is not ported yet "
                 "(float32, bfloat16 and int8 only)"
             )
-        self.dtype = dtype
-        # Corpus staging dtype; the kernels' variant follows it. The
-        # queries stage in query_dtype: int8 corpora take f32 queries.
-        self.torch_dtype = STORAGE_DTYPES[dtype]
+        if metric not in METRICS:
+            raise ValueError(f"metric must be one of {METRICS}, got {metric!r}")
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+        if dtype == "int8" and metric != "IP":
+            # As the JAX searcher asserts: the scales ride the ref_sq slot.
+            raise NotImplementedError("int8 storage supports metric='IP' only")
+        self.dtype, self.metric, self.precision = dtype, metric, precision
+        self._l2 = metric == "L2"
+        # Corpus staging dtype; the kernels' variant follows it (an f32
+        # corpus at "default" stages in bf16). The queries stage in
+        # query_dtype: f32 but over a bf16 corpus; the product casts them.
+        self.torch_dtype = (torch.bfloat16 if (dtype, precision) == ("float32", "default")
+                            else STORAGE_DTYPES[dtype])
         self._int8 = dtype == "int8"
-        self.query_dtype = torch.float32 if self._int8 else self.torch_dtype
+        self.query_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
         self.device = resolve_device(device)
         # int8: the per-row scales [N_pad] f32 (0 on the pad rows).
         self._scale: Optional[torch.Tensor] = None
+        # L2: each staged row's squared norm [N_pad] f32 (0 on the pad rows).
+        self._ref_sq: Optional[torch.Tensor] = None
         # The tensor-core kernels' copy of a bf16 corpus
         # (kernels.pad_columns), built on first use; dropped whenever the
         # corpus changes.
         self._tc_copy: Optional[torch.Tensor] = None
         self.last_stats: dict = {}
+
+    def _norms_of(self, rows: torch.Tensor, staged: torch.Tensor) -> torch.Tensor:
+        """The squared norms of rows as JAX stages them: of the f32 rows
+        (``rows``) over an f32 corpus, at either precision; of the staged
+        bf16 rows widened over a bf16 one."""
+        return _row_sq(staged if self.dtype == "bfloat16" else rows)
 
     def _stage_int8(self, n_rows: int) -> None:
         """The zero int8 corpus of ``n_rows`` rows as it stages: codes rows
@@ -343,9 +415,11 @@ class SimilaritySearcher:
 
     def staged_bytes(self) -> int:
         """Device bytes of the staged corpus: the rows (int8: the codes
-        and the scales) and the tensor-core copy, if one is held."""
+        and the scales; L2: the squared norms) and the tensor-core copy, if
+        one is held."""
         return sum(t.numel() * t.element_size()
-                   for t in (self._refs, self._scale, self._tc_copy) if t is not None)
+                   for t in (self._refs, self._scale, self._ref_sq, self._tc_copy)
+                   if t is not None)
 
     @staticmethod
     def _padded_refs(n_rows: int) -> int:
@@ -368,13 +442,16 @@ class SimilaritySearcher:
             refs[:start] = self._refs[:start]
             self._refs = refs
             if self._int8:
-                scale = torch.zeros(n_pad, dtype=torch.float32, device=self.device)
-                scale[:start] = self._scale[:start]
-                self._scale = scale
+                self._scale = self._grown(self._scale, start, n_pad)
+            if self._l2:
+                self._ref_sq = self._grown(self._ref_sq, start, n_pad)
         if self._int8:  # new rows bring their own scales
             self._quantize_into(new_rows, start)
         else:
-            self._refs[start:total] = torch.from_numpy(new_rows).to(self.device)
+            rows = torch.from_numpy(new_rows).to(self.device)
+            self._refs[start:total] = rows
+            if self._l2:  # and their own squared norms
+                self._ref_sq[start:total] = self._norms_of(rows, self._refs[start:total])
         self._ref_norm_max = max(
             self._ref_norm_max,
             _max_row_norm(self._refs[start:total],
@@ -382,6 +459,13 @@ class SimilaritySearcher:
         )
         self.n_refs = total
         self._tc_copy = None
+
+    def _grown(self, vec: torch.Tensor, n_valid: int, n_pad: int) -> torch.Tensor:
+        """A per-row f32 vector grown to n_pad rows, its first n_valid kept
+        and the rest 0."""
+        out = torch.zeros(n_pad, dtype=torch.float32, device=self.device)
+        out[:n_valid] = vec[:n_valid]
+        return out
 
     def keep_rows(self, keep_idx) -> None:
         """Shrink the staged corpus to exactly these surviving rows
@@ -395,9 +479,9 @@ class SimilaritySearcher:
         idx = torch.from_numpy(keep_idx).to(self.device)
         refs[:total] = self._refs.index_select(0, idx)
         if self._int8:  # the scales compact with their rows
-            scale = torch.zeros(n_pad, dtype=torch.float32, device=self.device)
-            scale[:total] = self._scale.index_select(0, idx)
-            self._scale = scale
+            self._scale = self._grown(self._scale.index_select(0, idx), total, n_pad)
+        if self._l2:  # and the squared norms
+            self._ref_sq = self._grown(self._ref_sq.index_select(0, idx), total, n_pad)
         self._refs, self.n_refs = refs, total
         self._ref_norm_max = _max_row_norm(refs, self._scale)
         self._tc_copy = None
@@ -447,22 +531,28 @@ class SimilaritySearcher:
             self._tc_copy = kernels.pad_columns(self._refs)
         return self._tc_copy
 
-    @property
-    def _kernel_kwargs(self) -> dict:
-        """What every kernel call takes besides its operands: an int8
-        corpus's scales."""
-        return {"scale": self._scale} if self._int8 else {}
+    def _product_queries(self, q: torch.Tensor) -> torch.Tensor:
+        """Staged queries as the product takes them: at "default" an f32
+        query goes to bf16 once (over a bf16 corpus, its kernels' dtype;
+        over int8 codes rounded and kept f32); as they are otherwise."""
+        if self.precision != "default" or q.dtype != torch.float32:
+            return q
+        q = q.to(torch.bfloat16)
+        return q if self._tensor_cores else q.float()
 
     def row_max(self, q: torch.Tensor) -> torch.Tensor:
         """Best score per row of staged queries (``_stage_queries``), on
-        the device: the ``row_max`` kernel."""
-        return kernels.row_max(q, self.tensor_core_refs(), self.n_refs,
-                               **self._kernel_kwargs)
+        the device: the ``row_max`` kernel (under L2 the best goodness,
+        i.e. minus the squared distance)."""
+        q_k, refs, kw = self._kernel_operands(q)
+        return kernels.row_max(q_k, refs, self.n_refs, **kw)
 
     def row_nn(self, queries) -> np.ndarray:
         """Best score per row (k=1), e.g. for score normalization; the
-        ``row_max`` kernel on the device."""
-        return self.row_max(self._stage_queries(queries)).cpu().numpy()
+        ``row_max`` kernel on the device. L2: the squared distance to the
+        nearest row."""
+        best = self.row_max(self._stage_queries(queries)).cpu().numpy()
+        return -best if self._l2 else best
 
     def _int8_scores(self, q: torch.Tensor) -> torch.Tensor:
         """q·rᵀ over the valid rows of an int8 corpus in f32: the codes
@@ -475,12 +565,23 @@ class SimilaritySearcher:
             for c in range(0, self.n_refs, step)
         ], 1)
 
+    def _goodness(self, s: torch.Tensor, q_sq: torch.Tensor) -> torch.Tensor:
+        """Scores s [m, n_refs] of a chunk of rows as the kernels give them:
+        under L2 the goodness (2·s − ‖r‖²) − ‖q‖² (``q_sq``: the chunk's),
+        in place, each step one f32 rounding as in the kernels."""
+        if not self._l2:
+            return s
+        return s.mul_(2.0).sub_(self._ref_sq[: self.n_refs]).sub_(q_sq[:, None])
+
     def row_topk(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Exact per-row top-k: (scores [Nq, k], idx [Nq, k]), best-first,
         ties to the lower index (a chunked ``torch.matmul`` in f32, bf16
-        rows and int8 codes widened, plus a stable sort)."""
+        rows and int8 codes widened, plus a stable sort). L2 scores are
+        squared distances, ascending."""
         k = min(k, self.n_refs)
-        q = self._stage_queries(queries).float()
+        q = self._stage_queries(queries)
+        q_sq = _row_sq(q) if self._l2 else None
+        q = self._product_queries(q).float()
         nq = q.shape[0]
         out_s = np.empty((nq, k), dtype=np.float32)
         out_i = np.empty((nq, k), dtype=np.int64)
@@ -489,9 +590,12 @@ class SimilaritySearcher:
         for start in range(0, nq, step):
             rows = q[start : start + step]
             s = self._int8_scores(rows) if self._int8 else torch.matmul(rows, refs.T)
+            s = self._goodness(s, None if q_sq is None else q_sq[start : start + step])
             vals, idx = torch.sort(s, dim=1, descending=True, stable=True)
             out_s[start : start + step] = vals[:, :k].cpu().numpy()
             out_i[start : start + step] = idx[:, :k].cpu().numpy()
+        if self._l2:
+            np.negative(out_s, out=out_s)  # goodness → squared distance
         return out_s, out_i
 
     # ---- global top-k ------------------------------------------------------
@@ -504,11 +608,13 @@ class SimilaritySearcher:
             kappa = 1 << (kappa - 1).bit_length()  # next power of two
         return min(kappa, self.n_refs), min(k, nq * self.n_refs)
 
-    def _corpus_above(self, q_rows: torch.Tensor, tau: float, count: int):
+    def _corpus_above(self, q_rows: torch.Tensor, tau: float, count: int,
+                      q_sq: Optional[torch.Tensor] = None):
         """Every corpus entry ≥ τ of the given query rows, and a few below
         it: (scores, local row index, ref id), in no particular order.
         ``count``: the entries ≥ τ these rows hold as the kernels count
-        them (the capacity hint of the tensor-core re-search).
+        them (the capacity hint of the tensor-core re-search). ``q_sq``:
+        under L2 the rows' squared norms, as the kernels took them.
 
         The scores: over a bf16 or int8 corpus the kernels' own product
         (the tensor cores, on the card), as the JAX searcher re-searches
@@ -521,7 +627,8 @@ class SimilaritySearcher:
         matrix (chunks of rows only where its capacity, ``count`` plus
         ABOVE_HEADROOM a row, would pass ABOVE_BUDGET_ENTRIES: τ = −inf
         keeps every entry). An f32 corpus scores chunks of rows densely and
-        keeps the same entries.
+        keeps the same entries (chunks of at least F32_RESEARCH_MIN_ROWS
+        rows for cuBLAS).
 
         The margin: τ and the counts come from the kernels' scores, and a
         product that sums differently may round the same (q, r) product
@@ -544,16 +651,32 @@ class SimilaritySearcher:
         rounding for the scale (≤ D·u): 11.1·D·u·‖q‖·‖r‖ at most, under
         INT8_TENSOR_CORE_SLACK (6) times the f32 margin, 12·D·u. It costs
         only re-searched entries, which the final cut drops.
+
+        Under L2 the kernels and the re-search compute g = (2·s − ‖r‖²) −
+        ‖q‖² on the same ‖r‖² and ‖q‖² from products s, s' at most δ (the
+        margin above) apart: 2·s and 2·s' are 2δ apart, and each of the two
+        subtractions rounds its result once, by at most u times its
+        magnitude, which is at most (‖q‖ + ‖r‖)² (1 + u) (|2·s − ‖r‖²| ≤
+        2‖q‖‖r‖ + ‖r‖², |g| ≤ (‖q‖ + ‖r‖)²). So |g − g'| ≤ 2δ + 4u·(1 +
+        u)·(‖q‖ + ‖r‖)², under the floor's L2 margin: twice the IP margin
+        plus 4·eps·(‖q‖ + R)² (eps = 2u, R = ``_ref_norm_max``), twice that
+        rounding term (``tests/test_torch_l2.py`` pins it with a stand-in
+        kernel).
         """
-        slack = self.dim * float(torch.finfo(torch.float32).eps) * self._ref_norm_max
+        eps = float(torch.finfo(torch.float32).eps)
+        slack = self.dim * eps * self._ref_norm_max
         if self._tensor_cores:
             slack *= TENSOR_CORE_SLACK
         elif self._int8:
             slack *= INT8_TENSOR_CORE_SLACK
-        floor = tau - slack * q_rows.float().norm(dim=1)
+        q_norm = q_rows.float().norm(dim=1)
+        margin = slack * q_norm
+        if self._l2:
+            margin = 2.0 * margin + 4.0 * eps * (q_norm + self._ref_norm_max) ** 2
+        floor = tau - margin
         parts_s, parts_q, parts_r = [], [], []
         if self._tensor_cores or self._int8:
-            q_rows, refs, kw = self._kernel_operands(q_rows)
+            q_rows, refs, kw = self._kernel_operands(q_rows, q_sq)
             m = q_rows.shape[0]
             capacity = count + ABOVE_HEADROOM * m
             step = m if capacity <= ABOVE_BUDGET_ENTRIES else max(
@@ -563,7 +686,7 @@ class SimilaritySearcher:
                 cap = capacity if step == m else rows.shape[0] * self.n_refs
                 s, rr, cc = kernels.scores_above(
                     rows, refs, self.n_refs, floor[start : start + step], capacity=cap,
-                    **kw)
+                    **self._rows_kw(kw, slice(start, start + step)))
                 parts_s.append(s)
                 parts_q.append(rr.long() + start)
                 parts_r.append(cc.long())
@@ -571,7 +694,8 @@ class SimilaritySearcher:
         refs = self._refs[: self.n_refs]
         step = self._row_chunk()
         for start in range(0, q_rows.shape[0], step):
-            s = torch.matmul(q_rows[start : start + step], refs.T)
+            s = self._goodness(_f32_scores(q_rows[start : start + step], refs),
+                               None if q_sq is None else q_sq[start : start + step])
             rr, cc = torch.nonzero(s >= floor[start : start + step, None], as_tuple=True)
             parts_s.append(s[rr, cc])
             parts_q.append(rr + start)
@@ -626,7 +750,8 @@ class SimilaritySearcher:
 
         ``queries``: [M, D] host array, or a tensor (kept on the device).
         Returns (query_idx, ref_idx, score) sorted by score best-first,
-        ties by (query_idx, ref_idx) ascending.
+        ties by (query_idx, ref_idx) ascending; L2 scores are squared
+        distances (ascending).
         """
         nq = len(queries)
         if nq * self.n_refs == 0 or k <= 0:
@@ -643,25 +768,48 @@ class SimilaritySearcher:
         else:
             flat, stats = self._collect_stream(q, kappa, k_eff, clock)
         clock.mark("repair")
-        result = self._final_cut(*flat, k_eff)
+        qi, ri, scores = self._final_cut(*flat, k_eff)
+        if self._l2:
+            np.negative(scores, out=scores)  # goodness → squared distance
         clock.mark("final_cut")
         self.last_stats = dict(mode=mode, kappa=kappa, **stats,
                                seconds=clock.seconds)
         logger.info("global_topk k=%d: %s", k_eff, self.last_stats)
-        return result
+        return qi, ri, scores
 
-    def _kernel_operands(self, q: torch.Tensor):
+    def _kernel_operands(self, q: torch.Tensor, q_sq: Optional[torch.Tensor] = None):
         """(queries, corpus, keyword arguments) as a collection hands them
-        to its kernels: over a bf16 corpus the queries padded once and
-        ``tensor_core_refs``; over an int8 one the queries padded once to
-        the codes' width, the codes and their scales; so that the
-        candidates and the counts score on one product."""
+        to its kernels: the queries as the product takes them
+        (``_product_queries``), over a bf16 corpus padded once, with
+        ``tensor_core_refs``; over an int8 one padded once to the codes'
+        width, with the codes and their scales; under L2 with the squared
+        norms of the corpus rows and of the queries (``q_sq``, else taken
+        here from the staged queries). So the candidates and the counts
+        score on one product."""
         refs = self.tensor_core_refs()
+        kw = {}
+        if self._l2:
+            kw = {"ref_sq": self._ref_sq, "q_sq": _row_sq(q) if q_sq is None else q_sq}
+        elif self._int8:
+            kw = {"scale": self._scale}
+        q = self._product_queries(q)
         if self._tensor_cores:
             q = kernels.pad_columns(q)
         elif self._int8:
             q = kernels.pad_columns(q, kernels.I8_ROW_ALIGN)
-        return q, refs, self._kernel_kwargs
+        return q, refs, kw
+
+    @staticmethod
+    def _rows_kw(kw: dict, rows) -> dict:
+        """The keyword arguments of ``_kernel_operands`` for a subset of its
+        query rows (under L2 their ``q_sq``)."""
+        return {**kw, "q_sq": kw["q_sq"][rows]} if "q_sq" in kw else kw
+
+    @staticmethod
+    def _q_sq_of(kw: dict, rows) -> dict:
+        """What ``_corpus_above`` takes besides its rows: under L2 (``kw``
+        of ``_kernel_operands`` with ``q_sq``) those rows' ``q_sq``."""
+        return {"q_sq": kw["q_sq"][rows]} if "q_sq" in kw else {}
 
     def _collect_stream(self, q: torch.Tensor, kappa: int, k_eff: int, clock):
         """The streaming collection: per-row top-κ candidates, τ, exact
@@ -693,7 +841,8 @@ class SimilaritySearcher:
         corpus_rows = torch.nonzero(deficient, as_tuple=True)[0]
         if corpus_rows.numel():
             cs, cq, cr = self._corpus_above(q[corpus_rows], tau,
-                                            int(counts[corpus_rows].sum()))
+                                            int(counts[corpus_rows].sum()),
+                                            **self._q_sq_of(kw, corpus_rows))
             parts_s.append(cs)
             parts_q.append(corpus_rows[cq])
             parts_r.append(cr)
@@ -713,7 +862,8 @@ class SimilaritySearcher:
         if n_valid_pool < k_eff:
             # Fewer valid pool entries than k: every row is suspect, so
             # every row is searched exactly (τ = −inf keeps everything).
-            return self._corpus_above(q, NEG_INF, nq * self.n_refs), {
+            return self._corpus_above(q, NEG_INF, nq * self.n_refs,
+                                      **self._q_sq_of(kw, slice(None))), {
                 "tau": NEG_INF, "corpus_rows": nq,
             }
         tau = float(torch.topk(pv.reshape(-1), k_eff).values[-1])
@@ -735,7 +885,7 @@ class SimilaritySearcher:
         amb_rows = torch.nonzero(ambiguous, as_tuple=True)[0]
         if amb_rows.numel():
             totals = kernels.count_above(q_k[amb_rows], refs, tau,
-                                         self.n_refs, **kw).long()
+                                         self.n_refs, **self._rows_kw(kw, amb_rows)).long()
             complete = totals == kept[amb_rows]
             hidden = totals > pool_counts[amb_rows]
             pool_repair[amb_rows[~complete & ~hidden]] = True
@@ -757,7 +907,8 @@ class SimilaritySearcher:
             parts_q.append(pool_rows[rr])
             parts_r.append(pi[pool_rows][rr, cc].long())
         if corpus_rows.numel():
-            cs, cq, cr = self._corpus_above(q[corpus_rows], tau, corpus_count)
+            cs, cq, cr = self._corpus_above(q[corpus_rows], tau, corpus_count,
+                                            **self._q_sq_of(kw, corpus_rows))
             parts_s.append(cs)
             parts_q.append(corpus_rows[cq])
             parts_r.append(cr)

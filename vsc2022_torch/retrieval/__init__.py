@@ -5,6 +5,8 @@ from vsc2022_torch.retrieval.candidates import (  # noqa: F401
     CandidateGeneration,
     MaxScoreAggregation,
     ScoreAggregation,
+    SumScoreAggregation,
+    TopKMeanScoreAggregation,
 )
 from vsc2022_torch.retrieval.index import (  # noqa: F401
     ScoreNormalizedVideoIndex,

@@ -5,7 +5,8 @@ Pipeline (reference behavior: vsc/candidates.py): search the frame
 index, reduce each (query video, ref video) group of frame matches to
 one score, and rank pairs best-first. Aggregations are vectorized over
 each pair's match list; ``MaxScoreAggregation`` is the reference's
-(and the challenge's) scoring rule.
+(and the challenge's) scoring rule, the others are framework
+extensions for experimentation.
 """
 
 from __future__ import annotations
@@ -48,6 +49,26 @@ class MaxScoreAggregation(ScoreAggregation):
 
     def aggregate(self, match: PairMatches) -> float:
         return float(self._scores(match).max())
+
+
+class SumScoreAggregation(ScoreAggregation):
+    """Pair score = sum of frame-match scores: rewards pairs with many
+    matching frames (extension; not used by the reference baselines)."""
+
+    def aggregate(self, match: PairMatches) -> float:
+        return float(self._scores(match).sum())
+
+
+class TopKMeanScoreAggregation(ScoreAggregation):
+    """Pair score = mean of the best k frame-match scores (extension)."""
+
+    def __init__(self, k: int = 5):
+        self.k = k
+
+    def aggregate(self, match: PairMatches) -> float:
+        scores = self._scores(match)
+        k = min(self.k, scores.size)
+        return float(np.sort(scores)[-k:].mean())
 
 
 def rank_candidates(

@@ -12,12 +12,20 @@ device and removed rows compact away there, onto exactly the layout a
 fresh stage gives. ``ScoreNormalizedVideoIndex`` serves score-normalized
 search from one staged corpus and noise corpus.
 
+Search modes:
+  * ``global_k >= 0``: global top-k over all query-frame × ref-frame
+    pairs (the VSC-rules-conforming mode): scores comparable across
+    queries, since µAP ranks one global list.
+  * ``global_k < 0``: per-frame KNN with k = −global_k (against the VSC
+    rules; provided for comparison, like the reference,
+    vsc/index.py:108-117): the searcher's ``row_topk``.
+
 Ported so far: ``codec_str`` "Flat" (with ``dtype`` "float32",
-"bfloat16" or "int8") and "SQ8" (``dtype="int8"``), and the global-k
-search (``global_k >= 0``, the VSC-rules-conforming mode). The IVF codecs
-("IVF{nlist}[,Flat|SQ8]") and the per-query KNN mode (``global_k < 0``)
-raise until they are ported; other codec strings raise ``ValueError``, as
-in the JAX package.
+"bfloat16" or "int8") and "SQ8" (``dtype="int8"``), ``metric`` "IP" or
+"L2" (the score-normalized index: IP only, as in JAX) and ``precision``
+"highest" or "default". The IVF codecs ("IVF{nlist}[,Flat|SQ8]") raise
+until they are ported; other codec strings raise ``ValueError``, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -45,17 +53,22 @@ class VideoIndex:
         self,
         dim: int,
         codec_str: str = "Flat",
+        metric: str = "IP",
+        precision: str = "highest",
         dtype: str = "float32",
         device: DeviceLike = "cuda",
     ):
         """``codec_str`` mirrors the reference's FAISS factory argument
-        (reference: vsc/index.py:78): "Flat" is the exact inner-product
-        search over the staged dtype, "SQ8" FAISS's 8-bit scalar
-        quantizer, here per-row int8 storage (``dtype="int8"``: a quarter
-        of f32's device memory, search exact over the dequantized
-        corpus). ``dtype="bfloat16"`` stores and searches the corpus in
-        bf16 (scores at bf16 resolution, f32 accumulation). The IVF
-        codecs are not ported yet and raise."""
+        (reference: vsc/index.py:78): "Flat" is the exact search over the
+        staged dtype, "SQ8" FAISS's 8-bit scalar quantizer, here per-row
+        int8 storage (``dtype="int8"``: a quarter of f32's device memory,
+        search exact over the dequantized corpus, IP only).
+        ``dtype="bfloat16"`` stores and searches the corpus in bf16
+        (scores at bf16 resolution, f32 accumulation). ``metric`` "L2"
+        scores by squared distance (lower is better), ``precision``
+        "default" runs every product as one bf16 pass; both reach the
+        searcher (``ops/similarity.py``). The IVF codecs are not ported
+        yet and raise."""
         if re.fullmatch(r"IVF(\d+)(?:,(Flat|SQ8))?", codec_str):
             raise NotImplementedError(
                 f"codec {codec_str!r}: the IVF tier is not ported yet"
@@ -73,6 +86,8 @@ class VideoIndex:
                 "(float32, bfloat16 and int8 only)"
             )
         self.dim = dim
+        self.metric = metric
+        self.precision = precision
         self.dtype = dtype
         self.device = resolve_device(device)
         self.video_clip_idx: List[int] = []
@@ -182,7 +197,8 @@ class VideoIndex:
     def _get_searcher(self):
         if self._searcher is None:
             self._searcher = SimilaritySearcher(
-                self._corpus(), dtype=self.dtype, device=self.device
+                self._corpus(), metric=self.metric, precision=self.precision,
+                dtype=self.dtype, device=self.device,
             )
         return self._searcher
 
@@ -191,10 +207,6 @@ class VideoIndex:
         queries: List[VideoFeature],
         global_k: int,
     ) -> List[PairMatches]:
-        if global_k < 0:
-            raise NotImplementedError(
-                "per-query KNN mode (global_k < 0) is not ported yet"
-            )
         if not queries:
             return []
         query_ids: List[str] = []
@@ -210,7 +222,15 @@ class VideoIndex:
         t0 = time.perf_counter()
         self._get_searcher()  # stages the corpus on first use
         t1 = time.perf_counter()
-        hits = self._global_search(query_features, global_k)
+        if global_k < 0:
+            logger.warning(
+                "Per-query KNN mode violates the VSC rules: it makes each "
+                "query-ref prediction depend on the other references. "
+                "Use it for comparison only; global-k is the conforming mode."
+            )
+            hits = self._knn_search(query_features, -global_k)
+        else:
+            hits = self._global_search(query_features, global_k)
         t2 = time.perf_counter()
         pair_nns = collections.defaultdict(list)
         for i, j, score in hits:
@@ -227,8 +247,9 @@ class VideoIndex:
             )
             pair_nns[query_id, ref_id].append(match)
         logger.info(
-            "search: stage corpus %.3f s, global_topk %.3f s, regroup %.3f s",
-            t1 - t0, t2 - t1, time.perf_counter() - t2,
+            "search: stage corpus %.3f s, %s %.3f s, regroup %.3f s", t1 - t0,
+            "row_topk" if global_k < 0 else "global_topk", t2 - t1,
+            time.perf_counter() - t2,
         )
         return [
             PairMatches(query_id, ref_id, matches)
@@ -245,6 +266,20 @@ class VideoIndex:
     ) -> Iterable[SearchIndices]:
         qi, ri, scores = self._get_searcher().global_topk(query_features, global_k)
         return zip(qi.tolist(), ri.tolist(), scores.tolist())
+
+    @staticmethod
+    def _yield_rows(scores: np.ndarray, ids: np.ndarray) -> Iterable[SearchIndices]:
+        """(query row, ref row, score) of every entry of per-row results,
+        row by row, best first."""
+        for i in range(ids.shape[0]):
+            for j in range(ids.shape[1]):
+                yield (i, int(ids[i, j]), float(scores[i, j]))
+
+    def _knn_search(
+        self, query_features: np.ndarray, k: int
+    ) -> Iterable[SearchIndices]:
+        scores, ids = self._get_searcher().row_topk(query_features, k)
+        return self._yield_rows(scores, ids)
 
 
 class ScoreNormalizedVideoIndex(VideoIndex):
@@ -276,6 +311,12 @@ class ScoreNormalizedVideoIndex(VideoIndex):
             min_variance_dim,
         )
 
+        if self.metric != "IP":
+            raise ValueError(
+                "Score-normalized search realizes the CSLS bias as an "
+                "extra inner-product dimension; only metric='IP' is "
+                f"meaningful (got {self.metric!r})"
+            )
         self._l2 = l2_normalize_rows if l2_normalize else (lambda x: x)
         self.beta = beta
         noise_flat = np.concatenate(
@@ -307,10 +348,18 @@ class ScoreNormalizedVideoIndex(VideoIndex):
                 self._prep_query_features(self._corpus()),
                 self._noise_flat,
                 beta=self.beta,
+                precision=self.precision,
                 dtype=self.dtype,
                 device=self.device,
             )
         return self._searcher
+
+    def _knn_search(
+        self, query_features: np.ndarray, k: int
+    ) -> Iterable[SearchIndices]:
+        sn = self._get_searcher()
+        scores, ids = sn.searcher.row_topk(sn.normalize_queries(query_features), k)
+        return self._yield_rows(scores, ids)
 
     def _validate_add(self, db: List[VideoFeature]) -> None:
         from vsc2022_torch.retrieval.score_norm import check_independent_ids
