@@ -214,6 +214,25 @@ Phases (any failure exits non-zero):
      VideoIndex.search(global_k=-5), against the dense per-row top-k.
      7e: python -m vsc2022_torch.matching_eval on phase 4's matches.csv
      prints the segment AP phase 4 reported.
+  8. Descriptor extraction at full width: stub ffmpeg / ffprobe decode 40
+     synthetic videos (640x360, fps 1; 24 references, 8 queries of which 4
+     hold a 15-frame copy, 8 noise videos). The inference CLI (in process;
+     the queries once through `python -m vsc2022_torch.inference.cli`),
+     batch 32: SSCD ResNet-50 -> 512 at RESIZE_320_CENTER in f32 (weights:
+     the port's seeded model as TorchScript), bf16 and f32 --fold_bn; DINO
+     ViT-S/16 at RESIZE_224_SQUARE and RESIZE_320_CENTER; L3-iMAC at
+     RESIZE_320_CENTER (both from the CLI's seeded init). Each f32 run held
+     against the port's CPU forward of the same model on 8 frames
+     (EXTRACT_REL_TOL of the largest value), --fold_bn against the
+     unfolded run, bf16 against f32 by cosine. Then serve --baseline sscd
+     --f32 --score_norm_features --matches on the CLI's reference npz:
+     extract of the query directory gives the CLI's npz arrays byte for
+     byte, searchv (launch counts zeroed just before: row_max, fused_topk,
+     count_above) gives search's CSVs of that npz byte for byte; the
+     planted copies' µAP. Logged: each CLI run's stage seconds (decode in
+     the prefetch thread, extraction, waits, store) and device peak; the
+     forward alone in frames per second over 1,024 pre-decoded frames, f32
+     and bf16, for each model.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object with each kernel's numbers, and {"ok": true, "device": ...}.
@@ -3244,6 +3263,379 @@ def phase_matching_eval(paths, out_dir, segment_ap):
     log(f"phase 7e: python -m vsc2022_torch.matching_eval printed \"{want}\"")
 
 
+# ---- phase 8: descriptor extraction at full width ----------------------------
+
+# The synthetic videos: 640x360 RGB frames at fps 1 from stub ffmpeg /
+# ffprobe executables (the card's machine has no ffmpeg). A "video" file is
+# a JSON recipe of (seed, j) frames; a frame is a function of (seed, j)
+# alone, so a query listing a reference's entries holds an exact copy.
+VIDEO_W, VIDEO_H = 640, 360
+EXTRACT_REFS, EXTRACT_REF_FRAMES = 24, (30, 60)
+EXTRACT_QUERIES, EXTRACT_QUERY_FRAMES = 8, (20, 40)
+EXTRACT_NOISE, EXTRACT_NOISE_FRAMES = 8, 30
+EXTRACT_COPIES, EXTRACT_COPY_FRAMES = 4, 15
+EXTRACT_BATCH = 32
+FORWARD_FRAMES = 1024
+CPU_CHECK_FRAMES = 8
+# f32 on the card against the port's f32 forward on the CPU (the same
+# weights and frames; cuDNN's and oneDNN's sums in other orders), as a share
+# of the descriptors' largest magnitude. On an H100 at most 1.4e-6 (DINO at
+# 320 px); 1e-5 sits 7x above. The folded model against the unfolded one on
+# the card is held to the same.
+EXTRACT_REL_TOL = 1e-5
+# bf16 (parameters and images) against f32 on the card, per frame: the
+# lowest cosine read on an H100 is 0.99996.
+BF16_COSINE_MIN = 0.999
+# The searchv path's kernels: score normalization's bias (row_max) and the
+# streaming collection (a catalogue far under POOL_MIN_CORPUS).
+SEARCHV_KERNELS = ("row_max", "fused_topk", "count_above")
+
+# Pure Python (no numpy import: the stub starts once per video).
+STUB_FRAME = """
+import random
+
+
+def frame_bytes(seed, j, h=%d, w=%d):
+    # 8x8 blocks of random colours, row-major RGB24.
+    px = random.Random(seed * 1000 + j).randbytes((h // 8) * (w // 8) * 3)
+    rows = []
+    for r in range(h // 8):
+        row = b"".join(px[3 * (r * (w // 8) + c):3 * (r * (w // 8) + c) + 3] * 8
+                       for c in range(w // 8))
+        rows.append(row * 8)
+    return b"".join(rows)
+""" % (VIDEO_H, VIDEO_W)
+
+STUB_FFMPEG = """#!%s
+import json, sys
+""" + STUB_FRAME + """
+spec = json.load(open(sys.argv[sys.argv.index("-i") + 1]))
+for seed, j in spec["frames"]:
+    sys.stdout.buffer.write(frame_bytes(seed, j))
+"""
+
+STUB_FFPROBE = """#!/bin/sh
+echo '{"streams": [{"width": %d, "height": %d}]}'
+""" % (VIDEO_W, VIDEO_H)
+
+
+def stub_frame_fn(np):
+    """The stub's frame (seed, j) as a uint8 [H, W, 3] array."""
+    scope = {}
+    exec(STUB_FRAME, scope)
+    return lambda seed, j: np.frombuffer(scope["frame_bytes"](seed, j), np.uint8).reshape(
+        VIDEO_H, VIDEO_W, 3)
+
+
+def make_videos(np, work: Path):
+    """Stub tools, the reference, query and noise video directories and
+    the ground truth of the planted copies. Returns their paths."""
+    import os
+    import stat
+
+    from vsc2022_torch.metrics import Match
+
+    tools = work / "tools"
+    tools.mkdir(parents=True, exist_ok=True)
+    for name, text in (("ffmpeg", STUB_FFMPEG % sys.executable), ("ffprobe", STUB_FFPROBE)):
+        (tools / name).write_text(text)
+        os.chmod(tools / name, os.stat(tools / name).st_mode | stat.S_IEXEC)
+    rng = np.random.RandomState(8)
+    dirs = {k: work / k for k in ("refs", "queries", "noise")}
+    for d in dirs.values():
+        d.mkdir(exist_ok=True)
+
+    def write(path, frames):
+        path.write_text(json.dumps({"frames": [list(f) for f in frames]}))
+
+    refs = []
+    for i in range(EXTRACT_REFS):
+        n = int(rng.randint(EXTRACT_REF_FRAMES[0], EXTRACT_REF_FRAMES[1] + 1))
+        refs.append([(1000 + i, j) for j in range(n)])
+        write(dirs["refs"] / f"R{i:06d}.mp4", refs[-1])
+    for i in range(EXTRACT_NOISE):
+        write(dirs["noise"] / f"R{1000 + i:06d}.mp4",
+              [(3000 + i, j) for j in range(EXTRACT_NOISE_FRAMES)])
+    gt = []
+    sources = rng.choice(EXTRACT_REFS, EXTRACT_COPIES, replace=False)
+    for i in range(EXTRACT_QUERIES):
+        n = int(rng.randint(EXTRACT_QUERY_FRAMES[0], EXTRACT_QUERY_FRAMES[1] + 1))
+        frames = [(2000 + i, j) for j in range(n)]
+        if i < EXTRACT_COPIES:
+            r = int(sources[i])
+            qs = int(rng.randint(0, n - EXTRACT_COPY_FRAMES + 1))
+            rs = int(rng.randint(0, len(refs[r]) - EXTRACT_COPY_FRAMES + 1))
+            frames[qs:qs + EXTRACT_COPY_FRAMES] = refs[r][rs:rs + EXTRACT_COPY_FRAMES]
+            gt.append(Match(f"Q{i:06d}", f"R{r:06d}", 1.0, float(qs),
+                            float(qs + EXTRACT_COPY_FRAMES), float(rs),
+                            float(rs + EXTRACT_COPY_FRAMES)))
+        write(dirs["queries"] / f"Q{i:06d}.mp4", frames)
+    Match.write_csv(gt, str(work / "gt.csv"))
+    n_ref_frames = sum(len(r) for r in refs)
+    return dict({k: str(v) for k, v in dirs.items()}, ffmpeg=str(tools / "ffmpeg"),
+                gt=str(work / "gt.csv"), ref_frames=n_ref_frames)
+
+
+def extraction_weights(torch, work: Path) -> str:
+    """The SSCD weights of phase 8, written by the port as TorchScript:
+    Flax's distributions from a seed, with BatchNorm statistics and affines
+    drawn too, so that every norm (and --fold_bn) does real work."""
+    from vsc2022_torch.models.init import init_flax_like
+    from vsc2022_torch.models.sscd import SSCDModel
+
+    g = torch.Generator().manual_seed(8)
+    model = SSCDModel()
+    init_flax_like(model, g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.weight.normal_(1.0, 0.1, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+    path = str(work / "sscd.torchscript.pt")
+    torch.jit.save(torch.jit.trace(model.eval(), torch.zeros(1, 3, 64, 64)), path)
+    return path
+
+
+def npz_arrays(np, path):
+    with np.load(path) as a:
+        return {k: a[k] for k in a.files}
+
+
+def same_arrays(np, a, b) -> bool:
+    """The same npz arrays: names, dtypes, shapes and bytes."""
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+def cli_argv(videos, dataset, out, *flags):
+    return ["--dataset_path", videos[dataset], "--output_file", str(out),
+            "--ffmpeg_path", videos["ffmpeg"], "--batch_size", str(EXTRACT_BATCH),
+            "--device", "cuda", *flags]
+
+
+def peak_mib_from(torch, base: int) -> float:
+    """The device's peak allocation since the last reset, above ``base``
+    bytes (what earlier phases still hold)."""
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def run_cli(torch, label, argv):
+    """``vsc2022_torch.inference.cli.main`` in this process; logs its
+    stage seconds and its device peak (above what was allocated before)."""
+    from vsc2022_torch.inference import cli
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = cli.main(cli.parser.parse_args(argv))
+    wall = time.perf_counter() - t0
+    peak = peak_mib_from(torch, base)
+    torch.cuda.empty_cache()
+    log(f"phase 8: CLI {label}: {wall:.2f} s wall; stages (s): " + json.dumps(
+        {k: round(v, 3) if isinstance(v, float) else v for k, v in stats.items()})
+        + f"; device peak {peak:.0f} MiB")
+
+
+def cpu_reference(torch, np, videos, argv, video="Q000000"):
+    """The first CPU_CHECK_FRAMES frames of one query video through the
+    port's plain CPU forward of the same model (``build_model`` of the same
+    flags): (frames' descriptors, the frames' row indices in the npz)."""
+    from vsc2022_torch.inference import cli
+    from vsc2022_torch.inference.pipeline import DescriptorExtractor
+    from vsc2022_torch.inference.transforms import InferenceTransforms
+    from vsc2022_torch.inference.video_reader import FFMpegVideoReader
+
+    args = cli.parser.parse_args(argv)
+    reader = FFMpegVideoReader(str(Path(videos["queries"]) / f"{video}.mp4"), 1.0,
+                               ffmpeg_path=videos["ffmpeg"])
+    frames = np.stack([f for _, _, f in reader.frames()][:CPU_CHECK_FRAMES])
+    extractor = DescriptorExtractor(cli.build_model(args),
+                                    InferenceTransforms[args.transforms],
+                                    batch_size=CPU_CHECK_FRAMES, device="cpu")
+    return extractor.forward(torch.from_numpy(frames)).numpy()
+
+
+def rel_err(np, got, want) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def cosines(np, a, b):
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def forward_rates(torch, np, dev, weights):
+    """Frames per second of the forward alone (preprocess and model on the
+    card, from uint8 frames already there) over FORWARD_FRAMES pre-decoded
+    640x360 frames in batches of EXTRACT_BATCH, f32 and bf16, with the
+    device's peak memory above the model and the frames."""
+    from vsc2022_torch.inference import cli
+    from vsc2022_torch.inference.pipeline import DescriptorExtractor
+    from vsc2022_torch.inference.transforms import InferenceTransforms
+
+    frame = stub_frame_fn(np)
+    frames = torch.from_numpy(np.stack([frame(1000 + i // 40, i % 40)
+                                        for i in range(FORWARD_FRAMES)])).to(dev)
+    rates = {}
+    for label, baseline, transform, extra in (
+        ("sscd", "sscd", "RESIZE_320_CENTER", ["--torchscript_path", weights]),
+        ("dino224", "dino", "RESIZE_224_SQUARE", []),
+        ("dino320", "dino", "RESIZE_320_CENTER", []),
+        ("l3imac", "dns", "RESIZE_320_CENTER", []),
+    ):
+        args = cli.parser.parse_args(["--baseline", baseline, "--dataset_path", "-",
+                                      "--output_file", "-", *extra])
+        for dtype in ("float32", "bfloat16"):
+            extractor = DescriptorExtractor(cli.build_model(args),
+                                            InferenceTransforms[transform],
+                                            batch_size=EXTRACT_BATCH,
+                                            compute_dtype=dtype, device=dev)
+            extractor.forward(frames[:EXTRACT_BATCH])
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for i in range(0, FORWARD_FRAMES, EXTRACT_BATCH):
+                extractor.forward(frames[i:i + EXTRACT_BATCH])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rates[f"{label}.{dtype}"] = {
+                "fps": FORWARD_FRAMES / seconds,
+                "peak_mib": peak_mib_from(torch, base)}
+            del extractor
+            torch.cuda.empty_cache()
+    log("phase 8: forward alone, frames per second (and device peak MiB) over "
+        f"{FORWARD_FRAMES} pre-decoded {VIDEO_W}x{VIDEO_H} frames, batch "
+        f"{EXTRACT_BATCH}: " + json.dumps(rates))
+
+
+def phase_extraction(torch, np, kernels, dev):
+    """Phase 8: the inference CLI at full width on synthetic videos (SSCD
+    f32, bf16 and --fold_bn; DINO at 224 and 320 px; L3-iMAC), each held
+    against the port's CPU forward (bf16 against f32 by cosine, --fold_bn
+    against the unfolded model); then serve --baseline sscd: extract ≡
+    the CLI's npz and searchv ≡ search of it, byte for byte, with the
+    searchv path's kernel launches counted; the µAP of the planted copies;
+    the forward's frames per second. Returns searchv's launch counts."""
+    import logging
+    import shutil as sh
+
+    from vsc2022_torch.baseline import pipeline
+
+    work = SMOKE_DIR / "extract"
+    work.mkdir(parents=True, exist_ok=True)
+    log(f"phase 8: ffmpeg on this machine: {sh.which('ffmpeg')}; the videos are "
+        "decoded by stub ffmpeg / ffprobe executables")
+    t0 = time.perf_counter()
+    videos = make_videos(np, work)
+    weights = extraction_weights(torch, work)
+    log(f"phase 8: {EXTRACT_REFS} reference videos ({videos['ref_frames']} frames), "
+        f"{EXTRACT_QUERIES} query videos ({EXTRACT_COPIES} with a "
+        f"{EXTRACT_COPY_FRAMES}-frame copy), {EXTRACT_NOISE} noise videos, "
+        f"{VIDEO_W}x{VIDEO_H} at fps 1; weights and recipes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sscd = ["--baseline", "sscd", "--torchscript_path", weights,
+            "--transforms", "RESIZE_320_CENTER"]
+    out = {k: work / f"{k}.npz" for k in ("refs", "noise", "q", "q_bf16", "q_fold",
+                                          "q_dino224", "q_dino320", "q_l3imac")}
+    run_cli(torch, "SSCD f32, references", cli_argv(videos, "refs", out["refs"], *sscd))
+    run_cli(torch, "SSCD f32, noise", cli_argv(videos, "noise", out["noise"], *sscd))
+    # The queries through `python -m`, as a user runs it.
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "vsc2022_torch.inference.cli",
+                          *cli_argv(videos, "queries", out["q"], *sscd)],
+                         cwd=str(REPO), capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"the inference CLI failed: {run.stderr[-3000:]}")
+    stage_line = [ln for ln in run.stderr.splitlines() if "stages:" in ln]
+    check(bool(stage_line), "the inference CLI logged no stage seconds")
+    log(f"phase 8: python -m vsc2022_torch.inference.cli, SSCD f32, queries: "
+        f"{time.perf_counter() - t0:.2f} s wall; {stage_line[-1].split('INFO')[-1].strip()}")
+    variants = {
+        "q_bf16": ("SSCD bf16", sscd + ["--compute_dtype", "bfloat16"]),
+        "q_fold": ("SSCD f32 --fold_bn", sscd + ["--fold_bn"]),
+        "q_dino224": ("DINO ViT-S/16 f32, RESIZE_224_SQUARE",
+                      ["--baseline", "dino", "--transforms", "RESIZE_224_SQUARE"]),
+        "q_dino320": ("DINO ViT-S/16 f32, RESIZE_320_CENTER",
+                      ["--baseline", "dino", "--transforms", "RESIZE_320_CENTER"]),
+        "q_l3imac": ("L3-iMAC f32, RESIZE_320_CENTER",
+                     ["--baseline", "dns", "--transforms", "RESIZE_320_CENTER"]),
+    }
+    for key, (label, flags) in variants.items():
+        run_cli(torch, label + ", queries", cli_argv(videos, "queries", out[key], *flags))
+    arrays = {k: npz_arrays(np, v) for k, v in out.items()}
+    n_query_frames = arrays["q"]["features"].shape[0]
+    widths = {"q": 512, "q_bf16": 512, "q_fold": 512, "q_dino224": 768,
+              "q_dino320": 768, "q_l3imac": 9 * 3840}
+    for key, width in widths.items():
+        f = arrays[key]["features"]
+        check(f.shape == (n_query_frames, width) and f.dtype == np.float32
+              and bool(np.isfinite(f).all()), f"{key}: features {f.shape} {f.dtype}")
+        check(list(arrays[key]["video_ids"]) == list(arrays["q"]["video_ids"]),
+              f"{key}: video ids differ from the f32 run's")
+
+    # The card against the port's plain CPU forward, same weights.
+    errs = {}
+    for key, flags in (("q", sscd), ("q_fold", variants["q_fold"][1]),
+                       ("q_dino224", variants["q_dino224"][1]),
+                       ("q_dino320", variants["q_dino320"][1]),
+                       ("q_l3imac", variants["q_l3imac"][1])):
+        want = cpu_reference(torch, np, videos,
+                             cli_argv(videos, "queries", "-", *flags))
+        errs[key] = rel_err(np, arrays[key]["features"][:CPU_CHECK_FRAMES], want)
+        check(errs[key] <= EXTRACT_REL_TOL,
+              f"{key}: card vs CPU forward {errs[key]:.3g} of the largest value")
+    errs["q_fold vs q"] = rel_err(np, arrays["q_fold"]["features"], arrays["q"]["features"])
+    check(errs["q_fold vs q"] <= EXTRACT_REL_TOL,
+          f"--fold_bn vs unfolded: {errs['q_fold vs q']:.3g}")
+    cos = cosines(np, arrays["q_bf16"]["features"], arrays["q"]["features"])
+    check(float(cos.min()) >= BF16_COSINE_MIN, f"bf16 vs f32: cosine {cos.min()}")
+    log(f"phase 8: card vs the port's CPU forward on {CPU_CHECK_FRAMES} frames "
+        f"(max |diff| / max |value|, tolerance {EXTRACT_REL_TOL}): " + json.dumps(
+            {k: float(f"{v:.3g}") for k, v in errs.items()})
+        + f"; bf16 vs f32 cosine min {cos.min():.6f} (>= {BF16_COSINE_MIN})")
+
+    # serve --baseline sscd: extract and searchv on the resident model.
+    csv = {k: str(work / f"{k}.csv") for k in ("c", "m", "vc", "vm")}
+    extra = ["--baseline", "sscd", "--torchscript_path", weights,
+             "--ffmpeg_path", videos["ffmpeg"], "--extract_batch_size", str(EXTRACT_BATCH),
+             "--extract_transforms", "RESIZE_320_CENTER"]
+    with open(work / "server.log", "w") as server_log:
+        with spawn_server(str(out["refs"]), server_log, score_norm_features=str(out["noise"]),
+                          matches=True, f32=True, extra_args=extra) as client:
+            log(f"phase 8: server --baseline sscd ready, {client.n_ref_videos} videos "
+                f"staged in {client.stage_seconds:.1f} s")
+            served = work / "served_q.npz"
+            n = timed("extract", lambda: client.extract(videos["queries"], str(served)),
+                      phase="8")
+            check(n == (EXTRACT_QUERIES, n_query_frames), f"extract: {n}")
+            check(same_arrays(np, npz_arrays(np, served), arrays["q"]),
+                  "server extract: the npz arrays differ from the CLI's")
+            timed("search of the CLI's npz", lambda: client.search(
+                str(out["q"]), candidates_csv=csv["c"], matches_csv=csv["m"]), phase="8")
+            client.launches(reset=True)
+            video = timed("searchv", lambda: client.search_videos(
+                videos["queries"], candidates_csv=csv["vc"], matches_csv=csv["vm"]),
+                phase="8")
+            launches = client.launches()
+    log(f"phase 8: server kernel launches over searchv: {json.dumps(launches)}")
+    for name in SEARCHV_KERNELS:
+        check(launches[name] > 0, f"kernel {name} never launched by searchv")
+    for a, b in (("c", "vc"), ("m", "vm")):
+        check(Path(csv[a]).read_bytes() == Path(csv[b]).read_bytes(),
+              f"searchv's {b}.csv differs from search's {a}.csv")
+    quality = pipeline.report_metrics(videos["gt"], csv["vc"], csv["vm"],
+                                      logging.getLogger("chip_smoke"))
+    log(f"phase 8: extract == the CLI's npz and searchv == search of it, byte for "
+        f"byte; {video.n_candidates} candidates, {video.n_matches} matches; "
+        f"µAP of the {EXTRACT_COPIES} planted copies {quality['candidate_uap']:.4f}, "
+        f"segment AP {quality['segment_ap']:.4f}")
+    check(quality["candidate_uap"] > 0.5, f"searchv uAP {quality['candidate_uap']}")
+    forward_rates(torch, np, dev, weights)
+    return launches
+
+
 def nvidia_smi_line() -> str:
     try:
         out = subprocess.run(
@@ -3348,6 +3740,7 @@ def main() -> int:
         phase_knn(torch, np, dev, corpus)
         del corpus
         phase_matching_eval(paths, SMOKE_DIR / "out", sscd_f32["segment_ap"])
+        searchv_launches = phase_extraction(torch, np, kernels, dev)
     finally:
         if not args.keep:
             shutil.rmtree(SMOKE_DIR, ignore_errors=True)
@@ -3451,6 +3844,8 @@ def main() -> int:
         if name in pooled_records:  # and its search forced to the pool
             row["serving_pooled"] = dict(pooled_records[name],
                                          launches=pooled_launches[name])
+        if name in SEARCHV_KERNELS:  # phase 8's searchv (the f32 server)
+            row["searchv_launches"] = searchv_launches[name]
         rows.append(row)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))

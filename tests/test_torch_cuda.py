@@ -61,6 +61,15 @@ pad frames, writing nothing past its output;
 also with the ref tile streamed (D past the resident limit, or fewer
 slices forced), at any persistent grid (bit for bit the default's), with
 more pairs than a wave of blocks, and across pair boundaries.
+
+The descriptor models (SSCD, DINO ViT-S/16 at 224 and 320 px, L3-iMAC; no
+hand kernel: cuDNN and cuBLAS) run through ``DescriptorExtractor`` at full
+width on 640x360 uint8 frames: the card's f32 output within
+EXTRACT_REL_TOL of the largest value of the same extractor on the CPU
+(cuDNN's and oneDNN's f32 sums in other orders; 1.4e-6 read on an H100),
+bf16 within cosine 0.999 of f32, the same batch twice bit for bit, and
+the f32 forward in f32 even with TF32 switched on around it (the
+extractor scopes it off; the global matmul flag comes back).
 """
 
 import math
@@ -2025,3 +2034,83 @@ def test_default_int8_searcher_is_the_one_pass_product(cuda_device):
             got = a.global_topk(q, 3000, kappa=16)
             for x, y in zip(got, b.global_topk(q, 3000, kappa=16)):
                 np.testing.assert_array_equal(x, y)
+
+
+# ---- the descriptor models on the card ---------------------------------------------
+
+EXTRACT_REL_TOL = 1e-5
+BF16_COSINE_MIN = 0.999
+
+
+def _extraction_models():
+    from vsc2022_torch.inference.cli import _Flatten
+    from vsc2022_torch.inference.transforms import InferenceTransforms as IT
+    from vsc2022_torch.models.dns import L3iMACExtractor
+    from vsc2022_torch.models.init import init_flax_like
+    from vsc2022_torch.models.sscd import SSCDModel
+    from vsc2022_torch.models.vit import DinoViT
+
+    g = torch.Generator().manual_seed(0)
+    sscd, l3 = SSCDModel(), L3iMACExtractor()
+    for m in (sscd, l3):
+        init_flax_like(m, g)
+        with torch.no_grad():
+            for bn in m.modules():
+                if isinstance(bn, torch.nn.BatchNorm2d):
+                    bn.running_mean.normal_(0.0, 0.1, generator=g)
+                    bn.running_var.uniform_(0.5, 1.5, generator=g)
+    dino = DinoViT()
+    dino.init_weights(g)
+    return {"sscd": (sscd, IT.RESIZE_320_CENTER), "dino224": (dino, IT.RESIZE_224_SQUARE),
+            "dino320": (dino, IT.RESIZE_320_CENTER),
+            "l3imac": (_Flatten(l3), IT.RESIZE_320_CENTER)}
+
+
+def _frames(n, seed=0):
+    blocks = np.random.RandomState(seed).randint(0, 256, (n, 45, 80, 3)).astype(np.uint8)
+    return torch.from_numpy(np.repeat(np.repeat(blocks, 8, axis=1), 8, axis=2))
+
+
+@pytest.mark.parametrize("name", ["sscd", "dino224", "dino320", "l3imac"])
+def test_descriptor_models_on_card_match_cpu(cuda_device, name):
+    import copy
+
+    from vsc2022_torch.inference.pipeline import DescriptorExtractor
+
+    model, transform = _extraction_models()[name]
+    frames = _frames(4)
+    want = DescriptorExtractor(copy.deepcopy(model), transform, batch_size=4,
+                               device="cpu").forward(frames).numpy()
+    card = DescriptorExtractor(copy.deepcopy(model), transform, batch_size=4,
+                               device=cuda_device)
+    on_card = frames.to(cuda_device)
+    got = card.forward(on_card).cpu().numpy()
+    assert np.abs(got - want).max() <= EXTRACT_REL_TOL * np.abs(want).max()
+    assert np.array_equal(card.forward(on_card).cpu().numpy(), got)  # deterministic
+    bf16 = DescriptorExtractor(copy.deepcopy(model), transform, batch_size=4,
+                               compute_dtype="bfloat16", device=cuda_device)
+    half = bf16.forward(on_card).cpu().numpy()
+    assert half.dtype == np.float32
+    cos = (half * got).sum(1) / (np.linalg.norm(half, axis=1) * np.linalg.norm(got, axis=1))
+    assert cos.min() >= BF16_COSINE_MIN
+
+
+def test_f32_forward_runs_without_tf32(cuda_device):
+    from vsc2022_torch.inference.pipeline import DescriptorExtractor
+    from vsc2022_torch.inference.transforms import preprocess
+
+    model, transform = _extraction_models()["sscd"]
+    extractor = DescriptorExtractor(model, transform, batch_size=4, device=cuda_device)
+    frames = _frames(4, seed=1).to(cuda_device)
+    f32 = extractor.forward(frames)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        assert torch.equal(extractor.forward(frames), f32)
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+        with torch.inference_mode():  # the same model with TF32 on: other numbers
+            tf32 = extractor.model(preprocess(frames, transform).permute(0, 3, 1, 2))
+        assert not torch.equal(tf32.float(), f32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags

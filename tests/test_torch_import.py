@@ -45,7 +45,9 @@ def test_importing_every_module_leaves_jax_out():
 
 @pytest.mark.parametrize("module", [
     "vsc2022_torch.retrieval.serve", "vsc2022_torch.retrieval.client",
-    "vsc2022_torch.retrieval.sn_search",
+    "vsc2022_torch.retrieval.sn_search", "vsc2022_torch.inference.cli",
+    "vsc2022_torch.inference.pipeline", "vsc2022_torch.models",
+    "vsc2022_torch.convert",
 ])
 def test_serving_modules_leave_jax_out(module):
     code = (
@@ -229,6 +231,27 @@ def test_dns_entry_points_default_to_cuda_and_raise(no_gpu, tmp_path):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         dns_baseline.main(args)
+
+
+def test_extraction_entry_points_default_to_cuda_and_raise(no_gpu, tmp_path):
+    from vsc2022_torch.inference import cli
+    from vsc2022_torch.inference.pipeline import DescriptorExtractor
+    from vsc2022_torch.inference.transforms import InferenceTransforms
+    from vsc2022_torch.retrieval import serve
+
+    model = torch.nn.Linear(3, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DescriptorExtractor(model, InferenceTransforms.RESIZE_224_SQUARE)
+    args = cli.parser.parse_args(["--dataset_path", str(tmp_path),
+                                  "--output_file", str(tmp_path / "o.npz")])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(args)
+    args = serve.parser.parse_args(["--ref_features", "r.npz", "--baseline", "sscd",
+                                    "--checkpoint_path", "w.npz"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(args)
 
 
 def test_serve_entry_point_defaults_to_cuda_and_raises(no_gpu):

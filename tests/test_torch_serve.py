@@ -405,9 +405,17 @@ def test_unported_modes_raise(served):
     # The JAX default (bf16, no dtype flag) is ported: tests below start it.
     base = ["--ref_features", served["r"], "--device", "cpu"]
     for extra in (["--sharded"], ["--bf16", "--ivf", "4"],
-                  ["--f32", "--num_processes", "2"], ["--baseline", "sscd"]):
+                  ["--f32", "--num_processes", "2"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             torch_serve.main(torch_serve.parser.parse_args(base + extra))
+    # --baseline is ported: without weights it raises the JAX server's
+    # ValueError, as do weights without --baseline.
+    for extra, message in ((["--baseline", "sscd"], "needs weights"),
+                           (["--checkpoint_path", "w.npz"], "need --baseline")):
+        with pytest.raises(ValueError, match=message):
+            torch_serve.main(torch_serve.parser.parse_args(base + extra))
+        with pytest.raises(ValueError, match=message):
+            jax_serve.build_extractor(jax_serve.parser.parse_args(base[:2] + extra))
     # --int8 is ported: it passes the startup check and stages SQ8 codes
     # with bf16 localizer tables, as the JAX server picks them
     # (tests/test_torch_int8.py runs it).
@@ -699,3 +707,147 @@ def test_inband_dns_two_payloads(served, tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+# ---- resident extraction: extract / searchv ----------------------------------------
+
+
+class _FixedExtractor:
+    """Stands in for a resident model: the descriptors of each video of a
+    directory, by file name (the same rows on both packages' sides)."""
+
+    def __init__(self, vf, features):
+        self._vf, self._features = vf, features
+
+    def extract(self, dataset):
+        for _, path in dataset.selected_videos:
+            f = self._features[os.path.basename(path).split(".")[0]]
+            yield self._vf(f.video_id, np.stack([f.timestamps, f.timestamps + 1], 1),
+                           f.feature)
+
+
+def test_extract_and_searchv_replies_match_jax(served):
+    root = served["root"]
+    queries = _corpus(JVF)[0]
+    videos = root / "query_videos"
+    videos.mkdir(exist_ok=True)
+    for q in queries:
+        (videos / f"{q.video_id}.mp4").write_bytes(b"x")
+    by_name = {q.video_id: q for q in queries}
+    (jargs, ji, jl), (targs, ti, tl) = _servers([
+        "--ref_features", served["r"], "--score_norm_features", served["n"],
+        "--f32", "--matches", "--beta", str(BETA),
+    ])
+    replies = {}
+    for side, args, index, loc, mod, agg, vf in (
+        ("jax", jargs, ji, jl, jax_serve, JaxAgg(), JVF),
+        ("torch", targs, ti, tl, torch_serve, TorchAgg(), TVF),
+    ):
+        d = root / f"extract_{side}"
+        os.makedirs(d, exist_ok=True)
+        bundle = (_FixedExtractor(vf, by_name), None)
+        replies[side] = [mod.serve_request(index, agg, loc, line, args, extractor=bundle)
+                         for line in (f"extract\t{videos}\t{d}/x.npz",
+                                      f"searchv\t{videos}\t{d}/v_c.csv\t{d}/v_m.csv",
+                                      f"{d}/x.npz\t{d}/s_c.csv\t{d}/s_m.csv")]
+        for bad, message in ((f"searchv\t{root}/missing", "Not a video directory"),
+                             ("extract\tonly_one_field", "extract needs")):
+            with pytest.raises(ValueError, match=message):
+                mod.serve_request(index, agg, loc, bad, args, extractor=bundle)
+        with pytest.raises(ValueError, match="No resident model"):
+            mod.serve_request(index, agg, loc, f"searchv\t{videos}", args)
+    for j, t in zip(replies["jax"], replies["torch"]):
+        assert _strip(t, root).replace("extract_torch", "extract_jax") == _strip(j, root)
+    assert replies["torch"][0].split("\t")[1:4] == ["extracted", "4", str(sum(
+        len(q) for q in queries))]
+    jd, td = root / "extract_jax", root / "extract_torch"
+    with np.load(jd / "x.npz") as a, np.load(td / "x.npz") as b:
+        for key in ("video_ids", "features", "timestamps"):
+            np.testing.assert_array_equal(b[key], a[key])
+    for name in ("v_c.csv", "v_m.csv"):
+        assert (td / name).read_bytes() == (jd / name).read_bytes()
+        # searchv ≡ extract, then a path search of its npz.
+        assert (td / name).read_bytes() == (td / name.replace("v_", "s_")).read_bytes()
+    assert (td / "v_m.csv").read_bytes().count(b"\n") > 1
+
+
+def test_searchv_refuses_dns_as_jax(served):
+    (jargs, ji, jl), (targs, ti, tl) = _servers([
+        "--ref_features", served["dr"], "--ref_fine_features", served["drf"], "--f32",
+    ])
+    for mod, index, loc, args, agg in ((jax_serve, ji, jl, jargs, JaxAgg()),
+                                       (torch_serve, ti, tl, targs, TorchAgg())):
+        with pytest.raises(ValueError, match="does not serve the DnS track"):
+            mod.serve_request(index, agg, loc, f"searchv\t{served['root']}", args,
+                              extractor=(None, None))
+
+
+@pytest.fixture(scope="module")
+def video_rig(tmp_path_factory):
+    """Stub ffmpeg, a reference and a query video directory (query
+    Q000001 copies frames 1-3 of R000002), a TorchScript SSCD written by
+    the port (seeded weights) and the port CLI's npz of both directories,
+    each CLI run a subprocess as the server is."""
+    from torch_video_stub import write_tools, write_video
+
+    from vsc2022_torch.models.init import init_flax_like
+    from vsc2022_torch.models.sscd import SSCDModel
+
+    tmp = tmp_path_factory.mktemp("videos")
+    ffmpeg = write_tools(tmp / "tools")
+    refs, queries = tmp / "refs", tmp / "queries"
+    refs.mkdir()
+    queries.mkdir()
+    for i, n in enumerate((4, 3, 5)):
+        write_video(refs / f"R{i:06d}.mp4", [(20 + i, j) for j in range(n)])
+    write_video(queries / "Q000000.mp4", [(40, j) for j in range(3)])
+    write_video(queries / "Q000001.mp4", [(41, 0)] + [(22, j) for j in (1, 2, 3)])
+    model = SSCDModel()
+    init_flax_like(model, torch.Generator().manual_seed(4))
+    weights = str(tmp / "sscd.pt")
+    torch.jit.save(torch.jit.trace(model.eval(), torch.zeros(1, 3, 64, 64)), weights)
+    rng = np.random.RandomState(5)
+    noise = [JVF(f"R{900 + i:06d}", np.arange(6, dtype=np.float64),
+                 rng.randn(6, 512).astype(np.float32)) for i in range(3)]
+    store_features(str(tmp / "noise.npz"), noise, Dataset.REFS)
+    flags = ["--baseline", "sscd", "--torchscript_path", weights, "--device", "cpu",
+             "--ffmpeg_path", ffmpeg]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for name, directory in (("r", refs), ("q", queries)):
+        r = subprocess.run(
+            [sys.executable, "-m", "vsc2022_torch.inference.cli", *flags,
+             "--transforms", "RESIZE_224_SQUARE", "--batch_size", "4",
+             "--dataset_path", str(directory), "--output_file", str(tmp / f"{name}.npz")],
+            capture_output=True, text=True, timeout=600, env=env)
+        assert r.returncode == 0, r.stderr[-2000:]
+    return tmp, flags, env
+
+
+def test_extract_and_searchv_over_stdio(video_rig, tmp_path):
+    # The port's server with a resident SSCD: extract writes the CLI's npz
+    # byte for byte, searchv answers as a path search of that npz.
+    tmp, flags, env = video_rig
+    extra = flags[:4] + flags[6:] + ["--extract_transforms", "RESIZE_224_SQUARE",
+                                     "--extract_batch_size", "4"]
+    with ServeClient.spawn(str(tmp / "r.npz"), score_norm_features=str(tmp / "noise.npz"),
+                           matches=True, f32=True, device="cpu", extra_args=extra,
+                           env=env, cwd=str(tmp_path), stderr=subprocess.DEVNULL) as client:
+        assert client.extract(str(tmp / "queries"), str(tmp_path / "x.npz")) == (2, 7)
+        with np.load(tmp_path / "x.npz") as a, np.load(tmp / "q.npz") as b:
+            assert list(a["video_ids"]) == ["Q000000"] * 3 + ["Q000001"] * 4
+            for key in ("video_ids", "features", "timestamps"):
+                np.testing.assert_array_equal(a[key], b[key])
+        path = client.search(str(tmp / "q.npz"), candidates_csv=str(tmp_path / "c.csv"),
+                             matches_csv=str(tmp_path / "m.csv"))
+        video = client.search_videos(str(tmp / "queries"),
+                                     candidates_csv=str(tmp_path / "vc.csv"),
+                                     matches_csv=str(tmp_path / "vm.csv"))
+        assert (video.n_candidates, video.n_matches) == (path.n_candidates, path.n_matches)
+        for a, b in (("c.csv", "vc.csv"), ("m.csv", "vm.csv")):
+            assert (tmp_path / a).read_bytes() == (tmp_path / b).read_bytes()
+        assert ("Q000001", "R000002") in {(c.query_id, c.ref_id) for c in video.candidates()}
+        with pytest.raises(ServeError, match="Not a video directory"):
+            client.search_videos(str(tmp_path / "missing"))
+        default = client.search_videos(str(tmp / "queries"))
+        assert default.candidates_csv == str(tmp / "queries") + ".candidates.csv"
+        assert client.stats().n_videos == 3  # still serving

@@ -40,6 +40,7 @@ from vsc2022_torch.models.dns import NUM_REGIONS
 from vsc2022_torch.ops import kernels
 from vsc2022_torch.storage import load_features
 from vsc2022_torch.types import VideoFeature
+from vsc2022_torch.utils.profiling import maybe_profile
 
 logger = logging.getLogger("vsc2022_torch.dns_baseline")
 
@@ -365,7 +366,7 @@ def main(args) -> Dict[str, object]:
         queries_coarse = load_features(args.query_coarse_features, Dataset.QUERIES)
         refs_coarse = load_features(args.ref_coarse_features, Dataset.REFS)
 
-    with pipeline.profiled(args.profile_dir, device):
+    with maybe_profile(args.profile_dir, device):
         candidate_file, match_file = match(
             queries_fine, refs_fine, queries_coarse, refs_coarse,
             args.output_path, fg_type=fg_type,

@@ -48,27 +48,6 @@ def timed(stages: Dict[str, float], name: str, device: torch.device):
     logger.info("stage %s: %.3f s", name, stages[name])
 
 
-def profiled(profile_dir, device: torch.device):
-    """``torch.profiler`` over an entry point's matching run: a chrome trace
-    (trace.json) and a table of the top ops by self device time (or CPU
-    time without a GPU) in summary.txt."""
-    if not profile_dir:
-        return contextlib.nullcontext()
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    sort_by = "self_cpu_time_total"
-    if device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-        sort_by = "self_device_time_total"
-    os.makedirs(profile_dir, exist_ok=True)
-
-    def export(prof):
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-        with open(os.path.join(profile_dir, "summary.txt"), "w") as f:
-            f.write(prof.key_averages().table(sort_by=sort_by, row_limit=30))
-
-    return torch.profiler.profile(activities=activities, on_trace_ready=export)
-
-
 def retrieve_candidates(
     queries: List[VideoFeature],
     refs: List[VideoFeature],

@@ -41,6 +41,7 @@ from vsc2022_torch.retrieval.score_norm import (
 )
 from vsc2022_torch.storage import load_features, store_features
 from vsc2022_torch.types import VideoFeature
+from vsc2022_torch.utils.profiling import maybe_profile
 
 logger = logging.getLogger("vsc2022_torch.sscd_baseline")
 
@@ -239,7 +240,7 @@ def main(args) -> Dict[str, object]:
             )
             store_features(os.path.join(args.output_path, "sn_refs.npz"), refs)
 
-    with pipeline.profiled(args.profile_dir, device):
+    with maybe_profile(args.profile_dir, device):
         candidate_file, match_file = match(
             queries, refs, args.output_path,
             score_normalization=score_normalization,

@@ -1,6 +1,10 @@
-"""DnS (Distill-and-Select) students and the ViSiL chamfer similarity
-(counterpart of ``vsc2022_tpu/models/dns.py``).
+"""DnS (Distill-and-Select) models: the L3-iMAC feature extractor, the
+students and the ViSiL chamfer similarity (counterpart of
+``vsc2022_tpu/models/dns.py``).
 
+* L3-iMAC (``L3iMACExtractor``): the four stage outputs of a ResNet-50
+  trunk, each max-pooled over a 3×3 region grid and L2-normalized,
+  concatenated and L2-normalized again → [N, 9, 3840] region features.
 * Fine-grained students (``fg``, ``att`` or ``bin``): a 3840→512 region
   reduction, L2, ViSiL ℓ2-attention over the 9 regions, and for ``bin``
   a 512×512 rotation whose sign gives the codes → [T, 9, 512].
@@ -18,13 +22,10 @@ tree across. Without weights the students are
 initialized from a seeded ``torch.Generator`` with Flax's distributions
 (lecun-normal kernels and context, zero biases, an orthogonal rotation):
 the numbers differ from the JAX package's ``PRNGKey`` init.
-
-The L3-iMAC extractor (ResNet-50 trunk) is not ported yet.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Mapping, Optional
 
 import numpy as np
@@ -32,24 +33,38 @@ import torch
 from torch import nn
 
 from vsc2022_torch.device import DeviceLike, resolve_device
+from vsc2022_torch.models.init import lecun_normal_
+from vsc2022_torch.models.resnet import ResNet50
 
 L3_IMAC_DIM = 3840  # 256 + 512 + 1024 + 2048
 NUM_REGIONS = 9
 REDUCED_DIM = 512
 COARSE_DIM = 1024
 
-# Flax's truncated-normal variance scaling divides by the std of a unit
-# normal truncated to [-2, 2].
-_TRUNC_STD = 0.87962566103423978
-
-
-def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=g)
-
 
 def _l2(x: torch.Tensor) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=1e-12)
+
+
+def _region_mac(x: torch.Tensor, grid: int = 3) -> torch.Tensor:
+    """Adaptive grid×grid region max-pool: [N, C, H, W] → [N, grid², C],
+    regions in row-major order. ``adaptive_max_pool2d``'s windows are the
+    JAX package's: rows floor(i·H/grid) to ceil((i+1)·H/grid)."""
+    pooled = nn.functional.adaptive_max_pool2d(x, grid)  # [N, C, grid, grid]
+    return pooled.flatten(2).transpose(1, 2)
+
+
+class L3iMACExtractor(nn.Module):
+    """ResNet-50 L3-iMAC region features: NCHW images → [N, 9, 3840],
+    L2-normalized. The trunk is ``backbone.*`` (torchvision names)."""
+
+    def __init__(self, fold_bn: bool = False):
+        super().__init__()
+        self.backbone = ResNet50(return_intermediates=True, fold_bn=fold_bn)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _, stages = self.backbone(x)
+        return _l2(torch.cat([_l2(_region_mac(s)) for s in stages], dim=-1))
 
 
 class _RegionAttention(nn.Module):
@@ -117,10 +132,10 @@ def _init_flax_like(module: nn.Module, seed: int) -> None:
     with torch.no_grad():
         for lin in (getattr(module, "reduction", None), getattr(module, "project", None)):
             if lin is not None:
-                _lecun_normal_(lin.weight, lin.in_features, g)
+                lecun_normal_(lin.weight, lin.in_features, g)
                 lin.bias.zero_()
         context = module.attention.context_vector.weight
-        _lecun_normal_(context, context.shape[1], g)
+        lecun_normal_(context, context.shape[1], g)
         if hasattr(module, "binarization"):
             nn.init.orthogonal_(module.binarization.W, generator=g)
 

@@ -20,7 +20,8 @@ JAX. Two ways in:
 
 The typed API is the JAX client's (``search`` / ``SearchResult.candidates``
 and ``.matches``, the in-band ``search_features``, ``add_features`` and
-``snapshot``, ``add`` / ``remove`` / ``save`` / ``stats``); ``search_bytes``
+``snapshot``, ``add`` / ``remove`` / ``save`` / ``stats``, and with a
+resident model ``extract`` / ``search_videos``); ``search_bytes``
 (CSV bytes as they come) and ``launches`` (the kernel launch counts) are
 the port's own. One request at a time per client: the protocol is strictly
 request and response. Concurrent callers open one connection each to a
@@ -33,13 +34,13 @@ import dataclasses
 import io
 import json
 import os
-import signal
 import subprocess
 import sys
 from typing import List, Optional, Sequence, Tuple
 
 from vsc2022_torch.metrics import CandidatePair, Dataset, Match
 from vsc2022_torch.storage import load_features, store_features
+from vsc2022_torch.utils.procs import die_with_parent
 
 
 class ServeError(RuntimeError):
@@ -97,18 +98,6 @@ class ServeStats:
     matches: bool
 
 
-def _die_with_parent() -> None:
-    """preexec_fn: the child gets SIGKILL when its parent dies (Linux)."""
-    if sys.platform != "linux":
-        return
-    import ctypes
-
-    pr_set_pdeathsig = 1
-    ctypes.CDLL(None).prctl(pr_set_pdeathsig, signal.SIGKILL, 0, 0, 0)
-    if os.getppid() == 1:  # the parent died before the call
-        os._exit(1)
-
-
 class ServeClient:
     """Session against one resident server; not thread-safe."""
 
@@ -164,7 +153,7 @@ class ServeClient:
         cmd += list(extra_args)
         proc = subprocess.Popen(
             cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-            stderr=stderr, env=env, cwd=cwd, preexec_fn=_die_with_parent,
+            stderr=stderr, env=env, cwd=cwd, preexec_fn=die_with_parent,
         )
         try:
             return cls(proc.stdout, proc.stdin, proc=proc)
@@ -261,7 +250,10 @@ class ServeClient:
             fields.append(os.path.abspath(candidates_csv) if candidates_csv else "")
         if matches_csv is not None:
             fields.append(os.path.abspath(matches_csv))
-        parts = self._rpc("\t".join(fields))
+        return self._search_reply(self._rpc("\t".join(fields)))
+
+    @staticmethod
+    def _search_reply(parts: List[str]) -> SearchResult:
         if len(parts) >= 5:
             return SearchResult(parts[0], int(parts[1]), parts[2], int(parts[3]),
                                 float(parts[4]))
@@ -353,6 +345,34 @@ class ServeClient:
         if parts[0] != "saved":
             raise ServeError(f"unexpected save reply: {parts!r}")
         return int(parts[1])
+
+    # -- end-to-end requests (a server started with --baseline and weights) --
+
+    def extract(self, videos_dir: str, output_npz: str) -> Tuple[int, int]:
+        """Decode and embed a video directory on the server's resident
+        model, writing a descriptor npz; returns (n_videos, n_frames)."""
+        parts = self._rpc(f"extract\t{os.path.abspath(videos_dir)}"
+                          f"\t{os.path.abspath(output_npz)}")
+        if parts[0] != "extracted":
+            raise ServeError(f"unexpected extract reply: {parts!r}")
+        return int(parts[1]), int(parts[2])
+
+    def search_videos(
+        self,
+        videos_dir: str,
+        *,
+        candidates_csv: Optional[str] = None,
+        matches_csv: Optional[str] = None,
+    ) -> SearchResult:
+        """Raw videos in, candidate (and match) CSVs out: the server embeds
+        the directory on its resident model and searches in one request
+        (defaults: ``<videos_dir>.candidates.csv`` / ``.matches.csv``)."""
+        fields = ["searchv", os.path.abspath(videos_dir)]
+        if candidates_csv is not None or matches_csv is not None:
+            fields.append(os.path.abspath(candidates_csv) if candidates_csv else "")
+        if matches_csv is not None:
+            fields.append(os.path.abspath(matches_csv))
+        return self._search_reply(self._rpc("\t".join(fields)))
 
     def stats(self) -> ServeStats:
         parts = self._rpc("stats")

@@ -38,6 +38,8 @@ Wire protocol (line-oriented, the same over stdin/stdout or, with
     add refs:  add\\t<refs_npz>\\n   (DnS: add\\t<coarse_npz>\\t<fine_npz>\\n)
     remove:    remove\\t<video_id>[\\t<video_id>...]\\n
     save:      save\\t<refs_npz>\\n   (DnS: save\\t<coarse_npz>\\t<fine_npz>\\n)
+    extract:   extract\\t<videos_dir>\\t<output_npz>\\n
+    video in:  searchv\\t<videos_dir>[\\t<candidates_csv>[\\t<matches_csv>]]\\n
     stats:     stats\\n
     launches:  launches[\\treset]\\n   (the port's kernel launch counts, zeroed first with reset)
     response:  ok\\t<candidates_csv>\\t<n_pairs>\\t<seconds>\\n
@@ -45,6 +47,7 @@ Wire protocol (line-oriented, the same over stdin/stdout or, with
          or:   ok\\tadded\\t<n_new_videos>\\t<seconds>\\n
          or:   ok\\tremoved\\t<n_videos>\\t<n_frame_rows>\\t<seconds>\\n
          or:   ok\\tsaved\\t<n_videos>\\t<refs_npz>[\\t<fine_npz>]\\t<seconds>\\n
+         or:   ok\\textracted\\t<n_videos>\\t<n_frames>\\t<output_npz>\\t<seconds>\\n
          or:   ok\\tstats\\t<n_videos>\\t<n_frames>\\t<dtype>\\t<sharded>\\t<matches>\\n
          or:   ok\\tlaunches\\t<json {kernel: count}>\\n
     error:     error\\t<message>\\n        (the server keeps serving)
@@ -71,9 +74,18 @@ localizer agreeing. ``quit`` (or EOF) ends a session (one TCP client);
 with requests serialized on one device lock; the parent's stdout gets
 ``listening\\t<host>:<port>`` with the bound port (``:0`` picks one).
 
+End-to-end serving: with ``--baseline`` and its weights
+(``--checkpoint_path`` or ``--torchscript_path``) a descriptor model stays
+on the device beside the corpus, and requests can start from raw videos:
+``extract`` decodes and embeds a video directory to a descriptor npz (one
+inference CLI run without the per-run model start-up), and ``searchv``
+embeds then searches in one request, the query descriptors never touching
+disk. With the same weights and flags, ``extract`` writes the CLI's npz
+byte for byte, and ``searchv`` answers as ``extract`` followed by a path
+search of its npz. ``searchv`` does not serve the DnS track.
+
 Not ported yet (each raises at startup, or answers ``error`` for a
-command): ``--ivf``, ``--sharded``, the multi-host flags,
-``--baseline`` with ``extract`` / ``searchv``, and ``probe``.
+command): ``--ivf``, ``--sharded``, the multi-host flags and ``probe``.
 
     python -m vsc2022_torch.retrieval.serve --ref_features refs.npz \\
         --score_norm_features noise.npz --matches [--listen 127.0.0.1:0]
@@ -193,16 +205,33 @@ _multihost.add_argument("--num_processes", type=int, default=1)
 _multihost.add_argument("--process_id", type=int, default=0)
 _multihost.add_argument("--control")
 _extract = parser.add_argument_group(
-    "Resident extraction (not ported yet: extract / searchv)"
+    "Resident extraction",
+    "Keep a descriptor model on the device beside the staged corpus, so "
+    "requests can start from raw videos (`extract` decodes and embeds a "
+    "video directory to npz; `searchv` embeds, then searches, in one "
+    "request). Enabled by --baseline.",
 )
-_extract.add_argument("--baseline", choices=["sscd", "dino", "dns"])
-_extract.add_argument("--checkpoint_path")
-_extract.add_argument("--torchscript_path")
-_extract.add_argument("--extract_transforms", default="RESIZE_320_CENTER")
+_extract.add_argument(
+    "--baseline", choices=["sscd", "dino", "dns"],
+    help="Keep this descriptor model resident for extract/searchv requests "
+    "(weights via --checkpoint_path/--torchscript_path)",
+)
+_extract.add_argument("--checkpoint_path",
+                      help="npz variable tree for the resident --baseline model")
+_extract.add_argument("--torchscript_path",
+                      help="TorchScript weights for the resident --baseline model")
+_extract.add_argument(
+    "--extract_transforms", default="RESIZE_320_CENTER",
+    help="InferenceTransforms preprocessing variant for the resident model "
+    "(RESIZE_320_CENTER for SSCD, RESIZE_224_SQUARE for DINO)",
+)
 _extract.add_argument("--extract_batch_size", type=int, default=32)
 _extract.add_argument("--extract_compute_dtype",
-                      choices=["float32", "bfloat16"], default="float32")
-_extract.add_argument("--fold_bn", action="store_true")
+                      choices=["float32", "bfloat16"], default="float32",
+                      help="bfloat16 runs the resident model's forward in bf16")
+_extract.add_argument("--fold_bn", action="store_true",
+                      help="Fold BatchNorm affines into the resident model's "
+                      "convs (ResNet-family baselines)")
 _extract.add_argument("--fps", type=float, default=1)
 _extract.add_argument("--ffmpeg_path", default="ffmpeg")
 _extract.add_argument("--video_extensions", default="mp4")
@@ -233,8 +262,6 @@ def check_ported(args) -> None:
         unported.append("--sharded")
     if (args.num_processes or 1) > 1 or args.coordinator or args.control or args.process_id:
         unported.append("multi-host serving")
-    if args.baseline or args.checkpoint_path or args.torchscript_path:
-        unported.append("--baseline (extract / searchv)")
     if unported:
         raise NotImplementedError("not ported yet: " + "; ".join(unported))
 
@@ -292,6 +319,112 @@ def build_localizer(index, refs, args, device):
     if args.score_norm_features:
         return TNLocalizationMaxSim([], refs_loc, similarity_bias=0.5, **common)
     return TNLocalizationCandidateScore([], refs_loc, **common)
+
+
+def build_extractor(args, device):
+    """The resident descriptor extractor for end-to-end serving: the model
+    goes to the device once, at startup, so ``extract`` / ``searchv`` pay
+    decode and forward only (the one-shot CLI loads the model per run;
+    reference: vsc/baseline/inference_impl.py:173). Returns (extractor,
+    reader_factory), or None without --baseline."""
+    if not args.baseline:
+        if args.checkpoint_path or args.torchscript_path:
+            raise ValueError(
+                "--checkpoint_path/--torchscript_path need --baseline "
+                "to pick the model architecture"
+            )
+        return None
+    if not (args.checkpoint_path or args.torchscript_path):
+        raise ValueError(
+            "A resident model needs weights: --checkpoint_path or "
+            "--torchscript_path"
+        )
+    from functools import partial
+
+    from vsc2022_torch.inference.cli import build_model
+    from vsc2022_torch.inference.pipeline import DescriptorExtractor
+    from vsc2022_torch.inference.transforms import InferenceTransforms
+    from vsc2022_torch.inference.video_reader import FFMpegVideoReader
+
+    extractor = DescriptorExtractor(
+        build_model(args),
+        transform=InferenceTransforms[args.extract_transforms],
+        batch_size=args.extract_batch_size,
+        compute_dtype=args.extract_compute_dtype,
+        device=device,
+    )
+    reader_factory = partial(
+        FFMpegVideoReader, required_fps=args.fps, ffmpeg_path=args.ffmpeg_path,
+    )
+    return extractor, reader_factory
+
+
+def _extract_feature_list(extractor_bundle, videos_path, args):
+    """Decode and embed every video of a directory on the resident model,
+    in sorted-filename order (the inference CLI's dataset contract:
+    vsc/baseline/inference_impl.py:94-109)."""
+    import os
+
+    from vsc2022_torch.inference.pipeline import VideoDataset
+
+    if extractor_bundle is None:
+        raise ValueError(
+            "No resident model: start the server with --baseline and "
+            "--checkpoint_path to serve extract/searchv requests"
+        )
+    extractor, reader_factory = extractor_bundle
+    if not os.path.isdir(videos_path):
+        raise ValueError(f"Not a video directory: {videos_path}")
+    dataset = VideoDataset(
+        path=videos_path,
+        reader_factory=reader_factory,
+        extensions=args.video_extensions.split(","),
+    )
+    return list(extractor.extract(dataset))
+
+
+def _extract_videos(extractor_bundle, parts, args) -> str:
+    """``extract``: embed a video directory to a descriptor npz on the
+    resident model, one inference CLI run without its start-up."""
+    t0 = time.perf_counter()
+    if len(parts) < 3:
+        raise ValueError("extract needs: extract\\t<videos_dir>\\t<output_npz>")
+    feats = _extract_feature_list(extractor_bundle, parts[1], args)
+    store_features(parts[2], feats)
+    n_frames = sum(len(vf) for vf in feats)
+    return (
+        f"ok\textracted\t{len(feats)}\t{n_frames}\t{parts[2]}"
+        f"\t{time.perf_counter() - t0:.3f}"
+    )
+
+
+def _search_videos(index, aggregation, localizer, extractor, parts, args) -> str:
+    """``searchv``: raw videos in, candidate (and match) CSVs out; the
+    extraction feeds the search core directly."""
+    t0 = time.perf_counter()
+    if args.ref_fine_features:
+        raise ValueError(
+            "searchv does not serve the DnS track: DnS queries need "
+            "the dns_index re-encoding — run extract, then dns_index, "
+            "then the two-file search form"
+        )
+    if len(parts) < 2:
+        raise ValueError(
+            "searchv needs: searchv\\t<videos_dir>"
+            "[\\t<candidates_csv>[\\t<matches_csv>]]"
+        )
+    feats = _extract_feature_list(extractor, parts[1], args)
+    # Through the npz schema in memory, so video ids and dtypes are the
+    # one-shot flow's (CLI npz → Dataset.QUERIES load) exactly.
+    buf = io.BytesIO()
+    store_features(buf, feats)
+    buf.seek(0)
+    queries = load_features(buf, Dataset.QUERIES)
+    base = parts[1].rstrip("/")
+    out_csv = parts[2] if len(parts) > 2 and parts[2] else base + ".candidates.csv"
+    matches_csv = parts[3] if len(parts) > 3 and parts[3] else base + ".matches.csv"
+    return _respond_search(index, aggregation, localizer, queries, None,
+                           out_csv, matches_csv, args, t0)
 
 
 def _localizer_queries(index, queries, args):
@@ -531,7 +664,8 @@ def _respond_search(index, aggregation, localizer, queries, queries_fine,
     )
 
 
-def serve_request(index, aggregation, localizer, line: str, args, payloads=None):
+def serve_request(index, aggregation, localizer, line: str, args, payloads=None,
+                  extractor=None):
     parts = line.split("\t")
     if parts[0] == "add":
         return _add_refs(index, localizer, parts, args)
@@ -545,8 +679,12 @@ def serve_request(index, aggregation, localizer, line: str, args, payloads=None)
         return _add_refs(index, localizer, parts, args, payloads=payloads)
     if parts[0] == "saveb":
         return _save_bytes(index, localizer, args)
-    if parts[0] in ("extract", "searchv", "probe"):
-        raise NotImplementedError(f"{parts[0]} is not ported yet")
+    if parts[0] == "extract":
+        return _extract_videos(extractor, parts, args)
+    if parts[0] == "searchv":
+        return _search_videos(index, aggregation, localizer, extractor, parts, args)
+    if parts[0] == "probe":
+        raise NotImplementedError("probe is not ported yet")
     if parts[0] == "launches":
         from vsc2022_torch.ops import kernels
 
@@ -627,6 +765,9 @@ def main(args):
         args.matches = True
     device = resolve_device(args.device)
     t0 = time.perf_counter()
+    # The extractor first: its flag checks (--baseline without weights)
+    # fail before the corpus stages.
+    extractor = build_extractor(args, device)
     index, refs, dim = build_index(args, device)
     localizer = build_localizer(index, refs, args, device) if args.matches else None
     if not args.no_warmup:
@@ -637,10 +778,10 @@ def main(args):
     logger.info(f"Serving {len(refs)} reference videos on {device} "
                 f"(staged in {stage_s:.1f}s)")
     if args.listen:
-        _serve_tcp(index, aggregation, localizer, args, stage_s)
+        _serve_tcp(index, aggregation, localizer, args, stage_s, extractor=extractor)
     else:
         _serve_stream(index, aggregation, localizer, args,
-                      sys.stdin.buffer, sys.stdout.buffer)
+                      sys.stdin.buffer, sys.stdout.buffer, extractor=extractor)
 
 
 def _read_payloads(rfile, head):
@@ -663,7 +804,7 @@ def _read_payloads(rfile, head):
 
 
 def _serve_stream(index, aggregation, localizer, args, rfile, wfile,
-                  lock=None) -> bool:
+                  lock=None, extractor=None) -> bool:
     """Answer one binary request stream until quit/shutdown/EOF; returns
     True when the whole server should stop. ``lock`` serializes device
     and localizer state across TCP client threads."""
@@ -686,7 +827,8 @@ def _serve_stream(index, aggregation, localizer, args, rfile, wfile,
             )
             with lock if lock is not None else contextlib.nullcontext():
                 response = serve_request(
-                    index, aggregation, localizer, line, args, payloads=payloads
+                    index, aggregation, localizer, line, args, payloads=payloads,
+                    extractor=extractor,
                 )
             if isinstance(response, tuple):
                 response, blobs = response
@@ -700,7 +842,8 @@ def _serve_stream(index, aggregation, localizer, args, rfile, wfile,
         wfile.flush()
 
 
-def _serve_tcp(index, aggregation, localizer, args, stage_s: float) -> None:
+def _serve_tcp(index, aggregation, localizer, args, stage_s: float,
+               extractor=None) -> None:
     """TCP accept loop speaking the stdin protocol, one thread per client,
     requests serialized on one device lock."""
     import socket
@@ -726,7 +869,7 @@ def _serve_tcp(index, aggregation, localizer, args, stage_s: float) -> None:
                 wfile.write((ready + "\n").encode("utf-8"))
                 wfile.flush()
                 if _serve_stream(index, aggregation, localizer, args, rfile,
-                                 wfile, lock=device_lock):
+                                 wfile, lock=device_lock, extractor=extractor):
                     stop.set()
         except (BrokenPipeError, ConnectionResetError):
             logger.info(f"Client {addr[0]}:{addr[1]} disconnected")
