@@ -3377,9 +3377,17 @@ def make_videos(np, work: Path):
 
 
 def extraction_weights(torch, work: Path) -> str:
-    """The SSCD weights of phase 8, written by the port as TorchScript:
-    Flax's distributions from a seed, with BatchNorm statistics and affines
-    drawn too, so that every norm (and --fold_bn) does real work."""
+    """The SSCD weights of phase 8 (``seeded_sscd``), written by the port as
+    TorchScript."""
+    path = str(work / "sscd.torchscript.pt")
+    torch.jit.save(torch.jit.trace(seeded_sscd(torch), torch.zeros(1, 3, 64, 64)), path)
+    return path
+
+
+def seeded_sscd(torch):
+    """The port's SSCD ResNet-50 → 512 in eval mode: Flax's distributions
+    from a seed, with BatchNorm statistics and affines drawn too, so that
+    every norm (and --fold_bn) does real work."""
     from vsc2022_torch.models.init import init_flax_like
     from vsc2022_torch.models.sscd import SSCDModel
 
@@ -3393,9 +3401,7 @@ def extraction_weights(torch, work: Path) -> str:
                 m.running_var.uniform_(0.5, 1.5, generator=g)
                 m.weight.normal_(1.0, 0.1, generator=g)
                 m.bias.normal_(0.0, 0.1, generator=g)
-    path = str(work / "sscd.torchscript.pt")
-    torch.jit.save(torch.jit.trace(model.eval(), torch.zeros(1, 3, 64, 64)), path)
-    return path
+    return model.eval()
 
 
 def npz_arrays(np, path):
@@ -3636,6 +3642,407 @@ def phase_extraction(torch, np, kernels, dev):
     return launches
 
 
+# ---- phase 9: the corpus sharded over one card ---------------------------------
+
+# Phase 4's corpus over 2 shards has shard_rows 507,904 (>= POOL_MIN_CORPUS:
+# pooled) and over 4 shards 253,952 (below it: the stream), with no mode
+# forced.
+SHARD_MODES = {2: "pooled", 4: "stream"}
+# 9d and 9e: the serving index and its localizer, and DnSLocalization, over
+# this many shards.
+SHARDED_TABLES = 4
+# The kernels of an f32 search that streams (the SN bias, then the stream).
+STREAM_KERNELS = ("row_max", "fused_topk", "count_above")
+# How far an f32 search's scores may lie from the single-device search's
+# when its shards lie in several allocations (one a card): the f32
+# re-search is then a cuBLAS call an allocation, and cuBLAS picks its
+# algorithm by the product's shape, so a re-searched score may lie one ulp
+# off; the ulp at 1.0, the largest unit-norm score.
+SHARD_F32_ATOL = 2.0 ** -23
+
+
+def _sharded_launches(kernels, fn):
+    """fn()'s result and the kernel launches it made (the counts set to 0
+    just before)."""
+    kernels.reset_launches()
+    out = fn()
+    return out, {k: v for k, v in kernels.launches.items() if v}
+
+
+def _same_topk(np, got, want, what, atol=0.0):
+    """One global_topk each, equal bit for bit; with ``atol``, scores may
+    differ by up to atol (rank by rank and pair by pair) and pairs only
+    where a score lies within atol of the last one kept. Returns how many
+    scores differ."""
+    check(len(got) == len(want) == 1, f"{what}: {len(got)} and {len(want)} searches")
+    (g, _), (w, _) = got[0], want[0]
+    check(g[0].size > 0 and all(a.dtype == b.dtype for a, b in zip(g, w)),
+          f"{what}: global_topk gave {g[0].size} pairs")
+    if all(np.array_equal(a, b) for a, b in zip(g, w)):
+        return 0
+    check(atol > 0 and g[2].shape == w[2].shape
+          and float(np.abs(g[2] - w[2]).max()) <= atol,
+          f"{what}: global_topk differs from the single-device searcher's")
+    gs = dict(zip(zip(g[0].tolist(), g[1].tolist()), g[2].tolist()))
+    ws = dict(zip(zip(w[0].tolist(), w[1].tolist()), w[2].tolist()))
+    both, cut = gs.keys() & ws.keys(), float(w[2][-1])
+    check(all(abs(gs[p] - ws[p]) <= atol for p in both)
+          and all(abs(v - cut) <= atol for side in (gs, ws) for p, v in side.items()
+                  if p not in both),
+          f"{what}: global_topk pairs differ beyond {atol} of the cut")
+    return sum(gs[p] != ws[p] for p in both) + len(gs.keys() - both)
+
+
+def _check_per_shard(counts, n, mode, what, single=None):
+    """Each of the n shards launched every kernel alike (each count a
+    multiple of n): the SN bias's row_max and the collection's kernels
+    (pooled: pool_writer; stream: fused_topk and count_above) once a
+    shard. ``single``: the launches of a single-device search in the same
+    mode, each of which every shard made."""
+    by_kernel = {name.split(".")[0]: v for name, v in counts.items()}
+    need = ("row_max", "pool_writer") if mode == "pooled" else STREAM_KERNELS
+    check(all(v % n == 0 for v in counts.values())
+          and all(by_kernel.get(name) == n for name in need)
+          and (single is None or counts == {name: n * v for name, v in single.items()}),
+          f"{what}: launches {counts}, not {need} once on each of {n} shards"
+          + ("" if single is None else f" and {n} x the single device's {single}"))
+
+
+def phase_sharded_search(torch, np, kernels, dev, paths):
+    """9a: ScoreNormalizedVideoIndex(mesh=Mesh([dev] * n)) over phase 4's
+    corpus, n = 2 (pooled) and 4 (stream), in f32, bf16 and int8:
+    global_topk's arrays equal the single-device index's bit for bit, the
+    ranked candidates exactly, and each shard launches every kernel the
+    single device launches, as often. In f32 also 4 shards of this card,
+    each its own allocation (as on separate cards), and one shard per card
+    where there are several: there the f32 re-search is a cuBLAS call a
+    shard, so global_topk may differ by SHARD_F32_ATOL (logged). Logs each
+    index's staging and search seconds and its steps. Returns {label:
+    launches of its search}."""
+    from unittest import mock
+
+    from vsc2022_torch.metrics import Dataset
+    from vsc2022_torch.parallel import Mesh
+    from vsc2022_torch.parallel.sharded_search import ShardedSimilaritySearcher
+    from vsc2022_torch.retrieval.candidates import MaxScoreAggregation, rank_candidates
+    from vsc2022_torch.retrieval.index import ScoreNormalizedVideoIndex
+    from vsc2022_torch.storage import load_features
+
+    t0 = time.perf_counter()
+    queries = load_features(paths["queries"], Dataset.QUERIES)
+    refs = load_features(paths["refs"], Dataset.REFS)
+    noise = load_features(paths["noise"], Dataset.REFS)
+    log(f"phase 9a: phase 4's corpus loaded in {time.perf_counter() - t0:.1f} s")
+    k = 1200 * len(queries)
+    # (label, shards, mesh, one allocation a shard)
+    meshes = [(f"{n} shards", n, Mesh([dev] * n), False) for n in SHARD_MODES]
+    meshes.append((f"{SHARDED_TABLES} shards, one allocation each", SHARDED_TABLES,
+                   Mesh([dev] * SHARDED_TABLES), True))
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        meshes.append((f"{cards} shards, one a card", cards,
+                       Mesh([torch.device("cuda", i) for i in range(cards)]), True))
+    else:
+        log("phase 9a: one card: one shard per card is one shard, not run")
+    launches, walls = {}, {}
+
+    def run(label, mesh, dtype, apart=False):
+        index = ScoreNormalizedVideoIndex(DIM, noise, beta=1.2, dtype=dtype, device=dev,
+                                          mesh=mesh)
+        index.add(refs)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with mock.patch.object(ShardedSimilaritySearcher, "_allocations",
+                               lambda self: [[s] for s in range(self.n_dev)]) \
+                if apart else contextlib.nullcontext():
+            searcher = index._get_searcher().searcher
+        torch.cuda.synchronize(dev)
+        stage = time.perf_counter() - t0
+        with topk_results() as seen:
+            t0 = time.perf_counter()
+            cands, counts = _sharded_launches(kernels, lambda: rank_candidates(
+                index.search(queries, global_k=k), MaxScoreAggregation()))
+            search = time.perf_counter() - t0
+        st = dict(searcher.last_stats)
+        walls[label] = {"stage_s": round(stage, 3), "search_s": round(search, 3),
+                        "mode": st["mode"], "steps_s": st.pop("seconds"),
+                        "staged_bytes": searcher.staged_bytes(),
+                        "shard_rows": getattr(searcher, "shard_rows", None)}
+        log(f"phase 9a: {label}: staged {stage:.3f} s, search {search:.3f} s, "
+            f"{json.dumps(walls[label])}; launches {json.dumps(counts)}")
+        del index, searcher
+        return cands, seen, counts
+
+    for dtype in ("float32", "bfloat16", "int8"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        want, want_topk, single = run(f"{dtype} 1 shard (SimilaritySearcher)", None, dtype)
+        single_mode = want_topk[0][1]
+        near = []
+        for name, n, mesh, apart in meshes:
+            if dtype != "float32" and apart:
+                continue
+            label = f"{dtype} {name}"
+            got, got_topk, counts = run(label, mesh, dtype, apart)
+            off = _same_topk(np, got_topk, want_topk, f"9a {label}",
+                             SHARD_F32_ATOL if apart else 0.0)
+            if off:
+                log(f"phase 9a: {label}: {off} of {got_topk[0][0][2].size} scores "
+                    f"within {SHARD_F32_ATOL:.3g} of one device's, not equal")
+                near.append(label)
+            else:
+                check_same_candidates(got, want, f"9a {label}", tol=0.0)
+            mode = walls[label]["mode"]
+            check(n not in SHARD_MODES or mode == SHARD_MODES[n],
+                  f"9a {label}: ran {mode}, not {SHARD_MODES.get(n)}")
+            _check_per_shard(counts, n, mode, f"9a {label}",
+                             single if mode == single_mode else None)
+            launches[f"9a {label}"] = counts
+        log(f"phase 9a: {dtype}: every shard count == one device bit for bit "
+            f"({len(want)} pairs){', but within SHARD_F32_ATOL: ' if near else ''}"
+            f"{', '.join(near)}; device peak "
+            f"{(torch.cuda.max_memory_allocated(dev) - base) / 2**20:.0f} MiB above "
+            "the phase's start")
+    return launches
+
+
+def phase_sharded_entry_points(torch, np, kernels, dev, paths):
+    """9b: ``python -m vsc2022_torch.descriptor_eval --sharded`` (one shard
+    a card) and the same main in process on a 2-shard mesh of this card:
+    candidates.csv byte-identical to phase 4's unsharded run."""
+    from unittest import mock
+
+    import vsc2022_torch.parallel as parallel
+    from vsc2022_torch import descriptor_eval
+    from vsc2022_torch.parallel import Mesh
+
+    out = SMOKE_DIR / "out"
+    want = (out / "descriptor_candidates.csv").read_bytes()
+    argv = ["--query_features", paths["queries"], "--ref_features", paths["refs"],
+            "--ground_truth", paths["gt"], "--device", "cuda", "--sharded",
+            "--candidates_output"]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "vsc2022_torch.descriptor_eval", *argv,
+                          str(out / "descriptor_candidates_sharded.csv")],
+                         cwd=str(REPO), capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"descriptor_eval --sharded failed: {run.stderr[-3000:]}")
+    check((out / "descriptor_candidates_sharded.csv").read_bytes() == want,
+          "9b: descriptor_eval --sharded wrote other candidates than phase 4")
+    log(f"phase 9b: python -m vsc2022_torch.descriptor_eval --sharded "
+        f"({torch.cuda.device_count()} card(s), one shard each): "
+        f"{time.perf_counter() - t0:.2f} s wall; candidates.csv == phase 4's, byte for byte")
+    two = Mesh([dev] * 2)
+    with mock.patch.object(parallel, "corpus_mesh", lambda *a, **kw: two), \
+            topk_results() as seen:
+        t0 = time.perf_counter()
+        _, counts = _sharded_launches(kernels, lambda: descriptor_eval.main(
+            descriptor_eval.parser.parse_args(
+                argv + [str(out / "descriptor_candidates_2.csv")])))
+    check((out / "descriptor_candidates_2.csv").read_bytes() == want,
+          "9b: descriptor_eval --sharded over 2 shards wrote other candidates")
+    check(counts.get("pool_writer") == 2 and all(v % 2 == 0 for v in counts.values()),
+          f"9b: launches {counts}: not each kernel once a shard")
+    log(f"phase 9b: descriptor_eval --sharded in process over 2 shards of this card: "
+        f"{time.perf_counter() - t0:.2f} s, mode {seen[0][1]}; candidates.csv == "
+        f"phase 4's, byte for byte; launches {json.dumps(counts)}")
+    return {"9b descriptor_eval, 2 shards": counts}
+
+
+def phase_sharded_serve(torch, np, kernels, dev, corpus):
+    """9c: serve --f32 --sharded --score_norm_features --matches over phase
+    6's catalogue (corpus_mesh(): one shard a card), requests (a)-(g): the
+    replies and files of the unsharded server (phase 6), byte for byte;
+    stats says sharded. 9d: the same requests in process through
+    serve_request, on the serving index and its localizer (shard_ref_table)
+    over SHARDED_TABLES shards of this card: phase 6's files, byte for
+    byte."""
+    from vsc2022_torch.parallel import Mesh
+    from vsc2022_torch.retrieval import serve
+    from vsc2022_torch.retrieval.candidates import MaxScoreAggregation
+    from vsc2022_torch.retrieval.index import ScoreNormalizedVideoIndex
+
+    work, paths, removed = corpus["work"], corpus["paths"], corpus["removed"]
+
+    def same_files(tag, x, what):
+        for i, suffix in enumerate(("c", "m")):
+            got = (work / f"{tag}_{x}_{suffix}.csv").read_bytes()
+            check(got == (work / f"f32_{x}_{suffix}.csv").read_bytes() and got.count(b"\n") > 1,
+                  f"{what}: ({x}) {suffix}.csv differs from phase 6's")
+
+    def csvs(tag, x):
+        return dict(candidates_csv=str(work / f"{tag}_{x}_c.csv"),
+                    matches_csv=str(work / f"{tag}_{x}_m.csv"))
+
+    with open(work / "server_sharded.log", "w") as server_log:
+        with spawn_server(paths["refs"], server_log, score_norm_features=paths["noise"],
+                          matches=True, f32=True, sharded=True) as client:
+            log(f"phase 9c: server --sharded ready, {client.n_ref_videos} videos staged "
+                f"in {client.stage_seconds:.1f} s")
+            client.launches(reset=True)
+            timed("a", lambda: client.search(paths["queries"], **csvs("sh", "a")), "9c")
+            b = timed("b", lambda: client.search_bytes(Path(paths["queries"]).read_bytes()),
+                      "9c")
+            check(b.candidates_csv == (work / "f32_a_c.csv").read_bytes()
+                  and b.matches_csv == (work / "f32_a_m.csv").read_bytes(),
+                  "9c: (b) in-band differs from phase 6's (a)")
+            timed("c", lambda: client.search(str(work / "q1.npz"), **csvs("sh", "c")), "9c")
+            n_add = timed("d", lambda: client.add(str(work / "add.npz")), "9c")
+            n_rm = timed("e", lambda: client.remove(removed), "9c")
+            n_save = timed("f", lambda: client.save(str(work / "sh_snap.npz")), "9c")
+            timed("g", lambda: client.search(paths["queries"], **csvs("sh", "g")), "9c")
+            stats = client.stats()
+            counts = client.launches()
+    check((n_add, n_rm, n_save) == (SERVE_ADD, (SERVE_REMOVE, SERVE_REMOVE * FRAMES),
+                                    SERVE_REF_VIDEOS), f"9c: add/remove/save {n_add} "
+          f"{n_rm} {n_save}")
+    check(stats.sharded and stats.dtype == "float32"
+          and stats.n_frames == SERVE_REF_VIDEOS * FRAMES, f"9c: stats {stats}")
+    # Four searches, (a), (b), (c) and (g), each streaming on every card's shard.
+    cards = torch.cuda.device_count()
+    check({k: v for k, v in counts.items() if v} == {name: 4 * cards for name in STREAM_KERNELS},
+          f"9c: launches {counts}, not {STREAM_KERNELS} once a search and a card")
+    for x in ("a", "c", "g"):
+        same_files("sh", x, "9c")
+    with np.load(work / "sh_snap.npz") as a, np.load(work / "f32_snap.npz") as b:
+        check(all(np.array_equal(a[key], b[key]) for key in b.files),
+              "9c: the snapshot differs from phase 6's")
+    log(f"phase 9c: requests (a)-(g) == phase 6's replies and files, byte for byte; "
+        f"stats: sharded {stats.sharded}; launches {json.dumps({k: v for k, v in counts.items() if v})}")
+
+    args = serve.parser.parse_args(["--ref_features", paths["refs"], "--score_norm_features",
+                                    paths["noise"], "--matches", "--f32"])
+    mesh = Mesh([dev] * SHARDED_TABLES)
+    index = ScoreNormalizedVideoIndex(DIM, corpus["noise"], beta=args.beta,
+                                      dtype="float32", device=dev, mesh=mesh)
+    index.add(corpus["refs"])
+    localizer = serve.build_localizer(index, corpus["refs"], args, dev)
+    check(localizer._shard_ref_table and localizer.mesh is mesh, "9d: tables not sharded")
+    agg = MaxScoreAggregation()
+
+    def request(line):
+        return serve.serve_request(index, agg, localizer, line, args)
+
+    def search(x):
+        c = csvs("sh4", x)
+        return request(f"{paths['queries']}\t{c['candidates_csv']}\t{c['matches_csv']}")
+
+    t0 = time.perf_counter()
+    _, counts_a = _sharded_launches(kernels, lambda: search("a"))
+    table = localizer._tables["ref"][0]
+    request(f"add\t{work / 'add.npz'}")
+    request("remove\t" + "\t".join(str(v) for v in removed))
+    _, counts_g = _sharded_launches(kernels, lambda: search("g"))
+    for x in ("a", "g"):
+        same_files("sh4", x, f"9d ({SHARDED_TABLES} shards)")
+    mode = index._searcher.searcher.last_stats["mode"]
+    for x, counts_x in (("a", counts_a), ("g", counts_g)):
+        _check_per_shard(counts_x, SHARDED_TABLES, mode, f"9d ({x})")
+    log(f"phase 9d: serving index + localizer over {SHARDED_TABLES} shards "
+        f"(ref table {table.rows} rows, {table.shard_rows} a shard), (a), add, remove, "
+        f"(g) in process: {time.perf_counter() - t0:.2f} s; (a) and (g) == phase 6's "
+        f"files, byte for byte; search mode {mode}; launches (a) "
+        f"{json.dumps(counts_a)}")
+    del index, localizer
+    torch.cuda.empty_cache()
+    return {"9c serve --sharded (one shard), requests (a)-(g)": {k: v for k, v in counts.items() if v},
+            f"9d serving, {SHARDED_TABLES} shards": counts_a}
+
+
+def phase_sharded_dns(torch, np, kernels, dev):
+    """9e: DnSLocalization with row-sharded coarse and fine tables over
+    SHARDED_TABLES shards, on phase 5's candidates: its matches the rows of
+    dns_baseline's (phase 5), scores within FLOAT_ATOL; the chamfer kernel
+    runs per pair tile."""
+    from vsc2022_torch.baseline import dns_baseline, pipeline
+    from vsc2022_torch.metrics import CandidatePair, Dataset, Match
+    from vsc2022_torch.parallel import Mesh
+    from vsc2022_torch.storage import load_features
+
+    work = SMOKE_DIR / "dns"
+    idx, out = work / "idx", work / "out"
+
+    def by_id(name, ds):
+        return {vf.video_id: vf for vf in load_features(str(idx / name), ds)}
+
+    queries_fine = by_id("queries_fg_att_student.npz", Dataset.QUERIES)
+    refs_fine = by_id("refs_fg_att_student.npz", Dataset.REFS)
+    queries = load_features(str(idx / "queries_cg_student_sn.npz"), Dataset.QUERIES)
+    refs = load_features(str(idx / "refs_cg_student_sn.npz"), Dataset.REFS)
+    cands = CandidatePair.read_csv(str(out / "candidates.csv"))
+    cands = cands[: int(len(queries_fine) * pipeline.LOCALIZE_PER_QUERY)]
+    loc = dns_baseline.DnSLocalization(
+        queries_fine, refs_fine, queries, refs, model_type="TN", fg_type="att",
+        tn_max_step=5, min_length=4, similarity_bias=0.5, device=dev,
+        mesh=Mesh([dev] * SHARDED_TABLES), shard_ref_table=True)
+    t0 = time.perf_counter()
+    matches, counts = _sharded_launches(kernels, lambda: loc.localize_all(cands))
+    wall = time.perf_counter() - t0
+    path = work / "matches_sharded.csv"
+    Match.write_csv(matches, str(path))
+    n = check_same_rows(path, out / "matches.csv", "9e: sharded DnS matches")
+    tables = {name: loc._tables[name][0].shard_rows for name in ("ref", "ref_fine")}
+    log(f"phase 9e: DnSLocalization over {SHARDED_TABLES} shards (shard rows "
+        f"{json.dumps(tables)}), {len(cands)} pairs: {wall:.2f} s; {n} matches == "
+        f"dns_baseline's rows, scores within {FLOAT_ATOL}; launches {json.dumps(counts)}")
+    check(counts.get("chamfer", 0) >= SHARDED_TABLES, f"9e: chamfer launches {counts}")
+    return {f"9e DnS, {SHARDED_TABLES} shards": counts}
+
+
+def phase_sharded_extraction(torch, np, dev):
+    """9f: DescriptorExtractor over 2 shards of this card against the
+    unsharded extractor, SSCD at full width on random 640x360 frames:
+    within EXTRACT_REL_TOL (1e-5) of the largest value."""
+    from vsc2022_torch.inference.pipeline import DescriptorExtractor
+    from vsc2022_torch.inference.transforms import InferenceTransforms
+    from vsc2022_torch.parallel import Mesh
+
+    rng = np.random.default_rng(9)
+    videos = {f"Q{i:06d}": rng.integers(0, 256, (n, VIDEO_H, VIDEO_W, 3), dtype=np.uint8)
+              for i, n in enumerate((40, 25, 33))}
+
+    class Frames:
+        def iter_decoded(self):
+            for name, frames in videos.items():
+                yield name, frames, np.stack([np.arange(len(frames)),
+                                              np.arange(len(frames)) + 1.0], axis=1)
+
+    model = seeded_sscd(torch)
+    feats, walls = {}, {}
+    for label, kw in (("1 device", {"device": dev}), ("2 shards", {"mesh": Mesh([dev] * 2)})):
+        ex = DescriptorExtractor(model, InferenceTransforms.RESIZE_320_CENTER,
+                                 batch_size=EXTRACT_BATCH, **kw)
+        t0 = time.perf_counter()
+        feats[label] = {vf.video_id: vf.feature for vf in ex.extract(Frames())}
+        walls[label] = round(time.perf_counter() - t0, 3)
+    want = np.concatenate([feats["1 device"][v] for v in videos])
+    got = np.concatenate([feats["2 shards"][v] for v in videos])
+    err = float(np.abs(got - want).max())
+    check(got.shape == want.shape == (98, 512) and np.isfinite(got).all(),
+          f"9f: descriptors {got.shape}")
+    check(err <= EXTRACT_REL_TOL * float(np.abs(want).max()),
+          f"9f: 2 shards off the unsharded forward by {err}")
+    log(f"phase 9f: DescriptorExtractor over 2 shards == 1 device within {err:.3g} "
+        f"(largest value {np.abs(want).max():.3g}); 98 frames, batch {EXTRACT_BATCH}: "
+        f"{json.dumps(walls)} s")
+
+
+def phase_sharded(torch, np, kernels, dev, paths, corpus):
+    """Phase 9: the corpus-sharded paths (9a-9f). Returns {label: kernel
+    launches} of each sharded path's run."""
+    t0 = time.perf_counter()
+    launches = phase_sharded_search(torch, np, kernels, dev, paths)
+    torch.cuda.empty_cache()
+    launches.update(phase_sharded_entry_points(torch, np, kernels, dev, paths))
+    launches.update(phase_sharded_serve(torch, np, kernels, dev, corpus))
+    launches.update(phase_sharded_dns(torch, np, kernels, dev))
+    phase_sharded_extraction(torch, np, dev)
+    torch.cuda.empty_cache()
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+
 def nvidia_smi_line() -> str:
     try:
         out = subprocess.run(
@@ -3738,9 +4145,10 @@ def main() -> int:
         l2_recs, l2_launches = phase_l2_search(torch, np, kernels, dev, corpus)
         phase_default(torch, np, kernels, dev, corpus)
         phase_knn(torch, np, dev, corpus)
-        del corpus
         phase_matching_eval(paths, SMOKE_DIR / "out", sscd_f32["segment_ap"])
         searchv_launches = phase_extraction(torch, np, kernels, dev)
+        sharded_launches = phase_sharded(torch, np, kernels, dev, paths, corpus)
+        del corpus
     finally:
         if not args.keep:
             shutil.rmtree(SMOKE_DIR, ignore_errors=True)
@@ -3846,6 +4254,11 @@ def main() -> int:
                                          launches=pooled_launches[name])
         if name in SEARCHV_KERNELS:  # phase 8's searchv (the f32 server)
             row["searchv_launches"] = searchv_launches[name]
+        # Phase 9's sharded runs: every shard launches its kernel.
+        sharded = {label: counts[name] for label, counts in sharded_launches.items()
+                   if counts.get(name)}
+        if sharded:
+            row["sharded_launches"] = sharded
         rows.append(row)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))

@@ -275,11 +275,12 @@ def test_dns_localization_sims_unchanged_at_highest(monkeypatch, table_dtype):
     got = localizer()._batch_sims(pairs, 32, 32)
 
     def explicit(qc_tab, rc_tab, qf_tab, rf_tab, qc_idx, rc_idx, qf_idx, rf_idx,
-                 bias, symmetric=True):
+                 bias, symmetric=True, device=None):
         # The f32 gather and fuse DnSLocalization ran before "default" was
-        # ported: the rows widened to f32, the f32 chamfer.
+        # ported: the rows widened to f32, the f32 chamfer (on the device
+        # the batch is gathered onto).
         loc = localizer()
-        qc, rc, qf, rf = (loc._gather(t, i) for t, i in (
+        qc, rc, qf, rf = (loc._gather(t, i, device) for t, i in (
             (qc_tab, qc_idx), (rc_tab, rc_idx), (qf_tab, qf_idx), (rf_tab, rf_idx)))
         b, nq, nr = qc.shape[0], qc.shape[1], rc.shape[1]
         return torch_dns._chamfer_fuse(

@@ -2114,3 +2114,262 @@ def test_f32_forward_runs_without_tf32(cuda_device):
         assert not torch.equal(tf32.float(), f32)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+# ---- the corpus sharded over one card ------------------------------------------
+
+
+def _shard_case(cuda_device, kind, n, d, seed):
+    rng = np.random.RandomState(seed)
+    if kind == "int":
+        q = rng.randint(-3, 4, size=(45, d)).astype(np.float32)
+        r = rng.randint(-3, 4, size=(n, d)).astype(np.float32)
+        r[300:320] = 3.0  # ties across the first shard boundaries
+        q[:4] = 3.0
+    else:
+        q = rng.standard_normal((45, d)).astype(np.float32)
+        r = rng.standard_normal((n, d)).astype(np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        r /= np.linalg.norm(r, axis=1, keepdims=True)
+    return q, r
+
+
+# The kernels each collection launches over a corpus of each dtype.
+_COLLECTION_KERNELS = {"stream": ("fused_topk", "count_above"), "pooled": ("pool_writer",)}
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 8])
+@pytest.mark.parametrize("dtype,metric", [("float32", "IP"), ("float32", "L2"),
+                                          ("bfloat16", "IP"), ("bfloat16", "L2"),
+                                          ("int8", "IP")])
+@pytest.mark.parametrize("mode", ["stream", "pooled"])
+@pytest.mark.parametrize("kind", ["int", "float"])
+def test_sharded_search_equals_single_device(cuda_device, monkeypatch, shards, dtype,
+                                             metric, mode, kind):
+    # Shards as views into one staged tensor on the card: the same pairs,
+    # scores and tie order as the single-device searcher, bit for bit, on
+    # integers and on unit-norm floats (the f32 re-search is one cuBLAS
+    # call over the run of shards, the single-device call); each shard
+    # launches its collection's kernels once.
+    from vsc2022_torch.ops.similarity import COLLECTION_ENV, SimilaritySearcher
+    from vsc2022_torch.parallel import Mesh
+    from vsc2022_torch.parallel.sharded_search import ShardedSimilaritySearcher
+
+    monkeypatch.setenv(COLLECTION_ENV, mode)
+    q, r = _shard_case(cuda_device, kind, 7000, 24, shards)
+    single = SimilaritySearcher(r, metric=metric, dtype=dtype, device=cuda_device)
+    sharded = ShardedSimilaritySearcher(r, Mesh([cuda_device] * shards), metric=metric,
+                                        dtype=dtype)
+    suffix = {"float32": "", "bfloat16": ".bf16", "int8": ".int8"}[dtype]
+    suffix += ".l2" if metric == "L2" else ""
+    for k in (600, 45 * 16 + 1):  # the second has k > nq·κ
+        want = single.global_topk(q, k, kappa=16)
+        kernels.reset_launches()
+        got = sharded.global_topk(q, k, kappa=16)
+        assert sharded.last_stats["mode"] == mode
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        for name in _COLLECTION_KERNELS[mode]:
+            assert kernels.launches[name + suffix] == shards, (name, kernels.launches)
+    np.testing.assert_array_equal(sharded.row_nn(q), single.row_nn(q))
+
+
+# How far apart an f32 search's scores may lie when its re-search ran as
+# cuBLAS calls of another shape (one per allocation of shards: one a card).
+# cuBLAS picks its algorithm by the product's shape, and another algorithm
+# may sum a score in another order: one ulp off on unit-norm rows, at most
+# 2^-23 (the ulp at 1.0, the largest score). Under L2 the goodness doubles
+# that and rounds twice more: 2^-21.
+SHARD_F32_ATOL = {"IP": 2.0 ** -23, "L2": 2.0 ** -21}
+
+
+def _near_topk(got, want, atol):
+    """Two global_topk results of one search that may differ by ``atol``
+    in a score: the scores rank by rank within ``atol``, each pair's
+    scores on both sides too, and the same pairs except where a score lies
+    within ``atol`` of the last one kept. Prints how many scores differ."""
+    (gq, gr, gs), (wq, wr, ws) = got, want
+    assert gs.shape == ws.shape and gs.size
+    np.testing.assert_allclose(gs, ws, rtol=0, atol=atol)
+    g = dict(zip(zip(gq.tolist(), gr.tolist()), gs.tolist()))
+    w = dict(zip(zip(wq.tolist(), wr.tolist()), ws.tolist()))
+    both = g.keys() & w.keys()
+    assert all(abs(g[p] - w[p]) <= atol for p in both)
+    cut = float(ws[-1])
+    assert all(abs(v - cut) <= atol for side in (g, w) for p, v in side.items()
+               if p not in both)
+    off = sum(g[p] != w[p] for p in both) + len(g.keys() - both)
+    print(f"f32 across allocations: {off} of {len(w)} scores or pairs differ")
+
+
+@pytest.mark.parametrize("d", [13, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_sharded_search_shards_as_separate_tensors(cuda_device, monkeypatch, d, dtype):
+    # The same search with each shard its own allocation (as on separate
+    # cards) and at an odd D (the f32 chain's 4-byte copies; bf16 rows a
+    # padded copy), through append_rows and keep_rows. bf16 and int8 on
+    # unit-norm floats: every score, the re-search's too, is a hand
+    # kernel's, bit for bit. f32: bit for bit on integers (exact scores);
+    # on unit-norm floats its re-search is a cuBLAS call per shard, of
+    # another shape than the single-device call: within SHARD_F32_ATOL.
+    from vsc2022_torch.ops.similarity import SimilaritySearcher
+    from vsc2022_torch.parallel import Mesh
+    from vsc2022_torch.parallel.sharded_search import ShardedSimilaritySearcher
+
+    monkeypatch.setattr(ShardedSimilaritySearcher, "_allocations",
+                        lambda self: [[s] for s in range(self.n_dev)])
+    for kind in ("int", "float") if dtype == "float32" else ("float",):
+        q, r = _shard_case(cuda_device, kind, 3000, d, 5)
+        single = SimilaritySearcher(r, dtype=dtype, device=cuda_device)
+        sharded = ShardedSimilaritySearcher(r, Mesh([cuda_device] * 3), dtype=dtype,
+                                            col_block=256)
+        assert len({t.untyped_storage().data_ptr() for t in sharded._shard["refs"]}) == 3
+
+        def check(k):
+            got, want = sharded.global_topk(q, k, kappa=8), single.global_topk(q, k, kappa=8)
+            if (dtype, kind) == ("float32", "float"):
+                _near_topk(got, want, SHARD_F32_ATOL["IP"])
+            else:
+                for g, w in zip(got, want):
+                    np.testing.assert_array_equal(g, w)
+
+        check(900)
+        extra = _shard_case(cuda_device, kind, 2000, d, 6)[1]
+        sharded.append_rows(extra)
+        single.append_rows(extra)
+        check(900)
+        keep = np.flatnonzero(np.random.RandomState(7).rand(5000) < 0.4)
+        sharded.keep_rows(keep)
+        single.keep_rows(keep)
+        check(900)
+
+
+@pytest.mark.parametrize("dtype,metric", [("float32", "IP"), ("float32", "L2"),
+                                          ("bfloat16", "IP"), ("bfloat16", "L2"),
+                                          ("int8", "IP")])
+@pytest.mark.parametrize("mode", ["stream", "pooled"])
+@pytest.mark.parametrize("kind", ["int", "float"])
+def test_sharded_search_one_shard_per_card(cuda_device, monkeypatch, dtype, metric, mode,
+                                           kind):
+    # One shard a card, over every card (the merges copy card to card): the
+    # single-device searcher's pairs, scores and tie order, bit for bit,
+    # but for an f32 search on floats (its re-search is a cuBLAS call a
+    # card: within SHARD_F32_ATOL); each card launches its collection's
+    # kernels once.
+    from vsc2022_torch.ops.similarity import COLLECTION_ENV, SimilaritySearcher
+    from vsc2022_torch.parallel import Mesh
+    from vsc2022_torch.parallel.sharded_search import ShardedSimilaritySearcher
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards: one shard a card")
+    monkeypatch.setenv(COLLECTION_ENV, mode)
+    q, r = _shard_case(cuda_device, kind, 7000, 24, cards)
+    single = SimilaritySearcher(r, metric=metric, dtype=dtype, device="cuda:0")
+    mesh = Mesh([torch.device("cuda", i) for i in range(cards)])
+    sharded = ShardedSimilaritySearcher(r, mesh, metric=metric, dtype=dtype)
+    assert [t.device for t in sharded._shard["refs"]] == list(mesh.devices)
+    suffix = {"float32": "", "bfloat16": ".bf16", "int8": ".int8"}[dtype]
+    suffix += ".l2" if metric == "L2" else ""
+    for k in (600, 45 * 16 + 1):
+        want = single.global_topk(q, k, kappa=16)
+        kernels.reset_launches()
+        got = sharded.global_topk(q, k, kappa=16)
+        assert sharded.last_stats["mode"] == mode
+        if (dtype, kind) == ("float32", "float"):
+            _near_topk(got, want, SHARD_F32_ATOL[metric])
+        else:
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+        for name in _COLLECTION_KERNELS[mode]:
+            assert kernels.launches[name + suffix] == cards, (name, kernels.launches)
+    np.testing.assert_array_equal(sharded.row_nn(q), single.row_nn(q))
+
+
+def _every_card():
+    from vsc2022_torch.parallel import Mesh
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards: one shard a card")
+    return Mesh([torch.device("cuda", i) for i in range(cards)])
+
+
+def _dyadic_rows(rng, n, d):
+    """[n, d]: dimension 0 at zero, ±1 on four of the others (exact sums)."""
+    x = np.zeros((n, d), np.float32)
+    cols = 1 + np.argsort(rng.rand(n, d - 1), axis=1)[:, :4]
+    np.put_along_axis(x, cols, rng.choice([-1.0, 1.0], size=(n, 4)), axis=1)
+    return x
+
+
+def _dns_lifecycle_rows(**kw):
+    """DnSLocalization through set_queries, add_refs and remove_refs on
+    planted copies: the matches of its two localize_all calls."""
+    from vsc2022_torch.baseline.dns_baseline import DnSLocalization
+    from vsc2022_torch.metrics import CandidatePair
+    from vsc2022_torch.types import VideoFeature
+
+    rng = np.random.RandomState(3)
+
+    def videos(prefix, lengths, offset=0):
+        return [VideoFeature(f"{prefix}{offset + i:06d}", np.arange(n, dtype=np.float64),
+                             _dyadic_rows(rng, n, 12)) for i, n in enumerate(lengths)]
+
+    def fine(vids):
+        return {v.video_id: VideoFeature(v.video_id, v.timestamps, 0.5 * _dyadic_rows(
+            rng, len(v.timestamps) * 9, 8).reshape(len(v.timestamps), -1)) for v in vids}
+
+    refs, extra = videos("R", rng.randint(16, 40, size=10)), videos("R", [28, 18], 100)
+    queries = videos("Q", [24, 30, 20, 26])
+    queries[0].feature[4:14] = refs[1].feature[2:12]
+    queries[2].feature[3:15] = extra[0].feature[8:20]
+    qf, rf, xf = fine(queries), fine(refs), fine(extra)
+    qf["Q000000"].feature[4:14] = rf["R000001"].feature[2:12]
+    qf["Q000002"].feature[3:15] = xf["R000100"].feature[8:20]
+    pairs = [("Q000000", "R000001"), ("Q000002", "R000100"), ("Q000001", "R000003")]
+    loc = DnSLocalization({}, dict(rf), [], refs, model_type="TN", similarity_bias=0.5, **kw)
+    loc.set_queries(queries[:2], queries_fine={k: qf[k] for k in ("Q000000", "Q000001")})
+    first = loc.localize_all([CandidatePair(*pairs[0], 1.0), CandidatePair(*pairs[2], 1.0)])
+    loc.add_refs(extra, refs_fine=xf)
+    loc.remove_refs(["R000003"])
+    loc.set_queries(queries, queries_fine=qf)
+    second = loc.localize_all([CandidatePair(q, r, 1.0) for q, r in pairs[:2]])
+    return [[(m.query_id, m.ref_id, m.query_start, m.query_end, m.ref_start, m.ref_end,
+              m.score) for m in ms] for ms in (first, second)]
+
+
+def test_sharded_tables_and_extraction_one_shard_per_card(cuda_device):
+    # DnSLocalization with row-sharded coarse and fine tables, one shard a
+    # card (each pair tile's chamfer kernel on its card), through add_refs
+    # and remove_refs: the rows of the same localizer on cuda:0, scores
+    # within BF16_TC_ATOL (the f32 chamfer on exact dyadic rows). The
+    # extractor over every card: within EXTRACT_REL_TOL of one card.
+    from vsc2022_torch.inference.pipeline import DescriptorExtractor
+
+    mesh = _every_card()
+    kernels.reset_launches()
+    got = _dns_lifecycle_rows(mesh=mesh, shard_ref_table=True)
+    assert kernels.launches["chamfer"] >= mesh.size
+    assert torch.cuda.current_device() == 0  # each card's launches left it current
+    want = _dns_lifecycle_rows(device="cuda:0")
+    assert [len(ms) for ms in got] == [len(ms) for ms in want] and want[1]
+    for g, w in zip(got, want):
+        assert [m[:6] for m in g] == [m[:6] for m in w]
+        np.testing.assert_allclose([m[6] for m in g], [m[6] for m in w], rtol=0,
+                                   atol=BF16_TC_ATOL)
+
+    model, transform = _extraction_models()["sscd"]
+    frames = _frames(3 * mesh.size, seed=2).numpy()
+
+    class Frames:
+        def iter_decoded(self):
+            for i, n in enumerate((mesh.size + 1, 2 * mesh.size - 1)):
+                yield f"Q{i:06d}", frames[:n], np.stack([np.arange(n), np.arange(n) + 1.0], 1)
+
+    one = DescriptorExtractor(model, transform, batch_size=2 * mesh.size, device="cuda:0")
+    every = DescriptorExtractor(model, transform, batch_size=2 * mesh.size, mesh=mesh)
+    want = np.concatenate([vf.feature for vf in one.extract(Frames())])
+    got = np.concatenate([vf.feature for vf in every.extract(Frames())])
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= EXTRACT_REL_TOL * np.abs(want).max()

@@ -47,7 +47,8 @@ def test_importing_every_module_leaves_jax_out():
     "vsc2022_torch.retrieval.serve", "vsc2022_torch.retrieval.client",
     "vsc2022_torch.retrieval.sn_search", "vsc2022_torch.inference.cli",
     "vsc2022_torch.inference.pipeline", "vsc2022_torch.models",
-    "vsc2022_torch.convert",
+    "vsc2022_torch.convert", "vsc2022_torch.parallel",
+    "vsc2022_torch.parallel.sharded_search",
 ])
 def test_serving_modules_leave_jax_out(module):
     code = (
@@ -269,7 +270,8 @@ def test_serve_entry_point_defaults_to_cuda_and_raises(no_gpu):
 @pytest.mark.parametrize("entry", ["sscd_baseline", "descriptor_eval"])
 def test_unported_storage_modes_raise(entry, tmp_path):
     # bf16 and int8 (SQ8) storage are both ported: --int8 runs (on the CPU
-    # here) and its search corpus is int8; --sharded still raises.
+    # here) and its search corpus is int8; --sharded is ported too, and
+    # descriptor_eval writes the same candidates with it.
     from vsc2022_torch import descriptor_eval
     from vsc2022_torch.baseline import sscd_baseline
     from vsc2022_torch.metrics import Dataset
@@ -310,8 +312,10 @@ def test_unported_storage_modes_raise(entry, tmp_path):
     out = tmp_path / ("out/candidates.csv" if entry == "sscd_baseline" else "c.csv")
     assert out.read_text().count("\n") > 1
     if entry == "descriptor_eval":
-        with pytest.raises(NotImplementedError, match="sharded"):
-            module.main(module.parser.parse_args(argv[:-3] + ["--sharded"]))
+        sharded = tmp_path / "c_sharded.csv"
+        module.main(module.parser.parse_args(
+            argv[:-1] + [str(sharded), "--sharded"]))
+        assert sharded.read_bytes() == out.read_bytes()
 
 
 def test_bench_scores_above_needs_a_card():

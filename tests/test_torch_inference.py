@@ -41,6 +41,7 @@ from vsc2022_torch.inference.pipeline import (
 )
 from vsc2022_torch.inference.video_reader import ArrayVideoReader, FFMpegVideoReader
 from vsc2022_torch.models.sscd import SSCDModel
+from vsc2022_torch.parallel import Mesh
 from vsc2022_torch.storage import load_features, store_features
 from vsc2022_torch.types import VideoFeature
 from vsc2022_tpu.inference import cli as jax_cli
@@ -232,8 +233,10 @@ def test_store_fp16_and_bf16(small_sscd):
         np.testing.assert_allclose(vf.feature, f32[vf.video_id], rtol=2e-2, atol=2e-2)
     with pytest.raises(ValueError, match="compute_dtype"):
         _extractor(small_sscd[2], compute_dtype="float16")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _extractor(small_sscd[2], mesh=object())
+    # mesh= is ported (tests/test_torch_sharded.py); a batch that does not
+    # split evenly over the mesh raises, as JAX asserts.
+    with pytest.raises(ValueError, match="batch_size"):
+        _extractor(small_sscd[2], batch_size=4, mesh=Mesh(["cpu"] * 3))
 
 
 def test_decode_errors_reach_the_caller(small_sscd):

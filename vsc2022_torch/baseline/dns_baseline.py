@@ -146,16 +146,21 @@ def _gathered_dns_sims(
     symmetric: bool = True,
     precision: str = "highest",
     regions: int = NUM_REGIONS,
+    device=None,
 ) -> torch.Tensor:
-    """Chamfer+coarse fusion from device-resident feature tables: the
-    per-batch inputs are index matrices into the query and ref tables.
-    Tables stored bf16 are widened as they are gathered; at "default" the
-    fine rows go to the bf16 chamfer as bf16 (the same values)."""
+    """Chamfer+coarse fusion from device-resident feature tables (tensors,
+    or ``RowShardedTable``s whose shards hand over the rows they own): the
+    per-batch inputs are index matrices into the query and ref tables, and
+    the rows are gathered onto ``device`` (default the query tables'),
+    where the fusion runs. Tables stored bf16 are widened as they are
+    gathered; at "default" the fine rows go to the bf16 chamfer as bf16
+    (the same values)."""
     fine = torch.bfloat16 if precision == "default" else torch.float32
-    qc = gather_rows(qc_table, qc_idx).float()
-    rc = gather_rows(rc_table, rc_idx).float()
-    qf = gather_rows(qf_table, qf_idx).to(fine)
-    rf = gather_rows(rf_table, rf_idx).to(fine)
+    device = qc_table.device if device is None else device
+    qc = gather_rows(qc_table, qc_idx, device).float()
+    rc = gather_rows(rc_table, rc_idx, device).float()
+    qf = gather_rows(qf_table, qf_idx, device).to(fine)
+    rf = gather_rows(rf_table, rf_idx, device).to(fine)
     return _chamfer_fuse(
         qf.view(*qf.shape[:2], regions, -1), rf.view(*rf.shape[:2], regions, -1),
         qc, rc, bias, symmetric, precision,
@@ -168,7 +173,10 @@ class DnSLocalization(TNLocalizationMaxSim):
     counts; the fine rows come from their own pair of device tables. With
     ``table_dtype="bfloat16"`` both reference tables (coarse and fine)
     store bf16 rows, widened to f32 as they are gathered: the chamfer
-    kernel stays the f32 one."""
+    kernel stays the f32 one. With ``mesh`` and ``shard_ref_table`` both
+    reference tables are row-sharded; each pair tile gathers its true rows
+    from their owner shards onto its device, where the fused chamfer runs
+    (the port's chamfer kernel; JAX's sharded body runs XLA there)."""
 
     # The gathered fine rows are B·(NQ + NR)·9·512 floats per chunk
     # (2.4 GB at 1024 pairs of 64 × 64 frames), hence a smaller budget.
@@ -244,8 +252,10 @@ class DnSLocalization(TNLocalizationMaxSim):
         return super()._pair_tables(candidates)
 
     def _batch_sims(
-        self, candidates: Sequence[CandidatePair], nq: int, nr: int
+        self, candidates: Sequence[CandidatePair], nq: int, nr: int,
+        device: torch.device = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        device = self.device if device is None else device
         qc_tab, qc_offs, rc_tab, rc_offs = self._pair_tables(candidates)
         qf_tab, qf_offs = self._tables["query_fine"]
         rf_tab, rf_offs = self._tables["ref_fine"]
@@ -266,12 +276,12 @@ class DnSLocalization(TNLocalizationMaxSim):
             qc_tab, rc_tab, qf_tab, rf_tab,
             np.where(q_mask, qc_idx, 0), np.where(r_mask, rc_idx, 0),
             np.where(q_mask, qf_idx, 0), np.where(r_mask, rf_idx, 0),
-            float(self.similarity_bias), symmetric=self.symmetric,
+            float(self.similarity_bias), symmetric=self.symmetric, device=device,
         )
         return (
             sims,
-            torch.from_numpy(q_len).to(self.device),
-            torch.from_numpy(r_len).to(self.device),
+            torch.from_numpy(q_len).to(device),
+            torch.from_numpy(r_len).to(device),
         )
 
 

@@ -55,12 +55,14 @@ def retrieve_candidates(
     candidates_per_query: float = CANDIDATES_PER_QUERY,
     dtype: str = "float32",
     device: DeviceLike = "cuda",
+    mesh=None,
 ) -> List[CandidatePair]:
-    """Global-k frame search (over a corpus staged in ``dtype``) +
-    per-pair aggregation, truncated to the candidate budget."""
+    """Global-k frame search (over a corpus staged in ``dtype``, sharded
+    over ``mesh`` if one is given) + per-pair aggregation, truncated to the
+    candidate budget."""
     logger.info("Retrieval: global top-k frame search")
     generator = CandidateGeneration(
-        refs, MaxScoreAggregation(), dtype=dtype, device=device
+        refs, MaxScoreAggregation(), dtype=dtype, device=device, mesh=mesh
     )
     candidates = generator.query(
         queries, global_k=int(retrieve_per_query * len(queries))

@@ -7,8 +7,9 @@ the root ``descriptor_eval.py``, plus ``--device``).
 
 ``--bf16`` stages the reference corpus and the queries in bfloat16 (f32
 accumulation); ``--int8`` stages the reference corpus as SQ8-style int8
-codes with per-row scales (queries f32). ``--sharded`` is not ported yet
-and raises.
+codes with per-row scales (queries f32). ``--sharded`` shards the
+reference corpus over every device of the ``--device`` kind
+(``vsc2022_torch.parallel.corpus_mesh``: each card, or the one CPU).
 """
 
 import argparse
@@ -38,7 +39,7 @@ parser.add_argument(
 )
 parser.add_argument(
     "--sharded", action="store_true",
-    help="Shard the reference corpus across devices (not ported yet: raises).",
+    help="Shard the reference corpus across every device of the --device kind.",
 )
 _dtype_group = parser.add_mutually_exclusive_group()
 _dtype_group.add_argument(
@@ -60,13 +61,16 @@ parser.add_argument(
 
 def main(args) -> Optional[float]:
     """Run the evaluation; returns the micro-AP when GT is given."""
+    mesh = None
     if args.sharded:
-        raise NotImplementedError("--sharded is not ported yet")
+        from vsc2022_torch.parallel import corpus_mesh
+
+        mesh = corpus_mesh(device=args.device)
     ap, candidates = evaluate_descriptor_track(
         args.query_features, args.ref_features, args.ground_truth,
         protocol=DescriptorEvalProtocol(
             dtype="bfloat16" if args.bf16 else "int8" if args.int8 else "float32",
-            device=args.device,
+            device=args.device, mesh=mesh,
         ),
     )
     if ap is not None:

@@ -43,6 +43,7 @@ class DescriptorEvalProtocol:
     pairs_per_query: int = AGGREGATED_CANDIDATES_PER_QUERY
     dtype: str = "float32"  # the staged corpus: "float32", "bfloat16" or "int8"
     device: DeviceLike = "cuda"
+    mesh: object = None  # a vsc2022_torch.parallel.Mesh to shard the corpus over
 
     def retrieve(self, query_features, ref_features) -> List[CandidatePair]:
         n_queries = len(query_features)
@@ -50,7 +51,7 @@ class DescriptorEvalProtocol:
         logger.info(f"Performing search for {budget} nearest vectors")
         generator = CandidateGeneration(
             ref_features, MaxScoreAggregation(), dtype=self.dtype,
-            device=self.device,
+            device=self.device, mesh=self.mesh,
         )
         candidates = generator.query(query_features, global_k=budget)
         logger.info(f"Got {len(candidates)} unique video pairs.")

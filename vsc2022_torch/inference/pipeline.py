@@ -20,6 +20,7 @@ Replaces the reference's torch DataLoader / TorchScript worker loop
 from __future__ import annotations
 
 import contextlib
+import copy
 import glob
 import logging
 import os
@@ -35,6 +36,7 @@ import torch
 from vsc2022_torch.device import DeviceLike, resolve_device
 from vsc2022_torch.inference.transforms import InferenceTransforms, preprocess
 from vsc2022_torch.inference.video_reader import VideoReader
+from vsc2022_torch.parallel.mesh import first_axis_sharding
 from vsc2022_torch.storage import load_features, store_features
 from vsc2022_torch.types import VideoFeature
 
@@ -140,7 +142,8 @@ def _numerics(device: torch.device):
 
 
 class DescriptorExtractor:
-    """Batched inference over decoded videos on one device."""
+    """Batched inference over decoded videos on one device, or data
+    parallel over a mesh's devices."""
 
     def __init__(
         self,
@@ -156,19 +159,31 @@ class DescriptorExtractor:
         (and to ``compute_dtype``) once, here, in place.
         ``compute_dtype="bfloat16"`` casts its parameters (and buffers)
         and the images to bf16; descriptors come back as float32 either
-        way. ``mesh`` (the JAX package's data-parallel extraction over
-        several devices) is not ported yet."""
-        if mesh is not None:
-            raise NotImplementedError("DescriptorExtractor(mesh=...) is not ported yet")
+        way. ``mesh`` (``vsc2022_torch.parallel.Mesh``): data-parallel
+        extraction, as the JAX package's: each batch splits into one equal
+        slice per mesh entry (``batch_size`` must divide by the mesh
+        size), each slice runs on its entry's device; the model is
+        replicated once per distinct device (the first on the lead device,
+        which stands for ``device``)."""
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
                              f"got {compute_dtype!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if batch_size % mesh.size:
+                raise ValueError(f"batch_size {batch_size} must divide by the mesh's "
+                                 f"{mesh.size} devices")
+            self.device = mesh.lead
+        else:
+            self.device = resolve_device(device)
         self.dtype = COMPUTE_DTYPES[compute_dtype]
-        memory_format = (torch.channels_last if self.device.type == "cuda"
-                         else torch.contiguous_format)
-        self.model = model.eval().to(self.device, self.dtype,
-                                     memory_format=memory_format)
+        self.model = self._placed(model.eval(), self.device)
+        # One replica per distinct device of the mesh (the model itself on
+        # the lead device).
+        self._replicas = {self.device: self.model}
+        for dev in ([] if mesh is None else mesh.distinct()):
+            if dev not in self._replicas:
+                self._replicas[dev] = self._placed(copy.deepcopy(self.model), dev)
         self.transform = transform
         self.batch_size = batch_size
         # The last extract()'s counts and host seconds: decode (in the
@@ -176,13 +191,18 @@ class DescriptorExtractor:
         # for descriptors to come back.
         self.last_stats: dict = {}
 
+    def _placed(self, model: torch.nn.Module, device: torch.device) -> torch.nn.Module:
+        memory_format = (torch.channels_last if device.type == "cuda"
+                         else torch.contiguous_format)
+        return model.to(device, self.dtype, memory_format=memory_format)
+
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
-        """uint8 [B, H, W, 3] on the device → float32 [B, D]: preprocess
+        """uint8 [B, H, W, 3] on a device → float32 [B, D] there: preprocess
         (in float32, as the JAX package does), then the forward in the
-        compute dtype."""
-        with torch.inference_mode(), _numerics(self.device):
+        compute dtype, by the replica on that device."""
+        with torch.inference_mode(), _numerics(frames.device):
             images = preprocess(frames, self.transform).permute(0, 3, 1, 2)
-            return self.model(images.to(self.dtype)).float()
+            return self._replicas[frames.device](images.to(self.dtype)).float()
 
     def _dispatch_batch(self, frames_u8: np.ndarray):
         """Dispatch one batch without waiting for it: the copy in, the
@@ -194,20 +214,29 @@ class DescriptorExtractor:
             frames_u8 = np.concatenate([frames_u8, pad], axis=0)
         host = torch.from_numpy(np.ascontiguousarray(frames_u8))
         if self.device.type != "cuda":
-            return (self.forward(host), None), n
-        frames = host.pin_memory().to(self.device, non_blocking=True)
-        out = self.forward(frames)
-        result = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        result.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+            slices = [host] if self.mesh is None else first_axis_sharding(self.mesh)(host)
+            return (torch.cat([self.forward(x) for x in slices]), None), n
+        host = host.pin_memory()
+        slices = ([host.to(self.device, non_blocking=True)] if self.mesh is None
+                  else first_axis_sharding(self.mesh)(host))
+        outs = [self.forward(frames) for frames in slices]
+        result = torch.empty((self.batch_size, outs[0].shape[1]), dtype=outs[0].dtype,
+                             pin_memory=True)
+        step = outs[0].shape[0]
+        for i, out in enumerate(outs):
+            result[i * step : (i + 1) * step].copy_(out, non_blocking=True)
+        done = []
+        for dev in dict.fromkeys(out.device for out in outs):
+            done.append(torch.cuda.Event())
+            done[-1].record(torch.cuda.current_stream(dev))
         return (result, done), n
 
     def _collect(self, pending, n: int) -> np.ndarray:
         result, done = pending
         if done is not None:
             t0 = time.perf_counter()
-            done.synchronize()
+            for event in done:
+                event.synchronize()
             self.last_stats["wait_s"] += time.perf_counter() - t0
         return result.numpy()[:n].copy()
 

@@ -12,6 +12,17 @@ serving default): their rows are widened to f32 as they are gathered,
 before the similarity, so only the stored values round. Query tables stay
 f32.
 
+With ``mesh`` (``vsc2022_torch.parallel.Mesh``) each chunk of candidate
+pairs splits into one tile of ⌈B/n⌉ pairs per mesh entry (JAX pads the
+batch to the mesh multiple; here the last tiles are shorter): the tile's
+rows are gathered onto the entry's device and its similarities and TN DP
+run there, and the packed boxes merge on the lead device. Each pair's DP
+is independent of the others, so the boxes are the unsplit batch's.
+``shard_ref_table`` also row-shards the reference tables over the mesh
+(``RowShardedTable``): a tile's rows come from the shards that own them,
+copied whole, so the gathered rows and every similarity are bit-identical
+to the unsharded ones.
+
 Box → Match conversion keeps reference semantics: boxes are inclusive
 frame-index rectangles; query_start = get_timestamps(x1)[0],
 query_end = get_timestamps(x2)[1] (reference:
@@ -32,6 +43,7 @@ import torch
 from vsc2022_torch.device import DeviceLike, resolve_device
 from vsc2022_torch.metrics import CandidatePair, Match
 from vsc2022_torch.ops.tn_align import TNParams, tn_align_packed
+from vsc2022_torch.parallel.mesh import on_device
 from vsc2022_torch.types import VideoFeature
 
 logger = logging.getLogger(__name__)
@@ -45,12 +57,93 @@ TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _PROGRESS_MIN = 256
 
 
-def gather_rows(table: torch.Tensor, idx) -> torch.Tensor:
-    """[B, n_pad, d] rows of ``table`` at the [B, n_pad] row indices
-    ``idx`` (numpy or torch), gathered on the table's device, in its
-    dtype."""
+class RowShardedTable:
+    """A device table of frame rows split by rows over a mesh (the JAX
+    localizer's ``shard_ref_table``): its ``rows`` logical rows pad with
+    zero rows to a multiple of the mesh size, and shard s holds rows
+    [s·shard_rows, (s+1)·shard_rows) on entry s's device (the shards on
+    one device views into one tensor). Offsets address rows absolutely,
+    so the tail padding is invisible to every gather."""
+
+    def __init__(self, mesh, rows: int, width: int, dtype: torch.dtype, fill):
+        """``fill(device, g0, g1)``: global rows [g0, g1) on ``device``."""
+        self.mesh, self.rows, self.dtype = mesh, rows, dtype
+        self.shard_rows = -(-max(rows, 1) // mesh.size)
+        count = {dev: mesh.devices.count(dev) for dev in mesh.distinct()}
+        whole = {dev: torch.zeros((k * self.shard_rows, width), dtype=dtype, device=dev)
+                 for dev, k in count.items()}
+        taken = dict.fromkeys(count, 0)
+        self.shards = []
+        for s, dev in enumerate(mesh.devices):
+            i, taken[dev] = taken[dev], taken[dev] + 1
+            view = whole[dev][i * self.shard_rows : (i + 1) * self.shard_rows]
+            g0, g1 = s * self.shard_rows, min(rows, (s + 1) * self.shard_rows)
+            if g1 > g0:
+                view[: g1 - g0] = fill(dev, g0, g1).to(dtype)
+            self.shards.append(view)
+
+    @classmethod
+    def of(cls, mesh, rows: torch.Tensor, dtype: torch.dtype) -> "RowShardedTable":
+        """The table of ``rows`` (anywhere), stored in ``dtype`` (rounded on
+        each shard's device)."""
+        return cls(mesh, rows.shape[0], rows.shape[1], dtype,
+                   lambda dev, g0, g1: rows[g0:g1].to(dev))
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.rows, self.shards[0].shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.lead
+
+    def gather(self, idx, device: torch.device) -> torch.Tensor:
+        """Rows at the row indices ``idx`` (numpy, any shape) on ``device``,
+        [*idx.shape, d] in the stored dtype: each shard hands over the rows
+        it owns, copied whole."""
+        idx = np.asarray(idx, dtype=np.int64)
+        flat = idx.reshape(-1)
+        out = torch.zeros((flat.size, self.shape[1]), dtype=self.dtype, device=device)
+        owner = flat // self.shard_rows
+        for s, view in enumerate(self.shards):
+            at = np.nonzero(owner == s)[0]
+            if at.size:
+                local = torch.from_numpy(flat[at] - s * self.shard_rows).to(view.device)
+                out[torch.from_numpy(at).to(device)] = view.index_select(0, local).to(device)
+        return out.view(*idx.shape, self.shape[1])
+
+    def append(self, new: torch.Tensor) -> "RowShardedTable":
+        """The table grown by the rows ``new``, on the fresh layout of its
+        new size: resident rows move shard to shard, only ``new`` comes in."""
+        old = self.rows
+
+        def fill(dev, g0, g1):
+            parts = []
+            if g0 < old:
+                parts.append(self.gather(np.arange(g0, min(g1, old)), dev))
+            if g1 > old:
+                parts.append(new[max(g0 - old, 0) : g1 - old].to(dev).to(self.dtype))
+            return torch.cat(parts)
+
+        return RowShardedTable(self.mesh, old + new.shape[0], self.shape[1], self.dtype, fill)
+
+    def take(self, idx: np.ndarray) -> "RowShardedTable":
+        """A table of the rows ``idx``, in that order, on the fresh layout
+        of its size (the compaction)."""
+        return RowShardedTable(self.mesh, idx.size, self.shape[1], self.dtype,
+                               lambda dev, g0, g1: self.gather(idx[g0:g1], dev))
+
+
+def gather_rows(table, idx, device=None) -> torch.Tensor:
+    """[B, n_pad, d] rows of ``table`` (a tensor or a ``RowShardedTable``)
+    at the [B, n_pad] row indices ``idx`` (numpy or torch), in its dtype,
+    on ``device`` (default the table's)."""
+    device = table.device if device is None else device
+    if isinstance(table, RowShardedTable):
+        return table.gather(torch.as_tensor(idx).cpu().numpy(), device)
     idx = torch.as_tensor(idx, device=table.device)
-    return table.index_select(0, idx.reshape(-1)).view(*idx.shape, table.shape[1])
+    rows = table.index_select(0, idx.reshape(-1)).view(*idx.shape, table.shape[1])
+    return rows.to(device, non_blocking=True)
 
 
 def _bucket(n: int, minimum: int = 32) -> int:
@@ -109,18 +202,27 @@ class TNLocalization(LocalizationWithMetadata):
         vcsl_faithful: bool = False,
         table_dtype: str = "float32",
         device: DeviceLike = "cuda",
+        mesh=None,
+        shard_ref_table: bool = False,
         **kwargs,
     ):
+        """``mesh``: split each chunk of pairs over its entries (its lead
+        device stands for ``device``); ``shard_ref_table``: also row-shard
+        the reference tables over it (module docstring)."""
         super().__init__(queries, refs)
         if model_type != "TN":
             raise ValueError(f"Unsupported alignment model type: {model_type}")
         if table_dtype not in TABLE_DTYPES:
             raise ValueError(f"Unsupported table_dtype: {table_dtype}")
+        if shard_ref_table and mesh is None:
+            raise ValueError("shard_ref_table requires a mesh")
         del concurrency, kwargs
         self.similarity_bias = similarity_bias
         # The storage dtype of the reference tables ("ref", "ref_fine").
         self._table_dtype = TABLE_DTYPES[table_dtype]
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._shard_ref_table = shard_ref_table
+        self.device = mesh.lead if mesh is not None else resolve_device(device)
         # Device tables of frame rows by name: (table, {video: (start, n)}).
         self._tables: Dict[str, Tuple[torch.Tensor, Dict]] = {}
         if vcsl_faithful:
@@ -140,7 +242,8 @@ class TNLocalization(LocalizationWithMetadata):
 
     def _stage(self, name: str, source: Dict, video_ids: Sequence, row_fn=None):
         """The device table ``name`` of frame rows (row 0 a zero pad row
-        for masked gathers) and its per-video (start, n) offsets, holding
+        for masked gathers; a ``RowShardedTable`` for a reference table
+        under ``shard_ref_table``) and its per-video (start, n) offsets, holding
         at least the rows of ``video_ids``: the videos it lacks are
         appended, so each video's rows cross to the device once. Only the
         videos asked for are staged: a one-shot run localizes a few
@@ -166,8 +269,13 @@ class TNLocalization(LocalizationWithMetadata):
         if table is None:
             rows.insert(0, np.zeros((1, rows[0].shape[1]), np.float32))
         dtype = self._table_dtype if name.startswith("ref") else torch.float32
-        new = torch.from_numpy(np.concatenate(rows, axis=0)).to(self.device)
-        new = new.to(dtype)
+        new = torch.from_numpy(np.concatenate(rows, axis=0))
+        if name.startswith("ref") and self._shard_ref_table:
+            table = (RowShardedTable.of(self.mesh, new, dtype) if table is None
+                     else table.append(new))
+            self._tables[name] = (table, offsets)
+            return table, offsets
+        new = new.to(self.device).to(dtype)
         table = new if table is None else torch.cat([table, new])
         self._tables[name] = (table, offsets)
         return table, offsets
@@ -244,6 +352,9 @@ class TNLocalization(LocalizationWithMetadata):
         for (_, n), vid in spans:
             new_offs[vid] = (cursor, n)
             cursor += n
+        if isinstance(table, RowShardedTable):
+            self._tables[name] = (table.take(idx), new_offs)
+            return
         flat = torch.from_numpy(idx).to(self.device)
         self._tables[name] = (table.index_select(0, flat), new_offs)
 
@@ -269,16 +380,20 @@ class TNLocalization(LocalizationWithMetadata):
             lengths[i] = n
         return idx, lengths
 
-    def _gather(self, table: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-        """[B, n_pad, d] f32 rows of ``table`` at ``idx``, gathered on the
-        device (a bf16 table's rows widened after the gather)."""
-        return gather_rows(table, idx).float()
+    def _gather(self, table, idx: np.ndarray, device: torch.device = None) -> torch.Tensor:
+        """[B, n_pad, d] f32 rows of ``table`` at ``idx``, gathered onto
+        ``device`` (default the table's; a bf16 table's rows widened after
+        the gather)."""
+        return gather_rows(table, idx, device).float()
 
     def _batch_sims(
-        self, candidates: Sequence[CandidatePair], nq: int, nr: int
+        self, candidates: Sequence[CandidatePair], nq: int, nr: int,
+        device: torch.device = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """[B, nq, nr] biased similarity matrices of same-bucket pairs,
-        from rows gathered out of the staged tables."""
+        from rows gathered out of the staged tables, on ``device``
+        (default the localizer's)."""
+        device = self.device if device is None else device
         q_tab, q_offs, r_tab, r_offs = self._pair_tables(candidates)
         q_idx, q_len = self._indices_from(
             q_offs, [c.query_id for c in candidates], nq
@@ -286,14 +401,31 @@ class TNLocalization(LocalizationWithMetadata):
         r_idx, r_len = self._indices_from(
             r_offs, [c.ref_id for c in candidates], nr
         )
-        q = self._gather(q_tab, q_idx)
-        r = self._gather(r_tab, r_idx)
+        q = self._gather(q_tab, q_idx, device)
+        r = self._gather(r_tab, r_idx, device)
         sims = torch.bmm(q, r.transpose(1, 2)) + float(self.similarity_bias)
         return (
             sims,
-            torch.from_numpy(q_len).to(self.device),
-            torch.from_numpy(r_len).to(self.device),
+            torch.from_numpy(q_len).to(device),
+            torch.from_numpy(r_len).to(device),
         )
+
+    def _align(self, chunk: Sequence[CandidatePair], nq: int, nr: int) -> np.ndarray:
+        """The packed TN boxes of one chunk of same-bucket pairs; with a
+        mesh, one tile of pairs per entry, each on its device, every tile
+        launched before any is read."""
+        if self.mesh is None:
+            sims, q_len, r_len = self._batch_sims(chunk, nq, nr)
+            return tn_align_packed(sims, q_len, r_len, self.params).cpu().numpy()
+        tile = -(-len(chunk) // self.mesh.size)
+        packed = []
+        for i, dev in enumerate(self.mesh.devices[: -(-len(chunk) // tile)]):
+            with on_device(dev):
+                sims, q_len, r_len = self._batch_sims(chunk[i * tile : (i + 1) * tile],
+                                                      nq, nr, dev)
+                packed.append(tn_align_packed(sims, q_len, r_len, self.params)
+                              .to(self.device, non_blocking=True))
+        return torch.cat(packed).cpu().numpy()
 
     def localize_all(self, candidates: List[CandidatePair]) -> List[Match]:
         if candidates:  # one staging pass for all the call's chunks
@@ -312,9 +444,7 @@ class TNLocalization(LocalizationWithMetadata):
                 chunk = [
                     candidates[i] for i in idxs[chunk_start : chunk_start + max_b]
                 ]
-                sims, q_len, r_len = self._batch_sims(chunk, nq, nr)
-                packed = tn_align_packed(sims, q_len, r_len, self.params)
-                matches.extend(self._finish_bucket(chunk, packed.cpu().numpy()))
+                matches.extend(self._finish_bucket(chunk, self._align(chunk, nq, nr)))
                 done += len(chunk)
                 if done < len(candidates) or done > _PROGRESS_MIN:
                     logger.info(

@@ -216,6 +216,19 @@ def quantize_rows_int8(rows) -> Tuple[np.ndarray, np.ndarray]:
     return codes.numpy(), scale.numpy()
 
 
+def _widened_scores(q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+                    n_valid: int, dim: int) -> torch.Tensor:
+    """q·rᵀ over the first ``n_valid`` rows of int8 codes in f32: the codes
+    widened a block of rows at a time (no f32 copy of the corpus),
+    ``torch.matmul``, then the scales."""
+    step = max(1, PLAIN_CHUNK_ELEMENTS // max(dim, 1))
+    return torch.cat([
+        torch.matmul(q, codes[c : min(c + step, n_valid), :dim].float().T)
+        * scale[c : min(c + step, n_valid)]
+        for c in range(0, n_valid, step)
+    ], 1)
+
+
 def _max_row_norm(rows: torch.Tensor, scale: Optional[torch.Tensor] = None) -> float:
     """The largest L2 row norm, taken in f32 (a bf16 tensor's own norm is
     bf16; int8 codes' norms times their scales: the dequantized rows'),
@@ -416,9 +429,11 @@ class SimilaritySearcher:
     def staged_bytes(self) -> int:
         """Device bytes of the staged corpus: the rows (int8: the codes
         and the scales; L2: the squared norms) and the tensor-core copy, if
-        one is held."""
+        one is held apart from the rows (at a D of a multiple of 8 the
+        kernels read the staged rows themselves)."""
+        copy = None if self._tc_copy is self._refs else self._tc_copy
         return sum(t.numel() * t.element_size()
-                   for t in (self._refs, self._scale, self._ref_sq, self._tc_copy)
+                   for t in (self._refs, self._scale, self._ref_sq, copy)
                    if t is not None)
 
     @staticmethod
@@ -544,8 +559,7 @@ class SimilaritySearcher:
         """Best score per row of staged queries (``_stage_queries``), on
         the device: the ``row_max`` kernel (under L2 the best goodness,
         i.e. minus the squared distance)."""
-        q_k, refs, kw = self._kernel_operands(q)
-        return kernels.row_max(q_k, refs, self.n_refs, **kw)
+        return self._row_max(*self._query_operands(q))
 
     def row_nn(self, queries) -> np.ndarray:
         """Best score per row (k=1), e.g. for score normalization; the
@@ -554,24 +568,17 @@ class SimilaritySearcher:
         best = self.row_max(self._stage_queries(queries)).cpu().numpy()
         return -best if self._l2 else best
 
-    def _int8_scores(self, q: torch.Tensor) -> torch.Tensor:
-        """q·rᵀ over the valid rows of an int8 corpus in f32: the codes
-        widened a block of rows at a time (no f32 copy of the corpus),
-        ``torch.matmul``, then the scales."""
-        step = max(1, PLAIN_CHUNK_ELEMENTS // max(self.dim, 1))
-        return torch.cat([
-            torch.matmul(q, self._refs[c : min(c + step, self.n_refs), : self.dim].float().T)
-            * self._scale[c : min(c + step, self.n_refs)]
-            for c in range(0, self.n_refs, step)
-        ], 1)
-
-    def _goodness(self, s: torch.Tensor, q_sq: torch.Tensor) -> torch.Tensor:
-        """Scores s [m, n_refs] of a chunk of rows as the kernels give them:
-        under L2 the goodness (2·s − ‖r‖²) − ‖q‖² (``q_sq``: the chunk's),
-        in place, each step one f32 rounding as in the kernels."""
+    def _goodness(self, s: torch.Tensor, q_sq: torch.Tensor,
+                  ref_sq: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Scores s [m, n] of a chunk of rows against the first n staged
+        rows as the kernels give them: under L2 the goodness (2·s − ‖r‖²)
+        − ‖q‖² (``q_sq``: the chunk's; ``ref_sq``: the rows' squared norms,
+        by default the staged corpus's), in place, each step one f32
+        rounding as in the kernels."""
         if not self._l2:
             return s
-        return s.mul_(2.0).sub_(self._ref_sq[: self.n_refs]).sub_(q_sq[:, None])
+        ref_sq = self._ref_sq if ref_sq is None else ref_sq
+        return s.mul_(2.0).sub_(ref_sq[: s.shape[1]]).sub_(q_sq[:, None])
 
     def row_topk(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Exact per-row top-k: (scores [Nq, k], idx [Nq, k]), best-first,
@@ -585,12 +592,10 @@ class SimilaritySearcher:
         nq = q.shape[0]
         out_s = np.empty((nq, k), dtype=np.float32)
         out_i = np.empty((nq, k), dtype=np.int64)
-        refs = None if self._int8 else self._refs[: self.n_refs].float()
         step = self._row_chunk()
         for start in range(0, nq, step):
-            rows = q[start : start + step]
-            s = self._int8_scores(rows) if self._int8 else torch.matmul(rows, refs.T)
-            s = self._goodness(s, None if q_sq is None else q_sq[start : start + step])
+            s = self._dense_scores(q[start : start + step],
+                                   None if q_sq is None else q_sq[start : start + step])
             vals, idx = torch.sort(s, dim=1, descending=True, stable=True)
             out_s[start : start + step] = vals[:, :k].cpu().numpy()
             out_i[start : start + step] = idx[:, :k].cpu().numpy()
@@ -676,7 +681,7 @@ class SimilaritySearcher:
         floor = tau - margin
         parts_s, parts_q, parts_r = [], [], []
         if self._tensor_cores or self._int8:
-            q_rows, refs, kw = self._kernel_operands(q_rows, q_sq)
+            q_rows, qkw = self._query_operands(q_rows, q_sq)
             m = q_rows.shape[0]
             capacity = count + ABOVE_HEADROOM * m
             step = m if capacity <= ABOVE_BUDGET_ENTRIES else max(
@@ -684,20 +689,19 @@ class SimilaritySearcher:
             for start in range(0, m, step):
                 rows = q_rows[start : start + step]
                 cap = capacity if step == m else rows.shape[0] * self.n_refs
-                s, rr, cc = kernels.scores_above(
-                    rows, refs, self.n_refs, floor[start : start + step], capacity=cap,
-                    **self._rows_kw(kw, slice(start, start + step)))
+                s, rr, cc = self._scores_above(
+                    rows, floor[start : start + step], cap,
+                    self._rows_kw(qkw, slice(start, start + step)))
                 parts_s.append(s)
                 parts_q.append(rr.long() + start)
                 parts_r.append(cc.long())
             return torch.cat(parts_s), torch.cat(parts_q), torch.cat(parts_r)
-        refs = self._refs[: self.n_refs]
         step = self._row_chunk()
         for start in range(0, q_rows.shape[0], step):
-            s = self._goodness(_f32_scores(q_rows[start : start + step], refs),
-                               None if q_sq is None else q_sq[start : start + step])
-            rr, cc = torch.nonzero(s >= floor[start : start + step, None], as_tuple=True)
-            parts_s.append(s[rr, cc])
+            s, rr, cc = self._dense_above(
+                q_rows[start : start + step], floor[start : start + step],
+                None if q_sq is None else q_sq[start : start + step])
+            parts_s.append(s)
             parts_q.append(rr + start)
             parts_r.append(cc)
         return torch.cat(parts_s), torch.cat(parts_q), torch.cat(parts_r)
@@ -777,38 +781,93 @@ class SimilaritySearcher:
         logger.info("global_topk k=%d: %s", k_eff, self.last_stats)
         return qi, ri, scores
 
-    def _kernel_operands(self, q: torch.Tensor, q_sq: Optional[torch.Tensor] = None):
-        """(queries, corpus, keyword arguments) as a collection hands them
-        to its kernels: the queries as the product takes them
-        (``_product_queries``), over a bf16 corpus padded once, with
-        ``tensor_core_refs``; over an int8 one padded once to the codes'
-        width, with the codes and their scales; under L2 with the squared
-        norms of the corpus rows and of the queries (``q_sq``, else taken
-        here from the staged queries). So the candidates and the counts
-        score on one product."""
-        refs = self.tensor_core_refs()
-        kw = {}
-        if self._l2:
-            kw = {"ref_sq": self._ref_sq, "q_sq": _row_sq(q) if q_sq is None else q_sq}
-        elif self._int8:
-            kw = {"scale": self._scale}
+    def _query_operands(self, q: torch.Tensor, q_sq: Optional[torch.Tensor] = None):
+        """(queries, keyword arguments) as a collection hands them to its
+        kernels: the queries as the product takes them
+        (``_product_queries``), over a bf16 corpus padded once, over an int8
+        one padded once to the codes' width; under L2 with their squared
+        norms (``q_sq``, else taken here from the staged queries). The
+        corpus side is ``_corpus_kw`` and ``tensor_core_refs``. So the
+        candidates and the counts score on one product."""
+        kw = {"q_sq": _row_sq(q) if q_sq is None else q_sq} if self._l2 else {}
         q = self._product_queries(q)
         if self._tensor_cores:
             q = kernels.pad_columns(q)
         elif self._int8:
             q = kernels.pad_columns(q, kernels.I8_ROW_ALIGN)
-        return q, refs, kw
+        return q, kw
+
+    def _corpus_kw(self, scale: Optional[torch.Tensor] = None,
+                   ref_sq: Optional[torch.Tensor] = None) -> dict:
+        """The corpus's keyword arguments to its kernels: under L2 the rows'
+        squared norms, over int8 codes their scales (the staged corpus's,
+        or those given: a shard's)."""
+        if self._l2:
+            return {"ref_sq": self._ref_sq if ref_sq is None else ref_sq}
+        if self._int8:
+            return {"scale": self._scale if scale is None else scale}
+        return {}
+
+    # ---- the kernel calls --------------------------------------------------
+    # Every product a search runs goes through one of these, over the whole
+    # staged corpus, with the query operands of ``_query_operands``
+    # (``qkw``: their keyword arguments). ShardedSimilaritySearcher
+    # (vsc2022_torch/parallel) runs each on every shard and merges.
+
+    def _row_max(self, q_k: torch.Tensor, qkw: dict) -> torch.Tensor:
+        return kernels.row_max(q_k, self.tensor_core_refs(), self.n_refs,
+                               **self._corpus_kw(), **qkw)
+
+    def _fused_topk(self, q_k: torch.Tensor, kappa: int, qkw: dict):
+        return kernels.fused_topk(q_k, self.tensor_core_refs(), self.n_refs, kappa,
+                                  **self._corpus_kw(), **qkw)
+
+    def _count_above(self, q_k: torch.Tensor, tau: float, qkw: dict) -> torch.Tensor:
+        return kernels.count_above(q_k, self.tensor_core_refs(), tau, self.n_refs,
+                                   **self._corpus_kw(), **qkw)
+
+    def _pool(self, q_k: torch.Tensor, qkw: dict):
+        """The winner pool as [M, P] values and ids (slot pairs adjacent
+        per segment)."""
+        pv, pi = kernels.pool_writer(q_k, self.tensor_core_refs(), self.n_refs,
+                                     **self._corpus_kw(), **qkw)
+        return pv.view(q_k.shape[0], -1), pi.view(q_k.shape[0], -1)
+
+    def _scores_above(self, q_k: torch.Tensor, floor: torch.Tensor, capacity: int,
+                      qkw: dict):
+        """The tensor-core re-search: (scores, rows, ref ids) at or above
+        each row's floor (``kernels.scores_above``)."""
+        return kernels.scores_above(q_k, self.tensor_core_refs(), self.n_refs, floor,
+                                    capacity=capacity, **self._corpus_kw(), **qkw)
+
+    def _dense_above(self, rows: torch.Tensor, floor: torch.Tensor,
+                     q_sq: Optional[torch.Tensor]):
+        """The f32 re-search of a chunk of staged query rows: (scores, rows,
+        ref ids) at or above each row's floor, from ``_f32_scores``."""
+        s = self._goodness(_f32_scores(rows, self._refs[: self.n_refs]), q_sq)
+        rr, cc = torch.nonzero(s >= floor[:, None], as_tuple=True)
+        return s[rr, cc], rr, cc
+
+    def _dense_scores(self, rows: torch.Tensor, q_sq: Optional[torch.Tensor]):
+        """``row_topk``'s scores of a chunk of f32 query rows against every
+        valid row, [m, n_refs] (``torch.matmul``; int8 codes widened
+        a block at a time)."""
+        if self._int8:
+            s = _widened_scores(rows, self._refs, self._scale, self.n_refs, self.dim)
+        else:
+            s = torch.matmul(rows, self._refs[: self.n_refs].float().T)
+        return self._goodness(s, q_sq)
 
     @staticmethod
     def _rows_kw(kw: dict, rows) -> dict:
-        """The keyword arguments of ``_kernel_operands`` for a subset of its
+        """The keyword arguments of ``_query_operands`` for a subset of its
         query rows (under L2 their ``q_sq``)."""
         return {**kw, "q_sq": kw["q_sq"][rows]} if "q_sq" in kw else kw
 
     @staticmethod
     def _q_sq_of(kw: dict, rows) -> dict:
         """What ``_corpus_above`` takes besides its rows: under L2 (``kw``
-        of ``_kernel_operands`` with ``q_sq``) those rows' ``q_sq``."""
+        of ``_query_operands`` with ``q_sq``) those rows' ``q_sq``."""
         return {"q_sq": kw["q_sq"][rows]} if "q_sq" in kw else {}
 
     def _collect_stream(self, q: torch.Tensor, kappa: int, k_eff: int, clock):
@@ -818,8 +877,8 @@ class SimilaritySearcher:
         (scores, query rows, ref ids) holding every entry that can make
         the cut, and the stats."""
         nq = q.shape[0]
-        q_k, refs, kw = self._kernel_operands(q)
-        top_s, top_i = kernels.fused_topk(q_k, refs, self.n_refs, kappa, **kw)
+        q_k, qkw = self._query_operands(q)
+        top_s, top_i = self._fused_topk(q_k, kappa, qkw)
         clock.mark("candidates")
         # τ is the global k-th candidate; with k beyond the rows' κ
         # candidates the true k-th is unknowable from them: −inf.
@@ -827,7 +886,7 @@ class SimilaritySearcher:
             tau = NEG_INF
         else:
             tau = float(torch.topk(top_s.reshape(-1), k_eff).values[-1])
-        counts = kernels.count_above(q_k, refs, tau, self.n_refs, **kw).long()
+        counts = self._count_above(q_k, tau, qkw).long()
         above = (top_s >= tau) & torch.isfinite(top_s)
         kept = above.sum(1)
         # counts are exact corpus counts, so kept ≠ count flags exactly
@@ -842,7 +901,7 @@ class SimilaritySearcher:
         if corpus_rows.numel():
             cs, cq, cr = self._corpus_above(q[corpus_rows], tau,
                                             int(counts[corpus_rows].sum()),
-                                            **self._q_sq_of(kw, corpus_rows))
+                                            **self._q_sq_of(qkw, corpus_rows))
             parts_s.append(cs)
             parts_q.append(corpus_rows[cq])
             parts_r.append(cr)
@@ -853,17 +912,15 @@ class SimilaritySearcher:
         """The pooled collection (module docstring, steps 1-4); returns
         what ``_collect_stream`` returns."""
         nq = q.shape[0]
-        q_k, refs, kw = self._kernel_operands(q)
-        pv, pi = kernels.pool_writer(q_k, refs, self.n_refs, **kw)
-        pv = pv.view(nq, -1)  # [nq, P]: slot pairs adjacent per segment
-        pi = pi.view(nq, -1)
+        q_k, qkw = self._query_operands(q)
+        pv, pi = self._pool(q_k, qkw)  # [nq, P]
         n_valid_pool = int((pv > NEG_INF).sum())
         clock.mark("pool")
         if n_valid_pool < k_eff:
             # Fewer valid pool entries than k: every row is suspect, so
             # every row is searched exactly (τ = −inf keeps everything).
             return self._corpus_above(q, NEG_INF, nq * self.n_refs,
-                                      **self._q_sq_of(kw, slice(None))), {
+                                      **self._q_sq_of(qkw, slice(None))), {
                 "tau": NEG_INF, "corpus_rows": nq,
             }
         tau = float(torch.topk(pv.reshape(-1), k_eff).values[-1])
@@ -884,8 +941,8 @@ class SimilaritySearcher:
         corpus_count = 0
         amb_rows = torch.nonzero(ambiguous, as_tuple=True)[0]
         if amb_rows.numel():
-            totals = kernels.count_above(q_k[amb_rows], refs, tau,
-                                         self.n_refs, **self._rows_kw(kw, amb_rows)).long()
+            totals = self._count_above(q_k[amb_rows], tau,
+                                       self._rows_kw(qkw, amb_rows)).long()
             complete = totals == kept[amb_rows]
             hidden = totals > pool_counts[amb_rows]
             pool_repair[amb_rows[~complete & ~hidden]] = True
@@ -908,7 +965,7 @@ class SimilaritySearcher:
             parts_r.append(pi[pool_rows][rr, cc].long())
         if corpus_rows.numel():
             cs, cq, cr = self._corpus_above(q[corpus_rows], tau, corpus_count,
-                                            **self._q_sq_of(kw, corpus_rows))
+                                            **self._q_sq_of(qkw, corpus_rows))
             parts_s.append(cs)
             parts_q.append(corpus_rows[cq])
             parts_r.append(cr)

@@ -1,0 +1,12 @@
+"""Corpus sharding over the devices of one process (counterpart of
+``vsc2022_tpu/parallel``). The searcher over a mesh is in
+``vsc2022_torch.parallel.sharded_search``, imported where it is used."""
+
+from vsc2022_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    corpus_mesh,
+    first_axis_sharding,
+    first_axis_size,
+    initialize_distributed,
+    local_device_count,
+)

@@ -90,10 +90,12 @@ class CandidateGeneration:
         aggregation: ScoreAggregation,
         dtype: str = "float32",
         device: DeviceLike = "cuda",
+        mesh=None,
     ):
+        """``mesh``: shard the reference corpus over it (``VideoIndex``)."""
         self.aggregation = aggregation
         self.index = VideoIndex(
-            references[0].dimensions(), dtype=dtype, device=device
+            references[0].dimensions(), dtype=dtype, device=device, mesh=mesh
         )
         self.index.add(references)
 

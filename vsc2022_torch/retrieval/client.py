@@ -118,6 +118,7 @@ class ServeClient:
         score_norm_features: Optional[str] = None,
         ref_fine_features: Optional[str] = None,
         matches: bool = False,
+        sharded: bool = False,
         bf16: bool = False,
         f32: bool = False,
         int8: bool = False,
@@ -144,7 +145,8 @@ class ServeClient:
             cmd += ["--score_norm_features", os.path.abspath(score_norm_features)]
         if ref_fine_features:
             cmd += ["--ref_fine_features", os.path.abspath(ref_fine_features)]
-        for flag, on in (("--matches", matches), ("--bf16", bf16), ("--f32", f32),
+        for flag, on in (("--matches", matches), ("--sharded", sharded),
+                         ("--bf16", bf16), ("--f32", f32),
                          ("--int8", int8),
                          ("--vcsl_faithful_tn", vcsl_faithful_tn),
                          ("--no_warmup", no_warmup)):

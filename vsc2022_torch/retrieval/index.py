@@ -22,10 +22,13 @@ Search modes:
 
 Ported so far: ``codec_str`` "Flat" (with ``dtype`` "float32",
 "bfloat16" or "int8") and "SQ8" (``dtype="int8"``), ``metric`` "IP" or
-"L2" (the score-normalized index: IP only, as in JAX) and ``precision``
-"highest" or "default". The IVF codecs ("IVF{nlist}[,Flat|SQ8]") raise
-until they are ported; other codec strings raise ``ValueError``, as in
-the JAX package.
+"L2" (the score-normalized index: IP only, as in JAX), ``precision``
+"highest" or "default", and ``mesh`` (the corpus sharded over a
+``vsc2022_torch.parallel.Mesh``: ``ShardedSimilaritySearcher``). The IVF
+codecs ("IVF{nlist}[,Flat|SQ8]") raise until they are ported (with a mesh
+they raise ``ValueError``, as in JAX: sharding and pruning exclude each
+other); other codec strings raise ``ValueError``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import numpy as np
 
 from vsc2022_torch.device import DeviceLike, resolve_device
 from vsc2022_torch.ops.similarity import STORAGE_DTYPES, SimilaritySearcher
+from vsc2022_torch.parallel.sharded_search import make_searcher
 from vsc2022_torch.types import PairMatch, PairMatches, VideoFeature
 
 logger = logging.getLogger(__name__)
@@ -57,6 +61,7 @@ class VideoIndex:
         precision: str = "highest",
         dtype: str = "float32",
         device: DeviceLike = "cuda",
+        mesh=None,
     ):
         """``codec_str`` mirrors the reference's FAISS factory argument
         (reference: vsc/index.py:78): "Flat" is the exact search over the
@@ -67,9 +72,17 @@ class VideoIndex:
         (scores at bf16 resolution, f32 accumulation). ``metric`` "L2"
         scores by squared distance (lower is better), ``precision``
         "default" runs every product as one bf16 pass; both reach the
-        searcher (``ops/similarity.py``). The IVF codecs are not ported
-        yet and raise."""
-        if re.fullmatch(r"IVF(\d+)(?:,(Flat|SQ8))?", codec_str):
+        searcher (``ops/similarity.py``). ``mesh``: an optional
+        ``vsc2022_torch.parallel.Mesh`` to shard the reference corpus over
+        (``parallel/sharded_search.py``); its lead device stands for
+        ``device``. The IVF codecs are not ported yet and raise."""
+        ivf = re.fullmatch(r"IVF(\d+)(?:,(Flat|SQ8))?", codec_str)
+        if ivf and mesh is not None:
+            raise ValueError(
+                "IVF codecs are single-chip for now: shard the corpus "
+                "(mesh) OR prune it (IVF), not both"
+            )
+        if ivf:
             raise NotImplementedError(
                 f"codec {codec_str!r}: the IVF tier is not ported yet"
             )
@@ -89,7 +102,8 @@ class VideoIndex:
         self.metric = metric
         self.precision = precision
         self.dtype = dtype
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.lead if mesh is not None else resolve_device(device)
         self.video_clip_idx: List[int] = []
         self.video_clip_to_video_ids: List[str] = []
         self.video_metadata = {}
@@ -196,10 +210,9 @@ class VideoIndex:
 
     def _get_searcher(self):
         if self._searcher is None:
-            self._searcher = SimilaritySearcher(
-                self._corpus(), metric=self.metric, precision=self.precision,
-                dtype=self.dtype, device=self.device,
-            )
+            self._searcher = make_searcher(
+                self._corpus(), self.mesh, self.device, metric=self.metric,
+                precision=self.precision, dtype=self.dtype)
         return self._searcher
 
     def search(
@@ -351,6 +364,7 @@ class ScoreNormalizedVideoIndex(VideoIndex):
                 precision=self.precision,
                 dtype=self.dtype,
                 device=self.device,
+                mesh=self.mesh,
             )
         return self._searcher
 

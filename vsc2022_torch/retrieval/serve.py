@@ -84,8 +84,13 @@ disk. With the same weights and flags, ``extract`` writes the CLI's npz
 byte for byte, and ``searchv`` answers as ``extract`` followed by a path
 search of its npz. ``searchv`` does not serve the DnS track.
 
+``--sharded`` shards the corpus over every device of the ``--device`` kind
+in this process (``vsc2022_torch.parallel.corpus_mesh``: each card; one
+shard on a one-card machine or on the CPU), and the localizer's reference
+tables with it (``shard_ref_table``).
+
 Not ported yet (each raises at startup, or answers ``error`` for a
-command): ``--ivf``, ``--sharded``, the multi-host flags and ``probe``.
+command): ``--ivf``, the multi-host flags and ``probe``.
 
     python -m vsc2022_torch.retrieval.serve --ref_features refs.npz \\
         --score_norm_features noise.npz --matches [--listen 127.0.0.1:0]
@@ -136,7 +141,8 @@ parser.add_argument(
 )
 parser.add_argument(
     "--sharded", action="store_true",
-    help="Shard the reference corpus across devices (not ported yet)",
+    help="Shard the reference corpus (and the localizer's reference tables) "
+    "across every device of the --device kind in this process",
 )
 _dtype_group = parser.add_mutually_exclusive_group()
 _dtype_group.add_argument(
@@ -258,8 +264,6 @@ def check_ported(args) -> None:
     unported = []
     if args.ivf is not None or args.ivf_nprobe is not None:
         unported.append("--ivf")
-    if args.sharded:
-        unported.append("--sharded")
     if (args.num_processes or 1) > 1 or args.coordinator or args.control or args.process_id:
         unported.append("multi-host serving")
     if unported:
@@ -270,13 +274,19 @@ def build_index(args, device):
     refs = load_features(args.ref_features, Dataset.REFS)
     dim = refs[0].dimensions()
     dtype = staging_dtype(args)
+    mesh = None
+    if args.sharded:
+        from vsc2022_torch.parallel import corpus_mesh
+
+        mesh = corpus_mesh(device=device)
+        logger.info(f"Sharding the corpus over {mesh}")
     if args.score_norm_features:
         noise = load_features(args.score_norm_features, Dataset.REFS)
         index = ScoreNormalizedVideoIndex(
-            dim, noise, beta=args.beta, dtype=dtype, device=device
+            dim, noise, beta=args.beta, dtype=dtype, device=device, mesh=mesh
         )
     else:
-        index = VideoIndex(dim, dtype=dtype, device=device)
+        index = VideoIndex(dim, dtype=dtype, device=device, mesh=mesh)
     index.add(refs)
     return index, refs, dim
 
@@ -296,7 +306,8 @@ def build_localizer(index, refs, args, device):
 
     common = dict(model_type="TN", tn_max_step=5, min_length=4,
                   vcsl_faithful=args.vcsl_faithful_tn,
-                  table_dtype=table_dtype(args), device=device)
+                  table_dtype=table_dtype(args), device=device,
+                  mesh=index.mesh, shard_ref_table=index.mesh is not None)
     refs_loc = _localizer_refs(index, refs, args)
     if args.ref_fine_features:
         from vsc2022_torch.baseline.dns_baseline import DnSLocalization
@@ -697,7 +708,7 @@ def serve_request(index, aggregation, localizer, line: str, args, payloads=None,
             f"\t{len(index.video_metadata)}"
             f"\t{len(index.video_clip_to_video_ids)}"
             f"\t{index.dtype}"
-            "\t0"  # sharded: not ported yet
+            f"\t{int(index.mesh is not None)}"
             f"\t{int(args.matches)}"
         )
     query_path = parts[0]

@@ -1,7 +1,7 @@
 """Score-normalized search over flat arrays: the serving query path.
 
-Counterpart of ``vsc2022_tpu/retrieval/sn_search.py`` without the mesh
-and the IVF tier. The reference runs score normalization and retrieval
+Counterpart of ``vsc2022_tpu/retrieval/sn_search.py`` without the IVF
+tier. The reference runs score normalization and retrieval
 as separate FAISS stages with host round trips between them (reference:
 vsc/baseline/score_normalization.py:86-105 then vsc/index.py:142-165).
 Here the queries cross to the device once: the noise-NN bias is the
@@ -24,6 +24,12 @@ serving localizer aligns with.
 JAX package), while the queries and the bias column stay f32: the bias
 is the ``row_max`` kernel's int8 variant over the noise codes, and
 ``last_q_sn`` is f32.
+
+``mesh`` (``vsc2022_torch.parallel.Mesh``) shards both corpora over its
+entries (``ShardedSimilaritySearcher``), as the JAX package's fused
+sharded pipeline does: the bias is each noise shard's ``row_max``, the max
+over the shards, appended on the lead device, and the bias-augmented
+queries go into the sharded candidate phase.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import numpy as np
 import torch
 
 from vsc2022_torch.device import DeviceLike
-from vsc2022_torch.ops.similarity import SimilaritySearcher
+from vsc2022_torch.parallel.sharded_search import make_searcher
 
 
 def _with_ones(rows) -> np.ndarray:
@@ -53,15 +59,16 @@ class ScoreNormalizedSearcher:
         precision: str = "highest",
         dtype: str = "float32",
         device: DeviceLike = "cuda",
+        mesh=None,
     ):
+        """``mesh``: shard both corpora over it (its lead device stands for
+        ``device``)."""
         self.beta = beta
-        self.searcher = SimilaritySearcher(
-            _with_ones(refs), precision=precision, dtype=dtype, device=device
-        )
-        self.noise_searcher = SimilaritySearcher(
-            np.ascontiguousarray(noise, dtype=np.float32),
-            precision=precision, dtype=dtype, device=device,
-        )
+        noise = np.ascontiguousarray(noise, dtype=np.float32)
+        self.searcher = make_searcher(_with_ones(refs), mesh, device,
+                                      precision=precision, dtype=dtype)
+        self.noise_searcher = make_searcher(noise, mesh, device,
+                                            precision=precision, dtype=dtype)
         # The bias-augmented queries of the most recent global_topk, on the
         # device; serving localizes with them instead of a second noise-NN
         # pass. Single-threaded use only.
