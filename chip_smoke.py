@@ -234,6 +234,32 @@ Phases (any failure exits non-zero):
      forward alone in frames per second over 1,024 pre-decoded frames, f32
      and bf16, for each model.
 
+  9. The corpus sharded over the devices of this process (Mesh([dev] *
+     n)): 9a phase 4's corpus on 2 shards (pooled) and 4 (stream) in f32,
+     bf16 and int8, bit for bit with the single device, each shard's
+     launches checked, and in f32 on 4 shards each in an allocation of
+     its own (SHARD_F32_ATOL, the count off logged); 9b descriptor_eval
+     --sharded (subprocess, and in process on 2 shards); 9c serve --f32
+     --sharded through the client, requests (a)-(g) byte for byte with
+     phase 6; 9d the serving index and its row-sharded localizer tables
+     on 4 shards through serve_request, add and remove; 9e
+     DnSLocalization on 4 shards; 9f the extractor on 2 shards.
+ 10. A pod: two ranks, each a process of its own on this card, in one
+     torch.distributed group over gloo (NCCL refuses two ranks on one
+     card; every collective stages through the host). 10a: phase 4's
+     corpus as a pod ScoreNormalizedVideoIndex in f32, bf16 and int8
+     (one 507,904-row shard a rank, pooled): 9a's single-device arrays
+     (bf16, int8 bit for bit; f32 within SHARD_F32_ATOL, the count off
+     logged), both ranks equal, each rank launching once what 9a's two
+     shards launch twice. 10c: DnSLocalization over the pod with
+     row-sharded tables on phase 5's pairs: dns_baseline's rows on both
+     ranks. 10b: serve --sharded as a pod (leader driven by the client,
+     follower relayed over --control) at its bf16 default on phase 6's
+     catalogue, requests (a)-(g): phase 6b's replies and files byte for
+     byte, each rank launching what 6b's server launched. 10d: the
+     inference CLI as a two-rank --coordinator job on phase 8's query
+     videos: the merged shards equal phase 8's npz bit for bit.
+
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object with each kernel's numbers, and {"ok": true, "device": ...}.
 """
@@ -3639,7 +3665,7 @@ def phase_extraction(torch, np, kernels, dev):
         f"segment AP {quality['segment_ap']:.4f}")
     check(quality["candidate_uap"] > 0.5, f"searchv uAP {quality['candidate_uap']}")
     forward_rates(torch, np, dev, weights)
-    return launches
+    return launches, {"videos": videos, "weights": weights, "q": out["q"]}
 
 
 # ---- phase 9: the corpus sharded over one card ---------------------------------
@@ -3717,8 +3743,9 @@ def phase_sharded_search(torch, np, kernels, dev, paths):
     each its own allocation (as on separate cards), and one shard per card
     where there are several: there the f32 re-search is a cuBLAS call a
     shard, so global_topk may differ by SHARD_F32_ATOL (logged). Logs each
-    index's staging and search seconds and its steps. Returns {label:
-    launches of its search}."""
+    index's staging and search seconds and its steps; saves the single
+    device's arrays for phase 10a. Returns {label: launches of its
+    search}."""
     from unittest import mock
 
     from vsc2022_torch.metrics import Dataset
@@ -3778,6 +3805,7 @@ def phase_sharded_search(torch, np, kernels, dev, paths):
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
         want, want_topk, single = run(f"{dtype} 1 shard (SimilaritySearcher)", None, dtype)
+        save_single_topk(np, dtype, want_topk)
         single_mode = want_topk[0][1]
         near = []
         for name, n, mesh, apart in meshes:
@@ -4043,6 +4071,373 @@ def phase_sharded(torch, np, kernels, dev, paths, corpus):
 
 
 
+# ---- phase 10: a pod of two ranks on one card -----------------------------------
+
+# The pod: two processes (ranks) in one torch.distributed group. On the
+# one-card machine both ranks take cuda:0, so the group is gloo (NCCL
+# refuses two ranks on one card): each collective stages its tensors on
+# the host, while every kernel runs on the card.
+POD_RANKS = 2
+POD_BACKEND = "gloo"
+POD_TIMEOUT = 600  # seconds a rank process may take
+POD_DTYPES = ("float32", "bfloat16", "int8")
+
+
+def _pod_single_path(dtype):
+    return SMOKE_DIR / "pod" / f"single_{dtype}.npz"
+
+
+def save_single_topk(np, dtype, topk):
+    """9a's single-device global_topk arrays of ``dtype``, for phase 10a."""
+    path = _pod_single_path(dtype)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    (arrays, mode), = topk
+    np.savez(path, q=arrays[0], r=arrays[1], s=arrays[2], mode=np.array(mode))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def pod_rank_main(rank: int, port: int, out: Path) -> int:
+    """One rank of phase 10's pod, run as ``chip_smoke.py --pod-rank R
+    --pod-port P --pod-dir D``: 10a, phase 4's corpus searched by a
+    ScoreNormalizedVideoIndex over the pod mesh in each dtype, and 10c,
+    DnSLocalization with row-sharded tables over the pod on phase 5's
+    candidates. Writes its results, launches and seconds under ``out``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from vsc2022_torch.baseline import dns_baseline, pipeline
+    from vsc2022_torch.metrics import CandidatePair, Dataset, Match
+    from vsc2022_torch.ops import _build, kernels
+    from vsc2022_torch.parallel import corpus_mesh, initialize_distributed
+    from vsc2022_torch.retrieval.index import ScoreNormalizedVideoIndex
+    from vsc2022_torch.storage import load_features
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    dev = initialize_distributed(f"localhost:{port}", POD_RANKS, rank,
+                                 backend=POD_BACKEND, device="cuda")
+    _build.library()
+    mesh = corpus_mesh(device=dev)
+    report = {"device": str(dev), "mesh": repr(mesh), "join_s": time.perf_counter() - t0}
+    paths = {k: str(SMOKE_DIR / f"{k}.npz") for k in ("queries", "refs", "noise")}
+    t0 = time.perf_counter()
+    queries = load_features(paths["queries"], Dataset.QUERIES)
+    refs = load_features(paths["refs"], Dataset.REFS)
+    noise = load_features(paths["noise"], Dataset.REFS)
+    report["load_s"] = time.perf_counter() - t0
+    k = 1200 * len(queries)
+    for dtype in POD_DTYPES:
+        index = ScoreNormalizedVideoIndex(DIM, noise, beta=1.2, dtype=dtype, device=dev,
+                                          mesh=mesh)
+        index.add(refs)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        searcher = index._get_searcher().searcher
+        torch.cuda.synchronize(dev)
+        stage = time.perf_counter() - t0
+        with topk_results() as seen:
+            t0 = time.perf_counter()
+            _, counts = _sharded_launches(kernels, lambda: index.search(queries, global_k=k))
+            search = time.perf_counter() - t0
+        (q, r, s), mode = seen[0]
+        np.savez(out / f"rank{rank}_{dtype}.npz", q=q, r=r, s=s, mode=np.array(mode))
+        st = dict(searcher.last_stats)
+        report[dtype] = {"stage_s": stage, "search_s": search, "mode": mode,
+                         "steps_s": st.pop("seconds"), "launches": counts,
+                         "staged_bytes": searcher.staged_bytes(),
+                         "shard_rows": searcher.shard_rows,
+                         "local_shards": len(mesh.local)}
+        del index, searcher
+        torch.cuda.empty_cache()
+    del refs, noise
+    # 10c: the DnS localizer over the pod (phase 9e's run, one tile a rank).
+    work = SMOKE_DIR / "dns"
+    idx = work / "idx"
+
+    def by_id(name, ds):
+        return {vf.video_id: vf for vf in load_features(str(idx / name), ds)}
+
+    queries_fine = by_id("queries_fg_att_student.npz", Dataset.QUERIES)
+    cands = CandidatePair.read_csv(str(work / "out" / "candidates.csv"))
+    cands = cands[: int(len(queries_fine) * pipeline.LOCALIZE_PER_QUERY)]
+    loc = dns_baseline.DnSLocalization(
+        queries_fine, by_id("refs_fg_att_student.npz", Dataset.REFS),
+        load_features(str(idx / "queries_cg_student_sn.npz"), Dataset.QUERIES),
+        load_features(str(idx / "refs_cg_student_sn.npz"), Dataset.REFS),
+        model_type="TN", fg_type="att", tn_max_step=5, min_length=4,
+        similarity_bias=0.5, device=dev, mesh=mesh, shard_ref_table=True)
+    t0 = time.perf_counter()
+    matches, counts = _sharded_launches(kernels, lambda: loc.localize_all(cands))
+    Match.write_csv(matches, str(out / f"rank{rank}_dns_matches.csv"))
+    report["dns"] = {"seconds": time.perf_counter() - t0, "pairs": len(cands),
+                     "launches": counts,
+                     "shard_rows": {n: loc._tables[n][0].shard_rows
+                                    for n in ("ref", "ref_fine")}}
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+    return 0
+
+
+def _run_pod_ranks(out: Path):
+    """Start the two rank processes of 10a/10c and wait for both (each
+    killed on failure or time-out). Returns each rank's report."""
+    from vsc2022_torch.utils.procs import die_with_parent
+
+    out.mkdir(parents=True, exist_ok=True)
+    port = _free_port()
+    procs, logs = [], []
+    for rank in range(POD_RANKS):
+        logs.append(open(out / f"rank{rank}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--pod-rank", str(rank),
+             "--pod-port", str(port), "--pod-dir", str(out)],
+            cwd=str(REPO), stdout=logs[-1], stderr=subprocess.STDOUT,
+            preexec_fn=die_with_parent))
+    try:
+        deadline = time.monotonic() + POD_TIMEOUT
+        for rank, p in enumerate(procs):
+            try:
+                code = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                code = "timed out"
+            if code != 0:
+                tail = (out / f"rank{rank}.log").read_text()[-3000:]
+                raise PhaseError(f"phase 10: pod rank {rank} failed ({code}):\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(POD_RANKS)]
+
+
+def _check_rank_launches(counts, want, what):
+    """Each rank launched each kernel of ``want`` (a one-process run's
+    counts over its n shards, divided by n: once a shard) as often."""
+    check(counts == want and all(v > 0 for v in want.values()),
+          f"{what}: launches {counts}, not {want}")
+
+
+def phase_pod_search_dns(np, kernels, sharded_launches):
+    """10a and 10c, in one pair of rank processes. 10a: phase 4's corpus
+    as a pod ShardedSimilaritySearcher (two ranks, one shard each: 507,904
+    rows, pooled) in f32, bf16 and int8 against 9a's single device: bf16
+    and int8 bit for bit, f32 within SHARD_F32_ATOL (each rank's shard is
+    its own allocation), the count of f32 scores one ulp off logged; both
+    ranks' arrays equal; each rank launches each kernel of 9a's 2-shard
+    search once. 10c: DnSLocalization over the pod on phase 5's pairs:
+    both ranks hold dns_baseline's matches (phase 5), scores within
+    FLOAT_ATOL; each rank launches the chamfer kernel on its tiles."""
+    out = SMOKE_DIR / "pod" / "ranks"
+    t0 = time.perf_counter()
+    reports = _run_pod_ranks(out)
+    wall = time.perf_counter() - t0
+    log(f"phase 10a: {POD_RANKS} rank processes ({POD_BACKEND}): {reports[0]['mesh']}; "
+        f"joined in {reports[0]['join_s']:.1f} s, phase 4's corpus loaded in "
+        f"{reports[0]['load_s']:.1f} s; {wall:.1f} s for 10a and 10c")
+    launches = {}
+    for dtype in POD_DTYPES:
+        with np.load(_pod_single_path(dtype)) as w:
+            want = [((w["q"], w["r"], w["s"]), str(w["mode"]))]
+        got = []
+        for rank in range(POD_RANKS):
+            with np.load(out / f"rank{rank}_{dtype}.npz") as g:
+                got.append([((g["q"], g["r"], g["s"]), str(g["mode"]))])
+        check(all(np.array_equal(a, b) for a, b in zip(got[0][0][0], got[1][0][0])),
+              f"10a {dtype}: the ranks' global_topk differ")
+        atol = SHARD_F32_ATOL if dtype == "float32" else 0.0
+        off = _same_topk(np, got[0], want, f"10a {dtype}", atol)
+        reps = [r[dtype] for r in reports]
+        mode = reps[0]["mode"]
+        check(mode == SHARD_MODES[POD_RANKS], f"10a {dtype}: ran {mode}")
+        two = sharded_launches[f"9a {dtype} 2 shards"]
+        for rank, rep in enumerate(reps):
+            _check_rank_launches(rep["launches"], {k: v // POD_RANKS for k, v in two.items()},
+                                 f"10a {dtype} rank {rank}")
+            launches[f"10a {dtype} rank {rank}"] = rep["launches"]
+        n = got[0][0][0][2].size
+        log(f"phase 10a: {dtype}: " + (
+            f"{off} of {n} scores one ulp off ({SHARD_F32_ATOL:.3g}) from the single "
+            "device's, the rest bit for bit" if off else
+            f"== the single device bit for bit ({n} pairs)")
+            + f" on both ranks; mode {mode}, shard rows {reps[0]['shard_rows']}; "
+            + "; ".join(f"rank {i}: staged {r['stage_s']:.3f} s ({r['staged_bytes']} bytes), "
+                        f"search {r['search_s']:.3f} s, steps {json.dumps(r['steps_s'])}, "
+                        f"launches {json.dumps(r['launches'])}"
+                        for i, r in enumerate(reps)))
+    want = SMOKE_DIR / "dns" / "out" / "matches.csv"
+    rows = [check_same_rows(out / f"rank{r}_dns_matches.csv", want, f"10c rank {r}")
+            for r in range(POD_RANKS)]
+    check((out / "rank0_dns_matches.csv").read_bytes()
+          == (out / "rank1_dns_matches.csv").read_bytes(), "10c: the ranks' matches differ")
+    for rank, rep in enumerate(reports):
+        chamfer = rep["dns"]["launches"].get("chamfer", 0)
+        check(chamfer > 0, f"10c rank {rank}: chamfer launches {rep['dns']['launches']}")
+        launches[f"10c DnS rank {rank}"] = rep["dns"]["launches"]
+    log(f"phase 10c: DnSLocalization over the pod (shard rows "
+        f"{json.dumps(reports[0]['dns']['shard_rows'])}), {reports[0]['dns']['pairs']} "
+        f"pairs: {rows[0]} matches on each rank == dns_baseline's rows (scores within "
+        f"{FLOAT_ATOL}), the ranks' CSVs byte for byte; " + "; ".join(
+            f"rank {i} {r['dns']['seconds']:.2f} s, launches {json.dumps(r['dns']['launches'])}"
+            for i, r in enumerate(reports)))
+    return launches
+
+
+def _follower_launches(log_path: Path) -> dict:
+    """The follower's launch counts: its reply to the last relayed
+    ``launches`` request, from its log."""
+    replies = [ln.split("Follower reply: ok\tlaunches\t", 1)[1]
+               for ln in log_path.read_text().splitlines()
+               if "Follower reply: ok\tlaunches\t" in ln]
+    check(bool(replies), f"10b: the follower logged no launches reply ({log_path})")
+    return {k: v for k, v in json.loads(replies[-1]).items() if v}
+
+
+def phase_pod_serve(np, corpus, serve_launches):
+    """10b: the serving pod on phase 6's catalogue at the server's default
+    (bf16): rank 0 (the leader, driven by the client) and rank 1 (its
+    follower), --sharded over the pod, requests (a)-(g): phase 6b's replies
+    and files, byte for byte; each rank launches what phase 6b's server
+    launched (one shard a rank)."""
+    from vsc2022_torch.utils.procs import die_with_parent
+
+    work, paths, removed = corpus["work"], corpus["paths"], corpus["removed"]
+    coord, control = _free_port(), _free_port()
+    pod = ["--sharded", "--coordinator", f"localhost:{coord}", "--num_processes",
+           str(POD_RANKS), "--control", f"localhost:{control}", "--dist_backend", POD_BACKEND]
+    follower_log = work / "server_pod_follower.log"
+
+    def csvs(x):
+        return dict(candidates_csv=str(work / f"pod_{x}_c.csv"),
+                    matches_csv=str(work / f"pod_{x}_m.csv"))
+
+    t0 = time.perf_counter()
+    with open(follower_log, "w") as flog, open(work / "server_pod.log", "w") as llog:
+        follower = subprocess.Popen(
+            [sys.executable, "-m", "vsc2022_torch.retrieval.serve", "--ref_features",
+             paths["refs"], "--score_norm_features", paths["noise"], "--matches",
+             "--device", "cuda", *pod, "--process_id", "1"],
+            cwd=str(REPO), stdout=flog, stderr=subprocess.STDOUT, preexec_fn=die_with_parent)
+        try:
+            with spawn_server(paths["refs"], llog, score_norm_features=paths["noise"],
+                              matches=True, extra_args=[*pod, "--process_id", "0"]) as client:
+                log(f"phase 10b: serving pod ready ({POD_RANKS} ranks, {POD_BACKEND}), "
+                    f"{client.n_ref_videos} videos staged in {client.stage_seconds:.1f} s "
+                    f"({time.perf_counter() - t0:.1f} s wall)")
+                client.launches(reset=True)
+                timed("a", lambda: client.search(paths["queries"], **csvs("a")), "10b")
+                b = timed("b", lambda: client.search_bytes(
+                    Path(paths["queries"]).read_bytes()), "10b")
+                check(b.candidates_csv == (work / "bf16_a_c.csv").read_bytes()
+                      and b.matches_csv == (work / "bf16_a_m.csv").read_bytes(),
+                      "10b: (b) in-band differs from phase 6b's (a)")
+                timed("c", lambda: client.search(str(work / "q1.npz"), **csvs("c")), "10b")
+                n_add = timed("d", lambda: client.add(str(work / "add.npz")), "10b")
+                n_rm = timed("e", lambda: client.remove(removed), "10b")
+                n_save = timed("f", lambda: client.save(str(work / "pod_snap.npz")), "10b")
+                timed("g", lambda: client.search(paths["queries"], **csvs("g")), "10b")
+                stats = client.stats()
+                leader = {k: v for k, v in client.launches().items() if v}
+            code = follower.wait(timeout=120)  # the leader's quit releases it
+            check(code == 0, f"10b: the follower exited with {code}")
+        finally:
+            if follower.poll() is None:
+                follower.kill()
+            follower.wait()
+    check((n_add, n_rm, n_save) == (SERVE_ADD, (SERVE_REMOVE, SERVE_REMOVE * FRAMES),
+                                    SERVE_REF_VIDEOS), f"10b: add/remove/save {n_add} "
+          f"{n_rm} {n_save}")
+    check(stats.sharded and stats.dtype == "bfloat16", f"10b: stats {stats}")
+    for x in ("a", "c", "g"):
+        for suffix in ("c", "m"):
+            got = (work / f"pod_{x}_{suffix}.csv").read_bytes()
+            check(got == (work / f"bf16_{x}_{suffix}.csv").read_bytes()
+                  and got.count(b"\n") > 1, f"10b: ({x}) {suffix}.csv differs from 6b's")
+    check(same_arrays(np, npz_arrays(np, work / "pod_snap.npz"),
+                      npz_arrays(np, work / "bf16_snap.npz")),
+          "10b: the snapshot differs from phase 6b's")
+    follower = _follower_launches(follower_log)
+    want = {k: v for k, v in serve_launches.items() if v}
+    for rank, counts in enumerate((leader, follower)):
+        _check_rank_launches(counts, want, f"10b rank {rank}")
+    log(f"phase 10b: requests (a)-(g) == phase 6b's replies and files, byte for byte; "
+        f"stats: sharded {stats.sharded}, {stats.dtype}; launches: leader "
+        f"{json.dumps(leader)}, follower {json.dumps(follower)} (6b's server: the same)")
+    return {"10b serving pod (bf16) rank 0": leader, "10b serving pod (bf16) rank 1": follower}
+
+
+def phase_pod_cli(np, extraction):
+    """10d: the inference CLI as a two-rank job (--coordinator; each rank
+    takes the round-robin shard of phase 8's query videos on this card and
+    writes its own npz): the merged shards equal phase 8's one-process
+    npz bit for bit."""
+    from vsc2022_torch.inference.pipeline import merge_feature_files
+    from vsc2022_torch.storage import load_features
+    from vsc2022_torch.utils.procs import die_with_parent
+
+    work = SMOKE_DIR / "pod" / "cli"
+    work.mkdir(parents=True, exist_ok=True)
+    videos, weights = extraction["videos"], extraction["weights"]
+    sscd = ["--baseline", "sscd", "--torchscript_path", weights,
+            "--transforms", "RESIZE_320_CENTER"]
+    port = _free_port()
+    shards = [work / f"shard{r}.npz" for r in range(POD_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "vsc2022_torch.inference.cli",
+         *cli_argv(videos, "queries", shards[r], *sscd), "--coordinator",
+         f"localhost:{port}", "--num_processes", str(POD_RANKS), "--process_id", str(r)],
+        cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        preexec_fn=die_with_parent) for r in range(POD_RANKS)]
+    try:
+        outs = [p.communicate(timeout=POD_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0 and "Inference succeeded" in text,
+              f"10d: rank {r} failed:\n{text[-3000:]}")
+    wall = time.perf_counter() - t0
+    merged = work / "merged.npz"
+    n = merge_feature_files([str(s) for s in shards], str(merged))
+    want = {vf.video_id: vf for vf in load_features(str(extraction["q"]))}
+    got = {vf.video_id: vf for vf in load_features(str(merged))}
+    check(n == len(want) and got.keys() == want.keys(), f"10d: merged {sorted(got)}")
+    check(all(np.array_equal(got[v].feature, want[v].feature)
+              and np.array_equal(got[v].timestamps, want[v].timestamps) for v in want),
+          "10d: the merged shards differ from phase 8's npz")
+    split = [len(load_features(str(s))) for s in shards]
+    log(f"phase 10d: python -m vsc2022_torch.inference.cli on {POD_RANKS} ranks "
+        f"(--coordinator; {split} videos a rank), {wall:.2f} s wall: the merged "
+        f"shards == phase 8's npz bit for bit ({n} videos)")
+
+
+def phase_pod(torch, np, kernels, corpus, extraction, sharded_launches, serve_launches):
+    """Phase 10: a pod of two ranks on this card (10a-10d). Returns {label:
+    kernel launches} of each rank's run."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"phase 10: a pod of {POD_RANKS} ranks, each a process on cuda:0 "
+        f"({torch.cuda.device_count()} card(s)), over {POD_BACKEND}: NCCL refuses two "
+        "ranks on one card, so each collective stages through the host")
+    launches = phase_pod_search_dns(np, kernels, sharded_launches)
+    launches.update(phase_pod_serve(np, corpus, serve_launches))
+    phase_pod_cli(np, extraction)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def nvidia_smi_line() -> str:
     try:
         out = subprocess.run(
@@ -4058,6 +4453,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--keep", action="store_true",
                     help="keep the synthetic corpus under build/smoke")
+    # Phase 10 starts this script again as each rank of its pod.
+    ap.add_argument("--pod-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--pod-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--pod-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not (REPO / "vsc2022_torch" / "ops" / "csrc").is_dir():
@@ -4070,6 +4469,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+    if args.pod_rank is not None:
+        return pod_rank_main(args.pod_rank, args.pod_port, Path(args.pod_dir))
     sys.path.insert(0, str(REPO))
     from vsc2022_torch.ops import _build, kernels
 
@@ -4146,8 +4547,10 @@ def main() -> int:
         phase_default(torch, np, kernels, dev, corpus)
         phase_knn(torch, np, dev, corpus)
         phase_matching_eval(paths, SMOKE_DIR / "out", sscd_f32["segment_ap"])
-        searchv_launches = phase_extraction(torch, np, kernels, dev)
+        searchv_launches, extraction = phase_extraction(torch, np, kernels, dev)
         sharded_launches = phase_sharded(torch, np, kernels, dev, paths, corpus)
+        pod_launches = phase_pod(torch, np, kernels, corpus, extraction, sharded_launches,
+                                 serve_bf16_launches)
         del corpus
     finally:
         if not args.keep:
@@ -4259,6 +4662,11 @@ def main() -> int:
                    if counts.get(name)}
         if sharded:
             row["sharded_launches"] = sharded
+        # Phase 10's pod: each rank launches its kernels on its shard.
+        pod = {label: counts[name] for label, counts in pod_launches.items()
+               if counts.get(name)}
+        if pod:
+            row["pod_launches"] = pod
         rows.append(row)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))

@@ -2373,3 +2373,107 @@ def test_sharded_tables_and_extraction_one_shard_per_card(cuda_device):
     got = np.concatenate([vf.feature for vf in every.extract(Frames())])
     assert got.shape == want.shape and np.isfinite(got).all()
     assert np.abs(got - want).max() <= EXTRACT_REL_TOL * np.abs(want).max()
+
+
+# A pod of one rank per card, over NCCL: the worker each rank runs.
+NCCL_POD_WORKER = r"""
+import os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+RANK, WORLD, PORT = (int(a) for a in sys.argv[1:4])
+sys.path[:0] = [os.getcwd(), os.path.join(os.getcwd(), "tests")]
+from test_torch_cuda import BF16_TC_ATOL, _dns_lifecycle_rows
+from vsc2022_torch.ops import kernels
+from vsc2022_torch.ops.similarity import COLLECTION_ENV, SimilaritySearcher
+from vsc2022_torch.parallel import corpus_mesh, initialize_distributed
+from vsc2022_torch.parallel.sharded_search import ShardedSimilaritySearcher
+
+dev = initialize_distributed(f"localhost:{PORT}", WORLD, RANK, device="cuda")
+assert dev == torch.device("cuda", RANK) and dist.get_backend() == "nccl", dev
+torch.backends.cuda.matmul.allow_tf32 = False
+mesh = corpus_mesh()
+assert mesh.size == WORLD and mesh.local == (RANK,) and mesh.lead == dev, mesh
+rng = np.random.RandomState(0)
+q = rng.randint(-3, 4, size=(45, 24)).astype(np.float32)
+q[:4] = 3.0
+r = rng.randint(-3, 4, size=(7000, 24)).astype(np.float32)
+r[300:320] = 3.0  # ties across shard boundaries
+codes = r.copy()  # over int8 each row's max is 127: scale 1, codes exact
+codes[np.arange(7000), rng.randint(0, 24, 7000)] = rng.choice([-127.0, 127.0], 7000)
+unit = rng.standard_normal((7000, 24)).astype(np.float32)
+unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+suffix = {"float32": "", "bfloat16": ".bf16", "int8": ".int8"}
+cases = [("float32", "IP", r), ("float32", "L2", r), ("bfloat16", "IP", r),
+         ("bfloat16", "L2", r), ("int8", "IP", codes), ("bfloat16", "IP", unit)]
+for dtype, metric, rows in cases:
+    for mode in ("stream", "pooled"):
+        os.environ[COLLECTION_ENV] = mode
+        pod = ShardedSimilaritySearcher(rows, mesh, metric=metric, dtype=dtype)
+        for n_rows in (7000, 8500, 4250):
+            if n_rows == 8500:  # rows move card to card over NCCL
+                pod.append_rows(rows[:1500])
+                held = np.concatenate([rows, rows[:1500]])
+            elif n_rows == 4250:
+                pod.keep_rows(np.arange(0, 8500, 2))
+                held = held[::2]
+            else:
+                held = rows
+            single = SimilaritySearcher(held, metric=metric, dtype=dtype, device=dev)
+            for k in (600, 45 * 16 + 1):
+                want = single.global_topk(q, k, kappa=16)
+                kernels.reset_launches()
+                got = pod.global_topk(q, k, kappa=16)
+                assert pod.last_stats["mode"] == mode, pod.last_stats
+                for g, w in zip(got, want):
+                    np.testing.assert_array_equal(g, w)
+                name = "pool_writer" if mode == "pooled" else "fused_topk"
+                assert kernels.launches[name + suffix[dtype] + (".l2" if metric == "L2"
+                                                                 else "")] == 1
+            np.testing.assert_array_equal(pod.row_nn(q), single.row_nn(q))
+kernels.reset_launches()
+got = _dns_lifecycle_rows(mesh=mesh, shard_ref_table=True)
+# Each chunk's first tile is rank 0's (the others may have no tile).
+assert RANK or kernels.launches["chamfer"] >= 1, kernels.launches
+want = _dns_lifecycle_rows(device=dev)
+assert [[m[:6] for m in g] for g in got] == [[m[:6] for m in w] for w in want] and want[1]
+for g, w in zip(got, want):
+    np.testing.assert_allclose([m[6] for m in g], [m[6] for m in w], rtol=0,
+                               atol=BF16_TC_ATOL)
+dist.destroy_process_group()
+print("NCCL RANK", RANK, "OK", flush=True)
+"""
+
+
+def test_pod_one_rank_per_card_over_nccl(cuda_device):
+    # One process a card, joined over NCCL (initialize_distributed's rule
+    # on cards): the pod searcher over corpus_mesh() (one shard a rank)
+    # equals a single-device searcher on the rank's card bit for bit in
+    # every dtype and metric, both collections, through append_rows and
+    # keep_rows (rows cross cards in all_to_all); each rank launches its
+    # collection's kernel once a search; the DnS localizer with row-sharded
+    # tables holds one card's matches. Needs two or more cards.
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards: one rank a card")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_POD_WORKER, str(rank), str(cards),
+                               str(port)], cwd=repo, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for rank in range(cards)]
+    try:
+        for rank, p in enumerate(procs):
+            out, _ = p.communicate(timeout=600)
+            assert p.returncode == 0 and f"NCCL RANK {rank} OK" in out, out[-4000:]
+    finally:
+        for p in procs:
+            p.kill()

@@ -295,9 +295,16 @@ def test_cli_rejects_what_jax_rejects_and_the_unported():
             base + ["--processes", "2", "--distributed_size", "2", "--device", "cpu"]))
     with pytest.raises(Exception, match="CPU-decode fan-out"):
         torch_cli.main(torch_cli.parser.parse_args(base + ["--processes", "2"]))
-    for flags in (["--num_processes", "2"], ["--coordinator", "h:1"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            torch_cli.main(torch_cli.parser.parse_args(base + flags))
+    # The multi-host job's flags, as JAX checks them (the two-rank job
+    # itself: tests/test_torch_multihost.py).
+    for flags, message in ((["--num_processes", "2"], "requires --coordinator"),
+                           (["--num_processes", "2", "--processes", "2"], "excludes"),
+                           (["--num_processes", "2", "--coordinator", "h:1",
+                             "--process_id", "2"], "out of range")):
+        with pytest.raises(Exception, match=message):
+            torch_cli.main(torch_cli.parser.parse_args(base + flags + ["--device", "cpu"]))
+        with pytest.raises(Exception, match=message):
+            jax_cli.main(jax_cli.parser.parse_args(base + flags + ["--accelerator", "cpu"]))
     with pytest.raises(ValueError, match="DINO has no BatchNorm"):
         torch_cli.build_model(torch_cli.parser.parse_args(
             base + ["--baseline", "dino", "--fold_bn"]))

@@ -404,10 +404,13 @@ def test_serve_requests_match_jax_dns(served):
 def test_unported_modes_raise(served):
     # The JAX default (bf16, no dtype flag) is ported: tests below start it.
     base = ["--ref_features", served["r"], "--device", "cpu"]
-    for extra in (["--sharded", "--ivf", "4"], ["--bf16", "--ivf", "4"],
-                  ["--f32", "--num_processes", "2"]):
+    for extra in (["--sharded", "--ivf", "4"], ["--bf16", "--ivf", "4"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             torch_serve.main(torch_serve.parser.parse_args(base + extra))
+    # Multi-host serving is ported: its flags are checked as JAX checks them
+    # (tests/test_torch_multihost.py runs the pods).
+    with pytest.raises(ValueError, match="requires --coordinator"):
+        torch_serve.main(torch_serve.parser.parse_args(base + ["--f32", "--num_processes", "2"]))
     # --sharded is ported (tests/test_torch_sharded.py serves with it).
     torch_serve.check_ported(torch_serve.parser.parse_args(base + ["--sharded"]))
     # --baseline is ported: without weights it raises the JAX server's

@@ -89,8 +89,15 @@ def test_mesh_helpers():
         first_axis_sharding(mesh)(torch.zeros(4))
     initialize_distributed()  # one process: nothing to do
     initialize_distributed(num_processes=1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        initialize_distributed("localhost:1234", num_processes=2, process_id=0)
+    # A pod needs its rendezvous address and a rank in range; the backend
+    # rule refuses NCCL without a card (tests/test_torch_multihost.py runs
+    # two-rank groups).
+    with pytest.raises(ValueError, match="coordinator"):
+        initialize_distributed(None, num_processes=2, process_id=0, device="cpu")
+    with pytest.raises(ValueError, match="out of range"):
+        initialize_distributed("localhost:1234", num_processes=2, process_id=2, device="cpu")
+    with pytest.raises(ValueError, match="needs a card"):
+        initialize_distributed("localhost:1234", 2, 0, backend="nccl", device="cpu")
 
 
 # ---- geometry and routing -------------------------------------------------------
@@ -399,8 +406,12 @@ def test_shards_are_views_on_one_device(tmesh, monkeypatch):
     assert ts.staged_bytes() == 4 * 128 * 4 * 4
     # One allocation a run of consecutive entries on one device.
     a, b = torch.device("cuda", 0), torch.device("cuda", 1)
-    fake = types.SimpleNamespace(mesh=types.SimpleNamespace(devices=[a, a, b, a, a]))
+    fake = types.SimpleNamespace(mesh=types.SimpleNamespace(devices=[a, a, b, a, a],
+                                                            local=range(5)))
     assert TorchSharded._allocations(fake) == [[0, 1], [2], [3, 4]]
+    # In a pod, a process allocates its own entries only.
+    fake.mesh.local = (1, 2, 3, 4)
+    assert TorchSharded._allocations(fake) == [[1], [2], [3, 4]]
     # One run of rows for the dense f32 products (the single-device call).
     (dev, base, n, run), = ts._runs()
     assert (base, n) == (0, 40) and torch.equal(run["refs"], torch.from_numpy(r))

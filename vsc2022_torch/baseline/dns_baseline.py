@@ -26,7 +26,7 @@ given; ``--profile_dir`` writes a ``torch.profiler`` trace.
 import argparse
 import logging
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -152,15 +152,27 @@ def _gathered_dns_sims(
     or ``RowShardedTable``s whose shards hand over the rows they own): the
     per-batch inputs are index matrices into the query and ref tables, and
     the rows are gathered onto ``device`` (default the query tables'),
-    where the fusion runs. Tables stored bf16 are widened as they are
-    gathered; at "default" the fine rows go to the bf16 chamfer as bf16
-    (the same values)."""
-    fine = torch.bfloat16 if precision == "default" else torch.float32
+    where the fusion runs (``_dns_rows_sims``)."""
     device = qc_table.device if device is None else device
-    qc = gather_rows(qc_table, qc_idx, device).float()
-    rc = gather_rows(rc_table, rc_idx, device).float()
-    qf = gather_rows(qf_table, qf_idx, device).to(fine)
-    rf = gather_rows(rf_table, rf_idx, device).to(fine)
+    return _dns_rows_sims(
+        gather_rows(qc_table, qc_idx, device), gather_rows(rc_table, rc_idx, device),
+        gather_rows(qf_table, qf_idx, device), gather_rows(rf_table, rf_idx, device),
+        bias, symmetric, precision, regions)
+
+
+def _dns_rows_sims(
+    qc: torch.Tensor, rc: torch.Tensor,  # [B, N*, DC] coarse rows
+    qf: torch.Tensor, rf: torch.Tensor,  # [B, N*, R*D] fine rows
+    bias: float,
+    symmetric: bool = True,
+    precision: str = "highest",
+    regions: int = NUM_REGIONS,
+) -> torch.Tensor:
+    """Chamfer+coarse fusion of gathered rows in their stored dtype, on
+    their device. Rows stored bf16 are widened; at "default" the fine rows
+    go to the bf16 chamfer as bf16 (the same values)."""
+    fine = torch.bfloat16 if precision == "default" else torch.float32
+    qc, rc, qf, rf = qc.float(), rc.float(), qf.to(fine), rf.to(fine)
     return _chamfer_fuse(
         qf.view(*qf.shape[:2], regions, -1), rf.view(*rf.shape[:2], regions, -1),
         qc, rc, bias, symmetric, precision,
@@ -176,7 +188,9 @@ class DnSLocalization(TNLocalizationMaxSim):
     kernel stays the f32 one. With ``mesh`` and ``shard_ref_table`` both
     reference tables are row-sharded; each pair tile gathers its true rows
     from their owner shards onto its device, where the fused chamfer runs
-    (the port's chamfer kernel; JAX's sharded body runs XLA there)."""
+    (the port's chamfer kernel; JAX's sharded body runs XLA there). Over a
+    pod each rank holds its shards of both tables and runs its own tiles
+    (``TNLocalization._align``)."""
 
     # The gathered fine rows are B·(NQ + NR)·9·512 floats per chunk
     # (2.4 GB at 1024 pairs of 64 × 64 frames), hence a smaller budget.
@@ -251,33 +265,43 @@ class DnSLocalization(TNLocalizationMaxSim):
                     [c.ref_id for c in candidates], row_fn=self._fine_rows)
         return super()._pair_tables(candidates)
 
-    def _batch_sims(
-        self, candidates: Sequence[CandidatePair], nq: int, nr: int,
-        device: torch.device = None,
-    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        device = self.device if device is None else device
-        qc_tab, qc_offs, rc_tab, rc_offs = self._pair_tables(candidates)
-        qf_tab, qf_offs = self._tables["query_fine"]
-        rf_tab, rf_offs = self._tables["ref_fine"]
+    def _tile_index(self, candidates: Sequence[CandidatePair], nq: int, nr: int):
+        """The coarse and fine rows a tile of pairs reads (the tables'
+        names: "query", "ref", "query_fine", "ref_fine"), and its lengths.
+        A pair contributes min(fine, coarse) frames (they should match; be
+        robust to ragged inputs): frames beyond that read the zero pad row
+        on BOTH tables, so their fine similarity is exactly 0."""
+        _, qc_offs, _, rc_offs = self._pair_tables(candidates)
+        qf_offs, rf_offs = self._tables["query_fine"][1], self._tables["ref_fine"][1]
         q_ids = [c.query_id for c in candidates]
         r_ids = [c.ref_id for c in candidates]
         qc_idx, q_len_c = self._indices_from(qc_offs, q_ids, nq)
         rc_idx, r_len_c = self._indices_from(rc_offs, r_ids, nr)
         qf_idx, q_len_f = self._indices_from(qf_offs, q_ids, nq)
         rf_idx, r_len_f = self._indices_from(rf_offs, r_ids, nr)
-        # A pair contributes min(fine, coarse) frames (they should match;
-        # be robust to ragged inputs): frames beyond that gather the zero
-        # pad row on BOTH tables, so their fine similarity is exactly 0.
         q_len = np.minimum(q_len_c, q_len_f)
         r_len = np.minimum(r_len_c, r_len_f)
         q_mask = np.arange(nq)[None, :] < q_len[:, None]
         r_mask = np.arange(nr)[None, :] < r_len[:, None]
-        sims = _gathered_dns_sims(
-            qc_tab, rc_tab, qf_tab, rf_tab,
-            np.where(q_mask, qc_idx, 0), np.where(r_mask, rc_idx, 0),
-            np.where(q_mask, qf_idx, 0), np.where(r_mask, rf_idx, 0),
-            float(self.similarity_bias), symmetric=self.symmetric, device=device,
-        )
+        idx = {"query": np.where(q_mask, qc_idx, 0), "ref": np.where(r_mask, rc_idx, 0),
+               "query_fine": np.where(q_mask, qf_idx, 0),
+               "ref_fine": np.where(r_mask, rf_idx, 0)}
+        return idx, q_len, r_len
+
+    def _batch_sims(
+        self, candidates: Sequence[CandidatePair], nq: int, nr: int,
+        device: torch.device = None, rows: Optional[Dict] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        device = self.device if device is None else device
+        idx, q_len, r_len = self._tile_index(candidates, nq, nr)
+        names = ("query", "ref", "query_fine", "ref_fine")
+        bias = float(self.similarity_bias)
+        if rows is None:
+            sims = _gathered_dns_sims(*(self._tables[n][0] for n in names),
+                                      *(idx[n] for n in names), bias,
+                                      symmetric=self.symmetric, device=device)
+        else:
+            sims = _dns_rows_sims(*(rows[n] for n in names), bias, self.symmetric)
         return (
             sims,
             torch.from_numpy(q_len).to(device),

@@ -20,8 +20,13 @@ and a warning says the descriptors mean nothing.
 Distribution: each worker owns its device and writes its shard of the
 videos (``--distributed_rank`` / ``--distributed_size``, merged
 afterwards), the reference's share-nothing scheme; ``--processes N``
-spawns N local CPU workers and merges their outputs. The multi-host
-flags (``--coordinator``, ``--num_processes`` > 1) are not ported yet.
+spawns N local CPU workers and merges their outputs. A multi-host job
+(``--coordinator host:port --num_processes N --process_id i``, one
+process a host or a card) joins a ``torch.distributed`` group (NCCL on
+cards, gloo on the CPU; ``vsc2022_torch.parallel.initialize_distributed``),
+and each process takes the videos at ``index % N == i`` on its device
+(``cuda`` is the card ``i % device_count``) and writes them to its own
+``--output_file``; ``merge_feature_files`` merges the shards.
 """
 
 import argparse
@@ -101,12 +106,23 @@ inference_parser.add_argument(
 )
 
 multihost_parser = parser.add_argument_group(
-    "Multi-host (not ported yet)",
-    "The JAX package's one-process-per-host jobs; the port raises on them.",
+    "Multi-host",
+    "Run one process per host (or card) and let torch.distributed connect "
+    "them; the video shard follows process_id % num_processes, and each "
+    "process writes its own --output_file.",
 )
-multihost_parser.add_argument("--coordinator", default=None)
-multihost_parser.add_argument("--num_processes", type=int, default=1)
-multihost_parser.add_argument("--process_id", type=int, default=0)
+multihost_parser.add_argument(
+    "--coordinator", default=None,
+    help="coordinator address host:port (rank 0's torch.distributed rendezvous)",
+)
+multihost_parser.add_argument(
+    "--num_processes", type=int, default=1,
+    help="total number of processes in the job",
+)
+multihost_parser.add_argument(
+    "--process_id", type=int, default=0,
+    help="this process's index in [0, num_processes)",
+)
 
 dataset_parser = parser.add_argument_group("Dataset")
 dataset_parser.add_argument("--dataset_path", required=True)
@@ -291,17 +307,27 @@ def worker_process(args, rank, world_size, output_filename) -> dict:
 def main(args):
     """Run the extraction; returns the single worker's stage seconds (None
     when --processes spawns workers)."""
-    if (args.num_processes or 1) > 1 or args.coordinator:
-        raise NotImplementedError(
-            "multi-host extraction (--coordinator / --num_processes) is not "
-            "ported yet"
-        )
+    n_hosts = args.num_processes or 1
     if args.processes > 1 and args.distributed_size > 1:
         raise Exception(
             "Set either --processes (single-machine distributed) or "
             "both --distributed_size and --distributed_rank (arbitrary "
             "distributed)"
         )
+    if n_hosts > 1 and (args.processes > 1 or args.distributed_size > 1):
+        raise Exception(
+            "--num_processes (multi-host) excludes --processes and "
+            "--distributed_rank/--distributed_size; pick one distribution "
+            "scheme"
+        )
+    if n_hosts > 1:
+        if not args.coordinator:
+            raise Exception(
+                "--num_processes > 1 requires --coordinator host:port "
+                "(the torch.distributed rendezvous address)"
+            )
+        if not 0 <= args.process_id < n_hosts:
+            raise Exception(f"--process_id {args.process_id} out of range [0, {n_hosts})")
     if args.processes > 1 and args.device != "cpu":
         raise Exception(
             "--processes > 1 is a CPU-decode fan-out; a card runs one "
@@ -336,6 +362,20 @@ def main(args):
 
                 num = merge_feature_files(worker_files, args.output_file)
                 logger.info(f"Features for {num} videos saved to {args.output_file}")
+        elif n_hosts > 1:
+            # One process of a multi-host job: this process's slice of the
+            # videos, to its own output (merge the shards afterwards).
+            from vsc2022_torch.parallel.mesh import initialize_distributed, shutdown_distributed
+
+            logger.info(f"Joining distributed job as process {args.process_id} of "
+                        f"{n_hosts} (coordinator: {args.coordinator})")
+            initialize_distributed(args.coordinator, n_hosts, args.process_id,
+                                   device=args.device)
+            try:
+                stats = worker_process(args, args.process_id, n_hosts, args.output_file)
+            finally:
+                shutdown_distributed()
+            success = True
         else:
             stats = worker_process(args, args.distributed_rank, args.distributed_size,
                                    args.output_file)

@@ -170,6 +170,10 @@ class DescriptorExtractor:
                              f"got {compute_dtype!r}")
         self.mesh = mesh
         if mesh is not None:
+            if mesh.spans_processes:
+                raise ValueError("data-parallel extraction runs over one process's "
+                                 "devices; a pod's ranks extract their own videos "
+                                 "(the inference CLI's --num_processes)")
             if batch_size % mesh.size:
                 raise ValueError(f"batch_size {batch_size} must divide by the mesh's "
                                  f"{mesh.size} devices")

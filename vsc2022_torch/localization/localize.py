@@ -23,6 +23,13 @@ is independent of the others, so the boxes are the unsplit batch's.
 copied whole, so the gathered rows and every similarity are bit-identical
 to the unsharded ones.
 
+Over a pod mesh (``Mesh.spans_processes``) every rank runs the same
+alignment calls: a rank holds the reference rows of its own entries, the
+tiles of a chunk run on the entries that own them (each rank its own),
+a tile reads the rows other ranks hold through one collective a table and
+chunk (``RowShardedTable.fetch``), and the chunk's packed boxes are
+gathered so that every rank holds every match.
+
 Box → Match conversion keeps reference semantics: boxes are inclusive
 frame-index rectangles; query_start = get_timestamps(x1)[0],
 query_end = get_timestamps(x2)[1] (reference:
@@ -35,7 +42,7 @@ import abc
 import contextlib
 import logging
 from collections import defaultdict
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +50,8 @@ import torch
 from vsc2022_torch.device import DeviceLike, resolve_device
 from vsc2022_torch.metrics import CandidatePair, Match
 from vsc2022_torch.ops.tn_align import TNParams, tn_align_packed
-from vsc2022_torch.parallel.mesh import on_device
+from vsc2022_torch.parallel import collectives
+from vsc2022_torch.parallel.mesh import on_device, process_index
 from vsc2022_torch.types import VideoFeature
 
 logger = logging.getLogger(__name__)
@@ -63,75 +71,147 @@ class RowShardedTable:
     zero rows to a multiple of the mesh size, and shard s holds rows
     [s·shard_rows, (s+1)·shard_rows) on entry s's device (the shards on
     one device views into one tensor). Offsets address rows absolutely,
-    so the tail padding is invisible to every gather."""
+    so the tail padding is invisible to every gather. In a pod a rank
+    holds its own entries' shards (the others' are None)."""
 
     def __init__(self, mesh, rows: int, width: int, dtype: torch.dtype, fill):
-        """``fill(device, g0, g1)``: global rows [g0, g1) on ``device``."""
+        """``fill(wants)``: given, for each mesh entry, the global rows it
+        holds (an index array; None where it holds none), the rows of this
+        process's entries on their devices (``fetch``'s result)."""
         self.mesh, self.rows, self.dtype = mesh, rows, dtype
         self.shard_rows = -(-max(rows, 1) // mesh.size)
-        count = {dev: mesh.devices.count(dev) for dev in mesh.distinct()}
+        devices = [mesh.devices[s] for s in mesh.local]
+        count = {dev: devices.count(dev) for dev in dict.fromkeys(devices)}
         whole = {dev: torch.zeros((k * self.shard_rows, width), dtype=dtype, device=dev)
                  for dev, k in count.items()}
         taken = dict.fromkeys(count, 0)
-        self.shards = []
-        for s, dev in enumerate(mesh.devices):
+        self.shards = [None] * mesh.size
+        for s in mesh.local:
+            dev = mesh.devices[s]
             i, taken[dev] = taken[dev], taken[dev] + 1
-            view = whole[dev][i * self.shard_rows : (i + 1) * self.shard_rows]
+            self.shards[s] = whole[dev][i * self.shard_rows : (i + 1) * self.shard_rows]
+        wants = []
+        for s in range(mesh.size):
             g0, g1 = s * self.shard_rows, min(rows, (s + 1) * self.shard_rows)
-            if g1 > g0:
-                view[: g1 - g0] = fill(dev, g0, g1).to(dtype)
-            self.shards.append(view)
+            wants.append(np.arange(g0, g1) if g1 > g0 else None)
+        for s, got in enumerate(fill(wants)):
+            if got is not None:
+                self.shards[s][: got.shape[0]] = got.to(dtype)
 
     @classmethod
     def of(cls, mesh, rows: torch.Tensor, dtype: torch.dtype) -> "RowShardedTable":
-        """The table of ``rows`` (anywhere), stored in ``dtype`` (rounded on
-        each shard's device)."""
-        return cls(mesh, rows.shape[0], rows.shape[1], dtype,
-                   lambda dev, g0, g1: rows[g0:g1].to(dev))
+        """The table of ``rows`` (anywhere; every rank of a pod passes
+        them all), stored in ``dtype`` (rounded on each shard's device)."""
+        def fill(wants):
+            return [None if w is None or not mesh.is_local(s)
+                    else rows[int(w[0]) : int(w[-1]) + 1].to(mesh.devices[s])
+                    for s, w in enumerate(wants)]
+
+        return cls(mesh, rows.shape[0], rows.shape[1], dtype, fill)
 
     @property
     def shape(self) -> Tuple[int, int]:
-        return (self.rows, self.shards[0].shape[1])
+        return (self.rows, self.shards[self.mesh.local[0]].shape[1])
 
     @property
     def device(self) -> torch.device:
         return self.mesh.lead
 
+    def _owned(self, flat: np.ndarray, device: torch.device) -> torch.Tensor:
+        """This process's rows at the row indices ``flat`` (1-D, each held
+        by one of its shards), on ``device``, in the stored dtype."""
+        out = torch.zeros((flat.size, self.shape[1]), dtype=self.dtype, device=device)
+        owner = flat // self.shard_rows
+        for s in np.unique(owner):
+            at = np.nonzero(owner == s)[0]
+            view = self.shards[s]
+            local = torch.from_numpy(flat[at] - s * self.shard_rows).to(view.device)
+            out[torch.from_numpy(at).to(device)] = view.index_select(0, local).to(device)
+        return out
+
     def gather(self, idx, device: torch.device) -> torch.Tensor:
         """Rows at the row indices ``idx`` (numpy, any shape) on ``device``,
         [*idx.shape, d] in the stored dtype: each shard hands over the rows
-        it owns, copied whole."""
+        it owns, copied whole (one process's shards: in a pod, rows cross
+        ranks in ``fetch``)."""
         idx = np.asarray(idx, dtype=np.int64)
-        flat = idx.reshape(-1)
-        out = torch.zeros((flat.size, self.shape[1]), dtype=self.dtype, device=device)
-        owner = flat // self.shard_rows
-        for s, view in enumerate(self.shards):
-            at = np.nonzero(owner == s)[0]
-            if at.size:
-                local = torch.from_numpy(flat[at] - s * self.shard_rows).to(view.device)
-                out[torch.from_numpy(at).to(device)] = view.index_select(0, local).to(device)
-        return out.view(*idx.shape, self.shape[1])
+        return self._owned(idx.reshape(-1), device).view(*idx.shape, self.shape[1])
+
+    def fetch(self, wants) -> list:
+        """For each mesh entry s, the rows at its row indices ``wants[s]``
+        (numpy, any shape; None for no rows) on entry s's device, [*shape,
+        d] in the stored dtype, for this process's entries (None for the
+        others'). In a pod every rank passes the same ``wants``, and the
+        rows another rank holds cross in one ``exchange``."""
+        mesh = self.mesh
+        if not mesh.spans_processes:
+            return [None if w is None else self.gather(w, mesh.devices[s])
+                    for s, w in enumerate(wants)]
+        me, ranks = process_index(), np.asarray(mesh.ranks)
+        flat = [None if w is None else np.asarray(w, dtype=np.int64).reshape(-1)
+                for w in wants]
+        # The rank that holds each wanted row.
+        holder = [None if f is None else ranks[f // self.shard_rows] for f in flat]
+        send = {}
+        for r in sorted(set(mesh.ranks) - {me}):
+            rows = [f[h == me] for s, (f, h) in enumerate(zip(flat, holder))
+                    if f is not None and ranks[s] == r]
+            rows = np.concatenate(rows) if rows else np.empty(0, np.int64)
+            if rows.size:
+                send[r] = self._owned(rows, mesh.lead)
+        recv = {}
+        for s, (f, h) in enumerate(zip(flat, holder)):
+            if f is not None and ranks[s] == me:
+                for r in np.unique(h[h != me]):
+                    recv[int(r)] = recv.get(int(r), 0) + int((h == r).sum())
+        got = collectives.exchange(mesh, send, recv, self.shards[mesh.local[0]])
+        at = dict.fromkeys(got, 0)
+        out = [None] * mesh.size
+        for s, (f, h, w) in enumerate(zip(flat, holder, wants)):
+            if f is None or ranks[s] != me:
+                continue
+            dev = mesh.devices[s]
+            rows = torch.zeros((f.size, self.shape[1]), dtype=self.dtype, device=dev)
+            mine = np.nonzero(h == me)[0]
+            if mine.size:
+                rows[torch.from_numpy(mine).to(dev)] = self._owned(f[mine], dev)
+            for r in np.unique(h[h != me]):
+                r, pos = int(r), np.nonzero(h == r)[0]
+                rows[torch.from_numpy(pos).to(dev)] = got[r][at[r] : at[r] + pos.size].to(dev)
+                at[r] += pos.size
+            out[s] = rows.view(*np.shape(w), self.shape[1])
+        return out
 
     def append(self, new: torch.Tensor) -> "RowShardedTable":
         """The table grown by the rows ``new``, on the fresh layout of its
-        new size: resident rows move shard to shard, only ``new`` comes in."""
-        old = self.rows
+        new size: resident rows move shard to shard (rank to rank in a
+        pod), only ``new`` comes in."""
+        old, mesh = self.rows, self.mesh
 
-        def fill(dev, g0, g1):
-            parts = []
-            if g0 < old:
-                parts.append(self.gather(np.arange(g0, min(g1, old)), dev))
-            if g1 > old:
-                parts.append(new[max(g0 - old, 0) : g1 - old].to(dev).to(self.dtype))
-            return torch.cat(parts)
+        def fill(wants):
+            resident = self.fetch([None if w is None or w[0] >= old else w[w < old]
+                                   for w in wants])
+            out = []
+            for s, (w, rows) in enumerate(zip(wants, resident)):
+                if w is None or not mesh.is_local(s):
+                    out.append(None)
+                    continue
+                parts = [] if rows is None else [rows]
+                if w[-1] >= old:
+                    g0 = max(int(w[0]), old)
+                    parts.append(new[g0 - old : int(w[-1]) + 1 - old].to(mesh.devices[s])
+                                 .to(self.dtype))
+                out.append(torch.cat(parts))
+            return out
 
-        return RowShardedTable(self.mesh, old + new.shape[0], self.shape[1], self.dtype, fill)
+        return RowShardedTable(mesh, old + new.shape[0], self.shape[1], self.dtype, fill)
 
     def take(self, idx: np.ndarray) -> "RowShardedTable":
         """A table of the rows ``idx``, in that order, on the fresh layout
         of its size (the compaction)."""
         return RowShardedTable(self.mesh, idx.size, self.shape[1], self.dtype,
-                               lambda dev, g0, g1: self.gather(idx[g0:g1], dev))
+                               lambda wants: self.fetch([None if w is None else idx[w]
+                                                         for w in wants]))
 
 
 def gather_rows(table, idx, device=None) -> torch.Tensor:
@@ -386,23 +466,29 @@ class TNLocalization(LocalizationWithMetadata):
         the gather)."""
         return gather_rows(table, idx, device).float()
 
+    def _tile_index(self, candidates: Sequence[CandidatePair], nq: int, nr: int):
+        """The rows a tile of same-bucket pairs reads: ({table name: [B, n]
+        row indices}, [B] query lengths, [B] ref lengths). Stages the
+        tables it reads from."""
+        _, q_offs, _, r_offs = self._pair_tables(candidates)
+        q_idx, q_len = self._indices_from(q_offs, [c.query_id for c in candidates], nq)
+        r_idx, r_len = self._indices_from(r_offs, [c.ref_id for c in candidates], nr)
+        return {"query": q_idx, "ref": r_idx}, q_len, r_len
+
     def _batch_sims(
         self, candidates: Sequence[CandidatePair], nq: int, nr: int,
-        device: torch.device = None,
+        device: torch.device = None, rows: Optional[Dict] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """[B, nq, nr] biased similarity matrices of same-bucket pairs,
-        from rows gathered out of the staged tables, on ``device``
-        (default the localizer's)."""
+        """[B, nq, nr] biased similarity matrices of same-bucket pairs, on
+        ``device`` (default the localizer's), from the tile's ``rows`` (a
+        mesh's tile: ``_fetch_tiles``) or else rows gathered out of the
+        staged tables."""
         device = self.device if device is None else device
-        q_tab, q_offs, r_tab, r_offs = self._pair_tables(candidates)
-        q_idx, q_len = self._indices_from(
-            q_offs, [c.query_id for c in candidates], nq
-        )
-        r_idx, r_len = self._indices_from(
-            r_offs, [c.ref_id for c in candidates], nr
-        )
-        q = self._gather(q_tab, q_idx, device)
-        r = self._gather(r_tab, r_idx, device)
+        idx, q_len, r_len = self._tile_index(candidates, nq, nr)
+        if rows is None:
+            rows = {name: self._gather(self._tables[name][0], ix, device)
+                    for name, ix in idx.items()}
+        q, r = rows["query"].float(), rows["ref"].float()
         sims = torch.bmm(q, r.transpose(1, 2)) + float(self.similarity_bias)
         return (
             sims,
@@ -410,22 +496,48 @@ class TNLocalization(LocalizationWithMetadata):
             torch.from_numpy(r_len).to(device),
         )
 
+    def _fetch_tiles(self, tiles, nq: int, nr: int) -> List[Optional[Dict]]:
+        """A mesh's chunk: for each tile, the rows it reads ({table name:
+        [B, n, d]} in the stored dtype, on its entry's device; None for a
+        tile another rank runs). A row-sharded table hands its rows over in
+        one ``fetch`` (in a pod, one collective that every rank calls
+        alike); a whole table is gathered."""
+        mesh = self.mesh
+        indices = [self._tile_index(tile, nq, nr)[0] for tile in tiles]
+        rows = [{} if mesh.is_local(i) else None for i in range(len(tiles))]
+        for name in indices[0]:
+            table = self._tables[name][0]
+            wants = [ix[name] for ix in indices]
+            if isinstance(table, RowShardedTable):
+                got = table.fetch(wants + [None] * (mesh.size - len(tiles)))
+            else:
+                got = [gather_rows(table, w, mesh.devices[i]) if mesh.is_local(i) else None
+                       for i, w in enumerate(wants)]
+            for i, r in enumerate(got[: len(tiles)]):
+                if r is not None:
+                    rows[i][name] = r
+        return rows
+
     def _align(self, chunk: Sequence[CandidatePair], nq: int, nr: int) -> np.ndarray:
         """The packed TN boxes of one chunk of same-bucket pairs; with a
         mesh, one tile of pairs per entry, each on its device, every tile
-        launched before any is read."""
+        launched before any is read. In a pod each rank runs its entries'
+        tiles, and every rank receives every tile's boxes."""
         if self.mesh is None:
             sims, q_len, r_len = self._batch_sims(chunk, nq, nr)
             return tn_align_packed(sims, q_len, r_len, self.params).cpu().numpy()
         tile = -(-len(chunk) // self.mesh.size)
+        tiles = [chunk[i * tile : (i + 1) * tile] for i in range(-(-len(chunk) // tile))]
+        rows = self._fetch_tiles(tiles, nq, nr)
         packed = []
-        for i, dev in enumerate(self.mesh.devices[: -(-len(chunk) // tile)]):
+        for i, dev in enumerate(self.mesh.devices[: len(tiles)]):
+            if not self.mesh.is_local(i):
+                continue
             with on_device(dev):
-                sims, q_len, r_len = self._batch_sims(chunk[i * tile : (i + 1) * tile],
-                                                      nq, nr, dev)
-                packed.append(tn_align_packed(sims, q_len, r_len, self.params)
-                              .to(self.device, non_blocking=True))
-        return torch.cat(packed).cpu().numpy()
+                sims, q_len, r_len = self._batch_sims(tiles[i], nq, nr, dev, rows[i])
+                packed.append(tn_align_packed(sims, q_len, r_len, self.params))
+        empty = torch.zeros((0, self.params.max_paths, 6))
+        return collectives.all_gather(self.mesh, packed, 0, empty).cpu().numpy()
 
     def localize_all(self, candidates: List[CandidatePair]) -> List[Match]:
         if candidates:  # one staging pass for all the call's chunks

@@ -1,6 +1,7 @@
-"""Corpus sharding over the devices of one process (counterpart of
-``vsc2022_tpu/parallel``). The searcher over a mesh is in
-``vsc2022_torch.parallel.sharded_search``, imported where it is used."""
+"""Corpus sharding over the devices of one process or of a pod of
+processes (counterpart of ``vsc2022_tpu/parallel``). The searcher over a
+mesh is in ``vsc2022_torch.parallel.sharded_search``, the collectives in
+``vsc2022_torch.parallel.collectives``, each imported where it is used."""
 
 from vsc2022_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -9,4 +10,9 @@ from vsc2022_torch.parallel.mesh import (  # noqa: F401
     first_axis_size,
     initialize_distributed,
     local_device_count,
+    pod_mesh,
+    process_count,
+    process_index,
+    rank_device,
+    shutdown_distributed,
 )

@@ -45,6 +45,20 @@ host reads any result (τ, a count), so on several cards the shards
 overlap; on one card they queue. The re-search over a bf16 or int8 corpus
 (``kernels.scores_above``) reads its entry count per launch, so its
 shards run one after another.
+
+A pod (a mesh that spans processes, ``parallel/mesh.py``): every rank
+holds the full corpus on the host, as every JAX process does before
+``jax.device_put`` of a global array, and stages only the shards of its
+own entries (``staged_bytes`` counts those). Every rank runs the same host
+program; each kernel call runs on the rank's shards, merges on its lead
+device, then merges over the group (``parallel/collectives.py``): the row
+max with ``pmax``, the counts with ``psum``, the top-κ, the pools and the
+re-searches' entries with a ragged ``all_gather`` in rank order. So every
+rank holds the one-process merge's tensors, bit for bit, and every rank
+ends a search with the same result. The pooled collection gathers whole
+pools to every rank (8·M·P bytes: the pools' values and ids), where JAX
+keeps them sharded. ``append_rows`` and ``keep_rows`` move resident rows
+between ranks with one ``all_to_all`` a field (``exchange``).
 """
 
 from __future__ import annotations
@@ -71,7 +85,8 @@ from vsc2022_torch.ops.similarity import (
     _quantize,
     _widened_scores,
 )
-from vsc2022_torch.parallel.mesh import Mesh, on_device
+from vsc2022_torch.parallel import collectives
+from vsc2022_torch.parallel.mesh import Mesh, on_device, process_index
 
 # A shard's fields: its rows (f32 / bf16 rows or int8 codes), and the
 # per-row int8 scales or L2 squared norms where the corpus has them.
@@ -120,10 +135,12 @@ class ShardedSimilaritySearcher(SimilaritySearcher):
 
     def _allocations(self) -> List[List[int]]:
         """The shards that share one allocation: each run of consecutive
-        mesh entries on one device (on one card, every shard)."""
+        mesh entries of this process on one device (on one card, every
+        shard of the process)."""
         groups: List[List[int]] = []
-        for s, dev in enumerate(self.mesh.devices):
-            if groups and self.mesh.devices[groups[-1][-1]] == dev:
+        for s in self.mesh.local:
+            dev = self.mesh.devices[s]
+            if groups and groups[-1][-1] == s - 1 and self.mesh.devices[groups[-1][-1]] == dev:
                 groups[-1].append(s)
             else:
                 groups.append([s])
@@ -163,18 +180,20 @@ class ShardedSimilaritySearcher(SimilaritySearcher):
         return min(max(self.n_refs - s * self.shard_rows, 0), self.shard_rows)
 
     def _shards(self) -> List[Tuple[int, torch.device, int, int]]:
-        """(index, device, base, valid rows) of every shard holding a valid
-        row, in mesh order."""
-        return [(s, dev, s * self.shard_rows, self._n_valid(s))
-                for s, dev in enumerate(self.mesh.devices) if self._n_valid(s)]
+        """(index, device, base, valid rows) of every shard of this process
+        holding a valid row, in mesh order."""
+        return [(s, self.mesh.devices[s], s * self.shard_rows, self._n_valid(s))
+                for s in self.mesh.local if self._n_valid(s)]
 
     def _write_rows(self, rows: np.ndarray, start: int) -> float:
         """Stage host rows as global rows [start, start + len(rows)) into
-        the shards that own them (int8: quantized on the shard's device, a
-        block at a time; L2: with their squared norms). Returns the largest
-        row norm written (``_max_row_norm``)."""
+        this process's shards that own them (int8: quantized on the shard's
+        device, a block at a time; L2: with their squared norms). Returns
+        the largest row norm written over the mesh (``_max_row_norm``, its
+        max over the ranks)."""
         norm_max, sr = 0.0, self.shard_rows
-        for s, dev in enumerate(self.mesh.devices):
+        for s in self.mesh.local:
+            dev = self.mesh.devices[s]
             g0, g1 = max(start, s * sr), min(start + rows.shape[0], (s + 1) * sr)
             if g0 >= g1:
                 continue
@@ -196,32 +215,66 @@ class ShardedSimilaritySearcher(SimilaritySearcher):
             if self._l2:
                 self._shard["ref_sq"][s][at : at + block.shape[0]] = self._norms_of(t, staged)
             norm_max = max(norm_max, _max_row_norm(staged))
-        return norm_max
+        return self._pmax(norm_max)
 
     def _move_rows(self, fields: dict, idx: np.ndarray) -> None:
         """Fill the new layout ``fields`` with the staged global rows
         ``idx`` (increasing) as its first rows, each field gathered on its
-        owner shard and copied device to device."""
+        owner shard and copied device to device; in a pod, rows whose new
+        shard lies on another rank cross in one ``exchange`` a field."""
         new_rows, _ = fields["geometry"]
-        for s, dev in enumerate(self.mesh.devices):
+        ranks, me = self.mesh.ranks, process_index()
+        # (new shard, old shard, its rows [p0, p1) of the new shard, the old
+        # shard's local rows), in mesh order: every rank lists the same.
+        blocks = []
+        for s in range(self.n_dev):
             part = idx[s * new_rows : (s + 1) * new_rows]
-            if not part.size:
-                continue
             owner = part // self.shard_rows
             for o in np.unique(owner):
                 p0, p1 = np.searchsorted(owner, [o, o + 1])
-                local = torch.from_numpy(part[p0:p1] - o * self.shard_rows)
-                local = local.to(self.mesh.devices[o])
-                for name in _FIELDS:
-                    if self._shard[name] is not None:
-                        fields[name][s][p0:p1] = (
-                            self._shard[name][o].index_select(0, local).to(dev))
+                blocks.append((s, int(o), int(p0), int(p1), part[p0:p1] - o * self.shard_rows))
+        remote = [b for b in blocks if ranks[b[0]] != ranks[b[1]]]
+        for name in _FIELDS:
+            if self._shard[name] is None:
+                continue
+            old = self._shard[name]
+
+            def rows(o, local):
+                dev = self.mesh.devices[o]
+                return old[o].index_select(0, torch.from_numpy(local).to(dev))
+
+            for s, o, p0, p1, local in blocks:
+                if ranks[s] == ranks[o] == me:
+                    fields[name][s][p0:p1] = rows(o, local).to(self.mesh.devices[s])
+            if not remote:
+                continue
+            send = {r: torch.cat([rows(o, local).to(self.mesh.lead)
+                                  for s, o, _, _, local in remote
+                                  if ranks[o] == me and ranks[s] == r])
+                    for r in {ranks[s] for s, o, *_ in remote if ranks[o] == me}}
+            recv = {}
+            for s, o, p0, p1, _ in remote:
+                if ranks[s] == me:
+                    recv[ranks[o]] = recv.get(ranks[o], 0) + p1 - p0
+            got = collectives.exchange(self.mesh, send, recv, old[self.mesh.local[0]])
+            at = dict.fromkeys(got, 0)
+            for s, o, p0, p1, _ in remote:
+                if ranks[s] == me:
+                    r = ranks[o]
+                    fields[name][s][p0:p1] = got[r][at[r] : at[r] + p1 - p0].to(
+                        self.mesh.devices[s])
+                    at[r] += p1 - p0
+
+    def _pmax(self, x: float) -> float:
+        """The largest of the ranks' host floats ``x``, on every rank."""
+        t = torch.tensor([x], dtype=torch.float64)
+        return float(collectives.pmax(self.mesh, [t], t))
 
     def _norm_max(self) -> float:
-        return max([_max_row_norm(self._shard["refs"][s][:n],
-                                  None if self._shard["scale"] is None
-                                  else self._shard["scale"][s][:n])
-                    for s, _, _, n in self._shards()], default=0.0)
+        return self._pmax(max(
+            [_max_row_norm(self._shard["refs"][s][:n],
+                           None if self._shard["scale"] is None else self._shard["scale"][s][:n])
+             for s, _, _, n in self._shards()], default=0.0))
 
     def append_rows(self, new_rows) -> None:
         """Grow the sharded corpus: only the new rows cross the host link.
@@ -253,7 +306,8 @@ class ShardedSimilaritySearcher(SimilaritySearcher):
         self._ref_norm_max = self._norm_max()
 
     def staged_bytes(self) -> int:
-        """Device bytes of every shard's fields and tensor-core copies."""
+        """Device bytes of this process's shards' fields and tensor-core
+        copies."""
         tensors = [t for _, whole in self._groups for t in whole.values()]
         tensors += [t for s, t in enumerate(self._tc_shards)
                     if t is not None and t is not self._shard["refs"][s]]
@@ -288,7 +342,7 @@ class ShardedSimilaritySearcher(SimilaritySearcher):
 
     def _per_shard(self, fn, *tensors):
         """``fn(s, base, n_valid, *tensors on the shard's device)`` for every
-        shard holding a valid row, in mesh order."""
+        shard of this process holding a valid row, in mesh order."""
         copies: dict = {}
         out = []
         for s, dev, base, n in self._shards():
@@ -297,7 +351,8 @@ class ShardedSimilaritySearcher(SimilaritySearcher):
         return out
 
     def _runs(self) -> List[Tuple[torch.device, int, int, dict]]:
-        """The valid rows of each allocation, in mesh order, for the dense
+        """The valid rows of each of this process's allocations, in mesh
+        order, for the dense
         f32 products (cuBLAS): (device, base, valid rows, {field: those
         rows}). Padding lies at the tail, so an allocation's valid rows are
         its first. On one card there is one allocation, and its product is
@@ -320,52 +375,65 @@ class ShardedSimilaritySearcher(SimilaritySearcher):
         return [fn(base, n, views, *self._copied(copies, dev, tensors))
                 for dev, base, n, views in self._runs()]
 
-    def _to_lead(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.device, non_blocking=True)
+    def _empty(self, m: int, dtype=torch.float32, width: Optional[int] = 0) -> torch.Tensor:
+        """A process's stand-in where it has no shard with a valid row:
+        [m, width] (``width`` None: [m]) on the lead device."""
+        shape = (m,) if width is None else (m, width)
+        return torch.empty(shape, dtype=dtype, device=self.device)
 
     def _row_max(self, q_k, qkw):
         parts = self._per_shard(
-            lambda s, base, n, q, kw: self._to_lead(kernels.row_max(
-                q, self.shard_refs(s), n, **self._shard_kw(s), **kw)), q_k, qkw)
-        if not parts:
-            return torch.full((q_k.shape[0],), float("-inf"), device=self.device)
-        return torch.stack(parts).amax(0)
+            lambda s, base, n, q, kw: kernels.row_max(
+                q, self.shard_refs(s), n, **self._shard_kw(s), **kw), q_k, qkw)
+        return collectives.pmax(self.mesh, parts,
+                                self._empty(q_k.shape[0], width=None).fill_(float("-inf")))
 
     def _fused_topk(self, q_k, kappa, qkw):
         def topk(s, base, n, q, kw):
             vals, ids = kernels.fused_topk(q, self.shard_refs(s), n, min(kappa, n),
                                            **self._shard_kw(s), **kw)
-            return self._to_lead(vals), self._to_lead(ids + base)
+            return vals, ids + base
 
         parts = self._per_shard(topk, q_k, qkw)
-        return kernels.ordered_topk(torch.cat([v for v, _ in parts], 1),
-                                    torch.cat([i for _, i in parts], 1), kappa)
+        m = q_k.shape[0]
+        vals = collectives.all_gather(self.mesh, [v for v, _ in parts], 1, self._empty(m))
+        ids = collectives.all_gather(self.mesh, [i for _, i in parts], 1,
+                                     self._empty(m, torch.int32))
+        return kernels.ordered_topk(vals, ids, kappa)
 
     def _count_above(self, q_k, tau, qkw):
         parts = self._per_shard(
-            lambda s, base, n, q, kw: self._to_lead(kernels.count_above(
-                q, self.shard_refs(s), tau, n, **self._shard_kw(s), **kw)), q_k, qkw)
-        return torch.stack(parts).sum(0)
+            lambda s, base, n, q, kw: kernels.count_above(
+                q, self.shard_refs(s), tau, n, **self._shard_kw(s), **kw), q_k, qkw)
+        return collectives.psum(self.mesh, parts,
+                                self._empty(q_k.shape[0], torch.int32, None).zero_())
 
     def _pool(self, q_k, qkw):
         def pool(s, base, n, q, kw):
             vals, ids = kernels.pool_writer(q, self.shard_refs(s), n,
                                             **self._shard_kw(s), **kw)
             m = q.shape[0]
-            return self._to_lead(vals.view(m, -1)), self._to_lead(ids.view(m, -1) + base)
+            return vals.view(m, -1), ids.view(m, -1) + base
 
         parts = self._per_shard(pool, q_k, qkw)
-        return torch.cat([v for v, _ in parts], 1), torch.cat([i for _, i in parts], 1)
+        m = q_k.shape[0]
+        return (collectives.all_gather(self.mesh, [v for v, _ in parts], 1, self._empty(m)),
+                collectives.all_gather(self.mesh, [i for _, i in parts], 1,
+                                       self._empty(m, torch.int32)))
 
     def _merge_entries(self, parts):
-        return tuple(torch.cat([p[j] for p in parts]) for j in range(3))
+        """The re-searches' (scores, rows, ref ids), concatenated over the
+        shards and the ranks."""
+        return tuple(collectives.all_gather(self.mesh, [p[j] for p in parts], 0,
+                                            self._empty(0, dtype, None))
+                     for j, dtype in enumerate((torch.float32, torch.int64, torch.int64)))
 
     def _scores_above(self, q_k, floor, capacity, qkw):
         def above(s, base, n, q, fl, kw):
             vals, rows, cols = kernels.scores_above(
                 q, self.shard_refs(s), n, fl, capacity=capacity,
                 **self._shard_kw(s), **kw)
-            return self._to_lead(vals), self._to_lead(rows), self._to_lead(cols + base)
+            return vals, rows.long(), cols.long() + base
 
         return self._merge_entries(self._per_shard(above, q_k, floor, qkw))
 
@@ -376,8 +444,7 @@ class ShardedSimilaritySearcher(SimilaritySearcher):
             sc = self._goodness(_f32_scores(r, run["refs"]), kw.get("q_sq"),
                                 run.get("ref_sq"))
             rr, cc = torch.nonzero(sc >= fl[:, None], as_tuple=True)
-            return (self._to_lead(sc[rr, cc]), self._to_lead(rr),
-                    self._to_lead(cc + base))
+            return sc[rr, cc], rr, cc + base
 
         return self._merge_entries(self._per_run(above, rows, floor, kw))
 
@@ -389,9 +456,10 @@ class ShardedSimilaritySearcher(SimilaritySearcher):
                 sc = _widened_scores(r, run["refs"], run["scale"], n, self.dim)
             else:
                 sc = torch.matmul(r, run["refs"].float().T)
-            return self._to_lead(self._goodness(sc, kw.get("q_sq"), run.get("ref_sq")))
+            return self._goodness(sc, kw.get("q_sq"), run.get("ref_sq"))
 
-        return torch.cat(self._per_run(scores, rows, kw), 1)
+        return collectives.all_gather(self.mesh, self._per_run(scores, rows, kw), 1,
+                                      self._empty(rows.shape[0]))
 
     # ---- routing -----------------------------------------------------------
 

@@ -24,7 +24,9 @@ Ported so far: ``codec_str`` "Flat" (with ``dtype`` "float32",
 "bfloat16" or "int8") and "SQ8" (``dtype="int8"``), ``metric`` "IP" or
 "L2" (the score-normalized index: IP only, as in JAX), ``precision``
 "highest" or "default", and ``mesh`` (the corpus sharded over a
-``vsc2022_torch.parallel.Mesh``: ``ShardedSimilaritySearcher``). The IVF
+``vsc2022_torch.parallel.Mesh``: ``ShardedSimilaritySearcher``; over a
+pod's mesh every rank holds the whole host corpus and stages its own
+shards, and every rank's search returns the same hits). The IVF
 codecs ("IVF{nlist}[,Flat|SQ8]") raise until they are ported (with a mesh
 they raise ``ValueError``, as in JAX: sharding and pruning exclude each
 other); other codec strings raise ``ValueError``, as in the JAX

@@ -2,8 +2,9 @@
 once, serve query batches at search speed.
 
 Counterpart of ``vsc2022_tpu/retrieval/serve.py``, with the same flags
-plus ``--device`` (``cuda`` unless ``--device cpu`` is given; asking for
-CUDA where there is none raises). The reference has no serving story:
+plus ``--device`` (``cuda`` unless ``--device cpu`` or ``cuda:N`` is
+given; asking for CUDA where there is none raises) and ``--dist_backend``
+(a pod's collectives). The reference has no serving story:
 every eval invocation reloads the reference corpus and rebuilds its
 FAISS index (reference: vsc/descriptor_eval_lib.py:27-60). This process
 stages the corpus on the device once; each request runs the standard
@@ -89,8 +90,26 @@ in this process (``vsc2022_torch.parallel.corpus_mesh``: each card; one
 shard on a one-card machine or on the CPU), and the localizer's reference
 tables with it (``shard_ref_table``).
 
+Multi-host pods: every rank runs this CLI with the same flags plus its
+``--process_id``; ``--coordinator`` rendezvouses the ``torch.distributed``
+group, so the ``--sharded`` corpus mesh spans every rank's device (one
+rank a card: ``cuda`` takes the card ``process_id % device_count``, or
+``--device cuda:N``). Rank 0 speaks the client protocol; every request it
+accepts is first relayed verbatim to the follower ranks over the
+``--control`` socket, so all ranks run the same collectives in the same
+order (a collective entered by one rank alone would hang the pod).
+Followers never write files (CSV and npz outputs are the leader's);
+path-based commands assume a shared filesystem, while the in-band forms
+(searchb/addb) need none: their payload bytes ride the relay. A follower
+prints ``follower\t<rank>\t<stage_seconds>`` when it is staged, and logs
+each reply it computes. The leader's exit (quit, shutdown, EOF) releases
+the followers; a dead follower turns the next device request into an
+error response. ``--dist_backend``: ``nccl`` between ranks on separate
+cards (the default on cards), ``gloo`` on the CPU (its default) or where
+ranks share a card (NCCL refuses two ranks on one card).
+
 Not ported yet (each raises at startup, or answers ``error`` for a
-command): ``--ivf``, the multi-host flags and ``probe``.
+command): ``--ivf`` and ``probe``.
 
     python -m vsc2022_torch.retrieval.serve --ref_features refs.npz \\
         --score_norm_features noise.npz --matches [--listen 127.0.0.1:0]
@@ -109,7 +128,7 @@ import time
 
 import numpy as np
 
-from vsc2022_torch.device import resolve_device
+from vsc2022_torch.device import device_flag, resolve_device
 from vsc2022_torch.metrics import CandidatePair, Dataset, Match
 from vsc2022_torch.retrieval.candidates import MaxScoreAggregation, rank_candidates
 from vsc2022_torch.retrieval.index import ScoreNormalizedVideoIndex, VideoIndex
@@ -202,14 +221,37 @@ parser.add_argument(
     "listening\\t<host>:<port>)",
 )
 parser.add_argument(
-    "--device", default="cuda", choices=("cuda", "cpu"),
-    help="Device to serve on (default cuda; raises when no GPU is present)",
+    "--device", default="cuda", type=device_flag,
+    help="Device to serve on: cuda (the default; raises when no GPU is "
+    "present; a pod's rank takes the card process_id %% device_count), "
+    "cuda:N or cpu",
 )
-_multihost = parser.add_argument_group("Multi-host (not ported yet)")
-_multihost.add_argument("--coordinator")
+_multihost = parser.add_argument_group(
+    "Multi-host",
+    "Pod serving: every rank runs this CLI with the same flags (plus its "
+    "--process_id); the corpus mesh spans all ranks' devices, rank 0 "
+    "speaks the client protocol, and every device-touching request is "
+    "relayed to the follower ranks over --control so the ranks stay in "
+    "lockstep. Path-based commands need a shared filesystem; the in-band "
+    "forms (searchb/addb) need none: their payload bytes are relayed "
+    "verbatim. Requires --sharded.",
+)
+_multihost.add_argument(
+    "--coordinator",
+    help="HOST:PORT of the torch.distributed rendezvous (rank 0)",
+)
 _multihost.add_argument("--num_processes", type=int, default=1)
 _multihost.add_argument("--process_id", type=int, default=0)
-_multihost.add_argument("--control")
+_multihost.add_argument(
+    "--control",
+    help="HOST:PORT of rank 0's request-relay socket (same value on every "
+    "rank; rank 0 binds it, followers connect)",
+)
+_multihost.add_argument(
+    "--dist_backend", choices=("nccl", "gloo"), default=None,
+    help="The pod's collectives: nccl (the default on cards; one rank a "
+    "card) or gloo (the default on the CPU; ranks that share a card)",
+)
 _extract = parser.add_argument_group(
     "Resident extraction",
     "Keep a descriptor model on the device beside the staged corpus, so "
@@ -261,13 +303,30 @@ def table_dtype(args) -> str:
 
 def check_ported(args) -> None:
     """Raise for every flag whose mode is not ported yet."""
-    unported = []
     if args.ivf is not None or args.ivf_nprobe is not None:
-        unported.append("--ivf")
-    if (args.num_processes or 1) > 1 or args.coordinator or args.control or args.process_id:
-        unported.append("multi-host serving")
-    if unported:
-        raise NotImplementedError("not ported yet: " + "; ".join(unported))
+        raise NotImplementedError("not ported yet: --ivf")
+
+
+def check_multihost(args) -> bool:
+    """The JAX server's checks of the pod flags; True in a pod."""
+    if (args.num_processes or 1) <= 1:
+        if args.coordinator or args.control or args.process_id:
+            raise ValueError("--coordinator/--control/--process_id need "
+                             "--num_processes > 1")
+        return False
+    if not args.coordinator:
+        raise ValueError("--num_processes > 1 requires --coordinator host:port "
+                         "(rank 0's torch.distributed rendezvous address)")
+    if not args.control:
+        raise ValueError("--num_processes > 1 requires --control host:port "
+                         "(rank 0's request-relay socket)")
+    if not args.sharded:
+        raise ValueError("Multi-host serving shards the corpus over the pod "
+                         "mesh: pass --sharded on every rank")
+    if not 0 <= args.process_id < args.num_processes:
+        raise ValueError(f"--process_id {args.process_id} out of range "
+                         f"[0, {args.num_processes})")
+    return True
 
 
 def build_index(args, device):
@@ -394,14 +453,16 @@ def _extract_feature_list(extractor_bundle, videos_path, args):
     return list(extractor.extract(dataset))
 
 
-def _extract_videos(extractor_bundle, parts, args) -> str:
+def _extract_videos(extractor_bundle, parts, args, leader=True) -> str:
     """``extract``: embed a video directory to a descriptor npz on the
-    resident model, one inference CLI run without its start-up."""
+    resident model, one inference CLI run without its start-up. The npz
+    is the leader's (a pod's followers write no files)."""
     t0 = time.perf_counter()
     if len(parts) < 3:
         raise ValueError("extract needs: extract\\t<videos_dir>\\t<output_npz>")
     feats = _extract_feature_list(extractor_bundle, parts[1], args)
-    store_features(parts[2], feats)
+    if leader:
+        store_features(parts[2], feats)
     n_frames = sum(len(vf) for vf in feats)
     return (
         f"ok\textracted\t{len(feats)}\t{n_frames}\t{parts[2]}"
@@ -409,7 +470,8 @@ def _extract_videos(extractor_bundle, parts, args) -> str:
     )
 
 
-def _search_videos(index, aggregation, localizer, extractor, parts, args) -> str:
+def _search_videos(index, aggregation, localizer, extractor, parts, args,
+                   leader=True) -> str:
     """``searchv``: raw videos in, candidate (and match) CSVs out; the
     extraction feeds the search core directly."""
     t0 = time.perf_counter()
@@ -435,7 +497,7 @@ def _search_videos(index, aggregation, localizer, extractor, parts, args) -> str
     out_csv = parts[2] if len(parts) > 2 and parts[2] else base + ".candidates.csv"
     matches_csv = parts[3] if len(parts) > 3 and parts[3] else base + ".matches.csv"
     return _respond_search(index, aggregation, localizer, queries, None,
-                           out_csv, matches_csv, args, t0)
+                           out_csv, matches_csv, args, t0, leader)
 
 
 def _localizer_queries(index, queries, args):
@@ -568,9 +630,10 @@ def _snapshot(index, localizer, args):
     return feats, fine
 
 
-def _save_refs(index, localizer, parts, args) -> str:
+def _save_refs(index, localizer, parts, args, leader=True) -> str:
     """Snapshot the current reference set to npz (the standard schema,
-    corpus row order). Pure host work: a failure changes nothing."""
+    corpus row order). Pure host work: a failure changes nothing. A
+    pod's followers skip the writes."""
     t0 = time.perf_counter()
     if len(parts) < 2:
         raise ValueError("save needs an output path: save\\t<refs_npz>")
@@ -580,9 +643,10 @@ def _save_refs(index, localizer, parts, args) -> str:
             "DnS save needs two paths: save\\t<coarse_npz>\\t<fine_npz>"
         )
     # Coarse first: a failed fine write leaves a coarse file that loads.
-    store_features(parts[1], feats, Dataset.REFS)
-    if fine is not None:
-        store_features(parts[2], fine, Dataset.REFS)
+    if leader:
+        store_features(parts[1], feats, Dataset.REFS)
+        if fine is not None:
+            store_features(parts[2], fine, Dataset.REFS)
     tail = f"\t{parts[2]}" if args.ref_fine_features else ""
     return (
         f"ok\tsaved\t{len(feats)}\t{parts[1]}{tail}"
@@ -590,11 +654,14 @@ def _save_refs(index, localizer, parts, args) -> str:
     )
 
 
-def _save_bytes(index, localizer, args):
+def _save_bytes(index, localizer, args, leader=True):
     """In-band snapshot (``saveb``): the npz bytes (coarse, then fine in
-    the DnS mode) go back on the wire."""
+    the DnS mode) go back on the wire. A pod's followers have no client
+    to send them to and skip the serialization."""
     t0 = time.perf_counter()
     feats, fine = _snapshot(index, localizer, args)
+    if not leader:
+        return f"ok\tfollower-save\t{len(feats)}", []
     blobs = []
     for videos in [feats] + ([fine] if fine is not None else []):
         buf = io.BytesIO()
@@ -658,17 +725,20 @@ def _search_bytes(index, aggregation, localizer, payloads, args):
 
 
 def _respond_search(index, aggregation, localizer, queries, queries_fine,
-                    out_csv, matches_csv, args, t0) -> str:
+                    out_csv, matches_csv, args, t0, leader=True) -> str:
     """Candidates (and TN matches) to CSVs. The candidates land on disk
-    before the TN stage, so a localization failure still leaves them."""
+    before the TN stage, so a localization failure still leaves them. A
+    pod's followers run the same search and write nothing."""
     candidates = _search_candidates(index, aggregation, queries, args)
-    CandidatePair.write_csv(candidates, out_csv)
+    if leader:
+        CandidatePair.write_csv(candidates, out_csv)
     if localizer is None:
         return f"ok\t{out_csv}\t{len(candidates)}\t{time.perf_counter() - t0:.3f}"
     found = _localize_candidates(
         index, localizer, queries, queries_fine, candidates, args
     )
-    Match.write_csv(found, matches_csv)
+    if leader:
+        Match.write_csv(found, matches_csv)
     return (
         f"ok\t{out_csv}\t{len(candidates)}\t{matches_csv}\t{len(found)}"
         f"\t{time.perf_counter() - t0:.3f}"
@@ -676,24 +746,27 @@ def _respond_search(index, aggregation, localizer, queries, queries_fine,
 
 
 def serve_request(index, aggregation, localizer, line: str, args, payloads=None,
-                  extractor=None):
+                  extractor=None, leader=True):
+    """One request's reply. ``leader`` False: a pod's follower, which runs
+    the request alike and writes no file."""
     parts = line.split("\t")
     if parts[0] == "add":
         return _add_refs(index, localizer, parts, args)
     if parts[0] == "remove":
         return _remove_refs(index, localizer, parts)
     if parts[0] == "save":
-        return _save_refs(index, localizer, parts, args)
+        return _save_refs(index, localizer, parts, args, leader)
     if parts[0] == "searchb":
         return _search_bytes(index, aggregation, localizer, payloads, args)
     if parts[0] == "addb":
         return _add_refs(index, localizer, parts, args, payloads=payloads)
     if parts[0] == "saveb":
-        return _save_bytes(index, localizer, args)
+        return _save_bytes(index, localizer, args, leader)
     if parts[0] == "extract":
-        return _extract_videos(extractor, parts, args)
+        return _extract_videos(extractor, parts, args, leader)
     if parts[0] == "searchv":
-        return _search_videos(index, aggregation, localizer, extractor, parts, args)
+        return _search_videos(index, aggregation, localizer, extractor, parts, args,
+                              leader)
     if parts[0] == "probe":
         raise NotImplementedError("probe is not ported yet")
     if parts[0] == "launches":
@@ -733,7 +806,7 @@ def serve_request(index, aggregation, localizer, line: str, args, payloads=None,
         queries_fine = convert_to_dict(load_features(fine_path, Dataset.QUERIES))
     return _respond_search(
         index, aggregation, localizer, queries, queries_fine,
-        out_csv, matches_csv, args, t0,
+        out_csv, matches_csv, args, t0, leader,
     )
 
 
@@ -764,6 +837,15 @@ def _warm_up(index, localizer, refs, dim, args) -> None:
 
 def main(args):
     check_ported(args)
+    multihost = check_multihost(args)
+    if multihost:
+        from vsc2022_torch.parallel.mesh import initialize_distributed
+
+        logger.info("Joining serving pod as rank %d of %d (coordinator: %s)",
+                    args.process_id, args.num_processes, args.coordinator)
+        rank_dev = initialize_distributed(args.coordinator, args.num_processes,
+                                          args.process_id, backend=args.dist_backend,
+                                          device=args.device)
     if args.ref_fine_features:
         if args.score_norm_features:
             # dns_index applies score normalization (reference:
@@ -774,7 +856,7 @@ def main(args):
                 "from dns_index; --score_norm_features does not apply."
             )
         args.matches = True
-    device = resolve_device(args.device)
+    device = rank_dev if multihost else resolve_device(args.device)
     t0 = time.perf_counter()
     # The extractor first: its flag checks (--baseline without weights)
     # fail before the corpus stages.
@@ -785,14 +867,27 @@ def main(args):
         _warm_up(index, localizer, refs, dim, args)
     stage_s = time.perf_counter() - t0
     aggregation = MaxScoreAggregation()
-    print(f"ready\t{len(refs)}\t{stage_s:.1f}", flush=True)
-    logger.info(f"Serving {len(refs)} reference videos on {device} "
-                f"(staged in {stage_s:.1f}s)")
-    if args.listen:
-        _serve_tcp(index, aggregation, localizer, args, stage_s, extractor=extractor)
-    else:
-        _serve_stream(index, aggregation, localizer, args,
-                      sys.stdin.buffer, sys.stdout.buffer, extractor=extractor)
+    if multihost and args.process_id != 0:
+        # A follower: no client protocol; it runs the leader's relayed
+        # requests in lockstep until the leader releases the pod.
+        print(f"follower\t{args.process_id}\t{stage_s:.1f}", flush=True)
+        _follow(index, aggregation, localizer, args, extractor=extractor)
+        logger.info("Follower rank released by the leader; exiting")
+        return
+    relay = _Relay(args) if multihost else None
+    try:
+        print(f"ready\t{len(refs)}\t{stage_s:.1f}", flush=True)
+        logger.info(f"Serving {len(refs)} reference videos on {device} "
+                    f"(staged in {stage_s:.1f}s)")
+        if args.listen:
+            _serve_tcp(index, aggregation, localizer, args, stage_s, extractor=extractor,
+                       relay=relay)
+        else:
+            _serve_stream(index, aggregation, localizer, args, sys.stdin.buffer,
+                          sys.stdout.buffer, extractor=extractor, relay=relay)
+    finally:
+        if relay is not None:
+            relay.close()
 
 
 def _read_payloads(rfile, head):
@@ -814,11 +909,124 @@ def _read_payloads(rfile, head):
     return payloads
 
 
+class _Relay:
+    """The leader's fan-out of every request to the follower ranks, in
+    execution order (``forward`` runs under the device lock): the ranks
+    must run the same collectives, and the leader alone in one would hang
+    the pod. ``close`` releases the followers (idempotent; main's
+    ``finally`` calls it on every exit path)."""
+
+    def __init__(self, args):
+        import socket
+
+        host, port = args.control.rsplit(":", 1)
+        srv = socket.create_server((host, int(port)))
+        # Staging is collective, so live followers connect when the leader
+        # gets here; a rank minutes late is dead, and waiting on it forever
+        # would wedge the pod.
+        srv.settimeout(180.0)
+        self._conns = []
+        logger.info("Waiting for %d follower rank(s) on %s", args.num_processes - 1,
+                    args.control)
+        try:
+            for _ in range(args.num_processes - 1):
+                conn, addr = srv.accept()
+                self._conns.append(conn)
+                logger.info("Follower attached from %s:%d", *addr[:2])
+        finally:
+            srv.close()
+        self._closed = False
+
+    def forward(self, raw: bytes, payloads) -> None:
+        """Relay one request to every follower, failing fast if a rank
+        died: a collective on a broken pod would hang the leader, so a dead
+        follower turns requests into error responses. Followers never
+        write on the control socket, so readability (EOF) is the liveness
+        check; a rank that dies after its relay is left to the process
+        group's own failure."""
+        import select
+
+        if self._closed:
+            raise RuntimeError("The pod is degraded (a follower rank died); "
+                               "restart every rank")
+        readable, _, _ = select.select(self._conns, [], [], 0)
+        if readable:
+            self.close()
+            raise RuntimeError("A follower rank died (control channel EOF); the pod "
+                               "mesh is broken: restart every rank")
+        try:
+            for conn in self._conns:
+                conn.sendall(raw)
+                for blob in payloads or ():
+                    conn.sendall(blob)
+        except OSError as exc:
+            self.close()
+            raise RuntimeError(f"Relaying to a follower rank failed ({exc}); the pod "
+                               "mesh is broken: restart every rank")
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        for conn in self._conns:
+            try:
+                conn.sendall(b"shutdown\n")
+                conn.close()
+            except OSError:
+                pass
+
+
+def _follow(index, aggregation, localizer, args, extractor=None) -> None:
+    """A follower's request loop: run every request the leader relays
+    (the same bytes, in the same order), so the ranks' collectives stay
+    in lockstep. Files are the leader's; a request error is the same on
+    every rank (the same inputs), so it leaves every rank alike."""
+    import socket
+
+    host, port = args.control.rsplit(":", 1)
+    deadline = time.monotonic() + 120
+    while True:
+        try:
+            sock = socket.create_connection((host, int(port)))
+            break
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.2)
+    logger.info("Follower rank connected to the leader's control channel")
+    with sock:
+        rfile = sock.makefile("rb")
+        while True:
+            raw = rfile.readline()
+            if not raw:
+                return
+            line = raw.decode("utf-8", errors="replace").strip()
+            if not line:
+                continue
+            if line == "shutdown":
+                return
+            head = line.split("\t")
+            try:
+                payloads = (_read_payloads(rfile, head)
+                            if head[0] in ("searchb", "addb") else None)
+                response = serve_request(index, aggregation, localizer, line, args,
+                                         payloads=payloads, extractor=extractor,
+                                         leader=False)
+                if isinstance(response, tuple):
+                    response = response[0]
+                logger.info("Follower reply: %s", response)
+            except EOFError:
+                return
+            except Exception as exc:
+                logger.info("Follower request error: %s", exc)
+
+
 def _serve_stream(index, aggregation, localizer, args, rfile, wfile,
-                  lock=None, extractor=None) -> bool:
+                  lock=None, extractor=None, relay=None) -> bool:
     """Answer one binary request stream until quit/shutdown/EOF; returns
     True when the whole server should stop. ``lock`` serializes device
-    and localizer state across TCP client threads."""
+    and localizer state across TCP client threads; ``relay`` (a pod's
+    leader) forwards each request to the followers first, under it."""
     while True:
         raw = rfile.readline()
         if not raw:
@@ -837,6 +1045,8 @@ def _serve_stream(index, aggregation, localizer, args, rfile, wfile,
                 _read_payloads(rfile, head) if head[0] in ("searchb", "addb") else None
             )
             with lock if lock is not None else contextlib.nullcontext():
+                if relay is not None:
+                    relay.forward(raw, payloads)
                 response = serve_request(
                     index, aggregation, localizer, line, args, payloads=payloads,
                     extractor=extractor,
@@ -854,7 +1064,7 @@ def _serve_stream(index, aggregation, localizer, args, rfile, wfile,
 
 
 def _serve_tcp(index, aggregation, localizer, args, stage_s: float,
-               extractor=None) -> None:
+               extractor=None, relay=None) -> None:
     """TCP accept loop speaking the stdin protocol, one thread per client,
     requests serialized on one device lock."""
     import socket
@@ -880,7 +1090,8 @@ def _serve_tcp(index, aggregation, localizer, args, stage_s: float,
                 wfile.write((ready + "\n").encode("utf-8"))
                 wfile.flush()
                 if _serve_stream(index, aggregation, localizer, args, rfile,
-                                 wfile, lock=device_lock, extractor=extractor):
+                                 wfile, lock=device_lock, extractor=extractor,
+                                 relay=relay):
                     stop.set()
         except (BrokenPipeError, ConnectionResetError):
             logger.info(f"Client {addr[0]}:{addr[1]} disconnected")

@@ -29,7 +29,9 @@ is the ``row_max`` kernel's int8 variant over the noise codes, and
 entries (``ShardedSimilaritySearcher``), as the JAX package's fused
 sharded pipeline does: the bias is each noise shard's ``row_max``, the max
 over the shards, appended on the lead device, and the bias-augmented
-queries go into the sharded candidate phase.
+queries go into the sharded candidate phase. Over a pod mesh the max
+runs over every rank's shards (``pmax``), so every rank appends the same
+bias.
 """
 
 from __future__ import annotations
