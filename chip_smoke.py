@@ -259,6 +259,20 @@ Phases (any failure exits non-zero):
      byte, each rank launching what 6b's server launched. 10d: the
      inference CLI as a two-rank --coordinator job on phase 8's query
      videos: the merged shards equal phase 8's npz bit for bit.
+ 11. The IVF pruned tier (vsc2022_torch/ops/ivf.py). 11a: the block-subset
+     kernels (count_above and fused_topk, .blocks, in f32, bf16 and int8)
+     at small shapes, exact on integers against their plain versions and
+     bit for bit the full-corpus kernels on the listed rows; then on 11b's
+     batch and its probed blocks (the records: kernel, plain, library and
+     bound ms). 11b: a clustered corpus of 1,000,000 rows at D = 512 made
+     on the card (50 centres, spread 0.35, seed 11), IVFSimilaritySearcher
+     against SimilaritySearcher in f32, bf16 and int8, a focused 64-frame
+     video (pruned, its scans on the .blocks kernels) and 150 videos from
+     5 centres: exactly equal; stats, build and search seconds logged.
+     11c: serve --ivf 0 at its bf16 default on phase 6's catalogue,
+     requests (a), (d), (e), (g): candidates.csv byte for byte with 6b's,
+     matches within IVF_BIAS_ATOL (the bias the localizer reads is
+     unrounded beside an IVF searcher, as in JAX).
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object with each kernel's numbers, and {"ok": true, "device": ...}.
@@ -343,6 +357,10 @@ KERNEL_META = {
 # with XLA, similarity.py:271, 464), so their Pallas function stands.
 BF16_REPLACES = {"pool_writer": "vsc2022_tpu/ops/pallas_kernels.py:228",
                  "chamfer": "vsc2022_tpu/ops/pallas_kernels.py:700"}
+# The block-subset variants replace no Pallas kernel: the JAX IVF tier scans
+# its block subset with XLA (the Pallas gate excludes block_ids).
+BLOCKS_REPLACES = {"count_above": "vsc2022_tpu/ops/similarity.py:427",
+                   "fused_topk": "vsc2022_tpu/ops/similarity.py:191"}
 # A bf16 variant in a source of its own.
 BF16_SOURCES = {"chamfer": "vsc2022_torch/ops/csrc/chamfer_bf16.cu"}
 # Each kernel's wrapper in vsc2022_torch.ops.kernels.
@@ -372,6 +390,9 @@ INT8 = ".int8"
 SCORES_ABOVE_INT8 = "scores_above" + INT8
 SSCD_INT8_KERNELS = tuple(k + INT8 for k in SSCD_KERNELS) + (SCORES_ABOVE_INT8,)
 SERVE_INT8_KERNELS = tuple(k + INT8 for k in SERVE_KERNELS)
+# The block-subset variants (the IVF tier's scans, phase 11):
+# <name>[.bf16|.int8].blocks.
+BLOCKS = ".blocks"
 DNS_SERVE_INT8_KERNELS = ("fused_topk.int8", "count_above.int8", "chamfer")
 
 
@@ -4438,6 +4459,341 @@ def phase_pod(torch, np, kernels, corpus, extraction, sharded_launches, serve_la
     return launches
 
 
+# ---- phase 11: the IVF pruned tier ----------------------------------------------
+
+# 11b's clustered corpus: unit-norm centres, each with rows at the unit
+# vector of the centre plus IVF_SPREAD times a random unit vector, the rows
+# shuffled; a focused query video near one centre, and a batch of
+# N_QUERY_VIDEOS videos of FRAMES frames near IVF_BATCH_CENTRES centres.
+IVF_CENTRES, IVF_PER_CENTRE, IVF_SPREAD = 50, 20_000, 0.35
+IVF_FOCUSED, IVF_BATCH_CENTRES = 64, 5
+IVF_DTYPES = {"float32": "", "bfloat16": BF16, "int8": INT8}
+# The bias column of a score-normalized query, as the localizer reads it:
+# bf16-rounded beside a plain searcher, unrounded beside an IVF one (the
+# JAX tier's rule). |bias| <= beta |sim| <= 1.2 here, so the rounding moves
+# a similarity by at most 2^-9 * 1.2 < 2^-8: tests/test_torch_ivf.py
+# (IVF_BIAS_ATOL) holds the matches of serve --ivf to the plain server's
+# within it. Over phase 6's catalogue such a move also tips a few weak
+# alignments of pairs that are no planted copy across the localizer's
+# thresholds (3 of 122 rows on an H100, scores -0.08 to 0.004), so 11c
+# holds the rows both servers write within IVF_BIAS_ATOL and requires every
+# row one server writes alone to lie off the planted pairs.
+IVF_BIAS_ATOL = 2.0 ** -8
+
+
+def ivf_data(torch, np, dev):
+    """11b's corpus [IVF_CENTRES * IVF_PER_CENTRE, DIM], the focused video
+    [IVF_FOCUSED, DIM] and the batch [N_QUERY_VIDEOS * FRAMES, DIM], f32 on
+    the host, made on the card from a seeded generator."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+
+    def unit(x):
+        return x / x.norm(dim=1, keepdim=True)
+
+    def near(centres):
+        e = unit(torch.randn(centres.shape, generator=g, device=dev))
+        return unit(centres + IVF_SPREAD * e)
+
+    centres = unit(torch.randn((IVF_CENTRES, DIM), generator=g, device=dev))
+    n = IVF_CENTRES * IVF_PER_CENTRE
+    rows = near(centres.repeat_interleave(IVF_PER_CENTRE, 0))
+    rows = rows[torch.randperm(n, generator=g, device=dev)].cpu().numpy()
+    focused = near(centres[7].expand(IVF_FOCUSED, DIM)).cpu().numpy()
+    picked = torch.arange(N_QUERY_VIDEOS, device=dev) % IVF_BATCH_CENTRES * 9 + 3
+    batch = near(centres[picked].repeat_interleave(FRAMES, 0)).cpu().numpy()
+    return rows, focused, batch
+
+
+def ivf_listed(torch, kernels, refs, scale, n_valid, ids, col_block):
+    """The listed blocks' valid rows and their refs as one corpus (the
+    check's copy; the kernels read the staged corpus in place)."""
+    rows = kernels.block_rows(ids, col_block, n_valid)
+    return rows, refs.index_select(0, rows), None if scale is None else scale[rows]
+
+
+def ivf_block_records(torch, kernels, searcher, q, ids, path):
+    """The block-subset kernels of the searcher's dtype (count_above and
+    fused_topk) on staged queries q, the searcher's staged corpus and the
+    block list ids: bit for bit the full-corpus kernel on the listed rows
+    (ids mapped back), against the plain version with the same list (on
+    these floats: counts between the plain counts at tau + tol and tau -
+    tol, values within tol, the dtype's tolerance),
+    then timed beside the plain version, the library route (gather the
+    listed rows, cuBLAS, then the count, or per-segment topk(2) and
+    topk(kappa)) and the bound over the listed blocks' valid columns, with
+    tau the (K_PER_ROW * m)-th candidate. Returns {key: record}."""
+    cb, n_valid, dd = searcher.col_block, searcher.n_refs, searcher.dim
+    q_k, _ = searcher._query_operands(q)
+    refs, kw = searcher.tensor_core_refs(), searcher._corpus_kw()
+    scale = kw.get("scale")
+    blocks = {"blocks": ids, "col_block": cb}
+    m = q_k.shape[0]
+    bf16, int8 = q_k.dtype == torch.bfloat16, refs.dtype == torch.int8
+    sfx = BF16 if bf16 else INT8 if int8 else ""
+    tol = BF16_TC_ATOL if bf16 or int8 else FLOAT_ATOL
+    kappa = 32
+    count = lambda: kernels.count_above(q_k, refs, tau, n_valid, **kw, **blocks)  # noqa: E731
+    topk = lambda: kernels.fused_topk(q_k, refs, n_valid, kappa, **kw, **blocks)  # noqa: E731
+    gv, gi = topk()
+    tau = float(torch.topk(gv.reshape(-1), K_PER_ROW * m).values[-1])
+    got = count()
+    rows, sub, sub_scale = ivf_listed(torch, kernels, refs, scale, n_valid, ids, cb)
+    sub_kw = {} if scale is None else {"scale": sub_scale}
+    fv, fi = kernels.fused_topk(q_k, sub, rows.numel(), kappa, **sub_kw)
+    mapped = torch.where(torch.isfinite(fv), rows[fi.long()], 0).int()
+    check(torch.equal(gv.view(torch.int32), fv.view(torch.int32)) and torch.equal(gi, mapped)
+          and torch.equal(got, kernels.count_above(q_k, sub, tau, rows.numel(), **sub_kw)),
+          f"11a: fused_topk{sfx}{BLOCKS} or count_above{sfx}{BLOCKS} != the full-corpus "
+          "kernel on the listed rows")
+    del sub, fv, fi, mapped
+    torch.cuda.empty_cache()
+    # Floats: an entry within tol of tau may count on one side only, so the
+    # count lies between the plain counts at tau + tol and tau - tol.
+    counts = {t: kernels.count_above_plain(q_k, refs, t, n_valid, **kw, **blocks)
+              for t in (tau + tol, tau, tau - tol)}
+    count_err = float((got - counts[tau]).abs().max())
+    check(bool(((counts[tau + tol] <= got) & (got <= counts[tau - tol])).all()),
+          f"11a: count_above{sfx}{BLOCKS}: counts outside the plain counts at tau "
+          f"+- {tol} (off by {count_err} at tau)")
+    del counts
+    wv, _ = kernels.fused_topk_plain(q_k, refs, n_valid, kappa, **kw, **blocks)
+    finite = torch.isfinite(wv)
+    check(torch.equal(finite, torch.isfinite(gv)),
+          f"11a: fused_topk{sfx}{BLOCKS}: -inf slots differ from the plain version")
+    topk_err = float((gv[finite] - wv[finite]).abs().max()) if finite.any() else 0.0
+    check(topk_err <= tol, f"11a: fused_topk{sfx}{BLOCKS}: values off the plain "
+          f"version's by {topk_err} > {tol}")
+    del gv, gi, wv, finite
+    torch.cuda.empty_cache()
+    lq, cols = q_k[:, :dd], int(rows.numel())
+
+    def listed():
+        return refs.index_select(0, rows)
+
+    records = {}
+    for name, call, plain, lib, out_bytes, err in (
+        ("count_above", count,
+         lambda: kernels.count_above_plain(q_k, refs, tau, n_valid, **kw, **blocks),
+         lambda: count_above_library(torch, lq, listed(), tau, cols, sub_scale),
+         4 * m, count_err),
+        ("fused_topk", topk,
+         lambda: kernels.fused_topk_plain(q_k, refs, n_valid, kappa, **kw, **blocks),
+         lambda: topk_library(torch, lq, listed(), cols, kappa, sub_scale),
+         8 * m * kappa, topk_err),
+    ):
+        kernel_ms = cuda_ms(torch, call, 3)
+        plain_ms = cuda_ms(torch, plain, 1)
+        library_ms = cuda_ms(torch, lib, 1)
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = bound(m, cols, cols, dd, out_bytes, bf16=bf16, int8=int8)
+        key = name + sfx + BLOCKS
+        records[key] = {
+            "shape": [m, cols, dd] + ([kappa] if name == "fused_topk" else []),
+            "blocks": int(ids.numel()), "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        log(f"phase 11a: {key} on {path} [{m} x {cols} listed columns ({ids.numel()} "
+            f"blocks of {cb}) x {dd}] kernel_ms={kernel_ms:.3f} plain_ms={plain_ms:.3f} "
+            f"library_ms={library_ms:.3f} bound_ms={bound_ms:.3f} ({bound_by}) "
+            f"max_abs_err={err}")
+    return records
+
+
+def ivf_small(torch, kernels, dev):
+    """11a at small shapes: six blocks of 512 rows (the last partial), every
+    dtype, integer rows: each subset kernel equals the full-corpus kernel
+    on the listed rows bit for bit and its plain version exactly; an empty
+    list counts 0 and gives -inf sets."""
+    n, d, n_valid, cb = 6 * 512, 64, 2900, 512
+    for dtype, sfx in IVF_DTYPES.items():
+        if dtype == "int8":
+            refs, scale = int8_rows(torch, "int", n, d, 41, dev)
+            q, kw = int8_int_queries(torch, 300, d, 42, dev), {"scale": scale}
+        else:
+            q, refs = make_inputs(torch, "int", 300, n, d, seed=43, dev=dev)
+            if dtype == "bfloat16":
+                q, refs = q.to(torch.bfloat16), refs.to(torch.bfloat16)
+            scale, kw = None, {}
+        for listed in ([0], [5], [0, 2, 5], [1, 2, 3, 4, 5], []):
+            ids = torch.tensor(listed, dtype=torch.int32, device=dev)
+            blocks = {"blocks": ids, "col_block": cb}
+            rows, sub, sub_scale = ivf_listed(torch, kernels, refs, scale, n_valid, ids, cb)
+            sub_kw = {} if scale is None else {"scale": sub_scale}
+            for tau in (6.0, float("-inf")):
+                got = kernels.count_above(q, refs, tau, n_valid, **kw, **blocks)
+                check(torch.equal(got, kernels.count_above_plain(
+                    q, refs, tau, n_valid, **kw, **blocks)),
+                    f"11a: count_above{sfx}{BLOCKS} {listed} != its plain version")
+                if listed:
+                    check(torch.equal(got, kernels.count_above(q, sub, tau, rows.numel(),
+                                                               **sub_kw)),
+                          f"11a: count_above{sfx}{BLOCKS} {listed} != the full kernel")
+            gv, gi = kernels.fused_topk(q, refs, n_valid, 32, **kw, **blocks)
+            wv, wi = kernels.fused_topk_plain(q, refs, n_valid, 32, **kw, **blocks)
+            check(torch.equal(gv, wv) and torch.equal(gi, wi),
+                  f"11a: fused_topk{sfx}{BLOCKS} {listed} != its plain version")
+            if listed:
+                fv, fi = kernels.fused_topk(q, sub, rows.numel(), 32, **sub_kw)
+                check(torch.equal(gv, fv) and torch.equal(
+                    gi, torch.where(torch.isfinite(fv), rows[fi.long()], 0).int()),
+                    f"11a: fused_topk{sfx}{BLOCKS} {listed} != the full kernel")
+            else:
+                check(bool(torch.isneginf(gv).all()), "11a: an empty list's sets")
+    log("phase 11a: count_above and fused_topk .blocks (f32, bf16, int8) at small shapes "
+        "[300 x 6 blocks of 512 x 64]: == the full-corpus kernels on the listed rows bit "
+        "for bit, == their plain versions exactly (integers); empty lists give 0 and -inf")
+
+
+def phase_ivf(torch, np, kernels, dev, corpus):
+    """Phase 11: the IVF pruned tier on the card. 11a: the block-subset
+    kernels at small shapes, then on the batch's probed blocks of 11b's
+    corpus (records). 11b: IVFSimilaritySearcher over a clustered corpus of
+    1,000,000 rows at D = 512 in f32, bf16 and int8 against the plain
+    SimilaritySearcher: the focused video (pruned in every dtype) and the
+    batch, exactly equal; stats, build seconds (k-means, the rest of the
+    stage), both arms' search seconds and the launches logged. 11c: serve
+    --ivf 0 --score_norm_features --matches at its bf16 default on phase
+    6's catalogue, requests (a), (d), (e), (g): candidates.csv byte for
+    byte with 6b's, the matches' rows both write within IVF_BIAS_ATOL, the
+    rows one writes alone off the planted pairs. Returns the records and
+    11b's launches of the subset kernels."""
+    from vsc2022_torch.ops import ivf
+    from vsc2022_torch.ops.similarity import SimilaritySearcher
+
+    t_phase = time.perf_counter()
+    ivf_small(torch, kernels, dev)
+    t0 = time.perf_counter()
+    rows, focused, batch = ivf_data(torch, np, dev)
+    log(f"phase 11b: corpus {rows.shape[0]} x {DIM} ({IVF_CENTRES} centres x "
+        f"{IVF_PER_CENTRE} rows, spread {IVF_SPREAD}), focused video {IVF_FOCUSED} "
+        f"frames, batch {batch.shape[0]} frames from {IVF_BATCH_CENTRES} centres; made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kmeans_seconds = []
+    original = ivf.kmeans_assign
+
+    def timed_kmeans(*a, **k):
+        t = time.perf_counter()
+        out = original(*a, **k)
+        kmeans_seconds.append(time.perf_counter() - t)
+        return out
+
+    records, launches = {}, {}
+    ivf.kmeans_assign = timed_kmeans
+    try:
+        for dtype, sfx in IVF_DTYPES.items():
+            t0 = time.perf_counter()
+            searcher = ivf.IVFSimilaritySearcher(rows, dtype=dtype, device=dev)
+            torch.cuda.synchronize()
+            build = time.perf_counter() - t0
+            plain = SimilaritySearcher(rows, dtype=dtype, device=dev)
+            counts = {k: 0 for k in kernels.BLOCK_KERNELS}
+            for label, q, k in (("focused", focused, 1200),
+                                ("batch", batch, 1200 * N_QUERY_VIDEOS)):
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                got = searcher.global_topk(q, k)
+                t_ivf = time.perf_counter() - t0
+                run = dict(kernels.launches)
+                stats = dict(searcher.last_search_stats or {})
+                t0 = time.perf_counter()
+                want = plain.global_topk(q, k)
+                t_plain = time.perf_counter() - t0
+                check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                      f"11b {dtype} {label}: IVF != the plain searcher")
+                for key in counts:
+                    counts[key] += run.get(key, 0)
+                if label == "focused":
+                    check(stats.get("pruned") is True, f"11b {dtype}: the focused "
+                          f"video did not prune: {stats}")
+                    check(run[f"fused_topk{sfx}{BLOCKS}"] == 1
+                          and run[f"count_above{sfx}{BLOCKS}"] == 1
+                          and run[f"fused_topk{sfx}"] == 0,
+                          f"11b {dtype}: the focused search's launches {run}")
+                log(f"phase 11b: {dtype} {label} [{q.shape[0]} x {rows.shape[0]}] k={k}: "
+                    f"IVF == plain exactly; stats {json.dumps(stats)}; IVF "
+                    f"{t_ivf:.3f} s ({searcher.last_stats['mode']}), plain {t_plain:.3f} s "
+                    f"({plain.last_stats['mode']}); launches "
+                    f"{json.dumps({k: v for k, v in run.items() if v})}")
+            log(f"phase 11b: {dtype} IVFSimilaritySearcher built in {build:.2f} s "
+                f"(k-means {kmeans_seconds[-1]:.2f} s, nlist {searcher.nlist}, "
+                f"col_block {searcher.col_block}, the rest of the stage "
+                f"{build - kmeans_seconds[-1]:.2f} s)")
+            for name in ("count_above", "fused_topk"):
+                launches[name + sfx + BLOCKS] = counts[name + sfx + BLOCKS]
+            # 11a on the main path's shape: the batch's probed blocks.
+            q = searcher._stage_queries(batch)
+            n_blocks = searcher._refs.shape[0] // searcher.col_block
+            mask, _ = searcher._probe(q, n_blocks)
+            ids = torch.from_numpy(np.nonzero(mask)[0].astype(np.int32)).to(dev)
+            records.update(ivf_block_records(torch, kernels, searcher, q, ids,
+                                             f"11b's batch, {dtype}"))
+            del searcher, plain, q
+            torch.cuda.empty_cache()
+    finally:
+        ivf.kmeans_assign = original
+    del rows
+    ivf_serve(corpus)
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return records, launches
+
+
+def ivf_serve(corpus):
+    """11c: serve --ivf 0 (the default nlist) --score_norm_features
+    --matches at its bf16 default on phase 6's catalogue, requests (a),
+    (d), (e), (g), against phase 6b's files (IVF_BIAS_ATOL)."""
+    from vsc2022_torch.metrics import Match
+
+    work, paths, removed = corpus["work"], corpus["paths"], corpus["removed"]
+    csv = {x: (str(work / f"ivf_{x}_c.csv"), str(work / f"ivf_{x}_m.csv")) for x in "ag"}
+    with open(work / "server_ivf.log", "w") as server_log:
+        t0 = time.perf_counter()
+        with spawn_server(paths["refs"], server_log, score_norm_features=paths["noise"],
+                          matches=True, extra_args=["--ivf", "0"]) as client:
+            log(f"phase 11c: serve --ivf 0 ready, {client.n_ref_videos} videos staged "
+                f"in {client.stage_seconds:.1f} s ({time.perf_counter() - t0:.1f} s wall)")
+            client.launches(reset=True)
+            timed("a", lambda: client.search(paths["queries"], candidates_csv=csv["a"][0],
+                                             matches_csv=csv["a"][1]), "11c")
+            n_add = timed("d", lambda: client.add(str(work / "add.npz")), "11c")
+            n_rm = timed("e", lambda: client.remove(removed), "11c")
+            timed("g", lambda: client.search(paths["queries"], candidates_csv=csv["g"][0],
+                                             matches_csv=csv["g"][1]), "11c")
+            stats, counts = client.stats(), client.launches()
+    check((n_add, n_rm) == (SERVE_ADD, (SERVE_REMOVE, SERVE_REMOVE * FRAMES))
+          and stats.dtype == "bfloat16", f"11c: add {n_add}, remove {n_rm}, {stats}")
+    planted = {(m.query_id, m.ref_id) for m in Match.read_csv(paths["gt"], is_gt=True)}
+    report = []
+    for x in "ag":
+        got, want = Path(csv[x][0]).read_bytes(), (work / f"bf16_{x}_c.csv").read_bytes()
+        check(got == want and got.count(b"\n") > 1,
+              f"11c: ({x}) candidates.csv differs from phase 6b's")
+        ivf_rows, plain_rows = match_rows(csv[x][1]), match_rows(work / f"bf16_{x}_m.csv")
+        shared = ivf_rows.keys() & plain_rows.keys()
+        err = max(abs(ivf_rows[k] - plain_rows[k]) for k in shared)
+        check(err <= IVF_BIAS_ATOL, f"11c ({x}) matches: scores differ by {err}")
+        alone = {k: v for rows, other in ((ivf_rows, plain_rows), (plain_rows, ivf_rows))
+                 for k, v in rows.items() if k not in other}
+        copies = [v for k, v in plain_rows.items() if k[:2] in planted]
+        check(copies and all(k[:2] not in planted for k in alone),
+              f"11c ({x}) matches: rows of planted pairs one server writes alone {alone}")
+        report.append(f"({x}) {len(shared)} rows within {err:.3g}, {len(alone)} alone, "
+                      f"off the planted pairs (scores "
+                      f"{sorted(round(v, 4) for v in alone.values())}; the planted "
+                      f"pairs' rows score {min(copies):.4f} to {max(copies):.4f})")
+    log(f"phase 11c: (a), (d), (e), (g): candidates.csv == phase 6b's byte for byte; "
+        f"matches against 6b's: {'; '.join(report)}; launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}")
+
+
+def match_rows(path):
+    """{(query, ref, segment bounds): score} of a matches CSV."""
+    rows = _csv_rows(path)
+    score = rows[0].index("score")
+    return {tuple(r[:score] + r[score + 1:]): float(r[score]) for r in rows[1:]}
+
+
 def nvidia_smi_line() -> str:
     try:
         out = subprocess.run(
@@ -4551,6 +4907,7 @@ def main() -> int:
         sharded_launches = phase_sharded(torch, np, kernels, dev, paths, corpus)
         pod_launches = phase_pod(torch, np, kernels, corpus, extraction, sharded_launches,
                                  serve_bf16_launches)
+        ivf_records, ivf_launches = phase_ivf(torch, np, kernels, dev, corpus)
         del corpus
     finally:
         if not args.keep:
@@ -4615,10 +4972,15 @@ def main() -> int:
     # The L2 variants: phase 7b's search over the serving catalogue.
     records.update(l2_recs)
     launches.update(l2_launches)
+    # The block subsets: phase 11b's IVF searches (timed on the batch's
+    # probed blocks, 11a).
+    records.update(ivf_records)
+    launches.update(ivf_launches)
     path_of = {"chamfer": "dns", "chamfer.bf16": "dns, precision default (phase 5d)",
                "fused_topk": "serving", "fused_topk.bf16": "serving",
                "fused_topk.int8": "serving",
-               **{name: "serving, metric L2 (phase 7b)" for name in kernels.L2_KERNELS}}
+               **{name: "serving, metric L2 (phase 7b)" for name in kernels.L2_KERNELS},
+               **{name: "IVF tier (phase 11b)" for name in kernels.BLOCK_KERNELS}}
 
     def by_dtype(name, f32, bf16, int8):
         return bf16 if name.endswith(BF16) else int8 if name.endswith(INT8) else f32
@@ -4630,6 +4992,8 @@ def main() -> int:
         if name.endswith(BF16):
             replaces = BF16_REPLACES.get(base, replaces)
             source = BF16_SOURCES.get(base, source)
+        if name.endswith(BLOCKS):
+            replaces = BLOCKS_REPLACES[base]
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
@@ -4642,7 +5006,7 @@ def main() -> int:
                     "path_function",
                     "plan",
                     "kernel_only_ms", "library_route_ms", "dense_route_ms", "entries",
-                    "capacity", "peak_bytes", "dense_route_peak_bytes", "head"):
+                    "capacity", "peak_bytes", "dense_route_peak_bytes", "head", "blocks"):
             if key in rec:
                 row[key] = rec[key]
         if name in dns_records:  # the same kernel on the DnS path

@@ -133,6 +133,7 @@ def test_kernels_match_plain(cuda_device, m, n, d, n_valid):
         "chamfer.bf16": 0, "row_max.int8": 0, "count_above.int8": 0,
         "pool_writer.int8": 0, "fused_topk.int8": 0, "scores.int8": 0,
         "scores_above.int8": 0, **{name: 0 for name in kernels.L2_KERNELS},
+        **{name: 0 for name in kernels.BLOCK_KERNELS},
     }
 
 
@@ -2477,3 +2478,175 @@ def test_pod_one_rank_per_card_over_nccl(cuda_device):
     finally:
         for p in procs:
             p.kill()
+
+
+# ---- the block subsets (the IVF tier's scans) -------------------------------------
+
+# Rows a block: a multiple of the tensor cores' 256-row tile. Six blocks,
+# the last partial (n_valid 2,900 of 3,072 staged rows).
+BLOCK_COL = 512
+BLOCK_N, BLOCK_VALID = 6 * BLOCK_COL, 2900
+BLOCK_LISTS = ([0], [5], [3], [0, 2, 5], [1, 2, 3, 4, 5])
+BLOCK_SUFFIX = {"float32": "", "bfloat16": ".bf16", "int8": ".int8"}
+
+
+def _block_case(device, dtype, kind, seed, d=64):
+    """(q, refs, scale, n_valid) over BLOCK_N staged rows in the dtype's
+    staging: integer rows (int8: integer queries, power-of-two scales) or
+    unit-norm floats; rows past n_valid zero."""
+    if dtype == "int8":
+        q, codes, scale, _ = _int8_case(device, 300, BLOCK_N, d, seed, kind)
+        codes[BLOCK_VALID:], scale[BLOCK_VALID:] = 0, 0.0
+        return q, codes, scale, BLOCK_VALID
+    rng = np.random.RandomState(seed)
+    if kind == "int":
+        q = rng.randint(-3, 4, size=(300, d)).astype(np.float32)
+        r = rng.randint(-3, 4, size=(BLOCK_N, d)).astype(np.float32)
+    else:
+        q, r = _unit_rows(rng, 300, d), _unit_rows(rng, BLOCK_N, d)
+    r[BLOCK_VALID:] = 0
+    dt = BF16 if dtype == "bfloat16" else torch.float32
+    return (torch.from_numpy(q).to(dt).to(device), torch.from_numpy(r).to(dt).to(device),
+            None, BLOCK_VALID)
+
+
+def _listed(ids, r, scale, n_valid):
+    """(listed rows, their refs as one contiguous corpus, its kernel kwargs)."""
+    rows = kernels.block_rows(ids, BLOCK_COL, n_valid)
+    kw = {} if scale is None else {"scale": scale[rows].contiguous()}
+    return rows, r[rows].contiguous(), kw
+
+
+@pytest.mark.parametrize("blocks", BLOCK_LISTS)
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_blocks_equal_the_full_kernel_on_the_listed_rows(cuda_device, dtype, kind, blocks):
+    # A score does not depend on where its tile sits in the schedule, so a
+    # subset kernel gives the full-corpus kernel's result on a corpus made of
+    # the listed blocks' rows, bit for bit, ids mapped back.
+    q, r, scale, n_valid = _block_case(cuda_device, dtype, kind, 300 + len(blocks))
+    kw = {} if scale is None else {"scale": scale}
+    ids = torch.tensor(blocks, dtype=torch.int32, device=cuda_device)
+    rows, sub, sub_kw = _listed(ids, r, scale, n_valid)
+    sub_blocks = {"blocks": ids, "col_block": BLOCK_COL}
+    kernels.reset_launches()
+    for tau in ((6.0, -2.0, float("-inf")) if kind == "int" else (0.15, float("-inf"))):
+        got = kernels.count_above(q, r, tau, n_valid, **kw, **sub_blocks)
+        assert torch.equal(got, kernels.count_above(q, sub, tau, rows.numel(), **sub_kw))
+    for kappa in (8, 32, 100):
+        gv, gi = kernels.fused_topk(q, r, n_valid, kappa, **kw, **sub_blocks)
+        wv, wi = kernels.fused_topk(q, sub, rows.numel(), kappa, **sub_kw)
+        assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+        assert torch.equal(gi, torch.where(torch.isfinite(wv), rows[wi.long()], 0).int())
+    sfx = BLOCK_SUFFIX[dtype]
+    n_tau = 3 if kind == "int" else 2
+    assert {k: v for k, v in kernels.launches.items() if v} == {
+        f"count_above{sfx}.blocks": n_tau, f"count_above{sfx}": n_tau,
+        f"fused_topk{sfx}.blocks": 3, f"fused_topk{sfx}": 3}
+
+
+@pytest.mark.parametrize("kind", ["int", "float"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_blocks_match_plain(cuda_device, dtype, kind):
+    # Against the plain versions with the same list: exact on integers,
+    # within BF16_TC_ATOL on unit-norm floats (the int8 plain product: the
+    # dequantized rows).
+    q, r, scale, n_valid = _block_case(cuda_device, dtype, kind, 320)
+    kw = {} if scale is None else {"scale": scale}
+    for blocks in BLOCK_LISTS:
+        ids = torch.tensor(blocks, dtype=torch.int32, device=cuda_device)
+        sub_blocks = {"blocks": ids, "col_block": BLOCK_COL}
+        rows, sub, sub_kw = _listed(ids, r, scale, n_valid)
+        tau, kappa = (6.0 if kind == "int" else 0.15), 32
+        got = kernels.count_above(q, r, tau, n_valid, **kw, **sub_blocks)
+        gv, gi = kernels.fused_topk(q, r, n_valid, kappa, **kw, **sub_blocks)
+        if kind == "int":
+            assert torch.equal(got, kernels.count_above_plain(q, r, tau, n_valid, **kw,
+                                                              **sub_blocks))
+            wv, wi = kernels.fused_topk_plain(q, r, n_valid, kappa, **kw, **sub_blocks)
+            assert torch.equal(gv, wv) and torch.equal(gi, wi)
+            continue
+        # The listed rows as the plain product reads them (int8: dequantized)
+        # and the kernel's ids in their numbering.
+        ref = sub if scale is None else sub.float() * sub_kw["scale"][:, None]
+        local = torch.where(torch.isfinite(gv), torch.searchsorted(rows, gi.long()), 0)
+        _check_count_within(got, q, ref, tau, rows.numel(), BF16_TC_ATOL)
+        _check_topk_within(gv, local, q, ref, rows.numel(), kappa, BF16_TC_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_blocks_edge_cases(cuda_device, dtype):
+    # An empty list launches nothing: counts 0 and kappa-sets of -inf (ids
+    # 0). Ids out of range, unordered or repeated raise; so does L2 and, on
+    # the tensor cores, a col_block that is not a whole number of 256-row
+    # tiles.
+    q, r, scale, n_valid = _block_case(cuda_device, dtype, "int", 330)
+    kw = {} if scale is None else {"scale": scale}
+    kernels.reset_launches()
+    empty = {"blocks": torch.empty(0, dtype=torch.int32, device=cuda_device),
+             "col_block": BLOCK_COL}
+    assert int(kernels.count_above(q, r, -1e9, n_valid, **kw, **empty).abs().sum()) == 0
+    gv, gi = kernels.fused_topk(q, r, n_valid, 16, **kw, **empty)
+    assert bool(torch.isneginf(gv).all()) and int(gi.abs().sum()) == 0
+    assert not any(kernels.launches.values())
+    for bad in ([6], [-1], [2, 2], [3, 1]):
+        ids = torch.tensor(bad, dtype=torch.int32, device=cuda_device)
+        with pytest.raises(ValueError, match="ascending"):
+            kernels.count_above(q, r, 0.0, n_valid, **kw, blocks=ids, col_block=BLOCK_COL)
+        with pytest.raises(ValueError, match="ascending"):
+            kernels.fused_topk(q, r, n_valid, 8, **kw, blocks=ids, col_block=BLOCK_COL)
+    one = torch.tensor([0], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="on cuda"):
+        kernels.count_above(q, r, 0.0, n_valid, **kw, blocks=one.cpu(), col_block=BLOCK_COL)
+    if dtype != "float32":
+        with pytest.raises(ValueError, match="multiple of 256"):
+            kernels.fused_topk(q, r, n_valid, 8, **kw, blocks=one, col_block=128)
+    if dtype != "int8":
+        l2 = {"ref_sq": torch.ones(BLOCK_N, device=cuda_device),
+              "q_sq": torch.ones(q.shape[0], device=cuda_device)}
+        with pytest.raises(ValueError, match="metric IP"):
+            kernels.count_above(q, r, 0.0, n_valid, blocks=one, col_block=BLOCK_COL, **l2)
+
+
+@pytest.mark.parametrize("slots", [1, 3, 7])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_blocks_any_grid(cuda_device, monkeypatch, dtype, slots):
+    # Few blocks: a block's range spans row tiles (groups) and several of
+    # the listed blocks; the pieces land in up to S slots.
+    q, r, scale, n_valid = _block_case(cuda_device, dtype, "int", 340)
+    kw = {} if scale is None else {"scale": scale}
+    ids = torch.tensor([0, 2, 5], dtype=torch.int32, device=cuda_device)
+    sub_blocks = {"blocks": ids, "col_block": BLOCK_COL}
+    want_c = kernels.count_above_plain(q, r, 6.0, n_valid, **kw, **sub_blocks)
+    want_v, want_i = kernels.fused_topk_plain(q, r, n_valid, 32, **kw, **sub_blocks)
+    monkeypatch.setattr(kernels, "_occupancy_slots", lambda t, name, *args: slots)
+    assert torch.equal(kernels.count_above(q, r, 6.0, n_valid, **kw, **sub_blocks), want_c)
+    got_v, got_i = kernels.fused_topk(q, r, n_valid, 32, **kw, **sub_blocks)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_blocks_ivf_searcher_equals_plain(cuda_device, dtype):
+    # The IVF searcher on the card (its scans on the subset kernels) against
+    # the plain searcher: the same pairs and scores, ties included.
+    from vsc2022_torch.ops.ivf import IVFSimilaritySearcher
+    from vsc2022_torch.ops.similarity import SimilaritySearcher
+
+    rng = np.random.RandomState(350)
+    centers = rng.randint(-12, 13, size=(8, 16)) * 8
+    truth = np.arange(40_000) % 8
+    rows = (centers[truth] + rng.randint(-2, 3, size=(40_000, 16))).astype(np.float32)
+    ivf = IVFSimilaritySearcher(rows, nlist=8, dtype=dtype, device=cuda_device)
+    plain = SimilaritySearcher(rows, dtype=dtype, device=cuda_device)
+    q = rows[truth == 3][:64] + 1.0
+    sfx = BLOCK_SUFFIX[dtype]
+    for k in (10, 500):
+        kernels.reset_launches()
+        got = ivf.global_topk(q, k)
+        assert ivf.last_search_stats["pruned"] is True, ivf.last_search_stats
+        assert kernels.launches[f"fused_topk{sfx}.blocks"] == 1
+        assert kernels.launches[f"count_above{sfx}.blocks"] == 1
+        assert kernels.launches[f"fused_topk{sfx}"] == kernels.launches[f"count_above{sfx}"] == 0
+        want = plain.global_topk(q, k)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)

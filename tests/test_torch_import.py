@@ -179,6 +179,12 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
         kernels.pool_writer(x, y, 100, **l2)
         kernels.fused_topk(x, y, 90, 4, **l2)
     kernels.scores_above(q.bfloat16(), r.bfloat16(), 100, torch.zeros(3), capacity=1, **l2)
+    # The block subsets (the IVF tier's scans) in f32, bf16 and int8 too.
+    blocks = {"blocks": torch.tensor([0], dtype=torch.int32), "col_block": 128}
+    for x, y, kw in ((q, r, {}), (q.bfloat16(), r.bfloat16(), {}),
+                     (q, codes, {"scale": scale})):
+        kernels.count_above(x, y, 0.0, 100, **kw, **blocks)
+        kernels.fused_topk(x, y, 90, 4, **kw, **blocks)
     # Plain versions never count as kernel launches.
     assert kernels.launches == {
         "row_max": 0, "count_above": 0, "pool_writer": 0, "fused_topk": 0,
@@ -191,6 +197,9 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
         "pool_writer.l2": 0, "fused_topk.l2": 0, "row_max.bf16.l2": 0,
         "count_above.bf16.l2": 0, "pool_writer.bf16.l2": 0,
         "fused_topk.bf16.l2": 0, "scores_above.bf16.l2": 0,
+        "count_above.blocks": 0, "count_above.bf16.blocks": 0,
+        "count_above.int8.blocks": 0, "fused_topk.blocks": 0,
+        "fused_topk.bf16.blocks": 0, "fused_topk.int8.blocks": 0,
     }
     with pytest.raises(ValueError, match="multiple of 128"):
         kernels.pool_writer(q, torch.ones((100, 8)), 100)

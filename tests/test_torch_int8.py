@@ -556,9 +556,15 @@ def test_video_index_sq8_codec_and_unported_codecs():
     assert best.ref_id == "R000002"
     assert t._searcher._refs.dtype == torch.int8
     assert TorchIndex(16, dtype=INT8, device="cpu").dtype == INT8
+    # The IVF codecs parse as JAX's (",SQ8": int8), and the IVF,SQ8 index
+    # searches as JAX's (tests/test_torch_ivf.py holds the tier).
     for codec in ("IVF4,SQ8", "IVF16", "IVF8,Flat"):
-        with pytest.raises(NotImplementedError, match="IVF"):
-            TorchIndex(16, codec_str=codec, device="cpu")
+        ti, ji = TorchIndex(16, codec_str=codec, device="cpu"), JaxIndex(16, codec_str=codec)
+        assert (ti.dtype, ti._ivf_nlist) == (ji.dtype, ji._ivf_nlist)
+    ti, ji = TorchIndex(16, codec_str="IVF4,SQ8", device="cpu"), JaxIndex(16, codec_str="IVF4,SQ8")
+    ti.add(tr)
+    ji.add(jr)
+    assert records(ti.search(tq, 30)) == records(ji.search(jq, 30)) == records(got)
     with pytest.raises(ValueError, match="codec"):
         TorchIndex(16, codec_str="PQ16", device="cpu")
 

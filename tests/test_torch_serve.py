@@ -404,15 +404,23 @@ def test_serve_requests_match_jax_dns(served):
 def test_unported_modes_raise(served):
     # The JAX default (bf16, no dtype flag) is ported: tests below start it.
     base = ["--ref_features", served["r"], "--device", "cpu"]
-    for extra in (["--sharded", "--ivf", "4"], ["--bf16", "--ivf", "4"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            torch_serve.main(torch_serve.parser.parse_args(base + extra))
+    # --ivf is ported: with --sharded it raises the JAX server's ValueError;
+    # alone it stages the IVF tier with JAX's nlist and searches as JAX's
+    # (tests/test_torch_ivf.py serves with it).
+    with pytest.raises(ValueError, match="single-chip"):
+        torch_serve.main(torch_serve.parser.parse_args(base + ["--sharded", "--ivf", "4"]))
+    for flags in (["--bf16", "--ivf", "4"], ["--bf16", "--ivf", "0"]):
+        targs = torch_serve.parser.parse_args(base + flags)
+        jargs = jax_serve.parser.parse_args(base[:2] + flags)
+        t_index = torch_serve.build_index(targs, torch.device("cpu"))[0]
+        j_index = jax_serve.build_index(jargs)[0]
+        assert t_index._ivf_nlist == j_index._ivf_nlist
+        assert (_hits(t_index, _corpus(TVF)[0], 60, torch_rank, TorchAgg())
+                == _hits(j_index, _corpus(JVF)[0], 60, jax_rank, JaxAgg()))
     # Multi-host serving is ported: its flags are checked as JAX checks them
     # (tests/test_torch_multihost.py runs the pods).
     with pytest.raises(ValueError, match="requires --coordinator"):
         torch_serve.main(torch_serve.parser.parse_args(base + ["--f32", "--num_processes", "2"]))
-    # --sharded is ported (tests/test_torch_sharded.py serves with it).
-    torch_serve.check_ported(torch_serve.parser.parse_args(base + ["--sharded"]))
     # --baseline is ported: without weights it raises the JAX server's
     # ValueError, as do weights without --baseline.
     for extra, message in ((["--baseline", "sscd"], "needs weights"),
@@ -421,11 +429,9 @@ def test_unported_modes_raise(served):
             torch_serve.main(torch_serve.parser.parse_args(base + extra))
         with pytest.raises(ValueError, match=message):
             jax_serve.build_extractor(jax_serve.parser.parse_args(base[:2] + extra))
-    # --int8 is ported: it passes the startup check and stages SQ8 codes
-    # with bf16 localizer tables, as the JAX server picks them
-    # (tests/test_torch_int8.py runs it).
+    # --int8 is ported: it stages SQ8 codes with bf16 localizer tables, as
+    # the JAX server picks them (tests/test_torch_int8.py runs it).
     args = torch_serve.parser.parse_args(base + ["--int8"])
-    torch_serve.check_ported(args)
     assert torch_serve.staging_dtype(args) == "int8"
     assert torch_serve.table_dtype(args) == "bfloat16"
 

@@ -43,6 +43,7 @@ from vsc2022_tpu.inference.transforms import InferenceTransforms as JaxTransform
 from vsc2022_tpu.localization import TNLocalizationMaxSim as JaxMaxSim
 from vsc2022_tpu.metrics import Dataset
 from vsc2022_tpu.parallel import corpus_mesh as jax_corpus_mesh
+from vsc2022_tpu.retrieval.index import VideoIndex as JaxIndex
 from vsc2022_tpu.storage import store_features
 from vsc2022_tpu.types import VideoFeature as JVF
 
@@ -248,7 +249,6 @@ def test_serve_sharded_replies_identical(files, four_shards):
         args = torch_serve.parser.parse_args([
             "--ref_features", files["r"], "--score_norm_features", files["n"],
             "--f32", "--matches", "--device", "cpu", *flags])
-        torch_serve.check_ported(args)
         device = torch.device("cpu")
         index, refs, _ = torch_serve.build_index(args, device)
         loc = torch_serve.build_localizer(index, refs, args, device)
@@ -316,8 +316,9 @@ def test_index_mesh_and_ivf_exclusive():
     mesh = Mesh(["cpu"] * 2)
     with pytest.raises(ValueError, match="not both"):
         TorchIndex(D, codec_str="IVF4", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TorchIndex(D, codec_str="IVF4", device="cpu")
+    # Without a mesh the IVF codec constructs, as JAX's does.
+    index, jax_index = TorchIndex(D, codec_str="IVF4", device="cpu"), JaxIndex(D, codec_str="IVF4")
+    assert (index._ivf_nlist, index.mesh) == (jax_index._ivf_nlist, jax_index.mesh) == (4, None)
     index = TorchIndex(D, mesh=mesh)
     assert index.mesh is mesh and index.device == torch.device("cpu")
 

@@ -152,6 +152,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         argtypes[name + "_l2"] = ip[:3] + [p, p] + ip[3:]
         if name != "pool_writer":
             argtypes[name + "_l2_occupancy"] = argtypes[name + "_occupancy"]
+    # The block-subset variants of count_above and fused_topk (IP): their
+    # full-corpus kernel's arguments with the block list (ids, count,
+    # col_block) after n_valid, and their own occupancy.
+    for name in ("count_above", "count_above_bf16", "count_above_int8", "fused_topk",
+                 "fused_topk_bf16", "fused_topk_int8"):
+        full = argtypes[name]
+        # n_valid follows tau in count_above; seven arguments follow it in fused_topk.
+        at = full.index(f) + 2 if name.startswith("count") else len(full) - 7
+        argtypes[name + "_blocks"] = full[:at] + [p, i, i] + full[at:]
+        argtypes[name + "_blocks_occupancy"] = argtypes[name + "_occupancy"]
     argtypes["chamfer"] = [i, p, p, i, i, i, i, i, i, p, p]
     # The bf16 chamfer (tensor cores) takes the same arguments, and its
     # plan's grid and ref slices (kernels.chamfer_bf16_plan) before out.

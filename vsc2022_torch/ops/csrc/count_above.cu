@@ -269,3 +269,91 @@ extern "C" int vsc_count_above_bf16_l2(int device, const __nv_bfloat16* q,
   return (int)wg::launch(q, refs, m, d, n_valid, grid,
                          wg::L2<TcCount>{{tau, out, m}, qs, rs, m}, s);
 }
+
+// ---- the block-subset variants (block_list.cuh: the IVF tier's count) -----
+//
+// count_above over the corpus blocks `blocks` (n_blocks ascending, distinct
+// block ids, col_block rows each, on the device): the per-row count of the
+// listed blocks' columns (< n_valid) with q . r >= tau, on the product and
+// epilogue of the full-corpus kernel of the dtype, so it counts the scores
+// that kernel (and fused_topk's subset variant) sees, bit for bit. The JAX
+// tier counts its certified blocks with XLA (vsc2022_tpu/ops/ivf.py
+// _subset_counts: streaming_count_above with block_ids,
+// vsc2022_tpu/ops/similarity.py:427-483). Bound: operations, 2*M*(n_blocks *
+// col_block)*D at the dtype's peak (x3 for int8). An empty list counts 0.
+
+// Blocks of the f32 subset kernel one SM holds at once (16-byte copies if
+// vec).
+extern "C" int vsc_count_above_blocks_occupancy(int device, int vec,
+                                                int* blocks_per_sm) {
+  return reduce::resident_blocks<reduce::Blocks<reduce::RowFold<CountAbove>>>(
+      device, vec, 0, blocks_per_sm);
+}
+
+// vsc_count_above's arguments with the block list after n_valid; col_block
+// a multiple of 128.
+extern "C" int vsc_count_above_blocks(int device, const float* q, const float* refs,
+                                      int m, int n, int d, float tau, int n_valid,
+                                      const int* blocks, int n_blocks, int col_block,
+                                      int vec, int grid, int* out, void* stream) {
+  if (m <= 0) return 0;
+  if (n_valid < 0 || n_valid > n) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce::launch_blocks(q, refs, m, d, n_valid, blocks, n_blocks, col_block,
+                                    vec, grid, reduce::RowFold<CountAbove>{{tau, out}},
+                                    0, s);
+}
+
+extern "C" int vsc_count_above_bf16_blocks_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<wg::Blocks<TcCount>>(device, blocks_per_sm);
+}
+
+// vsc_count_above_bf16's arguments with the block list after n_valid;
+// col_block a multiple of 256.
+extern "C" int vsc_count_above_bf16_blocks(int device, const __nv_bfloat16* q,
+                                           const __nv_bfloat16* refs, int m, int n,
+                                           int d, float tau, int n_valid,
+                                           const int* blocks, int n_blocks,
+                                           int col_block, int grid, int* out,
+                                           void* stream) {
+  if (m <= 0) return 0;
+  BlockList list;
+  if (n_valid < 0 || n_valid > n || !wg::block_list(&list, blocks, n_blocks, col_block))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wg::launch_blocks(q, refs, m, d, n_valid, list, grid,
+                                TcCount{tau, out, m}, s);
+}
+
+extern "C" int vsc_count_above_int8_blocks_occupancy(int device, int* blocks_per_sm) {
+  return wg::resident_blocks<wg::Blocks<TcCount>, wg::I8Corpus>(device, blocks_per_sm);
+}
+
+// vsc_count_above_int8's arguments with the block list after n_valid;
+// col_block a multiple of 256.
+extern "C" int vsc_count_above_int8_blocks(int device, const __nv_bfloat16* terms,
+                                           const int8_t* codes, const float* scale,
+                                           int m, int n, int d, float tau, int n_valid,
+                                           const int* blocks, int n_blocks,
+                                           int col_block, int grid, int* out,
+                                           void* stream) {
+  if (m <= 0) return 0;
+  BlockList list;
+  if (n_valid < 0 || n_valid > n || !wg::block_list(&list, blocks, n_blocks, col_block))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(out, 0, sizeof(int) * (size_t)m, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)wg::launch_blocks_int8(terms, codes, scale, m, d, n_valid, list, grid,
+                                     TcCount{tau, out, m}, s);
+}

@@ -469,22 +469,23 @@ struct TcTopK {
   }
 };
 
-// The epilogue of a launch with that placement; `launch` runs it over its
-// corpus (ep, shared-memory bytes of the sets).
+// The epilogue of a launch with that placement over the items of plan p;
+// `launch` runs it over its corpus (ep, shared-memory bytes of the sets).
 template <bool kSmemSets, class Launch>
-int run_tc_topk(int m, int d, int n_valid, int kappa, int pieces, float* out_v,
+int run_tc_topk(const vsc::wg::Plan& p, int m, int kappa, int pieces, float* out_v,
                 int* out_i, Launch launch) {
   using E = TcTopK<kSmemSets>;
-  const vsc::wg::Plan p = vsc::wg::plan(m, n_valid, d);
   return (int)launch(E{out_v, out_i, m, kappa, pieces, p.items, p.c_tiles * E::kGroup},
                      E::set_bytes(kappa));
 }
 
-// Output filled, then the placement smem_sets selects, over the corpus
+// Output filled, then the placement smem_sets selects over the items of
+// plan p (the call's, or its block list's: vsc::wg::plan), over the corpus
 // `launch` (a generic lambda: (epilogue, extra shared bytes)) takes.
 template <class Launch>
-int tc_topk(int device, int m, int n, int d, int n_valid, int kappa, int smem_sets,
-            int pieces, float* out_v, int* out_i, cudaStream_t s, Launch launch) {
+int tc_topk(int device, int m, int n, int n_valid, const vsc::wg::Plan& p, int kappa,
+            int smem_sets, int pieces, float* out_v, int* out_i, cudaStream_t s,
+            Launch launch) {
   if (m <= 0) return 0;
   if (kappa <= 0 || pieces <= 0 || n_valid < 0 || n_valid > n ||
       (smem_sets && kappa > kTcSmemKappaMax))
@@ -493,19 +494,23 @@ int tc_topk(int device, int m, int n, int d, int n_valid, int kappa, int smem_se
   if (err != cudaSuccess) return (int)err;
   err = fill_output(out_v, out_i, m, pieces, kappa, s);
   if (err != cudaSuccess) return (int)err;
-  return smem_sets ? run_tc_topk<true>(m, d, n_valid, kappa, pieces, out_v, out_i, launch)
-                   : run_tc_topk<false>(m, d, n_valid, kappa, pieces, out_v, out_i, launch);
+  return smem_sets ? run_tc_topk<true>(p, m, kappa, pieces, out_v, out_i, launch)
+                   : run_tc_topk<false>(p, m, kappa, pieces, out_v, out_i, launch);
 }
 
+// The epilogue as it is (tc_topk_occupancy's default wrapper).
+template <class E>
+using AsIs = E;
+
 // Blocks an SM holds at once of the placement smem_sets selects over
-// corpus C.
-template <class C>
+// corpus C (W<E>: the epilogue E as its kernel takes it).
+template <class C, template <class> class W = AsIs>
 int tc_topk_occupancy(int device, int smem_sets, int kappa, int* blocks_per_sm) {
   if (smem_sets && (kappa <= 0 || kappa > kTcSmemKappaMax))
     return (int)cudaErrorInvalidValue;
-  return smem_sets ? vsc::wg::resident_blocks<TcTopK<true>, C>(
+  return smem_sets ? vsc::wg::resident_blocks<W<TcTopK<true>>, C>(
                          device, blocks_per_sm, TcTopK<true>::set_bytes(kappa))
-                   : vsc::wg::resident_blocks<TcTopK<false>, C>(device, blocks_per_sm);
+                   : vsc::wg::resident_blocks<W<TcTopK<false>>, C>(device, blocks_per_sm);
 }
 
 }  // namespace
@@ -573,8 +578,8 @@ extern "C" int vsc_fused_topk_bf16(int device, const __nv_bfloat16* q,
                                    int grid, int pieces, float* out_v,
                                    int* out_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tc_topk(device, m, n, d, n_valid, kappa, smem_sets, pieces, out_v, out_i, s,
-                 [&](const auto& ep, int extra) {
+  return tc_topk(device, m, n, n_valid, vsc::wg::plan(m, n_valid, d), kappa, smem_sets,
+                 pieces, out_v, out_i, s, [&](const auto& ep, int extra) {
                    return vsc::wg::launch(q, refs, m, d, n_valid, grid, ep, s, extra);
                  });
 }
@@ -597,8 +602,8 @@ extern "C" int vsc_fused_topk_int8(int device, const __nv_bfloat16* terms,
                                    int smem_sets, int grid, int pieces,
                                    float* out_v, int* out_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tc_topk(device, m, n, d, n_valid, kappa, smem_sets, pieces, out_v, out_i, s,
-                 [&](const auto& ep, int extra) {
+  return tc_topk(device, m, n, n_valid, vsc::wg::plan(m, n_valid, d), kappa, smem_sets,
+                 pieces, out_v, out_i, s, [&](const auto& ep, int extra) {
                    return vsc::wg::launch_int8(terms, codes, scale, m, d, n_valid,
                                                grid, ep, s, extra);
                  });
@@ -655,10 +660,102 @@ extern "C" int vsc_fused_topk_bf16_l2(int device, const __nv_bfloat16* q,
                                       int grid, int pieces, float* out_v,
                                       int* out_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tc_topk(device, m, n, d, n_valid, kappa, smem_sets, pieces, out_v, out_i, s,
-                 [&](const auto& ep, int extra) {
+  return tc_topk(device, m, n, n_valid, vsc::wg::plan(m, n_valid, d), kappa, smem_sets,
+                 pieces, out_v, out_i, s, [&](const auto& ep, int extra) {
                    using E = std::decay_t<decltype(ep)>;
                    return vsc::wg::launch(q, refs, m, d, n_valid, grid,
                                           vsc::wg::L2<E>{ep, qs, rs, m}, s, extra);
+                 });
+}
+
+// ---- the block-subset variants (block_list.cuh: the IVF tier's candidates) -
+//
+// fused_topk over the corpus blocks `blocks` (n_blocks ascending, distinct
+// block ids, col_block rows each, on the device): each row's top-kappa of
+// the listed blocks' segment winners (columns < n_valid), ids in the whole
+// corpus's numbering, on the product and epilogue of the full-corpus kernel
+// of the dtype: its result on a corpus of the listed blocks' rows, bit for
+// bit. The JAX tier collects its probed blocks with XLA (vsc2022_tpu/ops/
+// similarity.py:191-230, streaming_topk with block_ids). Bound: operations,
+// 2*M*(n_blocks * col_block)*D at the dtype's peak (x3 for int8). The
+// output, S and the grid count the list's tiles (ops/kernels.py fused_topk
+// with blocks); an empty list leaves every slot unfilled.
+
+extern "C" int vsc_fused_topk_blocks_occupancy(int device, int vec, int* blocks_per_sm) {
+  return vsc::reduce::resident_blocks<vsc::reduce::Blocks<TopK>>(
+      device, vec, smem_set_bytes(kSmemKappaMax), blocks_per_sm);
+}
+
+// vsc_fused_topk's arguments with the block list after n_valid; col_block a
+// multiple of 128.
+extern "C" int vsc_fused_topk_blocks(int device, const float* q, const float* refs,
+                                     int m, int n, int d, int n_valid, const int* blocks,
+                                     int n_blocks, int col_block, int kappa, int vec,
+                                     int grid, int pieces, float* out_v, int* out_i,
+                                     void* stream) {
+  if (m <= 0) return 0;
+  if (kappa <= 0 || pieces <= 0 || n_valid < 0 || n_valid > n)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = fill_output(out_v, out_i, m, pieces, kappa, s);
+  if (err != cudaSuccess) return (int)err;
+  const bool in_smem = kappa <= kSmemKappaMax;
+  const int ring = ring_bytes<TopK>();
+  return (int)vsc::reduce::launch_blocks(
+      q, refs, m, d, n_valid, blocks, n_blocks, col_block, vec, grid,
+      TopK{out_v, out_i, kappa, pieces, in_smem, ring / 4},
+      in_smem ? smem_set_bytes(kappa) : 0, s);
+}
+
+extern "C" int vsc_fused_topk_bf16_blocks_occupancy(int device, int smem_sets,
+                                                    int kappa, int* blocks_per_sm) {
+  return tc_topk_occupancy<vsc::wg::Bf16Corpus, vsc::wg::Blocks>(device, smem_sets,
+                                                                 kappa, blocks_per_sm);
+}
+
+// vsc_fused_topk_bf16's arguments with the block list after n_valid;
+// col_block a multiple of 256.
+extern "C" int vsc_fused_topk_bf16_blocks(int device, const __nv_bfloat16* q,
+                                          const __nv_bfloat16* refs, int m, int n,
+                                          int d, int n_valid, const int* blocks,
+                                          int n_blocks, int col_block, int kappa,
+                                          int smem_sets, int grid, int pieces,
+                                          float* out_v, int* out_i, void* stream) {
+  vsc::BlockList list;
+  if (!vsc::wg::block_list(&list, blocks, n_blocks, col_block))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tc_topk(device, m, n, n_valid, vsc::wg::plan(m, n_valid, d, list), kappa,
+                 smem_sets, pieces, out_v, out_i, s, [&](const auto& ep, int extra) {
+                   return vsc::wg::launch_blocks(q, refs, m, d, n_valid, list, grid, ep,
+                                                 s, extra);
+                 });
+}
+
+extern "C" int vsc_fused_topk_int8_blocks_occupancy(int device, int smem_sets,
+                                                    int kappa, int* blocks_per_sm) {
+  return tc_topk_occupancy<vsc::wg::I8Corpus, vsc::wg::Blocks>(device, smem_sets,
+                                                               kappa, blocks_per_sm);
+}
+
+// vsc_fused_topk_int8's arguments with the block list after n_valid;
+// col_block a multiple of 256.
+extern "C" int vsc_fused_topk_int8_blocks(int device, const __nv_bfloat16* terms,
+                                          const int8_t* codes, const float* scale,
+                                          int m, int n, int d, int n_valid,
+                                          const int* blocks, int n_blocks,
+                                          int col_block, int kappa, int smem_sets,
+                                          int grid, int pieces, float* out_v,
+                                          int* out_i, void* stream) {
+  vsc::BlockList list;
+  if (!vsc::wg::block_list(&list, blocks, n_blocks, col_block))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tc_topk(device, m, n, n_valid, vsc::wg::plan(m, n_valid, d, list), kappa,
+                 smem_sets, pieces, out_v, out_i, s, [&](const auto& ep, int extra) {
+                   return vsc::wg::launch_blocks_int8(terms, codes, scale, m, d, n_valid,
+                                                      list, grid, ep, s, extra);
                  });
 }

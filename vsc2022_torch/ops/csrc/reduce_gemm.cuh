@@ -60,6 +60,9 @@
 #include <climits>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
+
+#include "block_list.cuh"
 
 namespace vsc {
 namespace reduce {
@@ -250,6 +253,42 @@ struct RowFold {
   }
 };
 
+// Epilogue E over a list of corpus blocks (block_list.cuh): the launch's
+// column tile c is corpus tile list.corpus_tile(c), whose rows the product
+// loads and whose number E's item() sees; Work.col_tiles and the items stay
+// the launch's (the listed blocks' tiles). A kernel of its own (the product
+// below instantiated for it), so the full-corpus kernels keep their code.
+template <class E>
+struct Blocks {
+  static constexpr int kStages = E::kStages;
+  using State = typename E::State;
+  using Smem = typename E::Smem;
+  E ep;
+  BlockList list;
+
+  __device__ __forceinline__ void begin(State& st, Smem& sm, const Tile& t,
+                                        const Work& w) const {
+    ep.begin(st, sm, t, w);
+  }
+
+  template <bool kMasked>
+  __device__ __forceinline__ void item(State& st, Smem& sm, const Tile& t,
+                                       const Work& w, float acc[TM][TN], int rt,
+                                       int ct, int valid_cols) const {
+    ep.template item<kMasked>(st, sm, t, w, acc, rt, ct, valid_cols);
+  }
+
+  __device__ __forceinline__ void flush(State& st, Smem& sm, const Tile& t,
+                                        const Work& w, int rt) const {
+    ep.flush(st, sm, t, w, rt);
+  }
+};
+
+template <class E>
+struct is_blocks : std::false_type {};
+template <class E>
+struct is_blocks<Blocks<E>> : std::true_type {};
+
 // kVec: 16-byte copies of both operands (vec_ok), else 4-byte ones.
 template <class E, bool kVec>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
@@ -258,7 +297,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   extern __shared__ __align__(16) float ring[];
   __shared__ typename E::Smem esm;
 
-  const int col_tiles = (n_valid + BN - 1) / BN;
+  // The kernel over a block list (Blocks<E>) takes the list's tiles and
+  // loads corpus tile list.corpus_tile(c) for its column tile c; the
+  // full-corpus kernels compile the code they had (if constexpr).
+  int col_tiles = (n_valid + BN - 1) / BN;
+  if constexpr (is_blocks<E>::value) col_tiles = ep.list.launch_tiles();
   const unsigned long long items =
       (unsigned long long)((m + BM - 1) / BM) * col_tiles;
   const long long begin = (long long)(items * blockIdx.x / gridDim.x);
@@ -284,7 +327,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   auto load_step = [&](int stage) {
     float* dst = ring + stage * STAGE_FLOATS;
     load_rows<BM, kVec>(dst, q, m, d, lrt * BM, lkt * BK);
-    load_rows<BN, kVec>(dst + BM * LD, refs, n_valid, d, lct * BN, lkt * BK);
+    if constexpr (is_blocks<E>::value)
+      load_rows<BN, kVec>(dst + BM * LD, refs, n_valid, d,
+                          ep.list.corpus_tile(lct) * BN, lkt * BK);
+    else
+      load_rows<BN, kVec>(dst + BM * LD, refs, n_valid, d, lct * BN, lkt * BK);
     if (++lkt == kt_n) {
       lkt = 0;
       if (++lct == col_tiles) {
@@ -322,11 +369,20 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
     // Item (rt, ct) is complete.
     ckt = 0;
-    const int valid_cols = n_valid - (ct * BN + t.col);
-    if (ct * BN + BN <= n_valid)
-      ep.template item<false>(st, esm, t, work, acc, rt, ct, valid_cols);
-    else
-      ep.template item<true>(st, esm, t, work, acc, rt, ct, valid_cols);
+    if constexpr (is_blocks<E>::value) {  // its corpus tile
+      const int cct = ep.list.corpus_tile(ct);
+      const int valid_cols = n_valid - (cct * BN + t.col);
+      if (cct * BN + BN <= n_valid)
+        ep.template item<false>(st, esm, t, work, acc, rt, cct, valid_cols);
+      else
+        ep.template item<true>(st, esm, t, work, acc, rt, cct, valid_cols);
+    } else {
+      const int valid_cols = n_valid - (ct * BN + t.col);
+      if (ct * BN + BN <= n_valid)
+        ep.template item<false>(st, esm, t, work, acc, rt, ct, valid_cols);
+      else
+        ep.template item<true>(st, esm, t, work, acc, rt, ct, valid_cols);
+    }
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -387,8 +443,9 @@ cudaError_t launch_on(const float* q, const float* refs, int m, int d,
   if (m <= 0 || n_valid <= 0) return cudaSuccess;
   if (grid <= 0 || d <= 0) return cudaErrorInvalidValue;
   // At least one item per block, and a block's steps count in an int.
-  const unsigned long long items =
-      (unsigned long long)((m + BM - 1) / BM) * ((n_valid + BN - 1) / BN);
+  unsigned long long col_tiles = (n_valid + BN - 1) / BN;
+  if constexpr (is_blocks<E>::value) col_tiles = ep.list.launch_tiles();
+  const unsigned long long items = (unsigned long long)((m + BM - 1) / BM) * col_tiles;
   if ((unsigned long long)grid > items ||
       (items / grid + 1) * ((d + BK - 1) / BK) > (unsigned long long)INT_MAX)
     return cudaErrorInvalidValue;
@@ -407,6 +464,20 @@ cudaError_t launch(const float* q, const float* refs, int m, int d,
   if (vec && !vec_ok(q, refs, d)) return cudaErrorInvalidValue;
   return vec ? launch_on<E, true>(q, refs, m, d, n_valid, grid, ep, extra, s)
              : launch_on<E, false>(q, refs, m, d, n_valid, grid, ep, extra, s);
+}
+
+// The same over the corpus blocks of `ids` (n of them, col_block rows each,
+// col_block a multiple of BN): E's kernel over the list (Blocks<E>). An
+// empty list launches nothing; the caller has set the outputs.
+template <class E>
+cudaError_t launch_blocks(const float* q, const float* refs, int m, int d,
+                          int n_valid, const int* ids, int n, int col_block,
+                          int vec, int grid, const E& ep, int extra,
+                          cudaStream_t s) {
+  if (n < 0 || col_block <= 0 || col_block % BN != 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  return launch(q, refs, m, d, n_valid, vec, grid,
+                Blocks<E>{ep, BlockList{ids, n, col_block / BN}}, extra, s);
 }
 
 }  // namespace reduce

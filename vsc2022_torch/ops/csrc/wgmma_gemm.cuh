@@ -86,7 +86,9 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
+#include "block_list.cuh"
 #include "segment_top2.cuh"
 
 namespace vsc {
@@ -145,6 +147,45 @@ struct Lane {
   int row0, col0, quad;
   bool owner;
 };
+
+// Epilogue E over a list of corpus blocks (block_list.cuh): the launch's
+// corpus tile c is list.corpus_tile(c), whose rows TMA loads and which
+// every hook (and I8Corpus::finish) sees as Item::c_tile; groups, slots and
+// the plan's items stay the launch's (the listed blocks' tiles). A kernel
+// of its own (the products below instantiated for it), so the full-corpus
+// kernels keep their code.
+template <class E>
+struct Blocks {
+  static constexpr int kStages = E::kStages, kGroup = E::kGroup;
+  using Smem = typename E::Smem;
+  E ep;
+  BlockList list;
+
+  __device__ __forceinline__ void begin(Smem& s, const Lane& l) const { ep.begin(s, l); }
+
+  template <bool kMasked>
+  __device__ __forceinline__ void item(Smem& s, const Lane& l, float (&acc)[kAcc],
+                                       const Item& it, int valid_cols) const {
+    ep.template item<kMasked>(s, l, acc, it, valid_cols);
+  }
+
+  __device__ __forceinline__ void flush(Smem& s, const Lane& l, const Item& it) const {
+    ep.flush(s, l, it);
+  }
+};
+
+template <class E>
+struct is_blocks : std::false_type {};
+template <class E>
+struct is_blocks<Blocks<E>> : std::true_type {};
+
+// Work item i of the launch, its corpus tile in the corpus's numbering.
+template <class E>
+__device__ __forceinline__ Item item_of(const Plan& p, const E& ep, int i) {
+  Item it = item_at<E::kGroup>(p, i);
+  if constexpr (is_blocks<E>::value) it.c_tile = ep.list.corpus_tile(it.c_tile);
+  return it;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -532,7 +573,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       int stage = 0;
       unsigned phase = 0;
       for (int i = begin; i < end; ++i) {
-        const Item it = item_at<E::kGroup>(p, i);
+        const Item it = item_of(p, ep, i);
         for (int kt = 0; kt < p.kt_n; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], STAGE_BYTES);
@@ -563,7 +604,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     int stage = 0;
     unsigned phase = 0;
     for (int i = begin; i < end; ++i) {
-      const Item it = item_at<E::kGroup>(p, i);
+      const Item it = item_of(p, ep, i);
       for (int kt = 0; kt < p.kt_n; ++kt) {
         mbar_wait(&full[stage], phase);
         const uint32_t a = smem_u32(ring + stage * STAGE_BYTES) + a_off;
@@ -645,7 +686,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     unsigned pa = 0, pb = 0;
     if (pt == 0) {
       for (int i = begin; i < end; ++i) {
-        const Item it = item_at<E::kGroup>(p, i);
+        const Item it = item_of(p, ep, i);
         for (int kt = 0; kt < p.kt_n; ++kt) {
           mbar_wait(&empty_b[sb], pb ^ 1);
           mbar_expect_tx(&landed_b[sb], CODE_BYTES);
@@ -690,7 +731,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     int sa = 0, sb = 0;
     unsigned pa = 0, pb = 0;
     for (int i = begin; i < end; ++i) {
-      const Item it = item_at<E::kGroup>(p, i);
+      const Item it = item_of(p, ep, i);
       for (int kt = 0; kt < p.kt_n; ++kt) {
         mbar_wait(&full_b[sb], pb);
         const uint32_t b = smem_u32(ring_b + sb * B_BYTES);
@@ -825,21 +866,35 @@ inline Plan plan(int m, int n_valid, int d) {
   return p;
 }
 
-// Launch `grid` blocks over the items of an [m, n_valid] call: q [m, d] and
-// refs [>= n_valid, d] bf16, d % 8 == 0, both bases 16-byte aligned; the
-// epilogue takes `extra` bytes of shared memory past its Smem. Nothing
-// when there are no items.
+// The plan of the same call over the listed blocks: their tiles.
+inline Plan plan(int m, int n_valid, int d, const BlockList& list) {
+  Plan p = plan(m, n_valid, d);
+  p.c_tiles = list.launch_tiles();
+  const long long items = (long long)p.q_tiles * p.c_tiles;
+  p.items = items > INT_MAX ? -1 : (int)items;
+  return p;
+}
+
+// The block list of `ids` (n blocks of col_block rows, col_block a multiple
+// of BN); false if col_block is not.
+inline bool block_list(BlockList* list, const int* ids, int n, int col_block) {
+  if (n < 0 || col_block <= 0 || col_block % BN != 0) return false;
+  *list = BlockList{ids, n, col_block / BN};
+  return true;
+}
+
+// Launch `grid` blocks over the items of plan p: q [m, d] and refs
+// [>= n_valid, d] bf16, d % 8 == 0, both bases 16-byte aligned; the
+// epilogue takes `extra` bytes of shared memory past its Smem.
 template <class E>
-cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* refs, int m,
-                   int d, int n_valid, int grid, const E& ep, cudaStream_t s,
-                   int extra = 0) {
-  if (m <= 0 || n_valid <= 0) return cudaSuccess;
-  const Plan p = plan(m, n_valid, d);
+cudaError_t launch_plan(const __nv_bfloat16* q, const __nv_bfloat16* refs, int m,
+                        int d, const Plan& p, int grid, const E& ep, cudaStream_t s,
+                        int extra) {
   if (d <= 0 || d % 8 != 0 || p.items < 0 || grid <= 0 || grid > p.items ||
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(refs)) & 15))
     return cudaErrorInvalidValue;
   CUtensorMap tq, tr;
-  if (!encode(&tq, q, m, d, BM) || !encode(&tr, refs, n_valid, d, BN))
+  if (!encode(&tq, q, m, d, BM) || !encode(&tr, refs, p.n_valid, d, BN))
     return cudaErrorInvalidValue;
   cudaError_t err = configure<E>(extra);
   if (err != cudaSuccess) return err;
@@ -847,27 +902,65 @@ cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* refs, int m,
   return cudaGetLastError();
 }
 
+// Launch `grid` blocks over the items of an [m, n_valid] call (launch_plan's
+// operands). Nothing when there are no items.
+template <class E>
+cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* refs, int m,
+                   int d, int n_valid, int grid, const E& ep, cudaStream_t s,
+                   int extra = 0) {
+  if (m <= 0 || n_valid <= 0) return cudaSuccess;
+  return launch_plan(q, refs, m, d, plan(m, n_valid, d), grid, ep, s, extra);
+}
+
+// The same over the listed blocks (E's kernel over the list, Blocks<E>);
+// nothing for an empty list.
+template <class E>
+cudaError_t launch_blocks(const __nv_bfloat16* q, const __nv_bfloat16* refs, int m,
+                          int d, int n_valid, const BlockList& list, int grid,
+                          const E& ep, cudaStream_t s, int extra = 0) {
+  if (m <= 0 || n_valid <= 0 || list.n == 0) return cudaSuccess;
+  return launch_plan(q, refs, m, d, plan(m, n_valid, d, list), grid,
+                     Blocks<E>{ep, list}, s, extra);
+}
+
 // The same over int8 codes (I8Corpus): terms [3, m, d] bf16 (the split
 // queries hi, mid, lo), codes [>= n_valid, d] int8 with scale [>= n_valid]
 // f32, d a multiple of I8_ALIGN, both bases 16-byte aligned.
 template <class E>
-cudaError_t launch_int8(const __nv_bfloat16* terms, const int8_t* codes,
-                        const float* scale, int m, int d, int n_valid, int grid,
-                        const E& ep, cudaStream_t s, int extra = 0) {
-  if (m <= 0 || n_valid <= 0) return cudaSuccess;
-  const Plan p = plan(m, n_valid, d);
+cudaError_t launch_plan_int8(const __nv_bfloat16* terms, const int8_t* codes,
+                             const float* scale, int m, int d, const Plan& p,
+                             int grid, const E& ep, cudaStream_t s, int extra) {
   if (d <= 0 || d % I8_ALIGN != 0 || p.items < 0 || grid <= 0 || grid > p.items ||
       ((reinterpret_cast<uintptr_t>(terms) | reinterpret_cast<uintptr_t>(codes)) & 15))
     return cudaErrorInvalidValue;
   CUtensorMap tq, tr;
   if (!encode(&tq, terms, m, d, BM, I8Corpus::kPasses) ||
-      !encode_codes(&tr, codes, n_valid, d))
+      !encode_codes(&tr, codes, p.n_valid, d))
     return cudaErrorInvalidValue;
   cudaError_t err = configure<E, I8Corpus>(extra);
   if (err != cudaSuccess) return err;
   wgmma_i8_kernel<E><<<grid, THREADS, smem_bytes<E, I8Corpus>(extra), s>>>(
       tq, tr, p, ep, I8Corpus{scale});
   return cudaGetLastError();
+}
+
+template <class E>
+cudaError_t launch_int8(const __nv_bfloat16* terms, const int8_t* codes,
+                        const float* scale, int m, int d, int n_valid, int grid,
+                        const E& ep, cudaStream_t s, int extra = 0) {
+  if (m <= 0 || n_valid <= 0) return cudaSuccess;
+  return launch_plan_int8(terms, codes, scale, m, d, plan(m, n_valid, d), grid, ep, s,
+                          extra);
+}
+
+template <class E>
+cudaError_t launch_blocks_int8(const __nv_bfloat16* terms, const int8_t* codes,
+                               const float* scale, int m, int d, int n_valid,
+                               const BlockList& list, int grid, const E& ep,
+                               cudaStream_t s, int extra = 0) {
+  if (m <= 0 || n_valid <= 0 || list.n == 0) return cudaSuccess;
+  return launch_plan_int8(terms, codes, scale, m, d, plan(m, n_valid, d, list), grid,
+                          Blocks<E>{ep, list}, s, extra);
 }
 
 }  // namespace wg

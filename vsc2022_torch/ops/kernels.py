@@ -76,6 +76,15 @@ plan is ``chamfer_bf16_plan``).
   (``ops/csrc/l2_goodness.cuh``). The L2 kernels of one product agree with
   each other bit for bit, as the IP ones do; int8 codes take no L2.
 
+* Block subsets (``blocks=``, ``col_block=``; ``<name>[.bf16|.int8].blocks``):
+  ``count_above`` and ``fused_topk`` over a list of corpus blocks of
+  ``col_block`` rows (ascending, distinct ids; an int32 tensor on q's
+  device), the IVF tier's candidate and count passes (``ops/ivf.py``). The
+  kernels walk the listed blocks' tiles in place (``ops/csrc/
+  block_list.cuh``); ids and ``n_valid`` keep the whole corpus's numbering,
+  and each result is the full-corpus kernel's on a corpus made of the listed
+  blocks' rows, bit for bit. Inner product only (the IVF tier's metric).
+
 No wrapper gives way from one variant to another.
 
 The plain versions widen bf16 inputs and int8 codes to f32 before
@@ -137,6 +146,7 @@ RETRIEVAL_KERNELS = ("row_max", "count_above", "pool_writer", "fused_topk")
 BF16 = ".bf16"  # suffix of a bf16 variant's launch count
 INT8 = ".int8"  # suffix of an int8 variant's launch count
 L2 = ".l2"  # suffix of an L2 variant's launch count (after the dtype's)
+BLOCKS = ".blocks"  # suffix of a block-subset variant's (after the dtype's)
 
 # The product written out (off the searchers' paths: the dense reference of
 # scores_above), and the re-search's entries at or above a floor, over a
@@ -160,12 +170,17 @@ L2_KERNELS = (tuple(name + L2 for name in RETRIEVAL_KERNELS)
               + tuple(name + BF16 + L2 for name in RETRIEVAL_KERNELS)
               + (SCORES_ABOVE + L2,))
 
+# The block-subset variants: count_above and fused_topk in f32, bf16 and int8.
+BLOCK_KERNELS = tuple(name + dtype + BLOCKS for name in ("count_above", "fused_topk")
+                      for dtype in ("", BF16, INT8))
+
 launches: Dict[str, int] = {
     **{name: 0 for name in RETRIEVAL_KERNELS}, "chamfer": 0,
     **{name + BF16: 0 for name in RETRIEVAL_KERNELS}, SCORES: 0, SCORES_ABOVE: 0,
     CHAMFER_BF16: 0,
     **{name: 0 for name in INT8_KERNELS},
     **{name: 0 for name in L2_KERNELS},
+    **{name: 0 for name in BLOCK_KERNELS},
 }
 
 
@@ -221,14 +236,33 @@ def row_max_plain(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
     return out
 
 
+def block_rows(blocks: torch.Tensor, col_block: int, n_valid: int) -> torch.Tensor:
+    """The corpus rows of the listed blocks (ids ascending, ``col_block``
+    rows each) below n_valid, ascending ([R] int64 on the list's device)."""
+    offsets = torch.arange(col_block, device=blocks.device)
+    rows = (blocks.long()[:, None] * col_block + offsets).reshape(-1)
+    return rows[rows < n_valid]
+
+
+def _listed(refs: torch.Tensor, scale: Optional[torch.Tensor], rows: torch.Tensor):
+    """(refs, scale) of the given corpus rows."""
+    return refs[rows], None if scale is None else scale[rows]
+
+
 def count_above_plain(
     q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int,
     scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
-    q_sq: Optional[torch.Tensor] = None,
+    q_sq: Optional[torch.Tensor] = None, blocks: Optional[torch.Tensor] = None,
+    col_block: Optional[int] = None,
 ) -> torch.Tensor:
     """Per-row count of q·refs[j]ᵀ (× scale[j] for int8 codes; the L2
     goodness with ``ref_sq`` and ``q_sq``) ≥ τ over j < n_valid ([M]
-    int32). Pad columns of refs past q's width are left out."""
+    int32); with ``blocks``, over the listed blocks' rows j < n_valid
+    (``block_rows``). Pad columns of refs past q's width are left out."""
+    if blocks is not None:
+        rows = block_rows(blocks, col_block, n_valid)
+        r, sc = _listed(refs, scale, rows)
+        return count_above_plain(q, r, tau, rows.numel(), sc)
     m, d = q.shape
     out = torch.zeros((m,), dtype=torch.int32, device=q.device)
     if n_valid == 0:
@@ -347,14 +381,25 @@ def ordered_topk(
 def fused_topk_plain(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int,
     scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
-    q_sq: Optional[torch.Tensor] = None,
+    q_sq: Optional[torch.Tensor] = None, blocks: Optional[torch.Tensor] = None,
+    col_block: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row top-κ of the winner pool (``pool_writer_plain``'s: best 2
     per 128-column segment, columns ≥ n_valid at −inf), ordered by score
     descending, then column ascending: ([M, κ] f32, [M, κ] int32), padded
     with −inf and id 0. Any N (the pool zero-pads refs to whole segments).
     Pad columns of refs past q's width are left out; int8 codes take their
-    ``scale``, L2 its ``ref_sq`` and ``q_sq``."""
+    ``scale``, L2 its ``ref_sq`` and ``q_sq``. With ``blocks`` (``col_block``
+    a multiple of 128), the pool of the listed blocks' rows below n_valid
+    (``block_rows``: whole segments but for the last), ids the corpus's."""
+    if blocks is not None:
+        rows = block_rows(blocks, col_block, n_valid)
+        r, sc = _listed(refs, scale, rows)
+        vals, ids = fused_topk_plain(q, r, rows.numel(), kappa, sc)
+        if rows.numel() == 0:
+            return vals, ids
+        # The map is increasing: the (value, id) order holds.
+        return vals, torch.where(torch.isfinite(vals), rows[ids.long()], 0).int()
     refs = refs[:, : q.shape[1]]
     n = refs.shape[0]
     n_seg = -(-n // SEG_LANES)
@@ -486,6 +531,34 @@ def _check_l2(q: torch.Tensor, refs: torch.Tensor, ref_sq: Optional[torch.Tensor
     if q.device.type == "cuda" and ref_sq.data_ptr() % 8:
         raise ValueError("the kernels take an 8-byte aligned ref_sq (two columns a load)")
     return True
+
+
+def _check_blocks(q: torch.Tensor, refs: torch.Tensor, blocks: torch.Tensor,
+                  col_block: Optional[int], l2: bool) -> int:
+    """Validate a block list (int32 [B] on q's device, ascending, distinct,
+    each block holding a row of refs) and its ``col_block`` (a multiple of
+    SEG_LANES; of WGMMA_COLS for the tensor-core kernels on the card, whose
+    tile is that wide); returns col_block. Under L2 it raises: the block
+    subsets take the inner product only, as the IVF tier does."""
+    if l2:
+        raise ValueError("block subsets take metric IP only (the IVF tier's)")
+    if col_block is None:
+        raise TypeError("blocks need their col_block")
+    col_block = int(col_block)
+    tensor_cores = q.device.type == "cuda" and (
+        q.dtype == torch.bfloat16 or refs.dtype == torch.int8)
+    align = WGMMA_COLS if tensor_cores else SEG_LANES
+    if col_block <= 0 or col_block % align:
+        raise ValueError(f"col_block {col_block} is not a positive multiple of {align}")
+    if blocks.dtype != torch.int32 or blocks.dim() != 1 or blocks.device != q.device:
+        raise ValueError(f"blocks must be [B] int32 on {q.device}: got "
+                         f"{tuple(blocks.shape)} {blocks.dtype} on {blocks.device}")
+    if blocks.numel():
+        n_blocks = -(-refs.shape[0] // col_block)
+        bad = (blocks[0] < 0) | (blocks[-1] >= n_blocks) | (blocks[1:] <= blocks[:-1]).any()
+        if bool(bad):  # one sync
+            raise ValueError(f"blocks must be ascending, distinct ids in [0, {n_blocks})")
+    return col_block
 
 
 def _l2_args(l2: bool, ref_sq: Optional[torch.Tensor], q_sq: Optional[torch.Tensor]):
@@ -805,54 +878,67 @@ def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
 def count_above(
     q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int,
     scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
-    q_sq: Optional[torch.Tensor] = None,
+    q_sq: Optional[torch.Tensor] = None, blocks: Optional[torch.Tensor] = None,
+    col_block: Optional[int] = None,
 ) -> torch.Tensor:
     """Exact per-row count of q·refsᵀ ≥ τ over the first ``n_valid``
     columns, [M] int32. A bf16 ``refs`` may carry ``pad_columns``' zero
     pad columns; int8 codes take their ``scale``; ``ref_sq`` and ``q_sq``
-    make it the count of the L2 goodness ≥ τ."""
+    make it the count of the L2 goodness ≥ τ. ``blocks`` (with
+    ``col_block``, IP only): the count over the listed blocks' columns
+    (``count_above[.bf16|.int8].blocks``); an empty list counts 0 and
+    launches nothing."""
     n_valid = int(n_valid)
     bf16 = q.dtype == torch.bfloat16
     _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
     l2 = _check_l2(q, refs, ref_sq, q_sq)
+    if blocks is not None:
+        col_block = _check_blocks(q, refs, blocks, col_block, l2)
     if q.device.type == "cpu":
-        return count_above_plain(q, refs, float(tau), n_valid, scale, ref_sq, q_sq)
+        return count_above_plain(q, refs, float(tau), n_valid, scale, ref_sq, q_sq,
+                                 blocks, col_block)
     m, d = q.shape
     out = torch.empty((m,), dtype=torch.int32, device=q.device)
     if m == 0:
         return out
     lib = _build.library()
+    if blocks is not None and blocks.numel() == 0:
+        return out.zero_()
+    sub, sub_key, n_sched = _schedule(blocks, col_block, n_valid)
+    cfx = "_blocks" if sub else ""
     if refs.dtype == torch.int8:
         terms, refs = _int8_operands(q, refs)
-        rc = lib.vsc_count_above_int8(
+        cname = "count_above_int8" + cfx
+        rc = getattr(lib, f"vsc_{cname}")(
             q.device.index, terms.data_ptr(), refs.data_ptr(), scale.data_ptr(), m,
-            refs.shape[0], refs.shape[1], float(tau), n_valid,
-            _int8_grid("count_above_int8", q, n_valid), out.data_ptr(), _stream(q),
+            refs.shape[0], refs.shape[1], float(tau), n_valid, *sub,
+            _int8_grid(cname, q, n_sched), out.data_ptr(), _stream(q),
         )
-        _raise_on(rc, "count_above_int8")
-        launches["count_above" + INT8] += 1
+        _raise_on(rc, cname)
+        launches["count_above" + INT8 + sub_key] += 1
         return out
     sfx, key, norms = _l2_args(l2, ref_sq, q_sq)
     if bf16:
         if d == 0:
             raise ValueError("count_above_bf16: the kernel takes D >= 1")
         q, refs = pad_columns(q), pad_columns(refs)
-        cname = "count_above_bf16" + sfx
-        grid = wgmma_grid(m, n_valid, _wgmma_slots(q, cname))
+        cname = "count_above_bf16" + sfx + cfx
+        grid = wgmma_grid(m, n_sched, _wgmma_slots(q, cname))
         rc = getattr(lib, f"vsc_{cname}")(
             q.device.index, q.data_ptr(), refs.data_ptr(), *norms, m, refs.shape[0],
-            q.shape[1], float(tau), n_valid, grid, out.data_ptr(), _stream(q),
+            q.shape[1], float(tau), n_valid, *sub, grid, out.data_ptr(), _stream(q),
         )
         _raise_on(rc, cname)
-        launches["count_above" + BF16 + key] += 1
+        launches["count_above" + BF16 + key + sub_key] += 1
         return out
-    vec, grid = _reduce_plan("count_above" + sfx, q, refs, n_valid)
-    rc = getattr(lib, "vsc_count_above" + sfx)(
+    cname = "count_above" + sfx + cfx
+    vec, grid = _reduce_plan(cname, q, refs, n_sched)
+    rc = getattr(lib, f"vsc_{cname}")(
         q.device.index, q.data_ptr(), refs.data_ptr(), *norms, m, refs.shape[0], d,
-        float(tau), n_valid, vec, grid, out.data_ptr(), _stream(q),
+        float(tau), n_valid, *sub, vec, grid, out.data_ptr(), _stream(q),
     )
-    _raise_on(rc, "count_above" + sfx)
-    launches["count_above" + key] += 1
+    _raise_on(rc, cname)
+    launches["count_above" + key + sub_key] += 1
     return out
 
 
@@ -1042,7 +1128,8 @@ def scores_above(
 def fused_topk(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int,
     scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
-    q_sq: Optional[torch.Tensor] = None,
+    q_sq: Optional[torch.Tensor] = None, blocks: Optional[torch.Tensor] = None,
+    col_block: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused q·refsᵀ per-row top-κ of the winner pool (best 2 per
     128-column segment), ordered by score descending, then column
@@ -1051,45 +1138,69 @@ def fused_topk(
     (S pieces per row: ``topk_grid``, or ``wgmma_topk_grid`` in bf16 and
     int8); ``ordered_topk`` merges them. A bf16 ``refs`` may carry
     ``pad_columns``' zero pad columns; int8 codes take their ``scale``;
-    ``ref_sq`` and ``q_sq`` make it the top-κ of the L2 goodness."""
+    ``ref_sq`` and ``q_sq`` make it the top-κ of the L2 goodness.
+    ``blocks`` (with ``col_block``, IP only): the top-κ of the listed
+    blocks' segment winners (``fused_topk[.bf16|.int8].blocks``); an empty
+    list gives −inf sets and launches nothing."""
     n_valid, kappa = int(n_valid), int(kappa)
     bf16 = q.dtype == torch.bfloat16
     _check(q, refs, n_valid, pad_ok=bf16, scale=scale)
     l2 = _check_l2(q, refs, ref_sq, q_sq)
     if kappa < 1:
         raise ValueError(f"kappa must be >= 1, got {kappa}")
+    if blocks is not None:
+        col_block = _check_blocks(q, refs, blocks, col_block, l2)
     if q.device.type == "cpu":
-        return fused_topk_plain(q, refs, n_valid, kappa, scale, ref_sq, q_sq)
+        return fused_topk_plain(q, refs, n_valid, kappa, scale, ref_sq, q_sq,
+                                blocks, col_block)
     m = q.shape[0]
     if m == 0:
         return (torch.empty((0, kappa), dtype=torch.float32, device=q.device),
                 torch.empty((0, kappa), dtype=torch.int32, device=q.device))
+    if blocks is not None and blocks.numel() == 0:
+        return (torch.full((m, kappa), float("-inf"), device=q.device),
+                torch.zeros((m, kappa), dtype=torch.int32, device=q.device))
     if bf16 or refs.dtype == torch.int8:
         return _fused_topk_tc(q, refs, n_valid, kappa,
-                              kappa <= WGMMA_SMEM_SETS_KAPPA_MAX, scale, ref_sq, q_sq)
+                              kappa <= WGMMA_SMEM_SETS_KAPPA_MAX, scale, ref_sq, q_sq,
+                              blocks, col_block)
     sfx, key, _ = _l2_args(l2, ref_sq, q_sq)
-    vec, grid = _reduce_plan("fused_topk" + sfx, q, refs, n_valid)
-    grid, pieces = topk_grid(m, n_valid, kappa, grid)
+    sub, sub_key, n_sched = _schedule(blocks, col_block, n_valid)
+    cname = "fused_topk" + sfx + ("_blocks" if sub else "")
+    vec, grid = _reduce_plan(cname, q, refs, n_sched)
+    grid, pieces = topk_grid(m, n_sched, kappa, grid)
     operands = (q, refs, q_sq, ref_sq) if l2 else (q, refs)
-    return _launch_topk("fused_topk" + sfx, "fused_topk" + key, operands, n_valid,
-                        kappa, pieces, (kappa, vec, grid, pieces), m)
+    return _launch_topk(cname, "fused_topk" + key + sub_key, operands, n_valid,
+                        kappa, pieces, sub + (kappa, vec, grid, pieces), m)
+
+
+def _schedule(blocks: Optional[torch.Tensor], col_block: Optional[int], n_valid: int):
+    """(the block list's C arguments after n_valid, its launch key suffix,
+    the columns the launch schedules) of a call: the listed blocks' columns,
+    or the first n_valid."""
+    if blocks is None:
+        return (), "", n_valid
+    return (blocks.data_ptr(), blocks.numel(), col_block), BLOCKS, blocks.numel() * col_block
 
 
 def _fused_topk_tc(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int, smem_sets: bool,
     scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
-    q_sq: Optional[torch.Tensor] = None,
+    q_sq: Optional[torch.Tensor] = None, blocks: Optional[torch.Tensor] = None,
+    col_block: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fused_topk.bf16 (fused_topk.int8 for codes with their ``scale``;
-    fused_topk.bf16.l2 with ``ref_sq`` and ``q_sq``) on the card (M ≥ 1)
-    with its κ-sets in shared memory (``smem_sets``, κ ≤
-    WGMMA_SMEM_SETS_KAPPA_MAX) or in its [M, S, κ] output. ``fused_topk``
-    takes shared memory wherever κ fits; the card tests and
-    ``tools/bench_reduce.py`` force either placement."""
+    fused_topk.bf16.l2 with ``ref_sq`` and ``q_sq``; ``.blocks`` over a
+    non-empty checked block list) on the card (M ≥ 1) with its κ-sets in
+    shared memory (``smem_sets``, κ ≤ WGMMA_SMEM_SETS_KAPPA_MAX) or in its
+    [M, S, κ] output. ``fused_topk`` takes shared memory wherever κ fits;
+    the card tests and ``tools/bench_reduce.py`` force either placement."""
     int8 = refs.dtype == torch.int8
     l2 = _check_l2(q, refs, ref_sq, q_sq)
     sfx, l2_key, _ = _l2_args(l2, ref_sq, q_sq)
-    cname = "fused_topk_int8" if int8 else "fused_topk_bf16" + sfx
+    sub, sub_key, n_sched = _schedule(blocks, col_block, n_valid)
+    cname = ("fused_topk_int8" if int8 else "fused_topk_bf16" + sfx) + (
+        "_blocks" if sub else "")
     if q.shape[1] == 0:
         raise ValueError(f"{cname}: the kernel takes D >= 1")
     if smem_sets and kappa > WGMMA_SMEM_SETS_KAPPA_MAX:
@@ -1098,16 +1209,16 @@ def _fused_topk_tc(
     m, smem_sets = q.shape[0], int(smem_sets)
     group = WGMMA_SMEM_SETS_GROUP if smem_sets else WGMMA_GROUP
     slots = _wgmma_slots(q, cname, smem_sets, kappa if smem_sets else 0)
-    grid, pieces = wgmma_topk_grid(m, n_valid, kappa,
-                                   wgmma_grid(m, n_valid, slots), group)
+    grid, pieces = wgmma_topk_grid(m, n_sched, kappa,
+                                   wgmma_grid(m, n_sched, slots), group)
     if int8:
         terms, refs = _int8_operands(q, refs)
         operands = (terms, refs, scale)
     else:
         operands = (pad_columns(q), pad_columns(refs)) + ((q_sq, ref_sq) if l2 else ())
-    key = "fused_topk" + (INT8 if int8 else BF16 + l2_key)
+    key = "fused_topk" + (INT8 if int8 else BF16 + l2_key) + sub_key
     return _launch_topk(cname, key, operands, n_valid, kappa, pieces,
-                        (kappa, smem_sets, grid, pieces), m)
+                        sub + (kappa, smem_sets, grid, pieces), m)
 
 
 def _launch_topk(

@@ -766,11 +766,7 @@ class SimilaritySearcher:
         clock = _StepClock()
         q = self._stage_queries(queries)
         clock.mark("stage_queries")
-        mode = self._collection_mode(_padded_rows(nq), kappa)
-        if mode == "pooled":
-            flat, stats = self._collect_pooled(q, kappa, k_eff, clock)
-        else:
-            flat, stats = self._collect_stream(q, kappa, k_eff, clock)
+        mode, flat, stats = self._collect(q, kappa, k_eff, clock)
         clock.mark("repair")
         qi, ri, scores = self._final_cut(*flat, k_eff)
         if self._l2:
@@ -780,6 +776,14 @@ class SimilaritySearcher:
                                seconds=clock.seconds)
         logger.info("global_topk k=%d: %s", k_eff, self.last_stats)
         return qi, ri, scores
+
+    def _collect(self, q: torch.Tensor, kappa: int, k_eff: int, clock):
+        """(mode, flat, stats) of the collection mode routed for these
+        staged query rows (``_collect_stream`` / ``_collect_pooled``). The
+        IVF tier (ops/ivf.py) collects over its probed blocks here."""
+        mode = self._collection_mode(_padded_rows(q.shape[0]), kappa)
+        collect = self._collect_pooled if mode == "pooled" else self._collect_stream
+        return (mode, *collect(q, kappa, k_eff, clock))
 
     def _query_operands(self, q: torch.Tensor, q_sq: Optional[torch.Tensor] = None):
         """(queries, keyword arguments) as a collection hands them to its
@@ -811,20 +815,23 @@ class SimilaritySearcher:
     # ---- the kernel calls --------------------------------------------------
     # Every product a search runs goes through one of these, over the whole
     # staged corpus, with the query operands of ``_query_operands``
-    # (``qkw``: their keyword arguments). ShardedSimilaritySearcher
-    # (vsc2022_torch/parallel) runs each on every shard and merges.
+    # (``qkw``: their keyword arguments); the IVF tier's scans pass a block
+    # list (``blocks``: the kernels' blocks= and col_block=).
+    # ShardedSimilaritySearcher (vsc2022_torch/parallel) runs each on every
+    # shard and merges.
 
     def _row_max(self, q_k: torch.Tensor, qkw: dict) -> torch.Tensor:
         return kernels.row_max(q_k, self.tensor_core_refs(), self.n_refs,
                                **self._corpus_kw(), **qkw)
 
-    def _fused_topk(self, q_k: torch.Tensor, kappa: int, qkw: dict):
+    def _fused_topk(self, q_k: torch.Tensor, kappa: int, qkw: dict, **blocks):
         return kernels.fused_topk(q_k, self.tensor_core_refs(), self.n_refs, kappa,
-                                  **self._corpus_kw(), **qkw)
+                                  **self._corpus_kw(), **qkw, **blocks)
 
-    def _count_above(self, q_k: torch.Tensor, tau: float, qkw: dict) -> torch.Tensor:
+    def _count_above(self, q_k: torch.Tensor, tau: float, qkw: dict,
+                     **blocks) -> torch.Tensor:
         return kernels.count_above(q_k, self.tensor_core_refs(), tau, self.n_refs,
-                                   **self._corpus_kw(), **qkw)
+                                   **self._corpus_kw(), **qkw, **blocks)
 
     def _pool(self, q_k: torch.Tensor, qkw: dict):
         """The winner pool as [M, P] values and ids (slot pairs adjacent
@@ -870,15 +877,23 @@ class SimilaritySearcher:
         of ``_query_operands`` with ``q_sq``) those rows' ``q_sq``."""
         return {"q_sq": kw["q_sq"][rows]} if "q_sq" in kw else {}
 
-    def _collect_stream(self, q: torch.Tensor, kappa: int, k_eff: int, clock):
+    def _collect_stream(self, q: torch.Tensor, kappa: int, k_eff: int, clock,
+                        scope=None):
         """The streaming collection: per-row top-κ candidates, τ, exact
         corpus counts for every row, and a corpus re-search of the rows
         whose candidates ≥ τ fall short of their count. Returns the
         (scores, query rows, ref ids) holding every entry that can make
-        the cut, and the stats."""
+        the cut, and the stats.
+
+        ``scope``: the IVF tier's pruned scan (ops/ivf.py): the candidates
+        over ``scope.candidates`` (a block list's keyword arguments), the
+        counts over ``scope.counts(τ)`` (the blocks that can hold an entry
+        ≥ τ, so the counts stay exact corpus counts), or None returned when
+        that is None (τ = −inf)."""
         nq = q.shape[0]
         q_k, qkw = self._query_operands(q)
-        top_s, top_i = self._fused_topk(q_k, kappa, qkw)
+        top_s, top_i = self._fused_topk(q_k, kappa, qkw,
+                                        **(scope.candidates if scope else {}))
         clock.mark("candidates")
         # τ is the global k-th candidate; with k beyond the rows' κ
         # candidates the true k-th is unknowable from them: −inf.
@@ -886,7 +901,12 @@ class SimilaritySearcher:
             tau = NEG_INF
         else:
             tau = float(torch.topk(top_s.reshape(-1), k_eff).values[-1])
-        counts = self._count_above(q_k, tau, qkw).long()
+        counted = {}
+        if scope is not None:
+            counted = scope.counts(tau)
+            if counted is None:
+                return None
+        counts = self._count_above(q_k, tau, qkw, **counted).long()
         above = (top_s >= tau) & torch.isfinite(top_s)
         kept = above.sum(1)
         # counts are exact corpus counts, so kept ≠ count flags exactly
@@ -978,13 +998,17 @@ class SimilaritySearcher:
             "corpus_rows": int(corpus_rows.numel()),
         }
 
-    @staticmethod
-    def _final_cut(flat_s, flat_q, flat_r, k_eff: int):
+    def _map_ref_ids(self, flat_r: np.ndarray) -> np.ndarray:
+        """Staged row ids as the caller's: the identity here; the IVF tier
+        (ops/ivf.py) maps its cluster-contiguous rows back."""
+        return flat_r
+
+    def _final_cut(self, flat_s, flat_q, flat_r, k_eff: int):
         """Exact global sort and cut on the host: score descending, then
-        (q, r) ascending."""
+        (q, r) ascending on the caller's ids (``_map_ref_ids`` first)."""
         flat_s = flat_s.cpu().numpy()
         flat_q = flat_q.cpu().numpy().astype(np.int64)
-        flat_r = flat_r.cpu().numpy().astype(np.int64)
+        flat_r = self._map_ref_ids(flat_r.cpu().numpy().astype(np.int64))
         if k_eff < flat_s.size:
             tau = np.partition(flat_s, flat_s.size - k_eff)[flat_s.size - k_eff]
             keep = flat_s >= tau

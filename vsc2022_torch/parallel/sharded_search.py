@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from vsc2022_torch.ops import kernels
+from vsc2022_torch.ops.ivf import IVFSimilaritySearcher
 from vsc2022_torch.ops.kernels import PLAIN_CHUNK_ELEMENTS, SEG_KEEP, SEG_LANES
 from vsc2022_torch.ops.similarity import (
     COL_BLOCK,
@@ -93,9 +94,19 @@ from vsc2022_torch.parallel.mesh import Mesh, on_device, process_index
 _FIELDS = ("refs", "scale", "ref_sq")
 
 
-def make_searcher(refs, mesh: Optional[Mesh] = None, device="cuda", **kw) -> SimilaritySearcher:
+def make_searcher(refs, mesh: Optional[Mesh] = None, device="cuda",
+                  ivf_nlist: Optional[int] = None, ivf_nprobe: Optional[int] = None,
+                  **kw) -> SimilaritySearcher:
     """A ``ShardedSimilaritySearcher`` over ``mesh``, or without one a
-    ``SimilaritySearcher`` on ``device``; ``kw``: metric, precision, dtype."""
+    ``SimilaritySearcher`` on ``device`` (with ``ivf_nlist``, the IVF tier's
+    ``IVFSimilaritySearcher``, ``ivf_nprobe`` its probe width: single-device
+    only, as in JAX); ``kw``: metric, precision, dtype."""
+    if ivf_nlist is not None:
+        if mesh is not None:
+            raise ValueError("IVF codecs are single-chip for now: shard the "
+                             "corpus (mesh) OR prune it (IVF), not both")
+        return IVFSimilaritySearcher(refs, nlist=ivf_nlist, nprobe=ivf_nprobe,
+                                     device=device, **kw)
     if mesh is None:
         return SimilaritySearcher(refs, device=device, **kw)
     return ShardedSimilaritySearcher(refs, mesh, **kw)

@@ -20,17 +20,17 @@ Search modes:
     rules; provided for comparison, like the reference,
     vsc/index.py:108-117): the searcher's ``row_topk``.
 
-Ported so far: ``codec_str`` "Flat" (with ``dtype`` "float32",
-"bfloat16" or "int8") and "SQ8" (``dtype="int8"``), ``metric`` "IP" or
-"L2" (the score-normalized index: IP only, as in JAX), ``precision``
-"highest" or "default", and ``mesh`` (the corpus sharded over a
-``vsc2022_torch.parallel.Mesh``: ``ShardedSimilaritySearcher``; over a
-pod's mesh every rank holds the whole host corpus and stages its own
-shards, and every rank's search returns the same hits). The IVF
-codecs ("IVF{nlist}[,Flat|SQ8]") raise until they are ported (with a mesh
-they raise ``ValueError``, as in JAX: sharding and pruning exclude each
-other); other codec strings raise ``ValueError``, as in the JAX
-package.
+``codec_str`` "Flat" (with ``dtype`` "float32", "bfloat16" or "int8"),
+"SQ8" (``dtype="int8"``) and "IVF{nlist}[,Flat|SQ8]" (the exact pruned
+tier, ``ops/ivf.py``; ",SQ8" stages int8; ``ivf_nprobe`` its probe
+width), ``metric`` "IP" or "L2" (the score-normalized index and the IVF
+tier: IP only, as in JAX), ``precision`` "highest" or "default", and
+``mesh`` (the corpus sharded over a ``vsc2022_torch.parallel.Mesh``:
+``ShardedSimilaritySearcher``; over a pod's mesh every rank holds the whole
+host corpus and stages its own shards, and every rank's search returns the
+same hits). An IVF codec with a mesh raises ``ValueError``, as in JAX:
+sharding and pruning exclude each other; other codec strings raise
+``ValueError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -64,12 +64,19 @@ class VideoIndex:
         dtype: str = "float32",
         device: DeviceLike = "cuda",
         mesh=None,
+        ivf_nprobe: Optional[int] = None,
     ):
         """``codec_str`` mirrors the reference's FAISS factory argument
         (reference: vsc/index.py:78): "Flat" is the exact search over the
         staged dtype, "SQ8" FAISS's 8-bit scalar quantizer, here per-row
         int8 storage (``dtype="int8"``: a quarter of f32's device memory,
         search exact over the dequantized corpus, IP only).
+        "IVF{nlist}[,Flat|SQ8]" (e.g. "IVF1024,Flat") selects the pruned
+        tier (``ops/ivf.py``): a k-means cluster-contiguous layout whose
+        per-block score bounds let the candidate phase scan a block subset;
+        unlike FAISS IVF the search stays exact, ties included.
+        ``ivf_nprobe`` (FAISS sets nprobe at run time) tunes its speed,
+        never its result.
         ``dtype="bfloat16"`` stores and searches the corpus in bf16
         (scores at bf16 resolution, f32 accumulation). ``metric`` "L2"
         scores by squared distance (lower is better), ``precision``
@@ -77,24 +84,26 @@ class VideoIndex:
         searcher (``ops/similarity.py``). ``mesh``: an optional
         ``vsc2022_torch.parallel.Mesh`` to shard the reference corpus over
         (``parallel/sharded_search.py``); its lead device stands for
-        ``device``. The IVF codecs are not ported yet and raise."""
+        ``device``."""
+        self._ivf_nlist = None
         ivf = re.fullmatch(r"IVF(\d+)(?:,(Flat|SQ8))?", codec_str)
-        if ivf and mesh is not None:
-            raise ValueError(
-                "IVF codecs are single-chip for now: shard the corpus "
-                "(mesh) OR prune it (IVF), not both"
-            )
         if ivf:
-            raise NotImplementedError(
-                f"codec {codec_str!r}: the IVF tier is not ported yet"
-            )
-        if codec_str == "SQ8":
+            self._ivf_nlist = int(ivf.group(1))
+            if ivf.group(2) == "SQ8":
+                dtype = "int8"
+        elif codec_str == "SQ8":
             dtype = "int8"
         elif codec_str != "Flat":
             raise ValueError(
                 f"Unsupported codec {codec_str!r}: Flat (f32/bf16/int8), "
                 "SQ8 (int8) or IVF{nlist}[,Flat|SQ8]"
             )
+        if ivf and mesh is not None:
+            raise ValueError(
+                "IVF codecs are single-chip for now: shard the corpus "
+                "(mesh) OR prune it (IVF), not both"
+            )
+        self._ivf_nprobe = ivf_nprobe
         if dtype not in STORAGE_DTYPES:
             raise NotImplementedError(
                 f"dtype={dtype!r} storage is not ported yet "
@@ -214,7 +223,8 @@ class VideoIndex:
         if self._searcher is None:
             self._searcher = make_searcher(
                 self._corpus(), self.mesh, self.device, metric=self.metric,
-                precision=self.precision, dtype=self.dtype)
+                precision=self.precision, dtype=self.dtype,
+                ivf_nlist=self._ivf_nlist, ivf_nprobe=self._ivf_nprobe)
         return self._searcher
 
     def search(
@@ -367,6 +377,8 @@ class ScoreNormalizedVideoIndex(VideoIndex):
                 dtype=self.dtype,
                 device=self.device,
                 mesh=self.mesh,
+                ivf_nlist=self._ivf_nlist,
+                ivf_nprobe=self._ivf_nprobe,
             )
         return self._searcher
 

@@ -90,6 +90,12 @@ in this process (``vsc2022_torch.parallel.corpus_mesh``: each card; one
 shard on a one-card machine or on the CPU), and the localizer's reference
 tables with it (``shard_ref_table``).
 
+``--ivf NLIST`` lays the search corpus out in NLIST k-means cells, the IVF
+pruned tier (``vsc2022_torch/ops/ivf.py``; 0: max(2, rows // 16384)), and
+``--ivf_nprobe`` sets its probe width: focused requests scan a block subset,
+and every answer stays the plain server's, ties included. Single-device:
+with ``--sharded`` it raises the JAX server's ``ValueError``.
+
 Multi-host pods: every rank runs this CLI with the same flags plus its
 ``--process_id``; ``--coordinator`` rendezvouses the ``torch.distributed``
 group, so the ``--sharded`` corpus mesh spans every rank's device (one
@@ -108,8 +114,7 @@ error response. ``--dist_backend``: ``nccl`` between ranks on separate
 cards (the default on cards), ``gloo`` on the CPU (its default) or where
 ranks share a card (NCCL refuses two ranks on one card).
 
-Not ported yet (each raises at startup, or answers ``error`` for a
-command): ``--ivf`` and ``probe``.
+Not ported yet (answers ``error``): the ``probe`` command.
 
     python -m vsc2022_torch.retrieval.serve --ref_features refs.npz \\
         --score_norm_features noise.npz --matches [--listen 127.0.0.1:0]
@@ -183,10 +188,16 @@ _dtype_group.add_argument(
 )
 parser.add_argument(
     "--ivf", type=int, default=None, metavar="NLIST",
-    help="IVF pruned corpus layout (not ported yet)",
+    help="Lay the search corpus out in NLIST k-means cells (the IVF pruned "
+    "tier, ops/ivf.py; 0 = max(2, rows // 16384)): focused requests scan only "
+    "the probed block subset, still exact, ties included. Single-device only "
+    "(exclusive with --sharded).",
 )
-parser.add_argument("--ivf_nprobe", type=int, default=None,
-                    help="Blocks probed under --ivf (not ported yet)")
+parser.add_argument(
+    "--ivf_nprobe", type=int, default=None,
+    help="Blocks probed per query row under --ivf (default 1/8 of the corpus "
+    "blocks). Tunes speed, never the result.",
+)
 parser.add_argument(
     "--no_warmup", action="store_true",
     help="Skip the staging/kernel warm-up search before 'ready'",
@@ -301,12 +312,6 @@ def table_dtype(args) -> str:
     return "bfloat16" if dtype == "int8" else dtype
 
 
-def check_ported(args) -> None:
-    """Raise for every flag whose mode is not ported yet."""
-    if args.ivf is not None or args.ivf_nprobe is not None:
-        raise NotImplementedError("not ported yet: --ivf")
-
-
 def check_multihost(args) -> bool:
     """The JAX server's checks of the pod flags; True in a pod."""
     if (args.num_processes or 1) <= 1:
@@ -339,13 +344,20 @@ def build_index(args, device):
 
         mesh = corpus_mesh(device=device)
         logger.info(f"Sharding the corpus over {mesh}")
+    codec = "Flat"
+    if args.ivf is not None:
+        # 0: the IVF tier with nlist from the corpus size, as the JAX server
+        # picks it.
+        n = args.ivf if args.ivf > 0 else max(
+            2, sum(vf.feature.shape[0] for vf in refs) // 16384)
+        codec = f"IVF{n}"
+    kw = dict(dtype=dtype, device=device, mesh=mesh, codec_str=codec,
+              ivf_nprobe=args.ivf_nprobe)
     if args.score_norm_features:
         noise = load_features(args.score_norm_features, Dataset.REFS)
-        index = ScoreNormalizedVideoIndex(
-            dim, noise, beta=args.beta, dtype=dtype, device=device, mesh=mesh
-        )
+        index = ScoreNormalizedVideoIndex(dim, noise, beta=args.beta, **kw)
     else:
-        index = VideoIndex(dim, dtype=dtype, device=device, mesh=mesh)
+        index = VideoIndex(dim, **kw)
     index.add(refs)
     return index, refs, dim
 
@@ -836,7 +848,6 @@ def _warm_up(index, localizer, refs, dim, args) -> None:
 
 
 def main(args):
-    check_ported(args)
     multihost = check_multihost(args)
     if multihost:
         from vsc2022_torch.parallel.mesh import initialize_distributed

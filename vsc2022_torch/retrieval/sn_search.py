@@ -1,7 +1,7 @@
 """Score-normalized search over flat arrays: the serving query path.
 
-Counterpart of ``vsc2022_tpu/retrieval/sn_search.py`` without the IVF
-tier. The reference runs score normalization and retrieval
+Counterpart of ``vsc2022_tpu/retrieval/sn_search.py``. The reference runs
+score normalization and retrieval
 as separate FAISS stages with host round trips between them (reference:
 vsc/baseline/score_normalization.py:86-105 then vsc/index.py:142-165).
 Here the queries cross to the device once: the noise-NN bias is the
@@ -32,6 +32,13 @@ over the shards, appended on the lead device, and the bias-augmented
 queries go into the sharded candidate phase. Over a pod mesh the max
 runs over every rank's shards (``pmax``), so every rank appends the same
 bias.
+
+``ivf_nlist`` lays the reference corpus out for the IVF tier
+(``IVFSimilaritySearcher``, ``ivf_nprobe`` its probe width; no mesh); the
+noise corpus stays a plain searcher (its row max never prunes). As in JAX,
+where an IVF searcher never takes the fused one-dispatch path, ``last_q_sn``
+keeps the bias unrounded (f32 beside the staged query columns); the
+searcher rounds it to the query dtype when it stages the queries.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import numpy as np
 import torch
 
 from vsc2022_torch.device import DeviceLike
+from vsc2022_torch.ops.ivf import IVFSimilaritySearcher
 from vsc2022_torch.parallel.sharded_search import make_searcher
 
 
@@ -62,13 +70,17 @@ class ScoreNormalizedSearcher:
         dtype: str = "float32",
         device: DeviceLike = "cuda",
         mesh=None,
+        ivf_nlist: Optional[int] = None,
+        ivf_nprobe: Optional[int] = None,
     ):
         """``mesh``: shard both corpora over it (its lead device stands for
-        ``device``)."""
+        ``device``). ``ivf_nlist``, ``ivf_nprobe``: the reference corpus's
+        IVF tier (module docstring)."""
         self.beta = beta
         noise = np.ascontiguousarray(noise, dtype=np.float32)
         self.searcher = make_searcher(_with_ones(refs), mesh, device,
-                                      precision=precision, dtype=dtype)
+                                      precision=precision, dtype=dtype,
+                                      ivf_nlist=ivf_nlist, ivf_nprobe=ivf_nprobe)
         self.noise_searcher = make_searcher(noise, mesh, device,
                                             precision=precision, dtype=dtype)
         # The bias-augmented queries of the most recent global_topk, on the
@@ -102,9 +114,11 @@ class ScoreNormalizedSearcher:
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         q_sn = self.normalize_queries(queries)
         s, ns = self.searcher, self.noise_searcher
-        if len(q_sn) and k > 0 and s.n_refs and ns.n_refs:
-            # JAX's fused path (taken on these conditions) rounds the bias
-            # to the query dtype and keeps that matrix (f32 under int8).
+        if len(q_sn) and k > 0 and s.n_refs and ns.n_refs and not isinstance(
+                s, IVFSimilaritySearcher):
+            # JAX's fused path (taken on these conditions, never by an IVF
+            # searcher) rounds the bias to the query dtype and keeps that
+            # matrix (f32 under int8).
             q_sn = q_sn.to(s.query_dtype)
         self.last_q_sn = q_sn
         return s.global_topk(q_sn, k, kappa=kappa)
