@@ -273,6 +273,30 @@ Phases (any failure exits non-zero):
      requests (a), (d), (e), (g): candidates.csv byte for byte with 6b's,
      matches within IVF_BIAS_ATOL (the bias the localizer reads is
      unrounded beside an IVF searcher, as in JAX).
+ 12. Training (vsc2022_torch/train), no hand kernel on its path (the
+     launch counts are zeroed before it and must read 0 after). 12a: one
+     step of a small SSCD (one block a stage, 16-128 wide, 64-d; batch 32
+     of 64 x 64 views): the views on the card within TRAIN_VIEW_ATOL of
+     the CPU's; the step in float64 on the card from the CPU's views
+     against the CPU's float64 step within TRAIN_F64_TOL (loss,
+     gradients, running statistics: the same function); the card's
+     float32 step against that float64 step within float32's reach
+     (TRAIN_LOSS_RTOL, TRAIN_STATS_ATOL, TRAIN_GRAD_NORM_TOL in norm:
+     BatchNorm's batch statistics make the gradient ill-conditioned in
+     float32). 12b: the training CLI's main (--synthetic 256 --steps 10
+     --batch_size 64 --image_size 224) at full width (ResNet-50): every
+     loss finite, frames/s after the first step and the device's peak
+     memory on lines of their own, and the checkpoint through the
+     inference CLI's --checkpoint_path into the extractor, whose
+     descriptors equal the trained model's eval forward within
+     TRAIN_DESC_TOL. 12c: distillation of fg att, fg bin and cg at full
+     width (64 pairs of 4 x 9 x 3840): the CLI (pairs/s, peak), the loss
+     falling on a fixed batch, the checkpoint through dns_index's
+     --checkpoint_path. 12d: two gloo ranks on this card, each a process
+     (train_mesh), half the batch each: both ranks bit for bit alike; the
+     SSCD step in float64 equal to 12a's within TRAIN_F64_TOL, the fg bin
+     and cg distillation steps equal to one card's (gradients within
+     TRAIN_GRAD_TOL of their largest value).
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object with each kernel's numbers, and {"ok": true, "device": ...}.
@@ -4787,6 +4811,390 @@ def ivf_serve(corpus):
         f"{json.dumps({k: v for k, v in counts.items() if v})}")
 
 
+# ---- phase 12: training ----------------------------------------------------------
+
+# 12a and 12d hold a small SSCD (a one-block-a-stage trunk, 16-128 wide,
+# 64-d descriptors) at batch 32 of 64 x 64 views. The gradient of a
+# network trained through BatchNorm's batch statistics is ill-conditioned
+# in float32 (a bias's gradient is the small rest of sums that nearly
+# cancel): the card's float32 gradients lie 1.2e-3 off a float64 step in
+# norm and up to 2.2e-2 of one tensor's largest value, with cuDNN or
+# without; a CPU's float32 ones 6.1e-6 to 4.6e-4 in norm. So the step is
+# held in float64 from the same views (the same function: within
+# TRAIN_F64_TOL), and the card's float32 step against the float64 one
+# within float32's reach (TRAIN_LOSS_RTOL, TRAIN_STATS_ATOL,
+# TRAIN_GRAD_NORM_TOL).
+TRAIN_SMALL = dict(stage_sizes=(1, 1, 1, 1), stage_features=(16, 32, 64, 128), dims=64)
+TRAIN_CHECK_BATCH = 32
+TRAIN_CHECK_HW = 64
+TRAIN_VIEW_ATOL = 4e-6  # the views on the card against the CPU's (the CPU tests' limit)
+TRAIN_F64_TOL = 1e-9  # float64 steps: loss (relative), gradients (of their largest), statistics
+TRAIN_LOSS_RTOL = 1e-5  # float32 against float64
+TRAIN_STATS_ATOL = 1e-4
+TRAIN_GRAD_NORM_TOL = 1e-2  # float32 gradients against float64, in norm
+TRAIN_GRAD_TOL = 1e-3  # distillation (well conditioned): of each tensor's largest gradient
+TRAIN_DESC_TOL = 1e-5  # of the largest descriptor value
+TRAIN_RANKS = 2
+TRAIN_RANK_TIMEOUT = 300  # seconds a rank process may take
+# 12b: the CLI at full width (ResNet-50, 224 x 224, batch 64).
+TRAIN_CLI_ARGS = ("--synthetic", "256", "--steps", "10", "--batch_size", "64",
+                  "--image_size", "224", "--log_every", "1")
+# 12c: each student at full width (9 x 3840 → 512), 64 pairs of 4 frames.
+DISTILL_STUDENTS = (("fg", "att"), ("fg", "bin"), ("cg", "att"))
+DISTILL_STEPS = 12
+DISTILL_RANK_PAIRS = 8  # 12d's batch, split over the ranks
+
+
+def train_frames(np):
+    """12a / 12d's uint8 frames: 32 of 80 x 96 (seed 12)."""
+    rng = np.random.RandomState(12)
+    return (rng.rand(TRAIN_CHECK_BATCH, 80, 96, 3) * 255).astype(np.uint8)
+
+
+def small_views(torch, frames, device, rows=None):
+    """12a / 12d's two views (seed 13's draws of the whole batch) of
+    ``rows`` of ``frames`` (a rank's slice; all by default), made on
+    ``device``."""
+    from vsc2022_torch.train.augment import augment, draw_views
+
+    b, h, w, _ = frames.shape
+    g = torch.Generator().manual_seed(13)
+    draws = [draw_views(g, b, h, w) for _ in range(2)]
+    lo, hi = rows or (0, b)
+    x = torch.from_numpy(frames[lo:hi]).to(device)
+    return {k: augment(x, d.rows(lo, hi), TRAIN_CHECK_HW)
+            for k, d in zip(("view_a", "view_b"), draws)}
+
+
+def small_sscd_step(torch, np, frames, device, mesh=None, rows=None, dtype=None,
+                    views_on=None):
+    """One step of the small SSCD (seed 12, AdamW lr 1e-4) on ``device``, in
+    ``dtype`` (float32 by default), on ``small_views`` made on ``views_on``
+    (``device`` by default). Returns the loss, every gradient and the
+    running statistics, as numpy."""
+    from vsc2022_torch.models.sscd import SSCDModel
+    from vsc2022_torch.train import create_train_state, make_train_step
+
+    dtype = dtype or torch.float32
+    model = SSCDModel(**TRAIN_SMALL)
+    state = create_train_state(model, 1e-4, 1e-2, seed=12, device=device)
+    model.to(dtype)
+    views = small_views(torch, frames, views_on or device, rows)
+    state, loss = make_train_step(model, mesh)(
+        state, {k: v.to(device, dtype) for k, v in views.items()})
+    return {"loss": float(loss),
+            **{"grad/" + n: p.grad.cpu().numpy() for n, p in model.named_parameters()},
+            **{"buf/" + n: b.cpu().numpy() for n, b in model.named_buffers()
+               if "running" in n}}
+
+
+def distill_rank_batch(np):
+    """12d's distillation batch: 8 pairs of 3 frames (seed 21)."""
+    rng = np.random.RandomState(21)
+    q = rng.randn(DISTILL_RANK_PAIRS, 3, 9, 3840).astype(np.float32)
+    r = rng.randn(DISTILL_RANK_PAIRS, 3, 9, 3840).astype(np.float32)
+    return {"q_regions": q, "r_regions": r,
+            "teacher_sim": rng.rand(DISTILL_RANK_PAIRS).astype(np.float32)}
+
+
+def distill_step_grads(torch, np, student, fg_type, device, mesh=None, rows=None):
+    """One distillation step (seed 5, Adam lr 1e-3) on ``rows`` of 12d's
+    batch: the loss and every gradient, as numpy."""
+    from vsc2022_torch.train import dns_distill
+
+    batch = distill_rank_batch(np)
+    lo, hi = rows or (0, DISTILL_RANK_PAIRS)
+    module = dns_distill.build_student_module(student, fg_type)
+    state = dns_distill.create_distill_state(module, 1e-3, seed=5, device=device)
+    qw = 0.1 if (student, fg_type) == ("fg", "bin") else 0.0
+    state, loss = dns_distill.make_distill_step(module, student, qw, mesh=mesh)(
+        state, {k: v[lo:hi] for k, v in batch.items()})
+    return {"loss": float(loss),
+            **{"grad/" + n: p.grad.cpu().numpy() for n, p in module.named_parameters()}}
+
+
+def compare_steps(np, got, want, what, loss_rtol, stats_atol, grad_tol=None,
+                  grad_norm_tol=None):
+    """``got`` against ``want`` (small_sscd_step / distill_step_grads
+    results): the loss within ``loss_rtol``, the running statistics within
+    ``stats_atol``, each gradient within ``grad_tol`` of its largest value
+    and all of them within ``grad_norm_tol`` in norm, where given. Returns
+    the errors read."""
+    check(got.keys() == want.keys(), f"{what}: other tensors {sorted(got)[:4]}")
+    grads = [k for k in want if k.startswith("grad/")]
+    num = sum(float(((got[k].astype(np.float64) - want[k]) ** 2).sum()) for k in grads)
+    den = sum(float((want[k].astype(np.float64) ** 2).sum()) for k in grads)
+    each = {k: float(np.abs(got[k] - want[k]).max() / max(np.abs(want[k]).max(), 1e-30))
+            for k in grads}
+    worst = max(each, key=each.get)
+    errs = {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "stats_abs": max([float(np.abs(got[k] - want[k]).max())
+                              for k in want if k.startswith("buf/")] or [0.0]),
+            "grad_norm_rel": (num / den) ** 0.5, "grad_max_rel": each[worst],
+            "grad_worst": worst}
+    check(np.isfinite(got["loss"]) and errs["loss_rel"] <= loss_rtol,
+          f"{what}: loss {got['loss']} against {want['loss']}")
+    check(errs["stats_abs"] <= stats_atol,
+          f"{what}: running statistics {errs['stats_abs']:.3g} off")
+    check(grad_tol is None or each[worst] <= grad_tol,
+          f"{what}: {worst} lies {each[worst]:.3g} of its largest value off")
+    check(grad_norm_tol is None or errs["grad_norm_rel"] <= grad_norm_tol,
+          f"{what}: the gradients lie {errs['grad_norm_rel']:.3g} off in norm")
+    return errs
+
+
+def train_step_vs_cpu(torch, np, dev):
+    """12a: the small SSCD step on the card against the CPU's: the views
+    (TRAIN_VIEW_ATOL), the float64 step from the CPU's views (TRAIN_F64_TOL)
+    and the card's float32 step from its own views against the float64
+    one (float32's limits). Returns the CPU's float64 step (12d's
+    reference)."""
+    frames = train_frames(np)
+    card_views = small_views(torch, frames, dev)
+    cpu_views = small_views(torch, frames, "cpu")
+    view_err = max(float((card_views[k].cpu() - cpu_views[k]).abs().max()) for k in cpu_views)
+    check(view_err <= TRAIN_VIEW_ATOL, f"12a: the views lie {view_err:.3g} off the CPU's")
+    f64 = torch.float64
+    ref64 = small_sscd_step(torch, np, frames, "cpu", dtype=f64)
+    t0 = time.perf_counter()
+    card64 = small_sscd_step(torch, np, frames, dev, dtype=f64, views_on="cpu")
+    seconds = time.perf_counter() - t0
+    e64 = compare_steps(np, card64, ref64, "12a: the float64 step on the card against the "
+                        "CPU's", TRAIN_F64_TOL, TRAIN_F64_TOL, grad_tol=TRAIN_F64_TOL)
+    e32 = compare_steps(np, small_sscd_step(torch, np, frames, dev), ref64,
+                        "12a: the card's float32 step against the CPU's float64 step",
+                        TRAIN_LOSS_RTOL, TRAIN_STATS_ATOL, grad_norm_tol=TRAIN_GRAD_NORM_TOL)
+    e_cpu = compare_steps(np, small_sscd_step(torch, np, frames, "cpu"), ref64,
+                          "12a: the CPU's float32 step against its float64 step",
+                          TRAIN_LOSS_RTOL, TRAIN_STATS_ATOL, grad_norm_tol=TRAIN_GRAD_NORM_TOL)
+    log(f"phase 12a: one SSCD step (trunk {TRAIN_SMALL['stage_features']}, batch "
+        f"{TRAIN_CHECK_BATCH}, {TRAIN_CHECK_HW} x {TRAIN_CHECK_HW}): the views on the card "
+        f"within {view_err:.3g} of the CPU's (limit {TRAIN_VIEW_ATOL}); float64 on the card "
+        f"({seconds:.2f} s with its first cuDNN plans) against the CPU from the same views: "
+        + json.dumps(e64) + f" (limit {TRAIN_F64_TOL}); the card's float32 step against the "
+        "CPU's float64 one: " + json.dumps(e32) + f" (limits: loss {TRAIN_LOSS_RTOL}, "
+        f"statistics {TRAIN_STATS_ATOL}, gradients {TRAIN_GRAD_NORM_TOL} in norm); the CPU's "
+        "float32 step against it: " + json.dumps(e_cpu))
+    return ref64
+
+
+def train_cli(torch, np, dev, work: Path):
+    """12b: python -m vsc2022_torch.train.cli's main in process at full width
+    on the card: every loss finite, frames/s and peak memory on their own
+    lines; its checkpoint through the inference CLI's --checkpoint_path
+    into the extractor, whose descriptors equal the trained model's eval
+    forward."""
+    from vsc2022_torch.inference import cli as inference_cli
+    from vsc2022_torch.inference.pipeline import DescriptorExtractor
+    from vsc2022_torch.inference.transforms import InferenceTransforms
+    from vsc2022_torch.train import cli
+
+    ckpt = str(work / "sscd.npz")
+    torch.cuda.empty_cache()
+    out = cli.main(cli.parser.parse_args([*TRAIN_CLI_ARGS, "--checkpoint_out", ckpt,
+                                          "--device", str(dev)]))
+    losses = out["losses"]
+    steps = int(TRAIN_CLI_ARGS[TRAIN_CLI_ARGS.index("--steps") + 1])
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"12b: the CLI's losses {losses}")
+    log(f"phase 12b: train.cli {' '.join(TRAIN_CLI_ARGS)}: losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f"; {out['seconds']:.2f} s")
+    log(f"phase 12b: SSCD training (ResNet-50, 224 x 224, batch 64, f32): "
+        f"{out['steady_frames_per_s']:.1f} frames/s over steps 2-{steps} "
+        f"({out['frames_per_s']:.1f} with the first)")
+    log(f"phase 12b: SSCD training device peak {out['peak_mib']:.0f} MiB")
+    args = inference_cli.parser.parse_args([
+        "--baseline", "sscd", "--checkpoint_path", ckpt, "--dataset_path", "-",
+        "--output_file", "-", "--device", str(dev)])
+    rng = np.random.RandomState(14)
+    frames = torch.from_numpy((rng.rand(16, 360, 640, 3) * 255).astype(np.uint8)).to(dev)
+    transform = InferenceTransforms[args.transforms]
+    got = DescriptorExtractor(inference_cli.build_model(args), transform,
+                              device=dev).forward(frames).cpu().numpy()
+    want = DescriptorExtractor(out["state"].model, transform,
+                               device=dev).forward(frames).cpu().numpy()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    check(np.isfinite(got).all() and err <= TRAIN_DESC_TOL,
+          f"12b: the checkpoint's descriptors lie {err:.3g} off the trained model's")
+    log(f"phase 12b: the checkpoint through --checkpoint_path into the extractor: 16 "
+        f"frames' descriptors within {err:.3g} of the trained model's eval forward "
+        f"(limit {TRAIN_DESC_TOL})")
+    return {"frames_per_s": out["steady_frames_per_s"], "peak_mib": out["peak_mib"]}
+
+
+def distill_students(torch, np, dev, work: Path):
+    """12c: each student at full width: the CLI's main in process (64
+    synthetic pairs of 4 frames, batch 64, 12 steps: losses finite, pairs/s
+    and peak memory), the loss falling on its first batch held fixed (12
+    steps from seed 0, lr 3e-3: the last under 0.75 of the larger of the
+    first two, as the JAX package's test), and its checkpoint through
+    dns_index's --checkpoint_path into a DnSStudent on the card, equal to
+    the trained module's forward."""
+    from vsc2022_torch.baseline import dns_index
+    from vsc2022_torch.train import cli, dns_distill
+
+    rates = {}
+    for student, fg_type in DISTILL_STUDENTS:
+        name = student if student == "cg" else f"fg_{fg_type}"
+        ckpt = str(work / f"{name}.npz")
+        argv = ["--objective", "dns_distill", "--student", student, "--fg_type", fg_type,
+                "--synthetic", "64", "--batch_size", "64", "--steps", str(DISTILL_STEPS),
+                "--log_every", str(DISTILL_STEPS), "--checkpoint_out", ckpt,
+                "--device", str(dev)]
+        args = cli.parser.parse_args(argv)
+        out = cli.main(args)
+        check(all(math.isfinite(x) for x in out["losses"]), f"12c {name}: {out['losses']}")
+        module = dns_distill.build_student_module(student, fg_type)
+        state = dns_distill.create_distill_state(module, 3e-3, seed=0, device=dev)
+        step = dns_distill.make_distill_step(module, student,
+                                             0.1 if name == "fg_bin" else 0.0)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 next(cli.distill_batches(args)).items()}
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        fixed = [step(state, batch)[1] for _ in range(DISTILL_STEPS)]
+        fixed = [float(x) for x in fixed]
+        resident = DISTILL_STEPS * args.batch_size / (time.perf_counter() - t0)
+        check(fixed[-1] < 0.75 * max(fixed[:2]), f"12c {name}: the loss did not fall {fixed}")
+        ix = dns_index.parser.parse_args([
+            "--query_features", "-", "--ref_features", "-", "--output_path", "-",
+            "--student", student, "--fg_type", fg_type, "--checkpoint_path", ckpt,
+            "--device", str(dev)])
+        regions = batch["q_regions"][0]  # [4, 9, 3840]
+        got = dns_index._build_student(ix, dev).index_video(
+            regions.reshape(4, -1).cpu().numpy())
+        trained = out["state"].module.eval()
+        with torch.no_grad():
+            want = trained(regions).reshape(4, -1).cpu().numpy()
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        check(err <= TRAIN_DESC_TOL, f"12c {name}: the checkpoint's codes lie {err:.3g} off")
+        rates[name] = {"pairs_per_s": out["steady_pairs_per_s"], "peak_mib": out["peak_mib"],
+                       "resident_pairs_per_s": resident}
+        log(f"phase 12c: {name} at full width (64 pairs of 4 x 9 x 3840, batch 64): CLI "
+            f"losses {out['losses'][0]:.4f} → {out['losses'][-1]:.4f}; on a fixed batch "
+            + " ".join(f"{x:.4f}" for x in fixed) + f"; the checkpoint through dns_index "
+            f"--checkpoint_path within {err:.3g} of the trained module")
+        log(f"phase 12c: {name} distillation {out['steady_pairs_per_s']:.1f} pairs/s over "
+            f"steps 2-{DISTILL_STEPS} (the CLI: batches gathered on the host and copied in); "
+            f"{resident:.1f} pairs/s on a batch already on the card; device peak "
+            f"{out['peak_mib']:.0f} MiB")
+    return rates
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train_rank_main(rank: int, port: int, out: Path, device: str = "cuda") -> int:
+    """One rank of 12d, run as ``chip_smoke.py --train-rank R --train-port
+    P --train-dir D``: joins a gloo group of TRAIN_RANKS on this card and
+    takes its slice of 12a's SSCD step and of 12d's distillation steps
+    over ``train_mesh``; writes its results under ``out``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from vsc2022_torch.parallel import initialize_distributed, shutdown_distributed
+    from vsc2022_torch.parallel.mesh import train_mesh
+
+    dev = initialize_distributed(f"localhost:{port}", TRAIN_RANKS, rank, backend="gloo",
+                                 device=device)
+    try:
+        mesh = train_mesh(device=dev)
+        b = TRAIN_CHECK_BATCH // TRAIN_RANKS
+        np.savez(out / f"sscd{rank}.npz", **small_sscd_step(
+            torch, np, train_frames(np), dev, mesh, rows=(rank * b, (rank + 1) * b),
+            dtype=torch.float64, views_on="cpu"))
+        p = DISTILL_RANK_PAIRS // TRAIN_RANKS
+        for student, fg_type in (("fg", "bin"), ("cg", "att")):
+            np.savez(out / f"{student}{rank}.npz", **distill_step_grads(
+                torch, np, student, fg_type, dev, mesh, rows=(rank * p, (rank + 1) * p)))
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def train_ranks(torch, np, dev, ref64, work: Path):
+    """12d: TRAIN_RANKS gloo ranks on this card (one process each, as phase
+    10's pod) against one process: both ranks bit for bit alike; the SSCD
+    step in float64 (12a's views from the CPU, half a rank) against 12a's
+    float64 step within TRAIN_F64_TOL; the distillation steps (float32)
+    against one card's, the gradients within TRAIN_GRAD_TOL of their
+    largest value."""
+    from vsc2022_torch.utils.procs import die_with_parent
+
+    out = work / "ranks"
+    out.mkdir(parents=True, exist_ok=True)
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for rank in range(TRAIN_RANKS):
+        logs.append(open(out / f"rank{rank}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--train-rank", str(rank),
+             "--train-port", str(port), "--train-dir", str(out)],
+            cwd=str(REPO), stdout=logs[-1], stderr=subprocess.STDOUT,
+            preexec_fn=die_with_parent))
+    try:
+        deadline = time.monotonic() + TRAIN_RANK_TIMEOUT
+        for rank, p in enumerate(procs):
+            try:
+                code = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                code = "timed out"
+            if code != 0:
+                tail = (out / f"rank{rank}.log").read_text()[-3000:]
+                raise PhaseError(f"phase 12d: training rank {rank} failed ({code}):\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    seconds = time.perf_counter() - t0
+    single = {"sscd": ref64}
+    for student, fg_type in (("fg", "bin"), ("cg", "att")):
+        single[student] = distill_step_grads(torch, np, student, fg_type, dev)
+    errs = {}
+    for name, want in single.items():
+        ranks = [dict(np.load(out / f"{name}{r}.npz")) for r in range(TRAIN_RANKS)]
+        for k in ranks[0]:
+            check(np.array_equal(ranks[0][k], ranks[1][k]), f"12d {name}: ranks differ on {k}")
+        got = dict(ranks[0], loss=float(ranks[0]["loss"]))
+        if name == "sscd":
+            errs[name] = compare_steps(np, got, want, "12d sscd: two ranks (float64) against "
+                                       "one process", TRAIN_F64_TOL, TRAIN_F64_TOL,
+                                       grad_tol=TRAIN_F64_TOL)
+        else:
+            errs[name] = compare_steps(np, got, want, f"12d {name}: two ranks against one "
+                                       "card", TRAIN_LOSS_RTOL, 0.0, grad_tol=TRAIN_GRAD_TOL)
+    log(f"phase 12d: {TRAIN_RANKS} gloo ranks on this card ({seconds:.1f} s with their "
+        "start): the SSCD step (float64) and the fg bin / cg distillation steps equal on "
+        "both ranks bit for bit; against one process: " + json.dumps(errs))
+
+
+def phase_train(torch, np, kernels, dev):
+    """Phase 12: training on the card (12a-12d). The kernels' launch counts
+    are zeroed first and read last: training runs none of them. Returns
+    the counts and the figures."""
+    work = SMOKE_DIR / "train"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    ref64 = train_step_vs_cpu(torch, np, dev)
+    figures = {"sscd": train_cli(torch, np, dev, work)}
+    figures.update(distill_students(torch, np, dev, work))
+    train_ranks(torch, np, dev, ref64, work)
+    launches = dict(kernels.launches)
+    check(not any(launches.values()),
+          f"12: training launched retrieval kernels: {({k: v for k, v in launches.items() if v})}")
+    log(f"phase 12: training took {time.perf_counter() - t0:.1f} s; no hand kernel "
+        "launched (the training path is plain PyTorch: JAX trains with XLA alone)")
+    return launches, figures
+
+
 def match_rows(path):
     """{(query, ref, segment bounds): score} of a matches CSV."""
     rows = _csv_rows(path)
@@ -4813,6 +5221,10 @@ def main() -> int:
     ap.add_argument("--pod-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--pod-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--pod-dir", help=argparse.SUPPRESS)
+    # Phase 12d starts it as each rank of its training group.
+    ap.add_argument("--train-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--train-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--train-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not (REPO / "vsc2022_torch" / "ops" / "csrc").is_dir():
@@ -4827,6 +5239,8 @@ def main() -> int:
         return 2
     if args.pod_rank is not None:
         return pod_rank_main(args.pod_rank, args.pod_port, Path(args.pod_dir))
+    if args.train_rank is not None:
+        return train_rank_main(args.train_rank, args.train_port, Path(args.train_dir))
     sys.path.insert(0, str(REPO))
     from vsc2022_torch.ops import _build, kernels
 
@@ -4909,6 +5323,8 @@ def main() -> int:
                                  serve_bf16_launches)
         ivf_records, ivf_launches = phase_ivf(torch, np, kernels, dev, corpus)
         del corpus
+        torch.cuda.empty_cache()
+        train_launches, _ = phase_train(torch, np, kernels, dev)
     finally:
         if not args.keep:
             shutil.rmtree(SMOKE_DIR, ignore_errors=True)
@@ -5031,6 +5447,7 @@ def main() -> int:
                if counts.get(name)}
         if pod:
             row["pod_launches"] = pod
+        row["train_launches"] = train_launches.get(name, 0)  # phase 12: none
         rows.append(row)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))

@@ -70,6 +70,13 @@ EXTRACT_REL_TOL of the largest value of the same extractor on the CPU
 bf16 within cosine 0.999 of f32, the same batch twice bit for bit, and
 the f32 forward in f32 even with TF32 switched on around it (the
 extractor scopes it off; the global matmul flag comes back).
+
+Training (no hand kernel; ``-k train``): a small SSCD step in float64 on
+the card from the CPU's views equals the CPU's within TRAIN_F64_TOL (the
+same function; float32 is ill-conditioned through BatchNorm's batch
+statistics, so float32 is held only in norm), distillation steps on the
+card equal the CPU's, and on a machine with several cards the training
+CLI's one-rank-a-card route (NCCL) matches one card's first loss.
 """
 
 import math
@@ -2650,3 +2657,121 @@ def test_blocks_ivf_searcher_equals_plain(cuda_device, dtype):
         want = plain.global_topk(q, k)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
+
+
+# ---- training -------------------------------------------------------------------
+
+TRAIN_SMALL = dict(stage_sizes=(1, 1, 1, 1), stage_features=(16, 32, 64, 128), dims=64)
+TRAIN_F64_TOL = 1e-9
+
+
+def _train_step(device, dtype, views):
+    """One step of the small SSCD (seed 12) on ``device`` in ``dtype``:
+    the loss, the gradients and the running statistics, as numpy."""
+    from vsc2022_torch.models.sscd import SSCDModel
+    from vsc2022_torch.train import create_train_state, make_train_step
+
+    model = SSCDModel(**TRAIN_SMALL)
+    state = create_train_state(model, 1e-4, 1e-2, seed=12, device=device)
+    model.to(dtype)
+    state, loss = make_train_step(model)(
+        state, {k: v.to(device, dtype) for k, v in views.items()})
+    return (float(loss), {n: p.grad.double().cpu().numpy() for n, p in model.named_parameters()},
+            {n: b.cpu().numpy() for n, b in model.named_buffers() if "running" in n})
+
+
+def test_train_step_float64_on_the_card_is_the_cpus(cuda_device):
+    # Views of 16 frames (seed 7) at 32 x 32, made on the CPU: the float64
+    # step on the card equals the CPU's within TRAIN_F64_TOL; the card's
+    # float32 step lies within 1e-2 of it in norm (1.2e-3 read at phase
+    # 12a's shape) with the loss within 1e-5.
+    from vsc2022_torch.train.augment import two_views
+
+    rng = np.random.RandomState(7)
+    frames = torch.from_numpy((rng.rand(16, 40, 48, 3) * 255).astype(np.uint8))
+    va, vb = two_views(torch.Generator().manual_seed(8), frames, 32)
+    views = {"view_a": va, "view_b": vb}
+    loss, grads, stats = _train_step("cpu", torch.float64, views)
+    got_loss, got_grads, got_stats = _train_step(cuda_device, torch.float64, views)
+    assert abs(got_loss - loss) <= TRAIN_F64_TOL * abs(loss)
+    for n, g in grads.items():
+        assert np.abs(got_grads[n] - g).max() <= TRAIN_F64_TOL * np.abs(g).max(), n
+    for n, b in stats.items():
+        assert np.abs(got_stats[n] - b).max() <= TRAIN_F64_TOL, n
+    f32_loss, f32_grads, _ = _train_step(cuda_device, torch.float32, views)
+    num = sum(((f32_grads[n] - g) ** 2).sum() for n, g in grads.items())
+    den = sum((g ** 2).sum() for g in grads.values())
+    assert abs(f32_loss - loss) <= 1e-5 * abs(loss)
+    assert (num / den) ** 0.5 <= 1e-2
+
+
+@pytest.mark.parametrize("student,fg_type,qw", [("fg", "att", 0.0), ("fg", "bin", 0.1),
+                                                ("cg", "att", 0.0)])
+def test_train_distill_step_on_the_card_is_the_cpus(cuda_device, student, fg_type, qw):
+    # 8 pairs of 3 frames (seed 21), seed 5's init: the loss within 1e-5
+    # and every gradient within 1e-3 of its largest value (fg bin's
+    # quantization term kinks at 0 and 1, where the two devices' codes may
+    # round to either side).
+    from vsc2022_torch.train import dns_distill
+
+    rng = np.random.RandomState(21)
+    batch = {"q_regions": rng.randn(8, 3, 9, 3840).astype(np.float32),
+             "r_regions": rng.randn(8, 3, 9, 3840).astype(np.float32),
+             "teacher_sim": rng.rand(8).astype(np.float32)}
+    out = {}
+    for dev in ("cpu", cuda_device):
+        module = dns_distill.build_student_module(student, fg_type)
+        state = dns_distill.create_distill_state(module, 1e-3, seed=5, device=dev)
+        state, loss = dns_distill.make_distill_step(module, student, qw)(state, batch)
+        out[str(dev)] = (float(loss), {n: p.grad.cpu().numpy()
+                                       for n, p in module.named_parameters()})
+    (loss, grads), (got_loss, got_grads) = out["cpu"], out[str(cuda_device)]
+    assert abs(got_loss - loss) <= 1e-5 * abs(loss)
+    for n, g in grads.items():
+        assert np.abs(got_grads[n] - g).max() <= 1e-3 * np.abs(g).max(), n
+
+
+def test_train_cli_one_rank_a_card(cuda_device, tmp_path):
+    # The training CLI with --device cuda on a machine with several cards
+    # starts one rank a card (NCCL): its first loss equals one card's
+    # (--device cuda:0) within 1e-4 relative (the same global batch; the
+    # sums over ranks in another order), rank 0 writes the checkpoint with
+    # one card's tree. SSCD (ResNet-50, 8 frames at 64 x 64) and fg bin
+    # distillation. Needs two or more cards.
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from vsc2022_torch.utils.checkpoint import load_variables
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more cards: one rank a card")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    batch = 2 * cards
+    for flags in (["--synthetic", "16", "--image_size", "64"],
+                  ["--objective", "dns_distill", "--student", "fg", "--fg_type", "bin",
+                   "--synthetic", "16"]):
+        runs = {}
+        for device in ("cuda:0", "cuda"):
+            out = str(tmp_path / f"{device.replace(':', '')}.npz")
+            proc = subprocess.run(
+                [sys.executable, "-m", "vsc2022_torch.train.cli", *flags, "--steps", "2",
+                 "--batch_size", str(batch), "--checkpoint_out", out, "--device", device],
+                cwd=repo, capture_output=True, text=True, timeout=900)
+            assert proc.returncode == 0, proc.stderr[-4000:]
+            line = [x for x in proc.stderr.splitlines() if " summary " in x][-1]
+            runs[device] = (json.loads(line.split(" summary ", 1)[1]), load_variables(out))
+        (one, one_tree), (pod, pod_tree) = runs["cuda:0"], runs["cuda"]
+        assert one["ranks"] == 1 and pod["ranks"] == cards
+        assert abs(pod["losses"][0] - one["losses"][0]) <= 1e-4 * abs(one["losses"][0])
+        assert _tree_keys(pod_tree) == _tree_keys(one_tree)
+
+
+def _tree_keys(tree, prefix=""):
+    """The '/'-joined leaf paths of a nested dict, sorted."""
+    keys = []
+    for k, v in tree.items():
+        keys += _tree_keys(v, f"{prefix}{k}/") if isinstance(v, dict) else [prefix + k]
+    return sorted(keys)

@@ -48,7 +48,8 @@ def test_importing_every_module_leaves_jax_out():
     "vsc2022_torch.retrieval.sn_search", "vsc2022_torch.inference.cli",
     "vsc2022_torch.inference.pipeline", "vsc2022_torch.models",
     "vsc2022_torch.convert", "vsc2022_torch.parallel",
-    "vsc2022_torch.parallel.sharded_search",
+    "vsc2022_torch.parallel.sharded_search", "vsc2022_torch.train",
+    "vsc2022_torch.train.cli", "vsc2022_torch.train.augment",
 ])
 def test_serving_modules_leave_jax_out(module):
     code = (

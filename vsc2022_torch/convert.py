@@ -1,11 +1,14 @@
-"""Carry state from the JAX package into the port.
+"""Carry state from the JAX package into the port, and back.
 
 Every ``*_from_jax`` function takes plain values (numpy arrays, dicts),
 so this module imports nothing of JAX: the caller converts first, e.g.
 ``np.asarray(jax_searcher._refs)``, ``jax_params._asdict()`` or a Flax
 variable tree mapped through ``np.asarray`` (``load_variables`` reads the
 JAX package's npz trees as such). The descriptor models also load
-TorchScript state dicts (``load_torchscript_state``).
+TorchScript state dicts (``load_torchscript_state``). The trainers write
+their checkpoints as the JAX package's npz trees (``sscd_to_jax``,
+``dns_student_to_jax``), so a checkpoint either package writes loads in
+the other.
 """
 
 from __future__ import annotations
@@ -361,3 +364,85 @@ def dino_vit_from_jax(variables: Mapping) -> StateDict:
         out[at + "attn.proj.bias"] = _f32(attn["out"]["bias"])
         i += 1
     return out
+
+
+# ---- back to Flax trees (the trainers' checkpoints) ---------------------------
+
+
+def _tensor_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+_BLOCK_NAMES_TO_JAX = {v: k for k, v in _BLOCK_NAMES.items()}
+_BN_TO_JAX = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def sscd_to_jax(state: Mapping) -> Dict[str, dict]:
+    """The inverse of ``sscd_from_jax``: a Flax ``SSCDModel`` variable tree
+    ``{"params", "batch_stats"}`` (numpy float32; ``save_variables`` writes
+    it as the JAX package's checkpoints) from the port's ``SSCDModel``
+    state dict (tensors or arrays; folded trunks too). Conv weights OIHW →
+    HWIO kernels, Linear [out, in] → Dense [in, out], BatchNorm weight /
+    bias / running_mean / running_var → scale / bias / mean / var;
+    ``num_batches_tracked`` has no counterpart and is left out."""
+    tree: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+
+    def put(collection, path, value):
+        node = tree[collection]
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+
+    for key, value in state.items():
+        parts = key.split(".")
+        if parts[-1] == "num_batches_tracked":
+            continue
+        arr = _tensor_np(value)
+        if parts[0] == "project":
+            put("params", ["project", "kernel" if parts[1] == "weight" else "bias"],
+                np.ascontiguousarray(arr.T) if parts[1] == "weight" else arr)
+            continue
+        if parts[0] != "backbone":
+            raise ValueError(f"not an SSCDModel key: {key}")
+        if parts[1].startswith("layer"):  # backbone.layer{s}.{b}.<module>.<leaf>
+            head, rest = f"{parts[1]}_{parts[2]}", parts[3:]
+            if rest[0] == "downsample":
+                rest = [_BLOCK_NAMES_TO_JAX[f"downsample.{rest[1]}"], rest[2]]
+            path = ["backbone", head, rest[0]]
+        else:  # the stem's conv1 / bn1
+            path, rest = ["backbone", parts[1]], parts[2:]
+        leaf = rest[-1]
+        if arr.ndim == 4:
+            put("params", path + ["kernel"], np.ascontiguousarray(arr.transpose(2, 3, 1, 0)))
+        elif path[-1].startswith("conv") or path[-1] == "downsample_conv":
+            put("params", path + ["bias"], arr)  # a folded trunk's conv bias
+        else:
+            collection, name = _BN_TO_JAX[leaf]
+            put(collection, path + [name], arr)
+    if not tree["batch_stats"]:
+        del tree["batch_stats"]
+    return tree
+
+
+def dns_student_to_jax(state: Mapping, student_type: str, fg_type: str = "att"
+                       ) -> Dict[str, dict]:
+    """The inverse of ``dns_student_from_jax``: a Flax student variable
+    tree ``{"params": ...}`` (numpy float32; the JAX package's distillation
+    checkpoints) from the port's student state dict."""
+    if student_type not in ("cg", "fg"):
+        raise ValueError(f"student_type must be cg|fg, got {student_type!r}")
+    params: Dict[str, dict] = {
+        "reduction": {"kernel": np.ascontiguousarray(_tensor_np(state["reduction.weight"]).T),
+                      "bias": _tensor_np(state["reduction.bias"])},
+        "attention": {"context": np.ascontiguousarray(
+            _tensor_np(state["attention.context_vector.weight"]).T)},
+    }
+    if student_type == "cg":
+        params["project"] = {"kernel": np.ascontiguousarray(_tensor_np(state["project.weight"]).T),
+                             "bias": _tensor_np(state["project.bias"])}
+    elif fg_type == "bin":
+        params["rotation"] = _tensor_np(state["binarization.W"])
+    return {"params": params}

@@ -122,8 +122,9 @@ def _prefetch(source: Iterator, depth: int = 2) -> Iterator:
 
 
 @contextlib.contextmanager
-def _numerics(device: torch.device):
-    """The forward's numerics on the card: cuDNN's deterministic
+def f32_numerics(device: torch.device):
+    """The float32 numerics on the card (the extractor's forward, the
+    training steps' forward and backward): cuDNN's deterministic
     algorithms, chosen without benchmarking (the same batch shape gives
     the same bits in every process), and no TF32 in convolutions or
     matmuls, so float32 computes in float32. The previous matmul setting
@@ -204,7 +205,7 @@ class DescriptorExtractor:
         """uint8 [B, H, W, 3] on a device → float32 [B, D] there: preprocess
         (in float32, as the JAX package does), then the forward in the
         compute dtype, by the replica on that device."""
-        with torch.inference_mode(), _numerics(frames.device):
+        with torch.inference_mode(), f32_numerics(frames.device):
             images = preprocess(frames, self.transform).permute(0, 3, 1, 2)
             return self._replicas[frames.device](images.to(self.dtype)).float()
 

@@ -9,7 +9,9 @@ stride on the 3×3 conv. Parameter names are torchvision's (``conv1``,
 state dict loads with no key mapping. Tensors are NCHW (channels-last
 memory works as well); the JAX package's explicit paddings (the stem's
 3, the 3×3 convs' 1, the max pool's 1 filled with −inf) are torch's
-symmetric ones. BatchNorm runs on its running statistics, eps 1e-5.
+symmetric ones. BatchNorm (``BatchNorm``, eps 1e-5) runs on its running
+statistics in eval mode, exactly as ``nn.BatchNorm2d``; in train mode it
+has Flax's semantics (``nn.BatchNorm(momentum=0.9)``, see its docstring).
 
 ``fold_bn=True`` is the inference-only layout of ``models/fold.py``:
 every BatchNorm becomes a ``FoldedNorm`` (no parameters) and every conv
@@ -23,6 +25,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from vsc2022_torch.parallel.collectives import psum_grad
+
 
 class FoldedNorm(nn.Module):
     """Stand-in for a BatchNorm whose affine was folded into the conv
@@ -35,8 +39,44 @@ class FoldedNorm(nn.Module):
         return x
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (the same parameters and buffers) whose training
+    forward is Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``, the JAX
+    package's (``vsc2022_tpu/models/resnet.py``): the batch variance is
+    E[x²] − E[x]² clipped at 0 (Flax's ``use_fast_variance``), the output
+    (x − mean) · (rsqrt(var + eps) · weight) + bias, and the running
+    variance moves with that biased variance (torch's moves with the
+    unbiased one), by ``momentum`` 0.1 (Flax's 0.9). The statistics are
+    sums of x and x² over (N, H, W); with ``sum_over_ranks`` set (the
+    data-parallel training step sets it) those sums and the count are
+    summed over the ranks of the process group first, so every rank
+    normalizes with the global batch's statistics. In eval mode the
+    forward is ``nn.BatchNorm2d``'s."""
+
+    sum_over_ranks = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        c = x.shape[1]
+        dims = (0, 2, 3)
+        sums = torch.cat([x.sum(dims), (x * x).sum(dims),
+                          x.new_full((1,), x.numel() // c)])
+        if self.sum_over_ranks:
+            sums = psum_grad(sums)
+        mean, mean2 = sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1.0 - m) * self.running_var + m * var)
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
 def _norm(features: int, fold_bn: bool) -> nn.Module:
-    return FoldedNorm(features) if fold_bn else nn.BatchNorm2d(features, eps=1e-5)
+    return FoldedNorm(features) if fold_bn else BatchNorm(features)
 
 
 class Bottleneck(nn.Module):

@@ -1,5 +1,6 @@
 """Corpus sharding over the devices of one process or of a pod of
-processes (counterpart of ``vsc2022_tpu/parallel``). The searcher over a
+processes, and the data-parallel training mesh (counterpart of
+``vsc2022_tpu/parallel``). The searcher over a
 mesh is in ``vsc2022_torch.parallel.sharded_search``, the collectives in
 ``vsc2022_torch.parallel.collectives``, each imported where it is used."""
 
@@ -15,4 +16,5 @@ from vsc2022_torch.parallel.mesh import (  # noqa: F401
     process_index,
     rank_device,
     shutdown_distributed,
+    train_mesh,
 )

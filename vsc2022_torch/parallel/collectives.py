@@ -13,6 +13,13 @@ to rank along the gathered dimension (they are exchanged first); ``psum``
 sums integers and ``pmax`` takes maxima, so no float is ever summed
 across ranks and every result is exact and the same on every rank.
 
+Data-parallel training (``vsc2022_torch.train``) has two collectives of
+its own, with gradients, over the whole group: ``all_gather_grad`` (the
+ranks' rows, in rank order) and ``psum_grad`` (a float sum: BatchNorm's
+sums of x and x², the gradients). A float sum depends on its order, so
+training's results match one process's within rounding, not bit for bit;
+every rank still receives the same bits (each entry is reduced once).
+
 NCCL collectives take the card's tensors as they are. Under gloo a card's
 tensor crosses to the host for the collective, and the result comes back
 to the lead device: the kernels still run on the card.
@@ -142,3 +149,80 @@ def exchange(mesh: Mesh, send: Dict[int, torch.Tensor], recv: Dict[int, int],
             got[r] = wire_out[at : at + k].to(mesh.lead)
         at += k
     return got
+
+
+# ---- training's collectives, with gradients ---------------------------------------
+
+
+def _sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
+    """The elementwise float sum of every rank's ``t``, on every rank (a new
+    tensor on ``t``'s device)."""
+    import torch.distributed as dist
+
+    wire = _wire(t.detach().clone(memory_format=torch.contiguous_format))
+    dist.all_reduce(wire, op=dist.ReduceOp.SUM)
+    return wire.to(t.device)
+
+
+class _PsumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        return _sum_over_ranks(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # Each rank's gradient covers its own use of the sum: the
+        # gradient of every rank's term is their sum.
+        return _sum_over_ranks(grad)
+
+
+def psum_grad(t: torch.Tensor) -> torch.Tensor:
+    """The sum of every rank's ``t`` (one shape), on every rank; its
+    backward sums the ranks' gradients too."""
+    return _PsumGrad.apply(t)
+
+
+class _AllGatherGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local):
+        import torch.distributed as dist
+
+        wire = _wire(local.detach().contiguous())
+        every = [torch.empty_like(wire) for _ in range(process_count())]
+        dist.all_gather(every, wire)
+        ctx.rows = (process_index() * local.shape[0], local.shape[0])
+        return torch.cat(every).to(local.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        at, n = ctx.rows
+        return grad[at : at + n]
+
+
+def all_gather_grad(local: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``local`` rows (one shape on every rank) concatenated
+    in rank order, on every rank. Every rank computes the same function
+    of the gathered rows (the global loss), so the gradient of a rank's
+    rows is its own slice of the output's gradient: no sum over ranks,
+    which would scale it by their number."""
+    return _AllGatherGrad.apply(local)
+
+
+def sum_grads_over_ranks(params) -> None:
+    """Replace each parameter's ``.grad`` by its sum over the ranks, in one
+    collective (the grads flattened into one buffer). Parameters without a
+    gradient count as zeros, so every rank passes the same buffer."""
+    params = list(params)
+    if not params:
+        return
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    flat = _sum_over_ranks(flat)
+    at = 0
+    for p in params:
+        summed = flat[at : at + p.numel()].view_as(p)
+        if p.grad is None:
+            p.grad = summed.clone()
+        else:
+            p.grad.copy_(summed)
+        at += p.numel()

@@ -25,7 +25,15 @@ Multi-host: ``initialize_distributed`` joins the process group (NCCL
 between ranks on separate cards, gloo on the CPU or where ranks share a
 card: NCCL refuses two ranks on one card). A rank's device is its
 ``--device``: ``cuda:N`` as given, ``cuda`` the card ``process_id %
-device_count``. The training mesh (``train_mesh``) is not ported yet.
+device_count``.
+
+Training (``train_mesh``) is data parallel with one rank a card: the
+batch splits over the ranks, BatchNorm's statistics and InfoNCE's
+negatives cover the global batch, and the gradients are summed over the
+ranks, JAX's global-array semantics. JAX's ``train_mesh`` also has a
+"model" axis that splits the 2048→512 projection's columns; that is a
+layout, not a capability, and the port leaves it out: the loss is the
+same either way.
 """
 
 from __future__ import annotations
@@ -214,6 +222,20 @@ def shutdown_distributed() -> None:
 
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+
+
+def train_mesh(n_devices: Optional[int] = None, device: DeviceLike = "cuda") -> Mesh:
+    """The data-parallel training mesh (axis "data"): one entry a rank,
+    each rank's ``device``, in rank order; outside a pod, the one device.
+    ``n_devices``, when given, must be the number of ranks. The training
+    step builders (``make_train_step``, ``make_distill_step``) take it as
+    ``mesh=``."""
+    mesh = pod_mesh([device])
+    if n_devices is not None and n_devices != mesh.size:
+        raise ValueError(f"Requested {n_devices} devices, but the group has "
+                         f"{mesh.size} rank(s): a training mesh takes one device a rank")
+    mesh.axis_names = ("data",)
+    return mesh
 
 
 def first_axis_size(mesh: Mesh) -> int:
