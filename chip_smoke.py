@@ -235,22 +235,23 @@ Phases (any failure exits non-zero):
      and bf16, for each model.
 
   9. The corpus sharded over the devices of this process (Mesh([dev] *
-     n)): 9a phase 4's corpus on 2 shards (pooled) and 4 (stream) in f32,
-     bf16 and int8, bit for bit with the single device, each shard's
-     launches checked, and in f32 on 4 shards each in an allocation of
-     its own (SHARD_F32_ATOL, the count off logged); 9b descriptor_eval
-     --sharded (subprocess, and in process on 2 shards); 9c serve --f32
-     --sharded through the client, requests (a)-(g) byte for byte with
-     phase 6; 9d the serving index and its row-sharded localizer tables
-     on 4 shards through serve_request, add and remove; 9e
-     DnSLocalization on 4 shards; 9f the extractor on 2 shards.
+     n)): 9a phase 4's corpus (its first SHARD_REF_VIDEOS reference
+     videos) on 2 shards (pooled) and 4 (stream) in f32, bf16 and int8, bit for bit with the single device, each shard's
+     launches checked; f32's 4 shards each an allocation of its own (the
+     f32 re-search's cuBLAS calls have one shape, ops/similarity.py
+     _f32_scores; its 4 shards in one allocation are not run: its 2 are);
+     9b descriptor_eval --sharded (subprocess, alongside the in-process
+     run on 2 shards and 9c); 9c serve --f32 --sharded through the
+     client, requests (a)-(g) byte for byte with phase 6; 9d the serving
+     index and its row-sharded localizer tables on 4 shards through
+     serve_request, add and remove; 9e DnSLocalization on 4 shards; 9f
+     the extractor on 2 shards.
  10. A pod: two ranks, each a process of its own on this card, in one
      torch.distributed group over gloo (NCCL refuses two ranks on one
-     card; every collective stages through the host). 10a: phase 4's
-     corpus as a pod ScoreNormalizedVideoIndex in f32, bf16 and int8
-     (one 507,904-row shard a rank, pooled): 9a's single-device arrays
-     (bf16, int8 bit for bit; f32 within SHARD_F32_ATOL, the count off
-     logged), both ranks equal, each rank launching once what 9a's two
+     card; every collective stages through the host). 10a: 9a's corpus
+     as a pod ScoreNormalizedVideoIndex in f32, bf16 and int8 (one
+     270,336-row shard a rank, pooled): 9a's single-device arrays bit
+     for bit, both ranks equal, each rank launching once what 9a's two
      shards launch twice. 10c: DnSLocalization over the pod with
      row-sharded tables on phase 5's pairs: dns_baseline's rows on both
      ranks. 10b: serve --sharded as a pod (leader driven by the client,
@@ -297,6 +298,28 @@ Phases (any failure exits non-zero):
      SSCD step in float64 equal to 12a's within TRAIN_F64_TOL, the fg bin
      and cg distillation steps equal to one card's (gradients within
      TRAIN_GRAD_TOL of their largest value).
+
+ 13. The last entry points (python -m vsc2022_torch, adapt_model, parity,
+     serve's probe) and the space-to-depth stem. 13a: python -m
+     vsc2022_torch --help exits 0, an unknown command 2. 13b: adapt-model
+     --probe, then --verify --output_checkpoint on phase 8's TorchScript
+     (--device cuda): the inference CLI's descriptors from
+     --checkpoint_path <that npz> equal phase 8's from --torchscript_path
+     bit for bit. 13c: python -m vsc2022_torch parity --device cuda on
+     phase 4's npz files and GT (1,000,020 references, 250,020 noise
+     frames, 150 query videos, D = 512): sn_faithful/candidates.csv is
+     phase 4's byte for byte (its kernels' launches counted there),
+     sn_tuned's candidates sn_faithful's, the four metrics finite (the
+     tuned segment AP and the descriptor uAP above 0.5), each stage's
+     seconds logged (its first run starts before phase 12 and runs
+     alongside 12, 13a and 13b); a second invocation reruns no stage and
+     writes the same summary. 13d (in phases 6, 6b, 6c, 9c and 11c): probe after
+     a --matches search: 0 < search_s < that request's wall time, tn_s >
+     0, the probe's launches the search's kernels; the sharded (9c) and
+     IVF (11c) servers answer the typed error. 13e: the s2d stem
+     (fold.s2d_stem, SSCDModel(stem_s2d=True)) on the card: within
+     S2D_REL_TOL of the standard stem on phase 8's frames, its forward's
+     frames/s logged.
 
 The last lines are the card's name and power limit (nvidia-smi), one
 JSON object with each kernel's numbers, and {"ok": true, "device": ...}.
@@ -2544,7 +2567,7 @@ def phase_serve(torch, np, kernels, dev, corpus, dtype="float32"):
     the server's launch counts over (a)-(h), the kernel inputs of the same
     search run in-process (bf16 and int8: the re-search's scores too), the
     launch counts and the inputs of pool_writer (and scores) of that search
-    forced to the pool, and (a)'s quality."""
+    forced to the pool, and (a)'s quality (with 13d's probe after (g))."""
     import logging
 
     from vsc2022_torch.baseline import pipeline
@@ -2585,13 +2608,18 @@ def phase_serve(torch, np, kernels, dev, corpus, dtype="float32"):
             check(n == (SERVE_REMOVE, SERVE_REMOVE * FRAMES), f"removed {n}")
             n = step("f: save", lambda: client.save(snap))
             check(n == SERVE_REF_VIDEOS, f"saved {n} videos")
+            before_g = client.launches()
+            t0 = time.perf_counter()
             step("g: (a) again", lambda: client.search(
                 paths["queries"], candidates_csv=csv["g"][0], matches_csv=csv["g"][1]))
+            g_wall = time.perf_counter() - t0
+            g_launches = launched_since(before_g, client.launches())
             stats = step("h: stats", client.stats)
             check((stats.n_videos, stats.n_frames, stats.dtype)
                   == (SERVE_REF_VIDEOS, SERVE_REF_VIDEOS * FRAMES, dtype),
                   f"stats {stats}")
             launches = client.launches()
+            probe = probe_request(client, paths["queries"], g_wall, g_launches, phase)
         log(f"phase {phase}: server kernel launches over (a)-(h): {json.dumps(launches)}")
         for name in search_kernels:
             check(launches[name] > 0, f"kernel {name} never launched by the server")
@@ -2665,6 +2693,7 @@ def phase_serve(torch, np, kernels, dev, corpus, dtype="float32"):
                           "server (g) vs in-process index after add/remove")
     quality = pipeline.report_metrics(paths["gt"], csv["a"][0], csv["a"][1],
                                       logging.getLogger("chip_smoke"))
+    quality["probe"] = probe
     log(f"phase {phase}: (a) candidate uAP {quality['candidate_uap']:.4f}, "
         f"segment AP {quality['segment_ap']:.4f}")
     check(quality["candidate_uap"] > 0.5, f"serving uAP {quality['candidate_uap']}")
@@ -3715,21 +3744,17 @@ def phase_extraction(torch, np, kernels, dev):
 
 # ---- phase 9: the corpus sharded over one card ---------------------------------
 
-# Phase 4's corpus over 2 shards has shard_rows 507,904 (>= POOL_MIN_CORPUS:
-# pooled) and over 4 shards 253,952 (below it: the stream), with no mode
-# forced.
+# 9a and 10a search the first SHARD_REF_VIDEOS of phase 4's 16,667 reference
+# videos (540,000 rows; cut to keep the script in its time): over 2 shards
+# shard_rows 270,336 (>= POOL_MIN_CORPUS: pooled), over 4 shards 139,264
+# (below it: the stream), with no mode forced.
+SHARD_REF_VIDEOS = 9000
 SHARD_MODES = {2: "pooled", 4: "stream"}
-# 9d and 9e: the serving index and its localizer, and DnSLocalization, over
-# this many shards.
+# 9a's separate allocations, 9d's serving index and its localizer, and 9e's
+# DnSLocalization: over this many shards.
 SHARDED_TABLES = 4
 # The kernels of an f32 search that streams (the SN bias, then the stream).
 STREAM_KERNELS = ("row_max", "fused_topk", "count_above")
-# How far an f32 search's scores may lie from the single-device search's
-# when its shards lie in several allocations (one a card): the f32
-# re-search is then a cuBLAS call an allocation, and cuBLAS picks its
-# algorithm by the product's shape, so a re-searched score may lie one ulp
-# off; the ulp at 1.0, the largest unit-norm score.
-SHARD_F32_ATOL = 2.0 ** -23
 
 
 def _sharded_launches(kernels, fn):
@@ -3740,28 +3765,14 @@ def _sharded_launches(kernels, fn):
     return out, {k: v for k, v in kernels.launches.items() if v}
 
 
-def _same_topk(np, got, want, what, atol=0.0):
-    """One global_topk each, equal bit for bit; with ``atol``, scores may
-    differ by up to atol (rank by rank and pair by pair) and pairs only
-    where a score lies within atol of the last one kept. Returns how many
-    scores differ."""
+def _same_topk(np, got, want, what):
+    """One global_topk each, equal bit for bit."""
     check(len(got) == len(want) == 1, f"{what}: {len(got)} and {len(want)} searches")
     (g, _), (w, _) = got[0], want[0]
     check(g[0].size > 0 and all(a.dtype == b.dtype for a, b in zip(g, w)),
           f"{what}: global_topk gave {g[0].size} pairs")
-    if all(np.array_equal(a, b) for a, b in zip(g, w)):
-        return 0
-    check(atol > 0 and g[2].shape == w[2].shape
-          and float(np.abs(g[2] - w[2]).max()) <= atol,
+    check(all(np.array_equal(a, b) for a, b in zip(g, w)),
           f"{what}: global_topk differs from the single-device searcher's")
-    gs = dict(zip(zip(g[0].tolist(), g[1].tolist()), g[2].tolist()))
-    ws = dict(zip(zip(w[0].tolist(), w[1].tolist()), w[2].tolist()))
-    both, cut = gs.keys() & ws.keys(), float(w[2][-1])
-    check(all(abs(gs[p] - ws[p]) <= atol for p in both)
-          and all(abs(v - cut) <= atol for side in (gs, ws) for p, v in side.items()
-                  if p not in both),
-          f"{what}: global_topk pairs differ beyond {atol} of the cut")
-    return sum(gs[p] != ws[p] for p in both) + len(gs.keys() - both)
 
 
 def _check_per_shard(counts, n, mode, what, single=None):
@@ -3781,15 +3792,17 @@ def _check_per_shard(counts, n, mode, what, single=None):
 
 def phase_sharded_search(torch, np, kernels, dev, paths):
     """9a: ScoreNormalizedVideoIndex(mesh=Mesh([dev] * n)) over phase 4's
-    corpus, n = 2 (pooled) and 4 (stream), in f32, bf16 and int8:
+    queries and noise and its first SHARD_REF_VIDEOS reference videos, n =
+    2 (pooled) and 4 (stream), in f32, bf16 and int8:
     global_topk's arrays equal the single-device index's bit for bit, the
     ranked candidates exactly, and each shard launches every kernel the
-    single device launches, as often. In f32 also 4 shards of this card,
-    each its own allocation (as on separate cards), and one shard per card
-    where there are several: there the f32 re-search is a cuBLAS call a
-    shard, so global_topk may differ by SHARD_F32_ATOL (logged). Logs each
-    index's staging and search seconds and its steps; saves the single
-    device's arrays for phase 10a. Returns {label: launches of its
+    single device launches, as often. f32's 4 shards of this card are
+    each its own allocation (as on separate cards; its 2 shards are one
+    allocation), and f32 runs one shard per card where there are several,
+    bit for bit too: the f32 re-search runs an allocation at a time on the
+    single-device searcher's cuBLAS calls of one shape (``_f32_scores``).
+    Logs each index's staging and search seconds and its steps; saves the
+    single device's arrays for phase 10a. Returns {label: launches of its
     search}."""
     from unittest import mock
 
@@ -3802,11 +3815,13 @@ def phase_sharded_search(torch, np, kernels, dev, paths):
 
     t0 = time.perf_counter()
     queries = load_features(paths["queries"], Dataset.QUERIES)
-    refs = load_features(paths["refs"], Dataset.REFS)
+    refs = load_features(paths["refs"], Dataset.REFS)[:SHARD_REF_VIDEOS]
     noise = load_features(paths["noise"], Dataset.REFS)
-    log(f"phase 9a: phase 4's corpus loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 9a: phase 4's corpus loaded in {time.perf_counter() - t0:.1f} s; its "
+        f"first {len(refs)} reference videos ({sum(len(r) for r in refs)} rows) searched")
     k = 1200 * len(queries)
-    # (label, shards, mesh, one allocation a shard)
+    # (label, shards, mesh, one allocation a shard). f32 runs its 4 shards
+    # each in an allocation of its own only (its 2 shards are one).
     meshes = [(f"{n} shards", n, Mesh([dev] * n), False) for n in SHARD_MODES]
     meshes.append((f"{SHARDED_TABLES} shards, one allocation each", SHARDED_TABLES,
                    Mesh([dev] * SHARDED_TABLES), True))
@@ -3852,20 +3867,14 @@ def phase_sharded_search(torch, np, kernels, dev, paths):
         want, want_topk, single = run(f"{dtype} 1 shard (SimilaritySearcher)", None, dtype)
         save_single_topk(np, dtype, want_topk)
         single_mode = want_topk[0][1]
-        near = []
         for name, n, mesh, apart in meshes:
-            if dtype != "float32" and apart:
+            if (dtype != "float32" and apart) or (
+                    dtype == "float32" and n == SHARDED_TABLES and not apart):
                 continue
             label = f"{dtype} {name}"
             got, got_topk, counts = run(label, mesh, dtype, apart)
-            off = _same_topk(np, got_topk, want_topk, f"9a {label}",
-                             SHARD_F32_ATOL if apart else 0.0)
-            if off:
-                log(f"phase 9a: {label}: {off} of {got_topk[0][0][2].size} scores "
-                    f"within {SHARD_F32_ATOL:.3g} of one device's, not equal")
-                near.append(label)
-            else:
-                check_same_candidates(got, want, f"9a {label}", tol=0.0)
+            _same_topk(np, got_topk, want_topk, f"9a {label}")
+            check_same_candidates(got, want, f"9a {label}", tol=0.0)
             mode = walls[label]["mode"]
             check(n not in SHARD_MODES or mode == SHARD_MODES[n],
                   f"9a {label}: ran {mode}, not {SHARD_MODES.get(n)}")
@@ -3873,17 +3882,55 @@ def phase_sharded_search(torch, np, kernels, dev, paths):
                              single if mode == single_mode else None)
             launches[f"9a {label}"] = counts
         log(f"phase 9a: {dtype}: every shard count == one device bit for bit "
-            f"({len(want)} pairs){', but within SHARD_F32_ATOL: ' if near else ''}"
-            f"{', '.join(near)}; device peak "
+            f"({len(want)} pairs); device peak "
             f"{(torch.cuda.max_memory_allocated(dev) - base) / 2**20:.0f} MiB above "
             "the phase's start")
     return launches
 
 
-def phase_sharded_entry_points(torch, np, kernels, dev, paths):
+def start_sharded_descriptor_eval(paths):
     """9b: ``python -m vsc2022_torch.descriptor_eval --sharded`` (one shard
-    a card) and the same main in process on a 2-shard mesh of this card:
-    candidates.csv byte-identical to phase 4's unsharded run."""
+    a card, through corpus_mesh()) on phase 4's files, started in the
+    background; ``finish_sharded_descriptor_eval`` checks it. It runs
+    alongside the in-process 9b and 9c, which share the card with it
+    (their times are logged, not checked). Returns (process, log path,
+    start time)."""
+    out = SMOKE_DIR / "out"
+    log_path = SMOKE_DIR / "descriptor_eval_sharded.log"
+    argv = ["--query_features", paths["queries"], "--ref_features", paths["refs"],
+            "--ground_truth", paths["gt"], "--device", "cuda", "--sharded",
+            "--candidates_output", str(out / "descriptor_candidates_sharded.csv")]
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "vsc2022_torch.descriptor_eval",
+                                 *argv], cwd=str(REPO), stdout=f, stderr=subprocess.STDOUT)
+    return proc, log_path, time.perf_counter()
+
+
+def finish_sharded_descriptor_eval(torch, started):
+    """9b: waits for ``start_sharded_descriptor_eval``'s process; its
+    candidates.csv must be phase 4's unsharded run's, byte for byte."""
+    proc, log_path, t0 = started
+    out = SMOKE_DIR / "out"
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(rc == 0, f"descriptor_eval --sharded failed: {log_path.read_text()[-3000:]}")
+    check((out / "descriptor_candidates_sharded.csv").read_bytes()
+          == (out / "descriptor_candidates.csv").read_bytes(),
+          "9b: descriptor_eval --sharded wrote other candidates than phase 4")
+    log(f"phase 9b: python -m vsc2022_torch.descriptor_eval --sharded "
+        f"({torch.cuda.device_count()} card(s), one shard each): "
+        f"{time.perf_counter() - t0:.2f} s wall (alongside 9b in process and 9c); "
+        "candidates.csv == phase 4's, byte for byte")
+
+
+def phase_sharded_entry_points(torch, np, kernels, dev, paths):
+    """9b: ``vsc2022_torch.descriptor_eval --sharded``'s main in process on
+    a 2-shard mesh of this card: candidates.csv byte-identical to phase
+    4's unsharded run (its ``python -m`` run: ``start_sharded_descriptor_eval``)."""
     from unittest import mock
 
     import vsc2022_torch.parallel as parallel
@@ -3895,16 +3942,6 @@ def phase_sharded_entry_points(torch, np, kernels, dev, paths):
     argv = ["--query_features", paths["queries"], "--ref_features", paths["refs"],
             "--ground_truth", paths["gt"], "--device", "cuda", "--sharded",
             "--candidates_output"]
-    t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, "-m", "vsc2022_torch.descriptor_eval", *argv,
-                          str(out / "descriptor_candidates_sharded.csv")],
-                         cwd=str(REPO), capture_output=True, text=True, timeout=600)
-    check(run.returncode == 0, f"descriptor_eval --sharded failed: {run.stderr[-3000:]}")
-    check((out / "descriptor_candidates_sharded.csv").read_bytes() == want,
-          "9b: descriptor_eval --sharded wrote other candidates than phase 4")
-    log(f"phase 9b: python -m vsc2022_torch.descriptor_eval --sharded "
-        f"({torch.cuda.device_count()} card(s), one shard each): "
-        f"{time.perf_counter() - t0:.2f} s wall; candidates.csv == phase 4's, byte for byte")
     two = Mesh([dev] * 2)
     with mock.patch.object(parallel, "corpus_mesh", lambda *a, **kw: two), \
             topk_results() as seen:
@@ -3966,6 +4003,7 @@ def phase_sharded_serve(torch, np, kernels, dev, corpus):
             timed("g", lambda: client.search(paths["queries"], **csvs("sh", "g")), "9c")
             stats = client.stats()
             counts = client.launches()
+            probe_refused(client, paths["queries"], "9c (serve --sharded)")
     check((n_add, n_rm, n_save) == (SERVE_ADD, (SERVE_REMOVE, SERVE_REMOVE * FRAMES),
                                     SERVE_REF_VIDEOS), f"9c: add/remove/save {n_add} "
           f"{n_rm} {n_save}")
@@ -4106,8 +4144,15 @@ def phase_sharded(torch, np, kernels, dev, paths, corpus):
     t0 = time.perf_counter()
     launches = phase_sharded_search(torch, np, kernels, dev, paths)
     torch.cuda.empty_cache()
-    launches.update(phase_sharded_entry_points(torch, np, kernels, dev, paths))
-    launches.update(phase_sharded_serve(torch, np, kernels, dev, corpus))
+    started = start_sharded_descriptor_eval(paths)
+    try:
+        launches.update(phase_sharded_entry_points(torch, np, kernels, dev, paths))
+        launches.update(phase_sharded_serve(torch, np, kernels, dev, corpus))
+    except BaseException:
+        started[0].kill()
+        started[0].wait()
+        raise
+    finish_sharded_descriptor_eval(torch, started)
     launches.update(phase_sharded_dns(torch, np, kernels, dev))
     phase_sharded_extraction(torch, np, dev)
     torch.cuda.empty_cache()
@@ -4150,7 +4195,7 @@ def _free_port() -> int:
 
 def pod_rank_main(rank: int, port: int, out: Path) -> int:
     """One rank of phase 10's pod, run as ``chip_smoke.py --pod-rank R
-    --pod-port P --pod-dir D``: 10a, phase 4's corpus searched by a
+    --pod-port P --pod-dir D``: 10a, 9a's corpus searched by a
     ScoreNormalizedVideoIndex over the pod mesh in each dtype, and 10c,
     DnSLocalization with row-sharded tables over the pod on phase 5's
     candidates. Writes its results, launches and seconds under ``out``."""
@@ -4175,7 +4220,7 @@ def pod_rank_main(rank: int, port: int, out: Path) -> int:
     paths = {k: str(SMOKE_DIR / f"{k}.npz") for k in ("queries", "refs", "noise")}
     t0 = time.perf_counter()
     queries = load_features(paths["queries"], Dataset.QUERIES)
-    refs = load_features(paths["refs"], Dataset.REFS)
+    refs = load_features(paths["refs"], Dataset.REFS)[:SHARD_REF_VIDEOS]  # 9a's
     noise = load_features(paths["noise"], Dataset.REFS)
     report["load_s"] = time.perf_counter() - t0
     k = 1200 * len(queries)
@@ -4273,11 +4318,11 @@ def _check_rank_launches(counts, want, what):
 
 
 def phase_pod_search_dns(np, kernels, sharded_launches):
-    """10a and 10c, in one pair of rank processes. 10a: phase 4's corpus
-    as a pod ShardedSimilaritySearcher (two ranks, one shard each: 507,904
-    rows, pooled) in f32, bf16 and int8 against 9a's single device: bf16
-    and int8 bit for bit, f32 within SHARD_F32_ATOL (each rank's shard is
-    its own allocation), the count of f32 scores one ulp off logged; both
+    """10a and 10c, in one pair of rank processes. 10a: 9a's corpus as a
+    pod ShardedSimilaritySearcher (two ranks, one shard each: 270,336
+    rows, pooled) in f32, bf16 and int8 against 9a's single device, bit for
+    bit in every dtype (each rank's shard is its own allocation: the f32
+    re-search's calls have the single device's shape); both
     ranks' arrays equal; each rank launches each kernel of 9a's 2-shard
     search once. 10c: DnSLocalization over the pod on phase 5's pairs:
     both ranks hold dns_baseline's matches (phase 5), scores within
@@ -4299,8 +4344,7 @@ def phase_pod_search_dns(np, kernels, sharded_launches):
                 got.append([((g["q"], g["r"], g["s"]), str(g["mode"]))])
         check(all(np.array_equal(a, b) for a, b in zip(got[0][0][0], got[1][0][0])),
               f"10a {dtype}: the ranks' global_topk differ")
-        atol = SHARD_F32_ATOL if dtype == "float32" else 0.0
-        off = _same_topk(np, got[0], want, f"10a {dtype}", atol)
+        _same_topk(np, got[0], want, f"10a {dtype}")
         reps = [r[dtype] for r in reports]
         mode = reps[0]["mode"]
         check(mode == SHARD_MODES[POD_RANKS], f"10a {dtype}: ran {mode}")
@@ -4310,10 +4354,7 @@ def phase_pod_search_dns(np, kernels, sharded_launches):
                                  f"10a {dtype} rank {rank}")
             launches[f"10a {dtype} rank {rank}"] = rep["launches"]
         n = got[0][0][0][2].size
-        log(f"phase 10a: {dtype}: " + (
-            f"{off} of {n} scores one ulp off ({SHARD_F32_ATOL:.3g}) from the single "
-            "device's, the rest bit for bit" if off else
-            f"== the single device bit for bit ({n} pairs)")
+        log(f"phase 10a: {dtype}: == the single device bit for bit ({n} pairs)"
             + f" on both ranks; mode {mode}, shard rows {reps[0]['shard_rows']}; "
             + "; ".join(f"rank {i}: staged {r['stage_s']:.3f} s ({r['staged_bytes']} bytes), "
                         f"search {r['search_s']:.3f} s, steps {json.dumps(r['steps_s'])}, "
@@ -4785,6 +4826,7 @@ def ivf_serve(corpus):
             timed("g", lambda: client.search(paths["queries"], candidates_csv=csv["g"][0],
                                              matches_csv=csv["g"][1]), "11c")
             stats, counts = client.stats(), client.launches()
+            probe_refused(client, paths["queries"], "11c (serve --ivf)")
     check((n_add, n_rm) == (SERVE_ADD, (SERVE_REMOVE, SERVE_REMOVE * FRAMES))
           and stats.dtype == "bfloat16", f"11c: add {n_add}, remove {n_rm}, {stats}")
     planted = {(m.query_id, m.ref_id) for m in Match.read_csv(paths["gt"], is_gt=True)}
@@ -5195,6 +5237,251 @@ def phase_train(torch, np, kernels, dev):
     return launches, figures
 
 
+# ---- phase 13: the last entry points and the space-to-depth stem ------------------
+
+# The s2d stem's SSCD descriptors against the standard stem's on the card
+# (f32, the same weights and frames: the same products summed in another
+# order), as a share of the descriptors' largest magnitude; and the frames
+# it runs over (phase 8's pre-decoded 640x360 frames).
+S2D_REL_TOL = 1e-5
+S2D_FRAMES = 256
+
+
+def launched_since(before, after):
+    """{kernel: launches} a server made between two of its launch counts."""
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] > before.get(k, 0)}
+
+
+def probe_request(client, queries, request_wall, search_launches, phase):
+    """13d: ``probe`` of the query file after a --matches search of it:
+    0 < search_s < that request's wall seconds, tn_s > 0, and the probe's
+    searches launch the search's kernels (each one warm-up and 3 timed
+    searches). Returns the figures and the probe's launches."""
+    before = client.launches()
+    t0 = time.perf_counter()
+    search_s, tn_s = client.probe(queries)
+    wall = time.perf_counter() - t0
+    counts = launched_since(before, client.launches())
+    check(0 < search_s < request_wall,
+          f"13d ({phase}): probe search_s {search_s} not in (0, {request_wall})")
+    check(tn_s > 0, f"13d ({phase}): probe tn_s {tn_s}")
+    check(set(counts) == set(search_launches),
+          f"13d ({phase}): probe launched {counts}, the search {search_launches}")
+    log(f"phase 13d ({phase}'s server): probe search_s {search_s:.6f} s (device time of "
+        f"the kernels of one warm search, CUDA events, median of 3), tn_s {tn_s:.6f} s "
+        f"(the TN batches of request (g) at their geometries); request (g) "
+        f"{request_wall:.3f} s wall, launching {json.dumps(search_launches)}; the probe "
+        f"request {wall:.3f} s wall, launching {json.dumps(counts)}")
+    dtype = {"6": "float32", "6b": "bfloat16", "6c": "int8"}[phase]
+    return {"dtype": dtype, "search_s": search_s, "tn_s": tn_s,
+            "request_s": request_wall, "launches": counts}
+
+
+def probe_refused(client, queries, what):
+    """13d: a sharded or IVF server answers probe with the JAX server's
+    typed error, and goes on serving."""
+    from vsc2022_torch.retrieval.client import ServeError
+
+    try:
+        client.probe(queries)
+    except ServeError as e:
+        check("unsharded corpora only" in str(e), f"13d {what}: probe error {e}")
+        check(client.stats().n_videos > 0, f"13d {what}: the server stopped serving")
+        log(f"phase 13d ({what}): probe refused with the typed error: {e}")
+        return
+    check(False, f"13d {what}: probe answered on a sharded or IVF corpus")
+
+
+def umbrella_exit_codes():
+    """13a: python -m vsc2022_torch --help exits 0, an unknown command 2."""
+    codes = {}
+    for argv in (["--help"], ["no-such-command"]):
+        proc = subprocess.run([sys.executable, "-m", "vsc2022_torch", *argv],
+                              cwd=str(REPO), capture_output=True, text=True, timeout=120)
+        codes[argv[0]] = proc.returncode
+        check("adapt-model" in proc.stdout and "parity" in proc.stdout,
+              f"13a: {argv}: the command list is missing")
+    check(codes == {"--help": 0, "no-such-command": 2}, f"13a: exit codes {codes}")
+    log(f"phase 13a: python -m vsc2022_torch: exit codes {json.dumps(codes)}")
+
+
+def adapt_model_checkpoint(torch, np, extraction):
+    """13b: adapt-model --probe, then --verify --output_checkpoint, on phase
+    8's SSCD TorchScript (--device cuda), through the umbrella's routing;
+    the inference CLI on phase 8's query videos from --checkpoint_path
+    <that npz> gives phase 8's npz (from --torchscript_path) bit for bit."""
+    import io
+
+    from vsc2022_torch import __main__ as umbrella
+
+    work = SMOKE_DIR / "adapt"
+    work.mkdir(parents=True, exist_ok=True)
+    weights, videos = extraction["weights"], extraction["videos"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        try:
+            umbrella.main(["adapt-model", "--input_torchscript", weights, "--model", "sscd",
+                           "--probe", "--device", "cuda"])
+            code = None
+        except SystemExit as e:
+            code = e.code
+    check(code == 0 and "OK: all" in out.getvalue(),
+          f"13b: adapt-model --probe exit {code}: {out.getvalue()[-2000:]}")
+    probe_s = time.perf_counter() - t0
+    ckpt = work / "sscd_flax.npz"
+    t0 = time.perf_counter()
+    umbrella.main(["adapt-model", "--input_torchscript", weights, "--model", "sscd",
+                   "--verify", "--output_checkpoint", str(ckpt), "--device", "cuda"])
+    verify_s = time.perf_counter() - t0
+    q = work / "q_checkpoint.npz"
+    t0 = time.perf_counter()
+    from vsc2022_torch.inference import cli
+    cli.main(cli.parser.parse_args(cli_argv(
+        videos, "queries", q, "--baseline", "sscd", "--checkpoint_path", str(ckpt),
+        "--transforms", "RESIZE_320_CENTER")))
+    cli_s = time.perf_counter() - t0
+    check(same_arrays(np, npz_arrays(np, q), npz_arrays(np, extraction["q"])),
+          "13b: descriptors from the adapt-model checkpoint differ from the TorchScript's")
+    log(f"phase 13b: adapt-model --probe OK ({probe_s:.2f} s), --verify on cuda and the "
+        f"checkpoint ({verify_s:.2f} s); the inference CLI from --checkpoint_path "
+        f"({cli_s:.2f} s) == from --torchscript_path (phase 8), bit for bit")
+
+
+def parity_command(paths):
+    """13c's command: python -m vsc2022_torch parity --device cuda on phase
+    4's npz files and GT. Returns (its output path, the command)."""
+    out = SMOKE_DIR / "parity"
+    return out, [sys.executable, "-m", "vsc2022_torch", "parity", "--device", "cuda",
+                 "--output_path", str(out), "--query_features", paths["queries"],
+                 "--ref_features", paths["refs"], "--noise_features", paths["noise"],
+                 "--ground_truth", paths["gt"]]
+
+
+def start_parity(paths):
+    """13c's first parity run, started in the background before phase 12:
+    it runs alongside phase 12, 13a and 13b, which share the card and the
+    host with it (their logged times and its stage seconds include that).
+    Returns (process, its stdout and stderr files, start time)."""
+    _, cmd = parity_command(paths)
+    files = (SMOKE_DIR / "parity_run1.out", SMOKE_DIR / "parity_run1.err")
+    with open(files[0], "w") as out, open(files[1], "w") as err:
+        proc = subprocess.Popen(cmd, cwd=str(REPO), stdout=out, stderr=err)
+    return proc, files, time.perf_counter()
+
+
+def parity_rehearsal(np, paths, phase4_candidates, started):
+    """13c: the parity run ``start_parity`` started, then a second one: the
+    checks of phase 13 in the module docstring; each stage's seconds
+    logged. Returns the summary."""
+    from vsc2022_torch.metrics import CandidatePair
+
+    out, cmd = parity_command(paths)
+    runs = []
+    for i in range(2):
+        if i == 0:
+            proc, files, t0 = started
+            try:
+                rc = proc.wait(timeout=900)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            stdout, stderr = (f.read_text() for f in files)
+        else:
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=str(REPO), capture_output=True, text=True,
+                                  timeout=900)
+            rc, stdout, stderr = proc.returncode, proc.stdout, proc.stderr
+        wall = time.perf_counter() - t0
+        text = stdout + stderr
+        (SMOKE_DIR / f"parity_run{i + 1}.log").write_text(text)
+        check(rc == 0, f"13c: parity run {i + 1} exited {rc}: {text[-3000:]}")
+        stages = [ln.split("stage ", 1)[1] for ln in text.splitlines()
+                  if "INFO     stage vsc2022_torch." in ln]
+        runs.append((text, json.loads(stdout.strip().splitlines()[-1])))
+        log(f"phase 13c: parity run {i + 1}: {wall:.2f} s wall"
+            + (" (alongside phases 12, 13a, 13b)" if i == 0 else "") + "; stages: "
+            + "; ".join(stages))
+    (first, summary), (second, again) = runs
+    faithful = (out / "sn_faithful" / "candidates.csv").read_bytes()
+    check(faithful == phase4_candidates,
+          "13c: sn_faithful/candidates.csv differs from phase 4's candidates.csv")
+    tuned = [(c.query_id, c.ref_id, c.score)
+             for c in CandidatePair.read_csv(str(out / "sn_tuned" / "candidates.csv"))]
+    check(tuned == [(c.query_id, c.ref_id, c.score)
+                    for c in CandidatePair.read_csv(str(out / "sn_faithful" / "candidates.csv"))],
+          "13c: sn_tuned's candidates differ from sn_faithful's")
+    metrics = summary["metrics"]
+    check(set(metrics) == {"descriptor_uap", "segment_ap_sn_faithful", "segment_ap_sn_tuned",
+                           "segment_ap_raw"}
+          and all(math.isfinite(v) for v in metrics.values()), f"13c: metrics {metrics}")
+    check(metrics["segment_ap_sn_tuned"] > 0.5 and metrics["descriptor_uap"] > 0.5,
+          f"13c: metrics {metrics}")
+    check(second.count("Reusing existing artifact") == 3 and "sscd_baseline" not in second,
+          "13c: the second parity run reran a stage")
+    check(again == summary, "13c: the second parity run wrote another summary")
+    n_pairs = faithful.count(b"\n") - 1
+    log(f"phase 13c: sn_faithful/candidates.csv == phase 4's byte for byte "
+        f"({n_pairs} pairs), sn_tuned's the same; metrics "
+        f"{json.dumps(metrics)}; deltas {json.dumps(summary['delta_vs_reference'])}; the "
+        "second run reused every stage and wrote the same summary")
+    return summary
+
+
+def s2d_stem_on_card(torch, np, dev, weights):
+    """13e: phase 8's SSCD weights with the space-to-depth stem
+    (fold.s2d_stem, SSCDModel(stem_s2d=True)) against the standard stem,
+    f32 through DescriptorExtractor on S2D_FRAMES of phase 8's frames:
+    within S2D_REL_TOL; each forward's frames/s logged (report only)."""
+    from vsc2022_torch.inference import cli
+    from vsc2022_torch.inference.pipeline import DescriptorExtractor
+    from vsc2022_torch.inference.transforms import InferenceTransforms
+    from vsc2022_torch.models.fold import s2d_stem
+    from vsc2022_torch.models.sscd import SSCDModel
+
+    args = cli.parser.parse_args(["--baseline", "sscd", "--dataset_path", "-",
+                                  "--output_file", "-", "--torchscript_path", weights])
+    standard = cli.build_model(args)
+    s2d = SSCDModel(stem_s2d=True)
+    s2d.load_state_dict(s2d_stem(standard.state_dict()))
+    frame = stub_frame_fn(np)
+    frames = torch.from_numpy(np.stack([frame(1000 + i // 40, i % 40)
+                                        for i in range(S2D_FRAMES)])).to(dev)
+    out, fps = {}, {}
+    for label, model in (("standard", standard), ("s2d", s2d)):
+        extractor = DescriptorExtractor(model, InferenceTransforms["RESIZE_320_CENTER"],
+                                        batch_size=EXTRACT_BATCH, device=dev)
+        extractor.forward(frames[:EXTRACT_BATCH])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts = [extractor.forward(frames[i:i + EXTRACT_BATCH])
+                 for i in range(0, S2D_FRAMES, EXTRACT_BATCH)]
+        torch.cuda.synchronize()
+        fps[label] = round(S2D_FRAMES / (time.perf_counter() - t0), 1)
+        out[label] = torch.cat(parts).cpu().numpy()
+        del extractor
+    err = rel_err(np, out["s2d"], out["standard"])
+    check(err <= S2D_REL_TOL, f"13e: the s2d stem lies {err:.3g} off the standard stem")
+    log(f"phase 13e: SSCD ResNet-50 f32 with the s2d stem == the standard stem within "
+        f"{err:.3g} of the largest value (tolerance {S2D_REL_TOL}) on {S2D_FRAMES} "
+        f"frames; forward frames/s (batch {EXTRACT_BATCH}): {json.dumps(fps)}")
+
+
+def phase_last_entry_points(torch, np, dev, paths, phase4_candidates, extraction,
+                            parity):
+    """Phase 13 (13d runs inside phases 6, 6b, 6c, 9c and 11c; 13c's first
+    parity run, ``parity``, started before phase 12)."""
+    t0 = time.perf_counter()
+    umbrella_exit_codes()
+    adapt_model_checkpoint(torch, np, extraction)
+    torch.cuda.empty_cache()
+    parity_rehearsal(np, paths, phase4_candidates, parity)
+    s2d_stem_on_card(torch, np, dev, extraction["weights"])
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s after phase 12 (13d inside phases 6, "
+        "9c and 11c; 13c's first run began before phase 12)")
+
+
 def match_rows(path):
     """{(query, ref, segment bounds): score} of a matches CSV."""
     rows = _csv_rows(path)
@@ -5286,6 +5573,8 @@ def main() -> int:
         phase_kernels_int8_small(torch, kernels, dev)
         phase_search(torch, np, dev, 1000, 100_000, DIM, 20_000)
         launches, captured, paths, sscd_f32 = phase_main_path(torch, np, kernels)
+        # Kept for 13c: parity's faithful arm must write these bytes.
+        phase4_candidates = (SMOKE_DIR / "out" / "candidates.csv").read_bytes()
         records = phase_kernels_main(torch, kernels, dev, captured)
         del captured
         torch.cuda.empty_cache()
@@ -5303,13 +5592,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         dns_launches, dns_captured, dns_batches = phase_dns_path(torch, np, kernels)
         corpus = serve_corpus(np)
-        serve_launches, serve_captured, _, _ = phase_serve(torch, np, kernels, dev,
-                                                           corpus)
+        serve_launches, serve_captured, _, serve_quality = phase_serve(
+            torch, np, kernels, dev, corpus)
         serve_dns_request()
-        serve_bf16_launches, serve_bf16_captured, (pooled_launches, pooled_captured), _ = (
-            phase_serve(torch, np, kernels, dev, corpus, dtype="bfloat16"))
+        (serve_bf16_launches, serve_bf16_captured, (pooled_launches, pooled_captured),
+         serve_bf16_quality) = phase_serve(torch, np, kernels, dev, corpus, dtype="bfloat16")
         dns_bf16_launches = serve_dns_request("bfloat16")
-        serve_int8_launches, serve_int8_captured, pooled_int8, _ = phase_serve(
+        serve_int8_launches, serve_int8_captured, pooled_int8, serve_int8_quality = phase_serve(
             torch, np, kernels, dev, corpus, dtype="int8")
         dns_int8_launches = serve_dns_request("int8")
         phase_l2_small(torch, kernels, dev)
@@ -5324,7 +5613,15 @@ def main() -> int:
         ivf_records, ivf_launches = phase_ivf(torch, np, kernels, dev, corpus)
         del corpus
         torch.cuda.empty_cache()
-        train_launches, _ = phase_train(torch, np, kernels, dev)
+        parity = start_parity(paths)
+        try:
+            train_launches, _ = phase_train(torch, np, kernels, dev)
+            phase_last_entry_points(torch, np, dev, paths, phase4_candidates, extraction,
+                                    parity)
+        finally:
+            if parity[0].poll() is None:
+                parity[0].kill()
+                parity[0].wait()
     finally:
         if not args.keep:
             shutil.rmtree(SMOKE_DIR, ignore_errors=True)
@@ -5448,6 +5745,12 @@ def main() -> int:
         if pod:
             row["pod_launches"] = pod
         row["train_launches"] = train_launches.get(name, 0)  # phase 12: none
+        # 13d: serve's probe, a warm search's kernels (warm-up + 3 searches).
+        probe_launches = {q["probe"]["dtype"]: q["probe"]["launches"][name]
+                          for q in (serve_quality, serve_bf16_quality, serve_int8_quality)
+                          if name in q["probe"]["launches"]}
+        if probe_launches:
+            row["probe_launches"] = probe_launches
         rows.append(row)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))

@@ -2182,44 +2182,16 @@ def test_sharded_search_equals_single_device(cuda_device, monkeypatch, shards, d
     np.testing.assert_array_equal(sharded.row_nn(q), single.row_nn(q))
 
 
-# How far apart an f32 search's scores may lie when its re-search ran as
-# cuBLAS calls of another shape (one per allocation of shards: one a card).
-# cuBLAS picks its algorithm by the product's shape, and another algorithm
-# may sum a score in another order: one ulp off on unit-norm rows, at most
-# 2^-23 (the ulp at 1.0, the largest score). Under L2 the goodness doubles
-# that and rounds twice more: 2^-21.
-SHARD_F32_ATOL = {"IP": 2.0 ** -23, "L2": 2.0 ** -21}
-
-
-def _near_topk(got, want, atol):
-    """Two global_topk results of one search that may differ by ``atol``
-    in a score: the scores rank by rank within ``atol``, each pair's
-    scores on both sides too, and the same pairs except where a score lies
-    within ``atol`` of the last one kept. Prints how many scores differ."""
-    (gq, gr, gs), (wq, wr, ws) = got, want
-    assert gs.shape == ws.shape and gs.size
-    np.testing.assert_allclose(gs, ws, rtol=0, atol=atol)
-    g = dict(zip(zip(gq.tolist(), gr.tolist()), gs.tolist()))
-    w = dict(zip(zip(wq.tolist(), wr.tolist()), ws.tolist()))
-    both = g.keys() & w.keys()
-    assert all(abs(g[p] - w[p]) <= atol for p in both)
-    cut = float(ws[-1])
-    assert all(abs(v - cut) <= atol for side in (g, w) for p, v in side.items()
-               if p not in both)
-    off = sum(g[p] != w[p] for p in both) + len(g.keys() - both)
-    print(f"f32 across allocations: {off} of {len(w)} scores or pairs differ")
-
-
 @pytest.mark.parametrize("d", [13, 512])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_sharded_search_shards_as_separate_tensors(cuda_device, monkeypatch, d, dtype):
     # The same search with each shard its own allocation (as on separate
     # cards) and at an odd D (the f32 chain's 4-byte copies; bf16 rows a
-    # padded copy), through append_rows and keep_rows. bf16 and int8 on
-    # unit-norm floats: every score, the re-search's too, is a hand
-    # kernel's, bit for bit. f32: bit for bit on integers (exact scores);
-    # on unit-norm floats its re-search is a cuBLAS call per shard, of
-    # another shape than the single-device call: within SHARD_F32_ATOL.
+    # padded copy), through append_rows and keep_rows: bit for bit. bf16
+    # and int8: every score, the re-search's too, is a hand kernel's. f32:
+    # the re-search runs per allocation, on the single-device searcher's
+    # cuBLAS calls of one shape (_f32_scores: its column blocks begin at
+    # the same corpus rows), so on unit-norm floats too.
     from vsc2022_torch.ops.similarity import SimilaritySearcher
     from vsc2022_torch.parallel import Mesh
     from vsc2022_torch.parallel.sharded_search import ShardedSimilaritySearcher
@@ -2235,11 +2207,8 @@ def test_sharded_search_shards_as_separate_tensors(cuda_device, monkeypatch, d, 
 
         def check(k):
             got, want = sharded.global_topk(q, k, kappa=8), single.global_topk(q, k, kappa=8)
-            if (dtype, kind) == ("float32", "float"):
-                _near_topk(got, want, SHARD_F32_ATOL["IP"])
-            else:
-                for g, w in zip(got, want):
-                    np.testing.assert_array_equal(g, w)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
 
         check(900)
         extra = _shard_case(cuda_device, kind, 2000, d, 6)[1]
@@ -2260,10 +2229,10 @@ def test_sharded_search_shards_as_separate_tensors(cuda_device, monkeypatch, d, 
 def test_sharded_search_one_shard_per_card(cuda_device, monkeypatch, dtype, metric, mode,
                                            kind):
     # One shard a card, over every card (the merges copy card to card): the
-    # single-device searcher's pairs, scores and tie order, bit for bit,
-    # but for an f32 search on floats (its re-search is a cuBLAS call a
-    # card: within SHARD_F32_ATOL); each card launches its collection's
-    # kernels once.
+    # single-device searcher's pairs, scores and tie order, bit for bit, an
+    # f32 search on floats too (its re-search runs a card at a time on the
+    # single-device searcher's cuBLAS calls of one shape); each card
+    # launches its collection's kernels once.
     from vsc2022_torch.ops.similarity import COLLECTION_ENV, SimilaritySearcher
     from vsc2022_torch.parallel import Mesh
     from vsc2022_torch.parallel.sharded_search import ShardedSimilaritySearcher
@@ -2284,11 +2253,8 @@ def test_sharded_search_one_shard_per_card(cuda_device, monkeypatch, dtype, metr
         kernels.reset_launches()
         got = sharded.global_topk(q, k, kappa=16)
         assert sharded.last_stats["mode"] == mode
-        if (dtype, kind) == ("float32", "float"):
-            _near_topk(got, want, SHARD_F32_ATOL[metric])
-        else:
-            for g, w in zip(got, want):
-                np.testing.assert_array_equal(g, w)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
         for name in _COLLECTION_KERNELS[mode]:
             assert kernels.launches[name + suffix] == cards, (name, kernels.launches)
     np.testing.assert_array_equal(sharded.row_nn(q), single.row_nn(q))
@@ -2775,3 +2741,109 @@ def _tree_keys(tree, prefix=""):
     for k, v in tree.items():
         keys += _tree_keys(v, f"{prefix}{k}/") if isinstance(v, dict) else [prefix + k]
     return sorted(keys)
+
+
+# ---- the last entry points: serve's probe, adapt_model, the s2d stem --------------
+
+
+def _unit_rows(rng, n, d):
+    x = rng.randn(n, d).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def test_f32_research_scores_as_the_f32_kernels(cuda_device):
+    # The f32 re-search's fixed-shape cuBLAS calls (_f32_scores) sum each
+    # score as the kernels' fmaf chain does, at the searchers' widths (D =
+    # 512 and the score-normalized 513): its row max is row_max's, bit for
+    # bit, on unit-norm floats; and any run of corpus rows scores alike.
+    from vsc2022_torch.ops.similarity import _f32_scores
+
+    rng = np.random.RandomState(23)
+    for d in (512, 513):
+        q = torch.from_numpy(_unit_rows(rng, 300, d)).to(cuda_device)
+        r = torch.from_numpy(_unit_rows(rng, 40_000, d)).to(cuda_device)
+        whole = _f32_scores(q, r, r.shape[0])
+        assert torch.equal(whole.max(dim=1).values, kernels.row_max(q, r, r.shape[0]))
+        part = _f32_scores(q, r[12_345:30_000], r.shape[0], 12_345)
+        assert torch.equal(part, whole[:, 12_345:30_000])
+
+
+def _probe_corpus(tmp_path):
+    from vsc2022_torch.metrics import Dataset
+    from vsc2022_torch.storage import store_features
+    from vsc2022_torch.types import VideoFeature
+
+    rng = np.random.RandomState(31)
+
+    def videos(prefix, n, frames, offset=0):
+        return [VideoFeature(f"{prefix}{offset + i:06d}", np.arange(frames, dtype=np.float64),
+                             _unit_rows(rng, frames, 64)) for i in range(n)]
+
+    refs, noise, queries = videos("R", 200, 40), videos("R", 50, 40, 1000), videos("Q", 8, 30)
+    for i in range(4):  # planted copies
+        queries[i].feature[5:20] = refs[3 * i].feature[10:25]
+    paths = {k: str(tmp_path / f"{k}.npz") for k in ("q", "r", "n")}
+    store_features(paths["q"], queries, Dataset.QUERIES)
+    store_features(paths["r"], refs, Dataset.REFS)
+    store_features(paths["n"], noise, Dataset.REFS)
+    return paths
+
+
+@pytest.mark.parametrize("dtype_flag", ["--f32", None, "--int8"])
+def test_probe_times_the_searchs_kernels_on_the_card(cuda_device, tmp_path, dtype_flag):
+    from vsc2022_torch.retrieval import serve
+    from vsc2022_torch.retrieval.candidates import MaxScoreAggregation
+
+    p = _probe_corpus(tmp_path)
+    args = serve.parser.parse_args(
+        ["--ref_features", p["r"], "--score_norm_features", p["n"], "--matches"]
+        + ([dtype_flag] if dtype_flag else []))
+    index, refs, _ = serve.build_index(args, cuda_device)
+    loc = serve.build_localizer(index, refs, args, cuda_device)
+    kernels.reset_launches()
+    serve.serve_request(index, MaxScoreAggregation(), loc,
+                        f"{p['q']}\t{tmp_path}/c.csv\t{tmp_path}/m.csv", args)
+    search_keys = {k for k, v in kernels.launches.items() if v}
+    kernels.reset_launches()
+    reply = serve.serve_request(index, MaxScoreAggregation(), loc, f"probe\t{p['q']}", args)
+    tag, name, search_s, tn_s = reply.split("\t")
+    assert (tag, name) == ("ok", "probe")
+    assert 0 < float(search_s) < 1.0 and float(tn_s) > 0
+    probe_keys = {k for k, v in kernels.launches.items() if v}
+    assert probe_keys == search_keys and len(probe_keys) >= 3
+
+
+def test_adapt_model_verify_on_the_card(cuda_device, tmp_path):
+    from vsc2022_torch import convert
+    from vsc2022_torch.baseline import adapt_model
+    from vsc2022_torch.utils.checkpoint import load_variables
+
+    model, _ = _extraction_models()["sscd"]
+    ts = str(tmp_path / "sscd.pt")
+    with torch.no_grad():
+        torch.jit.save(torch.jit.trace(model.eval(), torch.zeros(1, 3, 64, 64)), ts)
+    out = str(tmp_path / "sscd.npz")
+    adapt_model.main(adapt_model.parser.parse_args(
+        ["--input_torchscript", ts, "--output_checkpoint", out, "--verify",
+         "--device", "cuda"]))
+    want = convert.sscd_to_jax(model.state_dict())
+    got = load_variables(out)
+    assert _tree_keys(got) == _tree_keys(want)
+    np.testing.assert_array_equal(got["params"]["backbone"]["conv1"]["kernel"],
+                                  want["params"]["backbone"]["conv1"]["kernel"])
+
+
+def test_s2d_stem_on_the_card(cuda_device):
+    from vsc2022_torch.inference.pipeline import f32_numerics
+    from vsc2022_torch.models.fold import s2d_stem
+    from vsc2022_torch.models.sscd import SSCDModel
+
+    model, _ = _extraction_models()["sscd"]
+    s2d = SSCDModel(stem_s2d=True)
+    s2d.load_state_dict(s2d_stem(model.state_dict()))
+    x = torch.from_numpy(np.random.RandomState(4).randn(8, 3, 224, 224).astype(np.float32))
+    x = x.to(cuda_device)
+    with torch.no_grad(), f32_numerics(cuda_device):
+        want = model.to(cuda_device).eval()(x)
+        got = s2d.to(cuda_device).eval()(x)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -50,6 +50,8 @@ def test_importing_every_module_leaves_jax_out():
     "vsc2022_torch.convert", "vsc2022_torch.parallel",
     "vsc2022_torch.parallel.sharded_search", "vsc2022_torch.train",
     "vsc2022_torch.train.cli", "vsc2022_torch.train.augment",
+    "vsc2022_torch.__main__", "vsc2022_torch.baseline.adapt_model",
+    "vsc2022_torch.parity",
 ])
 def test_serving_modules_leave_jax_out(module):
     code = (
@@ -80,6 +82,29 @@ def test_no_jax_import_in_source(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_the_ast_check_covers_the_entry_points():
+    files = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {"vsc2022_torch/__main__.py", "vsc2022_torch/baseline/adapt_model.py",
+            "vsc2022_torch/parity.py", "chip_smoke.py"} <= files
+
+
+def test_umbrella_help_runs_with_jax_unimportable():
+    # None in sys.modules makes an import of that name raise ImportError.
+    code = (
+        "import runpy, sys\n"
+        "for name in ('jax', 'jaxlib', 'vsc2022_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['vsc2022_torch', '--help']\n"
+        "runpy.run_module('vsc2022_torch', run_name='__main__')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "parity" in out.stdout and "adapt-model" in out.stdout
 
 
 @pytest.fixture

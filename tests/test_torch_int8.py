@@ -410,20 +410,27 @@ def test_int8_research_scores_on_the_kernels_product(monkeypatch, mode):
                for _, refs, n, scale in calls)
 
 
-@pytest.mark.parametrize("dtype", ["float32", INT8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", INT8])
 @pytest.mark.parametrize("budget_rows", [134, 559, 4329, 128, 127, 67, 1])
 def test_row_chunk_fills_the_products_128_row_items(monkeypatch, dtype, budget_rows):
-    # The row chunk of the dense scores that are left (the f32 re-search's
-    # torch.matmul and row_topk): the score budget's rows as they are, at
-    # most the budget and never below 1 row. No kernel scores these chunks
-    # any more (the int8 re-search is one scores_above call), so nothing
-    # rounds them to the 128-row items (kernels.REDUCE_TILE) they were cut
-    # to while scores.int8 scored them. 134, 559 and 4329 are the budget's
-    # rows at the SSCD, serving and DnS corpora.
+    # The row chunk of the dense scores that are left (the f32 re-search
+    # and row_topk), never above the score budget and never below 1 row.
+    # Over bf16 rows and int8 codes (widened a block at a time,
+    # torch.matmul of any rows): the budget's rows as they are. Over an f32
+    # corpus: the budget's rows rounded down to whole groups of
+    # F32_RESEARCH_MIN_ROWS (128) where it holds one, since _f32_scores's
+    # cuBLAS calls take 128 query rows each and a chunk of whole groups pads
+    # none but its last. 134, 559 and 4329 are the budget's rows at the
+    # SSCD, serving and DnS corpora.
     n = 1000
     ts = TorchSearcher(_dyadic_rows(n, 12, 60), dtype=dtype, device="cpu")
     monkeypatch.setattr(similarity, "PLAIN_CHUNK_ELEMENTS", budget_rows * n + n - 1)
-    assert ts._row_chunk() == budget_rows
+    group = similarity.F32_RESEARCH_MIN_ROWS
+    if dtype == "float32" and budget_rows >= group:
+        assert ts._row_chunk() == budget_rows - budget_rows % group
+    else:
+        assert ts._row_chunk() == budget_rows
+    assert ts._row_chunk() <= budget_rows
     monkeypatch.setattr(similarity, "PLAIN_CHUNK_ELEMENTS", n - 1)
     assert ts._row_chunk() == 1
 

@@ -147,10 +147,10 @@ StateDict = Dict[str, np.ndarray]
 _WRAPPER_PREFIXES = ("module.", "model.", "net.", "student.", "_orig_mod.")
 
 # Known serialized-layout variants → the canonical names (the JAX package's
-# models/convert.py ALIAS_RULES for the descriptor models; the DnS students
-# load as TorchScript modules, not through these): anchored regex rewrites
-# applied per key until none matches, so no rule may produce text its own
-# pattern matches.
+# models/convert.py ALIAS_RULES; the DnS students' rules serve
+# ``dns_student_from_torch``, whose entry points load students as
+# TorchScript modules otherwise): anchored regex rewrites applied per key
+# until none matches, so no rule may produce text its own pattern matches.
 ALIAS_RULES: Dict[str, Tuple[Tuple[str, str], ...]] = {
     "sscd": (
         (r"^trunk\.", "backbone."),
@@ -163,6 +163,10 @@ ALIAS_RULES: Dict[str, Tuple[Tuple[str, str], ...]] = {
     "dino": (
         (r"^backbone\.", ""),
         (r"^encoder\.", ""),
+    ),
+    "dns": (
+        (r"^(cg|fg_att|fg_bin)_student\.", ""),
+        (r"^attention\.context\.(?=weight)", "attention.context_vector."),
     ),
 }
 
@@ -218,12 +222,17 @@ def normalize_state_keys(state: StateDict) -> StateDict:
     return state
 
 
-def load_torchscript_state(path: str) -> StateDict:
-    """A TorchScript file's state dict as numpy arrays, uniform wrapper
-    prefixes stripped."""
+def load_torchscript_state(path: str, strip_prefix: str = "") -> StateDict:
+    """A TorchScript file's state dict as numpy arrays: ``strip_prefix``
+    (an artifact's own nesting, e.g. 'student.') cut from the names that
+    start with it, then uniform wrapper prefixes stripped."""
     module = torch.jit.load(path, map_location="cpu")
-    return normalize_state_keys({
-        name: t.detach().cpu().numpy() for name, t in module.state_dict().items()})
+    state = {}
+    for name, t in module.state_dict().items():
+        if strip_prefix and name.startswith(strip_prefix):
+            name = name[len(strip_prefix):]
+        state[name] = t.detach().cpu().numpy()
+    return normalize_state_keys(state)
 
 
 def sscd_from_torch(state: StateDict) -> StateDict:
@@ -242,6 +251,24 @@ def dino_vit_from_torch(state: StateDict) -> StateDict:
     """A DINO ViT state dict in the port's names (DINO's own, after
     ALIAS_RULES["dino"])."""
     return apply_aliases(state, "dino")
+
+
+def dns_student_from_torch(state: StateDict) -> StateDict:
+    """A DnS student's state dict in the port's names (the
+    distill-and-select layout, the port's student modules' own, after
+    ALIAS_RULES["dns"]): ``reduction.*``, ``attention.context_vector.weight``,
+    fg bin's ``binarization.W``, cg's ``project.*``."""
+    return apply_aliases(state, "dns")
+
+
+def module_state(state: StateDict, model: torch.nn.Module) -> StateDict:
+    """The entries of ``state`` (the port's names) that ``model`` holds,
+    each required (``_require``: a missing one raises
+    ``ConversionKeyError`` naming the closest keys), less BatchNorm's
+    ``num_batches_tracked`` counters; entries the model lacks (a
+    classifier head) are left out. ``model`` may live on the meta device."""
+    return {key: _require(state, key) for key in model.state_dict()
+            if not key.endswith("num_batches_tracked")}
 
 
 def load_into(model: torch.nn.Module, state: StateDict) -> torch.nn.Module:
@@ -445,4 +472,59 @@ def dns_student_to_jax(state: Mapping, student_type: str, fg_type: str = "att"
                              "bias": _tensor_np(state["project.bias"])}
     elif fg_type == "bin":
         params["rotation"] = _tensor_np(state["binarization.W"])
+    return {"params": params}
+
+
+def dino_vit_to_jax(state: Mapping, num_heads: int = 6) -> Dict[str, dict]:
+    """The inverse of ``dino_vit_from_jax``: a Flax ``DinoViT`` variable
+    tree ``{"params": ...}`` (numpy float32, as the JAX package's
+    ``dino_vit_from_torch`` writes it) from the port's ``DinoViT`` state
+    dict: the fused ``attn.qkv`` [3·dim, dim] splits into the query, key
+    and value DenseGeneral kernels [dim, heads, head_dim] and biases
+    [heads, head_dim], ``attn.proj`` [dim, dim] becomes the out kernel
+    [heads, head_dim, dim], conv weights OIHW → HWIO kernels, Linear
+    [out, in] → Dense [in, out], LayerNorm weight → scale."""
+
+    def arr(key):
+        return _tensor_np(state[key])
+
+    def dense(at):
+        return {"kernel": np.ascontiguousarray(arr(at + "weight").T), "bias": arr(at + "bias")}
+
+    def norm(at):
+        return {"scale": arr(at + "weight"), "bias": arr(at + "bias")}
+
+    params: Dict[str, dict] = {
+        "patch_embed": {
+            "kernel": np.ascontiguousarray(arr("patch_embed.proj.weight").transpose(2, 3, 1, 0)),
+            "bias": arr("patch_embed.proj.bias"),
+        },
+        "cls_token": arr("cls_token"),
+        "pos_embed": arr("pos_embed"),
+        "norm": norm("norm."),
+    }
+    i = 0
+    while f"blocks.{i}.norm1.weight" in state:
+        at = f"blocks.{i}."
+        qkv_w, qkv_b = arr(at + "attn.qkv.weight"), arr(at + "attn.qkv.bias")
+        dim = qkv_w.shape[1]
+        head_dim = dim // num_heads
+        attn = {
+            name: {
+                "kernel": np.ascontiguousarray(
+                    qkv_w[j * dim : (j + 1) * dim].T.reshape(dim, num_heads, head_dim)),
+                "bias": qkv_b[j * dim : (j + 1) * dim].reshape(num_heads, head_dim),
+            }
+            for j, name in enumerate(("query", "key", "value"))
+        }
+        attn["out"] = {
+            "kernel": np.ascontiguousarray(
+                arr(at + "attn.proj.weight").T.reshape(num_heads, head_dim, dim)),
+            "bias": arr(at + "attn.proj.bias"),
+        }
+        params[f"block{i}"] = {
+            "norm1": norm(at + "norm1."), "attn": attn, "norm2": norm(at + "norm2."),
+            "mlp": {"fc1": dense(at + "mlp.fc1."), "fc2": dense(at + "mlp.fc2.")},
+        }
+        i += 1
     return {"params": params}

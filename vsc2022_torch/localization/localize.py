@@ -249,6 +249,13 @@ class LocalizationWithMetadata(Localization):
         self.queries = {m.video_id: m for m in queries}
         self.refs = {m.video_id: m for m in refs}
 
+    def similarity(self, candidate: CandidatePair) -> np.ndarray:
+        """The candidate's frame similarity on the host: the query's
+        features times the reference's, transposed, [Tq, Tr]."""
+        a = self.queries[candidate.query_id].feature
+        b = self.refs[candidate.ref_id].feature
+        return np.matmul(a, b.T)
+
 
 class TNLocalization(LocalizationWithMetadata):
     """Temporal-network localization, batched on the device.
@@ -305,6 +312,7 @@ class TNLocalization(LocalizationWithMetadata):
         self.device = mesh.lead if mesh is not None else resolve_device(device)
         # Device tables of frame rows by name: (table, {video: (start, n)}).
         self._tables: Dict[str, Tuple[torch.Tensor, Dict]] = {}
+        self.last_align_geoms: List[Tuple[int, int, int]] = []
         if vcsl_faithful:
             self.params = TNParams.vcsl_faithful(
                 max_step=tn_max_step, min_length=min_length,
@@ -319,6 +327,11 @@ class TNLocalization(LocalizationWithMetadata):
                 top_k_per_row=top_k_per_row,
                 adaptive_sigma=adaptive_sigma,
             )
+
+    def similarity(self, candidate: CandidatePair) -> np.ndarray:
+        """Biased similarity: some alignment methods do not tolerate
+        negative values well (reference: vsc/baseline/localization.py:49-54)."""
+        return super().similarity(candidate) + self.similarity_bias
 
     def _stage(self, name: str, source: Dict, video_ids: Sequence, row_fn=None):
         """The device table ``name`` of frame rows (row 0 a zero pad row
@@ -522,7 +535,9 @@ class TNLocalization(LocalizationWithMetadata):
         """The packed TN boxes of one chunk of same-bucket pairs; with a
         mesh, one tile of pairs per entry, each on its device, every tile
         launched before any is read. In a pod each rank runs its entries'
-        tiles, and every rank receives every tile's boxes."""
+        tiles, and every rank receives every tile's boxes. The chunk's
+        geometry (pairs, nq, nr) joins ``last_align_geoms``."""
+        self.last_align_geoms.append((len(chunk), nq, nr))
         if self.mesh is None:
             sims, q_len, r_len = self._batch_sims(chunk, nq, nr)
             return tn_align_packed(sims, q_len, r_len, self.params).cpu().numpy()
@@ -540,6 +555,10 @@ class TNLocalization(LocalizationWithMetadata):
         return collectives.all_gather(self.mesh, packed, 0, empty).cpu().numpy()
 
     def localize_all(self, candidates: List[CandidatePair]) -> List[Match]:
+        # The geometry of each of this call's alignment chunks, [(pairs,
+        # nq bucket, nr bucket), ...]: serving's ``probe`` times the TN
+        # batches at these shapes.
+        self.last_align_geoms = []
         if candidates:  # one staging pass for all the call's chunks
             self._pair_tables(candidates)
         buckets: Dict[Tuple[int, int], List[int]] = defaultdict(list)

@@ -12,7 +12,7 @@ from vsc2022_torch.models.dns import (  # noqa: F401
     L3iMACExtractor,
     chamfer_similarity,
 )
-from vsc2022_torch.models.fold import fold_batchnorm  # noqa: F401
+from vsc2022_torch.models.fold import fold_batchnorm, s2d_stem  # noqa: F401
 from vsc2022_torch.models.resnet import ResNet50  # noqa: F401
 from vsc2022_torch.models.sscd import SSCDModel  # noqa: F401
 from vsc2022_torch.models.vit import DinoViT  # noqa: F401

@@ -15,7 +15,11 @@ has Flax's semantics (``nn.BatchNorm(momentum=0.9)``, see its docstring).
 
 ``fold_bn=True`` is the inference-only layout of ``models/fold.py``:
 every BatchNorm becomes a ``FoldedNorm`` (no parameters) and every conv
-carries a bias.
+carries a bias. ``stem_s2d=True`` is the inference-only space-to-depth
+stem: the input padded by 4, each 2×2 pixel block stacked into 12
+channels, and ``conv1`` a VALID 4×4/1 conv over them, [64, 12, 4, 4]
+(``fold.s2d_stem`` relabels a 7×7 kernel onto it); the same products as
+the 7×7/2 stem, summed in another order.
 """
 
 from __future__ import annotations
@@ -119,10 +123,14 @@ class ResNet50(nn.Module):
     def __init__(self, return_intermediates: bool = False,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  stage_features: Sequence[int] = (64, 128, 256, 512),
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, stem_s2d: bool = False):
         super().__init__()
         self.return_intermediates = return_intermediates
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=fold_bn)
+        self.stem_s2d = stem_s2d
+        if stem_s2d:
+            self.conv1 = nn.Conv2d(12, 64, 4, bias=fold_bn)
+        else:
+            self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=fold_bn)
         self.bn1 = _norm(64, fold_bn)
         width = 64
         for stage, (blocks, features) in enumerate(zip(stage_sizes, stage_features)):
@@ -135,8 +143,23 @@ class ResNet50(nn.Module):
         self.num_stages = len(stage_sizes)
         self.out_features = width
 
+    def _s2d_stem(self, x: torch.Tensor) -> torch.Tensor:
+        """The stem conv over the 2×2 space-to-depth input (channel order
+        (r, s, c), as the JAX package's NHWC reshape orders it)."""
+        if self.training:
+            raise ValueError("stem_s2d is an inference-only transform")
+        n, c, h, w = x.shape
+        if h % 2 or w % 2:
+            raise ValueError(f"stem_s2d needs even spatial dims; got {(h, w)}")
+        xp = nn.functional.pad(x, (4, 4, 4, 4))
+        hp, wp = h + 8, w + 8
+        y = xp.reshape(n, c, hp // 2, 2, wp // 2, 2).permute(0, 3, 5, 1, 2, 4)
+        y = y.reshape(n, 4 * c, hp // 2, wp // 2)
+        return self.conv1(y)[:, :, : (h - 1) // 2 + 1, : (w - 1) // 2 + 1]
+
     def forward(self, x: torch.Tensor):
-        x = torch.relu(self.bn1(self.conv1(x)))
+        x = self._s2d_stem(x) if self.stem_s2d else self.conv1(x)
+        x = torch.relu(self.bn1(x))
         x = nn.functional.max_pool2d(x, 3, stride=2, padding=1)
         stages = []
         for stage in range(self.num_stages):

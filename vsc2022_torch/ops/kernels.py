@@ -15,7 +15,10 @@ and comes with:
     ``torch.matmul`` / ``torch.bmm`` plus the reduction, with the
     kernel's tie rules;
   * a launch count in ``launches``, bumped by the wrapper where it
-    launches its kernel and nowhere else.
+    launches its kernel and nowhere else;
+  * its time inside a ``LaunchTimer``: CUDA events on the tensor's stream
+    around the wrapper call (on a CPU tensor the host clock around the
+    plain version, which runs synchronously).
 
 The four retrieval kernels take f32 or bf16 operands (q and refs of one
 dtype; the outputs stay f32 / int32). A bf16 pair launches the kernel's
@@ -98,7 +101,10 @@ replaces, what bounds it on an H100 and what its design does about it.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Optional, Tuple
+import functools
+import statistics
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -187,6 +193,102 @@ launches: Dict[str, int] = {
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+class LaunchTimer:
+    """The time of the kernel wrapper calls made while it is entered
+    (``with LaunchTimer() as t: ...; t.seconds()``): on a CUDA tensor a
+    pair of CUDA events on the tensor's current stream around each call,
+    so the sum is the device's time in those kernels (and in the few
+    small copies a wrapper makes around its launch), not the host's gaps
+    between them; on a CPU tensor the host clock around the call. A call
+    made inside another timed call is not timed again. One timer is active
+    at a time, in one thread."""
+
+    def __init__(self):
+        self._spans: List = []
+        self._depth = 0
+
+    def __enter__(self) -> "LaunchTimer":
+        global _active_timer
+        if _active_timer is not None:
+            raise RuntimeError("a LaunchTimer is already active")
+        _active_timer = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _active_timer
+        _active_timer = None
+
+    def _call(self, fn: Callable, device: torch.device, args, kwargs):
+        self._depth += 1
+        try:
+            if device.type == "cuda":
+                stream = torch.cuda.current_stream(device)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record(stream)
+                out = fn(*args, **kwargs)
+                end.record(stream)
+                self._spans.append((start, end))
+            else:
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                self._spans.append(time.perf_counter() - t0)
+            return out
+        finally:
+            self._depth -= 1
+
+    @property
+    def calls(self) -> int:
+        return len(self._spans)
+
+    def seconds(self) -> float:
+        """The summed time of the timed calls (waits for their events)."""
+        total = 0.0
+        for span in self._spans:
+            if isinstance(span, float):
+                total += span
+            else:
+                span[1].synchronize()
+                total += span[0].elapsed_time(span[1]) / 1e3
+        return total
+
+
+_active_timer: Optional[LaunchTimer] = None
+
+
+def _timed(fn: Callable) -> Callable:
+    """A wrapper whose calls an active ``LaunchTimer`` times (by the device
+    of its first tensor argument)."""
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        timer = _active_timer
+        if timer is None or timer._depth:
+            return fn(*args, **kwargs)
+        device = next(a.device for a in args if isinstance(a, torch.Tensor))
+        return timer._call(fn, device, args, kwargs)
+
+    return call
+
+
+def median_launch_seconds(run: Callable[[], object], reps: int = 3,
+                          device: Optional[torch.device] = None) -> float:
+    """One untimed warm-up of ``run()``, then the median over ``reps``
+    timed runs of: the summed ``LaunchTimer`` time of the kernels it
+    launches; or, given a ``device``, the time of the whole ``run()`` there
+    (CUDA events on its current stream around it; the host clock on the
+    CPU), kernels and the host's gaps between its launches alike."""
+    run()
+    times = []
+    for _ in range(reps):
+        with LaunchTimer() as timer:
+            if device is None:
+                run()
+            else:
+                timer._call(run, torch.device(device), (), {})
+        times.append(timer.seconds())
+    return statistics.median(times)
 
 
 def _row_chunk(n_cols: int) -> int:
@@ -819,6 +921,7 @@ def _int8_grid(name: str, q: torch.Tensor, n_valid: int, *args: int) -> int:
     return wgmma_grid(q.shape[0], n_valid, _wgmma_slots(q, name, *args))
 
 
+@_timed
 def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
             scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
             q_sq: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -875,6 +978,7 @@ def row_max(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
     return out
 
 
+@_timed
 def count_above(
     q: torch.Tensor, refs: torch.Tensor, tau: float, n_valid: int,
     scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
@@ -942,6 +1046,7 @@ def count_above(
     return out
 
 
+@_timed
 def pool_writer(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int,
     scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
@@ -1008,6 +1113,7 @@ def pool_writer(
     return vals, ids
 
 
+@_timed
 def scores(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q·refs[j]ᵀ (× scale[j] for int8 codes) for j < n_valid, [M,
@@ -1053,6 +1159,7 @@ def scores(q: torch.Tensor, refs: torch.Tensor, n_valid: int,
     return out
 
 
+@_timed
 def scores_above(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int, floor: torch.Tensor,
     capacity: Optional[int] = None, scale: Optional[torch.Tensor] = None,
@@ -1125,6 +1232,7 @@ def scores_above(
         cap = total
 
 
+@_timed
 def fused_topk(
     q: torch.Tensor, refs: torch.Tensor, n_valid: int, kappa: int,
     scale: Optional[torch.Tensor] = None, ref_sq: Optional[torch.Tensor] = None,
@@ -1315,6 +1423,7 @@ def chamfer_bf16_item(i, nq: int, nr: int):
     return b, local // r_tiles * CHAMFER_QT, local % r_tiles * CHAMFER_RT
 
 
+@_timed
 def chamfer_fine_sims(
     qf: torch.Tensor, rf: torch.Tensor, symmetric: bool = True
 ) -> torch.Tensor:

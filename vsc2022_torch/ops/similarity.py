@@ -140,14 +140,20 @@ INT8_TENSOR_CORE_SLACK = 3 * TENSOR_CORE_SLACK
 ABOVE_HEADROOM = 64
 ABOVE_ENTRY_BYTES = 12
 ABOVE_BUDGET_ENTRIES = 4 * PLAIN_CHUNK_ELEMENTS // ABOVE_ENTRY_BYTES
-# The fewest query rows the f32 re-search hands cuBLAS at once (zero rows
-# pad a shorter chunk). cuBLAS's f32 product sums each score in k order,
-# the kernels' fmaf chain, at the searchers' shapes (on an H100 the
-# row_max kernel equals torch.matmul's row max on 9,000 rows at D = 512
-# and 513), but a chunk of a few rows takes another algorithm: an 8-row
-# chunk scored the same pairs a few ulps apart, and the two collections,
-# which re-search different rows, returned different scores.
+# The query rows of every cuBLAS call of the f32 re-search (zero rows pad
+# the last group). cuBLAS's f32 product sums each score in k order, the
+# kernels' fmaf chain, at the searchers' shapes (on an H100 the row_max
+# kernel equals torch.matmul's row max on 9,000 rows at D = 512 and 513),
+# but a call of a few rows takes another algorithm: an 8-row chunk scored
+# the same pairs a few ulps apart, and the two collections, which
+# re-search different rows, returned different scores.
 F32_RESEARCH_MIN_ROWS = 128
+# The corpus rows of every cuBLAS call of the f32 re-search (fewer where
+# the corpus is smaller). At phase 4's shape on an H100 (PERF.md) 65,536
+# was the fastest of 8,192 (too few tiles a call for the card's SMs),
+# 65,536, 262,144 and 1,048,576 (a wider block pads more corpus rows into
+# the copy of a corpus's last, partial block).
+F32_RESEARCH_COLS = 1 << 16
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -166,14 +172,38 @@ METRICS = ("IP", "L2")
 PRECISIONS = ("highest", "default")
 
 
-def _f32_scores(rows: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
-    """rows · refsᵀ by ``torch.matmul``, rows padded with zero rows to at
-    least F32_RESEARCH_MIN_ROWS, so that cuBLAS scores them as the f32
-    kernels do."""
-    m = rows.shape[0]
-    if m < F32_RESEARCH_MIN_ROWS:
-        rows = torch.cat([rows, rows.new_zeros((F32_RESEARCH_MIN_ROWS - m, rows.shape[1]))])
-    return torch.matmul(rows, refs.T)[:m]
+def _f32_scores(rows: torch.Tensor, refs: torch.Tensor, n_refs: int,
+                base: int = 0) -> torch.Tensor:
+    """rows · refsᵀ in f32, [m, len(refs)], for ``refs`` the corpus rows
+    [base, base + len(refs)) of a corpus of ``n_refs`` rows (bf16 rows
+    widened). Every product is one ``torch.matmul`` of the same shape:
+    F32_RESEARCH_MIN_ROWS query rows by ``_research_cols(n_refs)`` corpus rows,
+    the corpus cut into blocks at multiples of that width from its first
+    row, zero rows padding a block that ``refs`` covers in part and the
+    last group of query rows (whose padded scores are not kept: the result
+    holds ``m`` rows). cuBLAS picks its algorithm by the shape of
+    the call, so a score depends only on its query row, its corpus row and
+    the corpus size: a searcher that holds its corpus as one tensor and
+    one that holds it as shards score every pair alike, bit for bit,
+    wherever the shards begin."""
+    m, n, d = rows.shape[0], refs.shape[0], rows.shape[1]
+    g, w = F32_RESEARCH_MIN_ROWS, _research_cols(n_refs)
+    rows = torch.cat([rows.float(), rows.new_zeros((_ceil_to(max(m, 1), g) - m, d),
+                                                   dtype=torch.float32)])
+    first, end = base // w, -(-(base + n) // w)
+    out = rows.new_empty((m, (end - first) * w))
+    for b in range(first, end):
+        lo, hi = b * w - base, (b + 1) * w - base  # the block's rows of ``refs``
+        if lo >= 0 and hi <= n:
+            block = refs[lo:hi].float()
+        else:
+            block = refs.new_zeros((w, refs.shape[1]), dtype=torch.float32)
+            block[max(lo, 0) - lo : min(hi, n) - lo] = refs[max(lo, 0) : min(hi, n)]
+        cols = slice((b - first) * w, (b - first + 1) * w)
+        for r in range(0, m, g):
+            out[r : r + g, cols] = torch.matmul(rows[r : r + g], block.T)[: m - r]
+    skip = base - first * w
+    return out[:, skip : skip + n]
 
 
 def _row_sq(rows: torch.Tensor) -> torch.Tensor:
@@ -216,17 +246,17 @@ def quantize_rows_int8(rows) -> Tuple[np.ndarray, np.ndarray]:
     return codes.numpy(), scale.numpy()
 
 
-def _widened_scores(q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+def _widened_scores(q: torch.Tensor, codes: torch.Tensor, scale: Optional[torch.Tensor],
                     n_valid: int, dim: int) -> torch.Tensor:
-    """q·rᵀ over the first ``n_valid`` rows of int8 codes in f32: the codes
-    widened a block of rows at a time (no f32 copy of the corpus),
-    ``torch.matmul``, then the scales."""
+    """q·rᵀ over the first ``n_valid`` rows of a bf16 corpus or of int8
+    codes in f32: the rows widened a block at a time (no f32 copy of the
+    corpus), ``torch.matmul``, then the codes' scales."""
     step = max(1, PLAIN_CHUNK_ELEMENTS // max(dim, 1))
-    return torch.cat([
-        torch.matmul(q, codes[c : min(c + step, n_valid), :dim].float().T)
-        * scale[c : min(c + step, n_valid)]
-        for c in range(0, n_valid, step)
-    ], 1)
+    parts = []
+    for c in range(0, n_valid, step):
+        s = torch.matmul(q, codes[c : min(c + step, n_valid), :dim].float().T)
+        parts.append(s if scale is None else s * scale[c : min(c + step, n_valid)])
+    return torch.cat(parts, 1)
 
 
 def _max_row_norm(rows: torch.Tensor, scale: Optional[torch.Tensor] = None) -> float:
@@ -245,6 +275,12 @@ def _max_row_norm(rows: torch.Tensor, scale: Optional[torch.Tensor] = None) -> f
 
 def _col_block(n_rows: int) -> int:
     return min(COL_BLOCK, _ceil_to(max(n_rows, 1), SEG_LANES))
+
+
+def _research_cols(n_rows: int) -> int:
+    """The corpus rows of one cuBLAS call of the f32 re-search of a corpus
+    of ``n_rows`` rows (``_f32_scores``)."""
+    return min(F32_RESEARCH_COLS, _ceil_to(max(n_rows, 1), SEG_LANES))
 
 
 def _padded_rows(nq: int) -> int:
@@ -518,9 +554,17 @@ class SimilaritySearcher:
 
     def _row_chunk(self) -> int:
         """Query rows per chunk of dense scores over the corpus (the f32
-        re-search, ``row_topk``): the PLAIN_CHUNK_ELEMENTS budget. Each
-        row's scores are independent of its chunk."""
-        return max(1, PLAIN_CHUNK_ELEMENTS // max(self.n_refs, 1))
+        re-search, ``row_topk``): the PLAIN_CHUNK_ELEMENTS budget's rows,
+        at least one. Over an f32 corpus (``_f32_scores``, whose cuBLAS
+        calls take F32_RESEARCH_MIN_ROWS query rows each) rounded down to
+        whole groups of those rows where the budget holds one, so that no
+        group but a chunk's last is padded: 134 rows, the budget at
+        1,000,020 corpus rows, padded to two groups, cost half again the f32
+        re-search's time. Each row's scores are independent of its chunk."""
+        rows = max(1, PLAIN_CHUNK_ELEMENTS // max(self.n_refs, 1))
+        if self._tensor_cores or self._int8 or rows < F32_RESEARCH_MIN_ROWS:
+            return rows  # widened blocks take any rows; under a group, the budget's
+        return rows - rows % F32_RESEARCH_MIN_ROWS
 
     # ---- per-row searches ------------------------------------------------
 
@@ -632,8 +676,7 @@ class SimilaritySearcher:
         matrix (chunks of rows only where its capacity, ``count`` plus
         ABOVE_HEADROOM a row, would pass ABOVE_BUDGET_ENTRIES: τ = −inf
         keeps every entry). An f32 corpus scores chunks of rows densely and
-        keeps the same entries (chunks of at least F32_RESEARCH_MIN_ROWS
-        rows for cuBLAS).
+        keeps the same entries (``_f32_scores``: cuBLAS calls of one shape).
 
         The margin: τ and the counts come from the kernels' scores, and a
         product that sums differently may round the same (q, r) product
@@ -851,18 +894,20 @@ class SimilaritySearcher:
                      q_sq: Optional[torch.Tensor]):
         """The f32 re-search of a chunk of staged query rows: (scores, rows,
         ref ids) at or above each row's floor, from ``_f32_scores``."""
-        s = self._goodness(_f32_scores(rows, self._refs[: self.n_refs]), q_sq)
+        s = self._goodness(_f32_scores(rows, self._refs[: self.n_refs], self.n_refs),
+                           q_sq)
         rr, cc = torch.nonzero(s >= floor[:, None], as_tuple=True)
         return s[rr, cc], rr, cc
 
     def _dense_scores(self, rows: torch.Tensor, q_sq: Optional[torch.Tensor]):
         """``row_topk``'s scores of a chunk of f32 query rows against every
-        valid row, [m, n_refs] (``torch.matmul``; int8 codes widened
-        a block at a time)."""
-        if self._int8:
-            s = _widened_scores(rows, self._refs, self._scale, self.n_refs, self.dim)
+        valid row, [m, n_refs] (``_f32_scores``; bf16 rows and int8 codes
+        widened a block at a time)."""
+        if self._tensor_cores or self._int8:
+            s = _widened_scores(rows, self._refs, self._scale if self._int8 else None,
+                                self.n_refs, self.dim)
         else:
-            s = torch.matmul(rows, self._refs[: self.n_refs].float().T)
+            s = _f32_scores(rows, self._refs[: self.n_refs], self.n_refs)
         return self._goodness(s, q_sq)
 
     @staticmethod

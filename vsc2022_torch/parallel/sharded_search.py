@@ -22,12 +22,11 @@ one-device pool (plus −inf segments at the tail), each shard's top-κ
 holds its part of the global top-κ, and every score is computed whole on
 one shard by the kernel that computes it on one device. So a sharded
 search returns the single-device searcher's pairs, scores and tie order.
-One exception: the f32 re-search (``_dense_above``, ``_dense_scores``) is
-a ``torch.matmul`` per allocation, and cuBLAS picks its algorithm by the
-product's shape, so where the shards lie in several allocations (one a
-card) a re-searched f32 score may lie one ulp off the single-device
-call's. On one card the shards are one allocation and the call is the
-single-device one.
+The f32 re-search (``_dense_above``, ``_dense_scores``) runs per
+allocation, on the single-device searcher's fixed-shape cuBLAS calls
+(``_f32_scores``: its column blocks begin at the same corpus rows, a block
+that straddles a shard boundary padded with zero rows), so its scores are
+the single-device ones too, in one allocation or one a card.
 
 Geometry, as JAX's: ``per_dev`` = N rounded up to the mesh size, over
 the mesh size; ``col_block`` = min(``col_block``, ``per_dev`` rounded up
@@ -363,14 +362,9 @@ class ShardedSimilaritySearcher(SimilaritySearcher):
 
     def _runs(self) -> List[Tuple[torch.device, int, int, dict]]:
         """The valid rows of each of this process's allocations, in mesh
-        order, for the dense
-        f32 products (cuBLAS): (device, base, valid rows, {field: those
-        rows}). Padding lies at the tail, so an allocation's valid rows are
-        its first. On one card there is one allocation, and its product is
-        the single-device searcher's call on the same operands, bit for
-        bit. cuBLAS picks its algorithm by the product's shape, so with one
-        allocation a card an f32 re-searched score may lie one ulp off the
-        single-device call's."""
+        order, for the dense f32 products (``_f32_scores``): (device, base,
+        valid rows, {field: those rows}). Padding lies at the tail, so an
+        allocation's valid rows are its first."""
         runs = []
         for shards, whole in self._groups:
             n = sum(self._n_valid(s) for s in shards)
@@ -452,8 +446,8 @@ class ShardedSimilaritySearcher(SimilaritySearcher):
         kw = {} if q_sq is None else {"q_sq": q_sq}
 
         def above(base, n, run, r, fl, kw):
-            sc = self._goodness(_f32_scores(r, run["refs"]), kw.get("q_sq"),
-                                run.get("ref_sq"))
+            sc = self._goodness(_f32_scores(r, run["refs"], self.n_refs, base),
+                                kw.get("q_sq"), run.get("ref_sq"))
             rr, cc = torch.nonzero(sc >= fl[:, None], as_tuple=True)
             return sc[rr, cc], rr, cc + base
 
@@ -463,10 +457,10 @@ class ShardedSimilaritySearcher(SimilaritySearcher):
         kw = {} if q_sq is None else {"q_sq": q_sq}
 
         def scores(base, n, run, r, kw):
-            if self._int8:
-                sc = _widened_scores(r, run["refs"], run["scale"], n, self.dim)
+            if self._tensor_cores or self._int8:
+                sc = _widened_scores(r, run["refs"], run.get("scale"), n, self.dim)
             else:
-                sc = torch.matmul(r, run["refs"].float().T)
+                sc = _f32_scores(r, run["refs"], self.n_refs, base)
             return self._goodness(sc, kw.get("q_sq"), run.get("ref_sq"))
 
         return collectives.all_gather(self.mesh, self._per_run(scores, rows, kw), 1,

@@ -383,6 +383,20 @@ class ServeClient:
         return ServeStats(int(parts[1]), int(parts[2]), parts[3],
                           bool(int(parts[4])), bool(int(parts[5])))
 
+    def probe(self, query_features: str) -> Tuple[float, float]:
+        """Device seconds of a warm request at this query file's shapes on
+        the server (``serve.py`` ``probe``): (search_s, tn_s), the kernels
+        one warm score-normalized search launches, each between CUDA
+        events, summed (median of 3; the hand-written kernels only, not
+        the search's other work on the host or the card), and the TN
+        alignment batches of the most recent request at their geometries.
+        Needs a score-normalized, unsharded, non-IVF index (else
+        ``ServeError``)."""
+        parts = self._rpc(f"probe\t{os.path.abspath(query_features)}")
+        if parts[0] != "probe":
+            raise ServeError(f"unexpected probe reply: {parts!r}")
+        return float(parts[1]), float(parts[2])
+
     def launches(self, reset: bool = False) -> dict:
         """The server process's kernel launch counts ({kernel: count});
         ``reset`` zeroes them first."""

@@ -43,6 +43,7 @@ Wire protocol (line-oriented, the same over stdin/stdout or, with
     video in:  searchv\\t<videos_dir>[\\t<candidates_csv>[\\t<matches_csv>]]\\n
     stats:     stats\\n
     launches:  launches[\\treset]\\n   (the port's kernel launch counts, zeroed first with reset)
+    probe:     probe\\t<query_npz>\\n   (device seconds of a warm request: ``_probe``)
     response:  ok\\t<candidates_csv>\\t<n_pairs>\\t<seconds>\\n
          or:   ok\\t<candidates_csv>\\t<n_pairs>\\t<matches_csv>\\t<n_matches>\\t<seconds>\\n
          or:   ok\\tadded\\t<n_new_videos>\\t<seconds>\\n
@@ -51,6 +52,7 @@ Wire protocol (line-oriented, the same over stdin/stdout or, with
          or:   ok\\textracted\\t<n_videos>\\t<n_frames>\\t<output_npz>\\t<seconds>\\n
          or:   ok\\tstats\\t<n_videos>\\t<n_frames>\\t<dtype>\\t<sharded>\\t<matches>\\n
          or:   ok\\tlaunches\\t<json {kernel: count}>\\n
+         or:   ok\\tprobe\\t<search_s>\\t<tn_s>\\n
     error:     error\\t<message>\\n        (the server keeps serving)
     startup:   ready\\t<n_ref_videos>\\t<stage_seconds>\\n
 
@@ -113,8 +115,6 @@ the followers; a dead follower turns the next device request into an
 error response. ``--dist_backend``: ``nccl`` between ranks on separate
 cards (the default on cards), ``gloo`` on the CPU (its default) or where
 ranks share a card (NCCL refuses two ranks on one card).
-
-Not ported yet (answers ``error``): the ``probe`` command.
 
     python -m vsc2022_torch.retrieval.serve --ref_features refs.npz \\
         --score_norm_features noise.npz --matches [--listen 127.0.0.1:0]
@@ -757,6 +757,69 @@ def _respond_search(index, aggregation, localizer, queries, queries_fine,
     )
 
 
+def _probe(index, localizer, parts, args) -> str:
+    """``probe\\t<query_npz>``: device seconds of a warm request at this
+    query file's shapes, ``ok\\tprobe\\t<search_s>\\t<tn_s>`` (the JAX
+    server's reply; it differences wall times inside one executable, where
+    the port times the device itself).
+
+    ``search_s``: the kernels that one warm score-normalized search of
+    these queries with the request's k (``--retrieval_per_query`` times the
+    query videos) launches: the noise-NN bias's ``row_max``, the
+    collection's ``fused_topk`` or ``pool_writer``, ``count_above`` and, over
+    a bf16 or int8 corpus, the re-search's ``scores_above``. Each launch
+    lies between CUDA events on its stream (``kernels.LaunchTimer``); their
+    sum, median of 3 searches after a warm-up. Nothing else the search
+    runs is in it: neither the host's work (τ, the merges, the copies to
+    the host) nor the device work outside the hand-written kernels (the
+    f32 re-search's cuBLAS products, ``_goodness``, ``nonzero``, the sorts
+    and merges on the card). These searches count as launches.
+
+    ``tn_s``: the TN alignment batches of the most recent request (the
+    localizer's ``last_align_geoms``), each run on synthetic uniform
+    similarities of its geometry between two CUDA events, median of 3
+    after a warm-up, summed over the batches; the port's DP is a loop of
+    launches, so the gaps the host leaves between them are in it. 0.0
+    without ``--matches`` or before a request.
+
+    On the CPU (no card) both are host-clock times around synchronous
+    runs. Errors, as the JAX server's: no query npz; an index that is not
+    score-normalized; a sharded or IVF corpus ("unsharded corpora only")."""
+    import torch
+
+    from vsc2022_torch.ops import kernels
+    from vsc2022_torch.ops.similarity import SimilaritySearcher
+    from vsc2022_torch.ops.tn_align import tn_align_packed
+    from vsc2022_torch.retrieval.sn_search import ScoreNormalizedSearcher
+
+    if len(parts) < 2 or not parts[1]:
+        raise ValueError("probe needs a query npz: probe\\t<query_npz>")
+    queries = load_features(parts[1], Dataset.QUERIES)
+    sn = index._get_searcher()
+    if not isinstance(sn, ScoreNormalizedSearcher):
+        raise ValueError("probe needs a score-normalized index (--score_norm_features)")
+    if type(sn.searcher) is not SimilaritySearcher:
+        raise ValueError("compute probe supports unsharded corpora only")
+    qmat = index._prep_query_features(np.concatenate([q.feature for q in queries]))
+    k = args.retrieval_per_query * len(queries)
+    kept = sn.last_q_sn  # the request's own queries, which its localizer reads
+    try:
+        search_s = kernels.median_launch_seconds(lambda: sn.global_topk(qmat, k))
+    finally:
+        sn.last_q_sn = kept
+    tn_s = 0.0
+    if localizer is not None:
+        dev = localizer.device
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for b, nq, nr in localizer.last_align_geoms:
+            sims = torch.rand((b, nq, nr), generator=gen, device=dev)
+            q_len = torch.full((b,), nq, dtype=torch.int32, device=dev)
+            r_len = torch.full((b,), nr, dtype=torch.int32, device=dev)
+            tn_s += kernels.median_launch_seconds(
+                lambda: tn_align_packed(sims, q_len, r_len, localizer.params), device=dev)
+    return f"ok\tprobe\t{search_s:.6f}\t{tn_s:.6f}"
+
+
 def serve_request(index, aggregation, localizer, line: str, args, payloads=None,
                   extractor=None, leader=True):
     """One request's reply. ``leader`` False: a pod's follower, which runs
@@ -780,7 +843,7 @@ def serve_request(index, aggregation, localizer, line: str, args, payloads=None,
         return _search_videos(index, aggregation, localizer, extractor, parts, args,
                               leader)
     if parts[0] == "probe":
-        raise NotImplementedError("probe is not ported yet")
+        return _probe(index, localizer, parts, args)
     if parts[0] == "launches":
         from vsc2022_torch.ops import kernels
 
